@@ -1,0 +1,491 @@
+"""Chip smoke test of the PyTorch port on one NVIDIA H100.
+
+Run from the repository root on a machine with a CUDA card::
+
+    python3 chip_smoke.py
+
+Phases (each one failing stops the script with a nonzero exit):
+
+1. device: the card's name and power limit; TF32 switched off.
+2. build: compile ``src/repro_torch/csrc/*.cu`` (nvcc, sm_90a) and print the
+   build time and the ptxas register/spill report.
+3. kernels: every kernel (K3 quant_matmul, K4 flash_attention, K5
+   flash_decode) against its plain PyTorch version on the card, at the
+   serving path's shapes, with times beside the plain version, one library
+   call where one computes the same function, and the card's bound.
+4. serve: ``Session.serve`` of full-width, full-depth yi-6b with int8 weights,
+   paged f32 KV and continuous batching; the launch counters are zeroed just
+   before and read just after, and every kernel must have launched.
+5. profile: where a full-depth decode step's time goes (host clock per
+   step, device time by kernel from ``torch.profiler``).
+6. consistency: a 2-layer full-width yi-6b runs one prefill and one decode
+   step with the kernels and again with the plain versions on the card.
+
+The last two lines are the kernel table and ``{"ok": true, "device": ...}``.
+``--phases`` runs a subset (for iterating on one kernel).
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+import torch  # noqa: E402
+
+from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import quant_matmul as qm  # noqa: E402
+
+HBM_BYTES_S = 3.35e12           # H100 SXM device memory rate
+PEAK_OPS_S = {torch.bfloat16: 989e12, torch.float32: 67e12}   # dense bf16 / FP32
+
+KERNELS = {
+    "quant_matmul": dict(route="cuda", source="src/repro_torch/csrc/quant_matmul.cu",
+                         replaces="src/repro/kernels/quant_matmul.py:83"),
+    "flash_attention": dict(route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
+                            replaces="src/repro/kernels/flash_attention.py:106"),
+    "flash_decode": dict(route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
+                         replaces="src/repro/kernels/flash_attention.py:237"),
+}
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def bound_ms(nbytes: float, ops_: float, dtype) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops_ / PEAK_OPS_S[dtype]
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_ms(fn, arg_sets, iters: int = 10, warmup: int = 2, replays: int = 3) -> float:
+    """Mean device time of ``fn`` per call, rotating over ``arg_sets``.
+
+    The ``iters`` calls are captured once in a CUDA graph and replayed, so
+    the host's per-call overhead (argument checks, the ctypes call) cannot
+    leave the card idle between launches and inflate a short kernel's time.
+    """
+    for i in range(warmup):
+        fn(*arg_sets[i % len(arg_sets)])
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(*arg_sets[i % len(arg_sets)])
+    graph.replay()                          # warm: first replay uploads the graph
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (iters * replays)
+
+
+def max_errs(got, want) -> tuple[float, float]:
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    return float(diff.max()), float((diff / want.abs().clamp_min(1e-6)).max())
+
+
+# --------------------------------------------------------------------- phases
+def phase_device() -> dict:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this "
+                         "script needs an NVIDIA card")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kind = torch.cuda.get_device_name(0)
+    print(f"device: {kind}; nvidia-smi: {smi}")
+    print(f"allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
+          f"cudnn={torch.backends.cudnn.allow_tf32}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    return {"kind": kind, "smi": smi}
+
+
+def phase_build() -> None:
+    t0 = time.time()
+    _build.lib()
+    info = _build.build_info()
+    print(f"build: {time.time() - t0:.2f}s (nvcc {info.get('seconds', 0.0):.2f}s)")
+    for line in info.get("log", "").splitlines():
+        if "registers" in line or "spill" in line or line.startswith("=="):
+            print("  " + line.strip())
+
+
+def _check(name, got, want, rtol, atol):
+    try:
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+    except AssertionError as e:
+        raise AssertionError(f"{name}: kernel disagrees with its plain version\n{e}") from None
+
+
+def check_quant_matmul(table: dict) -> None:
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    shapes = [(4096, 4096), (4096, 512), (4096, 11008), (11008, 4096), (4096, 64000),
+              (1000, 300)]
+    for code_dtype, lim in ((torch.int8, 127), (torch.int16, 32767)):
+        for K, N in shapes:
+            codes = torch.randint(-lim, lim + 1, (K, N), generator=gen, device="cuda",
+                                  dtype=torch.int32).to(code_dtype)
+            scale = torch.tensor(2.0 / math.sqrt(K) / lim, device="cuda")
+            # enough distinct weight copies that each timed launch finds its
+            # weight outside the 50 MB L2, as a decode step does
+            n_copies = max(1, min(16, math.ceil(120e6 / codes.nbytes)))
+            copies = [codes] + [codes.clone() for _ in range(n_copies - 1)]
+            for x_dtype in (torch.float32, torch.bfloat16):
+                w_lib = (codes.float() * scale).to(x_dtype)
+                for M in (4, 37, 512):
+                    x = torch.randn((M, K), generator=gen, device="cuda").to(x_dtype)
+                    got = qm.quant_matmul_cuda(x, codes, scale)
+                    want = qm.quant_matmul_plain(x, codes, scale)
+                    torch.cuda.synchronize()
+                    rtol, atol = (1e-4, 1e-3) if x_dtype == torch.float32 else (2e-2, 1e-2)
+                    case = f"quant_matmul M={M} K={K} N={N} x={x_dtype} codes={code_dtype}"
+                    _check(case, got, want, rtol, atol)
+                    abs_e, rel_e = max_errs(got, want)
+                    sets = [(x, c, scale) for c in copies]
+                    k_ms = time_ms(qm.quant_matmul_cuda, sets)
+                    p_ms = time_ms(qm.quant_matmul_plain, sets[:1], iters=3, warmup=1)
+                    l_ms = time_ms(torch.matmul, [(x, w_lib)])
+                    nbytes = x.nbytes + codes.nbytes + 4 + M * N * 4
+                    b_ms, b_by = bound_ms(nbytes, 2.0 * M * K * N, x_dtype)
+                    row = dict(kernel="quant_matmul", M=M, K=K, N=N, x=str(x_dtype),
+                               codes=str(code_dtype), max_abs_err=abs_e, max_rel_err=rel_e,
+                               kernel_ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                               bound_ms=b_ms, bound_by=b_by)
+                    emit(row)
+                    if (M, K, N, x_dtype, code_dtype) == (4, 4096, 11008, torch.bfloat16,
+                                                          torch.int8):
+                        table["quant_matmul"] = row
+            del copies, codes
+
+
+def check_flash_attention(table: dict) -> None:
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    BH = 128
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = 2e-4 if dtype == torch.float32 else 3e-2
+        for D in (16, 128):
+            for S in (100, 128, 513):
+                q, k, v = (torch.randn((BH, S, D), generator=gen, device="cuda").to(dtype)
+                           for _ in range(3))
+                for causal in (False, True):
+                    got = fa.flash_attention_cuda(q, k, v, causal)
+                    want = fa.flash_attention_plain(q, k, v, causal)
+                    torch.cuda.synchronize()
+                    case = f"flash_attention BH={BH} S={S} D={D} {dtype} causal={causal}"
+                    _check(case, got, want, tol, tol)
+                    abs_e, rel_e = max_errs(got, want)
+                    k_ms = time_ms(fa.flash_attention_cuda, [(q, k, v, causal)])
+                    p_ms = time_ms(fa.flash_attention_plain, [(q, k, v, causal)], iters=3)
+                    l_ms = time_ms(lambda a, b, c, cz: torch.nn.functional
+                                   .scaled_dot_product_attention(a, b, c, is_causal=cz),
+                                   [(q, k, v, causal)])
+                    pairs = S * (S + 1) / 2 if causal else S * S
+                    b_ms, b_by = bound_ms(4 * q.nbytes, 4.0 * BH * D * pairs, dtype)
+                    row = dict(kernel="flash_attention", BH=BH, S=S, D=D, dtype=str(dtype),
+                               causal=causal, max_abs_err=abs_e, max_rel_err=rel_e,
+                               kernel_ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                               bound_ms=b_ms, bound_by=b_by)
+                    emit(row)
+                    if (S, D, dtype, causal) == (128, 128, torch.bfloat16, True):
+                        table["flash_attention"] = row
+
+
+def decode_case(q_dtype, pool_dtype, gen):
+    """yi-6b decode shape (B=4, KV=4, G=8, hd=128, page 16, s_max 256) with
+    -1 holes, an empty slot and lengths off the page grid."""
+    B, KV, G, hd, page, n_pmax, n_pool = 4, 4, 8, 128, 16, 16, 40
+    q = torch.randn((B, KV, G, hd), generator=gen, device="cuda").to(q_dtype)
+    kp = torch.randn((n_pool, page, KV, hd), generator=gen, device="cuda").to(pool_dtype)
+    vp = torch.randn((n_pool, page, KV, hd), generator=gen, device="cuda").to(pool_dtype)
+    perm = torch.randperm(n_pool, generator=gen, device="cuda").to(torch.int32)
+    pt = torch.full((B, n_pmax), -1, dtype=torch.int32, device="cuda")
+    pt[0, :16] = perm[:16]          # full slot, length 253
+    pt[1, :4] = perm[16:20]
+    pt[1, 1] = -1                   # hole inside the length
+    pt[2, :7] = perm[20:27]         # length 100: 6 pages and 4 tokens
+    pt[3, :2] = perm[27:29]         # owns pages but holds no token
+    lengths = torch.tensor([253, 60, 100, 0], dtype=torch.int32, device="cuda")
+    return q, kp, vp, pt, lengths
+
+
+def check_flash_decode(table: dict) -> None:
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for q_dtype in (torch.float32, torch.bfloat16):
+        for pool_dtype in (torch.float32, torch.bfloat16):
+            args = decode_case(q_dtype, pool_dtype, gen)
+            acc, m, l = fa.flash_decode_cuda(*args)
+            racc, rm, rl = fa.flash_decode_plain(*args)
+            torch.cuda.synchronize()
+            case = f"flash_decode q={q_dtype} pool={pool_dtype}"
+            y, ry = acc / l.clamp_min(1e-30), racc / rl.clamp_min(1e-30)
+            _check(case + " acc/l", y, ry, 1e-4, 1e-4)
+            _check(case + " m", m, rm, 1e-4, 1e-4)
+            _check(case + " l", l, rl, 1e-4, 1e-4)
+            if not (bool((m[3] == -1e30).all()) and bool((l[3] == 0).all())
+                    and bool((acc[3] == 0).all())):
+                raise AssertionError(f"{case}: the empty slot must give m=-1e30, l=0, acc=0")
+            abs_e, rel_e = max_errs(y, ry)
+            k_ms = time_ms(fa.flash_decode_cuda, [args], iters=50)
+            p_ms = time_ms(fa.flash_decode_plain, [args], iters=10)
+            q, kp, _vp, pt, lengths = args
+            page, n_pmax = kp.shape[1], pt.shape[1]
+            pages = [(j, int(pt[b, j])) for b in range(pt.shape[0]) for j in range(n_pmax)
+                     if int(pt[b, j]) >= 0 and j * page < int(lengths[b])]
+            row_bytes = page * kp.shape[2] * kp.shape[3] * kp.element_size()
+            nbytes = (q.nbytes + 2 * len(pages) * row_bytes + pt.nbytes + lengths.nbytes
+                      + 4 * (q.numel() + 2 * q.numel() // q.shape[-1]))
+            tokens = sum(min(page, int(lengths[b]) - j * page)
+                         for b in range(pt.shape[0]) for j in range(n_pmax)
+                         if int(pt[b, j]) >= 0 and j * page < int(lengths[b]))
+            ops_ = 4.0 * q.shape[1] * q.shape[2] * q.shape[3] * tokens
+            b_ms, b_by = bound_ms(nbytes, ops_, torch.float32)
+            row = dict(kernel="flash_decode", B=q.shape[0], KV=q.shape[1], G=q.shape[2],
+                       hd=q.shape[3], page=page, n_pmax=n_pmax, q=str(q_dtype),
+                       pool=str(pool_dtype), blocks=q.shape[0] * q.shape[1],
+                       sms=torch.cuda.get_device_properties(0).multi_processor_count,
+                       max_abs_err=abs_e, max_rel_err=rel_e, kernel_ms=k_ms, plain_ms=p_ms,
+                       library_ms=None, bound_ms=b_ms, bound_by=b_by)
+            emit(row)
+            if (q_dtype, pool_dtype) == (torch.bfloat16, torch.float32):
+                table["flash_decode"] = row
+
+
+def phase_kernels(table: dict) -> None:
+    check_quant_matmul(table)
+    check_flash_attention(table)
+    check_flash_decode(table)
+    print("kernels: all three agree with their plain versions")
+
+
+def phase_serve(dev: dict) -> dict:
+    from repro_torch.api import PrecisionPolicy, RunSpec, Session
+
+    spec = RunSpec("yi-6b", workload="serve", smoke=False, seed=0, batch=4, seq=256,
+                   precision=PrecisionPolicy.lazy_int8(7),
+                   options={"attn_impl": "flash", "kv_layout": "paged", "prompt_len": 128,
+                            "vary_prompt": True, "requests": 8, "max_new": 32,
+                            "steps": 64, "quiet": True})
+    sess = Session(spec, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.time()
+    stats = sess.serve()
+    wall = time.time() - t0
+    launches = dict(ops.LAUNCHES)
+    vocab = sess.cfg.vocab_size
+    assert sess.cfg.n_layers == 32 and sess.cfg.d_model == 4096, sess.cfg
+    assert stats.admitted == 8, stats.admitted
+    assert stats.completed >= 4, stats.completed
+    assert stats.decoded_tokens > 0, stats.decoded_tokens
+    assert stats.sample and all(0 <= t < vocab for t in stats.sample), stats.sample
+    assert all(0 <= t < vocab for t in sess.last_tokens), "sampled id out of range"
+    for name, n in launches.items():
+        assert n > 0, f"main path never launched {name}: {launches}"
+    d = dict(vars(stats))
+    d["tok_s_card"] = f"{dev['kind']} ({dev['smi']})"
+    d["serve_wall_s"] = wall
+    d["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    d["launches"] = launches
+    emit({"serve": d})
+    del sess
+    torch.cuda.empty_cache()
+    return launches
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Route ops' kernel entry points to the plain versions (the
+    consistency phase only)."""
+    saved = (ops.quant_matmul, ops.flash_attention, ops.flash_paged_decode)
+
+    def qmm(x, codes, scale):
+        return qm.quant_matmul_plain(x, codes, scale)
+
+    def attn(q, k, v, causal=True):
+        return fa.flash_attention_plain(q, k, v, causal)
+
+    def dec(q, kp, vp, pt, ln):
+        return fa.flash_decode_plain(q, kp, vp, pt.to(torch.int32), ln.to(torch.int32))
+
+    ops.quant_matmul, ops.flash_attention, ops.flash_paged_decode = qmm, attn, dec
+    try:
+        yield
+    finally:
+        ops.quant_matmul, ops.flash_attention, ops.flash_paged_decode = saved
+
+
+def prefilled(cfg, policy, *, seed: int = 0, batch: int = 4, s_max: int = 256,
+              prompt_len: int = 128, page_size: int = 16, device: str = "cuda"):
+    """Packed random weights of ``cfg`` (drawn with ``seed`` on ``device``)
+    and paged caches after one flash prefill of ``batch`` random prompts.
+
+    Returns ``(decode, prefill_logits, first_token, caches)``, where
+    ``decode(token, caches) -> (logits, caches)`` runs one flash decode step.
+    """
+    from repro_torch.core.quantization import default_exempt
+    from repro_torch.dist.collectives import AxisCtx
+    from repro_torch.launch.paging import SlotPager, set_page_tables
+    from repro_torch.launch.steps import _compute_dtype, _greedy_pick, init_global_caches
+    from repro_torch.models.common import ParamCtx, pack_params_for_policy
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import decode_step, prefill
+
+    axes, model = AxisCtx(), build_model(cfg)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    qparams = pack_params_for_policy(model.init(gen, 1, device=device), policy,
+                                     exempt=default_exempt)
+    pager = SlotPager.build(batch, s_max, page_size, batch * s_max // page_size)
+    for slot in range(batch):
+        pager.admit(slot, s_max)
+    caches = init_global_caches(model, axes, s_max=s_max, batch_global=batch,
+                                dtype=policy.kv_cache_dtype(), device=device,
+                                page_size=page_size, pool_pages=pager.pool.n_pages)
+    caches = set_page_tables(caches, pager.table)
+    tokens = torch.randint(2, cfg.vocab_size, (batch, prompt_len), generator=gen,
+                           device=device)
+    plens = torch.tensor([prompt_len - 3 * s for s in range(batch)], dtype=torch.int32,
+                         device=device)
+    pc = ParamCtx.from_policy(axes, policy, compute_dtype=_compute_dtype(cfg))
+
+    @torch.no_grad()
+    def decode(token, caches):
+        return decode_step(cfg, pc, qparams, token, caches, attn_impl="flash")
+
+    with torch.no_grad():
+        lp, caches = prefill(cfg, pc, qparams, tokens, caches, attn_impl="flash",
+                             prompt_lens=plens)
+    return decode, lp, _greedy_pick(axes, 1, cfg.vocab_size, lp), caches
+
+
+def step_logits(cfg, policy, **kw) -> dict:
+    """Logits of one flash prefill and one flash decode step of ``cfg``."""
+    decode, lp, tok, caches = prefilled(cfg, policy, **kw)
+    ld, _ = decode(tok, caches)
+    return {"prefill_logits": lp, "decode_logits": ld}
+
+
+def phase_profile(dev: dict) -> None:
+    """Where a full-depth decode step's time goes: host clock per step, and
+    device time by kernel from ``torch.profiler`` over a few steps."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.api import PrecisionPolicy
+    from repro_torch.configs import get_config
+
+    cfg = get_config("yi-6b")
+    decode, _lp, tok, caches = prefilled(cfg, PrecisionPolicy.lazy_int8(7))
+
+    def step(tok, caches):
+        logits, caches = decode(tok, caches)
+        return logits[:, -1].float().argmax(-1, keepdim=True).to(torch.int32), caches
+
+    for _ in range(2):                      # warm up
+        tok, caches = step(tok, caches)
+    torch.cuda.synchronize()
+    n, t0 = 8, time.time()
+    for _ in range(n):
+        tok, caches = step(tok, caches)
+        tok.cpu()                           # the serve loop syncs every step too
+    step_ms = (time.time() - t0) * 1e3 / n
+    n_prof = 3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_prof):
+            tok, caches = step(tok, caches)
+            tok.cpu()
+    # device activity only (kernels, copies): an aten op's device time is its
+    # kernels' time again, so summing every event would count it twice
+    per_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            acc = per_name.setdefault(e.name, [0.0, 0])
+            acc[0] += e.time_range.elapsed_us() / 1e3
+            acc[1] += 1
+    rows = [(ms / n_prof, n // n_prof, name) for name, (ms, n) in per_name.items()]
+    rows.sort(reverse=True)
+    device_ms = sum(r[0] for r in rows)
+    emit({"profile": {
+        "card": f"{dev['kind']} ({dev['smi']})", "layers": cfg.n_layers, "batch": 4,
+        "step_ms_host_clock": step_ms,
+        "device_ms_per_step": device_ms if rows else "not measured",
+        "device_busy_share": device_ms / step_ms if rows else "not measured",
+        "top": [{"ms_per_step": ms, "launches_per_step": c, "name": k[:80]}
+                for ms, c, k in rows[:12]]}})
+
+
+def phase_consistency() -> None:
+    import dataclasses
+
+    from repro_torch.api import PrecisionPolicy
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("yi-6b"), n_layers=2)
+    runs = {}
+    for label, ctx in (("kernels", contextlib.nullcontext()), ("plain", plain_kernels())):
+        with ctx:
+            runs[label] = step_logits(cfg, PrecisionPolicy.lazy_int8(7))
+    agree = {}
+    for key in ("prefill_logits", "decode_logits"):
+        a, b = runs["kernels"][key].float(), runs["plain"][key].float()
+        assert a.shape == (4, 1, cfg.vocab_size) and torch.isfinite(a).all(), key
+        torch.testing.assert_close(a, b, rtol=5e-2, atol=5e-2)
+        agree[key] = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+    emit({"consistency": {"layers": 2, "d_model": cfg.d_model, "tol": 5e-2,
+                          "greedy_agreement": agree}})
+
+
+PHASES = ("device", "build", "kernels", "serve", "profile", "consistency")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help=f"comma-separated subset of {PHASES}")
+    phases = ap.parse_args(argv).phases.split(",")
+    dev = phase_device()
+    table: dict = {}
+    launches = {name: 0 for name in KERNELS}
+    if "build" in phases:
+        phase_build()
+    if "kernels" in phases:
+        phase_kernels(table)
+    if "serve" in phases:
+        launches = phase_serve(dev)
+    if "profile" in phases:
+        phase_profile(dev)
+    if "consistency" in phases:
+        phase_consistency()
+    rows = []
+    for name, meta in KERNELS.items():
+        r = table.get(name, {})
+        rows.append(dict(name=name, **meta, launches=launches.get(name, 0),
+                         max_abs_err=r.get("max_abs_err"), ms=r.get("kernel_ms"),
+                         plain_ms=r.get("plain_ms"), bound_ms=r.get("bound_ms"),
+                         bound_by=r.get("bound_by"), library_ms=r.get("library_ms")))
+    print(dev["smi"])
+    emit({"kernels": rows})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"],
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

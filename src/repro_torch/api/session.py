@@ -1,0 +1,472 @@
+"""Session: the front door of the port (the ``serve`` workload so far).
+
+``Session(RunSpec(...), device=None)`` owns the model, the axis context and
+the precision plumbing for one spec and runs on ``device`` — ``"cuda"``
+unless the caller asks for ``"cpu"``.  Asking for CUDA on a machine without
+it raises; nothing falls back to the CPU::
+
+    from repro_torch.api import PrecisionPolicy, RunSpec, Session
+
+    stats = Session(RunSpec("yi-6b", workload="serve", smoke=False,
+                            precision=PrecisionPolicy.lazy_int8())).serve()
+
+``serve`` options: ``steps``, ``s_max``, ``prompt_len``, ``attn_impl``,
+``requests``, ``max_new``, ``kv_layout``, ``page_size``, ``pool_pages``,
+``vary_prompt``, ``precision_program``, ``quiet``.  The other workloads
+(``train``, ``fl-orchestrate``, ``fl-sim``, ``dryrun``) are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.api.precision import PrecisionPolicy
+from repro_torch.api.spec import SIM_ARCHS, RunSpec
+
+BOS_ID = 1
+
+
+@dataclasses.dataclass
+class ServeStats:
+    """What one driver run measured."""
+
+    arch: str
+    bits: int
+    attn_impl: str
+    decode_steps: int
+    decoded_tokens: int          # tokens produced by ACTIVE slots only
+    completed: int               # sequences finished
+    admitted: int                # sequences admitted (>= batch when the
+                                 # queue forced mid-flight admissions)
+    wall_s: float                # decode-loop wall clock (after the first step)
+    tok_s: float
+    bytes_per_step_packed: int   # weight bytes streamed per decode step
+    bytes_per_step_f32: int      # same weights at f32
+    packed_vs_f32: float         # packed / f32 byte ratio
+    sample: list                 # first finished sequence's tokens
+    kv_layout: str = "contiguous"    # "paged" | "contiguous"
+    page_size: int = 0               # tokens per page (0 = contiguous)
+    kv_bytes: int = 0                # resident K/V bytes, this layout
+    kv_bytes_contiguous: int = 0     # what a contiguous cache would reserve
+    capacity_stops: int = 0          # sequences stopped AT CACHE CAPACITY
+    deferred_admissions: int = 0     # admissions that waited for page reclaim
+    prompt_buckets: list = dataclasses.field(default_factory=list)
+    kv_demotions: int = 0            # f32 -> bf16 pool casts under pressure
+    kv_bits_final: int = 0           # KV element bits when the run ended
+    device: str = ""                 # the card (or "cpu") the run used
+
+
+def _weight_bytes(params: dict) -> int:
+    from repro_torch.models.common import leaf_bytes
+
+    return sum(leaf_bytes(w) for w in params.values())
+
+
+def resolve_device(device) -> torch.device:
+    """``None`` means CUDA.  CUDA without a card raises (no quiet CPU run)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA was asked for but torch.cuda.is_available() is "
+                           "false; pass device='cpu' to run on the CPU")
+    return dev
+
+
+def _not_ported(workload: str):
+    return NotImplementedError(
+        f"workload {workload!r} is not ported to PyTorch yet (ROADMAP queue 1: "
+        "fl-sim is items 3-7, the pod trainer item 8, dryrun item 13)")
+
+
+class Session:
+    """Owns model + axes + precision plumbing for one RunSpec on one device."""
+
+    def __init__(self, spec: RunSpec, device=None):
+        self.spec = spec
+        self.device = resolve_device(device)
+        self.last_tokens: list = []     # every token the last serve() sampled
+
+    # -- lazily-built shared structure ----------------------------------
+    @functools.cached_property
+    def policy(self) -> PrecisionPolicy:
+        return self.spec.precision
+
+    @functools.cached_property
+    def program(self):
+        """The precision controller (``precision_program`` option; defaults
+        to the identity ``constant`` program)."""
+        from repro_torch.api.program import build_program
+
+        return build_program(self.spec.opt("precision_program"))
+
+    @functools.cached_property
+    def cfg(self):
+        from repro_torch.configs import get_config, smoke_variant
+
+        if self.spec.arch in SIM_ARCHS:
+            raise ValueError(f"{self.spec.arch!r} is an fl-sim architecture; "
+                             "the model-zoo config registry does not apply")
+        cfg = get_config(self.spec.arch)
+        return smoke_variant(cfg) if self.spec.smoke else cfg
+
+    @functools.cached_property
+    def model(self):
+        from repro_torch.models.model import build_model
+
+        return build_model(self.cfg)
+
+    @functools.cached_property
+    def axes(self):
+        from repro_torch.dist.collectives import AxisCtx
+
+        if self.spec.mesh not in ("1x1", "1"):
+            raise NotImplementedError(
+                f"mesh {self.spec.mesh!r}: the port runs on one device so far "
+                "(multi-GPU is ROADMAP queue 1, item 8)")
+        return AxisCtx()
+
+    # -- primitive builders ---------------------------------------------
+    def init_params(self, generator: torch.Generator | None = None) -> dict:
+        """Random f32 parameters on the session's device, drawn from
+        ``generator`` (default: seeded with ``spec.seed``)."""
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(self.spec.seed)
+        return self.model.init(generator, self.axes.tp, device=self.device)
+
+    # -- workload dispatch ----------------------------------------------
+    def run(self):
+        if self.spec.workload == "serve":
+            return self.serve()
+        raise _not_ported(self.spec.workload)
+
+    # ------------------------------------------------------------------
+    # serve: continuous-batching quantized decode driver
+    # ------------------------------------------------------------------
+    def serve(self, **overrides) -> ServeStats:
+        """Drive the continuous-batching decode loop; returns ServeStats.
+
+        Weight precision comes from the session policy: ``packed`` policies
+        store int8/int16 ``QTensor`` codes, and ``policy.lazy`` keeps them
+        packed through the ``quant_matmul`` kernel.  ``overrides`` patch
+        individual options (steps, requests, ...) for this call only.
+
+        KV-cache layout (``kv_layout`` option, default ``"paged"``): the
+        paged layout allocates each request's pages ON ADMIT for its full
+        capacity (prompt + max_new, page-rounded) from a shared pool sized by
+        ``pool_pages`` (default: the largest ``batch`` concurrent requests),
+        reclaims them on completion, and DEFERS admissions the pool cannot
+        hold until a completion frees pages.  Either layout enforces
+        capacity: a slot whose cache fills up is stopped and counted in
+        ``capacity_stops``.  Prompts are right-padded to power-of-two
+        buckets (``vary_prompt`` draws ragged prompt lengths).
+        """
+        from repro_torch.core.quantization import default_exempt
+        from repro_torch.launch.paging import (SlotPager, kv_cache_bytes, pages_for,
+                                               plan_admissions, set_page_tables)
+        from repro_torch.launch.steps import (build_cached_prefill, build_decode_step,
+                                              init_global_caches)
+        from repro_torch.models.common import pack_params_for_policy
+
+        spec, policy, dev = self.spec, self.policy, self.device
+        o = dict(spec.options)
+        o.update(overrides)
+        steps = int(o.get("steps", 16))
+        batch = spec.batch
+        s_max = int(o.get("s_max", spec.seq))
+        prompt_len = min(int(o.get("prompt_len", 8)), s_max)
+        attn_impl = o.get("attn_impl", "ref")
+        requests = o.get("requests")
+        max_new = o.get("max_new")
+        quiet = bool(o.get("quiet", False))
+        vary_prompt = bool(o.get("vary_prompt", False))
+        seed = spec.seed
+
+        if attn_impl not in ("ref", "flash"):
+            raise ValueError(f"attn_impl must be 'ref' or 'flash', "
+                             f"got {attn_impl!r}")
+        impl = "auto" if attn_impl == "ref" else "flash"
+
+        def say(msg):
+            if not quiet:
+                print(msg)
+
+        cfg, model, axes = self.cfg, self.model, self.axes
+
+        # ---- KV layout ---------------------------------------------------
+        kv_layout = o.get("kv_layout") or "paged"
+        if kv_layout not in ("paged", "contiguous"):
+            raise ValueError(f"kv_layout must be 'paged' or 'contiguous', "
+                             f"got {kv_layout!r}")
+        page_size = o.get("page_size")
+        if page_size is None:
+            page_size = next(p for p in (16, 8, 4, 2, 1) if s_max % p == 0)
+        page_size = int(page_size)
+
+        params = self.init_params()
+
+        # ---- pack to the policy's storage (norm exemptions as in training)
+        raw_bytes = _weight_bytes(params)
+        f32_bytes = sum(w.numel() * 4 for w in params.values())
+        serve_bits = policy.serve_bits
+        qparams = pack_params_for_policy(params, policy, exempt=default_exempt)
+        del params                  # peak memory: f32 + packed, once
+        q_bytes = _weight_bytes(qparams)
+        if policy.packed:
+            say(f"params: {raw_bytes/1e6:.1f} MB f32 -> {q_bytes/1e6:.1f} MB "
+                f"packed ({raw_bytes/q_bytes:.2f}x smaller, bits={serve_bits})")
+        else:
+            say(f"params: {raw_bytes/1e6:.1f} MB f32 (unpacked baseline)")
+
+        # ---- synthetic request queue ------------------------------------
+        n_requests = requests if requests is not None else 2 * batch
+        rng = np.random.RandomState(seed)
+        # default cap: ~half the step budget, so completions (and therefore
+        # mid-flight admissions) happen within a demo-sized run.  An EXPLICIT
+        # max_new is honored as asked — a request that outgrows its cache
+        # stops at capacity and is counted, never silently clipped.
+        if max_new is not None:
+            cap = max(1, int(max_new))
+        else:
+            cap = max(1, min(max(2, steps // 2), s_max - prompt_len - 1))
+        queue = []
+        for i in range(n_requests):
+            plen = (int(rng.randint(max(1, prompt_len // 2), prompt_len + 1))
+                    if vary_prompt else prompt_len)
+            queue.append(
+                {"id": i,
+                 "prompt": rng.randint(2, cfg.vocab_size, size=(plen,)),
+                 "prompt_len": plen,
+                 # staggered lengths so completions (and admissions) interleave
+                 "max_new": int(rng.randint(max(1, cap // 2), cap + 1))})
+
+        def bucket_of(plen: int) -> int:
+            b = 4
+            while b < plen:
+                b *= 2
+            return min(b, s_max)
+
+        # ---- caches + pager ---------------------------------------------
+        if kv_layout == "paged":
+            def req_pages(req):
+                tokens_cap = min(req["prompt_len"] + req["max_new"], s_max)
+                return pages_for(tokens_cap, page_size)
+
+            pool_pages = o.get("pool_pages")
+            if pool_pages is None:
+                # hold the `batch` largest concurrent requests — strictly
+                # below the contiguous batch*s_max worst case on mixed loads
+                demand = sorted((req_pages(r) for r in queue), reverse=True)
+                pool_pages = max(sum(demand[:batch]), 1)
+            pool_pages = int(pool_pages)
+            pager = SlotPager.build(batch, s_max, page_size, pool_pages)
+            cache_kw = {"page_size": page_size, "pool_pages": pool_pages}
+        else:
+            pager = None
+            cache_kw = {}
+        caches = init_global_caches(model, axes, s_max=s_max, batch_global=batch,
+                                    dtype=policy.kv_cache_dtype(), device=dev,
+                                    **cache_kw)
+        kv_bytes = kv_cache_bytes(caches)
+        kv_bytes_contig = kv_cache_bytes(init_global_caches(
+            model, axes, s_max=s_max, batch_global=batch,
+            dtype=policy.kv_cache_dtype(), device="meta"))
+
+        # ---- steps --------------------------------------------------------
+        ss = build_decode_step(model, axes, policy=policy, attn_impl=attn_impl)
+        pf = build_cached_prefill(model, axes, attn_impl=impl, policy=policy)
+        buckets_used: set = set()
+
+        kv_bits = 16 if policy.kv_cache_dtype() == torch.bfloat16 else 32
+        kv_demotions = 0
+        pool_pressure = 0.0
+
+        # ---- slot state (host side) -------------------------------------
+        active = np.zeros((batch,), bool)
+        remaining = np.zeros((batch,), np.int64)
+        slot_plen = np.zeros((batch,), np.int64)   # tokens cached at admit
+        slot_cap = np.full((batch,), s_max, np.int64)
+        seqs = [[] for _ in range(batch)]
+        finished = []
+        sampled: list = []
+        cur_tok = np.full((batch, 1), BOS_ID, np.int32)
+        admitted = completed = decoded = 0
+        capacity_stops = 0
+        deferred_ids: set = set()   # requests that waited at least once
+
+        def req_cap(req):
+            return min(req["prompt_len"] + req["max_new"], s_max)
+
+        def admit():
+            nonlocal caches, cur_tok, admitted, pool_pressure
+            free = [i for i in range(batch) if not active[i]]
+            fill = []
+            if pager is None:
+                while free and queue:
+                    fill.append((free.pop(0), queue.pop(0)))
+            else:
+                # FIFO with cascading reservation (plan_admissions)
+                demands = [pager.pages_for(req_cap(r)) for r in queue]
+                take, blocked = plan_admissions(pager.pool.free_pages,
+                                                len(free), demands)
+                for qi in blocked:
+                    if demands[qi] > pager.pool.n_pages:
+                        raise ValueError(
+                            f"page pool ({pager.pool.n_pages} pages) can "
+                            f"never fit a {demands[qi]}-page request; raise "
+                            "pool_pages")
+                    deferred_ids.add(queue[qi]["id"])
+                for qi in take:
+                    req = queue[qi]
+                    slot = free.pop(0)
+                    if not pager.admit(slot, req_cap(req)):
+                        raise RuntimeError(
+                            "admission plan out of sync with page pool")
+                    fill.append((slot, req))
+                for qi in sorted(take, reverse=True):
+                    queue.pop(qi)
+                # watermark signal: a page-blocked admission saturates it
+                pool_pressure = 1.0 if blocked else pager.pool.pressure
+            if not fill:
+                return
+            if pager is not None:
+                caches = set_page_tables(caches, pager.table)
+            new_tok = cur_tok.copy()
+            by_bucket: dict[int, list] = {}
+            for s, req in fill:
+                by_bucket.setdefault(bucket_of(len(req["prompt"])), []).append((s, req))
+            for bucket, group in sorted(by_bucket.items()):
+                buckets_used.add(bucket)
+                mask = np.zeros((batch,), bool)
+                plens = np.ones((batch,), np.int32)
+                toks = np.ones((batch, bucket), np.int32)
+                for s, req in group:
+                    mask[s] = True
+                    plens[s] = len(req["prompt"])
+                    toks[s, : len(req["prompt"])] = req["prompt"]
+                tok, caches = pf.fn(qparams, {"tokens": torch.as_tensor(toks, device=dev)},
+                                    caches, torch.as_tensor(mask, device=dev),
+                                    torch.as_tensor(plens, device=dev))
+                tok = tok.cpu().numpy()
+                for s, req in group:
+                    active[s] = True
+                    remaining[s] = req["max_new"]
+                    slot_plen[s] = req["prompt_len"]
+                    slot_cap[s] = (pager.slot_capacity(s) if pager is not None
+                                   else s_max)
+                    seqs[s] = [int(tok[s, 0])]
+                    sampled.append(int(tok[s, 0]))
+                    new_tok[s] = tok[s]
+                    admitted += 1
+            cur_tok = new_tok
+
+        def maybe_demote_kv():
+            """f32 -> bf16 pool demotion when paged-KV pressure crosses the
+            program's watermark (a one-way ratchet)."""
+            nonlocal caches, kv_bits, kv_demotions
+            if pager is None or kv_bits <= 16:
+                return
+            from repro_torch.api.program import Observation
+
+            obs = Observation(round=admitted, pool_pressure=pool_pressure)
+            if self.program.kv_demote(obs):
+                from repro_torch.models.attention import demote_kv_cache
+
+                caches = demote_kv_cache(caches, torch.bfloat16)
+                kv_bits = 16
+                kv_demotions += 1
+                say(f"kv cache: pool pressure {pool_pressure:.2f} >= "
+                    f"watermark {self.program.kv_watermark} -> demoted "
+                    "f32 pools to bf16")
+
+        def step(tokens):
+            nonlocal caches
+            tok, caches = ss.fn(qparams, {"token": torch.as_tensor(tokens, device=dev)},
+                                caches)
+            out = tok.cpu().numpy()           # waits for the device
+            sampled.extend(int(t) for t in out[active, 0])
+            return out
+
+        admit()
+        maybe_demote_kv()
+        # the first step is not timed (it pays one-off costs, e.g. the
+        # kernels' first launch); its output is a real decode step
+        tok_h = step(cur_tok)
+        t0, step_i, decoded_at_t0 = time.time(), 1, 0
+        while True:
+            done_any = False
+            for s in range(batch):
+                if not active[s]:
+                    continue
+                seqs[s].append(int(tok_h[s, 0]))
+                decoded += 1
+                remaining[s] -= 1
+                # tokens cached so far (the newest token is not written until
+                # it is fed back)
+                cached = slot_plen[s] + len(seqs[s]) - 1
+                done = remaining[s] <= 0
+                if not done and cached >= slot_cap[s]:
+                    # cache full: STOP the slot rather than drop K/V writes
+                    done = True
+                    capacity_stops += 1
+                if done:
+                    active[s] = False
+                    if pager is not None:
+                        pager.evict(s)
+                    finished.append(seqs[s])
+                    completed += 1
+                    done_any = True
+            if step_i == 1:
+                decoded_at_t0 = decoded       # step 1 ran before the timer
+            if step_i >= steps or (not active.any() and not queue):
+                break
+            if done_any and pager is not None:
+                # cleared table rows make the evicted slots' future writes
+                # drop instead of landing on reclaimed pages
+                caches = set_page_tables(caches, pager.table)
+            cur_tok = tok_h.copy()            # each slot feeds its own last token
+            if done_any and queue:
+                admit()                       # mid-flight slot reuse
+                maybe_demote_kv()
+            tok_h = step(cur_tok)
+            step_i += 1
+        wall = time.time() - t0
+        self.last_tokens = sampled
+
+        dev_name = (torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu")
+        stats = ServeStats(
+            arch=self.spec.arch, bits=serve_bits, attn_impl=attn_impl,
+            decode_steps=step_i, decoded_tokens=decoded, completed=completed,
+            admitted=admitted, wall_s=wall,
+            tok_s=(decoded - decoded_at_t0) / max(wall, 1e-9),
+            bytes_per_step_packed=q_bytes, bytes_per_step_f32=f32_bytes,
+            packed_vs_f32=q_bytes / max(f32_bytes, 1),
+            sample=(finished[0] if finished else seqs[0])[:16],
+            kv_layout=kv_layout,
+            page_size=page_size if kv_layout == "paged" else 0,
+            kv_bytes=kv_bytes, kv_bytes_contiguous=kv_bytes_contig,
+            capacity_stops=capacity_stops,
+            deferred_admissions=len(deferred_ids),
+            prompt_buckets=sorted(buckets_used),
+            kv_demotions=kv_demotions,
+            kv_bits_final=kv_bits,
+            device=dev_name,
+        )
+        say(f"decoded {stats.decoded_tokens} tokens over {stats.decode_steps} "
+            f"steps x {batch} slots in {wall:.3f}s = {stats.tok_s:.1f} tok/s "
+            f"on {dev_name}")
+        say(f"admitted {stats.admitted} / completed {stats.completed} sequences "
+            f"(continuous batching over {n_requests} requests; "
+            f"{capacity_stops} capacity stops, "
+            f"{len(deferred_ids)} deferred admissions)")
+        say(f"weight stream: {q_bytes/1e6:.1f} MB/step packed vs "
+            f"{f32_bytes/1e6:.1f} MB/step f32 -> ratio {stats.packed_vs_f32:.3f}")
+        if kv_layout == "paged":
+            say(f"kv cache: {kv_bytes/1e6:.2f} MB paged pool "
+                f"(page={page_size}, buckets={stats.prompt_buckets}) vs "
+                f"{kv_bytes_contig/1e6:.2f} MB contiguous")
+        say(f"sample: {stats.sample}")
+        return stats

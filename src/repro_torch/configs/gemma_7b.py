@@ -1,0 +1,13 @@
+"""gemma-7b — 28L d3072 16H(kv16) d_ff 24576, GeGLU, head_dim 256.
+
+[arXiv:2403.08295; hf-verified tier]
+"""
+from repro_torch.configs.base import ModelConfig
+
+ARCH = ModelConfig(
+    name="gemma-7b", family="dense",
+    n_layers=28, d_model=3072, n_heads=16, n_kv_heads=16, head_dim=256,
+    d_ff=24576, vocab_size=256000,
+    mlp_act="geglu", rope_theta=1e4,
+    source="arXiv:2403.08295",
+)

@@ -1,0 +1,64 @@
+"""Plain PyTorch versions of every kernel of the port (the comparison targets).
+
+Each computes the same function as its CUDA kernel with ordinary tensor
+operations.  The CPU path runs these, and the chip checks hold each kernel
+against them on the same inputs.
+"""
+
+from __future__ import annotations
+
+import torch
+
+#: Finite "minus infinity" of the reference kernels: an empty softmax row
+#: reports ``m = -1e30, l = 0``.
+NEG_INF = -1e30
+
+
+def quant_matmul_ref(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
+                     out_dtype=torch.float32) -> torch.Tensor:
+    """x (M,K) @ dequant(codes (K,N) int8/int16; w = codes*scale) -> (M,N)."""
+    w = codes.to(torch.float32) * scale.to(torch.float32)
+    return (x.to(torch.float32) @ w).to(out_dtype)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """q,k,v: (..., S, D).  Full-softmax reference, fp32 accumulation."""
+    scale = q.shape[-1] ** -0.5
+    s = (q.to(torch.float32) @ k.to(torch.float32).transpose(-1, -2)) * scale
+    if causal:
+        S = q.shape[-2]
+        mask = torch.tril(torch.ones((S, S), dtype=torch.bool, device=q.device))
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return (p @ v.to(torch.float32)).to(q.dtype)
+
+
+def flash_decode_ref(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+                     page_table: torch.Tensor, lengths: torch.Tensor):
+    """Paged one-token attention, returning UNNORMALIZED ``(acc, m, l)``.
+
+    ``q`` (B, KV, G, hd); pools (N_pool, page, KV, hd) f32/bf16;
+    ``page_table`` (B, n_pmax) with -1 for unallocated pages; ``lengths``
+    (B,) valid tokens per slot.  Keys in unallocated pages or at positions
+    ``>= lengths[b]`` are masked; a slot with no valid key returns
+    ``m = -1e30, l = 0, acc = 0``.  Normalize with ``acc / max(l, eps)``.
+    """
+    B, KV, G, hd = q.shape
+    page = k_pages.shape[1]
+    n_pmax = page_table.shape[1]
+    pt = page_table.to(torch.long)
+    pids = pt.clamp(min=0)
+    kview = k_pages[pids].to(torch.float32).reshape(B, n_pmax * page, KV, hd)
+    vview = v_pages[pids].to(torch.float32).reshape(B, n_pmax * page, KV, hd)
+    pos = torch.arange(n_pmax * page, device=q.device)
+    valid = ((pos[None, :] < lengths.to(torch.long)[:, None])
+             & torch.repeat_interleave(pt >= 0, page, dim=1))        # (B, S)
+    s = torch.einsum("bkgd,bskd->bkgs", q.to(torch.float32) * hd ** -0.5, kview)
+    vmask = valid[:, None, None, :]
+    s = torch.where(vmask, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(vmask, torch.exp(s - m), torch.zeros_like(s))
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.einsum("bkgs,bskd->bkgd", p, vview)
+    return acc, m, l

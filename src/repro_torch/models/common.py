@@ -1,0 +1,211 @@
+"""Shared machinery for the model code: packed weights and the parameter funnel.
+
+* :class:`QTensor` — packed int8/int16 codes + scale, the quantized storage
+  the serving path reads (1/4 the bytes of f32).
+* :class:`ParamCtx` — every weight is *used* through ``pc.use(path, w)``,
+  which applies the active weight transform (identity, or dequantization of
+  packed codes) and casts to the compute dtype.  Under a lazy policy a packed
+  weight passes through as its :class:`QTensor`, and the projection call
+  sites dispatch on the leaf type (:func:`repro_torch.kernels.ops.dense_dispatch`).
+
+Parameters are a flat dict keyed by the reference's path strings
+(``"embed/table"``, ``"blocks/attn/wq"``, ...); leaves under ``blocks/`` keep
+their leading ``(L, ...)`` layer dim, as the reference's scanned stacks do.
+One device, ``tp = 1``: the FSDP gathers of the reference are identities.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.dist.collectives import AxisCtx
+
+Transform = Callable[[str, torch.Tensor], torch.Tensor]
+
+
+@dataclasses.dataclass
+class QTensor:
+    """Quantized parameter storage: ``w ~= codes * scale`` (scale folds delta)."""
+
+    codes: torch.Tensor
+    scale: torch.Tensor
+
+    @property
+    def shape(self):
+        return self.codes.shape
+
+    @property
+    def ndim(self):
+        return self.codes.ndim
+
+    @property
+    def dtype(self):
+        return self.codes.dtype
+
+    def __getitem__(self, i):
+        """Layer ``i`` of a stacked leaf (per-layer scales slice with it)."""
+        return QTensor(self.codes[i], self.scale[i] if self.scale.ndim else self.scale)
+
+    def nbytes(self) -> int:
+        return (self.codes.numel() * self.codes.element_size()
+                + self.scale.numel() * self.scale.element_size())
+
+
+def dequant(q: QTensor, dtype) -> torch.Tensor:
+    return q.codes.to(torch.float32).to(dtype) * q.scale.to(dtype)
+
+
+#: Stack prefixes: leaves under these carry a leading layer dim.
+STACK_PREFIXES = ("blocks/", "periods/", "encoder/", "decoder/")
+
+
+def is_stacked(path: str) -> bool:
+    return any(p in path for p in STACK_PREFIXES)
+
+
+def leaf_bytes(w) -> int:
+    return w.nbytes() if isinstance(w, QTensor) else w.numel() * w.element_size()
+
+
+def layer_params(params: dict, layer: int) -> dict:
+    """Layer ``layer``'s slice of the ``blocks/`` leaves as the reference's
+    nested per-layer tree (``{"attn": {"wq": ...}, "ln1": ..., ...}``)."""
+    out: dict = {}
+    for path, w in params.items():
+        if not path.startswith("blocks/"):
+            continue
+        *parents, leaf = path.split("/")[1:]
+        node = out
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = w[layer]
+    return out
+
+
+@dataclasses.dataclass
+class ParamCtx:
+    """Threads the axis context + weight transform through model code.
+
+    ``policy``: a :class:`repro_torch.api.precision.PrecisionPolicy`.  Its
+    ``lazy`` flag selects the serving fast path: ``use()`` on a
+    :class:`QTensor` returns the packed handle itself (NOT dequantized), so
+    the ``quant_matmul`` kernel reads the int8 codes.
+    """
+
+    ctx: AxisCtx
+    transform: Transform | None = None
+    compute_dtype: Any = torch.bfloat16
+    sp: bool = False
+    policy: Any = None
+
+    @property
+    def lazy(self) -> bool:
+        return bool(getattr(self.policy, "lazy", False))
+
+    @classmethod
+    def from_policy(cls, ctx: AxisCtx, policy, *, transform=None,
+                    compute_dtype=torch.bfloat16, sp: bool = False) -> "ParamCtx":
+        """The policy-driven constructor every launcher goes through."""
+        return cls(ctx=ctx, transform=transform, compute_dtype=compute_dtype,
+                   sp=sp, policy=policy)
+
+    def use(self, path: str, w):
+        """Transform + cast: the single funnel every weight goes through.
+
+        Returns a dense tensor, or the packed :class:`QTensor` when
+        ``policy.lazy`` is on — consumers dispatch on the leaf type.
+        """
+        if isinstance(w, QTensor):
+            if self.lazy and self.transform is None:
+                return w
+            full = w.codes.to(torch.float32) * w.scale.to(torch.float32)
+        else:
+            full = w
+        if self.transform is not None:
+            full = self.transform(path, full)
+        return full.to(self.compute_dtype)
+
+    def use_small(self, path: str, w) -> torch.Tensor:
+        """Replicated small parameters (norm scales, biases)."""
+        if self.transform is not None:
+            w = self.transform(path, w)
+        return w.to(self.compute_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Initialization (explicit device and generator for every draw)
+# ---------------------------------------------------------------------------
+
+
+def init_dense(gen: torch.Generator, d_in: int, d_out: int, *, lead=(),
+               device=None, dtype=torch.float32, scale: float | None = None):
+    """Truncated-normal fan-in init (LeCun); ``lead`` prepends stack dims."""
+    std = scale if scale is not None else (1.0 / d_in) ** 0.5
+    w = torch.empty(tuple(lead) + (d_in, d_out), device=device, dtype=torch.float32)
+    torch.nn.init.trunc_normal_(w, mean=0.0, std=1.0, a=-2.0, b=2.0, generator=gen)
+    return w.mul_(std).to(dtype)
+
+
+def init_embed(gen: torch.Generator, vocab: int, d: int, *, device=None,
+               dtype=torch.float32):
+    w = torch.empty((vocab, d), device=device, dtype=torch.float32)
+    return w.normal_(0.0, 1.0, generator=gen).mul_(0.02).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Serving-path packing
+# ---------------------------------------------------------------------------
+
+
+def pack_params_for_policy(params: dict, policy, *, exempt=None) -> dict:
+    """Pack a param dict per a :class:`~repro_torch.api.precision.PrecisionPolicy`.
+
+    Identity at 32-bit weights; otherwise int8/int16 :class:`QTensor` codes at
+    ``policy.serve_bits``.
+    """
+    if not policy.packed:
+        return params
+    if exempt is None:
+        from repro_torch.core.quantization import default_exempt as exempt
+    return pack_params_for_serving(params, policy.serve_bits, exempt=exempt)
+
+
+def pack_params_for_serving(params: dict, bits: int, *, exempt) -> dict:
+    """Convert matmul weights to :class:`QTensor` int8/int16 storage.
+
+    Deterministic nearest rounding (half to even, as ``jnp.round``), the
+    reference's arithmetic step for step: f32 division by the broadcast scale,
+    a per-layer ``(L,)`` scale for stacked leaves and a scalar otherwise.
+    Stacked leaves are packed one layer at a time, so the temporaries stay one
+    layer large.
+    """
+    from repro_torch.core.quantization import storage_dtype
+
+    delta = 1.0 / (2.0**bits - 1.0)
+    lim = 2**bits - 1
+    out = {}
+    for path, leaf in params.items():
+        if exempt is not None and exempt(path, leaf):
+            out[path] = leaf
+            continue
+        if is_stacked(path) and leaf.ndim >= 2:
+            # per-layer scales so stacks slice cleanly (and tighter)
+            codes = torch.empty(leaf.shape, dtype=storage_dtype(bits), device=leaf.device)
+            scales = []
+            for i in range(leaf.shape[0]):
+                wf = leaf[i].to(torch.float32)
+                s = torch.clamp(wf.abs().max(), min=1e-12)
+                scale = (s * delta).to(torch.float32)
+                codes[i] = torch.clamp(torch.round(wf / scale), -lim, lim).to(codes.dtype)
+                scales.append(scale)
+            out[path] = QTensor(codes=codes, scale=torch.stack(scales))   # (L,)
+        else:
+            wf = leaf.to(torch.float32)
+            s = torch.clamp(wf.abs().max(), min=1e-12)
+            scale = (s * delta).to(torch.float32)                         # ()
+            codes = torch.clamp(torch.round(wf / scale), -lim, lim).to(storage_dtype(bits))
+            out[path] = QTensor(codes=codes, scale=scale)
+    return out

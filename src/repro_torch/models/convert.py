@@ -1,0 +1,52 @@
+"""How weights (and, for tests, caches) cross from the JAX reference.
+
+:func:`params_from_jax` takes the reference's nested parameter tree with
+numpy (or array-protocol) leaves — including packed ``QTensor`` leaves — and
+returns the port's flat dict: same path keys, same shapes, same dtypes.
+Nothing of the reference is imported: packed leaves are recognised by their
+``codes``/``scale`` fields and caches by their field names.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.models.attention import KVCache, PagedKVCache
+from repro_torch.models.common import QTensor
+
+
+def to_tensor(a, device=None) -> torch.Tensor:
+    """A numpy-convertible array as a tensor of the same dtype (bf16 included)."""
+    arr = np.asarray(a)
+    if arr.dtype.name == "bfloat16":     # ml_dtypes' bfloat16: reinterpret bits
+        return torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(arr, copy=True)).to(device)
+
+
+def params_from_jax(tree, *, device=None) -> dict:
+    """Reference param tree -> ``{"embed/table": Tensor, "blocks/attn/wq":
+    QTensor | Tensor, ...}``."""
+    out: dict = {}
+
+    def walk(node, prefix: str):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{prefix}/{k}" if prefix else str(k))
+        elif hasattr(node, "codes") and hasattr(node, "scale"):
+            out[prefix] = QTensor(to_tensor(node.codes, device),
+                                  to_tensor(node.scale, device))
+        else:
+            out[prefix] = to_tensor(node, device)
+
+    walk(tree, "")
+    return out
+
+
+def caches_from_jax(cache, *, device=None):
+    """A reference ``KVCache``/``PagedKVCache`` (any leading dims) as the
+    port's cache of the same layout."""
+    if hasattr(cache, "k_pages"):
+        return PagedKVCache(*(to_tensor(getattr(cache, f), device)
+                              for f in PagedKVCache._fields))
+    return KVCache(*(to_tensor(getattr(cache, f), device) for f in KVCache._fields))

@@ -1,0 +1,51 @@
+"""Family dispatch facade: one uniform serving surface over the model zoo.
+
+``build_model(cfg)`` returns a :class:`Model` with
+
+* ``init(gen, tp, device)``                     -> f32 params on ``device``
+* ``prefill(pc, params, batch, caches, **kw)``  -> (last-position logits, caches)
+* ``decode_step(pc, params, batch, caches, **kw)`` -> (logits, caches)
+* ``init_caches(batch, s_max, tp, dtype, device=, page_size=, pool_pages=)``
+
+Only the dense family is ported so far; the other families raise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+    init: Callable
+    decode_step: Callable
+    init_caches: Callable
+    prefill: Callable
+    # whether init_caches understands page_size/pool_pages
+    supports_paged_kv: bool = False
+
+
+def build_model(cfg: ModelConfig) -> Model:
+    if cfg.family == "dense":
+        return Model(
+            cfg=cfg,
+            init=lambda gen, tp, device=None: transformer.init_lm(
+                cfg, gen, tp, device=device),
+            decode_step=lambda pc, p, b, caches, **kw: transformer.decode_step(
+                cfg, pc, p, b["token"], caches, **kw),
+            init_caches=lambda batch, s_max, tp, dtype=torch.bfloat16, **kw:
+                transformer.init_caches(cfg, batch, s_max, tp, dtype, **kw),
+            prefill=lambda pc, p, b, caches, **kw: transformer.prefill(
+                cfg, pc, p, b["tokens"], caches, **kw),
+            supports_paged_kv=True,
+        )
+    raise NotImplementedError(
+        f"family {cfg.family!r} is not ported yet: MoE, SSM, hybrid, VLM and "
+        "enc-dec follow in ROADMAP queue 1, item 2")

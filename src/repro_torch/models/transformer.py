@@ -1,0 +1,162 @@
+"""Decoder-only transformer LM (dense family): init, prefill, decode.
+
+Counterpart of ``repro/models/transformer.py``.  A Python loop over the
+layer-stacked parameters takes the place of ``lax.scan``.  Caches are
+layer-stacked ``(L, ...)``; each layer reads and writes its slice in place,
+so a step returns the same pools with new lengths.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models.attention import (
+    AttnDims,
+    decode_self_attention,
+    init_kv_cache,
+    init_paged_kv_cache,
+    prefill_kv_cache,
+    self_attention,
+)
+from repro_torch.models.common import (ParamCtx, init_dense, init_embed,
+                                       layer_params)
+
+
+def padded_vocab_local(cfg: ModelConfig, tp: int) -> int:
+    return -(-cfg.vocab_size // tp)  # ceil
+
+
+def attn_dims(cfg: ModelConfig, tp: int, causal: bool = True) -> AttnDims:
+    return AttnDims(
+        n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.resolved_head_dim,
+        d_model=cfg.d_model, tp=tp, causal=causal, rope_theta=cfg.rope_theta,
+    )
+
+
+def _require_dense(cfg: ModelConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r}: only the dense family is ported so far "
+            "(ROADMAP queue 1, item 2)")
+
+
+def init_lm(cfg: ModelConfig, gen: torch.Generator, tp: int = 1, *, device=None,
+            dtype=torch.float32) -> dict:
+    """Random f32 parameters drawn on ``device`` from ``gen``, keyed by path."""
+    _require_dense(cfg)
+    ad = attn_dims(cfg, tp)
+    vl = padded_vocab_local(cfg, tp)
+    d, hd, nl = cfg.d_model, ad.head_dim, (cfg.n_layers,)
+    kw = {"device": device, "dtype": dtype}
+    p = {
+        "embed/table": init_embed(gen, vl, d, **kw),
+        "blocks/ln1": torch.zeros(nl + (d,), **kw),
+        "blocks/attn/wq": init_dense(gen, d, ad.heads_local * hd, lead=nl, **kw),
+        "blocks/attn/wk": init_dense(gen, d, ad.kv_local * hd, lead=nl, **kw),
+        "blocks/attn/wv": init_dense(gen, d, ad.kv_local * hd, lead=nl, **kw),
+        "blocks/attn/wo": init_dense(gen, ad.heads_local * hd, d, lead=nl, **kw),
+        "blocks/ln2": torch.zeros(nl + (d,), **kw),
+        "blocks/mlp/w_up": init_dense(gen, d, cfg.d_ff // tp, lead=nl, **kw),
+        "blocks/mlp/w_down": init_dense(gen, cfg.d_ff // tp, d, lead=nl, **kw),
+    }
+    if cfg.mlp_act in ("swiglu", "geglu"):
+        p["blocks/mlp/w_gate"] = init_dense(gen, d, cfg.d_ff // tp, lead=nl, **kw)
+    p["final_norm"] = torch.zeros((d,), **kw)
+    p["unembed/w"] = init_dense(gen, d, vl, **kw)
+    return p
+
+
+def init_caches(cfg: ModelConfig, batch: int, s_max: int, tp: int = 1,
+                dtype=torch.bfloat16, *, device=None, page_size=None, pool_pages=None):
+    """Layer-stacked decode caches; ``page_size`` selects the paged layout
+    (shared page pool + per-slot page tables) over the contiguous slab."""
+    ad = attn_dims(cfg, tp)
+    lead = (cfg.n_layers,)
+    if page_size:
+        return init_paged_kv_cache(batch, s_max, ad, dtype, page_size=page_size,
+                                   pool_pages=pool_pages, device=device, lead=lead)
+    return init_kv_cache(batch, s_max, ad, dtype, device=device, lead=lead)
+
+
+def _layer_cache(caches, i: int):
+    return type(caches)(*(t[i] for t in caches))
+
+
+def _restack(caches, per_layer):
+    """The stacked caches after a pass: the pools were written in place, the
+    per-layer lengths are new."""
+    return caches._replace(length=torch.stack([c.length for c in per_layer]))
+
+
+def last_position_logits(pc: ParamCtx, params, x, prompt_lens=None):
+    """Logits at each slot's true last prompt position (``prompt_lens - 1``:
+    bucketed prefill right-pads prompts)."""
+    if prompt_lens is None:
+        x_last = x[:, -1:, :]
+    else:
+        idx = torch.clamp(prompt_lens.to(torch.long) - 1, 0, x.shape[1] - 1)
+        x_last = x[torch.arange(x.shape[0], device=x.device), idx][:, None, :]
+    return L.vocab_logits(pc, "unembed", params["unembed/w"], x_last)
+
+
+def prefill(cfg: ModelConfig, pc: ParamCtx, params, tokens, caches,
+            *, attn_impl="auto", prompt_lens=None):
+    """Parallel prefill: one forward pass over the prompt that also writes
+    every layer's K/V into ``caches`` (in place) and stamps per-sequence
+    lengths.
+
+    tokens: (B, S_p) with S_p <= s_max.  Returns (last-position logits
+    (B, 1, V), caches).  ``attn_impl="flash"`` runs the prompt through the
+    flash-attention kernel.  ``prompt_lens`` (B,) gives per-slot true
+    lengths when prompts are right-padded to a bucket size.
+    """
+    _require_dense(cfg)
+    tp = pc.ctx.tp
+    ad = attn_dims(cfg, tp)
+    vl = padded_vocab_local(cfg, tp)
+    x = L.vocab_embed(pc, "embed", params["embed/table"], tokens, vl)
+    x = x.to(pc.compute_dtype)
+    per_layer = []
+    for i in range(cfg.n_layers):
+        lp = layer_params(params, i)
+        h = L.rmsnorm(pc, "blocks/ln1", lp["ln1"], x, cfg.norm_eps)
+        a, (k, v) = self_attention(pc, "blocks/attn", lp["attn"], h, ad, impl=attn_impl)
+        x = x + a
+        h = L.rmsnorm(pc, "blocks/ln2", lp["ln2"], x, cfg.norm_eps)
+        x = x + L.mlp(pc, "blocks/mlp", lp["mlp"], h, cfg.mlp_act)
+        per_layer.append(prefill_kv_cache(pc, _layer_cache(caches, i), k, v, ad,
+                                          prompt_lens))
+    x = L.rmsnorm(pc, "final_norm", params["final_norm"], x, cfg.norm_eps)
+    return last_position_logits(pc, params, x, prompt_lens), _restack(caches, per_layer)
+
+
+def decode_step(cfg: ModelConfig, pc: ParamCtx, params, token, caches,
+                *, attn_impl="auto"):
+    """token: (B, 1) int -> (logits (B,1,V), caches with lengths + 1).
+
+    ``attn_impl="flash"`` routes paged caches through the flash-decode
+    kernel; any other value takes the gather reference path.
+    """
+    _require_dense(cfg)
+    tp = pc.ctx.tp
+    ad = attn_dims(cfg, tp)
+    vl = padded_vocab_local(cfg, tp)
+    x = L.vocab_embed(pc, "embed", params["embed/table"], token, vl)
+    x = x.to(pc.compute_dtype)
+    decode_impl = "flash" if attn_impl == "flash" else "ref"
+    per_layer = []
+    for i in range(cfg.n_layers):
+        lp = layer_params(params, i)
+        h = L.rmsnorm(pc, "blocks/ln1", lp["ln1"], x, cfg.norm_eps)
+        a, new_cache = decode_self_attention(pc, "blocks/attn", lp["attn"], h,
+                                             _layer_cache(caches, i), ad,
+                                             impl=decode_impl)
+        x = x + a
+        h = L.rmsnorm(pc, "blocks/ln2", lp["ln2"], x, cfg.norm_eps)
+        x = x + L.mlp(pc, "blocks/mlp", lp["mlp"], h, cfg.mlp_act)
+        per_layer.append(new_cache)
+    x = L.rmsnorm(pc, "final_norm", params["final_norm"], x, cfg.norm_eps)
+    logits = L.vocab_logits(pc, "unembed", params["unembed/w"], x)
+    return logits, _restack(caches, per_layer)

@@ -1,0 +1,170 @@
+"""Kernel-level parity of the PyTorch port against the JAX reference.
+
+The same inputs, drawn with numpy from a seed, go through the reference's
+Pallas kernels (interpret mode on the CPU, as ``tests/test_kernels.py`` runs
+them) and through the port's kernel entry points, which take their plain
+PyTorch versions for CPU tensors.  The CUDA kernels themselves are held to
+the same plain versions on the card by ``chip_smoke.py``.
+
+Also here: the guards that keep the port free of JAX and of the reference
+package, and that keep CUDA requests from quietly running on the CPU.
+"""
+
+import os
+import re
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import quant_matmul as tqm
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tiny tensors gain nothing from intra-op threads, and the suite runs
+    several workers on few cores: keep this module's PyTorch to one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _as_dtype(a: np.ndarray, bf16: bool):
+    """The same values for both frameworks (bf16 rounds f32 to nearest even)."""
+    if bf16:
+        return jnp.asarray(a, jnp.bfloat16), torch.from_numpy(a).to(torch.bfloat16)
+    return jnp.asarray(a), torch.from_numpy(a)
+
+
+class TestQuantMatmul:
+    @pytest.mark.parametrize("mnk", [(4, 128, 256), (37, 200, 300), (512, 256, 128)])
+    @pytest.mark.parametrize("bf16", [False, True])
+    @pytest.mark.parametrize("bits", [7, 12])
+    def test_matches_reference(self, mnk, bf16, bits):
+        M, K, N = mnk
+        rng = np.random.default_rng(M * 7 + K + bits)
+        lim = 2**bits - 1
+        codes = rng.integers(-lim, lim + 1, size=(K, N)).astype(
+            np.int8 if bits <= 7 else np.int16)
+        scale = np.float32(1.0 / np.sqrt(K) / lim)
+        jx, tx = _as_dtype(rng.standard_normal((M, K)).astype(np.float32), bf16)
+        want = np.asarray(jops.quant_matmul(jx, jnp.asarray(codes), jnp.asarray(scale)))
+        got = tops.quant_matmul(tx, torch.from_numpy(codes), torch.tensor(scale))
+        assert got.dtype == torch.float32 and got.shape == (M, N)
+        np.testing.assert_allclose(got.numpy(), want,
+                                   rtol=2e-2 if bf16 else 1e-5,
+                                   atol=1e-2 if bf16 else 1e-5)
+
+
+class TestFlashAttention:
+    @pytest.mark.parametrize("S", [37, 128, 150])
+    @pytest.mark.parametrize("causal", [True, False])
+    @pytest.mark.parametrize("bf16", [False, True])
+    def test_matches_reference(self, S, causal, bf16):
+        rng = np.random.default_rng(S + int(causal))
+        qkv = [rng.standard_normal((2, 3, S, 16)).astype(np.float32) for _ in range(3)]
+        j = [_as_dtype(a, bf16)[0] for a in qkv]
+        t = [_as_dtype(a, bf16)[1] for a in qkv]
+        want = np.asarray(jops.flash_attention(*j, causal=causal).astype(jnp.float32))
+        got = tops.flash_attention(*t, causal=causal)
+        assert got.dtype == t[0].dtype and got.shape == t[0].shape
+        tol = 3e-2 if bf16 else 2e-4
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
+
+
+def _decode_inputs(seed: int):
+    """Paged decode inputs with -1 holes, an empty slot and ragged lengths."""
+    rng = np.random.default_rng(seed)
+    B, KV, G, hd, page, n_pmax, n_pool = 4, 2, 3, 16, 4, 5, 16
+    q = rng.standard_normal((B, KV, G, hd)).astype(np.float32)
+    kp = rng.standard_normal((n_pool, page, KV, hd)).astype(np.float32)
+    vp = rng.standard_normal((n_pool, page, KV, hd)).astype(np.float32)
+    rows = rng.permutation(n_pool).astype(np.int32)
+    pt = np.full((B, n_pmax), -1, np.int32)
+    pt[0] = rows[:5]                 # full slot
+    pt[1, :4] = rows[5:9]
+    pt[1, 2] = -1                    # hole inside the length
+    pt[2, :3] = rows[9:12]           # length off the page grid
+    pt[3, :2] = rows[12:14]          # owns pages, holds no token
+    lengths = np.array([19, 14, 9, 0], np.int32)
+    return q, kp, vp, pt, lengths
+
+
+class TestFlashDecode:
+    @pytest.mark.parametrize("bf16_pool", [False, True])
+    def test_matches_reference(self, bf16_pool):
+        q, kp, vp, pt, lengths = _decode_inputs(3)
+        jk, tk = _as_dtype(kp, bf16_pool)
+        jv, tv = _as_dtype(vp, bf16_pool)
+        want = jops.flash_paged_decode(jnp.asarray(q), jk, jv, jnp.asarray(pt),
+                                       jnp.asarray(lengths))
+        got = tops.flash_paged_decode(torch.from_numpy(q), tk, tv,
+                                      torch.from_numpy(pt), torch.from_numpy(lengths))
+        acc, m, l = (np.asarray(w) for w in want)
+        tacc, tm, tl = (g.numpy() for g in got)
+        assert tacc.shape == acc.shape and tm.shape == m.shape == tl.shape
+        np.testing.assert_allclose(tacc, acc, rtol=2e-5, atol=1e-6)
+        np.testing.assert_allclose(tl, l, rtol=2e-5, atol=0)
+        # m is a max of q.k scores: bit-equal only if both sides sum each
+        # dot product over hd in the same order, which XLA's dot and
+        # PyTorch's matmul do not; they differ by at most one f32 ulp.
+        np.testing.assert_allclose(tm, m, rtol=1e-6, atol=0)
+        # the empty slot: m = -1e30, l = 0, acc = 0, as the reference
+        assert (tm[3] == np.float32(-1e30)).all() and (tl[3] == 0).all()
+        assert (tacc[3] == 0).all()
+
+
+class TestDispatchGuards:
+    def test_cuda_wrappers_refuse_cpu_tensors(self):
+        x = torch.zeros((2, 8))
+        codes = torch.zeros((8, 4), dtype=torch.int8)
+        with pytest.raises(ValueError, match="CUDA"):
+            tqm.quant_matmul_cuda(x, codes, torch.tensor(1.0))
+        q = torch.zeros((2, 8, 16))
+        with pytest.raises(ValueError, match="CUDA"):
+            tfa.flash_attention_cuda(q, q, q)
+
+    def test_unknown_device_raises(self):
+        x = torch.zeros((2, 8), device="meta")
+        with pytest.raises(ValueError, match="no kernel"):
+            tops.quant_matmul(x, torch.zeros((8, 4), dtype=torch.int8, device="meta"),
+                              torch.zeros((), device="meta"))
+
+
+_FORBIDDEN = re.compile(r"^\s*(import jax\b|from jax\b|import repro\b(?!_)|"
+                        r"from repro(\.| import))", re.M)
+
+
+def test_port_sources_name_no_jax_or_reference():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _dirs, names in os.walk(os.path.join(ROOT, "src", "repro_torch")):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    bad = [f for f in files if _FORBIDDEN.search(open(f).read())]
+    assert not bad, bad
+
+
+def test_port_imports_no_jax_or_reference():
+    """Import every module of the port (and chip_smoke) in a fresh process."""
+    script = (
+        "import importlib, pkgutil, sys\n"
+        f"sys.path[:0] = [{os.path.join(ROOT, 'src')!r}, {ROOT!r}]\n"
+        "import repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+        "print('LOADED', len([m for m in sys.modules if m.startswith('repro_torch')]))\n"
+        "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                         timeout=120, env={**os.environ, "PYTHONPATH": ""})
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert int(out.stdout.split("LOADED")[1]) >= 20
