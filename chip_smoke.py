@@ -9,9 +9,9 @@ Phases (each one failing stops the script with a nonzero exit):
 1. device: the card's name and power limit; TF32 switched off.
 2. build: compile ``src/repro_torch/csrc/*.cu`` (nvcc, sm_90a) and print the
    build time and the ptxas register/spill report.
-3. kernels: every kernel (K3 quant_matmul, K4 flash_attention, K5
-   flash_decode) against its plain PyTorch version on the card, at the
-   serving path's shapes, with times beside the plain version, one library
+3. kernels: every kernel (K1 sr_quant, K3 quant_matmul, K4 flash_attention,
+   K5 flash_decode) against its plain PyTorch version on the card, at the
+   shapes of its path, with times beside the plain version, one library
    call where one computes the same function, and the card's bound.
 4. serve: ``Session.serve`` of full-width, full-depth yi-6b with int8 weights,
    paged f32 KV and continuous batching; the launch counters are zeroed just
@@ -20,6 +20,12 @@ Phases (each one failing stops the script with a nonzero exit):
    step, device time by kernel from ``torch.profiler``).
 6. consistency: a 2-layer full-width yi-6b runs one prefill and one decode
    step with the kernels and again with the plain versions on the card.
+7. fl: the paper's FWQ loop (``Session.run_fl_sim``) on the card — the
+   quickstart ``mobilenet`` spec and the ``fl-codesign-grid`` ``resnet``
+   spec, 10 rounds each, 8 clients, one K1 launch per round — checked
+   against a CPU run of the same specs (host math exactly equal), one round
+   run through K1 and through the plain version (quantized parameters
+   bit-equal), and profiled.
 
 The last two lines are the kernel table and ``{"ok": true, "device": ...}``.
 ``--phases`` runs a subset (for iterating on one kernel).
@@ -29,6 +35,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import itertools
 import json
 import math
 import os
@@ -39,16 +46,20 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import quant_matmul as qm  # noqa: E402
+from repro_torch.kernels import sr_quant as sq  # noqa: E402
 
 HBM_BYTES_S = 3.35e12           # H100 SXM device memory rate
 PEAK_OPS_S = {torch.bfloat16: 989e12, torch.float32: 67e12}   # dense bf16 / FP32
 
 KERNELS = {
+    "sr_quant": dict(route="cuda", source="src/repro_torch/csrc/sr_quant.cu",
+                     replaces="src/repro/kernels/sr_quant.py:59"),
     "quant_matmul": dict(route="cuda", source="src/repro_torch/csrc/quant_matmul.cu",
                          replaces="src/repro/kernels/quant_matmul.py:83"),
     "flash_attention": dict(route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
@@ -268,11 +279,106 @@ def check_flash_decode(table: dict) -> None:
                 table["flash_decode"] = row
 
 
+def _segments(sizes, C, gen, scale=0.3):
+    """K1 inputs for ragged leaves of ``sizes`` and ``C`` clients."""
+    from repro_torch.core.quantization import tensor_scale
+
+    leaves = [torch.randn(n, generator=gen, device="cuda") * scale * (i + 1)
+              for i, n in enumerate(sizes)]
+    w = torch.cat(leaves)
+    offsets = torch.tensor([0, *itertools.accumulate(sizes)], dtype=torch.int32,
+                           device="cuda")
+    s = torch.stack([tensor_scale(x) if x.numel() else torch.ones((), device="cuda")
+                     for x in leaves])
+    u = torch.rand((C, w.numel()), generator=gen, device="cuda")
+    return w, offsets, s, u
+
+
+def _fl_leaf_sizes(arch: str) -> list:
+    from repro_torch.core.quantization import quantizable_paths
+    from repro_torch.models import cnn
+
+    model = (cnn.mobilenet(width=8, n_stages=2) if arch == "mobilenet"
+             else cnn.resnet(depth_blocks=(1, 1), width=8))
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+    return [params[p].numel() for _i, p in quantizable_paths(params)]
+
+
+def check_sr_quant(table: dict) -> None:
+    """K1 against its plain version with atol 0: ragged segments, bits 2, 4,
+    7, 8, 16, a zero step (bits 32), clipping at +-s, the single-tensor
+    entry; then times at the fl-sim round shapes and two large shapes."""
+    from repro_torch.core.quantization import delta_from_bits
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    bits = torch.tensor([2, 4, 7, 8, 16, 32, 8, 4])
+    delta = delta_from_bits(bits).cuda()
+    for sizes in ([5, 1, 1000, 0, 33, 4099], [72, 128, 144, 256, 160, 216]):
+        w, offsets, s, u = _segments(sizes, len(bits), gen)
+        s[2] = s[2] * 0.5                    # a leaf whose grid ends inside its range
+        got = sq.sr_quant_segments_cuda(w, offsets, s, delta, u)
+        torch.cuda.synchronize()
+        for label, want in (("plain on the card", sq.sr_quant_segments_plain(
+                w, offsets, s, delta, u)), ("plain on the CPU", sq.sr_quant_segments_plain(
+                *(t.cpu() for t in (w, offsets, s, delta, u))).cuda())):
+            if not torch.equal(got, want):
+                bad = int((got != want).sum())
+                raise AssertionError(f"sr_quant segments {sizes}: {bad} elements differ "
+                                     f"from the {label}")
+        if not torch.equal(got[5], w):
+            raise AssertionError("sr_quant: a zero step must return w")
+        raw = sq.sr_quant_segments_cuda(w, offsets, s, delta, u, ste=False)
+        if not torch.equal(raw, sq.sr_quant_segments_plain(w, offsets, s, delta, u,
+                                                           ste=False)):
+            raise AssertionError(f"sr_quant segments {sizes} (q itself): differs from "
+                                 "the plain version")
+        lo, hi = int(offsets[2]), int(offsets[3])
+        clipped = raw[:5, lo:hi].abs()
+        if not ((clipped <= s[2]).all() and (clipped == s[2]).any()):
+            raise AssertionError("sr_quant: the clip to [-s, s] did not bite")
+    for bits_ in (2, 4, 7, 8, 16):
+        w = torch.randn((300, 257), generator=gen, device="cuda")
+        u = torch.rand(w.shape, generator=gen, device="cuda")
+        got = ops.sr_quantize_fused(w, bits_, u)
+        want = ops.sr_quantize_fused(w.cpu(), bits_, u.cpu()).cuda()
+        if not torch.equal(got, want):
+            raise AssertionError(f"sr_quantize_fused bits={bits_}: differs from the plain "
+                                 "version on the CPU")
+    print("sr_quant: bit-equal to the plain version in every case (atol 0)")
+
+    d8 = delta_from_bits(torch.tensor([16, 8, 16, 16, 16, 8, 8, 16])).cuda()
+    cases = [("mobilenet round", _fl_leaf_sizes("mobilenet"), 8),
+             ("resnet round", _fl_leaf_sizes("resnet"), 8),
+             ("1024x1024", [1024 * 1024], 1), ("4096x11008", [4096 * 11008], 1)]
+    for label, sizes, C in cases:
+        w, offsets, s, u = _segments(sizes, C, gen)
+        d = d8[:C]
+        args = (w, offsets, s, d, u)
+        got = sq.sr_quant_segments_cuda(*args)
+        want = sq.sr_quant_segments_plain(*args)
+        torch.cuda.synchronize()
+        P, L = w.numel(), len(sizes)
+        # w, offsets, s and d read once; u read and the output written once
+        # per client
+        nbytes = 4 * P + 8 * C * P + 4 * (2 * L + 1) + 4 * C
+        b_ms, b_by = bound_ms(nbytes, 0.0, torch.float32)
+        iters = 10 if P > 1e7 else 50
+        row = dict(kernel="sr_quant", case=label, clients=C, leaves=L, P=P,
+                   max_abs_err=float((got - want).abs().max()),
+                   kernel_ms=time_ms(sq.sr_quant_segments_cuda, [args], iters=iters),
+                   plain_ms=time_ms(sq.sr_quant_segments_plain, [args], iters=3),
+                   library_ms=None, bound_ms=b_ms, bound_by=b_by)
+        emit(row)
+        if label == "mobilenet round":
+            table["sr_quant"] = row
+
+
 def phase_kernels(table: dict) -> None:
+    check_sr_quant(table)
     check_quant_matmul(table)
     check_flash_attention(table)
     check_flash_decode(table)
-    print("kernels: all three agree with their plain versions")
+    print("kernels: all four agree with their plain versions")
 
 
 def phase_serve(dev: dict) -> dict:
@@ -297,8 +403,8 @@ def phase_serve(dev: dict) -> dict:
     assert stats.decoded_tokens > 0, stats.decoded_tokens
     assert stats.sample and all(0 <= t < vocab for t in stats.sample), stats.sample
     assert all(0 <= t < vocab for t in sess.last_tokens), "sampled id out of range"
-    for name, n in launches.items():
-        assert n > 0, f"main path never launched {name}: {launches}"
+    for name in ("quant_matmul", "flash_attention", "flash_decode"):
+        assert launches[name] > 0, f"main path never launched {name}: {launches}"
     d = dict(vars(stats))
     d["tok_s_card"] = f"{dev['kind']} ({dev['smi']})"
     d["serve_wall_s"] = wall
@@ -313,8 +419,9 @@ def phase_serve(dev: dict) -> dict:
 @contextlib.contextmanager
 def plain_kernels():
     """Route ops' kernel entry points to the plain versions (the
-    consistency phase only)."""
-    saved = (ops.quant_matmul, ops.flash_attention, ops.flash_paged_decode)
+    consistency checks only)."""
+    saved = (ops.quant_matmul, ops.flash_attention, ops.flash_paged_decode,
+             ops.sr_quantize_segments)
 
     def qmm(x, codes, scale):
         return qm.quant_matmul_plain(x, codes, scale)
@@ -325,11 +432,16 @@ def plain_kernels():
     def dec(q, kp, vp, pt, ln):
         return fa.flash_decode_plain(q, kp, vp, pt.to(torch.int32), ln.to(torch.int32))
 
-    ops.quant_matmul, ops.flash_attention, ops.flash_paged_decode = qmm, attn, dec
+    def srq(w, offsets, s, delta, u):
+        return sq.sr_quant_segments_plain(w, offsets, s, delta, u)
+
+    (ops.quant_matmul, ops.flash_attention, ops.flash_paged_decode,
+     ops.sr_quantize_segments) = qmm, attn, dec, srq
     try:
         yield
     finally:
-        ops.quant_matmul, ops.flash_attention, ops.flash_paged_decode = saved
+        (ops.quant_matmul, ops.flash_attention, ops.flash_paged_decode,
+         ops.sr_quantize_segments) = saved
 
 
 def prefilled(cfg, policy, *, seed: int = 0, batch: int = 4, s_max: int = 256,
@@ -452,7 +564,228 @@ def phase_consistency() -> None:
                           "greedy_agreement": agree}})
 
 
-PHASES = ("device", "build", "kernels", "serve", "profile", "consistency")
+FL_SPECS = {
+    # examples/quickstart.py
+    "quickstart-mobilenet": dict(arch="mobilenet", rounds=10, batch=16,
+                                 options={"scheme": "fwq", "n_clients": 8, "lr": 0.08}),
+    # the resnet cells of the fl-codesign-grid sweep preset (fwq scheme)
+    "codesign-resnet": dict(arch="resnet", rounds=10, batch=16,
+                            options={"scheme": "fwq", "n_clients": 8, "lr": 0.2,
+                                     "error_tolerance": 4.5, "eval_every": 10}),
+}
+
+
+def _same(a, b) -> bool:
+    """Exact equality of nested host values (arrays, dicts, policies)."""
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(_same(a[k], b[k]) for k in a)
+    if hasattr(a, "to_dict"):
+        return a.to_dict() == b.to_dict()
+    a, b = np.asarray(a), np.asarray(b)
+    return a.shape == b.shape and bool((a == b).all())
+
+
+@contextlib.contextmanager
+def round_clock(rows: list):
+    """Per round: host-clock seconds of planning (channel draw, GBD
+    co-design, energy model) and of training (data to the card, K1, the
+    clients' gradients, the server step, the loss back), and K1 launches."""
+    from repro_torch.fed.orchestrator import FLOrchestrator
+    from repro_torch.fed.simulation import FLSimulation
+
+    plan, run = FLOrchestrator.plan_round, FLSimulation.run_round
+
+    def timed_plan(self, r):
+        t0 = time.perf_counter()
+        out = plan(self, r)
+        rows.append({"round": r, "t0": t0, "plan_s": time.perf_counter() - t0})
+        return out
+
+    def timed_run(self, *a, **kw):
+        k0, t0 = ops.LAUNCHES["sr_quant"], time.perf_counter()
+        out = run(self, *a, **kw)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        rows[-1].update(train_s=t1 - t0, round_s=t1 - rows[-1].pop("t0"),
+                        k1_launches=ops.LAUNCHES["sr_quant"] - k0)
+        return out
+
+    FLOrchestrator.plan_round, FLSimulation.run_round = timed_plan, timed_run
+    try:
+        yield
+    finally:
+        FLOrchestrator.plan_round, FLSimulation.run_round = plan, run
+
+
+def _fl_sim(device: str, n_clients: int = 8):
+    """The quickstart's mobilenet FLSimulation and its round-0 batch."""
+    from repro_torch.data import ClientBatcher, SyntheticImages, dirichlet_partition
+    from repro_torch.fed.simulation import FLSimulation, SimConfig
+    from repro_torch.models import cnn
+
+    model = cnn.mobilenet(width=8, n_stages=2)
+    sim = FLSimulation(cnn.xent_loss(model), model.init,
+                       SimConfig(n_clients=n_clients, lr=0.08, seed=0), device=device)
+    imgs, labels = SyntheticImages(n=2048, hw=16, seed=0).generate()
+    parts = dirichlet_partition(labels, n_clients, alpha=0.5, seed=0)
+    x, y = ClientBatcher(imgs, labels, parts, batch=16, seed=0).sample_round(
+        0, np.arange(n_clients))
+    return sim, {"x": torch.as_tensor(x, device=device), "y": torch.as_tensor(y, device=device)}
+
+
+FL_BITS = np.array([16, 8, 16, 16, 16, 8, 8, 16])     # the quickstart's GBD choice
+
+
+def check_fl_round(device: str = "cuda") -> None:
+    """One FWQ round from the same parameters and the same uniforms, through
+    K1 and through the plain version on the card, and through the plain
+    version on the CPU."""
+    from repro_torch.core.fwq import delta_for_clients
+    from repro_torch.core.quantization import quantize_clients
+
+    sim, batch = _fl_sim(device)
+    bits = FL_BITS
+    u = sim.round_uniforms(0, len(bits))
+    delta = delta_for_clients(bits).to(device)
+    q_kernel = quantize_clients(sim.params, delta, u)
+    with plain_kernels():
+        q_plain = quantize_clients(sim.params, delta, u)
+    for p, q in q_kernel.items():
+        if not torch.equal(q, q_plain[p]):
+            raise AssertionError(f"fl round: K1's quantized {p} differs from the plain "
+                                 "version's")
+    start = {k: v.clone() for k, v in sim.params.items()}
+    after, losses = {}, {}
+    for label, ctx in (("kernel", contextlib.nullcontext()), ("plain", plain_kernels())):
+        params = {k: v.clone() for k, v in start.items()}
+        sim.load_state({"params": params, "opt": sim.opt.init(params)}, 0)
+        with ctx:
+            losses[label] = sim.run_round(batch, bits)["loss"]
+        after[label] = sim.params
+    cpu_sim, _ = _fl_sim("cpu")
+    cpu_params = {k: v.cpu() for k, v in start.items()}
+    cpu_sim.load_state({"params": cpu_params, "opt": cpu_sim.opt.init(cpu_params)}, 0)
+    cpu_sim.round_uniforms = lambda r, n: u.cpu()
+    losses["cpu"] = cpu_sim.run_round({k: v.cpu() for k, v in batch.items()}, bits)["loss"]
+    after["cpu"] = {k: v.to(device) for k, v in cpu_sim.params.items()}
+    err = {}
+    for label in ("plain", "cpu"):
+        for k, v in after["kernel"].items():
+            torch.testing.assert_close(v, after[label][k], rtol=1e-5, atol=1e-5)
+        err[label] = max(float((v - after[label][k]).abs().max())
+                         for k, v in after["kernel"].items())
+    out = {"quantized_bit_equal": True, "tol": 1e-5, "losses": losses,
+           "max_abs_param_diff": err}
+    emit({"fl_round_kernel_vs_plain": out})
+
+
+def profile_fl_round(dev: dict, gbd_s: list, device: str = "cuda") -> None:
+    """Where one round's time goes: host clock of the training part, and the
+    device time by kernel and copy from ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sim, batch = _fl_sim(device)
+    for _ in range(2):                                   # warm up
+        sim.run_round(batch, FL_BITS)
+    n, t0 = 5, time.perf_counter()
+    for _ in range(n):
+        sim.run_round(batch, FL_BITS)
+    torch.cuda.synchronize()
+    train_ms = (time.perf_counter() - t0) * 1e3 / n
+    # the quantization step alone: scales, offsets, the concatenation and K1
+    from repro_torch.core.fwq import delta_for_clients
+    from repro_torch.core.quantization import quantize_clients
+
+    delta = delta_for_clients(FL_BITS).to(device)
+    u = sim.round_uniforms(0, len(FL_BITS))
+    t0 = time.perf_counter()
+    for _ in range(n):
+        quantize_clients(sim.params, delta, u)
+    torch.cuda.synchronize()
+    quant_ms = (time.perf_counter() - t0) * 1e3 / n
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        sim.run_round(batch, FL_BITS)
+        torch.cuda.synchronize()
+    per: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            acc = per.setdefault(e.name, [0.0, 0])
+            acc[0] += e.time_range.elapsed_us() / 1e3
+            acc[1] += 1
+    device_ms = sum(v[0] for v in per.values())
+    k1 = sum(v[0] for k, v in per.items() if "sr_quant" in k)
+    copies = sum(v[0] for k, v in per.items() if "memcpy" in k.lower())
+    n_copy = sum(v[1] for k, v in per.items() if "memcpy" in k.lower())
+    rows = sorted(((v[0], v[1], k) for k, v in per.items()), reverse=True)
+    emit({"fl_profile": {
+        "card": f"{dev['kind']} ({dev['smi']})", "model": "mobilenet", "clients": 8,
+        "batch": 16, "train_ms_host_clock": train_ms, "quantize_ms_host_clock": quant_ms,
+        "gbd_solve_s_host_clock": gbd_s,
+        "device_ms": device_ms if rows else "not measured",
+        "device_busy_share": device_ms / train_ms if rows else "not measured",
+        "k1_ms": k1, "memcpy_ms": copies, "memcpy_count": n_copy,
+        "kernel_launches": sum(v[1] for v in per.values()),
+        "top": [{"ms": ms, "count": c, "name": k[:70]} for ms, c, k in rows[:10]]}})
+
+
+def phase_fl(dev: dict, device: str = "cuda") -> int:
+    """The paper's loop on the card; returns its K1 launches."""
+    from repro_torch.api import RunSpec, Session
+
+    outs, clocks = {}, {}
+    ops.reset_launches()
+    for name, spec in FL_SPECS.items():
+        rows: list = []
+        t0 = time.time()
+        with round_clock(rows):
+            out = Session(RunSpec(workload="fl-sim", seed=0, **spec), device=device).run()
+        wall = time.time() - t0
+        hist, elog = out["history"], out["energy_log"]
+        assert len(hist) == spec["rounds"] == len(rows), (len(hist), len(rows))
+        for h, e, r in zip(hist, elog, rows):
+            assert np.isfinite(h["loss"]) and np.isfinite(h["client_loss"]).all(), h
+            assert r["k1_launches"] == 1, f"{name} round {h['round']}: {r}"
+            print(f"fl {name} round {h['round']}: loss {h['loss']:.4f} energy "
+                  f"{e['energy_round']:.3f} J bits {sorted(set(h['bits'].tolist()))} "
+                  f"cohort {h['cohort_size']} host {r['round_s'] * 1e3:.1f} ms "
+                  f"(plan {r['plan_s'] * 1e3:.1f}, train {r['train_s'] * 1e3:.1f}) "
+                  f"K1 launches {r['k1_launches']}")
+        assert hist[-1]["loss"] < hist[0]["loss"], [h["loss"] for h in hist]
+        emit({"fl": {"spec": name, "card": f"{dev['kind']} ({dev['smi']})",
+                     "rounds": len(hist), "wall_s": wall,
+                     "total_energy_j": out["total_energy_j"],
+                     "total_time_s_simulated": out["total_time_s"],
+                     "losses": [h["loss"] for h in hist], "evals": out["evals"],
+                     "round_s": [r["round_s"] for r in rows],
+                     "plan_s": [r["plan_s"] for r in rows],
+                     "train_s": [r["train_s"] for r in rows]}})
+        outs[name], clocks[name] = out, rows
+    launches = dict(ops.LAUNCHES)
+    n_rounds = sum(spec["rounds"] for spec in FL_SPECS.values())
+    assert launches["sr_quant"] == n_rounds, launches
+
+    # the host math (channel, GBD, energy, cohorts) is the CPU's: a CPU run
+    # of the same spec must plan the first rounds exactly alike
+    for name, spec in FL_SPECS.items():
+        cpu = Session(RunSpec(workload="fl-sim", seed=0, **{**spec, "rounds": 3}),
+                      device="cpu").run()
+        for r in range(3):
+            g, c = outs[name]["energy_log"][r], cpu["energy_log"][r]
+            gh, ch = outs[name]["history"][r], cpu["history"][r]
+            if not (_same(g, c) and _same(gh["bits"], ch["bits"])
+                    and gh["cohort_size"] == ch["cohort_size"]):
+                raise AssertionError(f"fl {name} round {r}: the card's run planned "
+                                     "differently from the CPU run")
+        print(f"fl {name}: energy log, bits and cohorts of rounds 0-2 equal the CPU run's")
+    check_fl_round(device)
+    # rounds 0 and 5 re-solve the co-design (resolve_every = 5)
+    gbd_s = [r["plan_s"] for rows in clocks.values() for r in rows if r["round"] % 5 == 0]
+    profile_fl_round(dev, gbd_s, device)
+    return launches["sr_quant"]
+
+
+PHASES = ("device", "build", "kernels", "serve", "profile", "consistency", "fl")
 
 
 def main(argv=None) -> int:
@@ -473,6 +806,8 @@ def main(argv=None) -> int:
         phase_profile(dev)
     if "consistency" in phases:
         phase_consistency()
+    if "fl" in phases:
+        launches["sr_quant"] = phase_fl(dev)
     rows = []
     for name, meta in KERNELS.items():
         r = table.get(name, {})

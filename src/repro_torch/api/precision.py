@@ -138,9 +138,9 @@ class PrecisionPolicy:
 
     def delta(self, n: int):
         """(n,) traced SR resolutions ``s * Delta_{q_i}`` for the trainer."""
-        raise NotImplementedError(
-            "PrecisionPolicy.delta needs core/fwq.py, which the fl-sim slice "
-            "ports (ROADMAP queue 1, item 5)")
+        from repro_torch.core.fwq import delta_for_clients
+
+        return delta_for_clients(self.bits_vector(n))
 
     def weight_storage_dtype(self):
         """Packed-code dtype the kernel sees (int8 / int16 / int32)."""

@@ -1,4 +1,5 @@
-"""Session: the front door of the port (the ``serve`` workload so far).
+"""Session: the front door of the port (the ``serve`` and ``fl-sim``
+workloads so far).
 
 ``Session(RunSpec(...), device=None)`` owns the model, the axis context and
 the precision plumbing for one spec and runs on ``device`` — ``"cuda"``
@@ -12,8 +13,13 @@ it raises; nothing falls back to the CPU::
 
 ``serve`` options: ``steps``, ``s_max``, ``prompt_len``, ``attn_impl``,
 ``requests``, ``max_new``, ``kv_layout``, ``page_size``, ``pool_pages``,
-``vary_prompt``, ``precision_program``, ``quiet``.  The other workloads
-(``train``, ``fl-orchestrate``, ``fl-sim``, ``dryrun``) are not ported yet.
+``vary_prompt``, ``precision_program``, ``quiet``.
+
+``fl-sim`` options (the paper's loop, :meth:`Session.run_fl_sim`):
+``scheme``, ``n_clients``, ``lr``, ``error_tolerance``, ``eval_every``,
+``faults``, ``resolve_drift_db``, ``precision_program``, ``model_dim_d``,
+``grad_bytes``; ``ckpt_dir`` raises until checkpoints are ported.  The other
+workloads (``train``, ``fl-orchestrate``, ``dryrun``) are not ported yet.
 """
 
 from __future__ import annotations
@@ -79,7 +85,7 @@ def resolve_device(device) -> torch.device:
 def _not_ported(workload: str):
     return NotImplementedError(
         f"workload {workload!r} is not ported to PyTorch yet (ROADMAP queue 1: "
-        "fl-sim is items 3-7, the pod trainer item 8, dryrun item 13)")
+        "the pod trainer and fl-orchestrate are item 8, dryrun item 13)")
 
 
 class Session:
@@ -141,6 +147,8 @@ class Session:
     def run(self):
         if self.spec.workload == "serve":
             return self.serve()
+        if self.spec.workload == "fl-sim":
+            return self.run_fl_sim()
         raise _not_ported(self.spec.workload)
 
     # ------------------------------------------------------------------
@@ -470,3 +478,66 @@ class Session:
                 f"{kv_bytes_contig/1e6:.2f} MB contiguous")
         say(f"sample: {stats.sample}")
         return stats
+
+    # ------------------------------------------------------------------
+    # fl-sim: the paper's CIFAR-class experiment loop
+    # ------------------------------------------------------------------
+    def run_fl_sim(self) -> dict:
+        """FLSimulation (Algorithm 1, one K1 launch a round) + the GBD
+        orchestrator, CNN-scale, on the session's device."""
+        from repro_torch.core.energy import heterogeneous_fleet, memory_capacities
+        from repro_torch.data import ClientBatcher, SyntheticImages, dirichlet_partition
+        from repro_torch.fed.orchestrator import FLOrchestrator, OrchestratorConfig
+        from repro_torch.fed.simulation import FLSimulation, SimConfig
+        from repro_torch.models.cnn import mobilenet, resnet, xent_loss
+
+        spec, dev = self.spec, self.device
+        o = spec.options
+        n_clients = int(o.get("n_clients", 8))
+        seed = spec.seed
+        if spec.arch == "resnet":
+            model = resnet(depth_blocks=(1, 1), width=8)
+        elif spec.arch == "mobilenet":
+            model = mobilenet(width=8, n_stages=2)
+        else:
+            raise ValueError(f"fl-sim arch must be one of {SIM_ARCHS}, "
+                             f"got {spec.arch!r}")
+        loss = xent_loss(model)
+        sim = FLSimulation(loss, model.init,
+                           SimConfig(n_clients=n_clients,
+                                     lr=float(o.get("lr", 0.08)), seed=seed),
+                           device=dev)
+        imgs, labels = SyntheticImages(n=2048, hw=16, seed=seed).generate()
+        parts = dirichlet_partition(labels, n_clients, alpha=0.5, seed=seed)
+        batcher = ClientBatcher(imgs, labels, parts, batch=spec.batch,
+                                seed=seed)
+        fleet = heterogeneous_fleet(n_clients, seed=seed, group_step_mhz=5.0)
+        caps = memory_capacities(n_clients, lo_mb=2.0, hi_mb=8.0) * 1e6
+        orch = FLOrchestrator(
+            OrchestratorConfig(
+                n_devices=n_clients, n_rounds=spec.rounds,
+                scheme=o.get("scheme", "fwq"),
+                model_dim_d=int(o.get("model_dim_d", 1 << 16)),
+                error_tolerance=float(o.get("error_tolerance", 4.5)),
+                precision=self.policy, seed=seed,
+                faults=o.get("faults"),
+                program=o.get("precision_program"),
+                resolve_drift_db=float(o.get("resolve_drift_db", 0.0)),
+                ckpt_dir=str(o.get("ckpt_dir", "")),
+                ckpt_every=int(o.get("ckpt_every", 10))),
+            fleet, caps, grad_bytes=float(o.get("grad_bytes", 1e6)))
+
+        def batch_fn(r, cohort):
+            x, y = batcher.sample_round(r, cohort)
+            return {"x": torch.as_tensor(x, device=dev), "y": torch.as_tensor(y, device=dev)}
+
+        eval_every = int(o.get("eval_every", 0))
+        eval_fn = None
+        if eval_every:
+            eimgs, elabels = SyntheticImages(n=512, hw=16,
+                                             seed=seed + 999).generate()
+            ebatch = {"x": torch.as_tensor(eimgs, device=dev),
+                      "y": torch.as_tensor(elabels, device=dev)}
+            eval_fn = lambda s: s.evaluate(loss, ebatch)  # noqa: E731
+
+        return orch.run(sim, batch_fn, eval_fn=eval_fn, eval_every=eval_every)

@@ -1,0 +1,204 @@
+"""FWQ-FL simulator (the paper-experiment path).
+
+One round = Algorithm 1 exactly: per-client SR tree-quantization at the
+clients' resolutions (one K1 launch for the whole cohort), gradients at the
+quantized weights, full-precision server SGD.  Clients are the leading
+dimension of the round's batch; the pod trainer is the multi-device twin of
+this (a later slice of the port).
+
+Randomness: the round's SR uniforms come from :meth:`FLSimulation.round_uniforms`,
+one ``(C, P)`` draw from a generator seeded by ``(seed, round)`` on the
+simulation's device.  PyTorch's generators cannot reproduce the reference's
+threefry bits, so that method is the one place a test replaces to feed the
+reference's own draws.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import Callable
+
+import numpy as np
+import torch
+
+from repro_torch.api.session import resolve_device
+from repro_torch.core.fwq import (
+    delta_for_clients,
+    make_fwq_apply,
+    make_fwq_client_grads,
+    make_fwq_round,
+)
+from repro_torch.core.quantization import quantizable_size
+from repro_torch.faults.executor import UpdateFaults, gate_mask, inject_corruption
+from repro_torch.optim import Optimizer, build_optimizer
+
+
+@dataclasses.dataclass
+class SimConfig:
+    n_clients: int
+    lr: float = 0.05
+    optimizer: str = "sgd"
+    momentum: float = 0.0
+    seed: int = 0
+
+
+@contextlib.contextmanager
+def ieee_f32():
+    """f32 convolutions in full f32 on the card: cuDNN would otherwise run
+    them in TF32 (about three decimal digits), which the reference does not."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+class FLSimulation:
+    """Stateful wrapper: holds params/opt, steps one FL round at a time."""
+
+    def __init__(self, loss_fn: Callable, init_fn: Callable, cfg: SimConfig, *,
+                 device=None):
+        """loss_fn(params, batch, rng) -> (loss, aux); init_fn(generator,
+        device) -> params.  ``device`` defaults to CUDA (raises without it)."""
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.opt: Optimizer = build_optimizer(cfg.optimizer, cfg.lr,
+                                              **({"momentum": cfg.momentum}
+                                                 if cfg.optimizer == "sgd" else {}))
+        gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        self.params = init_fn(gen, self.device)
+        self.opt_state = self.opt.init(self.params)
+        self._loss_fn = loss_fn
+        self._round = make_fwq_round(loss_fn, self.opt.update)
+        self._gated = None  # (grads_fn, apply_fn) — built on first fault use
+        self.round_idx = 0
+        self.history: list[dict] = []
+
+    def state(self):
+        return {"params": self.params, "opt": self.opt_state}
+
+    def load_state(self, state, round_idx: int):
+        self.params, self.opt_state = state["params"], state["opt"]
+        self.round_idx = round_idx
+
+    def round_uniforms(self, round_idx: int, n_clients: int) -> torch.Tensor:
+        """The round's SR uniforms: ``(n_clients, P)`` over the quantizable
+        leaves in leaf order, deterministic in ``(seed, round_idx)``."""
+        P = quantizable_size(self.params)[0]
+        seed = np.random.SeedSequence((self.cfg.seed, int(round_idx)))
+        gen = torch.Generator(device=self.device).manual_seed(
+            int(seed.generate_state(1, np.uint64)[0]))
+        return torch.rand((n_clients, P), generator=gen, device=self.device)
+
+    def run_round(self, batch, bits, *, faults: UpdateFaults | None = None,
+                  comm_bits: int | None = None) -> dict:
+        """batch: tensors with leading dim n_clients; bits: (n_clients,) ints
+        or a :class:`repro_torch.api.precision.PrecisionPolicy` whose weights
+        role covers exactly this round's cohort.
+
+        ``faults`` (from the resilient orchestrator) switches to the gated
+        two-phase round: per-client grads -> host-side payload corruption ->
+        aggregation gate (finite check + relative norm bound) -> masked
+        server step.  ``faults=None`` is the plain round.
+
+        ``comm_bits`` records this round's gradient wire bit-width in the
+        history row; it does not change the simulator's math (the round
+        aggregates in full precision per Algorithm 1).
+        """
+        n = next(iter(batch.values())).shape[0]
+        if hasattr(bits, "bits_vector"):  # PrecisionPolicy
+            if comm_bits is None:
+                comm_bits = int(bits.comm)
+            if bits.heterogeneous and len(bits.weights) != n:
+                # a device-indexed policy cannot be positionally mapped onto
+                # an elastic sub-cohort: the caller must select the cohort's
+                # bits itself (see FLOrchestrator.run)
+                raise ValueError(
+                    f"policy carries {len(bits.weights)} per-device bits but "
+                    f"the round batch has {n} clients; pass the cohort's own "
+                    "bits (policy.bits_vector(n_devices)[cohort_idx])")
+            bits = bits.bits_vector(n)
+        delta = delta_for_clients(np.asarray(bits)).to(self.device)
+        u = self.round_uniforms(self.round_idx, n)
+        with ieee_f32():
+            if faults is None:
+                self.params, self.opt_state, m = self._round(
+                    self.params, self.opt_state, batch, delta, u)
+                rec = {
+                    "round": self.round_idx,
+                    "loss": float(m.loss),
+                    "grad_norm_sq": float(m.grad_norm_sq),
+                    "client_loss": m.client_loss.cpu().numpy(),
+                    "bits": np.asarray(bits).copy(),
+                }
+            else:
+                rec = self._run_gated_round(batch, delta, u, bits, faults)
+        if comm_bits is not None:
+            rec["comm_bits"] = int(comm_bits)
+        self.history.append(rec)
+        self.round_idx += 1
+        return rec
+
+    def _run_gated_round(self, batch, delta, u, bits, faults: UpdateFaults) -> dict:
+        if self._gated is None:
+            self._gated = (make_fwq_client_grads(self._loss_fn),
+                           make_fwq_apply(self.opt.update))
+        grads_fn, apply_fn = self._gated
+        losses, grads, gsqs, finite = grads_fn(self.params, batch, delta, u)
+        norms_sq = gsqs.cpu().numpy().astype(np.float64)
+        finite = finite.cpu().numpy().astype(bool)
+
+        kinds = np.asarray(faults.kinds)
+        if (kinds > 0).any():
+            # pull per-client updates to the host, damage the flagged ones in
+            # their flattened-payload view (leaf order), and re-stage
+            paths = list(grads)
+            leaves = [grads[p].cpu().numpy().copy() for p in paths]
+            for ci in np.flatnonzero(kinds):
+                vec = np.concatenate([leaf[ci].ravel() for leaf in leaves])
+                vec = inject_corruption(vec, int(kinds[ci]), faults.rngs[ci])
+                off = 0
+                for leaf in leaves:
+                    size = leaf[ci].size
+                    leaf[ci] = vec[off:off + size].reshape(leaf[ci].shape)
+                    off += size
+                with np.errstate(over="ignore", invalid="ignore"):
+                    norms_sq[ci] = float(sum(
+                        np.sum(leaf[ci].astype(np.float64) ** 2)
+                        for leaf in leaves))
+                finite[ci] = all(np.isfinite(leaf[ci]).all() for leaf in leaves)
+            grads = {p: torch.from_numpy(leaf).to(self.device)
+                     for p, leaf in zip(paths, leaves)}
+
+        accept = gate_mask(norms_sq, finite, faults.gate_factor)
+        n_rejected = int((~accept).sum())
+        if accept.any():
+            self.params, self.opt_state, gnorm = apply_fn(
+                self.params, self.opt_state, grads,
+                torch.from_numpy(accept.astype(np.float32)).to(self.device))
+            gnorm = float(gnorm)
+            skipped = False
+        else:
+            # every update rejected: hold the global model for this round
+            gnorm = 0.0
+            skipped = True
+        return {
+            "round": self.round_idx,
+            "loss": float(losses.mean()),
+            "grad_norm_sq": gnorm,
+            "client_loss": losses.cpu().numpy(),
+            "bits": np.asarray(bits).copy(),
+            "accepted": accept,
+            "n_rejected": n_rejected,
+            "gate_skipped": skipped,
+        }
+
+    @torch.no_grad()
+    def evaluate(self, loss_fn, batch) -> dict:
+        with ieee_f32():
+            loss, aux = loss_fn(self.params, batch, None)
+        out = {"loss": float(loss)}
+        out.update({k: float(v) for k, v in aux.items()})
+        return out

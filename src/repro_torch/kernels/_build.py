@@ -36,7 +36,7 @@ LIB_NAME = "librepro_torch_kernels.so"
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.int16: 3}
 
 #: Kernel launches by name since the last :func:`reset_launches`.
-LAUNCHES = {"quant_matmul": 0, "flash_attention": 0, "flash_decode": 0}
+LAUNCHES = {"quant_matmul": 0, "flash_attention": 0, "flash_decode": 0, "sr_quant": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -48,6 +48,8 @@ _SIGNATURES = {
     # acc, m, l, B, KV, G, hd, page, n_pmax, stream
     "repro_flash_decode": (_P, _I, _P, _P, _I, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _P),
+    # w, offsets, s, d, u, out, P, L, C, ste, stream
+    "repro_sr_quant": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 _lib = None

@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import quant_matmul as qm
+from repro_torch.kernels import sr_quant as sq
 from repro_torch.kernels._build import LAUNCHES, reset_launches  # noqa: F401
 
 
@@ -27,6 +28,46 @@ def _route(t: torch.Tensor, kernel, plain):
     if t.device.type == "cpu":
         return plain
     raise ValueError(f"no kernel for tensors on {t.device}")
+
+
+def sr_quantize_segments(w: torch.Tensor, offsets: torch.Tensor, s: torch.Tensor,
+                         delta: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """SR of every (client, leaf) segment in one K1 call -> (C, P) f32.
+
+    ``w`` (P,) the leaves concatenated, ``offsets`` (L+1,) int32, ``s`` (L,)
+    per-leaf scales, ``delta`` (C,) per-client resolutions, ``u`` (C, P)
+    uniforms.  Element (c, p) of leaf l is ``core.quantization.sr_quantize``
+    of it at ``step = s[l] * delta[c]``: rounded, clipped to ``[-s, s]``,
+    ``step == 0`` bypassed, emitted as ``w + (q - w)``.
+    """
+    fn = _route(w, sq.sr_quant_segments_cuda, sq.sr_quant_segments_plain)
+    return fn(w.contiguous(), offsets.contiguous(), s.contiguous(), delta.contiguous(),
+              u.contiguous())
+
+
+def sr_quantize_fused(w: torch.Tensor, bits: int, u: torch.Tensor) -> torch.Tensor:
+    """Fake-quantize a 2-D weight with SR at ``bits`` (one K1 call).
+
+    The reference's ``kernels/ops.sr_quantize_fused`` with the uniforms ``u``
+    given: ``s = max(max|w|, 1e-30)``, rounded at pitch ``s / (2^bits - 1)``,
+    clipped to ``[-s, s]``, cast back to ``w.dtype``.  XLA compiles that
+    division by a constant into a multiplication by the constant's f32
+    reciprocal, so the pitch is ``s * fl32(1 / (2^bits - 1))`` here too —
+    bit-equal to the reference as it runs, and the same pitch formula as
+    ``core.quantization.sr_quantize``.
+    """
+    if w.ndim != 2 or u.shape != w.shape:
+        raise ValueError(f"sr_quantize_fused: w must be 2-D and u of its shape, got "
+                         f"{tuple(w.shape)} and {tuple(u.shape)}")
+    wf = w.to(torch.float32).reshape(-1)
+    s = torch.clamp(wf.abs().amax(), min=1e-30).reshape(1)
+    one = torch.ones(1, dtype=torch.float32)
+    delta = (one / torch.tensor([2.0**bits - 1.0], dtype=torch.float32)).to(w.device)
+    offsets = torch.tensor([0, wf.numel()], dtype=torch.int32, device=w.device)
+    fn = _route(w, sq.sr_quant_segments_cuda, sq.sr_quant_segments_plain)
+    q = fn(wf.contiguous(), offsets, s, delta,
+           u.to(torch.float32).reshape(1, -1).contiguous(), ste=False)
+    return q.reshape(w.shape).to(w.dtype)
 
 
 def quant_matmul(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:

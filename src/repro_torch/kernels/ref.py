@@ -14,6 +14,22 @@ import torch
 NEG_INF = -1e30
 
 
+def sr_quant_fake_plain(w: torch.Tensor, u: torch.Tensor, step) -> torch.Tensor:
+    """Stochastic rounding onto a grid of pitch ``step`` (paper Eq. 1).
+
+    ``w``, ``u`` f32 of one shape (``u ~ U[0,1)`` supplied by the caller, so
+    kernel and plain version share the randomness); ``step`` f32, a scalar or
+    broadcastable to ``w`` (``s * Delta_q``); ``step == 0`` returns ``w``.
+    No clip: the callers clamp to ``[-s, s]``.
+    """
+    step = torch.as_tensor(step, dtype=torch.float32, device=w.device)
+    safe = torch.where(step > 0, step, torch.ones_like(step))
+    t = w / safe
+    lower = torch.floor(t)
+    q = (lower + (u < (t - lower)).to(w.dtype)) * safe
+    return torch.where(step > 0, q, w)
+
+
 def quant_matmul_ref(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
                      out_dtype=torch.float32) -> torch.Tensor:
     """x (M,K) @ dequant(codes (K,N) int8/int16; w = codes*scale) -> (M,N)."""

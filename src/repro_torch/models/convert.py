@@ -43,6 +43,18 @@ def params_from_jax(tree, *, device=None) -> dict:
     return out
 
 
+def cnn_params_from_jax(tree, *, device=None) -> dict:
+    """A reference CNN param tree (``repro.models.cnn``) as the port's flat
+    dict: the same ``"a/b"`` paths, conv kernels (4-D) turned from HWIO into
+    ``(out, in/groups, kh, kw)``.  Any tree of the same structure converts
+    the same way (the tests pass the reference's SR uniforms through it)."""
+    out = params_from_jax(tree)
+    for path, t in out.items():
+        if t.ndim == 4:
+            out[path] = t.permute(3, 2, 0, 1).contiguous()
+    return {p: t.to(device) for p, t in out.items()}
+
+
 def caches_from_jax(cache, *, device=None):
     """A reference ``KVCache``/``PagedKVCache`` (any leading dims) as the
     port's cache of the same layout."""

@@ -162,9 +162,17 @@ def test_port_imports_no_jax_or_reference():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
-        "print('LOADED', len([m for m in sys.modules if m.startswith('repro_torch')]))\n"
+        "print('LOADED', ' '.join(m for m in sys.modules if m.startswith('repro_torch')))\n"
         "assert not bad, bad\n")
     out = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
                          timeout=120, env={**os.environ, "PYTHONPATH": ""})
     assert out.returncode == 0, out.stdout + out.stderr
-    assert int(out.stdout.split("LOADED")[1]) >= 20
+    loaded = set(out.stdout.split("LOADED")[1].split())
+    assert len(loaded) >= 60
+    fl_slice = {f"repro_torch.{m}" for m in (
+        "core.fwq", "core.gbd", "core.primal", "core.master", "core.baselines",
+        "core.channel", "core.energy", "core.convergence", "data.synthetic",
+        "data.partition", "data.pipeline", "faults.plan", "faults.executor",
+        "dist.wire", "fed.simulation", "fed.orchestrator", "kernels.sr_quant",
+        "models.cnn", "optim.optimizers", "optim.schedules", "launch.fl")}
+    assert fl_slice <= loaded, sorted(fl_slice - loaded)
