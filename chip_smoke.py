@@ -9,10 +9,10 @@ Phases (each one failing stops the script with a nonzero exit):
 1. device: the card's name and power limit; TF32 switched off.
 2. build: compile ``src/repro_torch/csrc/*.cu`` (nvcc, sm_90a) and print the
    build time and the ptxas register/spill report.
-3. kernels: every kernel (K1 sr_quant, K3 quant_matmul, K4 flash_attention,
-   K5 flash_decode) against its plain PyTorch version on the card, at the
-   shapes of its path, with times beside the plain version, one library
-   call where one computes the same function, and the card's bound.
+3. kernels: every kernel (K1 sr_quant, K2 sr_pack, K3 quant_matmul, K4
+   flash_attention, K5 flash_decode) against its plain PyTorch version on the
+   card, at the shapes of its path, with times beside the plain version, one
+   library call where one computes the same function, and the card's bound.
 4. serve: ``Session.serve`` of full-width, full-depth yi-6b with int8 weights,
    paged f32 KV and continuous batching; the launch counters are zeroed just
    before and read just after, and every kernel must have launched.
@@ -26,6 +26,13 @@ Phases (each one failing stops the script with a nonzero exit):
    against a CPU run of the same specs (host math exactly equal), one round
    run through K1 and through the plain version (quantized parameters
    bit-equal), and profiled.
+8. train: the pod trainer (``Session.run_train``) on full-width yi-6b cut to
+   8 layers, a 4x1 mesh (4 clients on the card): 3 rounds of
+   ``fl-orchestrate`` (scheme unified_q, int16 SR gradient wire) and 2 rounds of
+   ``train`` at fixed 8-bit weights (int8 wire); per round the loss, plan,
+   step time, K1/K2 launches and peak memory; exactly one K2 launch a step;
+   K2 against its plain version on a step's real replicated gradients; the
+   rounds' plans against a CPU run of the same orchestrator.
 
 The last two lines are the kernel table and ``{"ok": true, "device": ...}``.
 ``--phases`` runs a subset (for iterating on one kernel).
@@ -60,6 +67,8 @@ PEAK_OPS_S = {torch.bfloat16: 989e12, torch.float32: 67e12}   # dense bf16 / FP3
 KERNELS = {
     "sr_quant": dict(route="cuda", source="src/repro_torch/csrc/sr_quant.cu",
                      replaces="src/repro/kernels/sr_quant.py:59"),
+    "sr_pack": dict(route="cuda", source="src/repro_torch/csrc/sr_quant.cu",
+                    replaces="src/repro/kernels/sr_quant.py:72"),
     "quant_matmul": dict(route="cuda", source="src/repro_torch/csrc/quant_matmul.cu",
                          replaces="src/repro/kernels/quant_matmul.py:83"),
     "flash_attention": dict(route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
@@ -373,12 +382,71 @@ def check_sr_quant(table: dict) -> None:
             table["sr_quant"] = row
 
 
+#: The wire leaves of a yi-6b train step at 8 layers on a 4x1 mesh: the
+#: reference FSDP-shards every matrix, so only the norm scales (ln1, ln2 of
+#: every layer, final_norm) cross the SR wire.
+TRAIN_WIRE_SIZES = [8 * 4096, 8 * 4096, 4096]
+
+
+def check_sr_pack(table: dict) -> None:
+    """K2 against its plain version with atol 0 at the train step's wire
+    shape and three large shapes, for bits 4, 7 and 8 with a pitch that
+    makes the clip bite; then times at each case's own bits."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    cases = [("train step wire, int16", TRAIN_WIRE_SIZES, 4, torch.int16, 8),
+             ("1024x1024, int8", [1024 * 1024], 1, torch.int8, 7),
+             ("4096x11008, int8", [4096 * 11008], 1, torch.int8, 7),
+             ("4096x11008, int16", [4096 * 11008], 1, torch.int16, 8)]
+    for label, sizes, C, dtype, case_bits in cases:
+        P, L = sum(sizes), len(sizes)
+        g = torch.randn((C, P), generator=gen, device="cuda") * 0.01
+        u = torch.rand((C, P), generator=gen, device="cuda")
+        offsets = torch.tensor([0, *itertools.accumulate(sizes)], dtype=torch.int32,
+                               device="cuda")
+        s = torch.stack([g[:, a:b].abs().amax() for a, b in
+                         zip(offsets[:-1].tolist(), offsets[1:].tolist())])
+        for bits in (4, 7, 8):
+            lim = 2**bits - 1
+            step = s * 0.9 / lim                    # |t| reaches past lim: clipped
+            got = sq.sr_pack_segments_cuda(g, offsets, step, u, lim, dtype)
+            want = sq.sr_pack_segments_plain(g, offsets, step, u, lim, dtype)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                bad = int((got != want).sum())
+                raise AssertionError(f"sr_pack {label} bits={bits}: {bad} codes differ "
+                                     "from the plain version")
+            top = min(lim, torch.iinfo(dtype).max)
+            if not bool((got.abs() == top).any()):
+                raise AssertionError(f"sr_pack {label} bits={bits}: no code at the clip")
+        lim = 2**case_bits - 1
+        args = (g, offsets, s / lim, u, lim, dtype)
+        got = sq.sr_pack_segments_cuda(*args)
+        want = sq.sr_pack_segments_plain(*args)
+        torch.cuda.synchronize()
+        # g and u read once, the codes written once, offsets and steps once
+        nbytes = 8 * C * P + C * P * got.element_size() + 4 * (2 * L + 1)
+        b_ms, b_by = bound_ms(nbytes, 0.0, torch.float32)
+        iters = 10 if P > 1e7 else 50
+        row = dict(kernel="sr_pack", case=label, clients=C, leaves=L, P=P,
+                   bits=case_bits, codes=str(dtype),
+                   max_abs_err=float((got.float() - want.float()).abs().max()),
+                   kernel_ms=time_ms(sq.sr_pack_segments_cuda, [args], iters=iters),
+                   plain_ms=time_ms(sq.sr_pack_segments_plain, [args], iters=3),
+                   library_ms=None, bound_ms=b_ms, bound_by=b_by)
+        emit(row)
+        if label.startswith("train step"):
+            table["sr_pack"] = row
+        del g, u
+    print("sr_pack: bit-equal to the plain version in every case (atol 0)")
+
+
 def phase_kernels(table: dict) -> None:
     check_sr_quant(table)
+    check_sr_pack(table)
     check_quant_matmul(table)
     check_flash_attention(table)
     check_flash_decode(table)
-    print("kernels: all four agree with their plain versions")
+    print("kernels: all five agree with their plain versions")
 
 
 def phase_serve(dev: dict) -> dict:
@@ -785,7 +853,200 @@ def phase_fl(dev: dict, device: str = "cuda") -> int:
     return launches["sr_quant"]
 
 
-PHASES = ("device", "build", "kernels", "serve", "profile", "consistency", "fl")
+TRAIN_RUNS = {
+    # the paper's loop on the pod trainer, comm 8 -> int16 codes.  Scheme
+    # unified_q (16 bits a client, bandwidth and energy by the co-design's
+    # primal): the fleet's 8-64 MB device memories hold no bit-width of a
+    # 1.9 B-parameter model, so fwq's GBD (and rand_q) have no feasible
+    # point here, in the reference as in the port (ROADMAP §3)
+    "fl-orchestrate": dict(workload="fl-orchestrate", rounds=3,
+                           precision=dict(comm=8), options={"scheme": "unified_q"}),
+    # fixed 8-bit weights, comm 4 -> int8 codes (4 x 15 = 60)
+    "train": dict(workload="train", rounds=2, precision=dict(weights=8, comm=4),
+                  options={}),
+}
+
+
+def _train_session(run: dict, device: str):
+    """A yi-6b Session at full width with the depth cut to 8 layers (as phase
+    ``consistency`` cuts its model), on a 4x1 mesh: 4 clients, batch 2 each,
+    sequence 512, lr 0.05."""
+    import dataclasses
+
+    from repro_torch.api import PrecisionPolicy, RunSpec, Session
+    from repro_torch.configs import get_config
+
+    spec = RunSpec("yi-6b", workload=run["workload"], mesh="4x1", smoke=False, seed=0,
+                   batch=2, seq=512, rounds=run["rounds"],
+                   precision=PrecisionPolicy(**run["precision"]),
+                   options={"lr": 0.05, "quiet": True, **run["options"]})
+    sess = Session(spec, device=device)
+    sess.cfg = dataclasses.replace(get_config("yi-6b"), n_layers=8)
+    return sess
+
+
+@contextlib.contextmanager
+def train_clock(rows: list):
+    """Per round of the pod trainer: host-clock planning (the orchestrator)
+    and step time, K1/K2 launches, peak device memory; and the last K2 call's
+    inputs (a step's real replicated gradients), copied."""
+    from repro_torch.api.session import Session
+    from repro_torch.fed.orchestrator import FLOrchestrator
+
+    plan, fl_round, pack = FLOrchestrator.plan_round, Session.fl_round, ops.sr_pack_segments
+
+    def timed_plan(self, r):
+        t0 = time.perf_counter()
+        out = plan(self, r)
+        rows[-1]["plan_s"] = time.perf_counter() - t0
+        return out
+
+    def timed_round(self, r):
+        torch.cuda.reset_peak_memory_stats()
+        rows.append({"round": r, "plan_s": 0.0})
+        k1, k2, t0 = ops.LAUNCHES["sr_quant"], ops.LAUNCHES["sr_pack"], time.perf_counter()
+        rec = fl_round(self, r)
+        torch.cuda.synchronize()
+        rows[-1].update(round_s=time.perf_counter() - t0,
+                        k1_launches=ops.LAUNCHES["sr_quant"] - k1,
+                        k2_launches=ops.LAUNCHES["sr_pack"] - k2,
+                        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        rows[-1]["step_s"] = rows[-1]["round_s"] - rows[-1]["plan_s"]
+        return rec
+
+    def recording_pack(*args):
+        rows[-1]["k2_args"] = tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+        return pack(*args)
+
+    FLOrchestrator.plan_round, Session.fl_round = timed_plan, timed_round
+    ops.sr_pack_segments = recording_pack
+    try:
+        yield
+    finally:
+        FLOrchestrator.plan_round, Session.fl_round = plan, fl_round
+        ops.sr_pack_segments = pack
+
+
+def profile_train_round(dev: dict, sess, r: int) -> None:
+    """Where one warm train round's time goes: host clock, and the device
+    time by kernel family from ``torch.profiler`` (an extra round, after the
+    counted ones)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sess.fl_round(r)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    per: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            acc = per.setdefault(e.name, [0.0, 0])
+            acc[0] += e.time_range.elapsed_us() / 1e3
+            acc[1] += 1
+    families = {"K1 sr_quant": ("sr_quant_kernel",), "K2 sr_pack": ("sr_pack_kernel",),
+                "matmul (cuBLAS)": ("gemm", "xmma", "cutlass", "cublas", "nvjet"),
+                "uniforms (Philox)": ("philox", "uniform", "distribution"),
+                "copies": ("memcpy", "memset")}
+    fam: dict = {}
+    for name, (ms, n) in per.items():
+        key = next((f for f, keys in families.items()
+                    if any(k in name.lower() for k in keys)), "other (elementwise, "
+                   "reductions, softmax, casts)")
+        acc = fam.setdefault(key, [0.0, 0])
+        acc[0] += ms
+        acc[1] += n
+    device_ms = sum(v[0] for v in per.values())
+    rows = sorted(((v[0], v[1], k) for k, v in per.items()), reverse=True)
+    emit({"train_profile": {
+        "card": f"{dev['kind']} ({dev['smi']})", "round": r, "host_ms": host_ms,
+        "device_ms": device_ms if rows else "not measured",
+        "device_busy_share": device_ms / host_ms if rows else "not measured",
+        "device_ops": sum(v[1] for v in per.values()),
+        "families": {k: {"ms": v[0], "count": v[1]} for k, v in
+                     sorted(fam.items(), key=lambda kv: -kv[1][0])},
+        "top": [{"ms": ms, "count": c, "name": k[:70]} for ms, c, k in rows[:12]]}})
+
+
+def phase_train(dev: dict) -> dict:
+    """The pod trainer on the card; returns its K1 and K2 launches."""
+    from repro_torch.core.quantization import FULL_PRECISION_BITS
+
+    launches = {"sr_quant": 0, "sr_pack": 0}
+    k2_inputs = None
+    for name, run in TRAIN_RUNS.items():
+        rows: list = []
+        sess = _train_session(run, "cuda")
+        t0 = time.time()
+        sess._ensure_train_state()          # set-up: weights, tokens, planner
+        torch.cuda.synchronize()
+        setup_s = time.time() - t0
+        ops.reset_launches()
+        t0 = time.time()
+        with train_clock(rows):
+            hist = sess.run_train()
+        wall = time.time() - t0
+        got = dict(ops.LAUNCHES)
+        for k in launches:
+            launches[k] += got[k]
+        assert sess.cfg.n_layers == 8 and sess.cfg.d_model == 4096, sess.cfg
+        assert len(hist) == run["rounds"] == len(rows), (len(hist), len(rows))
+        comm = int(run["precision"]["comm"])
+        for h, r in zip(hist, rows):
+            assert np.isfinite(h["loss"]), h
+            assert h["comm_bits"] == comm < FULL_PRECISION_BITS, h
+            # one K2 launch a step packs every (client, wire leaf) segment
+            assert r["k2_launches"] == 1, f"{name} round {h['round']}: {r}"
+            assert r["k1_launches"] > 0, r
+            print(f"train {name} round {h['round']}: loss {h['loss']:.4f} bits "
+                  f"{sorted(set(h['bits']))} energy {h['energy_j']:.3f} J cohort "
+                  f"{h['cohort']} plan {r['plan_s'] * 1e3:.1f} ms step "
+                  f"{r['step_s'] * 1e3:.1f} ms K1 launches {r['k1_launches']} K2 launches "
+                  f"{r['k2_launches']} peak {r['peak_mem_gb']:.2f} GB")
+        k2_args = rows[-1]["k2_args"]
+        want_dtype = torch.int16 if comm == 8 else torch.int8
+        assert k2_args[-1] == want_dtype, (name, k2_args[-1])
+        if name == "fl-orchestrate":
+            k2_inputs = k2_args
+            orch_log = sess._train_state["orch"].energy_log
+        emit({"train": {
+            "run": name, "card": f"{dev['kind']} ({dev['smi']})", "layers": 8,
+            "d_model": 4096, "mesh": "4x1", "batch_per_client": 2, "seq": 512,
+            "comm_bits": comm, "wire_codes": str(want_dtype), "setup_s": setup_s,
+            "wall_s": wall,
+            "losses": [h["loss"] for h in hist], "launches": got,
+            "comm_report": {k: v for k, v in sess.comm_report().items() if k != "rounds"},
+            "rounds": [{k: v for k, v in r.items() if k != "k2_args"} for r in rows]}})
+        if name == "train":
+            profile_train_round(dev, sess, run["rounds"])
+        del sess, rows
+        torch.cuda.empty_cache()
+    # K2 on a step's real replicated gradients (outside the counted runs)
+    g, offsets, step, u, lim, dtype = k2_inputs
+    codes = sq.sr_pack_segments_cuda(g, offsets, step, u, lim, dtype)
+    if not torch.equal(codes, sq.sr_pack_segments_plain(g, offsets, step, u, lim, dtype)):
+        raise AssertionError("train: K2 on a step's replicated gradients differs from "
+                             "the plain version")
+    print(f"train: K2 bit-equal to the plain version on a step's wire ({tuple(g.shape)} "
+          f"gradients, {offsets.numel() - 1} leaves, {dtype})")
+    # the host math (channel, GBD, energy, cohorts) is the CPU's: the same
+    # orchestrator planned on the CPU must give the same rounds
+    cpu_orch = _train_session(TRAIN_RUNS["fl-orchestrate"], "cpu").orchestrator(4)
+    for r, g_rec in enumerate(orch_log):
+        c_rec = cpu_orch.plan_round(r)
+        if not _same({k: v for k, v in g_rec.items() if k != "policy"},
+                     {k: v for k, v in c_rec.items() if k != "policy"}) or \
+                g_rec["policy"].to_dict() != c_rec["policy"].to_dict():
+            raise AssertionError(f"train fl-orchestrate round {r}: the card's run "
+                                 "planned differently from the CPU run")
+    print(f"train fl-orchestrate: plans of rounds 0-{len(orch_log) - 1} (bits, energy, "
+          "cohorts) equal the CPU run's")
+    return launches
+
+
+PHASES = ("device", "build", "kernels", "serve", "profile", "consistency", "fl", "train")
 
 
 def main(argv=None) -> int:
@@ -808,6 +1069,11 @@ def main(argv=None) -> int:
         phase_consistency()
     if "fl" in phases:
         launches["sr_quant"] = phase_fl(dev)
+    if "train" in phases:
+        # K1 runs on both paths: its count is the sum of the two phases' runs
+        train_launches = phase_train(dev)
+        launches["sr_quant"] += train_launches["sr_quant"]
+        launches["sr_pack"] = train_launches["sr_pack"]
     rows = []
     for name, meta in KERNELS.items():
         r = table.get(name, {})

@@ -1,5 +1,5 @@
-"""Session: the front door of the port (the ``serve`` and ``fl-sim``
-workloads so far).
+"""Session: the front door of the port (the ``serve``, ``fl-sim``, ``train``
+and ``fl-orchestrate`` workloads).
 
 ``Session(RunSpec(...), device=None)`` owns the model, the axis context and
 the precision plumbing for one spec and runs on ``device`` — ``"cuda"``
@@ -18,14 +18,24 @@ it raises; nothing falls back to the CPU::
 ``fl-sim`` options (the paper's loop, :meth:`Session.run_fl_sim`):
 ``scheme``, ``n_clients``, ``lr``, ``error_tolerance``, ``eval_every``,
 ``faults``, ``resolve_drift_db``, ``precision_program``, ``model_dim_d``,
-``grad_bytes``; ``ckpt_dir`` raises until checkpoints are ported.  The other
-workloads (``train``, ``fl-orchestrate``, ``dryrun``) are not ported yet.
+``grad_bytes``, ``ckpt_dir``, ``ckpt_every``.
+
+``train`` / ``fl-orchestrate`` options (the pod trainer,
+:meth:`Session.run_train`): ``scheme`` (fl-orchestrate only), ``lr``,
+``ckpt_dir``, ``ckpt_every``, ``out``, ``quiet``, ``nonfinite_grads``,
+``faults``, ``resolve_drift_db``, ``precision_program``.  ``train`` runs
+federated rounds at the spec's fixed :class:`PrecisionPolicy`;
+``fl-orchestrate`` is the paper's full loop, the GBD co-design choosing each
+round's per-client bits.  The mesh is ``Dx1``: D clients on one device.
+``dryrun`` is not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import json
+import logging
 import time
 
 import numpy as np
@@ -33,6 +43,8 @@ import torch
 
 from repro_torch.api.precision import PrecisionPolicy
 from repro_torch.api.spec import SIM_ARCHS, RunSpec
+
+log = logging.getLogger("repro_torch.api")
 
 BOS_ID = 1
 
@@ -84,8 +96,8 @@ def resolve_device(device) -> torch.device:
 
 def _not_ported(workload: str):
     return NotImplementedError(
-        f"workload {workload!r} is not ported to PyTorch yet (ROADMAP queue 1: "
-        "the pod trainer and fl-orchestrate are item 8, dryrun item 13)")
+        f"workload {workload!r} is not ported to PyTorch yet (ROADMAP queue 1, "
+        "item 14)")
 
 
 class Session:
@@ -95,6 +107,7 @@ class Session:
         self.spec = spec
         self.device = resolve_device(device)
         self.last_tokens: list = []     # every token the last serve() sampled
+        self._train_state: dict | None = None
 
     # -- lazily-built shared structure ----------------------------------
     @functools.cached_property
@@ -127,13 +140,80 @@ class Session:
 
     @functools.cached_property
     def axes(self):
-        from repro_torch.dist.collectives import AxisCtx
+        """The mesh's axis context: a ``Dx1`` mesh runs its D clients on the
+        session's device (a model axis > 1 raises)."""
+        from repro_torch.launch.mesh import axis_ctx_for
 
-        if self.spec.mesh not in ("1x1", "1"):
-            raise NotImplementedError(
-                f"mesh {self.spec.mesh!r}: the port runs on one device so far "
-                "(multi-GPU is ROADMAP queue 1, item 8)")
-        return AxisCtx()
+        return axis_ctx_for(self.spec.mesh)
+
+    @functools.cached_property
+    def ckpt(self):
+        from repro_torch.ckpt import CheckpointManager
+
+        ckpt_dir = self.spec.opt("ckpt_dir", "")
+        every = int(self.spec.opt("ckpt_every", 10))
+        return CheckpointManager(ckpt_dir, every=every) if ckpt_dir else None
+
+    def train_config(self):
+        from repro_torch.configs.base import TrainConfig
+
+        return TrainConfig(
+            learning_rate=float(self.spec.opt("lr", 0.05)),
+            seed=self.spec.seed,
+            grad_compression_bits=self.policy.grad_compression_bits,
+            nonfinite_grads=str(self.spec.opt("nonfinite_grads", "raise")))
+
+    def comm_report(self) -> dict:
+        """Bytes-on-wire for gradient reduction on this mesh, per round.
+
+        The flat top-level keys are the base policy's one-round accounting:
+        replicated leaves move ``policy.comm``-bit codes through the
+        SR-quantized all-reduce, FSDP leaves reduce-scatter in f32, over the
+        reference's per-shard parameter layout (:func:`local_param_shapes`).
+        ``rounds`` adds one row per round with the comm bits that round used
+        (executed bits once rounds have run, else the base policy every
+        round); ``program`` carries the controller's comm envelope and the
+        widest wire accumulator any member needs.
+        """
+        from repro_torch.dist.collectives import envelope_wire_dtype
+        from repro_torch.dist.wire import grad_wire_report, grad_wire_rounds
+        from repro_torch.launch.steps import local_param_shapes
+
+        tree = local_param_shapes(self.model, self.axes)
+        fsdp, n = self.axes.fsdp, max(self.axes.dp, 1)
+        rep = grad_wire_report(tree, fsdp=fsdp, n_clients=n,
+                               comm_bits=self.policy.comm)
+        bits_seq = self._executed_comm_bits()
+        if bits_seq is None:
+            bits_seq = [int(self.policy.comm)] * max(self.spec.rounds, 1)
+        rows = grad_wire_rounds(tree, fsdp=fsdp, n_clients=n, comm_bits_seq=bits_seq)
+        rep["rounds"] = rows
+        rep["total_bytes_wire"] = int(sum(r["replicated_bytes_wire"] for r in rows))
+        rep["total_bytes_f32"] = int(sum(r["replicated_bytes_f32"] for r in rows))
+        env = self.program.comm_envelope(self.policy)
+        dt = envelope_wire_dtype(env, n)
+        rep["program"] = {
+            "kind": self.program.kind,
+            "comm_envelope": [int(b) for b in env],
+            "envelope_wire_dtype": (np.dtype(dt).name if dt is not None
+                                    else "float32"),
+        }
+        return rep
+
+    def _executed_comm_bits(self) -> "list[int] | None":
+        """Per-round comm bits actually run so far, oldest first (None
+        before any round has executed)."""
+        st = self._train_state
+        if not st:
+            return None
+        orch = st.get("orch")
+        if orch is not None and orch.energy_log:
+            return [int(e.get("comm_bits", self.policy.comm))
+                    for e in orch.energy_log]
+        hist = st.get("history") or []
+        if hist and "comm_bits" in hist[0]:
+            return [int(h["comm_bits"]) for h in hist]
+        return None
 
     # -- primitive builders ---------------------------------------------
     def init_params(self, generator: torch.Generator | None = None) -> dict:
@@ -143,13 +223,207 @@ class Session:
             generator = torch.Generator(device=self.device).manual_seed(self.spec.seed)
         return self.model.init(generator, self.axes.tp, device=self.device)
 
+    def train_step(self, opt=None, *, attn_impl: str = "auto"):
+        """Policy-driven :class:`~repro_torch.launch.steps.TrainStep` builder."""
+        from repro_torch.launch.steps import build_train_step
+        from repro_torch.optim import build_optimizer
+
+        tc = self.train_config()
+        if opt is None:
+            opt = build_optimizer("sgd", tc.learning_rate)
+        return build_train_step(self.model, self.axes, opt, tc, attn_impl=attn_impl)
+
+    def round_draws(self, r: int):
+        """Round ``r``'s SR uniforms (weights and wire): the one seam of the
+        trainer's randomness (see :class:`~repro_torch.launch.steps.SRDraws`)."""
+        from repro_torch.launch.steps import SRDraws
+
+        return SRDraws(self.spec.seed, r)
+
     # -- workload dispatch ----------------------------------------------
     def run(self):
-        if self.spec.workload == "serve":
+        wl = self.spec.workload
+        if wl in ("train", "fl-orchestrate"):
+            return self.run_train()
+        if wl == "serve":
             return self.serve()
-        if self.spec.workload == "fl-sim":
+        if wl == "fl-sim":
             return self.run_fl_sim()
-        raise _not_ported(self.spec.workload)
+        raise _not_ported(wl)
+
+    # ------------------------------------------------------------------
+    # train / fl-orchestrate: the pod FWQ-FL loop
+    # ------------------------------------------------------------------
+    def orchestrator(self, n_clients: int):
+        """The fl-orchestrate round planner for ``n_clients`` devices (host
+        math: channel, GBD co-design, energy, faults)."""
+        from repro_torch.core.energy import heterogeneous_fleet, memory_capacities
+        from repro_torch.fed.orchestrator import FLOrchestrator, OrchestratorConfig
+
+        spec, cfg = self.spec, self.cfg
+        fleet = heterogeneous_fleet(n_clients, seed=spec.seed, group_step_mhz=5.0)
+        caps = memory_capacities(n_clients, lo_mb=8, hi_mb=64) * 1e6
+        n_params = cfg.param_count()
+        return FLOrchestrator(
+            OrchestratorConfig(n_devices=n_clients, n_rounds=spec.rounds,
+                               scheme=spec.opt("scheme", "fwq"),
+                               model_dim_d=n_params,
+                               precision=self.policy, seed=spec.seed,
+                               faults=spec.opt("faults"),
+                               program=spec.opt("precision_program"),
+                               resolve_drift_db=float(
+                                   spec.opt("resolve_drift_db", 0.0))),
+            fleet, caps, grad_bytes=4.0 * n_params)
+
+    def _ensure_train_state(self) -> dict:
+        if self._train_state is not None:
+            return self._train_state
+        from repro_torch.data.pipeline import TokenBatcher
+        from repro_torch.data.synthetic import SyntheticTokens
+        from repro_torch.optim import build_optimizer
+
+        spec, cfg = self.spec, self.cfg
+        tc = self.train_config()
+        opt = build_optimizer("sgd", tc.learning_rate)
+        ts = self.train_step(opt)
+        n_clients = ts.n_clients
+        B = n_clients * spec.batch
+
+        params = self.init_params()
+        opt_state = opt.init(params)
+
+        tokens = SyntheticTokens(n_tokens=300_000, vocab=cfg.vocab_size,
+                                 seed=spec.seed).generate()
+        batcher = TokenBatcher(tokens, spec.seq, seed=spec.seed)
+        orch = self.orchestrator(n_clients) if spec.workload == "fl-orchestrate" else None
+
+        start = 0
+        if self.ckpt:
+            expect = None
+            if orch is not None:
+                expect = {"faults": (orch.cfg.faults.to_dict()
+                                     if orch.cfg.faults is not None else None)}
+            state, start, _ = self.ckpt.restore_or({"p": params, "o": opt_state},
+                                                   expect_extra=expect)
+            if start:
+                params, opt_state = state["p"], state["o"]
+                log.info("resumed at round %d", start)
+                if orch is not None:
+                    # replay the completed rounds' planning (seeded host
+                    # math), so the resumed run plans as the uninterrupted one
+                    for r in range(start):
+                        orch.plan_round(r)
+                else:
+                    for r in range(start):
+                        self.program.policy_for_round(
+                            r, self.policy, self._observe_train(r))
+
+        self._train_state = dict(
+            opt=opt, params=params, opt_state=opt_state, batcher=batcher, orch=orch,
+            n_clients=n_clients, B=B, start=start, history=[],
+            step_cache={self.policy.grad_compression_bits: ts.fn}, energy_cum=0.0)
+        return self._train_state
+
+    def _observe_train(self, r: int):
+        """Controller observation for the plain ``train`` workload (no
+        orchestrator energy model: cumulative spend is what the history rows
+        have recorded, 0.0 before any round runs)."""
+        from repro_torch.api.program import Observation
+
+        st = self._train_state or {}
+        hist = st.get("history") or []
+        return Observation(
+            round=r, rounds_total=self.spec.rounds,
+            energy_cum_j=float(st.get("energy_cum", 0.0)),
+            energy_round_j=float(hist[-1]["energy_j"]) if hist else 0.0)
+
+    def _train_step_for(self, policy: PrecisionPolicy):
+        """The train step for ``policy``, cached by the gradient wire width
+        (weight bits reach the step through ``delta``)."""
+        from repro_torch.launch.steps import build_train_step
+
+        st = self._ensure_train_state()
+        key = policy.grad_compression_bits
+        cache = st["step_cache"]
+        if key not in cache:
+            tc = dataclasses.replace(self.train_config(), grad_compression_bits=key)
+            cache[key] = build_train_step(self.model, self.axes, st["opt"], tc).fn
+        return cache[key]
+
+    def fl_round(self, r: int) -> dict:
+        """One federated round: per-round policy -> delta -> step.
+
+        Under ``fl-orchestrate`` the round's :class:`PrecisionPolicy` comes
+        from the GBD co-design (``plan["policy"]``); under ``train`` the
+        spec's fixed policy (through the precision program) applies.
+        """
+        st = self._ensure_train_state()
+        spec, cfg, dev = self.spec, self.cfg, self.device
+        n_clients, B = st["n_clients"], st["B"]
+
+        plan = st["orch"].plan_round(r) if st["orch"] is not None else None
+        if plan is not None:
+            policy = plan["policy"]
+        else:
+            policy = self.program.policy_for_round(r, self.policy,
+                                                   self._observe_train(r))
+        bits = policy.bits_vector(n_clients)
+
+        raw = st["batcher"].sample_round(r, n_clients, spec.batch)
+        batch = {"tokens": torch.as_tensor(raw["tokens"].reshape(B, spec.seq), device=dev),
+                 "labels": torch.as_tensor(raw["labels"].reshape(B, spec.seq), device=dev)}
+        delta = policy.delta(n_clients)
+        step = self._train_step_for(policy)
+        t0 = time.time()
+        st["params"], st["opt_state"], m = step(
+            st["params"], st["opt_state"], batch, delta, self.round_draws(r))
+        rec = {"round": r, "loss": float(m["loss"]),
+               "bits": bits.tolist(),
+               "comm_bits": int(policy.comm),
+               "energy_j": plan["energy_round"] if plan else 0.0,
+               "t_round_s": plan["t_round"] if plan else 0.0,
+               "wall_s": round(time.time() - t0, 3),
+               "cohort": int(plan["cohort"].sum()) if plan else n_clients}
+        if plan is not None and "retransmissions" in plan:
+            rec.update(retransmissions=plan["retransmissions"],
+                       retx_energy_j=plan["retx_energy_j"],
+                       undelivered=plan["undelivered"],
+                       dropped_midround=plan["dropped_midround"])
+        st["history"].append(rec)
+        st["energy_cum"] += float(rec["energy_j"])
+        if self.ckpt:
+            extra = {"round": r + 1}
+            orch = st["orch"]
+            if orch is not None:
+                extra["faults"] = (orch.cfg.faults.to_dict()
+                                   if orch.cfg.faults is not None else None)
+            self.ckpt.maybe_save(r + 1, {"p": st["params"], "o": st["opt_state"]},
+                                 extra=extra)
+        return rec
+
+    def run_train(self) -> list[dict]:
+        """The ``train`` / ``fl-orchestrate`` loop: ``spec.rounds`` rounds
+        (from a checkpoint's round when ``ckpt_dir`` holds one)."""
+        st = self._ensure_train_state()
+        quiet = bool(self.spec.opt("quiet", False))
+        for r in range(st["start"], self.spec.rounds):
+            rec = self.fl_round(r)
+            if not quiet:
+                log.info("round %d loss=%.4f bits=%s energy=%.2fJ",
+                         r, rec["loss"], sorted(set(rec["bits"])), rec["energy_j"])
+        history = st["history"]
+        total_e = sum(h["energy_j"] for h in history)
+        if not quiet and history:
+            scheme = (self.spec.opt("scheme", "fwq")
+                      if self.spec.workload == "fl-orchestrate" else "fixed")
+            print(f"\nscheme={scheme} rounds={len(history)} "
+                  f"final_loss={history[-1]['loss']:.4f} "
+                  f"total_energy={total_e:.2f}J")
+        out = self.spec.opt("out", "")
+        if out:
+            with open(out, "w") as f:
+                json.dump(history, f, indent=1)
+        return history
 
     # ------------------------------------------------------------------
     # serve: continuous-batching quantized decode driver
@@ -203,6 +477,10 @@ class Session:
                 print(msg)
 
         cfg, model, axes = self.cfg, self.model, self.axes
+        if axes.dp > 1:
+            raise NotImplementedError(
+                f"serve on mesh {spec.mesh!r}: batch-sharded serving is not ported "
+                "(ROADMAP queue 1, item 8)")
 
         # ---- KV layout ---------------------------------------------------
         kv_layout = o.get("kv_layout") or "paged"

@@ -1,0 +1,195 @@
+"""Fault-tolerant checkpointing: atomic, manifest-verified, resumable.
+
+Counterpart of ``repro/ckpt/checkpoint.py``, in its format: one ``.npz`` per
+checkpoint with flattened ``path -> array`` entries (packed weights as
+``path@codes`` / ``path@scale``) plus a JSON manifest (step, time, extra,
+and per leaf its shape, dtype name and a checksum).  dtypes numpy cannot
+store (bfloat16, float8_e4m3fn) are written as a same-width unsigned integer
+view under their own dtype name.  Writes go to a temp file and
+``os.replace`` (atomic on POSIX): a crash mid-write never corrupts the
+latest good checkpoint.
+
+A state is a nested dict whose leaves are tensors or
+:class:`~repro_torch.models.common.QTensor` — e.g. ``{"p": params, "o":
+opt_state}``, with the port's flat parameter dicts keyed ``"blocks/attn/wq"``
+— so the stored paths are the reference's.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import json
+import os
+import time
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.models.common import QTensor
+
+#: dtypes numpy's npz can't round-trip natively -> stored as a u16/u8 view
+_VIEW_DTYPES = {torch.bfloat16: ("bfloat16", np.uint16, torch.int16),
+                torch.float8_e4m3fn: ("float8_e4m3fn", np.uint8, torch.uint8)}
+_FROM_NAME = {name: (torch_dt, view) for torch_dt, (name, _np, view) in _VIEW_DTYPES.items()}
+
+
+def _encode(t: torch.Tensor):
+    t = t.detach().cpu()
+    if t.dtype in _VIEW_DTYPES:
+        name, np_view, torch_view = _VIEW_DTYPES[t.dtype]
+        return t.view(torch_view).numpy().view(np_view), name
+    v = t.numpy()
+    return v, str(v.dtype)
+
+
+def _decode(v: np.ndarray, dtype_name: str) -> torch.Tensor:
+    if dtype_name in _FROM_NAME:
+        torch_dt, torch_view = _FROM_NAME[dtype_name]
+        signed = v.view(np.int16) if torch_view == torch.int16 else v
+        return torch.from_numpy(np.array(signed, copy=True)).view(torch_dt)
+    return torch.from_numpy(np.array(v, copy=True))
+
+
+def _walk(tree, prefix: str = ""):
+    """``(path, leaf)`` pairs of a nested dict, keys sorted level by level."""
+    if isinstance(tree, dict):
+        for k in sorted(tree, key=lambda k: tuple(str(k).split("/"))):
+            yield from _walk(tree[k], f"{prefix}/{k}" if prefix else str(k))
+    else:
+        yield prefix, tree
+
+
+def _flatten(tree) -> dict:
+    flat = {}
+    for path, leaf in _walk(tree):
+        if isinstance(leaf, QTensor):
+            flat[path + "@codes"] = leaf.codes
+            flat[path + "@scale"] = leaf.scale
+        else:
+            flat[path] = torch.as_tensor(leaf)
+    return flat
+
+
+def save_checkpoint(directory: str, step: int, state: Any, *,
+                    extra: dict | None = None, keep: int = 3) -> str:
+    """Atomically write ``state`` (a nested dict of tensors) as checkpoint ``step``."""
+    os.makedirs(directory, exist_ok=True)
+    name = f"ckpt_{step:08d}"
+    tmp = os.path.join(directory, f".{name}.tmp.npz")
+    final = os.path.join(directory, f"{name}.npz")
+    encoded, dtypes = {}, {}
+    for k, v in _flatten(state).items():
+        encoded[k], dtypes[k] = _encode(v)
+    np.savez(tmp, **encoded)
+    manifest = {
+        "step": step,
+        "time": time.time(),
+        "extra": extra or {},
+        "leaves": {k: [list(v.shape), dtypes[k],
+                       hashlib.sha1(v.tobytes()).hexdigest()[:16]]
+                   for k, v in encoded.items()},
+    }
+    mtmp = os.path.join(directory, f".{name}.tmp.json")
+    with open(mtmp, "w") as f:
+        json.dump(manifest, f)
+    os.replace(tmp, final)
+    os.replace(mtmp, os.path.join(directory, f"{name}.json"))
+    _gc(directory, keep)
+    return final
+
+
+def _gc(directory: str, keep: int):
+    ckpts = sorted(f for f in os.listdir(directory)
+                   if f.startswith("ckpt_") and f.endswith(".npz"))
+    for f in ckpts[:-keep]:
+        try:
+            os.remove(os.path.join(directory, f))
+            os.remove(os.path.join(directory, f.replace(".npz", ".json")))
+        except OSError:
+            pass
+
+
+def latest_step(directory: str) -> int | None:
+    if not os.path.isdir(directory):
+        return None
+    steps = [int(f[5:13]) for f in os.listdir(directory)
+             if f.startswith("ckpt_") and f.endswith(".npz")]
+    return max(steps) if steps else None
+
+
+def load_checkpoint(directory: str, template: Any, *, step: int | None = None,
+                    verify: bool = True):
+    """Restore into the structure of ``template`` (each leaf on its
+    template's device).  Returns ``(state, manifest)``."""
+    if step is None:
+        step = latest_step(directory)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {directory}")
+    name = f"ckpt_{step:08d}"
+    with np.load(os.path.join(directory, f"{name}.npz")) as zf:
+        flat = {k: zf[k] for k in zf.files}
+    with open(os.path.join(directory, f"{name}.json")) as f:
+        manifest = json.load(f)
+    if verify:
+        for k, (shape, _dtype, sha) in manifest["leaves"].items():
+            v = flat[k]
+            if list(v.shape) != shape:
+                raise ValueError(f"checkpoint leaf {k} shape mismatch")
+            if hashlib.sha1(v.tobytes()).hexdigest()[:16] != sha:
+                raise ValueError(f"checkpoint leaf {k} checksum mismatch")
+    dtypes = {k: v[1] for k, v in manifest["leaves"].items()}
+
+    def load(path: str, like: torch.Tensor) -> torch.Tensor:
+        if path not in flat:
+            raise KeyError(f"checkpoint missing leaf {path}")
+        return _decode(flat[path], dtypes[path]).to(like.device)
+
+    def rebuild(node, prefix: str):
+        if isinstance(node, dict):
+            return {k: rebuild(v, f"{prefix}/{k}" if prefix else str(k))
+                    for k, v in node.items()}
+        if isinstance(node, QTensor):
+            return QTensor(load(prefix + "@codes", node.codes),
+                           load(prefix + "@scale", node.scale))
+        return load(prefix, torch.as_tensor(node))
+
+    return rebuild(template, ""), manifest
+
+
+@dataclasses.dataclass
+class CheckpointManager:
+    """Save-every-k with resume; the orchestrator's persistence handle."""
+
+    directory: str
+    every: int = 10
+    keep: int = 3
+
+    def maybe_save(self, step: int, state: Any, extra: dict | None = None):
+        if self.every and step % self.every == 0:
+            return save_checkpoint(self.directory, step, state,
+                                   extra=extra, keep=self.keep)
+        return None
+
+    def restore_or(self, template: Any, default_extra: dict | None = None,
+                   *, expect_extra: dict | None = None):
+        """(state, step, extra) from the latest checkpoint, or the template.
+
+        ``expect_extra``: keys that must match the saved manifest's extra
+        (when present there), e.g. the fault plan a resumable FL run was
+        started with.  A mismatch raises instead of splicing two different
+        trajectories into one "resumed" run.
+        """
+        step = latest_step(self.directory)
+        if step is None:
+            return template, 0, dict(default_extra or {})
+        state, manifest = load_checkpoint(self.directory, template, step=step)
+        extra = manifest.get("extra", {})
+        for k, v in (expect_extra or {}).items():
+            if k in extra and extra[k] != v:
+                raise ValueError(
+                    f"checkpoint in {self.directory} was written with "
+                    f"{k}={extra[k]!r} but this run expects {k}={v!r}; "
+                    "refusing to resume a different trajectory")
+        return state, manifest["step"], extra

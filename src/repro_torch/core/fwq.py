@@ -171,23 +171,31 @@ def delta_for_clients(bits, *, scale: float = 1.0,
 # ---------------------------------------------------------------------------
 
 
-def make_inline_quantizer(delta, seed: int, *, exempt=quantlib.default_exempt):
+def make_inline_quantizer(delta, seed: int = 0, *, exempt=quantlib.default_exempt,
+                          uniforms=None):
     """A ``param_transform(path, w) -> w_q`` callback for inline-mode models.
 
     ``delta``/``seed`` belong to one client.  Each call site draws its
     uniforms from a generator seeded by ``(seed, _stable_hash(path))``, so
     quantization noise is independent across tensors but deterministic per
     (client, round) — as the reference's ``fold_in(rng, _stable_hash(path))``.
+    The path carries no layer index, so every layer of a stacked weight gets
+    the same draws, in the reference and here.  ``uniforms(path, w) -> u``,
+    when given, replaces the seeded draws (the tests pass the reference's).
     """
+
+    def draw(path: str, w: torch.Tensor) -> torch.Tensor:
+        site = np.random.SeedSequence((int(seed), _stable_hash(path)))
+        g = torch.Generator(device=w.device).manual_seed(
+            int(site.generate_state(1, np.uint64)[0]))
+        return torch.rand(w.shape, generator=g, device=w.device)
+
+    uniforms = draw if uniforms is None else uniforms
 
     def transform(path: str, w: torch.Tensor) -> torch.Tensor:
         if exempt is not None and exempt(path, w):
             return w
-        site = np.random.SeedSequence((int(seed), _stable_hash(path)))
-        g = torch.Generator(device=w.device).manual_seed(
-            int(site.generate_state(1, np.uint64)[0]))
-        u = torch.rand(w.shape, generator=g, device=w.device)
-        return quantlib.sr_quantize(w, delta, u)
+        return quantlib.sr_quantize(w, delta, uniforms(path, w))
 
     return transform
 

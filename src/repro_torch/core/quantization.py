@@ -1,5 +1,5 @@
-"""Stochastic-rounding weight quantization (paper Eq. 1) and the serving
-storage helpers.
+"""Stochastic-rounding weight quantization (paper Eq. 1), packed integer
+codes and the serving storage helpers.
 
 A weight tensor ``w`` with per-tensor scale ``s = ||w||_inf`` is rounded onto
 a uniform grid of pitch ``s * Delta_q``, ``Delta_q = 1 / (2**q - 1)``, by
@@ -11,6 +11,8 @@ supplied by the caller: the same ``u`` gives the same result on every device
 and in the reference.  The rounding itself is the K1 kernel
 (:func:`repro_torch.kernels.ops.sr_quantize_segments`): on a CUDA tensor it
 launches ``csrc/sr_quant.cu``, on a CPU tensor it runs the plain version.
+Packing onto integer codes (:func:`pack_quantize`) is the K2 kernel
+(:func:`repro_torch.kernels.ops.sr_pack_segments`), routed the same way.
 
 Parameters are flat dicts ``{"stem/w": Tensor, ...}``.  Their leaf order is
 the reference's (JAX sorts dict keys at every level), so leaf ``idx`` here is
@@ -20,6 +22,7 @@ tensors in both packages.
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 from typing import Callable
 
@@ -107,6 +110,68 @@ def storage_dtype(bits: int) -> torch.dtype:
     if bits <= 15:
         return torch.int16
     return torch.int32
+
+
+# ---------------------------------------------------------------------------
+# Packed (real) quantization: integer codes + scale.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class PackedTensor:
+    """Integer codes + scale.  ``w ~= codes * (scale * delta)``."""
+
+    codes: torch.Tensor  # int8 (bits<=7), int16 (bits<=15) or int32
+    scale: torch.Tensor  # f32 scalar or per-channel (keepdims) scale
+    bits: int
+
+    @property
+    def delta(self) -> float:
+        return 1.0 / (2.0**self.bits - 1.0)
+
+    def nbytes(self) -> int:
+        return self.codes.numel() * self.codes.element_size() + self.scale.numel() * 4
+
+
+def pack_quantize(w: torch.Tensor, bits: int, u: torch.Tensor, *,
+                  per_channel: bool = False, axis: int = -1) -> PackedTensor:
+    """Really quantize: SR onto integer codes with ``2**bits - 1`` resolution.
+
+    ``u`` holds one uniform per element of ``w``.  The pitch is ``s * Delta``
+    (per tensor, or per channel along ``axis``); each channel is one segment
+    of one K2 call, so the codes are the reference's for the same ``u``.
+    """
+    if bits >= FULL_PRECISION_BITS:
+        raise ValueError("pack_quantize is for bits < 32; use the raw tensor.")
+    if u.shape != w.shape:
+        raise ValueError(f"pack_quantize: u {tuple(u.shape)} must have w's shape "
+                         f"{tuple(w.shape)}")
+    wf = w.to(torch.float32)
+    s = channel_scale(wf, axis) if per_channel else tensor_scale(wf)
+    delta = torch.tensor(1.0 / (2.0**bits - 1.0), dtype=torch.float32, device=w.device)
+    step = s * delta
+    dtype = storage_dtype(bits)
+    lim = 2**bits - 1
+    if per_channel:
+        # the scale is shared along `axis`: moved last, each row is a segment
+        rows = wf.movedim(axis, -1)
+        n = rows.numel() // max(rows.shape[-1], 1)
+        offsets = torch.arange(0, n + 1, dtype=torch.int32, device=w.device) * rows.shape[-1]
+        codes = ops.sr_pack_segments(
+            rows.reshape(1, -1), offsets, step.movedim(axis, -1).reshape(-1),
+            u.to(torch.float32).movedim(axis, -1).reshape(1, -1), lim, dtype)
+        codes = codes.reshape(rows.shape).movedim(-1, axis)
+    else:
+        offsets = torch.tensor([0, wf.numel()], dtype=torch.int32, device=w.device)
+        codes = ops.sr_pack_segments(wf.reshape(1, -1), offsets, step.reshape(1),
+                                     u.to(torch.float32).reshape(1, -1), lim, dtype)
+        codes = codes.reshape(w.shape)
+    return PackedTensor(codes=codes, scale=s, bits=bits)
+
+
+def dequantize(p: PackedTensor, dtype=torch.float32) -> torch.Tensor:
+    delta = torch.tensor(p.delta, dtype=torch.float32, device=p.codes.device)
+    return (p.codes.to(torch.float32) * (p.scale * delta)).to(dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,7 @@
 
 // Element-type tags the ctypes launchers receive (kept in sync with
 // repro_torch/kernels/_build.py: DTYPE_CODES).
-enum DType : int { DT_F32 = 0, DT_BF16 = 1, DT_I8 = 2, DT_I16 = 3 };
+enum DType : int { DT_F32 = 0, DT_BF16 = 1, DT_I8 = 2, DT_I16 = 3, DT_I32 = 4 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }

@@ -1,11 +1,21 @@
-"""Single-device axis context: the port's stand-in for the mesh ``AxisCtx``.
+"""Axis context and the SR-quantized gradient all-reduce of the port.
 
-Model code keeps the reference's collective call sites (``psum_model``,
-``tp_index``, ``tp``) so that the multi-GPU slice can back them with
-``torch.distributed`` without touching the layers.  This slice runs on one
-device: the tensor-parallel size is 1, the rank 0 and the all-reduce the
-identity — exactly what the reference's context degenerates to outside a
-mesh.
+:class:`AxisCtx` names the axes of a launch as the reference's mesh context
+does (``batch_axes``, ``model_axis``, ``fsdp_axes``) and carries their sizes.
+The port runs a ``Dx1`` mesh on one device: the D data-parallel groups (the
+FL clients) run one after another in a loop, so where the reference asks
+``lax.axis_index`` which client it is, the port's context says which client
+the loop is at (:meth:`AxisCtx.at_client`).  The model axis is 1: its
+collectives (``psum_model``) are identities, as in the reference outside a
+mesh; tensor parallelism is not ported.
+
+:func:`quantized_psum_batch` is the paper's Eq. 1 stochastic-rounding
+quantizer applied to model updates on the wire: the clients agree on a shared
+grid through the max of their scales, round onto integer codes (the K2
+kernel, :func:`repro_torch.kernels.ops.sr_pack_segments`), sum the codes
+exactly and dequantize to the mean.  It takes the clients' gradients stacked
+on a leading axis and any number of leaves, so one K2 launch packs a whole
+train step's wire.
 """
 
 from __future__ import annotations
@@ -13,23 +23,71 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
+
+from repro_torch.core.quantization import FULL_PRECISION_BITS
+from repro_torch.kernels import ops
 
 
 @dataclasses.dataclass(frozen=True)
 class AxisCtx:
-    """Named axes of one launch (all unbound on a single device)."""
+    """Named axes of one launch and their sizes (all 1 when unnamed).
+
+    ``batch_axes``: data-parallel axes — one FL client per group.
+    ``model_axis``: tensor-parallel axis (None = no TP; its size must be 1).
+    ``fsdp_axes``:  axes the reference fully shards parameters over (the
+    batch axes).  ``sizes``: ``((axis name, size), ...)``.  ``client``: the
+    data-parallel rank the code runs as.
+    """
 
     batch_axes: tuple[str, ...] = ()
     model_axis: str | None = None
     fsdp_axes: tuple[str, ...] = ()
+    sizes: tuple[tuple[str, int], ...] = ()
+    client: int = 0
+
+    def __post_init__(self):
+        if self.tp != 1:
+            raise NotImplementedError(
+                f"model axis of size {self.tp}: tensor parallelism is not ported "
+                "(ROADMAP queue 1, item 9)")
+
+    def _size(self, names) -> int:
+        d = dict(self.sizes)
+        n = 1
+        for a in names:
+            n *= int(d.get(a, 1))
+        return n
+
+    # --- static sizes ----------------------------------------------------
+    @property
+    def dp(self) -> int:
+        """Number of data-parallel groups (= FL clients)."""
+        return self._size(self.batch_axes)
 
     @property
     def tp(self) -> int:
-        return 1
+        return self._size((self.model_axis,) if self.model_axis else ())
+
+    @property
+    def fsdp(self) -> int:
+        return self._size(self.fsdp_axes)
+
+    # --- indices ---------------------------------------------------------
+    def dp_index(self) -> int:
+        """Flattened data-parallel rank (client id)."""
+        return self.client
 
     def tp_index(self) -> int:
         return 0
 
+    def at_client(self, c: int) -> "AxisCtx":
+        """The same axes, running as client ``c``."""
+        if not 0 <= c < self.dp:
+            raise ValueError(f"client {c} out of range for {self.dp} clients")
+        return dataclasses.replace(self, client=int(c))
+
+    # --- model-axis collectives (tp = 1) ---------------------------------
     def psum_model(self, x):
         return x
 
@@ -59,3 +117,129 @@ def wire_dtype(bits: int, n_clients: int):
         f"comm bits={bits} with {n_clients} clients needs an accumulator "
         f"holding {need} > int32 max; lower the bit-width (<= 16 is always "
         "safe below 32768 clients) or use 32 (uncompressed)")
+
+
+def envelope_wire_dtype(bits_options, n_clients: int):
+    """Widest accumulator any bit-width in an adaptive program's comm
+    envelope needs, or ``None`` when the whole envelope is uncompressed.
+
+    Calls :func:`wire_dtype` on every compressed member, so it raises if any
+    round the program can emit would overflow the int32 accumulator.
+    """
+    compressed = [b for b in sorted({int(b) for b in bits_options})
+                  if b < FULL_PRECISION_BITS]
+    if not compressed:
+        return None
+    dts = [wire_dtype(b, n_clients) for b in compressed]
+    return max(dts, key=lambda d: np.dtype(d).itemsize)
+
+
+_TORCH_INT = {np.dtype(np.int8): torch.int8, np.dtype(np.int16): torch.int16,
+              np.dtype(np.int32): torch.int32}
+
+
+def _nonfinite_guard(gfs: list, on_nonfinite: str) -> list:
+    """Keep NaN/Inf gradients out of the wire quantizer.
+
+    ``gfs`` are f32 leaves stacked over the clients.  A non-finite value
+    would poison the shared scale and every client's codes.  ``"raise"``
+    counts them over all leaves with one host check and raises
+    ``FloatingPointError``; ``"saturate"`` maps NaN to 0 and clamps ±Inf to
+    each client's largest finite magnitude in that leaf.
+    """
+    if on_nonfinite == "raise":
+        bad = sum(int((~torch.isfinite(g)).sum()) for g in gfs) if gfs else 0
+        if bad:
+            raise FloatingPointError(
+                f"quantized_psum_batch: {bad} non-finite gradient "
+                "values reached the wire quantizer (pass "
+                "on_nonfinite='saturate' to clamp instead)")
+        return gfs
+    if on_nonfinite == "saturate":
+        out = []
+        for g in gfs:
+            dims = tuple(range(1, g.ndim))
+            fin = torch.where(torch.isfinite(g), g.abs(), torch.zeros_like(g))
+            fmax = fin.amax(dim=dims, keepdim=True) if dims else fin
+            out.append(torch.clamp(torch.where(torch.isnan(g), torch.zeros_like(g), g),
+                                   -fmax, fmax))
+        return out
+    raise ValueError(f"on_nonfinite must be 'raise' or 'saturate', "
+                     f"got {on_nonfinite!r}")
+
+
+def quantized_psum_batch(axes: AxisCtx, grad, u, bits, *,
+                         on_nonfinite: str = "raise"):
+    """SR-quantized all-reduce **mean** over the ``axes.dp`` clients.
+
+    ``grad`` is one leaf stacked over the clients, ``(D, *shape)``, or a list
+    of such leaves; ``u`` holds uniforms of the same shapes (client ``c``'s
+    SR draws for each leaf).  Returns the mean of each leaf, ``shape``-sized,
+    in the same structure:
+
+    1. shared grid per leaf: ``s = max_c max|g_c|`` (1 where 0), pitch
+       ``step = s / (2^bits - 1)``;
+    2. every (client, leaf) segment rounded onto integer codes in ONE K2
+       call, in :func:`wire_dtype` (int8/int16/int32);
+    3. the codes summed exactly over the clients;
+    4. ``(total * step) / D``.
+
+    ``bits >= 32`` is the exact mean; one client is the identity.
+    ``on_nonfinite`` guards against NaN/Inf (see :func:`_nonfinite_guard`).
+    """
+    single = isinstance(grad, torch.Tensor)
+    grads = [grad] if single else list(grad)
+    us = [u] if single else list(u)
+    n = axes.dp
+    for g, uu in zip(grads, us):
+        if g.shape[0] != n or uu.shape != g.shape:
+            raise ValueError(f"quantized_psum_batch: leaves (D={n}, ...) with uniforms "
+                             f"of their shape; got {tuple(g.shape)} and {tuple(uu.shape)}")
+    if len(us) != len(grads):
+        raise ValueError("quantized_psum_batch: one uniform tensor per leaf")
+    if n == 1:
+        out = [g[0] for g in grads]             # single client: nothing to reduce
+    elif int(bits) >= FULL_PRECISION_BITS:
+        out = []
+        for g in grads:                         # full precision: exact mean
+            total = g[0]
+            for c in range(1, n):
+                total = total + g[c]
+            out.append(total * f32_reciprocal(n, g.device))
+    else:
+        out = _quantized_mean(grads, us, int(bits), n, on_nonfinite)
+    return out[0] if single else out
+
+
+def f32_reciprocal(k: int, device) -> torch.Tensor:
+    """``fl32(1 / k)``.  XLA compiles the reference's divisions by a constant
+    (``s / lim``, ``/ n``, ``pmean``, the FSDP mean) into multiplications by
+    the constant's f32 reciprocal, so the port multiplies by it too
+    (bit-equal as it runs)."""
+    one = torch.tensor(1.0, dtype=torch.float32)
+    return (one / torch.tensor(float(k), dtype=torch.float32)).to(device)
+
+
+def _quantized_mean(grads, us, bits: int, n: int, on_nonfinite: str) -> list:
+    if not grads:
+        return []
+    dev = grads[0].device
+    gfs = _nonfinite_guard([g.to(torch.float32) for g in grads], on_nonfinite)
+    s = torch.stack([g.abs().amax() for g in gfs])
+    s = torch.where(s > 0, s, torch.ones_like(s))
+    lim = code_bound(bits)
+    step = s * f32_reciprocal(lim, dev)
+    sizes = [g[0].numel() for g in gfs]
+    offsets = torch.tensor([0, *np.cumsum(sizes)], dtype=torch.int32, device=dev)
+    flat = torch.cat([g.reshape(n, -1) for g in gfs], dim=1)
+    uflat = torch.cat([uu.to(torch.float32).reshape(n, -1) for uu in us], dim=1)
+    codes = ops.sr_pack_segments(flat, offsets, step, uflat, lim,
+                                 _TORCH_INT[np.dtype(wire_dtype(bits, n))])
+    # the integer sum is exact: wire_dtype holds n * lim
+    total = codes.sum(dim=0, dtype=torch.int64).to(torch.float32)
+    inv_n = f32_reciprocal(n, dev)
+    out = []
+    for i, (g, chunk) in enumerate(zip(grads, total.split(sizes))):
+        mean = (chunk * step[i]) * inv_n
+        out.append(mean.reshape(g.shape[1:]).to(g.dtype))
+    return out

@@ -11,8 +11,9 @@ Per round r:
      random client failures (node loss) are masked the same way
   4. training             one FWQ round on the surviving cohort
   5. accounting           energy/latency bookkeeping per device
-  6. persistence          checkpoint every k rounds — not ported yet
-     (``ckpt_dir`` raises; ROADMAP slice B, ``ckpt/checkpoint.py``)
+  6. persistence          checkpoint every k rounds (crash => the resumed
+     run equals the uninterrupted one: all randomness is seeded from
+     (seed, round), and the completed rounds' planning is replayed)
 
 Elasticity: the cohort size may change between rounds (clients join/leave);
 the simulator's round is sized by each round's batch and caches no shape.
@@ -21,12 +22,14 @@ the simulator's round is sized by each round's batch and caches no shape.
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Callable
 
 import numpy as np
 
 from repro_torch.api.precision import PrecisionPolicy
 from repro_torch.api.program import Observation, PrecisionProgram, build_program
+from repro_torch.ckpt import CheckpointManager
 from repro_torch.core import baselines as baselines_mod
 from repro_torch.core.channel import ChannelModel, gain_drift_db
 from repro_torch.core.convergence import error_budget_bound
@@ -40,6 +43,8 @@ from repro_torch.core.gbd import run_gbd
 from repro_torch.core.master import MasterSpec
 from repro_torch.core.primal import PrimalData
 from repro_torch.faults import FaultPlan, UpdateFaults, transmit_update
+
+log = logging.getLogger("repro_torch.fed")
 
 
 @dataclasses.dataclass
@@ -104,10 +109,8 @@ class FLOrchestrator:
         self._energy_cum = 0.0    # running sum of energy_log rounds: the
         #                           controller observation (O(1) per round,
         #                           rebuilt identically on resume replay)
-        if cfg.ckpt_dir:
-            raise NotImplementedError(
-                "ckpt_dir: round checkpoints and resume are not ported to "
-                "PyTorch yet (ROADMAP queue 1, slice B: ckpt/checkpoint.py)")
+        self.ckpt = (CheckpointManager(cfg.ckpt_dir, every=cfg.ckpt_every)
+                     if cfg.ckpt_dir else None)
         self.faults = (cfg.faults.schedule(cfg.seed, cfg.n_devices)
                        if cfg.faults is not None and cfg.faults.active
                        else None)
@@ -350,8 +353,23 @@ class FLOrchestrator:
     def run(self, sim, batch_fn: Callable[[int, np.ndarray], dict],
             *, eval_fn: Callable | None = None, eval_every: int = 0) -> dict:
         """Drive ``sim`` (FLSimulation) for n_rounds with full bookkeeping."""
+        start = 0
+        plan_dict = (self.faults.plan.to_dict()
+                     if self.faults is not None else None)
+        if self.ckpt is not None:
+            state, start, _ = self.ckpt.restore_or(
+                sim.state(), expect_extra={"faults": plan_dict})
+            if start:
+                sim.load_state(state, start)
+                log.info("resumed from round %d", start)
+                # replay planning for the completed rounds: pure host math
+                # (seeded solver cadence, fault realizations, energy log), so
+                # the resumed run's strategy state and bookkeeping equal the
+                # uninterrupted run's at round `start`
+                for r in range(start):
+                    self.plan_round(r)
         evals = []
-        for r in range(self.cfg.n_rounds):
+        for r in range(start, self.cfg.n_rounds):
             plan = self.plan_round(r)
             cohort_idx = np.flatnonzero(plan["cohort"])
             batch = batch_fn(r, cohort_idx)
@@ -376,6 +394,9 @@ class FLOrchestrator:
                            retx_energy_j=plan["retx_energy_j"])
             if eval_fn is not None and eval_every and (r + 1) % eval_every == 0:
                 evals.append({"round": r, **eval_fn(sim)})
+            if self.ckpt is not None:
+                self.ckpt.maybe_save(r + 1, sim.state(),
+                                     extra={"round": r + 1, "faults": plan_dict})
         total_energy = float(sum(e["energy_round"] for e in self.energy_log))
         total_time = float(sum(e["t_round"] for e in self.energy_log))
         out = {"history": sim.history, "energy_log": self.energy_log,

@@ -33,12 +33,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LIB_NAME = "librepro_torch_kernels.so"
 
 #: Element-type tags of the C launchers (csrc/common.cuh: enum DType).
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.int16: 3}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.int16: 3,
+               torch.int32: 4}
 
 #: Kernel launches by name since the last :func:`reset_launches`.
-LAUNCHES = {"quant_matmul": 0, "flash_attention": 0, "flash_decode": 0, "sr_quant": 0}
+LAUNCHES = {"quant_matmul": 0, "flash_attention": 0, "flash_decode": 0, "sr_quant": 0,
+            "sr_pack": 0}
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # x, x_dtype, codes, code_dtype, scale, out, M, K, N, stream
     "repro_quant_matmul": (_P, _I, _P, _I, _P, _P, _I, _I, _I, _P),
@@ -50,6 +52,8 @@ _SIGNATURES = {
                            _I, _I, _I, _I, _I, _I, _P),
     # w, offsets, s, d, u, out, P, L, C, ste, stream
     "repro_sr_quant": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # g, offsets, step, u, out, code_dtype, P, L, C, lim, stream
+    "repro_sr_pack": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
 }
 
 _lib = None

@@ -70,6 +70,41 @@ def sr_quantize_fused(w: torch.Tensor, bits: int, u: torch.Tensor) -> torch.Tens
     return q.reshape(w.shape).to(w.dtype)
 
 
+def sr_pack_segments(g: torch.Tensor, offsets: torch.Tensor, step: torch.Tensor,
+                     u: torch.Tensor, lim: int, dtype: torch.dtype) -> torch.Tensor:
+    """SR onto integer codes of every (client, leaf) segment in one K2 call.
+
+    ``g`` (C, P) f32 the clients' leaves concatenated, ``offsets`` (L+1,)
+    int32, ``step`` (L,) per-leaf pitch, ``u`` (C, P) uniforms.  Returns
+    ``(C, P)`` codes of ``dtype`` (int8/int16/int32): ``clip(floor(t) + [u <
+    t - floor(t)], -lim, lim)`` with ``t = g / step``, saturated to ``dtype``.
+    """
+    fn = _route(g, sq.sr_pack_segments_cuda, sq.sr_pack_segments_plain)
+    return fn(g.contiguous(), offsets.contiguous(), step.contiguous(), u.contiguous(),
+              lim, dtype)
+
+
+def sr_pack_fused(w: torch.Tensor, bits: int, u: torch.Tensor):
+    """Pack a 2-D weight to int8 codes + scalar scale (one K2 call).
+
+    The reference's ``kernels/ops.sr_pack_fused`` with the uniforms ``u``
+    given: ``s = max(max|w|, 1e-30)``, pitch ``s * Delta`` (``Delta = 1 /
+    (2^bits - 1)`` in f32), codes clipped to ``±(2^bits - 1)``.  Returns
+    ``(codes, s * Delta)``.
+    """
+    if w.ndim != 2 or u.shape != w.shape or not 1 <= bits <= 7:
+        raise ValueError(f"sr_pack_fused: w must be 2-D, u of its shape and bits in "
+                         f"[1, 7]; got {tuple(w.shape)}, {tuple(u.shape)}, bits={bits}")
+    wf = w.to(torch.float32).reshape(1, -1)
+    s = torch.clamp(wf.abs().amax(), min=1e-30)
+    step = (s * torch.tensor(1.0 / (2.0**bits - 1.0), dtype=torch.float32,
+                             device=w.device)).reshape(1)
+    offsets = torch.tensor([0, wf.shape[1]], dtype=torch.int32, device=w.device)
+    codes = sr_pack_segments(wf, offsets, step, u.to(torch.float32).reshape(1, -1),
+                             2**bits - 1, torch.int8)
+    return codes.reshape(w.shape), step.reshape(())
+
+
 def quant_matmul(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """x (M,K) @ dequant(codes (K,N) int8/int16, scale) -> (M,N) f32."""
     fn = _route(x, qm.quant_matmul_cuda, qm.quant_matmul_plain)

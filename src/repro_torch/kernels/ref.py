@@ -30,6 +30,36 @@ def sr_quant_fake_plain(w: torch.Tensor, u: torch.Tensor, step) -> torch.Tensor:
     return torch.where(step > 0, q, w)
 
 
+#: Float codes saturate to their integer type's range (as XLA's float-to-int
+#: conversion does): the largest float of the range, and for int32 2^31 and
+#: above go to INT32_MAX (2^31 - 1 is not a float).
+_CODE_RANGE = {torch.int8: (-128.0, 127.0), torch.int16: (-32768.0, 32767.0),
+               torch.int32: (-2.0**31, 2.0**31 - 128.0)}
+
+
+def saturate_codes(codes: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Integer-valued f32 ``codes`` as ``dtype``, saturating (a NaN gives 0)."""
+    lo, hi = _CODE_RANGE[dtype]
+    c = torch.where(torch.isnan(codes), torch.zeros_like(codes), codes)
+    out = torch.clamp(c, lo, hi).to(dtype)
+    if dtype == torch.int32:
+        out = torch.where(c >= 2.0**31, torch.full_like(out, 2**31 - 1), out)
+    return out
+
+
+def sr_quant_pack_plain(w: torch.Tensor, u: torch.Tensor, step, lim: int,
+                        dtype: torch.dtype = torch.int8) -> torch.Tensor:
+    """Integer codes version: ``clip(floor(w/step) + [u < frac], -lim, lim)``
+    as ``dtype`` (int8, int16 or int32, saturating).  ``step`` f32, a scalar
+    or broadcastable to ``w``; ``step <= 0`` divides by 1."""
+    step = torch.as_tensor(step, dtype=torch.float32, device=w.device)
+    safe = torch.where(step > 0, step, torch.ones_like(step))
+    t = w / safe
+    lower = torch.floor(t)
+    codes = lower + (u < (t - lower)).to(w.dtype)
+    return saturate_codes(torch.clamp(codes, -float(lim), float(lim)), dtype)
+
+
 def quant_matmul_ref(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
                      out_dtype=torch.float32) -> torch.Tensor:
     """x (M,K) @ dequant(codes (K,N) int8/int16; w = codes*scale) -> (M,N)."""

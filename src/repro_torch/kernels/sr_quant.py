@@ -1,14 +1,17 @@
-"""K1: fused stochastic-rounding quantization, a CUDA kernel for Hopper.
+"""K1 and K2: stochastic-rounding quantization, CUDA kernels for Hopper.
 
-Replaces the Pallas kernel ``repro/kernels/sr_quant.py:sr_quant_fake_kernel``
+K1 replaces the Pallas kernel ``repro/kernels/sr_quant.py:sr_quant_fake_kernel``
 (SR onto a grid of pitch ``step`` from caller-supplied uniforms) and the clip
-its wrappers apply.  The kernel is ``csrc/sr_quant.cu``: one launch rounds
-every (client, leaf) segment of an FL round; its note says what bounds it.
+its wrappers apply; one launch rounds every (client, leaf) segment of an FL
+round.  K2 replaces ``sr_quant_pack_kernel`` (the same rounding onto integer
+codes clipped to ``±(2^bits - 1)``); one launch packs every (client, leaf)
+segment of a train step's replicated gradients for the SR wire.  Both are in
+``csrc/sr_quant.cu``, whose notes say what bounds them.
 
-:func:`sr_quant_segments_cuda` launches it; :func:`sr_quant_segments_plain`
-is the plain PyTorch version of the same function, built on
-:func:`repro_torch.kernels.ref.sr_quant_fake_plain`.  The two are bit-equal
-for the same uniforms.
+:func:`sr_quant_segments_cuda` / :func:`sr_pack_segments_cuda` launch them;
+:func:`sr_quant_segments_plain` / :func:`sr_pack_segments_plain` are the plain
+PyTorch versions of the same functions, built on
+:mod:`repro_torch.kernels.ref`.  Each pair is bit-equal for the same uniforms.
 """
 
 from __future__ import annotations
@@ -16,9 +19,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import sr_quant_fake_plain
+from repro_torch.kernels.ref import sr_quant_fake_plain, sr_quant_pack_plain
 
 NAME = "sr_quant"
+PACK_NAME = "sr_pack"
+CODE_DTYPES = (torch.int8, torch.int16, torch.int32)
 
 
 def _check(w, offsets, s, d, u):
@@ -66,4 +71,60 @@ def sr_quant_segments_cuda(w, offsets, s, d, u, *, ste: bool = True) -> torch.Te
         out.data_ptr(), P, L, C, int(ste), _build.stream_of(w))
     _build.check_launch(NAME, err)
     _build.LAUNCHES[NAME] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K2: integer codes
+# ---------------------------------------------------------------------------
+
+
+def _check_pack(g, offsets, step, u, lim, dtype):
+    if g.ndim != 2 or offsets.ndim != 1 or step.ndim != 1 or u.shape != g.shape:
+        raise ValueError(f"{PACK_NAME}: want g (C,P), offsets (L+1,), step (L,), u "
+                         f"(C,P); got {tuple(g.shape)}, {tuple(offsets.shape)}, "
+                         f"{tuple(step.shape)}, {tuple(u.shape)}")
+    C, P = g.shape
+    L = step.shape[0]
+    if offsets.shape[0] != L + 1:
+        raise ValueError(f"{PACK_NAME}: {L} segments need {L + 1} offsets, got "
+                         f"{offsets.shape[0]}")
+    for name, t in (("g", g), ("step", step), ("u", u)):
+        if t.dtype != torch.float32:
+            raise ValueError(f"{PACK_NAME}: {name} must be f32, got {t.dtype}")
+    if offsets.dtype != torch.int32:
+        raise ValueError(f"{PACK_NAME}: offsets must be int32, got {offsets.dtype}")
+    if dtype not in CODE_DTYPES:
+        raise ValueError(f"{PACK_NAME}: codes must be one of {CODE_DTYPES}, got {dtype}")
+    if not 0 < lim < 2**31:
+        raise ValueError(f"{PACK_NAME}: lim={lim} out of range")
+    if P >= 2**31 or C > 65535:
+        raise ValueError(f"{PACK_NAME}: P={P} (< 2^31) and C={C} (<= 65535) out of range")
+
+
+def sr_pack_segments_plain(g, offsets, step, u, lim: int,
+                           dtype: torch.dtype = torch.int8) -> torch.Tensor:
+    """Plain version of K2: ``(C, P)`` codes; element ``(c, p)`` of leaf
+    ``l`` is ``clip(floor(t) + [u < t - floor(t)], -lim, lim)`` with ``t =
+    g / step[l]`` (``step <= 0`` divides by 1), saturated to ``dtype``."""
+    _check_pack(g, offsets, step, u, lim, dtype)
+    seg = (offsets[1:] - offsets[:-1]).to(torch.long)
+    step_e = torch.repeat_interleave(step, seg, output_size=g.shape[1])[None, :]
+    return sr_quant_pack_plain(g, u, step_e, lim, dtype)
+
+
+def sr_pack_segments_cuda(g, offsets, step, u, lim: int,
+                          dtype: torch.dtype = torch.int8) -> torch.Tensor:
+    """Launch K2 on the current stream; returns ``(C, P)`` codes of ``dtype``."""
+    _check_pack(g, offsets, step, u, lim, dtype)
+    _build.require_cuda(PACK_NAME, g, offsets, step, u)
+    C, P = g.shape
+    out = torch.empty((C, P), dtype=dtype, device=g.device)
+    if out.numel() == 0:
+        return out
+    err = _build.lib().repro_sr_pack(
+        g.data_ptr(), offsets.data_ptr(), step.data_ptr(), u.data_ptr(), out.data_ptr(),
+        _build.DTYPE_CODES[dtype], P, step.shape[0], C, float(lim), _build.stream_of(g))
+    _build.check_launch(PACK_NAME, err)
+    _build.LAUNCHES[PACK_NAME] += 1
     return out

@@ -42,7 +42,7 @@ def main(argv=None):
                     'config, e.g. \'{"kind": "energy_budget", '
                     '"budget_j": 120}\'')
     ap.add_argument("--ckpt-dir", default="",
-                    help="round-level checkpoints (not ported yet: raises)")
+                    help="round-level checkpoints; a rerun resumes from the latest")
     ap.add_argument("--ckpt-every", type=int, default=10)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without a card)")

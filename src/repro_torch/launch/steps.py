@@ -1,8 +1,15 @@
-"""Serving step builders: greedy decode step and prefill-into-slots.
+"""Step builders: the FWQ train step and the serving steps.
 
-Counterparts of ``build_decode_step`` / ``build_cached_prefill`` /
-``init_global_caches`` in ``repro/launch/steps.py`` as plain callables on
-one device: no ``shard_map``, no jit — PyTorch runs eagerly.
+Counterparts of ``build_train_step`` / ``local_param_shapes`` /
+``build_decode_step`` / ``build_cached_prefill`` / ``init_global_caches`` in
+``repro/launch/steps.py`` as plain callables on one device: no
+``shard_map``, no jit — PyTorch runs eagerly.
+
+The train step runs a ``Dx1`` mesh's D clients one after another (the
+reference runs them as the data-parallel shards of one program) and then does
+the server's part: the reference's FSDP leaves mean-reduced in f32, its
+replicated leaves through the SR-quantized all-reduce (one K2 launch), one
+optimizer step.  Its SR noise comes from :class:`SRDraws`.
 """
 
 from __future__ import annotations
@@ -10,16 +17,144 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
+import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.collectives import AxisCtx
-from repro_torch.models.common import ParamCtx
+from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.core.fwq import _stable_hash, make_inline_quantizer
+from repro_torch.dist.collectives import AxisCtx, f32_reciprocal, quantized_psum_batch
+from repro_torch.models.common import ParamCtx, fsdp_plan, reduce_gradients
 from repro_torch.models.model import Model
+from repro_torch.optim import Optimizer
 
 
 def _compute_dtype(cfg: ModelConfig):
     return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+
+
+class SRDraws:
+    """The stochastic-rounding uniforms of one train step: round
+    ``round_idx`` of a run seeded with ``seed``.
+
+    Every draw comes from a generator seeded by ``(seed, round_idx, site)``,
+    so a step is deterministic and a resumed run repeats it.  The sites are
+    the reference's: a weight use is ``(client, _stable_hash(path))`` (no
+    layer index: every layer of a stacked weight gets the same draws), a wire
+    leaf is ``(17, leaf index in flatten order, client)``.  PyTorch cannot
+    reproduce the reference's threefry bits, so this class is the one seam a
+    test replaces to feed the reference's own draws.
+    """
+
+    def __init__(self, seed: int, round_idx: int):
+        self.seed, self.round_idx = int(seed), int(round_idx)
+
+    def _rand(self, site: tuple, shape, device) -> torch.Tensor:
+        ss = np.random.SeedSequence((self.seed, self.round_idx, *site))
+        gen = torch.Generator(device=device).manual_seed(
+            int(ss.generate_state(1, np.uint64)[0]))
+        return torch.rand(tuple(shape), generator=gen, device=device)
+
+    def weights(self, client: int, path: str, shape, device) -> torch.Tensor:
+        """Uniforms for client ``client``'s inline quantization of ``path``."""
+        return self._rand((int(client), _stable_hash(path)), shape, device)
+
+    def wire(self, leaf: int, n_clients: int, shape, device) -> torch.Tensor:
+        """``(n_clients, *shape)`` uniforms for wire leaf ``leaf``."""
+        return torch.stack([self._rand((17, int(leaf), c), shape, device)
+                            for c in range(n_clients)])
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainStep:
+    fn: Any                     # (params, opt_state, batch, delta, draws) -> ...
+    batch_spec_fn: Any          # (global_batch, seq) -> meta-tensor batch
+    n_clients: int
+
+
+def build_train_step(model: Model, axes: AxisCtx, opt: Optimizer,
+                     train_cfg: TrainConfig, *, attn_impl: str = "auto") -> TrainStep:
+    """The FWQ train step of Algorithm 1 on a ``Dx1`` mesh.
+
+    ``fn(params, opt_state, batch, delta, draws) -> (params, opt_state,
+    {"loss", "grad_sq_shard_sum"})``.  ``batch`` leaves have the global batch
+    ``D * b`` as leading dim (client ``c`` takes rows ``c*b : (c+1)*b``),
+    ``delta`` is ``(D,)`` per-client resolutions, ``draws`` an
+    :class:`SRDraws`.  Each client quantizes the weights at its ``delta[c]``
+    as it uses them (K1) and takes its loss and gradient there; the server
+    means the reference's FSDP leaves in f32 and, when
+    ``train_cfg.grad_compression_bits`` is set, sends the replicated leaves
+    through :func:`quantized_psum_batch` (one K2 launch), then steps the
+    optimizer.  ``loss`` is the clients' mean; ``grad_sq_shard_sum`` is the
+    reference's sum over shards of the reduced gradients' squared norms
+    (FSDP leaves once, replicated leaves ``D`` times).
+    """
+    cfg = model.cfg
+    D = axes.dp
+    bits = int(train_cfg.grad_compression_bits)
+
+    def fn(params, opt_state, batch, delta, draws: SRDraws):
+        paths, _, plan = fsdp_plan(params, axes.fsdp, check_divisibility=False)
+        replicated = {p for p, dim in zip(paths, plan) if dim is None}
+        wire = replicated if bits else set()
+        b = batch["tokens"].shape[0] // D
+        dev = params[paths[0]].device
+        delta = delta.to(dev)
+        sums, stacked, loss_sum = {}, {p: [] for p in wire}, None
+        for c in range(D):
+            def uniforms(path, w, c=c):
+                return draws.weights(c, path, w.shape, w.device)
+
+            pc = ParamCtx(ctx=axes.at_client(c), compute_dtype=_compute_dtype(cfg),
+                          sp=cfg.seq_parallel,
+                          transform=make_inline_quantizer(delta[c], uniforms=uniforms))
+            leaves = {p: params[p].detach().requires_grad_() for p in paths}
+            cb = {k: v[c * b:(c + 1) * b] for k, v in batch.items()}
+            loss, _aux = model.train_loss(pc, leaves, cb, attn_impl=attn_impl)
+            grads = torch.autograd.grad(loss, [leaves[p] for p in paths])
+            for p, g in zip(paths, grads):
+                if p in wire:
+                    stacked[p].append(g)
+                elif c == 0:
+                    sums[p] = g
+                else:
+                    sums[p].add_(g)
+            loss_sum = loss.detach() if c == 0 else loss_sum + loss.detach()
+            del leaves, grads, loss
+        # ---- server aggregation (Algorithm 1 line 10) ----------------------
+        G = reduce_gradients(sums, axes)
+        if wire:
+            idx = [(i, p) for i, p in enumerate(paths) if p in wire]
+            means = quantized_psum_batch(
+                axes, [torch.stack(stacked.pop(p)) for _i, p in idx],
+                [draws.wire(i, D, params[p].shape, dev) for i, p in idx], bits,
+                on_nonfinite=train_cfg.nonfinite_grads)
+            G.update(zip((p for _i, p in idx), means))
+        # ---- server update (line 11) --------------------------------------
+        updates, opt_state = opt.update(G, opt_state, params)
+        params = {k: (p.to(torch.float32) + updates[k]).to(p.dtype)
+                  for k, p in params.items()}
+        gnorm = sum((G[p].to(torch.float32) ** 2).sum() * (D if p in replicated else 1)
+                    for p in paths)
+        metrics = {"loss": loss_sum * f32_reciprocal(D, dev), "grad_sq_shard_sum": gnorm}
+        return params, opt_state, metrics
+
+    return TrainStep(fn=fn, batch_spec_fn=model.train_batch_spec, n_clients=D)
+
+
+def local_param_shapes(model: Model, axes: AxisCtx) -> dict:
+    """Per-shard parameter shapes (the reference's post-FSDP storage layout)
+    as meta tensors; raises as the reference does where an FSDP leaf does
+    not divide by the FSDP size."""
+    fsdp = axes.fsdp
+    params = model.init(torch.Generator().manual_seed(0), axes.tp, device="meta")
+    paths, leaves, plan = fsdp_plan(params, fsdp)
+    out = {}
+    for path, leaf, dim in zip(paths, leaves, plan):
+        shape = list(leaf.shape)
+        if dim is not None:
+            shape[dim] //= fsdp
+        out[path] = torch.empty(shape, dtype=leaf.dtype, device="meta")
+    return out
 
 
 @dataclasses.dataclass(frozen=True)

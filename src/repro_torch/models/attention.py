@@ -32,7 +32,7 @@ from repro_torch.models.common import ParamCtx
 from repro_torch.models.layers import apply_rope, dense, rope_tables, sp_out
 
 _SEQPAR_TODO = ("the sequence-parallel KV cache (tp > 1 with replicated KV heads) "
-                "is ported with the multi-GPU slice (ROADMAP queue 1, item 8)")
+                "is ported with tensor parallelism (ROADMAP queue 1, item 9)")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -11,7 +11,10 @@
 Parameters are a flat dict keyed by the reference's path strings
 (``"embed/table"``, ``"blocks/attn/wq"``, ...); leaves under ``blocks/`` keep
 their leading ``(L, ...)`` layer dim, as the reference's scanned stacks do.
-One device, ``tp = 1``: the FSDP gathers of the reference are identities.
+One device, ``tp = 1``: the port holds every leaf whole, so the FSDP gathers
+of the reference are identities.  Which leaves the reference shards still
+decides how a train step reduces their gradients (:func:`fsdp_plan`): the
+sharded ones are mean-reduced in f32, the replicated ones cross the SR wire.
 """
 
 from __future__ import annotations
@@ -21,7 +24,8 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.dist.collectives import AxisCtx
+from repro_torch.core.quantization import _flatten_with_paths
+from repro_torch.dist.collectives import AxisCtx, f32_reciprocal
 
 Transform = Callable[[str, torch.Tensor], torch.Tensor]
 
@@ -83,6 +87,80 @@ def layer_params(params: dict, layer: int) -> dict:
             node = node.setdefault(p, {})
         node[leaf] = w[layer]
     return out
+
+
+#: Minimum product of the NON-sharded dims for FSDP participation.
+FSDP_MIN_OTHER = 256
+
+#: Path fragments never FSDP-sharded.
+FSDP_EXCLUDE = ("router", "conv_", "a_log", "dt_bias", "d_skip", "/ln", "norm",
+                "gate_scalar")
+
+
+def fsdp_shard_dim(path: str, ndim: int) -> int:
+    """The reference's FSDP shard dim of a parameter (per-layer view, stack
+    dim stripped): the second-to-last dim, but the last for embedding tables
+    and the row-parallel ``w_down``."""
+    if path.endswith("/table") or "w_down" in path:
+        return ndim - 1
+    return ndim - 2
+
+
+def fsdp_participates(path: str, per_layer_shape: tuple, fsdp: int) -> bool:
+    """Whether the reference FSDP-shards this leaf: ``fsdp > 1``, at least
+    2-D per layer, not excluded, and its non-shard dims multiply to at least
+    :data:`FSDP_MIN_OTHER`."""
+    if fsdp <= 1 or len(per_layer_shape) < 2:
+        return False
+    if any(x in path for x in FSDP_EXCLUDE):
+        return False
+    dim = fsdp_shard_dim(path, len(per_layer_shape))
+    other = 1
+    for i, s in enumerate(per_layer_shape):
+        if i != dim:
+            other *= s
+    return other >= FSDP_MIN_OTHER
+
+
+#: ``(paths, leaves)`` of a parameter dict in the reference's flatten order
+#: (dict keys sorted level by level, as JAX flattens a nested dict).
+tree_paths_leaves = _flatten_with_paths
+
+
+def fsdp_plan(params: dict, fsdp: int, *, check_divisibility: bool = True):
+    """``(paths, leaves, plan)``: per leaf (in flatten order) its FSDP dim in
+    stored coordinates, or None for a replicated leaf.
+
+    ``check_divisibility`` holds only for unsharded shapes: it raises, as
+    the reference does, where the shard dim does not divide by ``fsdp``."""
+    paths, leaves = tree_paths_leaves(params)
+    plan = []
+    for path, leaf in zip(paths, leaves):
+        arr = leaf.codes if isinstance(leaf, QTensor) else leaf
+        stacked = is_stacked(path)
+        eff_ndim = arr.ndim - 1 if stacked else arr.ndim
+        shape = tuple(arr.shape[1:] if stacked else arr.shape)
+        if not fsdp_participates(path, shape, fsdp):
+            plan.append(None)
+            continue
+        dim = fsdp_shard_dim(path, eff_ndim) + (1 if stacked else 0)
+        if check_divisibility and arr.shape[dim] % fsdp != 0:
+            raise ValueError(
+                f"FSDP-eligible param {path} shape {tuple(arr.shape)} not divisible by "
+                f"fsdp={fsdp} on dim {dim}; adjust fsdp_shard_dim rule")
+        plan.append(dim)
+    return paths, leaves, plan
+
+
+def reduce_gradients(grad_sums: dict, ctx: AxisCtx) -> dict:
+    """Server-side gradient mean (Algorithm 1 line 10) from the per-leaf sums
+    over the ``ctx.dp`` clients.
+
+    In the reference the FSDP leaves arrive reduce-scattered (summed) and are
+    divided by ``dp``, and the replicated leaves are ``pmean``-ed; both are
+    the f32 sum over the clients times ``fl32(1 / dp)`` as XLA runs them.
+    """
+    return {p: g * f32_reciprocal(ctx.dp, g.device) for p, g in grad_sums.items()}
 
 
 @dataclasses.dataclass

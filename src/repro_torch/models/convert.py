@@ -26,7 +26,11 @@ def to_tensor(a, device=None) -> torch.Tensor:
 
 def params_from_jax(tree, *, device=None) -> dict:
     """Reference param tree -> ``{"embed/table": Tensor, "blocks/attn/wq":
-    QTensor | Tensor, ...}``."""
+    QTensor | Tensor, ...}``.
+
+    The tree may be the global one a ``Dx1`` mesh's ``build_init_fn``
+    returns: each FSDP-sharded array is gathered whole by ``np.asarray``,
+    which is the layout the port holds (every leaf whole on one device)."""
     out: dict = {}
 
     def walk(node, prefix: str):

@@ -9,9 +9,15 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.models.common import ParamCtx, QTensor
+
+
+def sp_gather(pc: ParamCtx, x):
+    """(B, S/tp, D) -> (B, S, D) at a block input: the identity at tp = 1."""
+    return x
 
 
 def sp_out(pc: ParamCtx, y):
@@ -99,6 +105,60 @@ def vocab_embed(pc: ParamCtx, path: str, table, ids: torch.Tensor, vocab_local: 
 def vocab_logits(pc: ParamCtx, path: str, w_unembed, x):
     """x: (B, S, D) -> logits (B, S, V)."""
     return dense(pc, f"{path}/w", w_unembed, x)
+
+
+def _xent_terms(pc: ParamCtx, lg, labels, vocab_local: int, ignore_id: int):
+    """Per-position NLL over (vocab-sharded) f32 logits, and the valid mask."""
+    m = lg.amax(dim=-1).detach()
+    z = torch.exp(lg - m[..., None])
+    denom = pc.ctx.psum_model(z.sum(dim=-1))
+    local = labels - pc.ctx.tp_index() * vocab_local
+    in_range = (local >= 0) & (local < vocab_local)
+    safe = torch.clamp(local, 0, vocab_local - 1).to(torch.long)
+    picked = torch.gather(lg, -1, safe[..., None])[..., 0]
+    picked = pc.ctx.psum_model(torch.where(in_range, picked, torch.zeros_like(picked)))
+    nll = torch.log(denom) + m - picked
+    return nll, labels != ignore_id
+
+
+def vocab_parallel_xent(pc: ParamCtx, local_logits, labels, vocab_local: int,
+                        *, ignore_id: int = -1):
+    """Cross-entropy over (vocab-sharded) logits without gathering the vocab.
+
+    Stable log-softmax; labels: (B, S).  Returns (mean_loss, n_tokens).
+    """
+    nll, valid = _xent_terms(pc, local_logits.to(torch.float32), labels, vocab_local,
+                             ignore_id)
+    n = torch.clamp(valid.sum(), min=1)
+    return torch.where(valid, nll, torch.zeros_like(nll)).sum() / n, n
+
+
+def fused_vocab_xent(pc: ParamCtx, path: str, w_unembed, x, labels,
+                     vocab_local: int, *, chunk: int = 512, ignore_id: int = -1):
+    """Unembed + cross-entropy, chunked over the sequence.
+
+    Each chunk's logits are recomputed in backward (activation checkpoint),
+    so the full (B, S, V) logits never live at once.  x: (B, S, D);
+    labels: (B, S).  Returns the mean loss over valid positions.
+    """
+    w = ops.as_array(pc.use(path, w_unembed), pc.compute_dtype)  # quantize once
+    B, S, D = x.shape
+    c = min(chunk, S)
+    if S % c:
+        raise ValueError("sequence must divide the xent chunk")
+
+    def chunk_sum(xs, ws, ls):
+        nll, valid = _xent_terms(pc, (xs @ ws).to(torch.float32), ls, vocab_local,
+                                 ignore_id)
+        return torch.where(valid, nll, torch.zeros_like(nll)).sum()
+
+    nll_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    n_valid = torch.zeros((), dtype=torch.int32, device=x.device)
+    for i in range(S // c):
+        xs, ls = x[:, i * c:(i + 1) * c], labels[:, i * c:(i + 1) * c]
+        nll_sum = nll_sum + checkpoint(chunk_sum, xs, w, ls, use_reentrant=False)
+        n_valid = n_valid + (ls != ignore_id).sum(dtype=torch.int32)
+    return nll_sum / torch.clamp(n_valid, min=1)
 
 
 # ---------------------------------------------------------------------------

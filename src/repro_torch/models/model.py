@@ -1,11 +1,14 @@
-"""Family dispatch facade: one uniform serving surface over the model zoo.
+"""Family dispatch facade: one uniform surface over the model zoo.
 
 ``build_model(cfg)`` returns a :class:`Model` with
 
 * ``init(gen, tp, device)``                     -> f32 params on ``device``
+* ``train_loss(pc, params, batch, **kw)``       -> (scalar, aux)
+* ``forward(pc, params, batch, **kw)``          -> logits
 * ``prefill(pc, params, batch, caches, **kw)``  -> (last-position logits, caches)
 * ``decode_step(pc, params, batch, caches, **kw)`` -> (logits, caches)
 * ``init_caches(batch, s_max, tp, dtype, device=, page_size=, pool_pages=)``
+* ``train_batch_spec(b, s)``                    -> the batch as meta tensors
 
 Only the dense family is ported so far; the other families raise.
 """
@@ -21,10 +24,18 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer
 
 
+def _tokens_spec(b: int, s: int) -> dict:
+    return {"tokens": torch.empty((b, s), dtype=torch.int32, device="meta"),
+            "labels": torch.empty((b, s), dtype=torch.int32, device="meta")}
+
+
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
     init: Callable
+    train_loss: Callable
+    forward: Callable            # (pc, params, batch, **kw) -> logits
+    train_batch_spec: Callable   # (b, s) -> {"tokens", "labels"} meta tensors
     decode_step: Callable
     init_caches: Callable
     prefill: Callable
@@ -38,6 +49,10 @@ def build_model(cfg: ModelConfig) -> Model:
             cfg=cfg,
             init=lambda gen, tp, device=None: transformer.init_lm(
                 cfg, gen, tp, device=device),
+            train_loss=lambda pc, p, b, **kw: transformer.train_loss(cfg, pc, p, b, **kw),
+            forward=lambda pc, p, b, **kw: transformer.forward(cfg, pc, p, b["tokens"],
+                                                               **kw),
+            train_batch_spec=_tokens_spec,
             decode_step=lambda pc, p, b, caches, **kw: transformer.decode_step(
                 cfg, pc, p, b["token"], caches, **kw),
             init_caches=lambda batch, s_max, tp, dtype=torch.bfloat16, **kw:

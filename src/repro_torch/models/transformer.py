@@ -1,14 +1,18 @@
-"""Decoder-only transformer LM (dense family): init, prefill, decode.
+"""Decoder-only transformer LM (dense family): init, training forward and
+loss, prefill, decode.
 
 Counterpart of ``repro/models/transformer.py``.  A Python loop over the
-layer-stacked parameters takes the place of ``lax.scan``.  Caches are
-layer-stacked ``(L, ...)``; each layer reads and writes its slice in place,
-so a step returns the same pools with new lengths.
+layer-stacked parameters takes the place of ``lax.scan``; with ``cfg.remat``
+each training block runs under ``torch.utils.checkpoint`` (the reference's
+``jax.checkpoint``), so its weight transform runs again in backward.  Caches
+are layer-stacked ``(L, ...)``; each layer reads and writes its slice in
+place, so a step returns the same pools with new lengths.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -66,6 +70,67 @@ def init_lm(cfg: ModelConfig, gen: torch.Generator, tp: int = 1, *, device=None,
     p["final_norm"] = torch.zeros((d,), **kw)
     p["unembed/w"] = init_dense(gen, d, vl, **kw)
     return p
+
+
+def _layer_views(params: dict, n_layers: int) -> list[dict]:
+    """Per-layer nested trees of the ``blocks/`` leaves, as views from ONE
+    ``unbind`` per leaf (its backward stacks the layers' gradients once)."""
+    out = [{} for _ in range(n_layers)]
+    for path, w in params.items():
+        if not path.startswith("blocks/"):
+            continue
+        *parents, leaf = path.split("/")[1:]
+        for i, wi in enumerate(w.unbind(0)):
+            node = out[i]
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = wi
+    return out
+
+
+def _block_fn(cfg: ModelConfig, pc: ParamCtx, tp: int, attn_impl: str):
+    ad = attn_dims(cfg, tp)
+
+    def block(x, lp):
+        h = L.sp_gather(pc, L.rmsnorm(pc, "blocks/ln1", lp["ln1"], x, cfg.norm_eps))
+        a, _ = self_attention(pc, "blocks/attn", lp["attn"], h, ad, impl=attn_impl)
+        x = x + a
+        h = L.sp_gather(pc, L.rmsnorm(pc, "blocks/ln2", lp["ln2"], x, cfg.norm_eps))
+        return x + L.mlp(pc, "blocks/mlp", lp["mlp"], h, cfg.mlp_act)
+
+    return block
+
+
+def forward(cfg: ModelConfig, pc: ParamCtx, params, tokens, *, attn_impl="auto",
+            return_hidden=False):
+    """tokens: (B, S) -> logits (B, S, V), or the final hidden (B, S, D)."""
+    _require_dense(cfg)
+    tp = pc.ctx.tp
+    vl = padded_vocab_local(cfg, tp)
+    x = L.vocab_embed(pc, "embed", params["embed/table"], tokens, vl)
+    x = x.to(pc.compute_dtype)
+    block = _block_fn(cfg, pc, tp, attn_impl)
+    for lp in _layer_views(params, cfg.n_layers):
+        if cfg.remat:
+            x = checkpoint(block, x, lp, use_reentrant=False)
+        else:
+            x = block(x, lp)
+    x = L.sp_gather(pc, L.rmsnorm(pc, "final_norm", params["final_norm"], x,
+                                  cfg.norm_eps))
+    if return_hidden:
+        return x
+    return L.vocab_logits(pc, "unembed", params["unembed/w"], x)
+
+
+def train_loss(cfg: ModelConfig, pc: ParamCtx, params, batch, *, attn_impl="auto"):
+    """Mean next-token cross-entropy of ``batch`` (``tokens``, ``labels``
+    (B, S)); returns ``(loss, {})`` as the reference does."""
+    x = forward(cfg, pc, params, batch["tokens"], attn_impl=attn_impl,
+                return_hidden=True)
+    vl = padded_vocab_local(cfg, pc.ctx.tp)
+    loss = L.fused_vocab_xent(pc, "unembed/w", params["unembed/w"], x,
+                              batch["labels"], vl)
+    return loss, {}
 
 
 def init_caches(cfg: ModelConfig, batch: int, s_max: int, tp: int = 1,

@@ -386,8 +386,7 @@ def test_entry_points_need_cuda_unless_asked():
         TSession(spec).run()
     with pytest.raises(RuntimeError, match="CUDA"):
         fl.main(["--rounds", "1"])
-    with pytest.raises(NotImplementedError, match="ckpt"):
-        TSession(TSpec(arch="mobilenet", workload="fl-sim", rounds=1,
-                       options={"ckpt_dir": "x"}), device="cpu").run()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TSession(TSpec(arch="yi-6b", workload="train", mesh="2x1")).run()
     with pytest.raises(NotImplementedError, match="not ported"):
-        TSession(TSpec(arch="yi-6b", workload="train"), device="cpu").run()
+        TSession(TSpec(arch="yi-6b", workload="dryrun"), device="cpu").run()

@@ -85,9 +85,12 @@ def test_cuda_request_without_cuda_raises(monkeypatch):
 
 
 def test_unported_workloads_raise():
-    spec = RunSpec("yi-6b", workload="train")
+    spec = RunSpec("yi-6b", workload="dryrun")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Session(spec, device="cpu").run()
+    for mesh in ("2x1", "1x2"):                 # batch-sharded serving, tp > 1
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            Session(RunSpec("yi-6b", workload="serve", mesh=mesh), device="cpu").serve()
     moe = RunSpec("olmoe-1b-7b", workload="serve", precision=PrecisionPolicy.lazy_int8(7))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Session(moe, device="cpu").serve()
