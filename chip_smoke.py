@@ -8,16 +8,20 @@ Phases (each one failing stops the script with a nonzero exit):
 
 1. device: the card's name and power limit; TF32 switched off.
 2. build: compile ``src/repro_torch/csrc/*.cu`` (nvcc, sm_90a) and print the
-   build time and the ptxas register/spill report.
+   build time per file and the ptxas register/spill/shared-memory report per
+   kernel; check in the SASS that K3's prefill path issues wgmma (HGMMA) and
+   TMA loads (UTMALDG) and that no K3 kernel has a global atomic.
 3. kernels: every kernel (K1 sr_quant, K2 sr_pack, K3 quant_matmul, K4
    flash_attention, K5 flash_decode) against its plain PyTorch version on the
    card, at the shapes of its path, with times beside the plain version, one
-   library call where one computes the same function, and the card's bound.
+   library call where one computes the same function, and the card's bound;
+   K3 also launched twice on identical inputs, the outputs bit-equal.
 4. serve: ``Session.serve`` of full-width, full-depth yi-6b with int8 weights,
    paged f32 KV and continuous batching; the launch counters are zeroed just
    before and read just after, and every kernel must have launched.
-5. profile: where a full-depth decode step's time goes (host clock per
-   step, device time by kernel from ``torch.profiler``).
+5. profile: where a full-depth decode step's and a prefill's (4 slots x 128
+   tokens) time goes: host clock, device time by kernel from
+   ``torch.profiler``, K3's device time and launches (225 each).
 6. consistency: a 2-layer full-width yi-6b runs one prefill and one decode
    step with the kernels and again with the plain versions on the card.
 7. fl: the paper's FWQ loop (``Session.run_fl_sim``) on the card — the
@@ -35,7 +39,9 @@ Phases (each one failing stops the script with a nonzero exit):
    rounds' plans against a CPU run of the same orchestrator.
 
 The last two lines are the kernel table and ``{"ok": true, "device": ...}``.
-``--phases`` runs a subset (for iterating on one kernel).
+``--phases`` runs a subset (for iterating on one kernel); phase ``sweep``,
+run only when named, times K3 at yi-6b's projections under the tile plans
+near the one ``quant_matmul.plan`` picks.
 """
 
 from __future__ import annotations
@@ -138,14 +144,60 @@ def phase_device() -> dict:
     return {"kind": kind, "smi": smi}
 
 
+def _demangle(names: list) -> list:
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                             text=True, check=True).stdout.splitlines()
+        return out if len(out) == len(names) else names
+    except (OSError, subprocess.CalledProcessError):
+        return names
+
+
+def _sass_counts(lib_path: str, prefix: str, opcodes: tuple) -> dict:
+    """Per kernel whose name holds ``prefix``: how many SASS instructions
+    start with each of ``opcodes`` (cuobjdump of the built library)."""
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True, text=True,
+                          check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            if prefix in fn:
+                counts[fn] = dict.fromkeys(opcodes, 0)
+            continue
+        if fn in counts and "*/" in line:
+            op = line.split("*/", 1)[1].strip().split(" ")[0].lstrip("@!P0123456789 ")
+            for o in opcodes:
+                if op.startswith(o):
+                    counts[fn][o] += 1
+    return dict(zip(_demangle(list(counts)), counts.values()))
+
+
 def phase_build() -> None:
     t0 = time.time()
+    lib_path = _build.build()
     _build.lib()
     info = _build.build_info()
-    print(f"build: {time.time() - t0:.2f}s (nvcc {info.get('seconds', 0.0):.2f}s)")
+    print(f"build: {time.time() - t0:.2f}s (nvcc {info.get('seconds', 0.0):.2f}s, every "
+          "source in parallel; per file below)")
+    entry = None
     for line in info.get("log", "").splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if line.startswith("=="):
             print("  " + line.strip())
+        elif "Compiling entry function" in line:
+            entry = _demangle([line.split("'")[1]])[0]
+        elif "registers" in line or "spill" in line:
+            # the ptxas report: registers, spills and shared memory per kernel
+            print(f"  {(entry or '')[:90]}: {line.split(':', 1)[-1].strip()}")
+    # K3's paths as built: the prefill path issues wgmma and loads through
+    # TMA; no K3 kernel has a global atomic
+    counts = _sass_counts(str(lib_path), "qmm_", ("HGMMA", "UTMALDG", "RED", "ATOMG"))
+    for fn, c in counts.items():
+        print(f"  sass {fn[:90]}: {c}")
+    wg = [c for fn, c in counts.items() if "qmm_wgmma" in fn]
+    assert wg and all(c["HGMMA"] > 0 and c["UTMALDG"] > 0 for c in wg), counts
+    assert all(c["RED"] == 0 and c["ATOMG"] == 0 for c in counts.values()), counts
 
 
 def _check(name, got, want, rtol, atol):
@@ -169,31 +221,72 @@ def check_quant_matmul(table: dict) -> None:
             n_copies = max(1, min(16, math.ceil(120e6 / codes.nbytes)))
             copies = [codes] + [codes.clone() for _ in range(n_copies - 1)]
             for x_dtype in (torch.float32, torch.bfloat16):
+                # the library's weight, dequantized, in as many copies as the
+                # codes, so that it too streams from device memory
                 w_lib = (codes.float() * scale).to(x_dtype)
-                for M in (4, 37, 512):
+                w_libs = [w_lib] + [w_lib.clone() for _ in range(n_copies - 1)]
+                for M in (4, 37, 256, 512):
                     x = torch.randn((M, K), generator=gen, device="cuda").to(x_dtype)
                     got = qm.quant_matmul_cuda(x, codes, scale)
+                    again = qm.quant_matmul_cuda(x, codes, scale)
                     want = qm.quant_matmul_plain(x, codes, scale)
                     torch.cuda.synchronize()
                     rtol, atol = (1e-4, 1e-3) if x_dtype == torch.float32 else (2e-2, 1e-2)
                     case = f"quant_matmul M={M} K={K} N={N} x={x_dtype} codes={code_dtype}"
                     _check(case, got, want, rtol, atol)
+                    # deterministic: a fixed order of every sum, no atomics
+                    if not torch.equal(got, again):
+                        raise AssertionError(f"{case}: two launches on identical inputs differ")
                     abs_e, rel_e = max_errs(got, want)
                     sets = [(x, c, scale) for c in copies]
                     k_ms = time_ms(qm.quant_matmul_cuda, sets)
                     p_ms = time_ms(qm.quant_matmul_plain, sets[:1], iters=3, warmup=1)
-                    l_ms = time_ms(torch.matmul, [(x, w_lib)])
+                    l_ms = time_ms(torch.matmul, [(x, w) for w in w_libs])
                     nbytes = x.nbytes + codes.nbytes + 4 + M * N * 4
                     b_ms, b_by = bound_ms(nbytes, 2.0 * M * K * N, x_dtype)
+                    p = qm.plan(M, K, N, x_dtype, code_dtype)
                     row = dict(kernel="quant_matmul", M=M, K=K, N=N, x=str(x_dtype),
-                               codes=str(code_dtype), max_abs_err=abs_e, max_rel_err=rel_e,
-                               kernel_ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
-                               bound_ms=b_ms, bound_by=b_by)
+                               codes=str(code_dtype), plan=list(p), max_abs_err=abs_e,
+                               max_rel_err=rel_e, kernel_ms=k_ms, plain_ms=p_ms,
+                               library_ms=l_ms, bound_ms=b_ms, bound_by=b_by)
                     emit(row)
                     if (M, K, N, x_dtype, code_dtype) == (4, 4096, 11008, torch.bfloat16,
                                                           torch.int8):
                         table["quant_matmul"] = row
-            del copies, codes
+            del copies, codes, w_lib, w_libs
+
+
+def phase_sweep(dev: dict) -> None:
+    """K3 at yi-6b's projections under each tile plan the kernels take near
+    the one ``quant_matmul.plan`` picks: the measurements behind the plan's
+    choices (decode: ~1.5 blocks an SM; prefill: ``WGMMA_TILES``)."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for K, N in ((4096, 4096), (4096, 512), (4096, 11008), (11008, 4096), (4096, 64000)):
+        codes = torch.randint(-127, 128, (K, N), generator=gen, device="cuda",
+                              dtype=torch.int32).to(torch.int8)
+        scale = torch.tensor(1.0 / math.sqrt(K) / 127, device="cuda")
+        n_copies = max(1, min(16, math.ceil(120e6 / codes.nbytes)))
+        copies = [codes] + [codes.clone() for _ in range(n_copies - 1)]
+        for M in (4, 37, 256, 512):
+            x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+            chosen = qm.plan(M, K, N, x.dtype, codes.dtype)
+            if M <= 16:
+                cpl = 64 // chosen.tile_m
+                plans = [qm.Plan("cluster", chosen.tile_m, lanes * cpl, split)
+                         for lanes in (32, 16, 8, 4, 2, 1) for split in range(1, 9)]
+                plans = [p for p in plans if 100 <= p.blocks(M, N) <= 300]
+            else:
+                plans = [qm.Plan("wgmma", bm, bn, 1) for bm, bn in qm.WGMMA_TILES
+                         if M > 64 or bm == 64]
+            ms = {}
+            for p in dict.fromkeys([chosen] + plans):
+                def run(x, c, s, p=p):
+                    return qm.quant_matmul_cuda(x, c, s, tile_plan=p)
+                # key tile_m/tile_n/split
+                ms["/".join(map(str, p[1:]))] = time_ms(run, [(x, c, scale) for c in copies])
+            emit({"sweep": {"M": M, "K": K, "N": N, "card": dev["smi"],
+                            "chosen": list(chosen), "ms": ms}})
+        del copies, codes
 
 
 def check_flash_attention(table: dict) -> None:
@@ -467,7 +560,9 @@ def phase_serve(dev: dict) -> dict:
     vocab = sess.cfg.vocab_size
     assert sess.cfg.n_layers == 32 and sess.cfg.d_model == 4096, sess.cfg
     assert stats.admitted == 8, stats.admitted
-    assert stats.completed >= 4, stats.completed
+    assert stats.completed == 8, stats.completed
+    # every decode step and every prefill projects 7 x 32 layers + the head
+    assert launches["quant_matmul"] % (7 * sess.cfg.n_layers + 1) == 0, launches
     assert stats.decoded_tokens > 0, stats.decoded_tokens
     assert stats.sample and all(0 <= t < vocab for t in stats.sample), stats.sample
     assert all(0 <= t < vocab for t in sess.last_tokens), "sampled id out of range"
@@ -517,8 +612,9 @@ def prefilled(cfg, policy, *, seed: int = 0, batch: int = 4, s_max: int = 256,
     """Packed random weights of ``cfg`` (drawn with ``seed`` on ``device``)
     and paged caches after one flash prefill of ``batch`` random prompts.
 
-    Returns ``(decode, prefill_logits, first_token, caches)``, where
-    ``decode(token, caches) -> (logits, caches)`` runs one flash decode step.
+    Returns ``(decode, prefill_logits, first_token, caches, again)``, where
+    ``decode(token, caches) -> (logits, caches)`` runs one flash decode step
+    and ``again()`` runs the same prefill once more (into the same caches).
     """
     from repro_torch.core.quantization import default_exempt
     from repro_torch.dist.collectives import AxisCtx
@@ -549,48 +645,31 @@ def prefilled(cfg, policy, *, seed: int = 0, batch: int = 4, s_max: int = 256,
     def decode(token, caches):
         return decode_step(cfg, pc, qparams, token, caches, attn_impl="flash")
 
-    with torch.no_grad():
-        lp, caches = prefill(cfg, pc, qparams, tokens, caches, attn_impl="flash",
-                             prompt_lens=plens)
-    return decode, lp, _greedy_pick(axes, 1, cfg.vocab_size, lp), caches
+    @torch.no_grad()
+    def again():
+        return prefill(cfg, pc, qparams, tokens, caches, attn_impl="flash",
+                       prompt_lens=plens)
+
+    lp, caches = again()
+    return decode, lp, _greedy_pick(axes, 1, cfg.vocab_size, lp), caches, again
 
 
 def step_logits(cfg, policy, **kw) -> dict:
     """Logits of one flash prefill and one flash decode step of ``cfg``."""
-    decode, lp, tok, caches = prefilled(cfg, policy, **kw)
+    decode, lp, tok, caches, _again = prefilled(cfg, policy, **kw)
     ld, _ = decode(tok, caches)
     return {"prefill_logits": lp, "decode_logits": ld}
 
 
-def phase_profile(dev: dict) -> None:
-    """Where a full-depth decode step's time goes: host clock per step, and
-    device time by kernel from ``torch.profiler`` over a few steps."""
+def _device_ms_by_name(fn, n: int) -> list:
+    """``fn`` run ``n`` times under ``torch.profiler``: (device ms per run,
+    launches per run, kernel name) of every device activity, largest first."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.api import PrecisionPolicy
-    from repro_torch.configs import get_config
-
-    cfg = get_config("yi-6b")
-    decode, _lp, tok, caches = prefilled(cfg, PrecisionPolicy.lazy_int8(7))
-
-    def step(tok, caches):
-        logits, caches = decode(tok, caches)
-        return logits[:, -1].float().argmax(-1, keepdim=True).to(torch.int32), caches
-
-    for _ in range(2):                      # warm up
-        tok, caches = step(tok, caches)
-    torch.cuda.synchronize()
-    n, t0 = 8, time.time()
-    for _ in range(n):
-        tok, caches = step(tok, caches)
-        tok.cpu()                           # the serve loop syncs every step too
-    step_ms = (time.time() - t0) * 1e3 / n
-    n_prof = 3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n_prof):
-            tok, caches = step(tok, caches)
-            tok.cpu()
+        for _ in range(n):
+            fn()
     # device activity only (kernels, copies): an aten op's device time is its
     # kernels' time again, so summing every event would count it twice
     per_name: dict = {}
@@ -599,16 +678,59 @@ def phase_profile(dev: dict) -> None:
             acc = per_name.setdefault(e.name, [0.0, 0])
             acc[0] += e.time_range.elapsed_us() / 1e3
             acc[1] += 1
-    rows = [(ms / n_prof, n // n_prof, name) for name, (ms, n) in per_name.items()]
-    rows.sort(reverse=True)
-    device_ms = sum(r[0] for r in rows)
-    emit({"profile": {
-        "card": f"{dev['kind']} ({dev['smi']})", "layers": cfg.n_layers, "batch": 4,
-        "step_ms_host_clock": step_ms,
-        "device_ms_per_step": device_ms if rows else "not measured",
-        "device_busy_share": device_ms / step_ms if rows else "not measured",
-        "top": [{"ms_per_step": ms, "launches_per_step": c, "name": k[:80]}
-                for ms, c, k in rows[:12]]}})
+    return sorted(((ms / n, c // n, name) for name, (ms, c) in per_name.items()), reverse=True)
+
+
+def _k3_launches(fn) -> int:
+    ops.reset_launches()
+    fn()
+    torch.cuda.synchronize()
+    return ops.LAUNCHES["quant_matmul"]
+
+
+def phase_profile(dev: dict) -> None:
+    """Where a full-depth decode step's and a prefill's time goes: host clock
+    per step and per prefill, and device time by kernel from
+    ``torch.profiler``; K3's share of each and its launches."""
+    from repro_torch.api import PrecisionPolicy
+    from repro_torch.configs import get_config
+
+    cfg = get_config("yi-6b")
+    decode, _lp, tok, caches, again = prefilled(cfg, PrecisionPolicy.lazy_int8(7))
+    state = {"tok": tok, "caches": caches}
+
+    def step():
+        logits, state["caches"] = decode(state["tok"], state["caches"])
+        state["tok"] = logits[:, -1].float().argmax(-1, keepdim=True).to(torch.int32)
+        state["tok"].cpu()                  # the serve loop syncs every step too
+
+    def prefill_once():
+        lp, _ = again()
+        lp.float().argmax(-1).cpu()         # the serve loop reads the first token
+
+    projections = 7 * cfg.n_layers + 1     # q k v o gate up down a layer, the head
+    out = {"card": f"{dev['kind']} ({dev['smi']})", "layers": cfg.n_layers, "batch": 4}
+    for label, fn, n in (("decode_step", step, 8), ("prefill_4x128", prefill_once, 3)):
+        for _ in range(2):                  # warm up
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for _ in range(n):
+            fn()
+        host_ms = (time.time() - t0) * 1e3 / n
+        k3 = _k3_launches(fn)
+        assert k3 == projections, f"{label}: {k3} K3 launches, expected {projections}"
+        rows = _device_ms_by_name(fn, 3 if label == "decode_step" else 2)
+        device_ms = sum(r[0] for r in rows)
+        out[label] = {
+            "ms_host_clock": host_ms,
+            "device_ms": device_ms if rows else "not measured",
+            "device_busy_share": device_ms / host_ms if rows else "not measured",
+            "k3_device_ms": sum(r[0] for r in rows if "qmm_" in r[2]) if rows
+            else "not measured",
+            "k3_launches": k3,
+            "top": [{"ms": ms, "launches": c, "name": k[:80]} for ms, c, k in rows[:10]]}
+    emit({"profile": out})
 
 
 def phase_consistency() -> None:
@@ -1047,12 +1169,14 @@ def phase_train(dev: dict) -> dict:
 
 
 PHASES = ("device", "build", "kernels", "serve", "profile", "consistency", "fl", "train")
+#: run only when named in ``--phases``
+EXTRA_PHASES = ("sweep",)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
-                    help=f"comma-separated subset of {PHASES}")
+                    help=f"comma-separated subset of {PHASES + EXTRA_PHASES}")
     phases = ap.parse_args(argv).phases.split(",")
     dev = phase_device()
     table: dict = {}
@@ -1061,6 +1185,8 @@ def main(argv=None) -> int:
         phase_build()
     if "kernels" in phases:
         phase_kernels(table)
+    if "sweep" in phases:
+        phase_sweep(dev)
     if "serve" in phases:
         launches = phase_serve(dev)
     if "profile" in phases:

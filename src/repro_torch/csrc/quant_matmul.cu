@@ -1,50 +1,72 @@
 // K3 quant_matmul: out (M,N) f32 = x (M,K) f32|bf16 @ (codes (K,N) int8|int16 * scale).
 //
 // Replaces the Pallas kernel repro/kernels/quant_matmul.py:quant_matmul_kernel.
-// The weight streams from device memory as int8/int16 codes and is converted
-// to f32 only on chip; sums are kept in f32.  The scalar scale is a device
-// tensor read inside the kernel (no host sync per call).
+// The weight streams from device memory as int8/int16 codes and becomes a
+// float only on chip; sums are kept in f32 and the scalar scale (a device
+// tensor, so no host sync per call) multiplies each finished sum once
+// (x @ codes * s == x @ (codes * s) up to f32 rounding).
 //
 // What bounds it on an H100: decode (M <= 16) reads K*N code bytes for
 // 2*M*K*N operations, far below the ~295 ops/byte ridge, so it is bound by
-// the weight bytes.  Prefill (M = 4 x bucket) is bound by operations.
+// the weight bytes.  Prefill (M = 4 slots x bucket) is bound by operations.
 //
-// Design:
-//  * small M (decode, M <= 16): a thread keeps 64 accumulators, MAXM rows
-//    (4, 8 or 16, picked from M) by 64/MAXM adjacent columns, so at M <= 4
-//    a lane reads 16 int8 codes of a row with one 16-byte load (512 columns
-//    per warp) and the unrolled row loop keeps several such loads in flight:
-//    the bytes in flight, not the arithmetic, set the speed of this path.
-//    Codes become floats by byte splicing (exact) instead of the conversion
-//    pipe.  Eight warps of a block split the K rows of the block's chunk,
-//    and blocks split K again (grid.y) until about two blocks per SM are in
-//    flight; partial sums meet through conflict-free shared-memory atomics
-//    and one global atomic per output, into an output the launcher zeroes
-//    first.  The
-//    scale multiplies the partial sum once (x @ codes * s == x @ (codes * s)
-//    up to f32 rounding).
-//  * large M, bf16 x and int8 codes (prefill on the serving path): tensor
-//    cores.  A 128x128 output tile per block of 8 warps, K in steps of 32;
-//    codes become bf16 (exact for int8) as their tile lands in shared memory,
-//    and mma.sync m16n8k16 accumulates in f32.  Single-stage (no cp.async
-//    pipeline, no wgmma): a first tensor-core path, not a tuned one.
-//  * large M otherwise (f32 x, int16 codes, unaligned shapes): a 128x128
-//    output tile per block of 256 threads on the FP32 pipes, each thread 8x8,
-//    K in steps of 8.  Codes are dequantized (code * scale, f32) as the tile
-//    lands in shared memory, as the Pallas body does per tile.
-//  Ragged M/N/K are masked in the loads; nothing is padded in memory.
+// The path and its tile are chosen in Python (kernels/quant_matmul.py:plan)
+// and passed in, so the CPU tests pin the choice.  Every path is
+// deterministic: one launch, no memset, no atomics, and a fixed order of
+// every f32 sum, so the same inputs give bit-identical outputs.
+//
+//  * cluster (M <= 16, decode).  K is split across the blocks of one
+//    thread-block cluster (at most 8, the portable size); a block covers a
+//    column tile of `lanes` x CPL columns.  One producer warp streams the
+//    block's code rows, and x over the same rows, through a ring of
+//    shared-memory stages with TMA, so the bytes in flight (what sets this
+//    path's speed) do not depend on registers.  256 consumer threads keep
+//    64 accumulators each, MAXM rows (4, 8 or 16) by CPL = 64/MAXM adjacent
+//    columns; codes become floats by byte splicing (exact) instead of the
+//    conversion pipe.  The row groups' sums meet in a shared-memory tree
+//    (fixed pairing); each block leaves its partial (MAXM, cols) tile in
+//    shared memory and, after a cluster barrier, block r sums slice r of
+//    the tile over the cluster's tiles in rank order through distributed
+//    shared memory, scales it and stores it with plain stores.  The plan
+//    sizes tiles and clusters for about 1.5 blocks an SM and never fewer
+//    than one, so even the narrow k/v projection (N 512) fills the card.
+//  * wgmma (M > 16, bf16 x, int8 codes: prefill on the serving path).  One
+//    producer warp keeps a ring of STAGES shared-memory stages full through
+//    TMA (x tile bf16 K-major with the 128-byte swizzle; int8 code tile
+//    unswizzled), each stage's arrival counted on an mbarrier.  Consumer
+//    warpgroups (64 rows each) convert the stage's codes to bf16 (exact:
+//    int8 spliced into an f32, whose high half is the bf16) into one of
+//    three bf16 tiles, written MN-major in the 128-byte swizzle that wgmma
+//    reads with its transpose bit set, so every conversion store is a
+//    contiguous 16 bytes; then fence.proxy.async and wgmma.mma_async
+//    m64nBNk16 (bf16 x bf16 -> f32 in registers), keeping one k-step of
+//    wgmma in flight while the next tile converts.  Three bf16 tiles let one
+//    named barrier a k-step order the warpgroups' conversions against each
+//    other's wgmma reads.  The epilogue scales and writes f32.  Tiles are
+//    128 x 256, 128 x 128 (two warpgroups), 64 x 128 or 64 x 64 (one),
+//    picked by the plan for the fewest waves of work; M <= 64 takes one.
+//  * tiled (otherwise: f32 x or int16 codes at M > 16, and shapes TMA cannot
+//    address).  A 128x128 output tile per block of 256 threads on the FP32
+//    pipes, each thread 8x8, K in steps of 8; codes are dequantized as the
+//    tile lands in shared memory, as the Pallas body does per tile.  int16
+//    codes above 256 are not exact in bf16, so they cannot take the bf16
+//    wgmma path.
+//  Ragged M/N/K are masked in the loads (TMA fills with zeros); nothing is
+//  padded in memory.  TMA needs 16-byte aligned bases and row strides.
+
+#include <cooperative_groups.h>
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
 
 #include <type_traits>
 
 #include "common.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-// ---------------------------------------------------------------- small M
-constexpr int SM_THREADS = 256;
-constexpr int SM_WARPS = SM_THREADS / 32;
-constexpr int SM_KTILE = 128;  // rows of x staged in shared memory at a time
-constexpr int SM_ACC = 64;     // accumulators per thread: MAXM rows x CPL columns
+// Path tags of the plan (kernels/quant_matmul.py: PATHS).
+enum Path : int { PATH_CLUSTER = 0, PATH_WGMMA = 1, PATH_TILED = 2 };
 
 // Four signed int8 codes packed in a word -> exact floats, on the integer and
 // FP32 pipes rather than the slower conversion pipe: bias each byte to
@@ -64,129 +86,306 @@ __device__ __forceinline__ void i16x2_to_f32(uint32_t w, float* out) {
   out[1] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7532)) - 8421376.f;
 }
 
-// CPL adjacent codes of one row, as floats.  ``vec``: every row start is
-// aligned for the vector loads (checked by the launcher).
+// ------------------------------------------------ TMA and mbarrier helpers
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// One TMA tile load global -> shared, completion counted in bytes on ``bar``.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
+         "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// Shared memory aligned up to ``a`` bytes (TMA tiles, the swizzle atoms).
+template <int A>
+__device__ __forceinline__ uint8_t* align_smem(uint8_t* p) {
+  return p + ((A - (smem_u32(p) & (A - 1))) & (A - 1));
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime, so the library needs no -lcuda.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
+            cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 2-D row-major (rows, cols) tensor map with a (box_rows, box_cols) box;
+// reads outside the tensor land as zeros.
+bool tensor_map(CUtensorMap* map, CUtensorMapDataType dt, int elem_bytes, const void* base,
+                int rows, int cols, int box_rows, int box_cols, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem_bytes};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t estr[2] = {1, 1};
+  return enc(map, dt, 2, const_cast<void*>(base), dims, strides, box, estr,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// ---------------------------------------------------------------- decode
+constexpr int CL_THREADS = 256;                 // consumer threads
+constexpr int CL_BLOCK = CL_THREADS + 32;       // + one producer warp
+constexpr int CL_ACC = 64;                      // accumulators a thread: MAXM rows x CPL columns
+constexpr int CL_MAX_CLUSTER = 8;
+constexpr int CL_STAGES = 8;                    // stages in flight a block
+constexpr int CL_STAGE_BYTES = 8192;            // the stage size the rows aim at
+constexpr int CL_TREE_BYTES = CL_ACC * (CL_THREADS / 2) * 4;  // the row groups' tree
+constexpr int CL_MAX_SMEM = 200 * 1024;
+
+// CPL codes at ``p`` in shared memory (aligned to their size), as floats.
 template <typename CT, int CPL>
-__device__ __forceinline__ void load_codes(const CT* __restrict__ row, int n0, int N, bool vec,
-                                           float (&w)[CPL]) {
+__device__ __forceinline__ void smem_codes(const CT* p, float (&w)[CPL]) {
   constexpr int BYTES = CPL * static_cast<int>(sizeof(CT));
-  constexpr int WORDS = BYTES / 4;
-  if (vec && n0 + CPL <= N) {
-    const char* p = reinterpret_cast<const char*>(row + n0);
-    uint32_t u[WORDS];
-    if constexpr (BYTES % 16 == 0) {
+  uint32_t u[BYTES / 4];
+  if constexpr (BYTES % 16 == 0) {
 #pragma unroll
-      for (int c = 0; c < BYTES / 16; ++c) {
-        const uint4 v = __ldg(reinterpret_cast<const uint4*>(p) + c);
-        u[4 * c] = v.x; u[4 * c + 1] = v.y; u[4 * c + 2] = v.z; u[4 * c + 3] = v.w;
-      }
-    } else if constexpr (BYTES == 8) {
-      const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
-      u[0] = v.x; u[1] = v.y;
-    } else {
-      u[0] = __ldg(reinterpret_cast<const unsigned int*>(p));
+    for (int c = 0; c < BYTES / 16; ++c) {
+      const uint4 v = reinterpret_cast<const uint4*>(p)[c];
+      u[4 * c] = v.x; u[4 * c + 1] = v.y; u[4 * c + 2] = v.z; u[4 * c + 3] = v.w;
     }
-#pragma unroll
-    for (int i = 0; i < WORDS; ++i) {
-      if constexpr (sizeof(CT) == 1) i8x4_to_f32(u[i], &w[4 * i]);
-      else i16x2_to_f32(u[i], &w[2 * i]);
-    }
+  } else if constexpr (BYTES == 8) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    u[0] = v.x; u[1] = v.y;
   } else {
+    u[0] = *reinterpret_cast<const uint32_t*>(p);
+  }
 #pragma unroll
-    for (int c = 0; c < CPL; ++c) w[c] = (n0 + c < N) ? static_cast<float>(row[n0 + c]) : 0.f;
+  for (int i = 0; i < BYTES / 4; ++i) {
+    if constexpr (sizeof(CT) == 1) i8x4_to_f32(u[i], &w[4 * i]);
+    else i16x2_to_f32(u[i], &w[2 * i]);
   }
 }
 
+// grid (cluster size, column tiles), cluster (cluster size, 1, 1): block r
+// of a cluster takes rows [r * k_per_block, (r + 1) * k_per_block) of K.  A
+// stage holds ``rows`` rows of K as TMA lands them: the block's code columns
+// in boxes of ``box_cols`` columns, each dense [rows][box_cols], then x's
+// M rows over those K rows, dense [M][rows].  Dynamic shared memory: the
+// stage ring (afterwards the tree and the partial tile), then the barriers.
 template <typename XT, typename CT, int MAXM>
-__global__ void __launch_bounds__(SM_THREADS)
-qmm_small_m(const XT* __restrict__ x, const CT* __restrict__ codes,
-            const float* __restrict__ scale, float* __restrict__ out,
-            int M, int K, int N, int k_per_block, int vec) {
-  constexpr int CPL = SM_ACC / MAXM;  // columns per lane
-  constexpr int COLS = 32 * CPL;      // columns per block
-  __shared__ float xs[MAXM][SM_KTILE];
-  // partial sums of the block's warps, [m][c][lane]: a warp's 32 lanes add
-  // into 32 consecutive words, free of bank conflicts
-  __shared__ float red[MAXM][CPL][32];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n0 = blockIdx.x * COLS + lane * CPL;
-  const int kb0 = blockIdx.y * k_per_block;
-  const int kb1 = min(K, kb0 + k_per_block);
-
-  for (int i = threadIdx.x; i < MAXM * COLS; i += SM_THREADS) (&red[0][0][0])[i] = 0.f;
-
-  float acc[MAXM][CPL];
-#pragma unroll
-  for (int m = 0; m < MAXM; ++m)
-#pragma unroll
-    for (int c = 0; c < CPL; ++c) acc[m][c] = 0.f;
-
-  for (int kt = kb0; kt < kb1; kt += SM_KTILE) {
-    const int kn = min(SM_KTILE, kb1 - kt);
-    __syncthreads();  // the previous tile is consumed
-    for (int i = threadIdx.x; i < M * SM_KTILE; i += SM_THREADS) {
-      const int m = i / SM_KTILE, kk = i % SM_KTILE;
-      xs[m][kk] = kk < kn ? to_f32(x[(size_t)m * K + kt + kk]) : 0.f;
+__global__ void __launch_bounds__(CL_BLOCK, 2)
+qmm_cluster(const __grid_constant__ CUtensorMap cmap, const __grid_constant__ CUtensorMap xmap,
+            const float* __restrict__ scale, float* __restrict__ out, int M, int K, int N,
+            int lanes, int k_per_block, int rows, int box_cols, int area) {
+  constexpr int CPL = CL_ACC / MAXM;  // columns per lane
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_smem<128>(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + area);
+  uint64_t* empty = full + CL_STAGES;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int csize = static_cast<int>(cluster.num_blocks());
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int groups = CL_THREADS / lanes;
+  const int g = tid / lanes, l = tid % lanes;
+  const int cols = lanes * CPL;
+  const int code_bytes = rows * cols * static_cast<int>(sizeof(CT));
+  const int x_bytes = M * rows * static_cast<int>(sizeof(XT));
+  const int stage_bytes = code_bytes + ((x_bytes + 127) & ~127);
+  const int tile0 = blockIdx.y * cols;
+  const int kb0 = rank * k_per_block;
+  const int kn = max(0, min(K, kb0 + k_per_block) - kb0);  // this block's rows
+  const int n_stages = (kn + rows - 1) / rows;
+  if (tid == 0) {
+    for (int s = 0; s < CL_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CL_THREADS / 32);  // one arrival per consumer warp
     }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = warp; kk < kn; kk += SM_WARPS) {
-      float w[CPL];
-      load_codes<CT, CPL>(codes + (size_t)(kt + kk) * N, n0, N, vec != 0, w);
-#pragma unroll
-      for (int m = 0; m < MAXM; ++m) {
-        if (m < M) {
-          const float xv = xs[m][kk];
-#pragma unroll
-          for (int c = 0; c < CPL; ++c) acc[m][c] = fmaf(xv, w[c], acc[m][c]);
-        }
-      }
-    }
-  }
-  __syncthreads();  // red is initialised (also when this block had no rows)
-#pragma unroll
-  for (int m = 0; m < MAXM; ++m) {
-    if (m < M) {
-#pragma unroll
-      for (int c = 0; c < CPL; ++c)
-        if (n0 + c < N) atomicAdd(&red[m][c][lane], acc[m][c]);
-    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  const float s = *scale;
-  for (int i = threadIdx.x; i < M * COLS; i += SM_THREADS) {
-    const int m = i / COLS, col = i % COLS;  // column col is lane col / CPL's
-    const int n = blockIdx.x * COLS + col;
-    if (n < N) atomicAdd(&out[(size_t)m * N + n], red[m][col % CPL][col / CPL] * s);
+
+  if (warp == CL_THREADS / 32) {  // producer
+    if (lane == 0) {
+      for (int t = 0; t < n_stages; ++t) {
+        const int s = t % CL_STAGES;
+        if (t >= CL_STAGES) mbar_wait(&empty[s], ((t / CL_STAGES) - 1) & 1);
+        mbar_expect_tx(&full[s], code_bytes + x_bytes);
+        uint8_t* dst = smem + s * stage_bytes;
+        const int k0 = kb0 + t * rows;
+        for (int b = 0; b * box_cols < cols; ++b)
+          tma_load_2d(dst + b * rows * box_cols * static_cast<int>(sizeof(CT)), &cmap, &full[s],
+                      tile0 + b * box_cols, k0);
+        tma_load_2d(dst + code_bytes, &xmap, &full[s], k0, 0);
+      }
+    }
+    __syncwarp();
+  } else {
+    float acc[MAXM][CPL];
+#pragma unroll
+    for (int m = 0; m < MAXM; ++m)
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) acc[m][c] = 0.f;
+    // this lane's CPL columns within a stage: box, then column within the box
+    const int off = ((l * CPL) / box_cols) * rows * box_cols + (l * CPL) % box_cols;
+    for (int t = 0; t < n_stages; ++t) {
+      const int s = t % CL_STAGES;
+      mbar_wait(&full[s], (t / CL_STAGES) & 1);
+      const CT* st = reinterpret_cast<const CT*>(smem + s * stage_bytes) + off;
+      const XT* xt = reinterpret_cast<const XT*>(smem + s * stage_bytes + code_bytes);
+      const int r_end = min(rows, kn - t * rows);
+#pragma unroll 4
+      for (int r = g; r < r_end; r += groups) {
+        float w[CPL];
+        smem_codes<CT, CPL>(st + r * box_cols, w);
+#pragma unroll
+        for (int m = 0; m < MAXM; ++m) {
+          if (m < M) {
+            const float xv = to_f32(xt[m * rows + r]);
+#pragma unroll
+            for (int c = 0; c < CPL; ++c) acc[m][c] = fmaf(xv, w[c], acc[m][c]);
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+    // row groups [h, 2h) hand their sums to groups [0, h); the stages are
+    // all consumed, so the tree reuses their memory
+    float* red = reinterpret_cast<float*>(smem);  // [accumulator][thread]
+    for (int h = groups / 2; h >= 1; h >>= 1) {
+      asm volatile("bar.sync 1, %0;\n" :: "n"(CL_THREADS) : "memory");
+      if (g >= h && g < 2 * h) {
+        const int w = tid - h * lanes;
+#pragma unroll
+        for (int m = 0; m < MAXM; ++m)
+#pragma unroll
+          for (int c = 0; c < CPL; ++c) red[(m * CPL + c) * (CL_THREADS / 2) + w] = acc[m][c];
+      }
+      asm volatile("bar.sync 1, %0;\n" :: "n"(CL_THREADS) : "memory");
+      if (g < h) {
+#pragma unroll
+        for (int m = 0; m < MAXM; ++m)
+#pragma unroll
+          for (int c = 0; c < CPL; ++c) acc[m][c] += red[(m * CPL + c) * (CL_THREADS / 2) + tid];
+      }
+    }
+    asm volatile("bar.sync 1, %0;\n" :: "n"(CL_THREADS) : "memory");
+    if (g == 0) {  // the partial tile [m][c][lane]: element (m * CPL + c) * lanes + l
+#pragma unroll
+      for (int m = 0; m < MAXM; ++m)
+#pragma unroll
+        for (int c = 0; c < CPL; ++c) red[(m * CPL + c) * lanes + l] = acc[m][c];
+    }
   }
+  cluster.sync();  // every block's partial tile is in place
+  if (tid < CL_THREADS) {
+    // block r sums slice r of the tile over the cluster's blocks, in rank order
+    const float* part = reinterpret_cast<const float*>(smem);
+    const float s = *scale;
+    const int tile = MAXM * cols, per = (tile + csize - 1) / csize;
+    for (int i = rank * per + tid; i < min(tile, (rank + 1) * per); i += CL_THREADS) {
+      float v = 0.f;
+      for (int q = 0; q < csize; ++q) v += cluster.map_shared_rank(part, q)[i];
+      const int mc = i / lanes, m = mc / CPL;
+      const int n = tile0 + (i % lanes) * CPL + mc % CPL;
+      if (m < M && n < N) out[(size_t)m * N + n] = v * s;
+    }
+  }
+  cluster.sync();  // no block leaves while a peer still reads its tile
 }
 
 template <typename XT, typename CT, int MAXM>
-cudaError_t launch_small_m(const XT* x, const CT* codes, const float* scale, float* out,
-                           int M, int K, int N, cudaStream_t stream, int num_sms) {
-  constexpr int CPL = SM_ACC / MAXM;
-  constexpr int COLS = 32 * CPL;
-  constexpr int ALIGN = CPL * static_cast<int>(sizeof(CT)) < 16
-                            ? CPL * static_cast<int>(sizeof(CT)) : 16;
-  cudaError_t err = cudaMemsetAsync(out, 0, sizeof(float) * (size_t)M * N, stream);
-  if (err != cudaSuccess) return err;
-  const int col_blocks = (N + COLS - 1) / COLS;
-  // split K until about two blocks per SM are in flight (<= 128 registers a
-  // thread lets two share an SM), keeping >= 64 rows a block; each split
-  // adds one atomic per output element
-  int splits = (2 * num_sms + col_blocks - 1) / col_blocks;
-  splits = max(1, min(splits, (K + 63) / 64));
-  const int k_per_block = (K + splits - 1) / splits;
-  splits = (K + k_per_block - 1) / k_per_block;
-  const int vec = ((size_t)N * sizeof(CT) % ALIGN == 0 &&
-                   reinterpret_cast<uintptr_t>(codes) % ALIGN == 0) ? 1 : 0;
-  qmm_small_m<XT, CT, MAXM><<<dim3(col_blocks, splits), SM_THREADS, 0, stream>>>(
-      x, codes, scale, out, M, K, N, k_per_block, vec);
-  return cudaGetLastError();
+cudaError_t launch_cluster(const XT* x, const CT* codes, const float* scale, float* out,
+                           int M, int K, int N, int cols, int csize, cudaStream_t stream) {
+  constexpr int CPL = CL_ACC / MAXM;
+  constexpr int SZ = static_cast<int>(sizeof(CT)), XSZ = static_cast<int>(sizeof(XT));
+  const int lanes = cols / CPL;
+  if (M > MAXM || cols % CPL != 0 || lanes < 1 || lanes > 32 || (lanes & (lanes - 1)) ||
+      cols * SZ % 16 != 0 || csize < 1 || csize > CL_MAX_CLUSTER ||
+      (size_t)N * SZ % 16 != 0 || (size_t)K * XSZ % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(codes) % 16 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0)
+    return cudaErrorInvalidValue;
+  const int tiles = (N + cols - 1) / cols;
+  const int groups = CL_THREADS / lanes;
+  // rows a stage: about CL_STAGE_BYTES of codes, a multiple of the row
+  // groups (so x's box row is a multiple of 16 bytes), at most 256 (TMA's
+  // box limit)
+  int rows = CL_STAGE_BYTES / (cols * SZ);
+  rows = max(groups, min(256, rows)) / groups * groups;
+  // a block's rows, a whole number of stages: every TMA box of x then starts
+  // on a 16-byte boundary, as TMA requires
+  const int k_per_block = ((K + csize - 1) / csize + rows - 1) / rows * rows;
+  const int box_cols = min(cols, 256);
+  const int stage_bytes = rows * cols * SZ + ((M * rows * XSZ + 127) & ~127);
+  const int area = max(CL_STAGES * stage_bytes, CL_TREE_BYTES);
+  const int smem = 128 + area + 2 * CL_STAGES * 8;
+  if (tiles > 65535 || smem > CL_MAX_SMEM) return cudaErrorInvalidValue;
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        qmm_cluster<XT, CT, MAXM>, cudaFuncAttributeMaxDynamicSharedMemorySize, CL_MAX_SMEM);
+    if (err != cudaSuccess) return err;
+    attr_set = true;
+  }
+  CUtensorMap cmap, xmap;
+  if (!tensor_map(&cmap, SZ == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_UINT16,
+                  SZ, codes, K, N, rows, box_cols, CU_TENSOR_MAP_SWIZZLE_NONE) ||
+      !tensor_map(&xmap, XSZ == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                  : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                  XSZ, x, M, K, M, rows, CU_TENSOR_MAP_SWIZZLE_NONE))
+    return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(csize, tiles);
+  cfg.blockDim = dim3(CL_BLOCK);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = csize;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, qmm_cluster<XT, CT, MAXM>, cmap, xmap, scale, out, M, K, N,
+                            lanes, k_per_block, rows, box_cols, area);
 }
 
-// ---------------------------------------------------------------- large M
+// ---------------------------------------------------------------- tiled
 constexpr int TB_M = 128, TB_N = 128, TB_K = 8, T_M = 8, T_N = 8;
 constexpr int TB_THREADS = (TB_M / T_M) * (TB_N / T_N);  // 256
 
@@ -251,171 +450,320 @@ qmm_tiled(const XT* __restrict__ x, const CT* __restrict__ codes,
   }
 }
 
-// ------------------------------------------- large M, bf16 x, int8 codes
-// Tensor cores: mma.sync m16n8k16 bf16 x bf16 -> f32.  int8 codes are exact
-// in bf16 and bf16 x int8 products are exact in f32, so only the order of the
-// f32 sums differs from the plain version; the scale multiplies the sum.
-constexpr int MM_BM = 128, MM_BN = 128, MM_BK = 32, MM_PAD = 8;
-constexpr int MM_THREADS = 256;  // 8 warps: 2 (M) x 4 (N), 64 x 32 outputs each
+// ----------------------------------------------------------------- wgmma
+constexpr int WG_BK = 64;    // K per stage: one 128-byte swizzle row of bf16 x
+constexpr int WG_BBUF = 3;   // bf16 code tiles (see the consumer loop)
 
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
-                                               const uint32_t (&b)[2]) {
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets, all in 16-byte units.
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// D (64 x N, f32 registers) += A (64 x 16 bf16, K-major) @ B (16 x N bf16,
+// MN-major: transpose bit set).
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a, uint64_t b) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(const __nv_bfloat16& lo, const __nv_bfloat16& hi) {
-  return static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(&lo)) |
-         (static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(&hi)) << 16);
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1));
 }
 
-// Needs K % 8 == 0, N % 16 == 0 and 16-byte aligned x and codes (the
-// launcher checks); ragged M, N and K tiles are masked in the loads.
-__global__ void __launch_bounds__(MM_THREADS)
-qmm_mma_bf16_i8(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ codes,
-                const float* __restrict__ scale, float* __restrict__ out, int M, int K, int N) {
-  __shared__ __align__(16) __nv_bfloat16 As[MM_BM][MM_BK + MM_PAD];   // x tile
-  __shared__ __align__(16) __nv_bfloat16 Bs[MM_BK][MM_BN + MM_PAD];   // codes tile, bf16
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp / 4, wn = warp % 4;
-  const int g = lane >> 2, t = lane & 3;
-  const int m0 = blockIdx.y * MM_BM, n0 = blockIdx.x * MM_BN;
 
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(1));
+}
 
-  for (int k0 = 0; k0 < K; k0 += MM_BK) {
-    // x: 128 rows x 32 k, 16-byte chunks of 8 bf16
-    for (int i = tid; i < MM_BM * MM_BK / 8; i += MM_THREADS) {
-      const int r = i / (MM_BK / 8), c = (i % (MM_BK / 8)) * 8;
-      const int m = m0 + r, k = k0 + c;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (m < M && k < K) v = *reinterpret_cast<const uint4*>(x + (size_t)m * K + k);
-      *reinterpret_cast<uint4*>(&As[r][c]) = v;
+template <int BN>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[BN / 2], uint64_t a, uint64_t b) {
+  if constexpr (BN == 256) wgmma_m64n256k16(d, a, b);
+  else if constexpr (BN == 128) wgmma_m64n128k16(d, a, b);
+  else wgmma_m64n64k16(d, a, b);
+}
+
+// Orders the compiler's use of accumulator registers against the wgmma
+// instructions that write them asynchronously.
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+template <int WGS, int BN, int STAGES>
+struct WgTiles {
+  static constexpr int BM = 64 * WGS;
+  static constexpr int CONSUMERS = 128 * WGS;
+  static constexpr int THREADS = CONSUMERS + 32;     // + one producer warp
+  static constexpr int X_BYTES = BM * WG_BK * 2;      // a stage's x tile
+  static constexpr int C_BYTES = WG_BK * BN;          // a stage's int8 code tile
+  static constexpr int B_BYTES = WG_BK * BN * 2;      // a bf16 code tile
+  static constexpr int ATOM = WG_BK * 128;            // bytes of 64 columns of a bf16 tile
+  static constexpr int X_OFF = 0;
+  static constexpr int C_OFF = X_OFF + STAGES * X_BYTES;
+  static constexpr int B_OFF = C_OFF + STAGES * C_BYTES;
+  static constexpr int BAR_OFF = B_OFF + WG_BBUF * B_BYTES;
+  static constexpr int SMEM = BAR_OFF + 2 * STAGES * 8 + 1024;  // + alignment slack
+  static_assert(C_OFF % 1024 == 0 && B_OFF % 1024 == 0, "swizzled tiles need 1024-byte alignment");
+};
+
+// int8 code tile [WG_BK][BN] (row-major, as TMA lands it) -> bf16 tile,
+// MN-major 128-byte swizzle: 64-column atoms of WG_BK rows x 128 bytes, the
+// 16-byte chunk j of row k stored at chunk j ^ (k % 8).  A thread takes 16
+// codes (two chunks); threads of odd atoms store their two chunks in the
+// other order, so the 8 threads of a store phase hit 8 distinct bank groups.
+template <int WGS, int BN>
+__device__ __forceinline__ void convert_codes(const uint8_t* cs, uint8_t* bt, int ctid) {
+  constexpr int PER_ROW = BN / 16, PER_THREAD = WG_BK * BN / 16 / (WGS * 128);
+#pragma unroll
+  for (int it = 0; it < PER_THREAD; ++it) {
+    const int i = ctid + it * WGS * 128;
+    const int k = i / PER_ROW, gi = i % PER_ROW;
+    const uint4 v = *reinterpret_cast<const uint4*>(cs + i * 16);
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+    uint32_t p[8];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float f[4];
+      i8x4_to_f32(w[j], f);
+      p[2 * j] = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
+      p[2 * j + 1] = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
     }
-    // codes: 32 k x 128 n, one 16-byte chunk per thread, converted to bf16
-    {
-      const int kk = tid / (MM_BN / 16), c = (tid % (MM_BN / 16)) * 16;
-      const int k = k0 + kk, n = n0 + c;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (k < K && n < N) v = __ldg(reinterpret_cast<const uint4*>(codes + (size_t)k * N + n));
-      const uint32_t words[4] = {v.x, v.y, v.z, v.w};
-      uint32_t packed[8];
-#pragma unroll
-      for (int w = 0; w < 4; ++w) {
-        float f[4];
-        i8x4_to_f32(words[w], f);
-        const __nv_bfloat162 lo = __floats2bfloat162_rn(f[0], f[1]);
-        const __nv_bfloat162 hi = __floats2bfloat162_rn(f[2], f[3]);
-        packed[2 * w] = *reinterpret_cast<const uint32_t*>(&lo);
-        packed[2 * w + 1] = *reinterpret_cast<const uint32_t*>(&hi);
-      }
-      uint4* dst = reinterpret_cast<uint4*>(&Bs[kk][c]);
-      dst[0] = make_uint4(packed[0], packed[1], packed[2], packed[3]);
-      dst[1] = make_uint4(packed[4], packed[5], packed[6], packed[7]);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < MM_BK; ks += 16) {
-      uint32_t a[4][4], b[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        const int r = wm * 64 + mi * 16 + g;
-        a[mi][0] = *reinterpret_cast<const uint32_t*>(&As[r][ks + 2 * t]);
-        a[mi][1] = *reinterpret_cast<const uint32_t*>(&As[r + 8][ks + 2 * t]);
-        a[mi][2] = *reinterpret_cast<const uint32_t*>(&As[r][ks + 2 * t + 8]);
-        a[mi][3] = *reinterpret_cast<const uint32_t*>(&As[r + 8][ks + 2 * t + 8]);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int c = wn * 32 + ni * 8 + g;
-        b[ni][0] = pack_bf16(Bs[ks + 2 * t][c], Bs[ks + 2 * t + 1][c]);
-        b[ni][1] = pack_bf16(Bs[ks + 2 * t + 8][c], Bs[ks + 2 * t + 9][c]);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_bf16_16816(acc[mi][ni], a[mi], b[ni]);
-    }
-    __syncthreads();
+    const int atom = gi / 4, ch = 2 * (gi % 4);
+    uint8_t* line = bt + atom * (WG_BK * 128) + k * 128;
+    const uint4 lo = make_uint4(p[0], p[1], p[2], p[3]);
+    const uint4 hi = make_uint4(p[4], p[5], p[6], p[7]);
+    uint4* dlo = reinterpret_cast<uint4*>(line + ((ch ^ (k & 7)) << 4));
+    uint4* dhi = reinterpret_cast<uint4*>(line + (((ch + 1) ^ (k & 7)) << 4));
+    if (atom & 1) { *dhi = hi; *dlo = lo; }
+    else { *dlo = lo; *dhi = hi; }
   }
-  const float s = *scale;
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int row = m0 + wm * 64 + mi * 16 + g;
-      const int col = n0 + wn * 32 + ni * 8 + 2 * t;   // N % 16 == 0: col + 1 < N too
-      if (col >= N) continue;
-      if (row < M) {
-        out[(size_t)row * N + col] = acc[mi][ni][0] * s;
-        out[(size_t)row * N + col + 1] = acc[mi][ni][1] * s;
-      }
-      if (row + 8 < M) {
-        out[(size_t)(row + 8) * N + col] = acc[mi][ni][2] * s;
-        out[(size_t)(row + 8) * N + col + 1] = acc[mi][ni][3] * s;
+}
+
+// grid (M tiles, N tiles): the blocks of one N tile run side by side and
+// share its codes in L2.  Needs K % 8 == 0, N % 16 == 0 (TMA strides).
+template <int WGS, int BN, int STAGES>
+__global__ void __launch_bounds__(WgTiles<WGS, BN, STAGES>::THREADS, 1)
+qmm_wgmma(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap cmap,
+          const float* __restrict__ scale, float* __restrict__ out, int M, int K, int N) {
+  using T = WgTiles<WGS, BN, STAGES>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_smem<1024>(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + T::BAR_OFF);
+  uint64_t* empty = full + STAGES;
+  const int m0 = blockIdx.x * T::BM, n0 = blockIdx.y * BN;
+  const int k_steps = (K + WG_BK - 1) / WG_BK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * WGS);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4 * WGS) {  // producer
+    if (lane == 0) {
+      for (int t = 0; t < k_steps; ++t) {
+        const int s = t % STAGES;
+        if (t >= STAGES) mbar_wait(&empty[s], ((t / STAGES) - 1) & 1);
+        mbar_expect_tx(&full[s], T::X_BYTES + T::C_BYTES);
+        tma_load_2d(smem + T::X_OFF + s * T::X_BYTES, &xmap, &full[s], t * WG_BK, m0);
+        tma_load_2d(smem + T::C_OFF + s * T::C_BYTES, &cmap, &full[s], n0, t * WG_BK);
       }
     }
+    return;
   }
+
+  // consumers: warpgroup wg owns rows [64 wg, 64 wg + 64) of the tile
+  const int ctid = threadIdx.x, wg = ctid / 128;
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  fence_regs(acc);
+  for (int t = 0; t < k_steps; ++t) {
+    const int s = t % STAGES;
+    mbar_wait(&full[s], (t / STAGES) & 1);
+    // Tile t % 3 was last read by the wgmma of step t - 3, which every
+    // warpgroup waited for (wait_group 1 at step t - 2) before it reached
+    // the barrier of step t - 1, so it is free here.
+    uint8_t* bt = smem + T::B_OFF + (t % WG_BBUF) * T::B_BYTES;
+    convert_codes<WGS, BN>(smem + T::C_OFF + s * T::C_BYTES, bt, ctid);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync 1, %0;\n" :: "n"(T::CONSUMERS) : "memory");
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    const uint32_t xa = smem_u32(smem + T::X_OFF + s * T::X_BYTES + wg * 64 * 128);
+    const uint32_t ba = smem_u32(bt);
+    // A (x, K-major): a k16 step is 32 bytes into the swizzled row, 8 rows
+    // of 128 bytes apart.  B (codes, MN-major): a k16 step is 16 rows of 128
+    // bytes, 64-column atoms ATOM bytes apart, 8 K rows 1024 bytes apart.
+#pragma unroll
+    for (int kk = 0; kk < WG_BK / 16; ++kk)
+      wgmma_bf16<BN>(acc, gmma_desc(xa + kk * 32, 16, 1024),
+                     gmma_desc(ba + kk * 16 * 128, T::ATOM, 1024));
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    // step t - 1's wgmma is done: its stage may be refilled
+    if (t > 0 && lane == 0) mbar_arrive(&empty[(t - 1) % STAGES]);
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  fence_regs(acc);
+
+  // accumulator layout of m64nBN: register 4j + {0,1} is row r, columns
+  // 8j + 2(lane % 4) + {0,1}; 4j + {2,3} the same columns of row r + 8
+  const float sc = *scale;
+  const int r = m0 + wg * 64 + (warp % 4) * 16 + lane / 4;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = n0 + 8 * j + 2 * (lane % 4);
+    if (col >= N) continue;  // N % 16 == 0: col + 1 < N too
+    if (r < M)
+      *reinterpret_cast<float2*>(out + (size_t)r * N + col) =
+          make_float2(acc[4 * j] * sc, acc[4 * j + 1] * sc);
+    if (r + 8 < M)
+      *reinterpret_cast<float2*>(out + (size_t)(r + 8) * N + col) =
+          make_float2(acc[4 * j + 2] * sc, acc[4 * j + 3] * sc);
+  }
+}
+
+template <int WGS, int BN, int STAGES>
+cudaError_t launch_wgmma(const __nv_bfloat16* x, const int8_t* codes, const float* scale,
+                         float* out, int M, int K, int N, cudaStream_t stream) {
+  using T = WgTiles<WGS, BN, STAGES>;
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        qmm_wgmma<WGS, BN, STAGES>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+    if (err != cudaSuccess) return err;
+    attr_set = true;
+  }
+  CUtensorMap xmap, cmap;
+  if (!tensor_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, M, K, T::BM, WG_BK,
+                  CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tensor_map(&cmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, codes, K, N, WG_BK, BN,
+                  CU_TENSOR_MAP_SWIZZLE_NONE))
+    return cudaErrorInvalidValue;
+  const dim3 grid((M + T::BM - 1) / T::BM, (N + BN - 1) / BN);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  qmm_wgmma<WGS, BN, STAGES><<<grid, T::THREADS, T::SMEM, stream>>>(xmap, cmap, scale, out,
+                                                                     M, K, N);
+  return cudaGetLastError();
 }
 
 template <typename XT, typename CT>
 cudaError_t launch(const void* x, const void* codes, const void* scale, void* out,
-                   int M, int K, int N, cudaStream_t stream, int num_sms) {
+                   int M, int K, int N, cudaStream_t stream, int path, int tile_m, int tile_n,
+                   int split) {
   const XT* xp = static_cast<const XT*>(x);
   const CT* cp = static_cast<const CT*>(codes);
   const float* sp = static_cast<const float*>(scale);
   float* op = static_cast<float*>(out);
-  if (M <= 4) return launch_small_m<XT, CT, 4>(xp, cp, sp, op, M, K, N, stream, num_sms);
-  if (M <= 8) return launch_small_m<XT, CT, 8>(xp, cp, sp, op, M, K, N, stream, num_sms);
-  if (M <= 16) return launch_small_m<XT, CT, 16>(xp, cp, sp, op, M, K, N, stream, num_sms);
-  if constexpr (std::is_same<XT, __nv_bfloat16>::value && std::is_same<CT, int8_t>::value) {
-    if (K % 8 == 0 && N % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-        reinterpret_cast<uintptr_t>(codes) % 16 == 0) {
-      const dim3 grid((N + MM_BN - 1) / MM_BN, (M + MM_BM - 1) / MM_BM);
-      qmm_mma_bf16_i8<<<grid, MM_THREADS, 0, stream>>>(xp, cp, sp, op, M, K, N);
-      return cudaGetLastError();
+  if (path == PATH_CLUSTER) {
+    if (tile_m == 4) return launch_cluster<XT, CT, 4>(xp, cp, sp, op, M, K, N, tile_n, split, stream);
+    if (tile_m == 8) return launch_cluster<XT, CT, 8>(xp, cp, sp, op, M, K, N, tile_n, split, stream);
+    if (tile_m == 16)
+      return launch_cluster<XT, CT, 16>(xp, cp, sp, op, M, K, N, tile_n, split, stream);
+    return cudaErrorInvalidValue;
+  }
+  if (path == PATH_WGMMA) {
+    if constexpr (std::is_same<XT, __nv_bfloat16>::value && std::is_same<CT, int8_t>::value) {
+      if (split != 1 || K % 8 != 0 || N % 16 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+          reinterpret_cast<uintptr_t>(codes) % 16 != 0 || reinterpret_cast<uintptr_t>(out) % 8 != 0)
+        return cudaErrorInvalidValue;
+      if (tile_m == 128 && tile_n == 256)
+        return launch_wgmma<2, 256, 3>(xp, cp, sp, op, M, K, N, stream);
+      if (tile_m == 128 && tile_n == 128)
+        return launch_wgmma<2, 128, 4>(xp, cp, sp, op, M, K, N, stream);
+      if (tile_m == 64 && tile_n == 128)
+        return launch_wgmma<1, 128, 3>(xp, cp, sp, op, M, K, N, stream);
+      if (tile_m == 64 && tile_n == 64)
+        return launch_wgmma<1, 64, 4>(xp, cp, sp, op, M, K, N, stream);
     }
+    return cudaErrorInvalidValue;
   }
-  const dim3 grid((N + TB_N - 1) / TB_N, (M + TB_M - 1) / TB_M);
-  qmm_tiled<XT, CT><<<grid, TB_THREADS, 0, stream>>>(xp, cp, sp, op, M, K, N);
-  return cudaGetLastError();
-}
-
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    if (n <= 0) n = 132;
+  if (path == PATH_TILED) {
+    const dim3 grid((N + TB_N - 1) / TB_N, (M + TB_M - 1) / TB_M);
+    qmm_tiled<XT, CT><<<grid, TB_THREADS, 0, stream>>>(xp, cp, sp, op, M, K, N);
+    return cudaGetLastError();
   }
-  return n;
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// x_dtype: DT_F32 | DT_BF16; code_dtype: DT_I8 | DT_I16.  Returns a cudaError_t.
+// x_dtype: DT_F32 | DT_BF16; code_dtype: DT_I8 | DT_I16.  (path, tile_m,
+// tile_n, split) is the plan of kernels/quant_matmul.py:plan; a plan the
+// kernels do not take returns cudaErrorInvalidValue.  Returns a cudaError_t.
 extern "C" int repro_quant_matmul(const void* x, int x_dtype, const void* codes, int code_dtype,
                                   const void* scale, void* out, int M, int K, int N,
-                                  void* stream) {
+                                  void* stream, int path, int tile_m, int tile_n, int split) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int sms = sm_count();
   if (x_dtype == DT_F32 && code_dtype == DT_I8)
-    return launch<float, int8_t>(x, codes, scale, out, M, K, N, st, sms);
+    return launch<float, int8_t>(x, codes, scale, out, M, K, N, st, path, tile_m, tile_n, split);
   if (x_dtype == DT_F32 && code_dtype == DT_I16)
-    return launch<float, int16_t>(x, codes, scale, out, M, K, N, st, sms);
+    return launch<float, int16_t>(x, codes, scale, out, M, K, N, st, path, tile_m, tile_n, split);
   if (x_dtype == DT_BF16 && code_dtype == DT_I8)
-    return launch<__nv_bfloat16, int8_t>(x, codes, scale, out, M, K, N, st, sms);
+    return launch<__nv_bfloat16, int8_t>(x, codes, scale, out, M, K, N, st, path, tile_m, tile_n,
+                                         split);
   if (x_dtype == DT_BF16 && code_dtype == DT_I16)
-    return launch<__nv_bfloat16, int16_t>(x, codes, scale, out, M, K, N, st, sms);
+    return launch<__nv_bfloat16, int16_t>(x, codes, scale, out, M, K, N, st, path, tile_m, tile_n,
+                                          split);
   return static_cast<int>(cudaErrorInvalidValue);
 }

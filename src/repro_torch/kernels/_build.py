@@ -1,12 +1,13 @@
 """Build and bind the port's CUDA kernels (nvcc by hand + ctypes).
 
 Every ``csrc/*.cu`` file is compiled for ``sm_90a`` by its own ``nvcc``
-process, all started together, and the objects are linked into one shared
-library with a plain C interface.  The library lands in
-``build/repro_torch_kernels/<hash>/`` at the repository root, keyed by a hash
-of the sources and flags, and is built at first use, never at import: this
-module imports on machines with no CUDA toolkit.  A failed build raises with
-nvcc's output; nothing is downloaded and nothing falls back.
+process, all started together (the log notes each file's compile time), and
+the objects are linked into one shared library with a plain C interface.
+The library lands in ``build/repro_torch_kernels/<hash>/`` at the repository
+root, keyed by a hash of the sources and flags, and is built at first use,
+never at import: this module imports on machines with no CUDA toolkit.  A
+failed build raises with nvcc's output; nothing is downloaded and nothing
+falls back.
 
 ``LAUNCHES`` counts kernel launches by name.  Each wrapper adds one where it
 launches its kernel and nowhere else, so a run can show which kernels its
@@ -22,6 +23,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -42,8 +44,9 @@ LAUNCHES = {"quant_matmul": 0, "flash_attention": 0, "flash_decode": 0, "sr_quan
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # x, x_dtype, codes, code_dtype, scale, out, M, K, N, stream
-    "repro_quant_matmul": (_P, _I, _P, _I, _P, _P, _I, _I, _I, _P),
+    # x, x_dtype, codes, code_dtype, scale, out, M, K, N, stream,
+    # then the plan (quant_matmul.plan): path, tile_m, tile_n, split
+    "repro_quant_matmul": (_P, _I, _P, _I, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I),
     # q, k, v, out, dtype, BH, S, D, causal, stream
     "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # q, q_dtype, k_pages, v_pages, pool_dtype, page_table, lengths,
@@ -100,24 +103,27 @@ def build() -> Path:
     t0 = time.time()
     tmp = Path(tempfile.mkdtemp(dir=BUILD_ROOT, prefix="tmp-"))
     try:
-        procs = []
-        for src in sources:
-            obj = tmp / (src.stem + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o", str(obj)]
-            procs.append((src, obj, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        objs = [tmp / (src.stem + ".o") for src in sources]
+
+        def compile_one(src, obj):
+            t = time.time()
+            r = subprocess.run([nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o",
+                                str(obj)], capture_output=True, text=True)
+            return r, time.time() - t
+
+        with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+            runs = list(pool.map(compile_one, sources, objs))
         log, failed = [], []
-        for src, _obj, p in procs:
-            out, err = p.communicate()
-            log.append(f"== {src.name} (rc {p.returncode})\n{out}{err}")
-            if p.returncode != 0:
+        for src, (r, secs) in zip(sources, runs):
+            log.append(f"== {src.name} (rc {r.returncode}, {secs:.1f} s)\n{r.stdout}{r.stderr}")
+            if r.returncode != 0:
                 failed.append(src.name)
         if failed:
             raise RuntimeError("nvcc failed on " + ", ".join(failed) + ":\n"
                                + "\n".join(log))
         link = subprocess.run(
             [nvcc, "-shared", "-o", str(tmp / LIB_NAME),
-             *[str(obj) for _src, obj, _p in procs]],
+             *[str(obj) for obj in objs]],
             capture_output=True, text=True)
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")

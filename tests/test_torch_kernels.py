@@ -46,7 +46,8 @@ def _as_dtype(a: np.ndarray, bf16: bool):
 
 
 class TestQuantMatmul:
-    @pytest.mark.parametrize("mnk", [(4, 128, 256), (37, 200, 300), (512, 256, 128)])
+    @pytest.mark.parametrize("mnk", [(4, 128, 256), (37, 200, 300), (64, 256, 128),
+                                     (256, 128, 256), (512, 256, 128)])
     @pytest.mark.parametrize("bf16", [False, True])
     @pytest.mark.parametrize("bits", [7, 12])
     def test_matches_reference(self, mnk, bf16, bits):
@@ -63,6 +64,53 @@ class TestQuantMatmul:
         np.testing.assert_allclose(got.numpy(), want,
                                    rtol=2e-2 if bf16 else 1e-5,
                                    atol=1e-2 if bf16 else 1e-5)
+
+
+#: yi-6b's projections (K, N): q/o, k/v, gate/up, down, head.
+_YI6B_KN = [(4096, 4096), (4096, 512), (4096, 11008), (11008, 4096), (4096, 64000)]
+
+
+class TestQuantMatmulPlan:
+    """The path and tile each shape takes on the card (kernels/quant_matmul.plan)."""
+
+    @pytest.mark.parametrize("M", [1, 4, 16])
+    @pytest.mark.parametrize("kn", _YI6B_KN)
+    def test_decode_takes_a_cluster_that_fills_the_card(self, kn, M):
+        K, N = kn
+        for x_dtype, code_dtype in ((torch.bfloat16, torch.int8), (torch.float32, torch.int16)):
+            p = tqm.plan(M, K, N, x_dtype, code_dtype)
+            assert p.path == "cluster" and M <= p.tile_m <= 16
+            assert 1 <= p.split <= tqm.MAX_CLUSTER
+            assert p.blocks(M, N) >= tqm.H100_SMS, p
+
+    @pytest.mark.parametrize("M", [17, 37, 64, 65, 256, 512])
+    @pytest.mark.parametrize("kn", _YI6B_KN)
+    def test_prefill_bf16_int8_takes_wgmma(self, kn, M):
+        K, N = kn
+        p = tqm.plan(M, K, N, torch.bfloat16, torch.int8)
+        assert p.path == "wgmma" and p.split == 1
+        assert (p.tile_m, p.tile_n) in tqm.WGMMA_TILES
+        assert p.tile_m == 64 if M <= 64 else p.tile_m in (64, 128)
+
+    @pytest.mark.parametrize("case", [
+        dict(x_dtype=torch.float32, code_dtype=torch.int8),
+        dict(x_dtype=torch.bfloat16, code_dtype=torch.int16),
+        dict(x_dtype=torch.bfloat16, code_dtype=torch.int8, K=4100),
+        dict(x_dtype=torch.bfloat16, code_dtype=torch.int8, N=300),
+        dict(x_dtype=torch.bfloat16, code_dtype=torch.int8, aligned=False)])
+    def test_other_large_m_takes_tiled(self, case):
+        kw = {**dict(M=512, K=4096, N=11008, aligned=True), **case}
+        p = tqm.plan(kw["M"], kw["K"], kw["N"], kw["x_dtype"], kw["code_dtype"],
+                     aligned=kw["aligned"])
+        assert p == tqm.Plan("tiled", 128, 128, 1)
+
+    @pytest.mark.parametrize("M", [4, 16, 512])
+    def test_shapes_tma_cannot_address_take_tiled(self, M):
+        # a row of 300 int8 codes is no multiple of 16 bytes; nor is a
+        # misaligned base (TMA's two rules)
+        assert tqm.plan(M, 1000, 300, torch.bfloat16, torch.int8).path == "tiled"
+        assert tqm.plan(M, 4096, 4096, torch.bfloat16, torch.int8,
+                        aligned=False).path == "tiled"
 
 
 class TestFlashAttention:
