@@ -9,21 +9,27 @@ Phases (each one failing stops the script with a nonzero exit):
 1. device: the card's name and power limit; TF32 switched off.
 2. build: compile ``src/repro_torch/csrc/*.cu`` (nvcc, sm_90a) and print the
    build time per file and the ptxas register/spill/shared-memory report per
-   kernel; check in the SASS that K3's prefill path issues wgmma (HGMMA) and
-   TMA loads (UTMALDG) and that no K3 kernel has a global atomic.
+   kernel; no K5 kernel and no K4 instance at head dim 256 spills; check in
+   the SASS that K3's prefill path issues wgmma (HGMMA) and TMA loads
+   (UTMALDG) and that no K3 or K5 kernel has a global atomic.
 3. kernels: every kernel (K1 sr_quant, K2 sr_pack, K3 quant_matmul, K4
    flash_attention, K5 flash_decode) against its plain PyTorch version on the
    card, at the shapes of its path, with times beside the plain version, one
    library call where one computes the same function, and the card's bound;
-   K3 also launched twice on identical inputs, the outputs bit-equal.
-4. serve: ``Session.serve`` of full-width, full-depth yi-6b with int8 weights,
-   paged f32 KV and continuous batching; the launch counters are zeroed just
-   before and read just after, and every kernel must have launched.
+   K3 and K5 also launched twice on identical inputs, the outputs bit-equal.
+   K4 adds gemma-7b's prefill (D 256); K5 rows: yi-6b's decode, gemma-7b's
+   (G 1, hd 256), glm4-9b's (G 16) and a long context (n_pmax 256, ~4,000
+   tokens a slot), each with its block count from ``plan_decode``.
+4. serve: ``Session.serve`` of full-width, full-depth yi-6b, then of
+   gemma-7b (head dim 256), with int8 weights, paged f32 KV and continuous
+   batching; the launch counters are zeroed just before each run and read
+   just after, and K3, K4 and K5 must have launched in each.
 5. profile: where a full-depth decode step's and a prefill's (4 slots x 128
    tokens) time goes: host clock, device time by kernel from
-   ``torch.profiler``, K3's device time and launches (225 each).
-6. consistency: a 2-layer full-width yi-6b runs one prefill and one decode
-   step with the kernels and again with the plain versions on the card.
+   ``torch.profiler``, K3's, K4's and K5's device time and launches.
+6. consistency: a 2-layer full-width yi-6b and a 4-layer full-width gemma-7b
+   each run one prefill and one decode step with the kernels and again with
+   the plain versions on the card.
 7. fl: the paper's FWQ loop (``Session.run_fl_sim``) on the card — the
    quickstart ``mobilenet`` spec and the ``fl-codesign-grid`` ``resnet``
    spec, 10 rounds each, 8 clients, one K1 launch per round — checked
@@ -41,7 +47,8 @@ Phases (each one failing stops the script with a nonzero exit):
 The last two lines are the kernel table and ``{"ok": true, "device": ...}``.
 ``--phases`` runs a subset (for iterating on one kernel); phase ``sweep``,
 run only when named, times K3 at yi-6b's projections under the tile plans
-near the one ``quant_matmul.plan`` picks.
+near the one ``quant_matmul.plan`` picks, and phase ``decode_sweep`` times
+K5 at its rows' shapes under every split of the page axis.
 """
 
 from __future__ import annotations
@@ -52,6 +59,7 @@ import itertools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -154,8 +162,9 @@ def _demangle(names: list) -> list:
 
 
 def _sass_counts(lib_path: str, prefix: str, opcodes: tuple) -> dict:
-    """Per kernel whose name holds ``prefix``: how many SASS instructions
-    start with each of ``opcodes`` (cuobjdump of the built library)."""
+    """Per kernel whose (mangled) name holds ``prefix``: how many SASS
+    instructions start with each of ``opcodes`` (cuobjdump of the built
+    library)."""
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True, text=True,
                           check=True).stdout
@@ -174,6 +183,21 @@ def _sass_counts(lib_path: str, prefix: str, opcodes: tuple) -> dict:
     return dict(zip(_demangle(list(counts)), counts.values()))
 
 
+def _ptxas_report(log: str) -> dict:
+    """Per kernel (demangled): ptxas's report lines and its spill bytes."""
+    report, entry = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = _demangle([line.split("'")[1]])[0]
+            report[entry] = {"lines": [], "spill_bytes": 0}
+        elif entry and ("registers" in line or "spill" in line):
+            report[entry]["lines"].append(line.split(":", 1)[-1].strip())
+            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if spills:
+                report[entry]["spill_bytes"] += int(spills[1]) + int(spills[2])
+    return report
+
+
 def phase_build() -> None:
     t0 = time.time()
     lib_path = _build.build()
@@ -181,23 +205,33 @@ def phase_build() -> None:
     info = _build.build_info()
     print(f"build: {time.time() - t0:.2f}s (nvcc {info.get('seconds', 0.0):.2f}s, every "
           "source in parallel; per file below)")
-    entry = None
-    for line in info.get("log", "").splitlines():
+    log = info.get("log", "")
+    for line in log.splitlines():
         if line.startswith("=="):
             print("  " + line.strip())
-        elif "Compiling entry function" in line:
-            entry = _demangle([line.split("'")[1]])[0]
-        elif "registers" in line or "spill" in line:
-            # the ptxas report: registers, spills and shared memory per kernel
-            print(f"  {(entry or '')[:90]}: {line.split(':', 1)[-1].strip()}")
+    # the ptxas report: registers, spills and shared memory per kernel
+    report = _ptxas_report(log)
+    for entry, r in report.items():
+        for line in r["lines"]:
+            print(f"  {entry[:90]}: {line}")
+    # K5's kernels and K4 at head dim 256 keep their accumulators in registers
+    must_not_spill = [e for e in report if "flash_decode" in e
+                      or ("flash_attention_fwd<" in e and ", 256>" in e)]
+    # K5: 2 pool types x 5 head dims x 4 query groups
+    assert len(must_not_spill) == 40 + 2, must_not_spill
+    spilled = {e: report[e]["spill_bytes"] for e in must_not_spill if report[e]["spill_bytes"]}
+    assert not spilled, f"spills: {spilled}"
     # K3's paths as built: the prefill path issues wgmma and loads through
-    # TMA; no K3 kernel has a global atomic
+    # TMA; no K3 or K5 kernel has a global atomic
     counts = _sass_counts(str(lib_path), "qmm_", ("HGMMA", "UTMALDG", "RED", "ATOMG"))
-    for fn, c in counts.items():
+    k5 = _sass_counts(str(lib_path), "flash_decode", ("RED", "ATOMG"))
+    for fn, c in {**counts, **k5}.items():
         print(f"  sass {fn[:90]}: {c}")
     wg = [c for fn, c in counts.items() if "qmm_wgmma" in fn]
     assert wg and all(c["HGMMA"] > 0 and c["UTMALDG"] > 0 for c in wg), counts
-    assert all(c["RED"] == 0 and c["ATOMG"] == 0 for c in counts.values()), counts
+    assert len(k5) == 40, k5
+    assert all(c["RED"] == 0 and c["ATOMG"] == 0
+               for c in (*counts.values(), *k5.values())), (counts, k5)
 
 
 def _check(name, got, want, rtol, atol):
@@ -291,94 +325,155 @@ def phase_sweep(dev: dict) -> None:
 
 def check_flash_attention(table: dict) -> None:
     gen = torch.Generator(device="cuda").manual_seed(1)
-    BH = 128
+    # yi-6b's head dim at BH 128 (32 heads x 4 slots), then gemma-7b's
+    # prefill (16 heads x 4 slots, head dim 256)
+    cases = [(128, D, S) for D in (16, 128) for S in (100, 128, 513)] + [(64, 256, 128)]
     for dtype in (torch.float32, torch.bfloat16):
         tol = 2e-4 if dtype == torch.float32 else 3e-2
-        for D in (16, 128):
-            for S in (100, 128, 513):
-                q, k, v = (torch.randn((BH, S, D), generator=gen, device="cuda").to(dtype)
-                           for _ in range(3))
-                for causal in (False, True):
-                    got = fa.flash_attention_cuda(q, k, v, causal)
-                    want = fa.flash_attention_plain(q, k, v, causal)
-                    torch.cuda.synchronize()
-                    case = f"flash_attention BH={BH} S={S} D={D} {dtype} causal={causal}"
-                    _check(case, got, want, tol, tol)
-                    abs_e, rel_e = max_errs(got, want)
-                    k_ms = time_ms(fa.flash_attention_cuda, [(q, k, v, causal)])
-                    p_ms = time_ms(fa.flash_attention_plain, [(q, k, v, causal)], iters=3)
-                    l_ms = time_ms(lambda a, b, c, cz: torch.nn.functional
-                                   .scaled_dot_product_attention(a, b, c, is_causal=cz),
-                                   [(q, k, v, causal)])
-                    pairs = S * (S + 1) / 2 if causal else S * S
-                    b_ms, b_by = bound_ms(4 * q.nbytes, 4.0 * BH * D * pairs, dtype)
-                    row = dict(kernel="flash_attention", BH=BH, S=S, D=D, dtype=str(dtype),
-                               causal=causal, max_abs_err=abs_e, max_rel_err=rel_e,
-                               kernel_ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
-                               bound_ms=b_ms, bound_by=b_by)
-                    emit(row)
-                    if (S, D, dtype, causal) == (128, 128, torch.bfloat16, True):
-                        table["flash_attention"] = row
+        for BH, D, S in cases:
+            q, k, v = (torch.randn((BH, S, D), generator=gen, device="cuda").to(dtype)
+                       for _ in range(3))
+            for causal in (False, True):
+                got = fa.flash_attention_cuda(q, k, v, causal)
+                want = fa.flash_attention_plain(q, k, v, causal)
+                torch.cuda.synchronize()
+                case = f"flash_attention BH={BH} S={S} D={D} {dtype} causal={causal}"
+                _check(case, got, want, tol, tol)
+                abs_e, rel_e = max_errs(got, want)
+                k_ms = time_ms(fa.flash_attention_cuda, [(q, k, v, causal)])
+                p_ms = time_ms(fa.flash_attention_plain, [(q, k, v, causal)], iters=3)
+                l_ms = time_ms(lambda a, b, c, cz: torch.nn.functional
+                               .scaled_dot_product_attention(a, b, c, is_causal=cz),
+                               [(q, k, v, causal)])
+                pairs = S * (S + 1) / 2 if causal else S * S
+                b_ms, b_by = bound_ms(4 * q.nbytes, 4.0 * BH * D * pairs, dtype)
+                row = dict(kernel="flash_attention", BH=BH, S=S, D=D, dtype=str(dtype),
+                           causal=causal, max_abs_err=abs_e, max_rel_err=rel_e,
+                           kernel_ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                           bound_ms=b_ms, bound_by=b_by)
+                emit(row)
+                if (BH, S, D, dtype, causal) == (128, 128, 128, torch.bfloat16, True):
+                    table["flash_attention"] = row
 
 
-def decode_case(q_dtype, pool_dtype, gen):
-    """yi-6b decode shape (B=4, KV=4, G=8, hd=128, page 16, s_max 256) with
-    -1 holes, an empty slot and lengths off the page grid."""
-    B, KV, G, hd, page, n_pmax, n_pool = 4, 4, 8, 128, 16, 16, 40
+def decode_case(q_dtype, pool_dtype, gen, *, KV=4, G=8, hd=128, page=16, n_pmax=16,
+                lengths=(253, 60, 100, 0)):
+    """Paged decode inputs (B = len(lengths) slots), by default at yi-6b's
+    decode shape (KV 4, G 8, hd 128, page 16, s_max 256): slot b owns the
+    pages its length needs, in a shuffled pool; slot 1 has a -1 hole inside
+    its length; a slot of length 0 owns two pages but holds no token;
+    lengths lie off the page grid."""
+    B = len(lengths)
+    owned = [min(n_pmax, -(-n // page)) if n else 2 for n in lengths]
+    n_pool = sum(owned) + 8
     q = torch.randn((B, KV, G, hd), generator=gen, device="cuda").to(q_dtype)
     kp = torch.randn((n_pool, page, KV, hd), generator=gen, device="cuda").to(pool_dtype)
     vp = torch.randn((n_pool, page, KV, hd), generator=gen, device="cuda").to(pool_dtype)
     perm = torch.randperm(n_pool, generator=gen, device="cuda").to(torch.int32)
     pt = torch.full((B, n_pmax), -1, dtype=torch.int32, device="cuda")
-    pt[0, :16] = perm[:16]          # full slot, length 253
-    pt[1, :4] = perm[16:20]
-    pt[1, 1] = -1                   # hole inside the length
-    pt[2, :7] = perm[20:27]         # length 100: 6 pages and 4 tokens
-    pt[3, :2] = perm[27:29]         # owns pages but holds no token
-    lengths = torch.tensor([253, 60, 100, 0], dtype=torch.int32, device="cuda")
-    return q, kp, vp, pt, lengths
+    for b, (start, n) in enumerate(zip(itertools.accumulate([0] + owned), owned)):
+        pt[b, :n] = perm[start:start + n]
+    pt[1, 1] = -1
+    return q, kp, vp, pt, torch.tensor(lengths, dtype=torch.int32, device="cuda")
+
+
+#: K5's rows: (label, decode_case keywords, (q, pool) dtypes, copies of the
+#: pools the timing rotates over).  gemma-7b and glm4-9b at s_max 256; the
+#: long context at ~4,000 tokens a slot (~65 MB of f32 pages), timed over two
+#: copies so that it streams from device memory rather than the 50 MB L2.
+DECODE_CASES = (
+    [("yi-6b", {}, (qd, pd), 1) for qd in (torch.float32, torch.bfloat16)
+     for pd in (torch.float32, torch.bfloat16)]
+    + [("gemma-7b", dict(KV=16, G=1, hd=256), (torch.bfloat16, pd), 1)
+       for pd in (torch.float32, torch.bfloat16)]
+    + [("glm4-9b", dict(KV=2, G=16, hd=128), (torch.bfloat16, pd), 1)
+       for pd in (torch.float32, torch.bfloat16)]
+    + [("long context", dict(n_pmax=256, lengths=(4093, 4000, 3950, 4067)),
+        (torch.bfloat16, torch.float32), 2)])
 
 
 def check_flash_decode(table: dict) -> None:
     gen = torch.Generator(device="cuda").manual_seed(2)
-    for q_dtype in (torch.float32, torch.bfloat16):
-        for pool_dtype in (torch.float32, torch.bfloat16):
-            args = decode_case(q_dtype, pool_dtype, gen)
-            acc, m, l = fa.flash_decode_cuda(*args)
-            racc, rm, rl = fa.flash_decode_plain(*args)
-            torch.cuda.synchronize()
-            case = f"flash_decode q={q_dtype} pool={pool_dtype}"
-            y, ry = acc / l.clamp_min(1e-30), racc / rl.clamp_min(1e-30)
-            _check(case + " acc/l", y, ry, 1e-4, 1e-4)
-            _check(case + " m", m, rm, 1e-4, 1e-4)
-            _check(case + " l", l, rl, 1e-4, 1e-4)
-            if not (bool((m[3] == -1e30).all()) and bool((l[3] == 0).all())
-                    and bool((acc[3] == 0).all())):
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for label, shape, (q_dtype, pool_dtype), n_copies in DECODE_CASES:
+        args = decode_case(q_dtype, pool_dtype, gen, **shape)
+        acc, m, l = fa.flash_decode_cuda(*args)
+        again = fa.flash_decode_cuda(*args)
+        racc, rm, rl = fa.flash_decode_plain(*args)
+        torch.cuda.synchronize()
+        case = f"flash_decode {label} q={q_dtype} pool={pool_dtype}"
+        y, ry = acc / l.clamp_min(1e-30), racc / rl.clamp_min(1e-30)
+        _check(case + " acc/l", y, ry, 1e-4, 1e-4)
+        _check(case + " m", m, rm, 1e-4, 1e-4)
+        _check(case + " l", l, rl, 1e-4, 1e-4)
+        q, kp, vp, pt, lengths = args
+        for b in (lengths == 0).nonzero().flatten().tolist():
+            if not (bool((m[b] == -1e30).all()) and bool((l[b] == 0).all())
+                    and bool((acc[b] == 0).all())):
                 raise AssertionError(f"{case}: the empty slot must give m=-1e30, l=0, acc=0")
-            abs_e, rel_e = max_errs(y, ry)
-            k_ms = time_ms(fa.flash_decode_cuda, [args], iters=50)
-            p_ms = time_ms(fa.flash_decode_plain, [args], iters=10)
-            q, kp, _vp, pt, lengths = args
-            page, n_pmax = kp.shape[1], pt.shape[1]
-            pages = [(j, int(pt[b, j])) for b in range(pt.shape[0]) for j in range(n_pmax)
-                     if int(pt[b, j]) >= 0 and j * page < int(lengths[b])]
-            row_bytes = page * kp.shape[2] * kp.shape[3] * kp.element_size()
-            nbytes = (q.nbytes + 2 * len(pages) * row_bytes + pt.nbytes + lengths.nbytes
-                      + 4 * (q.numel() + 2 * q.numel() // q.shape[-1]))
-            tokens = sum(min(page, int(lengths[b]) - j * page)
-                         for b in range(pt.shape[0]) for j in range(n_pmax)
-                         if int(pt[b, j]) >= 0 and j * page < int(lengths[b]))
-            ops_ = 4.0 * q.shape[1] * q.shape[2] * q.shape[3] * tokens
-            b_ms, b_by = bound_ms(nbytes, ops_, torch.float32)
-            row = dict(kernel="flash_decode", B=q.shape[0], KV=q.shape[1], G=q.shape[2],
-                       hd=q.shape[3], page=page, n_pmax=n_pmax, q=str(q_dtype),
-                       pool=str(pool_dtype), blocks=q.shape[0] * q.shape[1],
-                       sms=torch.cuda.get_device_properties(0).multi_processor_count,
-                       max_abs_err=abs_e, max_rel_err=rel_e, kernel_ms=k_ms, plain_ms=p_ms,
-                       library_ms=None, bound_ms=b_ms, bound_by=b_by)
-            emit(row)
-            if (q_dtype, pool_dtype) == (torch.bfloat16, torch.float32):
-                table["flash_decode"] = row
+        # deterministic: a fixed merge order, no atomics
+        if not all(torch.equal(a, b) for a, b in zip((acc, m, l), again)):
+            raise AssertionError(f"{case}: two launches on identical inputs differ")
+        abs_e, rel_e = max_errs(y, ry)
+        sets = [args] + [(q, kp.clone(), vp.clone(), pt, lengths) for _ in range(n_copies - 1)]
+        k_ms = time_ms(fa.flash_decode_cuda, sets, iters=50 if n_copies == 1 else 20)
+        p_ms = time_ms(fa.flash_decode_plain, sets[:1], iters=10)
+        B, KV, G, hd = q.shape
+        page, n_pmax = kp.shape[1], pt.shape[1]
+        # the bytes this run's data needs: the pages each slot reads (up to
+        # its length), q, the table, the lengths and the f32 outputs
+        pt_h, len_h = pt.tolist(), lengths.tolist()
+        tokens = sum(min(page, len_h[b] - j * page) for b in range(B) for j in range(n_pmax)
+                     if pt_h[b][j] >= 0 and j * page < len_h[b])
+        nbytes = (q.nbytes + 2 * tokens * KV * hd * kp.element_size() + pt.nbytes
+                  + lengths.nbytes + 4 * (q.numel() + 2 * q.numel() // hd))
+        b_ms, b_by = bound_ms(nbytes, 4.0 * KV * G * hd * tokens, torch.float32)
+        p = fa.plan_decode(B, KV, G, hd, page, n_pmax, q_dtype, pool_dtype, sms)
+        row = dict(kernel="flash_decode", case=label, B=B, KV=KV, G=G, hd=hd, page=page,
+                   n_pmax=n_pmax, tokens=tokens, q=str(q_dtype), pool=str(pool_dtype),
+                   blocks=p.blocks, split=p.split, group=p.group, smem=p.smem, sms=sms,
+                   max_abs_err=abs_e, max_rel_err=rel_e, repeat_equal=True, kernel_ms=k_ms,
+                   plain_ms=p_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                   bound_share=b_ms / k_ms)
+        emit(row)
+        if (label, q_dtype, pool_dtype) == ("yi-6b", torch.bfloat16, torch.float32):
+            assert row["blocks"] >= 128, row
+            table["flash_decode"] = row
+        del sets, args, q, kp, vp
+
+
+def phase_decode_sweep(dev: dict) -> None:
+    """K5 at each decode row's shape (bf16 q, f32 pool) under every split of
+    the page axis from 2 to 16 that the pages fill: the measurements behind
+    ``flash_attention.plan_decode``'s rule (about two blocks an SM, at most
+    12 a cluster).  Each split is held to the plain version first."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for label, shape, dtypes, n_copies in DECODE_CASES:
+        if dtypes != (torch.bfloat16, torch.float32):
+            continue
+        args = decode_case(*dtypes, gen, **shape)
+        q, kp, vp, pt, lengths = args
+        racc, _rm, rl = fa.flash_decode_plain(*args)
+        sets = [args] + [(q, kp.clone(), vp.clone(), pt, lengths) for _ in range(n_copies - 1)]
+        n_pmax = pt.shape[1]
+        chosen = fa.plan_decode(*q.shape, kp.shape[1], n_pmax, *dtypes)
+        ms = {}
+        for split in range(2, fa.MAX_CLUSTER + 1):
+            per = -(-n_pmax // split)
+            if -(-n_pmax // per) != split:
+                continue              # the pages fill fewer ranges
+            p = chosen._replace(split=split, pages_per_block=per,
+                                blocks=chosen.blocks // chosen.split * split)
+            acc, _m, l = fa.flash_decode_cuda(*args, decode_plan=p)
+            _check(f"decode_sweep {label} split {split}", acc / l.clamp_min(1e-30),
+                   racc / rl.clamp_min(1e-30), 1e-4, 1e-4)
+
+            def run(*a, p=p):
+                return fa.flash_decode_cuda(*a, decode_plan=p)
+            ms[split] = time_ms(run, sets, iters=50 if n_copies == 1 else 20)
+        emit({"decode_sweep": {"case": label, "card": dev["smi"], "chosen": chosen.split,
+                               "ms_by_split": ms}})
+        del sets, args
 
 
 def _segments(sizes, C, gen, scale=0.3):
@@ -542,41 +637,60 @@ def phase_kernels(table: dict) -> None:
     print("kernels: all five agree with their plain versions")
 
 
+#: The serve runs: yi-6b as in every earlier slice, then gemma-7b (head dim
+#: 256 through K4 and K5), both at full width and depth, 4 slots, s_max 256.
+SERVE_RUNS = {
+    "yi-6b": dict(layers=32, d_model=4096, options={
+        "prompt_len": 128, "requests": 8, "max_new": 32, "steps": 64}),
+    "gemma-7b": dict(layers=28, d_model=3072, options={
+        "prompt_len": 64, "requests": 4, "max_new": 8, "steps": 32}),
+}
+
+
 def phase_serve(dev: dict) -> dict:
+    """Each serve run with the launch counters zeroed just before and read
+    just after; returns the runs' launches summed."""
     from repro_torch.api import PrecisionPolicy, RunSpec, Session
 
-    spec = RunSpec("yi-6b", workload="serve", smoke=False, seed=0, batch=4, seq=256,
-                   precision=PrecisionPolicy.lazy_int8(7),
-                   options={"attn_impl": "flash", "kv_layout": "paged", "prompt_len": 128,
-                            "vary_prompt": True, "requests": 8, "max_new": 32,
-                            "steps": 64, "quiet": True})
-    sess = Session(spec, device="cuda")
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launches()
-    t0 = time.time()
-    stats = sess.serve()
-    wall = time.time() - t0
-    launches = dict(ops.LAUNCHES)
-    vocab = sess.cfg.vocab_size
-    assert sess.cfg.n_layers == 32 and sess.cfg.d_model == 4096, sess.cfg
-    assert stats.admitted == 8, stats.admitted
-    assert stats.completed == 8, stats.completed
-    # every decode step and every prefill projects 7 x 32 layers + the head
-    assert launches["quant_matmul"] % (7 * sess.cfg.n_layers + 1) == 0, launches
-    assert stats.decoded_tokens > 0, stats.decoded_tokens
-    assert stats.sample and all(0 <= t < vocab for t in stats.sample), stats.sample
-    assert all(0 <= t < vocab for t in sess.last_tokens), "sampled id out of range"
-    for name in ("quant_matmul", "flash_attention", "flash_decode"):
-        assert launches[name] > 0, f"main path never launched {name}: {launches}"
-    d = dict(vars(stats))
-    d["tok_s_card"] = f"{dev['kind']} ({dev['smi']})"
-    d["serve_wall_s"] = wall
-    d["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    d["launches"] = launches
-    emit({"serve": d})
-    del sess
-    torch.cuda.empty_cache()
-    return launches
+    total = {name: 0 for name in KERNELS}
+    for arch, run in SERVE_RUNS.items():
+        spec = RunSpec(arch, workload="serve", smoke=False, seed=0, batch=4, seq=256,
+                       precision=PrecisionPolicy.lazy_int8(7),
+                       options={"attn_impl": "flash", "kv_layout": "paged",
+                                "vary_prompt": True, "quiet": True, **run["options"]})
+        sess = Session(spec, device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.time()
+        stats = sess.serve()
+        wall = time.time() - t0
+        launches = dict(ops.LAUNCHES)
+        vocab = sess.cfg.vocab_size
+        assert (sess.cfg.n_layers, sess.cfg.d_model) == (run["layers"], run["d_model"]), \
+            sess.cfg
+        n_req = run["options"]["requests"]
+        assert stats.admitted == n_req, stats.admitted
+        assert stats.completed == n_req, stats.completed
+        # every decode step and every prefill projects 7 x layers + the head
+        assert launches["quant_matmul"] % (7 * sess.cfg.n_layers + 1) == 0, launches
+        assert stats.decoded_tokens > 0, stats.decoded_tokens
+        assert stats.sample and all(0 <= t < vocab for t in stats.sample), stats.sample
+        assert all(0 <= t < vocab for t in sess.last_tokens), "sampled id out of range"
+        for name in ("quant_matmul", "flash_attention", "flash_decode"):
+            assert launches[name] > 0, f"{arch}: main path never launched {name}: {launches}"
+        d = dict(vars(stats))
+        d["arch"] = arch
+        d["head_dim"] = sess.cfg.head_dim
+        d["tok_s_card"] = f"{dev['kind']} ({dev['smi']})"
+        d["serve_wall_s"] = wall
+        d["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        d["launches"] = launches
+        emit({"serve": d})
+        for name in total:
+            total[name] += launches[name]
+        del sess
+        torch.cuda.empty_cache()   # free this model before the next one is built
+    return total
 
 
 @contextlib.contextmanager
@@ -681,17 +795,21 @@ def _device_ms_by_name(fn, n: int) -> list:
     return sorted(((ms / n, c // n, name) for name, (ms, c) in per_name.items()), reverse=True)
 
 
-def _k3_launches(fn) -> int:
+def _launches(fn) -> dict:
     ops.reset_launches()
     fn()
     torch.cuda.synchronize()
-    return ops.LAUNCHES["quant_matmul"]
+    return dict(ops.LAUNCHES)
+
+
+#: Device-activity name fragments of the serving kernels.
+_KERNEL_NAMES = {"k3": "qmm_", "k4": "flash_attention_fwd", "k5": "flash_decode"}
 
 
 def phase_profile(dev: dict) -> None:
     """Where a full-depth decode step's and a prefill's time goes: host clock
     per step and per prefill, and device time by kernel from
-    ``torch.profiler``; K3's share of each and its launches."""
+    ``torch.profiler``; K3's, K4's and K5's device time and launches."""
     from repro_torch.api import PrecisionPolicy
     from repro_torch.configs import get_config
 
@@ -718,40 +836,53 @@ def phase_profile(dev: dict) -> None:
         for _ in range(n):
             fn()
         host_ms = (time.time() - t0) * 1e3 / n
-        k3 = _k3_launches(fn)
+        launches = _launches(fn)
+        k3 = launches["quant_matmul"]
         assert k3 == projections, f"{label}: {k3} K3 launches, expected {projections}"
+        attn = "flash_decode" if label == "decode_step" else "flash_attention"
+        assert launches[attn] == cfg.n_layers, f"{label}: {launches}"
         rows = _device_ms_by_name(fn, 3 if label == "decode_step" else 2)
         device_ms = sum(r[0] for r in rows)
         out[label] = {
             "ms_host_clock": host_ms,
             "device_ms": device_ms if rows else "not measured",
-            "device_busy_share": device_ms / host_ms if rows else "not measured",
-            "k3_device_ms": sum(r[0] for r in rows if "qmm_" in r[2]) if rows
-            else "not measured",
-            "k3_launches": k3,
-            "top": [{"ms": ms, "launches": c, "name": k[:80]} for ms, c, k in rows[:10]]}
+            "device_busy_share": device_ms / host_ms if rows else "not measured"}
+        for k, frag in _KERNEL_NAMES.items():
+            out[label][f"{k}_device_ms"] = (sum(r[0] for r in rows if frag in r[2]) if rows
+                                            else "not measured")
+        out[label].update(k3_launches=k3, k4_launches=launches["flash_attention"],
+                          k5_launches=launches["flash_decode"],
+                          top=[{"ms": ms, "launches": c, "name": k[:80]}
+                               for ms, c, k in rows[:10]])
     emit({"profile": out})
 
 
 def phase_consistency() -> None:
+    """One prefill and one decode step's logits, kernels against plain
+    versions: yi-6b cut to 2 layers and gemma-7b (head dim 256) cut to 4,
+    both at full width."""
     import dataclasses
 
     from repro_torch.api import PrecisionPolicy
     from repro_torch.configs import get_config
 
-    cfg = dataclasses.replace(get_config("yi-6b"), n_layers=2)
-    runs = {}
-    for label, ctx in (("kernels", contextlib.nullcontext()), ("plain", plain_kernels())):
-        with ctx:
-            runs[label] = step_logits(cfg, PrecisionPolicy.lazy_int8(7))
-    agree = {}
-    for key in ("prefill_logits", "decode_logits"):
-        a, b = runs["kernels"][key].float(), runs["plain"][key].float()
-        assert a.shape == (4, 1, cfg.vocab_size) and torch.isfinite(a).all(), key
-        torch.testing.assert_close(a, b, rtol=5e-2, atol=5e-2)
-        agree[key] = float((a.argmax(-1) == b.argmax(-1)).float().mean())
-    emit({"consistency": {"layers": 2, "d_model": cfg.d_model, "tol": 5e-2,
-                          "greedy_agreement": agree}})
+    for arch, layers in (("yi-6b", 2), ("gemma-7b", 4)):
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+        runs = {}
+        for label, ctx in (("kernels", contextlib.nullcontext()), ("plain", plain_kernels())):
+            with ctx:
+                runs[label] = step_logits(cfg, PrecisionPolicy.lazy_int8(7))
+        agree = {}
+        for key in ("prefill_logits", "decode_logits"):
+            a, b = runs["kernels"][key].float(), runs["plain"][key].float()
+            assert a.shape == (4, 1, cfg.vocab_size) and torch.isfinite(a).all(), key
+            torch.testing.assert_close(a, b, rtol=5e-2, atol=5e-2)
+            agree[key] = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+        emit({"consistency": {"arch": arch, "layers": layers, "d_model": cfg.d_model,
+                              "head_dim": cfg.head_dim, "tol": 5e-2,
+                              "greedy_agreement": agree}})
+        del runs
+        torch.cuda.empty_cache()
 
 
 FL_SPECS = {
@@ -1170,7 +1301,7 @@ def phase_train(dev: dict) -> dict:
 
 PHASES = ("device", "build", "kernels", "serve", "profile", "consistency", "fl", "train")
 #: run only when named in ``--phases``
-EXTRA_PHASES = ("sweep",)
+EXTRA_PHASES = ("sweep", "decode_sweep")
 
 
 def main(argv=None) -> int:
@@ -1187,6 +1318,8 @@ def main(argv=None) -> int:
         phase_kernels(table)
     if "sweep" in phases:
         phase_sweep(dev)
+    if "decode_sweep" in phases:
+        phase_decode_sweep(dev)
     if "serve" in phases:
         launches = phase_serve(dev)
     if "profile" in phases:

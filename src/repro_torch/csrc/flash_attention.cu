@@ -12,31 +12,55 @@
 //   Each warp owns 8 query rows; lane j scores key j, the warp reduces the
 //   row max and sum with shuffles, and each lane accumulates D/32 output
 //   columns.  The key loop stops at the causal diagonal of the q-tile (the
-//   pl.when skip of the Pallas body).  Shared memory exceeds 48 KB at D = 128,
-//   so it is dynamic and the launcher raises the per-kernel limit.
+//   pl.when skip of the Pallas body).  Shared memory exceeds 48 KB at D = 128
+//   (131,200 B at D = 256), so it is dynamic and the launcher raises the
+//   per-kernel limit.
 //
 // K5 replaces repro/kernels/flash_attention.py:flash_decode_kernel.
 //   One query token per slot, q (B, KV, G, hd) grouped under its KV head,
 //   against a shared page pool (N_pool, page, KV, hd) f32|bf16 through a
 //   per-slot page table (B, n_pmax) int32 and lengths (B,) int32.  Returns the
 //   unnormalised partials acc (B, KV, G, hd), m and l (B, KV, G, 1) in f32.
-//   Bound on an H100: bytes of the pages each slot owns (one pass over them).
-//   Design: one block of 8 warps per (KV head, slot).  The TPU's sequential
-//   page axis and its scratch carry become 8 page walks in parallel inside
-//   the block: warp w takes pages w, w+8, ..., stages each page's K and V
-//   (16 tokens at a time) in its own shared-memory buffer with only warp
-//   barriers, and keeps its own online softmax for all G queries; at the end
-//   the warps' (m, l, acc) are merged as the reference's sequence-parallel
-//   path merges shards.  A warp reads page_table[b, j] itself and skips the
-//   page WITHOUT touching the pool when the entry is -1 or the page starts
-//   at or past the slot's length (the Pallas index map instead clamps -1 to
-//   page 0 and masks); tokens past the length are neither scored nor read.
-//   A slot with no valid page returns m = -1e30, l = 0, acc = 0, as the
-//   reference does.  No G padding: the reference pads G to 8 only for the
-//   TPU's sublanes.  At the yi-6b decode shape this is 4 x 4 = 16 blocks on
-//   132 SMs; splitting pages across blocks as well is later work.
+//   Bound on an H100: bytes of the pages each slot owns (one pass over them),
+//   with the f32 FMA work (4 G hd flops a token, on the CUDA cores: bf16 or
+//   TF32 tensor cores would break the 1e-4 tolerance on an f32 pool) close
+//   behind at G 8.  At serving shapes the bytes are well under a microsecond,
+//   so parallelism and latency set the time.
+//   Design: the TPU's sequential page axis is split across the blocks of a
+//   thread-block cluster.  Grid (split, KV x G / GB, B), cluster (split, 1,
+//   1): block r of (KV head, GB queries, slot) takes pages [r * ppb,
+//   (r + 1) * ppb).  split, ppb and GB come from a host plan that reads only
+//   shapes (kernels/flash_attention.py:plan_decode: about two blocks an SM,
+//   at most 12 a cluster, above 8 as a non-portable cluster), so nothing
+//   syncs with the host.  The block first compacts its range's valid pages
+//   (entry >= 0 and starting before the length) with a block-wide scan, so
+//   neither a -1 entry nor a page past the length is ever read from the
+//   pool, and no step of the walk waits on the table.  A ring of 2-8
+//   shared-memory stages of 16 or 32 token rows (K, then V) is filled by
+//   16-byte cp.async copies, a token's head row contiguous across threads,
+//   so the next stages stream while one is computed; tokens past the length
+//   are not copied.  Each of the 8 warps takes rows w, w + 8, ... of a stage
+//   and keeps its own online softmax: lane l holds q[g][hd/32 elements] of
+//   the GB (at most 8) queries in registers, pre-scaled, and acc[g][same
+//   elements]; a row's GB partial dots meet in a butterfly that scatters
+//   the sums over the lanes (GB - 1 + 5 - log2 GB shuffles, not 5 GB); the
+//   lanes of query g take its softmax step and share p and the correction
+//   through a few words of shared memory.  Then the warps' partials merge in
+//   a fixed order, and the cluster's blocks merge through distributed shared
+//   memory: block r stores its (m, l) into every block and slice q of its acc
+//   into block q (stores do not wait on the peer), and after one cluster
+//   barrier each block sums what it received in rank order.  No atomics and
+//   no memset, so repeated launches are bit-identical.  Every block reaches
+//   the cluster barriers, also one whose range holds no token: it
+//   contributes m = -1e30, l = 0, acc = 0, and a slot with no valid page
+//   returns exactly that, as the reference does.  No G padding beyond a
+//   power of two: the reference pads G to 8 only for the TPU's sublanes.
+
+#include <cooperative_groups.h>
 
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -171,175 +195,526 @@ cudaError_t dispatch_fa(const void* q, const void* k, const void* v, void* out, 
     case 32: return launch_fa<T, 32>(q, k, v, out, BH, S, causal, st);
     case 64: return launch_fa<T, 64>(q, k, v, out, BH, S, causal, st);
     case 128: return launch_fa<T, 128>(q, k, v, out, BH, S, causal, st);
+    case 256: return launch_fa<T, 256>(q, k, v, out, BH, S, causal, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // ---------------------------------------------------------------- K5
 constexpr int FD_WARPS = 8;
-constexpr int FD_MAXG = 16;   // queries per KV head a warp keeps in registers
-constexpr int FD_CHUNK = 16;  // tokens a warp stages in shared memory at a time
+constexpr int FD_THREADS = 32 * FD_WARPS;
+constexpr int FD_T = 16;                  // tokens of one step (a page of 16)
+constexpr int FD_RING_BYTES = 96 * 1024;  // the cp.async ring: 2-8 stages
+constexpr int FD_GROUP = 8;               // queries a block takes at most
+constexpr int FD_MAXG = 16;               // queries per KV head
+constexpr int FD_MAX_SPLIT = 16;          // blocks of a cluster (above 8: non-portable)
+constexpr int FD_MAX_PAGES = 512;         // pages a block's range holds at most
+constexpr int FD_MAX_SMEM = 232448;
+// 4-byte words of the small arrays: the range's valid pages (pool row and
+// table index) [FD_MAX_PAGES] each and the scan's warp counts
+// [FD_WARPS]; the warps' m, l and merge weights [FD_WARPS][FD_GROUP] and
+// their corrections and p [FD_WARPS][5][FD_GROUP]; the ranks' m and l
+// [FD_MAX_SPLIT][FD_GROUP] and their merge weights, the same
+constexpr int FD_SMALL_WORDS =
+    2 * FD_MAX_PAGES + FD_WARPS + 8 * FD_WARPS * FD_GROUP + 3 * FD_MAX_SPLIT * FD_GROUP;
 
-// Shared-memory floats of one launch: q, then either the warps' page buffers
-// or, after the page loop, the warps' partial (m, l, acc) for the merge.
-__host__ __device__ constexpr size_t fd_smem_floats(int G, int HD) {
-  const size_t pages = (size_t)FD_WARPS * FD_CHUNK * (2 * HD + 1);
-  const size_t merge = (size_t)FD_WARPS * G * (HD + 2);
-  return (size_t)G * HD + (pages > merge ? pages : merge);
+// Rows a ring stage holds: 32 (two steps) when a head row is at most 512
+// bytes, else 16.
+__host__ __device__ constexpr int fd_stage_rows(int hd, int es) {
+  return hd * es <= 512 ? 2 * FD_T : FD_T;
 }
 
-template <typename QT, typename PT, int HD>
-__global__ void __launch_bounds__(FD_WARPS * 32)
-flash_decode(const QT* __restrict__ q, const PT* __restrict__ k_pages,
-             const PT* __restrict__ v_pages, const int* __restrict__ page_table,
-             const int* __restrict__ lengths, float* __restrict__ acc_out,
-             float* __restrict__ m_out, float* __restrict__ l_out,
-             int KV, int G, int page, int n_pmax, float scale) {
-  constexpr int DPL = (HD + 31) / 32;
-  extern __shared__ float smem[];
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const size_t qbase = ((size_t)b * KV + h) * G;
-  float* qs = smem;                                               // G x HD, pre-scaled
-  float* ks = qs + G * HD + (size_t)warp * FD_CHUNK * (2 * HD + 1);  // FD_CHUNK x (HD+1)
-  float* vs = ks + FD_CHUNK * (HD + 1);                            // FD_CHUNK x HD
+__host__ __device__ constexpr int fd_stages(int hd, int es) {
+  const int n = FD_RING_BYTES / (2 * fd_stage_rows(hd, es) * hd * es);
+  return n < 2 ? 2 : n > 8 ? 8 : n;
+}
 
-  for (int i = tid; i < G * HD; i += FD_WARPS * 32)
-    qs[i] = to_f32(q[qbase * HD + i]) * scale;
-  __syncthreads();
+// Dynamic shared memory of one block (kernels/flash_attention.py:
+// decode_smem_bytes mirrors it): the ring of K and V stages, which the
+// warps' partial accumulators reuse once the pages are done; the slices
+// of the outputs the cluster's blocks send this one (GB x hd floats and one
+// float4 a rank to spare); the small arrays.
+__host__ __device__ constexpr size_t fd_smem_bytes(int group, int hd, int es) {
+  const size_t ring = (size_t)fd_stages(hd, es) * 2 * fd_stage_rows(hd, es) * hd * es;
+  const size_t warps = (size_t)FD_WARPS * group * hd * 4;
+  return (ring > warps ? ring : warps) + 4 * ((size_t)group * hd + 4 * FD_MAX_SPLIT) +
+         4 * (size_t)FD_SMALL_WORDS;
+}
 
-  float m_r[FD_MAXG], l_r[FD_MAXG], acc[FD_MAXG][DPL];
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// N adjacent elements of a staged row (N * sizeof(T) bytes, aligned to
+// that size) as floats; bf16 widens exactly
+template <int N>
+__device__ __forceinline__ void load_row(const float* p, float (&f)[N]) {
+  if constexpr (N % 4 == 0) {
 #pragma unroll
-  for (int g = 0; g < FD_MAXG; ++g) {
-    m_r[g] = NEG_INF;
-    l_r[g] = 0.f;
+    for (int i = 0; i < N; i += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(p + i);
+      f[i] = v.x; f[i + 1] = v.y; f[i + 2] = v.z; f[i + 3] = v.w;
+    }
+  } else if constexpr (N == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    f[0] = v.x; f[1] = v.y;
+  } else {
+    f[0] = *p;
+  }
+}
+template <int N>
+__device__ __forceinline__ void load_row(const __nv_bfloat16* p, float (&f)[N]) {
+  if constexpr (N % 2 == 0) {
+    uint32_t w[N / 2];
+    if constexpr (N % 8 == 0) {
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[g][i] = 0.f;
+      for (int i = 0; i < N / 2; i += 4) {
+        const uint4 v = *reinterpret_cast<const uint4*>(p + 2 * i);
+        w[i] = v.x; w[i + 1] = v.y; w[i + 2] = v.z; w[i + 3] = v.w;
+      }
+    } else if constexpr (N == 4) {
+      const uint2 v = *reinterpret_cast<const uint2*>(p);
+      w[0] = v.x; w[1] = v.y;
+    } else {
+      w[0] = *reinterpret_cast<const uint32_t*>(p);
+    }
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  } else {
+    f[0] = __bfloat162float(*p);
+  }
+}
+
+// Sums v[g] over the warp's 32 lanes for NV = 2^K values at once: K
+// halving steps (each lane keeps one half and trades the other with its
+// partner), then 5 - K full steps: NV - 1 + 5 - K shuffles instead of
+// 5 NV.  Returns, in every lane, the total of v[lane >> (5 - K)].
+template <int NV>
+__device__ __forceinline__ float warp_reduce_scatter(float (&v)[NV], int lane) {
+  constexpr int K = NV == 1 ? 0 : NV == 2 ? 1 : NV == 4 ? 2 : NV == 8 ? 3 : 4;
+  static_assert(NV == 1 << K, "a power of two up to 16 values");
+#pragma unroll
+  for (int step = 0; step < K; ++step) {
+    const int h = NV >> (step + 1), off = 16 >> step;
+    const bool up = lane & off;
+#pragma unroll
+    for (int i = 0; i < h; ++i) {
+      const float send = up ? v[i] : v[i + h];
+      const float keep = up ? v[i + h] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+    }
+  }
+  float r = v[0];
+#pragma unroll
+  for (int off = 16 >> K; off >= 1; off /= 2) r += __shfl_xor_sync(0xffffffffu, r, off);
+  return r;
+}
+
+// grid (split, KV * ceil(G / GB), B), cluster (split, 1, 1): block r of the
+// cluster of (KV head h, queries [g0, g0 + GB), slot b) takes pages
+// [r * pages_per_block, (r + 1) * pages_per_block) of the slot's table.
+// Lane l holds elements [l * EPL, (l + 1) * EPL) of every head row.
+template <typename PT, int HD, int GB>
+__global__ void __launch_bounds__(FD_THREADS)
+flash_decode_split(const void* __restrict__ q, int q_bf16, const PT* __restrict__ k_pages,
+                   const PT* __restrict__ v_pages, const int* __restrict__ page_table,
+                   const int* __restrict__ lengths, float* __restrict__ acc_out,
+                   float* __restrict__ m_out, float* __restrict__ l_out, int KV, int G, int page,
+                   int n_pmax, int pages_per_block, float scale) {
+  constexpr int ES = static_cast<int>(sizeof(PT));
+  constexpr int UNITS = HD * ES / 16;             // 16-byte units of a head row
+  constexpr int EPL = HD >= 32 ? HD / 32 : 1;     // row elements a lane
+  constexpr int ACTIVE = HD / EPL;                // lanes that hold elements
+  constexpr int RS = fd_stage_rows(HD, ES);       // rows a stage
+  constexpr int STEPS = RS / FD_T;                // steps a stage
+  constexpr int TOK = RS / FD_WARPS;              // rows a warp takes in a stage
+  constexpr int RPS = FD_T / FD_WARPS;            // of them in one step
+  constexpr int TPR = GB * EPL <= 32 ? TOK : 2;   // rows a round (registers)
+  constexpr int STAGES = fd_stages(HD, ES);
+  constexpr int SH = GB == 1 ? 5 : GB == 2 ? 4 : GB == 4 ? 3 : 2;
+  static_assert((UNITS & (UNITS - 1)) == 0 && GB <= FD_GROUP && (GB & (GB - 1)) == 0 &&
+                TOK % TPR == 0, "shapes");
+  extern __shared__ __align__(16) uint8_t fd_smem[];
+  // this block has started: a peer may write into its shared memory once
+  // the matching wait (before the merge) returns
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int csize = static_cast<int>(cluster.num_blocks());
+  const int ngh = (G + GB - 1) / GB;
+  const int h = blockIdx.y / ngh, g0 = (blockIdx.y % ngh) * GB, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int e0 = lane * EPL;                      // this lane's row slice
+  const bool active = lane < ACTIVE;
+  const size_t ring_bytes = (size_t)STAGES * 2 * RS * HD * ES;
+  const size_t warp_bytes = (size_t)FD_WARPS * GB * HD * 4;
+  uint4* ring = reinterpret_cast<uint4*>(fd_smem);
+  float* wacc = reinterpret_cast<float*>(fd_smem);  // after the pages: [warp][g][HD]
+  // the output slices the ranks send this block: [rank][per] float4s
+  float4* racc = reinterpret_cast<float4*>(fd_smem + (ring_bytes > warp_bytes ? ring_bytes
+                                                                              : warp_bytes));
+  int* vpid = reinterpret_cast<int*>(racc + GB * HD / 4 + FD_MAX_SPLIT);
+  int* vj = vpid + FD_MAX_PAGES;
+  int* wcount = vj + FD_MAX_PAGES;
+  float* wm = reinterpret_cast<float*>(wcount + FD_WARPS);  // [warp][FD_GROUP]
+  float* wl = wm + FD_WARPS * FD_GROUP;
+  float* ww = wl + FD_WARPS * FD_GROUP;           // the warps' merge weights
+  float* wp = ww + FD_WARPS * FD_GROUP;           // [warp][corr, p of 4 rows][FD_GROUP]
+  float* rm = wp + FD_WARPS * 5 * FD_GROUP;       // [rank][FD_GROUP]: the ranks' m, l
+  float* rl = rm + FD_MAX_SPLIT * FD_GROUP;
+  float* wq = rl + FD_MAX_SPLIT * FD_GROUP;       // the ranks' merge weights
+  float* my_p = wp + warp * 5 * FD_GROUP;
+
+  const size_t qrow = ((size_t)b * KV + h) * G + g0;  // row of (b, h, g0)
+  // q for this block's queries in registers, pre-scaled
+  float qr[GB][EPL];
+#pragma unroll
+  for (int g = 0; g < GB; ++g) {
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) {
+      float v = 0.f;
+      if (active && g0 + g < G) {
+        const size_t i = (qrow + g) * HD + e0 + e;
+        v = q_bf16 ? to_f32(static_cast<const __nv_bfloat16*>(q)[i])
+                   : static_cast<const float*>(q)[i];
+      }
+      qr[g][e] = v * scale;
+    }
   }
 
-  // warp w walks pages w, w + FD_WARPS, ... with its own online softmax
+  // The range's valid pages, in order: allocated (entry >= 0) and starting
+  // before the length; neither a -1 entry nor a page past the length is
+  // ever read from the pool.  A block-wide scan compacts them into vpid
+  // (pool row) and vj (table index); every page but the last is full.
   const int len = lengths[b];
-  for (int j = warp; j < n_pmax; j += FD_WARPS) {
-    const int pid = page_table[(size_t)b * n_pmax + j];
-    if (pid < 0 || j * page >= len) continue;  // never read the pool for it
-    for (int t0 = 0; t0 < page && j * page + t0 < len; t0 += FD_CHUNK) {
-      const int n_tok = min(FD_CHUNK, page - t0);
-      __syncwarp();  // the previous chunk is consumed
-      for (int i = lane; i < n_tok * HD; i += 32) {
-        const int t = i / HD, d = i % HD;
-        const size_t off = (((size_t)pid * page + t0 + t) * KV + h) * HD + d;
-        ks[t * (HD + 1) + d] = to_f32(k_pages[off]);
-        vs[t * HD + d] = to_f32(v_pages[off]);
+  const int* pt_row = page_table + (size_t)b * n_pmax;
+  const int j0 = rank * pages_per_block, j1 = min(n_pmax, j0 + pages_per_block);
+  int n_pages = 0;
+  for (int base = j0; base < j1; base += FD_THREADS) {
+    const int j = base + tid;
+    const int pid = j < j1 && j * page < len ? pt_row[j] : -1;
+    const unsigned ballot = __ballot_sync(0xffffffffu, pid >= 0);
+    if (lane == 0) wcount[warp] = __popc(ballot);
+    __syncthreads();
+    int before = 0, total = 0;
+#pragma unroll
+    for (int w = 0; w < FD_WARPS; ++w) {
+      before += w < warp ? wcount[w] : 0;
+      total += wcount[w];
+    }
+    if (pid >= 0) {
+      const int i = n_pages + before + __popc(ballot & ((1u << lane) - 1));
+      vpid[i] = pid;
+      vj[i] = j;
+    }
+    n_pages += total;
+    __syncthreads();  // wcount is read; vpid, vj are written
+  }
+  // step s: tokens [t0, t0 + 16) of valid page s / spp (spp steps a page)
+  const int spp = (page + FD_T - 1) / FD_T;
+  const int n_steps =
+      n_pages == 0 ? 0
+                   : (n_pages - 1) * spp +
+                         (min(page, len - vj[n_pages - 1] * page) + FD_T - 1) / FD_T;
+  auto step_tokens = [&](int st) {
+    const int p = st / spp, t0 = (st - p * spp) * FD_T;
+    return st < n_steps ? min(FD_T, min(page - t0, len - vj[p] * page - t0)) : 0;
+  };
+  const int n_iter = (n_steps + STEPS - 1) / STEPS;  // ring stages to compute
+
+  // stage ``it`` (steps [it * STEPS, (it + 1) * STEPS)) into ring slot ``s``,
+  // step k into rows [16 k, 16 k + 16): 16-byte copies, a token's row
+  // contiguous across threads; tokens past the length are not copied
+  auto issue = [&](int it, int s) {
+    uint4* dst = ring + s * 2 * RS * UNITS;
+#pragma unroll
+    for (int k = 0; k < STEPS; ++k) {
+      const int st = it * STEPS + k, n = step_tokens(st);
+      if (n == 0) break;
+      const int p = st / spp;
+      const size_t row0 = (size_t)vpid[p] * page + (st - p * spp) * FD_T;
+      for (int i = tid; i < n * UNITS; i += FD_THREADS) {
+        const int t = i / UNITS, u = i % UNITS;
+        const size_t src = ((row0 + t) * KV + h) * HD + u * (16 / ES);
+        cp_async16(dst + k * FD_T * UNITS + i, k_pages + src);
+        cp_async16(dst + (RS + k * FD_T) * UNITS + i, v_pages + src);
       }
-      __syncwarp();
-      const bool valid = lane < n_tok && j * page + t0 + lane < len;
+    }
+  };
+  for (int s = 0; s < STAGES - 1; ++s) {  // one group a stage, empty or not
+    if (s < n_iter) issue(s, s);
+    cp_async_commit();
+  }
+
+  // Each warp keeps its own online softmax over the rows it takes (warp w
+  // takes rows w, w + FD_WARPS, ... of every stage): m and l of query
+  // lane >> SH in every lane, acc[g][EPL] of every query in every lane.
+  float m_r = NEG_INF, l_r = 0.f;
+  float acc[GB][EPL];
 #pragma unroll
-      for (int g = 0; g < FD_MAXG; ++g) {
-        if (g < G) {  // warp-uniform
-          float s = NEG_INF;
-          if (valid) {
-            float dot = 0.f;
-#pragma unroll 16
-            for (int d = 0; d < HD; ++d) dot = fmaf(qs[g * HD + d], ks[lane * (HD + 1) + d], dot);
-            s = dot;
+  for (int g = 0; g < GB; ++g)
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) acc[g][e] = 0.f;
+
+  for (int it = 0; it < n_iter; ++it) {
+    const int s = it % STAGES;
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // stage it landed; the slot refilled next was consumed
+    if (it + STAGES - 1 < n_iter) issue(it + STAGES - 1, (it + STAGES - 1) % STAGES);
+    cp_async_commit();
+    int n[STEPS];  // tokens of each step in this stage
+#pragma unroll
+    for (int k = 0; k < STEPS; ++k) n[k] = step_tokens(it * STEPS + k);
+    bool mine = false;  // warp-uniform: a row of this warp holds a token
+#pragma unroll
+    for (int k = 0; k < STEPS; ++k) mine |= warp < n[k];
+    if (mine) {
+      const PT* ks = reinterpret_cast<const PT*>(ring + s * 2 * RS * UNITS);
+      const PT* vs = ks + RS * HD;
+#pragma unroll
+      for (int r0 = 0; r0 < TOK; r0 += TPR) {
+        bool valid[TPR];
+        float sc[TPR];
+#pragma unroll
+        for (int j = 0; j < TPR; ++j) {
+          const int row = warp + (r0 + j) * FD_WARPS;  // of step (r0 + j) / RPS
+          valid[j] = ((r0 + j) % RPS) * FD_WARPS + warp < n[(r0 + j) / RPS];
+          float part[GB];
+#pragma unroll
+          for (int g = 0; g < GB; ++g) part[g] = 0.f;
+          if (active && valid[j]) {
+            float kf[EPL];
+            load_row<EPL>(ks + row * HD + e0, kf);
+#pragma unroll
+            for (int g = 0; g < GB; ++g)
+#pragma unroll
+              for (int e = 0; e < EPL; ++e) part[g] = fmaf(qr[g][e], kf[e], part[g]);
           }
-          const float m_new = fmaxf(m_r[g], warp_max(s));
-          const float p = valid ? expf(s - m_new) : 0.f;
-          const float corr = expf(m_r[g] - m_new);
-          l_r[g] = l_r[g] * corr + warp_sum(p);
+          sc[j] = warp_reduce_scatter<GB>(part, lane);
+        }
+        // the softmax of query lane >> SH over the warp's rows so far
+        float m_new = m_r;
 #pragma unroll
-          for (int i = 0; i < DPL; ++i) acc[g][i] *= corr;
-          for (int jj = 0; jj < n_tok; ++jj) {
-            const float pj = __shfl_sync(0xffffffffu, p, jj);
+        for (int j = 0; j < TPR; ++j)
+          if (valid[j]) m_new = fmaxf(m_new, sc[j]);
+        const float corr = expf(m_r - m_new);
+        float psum = 0.f;
+        __syncwarp();  // the previous round's p and corrections are read
+        const bool writer = (lane & ((1 << SH) - 1)) == 0;
 #pragma unroll
-            for (int i = 0; i < DPL; ++i) {
-              const int d = lane + 32 * i;
-              if (d < HD) acc[g][i] = fmaf(pj, vs[jj * HD + d], acc[g][i]);
-            }
-          }
-          m_r[g] = m_new;
+        for (int j = 0; j < TPR; ++j) {
+          const float p = valid[j] ? expf(sc[j] - m_new) : 0.f;
+          psum += p;
+          if (writer) my_p[(1 + j) * FD_GROUP + (lane >> SH)] = p;
+        }
+        if (writer) my_p[lane >> SH] = corr;
+        l_r = fmaf(l_r, corr, psum);
+        m_r = m_new;
+        __syncwarp();
+        // every query's correction and p, read back as broadcasts
+        float cv[GB];
+        load_row<GB>(my_p, cv);
+#pragma unroll
+        for (int g = 0; g < GB; ++g)
+#pragma unroll
+          for (int e = 0; e < EPL; ++e) acc[g][e] *= cv[g];
+#pragma unroll
+        for (int j = 0; j < TPR; ++j) {
+          if (!valid[j]) continue;  // warp-uniform
+          float vf[EPL];
+#pragma unroll
+          for (int e = 0; e < EPL; ++e) vf[e] = 0.f;
+          if (active) load_row<EPL>(vs + (warp + (r0 + j) * FD_WARPS) * HD + e0, vf);
+          float pv[GB];
+          load_row<GB>(my_p + (1 + j) * FD_GROUP, pv);
+#pragma unroll
+          for (int g = 0; g < GB; ++g)
+#pragma unroll
+            for (int e = 0; e < EPL; ++e) acc[g][e] = fmaf(pv[g], vf[e], acc[g][e]);
         }
       }
     }
   }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the ring; its memory is reused
 
-  // merge the warps' partials (a warp that saw no page holds m = -1e30,
-  // l = 0, acc = 0 and adds nothing; with no page at all the result is that)
-  __syncthreads();  // the page buffers are free
-  float* pm = smem + G * HD;              // FD_WARPS x G
-  float* pl = pm + FD_WARPS * G;          // FD_WARPS x G
-  float* pa = pl + FD_WARPS * G;          // FD_WARPS x G x HD
+  // Merge the warps' partials (fixed order) into the block's, then the
+  // cluster's.  A warp, or a whole block, that saw no token holds m =
+  // -1e30, l = 0, acc = 0 and adds nothing (exp(-1e30 - m) = 0); a slot
+  // with no token at all gives exactly that, as the reference does.
+  if ((lane & ((1 << SH) - 1)) == 0) {
+    wm[warp * FD_GROUP + (lane >> SH)] = m_r;
+    wl[warp * FD_GROUP + (lane >> SH)] = l_r;
+  }
+  if (active) {
 #pragma unroll
-  for (int g = 0; g < FD_MAXG; ++g) {
-    if (g < G) {
-      if (lane == 0) {
-        pm[warp * G + g] = m_r[g];
-        pl[warp * G + g] = l_r[g];
-      }
+    for (int g = 0; g < GB; ++g)
 #pragma unroll
-      for (int i = 0; i < DPL; ++i) {
-        const int d = lane + 32 * i;
-        if (d < HD) pa[((size_t)warp * G + g) * HD + d] = acc[g][i];
-      }
+      for (int e = 0; e < EPL; ++e) wacc[(warp * GB + g) * HD + e0 + e] = acc[g][e];
+  }
+  __syncthreads();
+  // Block r sends every block of the cluster its partial m and l, and block
+  // q the slice q of its partial acc (stores into distributed shared memory
+  // do not wait on the peer); after one cluster barrier each block merges
+  // what it received, in rank order.  Every block reaches both cluster
+  // barriers, whether its range held a token or not.
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");  // every peer has started
+  if (tid < GB) {
+    float mv = NEG_INF;
+    for (int w = 0; w < FD_WARPS; ++w) mv = fmaxf(mv, wm[w * FD_GROUP + tid]);
+    float lv = 0.f;
+    for (int w = 0; w < FD_WARPS; ++w) {
+      const float c = expf(wm[w * FD_GROUP + tid] - mv);
+      ww[w * FD_GROUP + tid] = c;
+      lv = fmaf(wl[w * FD_GROUP + tid], c, lv);
+    }
+    for (int r = 0; r < csize; ++r) {
+      cluster.map_shared_rank(rm, r)[rank * FD_GROUP + tid] = mv;
+      cluster.map_shared_rank(rl, r)[rank * FD_GROUP + tid] = lv;
     }
   }
   __syncthreads();
-  for (int g = warp; g < G; g += FD_WARPS) {
-    float mx = NEG_INF;
-    for (int w = 0; w < FD_WARPS; ++w) mx = fmaxf(mx, pm[w * G + g]);
-    float lsum = 0.f, a[DPL];
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) a[i] = 0.f;
+  const int total4 = GB * HD / 4, per = (total4 + csize - 1) / csize;
+  for (int o = tid; o < total4; o += FD_THREADS) {
+    const int g = o / (HD / 4);
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int w = 0; w < FD_WARPS; ++w) {
-      const float c = expf(pm[w * G + g] - mx);
-      lsum = fmaf(pl[w * G + g], c, lsum);
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) {
-        const int d = lane + 32 * i;
-        if (d < HD) a[i] = fmaf(pa[((size_t)w * G + g) * HD + d], c, a[i]);
-      }
+      const float c = ww[w * FD_GROUP + g];
+      const float4 v = reinterpret_cast<const float4*>(wacc + w * GB * HD)[o];
+      a.x = fmaf(v.x, c, a.x);
+      a.y = fmaf(v.y, c, a.y);
+      a.z = fmaf(v.z, c, a.z);
+      a.w = fmaf(v.w, c, a.w);
     }
-    const size_t row = qbase + g;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) {
-      const int d = lane + 32 * i;
-      if (d < HD) acc_out[row * HD + d] = a[i];
+    const int dst = o / per;
+    cluster.map_shared_rank(racc, dst)[rank * per + o - dst * per] = a;
+  }
+  cluster.sync();  // every block's m, l and acc slices have arrived
+  if (tid < GB) {
+    float mv = NEG_INF;
+    for (int r = 0; r < csize; ++r) mv = fmaxf(mv, rm[r * FD_GROUP + tid]);
+    float lv = 0.f;
+    for (int r = 0; r < csize; ++r) {
+      const float c = expf(rm[r * FD_GROUP + tid] - mv);
+      wq[r * FD_GROUP + tid] = c;
+      lv = fmaf(rl[r * FD_GROUP + tid], c, lv);
     }
-    if (lane == 0) {
-      m_out[row] = mx;
-      l_out[row] = lsum;
+    if (rank == 0 && g0 + tid < G) {
+      m_out[qrow + tid] = mv;
+      l_out[qrow + tid] = lv;
     }
+  }
+  __syncthreads();
+  const int gq4 = min(GB, G - g0) * HD / 4;  // this block's queries' outputs
+  for (int o = rank * per + tid; o < min(gq4, (rank + 1) * per); o += FD_THREADS) {
+    const int g = o / (HD / 4);
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int r = 0; r < csize; ++r) {
+      const float c = wq[r * FD_GROUP + g];
+      const float4 v = racc[r * per + o - rank * per];
+      a.x = fmaf(v.x, c, a.x);
+      a.y = fmaf(v.y, c, a.y);
+      a.z = fmaf(v.z, c, a.z);
+      a.w = fmaf(v.w, c, a.w);
+    }
+    reinterpret_cast<float4*>(acc_out + qrow * HD)[o] = a;
   }
 }
 
-template <typename QT, typename PT, int HD>
-cudaError_t launch_fd(const void* q, const void* kp, const void* vp, const void* pt,
-                      const void* len, void* acc, void* m, void* l, int B, int KV, int G,
-                      int page, int n_pmax, cudaStream_t stream) {
-  if (G > FD_MAXG) return cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * fd_smem_floats(G, HD);
-  auto kern = flash_decode<QT, PT, HD>;
-  cudaError_t err = raise_smem_limit<flash_decode<QT, PT, HD>>(smem);
+template <typename PT, int HD, int GB>
+cudaError_t launch_fd(const void* q, int q_bf16, const void* kp, const void* vp,
+                      const void* pt, const void* len, void* acc, void* m, void* l, int B,
+                      int KV, int G, int page, int n_pmax, int split, int pages_per_block,
+                      cudaStream_t stream) {
+  const int ngh = (G + GB - 1) / GB;
+  const bool covers = n_pmax > 0 ? ((long long)split * pages_per_block >= n_pmax &&
+                                    (long long)(split - 1) * pages_per_block < n_pmax)
+                                 : split == 1;
+  if (G < 1 || G > FD_MAXG || page < 1 || split < 1 || split > FD_MAX_SPLIT ||
+      pages_per_block < 1 || pages_per_block > FD_MAX_PAGES || !covers || (long long)KV * ngh > 65535 || B > 65535 ||
+      reinterpret_cast<uintptr_t>(kp) % 16 != 0 || reinterpret_cast<uintptr_t>(vp) % 16 != 0)
+    return cudaErrorInvalidValue;
+  const size_t smem = fd_smem_bytes(GB, HD, static_cast<int>(sizeof(PT)));
+  if (smem > FD_MAX_SMEM) return cudaErrorInvalidValue;
+  cudaError_t err = raise_smem_limit<flash_decode_split<PT, HD, GB>>(smem);
   if (err != cudaSuccess) return err;
-  kern<<<dim3(KV, B), FD_WARPS * 32, smem, stream>>>(
-      static_cast<const QT*>(q), static_cast<const PT*>(kp), static_cast<const PT*>(vp),
-      static_cast<const int*>(pt), static_cast<const int*>(len), static_cast<float*>(acc),
-      static_cast<float*>(m), static_cast<float*>(l), KV, G, page, n_pmax,
-      1.f / sqrtf(static_cast<float>(HD)));
-  return cudaGetLastError();
+  static bool non_portable = false;  // clusters of 9-16 blocks, asked for once
+  if (split > 8 && !non_portable) {
+    err = cudaFuncSetAttribute(flash_decode_split<PT, HD, GB>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    non_portable = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(split, KV * ngh, B);
+  cfg.blockDim = dim3(FD_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, flash_decode_split<PT, HD, GB>, q, q_bf16,
+                            static_cast<const PT*>(kp), static_cast<const PT*>(vp),
+                            static_cast<const int*>(pt), static_cast<const int*>(len),
+                            static_cast<float*>(acc), static_cast<float*>(m),
+                            static_cast<float*>(l), KV, G, page, n_pmax, pages_per_block,
+                            1.f / sqrtf(static_cast<float>(HD)));
 }
 
-template <typename QT, typename PT>
-cudaError_t dispatch_fd(const void* q, const void* kp, const void* vp, const void* pt,
-                        const void* len, void* acc, void* m, void* l, int B, int KV, int G,
-                        int hd, int page, int n_pmax, cudaStream_t st) {
-  switch (hd) {
-    case 16: return launch_fd<QT, PT, 16>(q, kp, vp, pt, len, acc, m, l, B, KV, G, page, n_pmax, st);
-    case 32: return launch_fd<QT, PT, 32>(q, kp, vp, pt, len, acc, m, l, B, KV, G, page, n_pmax, st);
-    case 64: return launch_fd<QT, PT, 64>(q, kp, vp, pt, len, acc, m, l, B, KV, G, page, n_pmax, st);
-    case 128: return launch_fd<QT, PT, 128>(q, kp, vp, pt, len, acc, m, l, B, KV, G, page, n_pmax, st);
+// the queries a block takes (the plan's group): 1, 2, 4 or 8, whose q and
+// accumulators live in registers
+template <typename PT, int HD>
+cudaError_t dispatch_group(int group, const void* q, int q_bf16, const void* kp,
+                           const void* vp, const void* pt, const void* len, void* acc,
+                           void* m, void* l, int B, int KV, int G, int page, int n_pmax,
+                           int split, int ppb, cudaStream_t st) {
+#define REPRO_FD_GROUP(GB)                                                                   \
+  case GB:                                                                                   \
+    return launch_fd<PT, HD, GB>(q, q_bf16, kp, vp, pt, len, acc, m, l, B, KV, G, page,      \
+                                 n_pmax, split, ppb, st)
+  switch (group) {
+    REPRO_FD_GROUP(1);
+    REPRO_FD_GROUP(2);
+    REPRO_FD_GROUP(4);
+    REPRO_FD_GROUP(8);
     default: return cudaErrorInvalidValue;
   }
+#undef REPRO_FD_GROUP
+}
+
+template <typename PT>
+cudaError_t dispatch_fd(int hd, int group, const void* q, int q_bf16, const void* kp,
+                        const void* vp, const void* pt, const void* len, void* acc, void* m,
+                        void* l, int B, int KV, int G, int page, int n_pmax, int split,
+                        int ppb, cudaStream_t st) {
+#define REPRO_FD_HD(HD)                                                                      \
+  case HD:                                                                                   \
+    return dispatch_group<PT, HD>(group, q, q_bf16, kp, vp, pt, len, acc, m, l, B, KV, G,    \
+                                  page, n_pmax, split, ppb, st)
+  switch (hd) {
+    REPRO_FD_HD(16);
+    REPRO_FD_HD(32);
+    REPRO_FD_HD(64);
+    REPRO_FD_HD(128);
+    REPRO_FD_HD(256);
+    default: return cudaErrorInvalidValue;
+  }
+#undef REPRO_FD_HD
 }
 
 }  // namespace
@@ -354,23 +729,22 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// q_dtype, pool_dtype: DT_F32 | DT_BF16.  Returns a cudaError_t.
+// q_dtype, pool_dtype: DT_F32 | DT_BF16; split, pages_per_block, group: the
+// plan (kernels/flash_attention.py:plan_decode).  Returns a cudaError_t.
 extern "C" int repro_flash_decode(const void* q, int q_dtype, const void* k_pages,
                                   const void* v_pages, int pool_dtype, const void* page_table,
                                   const void* lengths, void* acc, void* m, void* l, int B,
-                                  int KV, int G, int hd, int page, int n_pmax, void* stream) {
+                                  int KV, int G, int hd, int page, int n_pmax, void* stream,
+                                  int split, int pages_per_block, int group) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (q_dtype == DT_F32 && pool_dtype == DT_F32)
-    return dispatch_fd<float, float>(q, k_pages, v_pages, page_table, lengths, acc, m, l, B,
-                                     KV, G, hd, page, n_pmax, st);
-  if (q_dtype == DT_F32 && pool_dtype == DT_BF16)
-    return dispatch_fd<float, __nv_bfloat16>(q, k_pages, v_pages, page_table, lengths, acc, m,
-                                             l, B, KV, G, hd, page, n_pmax, st);
-  if (q_dtype == DT_BF16 && pool_dtype == DT_F32)
-    return dispatch_fd<__nv_bfloat16, float>(q, k_pages, v_pages, page_table, lengths, acc, m,
-                                             l, B, KV, G, hd, page, n_pmax, st);
-  if (q_dtype == DT_BF16 && pool_dtype == DT_BF16)
-    return dispatch_fd<__nv_bfloat16, __nv_bfloat16>(q, k_pages, v_pages, page_table, lengths,
-                                                     acc, m, l, B, KV, G, hd, page, n_pmax, st);
+  if (q_dtype != DT_F32 && q_dtype != DT_BF16) return static_cast<int>(cudaErrorInvalidValue);
+  const int q_bf16 = q_dtype == DT_BF16;
+  if (pool_dtype == DT_F32)
+    return dispatch_fd<float>(hd, group, q, q_bf16, k_pages, v_pages, page_table, lengths,
+                              acc, m, l, B, KV, G, page, n_pmax, split, pages_per_block, st);
+  if (pool_dtype == DT_BF16)
+    return dispatch_fd<__nv_bfloat16>(hd, group, q, q_bf16, k_pages, v_pages, page_table,
+                                      lengths, acc, m, l, B, KV, G, page, n_pmax, split,
+                                      pages_per_block, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

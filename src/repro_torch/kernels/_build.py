@@ -38,6 +38,9 @@ LIB_NAME = "librepro_torch_kernels.so"
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.int16: 3,
                torch.int32: 4}
 
+#: Streaming multiprocessors of an H100 SXM (the plans' default).
+H100_SMS = 132
+
 #: Kernel launches by name since the last :func:`reset_launches`.
 LAUNCHES = {"quant_matmul": 0, "flash_attention": 0, "flash_decode": 0, "sr_quant": 0,
             "sr_pack": 0}
@@ -50,9 +53,10 @@ _SIGNATURES = {
     # q, k, v, out, dtype, BH, S, D, causal, stream
     "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # q, q_dtype, k_pages, v_pages, pool_dtype, page_table, lengths,
-    # acc, m, l, B, KV, G, hd, page, n_pmax, stream
+    # acc, m, l, B, KV, G, hd, page, n_pmax, stream,
+    # then the plan (flash_attention.plan_decode): split, pages_per_block, group
     "repro_flash_decode": (_P, _I, _P, _P, _I, _P, _P, _P, _P, _P,
-                           _I, _I, _I, _I, _I, _I, _P),
+                           _I, _I, _I, _I, _I, _I, _P, _I, _I, _I),
     # w, offsets, s, d, u, out, P, L, C, ste, stream
     "repro_sr_quant": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # g, offsets, step, u, out, code_dtype, P, L, C, lim, stream
@@ -157,6 +161,16 @@ def lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = handle
     return _lib
+
+
+_SMS: dict = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's streaming multiprocessors (cached per device)."""
+    if device.index not in _SMS:
+        _SMS[device.index] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _SMS[device.index]
 
 
 def stream_of(t: torch.Tensor) -> int:

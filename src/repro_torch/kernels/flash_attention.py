@@ -4,14 +4,19 @@ K4 replaces ``repro/kernels/flash_attention.py:flash_attention_kernel`` and
 K5 replaces ``flash_decode_kernel`` in the same file.  Both kernels live in
 ``csrc/flash_attention.cu``; its notes say what bounds each on an H100 and
 what the design does about it (K4: shared-memory K/V tiles with an online
-softmax that stops at the causal diagonal; K5: one block per (KV head,
-slot) whose warps walk the page table in parallel, never reading an
-unallocated or out-of-length page, and merge their partial softmaxes).
+softmax that stops at the causal diagonal; K5: a slot's pages split across
+the blocks of a thread-block cluster, each streaming its pages through a
+cp.async ring without reading an unallocated or out-of-length page, the
+partial softmaxes merged in rank order through distributed shared memory).
 
+:func:`plan_decode` picks K5's split from the shapes alone;
 ``*_cuda`` launch the kernels; ``*_plain`` are the plain PyTorch versions.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -19,9 +24,79 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_attention_ref as flash_attention_plain  # noqa: F401
 from repro_torch.kernels.ref import flash_decode_ref as flash_decode_plain  # noqa: F401
 
-HEAD_DIMS = (16, 32, 64, 128)
+#: Head dims both kernels take (the C dispatchers' cases).
+HEAD_DIMS = (16, 32, 64, 128, 256)
 _FLOATS = (torch.float32, torch.bfloat16)
-_DECODE_MAX_G = 16            # csrc: FD_MAXG (queries per KV head)
+# K5's constants (csrc/flash_attention.cu: FD_*), kept in sync by hand
+DECODE_MAX_G = 16             # queries per KV head
+DECODE_GROUP = 8              # queries a block takes at most
+MAX_CLUSTER = 16              # blocks of a cluster the kernel takes (above 8: non-portable)
+MAX_DECODE_SPLIT = 12         # the plan's split at most
+MAX_SMEM = 232_448            # dynamic shared memory a block can have
+_FD_WARPS = 8
+_FD_T = 16                    # tokens of one walk step (a page of 16)
+_FD_RING_BYTES = 96 * 1024    # the cp.async ring: 2-8 stages of K and V
+MAX_DECODE_PAGES = 512        # pages a block's range holds at most
+_FD_SMALL_WORDS = (2 * MAX_DECODE_PAGES + _FD_WARPS + 8 * _FD_WARPS * DECODE_GROUP
+                   + 3 * MAX_CLUSTER * DECODE_GROUP)
+
+
+def decode_smem_bytes(group: int, hd: int, pool_dtype: torch.dtype) -> int:
+    """K5's dynamic shared memory a block (csrc: fd_smem_bytes): the ring of
+    K and V stages (32 rows a stage, 16 above 512-byte rows), which the
+    warps' partial accumulators reuse; the output slices the cluster's
+    blocks send; the small arrays (the range's valid pages among them)."""
+    es = torch.empty((), dtype=pool_dtype).element_size()
+    stage = 2 * (2 * _FD_T if hd * es <= 512 else _FD_T) * hd * es
+    ring = min(8, max(2, _FD_RING_BYTES // stage)) * stage
+    warps = _FD_WARPS * group * hd * 4
+    return max(ring, warps) + 4 * (group * hd + 4 * MAX_CLUSTER) + 4 * _FD_SMALL_WORDS
+
+
+class DecodePlan(NamedTuple):
+    """One launch of K5.  A block takes ``group`` queries of one KV head (G
+    padded up to a power of two, at most 8, whose q and accumulators live in
+    registers); the page axis is split over ``split`` blocks of a cluster,
+    block r taking pages ``[r * pages_per_block, (r + 1) * pages_per_block)``
+    (the last range cut at n_pmax).  ``smem`` bytes of shared memory a
+    block, ``blocks`` in the grid."""
+    split: int
+    pages_per_block: int
+    group: int
+    smem: int
+    blocks: int
+
+
+@functools.lru_cache(maxsize=None)
+def plan_decode(B: int, KV: int, G: int, hd: int, page: int, n_pmax: int,
+                q_dtype: torch.dtype, pool_dtype: torch.dtype,
+                num_sms: int = _build.H100_SMS) -> DecodePlan:
+    """K5's launch, from the shapes and types alone.
+
+    It never reads the lengths or the page table, so a decode step plans
+    without waiting for the card (and could be captured in a CUDA graph).
+    The (slot, KV head, query group) triples take enough blocks each to give
+    about two blocks an SM (two fit, by shared memory), at most
+    :data:`MAX_DECODE_SPLIT` and at most one a page; the split then drops
+    to the number of ranges the pages fill, so every block has a non-empty
+    range.  Splits above 8 run as non-portable clusters; 12 is the largest
+    the plan takes, the best measured on an H100 at 256 pages (``chip_smoke.py``
+    phase ``decode_sweep``, PERF.md).  ``page`` and ``q_dtype`` do not
+    change the launch; they complete its key.
+    """
+    del page, q_dtype
+    group = 1
+    while group < min(G, DECODE_GROUP):
+        group *= 2
+    units = max(1, B * KV * -(-G // group))
+    split = max(1, min(MAX_DECODE_SPLIT, n_pmax, -(-2 * num_sms // units)))
+    per = max(1, -(-n_pmax // split))
+    split = max(1, -(-n_pmax // per))
+    if per > MAX_DECODE_PAGES:
+        raise ValueError(f"flash_decode: {n_pmax} pages a slot exceed "
+                         f"{split * MAX_DECODE_PAGES}")
+    return DecodePlan(split, per, group, decode_smem_bytes(group, hd, pool_dtype),
+                      split * B * KV * -(-G // group))
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -49,12 +124,15 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_decode_cuda(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
-                      page_table: torch.Tensor, lengths: torch.Tensor):
+                      page_table: torch.Tensor, lengths: torch.Tensor,
+                      decode_plan: DecodePlan | None = None):
     """One query token per slot against a paged pool -> f32 ``(acc, m, l)``.
 
     ``q`` (B, KV, G, hd) f32/bf16; pools (N_pool, page, KV, hd) f32/bf16;
     ``page_table`` (B, n_pmax) int32 holding -1 or a row of the pool;
-    ``lengths`` (B,) int32.
+    ``lengths`` (B,) int32.  The launch follows :func:`plan_decode`;
+    ``decode_plan`` overrides it (to time the alternatives), and the
+    launcher refuses a plan its kernels do not take.
     """
     name = "flash_decode"
     if q.ndim != 4 or k_pages.ndim != 4 or v_pages.shape != k_pages.shape:
@@ -71,20 +149,25 @@ def flash_decode_cuda(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Ten
         raise ValueError(f"{name}: q and pools must be f32 or bf16")
     if hd not in HEAD_DIMS:
         raise ValueError(f"{name}: head dim {hd} not in {HEAD_DIMS}")
-    if G > _DECODE_MAX_G:
-        raise ValueError(f"{name}: {G} queries per KV head exceeds {_DECODE_MAX_G}")
+    if G > DECODE_MAX_G:
+        raise ValueError(f"{name}: {G} queries per KV head exceeds {DECODE_MAX_G}")
     _build.require_cuda(name, q, k_pages, v_pages, page_table, lengths)
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError(f"{name}: the pools must start on 16-byte boundaries")
     n_pmax = page_table.shape[1]
     acc = torch.empty((B, KV, G, hd), dtype=torch.float32, device=q.device)
     m = torch.empty((B, KV, G, 1), dtype=torch.float32, device=q.device)
     l = torch.empty((B, KV, G, 1), dtype=torch.float32, device=q.device)
     if acc.numel() == 0:
         return acc, m, l
+    p = decode_plan or plan_decode(B, KV, G, hd, page, n_pmax, q.dtype, k_pages.dtype,
+                                   _build.sm_count(q.device))
     err = _build.lib().repro_flash_decode(
         q.data_ptr(), _build.DTYPE_CODES[q.dtype], k_pages.data_ptr(),
         v_pages.data_ptr(), _build.DTYPE_CODES[k_pages.dtype],
         page_table.data_ptr(), lengths.data_ptr(), acc.data_ptr(), m.data_ptr(),
-        l.data_ptr(), B, KV, G, hd, page, n_pmax, _build.stream_of(q))
+        l.data_ptr(), B, KV, G, hd, page, n_pmax, _build.stream_of(q), p.split,
+        p.pages_per_block, p.group)
     _build.check_launch(name, err)
     _build.LAUNCHES[name] += 1
     return acc, m, l

@@ -26,7 +26,7 @@ NAME = "quant_matmul"
 #: Path tags of the C launcher (csrc/quant_matmul.cu: enum Path).
 PATHS = {"cluster": 0, "wgmma": 1, "tiled": 2}
 #: Streaming multiprocessors of an H100 SXM (the plan's default).
-H100_SMS = 132
+H100_SMS = _build.H100_SMS
 #: Blocks of one thread-block cluster at most (the portable size).
 MAX_CLUSTER = 8
 _CL_ACC = 64          # accumulators a thread on the cluster path
@@ -110,15 +110,6 @@ def _plan_cluster(maxm: int, K: int, N: int, size: int, num_sms: int) -> Plan:
     return min(ranked)[1]
 
 
-_SMS: dict = {}
-
-
-def _num_sms(device: torch.device) -> int:
-    if device.index not in _SMS:
-        _SMS[device.index] = torch.cuda.get_device_properties(device).multi_processor_count
-    return _SMS[device.index]
-
-
 def quant_matmul_cuda(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
                       tile_plan: Plan | None = None) -> torch.Tensor:
     """x (M,K) f32/bf16 @ (codes (K,N) int8/int16 * scale) -> (M,N) f32.
@@ -143,7 +134,7 @@ def quant_matmul_cuda(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     if out.numel() == 0 or K == 0:
         return out.zero_()
-    p = tile_plan or plan(M, K, N, x.dtype, codes.dtype, _num_sms(x.device),
+    p = tile_plan or plan(M, K, N, x.dtype, codes.dtype, _build.sm_count(x.device),
                           aligned=x.data_ptr() % 16 == 0 and codes.data_ptr() % 16 == 0)
     err = _build.lib().repro_quant_matmul(
         x.data_ptr(), _build.DTYPE_CODES[x.dtype], codes.data_ptr(),

@@ -10,6 +10,7 @@ Also here: the guards that keep the port free of JAX and of the reference
 package, and that keep CUDA requests from quietly running on the CPU.
 """
 
+import inspect
 import os
 import re
 import subprocess
@@ -128,11 +129,25 @@ class TestFlashAttention:
         tol = 3e-2 if bf16 else 2e-4
         np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
 
+    @pytest.mark.parametrize("causal", [True, False])
+    @pytest.mark.parametrize("bf16", [False, True])
+    def test_head_dim_256(self, causal, bf16):
+        """gemma-7b's head dim (BH 2, ragged S)."""
+        rng = np.random.default_rng(256 + int(causal))
+        qkv = [rng.standard_normal((1, 2, 37, 256)).astype(np.float32) for _ in range(3)]
+        j = [_as_dtype(a, bf16)[0] for a in qkv]
+        t = [_as_dtype(a, bf16)[1] for a in qkv]
+        want = np.asarray(jops.flash_attention(*j, causal=causal).astype(jnp.float32))
+        got = tops.flash_attention(*t, causal=causal)
+        assert got.dtype == t[0].dtype and got.shape == t[0].shape
+        tol = 3e-2 if bf16 else 2e-4
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
 
-def _decode_inputs(seed: int):
+
+def _decode_inputs(seed: int, KV: int = 2, G: int = 3, hd: int = 16):
     """Paged decode inputs with -1 holes, an empty slot and ragged lengths."""
     rng = np.random.default_rng(seed)
-    B, KV, G, hd, page, n_pmax, n_pool = 4, 2, 3, 16, 4, 5, 16
+    B, page, n_pmax, n_pool = 4, 4, 5, 16
     q = rng.standard_normal((B, KV, G, hd)).astype(np.float32)
     kp = rng.standard_normal((n_pool, page, KV, hd)).astype(np.float32)
     vp = rng.standard_normal((n_pool, page, KV, hd)).astype(np.float32)
@@ -148,9 +163,9 @@ def _decode_inputs(seed: int):
 
 
 class TestFlashDecode:
-    @pytest.mark.parametrize("bf16_pool", [False, True])
-    def test_matches_reference(self, bf16_pool):
-        q, kp, vp, pt, lengths = _decode_inputs(3)
+    @staticmethod
+    def _check(bf16_pool, **shape):
+        q, kp, vp, pt, lengths = _decode_inputs(3, **shape)
         jk, tk = _as_dtype(kp, bf16_pool)
         jv, tv = _as_dtype(vp, bf16_pool)
         want = jops.flash_paged_decode(jnp.asarray(q), jk, jv, jnp.asarray(pt),
@@ -170,8 +185,78 @@ class TestFlashDecode:
         assert (tm[3] == np.float32(-1e30)).all() and (tl[3] == 0).all()
         assert (tacc[3] == 0).all()
 
+    @pytest.mark.parametrize("bf16_pool", [False, True])
+    def test_matches_reference(self, bf16_pool):
+        self._check(bf16_pool)
+
+    @pytest.mark.parametrize("bf16_pool", [False, True])
+    def test_gemma_shape(self, bf16_pool):
+        """gemma-7b's decode grouping: one query a KV head, head dim 256."""
+        self._check(bf16_pool, KV=2, G=1, hd=256)
+
+
+#: yi-6b's serve shape (B, KV, G, hd, page, n_pmax): 4 slots, s_max 256.
+_YI6B_DECODE = (4, 4, 8, 128, 16, 16)
+
+
+class TestDecodePlan:
+    """K5's split of the page axis (kernels/flash_attention.plan_decode)."""
+
+    @pytest.mark.parametrize("pool", [torch.float32, torch.bfloat16])
+    def test_yi6b_serve_shape_fills_the_card(self, pool):
+        p = tfa.plan_decode(*_YI6B_DECODE, torch.bfloat16, pool)
+        assert p.blocks >= 128 and p.group == 8, p
+
+    @pytest.mark.parametrize("shape", [
+        _YI6B_DECODE, (4, 16, 1, 256, 16, 16), (4, 2, 16, 128, 16, 16),
+        (4, 4, 8, 128, 16, 256), (1, 1, 1, 64, 16, 1000), (64, 8, 4, 128, 16, 8),
+        (4, 2, 3, 16, 4, 5), (2, 2, 1, 16, 16, 0)])
+    def test_cluster_within_limit_and_ranges_cover_once(self, shape):
+        B, KV, G, hd, page, n_pmax = shape
+        p = tfa.plan_decode(*shape, torch.float32, torch.float32)
+        assert 1 <= p.split <= tfa.MAX_DECODE_SPLIT <= tfa.MAX_CLUSTER, p
+        assert 1 <= p.pages_per_block <= tfa.MAX_DECODE_PAGES, p
+        # block r of a cluster takes pages [r * per, (r + 1) * per), the last
+        # range cut at n_pmax (csrc/flash_attention.cu: flash_decode_split)
+        per = p.pages_per_block
+        ranges = [(r * per, min(n_pmax, (r + 1) * per)) for r in range(p.split)]
+        assert [j for lo, hi in ranges for j in range(lo, hi)] == list(range(n_pmax)), p
+        if n_pmax:       # every block of the cluster has pages to walk
+            assert all(lo < hi for lo, hi in ranges), p
+
+    @pytest.mark.parametrize("hd", tfa.HEAD_DIMS)
+    def test_shared_memory_fits_every_group(self, hd):
+        for G in range(1, tfa.DECODE_MAX_G + 1):
+            for pool in (torch.float32, torch.bfloat16):
+                p = tfa.plan_decode(4, 4, G, hd, 16, 16, torch.bfloat16, pool)
+                # a block takes G padded to a power of two, at most 8
+                assert p.group >= min(G, 8) and p.group & (p.group - 1) == 0, (G, p)
+                assert p.group <= tfa.DECODE_GROUP, (G, p)
+                assert p.blocks == p.split * 4 * 4 * -(-G // p.group), (G, p)
+                assert p.smem == tfa.decode_smem_bytes(p.group, hd, pool), (G, p)
+                assert p.smem <= tfa.MAX_SMEM, (G, p)
+
+    def test_plan_reads_shapes_only(self):
+        # a pure function of shapes and types: no lengths or page table, so a
+        # decode step plans without waiting for the card
+        names = list(inspect.signature(tfa.plan_decode).parameters)
+        assert names == ["B", "KV", "G", "hd", "page", "n_pmax", "q_dtype", "pool_dtype",
+                         "num_sms"]
+        a = tfa.plan_decode(*_YI6B_DECODE, torch.bfloat16, torch.float32)
+        assert a == tfa.plan_decode(*_YI6B_DECODE, torch.bfloat16, torch.float32)
+
 
 class TestDispatchGuards:
+    def test_head_dim_256_reaches_the_cuda_refusal(self):
+        q = torch.zeros((2, 8, 256))
+        with pytest.raises(ValueError, match="CUDA"):
+            tfa.flash_attention_cuda(q, q, q)
+        qd = torch.zeros((2, 2, 1, 256))
+        pool = torch.zeros((4, 16, 2, 256))
+        with pytest.raises(ValueError, match="CUDA"):
+            tfa.flash_decode_cuda(qd, pool, pool, torch.zeros((2, 2), dtype=torch.int32),
+                                  torch.zeros((2,), dtype=torch.int32))
+
     def test_cuda_wrappers_refuse_cpu_tensors(self):
         x = torch.zeros((2, 8))
         codes = torch.zeros((8, 4), dtype=torch.int8)
