@@ -9,15 +9,19 @@ Phases (each one failing stops the script with a nonzero exit):
 1. device: the card's name and power limit; TF32 switched off.
 2. build: compile ``src/repro_torch/csrc/*.cu`` (nvcc, sm_90a) and print the
    build time per file and the ptxas register/spill/shared-memory report per
-   kernel; no K5 kernel and no K4 instance at head dim 256 spills; check in
-   the SASS that K3's prefill path issues wgmma (HGMMA) and TMA loads
-   (UTMALDG) and that no K3 or K5 kernel has a global atomic.
+   kernel; no K5 kernel, no K4 wgmma instance and no K4 simt instance at head
+   dim 256 spills; check in the SASS that K3's prefill path and K4's wgmma
+   path issue wgmma (HGMMA) and TMA loads (UTMALDG) and that no K3, K4 or K5
+   kernel has a global atomic.
 3. kernels: every kernel (K1 sr_quant, K2 sr_pack, K3 quant_matmul, K4
    flash_attention, K5 flash_decode) against its plain PyTorch version on the
    card, at the shapes of its path, with times beside the plain version, one
    library call where one computes the same function, and the card's bound;
-   K3 and K5 also launched twice on identical inputs, the outputs bit-equal.
-   K4 adds gemma-7b's prefill (D 256); K5 rows: yi-6b's decode, gemma-7b's
+   K3, K4 and K5 also launched twice on identical inputs, the outputs
+   bit-equal.  K4's rows name the path and tiles of ``plan_attention`` and
+   the SDPA backend of their library time (fused: flash for bf16, memory-
+   efficient for f32, on 4-D views of the same tensors); K4 adds head dim 64
+   and gemma-7b's prefill (D 256); K5 rows: yi-6b's decode, gemma-7b's
    (G 1, hd 256), glm4-9b's (G 16) and a long context (n_pmax 256, ~4,000
    tokens a slot), each with its block count from ``plan_decode``.
 4. serve: ``Session.serve`` of full-width, full-depth yi-6b, then of
@@ -47,8 +51,10 @@ Phases (each one failing stops the script with a nonzero exit):
 The last two lines are the kernel table and ``{"ok": true, "device": ...}``.
 ``--phases`` runs a subset (for iterating on one kernel); phase ``sweep``,
 run only when named, times K3 at yi-6b's projections under the tile plans
-near the one ``quant_matmul.plan`` picks, and phase ``decode_sweep`` times
-K5 at its rows' shapes under every split of the page axis.
+near the one ``quant_matmul.plan`` picks, phase ``decode_sweep`` times K5
+at its rows' shapes under every split of the page axis, and phase
+``attn_sweep`` times K4's wgmma path at the main path's, gemma-7b's and the
+S 513 row under every (block_q, block_k) it takes.
 """
 
 from __future__ import annotations
@@ -214,24 +220,31 @@ def phase_build() -> None:
     for entry, r in report.items():
         for line in r["lines"]:
             print(f"  {entry[:90]}: {line}")
-    # K5's kernels and K4 at head dim 256 keep their accumulators in registers
-    must_not_spill = [e for e in report if "flash_decode" in e
+    # K5's kernels, K4's wgmma path and K4's simt path at head dim 256 keep
+    # their accumulators in registers
+    must_not_spill = [e for e in report if "flash_decode" in e or "flash_attention_wgmma" in e
                       or ("flash_attention_fwd<" in e and ", 256>" in e)]
-    # K5: 2 pool types x 5 head dims x 4 query groups
-    assert len(must_not_spill) == 40 + 2, must_not_spill
+    # K5: 2 pool types x 5 head dims x 4 query groups; K4 simt at D 256: f32;
+    # K4 wgmma: 4 (block_q, block_k) at D 64 and 128, 1 at D 256
+    assert len(must_not_spill) == 40 + 1 + 9, must_not_spill
     spilled = {e: report[e]["spill_bytes"] for e in must_not_spill if report[e]["spill_bytes"]}
     assert not spilled, f"spills: {spilled}"
-    # K3's paths as built: the prefill path issues wgmma and loads through
-    # TMA; no K3 or K5 kernel has a global atomic
+    # K3's and K4's paths as built: K3's prefill path and K4's wgmma path
+    # issue wgmma and load through TMA; no K3, K4 or K5 kernel has a global
+    # atomic
     counts = _sass_counts(str(lib_path), "qmm_", ("HGMMA", "UTMALDG", "RED", "ATOMG"))
+    k4 = _sass_counts(str(lib_path), "flash_attention",
+                      ("HGMMA", "UTMALDG", "UTMASTG", "RED", "ATOMG"))
     k5 = _sass_counts(str(lib_path), "flash_decode", ("RED", "ATOMG"))
-    for fn, c in {**counts, **k5}.items():
+    for fn, c in {**counts, **k4, **k5}.items():
         print(f"  sass {fn[:90]}: {c}")
     wg = [c for fn, c in counts.items() if "qmm_wgmma" in fn]
     assert wg and all(c["HGMMA"] > 0 and c["UTMALDG"] > 0 for c in wg), counts
+    fw = [c for fn, c in k4.items() if "flash_attention_wgmma" in fn]
+    assert len(fw) == 9 and all(c["HGMMA"] > 0 and c["UTMALDG"] > 0 for c in fw), k4
     assert len(k5) == 40, k5
     assert all(c["RED"] == 0 and c["ATOMG"] == 0
-               for c in (*counts.values(), *k5.values())), (counts, k5)
+               for c in (*counts.values(), *k4.values(), *k5.values())), (counts, k4, k5)
 
 
 def _check(name, got, want, rtol, atol):
@@ -323,37 +336,112 @@ def phase_sweep(dev: dict) -> None:
         del copies, codes
 
 
+def sdpa_ms(q, k, v, causal: bool) -> tuple[float, str]:
+    """The yardstick: one fused ``scaled_dot_product_attention`` call on
+    4-D views ``(1, BH, S, D)`` of the kernel's own tensors (the fused
+    backends take only 4-D inputs), pinned to flash attention for bf16 and
+    to the memory-efficient kernel for f32 (flash takes no f32).  A shape
+    the pinned backend refuses is timed under the backend SDPA picks on its
+    own, and the name says so.  Returns (ms, backend)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    q4, k4, v4 = (t.unsqueeze(0) for t in (q, k, v))
+
+    def call(a, b, c, cz):
+        return torch.nn.functional.scaled_dot_product_attention(a, b, c, is_causal=cz)
+
+    pinned = (SDPBackend.FLASH_ATTENTION if q.dtype == torch.bfloat16
+              else SDPBackend.EFFICIENT_ATTENTION)
+    try:
+        with sdpa_kernel(pinned):
+            call(q4, k4, v4, causal)
+            torch.cuda.synchronize()
+            return time_ms(call, [(q4, k4, v4, causal)]), pinned.name
+    except RuntimeError:
+        chosen = SDPBackend(torch._fused_sdp_choice(q4, k4, v4, None, 0.0, causal)).name
+        return time_ms(call, [(q4, k4, v4, causal)]), f"{chosen} ({pinned.name} refused)"
+
+
+#: K4's rows: (BH, D, S, dtypes).  yi-6b's head dim at BH 128 (32 heads x 4
+#: slots) and D 16 at S 100, 128, 513; D 64 (bf16, the wgmma path's third
+#: head dim); gemma-7b's prefill (16 heads x 4 slots, D 256).
+ATTN_CASES = ([(128, D, S, (torch.float32, torch.bfloat16)) for D in (16, 128)
+               for S in (100, 128, 513)]
+              + [(128, 64, 128, (torch.bfloat16,)),
+                 (64, 256, 128, (torch.float32, torch.bfloat16))])
+
+
 def check_flash_attention(table: dict) -> None:
     gen = torch.Generator(device="cuda").manual_seed(1)
-    # yi-6b's head dim at BH 128 (32 heads x 4 slots), then gemma-7b's
-    # prefill (16 heads x 4 slots, head dim 256)
-    cases = [(128, D, S) for D in (16, 128) for S in (100, 128, 513)] + [(64, 256, 128)]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for dtype in (torch.float32, torch.bfloat16):
         tol = 2e-4 if dtype == torch.float32 else 3e-2
-        for BH, D, S in cases:
+        for BH, D, S, dtypes in ATTN_CASES:
+            if dtype not in dtypes:
+                continue
             q, k, v = (torch.randn((BH, S, D), generator=gen, device="cuda").to(dtype)
                        for _ in range(3))
             for causal in (False, True):
                 got = fa.flash_attention_cuda(q, k, v, causal)
+                again = fa.flash_attention_cuda(q, k, v, causal)
                 want = fa.flash_attention_plain(q, k, v, causal)
                 torch.cuda.synchronize()
                 case = f"flash_attention BH={BH} S={S} D={D} {dtype} causal={causal}"
                 _check(case, got, want, tol, tol)
+                # deterministic: a fixed order of every sum, no atomics
+                if not torch.equal(got, again):
+                    raise AssertionError(f"{case}: two launches on identical inputs differ")
                 abs_e, rel_e = max_errs(got, want)
                 k_ms = time_ms(fa.flash_attention_cuda, [(q, k, v, causal)])
                 p_ms = time_ms(fa.flash_attention_plain, [(q, k, v, causal)], iters=3)
-                l_ms = time_ms(lambda a, b, c, cz: torch.nn.functional
-                               .scaled_dot_product_attention(a, b, c, is_causal=cz),
-                               [(q, k, v, causal)])
+                l_ms, backend = sdpa_ms(q, k, v, causal)
                 pairs = S * (S + 1) / 2 if causal else S * S
                 b_ms, b_by = bound_ms(4 * q.nbytes, 4.0 * BH * D * pairs, dtype)
+                p = fa.plan_attention(BH, S, D, dtype, causal, sms)
                 row = dict(kernel="flash_attention", BH=BH, S=S, D=D, dtype=str(dtype),
-                           causal=causal, max_abs_err=abs_e, max_rel_err=rel_e,
-                           kernel_ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
-                           bound_ms=b_ms, bound_by=b_by)
+                           causal=causal, path=p.path, block_q=p.block_q, block_k=p.block_k,
+                           blocks=p.blocks, max_abs_err=abs_e, max_rel_err=rel_e,
+                           repeat_equal=True, kernel_ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                           library_backend=backend, bound_ms=b_ms, bound_by=b_by)
                 emit(row)
+                if D in fa.ATTN_TILES and dtype == torch.bfloat16:
+                    assert p.path == "wgmma", row
                 if (BH, S, D, dtype, causal) == (128, 128, 128, torch.bfloat16, True):
+                    assert p.blocks >= 128, row
                     table["flash_attention"] = row
+            del q, k, v
+
+
+#: attn_sweep's rows (BH, S, D, causal), bf16: the main path's prefill,
+#: gemma-7b's and the long non-causal row.
+ATTN_SWEEP_ROWS = ((128, 128, 128, True), (64, 128, 256, True), (128, 513, 128, False))
+
+
+def phase_attn_sweep(dev: dict) -> None:
+    """K4's wgmma path at each row of :data:`ATTN_SWEEP_ROWS` under every
+    (block_q, block_k) it takes, each held to the plain version first: the
+    measurements behind ``flash_attention.plan_attention``'s choice."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for BH, S, D, causal in ATTN_SWEEP_ROWS:
+        q, k, v = (torch.randn((BH, S, D), generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(3))
+        want = fa.flash_attention_plain(q, k, v, causal)
+        chosen = fa.plan_attention(BH, S, D, torch.bfloat16, causal, sms)
+        ms = {}
+        for bq, bk in fa.ATTN_TILES[D]:
+            p = fa.AttentionPlan("wgmma", bq, bk, fa.attention_smem_bytes("wgmma", D, bq, bk),
+                                 BH * -(-S // bq))
+            got = fa.flash_attention_cuda(q, k, v, causal, attn_plan=p)
+            _check(f"attn_sweep BH={BH} S={S} D={D} causal={causal} tile {bq}/{bk}", got, want,
+                   3e-2, 3e-2)
+
+            def run(*a, p=p):
+                return fa.flash_attention_cuda(*a, attn_plan=p)
+            ms[f"{bq}/{bk}"] = time_ms(run, [(q, k, v, causal)])
+        emit({"attn_sweep": {"BH": BH, "S": S, "D": D, "causal": causal, "card": dev["smi"],
+                             "chosen": [chosen.block_q, chosen.block_k], "ms": ms}})
+        del q, k, v
 
 
 def decode_case(q_dtype, pool_dtype, gen, *, KV=4, G=8, hd=128, page=16, n_pmax=16,
@@ -803,7 +891,7 @@ def _launches(fn) -> dict:
 
 
 #: Device-activity name fragments of the serving kernels.
-_KERNEL_NAMES = {"k3": "qmm_", "k4": "flash_attention_fwd", "k5": "flash_decode"}
+_KERNEL_NAMES = {"k3": "qmm_", "k4": "flash_attention_", "k5": "flash_decode"}
 
 
 def phase_profile(dev: dict) -> None:
@@ -1301,7 +1389,7 @@ def phase_train(dev: dict) -> dict:
 
 PHASES = ("device", "build", "kernels", "serve", "profile", "consistency", "fl", "train")
 #: run only when named in ``--phases``
-EXTRA_PHASES = ("sweep", "decode_sweep")
+EXTRA_PHASES = ("sweep", "decode_sweep", "attn_sweep")
 
 
 def main(argv=None) -> int:
@@ -1309,6 +1397,7 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma-separated subset of {PHASES + EXTRA_PHASES}")
     phases = ap.parse_args(argv).phases.split(",")
+    t_start = time.time()
     dev = phase_device()
     table: dict = {}
     launches = {name: 0 for name in KERNELS}
@@ -1320,6 +1409,8 @@ def main(argv=None) -> int:
         phase_sweep(dev)
     if "decode_sweep" in phases:
         phase_decode_sweep(dev)
+    if "attn_sweep" in phases:
+        phase_attn_sweep(dev)
     if "serve" in phases:
         launches = phase_serve(dev)
     if "profile" in phases:
@@ -1340,6 +1431,8 @@ def main(argv=None) -> int:
                          max_abs_err=r.get("max_abs_err"), ms=r.get("kernel_ms"),
                          plain_ms=r.get("plain_ms"), bound_ms=r.get("bound_ms"),
                          bound_by=r.get("bound_by"), library_ms=r.get("library_ms")))
+    print(f"chip_smoke: {time.time() - t_start:.1f} s of command time (phases "
+          f"{','.join(phases)})")
     print(dev["smi"])
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"],

@@ -2,19 +2,45 @@
 //
 // K4 replaces repro/kernels/flash_attention.py:flash_attention_kernel.
 //   q, k, v (BH, S, D) f32|bf16 -> out (BH, S, D) in q's dtype; online softmax
-//   in f32, causal or not, keys >= S masked in the kernel (no padding of S).
-//   Bound on an H100: at the prefill shapes (S <= 256, D = 128) the work is
-//   small next to the projections; per block it is bound by the FP32 pipes
-//   (scores and P@V are computed with FMAs, not tensor cores).
-//   Design: one block of 8 warps per (q-tile of 64 rows, bh).  The block
-//   stages 32 keys and values at a time in shared memory as f32 (K rows padded
-//   to D+1 floats so that lane j reading key j is free of bank conflicts).
-//   Each warp owns 8 query rows; lane j scores key j, the warp reduces the
-//   row max and sum with shuffles, and each lane accumulates D/32 output
-//   columns.  The key loop stops at the causal diagonal of the q-tile (the
-//   pl.when skip of the Pallas body).  Shared memory exceeds 48 KB at D = 128
-//   (131,200 B at D = 256), so it is dynamic and the launcher raises the
-//   per-kernel limit.
+//   in f32, causal or not, keys >= S masked in the kernel (no padding of S),
+//   scale D^-0.5.  Two paths, picked from the shapes alone by the host plan
+//   (kernels/flash_attention.py:plan_attention) and passed in:
+//
+//   * wgmma (bf16 at D 64, 128, 256: the serving path).  What bounds it on an
+//     H100: at the prefill shapes (S 128, D 128, BH 128) the bytes, 16.8 MB
+//     in 0.0050 ms, against 0.54 GFLOP that bf16 tensor cores do in 0.00055
+//     ms but the FP32 pipes only in 0.0081 ms; at S 513 the operations come
+//     close (17.25 GFLOP, 0.0174 ms).  So both products run on the tensor
+//     cores with f32 accumulation.  One block a (q tile, bh), with one or two
+//     consumer warpgroups of 64 query rows (block_q 64 or 128; the plan takes
+//     64 rows by 64 keys, the fastest in chip_smoke.py's attn_sweep, and head
+//     dim 256 only that) and one producer warp.  The producer loads the q
+//     tile once and streams K and V tiles of block_k keys through a
+//     two-stage ring by TMA, from 3-D tensor maps over (BH, S, D) in the
+//     128-byte swizzle: rows past S arrive as zeros and a tile never reads
+//     the next head's rows; each stage's arrival is counted on an mbarrier,
+//     and the consumers free it on another, so the next tile's copy is in
+//     flight while this one computes.  A warpgroup
+//     computes S = Q K^T with wgmma m64n{block_k}k16 (Q and K both K-major
+//     in shared memory), then the softmax in registers on the accumulator's
+//     own layout (a thread holds parts of two rows; a row's max and sum take
+//     two shuffles within the four lanes that share it; log2(e) folded into
+//     the scale, exp2), masks only on the causal diagonal's and the ragged
+//     last tile, rescales its f32 O accumulator (m64n{D}: 128 registers a
+//     thread at D 256), converts P to bf16 in place as the register A operand
+//     of wgmma m64n{D}k16 and adds P V, V read MN-major from shared memory.
+//     The key loop stops at the causal diagonal of the q tile (the pl.when
+//     skip of the Pallas body); a warpgroup whose rows end before a tile
+//     skips it.  The epilogue normalises by max(l, 1e-30), writes bf16 into
+//     the warpgroup's q tile (the same swizzle) and stores it with TMA, which
+//     drops rows >= S.  No atomics: repeated launches are bit-identical.
+//   * simt (f32 at every D; bf16 at D 16 and 32): scores and P@V on the FP32
+//     pipes.  One block of 8 warps per (q tile of 64 rows, bh) stages 32 keys
+//     and values at a time in shared memory as f32 (K rows padded to D + 1
+//     floats); each warp owns 8 query rows, lane j scores key j, the warp
+//     reduces the row max and sum with shuffles, and each lane accumulates
+//     D/32 output columns.  f32 inputs would need split TF32 on the tensor
+//     cores to keep the reference's 2e-4; that is not done yet.
 //
 // K5 replaces repro/kernels/flash_attention.py:flash_decode_kernel.
 //   One query token per slot, q (B, KV, G, hd) grouped under its KV head,
@@ -58,7 +84,7 @@
 
 #include <cooperative_groups.h>
 
-#include "common.cuh"
+#include "hopper.cuh"  // TMA, mbarrier and wgmma helpers (shared with K3)
 
 namespace cg = cooperative_groups;
 
@@ -77,7 +103,7 @@ cudaError_t raise_smem_limit(size_t smem) {
   return err;
 }
 
-// ---------------------------------------------------------------- K4
+// ------------------------------------ K4, the simt path (f32; bf16 at D 16, 32)
 constexpr int FA_BQ = 64;
 constexpr int FA_BK = 32;
 constexpr int FA_WARPS = 8;
@@ -187,15 +213,300 @@ cudaError_t launch_fa(const void* q, const void* k, const void* v, void* out, in
   return cudaGetLastError();
 }
 
+// f32 at every head dim; bf16 at 16 and 32 (the wgmma path takes the rest)
 template <typename T>
 cudaError_t dispatch_fa(const void* q, const void* k, const void* v, void* out, int BH, int S,
                         int D, int causal, cudaStream_t st) {
   switch (D) {
     case 16: return launch_fa<T, 16>(q, k, v, out, BH, S, causal, st);
     case 32: return launch_fa<T, 32>(q, k, v, out, BH, S, causal, st);
-    case 64: return launch_fa<T, 64>(q, k, v, out, BH, S, causal, st);
-    case 128: return launch_fa<T, 128>(q, k, v, out, BH, S, causal, st);
-    case 256: return launch_fa<T, 256>(q, k, v, out, BH, S, causal, st);
+  }
+  if constexpr (sizeof(T) == 4) {
+    switch (D) {
+      case 64: return launch_fa<T, 64>(q, k, v, out, BH, S, causal, st);
+      case 128: return launch_fa<T, 128>(q, k, v, out, BH, S, causal, st);
+      case 256: return launch_fa<T, 256>(q, k, v, out, BH, S, causal, st);
+    }
+  }
+  return cudaErrorInvalidValue;
+}
+
+// ------------------------------------------------- K4, the wgmma path (bf16)
+enum AttnPath : int { ATTN_SIMT = 0, ATTN_WGMMA = 1 };  // kernels/flash_attention.py: ATTN_PATHS
+constexpr int FW_STAGES = 2;  // the K/V ring
+
+// Shared memory of one block (kernels/flash_attention.py:attention_smem_bytes
+// mirrors it): the q tile, [warpgroup][64-column chunk][64 rows][128 bytes];
+// the ring's K and V tiles, each [chunk][BK rows][128 bytes]; the full and
+// empty barriers of the ring and the q tile's barrier.  Every tile is a
+// whole number of 1024-byte swizzle atoms.
+template <int D, int WGS, int BK>
+struct FwTiles {
+  static constexpr int BQ = 64 * WGS;
+  static constexpr int CONSUMERS = 128 * WGS;
+  static constexpr int THREADS = CONSUMERS + 32;  // + one producer warp
+  static constexpr int CHUNKS = D / 64;           // 128-byte boxes of a row
+  static constexpr int WG_Q_BYTES = 64 * D * 2;   // one warpgroup's q (then o) tile
+  static constexpr int KV_BYTES = BK * D * 2;     // one K or V tile
+  static constexpr int Q_OFF = 0;
+  static constexpr int K_OFF = Q_OFF + WGS * WG_Q_BYTES;
+  static constexpr int V_OFF = K_OFF + FW_STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + FW_STAGES * KV_BYTES;
+  static constexpr int SMEM = BAR_OFF + (2 * FW_STAGES + 1) * 8 + 1024;  // + alignment slack
+  // two blocks an SM where their shared memory fits (one warpgroup each)
+  static constexpr int MIN_BLOCKS = WGS == 1 && 2 * (SMEM + 1024) <= 233472 ? 2 : 1;
+  static_assert(D % 64 == 0 && BK % 16 == 0 && K_OFF % 1024 == 0 && KV_BYTES % 1024 == 0,
+                "tiles of whole swizzle atoms");
+};
+
+__device__ __forceinline__ float minus_inf() { return __int_as_float(static_cast<int>(0xff800000u)); }
+
+__device__ __forceinline__ float fast_exp2(float x) {  // 2^x; 2^-inf = 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// grid (q tiles, BH); the q tile of block x is n_tiles - 1 - x, so that the
+// longest causal rows start first.  Warpgroup w owns q rows [q0 + 64 w,
+// q0 + 64 w + 64); the producer warp comes after the warpgroups.
+template <int D, int WGS, int BK>
+__global__ void __launch_bounds__(FwTiles<D, WGS, BK>::THREADS, FwTiles<D, WGS, BK>::MIN_BLOCKS)
+flash_attention_wgmma(const __grid_constant__ CUtensorMap qmap,
+                      const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap,
+                      const __grid_constant__ CUtensorMap omap, int S, int causal,
+                      float scale_log2) {
+  using T = FwTiles<D, WGS, BK>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_smem<1024>(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + T::BAR_OFF);
+  uint64_t* empty = full + FW_STAGES;
+  uint64_t* qbar = empty + FW_STAGES;
+  const int bh = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * T::BQ;
+  const int kend = causal ? min(S, q0 + T::BQ) : S;  // keys this block reads
+  const int n_tiles = (kend + BK - 1) / BK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < FW_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * WGS);  // one arrival per consumer warp
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4 * WGS) {  // producer
+    if (lane == 0) {
+      // the warpgroups whose rows start before S (a box wholly past S is not read)
+      const int live = min(WGS, (S - q0 + 63) / 64);
+      mbar_expect_tx(qbar, live * T::WG_Q_BYTES);
+      for (int w = 0; w < live; ++w)
+        for (int c = 0; c < T::CHUNKS; ++c)
+          tma_load_3d(smem + T::Q_OFF + w * T::WG_Q_BYTES + c * 8192, &qmap, qbar, c * 64,
+                      q0 + 64 * w, bh);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % FW_STAGES;
+        if (t >= FW_STAGES) mbar_wait(&empty[s], ((t / FW_STAGES) - 1) & 1);
+        mbar_expect_tx(&full[s], 2 * T::KV_BYTES);
+        for (int c = 0; c < T::CHUNKS; ++c) {
+          tma_load_3d(smem + T::K_OFF + s * T::KV_BYTES + c * BK * 128, &kmap, &full[s], c * 64,
+                      t * BK, bh);
+          tma_load_3d(smem + T::V_OFF + s * T::KV_BYTES + c * BK * 128, &vmap, &full[s], c * 64,
+                      t * BK, bh);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers
+  const int wg = threadIdx.x / 128;
+  const int r0 = q0 + 64 * wg;                      // this warpgroup's first row
+  const int lr = (warp % 4) * 16 + lane / 4;        // the thread's rows: lr and lr + 8
+  const int row = r0 + lr;
+  // tiles this warpgroup computes: none if its rows all lie past S; under
+  // the causal mask, those up to its last row's diagonal
+  const int my_tiles = r0 >= S ? 0 : causal ? (min(S, r0 + 64) + BK - 1) / BK : n_tiles;
+  uint8_t* qs = smem + T::Q_OFF + wg * T::WG_Q_BYTES;
+  const uint32_t qa = smem_u32(qs);
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  fence_regs(o);
+  float m0 = minus_inf(), m1 = minus_inf(), l0 = 0.f, l1 = 0.f;  // rows lr, lr + 8 (scaled by log2 e)
+  mbar_wait(qbar, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % FW_STAGES;
+    mbar_wait(&full[s], (t / FW_STAGES) & 1);
+    if (t < my_tiles) {
+      // S = Q K^T: A = q tile, B = K tile, both K-major (128-byte swizzle):
+      // a k16 step is 32 bytes into a row, a 64-column chunk further on
+      const uint32_t ka = smem_u32(smem + T::K_OFF + s * T::KV_BYTES);
+      float sc[BK / 2];
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_bf16<BK, 0>(sc, gmma_desc(qa + (kk / 4) * 8192 + (kk % 4) * 32, 16, 1024),
+                          gmma_desc(ka + (kk / 4) * (BK * 128) + (kk % 4) * 32, 16, 1024),
+                          kk > 0);
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      fence_regs(sc);
+      // register 4j + {0,1}: row lr, keys k0 + 8j + 2(lane % 4) + {0,1};
+      // 4j + {2,3}: the same keys of row lr + 8
+      const int k0 = t * BK;
+      if (k0 + BK > S || (causal && k0 + BK - 1 > r0)) {  // the ragged or diagonal tile
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int key = k0 + 8 * j + 2 * (lane % 4) + e;
+            if (key >= S || (causal && key > row)) sc[4 * j + e] = minus_inf();
+            if (key >= S || (causal && key > row + 8)) sc[4 * j + 2 + e] = minus_inf();
+          }
+      }
+      float mx0 = minus_inf(), mx1 = minus_inf();
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+        mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+      }
+#pragma unroll
+      for (int off = 1; off <= 2; off *= 2) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      // key 0 is valid for every row and tile 0 comes first, so the new
+      // maxima are finite and exp2(m - m_new) never sees -inf - -inf
+      const float mn0 = fmaxf(m0, mx0 * scale_log2), mn1 = fmaxf(m1, mx1 * scale_log2);
+      const float c0 = fast_exp2(m0 - mn0), c1 = fast_exp2(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        sc[4 * j] = fast_exp2(fmaf(sc[4 * j], scale_log2, -mn0));
+        sc[4 * j + 1] = fast_exp2(fmaf(sc[4 * j + 1], scale_log2, -mn0));
+        sc[4 * j + 2] = fast_exp2(fmaf(sc[4 * j + 2], scale_log2, -mn1));
+        sc[4 * j + 3] = fast_exp2(fmaf(sc[4 * j + 3], scale_log2, -mn1));
+        ps0 += sc[4 * j] + sc[4 * j + 1];
+        ps1 += sc[4 * j + 2] + sc[4 * j + 3];
+      }
+      l0 = fmaf(l0, c0, ps0);  // this thread's share of the row sums
+      l1 = fmaf(l1, c1, ps1);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j] *= c0;
+        o[4 * j + 1] *= c0;
+        o[4 * j + 2] *= c1;
+        o[4 * j + 3] *= c1;
+      }
+      // P as bf16 A fragments: k16 slice kk of the scores is registers
+      // [8 kk, 8 kk + 8), in the order the A operand takes them
+      uint32_t pa[BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) pa[kk][i] = pack_bf16(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1]);
+      // O += P V: B = V tile, MN-major (a k16 step is 16 rows of 128 bytes,
+      // 64-column chunks BK * 128 bytes apart, 8 rows 1024 bytes apart)
+      const uint32_t va = smem_u32(smem + T::V_OFF + s * T::KV_BYTES);
+      fence_regs(o);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_rs_bf16<D>(o, pa[kk], gmma_desc(va + kk * 16 * 128, BK * 128, 1024));
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      fence_regs(o);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with the stage
+  }
+  if (my_tiles == 0) return;
+
+  // o / max(l, 1e-30) as bf16 into this warpgroup's q tile (no longer read),
+  // chunk j % 8 of row r at chunk (j % 8) ^ (r % 8), then one TMA store a
+  // 64-column chunk; rows >= S fall outside the tensor and are dropped
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    uint8_t* line = qs + (j / 8) * 8192 + lr * 128 + (lane % 4) * 4;
+    const int ch = ((j % 8) ^ (lr % 8)) << 4;  // rows lr and lr + 8 share the swizzle
+    *reinterpret_cast<uint32_t*>(line + ch) = pack_bf16(o[4 * j] * inv0, o[4 * j + 1] * inv0);
+    *reinterpret_cast<uint32_t*>(line + 8 * 128 + ch) =
+        pack_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
+  if (threadIdx.x % 128 == 0) {
+    for (int c = 0; c < T::CHUNKS; ++c) tma_store_3d(&omap, qs + c * 8192, c * 64, r0, bh);
+    tma_store_wait();
+  }
+}
+
+template <int D, int WGS, int BK>
+cudaError_t launch_fw(const void* q, const void* k, const void* v, void* out, int BH, int S,
+                      int causal, cudaStream_t stream) {
+  using T = FwTiles<D, WGS, BK>;
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out);
+  if (bases % 16 != 0 || BH > 65535) return cudaErrorInvalidValue;  // TMA bases; grid.y
+  const int q_tiles = (S + T::BQ - 1) / T::BQ;
+  cudaError_t err = raise_smem_limit<flash_attention_wgmma<D, WGS, BK>>(T::SMEM);
+  if (err != cudaSuccess) return err;
+  CUtensorMap qmap, kmap, vmap, omap;
+  const auto bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const auto sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  if (!tensor_map_3d(&qmap, bf16, 2, q, BH, S, D, 64, 64, sw) ||
+      !tensor_map_3d(&kmap, bf16, 2, k, BH, S, D, BK, 64, sw) ||
+      !tensor_map_3d(&vmap, bf16, 2, v, BH, S, D, BK, 64, sw) ||
+      !tensor_map_3d(&omap, bf16, 2, out, BH, S, D, 64, 64, sw))
+    return cudaErrorInvalidValue;
+  const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(D));
+  flash_attention_wgmma<D, WGS, BK><<<dim3(q_tiles, BH), T::THREADS, T::SMEM, stream>>>(
+      qmap, kmap, vmap, omap, S, causal, scale_log2);
+  return cudaGetLastError();
+}
+
+// (block_q, block_k) of the plan: 64 or 128 query rows (one or two
+// warpgroups) by 64 or 128 keys a tile.  D 256 takes 64 by 64 only: its O
+// accumulator holds 128 registers a thread, and a block of two warpgroups
+// and a producer warp is given registers as three warpgroups (168 a thread)
+template <int D>
+cudaError_t dispatch_fw_tile(int block_q, int block_k, const void* q, const void* k,
+                             const void* v, void* out, int BH, int S, int causal,
+                             cudaStream_t st) {
+  if (block_q == 64 && block_k == 64) return launch_fw<D, 1, 64>(q, k, v, out, BH, S, causal, st);
+  if constexpr (D <= 128) {
+    if (block_q == 128 && block_k == 64)
+      return launch_fw<D, 2, 64>(q, k, v, out, BH, S, causal, st);
+    if (block_q == 64 && block_k == 128)
+      return launch_fw<D, 1, 128>(q, k, v, out, BH, S, causal, st);
+    if (block_q == 128 && block_k == 128)
+      return launch_fw<D, 2, 128>(q, k, v, out, BH, S, causal, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t dispatch_fw(const void* q, const void* k, const void* v, void* out, int BH, int S,
+                        int D, int causal, int block_q, int block_k, cudaStream_t st) {
+  switch (D) {
+    case 64: return dispatch_fw_tile<64>(block_q, block_k, q, k, v, out, BH, S, causal, st);
+    case 128: return dispatch_fw_tile<128>(block_q, block_k, q, k, v, out, BH, S, causal, st);
+    case 256: return dispatch_fw_tile<256>(block_q, block_k, q, k, v, out, BH, S, causal, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -719,11 +1030,17 @@ cudaError_t dispatch_fd(int hd, int group, const void* q, int q_bf16, const void
 
 }  // namespace
 
-// dtype: DT_F32 | DT_BF16 (q, k, v and out share it).  Returns a cudaError_t.
+// dtype: DT_F32 | DT_BF16 (q, k, v and out share it); path, block_q,
+// block_k: the plan (kernels/flash_attention.py:plan_attention).  A plan the
+// kernels do not take returns cudaErrorInvalidValue.  Returns a cudaError_t.
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* out,
                                      int dtype, int BH, int S, int D, int causal,
-                                     void* stream) {
+                                     void* stream, int path, int block_q, int block_k) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (path == ATTN_WGMMA && dtype == DT_BF16)
+    return dispatch_fw(q, k, v, out, BH, S, D, causal, block_q, block_k, st);
+  if (path != ATTN_SIMT || block_q != FA_BQ || block_k != FA_BK)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == DT_F32) return dispatch_fa<float>(q, k, v, out, BH, S, D, causal, st);
   if (dtype == DT_BF16) return dispatch_fa<__nv_bfloat16>(q, k, v, out, BH, S, D, causal, st);
   return static_cast<int>(cudaErrorInvalidValue);

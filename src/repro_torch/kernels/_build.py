@@ -50,8 +50,9 @@ _SIGNATURES = {
     # x, x_dtype, codes, code_dtype, scale, out, M, K, N, stream,
     # then the plan (quant_matmul.plan): path, tile_m, tile_n, split
     "repro_quant_matmul": (_P, _I, _P, _I, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I),
-    # q, k, v, out, dtype, BH, S, D, causal, stream
-    "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # q, k, v, out, dtype, BH, S, D, causal, stream,
+    # then the plan (flash_attention.plan_attention): path, block_q, block_k
+    "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _I),
     # q, q_dtype, k_pages, v_pages, pool_dtype, page_table, lengths,
     # acc, m, l, B, KV, G, hd, page, n_pmax, stream,
     # then the plan (flash_attention.plan_decode): split, pages_per_block, group

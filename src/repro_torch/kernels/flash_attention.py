@@ -3,14 +3,16 @@
 K4 replaces ``repro/kernels/flash_attention.py:flash_attention_kernel`` and
 K5 replaces ``flash_decode_kernel`` in the same file.  Both kernels live in
 ``csrc/flash_attention.cu``; its notes say what bounds each on an H100 and
-what the design does about it (K4: shared-memory K/V tiles with an online
-softmax that stops at the causal diagonal; K5: a slot's pages split across
-the blocks of a thread-block cluster, each streaming its pages through a
-cp.async ring without reading an unallocated or out-of-length page, the
-partial softmaxes merged in rank order through distributed shared memory).
+what the design does about it (K4: bf16 at head dim 64, 128 and 256 on
+wgmma tensor cores fed by TMA, everything else on the FP32 pipes; K5: a
+slot's pages split across the blocks of a thread-block cluster, each
+streaming its pages through a cp.async ring without reading an unallocated
+or out-of-length page, the partial softmaxes merged in rank order through
+distributed shared memory).
 
-:func:`plan_decode` picks K5's split from the shapes alone;
-``*_cuda`` launch the kernels; ``*_plain`` are the plain PyTorch versions.
+:func:`plan_attention` picks K4's path and tiles and :func:`plan_decode`
+K5's split, from the shapes alone; ``*_cuda`` launch the kernels; ``*_plain``
+are the plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -39,6 +41,68 @@ _FD_RING_BYTES = 96 * 1024    # the cp.async ring: 2-8 stages of K and V
 MAX_DECODE_PAGES = 512        # pages a block's range holds at most
 _FD_SMALL_WORDS = (2 * MAX_DECODE_PAGES + _FD_WARPS + 8 * _FD_WARPS * DECODE_GROUP
                    + 3 * MAX_CLUSTER * DECODE_GROUP)
+
+
+#: K4's paths (csrc/flash_attention.cu: AttnPath).
+ATTN_PATHS = ("simt", "wgmma")
+#: (block_q, block_k) the wgmma path takes, by head dim (csrc: dispatch_fw_tile):
+#: one or two warpgroups of 64 query rows by 64 or 128 keys a tile; head dim
+#: 256 takes one warpgroup by 64 keys, its output accumulator alone holding
+#: 128 registers a thread (two warpgroups would spill).
+ATTN_TILES = {64: ((64, 64), (64, 128), (128, 64), (128, 128)),
+              128: ((64, 64), (64, 128), (128, 64), (128, 128)),
+              256: ((64, 64),)}
+#: The plan's wgmma tile: the fastest, or within 4% of it, at each row of
+#: ``chip_smoke.py`` phase ``attn_sweep`` on an H100 (PERF.md §6).
+ATTN_TILE = (64, 64)
+_FA_STAGES = 2                # the wgmma path's K/V ring
+_FA_SIMT_TILE = (64, 32)      # the simt path's q rows and keys a tile (FA_BQ, FA_BK)
+
+
+def attention_smem_bytes(path: str, D: int, block_q: int, block_k: int) -> int:
+    """K4's dynamic shared memory a block.  wgmma (csrc: FwTiles::SMEM):
+    the bf16 q tile, a two-stage ring of K and V tiles, three mbarriers
+    and 1024 bytes to align the swizzle atoms; simt (csrc: fa_smem_bytes):
+    f32 q, K (rows padded by one float) and V tiles."""
+    if path == "wgmma":
+        return (2 * block_q * D + 2 * _FA_STAGES * 2 * block_k * D
+                + (2 * _FA_STAGES + 1) * 8 + 1024)
+    return 4 * (block_q * D + block_k * (D + 1) + block_k * D)
+
+
+class AttentionPlan(NamedTuple):
+    """One launch of K4: ``path`` (``"wgmma"`` or ``"simt"``), ``block_q``
+    query rows and ``block_k`` keys a tile, ``smem`` bytes of shared memory
+    a block and ``blocks`` in the grid."""
+    path: str
+    block_q: int
+    block_k: int
+    smem: int
+    blocks: int
+
+
+@functools.lru_cache(maxsize=None)
+def plan_attention(BH: int, S: int, D: int, dtype: torch.dtype, causal: bool,
+                   num_sms: int = _build.H100_SMS) -> AttentionPlan:
+    """K4's launch, from the shapes and type alone.
+
+    It reads no tensor, so a prefill plans without waiting for the card
+    (and could be captured in a CUDA graph).  bf16 at a head dim of
+    :data:`ATTN_TILES` takes the wgmma path; every f32 input and bf16 at
+    head dims 16 and 32 take the simt path, by this rule and not as a
+    fallback.  The wgmma path takes :data:`ATTN_TILE` at every shape: 64
+    query rows (one warpgroup; two blocks share an SM up to head dim 128) by
+    64 keys a tile.  ``causal`` and ``num_sms`` do not change the launch;
+    they complete the key.
+    """
+    del causal, num_sms
+    if dtype == torch.bfloat16 and D in ATTN_TILES:
+        path, (block_q, block_k) = "wgmma", ATTN_TILE
+    else:
+        path, (block_q, block_k) = "simt", _FA_SIMT_TILE
+    return AttentionPlan(path, block_q, block_k,
+                         attention_smem_bytes(path, D, block_q, block_k),
+                         BH * -(-S // block_q))
 
 
 def decode_smem_bytes(group: int, hd: int, pool_dtype: torch.dtype) -> int:
@@ -100,8 +164,14 @@ def plan_decode(B: int, KV: int, G: int, hd: int, page: int, n_pmax: int,
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         causal: bool = True) -> torch.Tensor:
-    """q, k, v (BH, S, D) f32/bf16 -> (BH, S, D) in q's dtype."""
+                         causal: bool = True,
+                         attn_plan: AttentionPlan | None = None) -> torch.Tensor:
+    """q, k, v (BH, S, D) f32/bf16 -> (BH, S, D) in q's dtype.
+
+    The launch follows :func:`plan_attention`; ``attn_plan`` overrides it
+    (to time the alternatives), and the launcher refuses a plan its kernels
+    do not take.
+    """
     name = "flash_attention"
     if q.ndim != 3 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"{name}: q, k, v must share one (BH, S, D) shape")
@@ -114,10 +184,15 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    p = attn_plan or plan_attention(BH, S, D, q.dtype, bool(causal),
+                                    _build.sm_count(q.device))
+    if p.path == "wgmma" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"{name}: the wgmma path's tensors must start on 16-byte "
+                         "boundaries (TMA)")
     err = _build.lib().repro_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         _build.DTYPE_CODES[q.dtype], BH, S, D, int(bool(causal)),
-        _build.stream_of(q))
+        _build.stream_of(q), ATTN_PATHS.index(p.path), p.block_q, p.block_k)
     _build.check_launch(name, err)
     _build.LAUNCHES[name] += 1
     return out

@@ -143,6 +143,63 @@ class TestFlashAttention:
         tol = 3e-2 if bf16 else 2e-4
         np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
 
+    @pytest.mark.parametrize("S", [37, 130])
+    @pytest.mark.parametrize("D", [64, 128])
+    @pytest.mark.parametrize("causal", [True, False])
+    @pytest.mark.parametrize("bf16", [False, True])
+    def test_wgmma_head_dims(self, D, S, causal, bf16):
+        """The head dims the card's tensor-core path takes (BH 2, ragged S),
+        through the CPU route."""
+        rng = np.random.default_rng(D + S + int(causal))
+        qkv = [rng.standard_normal((1, 2, S, D)).astype(np.float32) for _ in range(3)]
+        j = [_as_dtype(a, bf16)[0] for a in qkv]
+        t = [_as_dtype(a, bf16)[1] for a in qkv]
+        want = np.asarray(jops.flash_attention(*j, causal=causal).astype(jnp.float32))
+        got = tops.flash_attention(*t, causal=causal)
+        assert got.dtype == t[0].dtype and got.shape == t[0].shape
+        tol = 3e-2 if bf16 else 2e-4
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
+
+
+class TestAttentionPlan:
+    """K4's path and tiles (kernels/flash_attention.plan_attention)."""
+
+    def test_plan_reads_shapes_only(self):
+        # a pure function of shapes and type: a prefill plans without
+        # waiting for the card
+        names = list(inspect.signature(tfa.plan_attention).parameters)
+        assert names == ["BH", "S", "D", "dtype", "causal", "num_sms"]
+        a = tfa.plan_attention(128, 128, 128, torch.bfloat16, True)
+        assert a == tfa.plan_attention(128, 128, 128, torch.bfloat16, True)
+
+    @pytest.mark.parametrize("D", [64, 128, 256])
+    def test_bf16_takes_wgmma(self, D):
+        for BH, S, causal in ((128, 128, True), (64, 513, False), (2, 37, True)):
+            p = tfa.plan_attention(BH, S, D, torch.bfloat16, causal)
+            assert p.path == "wgmma" and (p.block_q, p.block_k) in tfa.ATTN_TILES[D], p
+            assert p.blocks == BH * -(-S // p.block_q), p
+
+    @pytest.mark.parametrize("D", tfa.HEAD_DIMS)
+    def test_f32_and_narrow_bf16_take_simt(self, D):
+        assert tfa.plan_attention(128, 128, D, torch.float32, True).path == "simt"
+        if D not in tfa.ATTN_TILES:
+            assert tfa.plan_attention(128, 128, D, torch.bfloat16, True).path == "simt"
+
+    @pytest.mark.parametrize("D", tfa.HEAD_DIMS)
+    def test_shared_memory_fits(self, D):
+        for dtype in (torch.float32, torch.bfloat16):
+            p = tfa.plan_attention(128, 513, D, dtype, False)
+            assert p.smem == tfa.attention_smem_bytes(p.path, D, p.block_q, p.block_k)
+            assert p.smem <= tfa.MAX_SMEM, (dtype, p)
+        # every tile the wgmma path takes, one warpgroup (block_q 64) or two
+        for bq, bk in tfa.ATTN_TILES.get(D, ()):
+            assert tfa.attention_smem_bytes("wgmma", D, bq, bk) <= tfa.MAX_SMEM, (bq, bk)
+
+    def test_main_path_fills_the_card(self):
+        # yi-6b's prefill: 32 heads x 4 slots, a 128-token bucket
+        p = tfa.plan_attention(128, 128, 128, torch.bfloat16, True)
+        assert p.path == "wgmma" and p.blocks >= 128, p
+
 
 def _decode_inputs(seed: int, KV: int = 2, G: int = 3, hd: int = 16):
     """Paged decode inputs with -1 holes, an empty slot and ragged lengths."""
@@ -256,6 +313,12 @@ class TestDispatchGuards:
         with pytest.raises(ValueError, match="CUDA"):
             tfa.flash_decode_cuda(qd, pool, pool, torch.zeros((2, 2), dtype=torch.int32),
                                   torch.zeros((2,), dtype=torch.int32))
+
+    @pytest.mark.parametrize("D", [64, 128])
+    def test_wgmma_head_dims_reach_the_cuda_refusal(self, D):
+        q = torch.zeros((2, 8, D), dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="CUDA"):
+            tfa.flash_attention_cuda(q, q, q)
 
     def test_cuda_wrappers_refuse_cpu_tensors(self):
         x = torch.zeros((2, 8))
