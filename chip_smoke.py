@@ -9,21 +9,27 @@ Phases (each one failing stops the script with a nonzero exit):
 1. device: the card's name and power limit; TF32 switched off.
 2. build: compile ``src/repro_torch/csrc/*.cu`` (nvcc, sm_90a) and print the
    build time per file and the ptxas register/spill/shared-memory report per
-   kernel; no K5 kernel, no K4 wgmma instance and no K4 simt instance at head
-   dim 256 spills; check in the SASS that K3's prefill path and K4's wgmma
-   path issue wgmma (HGMMA) and TMA loads (UTMALDG) and that no K3, K4 or K5
-   kernel has a global atomic.
+   kernel; no K5 kernel and no K4 instance (wgmma or split path) spills,
+   and ptxas serialises the wgmma of no K4 instance;
+   check in the SASS that K3's prefill path and every K4 instance issue
+   wgmma (HGMMA) and TMA loads (UTMALDG), every K4 instance a TMA store
+   (UTMASTG), and that no K3, K4 or K5 kernel has a global atomic.
 3. kernels: every kernel (K1 sr_quant, K2 sr_pack, K3 quant_matmul, K4
    flash_attention, K5 flash_decode) against its plain PyTorch version on the
    card, at the shapes of its path, with times beside the plain version, one
    library call where one computes the same function, and the card's bound;
    K3, K4 and K5 also launched twice on identical inputs, the outputs
-   bit-equal.  K4's rows name the path and tiles of ``plan_attention`` and
-   the SDPA backend of their library time (fused: flash for bf16, memory-
-   efficient for f32, on 4-D views of the same tensors); K4 adds head dim 64
-   and gemma-7b's prefill (D 256); K5 rows: yi-6b's decode, gemma-7b's
-   (G 1, hd 256), glm4-9b's (G 16) and a long context (n_pmax 256, ~4,000
-   tokens a slot), each with its block count from ``plan_decode``.
+   bit-equal.  K4's rows name the path and tiles of
+   ``plan_attention`` and the SDPA backend of their library time (fused:
+   flash for bf16, memory-efficient for f32, on 4-D views of the same
+   tensors): f32 at head dims 16-256 (the split path; its bound prices the
+   operations as three bf16 products) and bf16 at 16, 32, 64, 128 and 256,
+   at S 100, 128 and 513 where the head dim's model runs them; then one-hot
+   inputs through every K4 tile of both paths, which show where each
+   element of q, K and V lands at every swizzle K4 uses.  K5 rows: yi-6b's
+   decode, gemma-7b's (G 1, hd 256), glm4-9b's (G 16) and a long context
+   (n_pmax 256, ~4,000 tokens a slot), each with its block count from
+   ``plan_decode``.
 4. serve: ``Session.serve`` of full-width, full-depth yi-6b, then of
    gemma-7b (head dim 256), with int8 weights, paged f32 KV and continuous
    batching; the launch counters are zeroed just before each run and read
@@ -31,9 +37,11 @@ Phases (each one failing stops the script with a nonzero exit):
 5. profile: where a full-depth decode step's and a prefill's (4 slots x 128
    tokens) time goes: host clock, device time by kernel from
    ``torch.profiler``, K3's, K4's and K5's device time and launches.
-6. consistency: a 2-layer full-width yi-6b and a 4-layer full-width gemma-7b
-   each run one prefill and one decode step with the kernels and again with
-   the plain versions on the card.
+6. consistency: a 2-layer full-width yi-6b (bf16, then f32 compute: K4's
+   split path) and a 4-layer full-width gemma-7b each run one prefill and
+   one decode step with the kernels and again with the plain versions on
+   the card; then the smoke-size yi-6b (f32, head dim 16) serves through
+   ``Session.serve`` with K4 launched on the split path only.
 7. fl: the paper's FWQ loop (``Session.run_fl_sim``) on the card — the
    quickstart ``mobilenet`` spec and the ``fl-codesign-grid`` ``resnet``
    spec, 10 rounds each, 8 clients, one K1 launch per round — checked
@@ -53,8 +61,9 @@ The last two lines are the kernel table and ``{"ok": true, "device": ...}``.
 run only when named, times K3 at yi-6b's projections under the tile plans
 near the one ``quant_matmul.plan`` picks, phase ``decode_sweep`` times K5
 at its rows' shapes under every split of the page axis, and phase
-``attn_sweep`` times K4's wgmma path at the main path's, gemma-7b's and the
-S 513 row under every (block_q, block_k) it takes.
+``attn_sweep`` times K4 under every tile its path takes: the wgmma path at
+the main path's, gemma-7b's, the S 513 and two head-dim-16 rows, the split
+path at the main f32 row, S 513 (causal and not) and head dims 16 and 256.
 """
 
 from __future__ import annotations
@@ -105,6 +114,20 @@ def emit(obj) -> None:
 def bound_ms(nbytes: float, ops_: float, dtype) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / HBM_BYTES_S, ops_ / PEAK_OPS_S[dtype]
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+def attention_bound_ms(q, causal: bool) -> tuple[float, str, float]:
+    """K4's bound: q, k, v read and the output written once, and the
+    function's two products (4 * BH * D operations a query-key pair) at the
+    bf16 tensor cores' peak, f32 inputs too.  Also returns the time of three
+    such products at that peak, what the split path's method costs (an
+    informational figure, not the bound).  Returns (ms, bytes or
+    operations, split products ms)."""
+    BH, S, D = q.shape
+    pairs = S * (S + 1) / 2 if causal else S * S
+    ops_ = 4.0 * BH * D * pairs
+    ms, by = bound_ms(4 * q.nbytes, ops_, torch.bfloat16)
+    return ms, by, 3 * ops_ / PEAK_OPS_S[torch.bfloat16] * 1e3
 
 
 def time_ms(fn, arg_sets, iters: int = 10, warmup: int = 2, replays: int = 3) -> float:
@@ -220,28 +243,38 @@ def phase_build() -> None:
     for entry, r in report.items():
         for line in r["lines"]:
             print(f"  {entry[:90]}: {line}")
-    # K5's kernels, K4's wgmma path and K4's simt path at head dim 256 keep
-    # their accumulators in registers
-    must_not_spill = [e for e in report if "flash_decode" in e or "flash_attention_wgmma" in e
-                      or ("flash_attention_fwd<" in e and ", 256>" in e)]
-    # K5: 2 pool types x 5 head dims x 4 query groups; K4 simt at D 256: f32;
-    # K4 wgmma: 4 (block_q, block_k) at D 64 and 128, 1 at D 256
-    assert len(must_not_spill) == 40 + 1 + 9, must_not_spill
+    # K5's kernels and every K4 instance keep their accumulators in registers
+    k4_kernels = ("flash_attention_wgmma", "flash_attention_split")
+    must_not_spill = [e for e in report
+                      if "flash_decode_split" in e or any(k in e for k in k4_kernels)]
+    # K5: 2 pool types x 5 head dims x 4 query groups; K4: the tiles of each
+    # path at each head dim
+    n_fw = sum(map(len, fa.ATTN_TILES.values()))
+    n_fs = sum(map(len, fa.ATTN_SPLIT_TILES.values()))
+    assert len(must_not_spill) == 40 + n_fw + n_fs, must_not_spill
     spilled = {e: report[e]["spill_bytes"] for e in must_not_spill if report[e]["spill_bytes"]}
     assert not spilled, f"spills: {spilled}"
-    # K3's and K4's paths as built: K3's prefill path and K4's wgmma path
-    # issue wgmma and load through TMA; no K3, K4 or K5 kernel has a global
-    # atomic
+    # no K4 instance has its wgmma serialised by ptxas (a branch around
+    # wgmma, or an accumulator touched while in flight)
+    serialised = [line for line in log.splitlines()
+                  if "C7518" in line and any(k in line for k in k4_kernels)]
+    assert not serialised, serialised
+    # K3's and K4's paths as built: K3's prefill path and every K4 instance
+    # issue wgmma and load through TMA, K4 stores through TMA; no K3, K4 or
+    # K5 kernel has a global atomic
     counts = _sass_counts(str(lib_path), "qmm_", ("HGMMA", "UTMALDG", "RED", "ATOMG"))
-    k4 = _sass_counts(str(lib_path), "flash_attention",
-                      ("HGMMA", "UTMALDG", "UTMASTG", "RED", "ATOMG"))
+    k4 = {fn: c for k in k4_kernels for fn, c in _sass_counts(
+        str(lib_path), k, ("HGMMA", "UTMALDG", "UTMASTG", "RED", "ATOMG")).items()}
     k5 = _sass_counts(str(lib_path), "flash_decode", ("RED", "ATOMG"))
     for fn, c in {**counts, **k4, **k5}.items():
         print(f"  sass {fn[:90]}: {c}")
     wg = [c for fn, c in counts.items() if "qmm_wgmma" in fn]
     assert wg and all(c["HGMMA"] > 0 and c["UTMALDG"] > 0 for c in wg), counts
     fw = [c for fn, c in k4.items() if "flash_attention_wgmma" in fn]
-    assert len(fw) == 9 and all(c["HGMMA"] > 0 and c["UTMALDG"] > 0 for c in fw), k4
+    fs = [c for fn, c in k4.items() if "flash_attention_split" in fn]
+    assert (len(fw), len(fs)) == (n_fw, n_fs), k4
+    assert all(c["HGMMA"] > 0 and c["UTMALDG"] > 0 and c["UTMASTG"] > 0
+               for c in fw + fs), k4
     assert len(k5) == 40, k5
     assert all(c["RED"] == 0 and c["ATOMG"] == 0
                for c in (*counts.values(), *k4.values(), *k5.values())), (counts, k4, k5)
@@ -362,13 +395,22 @@ def sdpa_ms(q, k, v, causal: bool) -> tuple[float, str]:
         return time_ms(call, [(q4, k4, v4, causal)]), f"{chosen} ({pinned.name} refused)"
 
 
-#: K4's rows: (BH, D, S, dtypes).  yi-6b's head dim at BH 128 (32 heads x 4
-#: slots) and D 16 at S 100, 128, 513; D 64 (bf16, the wgmma path's third
-#: head dim); gemma-7b's prefill (16 heads x 4 slots, D 256).
-ATTN_CASES = ([(128, D, S, (torch.float32, torch.bfloat16)) for D in (16, 128)
-               for S in (100, 128, 513)]
-              + [(128, 64, 128, (torch.bfloat16,)),
-                 (64, 256, 128, (torch.float32, torch.bfloat16))])
+#: K4's rows: (BH, D, S, dtypes).  BH 128 (yi-6b's 32 heads x 4 slots) at S
+#: 100, 128 and 513: yi-6b's head dim 128 and the smoke configs' 16 in f32
+#: and bf16, 32 too, 64 in f32 (bf16 at S 128); gemma-7b's prefill (16 heads
+#: x 4 slots, D 256) in f32 at each S and in bf16 at S 128; the smoke
+#: serve's prefill (4 heads x 4 slots, D 16) at a 16-token bucket and a
+#: ragged 11, where one key tile is both the first and the ragged one and
+#: most of the 64 query rows lie past S.
+ATTN_CASES = ([(16, 16, S, (torch.float32, torch.bfloat16)) for S in (16, 11)]
+              + [(128, D, S, (torch.float32, torch.bfloat16)) for D in (16, 32, 128)
+                 for S in (100, 128, 513)]
+              + [(128, 64, S, (torch.float32,) + ((torch.bfloat16,) if S == 128 else ()))
+                 for S in (100, 128, 513)]
+              + [(64, 256, S, (torch.float32,) + ((torch.bfloat16,) if S == 128 else ()))
+                 for S in (100, 128, 513)])
+#: The path each type takes (kernels/flash_attention.plan_attention).
+ATTN_PATH_OF = {torch.bfloat16: "wgmma", torch.float32: "wgmma_split"}
 
 
 def check_flash_attention(table: dict) -> None:
@@ -395,53 +437,122 @@ def check_flash_attention(table: dict) -> None:
                 k_ms = time_ms(fa.flash_attention_cuda, [(q, k, v, causal)])
                 p_ms = time_ms(fa.flash_attention_plain, [(q, k, v, causal)], iters=3)
                 l_ms, backend = sdpa_ms(q, k, v, causal)
-                pairs = S * (S + 1) / 2 if causal else S * S
-                b_ms, b_by = bound_ms(4 * q.nbytes, 4.0 * BH * D * pairs, dtype)
                 p = fa.plan_attention(BH, S, D, dtype, causal, sms)
+                b_ms, b_by, split_ms = attention_bound_ms(q, causal)
                 row = dict(kernel="flash_attention", BH=BH, S=S, D=D, dtype=str(dtype),
                            causal=causal, path=p.path, block_q=p.block_q, block_k=p.block_k,
-                           blocks=p.blocks, max_abs_err=abs_e, max_rel_err=rel_e,
-                           repeat_equal=True, kernel_ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
-                           library_backend=backend, bound_ms=b_ms, bound_by=b_by)
+                           blocks=p.blocks, max_abs_err=abs_e,
+                           max_rel_err=rel_e, repeat_equal=True, kernel_ms=k_ms,
+                           plain_ms=p_ms, library_ms=l_ms, library_backend=backend,
+                           bound_ms=b_ms, bound_by=b_by,
+                           split_products_ms=split_ms if p.path == "wgmma_split" else None,
+                           speedup_vs_library=l_ms / k_ms)
                 emit(row)
-                if D in fa.ATTN_TILES and dtype == torch.bfloat16:
-                    assert p.path == "wgmma", row
+                assert p.path == ATTN_PATH_OF[dtype], row
                 if (BH, S, D, dtype, causal) == (128, 128, 128, torch.bfloat16, True):
                     assert p.blocks >= 128, row
                     table["flash_attention"] = row
             del q, k, v
 
 
-#: attn_sweep's rows (BH, S, D, causal), bf16: the main path's prefill,
-#: gemma-7b's and the long non-causal row.
-ATTN_SWEEP_ROWS = ((128, 128, 128, True), (64, 128, 256, True), (128, 513, 128, False))
+#: attn_sweep's rows (BH, S, D, causal, dtype): bf16 (the wgmma path) at the
+#: main path's prefill, gemma-7b's, the long non-causal row and head dim 16;
+#: f32 (the split path) at the main row, S 513 both ways, and at S 128 and
+#: 513 for head dims 16, 32 and 64, and gemma-7b's 256.
+ATTN_SWEEP_ROWS = ((128, 128, 128, True, torch.bfloat16), (64, 128, 256, True, torch.bfloat16),
+                   (128, 513, 128, False, torch.bfloat16), (128, 128, 16, True, torch.bfloat16),
+                   (128, 513, 16, False, torch.bfloat16),
+                   (128, 128, 128, True, torch.float32), (128, 513, 128, False, torch.float32),
+                   (128, 513, 128, True, torch.float32), (128, 128, 16, True, torch.float32),
+                   (128, 513, 16, False, torch.float32), (128, 128, 32, True, torch.float32),
+                   (128, 513, 32, False, torch.float32), (128, 128, 64, True, torch.float32),
+                   (128, 513, 64, False, torch.float32), (64, 128, 256, True, torch.float32),
+                   (64, 513, 256, False, torch.float32))
+
+
+def attention_tile_plans(BH: int, S: int, D: int, dtype) -> list:
+    """Every plan K4's path for ``dtype`` takes at this shape, one a tile."""
+    path, tiles = (("wgmma", fa.ATTN_TILES) if dtype == torch.bfloat16
+                   else ("wgmma_split", fa.ATTN_SPLIT_TILES))
+    return [fa.attention_plan_for(path, BH, S, D, bq, bk) for bq, bk in tiles[D]]
 
 
 def phase_attn_sweep(dev: dict) -> None:
-    """K4's wgmma path at each row of :data:`ATTN_SWEEP_ROWS` under every
-    (block_q, block_k) it takes, each held to the plain version first: the
-    measurements behind ``flash_attention.plan_attention``'s choice."""
+    """K4 at each row of :data:`ATTN_SWEEP_ROWS` under every tile its path
+    takes, each held to the plain version first: the measurements behind
+    ``flash_attention.plan_attention``'s choice."""
     gen = torch.Generator(device="cuda").manual_seed(6)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for BH, S, D, causal in ATTN_SWEEP_ROWS:
-        q, k, v = (torch.randn((BH, S, D), generator=gen, device="cuda").to(torch.bfloat16)
+    for BH, S, D, causal, dtype in ATTN_SWEEP_ROWS:
+        q, k, v = (torch.randn((BH, S, D), generator=gen, device="cuda").to(dtype)
                    for _ in range(3))
         want = fa.flash_attention_plain(q, k, v, causal)
-        chosen = fa.plan_attention(BH, S, D, torch.bfloat16, causal, sms)
+        chosen = fa.plan_attention(BH, S, D, dtype, causal, sms)
+        tol = 2e-4 if dtype == torch.float32 else 3e-2
         ms = {}
-        for bq, bk in fa.ATTN_TILES[D]:
-            p = fa.AttentionPlan("wgmma", bq, bk, fa.attention_smem_bytes("wgmma", D, bq, bk),
-                                 BH * -(-S // bq))
+        for p in attention_tile_plans(BH, S, D, dtype):
+            tile = f"{p.block_q}/{p.block_k}"
             got = fa.flash_attention_cuda(q, k, v, causal, attn_plan=p)
-            _check(f"attn_sweep BH={BH} S={S} D={D} causal={causal} tile {bq}/{bk}", got, want,
-                   3e-2, 3e-2)
+            _check(f"attn_sweep BH={BH} S={S} D={D} {dtype} causal={causal} tile {tile}", got,
+                   want, tol, tol)
 
             def run(*a, p=p):
                 return fa.flash_attention_cuda(*a, attn_plan=p)
-            ms[f"{bq}/{bk}"] = time_ms(run, [(q, k, v, causal)])
-        emit({"attn_sweep": {"BH": BH, "S": S, "D": D, "causal": causal, "card": dev["smi"],
-                             "chosen": [chosen.block_q, chosen.block_k], "ms": ms}})
+            ms[tile] = time_ms(run, [(q, k, v, causal)])
+        emit({"attn_sweep": {"BH": BH, "S": S, "D": D, "causal": causal, "dtype": str(dtype),
+                             "path": chosen.path, "card": dev["smi"],
+                             "chosen": f"{chosen.block_q}/{chosen.block_k}",
+                             "ms": ms}})
         del q, k, v
+
+
+def check_attention_one_hot() -> None:
+    """Where each element of q, K and V lands, through every K4 tile of both
+    paths at every head dim, so at every swizzle K4 uses (bf16 rows of 32,
+    64 and 128 bytes at head dims 16, 32 and 64 up; the split path's f32
+    output rows of 64 and 128 bytes).  Head h of a batch carries one hot
+    element of one operand at (row j_h, column d_h), spread over every row
+    of a swizzle atom and every 16-byte unit; the other operands make the
+    output show where it landed; each launch held to the plain version.
+      V hot: q = k = 0, so row i averages v over keys <= i, and the hot 1
+        appears in column d_h from row j_h on.
+      K hot: every query is 16 at column d_h and key j_h is 16 there, so
+        rows from j_h on attend to key j_h alone; v[j] = (j + 1) / S.
+      Q hot: row j_h is 16 at column d_h and key 0 is 16 there, so row j_h
+        alone attends to key 0; v as above."""
+    BH, S = 64, 130
+    h = torch.arange(BH, device="cuda")
+    cases = 0
+    worst = {}
+    for D in fa.HEAD_DIMS:
+        rows = (h * 37 + 1) % S
+        cols = (h * 8 + h // 8) % D
+        ramp = ((torch.arange(S, device="cuda", dtype=torch.float32) + 1) / S)[None, :, None]
+        zeros = torch.zeros((BH, S, D), device="cuda")
+        v_hot = zeros.clone()
+        v_hot[h, rows, cols] = 1.0
+        k_hot, q_col = zeros.clone(), zeros.clone()
+        k_hot[h, rows, cols] = 16.0
+        q_col[h, :, cols] = 16.0
+        q_hot, k_first = zeros.clone(), zeros.clone()
+        q_hot[h, rows, cols] = 16.0
+        k_first[h, 0, cols] = 16.0
+        v_ramp = ramp.expand(BH, S, D).contiguous()
+        for dtype in (torch.float32, torch.bfloat16):
+            tol = 2e-4 if dtype == torch.float32 else 3e-2
+            for operand, qkv in (("V", (zeros, zeros, v_hot)), ("K", (q_col, k_hot, v_ramp)),
+                                 ("Q", (q_hot, k_first, v_ramp))):
+                q, k, v = (t.to(dtype) for t in qkv)
+                want = fa.flash_attention_plain(q, k, v, True)
+                for p in attention_tile_plans(BH, S, D, dtype):
+                    got = fa.flash_attention_cuda(q, k, v, True, attn_plan=p)
+                    tile = f"{p.path} {p.block_q}/{p.block_k}"
+                    _check(f"one-hot {operand} D={D} {dtype} {tile}", got, want, tol, tol)
+                    key = f"{p.path} D={D}"
+                    worst[key] = max(worst.get(key, 0.0), max_errs(got, want)[0])
+                    cases += 1
+    emit({"attention_one_hot": {"launches": cases, "heads": BH, "S": S, "causal": True,
+                                "max_abs_err": worst}})
 
 
 def decode_case(q_dtype, pool_dtype, gen, *, KV=4, G=8, hd=128, page=16, n_pmax=16,
@@ -721,6 +832,7 @@ def phase_kernels(table: dict) -> None:
     check_sr_pack(table)
     check_quant_matmul(table)
     check_flash_attention(table)
+    check_attention_one_hot()
     check_flash_decode(table)
     print("kernels: all five agree with their plain versions")
 
@@ -945,32 +1057,100 @@ def phase_profile(dev: dict) -> None:
     emit({"profile": out})
 
 
+#: phase consistency's models: (arch, layers, compute dtype, tolerance).
+#: f32 compute sends every prefill through K4's split path and holds the
+#: kernels to the plain versions far tighter than bf16 can.
+CONSISTENCY_RUNS = (("yi-6b", 2, "bfloat16", 5e-2), ("yi-6b", 2, "float32", 2e-3),
+                    ("gemma-7b", 4, "bfloat16", 5e-2))
+
+
 def phase_consistency() -> None:
     """One prefill and one decode step's logits, kernels against plain
-    versions: yi-6b cut to 2 layers and gemma-7b (head dim 256) cut to 4,
-    both at full width."""
+    versions: yi-6b cut to 2 layers (bf16 and f32 compute) and gemma-7b
+    (head dim 256) cut to 4, all at full width; then the smoke-size serve."""
     import dataclasses
 
     from repro_torch.api import PrecisionPolicy
     from repro_torch.configs import get_config
 
-    for arch, layers in (("yi-6b", 2), ("gemma-7b", 4)):
-        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    for arch, layers, compute, tol in CONSISTENCY_RUNS:
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers, compute_dtype=compute)
         runs = {}
         for label, ctx in (("kernels", contextlib.nullcontext()), ("plain", plain_kernels())):
             with ctx:
                 runs[label] = step_logits(cfg, PrecisionPolicy.lazy_int8(7))
-        agree = {}
+        agree, diff = {}, {}
         for key in ("prefill_logits", "decode_logits"):
             a, b = runs["kernels"][key].float(), runs["plain"][key].float()
             assert a.shape == (4, 1, cfg.vocab_size) and torch.isfinite(a).all(), key
-            torch.testing.assert_close(a, b, rtol=5e-2, atol=5e-2)
+            torch.testing.assert_close(a, b, rtol=tol, atol=tol)
             agree[key] = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+            diff[key] = float((a - b).abs().max())
         emit({"consistency": {"arch": arch, "layers": layers, "d_model": cfg.d_model,
-                              "head_dim": cfg.head_dim, "tol": 5e-2,
-                              "greedy_agreement": agree}})
+                              "head_dim": cfg.head_dim, "compute_dtype": compute, "tol": tol,
+                              "max_abs_diff": diff, "greedy_agreement": agree}})
         del runs
         torch.cuda.empty_cache()
+    smoke_serve()
+
+
+def smoke_serve() -> None:
+    """``Session.serve`` of the smoke-size yi-6b (f32 compute, head dim 16,
+    int8 weights, paged KV, ``attn_impl="flash"``) on the card: every
+    request completes and every K4 launch is planned onto the split path
+    (the plans are recorded as ``flash_attention_cuda`` asks for them).
+    Then K4 at each shape the serve launched it with, on seeded inputs:
+    within 2e-4 of the plain version and bit-equal over two launches."""
+    from repro_torch.api import PrecisionPolicy, RunSpec, Session
+
+    spec = RunSpec("yi-6b", workload="serve", smoke=True, seed=0, batch=4, seq=64,
+                   precision=PrecisionPolicy.lazy_int8(7),
+                   options={"attn_impl": "flash", "kv_layout": "paged", "prompt_len": 16,
+                            "requests": 4, "max_new": 6, "steps": 24, "vary_prompt": True,
+                            "quiet": True})
+    sess = Session(spec, device="cuda")
+    plan, calls = fa.plan_attention, []
+
+    def recording_plan(*args):
+        p = plan(*args)
+        calls.append((args, p.path))
+        return p
+
+    fa.plan_attention = recording_plan
+    try:
+        ops.reset_launches()
+        stats = sess.serve()
+        launches = dict(ops.LAUNCHES)
+    finally:
+        fa.plan_attention = plan
+    paths = [path for _, path in calls]
+    assert sess.cfg.compute_dtype == "float32" and sess.cfg.head_dim == 16, sess.cfg
+    assert stats.admitted == stats.completed == 4, stats
+    assert launches["flash_attention"] > 0 and launches["flash_attention"] == len(paths), \
+        (launches, paths)
+    assert set(paths) == {"wgmma_split"}, paths
+    for name in ("quant_matmul", "flash_decode"):
+        assert launches[name] > 0, f"smoke serve never launched {name}: {launches}"
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    shapes, errs = sorted({args[:5] for args, _ in calls}, key=str), []
+    for BH, S, D, dtype, causal in shapes:
+        q, k, v = (torch.randn((BH, S, D), generator=gen, device="cuda").to(dtype)
+                   for _ in range(3))
+        got = fa.flash_attention_cuda(q, k, v, causal)
+        again = fa.flash_attention_cuda(q, k, v, causal)
+        want = fa.flash_attention_plain(q, k, v, causal)
+        case = f"smoke serve's K4 BH={BH} S={S} D={D} {dtype} causal={causal}"
+        _check(case, got, want, 2e-4, 2e-4)
+        if not torch.equal(got, again):
+            raise AssertionError(f"{case}: two launches on identical inputs differ")
+        errs.append(max_errs(got, want)[0])
+    emit({"smoke_serve": {"arch": sess.cfg.name, "head_dim": sess.cfg.head_dim,
+                          "compute_dtype": sess.cfg.compute_dtype, "admitted": stats.admitted,
+                          "completed": stats.completed, "k4_paths": sorted(set(paths)),
+                          "k4_shapes": [dict(BH=a[0], S=a[1], D=a[2], dtype=str(a[3]),
+                                             causal=a[4], max_abs_err=e)
+                                        for a, e in zip(shapes, errs)],
+                          "launches": launches}})
 
 
 FL_SPECS = {

@@ -3,44 +3,84 @@
 // K4 replaces repro/kernels/flash_attention.py:flash_attention_kernel.
 //   q, k, v (BH, S, D) f32|bf16 -> out (BH, S, D) in q's dtype; online softmax
 //   in f32, causal or not, keys >= S masked in the kernel (no padding of S),
-//   scale D^-0.5.  Two paths, picked from the shapes alone by the host plan
-//   (kernels/flash_attention.py:plan_attention) and passed in:
+//   scale D^-0.5.  Both products run on the bf16 tensor cores (wgmma, f32
+//   accumulation) fed by TMA, on one of two paths that the host plan
+//   (kernels/flash_attention.py:plan_attention) picks from the type alone
+//   and passes in, with its tiles:
 //
-//   * wgmma (bf16 at D 64, 128, 256: the serving path).  What bounds it on an
+//   * wgmma (bf16, every head dim: the serving path).  What bounds it on an
 //     H100: at the prefill shapes (S 128, D 128, BH 128) the bytes, 16.8 MB
 //     in 0.0050 ms, against 0.54 GFLOP that bf16 tensor cores do in 0.00055
 //     ms but the FP32 pipes only in 0.0081 ms; at S 513 the operations come
-//     close (17.25 GFLOP, 0.0174 ms).  So both products run on the tensor
-//     cores with f32 accumulation.  One block a (q tile, bh), with one or two
-//     consumer warpgroups of 64 query rows (block_q 64 or 128; the plan takes
-//     64 rows by 64 keys, the fastest in chip_smoke.py's attn_sweep, and head
-//     dim 256 only that) and one producer warp.  The producer loads the q
-//     tile once and streams K and V tiles of block_k keys through a
+//     close (17.25 GFLOP, 0.0174 ms).  One block a (q tile, bh), with one or
+//     two consumer warpgroups of 64 query rows (block_q 64 or 128; the plan
+//     takes 64 rows by 64 keys, the fastest in chip_smoke.py's attn_sweep,
+//     and head dim 256 only that) and one producer warp.  The producer loads
+//     the q tile once and streams K and V tiles of block_k keys through a
 //     two-stage ring by TMA, from 3-D tensor maps over (BH, S, D) in the
-//     128-byte swizzle: rows past S arrive as zeros and a tile never reads
-//     the next head's rows; each stage's arrival is counted on an mbarrier,
-//     and the consumers free it on another, so the next tile's copy is in
-//     flight while this one computes.  A warpgroup
-//     computes S = Q K^T with wgmma m64n{block_k}k16 (Q and K both K-major
-//     in shared memory), then the softmax in registers on the accumulator's
-//     own layout (a thread holds parts of two rows; a row's max and sum take
-//     two shuffles within the four lanes that share it; log2(e) folded into
-//     the scale, exp2), masks only on the causal diagonal's and the ragged
-//     last tile, rescales its f32 O accumulator (m64n{D}: 128 registers a
-//     thread at D 256), converts P to bf16 in place as the register A operand
-//     of wgmma m64n{D}k16 and adds P V, V read MN-major from shared memory.
-//     The key loop stops at the causal diagonal of the q tile (the pl.when
-//     skip of the Pallas body); a warpgroup whose rows end before a tile
-//     skips it.  The epilogue normalises by max(l, 1e-30), writes bf16 into
-//     the warpgroup's q tile (the same swizzle) and stores it with TMA, which
-//     drops rows >= S.  No atomics: repeated launches are bit-identical.
-//   * simt (f32 at every D; bf16 at D 16 and 32): scores and P@V on the FP32
-//     pipes.  One block of 8 warps per (q tile of 64 rows, bh) stages 32 keys
-//     and values at a time in shared memory as f32 (K rows padded to D + 1
-//     floats); each warp owns 8 query rows, lane j scores key j, the warp
-//     reduces the row max and sum with shuffles, and each lane accumulates
-//     D/32 output columns.  f32 inputs would need split TF32 on the tensor
-//     cores to keep the reference's 2e-4; that is not done yet.
+//     swizzle of the row: boxes of 64 columns in 128-byte rows from head dim
+//     64 up, whole rows of 64 or 32 bytes (the 64- and 32-byte swizzle) at 32
+//     and 16; rows past S arrive as zeros and a tile never reads the next
+//     head's rows; each stage's arrival is counted on an mbarrier, and the
+//     consumers free it on another, so the next tile's copy is in flight
+//     while this one computes.  A warpgroup computes S = Q K^T with wgmma
+//     m64n{block_k}k16 (Q and K both K-major in shared memory), then the
+//     softmax in registers on the accumulator's own layout (a thread holds
+//     parts of two rows; a row's max and sum take two shuffles within the
+//     four lanes that share it; log2(e) folded into the scale, exp2), masks
+//     only on the causal diagonal's and the ragged last tile, rescales its
+//     f32 O accumulator (m64n{D}: 128 registers a thread at D 256), converts
+//     P to bf16 in place as the register A operand of wgmma m64n{D}k16 and
+//     adds P V, V read MN-major from shared memory.  The key loop stops at
+//     the causal diagonal of the q tile (the pl.when skip of the Pallas
+//     body); a warpgroup whose rows end before a tile skips it.  The
+//     epilogue normalises by max(l, 1e-30), writes bf16 into the
+//     warpgroup's q tile (the same swizzle) and stores it with TMA, which
+//     drops rows >= S.
+//   * split (f32, every head dim).  One bf16 product misses the reference's
+//     2e-4 (5e-3 in a float64-checked emulation), and the FP32 pipes run at
+//     67 TFLOP/s against the tensor cores' 989.  So each f32 operand x is
+//     split as hi = bf16(x), lo = bf16(x - hi) (16 bits of x; x - hi is
+//     exact), and each product is three bf16 wgmma chains into one f32
+//     accumulator: S = Q_hi K_hi^T + Q_hi K_lo^T + Q_lo K_hi^T and O +=
+//     P_hi V_hi + P_hi V_lo + P_lo V_hi (lo lo, about 2^-16 of a product,
+//     is left out: the outputs stay within ~3e-5; every cheaper mix, P as a
+//     single bf16 among them, misses 2e-4).  What bounds it on an H100: the
+//     f32 bytes, 33.5 MB in 0.0100 ms at the prefill shape (the three
+//     products: 1.6 GFLOP, 0.0016 ms); at S 513 non-causal the three
+//     products (51.7 GFLOP, 0.052 ms) against the bytes' 0.040 ms.  In
+//     practice shared memory: a block moves ~480 KB through it per 128
+//     rows x 64 keys (TMA, the split, the operands of S and P V) against
+//     12.6 MFLOP, and at S 513 the kernel runs at ~30% of its bound (PERF.md
+//     section 6).  One block a (q tile, bh): one or two consumer
+//     warpgroups of 64 query rows and one producer warp.  The producer
+//     lands the f32 q tile by TMA, then, key tile by key tile, the f32 K
+//     and V tiles of block_k keys (unswizzled [keys][D] boxes, rows past S
+//     as zeros) into one stage.  The consumers split every tile
+//     themselves, all 128 or 256 threads at once between named barriers
+//     (bar.sync 1, n), into bf16 hi and lo tiles in the wgmma path's
+//     swizzled layout (q and K K-major, V MN-major through the transpose
+//     bit), which frees the f32 stage: the next tile's copy overlaps this
+//     tile's products, the split tiles serving as the second buffer (a
+//     second f32 stage, and splitting V and the next K while the products
+//     run, were both slower in attn_sweep).  P is split in registers into
+//     two A-fragment sets in the layout pack_bf16 gives.  No tile is split
+//     twice: two warpgroups share one split of each key tile, which also
+//     halves the L2 reads of K and V against blocks of one.  The split
+//     reads a tile's f32 bytes once from shared memory and writes them back
+//     as two bf16 tiles (16-byte loads and 8-byte stores, neither with a
+//     bank conflict), about 16 instructions a float4.  No branch surrounds
+//     a wgmma (ptxas would serialise it), so with two warpgroups the first
+//     also runs, fully masked, the key tiles past its causal diagonal.
+//     Shared memory (FsTiles): q hi and lo (the f32 output tile at the
+//     end), the four split tiles (the f32 q tile before them), the f32
+//     stage; the plan's tile at D 128 is two warpgroups by 64 keys, 192 KB
+//     and one block an SM.  The epilogue normalises by max(l, 1e-30) and
+//     stores f32 by TMA from a swizzled tile over q's bytes (64- or
+//     128-byte rows), dropping rows >= S.
+//
+//   Neither path has an atomic, and every sum runs in a fixed order:
+//   repeated launches are bit-identical.
 //
 // K5 replaces repro/kernels/flash_attention.py:flash_decode_kernel.
 //   One query token per slot, q (B, KV, G, hd) grouped under its KV head,
@@ -103,161 +143,35 @@ cudaError_t raise_smem_limit(size_t smem) {
   return err;
 }
 
-// ------------------------------------ K4, the simt path (f32; bf16 at D 16, 32)
-constexpr int FA_BQ = 64;
-constexpr int FA_BK = 32;
-constexpr int FA_WARPS = 8;
-constexpr int FA_RPW = FA_BQ / FA_WARPS;  // query rows per warp
+// ------------------------------------------------------------------ K4
+enum AttnPath : int { ATTN_WGMMA = 0, ATTN_SPLIT = 1 };  // kernels/flash_attention.py: ATTN_PATHS
+constexpr int FW_STAGES = 2;  // the wgmma path's K/V ring
 
-template <int D>
-constexpr size_t fa_smem_bytes() {
-  return sizeof(float) * ((size_t)FA_BQ * D + (size_t)FA_BK * (D + 1) + (size_t)FA_BK * D);
+// Bytes of a swizzled row of a bf16 tile of head dim D: 128 (boxes of 64
+// columns) from D 64 up, else the whole row (64 bytes at D 32, 32 at D 16).
+__host__ __device__ constexpr int bf16_row_bytes(int D) { return D >= 64 ? 128 : 2 * D; }
+
+constexpr CUtensorMapSwizzle tma_swizzle(int row_bytes) {
+  return row_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+         : row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                           : CU_TENSOR_MAP_SWIZZLE_32B;
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(FA_WARPS * 32)
-flash_attention_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    T* __restrict__ out, int S, int causal, float scale) {
-  constexpr int DPL = (D + 31) / 32;  // output columns per lane
-  extern __shared__ float smem[];
-  float* qs = smem;                       // FA_BQ x D, pre-scaled
-  float* ks = qs + FA_BQ * D;             // FA_BK x (D + 1)
-  float* vs = ks + FA_BK * (D + 1);       // FA_BK x D
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int q0 = blockIdx.x * FA_BQ;
-  const size_t base = (size_t)blockIdx.y * S * D;
-
-  for (int i = tid; i < FA_BQ * D; i += FA_WARPS * 32) {
-    const int r = i / D, d = i % D, qi = q0 + r;
-    qs[i] = qi < S ? to_f32(q[base + (size_t)qi * D + d]) * scale : 0.f;
-  }
-
-  float m_r[FA_RPW], l_r[FA_RPW], acc[FA_RPW][DPL];
-#pragma unroll
-  for (int rr = 0; rr < FA_RPW; ++rr) {
-    m_r[rr] = NEG_INF;
-    l_r[rr] = 0.f;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[rr][i] = 0.f;
-  }
-
-  const int kend = causal ? min(S, q0 + FA_BQ) : S;
-  for (int k0 = 0; k0 < kend; k0 += FA_BK) {
-    __syncthreads();  // previous K/V tile consumed (and the q tile staged)
-    for (int i = tid; i < FA_BK * D; i += FA_WARPS * 32) {
-      const int r = i / D, d = i % D, kj = k0 + r;
-      float kv = 0.f, vv = 0.f;
-      if (kj < S) {
-        kv = to_f32(k[base + (size_t)kj * D + d]);
-        vv = to_f32(v[base + (size_t)kj * D + d]);
-      }
-      ks[r * (D + 1) + d] = kv;
-      vs[r * D + d] = vv;
-    }
-    __syncthreads();
-    const int kj = k0 + lane;
-#pragma unroll
-    for (int rr = 0; rr < FA_RPW; ++rr) {
-      const int r = warp * FA_RPW + rr, qi = q0 + r;
-      const bool valid = kj < S && (!causal || kj <= qi);
-      float s = NEG_INF;
-      if (valid) {
-        float dot = 0.f;
-#pragma unroll 16
-        for (int d = 0; d < D; ++d) dot = fmaf(qs[r * D + d], ks[lane * (D + 1) + d], dot);
-        s = dot;
-      }
-      const float m_new = fmaxf(m_r[rr], warp_max(s));
-      const float p = valid ? expf(s - m_new) : 0.f;
-      const float corr = expf(m_r[rr] - m_new);
-      l_r[rr] = l_r[rr] * corr + warp_sum(p);
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) acc[rr][i] *= corr;
-#pragma unroll 8
-      for (int j = 0; j < FA_BK; ++j) {
-        const float pj = __shfl_sync(0xffffffffu, p, j);
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) {
-          const int d = lane + 32 * i;
-          if (d < D) acc[rr][i] = fmaf(pj, vs[j * D + d], acc[rr][i]);
-        }
-      }
-      m_r[rr] = m_new;
-    }
-  }
-
-#pragma unroll
-  for (int rr = 0; rr < FA_RPW; ++rr) {
-    const int qi = q0 + warp * FA_RPW + rr;
-    if (qi >= S) continue;
-    const float inv = 1.f / fmaxf(l_r[rr], 1e-30f);
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) {
-      const int d = lane + 32 * i;
-      if (d < D) out[base + (size_t)qi * D + d] = from_f32<T>(acc[rr][i] * inv);
-    }
-  }
+// Descriptor of k16 step kk of a K-major bf16 tile of ROWS rows in boxes of
+// RB-byte swizzled rows (Q and K of S = Q K^T): RB / 32 steps a row, the
+// next box ROWS * RB bytes on.
+template <int RB, int ROWS>
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t base, int kk) {
+  constexpr int KPR = RB / 32;
+  return gmma_desc<RB>(base + (kk / KPR) * (ROWS * RB) + (kk % KPR) * 32, 16, 8 * RB);
 }
 
-template <typename T, int D>
-cudaError_t launch_fa(const void* q, const void* k, const void* v, void* out, int BH, int S,
-                      int causal, cudaStream_t stream) {
-  const size_t smem = fa_smem_bytes<D>();
-  auto kern = flash_attention_fwd<T, D>;
-  cudaError_t err = raise_smem_limit<flash_attention_fwd<T, D>>(smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((S + FA_BQ - 1) / FA_BQ, BH);
-  kern<<<grid, FA_WARPS * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), S, causal, 1.f / sqrtf(static_cast<float>(D)));
-  return cudaGetLastError();
+// Descriptor of k16 step kk of an MN-major bf16 tile (V of P V, ROWS keys):
+// 16 rows a step, boxes of RB / 2 columns ROWS * RB bytes apart.
+template <int RB, int ROWS>
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t base, int kk) {
+  return gmma_desc<RB>(base + kk * 16 * RB, ROWS * RB, 8 * RB);
 }
-
-// f32 at every head dim; bf16 at 16 and 32 (the wgmma path takes the rest)
-template <typename T>
-cudaError_t dispatch_fa(const void* q, const void* k, const void* v, void* out, int BH, int S,
-                        int D, int causal, cudaStream_t st) {
-  switch (D) {
-    case 16: return launch_fa<T, 16>(q, k, v, out, BH, S, causal, st);
-    case 32: return launch_fa<T, 32>(q, k, v, out, BH, S, causal, st);
-  }
-  if constexpr (sizeof(T) == 4) {
-    switch (D) {
-      case 64: return launch_fa<T, 64>(q, k, v, out, BH, S, causal, st);
-      case 128: return launch_fa<T, 128>(q, k, v, out, BH, S, causal, st);
-      case 256: return launch_fa<T, 256>(q, k, v, out, BH, S, causal, st);
-    }
-  }
-  return cudaErrorInvalidValue;
-}
-
-// ------------------------------------------------- K4, the wgmma path (bf16)
-enum AttnPath : int { ATTN_SIMT = 0, ATTN_WGMMA = 1 };  // kernels/flash_attention.py: ATTN_PATHS
-constexpr int FW_STAGES = 2;  // the K/V ring
-
-// Shared memory of one block (kernels/flash_attention.py:attention_smem_bytes
-// mirrors it): the q tile, [warpgroup][64-column chunk][64 rows][128 bytes];
-// the ring's K and V tiles, each [chunk][BK rows][128 bytes]; the full and
-// empty barriers of the ring and the q tile's barrier.  Every tile is a
-// whole number of 1024-byte swizzle atoms.
-template <int D, int WGS, int BK>
-struct FwTiles {
-  static constexpr int BQ = 64 * WGS;
-  static constexpr int CONSUMERS = 128 * WGS;
-  static constexpr int THREADS = CONSUMERS + 32;  // + one producer warp
-  static constexpr int CHUNKS = D / 64;           // 128-byte boxes of a row
-  static constexpr int WG_Q_BYTES = 64 * D * 2;   // one warpgroup's q (then o) tile
-  static constexpr int KV_BYTES = BK * D * 2;     // one K or V tile
-  static constexpr int Q_OFF = 0;
-  static constexpr int K_OFF = Q_OFF + WGS * WG_Q_BYTES;
-  static constexpr int V_OFF = K_OFF + FW_STAGES * KV_BYTES;
-  static constexpr int BAR_OFF = V_OFF + FW_STAGES * KV_BYTES;
-  static constexpr int SMEM = BAR_OFF + (2 * FW_STAGES + 1) * 8 + 1024;  // + alignment slack
-  // two blocks an SM where their shared memory fits (one warpgroup each)
-  static constexpr int MIN_BLOCKS = WGS == 1 && 2 * (SMEM + 1024) <= 233472 ? 2 : 1;
-  static_assert(D % 64 == 0 && BK % 16 == 0 && K_OFF % 1024 == 0 && KV_BYTES % 1024 == 0,
-                "tiles of whole swizzle atoms");
-};
 
 __device__ __forceinline__ float minus_inf() { return __int_as_float(static_cast<int>(0xff800000u)); }
 
@@ -272,6 +186,110 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// (a, b) as bf16 pairs hi = bf16(x) and lo = bf16(x - hi) (a in the low
+// halves): x - hi is exact in f32, so hi + lo carries 16 bits of x.
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// One key tile's online-softmax step on a warpgroup's score accumulator sc
+// (register 4j + {0,1}: row ``row``, keys k0 + 8j + 2(lane % 4) + {0,1};
+// 4j + {2,3}: the same keys of row + 8; r0 is the warpgroup's first row):
+// masks keys >= S and, under the causal mask, keys past the row, on the
+// ragged or diagonal tile only; updates the running maxima m (scaled by
+// log2 e) and this thread's shares l of the row sums; rescales O; leaves
+// P = exp2(s scale_log2 - m) in sc.
+template <int BK, int D>
+__device__ __forceinline__ void softmax_step(float (&sc)[BK / 2], float (&o)[D / 2], float& m0,
+                                             float& m1, float& l0, float& l1, int k0, int r0,
+                                             int row, int lane, int S, int causal,
+                                             float scale_log2) {
+  if (k0 + BK > S || (causal && k0 + BK - 1 > r0)) {  // the ragged or diagonal tile
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = k0 + 8 * j + 2 * (lane % 4) + e;
+        if (key >= S || (causal && key > row)) sc[4 * j + e] = minus_inf();
+        if (key >= S || (causal && key > row + 8)) sc[4 * j + 2 + e] = minus_inf();
+      }
+  }
+  float mx0 = minus_inf(), mx1 = minus_inf();
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+    mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+  }
+#pragma unroll
+  for (int off = 1; off <= 2; off *= 2) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+  }
+  // key 0 is valid for every row and tile 0 comes first, so the new maxima
+  // are finite and exp2(m - m_new) never sees -inf - -inf
+  const float mn0 = fmaxf(m0, mx0 * scale_log2), mn1 = fmaxf(m1, mx1 * scale_log2);
+  const float c0 = fast_exp2(m0 - mn0), c1 = fast_exp2(m1 - mn1);
+  m0 = mn0;
+  m1 = mn1;
+  float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    sc[4 * j] = fast_exp2(fmaf(sc[4 * j], scale_log2, -mn0));
+    sc[4 * j + 1] = fast_exp2(fmaf(sc[4 * j + 1], scale_log2, -mn0));
+    sc[4 * j + 2] = fast_exp2(fmaf(sc[4 * j + 2], scale_log2, -mn1));
+    sc[4 * j + 3] = fast_exp2(fmaf(sc[4 * j + 3], scale_log2, -mn1));
+    ps0 += sc[4 * j] + sc[4 * j + 1];
+    ps1 += sc[4 * j + 2] + sc[4 * j + 3];
+  }
+  l0 = fmaf(l0, c0, ps0);  // this thread's share of the row sums
+  l1 = fmaf(l1, c1, ps1);
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    o[4 * j] *= c0;
+    o[4 * j + 1] *= c0;
+    o[4 * j + 2] *= c1;
+    o[4 * j + 3] *= c1;
+  }
+}
+
+// The row sums: the four lanes that share a row add their shares.
+__device__ __forceinline__ float row_sum(float l) {
+  l += __shfl_xor_sync(0xffffffffu, l, 1);
+  return l + __shfl_xor_sync(0xffffffffu, l, 2);
+}
+
+// ------------------------------------------------- K4, the wgmma path (bf16)
+// Shared memory of one block (kernels/flash_attention.py:attention_smem_bytes
+// mirrors it): the q tile, [warpgroup][box][64 rows][RB bytes]; the ring's K
+// and V tiles, each [box][BK rows][RB bytes]; the full and empty barriers
+// of the ring and the q tile's barrier.  A box is RB / 2 columns: 64 at
+// head dim 64 and up, the whole row at 16 and 32.  Every tile is a whole
+// number of 1024-byte blocks.
+template <int D, int WGS, int BK>
+struct FwTiles {
+  static constexpr int BQ = 64 * WGS;
+  static constexpr int CONSUMERS = 128 * WGS;
+  static constexpr int THREADS = CONSUMERS + 32;  // + one producer warp
+  static constexpr int RB = bf16_row_bytes(D);    // swizzled row bytes
+  static constexpr int COLS = RB / 2;             // columns a box
+  static constexpr int CHUNKS = D / COLS;         // boxes of a row
+  static constexpr int WG_Q_BYTES = 64 * D * 2;   // one warpgroup's q (then o) tile
+  static constexpr int KV_BYTES = BK * D * 2;     // one K or V tile
+  static constexpr int Q_OFF = 0;
+  static constexpr int K_OFF = Q_OFF + WGS * WG_Q_BYTES;
+  static constexpr int V_OFF = K_OFF + FW_STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + FW_STAGES * KV_BYTES;
+  static constexpr int SMEM = BAR_OFF + (2 * FW_STAGES + 1) * 8 + 1024;  // + alignment slack
+  // two blocks an SM where their shared memory fits (one warpgroup each)
+  static constexpr int MIN_BLOCKS = WGS == 1 && 2 * (SMEM + 1024) <= 233472 ? 2 : 1;
+  static_assert((D % 64 == 0 || D == 16 || D == 32) && BK % 16 == 0 && K_OFF % 1024 == 0 &&
+                KV_BYTES % 1024 == 0, "tiles of whole 1024-byte blocks");
+};
+
 // grid (q tiles, BH); the q tile of block x is n_tiles - 1 - x, so that the
 // longest causal rows start first.  Warpgroup w owns q rows [q0 + 64 w,
 // q0 + 64 w + 64); the producer warp comes after the warpgroups.
@@ -283,6 +301,7 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap qmap,
                       const __grid_constant__ CUtensorMap omap, int S, int causal,
                       float scale_log2) {
   using T = FwTiles<D, WGS, BK>;
+  constexpr int RB = T::RB;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align_smem<1024>(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + T::BAR_OFF);
@@ -310,17 +329,17 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap qmap,
       mbar_expect_tx(qbar, live * T::WG_Q_BYTES);
       for (int w = 0; w < live; ++w)
         for (int c = 0; c < T::CHUNKS; ++c)
-          tma_load_3d(smem + T::Q_OFF + w * T::WG_Q_BYTES + c * 8192, &qmap, qbar, c * 64,
-                      q0 + 64 * w, bh);
+          tma_load_3d(smem + T::Q_OFF + w * T::WG_Q_BYTES + c * 64 * RB, &qmap, qbar,
+                      c * T::COLS, q0 + 64 * w, bh);
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % FW_STAGES;
         if (t >= FW_STAGES) mbar_wait(&empty[s], ((t / FW_STAGES) - 1) & 1);
         mbar_expect_tx(&full[s], 2 * T::KV_BYTES);
         for (int c = 0; c < T::CHUNKS; ++c) {
-          tma_load_3d(smem + T::K_OFF + s * T::KV_BYTES + c * BK * 128, &kmap, &full[s], c * 64,
-                      t * BK, bh);
-          tma_load_3d(smem + T::V_OFF + s * T::KV_BYTES + c * BK * 128, &vmap, &full[s], c * 64,
-                      t * BK, bh);
+          tma_load_3d(smem + T::K_OFF + s * T::KV_BYTES + c * BK * RB, &kmap, &full[s],
+                      c * T::COLS, t * BK, bh);
+          tma_load_3d(smem + T::V_OFF + s * T::KV_BYTES + c * BK * RB, &vmap, &full[s],
+                      c * T::COLS, t * BK, bh);
         }
       }
     }
@@ -347,68 +366,17 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap qmap,
     const int s = t % FW_STAGES;
     mbar_wait(&full[s], (t / FW_STAGES) & 1);
     if (t < my_tiles) {
-      // S = Q K^T: A = q tile, B = K tile, both K-major (128-byte swizzle):
-      // a k16 step is 32 bytes into a row, a 64-column chunk further on
+      // S = Q K^T: A = q tile, B = K tile, both K-major
       const uint32_t ka = smem_u32(smem + T::K_OFF + s * T::KV_BYTES);
       float sc[BK / 2];
       asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_bf16<BK, 0>(sc, gmma_desc(qa + (kk / 4) * 8192 + (kk % 4) * 32, 16, 1024),
-                          gmma_desc(ka + (kk / 4) * (BK * 128) + (kk % 4) * 32, 16, 1024),
-                          kk > 0);
+        wgmma_bf16<BK, 0>(sc, kmajor_desc<RB, 64>(qa, kk), kmajor_desc<RB, BK>(ka, kk), kk > 0);
       asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
       asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
       fence_regs(sc);
-      // register 4j + {0,1}: row lr, keys k0 + 8j + 2(lane % 4) + {0,1};
-      // 4j + {2,3}: the same keys of row lr + 8
-      const int k0 = t * BK;
-      if (k0 + BK > S || (causal && k0 + BK - 1 > r0)) {  // the ragged or diagonal tile
-#pragma unroll
-        for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int key = k0 + 8 * j + 2 * (lane % 4) + e;
-            if (key >= S || (causal && key > row)) sc[4 * j + e] = minus_inf();
-            if (key >= S || (causal && key > row + 8)) sc[4 * j + 2 + e] = minus_inf();
-          }
-      }
-      float mx0 = minus_inf(), mx1 = minus_inf();
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j) {
-        mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
-        mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
-      }
-#pragma unroll
-      for (int off = 1; off <= 2; off *= 2) {
-        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-      }
-      // key 0 is valid for every row and tile 0 comes first, so the new
-      // maxima are finite and exp2(m - m_new) never sees -inf - -inf
-      const float mn0 = fmaxf(m0, mx0 * scale_log2), mn1 = fmaxf(m1, mx1 * scale_log2);
-      const float c0 = fast_exp2(m0 - mn0), c1 = fast_exp2(m1 - mn1);
-      m0 = mn0;
-      m1 = mn1;
-      float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j) {
-        sc[4 * j] = fast_exp2(fmaf(sc[4 * j], scale_log2, -mn0));
-        sc[4 * j + 1] = fast_exp2(fmaf(sc[4 * j + 1], scale_log2, -mn0));
-        sc[4 * j + 2] = fast_exp2(fmaf(sc[4 * j + 2], scale_log2, -mn1));
-        sc[4 * j + 3] = fast_exp2(fmaf(sc[4 * j + 3], scale_log2, -mn1));
-        ps0 += sc[4 * j] + sc[4 * j + 1];
-        ps1 += sc[4 * j + 2] + sc[4 * j + 3];
-      }
-      l0 = fmaf(l0, c0, ps0);  // this thread's share of the row sums
-      l1 = fmaf(l1, c1, ps1);
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        o[4 * j] *= c0;
-        o[4 * j + 1] *= c0;
-        o[4 * j + 2] *= c1;
-        o[4 * j + 3] *= c1;
-      }
+      softmax_step<BK, D>(sc, o, m0, m1, l0, l1, t * BK, r0, row, lane, S, causal, scale_log2);
       // P as bf16 A fragments: k16 slice kk of the scores is registers
       // [8 kk, 8 kk + 8), in the order the A operand takes them
       uint32_t pa[BK / 16][4];
@@ -416,14 +384,12 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap qmap,
       for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
         for (int i = 0; i < 4; ++i) pa[kk][i] = pack_bf16(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1]);
-      // O += P V: B = V tile, MN-major (a k16 step is 16 rows of 128 bytes,
-      // 64-column chunks BK * 128 bytes apart, 8 rows 1024 bytes apart)
+      // O += P V: B = V tile, MN-major
       const uint32_t va = smem_u32(smem + T::V_OFF + s * T::KV_BYTES);
       fence_regs(o);
       asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_rs_bf16<D>(o, pa[kk], gmma_desc(va + kk * 16 * 128, BK * 128, 1024));
+      for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs_bf16<D>(o, pa[kk], mnmajor_desc<RB, BK>(va, kk));
       asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
       asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
       fence_regs(o);
@@ -434,25 +400,22 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap qmap,
   if (my_tiles == 0) return;
 
   // o / max(l, 1e-30) as bf16 into this warpgroup's q tile (no longer read),
-  // chunk j % 8 of row r at chunk (j % 8) ^ (r % 8), then one TMA store a
-  // 64-column chunk; rows >= S fall outside the tensor and are dropped
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+  // in the q tile's swizzle, then one TMA store a box; rows >= S fall
+  // outside the tensor and are dropped
+  const float inv0 = 1.f / fmaxf(row_sum(l0), 1e-30f), inv1 = 1.f / fmaxf(row_sum(l1), 1e-30f);
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
-    uint8_t* line = qs + (j / 8) * 8192 + lr * 128 + (lane % 4) * 4;
-    const int ch = ((j % 8) ^ (lr % 8)) << 4;  // rows lr and lr + 8 share the swizzle
-    *reinterpret_cast<uint32_t*>(line + ch) = pack_bf16(o[4 * j] * inv0, o[4 * j + 1] * inv0);
-    *reinterpret_cast<uint32_t*>(line + 8 * 128 + ch) =
-        pack_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+    const int col = 8 * j + 2 * (lane % 4);
+    // rows lr and lr + 8 share the swizzle: 8 rows are a whole atom
+    uint8_t* p = qs + swizzle<RB>((col / T::COLS) * (64 * RB) + lr * RB + (col % T::COLS) * 2);
+    *reinterpret_cast<uint32_t*>(p) = pack_bf16(o[4 * j] * inv0, o[4 * j + 1] * inv0);
+    *reinterpret_cast<uint32_t*>(p + 8 * RB) = pack_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
   }
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
   if (threadIdx.x % 128 == 0) {
-    for (int c = 0; c < T::CHUNKS; ++c) tma_store_3d(&omap, qs + c * 8192, c * 64, r0, bh);
+    for (int c = 0; c < T::CHUNKS; ++c)
+      tma_store_3d(&omap, qs + c * 64 * RB, c * T::COLS, r0, bh);
     tma_store_wait();
   }
 }
@@ -469,11 +432,11 @@ cudaError_t launch_fw(const void* q, const void* k, const void* v, void* out, in
   if (err != cudaSuccess) return err;
   CUtensorMap qmap, kmap, vmap, omap;
   const auto bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  const auto sw = CU_TENSOR_MAP_SWIZZLE_128B;
-  if (!tensor_map_3d(&qmap, bf16, 2, q, BH, S, D, 64, 64, sw) ||
-      !tensor_map_3d(&kmap, bf16, 2, k, BH, S, D, BK, 64, sw) ||
-      !tensor_map_3d(&vmap, bf16, 2, v, BH, S, D, BK, 64, sw) ||
-      !tensor_map_3d(&omap, bf16, 2, out, BH, S, D, 64, 64, sw))
+  const auto sw = tma_swizzle(T::RB);
+  if (!tensor_map_3d(&qmap, bf16, 2, q, BH, S, D, 64, T::COLS, sw) ||
+      !tensor_map_3d(&kmap, bf16, 2, k, BH, S, D, BK, T::COLS, sw) ||
+      !tensor_map_3d(&vmap, bf16, 2, v, BH, S, D, BK, T::COLS, sw) ||
+      !tensor_map_3d(&omap, bf16, 2, out, BH, S, D, 64, T::COLS, sw))
     return cudaErrorInvalidValue;
   const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(D));
   flash_attention_wgmma<D, WGS, BK><<<dim3(q_tiles, BH), T::THREADS, T::SMEM, stream>>>(
@@ -482,17 +445,21 @@ cudaError_t launch_fw(const void* q, const void* k, const void* v, void* out, in
 }
 
 // (block_q, block_k) of the plan: 64 or 128 query rows (one or two
-// warpgroups) by 64 or 128 keys a tile.  D 256 takes 64 by 64 only: its O
-// accumulator holds 128 registers a thread, and a block of two warpgroups
-// and a producer warp is given registers as three warpgroups (168 a thread)
+// warpgroups) by 64 or 128 keys a tile at D 64 and 128.  D 256 takes 64 by
+// 64 only: its O accumulator holds 128 registers a thread, and a block of
+// two warpgroups and a producer warp is given registers as three
+// warpgroups (168 a thread).  D 16 adds 128 by 64 (faster at S 128 on an
+// H100), D 32 takes the plan's 64 by 64 alone.
 template <int D>
 cudaError_t dispatch_fw_tile(int block_q, int block_k, const void* q, const void* k,
                              const void* v, void* out, int BH, int S, int causal,
                              cudaStream_t st) {
   if (block_q == 64 && block_k == 64) return launch_fw<D, 1, 64>(q, k, v, out, BH, S, causal, st);
-  if constexpr (D <= 128) {
+  if constexpr (D == 16 || D == 64 || D == 128) {
     if (block_q == 128 && block_k == 64)
       return launch_fw<D, 2, 64>(q, k, v, out, BH, S, causal, st);
+  }
+  if constexpr (D == 64 || D == 128) {
     if (block_q == 64 && block_k == 128)
       return launch_fw<D, 1, 128>(q, k, v, out, BH, S, causal, st);
     if (block_q == 128 && block_k == 128)
@@ -504,9 +471,278 @@ cudaError_t dispatch_fw_tile(int block_q, int block_k, const void* q, const void
 cudaError_t dispatch_fw(const void* q, const void* k, const void* v, void* out, int BH, int S,
                         int D, int causal, int block_q, int block_k, cudaStream_t st) {
   switch (D) {
+    case 16: return dispatch_fw_tile<16>(block_q, block_k, q, k, v, out, BH, S, causal, st);
+    case 32: return dispatch_fw_tile<32>(block_q, block_k, q, k, v, out, BH, S, causal, st);
     case 64: return dispatch_fw_tile<64>(block_q, block_k, q, k, v, out, BH, S, causal, st);
     case 128: return dispatch_fw_tile<128>(block_q, block_k, q, k, v, out, BH, S, causal, st);
     case 256: return dispatch_fw_tile<256>(block_q, block_k, q, k, v, out, BH, S, causal, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// ------------------------------------------------- K4, the split path (f32)
+// Shared memory of one block (kernels/flash_attention.py:attention_smem_bytes
+// mirrors it), each region on a 1024-byte boundary:
+//   Q_OFF    q hi, then q lo, bf16 [box][BQ rows][RB bytes] in the swizzle of
+//            the wgmma path (warpgroup w's A operand starts at row 64 w); at
+//            the end the f32 output tile, [box][BQ rows][ORB bytes]
+//            swizzled, over the same bytes
+//   S_OFF    K hi, K lo, V hi, V lo, bf16 [box][BK rows][RB bytes]; before
+//            the first key tile, the f32 q tile [BQ][D] as TMA lands it
+//   F_OFF    the f32 K and V tiles of the next key tile, [BK][D] each: one
+//            stage, the split tiles being the second buffer (a second f32
+//            stage was slower in every row of attn_sweep)
+//   BAR_OFF  the f32 tiles' full and empty barriers, the q tile's barrier
+template <int D, int WGS, int BK>
+struct FsTiles {
+  static constexpr int BQ = 64 * WGS;
+  static constexpr int CONSUMERS = 128 * WGS;
+  static constexpr int THREADS = CONSUMERS + 32;    // + one producer warp
+  static constexpr int RB = bf16_row_bytes(D);
+  static constexpr int ORB = D >= 32 ? 128 : 4 * D; // an f32 output row's swizzled bytes
+  static constexpr int Q_BF = BQ * D * 2;           // q hi or q lo
+  static constexpr int KV_BF = BK * D * 2;          // K hi, K lo, V hi or V lo
+  static constexpr int KV_F32 = BK * D * 4;         // an f32 K or V tile
+  static constexpr int SPLIT_BYTES = 4 * KV_BF > BQ * D * 4 ? 4 * KV_BF : BQ * D * 4;
+  static constexpr int Q_OFF = 0;
+  static constexpr int S_OFF = Q_OFF + 2 * Q_BF;
+  static constexpr int F_OFF = S_OFF + SPLIT_BYTES;
+  static constexpr int BAR_OFF = F_OFF + 2 * KV_F32;
+  static constexpr int SMEM = BAR_OFF + 3 * 8 + 1024;  // + alignment slack
+  static constexpr int MIN_BLOCKS = WGS == 1 && 2 * (SMEM + 1024) <= 233472 ? 2 : 1;
+  static_assert(BK % 16 == 0 && Q_BF % 1024 == 0 && KV_BF % 1024 == 0 && SMEM <= 232448,
+                "tiles of whole 1024-byte blocks, within a block's shared memory");
+};
+
+template <int N>
+__device__ __forceinline__ void consumers_sync() {  // the N consumer threads only
+  asm volatile("bar.sync 1, %0;\n" :: "n"(N) : "memory");
+}
+
+// An f32 tile (ROWS x D, row-major, as TMA lands it) split into bf16 hi and
+// lo tiles in the swizzled layout the products read ([box][ROWS][RB]).  The
+// NT consumer threads take float4 tid, tid + NT, ...: a quarter warp loads
+// 128 consecutive bytes, and a half warp stores 8 bytes a thread into 128
+// bytes that the swizzle only permutes, so neither side has a bank conflict.
+// Rows from ``rows_in`` on are not read and split as zeros.
+template <int D, int ROWS, int NT>
+__device__ __forceinline__ void split_tile(const float* src, uint8_t* hi, uint8_t* lo, int tid,
+                                           int rows_in = ROWS) {
+  constexpr int RB = bf16_row_bytes(D), COLS = RB / 2, N4 = ROWS * D / 4;
+#pragma unroll
+  for (int it = 0; it < (N4 + NT - 1) / NT; ++it) {
+    const int i = tid + NT * it;
+    if (N4 % NT != 0 && i >= N4) break;
+    const int r = 4 * i / D, c = 4 * i % D;
+    const float4 x = r < rows_in ? reinterpret_cast<const float4*>(src)[i]
+                                 : make_float4(0.f, 0.f, 0.f, 0.f);
+    const uint32_t off = swizzle<RB>((c / COLS) * (ROWS * RB) + r * RB + (c % COLS) * 2);
+    uint2 h, l;
+    split_bf16(x.x, x.y, h.x, l.x);
+    split_bf16(x.z, x.w, h.y, l.y);
+    *reinterpret_cast<uint2*>(hi + off) = h;
+    *reinterpret_cast<uint2*>(lo + off) = l;
+  }
+}
+
+// grid (q tiles, BH), the longest causal rows first as on the wgmma path.
+// WGS consumer warpgroups own 64 q rows each, [q0 + 64 w, q0 + 64 w + 64),
+// and share every key tile (two warpgroups read K and V from L2 half as
+// often as two blocks of one); the producer warp streams f32 tiles by TMA.
+// Per key tile all consumers split K and V together, which frees the f32
+// tiles for the next tile's copy; then a warpgroup computes S = Q_hi
+// K_hi^T + Q_hi K_lo^T + Q_lo K_hi^T (three wgmma chains into one f32
+// accumulator), the online softmax, P split in registers, and O += P_hi
+// V_hi + P_hi V_lo + P_lo V_hi.
+template <int D, int WGS, int BK>
+__global__ void __launch_bounds__(FsTiles<D, WGS, BK>::THREADS, FsTiles<D, WGS, BK>::MIN_BLOCKS)
+flash_attention_split(const __grid_constant__ CUtensorMap qmap,
+                      const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap,
+                      const __grid_constant__ CUtensorMap omap, int S, int causal,
+                      float scale_log2) {
+  using T = FsTiles<D, WGS, BK>;
+  constexpr int RB = T::RB, ORB = T::ORB, OC = ORB / 4;  // OC: f32 columns an output box
+  constexpr int NT = T::CONSUMERS;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_smem<1024>(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + T::BAR_OFF);
+  uint64_t* empty = full + 1;
+  uint64_t* qbar = full + 2;
+  const int bh = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * T::BQ;
+  const int kend = causal ? min(S, q0 + T::BQ) : S;  // keys this block reads
+  const int n_tiles = (kend + BK - 1) / BK;
+  const int live = min(WGS, (S - q0 + 63) / 64);     // warpgroups whose rows start before S
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    mbar_init(full, 1);
+    mbar_init(empty, 4 * WGS);  // one arrival per consumer warp
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  uint8_t* kf = smem + T::F_OFF;  // the f32 K tile, then the V tile
+  if (warp == 4 * WGS) {  // producer
+    if (lane == 0) {
+      // the live warpgroups' q boxes (a box wholly past S is not read)
+      mbar_expect_tx(qbar, live * 64 * D * 4);
+      for (int w = 0; w < live; ++w)
+        tma_load_3d(smem + T::S_OFF + w * 64 * D * 4, &qmap, qbar, 0, q0 + 64 * w, bh);
+      for (int t = 0; t < n_tiles; ++t) {
+        if (t > 0) mbar_wait(empty, (t - 1) & 1);
+        mbar_expect_tx(full, 2 * T::KV_F32);
+        tma_load_3d(kf, &kmap, full, 0, t * BK, bh);
+        tma_load_3d(kf + T::KV_F32, &vmap, full, 0, t * BK, bh);
+      }
+    }
+    return;
+  }
+
+  // the consumers.  Every warpgroup computes every key tile of the block:
+  // a branch around wgmma makes ptxas serialise it (C7518), so under the
+  // causal mask the first warpgroup's tiles past its diagonal run, fully
+  // masked (P = 0, the correction 1), and a warpgroup whose rows all lie
+  // past S computes, on a zero q, rows that are not stored
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int r0 = q0 + 64 * wg;                  // this warpgroup's first row
+  const int lr = (warp % 4) * 16 + lane / 4;    // the thread's rows: lr and lr + 8
+  const int row = r0 + lr;
+  uint8_t* qs = smem + T::Q_OFF;                // q hi, q lo; at the end the output
+  uint8_t* ks = smem + T::S_OFF;                // K hi, K lo, V hi, V lo
+  const uint32_t qh = smem_u32(qs) + wg * 64 * RB, ql = qh + T::Q_BF;
+  const uint32_t kh = smem_u32(ks), kl = kh + T::KV_BF, vh = kl + T::KV_BF, vl = vh + T::KV_BF;
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  fence_regs(o);
+  float m0 = minus_inf(), m1 = minus_inf(), l0 = 0.f, l1 = 0.f;  // rows lr, lr + 8 (scaled by log2 e)
+  mbar_wait(qbar, 0);
+  split_tile<D, T::BQ, NT>(reinterpret_cast<const float*>(ks), qs, qs + T::Q_BF, tid, 64 * live);
+  for (int t = 0; t < n_tiles; ++t) {
+    mbar_wait(full, t & 1);
+    consumers_sync<NT>();  // the f32 q tile (t = 0) or the last tile's split tiles are read
+    split_tile<D, BK, NT>(reinterpret_cast<const float*>(kf), ks, ks + T::KV_BF, tid);
+    split_tile<D, BK, NT>(reinterpret_cast<const float*>(kf + T::KV_F32), ks + 2 * T::KV_BF,
+                          ks + 3 * T::KV_BF, tid);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // for wgmma's reads
+    consumers_sync<NT>();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty);  // the f32 tiles may be refilled
+    // S = Q_hi K_hi^T + Q_hi K_lo^T + Q_lo K_hi^T, all K-major
+    float sc[BK / 2];
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_bf16<BK, 0>(sc, kmajor_desc<RB, T::BQ>(qh, kk), kmajor_desc<RB, BK>(kh, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_bf16<BK, 0>(sc, kmajor_desc<RB, T::BQ>(qh, kk), kmajor_desc<RB, BK>(kl, kk));
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_bf16<BK, 0>(sc, kmajor_desc<RB, T::BQ>(ql, kk), kmajor_desc<RB, BK>(kh, kk));
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_regs(sc);
+    softmax_step<BK, D>(sc, o, m0, m1, l0, l1, t * BK, r0, row, lane, S, causal, scale_log2);
+    // P = P_hi + P_lo as bf16 A fragments (k16 slice kk: registers [8 kk, 8 kk + 8))
+    uint32_t ph[BK / 16][4], pl[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        split_bf16(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1], ph[kk][i], pl[kk][i]);
+    // O += P_hi V_hi + P_hi V_lo + P_lo V_hi, V MN-major
+    fence_regs(o);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs_bf16<D>(o, ph[kk], mnmajor_desc<RB, BK>(vh, kk));
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs_bf16<D>(o, ph[kk], mnmajor_desc<RB, BK>(vl, kk));
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs_bf16<D>(o, pl[kk], mnmajor_desc<RB, BK>(vh, kk));
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_regs(o);
+  }
+
+  // o / max(l, 1e-30) in f32 over q hi and lo (every warp's products are
+  // done with them after the barrier), [box of OC columns][BQ rows][ORB
+  // bytes] swizzled, then one TMA store a box and warpgroup; rows >= S
+  // are dropped
+  const float inv0 = 1.f / fmaxf(row_sum(l0), 1e-30f), inv1 = 1.f / fmaxf(row_sum(l1), 1e-30f);
+  consumers_sync<NT>();
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + 2 * (lane % 4);
+    // rows lr and lr + 8 share the swizzle: 8 rows are a whole atom
+    uint8_t* p = qs + swizzle<ORB>((col / OC) * (T::BQ * ORB) + (64 * wg + lr) * ORB +
+                                   (col % OC) * 4);
+    *reinterpret_cast<float2*>(p) = make_float2(o[4 * j] * inv0, o[4 * j + 1] * inv0);
+    *reinterpret_cast<float2*>(p + 8 * ORB) = make_float2(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  consumers_sync<NT>();
+  if (tid % 128 == 0 && r0 < S) {
+    for (int c = 0; c < D / OC; ++c)
+      tma_store_3d(&omap, qs + c * T::BQ * ORB + 64 * wg * ORB, c * OC, r0, bh);
+    tma_store_wait();
+  }
+}
+
+template <int D, int WGS, int BK>
+cudaError_t launch_fs(const void* q, const void* k, const void* v, void* out, int BH, int S,
+                      int causal, cudaStream_t stream) {
+  using T = FsTiles<D, WGS, BK>;
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out);
+  if (bases % 16 != 0 || BH > 65535) return cudaErrorInvalidValue;  // TMA bases; grid.y
+  cudaError_t err = raise_smem_limit<flash_attention_split<D, WGS, BK>>(T::SMEM);
+  if (err != cudaSuccess) return err;
+  // q, K and V land unswizzled ([rows][D] f32; a box row is at most 256
+  // floats); the output leaves through the swizzle of its smem tile
+  CUtensorMap qmap, kmap, vmap, omap;
+  const auto f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  const auto none = CU_TENSOR_MAP_SWIZZLE_NONE;
+  if (!tensor_map_3d(&qmap, f32, 4, q, BH, S, D, 64, D, none) ||
+      !tensor_map_3d(&kmap, f32, 4, k, BH, S, D, BK, D, none) ||
+      !tensor_map_3d(&vmap, f32, 4, v, BH, S, D, BK, D, none) ||
+      !tensor_map_3d(&omap, f32, 4, out, BH, S, D, 64, T::ORB / 4, tma_swizzle(T::ORB)))
+    return cudaErrorInvalidValue;
+  const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(D));
+  flash_attention_split<D, WGS, BK>
+      <<<dim3((S + T::BQ - 1) / T::BQ, BH), T::THREADS, T::SMEM, stream>>>(
+          qmap, kmap, vmap, omap, S, causal, scale_log2);
+  return cudaGetLastError();
+}
+
+// (block_q, block_k) of the plan (kernels/flash_attention.py:
+// ATTN_SPLIT_TILES): one warpgroup of 64 query rows by 64 or 32 keys up to
+// head dim 64, two warpgroups (128 rows) by 64 keys at 64 and 128, one by
+// 32 keys at 128 and 256 (a 64-key tile does not fit at 256).
+template <int D>
+cudaError_t dispatch_fs_tile(int block_q, int block_k, const void* q, const void* k,
+                             const void* v, void* out, int BH, int S, int causal,
+                             cudaStream_t st) {
+#define REPRO_FS_TILE(BQ, BK)                                                                 \
+  if (block_q == BQ && block_k == BK)                                                          \
+    return launch_fs<D, BQ / 64, BK>(q, k, v, out, BH, S, causal, st)
+  REPRO_FS_TILE(64, 32);
+  if constexpr (D <= 64) REPRO_FS_TILE(64, 64);
+  if constexpr (D == 64 || D == 128) REPRO_FS_TILE(128, 64);
+#undef REPRO_FS_TILE
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t dispatch_fs(const void* q, const void* k, const void* v, void* out, int BH, int S,
+                        int D, int causal, int block_q, int block_k, cudaStream_t st) {
+  switch (D) {
+    case 16: return dispatch_fs_tile<16>(block_q, block_k, q, k, v, out, BH, S, causal, st);
+    case 32: return dispatch_fs_tile<32>(block_q, block_k, q, k, v, out, BH, S, causal, st);
+    case 64: return dispatch_fs_tile<64>(block_q, block_k, q, k, v, out, BH, S, causal, st);
+    case 128: return dispatch_fs_tile<128>(block_q, block_k, q, k, v, out, BH, S, causal, st);
+    case 256: return dispatch_fs_tile<256>(block_q, block_k, q, k, v, out, BH, S, causal, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1031,18 +1267,17 @@ cudaError_t dispatch_fd(int hd, int group, const void* q, int q_bf16, const void
 }  // namespace
 
 // dtype: DT_F32 | DT_BF16 (q, k, v and out share it); path, block_q,
-// block_k: the plan (kernels/flash_attention.py:plan_attention).  A plan the
-// kernels do not take returns cudaErrorInvalidValue.  Returns a cudaError_t.
+// block_k: the plan (kernels/flash_attention.py:plan_attention): bf16 on
+// the wgmma path, f32 on the split path.  A plan the kernels do not take
+// returns cudaErrorInvalidValue.  Returns a cudaError_t.
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* out,
                                      int dtype, int BH, int S, int D, int causal,
                                      void* stream, int path, int block_q, int block_k) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (path == ATTN_WGMMA && dtype == DT_BF16)
     return dispatch_fw(q, k, v, out, BH, S, D, causal, block_q, block_k, st);
-  if (path != ATTN_SIMT || block_q != FA_BQ || block_k != FA_BK)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == DT_F32) return dispatch_fa<float>(q, k, v, out, BH, S, D, causal, st);
-  if (dtype == DT_BF16) return dispatch_fa<__nv_bfloat16>(q, k, v, out, BH, S, D, causal, st);
+  if (path == ATTN_SPLIT && dtype == DT_F32)
+    return dispatch_fs(q, k, v, out, BH, S, D, causal, block_q, block_k, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

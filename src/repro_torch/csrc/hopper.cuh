@@ -1,7 +1,10 @@
 // Hopper building blocks shared by the port's kernels (K3 quant_matmul's
-// prefill path, K4 flash_attention's bf16 path): mbarriers, TMA loads and
-// stores through tensor maps, the 128-byte-swizzle wgmma descriptor and the
-// m64nNk16 bf16 wgmma instructions (A from shared memory or registers).
+// prefill path, K4 flash_attention's wgmma and split paths): mbarriers, TMA
+// loads and stores through tensor maps, the swizzle of a tile's rows and the
+// wgmma descriptor for each swizzle mode K3 and K4 use (rows of 128 bytes,
+// PTX layout type 1; of 64 bytes, type 2; of 32 bytes, type 3: a bf16 row of
+// head dim 32 or 16), and the m64nNk16 bf16 wgmma instructions for N 16,
+// 32, 64, 128 and 256 (A from shared memory or registers).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
@@ -137,12 +140,53 @@ bool tensor_map_3d(CUtensorMap* map, CUtensorMapDataType dt, int elem_bytes, con
 }
 
 // ----------------------------------------------------------------- wgmma
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// The swizzle of a tile whose rows are RB = 128, 64 or 32 bytes, as TMA
+// writes it (CU_TENSOR_MAP_SWIZZLE_{128,64,32}B) and wgmma reads it: the
+// 16-byte unit of byte offset ``off`` moves to unit ^ (off / 128) % (RB /
+// 16).  ``off`` counts from a 1024-byte boundary; the 8 rows of a swizzle
+// atom are RB apart.
+template <int RB>
+__device__ __forceinline__ uint32_t swizzle(uint32_t off) {
+  static_assert(RB == 128 || RB == 64 || RB == 32, "a swizzle of 128, 64 or 32 bytes");
+  return off ^ (((off >> 7) & (RB / 16 - 1)) << 4);
+}
+
+// wgmma shared-memory descriptor of a tile with RB-byte swizzled rows (PTX
+// layout type 1, 2 or 3 for 128, 64 or 32 bytes): start address, leading
 // and stride byte offsets, all in 16-byte units.
+template <int RB = 128>
 __device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  static_assert(RB == 128 || RB == 64 || RB == 32, "a swizzle of 128, 64 or 32 bytes");
+  constexpr uint64_t layout = RB == 128 ? 1 : RB == 64 ? 2 : 3;
   return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
          (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+
+// D (64 x 16 or 64 x 32, f32 registers) (+)= A (64 x 16 bf16, K-major,
+// shared memory) @ B (16 x N bf16, shared memory), as below.
+template <int TB = 1>
+__device__ __forceinline__ void wgmma_m64n16k16(float (&d)[8], uint64_t a, uint64_t b,
+                                                int scale_d = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, %11;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+}
+
+template <int TB = 1>
+__device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], uint64_t a, uint64_t b,
+                                                int scale_d = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, %19;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
 }
 
 // D (64 x N, f32 registers) (+)= A (64 x 16 bf16, K-major, shared memory) @
@@ -223,14 +267,39 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t a, ui
 template <int BN, int TB = 1>
 __device__ __forceinline__ void wgmma_bf16(float (&d)[BN / 2], uint64_t a, uint64_t b,
                                            int scale_d = 1) {
+  static_assert(BN == 16 || BN == 32 || BN == 64 || BN == 128 || BN == 256, "wgmma N");
   if constexpr (BN == 256) wgmma_m64n256k16<TB>(d, a, b, scale_d);
   else if constexpr (BN == 128) wgmma_m64n128k16<TB>(d, a, b, scale_d);
-  else wgmma_m64n64k16<TB>(d, a, b, scale_d);
+  else if constexpr (BN == 64) wgmma_m64n64k16<TB>(d, a, b, scale_d);
+  else if constexpr (BN == 32) wgmma_m64n32k16<TB>(d, a, b, scale_d);
+  else wgmma_m64n16k16<TB>(d, a, b, scale_d);
 }
 
 // D (64 x N, f32 registers) += A (64 x 16 bf16 in registers: the
 // accumulator layout of a k16 slice, two bf16 a register) @ B (16 x N bf16,
 // shared memory, MN-major).
+__device__ __forceinline__ void wgmma_rs_m64n16k16(float (&d)[8], const uint32_t (&a)[4],
+                                                   uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_m64n32k16(float (&d)[16], const uint32_t (&a)[4],
+                                                   uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 __device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32], const uint32_t (&a)[4],
                                                     uint64_t b) {
   asm volatile(
@@ -303,9 +372,12 @@ __device__ __forceinline__ void wgmma_rs_m64n256k16(float (&d)[128], const uint3
 template <int BN>
 __device__ __forceinline__ void wgmma_rs_bf16(float (&d)[BN / 2], const uint32_t (&a)[4],
                                               uint64_t b) {
+  static_assert(BN == 16 || BN == 32 || BN == 64 || BN == 128 || BN == 256, "wgmma N");
   if constexpr (BN == 256) wgmma_rs_m64n256k16(d, a, b);
   else if constexpr (BN == 128) wgmma_rs_m64n128k16(d, a, b);
-  else wgmma_rs_m64n64k16(d, a, b);
+  else if constexpr (BN == 64) wgmma_rs_m64n64k16(d, a, b);
+  else if constexpr (BN == 32) wgmma_rs_m64n32k16(d, a, b);
+  else wgmma_rs_m64n16k16(d, a, b);
 }
 
 // Orders the compiler's use of accumulator registers against the wgmma

@@ -3,8 +3,8 @@
 K4 replaces ``repro/kernels/flash_attention.py:flash_attention_kernel`` and
 K5 replaces ``flash_decode_kernel`` in the same file.  Both kernels live in
 ``csrc/flash_attention.cu``; its notes say what bounds each on an H100 and
-what the design does about it (K4: bf16 at head dim 64, 128 and 256 on
-wgmma tensor cores fed by TMA, everything else on the FP32 pipes; K5: a
+what the design does about it (K4: both products on the bf16 wgmma tensor
+cores fed by TMA, f32 inputs as three split bf16 products; K5: a
 slot's pages split across the blocks of a thread-block cluster, each
 streaming its pages through a cp.async ring without reading an unallocated
 or out-of-length page, the partial softmaxes merged in rank order through
@@ -43,42 +43,70 @@ _FD_SMALL_WORDS = (2 * MAX_DECODE_PAGES + _FD_WARPS + 8 * _FD_WARPS * DECODE_GRO
                    + 3 * MAX_CLUSTER * DECODE_GROUP)
 
 
-#: K4's paths (csrc/flash_attention.cu: AttnPath).
-ATTN_PATHS = ("simt", "wgmma")
+#: K4's paths (csrc/flash_attention.cu: AttnPath): bf16 on ``wgmma``, f32 on
+#: ``wgmma_split`` (three bf16 products a matrix product).
+ATTN_PATHS = ("wgmma", "wgmma_split")
 #: (block_q, block_k) the wgmma path takes, by head dim (csrc: dispatch_fw_tile):
-#: one or two warpgroups of 64 query rows by 64 or 128 keys a tile; head dim
-#: 256 takes one warpgroup by 64 keys, its output accumulator alone holding
-#: 128 registers a thread (two warpgroups would spill).
-ATTN_TILES = {64: ((64, 64), (64, 128), (128, 64), (128, 128)),
-              128: ((64, 64), (64, 128), (128, 64), (128, 128)),
+#: one or two warpgroups of 64 query rows by 64 or 128 keys a tile at head
+#: dims 64 and 128; head dim 256 takes one warpgroup by 64 keys, its output
+#: accumulator alone holding 128 registers a thread (two warpgroups would
+#: spill).  Head dim 16 takes 64 by 64 and the one alternative that wins an
+#: ``attn_sweep`` row (128 by 64 at S 128), head dim 32 the plan's tile only.
+_FW_TILES = ((64, 64), (64, 128), (128, 64), (128, 128))
+ATTN_TILES = {16: ((64, 64), (128, 64)), 32: ((64, 64),), 64: _FW_TILES, 128: _FW_TILES,
               256: ((64, 64),)}
 #: The plan's wgmma tile: the fastest, or within 4% of it, at each row of
 #: ``chip_smoke.py`` phase ``attn_sweep`` on an H100 (PERF.md §6).
 ATTN_TILE = (64, 64)
 _FA_STAGES = 2                # the wgmma path's K/V ring
-_FA_SIMT_TILE = (64, 32)      # the simt path's q rows and keys a tile (FA_BQ, FA_BK)
+#: (block_q, block_k) the split path takes, by head dim (csrc:
+#: dispatch_fs_tile): one warpgroup of 64 query rows by 32 keys, or by 64
+#: up to head dim 64; two warpgroups (128 rows) sharing each 64-key tile at
+#: head dims 64 and 128 (a 64-key tile does not fit at 256).
+ATTN_SPLIT_TILES = {16: ((64, 64), (64, 32)), 32: ((64, 64), (64, 32)),
+                    64: ((64, 64), (64, 32), (128, 64)), 128: ((128, 64), (64, 32)),
+                    256: ((64, 32),)}
+#: The plan's split tile by head dim: the fastest at each f32 row of
+#: ``chip_smoke.py`` phase ``attn_sweep`` on an H100 (PERF.md §6); at head
+#: dim 64, where no tile is fastest at both S 128 and S 513, the one that
+#: loses least to the fastest at either (7%).
+ATTN_SPLIT_TILE = {16: (64, 64), 32: (64, 64), 64: (128, 64), 128: (128, 64), 256: (64, 32)}
 
 
 def attention_smem_bytes(path: str, D: int, block_q: int, block_k: int) -> int:
-    """K4's dynamic shared memory a block.  wgmma (csrc: FwTiles::SMEM):
-    the bf16 q tile, a two-stage ring of K and V tiles, three mbarriers
-    and 1024 bytes to align the swizzle atoms; simt (csrc: fa_smem_bytes):
-    f32 q, K (rows padded by one float) and V tiles."""
+    """K4's dynamic shared memory a block, its mbarriers and 1024 bytes to
+    align the swizzle atoms included.  wgmma (csrc: FwTiles::SMEM): the bf16
+    q tile and a two-stage ring of bf16 K and V tiles; wgmma_split (csrc:
+    FsTiles::SMEM): bf16 q hi and lo (the f32 output tile at the end), the
+    four split K and V tiles (or the f32 q tile, if larger), one f32 K and
+    V tile."""
     if path == "wgmma":
-        return (2 * block_q * D + 2 * _FA_STAGES * 2 * block_k * D
+        return (2 * block_q * D + _FA_STAGES * 2 * 2 * block_k * D
                 + (2 * _FA_STAGES + 1) * 8 + 1024)
-    return 4 * (block_q * D + block_k * (D + 1) + block_k * D)
+    if path == "wgmma_split":
+        return (2 * 2 * block_q * D + max(4 * 2 * block_k * D, 4 * block_q * D)
+                + 2 * 4 * block_k * D + 3 * 8 + 1024)
+    raise ValueError(f"unknown K4 path {path!r}")
 
 
 class AttentionPlan(NamedTuple):
-    """One launch of K4: ``path`` (``"wgmma"`` or ``"simt"``), ``block_q``
-    query rows and ``block_k`` keys a tile, ``smem`` bytes of shared memory
-    a block and ``blocks`` in the grid."""
+    """One launch of K4: ``path`` (``"wgmma"`` or ``"wgmma_split"``),
+    ``block_q`` query rows and ``block_k`` keys a tile, ``smem`` bytes of
+    shared memory a block and ``blocks`` in the grid."""
     path: str
     block_q: int
     block_k: int
     smem: int
     blocks: int
+
+
+def attention_plan_for(path: str, BH: int, S: int, D: int, block_q: int,
+                       block_k: int) -> AttentionPlan:
+    """The :class:`AttentionPlan` of one tile choice (``attn_sweep`` times
+    each)."""
+    return AttentionPlan(path, block_q, block_k,
+                         attention_smem_bytes(path, D, block_q, block_k),
+                         BH * -(-S // block_q))
 
 
 @functools.lru_cache(maxsize=None)
@@ -87,22 +115,18 @@ def plan_attention(BH: int, S: int, D: int, dtype: torch.dtype, causal: bool,
     """K4's launch, from the shapes and type alone.
 
     It reads no tensor, so a prefill plans without waiting for the card
-    (and could be captured in a CUDA graph).  bf16 at a head dim of
-    :data:`ATTN_TILES` takes the wgmma path; every f32 input and bf16 at
-    head dims 16 and 32 take the simt path, by this rule and not as a
-    fallback.  The wgmma path takes :data:`ATTN_TILE` at every shape: 64
-    query rows (one warpgroup; two blocks share an SM up to head dim 128) by
-    64 keys a tile.  ``causal`` and ``num_sms`` do not change the launch;
-    they complete the key.
+    (and could be captured in a CUDA graph).  bf16 takes the wgmma path at
+    :data:`ATTN_TILE` (64 query rows, one warpgroup, by 64 keys a tile);
+    f32 takes the split path at :data:`ATTN_SPLIT_TILE` of its head dim.
+    ``causal`` and ``num_sms`` do not change the launch; they complete the
+    key.
     """
     del causal, num_sms
     if dtype == torch.bfloat16 and D in ATTN_TILES:
-        path, (block_q, block_k) = "wgmma", ATTN_TILE
-    else:
-        path, (block_q, block_k) = "simt", _FA_SIMT_TILE
-    return AttentionPlan(path, block_q, block_k,
-                         attention_smem_bytes(path, D, block_q, block_k),
-                         BH * -(-S // block_q))
+        return attention_plan_for("wgmma", BH, S, D, *ATTN_TILE)
+    if dtype == torch.float32 and D in ATTN_SPLIT_TILES:
+        return attention_plan_for("wgmma_split", BH, S, D, *ATTN_SPLIT_TILE[D])
+    raise ValueError(f"flash_attention: no K4 path for {dtype} at head dim {D}")
 
 
 def decode_smem_bytes(group: int, hd: int, pool_dtype: torch.dtype) -> int:
@@ -186,9 +210,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
     p = attn_plan or plan_attention(BH, S, D, q.dtype, bool(causal),
                                     _build.sm_count(q.device))
-    if p.path == "wgmma" and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError(f"{name}: the wgmma path's tensors must start on 16-byte "
-                         "boundaries (TMA)")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"{name}: q, k and v must start on 16-byte boundaries (TMA)")
     err = _build.lib().repro_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         _build.DTYPE_CODES[q.dtype], BH, S, D, int(bool(causal)),

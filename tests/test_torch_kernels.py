@@ -181,9 +181,17 @@ class TestAttentionPlan:
 
     @pytest.mark.parametrize("D", tfa.HEAD_DIMS)
     def test_f32_and_narrow_bf16_take_simt(self, D):
-        assert tfa.plan_attention(128, 128, D, torch.float32, True).path == "simt"
-        if D not in tfa.ATTN_TILES:
-            assert tfa.plan_attention(128, 128, D, torch.bfloat16, True).path == "simt"
+        """The inputs the FP32-pipe (simt) kernel once took, every f32 input
+        and bf16 at head dims 16 and 32, now take the tensor-core paths:
+        f32 the split path (a tile of its head dim), bf16 the wgmma path,
+        at every head dim."""
+        for BH, S, causal in ((128, 128, True), (64, 513, False), (2, 37, True)):
+            p = tfa.plan_attention(BH, S, D, torch.float32, causal)
+            assert p.path == "wgmma_split", p
+            assert (p.block_q, p.block_k) in tfa.ATTN_SPLIT_TILES[D], p
+            assert p.blocks == BH * -(-S // p.block_q), p
+            b = tfa.plan_attention(BH, S, D, torch.bfloat16, causal)
+            assert b.path == "wgmma" and (b.block_q, b.block_k) in tfa.ATTN_TILES[D], b
 
     @pytest.mark.parametrize("D", tfa.HEAD_DIMS)
     def test_shared_memory_fits(self, D):
@@ -192,13 +200,99 @@ class TestAttentionPlan:
             assert p.smem == tfa.attention_smem_bytes(p.path, D, p.block_q, p.block_k)
             assert p.smem <= tfa.MAX_SMEM, (dtype, p)
         # every tile the wgmma path takes, one warpgroup (block_q 64) or two
-        for bq, bk in tfa.ATTN_TILES.get(D, ()):
+        for bq, bk in tfa.ATTN_TILES[D]:
             assert tfa.attention_smem_bytes("wgmma", D, bq, bk) <= tfa.MAX_SMEM, (bq, bk)
+        # every tile of the split path: q hi and lo, the split K and V tiles
+        # (or the f32 q tile), one f32 K and V tile, three mbarriers
+        for bq, bk in tfa.ATTN_SPLIT_TILES[D]:
+            smem = tfa.attention_smem_bytes("wgmma_split", D, bq, bk)
+            assert smem == 4 * bq * D + max(8 * bk * D, 4 * bq * D) + 8 * bk * D + 24 + 1024
+            assert smem <= tfa.MAX_SMEM, (bq, bk)
+
+    def test_other_types_have_no_path(self):
+        with pytest.raises(ValueError, match="no K4 path"):
+            tfa.plan_attention(2, 16, 64, torch.float16, True)
+
+    def test_plans_mirror_the_c_dispatch(self):
+        """ATTN_PATHS in the order of the C enum, and the split tiles the
+        C dispatcher takes (csrc/flash_attention.cu)."""
+        src = open(os.path.join(ROOT, "src", "repro_torch", "csrc",
+                                "flash_attention.cu")).read()
+        enum = re.search(r"enum AttnPath : int \{([^}]*)\}", src)[1]
+        assert [n.split("=")[0].strip() for n in enum.split(",")] == ["ATTN_WGMMA", "ATTN_SPLIT"]
+        assert len(tfa.ATTN_PATHS) == 2 and tfa.ATTN_PATHS[1] == "wgmma_split"
+        body = src[src.index("cudaError_t dispatch_fs_tile("):src.index("cudaError_t dispatch_fs(")]
+        taken = {tuple(map(int, t)) for t in re.findall(r"REPRO_FS_TILE\((\d+), (\d+)\);", body)}
+        assert taken == {t for tiles in tfa.ATTN_SPLIT_TILES.values() for t in tiles}
 
     def test_main_path_fills_the_card(self):
         # yi-6b's prefill: 32 heads x 4 slots, a 128-token bucket
         p = tfa.plan_attention(128, 128, 128, torch.bfloat16, True)
         assert p.path == "wgmma" and p.blocks >= 128, p
+
+
+def _split_bf16(x: torch.Tensor):
+    """x as hi = bf16(x) and lo = bf16(x - hi), both widened back to f32."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def _split_attention(q, k, v, causal: bool, split_p: bool = True, block_k: int = 64):
+    """The split path's arithmetic (csrc/flash_attention.cu:
+    flash_attention_split) in plain f32 PyTorch: per key tile S = Q_hi K_hi^T
+    + Q_hi K_lo^T + Q_lo K_hi^T, the online softmax, and O += P_hi V_hi +
+    P_hi V_lo + P_lo V_hi; with ``split_p=False`` P stays one bf16
+    (O += P V_hi + P V_lo)."""
+    S, D = q.shape[-2:]
+    (qh, ql), (kh, kl), (vh, vl) = (_split_bf16(t) for t in (q, k, v))
+    o = torch.zeros_like(q)
+    m = torch.full(q.shape[:-1] + (1,), float("-inf"))
+    l = torch.zeros(q.shape[:-1] + (1,))
+    rows = torch.arange(S)[:, None]
+    for k0 in range(0, S, block_k):
+        ks = slice(k0, min(S, k0 + block_k))
+        s = (qh @ kh[..., ks, :].mT + qh @ kl[..., ks, :].mT + ql @ kh[..., ks, :].mT) * D ** -0.5
+        if causal:
+            s = s.masked_fill(torch.arange(k0, ks.stop)[None, :] > rows, float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p, corr = torch.exp(s - m_new), torch.exp(m - m_new)
+        l, m = l * corr + p.sum(-1, keepdim=True), m_new
+        if split_p:
+            ph, pl = _split_bf16(p)
+            pv = ph @ vh[..., ks, :] + ph @ vl[..., ks, :] + pl @ vh[..., ks, :]
+        else:
+            pb = p.to(torch.bfloat16).float()
+            pv = pb @ vh[..., ks, :] + pb @ vl[..., ks, :]
+        o = o * corr + pv
+    return o / l.clamp_min(1e-30)
+
+
+class TestSplitProducts:
+    """The numerics of K4's f32 path on bf16 tensor cores, pinned on the CPU:
+    three split products keep the f32 tolerance of the reference's tests
+    (2e-4); P kept as one bf16 does not."""
+
+    @staticmethod
+    def _inputs(D: int, S: int, seed: int):
+        rng = np.random.default_rng(seed)
+        return [torch.from_numpy(rng.standard_normal((2, S, D)).astype(np.float32))
+                for _ in range(3)]
+
+    @pytest.mark.parametrize("S", [37, 130])
+    @pytest.mark.parametrize("D", [16, 128])
+    @pytest.mark.parametrize("causal", [True, False])
+    def test_three_products_keep_f32_tolerance(self, D, S, causal):
+        q, k, v = self._inputs(D, S, D + S + int(causal))
+        got = _split_attention(q, k, v, causal)
+        torch.testing.assert_close(got, tfa.flash_attention_plain(q, k, v, causal),
+                                   rtol=2e-4, atol=2e-4)
+
+    @pytest.mark.parametrize("D", [16, 128])
+    def test_single_bf16_p_misses_it(self, D):
+        q, k, v = self._inputs(D, 130, D)
+        want = tfa.flash_attention_plain(q, k, v, True)
+        err = float((_split_attention(q, k, v, True, split_p=False) - want).abs().max())
+        assert err > 2e-4, err
 
 
 def _decode_inputs(seed: int, KV: int = 2, G: int = 3, hd: int = 16):
@@ -314,9 +408,16 @@ class TestDispatchGuards:
             tfa.flash_decode_cuda(qd, pool, pool, torch.zeros((2, 2), dtype=torch.int32),
                                   torch.zeros((2,), dtype=torch.int32))
 
-    @pytest.mark.parametrize("D", [64, 128])
-    def test_wgmma_head_dims_reach_the_cuda_refusal(self, D):
-        q = torch.zeros((2, 8, D), dtype=torch.bfloat16)
+    _REFUSAL_CASES = ([(D, torch.bfloat16) for D in (16, 32, 64, 128)]
+                      + [(D, torch.float32) for D in tfa.HEAD_DIMS])
+
+    @pytest.mark.parametrize("D, dtype", _REFUSAL_CASES,
+                             ids=[str(D) if dt == torch.bfloat16 else f"f32-{D}"
+                                  for D, dt in _REFUSAL_CASES])
+    def test_wgmma_head_dims_reach_the_cuda_refusal(self, D, dtype):
+        # bf16 (the wgmma path) and f32 (the split path) at the head dims
+        # each takes: a CPU tensor is refused, never run on a plain version
+        q = torch.zeros((2, 8, D), dtype=dtype)
         with pytest.raises(ValueError, match="CUDA"):
             tfa.flash_attention_cuda(q, q, q)
 
