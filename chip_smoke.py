@@ -10,7 +10,8 @@ Phases (each one failing stops the script with a nonzero exit):
 2. build: compile ``src/repro_torch/csrc/*.cu`` (nvcc, sm_90a) and print the
    build time per file and the ptxas register/spill/shared-memory report per
    kernel; no K5 kernel and no K4 instance (wgmma or split path) spills,
-   and ptxas serialises the wgmma of no K4 instance;
+   and ptxas serialises the wgmma of no K4 instance, and K1's inline passes
+   do not spill;
    check in the SASS that K3's prefill path and every K4 instance issue
    wgmma (HGMMA) and TMA loads (UTMALDG), every K4 instance a TMA store
    (UTMASTG), and that no K3, K4 or K5 kernel has a global atomic.
@@ -18,6 +19,12 @@ Phases (each one failing stops the script with a nonzero exit):
    flash_attention, K5 flash_decode) against its plain PyTorch version on the
    card, at the shapes of its path, with times beside the plain version, one
    library call where one computes the same function, and the card's bound;
+   K1 through both entries: the segment entry (fl-sim) and the trainer's
+   keyed inline entry (Philox4x32-10 in the kernel: Random123's known
+   answers on the card; bit-equal at bits 4-32, n 1-4099, f32 and bf16 out,
+   an unaligned base; timed at a 4096 x 11008 and a 4096 x 512 weight use
+   beside the parent's chain of operations at the same shape, and beside
+   PyTorch's max|w| reductions);
    K3, K4 and K5 also launched twice on identical inputs, the outputs
    bit-equal.  K4's rows name the path and tiles of
    ``plan_attention`` and the SDPA backend of their library time (fused:
@@ -52,9 +59,12 @@ Phases (each one failing stops the script with a nonzero exit):
    8 layers, a 4x1 mesh (4 clients on the card): 3 rounds of
    ``fl-orchestrate`` (scheme unified_q, int16 SR gradient wire) and 2 rounds of
    ``train`` at fixed 8-bit weights (int8 wire); per round the loss, plan,
-   step time, K1/K2 launches and peak memory; exactly one K2 launch a step;
-   K2 against its plain version on a step's real replicated gradients; the
-   rounds' plans against a CPU run of the same orchestrator.
+   step time, K1/K2 launches and peak memory; exactly 456 K1 launches (the
+   inline entry, one a weight use) and one K2 launch a step; a profiled
+   round (device ms by family, busy share, host syncs); one weight use
+   through the inline K1 and K2 on a step's real replicated gradients
+   against their plain versions; the rounds' plans against a CPU run of
+   the same orchestrator.
 
 The last two lines are the kernel table and ``{"ok": true, "device": ...}``.
 ``--phases`` runs a subset (for iterating on one kernel); phase ``sweep``,
@@ -64,6 +74,9 @@ at its rows' shapes under every split of the page axis, and phase
 ``attn_sweep`` times K4 under every tile its path takes: the wgmma path at
 the main path's, gemma-7b's, the S 513 and two head-dim-16 rows, the split
 path at the main f32 row, S 513 (causal and not) and head dims 16 and 256.
+Phase ``train_profile`` profiles rounds 1-2 of the ``train`` run alone;
+with ``--src=DIR`` it imports the port from another checkout (a parent
+commit), so two trees compare in one call.
 """
 
 from __future__ import annotations
@@ -80,7 +93,11 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-sys.path.insert(0, os.path.join(ROOT, "src"))
+#: ``--src=DIR`` imports the port from another checkout's ``src`` (phase
+#: ``train_profile`` of a parent commit, in the same call as this one's)
+SRC = next((a.split("=", 1)[1] for a in sys.argv[1:] if a.startswith("--src=")),
+           os.path.join(ROOT, "src"))
+sys.path.insert(0, SRC)
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -91,11 +108,16 @@ from repro_torch.kernels import quant_matmul as qm  # noqa: E402
 from repro_torch.kernels import sr_quant as sq  # noqa: E402
 
 HBM_BYTES_S = 3.35e12           # H100 SXM device memory rate
-PEAK_OPS_S = {torch.bfloat16: 989e12, torch.float32: 67e12}   # dense bf16 / FP32
+#: dense bf16 / FP32 (NVIDIA's data sheet); int32: the INT32 lanes' issue rate
+#: (64 an SM a clock, Hopper whitepaper; 132 SMs at the 1.98 GHz boost
+#: clock), for K1's in-kernel Philox
+PEAK_OPS_S = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int32: 132 * 64 * 1.98e9}
 
 KERNELS = {
     "sr_quant": dict(route="cuda", source="src/repro_torch/csrc/sr_quant.cu",
                      replaces="src/repro/kernels/sr_quant.py:59"),
+    "sr_quant_inline": dict(route="cuda", source="src/repro_torch/csrc/sr_quant.cu",
+                            replaces="src/repro/kernels/sr_quant.py:59"),
     "sr_pack": dict(route="cuda", source="src/repro_torch/csrc/sr_quant.cu",
                     replaces="src/repro/kernels/sr_quant.py:72"),
     "quant_matmul": dict(route="cuda", source="src/repro_torch/csrc/quant_matmul.cu",
@@ -155,6 +177,22 @@ def time_ms(fn, arg_sets, iters: int = 10, warmup: int = 2, replays: int = 3) ->
     end.synchronize()
     del graph
     return start.elapsed_time(end) / (iters * replays)
+
+
+def time_events_ms(fn, args, iters: int = 10, warmup: int = 2) -> float:
+    """Mean time per call of ``fn(*args)`` between CUDA events, host work
+    and host stalls included (for call chains a graph cannot capture)."""
+    for _ in range(warmup):
+        fn(*args)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn(*args)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def max_errs(got, want) -> tuple[float, float]:
@@ -252,6 +290,10 @@ def phase_build() -> None:
     n_fw = sum(map(len, fa.ATTN_TILES.values()))
     n_fs = sum(map(len, fa.ATTN_SPLIT_TILES.values()))
     assert len(must_not_spill) == 40 + n_fw + n_fs, must_not_spill
+    # K1's inline entry: its max|w| pass and its rounding pass (f32, bf16 out)
+    k1_inline = [e for e in report if "sr_absmax_kernel" in e or "sr_quant_inline_kernel" in e]
+    assert len(k1_inline) == 3, k1_inline
+    must_not_spill += k1_inline
     spilled = {e: report[e]["spill_bytes"] for e in must_not_spill if report[e]["spill_bytes"]}
     assert not spilled, f"spills: {spilled}"
     # no K4 instance has its wgmma serialised by ptxas (a branch around
@@ -769,6 +811,138 @@ def check_sr_quant(table: dict) -> None:
             table["sr_quant"] = row
 
 
+#: Random123's known answers for philox4x32-10: (counter, key, output).
+PHILOX_KAT = (
+    ((0, 0, 0, 0), (0, 0), (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+    ((0xFFFFFFFF,) * 4, (0xFFFFFFFF,) * 2, (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+    ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344), (0xA4093822, 0x299F31D0),
+     (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1)),
+)
+
+
+def _words(rows) -> torch.Tensor:
+    """32-bit words as an int32 tensor (two's complement)."""
+    return torch.tensor([[x - 2**32 if x >= 2**31 else x for x in r] for r in rows],
+                        dtype=torch.int32)
+
+
+def earlier_weight_use(w, delta, site):
+    """A trainer weight use as the parent tree made it: the site's key from
+    a SeedSequence, a seeded generator and ``torch.rand``, then
+    ``sr_quantize`` (abs/amax/where scale, offsets built on the host, K1's
+    segment entry, the STE add/sub) and ``ParamCtx``'s cast to bf16."""
+    from repro_torch.core.fwq import site_key
+    from repro_torch.core.quantization import sr_quantize
+
+    gen = torch.Generator(device=w.device).manual_seed(site_key(*site))
+    u = torch.rand(w.shape, generator=gen, device=w.device)
+    return sr_quantize(w, delta, u).to(torch.bfloat16)
+
+
+def inline_weight_use(w, delta, key):
+    """The same weight use through the keyed entry (the site's key made
+    once, as ``SRDraws.weight_key`` caches it)."""
+    from repro_torch.core.quantization import sr_quantize_keyed
+
+    return sr_quantize_keyed(w, delta, key, out_dtype=torch.bfloat16)
+
+
+def check_sr_quant_inline(table: dict) -> None:
+    """K1's inline entry against its plain version with atol 0 (on the card
+    and on the CPU): the Philox known answers; bits 4, 8, 16, 32 at n 1, 3,
+    4099 in f32 and bf16, an all-zero w, an unaligned base, a key above
+    2^63.  Then at a 4096 x 11008 and a 4096 x 512 (wk) weight use, f32 in
+    and bf16 out: the entry's time beside the parent's chain at the same
+    shape, each pass's device time, the max|w| reductions PyTorch offers,
+    and the bound (bytes, or Philox's integer issue)."""
+    from repro_torch.core.fwq import site_key
+    from repro_torch.core.quantization import delta_from_bits
+
+    ctr = _words([c for c, _k, _w in PHILOX_KAT]).cuda()
+    key = _words([k for _c, k, _w in PHILOX_KAT]).cuda()
+    got = sq.philox4x32_cuda(ctr, key).cpu()
+    if not torch.equal(got, _words([w for _c, _k, w in PHILOX_KAT])):
+        raise AssertionError(f"philox4x32 on the card misses Random123's known answers: {got}")
+    print("sr_quant_inline: Philox4x32-10 meets Random123's known answers on the card")
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    cases = [(f"n {n} bits {b}", torch.randn(n, generator=gen, device="cuda") * 0.3, b)
+             for n in (1, 3, 4099) for b in (4, 8, 16, 32)]
+    cases.append(("all-zero w", torch.zeros(4099, device="cuda"), 8))
+    buf = torch.randn(4101, generator=gen, device="cuda")
+    cases.append(("unaligned base (4-byte offset)", buf[1:], 8))
+    cases.append(("4096 x 512", torch.randn((4096, 512), generator=gen, device="cuda"), 8))
+    n_cases = 0
+    for i, (label, w, bits_) in enumerate(cases):
+        d = delta_from_bits(bits_).reshape(1).cuda()
+        k = 0xFEDCBA9876543210 if i % 2 else 1000003 * (i + 1)
+        for od in (torch.float32, torch.bfloat16):
+            got = sq.sr_quant_inline_cuda(w, d, k, od)
+            torch.cuda.synchronize()
+            for where, want in (
+                    ("plain on the card", sq.sr_quant_inline_plain(w, d, k, od)),
+                    ("plain on the CPU", sq.sr_quant_inline_plain(w.cpu(), d.cpu(), k, od)
+                     .cuda())):
+                if not torch.equal(got, want):
+                    bad = int((got != want).sum())
+                    raise AssertionError(f"sr_quant_inline {label} {od}: {bad} elements "
+                                         f"differ from the {where}")
+            if bits_ == 32 and not torch.equal(got, w.to(od)):
+                raise AssertionError("sr_quant_inline: bits 32 must return w")
+            n_cases += 1
+    print(f"sr_quant_inline: bit-equal to the plain version in all {n_cases} cases "
+          "(atol 0; card and CPU)")
+
+    for label, shape, site in (("4096x11008 (w_up)", (4096, 11008), (0, 1, 0, 11)),
+                               ("4096x512 (wk)", (4096, 512), (0, 1, 0, 12))):
+        w = torch.randn(shape, generator=gen, device="cuda") * 0.02
+        d = delta_from_bits(8).reshape(1).cuda()
+        k = 0x243F6A8885A308D3
+        args = (w, d, k, torch.bfloat16)
+        got = sq.sr_quant_inline_cuda(*args)
+        want = sq.sr_quant_inline_plain(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"sr_quant_inline {label}: differs from the plain version")
+        n = w.numel()
+        nbytes = 4 * n + 2 * n + 4                    # w read, bf16 written, delta
+        b_ms, b_by = bound_ms(nbytes, 20.0 * n, torch.int32)
+        bytes_ms = nbytes / HBM_BYTES_S * 1e3
+        kernel_ms = time_ms(sq.sr_quant_inline_cuda, [args], iters=10 if n > 1e7 else 50)
+        passes = _device_ms_by_name(lambda: sq.sr_quant_inline_cuda(*args), 10)
+        absmax_ms = sum(r[0] for r in passes if "sr_absmax" in r[2]) if passes else None
+        quant_ms = sum(r[0] for r in passes if "sr_quant_inline" in r[2]) if passes else None
+        wg = w.detach().clone().requires_grad_()
+        earlier = _device_ms_by_name(lambda: earlier_weight_use(wg, d.reshape(()), site), 5)
+        key = site_key(*site)
+        entry = _device_ms_by_name(lambda: inline_weight_use(wg, d.reshape(()), key), 5)
+        inf = float("inf")
+        norm_ms = time_ms(lambda x: torch.linalg.vector_norm(x, inf), [(w,)])
+        aminmax_ms = time_ms(torch.aminmax, [(w,)])
+        row = dict(
+            kernel="sr_quant_inline", case=label, n=n, bits=8, out="bfloat16",
+            max_abs_err=float((got.float() - want.float()).abs().max()),
+            kernel_ms=kernel_ms, bytes_ms=bytes_ms, philox_int_ms=20.0 * n / PEAK_OPS_S[
+                torch.int32] * 1e3, bound_ms=b_ms, bound_by=b_by,
+            share_of_bound=b_ms / kernel_ms,
+            absmax_pass_ms=absmax_ms, rounding_pass_ms=quant_ms,
+            absmax_tb_s=4 * n / absmax_ms / 1e9 if absmax_ms else None,
+            vector_norm_inf_ms=norm_ms, vector_norm_tb_s=4 * n / norm_ms / 1e9,
+            aminmax_ms=aminmax_ms, aminmax_tb_s=4 * n / aminmax_ms / 1e9,
+            entry_host_ms=time_events_ms(inline_weight_use, (wg, d.reshape(()), key)),
+            earlier_host_ms=time_events_ms(earlier_weight_use, (wg, d.reshape(()), site)),
+            entry_device_ms=sum(r[0] for r in entry) if entry else "not measured",
+            earlier_device_ms=sum(r[0] for r in earlier) if earlier else "not measured",
+            earlier_kernels=[{"ms": ms, "count": c, "name": nm[:60]}
+                             for ms, c, nm in earlier[:8]],
+            plain_ms=time_events_ms(sq.sr_quant_inline_plain, args, iters=3, warmup=1),
+            library_ms=None)
+        emit(row)
+        if label.startswith("4096x11008"):
+            table["sr_quant_inline"] = row
+        del w, wg, got, want
+
+
 #: The wire leaves of a yi-6b train step at 8 layers on a 4x1 mesh: the
 #: reference FSDP-shards every matrix, so only the norm scales (ln1, ln2 of
 #: every layer, final_norm) cross the SR wire.
@@ -829,12 +1003,13 @@ def check_sr_pack(table: dict) -> None:
 
 def phase_kernels(table: dict) -> None:
     check_sr_quant(table)
+    check_sr_quant_inline(table)
     check_sr_pack(table)
     check_quant_matmul(table)
     check_flash_attention(table)
     check_attention_one_hot()
     check_flash_decode(table)
-    print("kernels: all five agree with their plain versions")
+    print("kernels: all five agree with their plain versions (K1 through both entries)")
 
 
 #: The serve runs: yi-6b as in every earlier slice, then gemma-7b (head dim
@@ -1415,6 +1590,7 @@ def train_clock(rows: list):
     from repro_torch.fed.orchestrator import FLOrchestrator
 
     plan, fl_round, pack = FLOrchestrator.plan_round, Session.fl_round, ops.sr_pack_segments
+    inline = ops.sr_quantize_inline
 
     def timed_plan(self, r):
         t0 = time.perf_counter()
@@ -1425,11 +1601,13 @@ def train_clock(rows: list):
     def timed_round(self, r):
         torch.cuda.reset_peak_memory_stats()
         rows.append({"round": r, "plan_s": 0.0})
-        k1, k2, t0 = ops.LAUNCHES["sr_quant"], ops.LAUNCHES["sr_pack"], time.perf_counter()
+        k1, k1i = ops.LAUNCHES["sr_quant"], ops.LAUNCHES["sr_quant_inline"]
+        k2, t0 = ops.LAUNCHES["sr_pack"], time.perf_counter()
         rec = fl_round(self, r)
         torch.cuda.synchronize()
         rows[-1].update(round_s=time.perf_counter() - t0,
                         k1_launches=ops.LAUNCHES["sr_quant"] - k1,
+                        k1_inline_launches=ops.LAUNCHES["sr_quant_inline"] - k1i,
                         k2_launches=ops.LAUNCHES["sr_pack"] - k2,
                         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
         rows[-1]["step_s"] = rows[-1]["round_s"] - rows[-1]["plan_s"]
@@ -1439,13 +1617,20 @@ def train_clock(rows: list):
         rows[-1]["k2_args"] = tuple(a.clone() if torch.is_tensor(a) else a for a in args)
         return pack(*args)
 
+    def recording_inline(w, delta, key, out_dtype):
+        # the first round's first 4096 x 11008 weight use (an MLP matrix),
+        # kept on the host so that the peak memory is the step's own
+        if len(rows) == 1 and "k1_args" not in rows[0] and w.numel() == 4096 * 11008:
+            rows[0]["k1_args"] = (w.cpu(), delta.cpu(), key, out_dtype)
+        return inline(w, delta, key, out_dtype)
+
     FLOrchestrator.plan_round, Session.fl_round = timed_plan, timed_round
-    ops.sr_pack_segments = recording_pack
+    ops.sr_pack_segments, ops.sr_quantize_inline = recording_pack, recording_inline
     try:
         yield
     finally:
         FLOrchestrator.plan_round, Session.fl_round = plan, fl_round
-        ops.sr_pack_segments = pack
+        ops.sr_pack_segments, ops.sr_quantize_inline = pack, inline
 
 
 def profile_train_round(dev: dict, sess, r: int) -> None:
@@ -1456,20 +1641,29 @@ def profile_train_round(dev: dict, sess, r: int) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    k1 = ops.LAUNCHES["sr_quant"]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         sess.fl_round(r)
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) * 1e3
+    k1 = ops.LAUNCHES["sr_quant"] - k1
     per: dict = {}
+    syncs: dict = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             acc = per.setdefault(e.name, [0.0, 0])
             acc[0] += e.time_range.elapsed_us() / 1e3
             acc[1] += 1
-    families = {"K1 sr_quant": ("sr_quant_kernel",), "K2 sr_pack": ("sr_pack_kernel",),
+        elif e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                        "cudaEventSynchronize"):
+            syncs[e.name] = syncs.get(e.name, 0) + 1
+    # K1's family takes both entries' kernels (the inline entry's two passes)
+    families = {"K1 sr_quant": ("sr_quant_kernel", "sr_quant_inline", "sr_absmax"),
+                "K2 sr_pack": ("sr_pack_kernel",),
                 "matmul (cuBLAS)": ("gemm", "xmma", "cutlass", "cublas", "nvjet"),
                 "uniforms (Philox)": ("philox", "uniform", "distribution"),
+                "abs": ("absfunctor",),
                 "copies": ("memcpy", "memset")}
     fam: dict = {}
     for name, (ms, n) in per.items():
@@ -1485,7 +1679,8 @@ def profile_train_round(dev: dict, sess, r: int) -> None:
         "card": f"{dev['kind']} ({dev['smi']})", "round": r, "host_ms": host_ms,
         "device_ms": device_ms if rows else "not measured",
         "device_busy_share": device_ms / host_ms if rows else "not measured",
-        "device_ops": sum(v[1] for v in per.values()),
+        "device_ops": sum(v[1] for v in per.values()), "k1_launches": k1,
+        "host_syncs": syncs,
         "families": {k: {"ms": v[0], "count": v[1]} for k, v in
                      sorted(fam.items(), key=lambda kv: -kv[1][0])},
         "top": [{"ms": ms, "count": c, "name": k[:70]} for ms, c, k in rows[:12]]}})
@@ -1495,7 +1690,7 @@ def phase_train(dev: dict) -> dict:
     """The pod trainer on the card; returns its K1 and K2 launches."""
     from repro_torch.core.quantization import FULL_PRECISION_BITS
 
-    launches = {"sr_quant": 0, "sr_pack": 0}
+    launches = {"sr_quant": 0, "sr_quant_inline": 0, "sr_pack": 0}
     k2_inputs = None
     for name, run in TRAIN_RUNS.items():
         rows: list = []
@@ -1515,17 +1710,30 @@ def phase_train(dev: dict) -> dict:
         assert sess.cfg.n_layers == 8 and sess.cfg.d_model == 4096, sess.cfg
         assert len(hist) == run["rounds"] == len(rows), (len(hist), len(rows))
         comm = int(run["precision"]["comm"])
+        # a weight use is one K1 launch (the inline entry): embed and unembed
+        # once, the 7 block weights of each layer twice (remat reruns them)
+        uses = 4 * (2 + 7 * sess.cfg.n_layers * (2 if sess.cfg.remat else 1))
+        assert uses == 456, uses
         for h, r in zip(hist, rows):
             assert np.isfinite(h["loss"]), h
             assert h["comm_bits"] == comm < FULL_PRECISION_BITS, h
             # one K2 launch a step packs every (client, wire leaf) segment
             assert r["k2_launches"] == 1, f"{name} round {h['round']}: {r}"
-            assert r["k1_launches"] > 0, r
+            assert r["k1_launches"] == r["k1_inline_launches"] == uses, (uses, r)
             print(f"train {name} round {h['round']}: loss {h['loss']:.4f} bits "
                   f"{sorted(set(h['bits']))} energy {h['energy_j']:.3f} J cohort "
                   f"{h['cohort']} plan {r['plan_s'] * 1e3:.1f} ms step "
                   f"{r['step_s'] * 1e3:.1f} ms K1 launches {r['k1_launches']} K2 launches "
                   f"{r['k2_launches']} peak {r['peak_mem_gb']:.2f} GB")
+        # one weight use of the run, through the inline K1 and its plain version
+        w, d, k, od = (a.cuda() if torch.is_tensor(a) else a for a in rows[0].pop("k1_args"))
+        if not torch.equal(sq.sr_quant_inline_cuda(w, d, k, od),
+                           sq.sr_quant_inline_plain(w, d, k, od)):
+            raise AssertionError(f"train {name}: the inline K1 differs from the plain version "
+                                 f"on a {tuple(w.shape)} weight use")
+        print(f"train {name}: inline K1 bit-equal to the plain version on a {tuple(w.shape)} "
+              f"weight use ({od}, delta {float(d):.3g}); {uses} K1 launches a step")
+        del w
         k2_args = rows[-1]["k2_args"]
         want_dtype = torch.int16 if comm == 8 else torch.int8
         assert k2_args[-1] == want_dtype, (name, k2_args[-1])
@@ -1567,18 +1775,34 @@ def phase_train(dev: dict) -> dict:
     return launches
 
 
+def phase_train_profile(dev: dict) -> None:
+    """Round 0 of the ``train`` run (8-bit weights), then rounds 1 and 2
+    profiled: host and device ms, busy share, host syncs, K1 launches.  It
+    calls only what every tree of the port has, so ``--src=DIR`` runs it on
+    a parent checkout in the same call."""
+    sess = _train_session(TRAIN_RUNS["train"], "cuda")
+    sess.fl_round(0)
+    for r in (1, 2):
+        profile_train_round(dev, sess, r)
+    del sess
+    torch.cuda.empty_cache()
+
+
 PHASES = ("device", "build", "kernels", "serve", "profile", "consistency", "fl", "train")
 #: run only when named in ``--phases``
-EXTRA_PHASES = ("sweep", "decode_sweep", "attn_sweep")
+EXTRA_PHASES = ("sweep", "decode_sweep", "attn_sweep", "train_profile")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma-separated subset of {PHASES + EXTRA_PHASES}")
-    phases = ap.parse_args(argv).phases.split(",")
+    ap.add_argument("--src", default=SRC, help="the port's source tree (read at import)")
+    args = ap.parse_args(argv)
+    phases = args.phases.split(",")
     t_start = time.time()
     dev = phase_device()
+    print(f"chip_smoke: the port from {args.src}")
     table: dict = {}
     launches = {name: 0 for name in KERNELS}
     if "build" in phases:
@@ -1603,7 +1827,10 @@ def main(argv=None) -> int:
         # K1 runs on both paths: its count is the sum of the two phases' runs
         train_launches = phase_train(dev)
         launches["sr_quant"] += train_launches["sr_quant"]
+        launches["sr_quant_inline"] = train_launches["sr_quant_inline"]
         launches["sr_pack"] = train_launches["sr_pack"]
+    if "train_profile" in phases:
+        phase_train_profile(dev)
     rows = []
     for name, meta in KERNELS.items():
         r = table.get(name, {})

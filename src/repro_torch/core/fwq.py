@@ -172,32 +172,42 @@ def delta_for_clients(bits, *, scale: float = 1.0,
 
 
 def make_inline_quantizer(delta, seed: int = 0, *, exempt=quantlib.default_exempt,
-                          uniforms=None):
+                          uniforms=None, keys=None, out_dtype=None):
     """A ``param_transform(path, w) -> w_q`` callback for inline-mode models.
 
-    ``delta``/``seed`` belong to one client.  Each call site draws its
-    uniforms from a generator seeded by ``(seed, _stable_hash(path))``, so
-    quantization noise is independent across tensors but deterministic per
-    (client, round) — as the reference's ``fold_in(rng, _stable_hash(path))``.
-    The path carries no layer index, so every layer of a stacked weight gets
-    the same draws, in the reference and here.  ``uniforms(path, w) -> u``,
-    when given, replaces the seeded draws (the tests pass the reference's).
+    ``delta``/``seed`` belong to one client.  Each call site's SR key is
+    :func:`site_key` of ``(seed, _stable_hash(path))``, so quantization noise
+    is independent across tensors but deterministic per (client, round) — as
+    the reference's ``fold_in(rng, _stable_hash(path))``.  The path carries
+    no layer index, so every layer of a stacked weight gets the same draws,
+    in the reference and here.  A weight use is one call of K1's inline
+    entry (:func:`~repro_torch.core.quantization.sr_quantize_keyed`: scale,
+    uniforms drawn in the kernel, the straight-through value in
+    ``out_dtype``, default ``w``'s).  ``keys(path) -> int`` replaces the
+    seeded keys; ``uniforms(path, w) -> u`` takes the rounding from given
+    uniforms instead (:func:`~repro_torch.core.quantization.sr_quantize`;
+    the tests pass the reference's draws).
     """
-
-    def draw(path: str, w: torch.Tensor) -> torch.Tensor:
-        site = np.random.SeedSequence((int(seed), _stable_hash(path)))
-        g = torch.Generator(device=w.device).manual_seed(
-            int(site.generate_state(1, np.uint64)[0]))
-        return torch.rand(w.shape, generator=g, device=w.device)
-
-    uniforms = draw if uniforms is None else uniforms
+    if keys is None:
+        keys = functools.lru_cache(maxsize=None)(
+            lambda path: site_key(seed, _stable_hash(path)))
 
     def transform(path: str, w: torch.Tensor) -> torch.Tensor:
         if exempt is not None and exempt(path, w):
             return w
-        return quantlib.sr_quantize(w, delta, uniforms(path, w))
+        if uniforms is not None:
+            q = quantlib.sr_quantize(w, delta, uniforms(path, w))
+            return q if out_dtype is None else q.to(out_dtype)
+        return quantlib.sr_quantize_keyed(w, delta, keys(path), out_dtype=out_dtype)
 
     return transform
+
+
+def site_key(*entropy: int) -> int:
+    """The 64-bit SR key of a call site: the first word of
+    ``numpy.random.SeedSequence(entropy)``'s state."""
+    return int(np.random.SeedSequence(tuple(int(e) for e in entropy))
+               .generate_state(1, np.uint64)[0])
 
 
 @functools.lru_cache(maxsize=4096)

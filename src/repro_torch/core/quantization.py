@@ -11,6 +11,10 @@ supplied by the caller: the same ``u`` gives the same result on every device
 and in the reference.  The rounding itself is the K1 kernel
 (:func:`repro_torch.kernels.ops.sr_quantize_segments`): on a CUDA tensor it
 launches ``csrc/sr_quant.cu``, on a CPU tensor it runs the plain version.
+The trainer's inline weight uses take :func:`sr_quantize_keyed` instead: the
+same function with the uniforms drawn inside K1 from a 64-bit site key
+(Philox4x32-10), in one call that also takes the scale and casts to the
+compute dtype.
 Packing onto integer codes (:func:`pack_quantize`) is the K2 kernel
 (:func:`repro_torch.kernels.ops.sr_pack_segments`), routed the same way.
 
@@ -87,6 +91,36 @@ def sr_quantize(w: torch.Tensor, delta, u: torch.Tensor, *,
     if wf.requires_grad:                  # identity gradient, value unchanged
         q = q + (wf - wf.detach())
     return q.to(w.dtype)
+
+
+class _KeyedSR(torch.autograd.Function):
+    """K1's inline entry forward; the identity backward of the
+    straight-through estimator (the incoming gradient cast to ``w``'s
+    dtype)."""
+
+    @staticmethod
+    def forward(ctx, w, delta, key, out_dtype):
+        ctx.w_dtype = w.dtype
+        return ops.sr_quantize_inline(w, delta, key, out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.w_dtype), None, None, None
+
+
+def sr_quantize_keyed(w: torch.Tensor, delta, key: int, *,
+                      out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """:func:`sr_quantize` of ``w`` with its uniforms drawn inside K1 from
+    ``key`` (:func:`~repro_torch.kernels.ref.philox_uniforms_plain`),
+    returned in ``out_dtype`` (default ``w.dtype``).
+
+    Equal, bit for bit, to ``sr_quantize(w, delta, philox_uniforms_plain(key,
+    w.numel()).reshape(w.shape)).to(out_dtype)``, and its gradient too; on
+    the card one call of K1's inline entry, with ``delta`` read where it
+    lies (keep it on ``w``'s device: a host value is copied there first).
+    """
+    delta = torch.as_tensor(delta, dtype=torch.float32, device=w.device)
+    return _KeyedSR.apply(w, delta, int(key), out_dtype or w.dtype)
 
 
 def nearest_quantize(w: torch.Tensor, delta) -> torch.Tensor:

@@ -45,6 +45,20 @@ def sr_quantize_segments(w: torch.Tensor, offsets: torch.Tensor, s: torch.Tensor
               u.contiguous())
 
 
+def sr_quantize_inline(w: torch.Tensor, delta: torch.Tensor, key: int,
+                       out_dtype: torch.dtype) -> torch.Tensor:
+    """SR of one weight use in one call of K1's inline entry -> ``w.shape``
+    in ``out_dtype`` (f32 or bf16).
+
+    ``delta`` a one-element f32 tensor on ``w``'s device, ``key`` the site's
+    64-bit key.  The value is ``core.quantization.sr_quantize`` of ``w``
+    with the uniforms :func:`~repro_torch.kernels.ref.philox_uniforms_plain`
+    of ``key``, cast to ``out_dtype``; scale and uniforms are made inside.
+    """
+    fn = _route(w, sq.sr_quant_inline_cuda, sq.sr_quant_inline_plain)
+    return fn(w.to(torch.float32).contiguous(), delta.reshape(-1), int(key), out_dtype)
+
+
 def sr_quantize_fused(w: torch.Tensor, bits: int, u: torch.Tensor) -> torch.Tensor:
     """Fake-quantize a 2-D weight with SR at ``bits`` (one K1 call).
 

@@ -30,6 +30,49 @@ def sr_quant_fake_plain(w: torch.Tensor, u: torch.Tensor, step) -> torch.Tensor:
     return torch.where(step > 0, q, w)
 
 
+#: Philox4x32-10's multipliers and key increments (Salmon et al., SC'11;
+#: Random123's ``philox4x32``).
+PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+_MASK32 = 0xFFFFFFFF
+
+
+def _mulhilo32(a: int, b: torch.Tensor):
+    """``(hi, lo)`` 32-bit words of ``a * b`` for ``b`` int64 in [0, 2^32).
+    The 64-bit product would overflow int64, so ``a`` goes in 16-bit halves
+    (each partial product < 2^48)."""
+    p_lo, p_hi = b * (a & 0xFFFF), b * (a >> 16)
+    mid = p_lo + ((p_hi & 0xFFFF) << 16)
+    return (p_hi >> 16) + (mid >> 32), mid & _MASK32
+
+
+def philox4x32_plain(ctr, key):
+    """Philox4x32-10 of counters ``ctr`` (four int64 tensors of 32-bit
+    words) under ``key`` (two ints, or two such tensors): four int64
+    tensors of 32-bit words."""
+    c0, c1, c2, c3 = ctr
+    k0, k1 = key
+    for _ in range(10):
+        hi0, lo0 = _mulhilo32(PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo32(PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0, k1 = (k0 + PHILOX_W[0]) & _MASK32, (k1 + PHILOX_W[1]) & _MASK32
+    return c0, c1, c2, c3
+
+
+def philox_uniforms_plain(key: int, n: int, device=None) -> torch.Tensor:
+    """The ``n`` uniforms K1's inline entry draws under the 64-bit ``key``:
+    element ``i`` is ``(x >> 8) * 2^-24`` with ``x`` word ``i % 4`` of
+    Philox4x32-10 at counter ``(i // 4, i // 4 >> 32, 0, 0)``, key ``(key &
+    0xFFFFFFFF, key >> 32)``."""
+    g = torch.arange((n + 3) // 4, dtype=torch.int64, device=device)
+    zero = torch.zeros_like(g)
+    words = philox4x32_plain((g & _MASK32, g >> 32, zero, zero),
+                             (int(key) & _MASK32, (int(key) >> 32) & _MASK32))
+    x = torch.stack(words, dim=1).reshape(-1)[:n]
+    return (x >> 8).to(torch.float32) * 2.0**-24
+
+
 #: Float codes saturate to their integer type's range (as XLA's float-to-int
 #: conversion does): the largest float of the range, and for int32 2^31 and
 #: above go to INT32_MAX (2^31 - 1 is not a float).

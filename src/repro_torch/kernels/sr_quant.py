@@ -2,16 +2,20 @@
 
 K1 replaces the Pallas kernel ``repro/kernels/sr_quant.py:sr_quant_fake_kernel``
 (SR onto a grid of pitch ``step`` from caller-supplied uniforms) and the clip
-its wrappers apply; one launch rounds every (client, leaf) segment of an FL
-round.  K2 replaces ``sr_quant_pack_kernel`` (the same rounding onto integer
+its wrappers apply.  It has two entries: the segment entry rounds every
+(client, leaf) segment of an FL round in one launch from given uniforms; the
+inline entry is the trainer's whole quantizer for one weight use (scale,
+uniforms drawn in the kernel from a site key, the straight-through value,
+the compute dtype) in one call.  K2 replaces ``sr_quant_pack_kernel`` (the same rounding onto integer
 codes clipped to ``±(2^bits - 1)``); one launch packs every (client, leaf)
 segment of a train step's replicated gradients for the SR wire.  Both are in
 ``csrc/sr_quant.cu``, whose notes say what bounds them.
 
-:func:`sr_quant_segments_cuda` / :func:`sr_pack_segments_cuda` launch them;
-:func:`sr_quant_segments_plain` / :func:`sr_pack_segments_plain` are the plain
-PyTorch versions of the same functions, built on
-:mod:`repro_torch.kernels.ref`.  Each pair is bit-equal for the same uniforms.
+:func:`sr_quant_segments_cuda` / :func:`sr_quant_inline_cuda` /
+:func:`sr_pack_segments_cuda` launch them; the ``*_plain`` functions are the
+plain PyTorch versions of the same functions, built on
+:mod:`repro_torch.kernels.ref`.  Each pair is bit-equal for the same uniforms
+(the same key, for the inline entry).
 """
 
 from __future__ import annotations
@@ -19,10 +23,14 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import sr_quant_fake_plain, sr_quant_pack_plain
+from repro_torch.kernels.ref import (philox4x32_plain, philox_uniforms_plain,
+                                     sr_quant_fake_plain, sr_quant_pack_plain)
 
 NAME = "sr_quant"
+INLINE_NAME = "sr_quant_inline"
 PACK_NAME = "sr_pack"
+PHILOX_NAME = "philox"
+INLINE_DTYPES = (torch.float32, torch.bfloat16)
 CODE_DTYPES = (torch.int8, torch.int16, torch.int32)
 
 
@@ -72,6 +80,89 @@ def sr_quant_segments_cuda(w, offsets, s, d, u, *, ste: bool = True) -> torch.Te
     _build.check_launch(NAME, err)
     _build.LAUNCHES[NAME] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# K1, the inline entry: one weight use, uniforms drawn from a key
+# ---------------------------------------------------------------------------
+
+
+def _check_inline(w, delta, key, out_dtype):
+    if w.dtype != torch.float32 or delta.dtype != torch.float32 or delta.numel() != 1:
+        raise ValueError(f"{INLINE_NAME}: want f32 w and a one-element f32 delta; got "
+                         f"{w.dtype}, {delta.dtype} of {delta.numel()} elements")
+    if out_dtype not in INLINE_DTYPES:
+        raise ValueError(f"{INLINE_NAME}: out_dtype must be one of {INLINE_DTYPES}, got "
+                         f"{out_dtype}")
+    if not 0 <= key < 2**64 or w.numel() >= 2**40:
+        raise ValueError(f"{INLINE_NAME}: key {key} (< 2^64) or n {w.numel()} out of range")
+
+
+def sr_quant_inline_plain(w, delta, key: int, out_dtype=torch.float32) -> torch.Tensor:
+    """Plain version of K1's inline entry: ``w`` (any shape, f32) rounded at
+    ``step = s * delta`` with ``s = max|w|`` (1 where that is not > 0), from
+    :func:`~repro_torch.kernels.ref.philox_uniforms_plain` of ``key``,
+    clipped to ``[-s, s]``, bypassed where ``step == 0``, emitted as ``w +
+    (q - w)`` in ``out_dtype``: the segment entry's arithmetic for one
+    segment."""
+    _check_inline(w, delta, key, out_dtype)
+    if w.numel() == 0:
+        return torch.empty(w.shape, dtype=out_dtype, device=w.device)
+    wf = w.reshape(-1)
+    s = wf.abs().amax()
+    s = torch.where(s > 0, s, torch.ones_like(s))
+    step = s * delta.reshape(())
+    q = sr_quant_fake_plain(wf, philox_uniforms_plain(key, wf.numel(), w.device), step)
+    q = torch.where(step > 0, torch.clamp(q, -s, s), wf)
+    return (wf + (q - wf)).reshape(w.shape).to(out_dtype)
+
+
+def sr_quant_inline_cuda(w, delta, key: int, out_dtype=torch.float32) -> torch.Tensor:
+    """Launch K1's inline entry on the current stream (a max|w| pass, then
+    the rounding pass); returns ``w.shape`` in ``out_dtype``.  The scale and
+    ``delta`` never leave the device."""
+    _check_inline(w, delta, key, out_dtype)
+    _build.require_cuda(INLINE_NAME, w, delta)
+    out = torch.empty(w.shape, dtype=out_dtype, device=w.device)
+    n = w.numel()
+    if n == 0:
+        return out
+    # pass 1: up to two blocks of 512 threads an SM, four elements a thread
+    n_parts = max(1, min(-(-n // 2048), 2 * _build.sm_count(w.device)))
+    parts = torch.empty(n_parts, dtype=torch.float32, device=w.device)
+    err = _build.lib().repro_sr_quant_inline(
+        w.data_ptr(), parts.data_ptr(), n_parts, delta.data_ptr(), key & 0xFFFFFFFF,
+        key >> 32, out.data_ptr(), _build.DTYPE_CODES[out_dtype], n, _build.stream_of(w))
+    _build.check_launch(INLINE_NAME, err)
+    _build.LAUNCHES[NAME] += 1
+    _build.LAUNCHES[INLINE_NAME] += 1
+    return out
+
+
+def philox4x32_cuda(ctr: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
+    """Philox4x32-10 on the card, as the inline entry runs it: ``ctr`` (n, 4)
+    and ``key`` (n, 2) int32 holding 32-bit words -> (n, 4) int32 words."""
+    if ctr.dtype != torch.int32 or key.dtype != torch.int32 or ctr.ndim != 2 or \
+            ctr.shape[1] != 4 or key.shape != (ctr.shape[0], 2):
+        raise ValueError(f"{PHILOX_NAME}: want int32 ctr (n, 4) and key (n, 2), got "
+                         f"{ctr.dtype} {tuple(ctr.shape)}, {key.dtype} {tuple(key.shape)}")
+    _build.require_cuda(PHILOX_NAME, ctr, key)
+    out = torch.empty_like(ctr)
+    err = _build.lib().repro_philox4x32(ctr.data_ptr(), key.data_ptr(), out.data_ptr(),
+                                        ctr.shape[0], _build.stream_of(ctr))
+    _build.check_launch(PHILOX_NAME, err)
+    _build.LAUNCHES[PHILOX_NAME] += 1
+    return out
+
+
+def philox4x32_words_plain(ctr: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`philox4x32_cuda` (int32 words in and out)."""
+    def u32(t):
+        return t.to(torch.int64) & 0xFFFFFFFF
+
+    out = torch.stack(philox4x32_plain([u32(c) for c in ctr.unbind(1)],
+                                       [u32(k) for k in key.unbind(1)]), dim=1)
+    return torch.where(out >= 2**31, out - 2**32, out).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------

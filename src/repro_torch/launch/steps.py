@@ -21,8 +21,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, TrainConfig
-from repro_torch.core.fwq import _stable_hash, make_inline_quantizer
+from repro_torch.core.fwq import _stable_hash, make_inline_quantizer, site_key
 from repro_torch.dist.collectives import AxisCtx, f32_reciprocal, quantized_psum_batch
+from repro_torch.kernels.ref import philox_uniforms_plain
 from repro_torch.models.common import ParamCtx, fsdp_plan, reduce_gradients
 from repro_torch.models.model import Model
 from repro_torch.optim import Optimizer
@@ -33,30 +34,45 @@ def _compute_dtype(cfg: ModelConfig):
 
 
 class SRDraws:
-    """The stochastic-rounding uniforms of one train step: round
+    """The stochastic-rounding randomness of one train step: round
     ``round_idx`` of a run seeded with ``seed``.
 
-    Every draw comes from a generator seeded by ``(seed, round_idx, site)``,
+    Every draw is keyed by ``(seed, round_idx, site)`` (:func:`site_key`),
     so a step is deterministic and a resumed run repeats it.  The sites are
     the reference's: a weight use is ``(client, _stable_hash(path))`` (no
     layer index: every layer of a stacked weight gets the same draws), a wire
-    leaf is ``(17, leaf index in flatten order, client)``.  PyTorch cannot
-    reproduce the reference's threefry bits, so this class is the one seam a
-    test replaces to feed the reference's own draws.
+    leaf is ``(17, leaf index in flatten order, client)``.  A weight use
+    draws its uniforms inside K1 from :meth:`weight_key`; :meth:`weights`
+    returns those same uniforms as a tensor.  PyTorch cannot reproduce the
+    reference's threefry bits, so this class is the one seam a test replaces
+    to feed the reference's own draws: a subclass that overrides
+    :meth:`weights` has its uniforms used as given (K1's segment entry).
     """
 
     def __init__(self, seed: int, round_idx: int):
         self.seed, self.round_idx = int(seed), int(round_idx)
+        self._keys: dict = {}
 
     def _rand(self, site: tuple, shape, device) -> torch.Tensor:
-        ss = np.random.SeedSequence((self.seed, self.round_idx, *site))
         gen = torch.Generator(device=device).manual_seed(
-            int(ss.generate_state(1, np.uint64)[0]))
+            site_key(self.seed, self.round_idx, *site))
         return torch.rand(tuple(shape), generator=gen, device=device)
 
+    def weight_key(self, client: int, path: str) -> int:
+        """The 64-bit key of client ``client``'s inline quantization of
+        ``path`` (cached: remat asks again in backward)."""
+        site = (int(client), path)
+        if site not in self._keys:
+            self._keys[site] = site_key(self.seed, self.round_idx, int(client),
+                                        _stable_hash(path))
+        return self._keys[site]
+
     def weights(self, client: int, path: str, shape, device) -> torch.Tensor:
-        """Uniforms for client ``client``'s inline quantization of ``path``."""
-        return self._rand((int(client), _stable_hash(path)), shape, device)
+        """Uniforms for client ``client``'s inline quantization of ``path``:
+        the ones K1 draws from :meth:`weight_key`."""
+        n = int(np.prod(tuple(shape), dtype=np.int64))
+        return philox_uniforms_plain(self.weight_key(client, path), n).reshape(
+            tuple(shape)).to(device)
 
     def wire(self, leaf: int, n_clients: int, shape, device) -> torch.Tensor:
         """``(n_clients, *shape)`` uniforms for wire leaf ``leaf``."""
@@ -80,7 +96,9 @@ def build_train_step(model: Model, axes: AxisCtx, opt: Optimizer,
     ``D * b`` as leading dim (client ``c`` takes rows ``c*b : (c+1)*b``),
     ``delta`` is ``(D,)`` per-client resolutions, ``draws`` an
     :class:`SRDraws`.  Each client quantizes the weights at its ``delta[c]``
-    as it uses them (K1) and takes its loss and gradient there; the server
+    as it uses them (one call of K1's inline entry a weight use, keyed by
+    ``draws.weight_key``; K1's segment entry from ``draws.weights`` where a
+    subclass overrides that) and takes its loss and gradient there; the server
     means the reference's FSDP leaves in f32 and, when
     ``train_cfg.grad_compression_bits`` is set, sends the replicated leaves
     through :func:`quantized_psum_batch` (one K2 launch), then steps the
@@ -100,13 +118,18 @@ def build_train_step(model: Model, axes: AxisCtx, opt: Optimizer,
         dev = params[paths[0]].device
         delta = delta.to(dev)
         sums, stacked, loss_sum = {}, {p: [] for p in wire}, None
+        cd = _compute_dtype(cfg)
+        given = type(draws).weights is not SRDraws.weights   # a subclass's own uniforms
         for c in range(D):
-            def uniforms(path, w, c=c):
-                return draws.weights(c, path, w.shape, w.device)
-
-            pc = ParamCtx(ctx=axes.at_client(c), compute_dtype=_compute_dtype(cfg),
-                          sp=cfg.seq_parallel,
-                          transform=make_inline_quantizer(delta[c], uniforms=uniforms))
+            if given:
+                transform = make_inline_quantizer(
+                    delta[c], out_dtype=cd,
+                    uniforms=lambda path, w, c=c: draws.weights(c, path, w.shape, w.device))
+            else:                               # one keyed K1 call a weight use
+                transform = make_inline_quantizer(
+                    delta[c], out_dtype=cd, keys=lambda path, c=c: draws.weight_key(c, path))
+            pc = ParamCtx(ctx=axes.at_client(c), compute_dtype=cd, sp=cfg.seq_parallel,
+                          transform=transform)
             leaves = {p: params[p].detach().requires_grad_() for p in paths}
             cb = {k: v[c * b:(c + 1) * b] for k, v in batch.items()}
             loss, _aux = model.train_loss(pc, leaves, cb, attn_impl=attn_impl)

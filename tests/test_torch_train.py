@@ -291,15 +291,20 @@ def test_inline_quantizer_reuses_site_draws_across_layers():
 
 def test_remat_runs_each_weight_quantization_twice(monkeypatch):
     """Under remat the checkpointed blocks run again in backward, and so do
-    their inline quantizations (K1 calls): counted, not hidden."""
+    their inline quantizations (calls of K1's inline entry): counted, not
+    hidden.  The seeded quantizer takes the keyed entry only."""
     counts = {}
-    real = ops.sr_quantize_segments
 
-    def counting(*a, **kw):
-        counts["n"] = counts.get("n", 0) + 1
-        return real(*a, **kw)
+    def counting(name):
+        real = getattr(ops, name)
 
-    monkeypatch.setattr(ops, "sr_quantize_segments", counting)
+        def count(*a, **kw):
+            counts[name] = counts.get(name, 0) + 1
+            return real(*a, **kw)
+        return count
+
+    for name in ("sr_quantize_inline", "sr_quantize_segments"):
+        monkeypatch.setattr(ops, name, counting(name))
     cfg0 = smoke_variant(get_config("yi-6b"))
     toks = torch.randint(0, 512, (2, 32), generator=torch.Generator().manual_seed(0))
     for remat, per_step in ((False, 1), (True, 2)):
@@ -310,11 +315,99 @@ def test_remat_runs_each_weight_quantization_twice(monkeypatch):
         from repro_torch.core.fwq import make_inline_quantizer
         pc = ParamCtx(ctx=AxisCtx(), compute_dtype=torch.float32,
                       transform=make_inline_quantizer(torch.tensor(1.0 / 255), seed=0))
-        counts["n"] = 0
+        counts.clear()
         loss, _ = model.train_loss(pc, params, {"tokens": toks, "labels": toks})
         torch.autograd.grad(loss, list(params.values()))
         # embed + unembed once; the block weights (7 a layer) per pass
-        assert counts["n"] == 2 + 7 * cfg.n_layers * per_step, (remat, counts)
+        assert counts.get("sr_quantize_inline") == 2 + 7 * cfg.n_layers * per_step, (
+            remat, counts)
+        assert "sr_quantize_segments" not in counts, counts
+
+
+class GivenPhiloxDraws(tsteps.SRDraws):
+    """Overrides ``weights`` with the uniforms the keyed entry would draw:
+    the step must take them as given (K1's segment entry)."""
+
+    def __init__(self, seed, round_idx):
+        super().__init__(seed, round_idx)
+        self.calls = []
+
+    def weights(self, client, path, shape, device):
+        self.calls.append((client, path))
+        return super().weights(client, path, shape, device)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_train_step_takes_the_keyed_entry_unless_weights_are_overridden(
+        compute_dtype, monkeypatch):
+    """The default :class:`SRDraws` makes each weight use one call of K1's
+    inline entry (no uniforms tensor); a subclass that overrides ``weights``
+    has its uniforms used (the segment entry), never bypassed.  Fed the
+    keyed entry's own uniforms, that path gives the same step bit for bit."""
+    cfg = dataclasses.replace(smoke_variant(get_config("yi-6b")), compute_dtype=compute_dtype)
+    model, axes = build_model(cfg), axis_ctx_for("2x1")
+    params0 = model.init(torch.Generator().manual_seed(0), 1)
+    toks = torch.randint(0, cfg.vocab_size, (4, 32), generator=torch.Generator().manual_seed(1))
+    opt = build_optimizer("sgd", LR)
+    step = tsteps.build_train_step(model, axes, opt, TrainConfig(learning_rate=LR, seed=SEED,
+                                                                 grad_compression_bits=8))
+    counts = {}
+
+    def counting(name):
+        real = getattr(ops, name)
+
+        def count(*a, **kw):
+            counts[name] = counts.get(name, 0) + 1
+            return real(*a, **kw)
+        return count
+
+    for name in ("sr_quantize_inline", "sr_quantize_segments"):
+        monkeypatch.setattr(ops, name, counting(name))
+    out = {}
+    for kind, draws in (("keyed", tsteps.SRDraws(SEED, ROUND)),
+                        ("given", GivenPhiloxDraws(SEED, ROUND))):
+        counts.clear()
+        params = {k: v.clone() for k, v in params0.items()}
+        out[kind] = step.fn(params, opt.init(params), {"tokens": toks, "labels": toks},
+                            delta_for_clients(np.array([8, 16])), draws)
+        uses = axes.dp * (2 + 7 * cfg.n_layers)         # remat off in the smoke config
+        want = ({"sr_quantize_inline": uses} if kind == "keyed"
+                else {"sr_quantize_segments": uses})
+        assert counts == want, (kind, counts)
+    assert len(draws.calls) == uses
+    (p_k, _ok, m_k), (p_g, _og, m_g) = out["keyed"], out["given"]
+    assert torch.equal(m_k["loss"], m_g["loss"])
+    assert _params_equal(p_k, p_g)
+
+
+def test_remat_rerun_reproduces_the_quantized_weights(monkeypatch):
+    """Under remat each block's weight uses are quantized again in backward,
+    from the same keys: every rerun gives the first pass's values."""
+    seen = {}
+    real = ops.sr_quantize_inline
+
+    def recording(w, delta, key, out_dtype):
+        q = real(w, delta, key, out_dtype)
+        seen.setdefault((key, w.data_ptr()), []).append(q)
+        return q
+
+    monkeypatch.setattr(ops, "sr_quantize_inline", recording)
+    cfg = dataclasses.replace(smoke_variant(get_config("yi-6b")), remat=True,
+                              compute_dtype="bfloat16")
+    model = build_model(cfg)
+    params = {k: v.requires_grad_() for k, v in
+              model.init(torch.Generator().manual_seed(0), 1).items()}
+    from repro_torch.core.fwq import make_inline_quantizer
+    pc = ParamCtx(ctx=AxisCtx(), compute_dtype=torch.bfloat16,
+                  transform=make_inline_quantizer(torch.tensor(1.0 / 255), seed=0,
+                                                  out_dtype=torch.bfloat16))
+    toks = torch.randint(0, 512, (2, 32), generator=torch.Generator().manual_seed(0))
+    loss, _ = model.train_loss(pc, params, {"tokens": toks, "labels": toks})
+    torch.autograd.grad(loss, list(params.values()))
+    runs = sorted(len(v) for v in seen.values())
+    assert runs == [1, 1] + [2] * (7 * cfg.n_layers), runs
+    for outs in seen.values():
+        assert all(o.dtype == torch.bfloat16 and torch.equal(o, outs[0]) for o in outs)
 
 
 def _port_session(workload, **kw):
