@@ -19,12 +19,21 @@ Phases (each one failing stops the script with a nonzero exit):
    flash_attention, K5 flash_decode) against its plain PyTorch version on the
    card, at the shapes of its path, with times beside the plain version, one
    library call where one computes the same function, and the card's bound;
-   K1 through both entries: the segment entry (fl-sim) and the trainer's
-   keyed inline entry (Philox4x32-10 in the kernel: Random123's known
-   answers on the card; bit-equal at bits 4-32, n 1-4099, f32 and bf16 out,
-   an unaligned base; timed at a 4096 x 11008 and a 4096 x 512 weight use
-   beside the parent's chain of operations at the same shape, and beside
-   PyTorch's max|w| reductions);
+   K1 through its three entries: the u-taking segment entry, the keyed
+   segment entry (fl-sim: scales and Philox4x32-10 uniforms made in the
+   kernel; bit-equal at 1, 3 and 7 ragged leaves and 1-4 clients, the fl
+   rounds' leaves, zero, NaN and unaligned leaves; timed at the fl rounds'
+   shapes and one 4096 x 11008 leaf beside the parent's chain) and the
+   trainer's keyed inline entry (Random123's known answers on the card;
+   bit-equal at bits 4-32, n 1-4099, f32 and bf16 out, an unaligned base;
+   timed at a 4096 x 11008 and a 4096 x 512 weight use beside the parent's
+   chain of operations at the same shape, and beside PyTorch's max|w|
+   reductions); K2 through both entries: the u-taking one and the wire's
+   keyed one (guard, scales, pitch and uniforms in the kernel; codes,
+   pitch and non-finite count bit-equal at bits 4-16 into int8/16/32, 1-7
+   leaves, 1-4 clients, the pitch at every bits 1-31, NaN and +-Inf, an
+   unaligned base; timed at the trainer's wire and at 4 x 4096 x 11008 in
+   int8 and int16 beside the parent's chain);
    K3, K4 and K5 also launched twice on identical inputs, the outputs
    bit-equal.  K4's rows name the path and tiles of
    ``plan_attention`` and the SDPA backend of their library time (fused:
@@ -51,20 +60,21 @@ Phases (each one failing stops the script with a nonzero exit):
    ``Session.serve`` with K4 launched on the split path only.
 7. fl: the paper's FWQ loop (``Session.run_fl_sim``) on the card — the
    quickstart ``mobilenet`` spec and the ``fl-codesign-grid`` ``resnet``
-   spec, 10 rounds each, 8 clients, one K1 launch per round — checked
-   against a CPU run of the same specs (host math exactly equal), one round
-   run through K1 and through the plain version (quantized parameters
-   bit-equal), and profiled.
+   spec, 10 rounds each, 8 clients, one call of K1's keyed segment entry per
+   round — checked against a CPU run of the same specs (host math exactly
+   equal), one round run through K1 and through the plain version
+   (quantized parameters bit-equal, and equal to the u-taking entry fed
+   ``round_uniforms``), and profiled.
 8. train: the pod trainer (``Session.run_train``) on full-width yi-6b cut to
    8 layers, a 4x1 mesh (4 clients on the card): 3 rounds of
    ``fl-orchestrate`` (scheme unified_q, int16 SR gradient wire) and 2 rounds of
    ``train`` at fixed 8-bit weights (int8 wire); per round the loss, plan,
    step time, K1/K2 launches and peak memory; exactly 456 K1 launches (the
-   inline entry, one a weight use) and one K2 launch a step; a profiled
-   round (device ms by family, busy share, host syncs); one weight use
-   through the inline K1 and K2 on a step's real replicated gradients
-   against their plain versions; the rounds' plans against a CPU run of
-   the same orchestrator.
+   inline entry, one a weight use) and one call of K2's keyed entry a step;
+   a profiled round (device ms by family, busy share, host syncs); one
+   weight use through the inline K1 and the keyed K2 on a step's real
+   replicated gradients against their plain versions; the rounds' plans
+   against a CPU run of the same orchestrator.
 
 The last two lines are the kernel table and ``{"ok": true, "device": ...}``.
 ``--phases`` runs a subset (for iterating on one kernel); phase ``sweep``,
@@ -74,9 +84,10 @@ at its rows' shapes under every split of the page axis, and phase
 ``attn_sweep`` times K4 under every tile its path takes: the wgmma path at
 the main path's, gemma-7b's, the S 513 and two head-dim-16 rows, the split
 path at the main f32 row, S 513 (causal and not) and head dims 16 and 256.
-Phase ``train_profile`` profiles rounds 1-2 of the ``train`` run alone;
-with ``--src=DIR`` it imports the port from another checkout (a parent
-commit), so two trees compare in one call.
+Phase ``train_profile`` profiles rounds 1-2 of the ``train`` run alone
+(device ms by family, the uniform-drawing kernels, host syncs); with
+``--src=DIR`` it imports the port from another checkout (a parent commit),
+so two trees compare in one call.
 """
 
 from __future__ import annotations
@@ -118,8 +129,12 @@ KERNELS = {
                      replaces="src/repro/kernels/sr_quant.py:59"),
     "sr_quant_inline": dict(route="cuda", source="src/repro_torch/csrc/sr_quant.cu",
                             replaces="src/repro/kernels/sr_quant.py:59"),
+    "sr_quant_keyed": dict(route="cuda", source="src/repro_torch/csrc/sr_quant.cu",
+                           replaces="src/repro/kernels/sr_quant.py:59"),
     "sr_pack": dict(route="cuda", source="src/repro_torch/csrc/sr_quant.cu",
                     replaces="src/repro/kernels/sr_quant.py:72"),
+    "sr_pack_keyed": dict(route="cuda", source="src/repro_torch/csrc/sr_quant.cu",
+                          replaces="src/repro/kernels/sr_quant.py:72"),
     "quant_matmul": dict(route="cuda", source="src/repro_torch/csrc/quant_matmul.cu",
                          replaces="src/repro/kernels/quant_matmul.py:83"),
     "flash_attention": dict(route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
@@ -262,6 +277,9 @@ def _ptxas_report(log: str) -> dict:
             spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             if spills:
                 report[entry]["spill_bytes"] += int(spills[1]) + int(spills[2])
+            stack = re.search(r"(\d+) bytes stack frame", line)
+            if stack:
+                report[entry]["stack_bytes"] = int(stack[1])
     return report
 
 
@@ -290,10 +308,18 @@ def phase_build() -> None:
     n_fw = sum(map(len, fa.ATTN_TILES.values()))
     n_fs = sum(map(len, fa.ATTN_SPLIT_TILES.values()))
     assert len(must_not_spill) == 40 + n_fw + n_fs, must_not_spill
-    # K1's inline entry: its max|w| pass and its rounding pass (f32, bf16 out)
-    k1_inline = [e for e in report if "sr_absmax_kernel" in e or "sr_quant_inline_kernel" in e]
-    assert len(k1_inline) == 3, k1_inline
-    must_not_spill += k1_inline
+    # the keyed entries' passes read their by-value table from the constant
+    # bank: no stack frame (a local copy of the table) and no spills.  Pass
+    # 1: K1's at the inline entry's one-leaf table and the segment table,
+    # K2's; K1's pass 2: f32 and bf16 out at one leaf (the inline entry), f32
+    # at the segment table; K2's pass 2 at three code types
+    keyed = [e for e in report if any(k in e for k in ("seg_absmax_kernel",
+                                                        "sr_quant_keyed_kernel",
+                                                        "sr_pack_keyed_kernel"))]
+    assert len(keyed) == 9, keyed
+    must_not_spill += keyed
+    stacked = {e: report[e].get("stack_bytes") for e in keyed if report[e].get("stack_bytes")}
+    assert not stacked, f"stack frames: {stacked}"
     spilled = {e: report[e]["spill_bytes"] for e in must_not_spill if report[e]["spill_bytes"]}
     assert not spilled, f"spills: {spilled}"
     # no K4 instance has its wgmma serialised by ptxas (a branch around
@@ -732,13 +758,19 @@ def _segments(sizes, C, gen, scale=0.3):
     return w, offsets, s, u
 
 
-def _fl_leaf_sizes(arch: str) -> list:
-    from repro_torch.core.quantization import quantizable_paths
+def _fl_params(arch: str) -> dict:
+    """The fl-sim specs' models (phase ``fl``), initialised on the card."""
     from repro_torch.models import cnn
 
     model = (cnn.mobilenet(width=8, n_stages=2) if arch == "mobilenet"
              else cnn.resnet(depth_blocks=(1, 1), width=8))
-    params = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+    return model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+
+
+def _fl_leaf_sizes(arch: str) -> list:
+    from repro_torch.core.quantization import quantizable_paths
+
+    params = _fl_params(arch)
     return [params[p].numel() for _i, p in quantizable_paths(params)]
 
 
@@ -910,8 +942,8 @@ def check_sr_quant_inline(table: dict) -> None:
         bytes_ms = nbytes / HBM_BYTES_S * 1e3
         kernel_ms = time_ms(sq.sr_quant_inline_cuda, [args], iters=10 if n > 1e7 else 50)
         passes = _device_ms_by_name(lambda: sq.sr_quant_inline_cuda(*args), 10)
-        absmax_ms = sum(r[0] for r in passes if "sr_absmax" in r[2]) if passes else None
-        quant_ms = sum(r[0] for r in passes if "sr_quant_inline" in r[2]) if passes else None
+        absmax_ms = _pass_ms(passes, ("seg_absmax",))
+        quant_ms = _pass_ms(passes, ("sr_quant_keyed",))
         wg = w.detach().clone().requires_grad_()
         earlier = _device_ms_by_name(lambda: earlier_weight_use(wg, d.reshape(()), site), 5)
         key = site_key(*site)
@@ -1001,15 +1033,330 @@ def check_sr_pack(table: dict) -> None:
     print("sr_pack: bit-equal to the plain version in every case (atol 0)")
 
 
+#: the keyed entries' bit-equality cases: leaf sizes (none a multiple of 4,
+#: so 4-groups straddle leaves) and clients
+KEYED_SIZES = ([1003], [5, 130, 1], [3, 17, 2, 41, 1, 9, 66])
+KEYED_CLIENTS = (1, 2, 4)
+
+
+def _grads(sizes, C, gen, scale=0.01):
+    """Per leaf, C clients' f32 gradients on the card."""
+    return [[torch.randn(n, generator=gen, device="cuda") * scale * (i + 1)
+             for _c in range(C)] for i, n in enumerate(sizes)]
+
+
+def _cpu(leaves):
+    return [[g.cpu() for g in leaf] for leaf in leaves]
+
+
+def _same_pack(label, got, want) -> None:
+    for name, a, b in zip(("codes", "step", "non-finite count"), got, want):
+        if not torch.equal(a.cpu(), b.cpu()):
+            bad = int((a.cpu() != b.cpu()).sum())
+            raise AssertionError(f"sr_pack_keyed {label}: {bad} {name} differ from the plain "
+                                 "version")
+
+
+def earlier_wire(leaves, seed: int, round_idx: int, bits: int, dtype):
+    """The trainer's wire as the parent tree ran it: a seeded generator and
+    ``torch.rand`` for each (leaf, client), a ``torch.stack`` a leaf, the
+    "raise" guard's host read a leaf, the scales, the offsets and two f32
+    reciprocals built on the host, the two concatenations, K2's u-taking
+    entry, the integer sum and the dequant."""
+    from repro_torch.core.fwq import site_key
+    from repro_torch.dist.collectives import code_bound
+
+    dev, n = leaves[0][0].device, len(leaves[0])
+
+    def recip(k):
+        one = torch.tensor(1.0, dtype=torch.float32)
+        return (one / torch.tensor(float(k), dtype=torch.float32)).to(dev)
+
+    us = []
+    for i, leaf in enumerate(leaves):
+        rows = []
+        for c in range(n):
+            gen = torch.Generator(device=dev).manual_seed(site_key(seed, round_idx, 17, i, c))
+            rows.append(torch.rand(tuple(leaf[c].shape), generator=gen, device=dev))
+        us.append(torch.stack(rows))
+    gfs = [torch.stack(leaf).to(torch.float32) for leaf in leaves]
+    bad = sum(int((~torch.isfinite(g)).sum()) for g in gfs)
+    assert bad == 0, bad
+    s = torch.stack([g.abs().amax() for g in gfs])
+    s = torch.where(s > 0, s, torch.ones_like(s))
+    lim = code_bound(bits)
+    step = s * recip(lim)
+    sizes = [g[0].numel() for g in gfs]
+    offsets = torch.tensor([0, *np.cumsum(sizes)], dtype=torch.int32, device=dev)
+    flat = torch.cat([g.reshape(n, -1) for g in gfs], dim=1)
+    uflat = torch.cat([u.reshape(n, -1) for u in us], dim=1)
+    codes = sq.sr_pack_segments_cuda(flat, offsets, step, uflat, lim, dtype)
+    total = codes.sum(dim=0, dtype=torch.int64).to(torch.float32)
+    inv_n = recip(n)
+    return [((chunk * step[i]) * inv_n).reshape(g.shape[1:])
+            for i, (g, chunk) in enumerate(zip(gfs, total.split(sizes)))]
+
+
+def keyed_wire(leaves, key: int, bits: int):
+    """The same wire through this tree's keyed path ("raise": one host read)."""
+    from repro_torch.dist.collectives import AxisCtx, quantized_psum_batch
+
+    n = len(leaves[0])
+    return quantized_psum_batch(AxisCtx(("data",), None, ("data",), (("data", n),)),
+                                leaves, None, bits, key=key)
+
+
+def _pass_ms(rows, frags) -> float | None:
+    return sum(r[0] for r in rows if any(f in r[2] for f in frags)) if rows else None
+
+
+def check_sr_pack_keyed(table: dict) -> None:
+    """K2's keyed entry against its plain version with atol 0 (on the card
+    and on the CPU; codes, pitch and non-finite count): bits 4, 8, 12, 16
+    into int8, int16, int32 at 1, 3 and 7 ragged leaves and 1, 2, 4 clients;
+    the pitch at every bits 1-31; NaN and +-Inf under "saturate" and the
+    count "raise" reads; an unaligned base.  Then timed at the trainer's
+    wire and at 4 x 4096 x 11008 (int8 and int16) beside the parent's chain
+    at the same shape, with each pass's device time and the bound."""
+    from repro_torch.core.fwq import site_key
+    from repro_torch.dist import collectives as tcol
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    key = 0x9E3779B97F4A7C15
+    n_cases = 0
+    for sizes in KEYED_SIZES:
+        for C in KEYED_CLIENTS:
+            leaves = _grads(sizes, C, gen)
+            for bits in (4, 8, 12, 16):
+                for dtype in sq.CODE_DTYPES:
+                    lim = 2**bits - 1
+                    got = sq.sr_pack_keyed_cuda(leaves, key, lim, dtype)
+                    torch.cuda.synchronize()
+                    label = f"L {len(sizes)} C {C} bits {bits} {dtype}"
+                    _same_pack(label, got, sq.sr_pack_keyed_plain(leaves, key, lim, dtype))
+                    _same_pack(label + " (CPU)", got,
+                               sq.sr_pack_keyed_plain(_cpu(leaves), key, lim, dtype))
+                    n_cases += 1
+    leaves = _grads([37, 6], 3, gen, scale=3.0)
+    for bits in range(1, 32):
+        lim = 2**bits - 1
+        got = sq.sr_pack_keyed_cuda(leaves, key, lim, torch.int32)
+        _same_pack(f"pitch bits {bits} (CPU)", got,
+                   sq.sr_pack_keyed_plain(_cpu(leaves), key, lim, torch.int32))
+        n_cases += 1
+    # NaN and +-Inf: "saturate" takes the codes as they are, "raise" reads the count
+    leaves = _grads([9, 14, 5], 3, gen, scale=1.0)
+    leaves[0][0][1], leaves[1][2][3], leaves[1][0][0] = float("nan"), float("inf"), -float("inf")
+    leaves[2][1][:] = float("inf")
+    got = sq.sr_pack_keyed_cuda(leaves, key, 255, torch.int16)
+    _same_pack("NaN/Inf", got, sq.sr_pack_keyed_plain(_cpu(leaves), key, 255, torch.int16))
+    if int(got[2]) != 8:
+        raise AssertionError(f"sr_pack_keyed: non-finite count {int(got[2])}, want 8")
+    axes = tcol.AxisCtx(("data",), None, ("data",), (("data", 3),))
+    sat = tcol.quantized_psum_batch(axes, leaves, None, 8, key=key, on_nonfinite="saturate")
+    want = tcol.quantized_psum_batch(axes, _cpu(leaves), None, 8, key=key,
+                                     on_nonfinite="saturate")
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(sat, want)):
+        raise AssertionError("sr_pack_keyed: the saturated wire differs from the plain one")
+    try:
+        tcol.quantized_psum_batch(axes, leaves, None, 8, key=key)
+        raise AssertionError("sr_pack_keyed: 'raise' let 8 non-finite values through")
+    except FloatingPointError as e:
+        if "8 non-finite gradient values" not in str(e):
+            raise
+    buf = torch.randn(4 * 4101 + 1, generator=gen, device="cuda")
+    leaves = [[buf[1 + c * 4101:1 + (c + 1) * 4101] for c in range(4)]]   # 4-byte offsets
+    got = sq.sr_pack_keyed_cuda(leaves, key, 255, torch.int16)
+    _same_pack("unaligned bases", got, sq.sr_pack_keyed_plain(_cpu(leaves), key, 255,
+                                                              torch.int16))
+    n_cases += 3
+    print(f"sr_pack_keyed: bit-equal to the plain version in all {n_cases} cases (atol 0; "
+          "card and CPU; codes, pitch, count)")
+
+    cases = [("train step wire, int16", TRAIN_WIRE_SIZES, 4, 8, torch.int16),
+             ("4x4096x11008, int8", [4096 * 11008], 4, 4, torch.int8),
+             ("4x4096x11008, int16", [4096 * 11008], 4, 8, torch.int16)]
+    for label, sizes, C, bits, dtype in cases:
+        leaves = _grads(sizes, C, gen)
+        lim, P = 2**bits - 1, sum(sizes)
+        args = (leaves, key, lim, dtype)
+        got = sq.sr_pack_keyed_cuda(*args)
+        want = sq.sr_pack_keyed_plain(*args)
+        torch.cuda.synchronize()
+        _same_pack(label, got, want)
+        # g read once, the codes written once, the pitch and the count
+        nbytes = 4 * C * P + C * P * got[0].element_size() + 4 * len(sizes) + 8
+        b_ms, b_by = bound_ms(nbytes, 20.0 * C * P, torch.int32)
+        big = C * P > 1e7
+        kernel_ms = time_ms(sq.sr_pack_keyed_cuda, [args], iters=10 if big else 50)
+        passes = _device_ms_by_name(lambda: sq.sr_pack_keyed_cuda(*args), 5)
+        site = (0, 2)
+        earlier = _device_ms_by_name(lambda: earlier_wire(leaves, *site, bits, dtype), 3)
+        entry = _device_ms_by_name(lambda: keyed_wire(leaves, site_key(*site, 17), bits), 3)
+        row = dict(
+            kernel="sr_pack_keyed", case=label, clients=C, leaves=len(sizes), P=P, bits=bits,
+            codes=str(dtype), max_abs_err=float((got[0].float() - want[0].float()).abs().max()),
+            kernel_ms=kernel_ms, bound_ms=b_ms, bound_by=b_by,
+            bytes_ms=nbytes / HBM_BYTES_S * 1e3, share_of_bound=b_ms / kernel_ms,
+            absmax_pass_ms=_pass_ms(passes, ("seg_absmax",)),
+            pack_pass_ms=_pass_ms(passes, ("sr_pack_keyed",)),
+            wire_host_ms=time_events_ms(keyed_wire, (leaves, site_key(*site, 17), bits),
+                                        iters=5 if big else 10),
+            earlier_host_ms=time_events_ms(earlier_wire, (leaves, *site, bits, dtype),
+                                           iters=5 if big else 10),
+            wire_device_ms=sum(r[0] for r in entry) if entry else "not measured",
+            earlier_device_ms=sum(r[0] for r in earlier) if earlier else "not measured",
+            wire_device_ops=sum(r[1] for r in entry) if entry else "not measured",
+            earlier_device_ops=sum(r[1] for r in earlier) if earlier else "not measured",
+            earlier_kernels=[{"ms": ms, "count": c, "name": nm[:60]}
+                             for ms, c, nm in earlier[:8]],
+            plain_ms=time_events_ms(sq.sr_pack_keyed_plain, args, iters=3, warmup=1),
+            library_ms=None)
+        emit(row)
+        if label.startswith("train step"):
+            table["sr_pack_keyed"] = row
+        del leaves, got, want
+
+
+def earlier_fl_quantize(params, delta, seed: int, round_idx: int):
+    """An fl-sim round's quantization as the parent tree ran it: a fresh
+    generator seeded from (seed, round), a (C, P) ``torch.rand``, then
+    ``quantize_clients`` with those uniforms (L ``tensor_scale`` reductions
+    and a stack, offsets built on the host, the concatenation, K1)."""
+    from repro_torch.core.fwq import site_key
+    from repro_torch.core.quantization import quantizable_size, quantize_clients
+
+    dev = delta.device
+    gen = torch.Generator(device=dev).manual_seed(site_key(seed, round_idx))
+    u = torch.rand((delta.shape[0], quantizable_size(params)[0]), generator=gen, device=dev)
+    return quantize_clients(params, delta, u)
+
+
+def keyed_fl_quantize(params, delta, key: int):
+    from repro_torch.core.quantization import quantize_clients
+
+    return quantize_clients(params, delta, key=key)
+
+
+def check_sr_quant_keyed(table: dict) -> None:
+    """K1's keyed segment entry against its plain version with atol 0 (on
+    the card and on the CPU): 1, 3 and 7 ragged leaves at 1, 2 and 4 clients
+    (bits 4, 8, 16, 32: a zero delta returns w), an all-zero leaf, a NaN
+    leaf, unaligned bases; the fl rounds' leaves at 8 clients.  Then timed
+    at the fl rounds' shapes and at one 4096 x 11008 leaf beside the
+    parent's chain (a generator, ``torch.rand``, the scales, the host-built
+    offsets, the concatenation, K1)."""
+    from repro_torch.core.fwq import delta_for_clients
+    from repro_torch.core.quantization import quantizable_paths
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    key = 0xD1B54A32D192ED03
+    bits_all = np.array([8, 32, 4, 16, 8, 16, 8, 16])
+    n_cases = 0
+
+    def same(label, leaves, delta):
+        got = sq.sr_quant_segments_keyed_cuda(leaves, delta, key)
+        torch.cuda.synchronize()
+        for where, want in (
+                ("plain on the card", sq.sr_quant_segments_keyed_plain(leaves, delta, key)),
+                ("plain on the CPU", sq.sr_quant_segments_keyed_plain(
+                    [x.cpu() for x in leaves], delta.cpu(), key).cuda())):
+            # bit-equal, a NaN where the plain version has one (a NaN w stays NaN)
+            nan = torch.isnan(want)
+            if not (torch.equal(torch.isnan(got), nan) and
+                    torch.equal(got.masked_fill(nan, 0.0), want.masked_fill(nan, 0.0))):
+                bad = int((got.masked_fill(nan, 0.0) != want.masked_fill(nan, 0.0)).sum())
+                raise AssertionError(f"sr_quant_keyed {label}: {bad} elements differ from "
+                                     f"the {where}")
+        return got
+
+    for sizes in KEYED_SIZES:
+        for C in KEYED_CLIENTS:
+            leaves = [x[0] * 30 for x in _grads(sizes, 1, gen)]
+            delta = delta_for_clients(bits_all[:C]).cuda()
+            got = same(f"L {len(sizes)} C {C}", leaves, delta)
+            n_cases += 1
+            if C > 1 and not torch.equal(got[1], torch.cat(leaves)):
+                raise AssertionError("sr_quant_keyed: a zero delta must return w")
+    delta = delta_for_clients(bits_all[:3]).cuda()
+    nan_leaf = torch.randn(33, generator=gen, device="cuda")
+    nan_leaf[7] = float("nan")
+    buf = torch.randn(4102, generator=gen, device="cuda")
+    for label, leaves in (("an all-zero leaf", [torch.zeros(41, device="cuda"),
+                                                torch.randn(9, generator=gen, device="cuda")]),
+                          ("a NaN leaf", [nan_leaf, torch.randn(12, generator=gen,
+                                                                device="cuda")]),
+                          ("unaligned bases", [buf[1:2050], buf[2051:]])):
+        same(label, leaves, delta)
+        n_cases += 1
+    d8 = delta_for_clients(bits_all).cuda()
+    for arch in ("mobilenet", "resnet"):
+        params = _fl_params(arch)
+        same(f"{arch} round", [params[p].reshape(-1) for _i, p in quantizable_paths(params)],
+             d8)
+        n_cases += 1
+    print(f"sr_quant_keyed: bit-equal to the plain version in all {n_cases} cases (atol 0; "
+          "card and CPU)")
+
+    for label, arch, C in (("mobilenet round", "mobilenet", 8), ("resnet round", "resnet", 8),
+                           ("4096x11008, 1 client", None, 1)):
+        if arch:
+            params = _fl_params(arch)
+        else:
+            params = {"w/w": torch.randn((4096, 11008), generator=gen, device="cuda") * 0.02}
+        leaves = [params[p].reshape(-1) for _i, p in quantizable_paths(params)]
+        delta = d8[:C]
+        args = (leaves, delta, key)
+        got = sq.sr_quant_segments_keyed_cuda(*args)
+        want = sq.sr_quant_segments_keyed_plain(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"sr_quant_keyed {label}: differs from the plain version")
+        P, L = got.shape[1], len(leaves)
+        # w read once, the output written once a client, delta
+        nbytes = 4 * P + 4 * C * P + 4 * C
+        b_ms, b_by = bound_ms(nbytes, 20.0 * C * P, torch.int32)
+        big = P > 1e7
+        passes = _device_ms_by_name(lambda: sq.sr_quant_segments_keyed_cuda(*args), 5)
+        earlier = _device_ms_by_name(lambda: earlier_fl_quantize(params, delta, 0, 1), 3)
+        entry = _device_ms_by_name(lambda: keyed_fl_quantize(params, delta, key), 3)
+        kernel_ms = time_ms(sq.sr_quant_segments_keyed_cuda, [args], iters=10 if big else 50)
+        row = dict(
+            kernel="sr_quant_keyed", case=label, clients=C, leaves=L, P=P,
+            max_abs_err=float((got - want).abs().max()), kernel_ms=kernel_ms,
+            bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / kernel_ms,
+            absmax_pass_ms=_pass_ms(passes, ("seg_absmax",)),
+            rounding_pass_ms=_pass_ms(passes, ("sr_quant_keyed",)),
+            entry_host_ms=time_events_ms(keyed_fl_quantize, (params, delta, key),
+                                         iters=3 if big else 10),
+            earlier_host_ms=time_events_ms(earlier_fl_quantize, (params, delta, 0, 1),
+                                           iters=3 if big else 10),
+            entry_device_ms=sum(r[0] for r in entry) if entry else "not measured",
+            earlier_device_ms=sum(r[0] for r in earlier) if earlier else "not measured",
+            entry_device_ops=sum(r[1] for r in entry) if entry else "not measured",
+            earlier_device_ops=sum(r[1] for r in earlier) if earlier else "not measured",
+            earlier_kernels=[{"ms": ms, "count": c, "name": nm[:60]}
+                             for ms, c, nm in earlier[:8]],
+            plain_ms=time_events_ms(sq.sr_quant_segments_keyed_plain, args, iters=3, warmup=1),
+            library_ms=None)
+        emit(row)
+        if label == "mobilenet round":
+            table["sr_quant_keyed"] = row
+        del params, leaves, got, want
+
+
 def phase_kernels(table: dict) -> None:
     check_sr_quant(table)
+    check_sr_quant_keyed(table)
     check_sr_quant_inline(table)
     check_sr_pack(table)
+    check_sr_pack_keyed(table)
     check_quant_matmul(table)
     check_flash_attention(table)
     check_attention_one_hot()
     check_flash_decode(table)
-    print("kernels: all five agree with their plain versions (K1 through both entries)")
+    print("kernels: all five agree with their plain versions (K1 through its three entries, "
+          "K2 through both)")
 
 
 #: The serve runs: yi-6b as in every earlier slice, then gemma-7b (head dim
@@ -1073,7 +1420,7 @@ def plain_kernels():
     """Route ops' kernel entry points to the plain versions (the
     consistency checks only)."""
     saved = (ops.quant_matmul, ops.flash_attention, ops.flash_paged_decode,
-             ops.sr_quantize_segments)
+             ops.sr_quantize_segments, ops.sr_quantize_segments_keyed, ops.sr_pack_keyed)
 
     def qmm(x, codes, scale):
         return qm.quant_matmul_plain(x, codes, scale)
@@ -1087,13 +1434,20 @@ def plain_kernels():
     def srq(w, offsets, s, delta, u):
         return sq.sr_quant_segments_plain(w, offsets, s, delta, u)
 
-    (ops.quant_matmul, ops.flash_attention, ops.flash_paged_decode,
-     ops.sr_quantize_segments) = qmm, attn, dec, srq
+    def srq_keyed(leaves, delta, key):
+        return sq.sr_quant_segments_keyed_plain([x.reshape(-1) for x in leaves], delta, key)
+
+    def pack_keyed(leaves, key, lim, dtype):
+        return sq.sr_pack_keyed_plain(leaves, key, lim, dtype)
+
+    (ops.quant_matmul, ops.flash_attention, ops.flash_paged_decode, ops.sr_quantize_segments,
+     ops.sr_quantize_segments_keyed, ops.sr_pack_keyed) = (qmm, attn, dec, srq, srq_keyed,
+                                                           pack_keyed)
     try:
         yield
     finally:
         (ops.quant_matmul, ops.flash_attention, ops.flash_paged_decode,
-         ops.sr_quantize_segments) = saved
+         ops.sr_quantize_segments, ops.sr_quantize_segments_keyed, ops.sr_pack_keyed) = saved
 
 
 def prefilled(cfg, policy, *, seed: int = 0, batch: int = 4, s_max: int = 256,
@@ -1150,23 +1504,62 @@ def step_logits(cfg, policy, **kw) -> dict:
     return {"prefill_logits": lp, "decode_logits": ld}
 
 
+#: Throw-away kernels each profiler session opens with.  Late in a long
+#: process the trace loses the first device activities of a session (on one
+#: H100: none in a fresh process, 1 after phases serve, profile and
+#: consistency, 5-6 by phases fl and train, where they were K1's two keyed
+#: kernels and the trainer step's first operations).
+_PAD_KERNELS = 64
+_SPAN = "chip_smoke_span"
+
+
+def _trace(fn):
+    """``fn()`` under ``torch.profiler`` -> (the device events of ``fn``, all
+    events, the span that brackets ``fn``).  The session opens with
+    throw-away kernels and a synchronize; the device activity that starts
+    inside the span is ``fn``'s (the span's own annotation on the device's
+    timeline is not activity).  At least one throw-away kernel must be in
+    the trace, so that none of ``fn``'s activity was lost."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    pad = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(_PAD_KERNELS):
+            pad.add_(1)
+        torch.cuda.synchronize()
+        with record_function(_SPAN):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    span = next(e.time_range for e in events
+                if e.name == _SPAN and e.device_type == DeviceType.CPU)
+    device = [e for e in events if e.device_type == DeviceType.CUDA and e.name != _SPAN]
+    mine = [e for e in device if e.time_range.start >= span.start]
+    assert len(mine) < len(device), "the trace lost every throw-away kernel"
+    return mine, events, span
+
+
+def _by_name(device_events) -> dict:
+    """``{name: [ms, count]}`` of device events (kernels, copies): an aten
+    op's device time is its kernels' time again, so only device activity."""
+    per: dict = {}
+    for e in device_events:
+        acc = per.setdefault(e.name, [0.0, 0])
+        acc[0] += e.time_range.elapsed_us() / 1e3
+        acc[1] += 1
+    return per
+
+
 def _device_ms_by_name(fn, n: int) -> list:
     """``fn`` run ``n`` times under ``torch.profiler``: (device ms per run,
     launches per run, kernel name) of every device activity, largest first."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    def run():
         for _ in range(n):
             fn()
-    # device activity only (kernels, copies): an aten op's device time is its
-    # kernels' time again, so summing every event would count it twice
-    per_name: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            acc = per_name.setdefault(e.name, [0.0, 0])
-            acc[0] += e.time_range.elapsed_us() / 1e3
-            acc[1] += 1
+
+    per_name = _by_name(_trace(run)[0])
     return sorted(((ms / n, c // n, name) for name, (ms, c) in per_name.items()), reverse=True)
 
 
@@ -1353,7 +1746,8 @@ def _same(a, b) -> bool:
 def round_clock(rows: list):
     """Per round: host-clock seconds of planning (channel draw, GBD
     co-design, energy model) and of training (data to the card, K1, the
-    clients' gradients, the server step, the loss back), and K1 launches."""
+    clients' gradients, the server step, the loss back), and K1 calls (all
+    entries, and the keyed segment entry's)."""
     from repro_torch.fed.orchestrator import FLOrchestrator
     from repro_torch.fed.simulation import FLSimulation
 
@@ -1367,11 +1761,13 @@ def round_clock(rows: list):
 
     def timed_run(self, *a, **kw):
         k0, t0 = ops.LAUNCHES["sr_quant"], time.perf_counter()
+        kk = ops.LAUNCHES["sr_quant_keyed"]
         out = run(self, *a, **kw)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         rows[-1].update(train_s=t1 - t0, round_s=t1 - rows[-1].pop("t0"),
-                        k1_launches=ops.LAUNCHES["sr_quant"] - k0)
+                        k1_launches=ops.LAUNCHES["sr_quant"] - k0,
+                        k1_keyed_launches=ops.LAUNCHES["sr_quant_keyed"] - kk)
         return out
 
     FLOrchestrator.plan_round, FLSimulation.run_round = timed_plan, timed_run
@@ -1401,9 +1797,10 @@ FL_BITS = np.array([16, 8, 16, 16, 16, 8, 8, 16])     # the quickstart's GBD cho
 
 
 def check_fl_round(device: str = "cuda") -> None:
-    """One FWQ round from the same parameters and the same uniforms, through
-    K1 and through the plain version on the card, and through the plain
-    version on the CPU."""
+    """One FWQ round from the same parameters and the same key, through K1's
+    keyed entry and through the plain version on the card, and on the CPU
+    through the u-taking path fed ``round_uniforms``' tensor (the keyed
+    draws, so the round is the same)."""
     from repro_torch.core.fwq import delta_for_clients
     from repro_torch.core.quantization import quantize_clients
 
@@ -1411,13 +1808,15 @@ def check_fl_round(device: str = "cuda") -> None:
     bits = FL_BITS
     u = sim.round_uniforms(0, len(bits))
     delta = delta_for_clients(bits).to(device)
-    q_kernel = quantize_clients(sim.params, delta, u)
+    key = sim.round_key(0)
+    q_kernel = quantize_clients(sim.params, delta, key=key)
+    q_given = quantize_clients(sim.params, delta, u)
     with plain_kernels():
-        q_plain = quantize_clients(sim.params, delta, u)
+        q_plain = quantize_clients(sim.params, delta, key=key)
     for p, q in q_kernel.items():
-        if not torch.equal(q, q_plain[p]):
-            raise AssertionError(f"fl round: K1's quantized {p} differs from the plain "
-                                 "version's")
+        if not (torch.equal(q, q_plain[p]) and torch.equal(q, q_given[p])):
+            raise AssertionError(f"fl round: K1's keyed {p} differs from the plain version's "
+                                 "or from the u-taking entry fed round_uniforms")
     start = {k: v.clone() for k, v in sim.params.items()}
     after, losses = {}, {}
     for label, ctx in (("kernel", contextlib.nullcontext()), ("plain", plain_kernels())):
@@ -1438,17 +1837,14 @@ def check_fl_round(device: str = "cuda") -> None:
             torch.testing.assert_close(v, after[label][k], rtol=1e-5, atol=1e-5)
         err[label] = max(float((v - after[label][k]).abs().max())
                          for k, v in after["kernel"].items())
-    out = {"quantized_bit_equal": True, "tol": 1e-5, "losses": losses,
-           "max_abs_param_diff": err}
+    out = {"quantized_bit_equal": True, "keyed_equals_round_uniforms": True, "tol": 1e-5,
+           "losses": losses, "max_abs_param_diff": err}
     emit({"fl_round_kernel_vs_plain": out})
 
 
 def profile_fl_round(dev: dict, gbd_s: list, device: str = "cuda") -> None:
     """Where one round's time goes: host clock of the training part, and the
     device time by kernel and copy from ``torch.profiler``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     sim, batch = _fl_sim(device)
     for _ in range(2):                                   # warm up
         sim.run_round(batch, FL_BITS)
@@ -1457,44 +1853,41 @@ def profile_fl_round(dev: dict, gbd_s: list, device: str = "cuda") -> None:
         sim.run_round(batch, FL_BITS)
     torch.cuda.synchronize()
     train_ms = (time.perf_counter() - t0) * 1e3 / n
-    # the quantization step alone: scales, offsets, the concatenation and K1
+    # the quantization step alone: K1's keyed entry, and the parent's chain
     from repro_torch.core.fwq import delta_for_clients
-    from repro_torch.core.quantization import quantize_clients
 
     delta = delta_for_clients(FL_BITS).to(device)
-    u = sim.round_uniforms(0, len(FL_BITS))
-    t0 = time.perf_counter()
-    for _ in range(n):
-        quantize_clients(sim.params, delta, u)
-    torch.cuda.synchronize()
-    quant_ms = (time.perf_counter() - t0) * 1e3 / n
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        sim.run_round(batch, FL_BITS)
-        torch.cuda.synchronize()
-    per: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            acc = per.setdefault(e.name, [0.0, 0])
-            acc[0] += e.time_range.elapsed_us() / 1e3
-            acc[1] += 1
+    quant_ms = time_events_ms(keyed_fl_quantize, (sim.params, delta, sim.round_key(0)), n)
+    earlier_ms = time_events_ms(earlier_fl_quantize, (sim.params, delta, 0, 0), n)
+    k1_calls = ops.LAUNCHES["sr_quant_keyed"]
+    per = _by_name(_trace(lambda: sim.run_round(batch, FL_BITS))[0])
+    k1_calls = ops.LAUNCHES["sr_quant_keyed"] - k1_calls
     device_ms = sum(v[0] for v in per.values())
-    k1 = sum(v[0] for k, v in per.items() if "sr_quant" in k)
+    k1_kernels = {k: v for k, v in per.items() if "sr_quant" in k or "seg_absmax" in k}
+    k1 = sum(v[0] for v in k1_kernels.values())
+    # one keyed K1 call a round, its two passes in the trace
+    assert k1_calls == 1 and sum(v[1] for v in k1_kernels.values()) == 2 and k1 > 0, \
+        (k1_calls, k1_kernels)
+    rand = sum(v[1] for k, v in per.items() if "uniform" in k.lower() or "philox" in k.lower())
     copies = sum(v[0] for k, v in per.items() if "memcpy" in k.lower())
     n_copy = sum(v[1] for k, v in per.items() if "memcpy" in k.lower())
     rows = sorted(((v[0], v[1], k) for k, v in per.items()), reverse=True)
     emit({"fl_profile": {
         "card": f"{dev['kind']} ({dev['smi']})", "model": "mobilenet", "clients": 8,
         "batch": 16, "train_ms_host_clock": train_ms, "quantize_ms_host_clock": quant_ms,
+        "earlier_quantize_ms_host_clock": earlier_ms, "rand_launches": rand,
         "gbd_solve_s_host_clock": gbd_s,
         "device_ms": device_ms if rows else "not measured",
         "device_busy_share": device_ms / train_ms if rows else "not measured",
-        "k1_ms": k1, "memcpy_ms": copies, "memcpy_count": n_copy,
+        "k1_ms": k1, "k1_keyed_calls": k1_calls, "k1_kernels": [k[:70] for k in k1_kernels],
+        "memcpy_ms": copies, "memcpy_count": n_copy,
         "kernel_launches": sum(v[1] for v in per.values()),
         "top": [{"ms": ms, "count": c, "name": k[:70]} for ms, c, k in rows[:10]]}})
 
 
-def phase_fl(dev: dict, device: str = "cuda") -> int:
-    """The paper's loop on the card; returns its K1 launches."""
+def phase_fl(dev: dict, device: str = "cuda") -> dict:
+    """The paper's loop on the card; returns its K1 calls (all entries, and
+    the keyed segment entry's)."""
     from repro_torch.api import RunSpec, Session
 
     outs, clocks = {}, {}
@@ -1509,7 +1902,8 @@ def phase_fl(dev: dict, device: str = "cuda") -> int:
         assert len(hist) == spec["rounds"] == len(rows), (len(hist), len(rows))
         for h, e, r in zip(hist, elog, rows):
             assert np.isfinite(h["loss"]) and np.isfinite(h["client_loss"]).all(), h
-            assert r["k1_launches"] == 1, f"{name} round {h['round']}: {r}"
+            assert r["k1_launches"] == r["k1_keyed_launches"] == 1, \
+                f"{name} round {h['round']}: {r}"
             print(f"fl {name} round {h['round']}: loss {h['loss']:.4f} energy "
                   f"{e['energy_round']:.3f} J bits {sorted(set(h['bits'].tolist()))} "
                   f"cohort {h['cohort_size']} host {r['round_s'] * 1e3:.1f} ms "
@@ -1527,7 +1921,7 @@ def phase_fl(dev: dict, device: str = "cuda") -> int:
         outs[name], clocks[name] = out, rows
     launches = dict(ops.LAUNCHES)
     n_rounds = sum(spec["rounds"] for spec in FL_SPECS.values())
-    assert launches["sr_quant"] == n_rounds, launches
+    assert launches["sr_quant"] == launches["sr_quant_keyed"] == n_rounds, launches
 
     # the host math (channel, GBD, energy, cohorts) is the CPU's: a CPU run
     # of the same spec must plan the first rounds exactly alike
@@ -1546,7 +1940,7 @@ def phase_fl(dev: dict, device: str = "cuda") -> int:
     # rounds 0 and 5 re-solve the co-design (resolve_every = 5)
     gbd_s = [r["plan_s"] for rows in clocks.values() for r in rows if r["round"] % 5 == 0]
     profile_fl_round(dev, gbd_s, device)
-    return launches["sr_quant"]
+    return {k: launches[k] for k in ("sr_quant", "sr_quant_keyed")}
 
 
 TRAIN_RUNS = {
@@ -1585,11 +1979,11 @@ def _train_session(run: dict, device: str):
 def train_clock(rows: list):
     """Per round of the pod trainer: host-clock planning (the orchestrator)
     and step time, K1/K2 launches, peak device memory; and the last K2 call's
-    inputs (a step's real replicated gradients), copied."""
+    inputs (a step's real replicated gradients and the wire's key), copied."""
     from repro_torch.api.session import Session
     from repro_torch.fed.orchestrator import FLOrchestrator
 
-    plan, fl_round, pack = FLOrchestrator.plan_round, Session.fl_round, ops.sr_pack_segments
+    plan, fl_round, pack = FLOrchestrator.plan_round, Session.fl_round, ops.sr_pack_keyed
     inline = ops.sr_quantize_inline
 
     def timed_plan(self, r):
@@ -1602,20 +1996,22 @@ def train_clock(rows: list):
         torch.cuda.reset_peak_memory_stats()
         rows.append({"round": r, "plan_s": 0.0})
         k1, k1i = ops.LAUNCHES["sr_quant"], ops.LAUNCHES["sr_quant_inline"]
-        k2, t0 = ops.LAUNCHES["sr_pack"], time.perf_counter()
+        k2, k2k = ops.LAUNCHES["sr_pack"], ops.LAUNCHES["sr_pack_keyed"]
+        t0 = time.perf_counter()
         rec = fl_round(self, r)
         torch.cuda.synchronize()
         rows[-1].update(round_s=time.perf_counter() - t0,
                         k1_launches=ops.LAUNCHES["sr_quant"] - k1,
                         k1_inline_launches=ops.LAUNCHES["sr_quant_inline"] - k1i,
                         k2_launches=ops.LAUNCHES["sr_pack"] - k2,
+                        k2_keyed_launches=ops.LAUNCHES["sr_pack_keyed"] - k2k,
                         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
         rows[-1]["step_s"] = rows[-1]["round_s"] - rows[-1]["plan_s"]
         return rec
 
-    def recording_pack(*args):
-        rows[-1]["k2_args"] = tuple(a.clone() if torch.is_tensor(a) else a for a in args)
-        return pack(*args)
+    def recording_pack(leaves, key, lim, dtype):
+        rows[-1]["k2_args"] = ([[g.clone() for g in leaf] for leaf in leaves], key, lim, dtype)
+        return pack(leaves, key, lim, dtype)
 
     def recording_inline(w, delta, key, out_dtype):
         # the first round's first 4096 x 11008 weight use (an MLP matrix),
@@ -1625,42 +2021,58 @@ def train_clock(rows: list):
         return inline(w, delta, key, out_dtype)
 
     FLOrchestrator.plan_round, Session.fl_round = timed_plan, timed_round
-    ops.sr_pack_segments, ops.sr_quantize_inline = recording_pack, recording_inline
+    ops.sr_pack_keyed, ops.sr_quantize_inline = recording_pack, recording_inline
     try:
         yield
     finally:
         FLOrchestrator.plan_round, Session.fl_round = plan, fl_round
-        ops.sr_pack_segments, ops.sr_quantize_inline = pack, inline
+        ops.sr_pack_keyed, ops.sr_quantize_inline = pack, inline
 
 
-def profile_train_round(dev: dict, sess, r: int) -> None:
+_SYNC_EVENTS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
+
+
+def _syncs_in(events, span) -> list:
+    return [e.name for e in events if e.name in _SYNC_EVENTS
+            and span.start <= e.time_range.start <= span.end]
+
+
+def _host_syncs(fn) -> list:
+    """Host waits on the card (synchronize calls) made inside ``fn``: the
+    profiler's own synchronizes and ``_trace``'s fall outside the span that
+    brackets the call."""
+    _mine, events, span = _trace(fn)
+    return _syncs_in(events, span)
+
+
+def profile_train_round(dev: dict, sess, r: int) -> dict:
     """Where one warm train round's time goes: host clock, and the device
     time by kernel family from ``torch.profiler`` (an extra round, after the
-    counted ones)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    counted ones); the host syncs are the round's own and its closing
+    synchronize."""
+    clock = {}
 
-    torch.cuda.synchronize()
-    k1 = ops.LAUNCHES["sr_quant"]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    def round_():
         t0 = time.perf_counter()
         sess.fl_round(r)
         torch.cuda.synchronize()
-        host_ms = (time.perf_counter() - t0) * 1e3
+        clock["host_ms"] = (time.perf_counter() - t0) * 1e3
+
+    k1 = ops.LAUNCHES["sr_quant"]
+    mine, events, span = _trace(round_)
+    host_ms = clock["host_ms"]
     k1 = ops.LAUNCHES["sr_quant"] - k1
-    per: dict = {}
+    per = _by_name(mine)
     syncs: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            acc = per.setdefault(e.name, [0.0, 0])
-            acc[0] += e.time_range.elapsed_us() / 1e3
-            acc[1] += 1
-        elif e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
-                        "cudaEventSynchronize"):
-            syncs[e.name] = syncs.get(e.name, 0) + 1
-    # K1's family takes both entries' kernels (the inline entry's two passes)
-    families = {"K1 sr_quant": ("sr_quant_kernel", "sr_quant_inline", "sr_absmax"),
-                "K2 sr_pack": ("sr_pack_kernel",),
+    for name in _syncs_in(events, span):
+        syncs[name] = syncs.get(name, 0) + 1
+    # K1's family takes every entry's kernels (the inline entry's two
+    # passes), K2's both entries' (the keyed entry's two passes); the names
+    # of trees before the inline entry ran the keyed kernels are kept, so
+    # that --src=DIR reads a parent alike
+    families = {"K1 sr_quant": ("sr_quant_kernel", "sr_quant_inline", "sr_absmax",
+                                "sr_quant_keyed", "seg_absmax_kernel<false"),
+                "K2 sr_pack": ("sr_pack_kernel", "sr_pack_keyed", "seg_absmax_kernel<true"),
                 "matmul (cuBLAS)": ("gemm", "xmma", "cutlass", "cublas", "nvjet"),
                 "uniforms (Philox)": ("philox", "uniform", "distribution"),
                 "abs": ("absfunctor",),
@@ -1675,7 +2087,7 @@ def profile_train_round(dev: dict, sess, r: int) -> None:
         acc[1] += n
     device_ms = sum(v[0] for v in per.values())
     rows = sorted(((v[0], v[1], k) for k, v in per.items()), reverse=True)
-    emit({"train_profile": {
+    out = {"train_profile": {
         "card": f"{dev['kind']} ({dev['smi']})", "round": r, "host_ms": host_ms,
         "device_ms": device_ms if rows else "not measured",
         "device_busy_share": device_ms / host_ms if rows else "not measured",
@@ -1683,14 +2095,16 @@ def profile_train_round(dev: dict, sess, r: int) -> None:
         "host_syncs": syncs,
         "families": {k: {"ms": v[0], "count": v[1]} for k, v in
                      sorted(fam.items(), key=lambda kv: -kv[1][0])},
-        "top": [{"ms": ms, "count": c, "name": k[:70]} for ms, c, k in rows[:12]]}})
+        "top": [{"ms": ms, "count": c, "name": k[:70]} for ms, c, k in rows[:12]]}}
+    emit(out)
+    return out["train_profile"]
 
 
 def phase_train(dev: dict) -> dict:
     """The pod trainer on the card; returns its K1 and K2 launches."""
     from repro_torch.core.quantization import FULL_PRECISION_BITS
 
-    launches = {"sr_quant": 0, "sr_quant_inline": 0, "sr_pack": 0}
+    launches = {"sr_quant": 0, "sr_quant_inline": 0, "sr_pack": 0, "sr_pack_keyed": 0}
     k2_inputs = None
     for name, run in TRAIN_RUNS.items():
         rows: list = []
@@ -1717,8 +2131,10 @@ def phase_train(dev: dict) -> dict:
         for h, r in zip(hist, rows):
             assert np.isfinite(h["loss"]), h
             assert h["comm_bits"] == comm < FULL_PRECISION_BITS, h
-            # one K2 launch a step packs every (client, wire leaf) segment
-            assert r["k2_launches"] == 1, f"{name} round {h['round']}: {r}"
+            # one call of K2's keyed entry a step packs every (client, wire
+            # leaf) segment
+            assert r["k2_launches"] == r["k2_keyed_launches"] == 1, \
+                f"{name} round {h['round']}: {r}"
             assert r["k1_launches"] == r["k1_inline_launches"] == uses, (uses, r)
             print(f"train {name} round {h['round']}: loss {h['loss']:.4f} bits "
                   f"{sorted(set(h['bits']))} energy {h['energy_j']:.3f} J cohort "
@@ -1737,6 +2153,8 @@ def phase_train(dev: dict) -> dict:
         k2_args = rows[-1]["k2_args"]
         want_dtype = torch.int16 if comm == 8 else torch.int8
         assert k2_args[-1] == want_dtype, (name, k2_args[-1])
+        assert [[g.numel() for g in leaf] for leaf in k2_args[0]] == \
+            [[n] * 4 for n in TRAIN_WIRE_SIZES], "the wire's leaves"
         if name == "fl-orchestrate":
             k2_inputs = k2_args
             orch_log = sess._train_state["orch"].energy_log
@@ -1749,17 +2167,25 @@ def phase_train(dev: dict) -> dict:
             "comm_report": {k: v for k, v in sess.comm_report().items() if k != "rounds"},
             "rounds": [{k: v for k, v in r.items() if k != "k2_args"} for r in rows]}})
         if name == "train":
-            profile_train_round(dev, sess, run["rounds"])
+            prof = profile_train_round(dev, sess, run["rounds"])
+            # the wire draws in K2: no uniform-drawing kernel, K2's two passes
+            fams = prof["families"]
+            assert "uniforms (Philox)" not in fams, fams
+            assert fams["K2 sr_pack"]["count"] == 2, fams
         del sess, rows
         torch.cuda.empty_cache()
-    # K2 on a step's real replicated gradients (outside the counted runs)
-    g, offsets, step, u, lim, dtype = k2_inputs
-    codes = sq.sr_pack_segments_cuda(g, offsets, step, u, lim, dtype)
-    if not torch.equal(codes, sq.sr_pack_segments_plain(g, offsets, step, u, lim, dtype)):
-        raise AssertionError("train: K2 on a step's replicated gradients differs from "
-                             "the plain version")
-    print(f"train: K2 bit-equal to the plain version on a step's wire ({tuple(g.shape)} "
-          f"gradients, {offsets.numel() - 1} leaves, {dtype})")
+    # K2's keyed entry on a step's real replicated gradients (outside the
+    # counted runs): codes, pitch and non-finite count
+    leaves, key, lim, dtype = k2_inputs
+    _same_pack("on a step's wire", sq.sr_pack_keyed_cuda(leaves, key, lim, dtype),
+               sq.sr_pack_keyed_plain(leaves, key, lim, dtype))
+    print(f"train: keyed K2 bit-equal to the plain version on a step's wire ({len(leaves[0])} "
+          f"clients, {len(leaves)} leaves of {[g.numel() for g in leaves[0]]}, {dtype})")
+    # the wire ("raise", as the trainer runs it) waits on the host once: the count
+    waits = _host_syncs(lambda: keyed_wire(leaves, key, lim.bit_length()))
+    assert len(waits) <= 1, f"the keyed wire waited on the card: {waits}"
+    print(f"train: the keyed wire waits on the card {len(waits)} time(s) {waits} (the "
+          "non-finite count)")
     # the host math (channel, GBD, energy, cohorts) is the CPU's: the same
     # orchestrator planned on the CPU must give the same rounds
     cpu_orch = _train_session(TRAIN_RUNS["fl-orchestrate"], "cpu").orchestrator(4)
@@ -1822,13 +2248,13 @@ def main(argv=None) -> int:
     if "consistency" in phases:
         phase_consistency()
     if "fl" in phases:
-        launches["sr_quant"] = phase_fl(dev)
+        launches.update(phase_fl(dev))
     if "train" in phases:
         # K1 runs on both paths: its count is the sum of the two phases' runs
         train_launches = phase_train(dev)
         launches["sr_quant"] += train_launches["sr_quant"]
-        launches["sr_quant_inline"] = train_launches["sr_quant_inline"]
-        launches["sr_pack"] = train_launches["sr_pack"]
+        for k in ("sr_quant_inline", "sr_pack", "sr_pack_keyed"):
+            launches[k] = train_launches[k]
     if "train_profile" in phases:
         phase_train_profile(dev)
     rows = []

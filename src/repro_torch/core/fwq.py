@@ -15,8 +15,8 @@ so one round function serves every strategy the GBD layer emits.
 
 Step 2 runs for all clients at once: :func:`quantize_clients
 <repro_torch.core.quantization.quantize_clients>` rounds every (client,
-leaf) segment in one K1 launch, from a ``(C, P)`` tensor of uniforms the
-caller draws.  Step 3 then differentiates each client's loss with respect to
+leaf) segment in one K1 call, its uniforms drawn in the kernel from the
+round's key (or taken from a ``(C, P)`` tensor the caller draws).  Step 3 then differentiates each client's loss with respect to
 its quantized values, which under the straight-through estimator is the
 gradient with respect to ``w``.  The clients run one after another (a loop,
 not ``vmap``): their leading dimension may change from round to round
@@ -67,18 +67,19 @@ def _sq_norm(leaves) -> torch.Tensor:
 def make_fwq_client_grads(plain_loss_fn: Callable, *, exempt=quantlib.default_exempt):
     """Phase 1 of a round: per-client losses/grads, no aggregation.
 
-    ``grads_fn(params, batch, delta, u) -> (losses (C,), grads {path: (C,
-    ...)}, gsq (C,), finite (C,))``.  ``batch`` leaves and ``delta`` have
-    the cohort size C as leading dim; ``u`` is ``(C, P)`` (see
-    :func:`quantize_clients <repro_torch.core.quantization.quantize_clients>`).
+    ``grads_fn(params, batch, delta, u=None, *, key=None) -> (losses (C,),
+    grads {path: (C, ...)}, gsq (C,), finite (C,))``.  ``batch`` leaves and
+    ``delta`` have the cohort size C as leading dim; ``u`` is ``(C, P)``
+    uniforms or ``key`` the round's key (see :func:`quantize_clients
+    <repro_torch.core.quantization.quantize_clients>`).
     Pairing it with :func:`make_fwq_apply` splits the round at the uplink
     boundary of Algorithm 1 (between lines 6 and 10), where the resilient
     executor damages and gates updates.
     """
 
-    def grads_fn(params, batch, delta, u):
+    def grads_fn(params, batch, delta, u=None, *, key=None):
         paths, _ = quantlib._flatten_with_paths(params)
-        qs = quantlib.quantize_clients(params, delta, u, exempt=exempt)
+        qs = quantlib.quantize_clients(params, delta, u, key=key, exempt=exempt)
         losses, grads = [], {p: [] for p in paths}
         for c in range(delta.shape[0]):
             leaves = {p: (qs[p][c] if p in qs else params[p]).detach().requires_grad_()
@@ -106,15 +107,16 @@ def make_fwq_round(plain_loss_fn: Callable, opt_update: Callable, *,
                    exempt=quantlib.default_exempt):
     """The FWQ round function.
 
-    Returns ``round_fn(params, opt_state, batch, delta, u) -> (params,
-    opt_state, FWQMetrics)`` where ``batch`` leaves have leading dim
-    ``n_clients``, ``delta`` is ``(n_clients,)`` f32 (0 = full precision)
-    and ``u`` the ``(n_clients, P)`` SR uniforms.
+    Returns ``round_fn(params, opt_state, batch, delta, u=None, *, key=None)
+    -> (params, opt_state, FWQMetrics)`` where ``batch`` leaves have leading
+    dim ``n_clients``, ``delta`` is ``(n_clients,)`` f32 (0 = full
+    precision), and the SR draws are ``u``, the ``(n_clients, P)`` uniforms,
+    or drawn in K1 from the round's ``key``.
     """
     grads_fn = make_fwq_client_grads(plain_loss_fn, exempt=exempt)
 
-    def round_fn(params, opt_state, batch, delta, u):
-        losses, grads, gsqs, _finite = grads_fn(params, batch, delta, u)
+    def round_fn(params, opt_state, batch, delta, u=None, *, key=None):
+        losses, grads, gsqs, _finite = grads_fn(params, batch, delta, u, key=key)
         # server aggregation, full precision (line 10)
         G = {k: g.to(torch.float32).mean(dim=0) for k, g in grads.items()}
         params, opt_state, gnorm = _step(params, opt_state, G, opt_update)

@@ -261,32 +261,42 @@ def quantize_tree(params: dict, delta, u, *,
     return out
 
 
-def quantize_clients(params: dict, delta: torch.Tensor, u: torch.Tensor, *,
+def quantize_clients(params: dict, delta: torch.Tensor, u: torch.Tensor | None = None, *,
+                     key: int | None = None,
                      exempt: ExemptFn | None = default_exempt) -> dict:
-    """One round's per-client quantized copies, in ONE K1 launch.
+    """One round's per-client quantized copies, in ONE K1 call.
 
     ``delta`` (C,) per-client resolutions; ``u`` (C, P) uniforms over the
-    quantizable leaves concatenated in leaf order (P elements in all).
+    quantizable leaves concatenated in leaf order (P elements in all), or,
+    with ``u=None``, the round's 64-bit ``key``: K1's keyed segment entry
+    then reads the leaves where they lie, makes their scales on the card and
+    draws client ``c``'s row as stream ``c`` of
+    :func:`~repro_torch.kernels.ref.philox_uniforms_plain` under ``key``.
     Returns ``{path: (C, *shape)}`` for every quantizable leaf.  The values
     are the reference's ``w + (Q_c(w) - w)`` and carry no gradient: the
     caller differentiates with respect to them directly, which under the
     straight-through estimator is the gradient with respect to ``w``.
     """
+    if (u is None) == (key is None):
+        raise ValueError("quantize_clients: pass exactly one of the uniforms u and a key")
     qpaths = [p for _i, p in quantizable_paths(params, exempt)]
     if not qpaths:
         return {}
     leaves = [params[p].detach().to(torch.float32) for p in qpaths]
     sizes = [leaf.numel() for leaf in leaves]
-    dev = leaves[0].device
-    w = torch.cat([leaf.reshape(-1) for leaf in leaves])
-    offsets = torch.tensor([0, *itertools.accumulate(sizes)], dtype=torch.int32,
-                           device=dev)
-    s = torch.stack([tensor_scale(leaf) for leaf in leaves])
     C = delta.shape[0]
-    if u.shape != (C, w.numel()):
-        raise ValueError(f"uniforms {tuple(u.shape)} for {C} clients x "
-                         f"{w.numel()} quantizable elements")
-    q = ops.sr_quantize_segments(w, offsets, s, delta.to(torch.float32), u)
+    if u is None:
+        q = ops.sr_quantize_segments_keyed(leaves, delta, key)
+    else:
+        dev = leaves[0].device
+        w = torch.cat([leaf.reshape(-1) for leaf in leaves])
+        offsets = torch.tensor([0, *itertools.accumulate(sizes)], dtype=torch.int32,
+                               device=dev)
+        s = torch.stack([tensor_scale(leaf) for leaf in leaves])
+        if u.shape != (C, w.numel()):
+            raise ValueError(f"uniforms {tuple(u.shape)} for {C} clients x "
+                             f"{w.numel()} quantizable elements")
+        q = ops.sr_quantize_segments(w, offsets, s, delta.to(torch.float32), u)
     out = {}
     for path, leaf, chunk in zip(qpaths, leaves, q.split(sizes, dim=1)):
         out[path] = chunk.reshape(C, *leaf.shape)

@@ -11,11 +11,12 @@ mesh; tensor parallelism is not ported.
 
 :func:`quantized_psum_batch` is the paper's Eq. 1 stochastic-rounding
 quantizer applied to model updates on the wire: the clients agree on a shared
-grid through the max of their scales, round onto integer codes (the K2
-kernel, :func:`repro_torch.kernels.ops.sr_pack_segments`), sum the codes
-exactly and dequantize to the mean.  It takes the clients' gradients stacked
-on a leading axis and any number of leaves, so one K2 launch packs a whole
-train step's wire.
+grid through the max of their scales, round onto integer codes (K2), sum the
+codes exactly and dequantize to the mean.  It takes any number of leaves, so
+one K2 call packs a whole train step's wire: the keyed entry
+(:func:`repro_torch.kernels.ops.sr_pack_keyed`, uniforms drawn in the kernel
+from the wire's key, the clients' gradients read where they lie) or, given
+uniforms, the u-taking one (:func:`repro_torch.kernels.ops.sr_pack_segments`).
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import torch
 
 from repro_torch.core.quantization import FULL_PRECISION_BITS
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import f32_reciprocal, saturate_nonfinite
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,44 +140,48 @@ _TORCH_INT = {np.dtype(np.int8): torch.int8, np.dtype(np.int16): torch.int16,
               np.dtype(np.int32): torch.int32}
 
 
+def _check_nonfinite_mode(on_nonfinite: str) -> None:
+    if on_nonfinite not in ("raise", "saturate"):
+        raise ValueError(f"on_nonfinite must be 'raise' or 'saturate', "
+                         f"got {on_nonfinite!r}")
+
+
+def _raise_nonfinite(bad: int) -> None:
+    if bad:
+        raise FloatingPointError(
+            f"quantized_psum_batch: {bad} non-finite gradient "
+            "values reached the wire quantizer (pass "
+            "on_nonfinite='saturate' to clamp instead)")
+
+
 def _nonfinite_guard(gfs: list, on_nonfinite: str) -> list:
     """Keep NaN/Inf gradients out of the wire quantizer.
 
     ``gfs`` are f32 leaves stacked over the clients.  A non-finite value
     would poison the shared scale and every client's codes.  ``"raise"``
-    counts them over all leaves with one host check and raises
-    ``FloatingPointError``; ``"saturate"`` maps NaN to 0 and clamps ±Inf to
-    each client's largest finite magnitude in that leaf.
+    counts them over all leaves and raises ``FloatingPointError``;
+    ``"saturate"`` maps NaN to 0 and clamps ±Inf to each client's largest
+    finite magnitude in that leaf.
     """
+    _check_nonfinite_mode(on_nonfinite)
     if on_nonfinite == "raise":
-        bad = sum(int((~torch.isfinite(g)).sum()) for g in gfs) if gfs else 0
-        if bad:
-            raise FloatingPointError(
-                f"quantized_psum_batch: {bad} non-finite gradient "
-                "values reached the wire quantizer (pass "
-                "on_nonfinite='saturate' to clamp instead)")
+        _raise_nonfinite(sum(int((~torch.isfinite(g)).sum()) for g in gfs) if gfs else 0)
         return gfs
-    if on_nonfinite == "saturate":
-        out = []
-        for g in gfs:
-            dims = tuple(range(1, g.ndim))
-            fin = torch.where(torch.isfinite(g), g.abs(), torch.zeros_like(g))
-            fmax = fin.amax(dim=dims, keepdim=True) if dims else fin
-            out.append(torch.clamp(torch.where(torch.isnan(g), torch.zeros_like(g), g),
-                                   -fmax, fmax))
-        return out
-    raise ValueError(f"on_nonfinite must be 'raise' or 'saturate', "
-                     f"got {on_nonfinite!r}")
+    return [saturate_nonfinite(g) for g in gfs]
 
 
 def quantized_psum_batch(axes: AxisCtx, grad, u, bits, *,
-                         on_nonfinite: str = "raise"):
+                         on_nonfinite: str = "raise", key: int | None = None):
     """SR-quantized all-reduce **mean** over the ``axes.dp`` clients.
 
-    ``grad`` is one leaf stacked over the clients, ``(D, *shape)``, or a list
-    of such leaves; ``u`` holds uniforms of the same shapes (client ``c``'s
-    SR draws for each leaf).  Returns the mean of each leaf, ``shape``-sized,
-    in the same structure:
+    ``grad`` is one leaf stacked over the clients, ``(D, *shape)``, or a
+    list of such leaves.  The SR draws are either ``u``, uniforms of the
+    same shapes (client ``c``'s draws for each leaf), or, with ``u=None``,
+    drawn inside K2 from the 64-bit ``key`` (:func:`ops.sr_pack_keyed
+    <repro_torch.kernels.ops.sr_pack_keyed>`); with the key a leaf may also
+    be a sequence of the D clients' gradients, read where they lie (nothing
+    is stacked or concatenated).  Returns the mean of each leaf,
+    ``shape``-sized, in the same structure:
 
     1. shared grid per leaf: ``s = max_c max|g_c|`` (1 where 0), pitch
        ``step = s / (2^bits - 1)``;
@@ -185,18 +191,29 @@ def quantized_psum_batch(axes: AxisCtx, grad, u, bits, *,
     4. ``(total * step) / D``.
 
     ``bits >= 32`` is the exact mean; one client is the identity.
-    ``on_nonfinite`` guards against NaN/Inf (see :func:`_nonfinite_guard`).
+    ``on_nonfinite`` guards against NaN/Inf (see :func:`_nonfinite_guard`);
+    the keyed path applies the guard inside K2 and, in ``"raise"`` mode,
+    reads the device's non-finite count once.
     """
     single = isinstance(grad, torch.Tensor)
     grads = [grad] if single else list(grad)
-    us = [u] if single else list(u)
     n = axes.dp
-    for g, uu in zip(grads, us):
-        if g.shape[0] != n or uu.shape != g.shape:
-            raise ValueError(f"quantized_psum_batch: leaves (D={n}, ...) with uniforms "
-                             f"of their shape; got {tuple(g.shape)} and {tuple(uu.shape)}")
-    if len(us) != len(grads):
-        raise ValueError("quantized_psum_batch: one uniform tensor per leaf")
+    if (u is None) == (key is None):
+        raise ValueError("quantized_psum_batch: pass exactly one of the uniforms u and a key")
+    if u is None:
+        grads = [list(g) for g in grads]       # a stacked leaf's rows are views
+        for g in grads:
+            if len(g) != n or any(x.shape != g[0].shape for x in g):
+                raise ValueError(f"quantized_psum_batch: leaves of D={n} client gradients "
+                                 f"of one shape; got {[tuple(x.shape) for x in g]}")
+    else:
+        us = [u] if single else list(u)
+        if len(us) != len(grads):
+            raise ValueError("quantized_psum_batch: one uniform tensor per leaf")
+        for g, uu in zip(grads, us):
+            if g.shape[0] != n or uu.shape != g.shape:
+                raise ValueError(f"quantized_psum_batch: leaves (D={n}, ...) with uniforms "
+                                 f"of their shape; got {tuple(g.shape)} and {tuple(uu.shape)}")
     if n == 1:
         out = [g[0] for g in grads]             # single client: nothing to reduce
     elif int(bits) >= FULL_PRECISION_BITS:
@@ -205,19 +222,20 @@ def quantized_psum_batch(axes: AxisCtx, grad, u, bits, *,
             total = g[0]
             for c in range(1, n):
                 total = total + g[c]
-            out.append(total * f32_reciprocal(n, g.device))
+            out.append(total * f32_reciprocal(n))
+    elif u is None:
+        out = _quantized_mean_keyed(grads, int(bits), n, on_nonfinite, int(key))
     else:
         out = _quantized_mean(grads, us, int(bits), n, on_nonfinite)
     return out[0] if single else out
 
 
-def f32_reciprocal(k: int, device) -> torch.Tensor:
-    """``fl32(1 / k)``.  XLA compiles the reference's divisions by a constant
-    (``s / lim``, ``/ n``, ``pmean``, the FSDP mean) into multiplications by
-    the constant's f32 reciprocal, so the port multiplies by it too
-    (bit-equal as it runs)."""
-    one = torch.tensor(1.0, dtype=torch.float32)
-    return (one / torch.tensor(float(k), dtype=torch.float32)).to(device)
+def _dequantized_means(codes, step, sizes, shapes, dtypes, n: int) -> list:
+    # the integer sum is exact: wire_dtype holds n * lim
+    total = codes.sum(dim=0, dtype=torch.int64).to(torch.float32)
+    inv_n = f32_reciprocal(n)
+    return [((chunk * step[i]) * inv_n).reshape(shape).to(dtype)
+            for i, (chunk, shape, dtype) in enumerate(zip(total.split(sizes), shapes, dtypes))]
 
 
 def _quantized_mean(grads, us, bits: int, n: int, on_nonfinite: str) -> list:
@@ -228,18 +246,29 @@ def _quantized_mean(grads, us, bits: int, n: int, on_nonfinite: str) -> list:
     s = torch.stack([g.abs().amax() for g in gfs])
     s = torch.where(s > 0, s, torch.ones_like(s))
     lim = code_bound(bits)
-    step = s * f32_reciprocal(lim, dev)
+    step = s * f32_reciprocal(lim)
     sizes = [g[0].numel() for g in gfs]
     offsets = torch.tensor([0, *np.cumsum(sizes)], dtype=torch.int32, device=dev)
     flat = torch.cat([g.reshape(n, -1) for g in gfs], dim=1)
     uflat = torch.cat([uu.to(torch.float32).reshape(n, -1) for uu in us], dim=1)
     codes = ops.sr_pack_segments(flat, offsets, step, uflat, lim,
                                  _TORCH_INT[np.dtype(wire_dtype(bits, n))])
-    # the integer sum is exact: wire_dtype holds n * lim
-    total = codes.sum(dim=0, dtype=torch.int64).to(torch.float32)
-    inv_n = f32_reciprocal(n, dev)
-    out = []
-    for i, (g, chunk) in enumerate(zip(grads, total.split(sizes))):
-        mean = (chunk * step[i]) * inv_n
-        out.append(mean.reshape(g.shape[1:]).to(g.dtype))
+    return _dequantized_means(codes, step, sizes, [g.shape[1:] for g in grads],
+                              [g.dtype for g in grads], n)
+
+
+def _quantized_mean_keyed(grads, bits: int, n: int, on_nonfinite: str, key: int) -> list:
+    """The keyed wire: ``grads`` per leaf the D clients' gradients; one K2
+    call guards, scales, draws and packs; in ``"raise"`` mode the one host
+    read of a step is the non-finite count, after everything is queued."""
+    _check_nonfinite_mode(on_nonfinite)
+    if not grads:
+        return []
+    lim = code_bound(bits)
+    codes, step, bad = ops.sr_pack_keyed(grads, key, lim,
+                                         _TORCH_INT[np.dtype(wire_dtype(bits, n))])
+    out = _dequantized_means(codes, step, [g[0].numel() for g in grads],
+                             [g[0].shape for g in grads], [g[0].dtype for g in grads], n)
+    if on_nonfinite == "raise":
+        _raise_nonfinite(int(bad))
     return out

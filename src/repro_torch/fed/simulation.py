@@ -6,11 +6,13 @@ quantized weights, full-precision server SGD.  Clients are the leading
 dimension of the round's batch; the pod trainer is the multi-device twin of
 this (a later slice of the port).
 
-Randomness: the round's SR uniforms come from :meth:`FLSimulation.round_uniforms`,
-one ``(C, P)`` draw from a generator seeded by ``(seed, round)`` on the
-simulation's device.  PyTorch's generators cannot reproduce the reference's
-threefry bits, so that method is the one place a test replaces to feed the
-reference's own draws.
+Randomness: K1 draws the round's SR uniforms in the kernel from
+:meth:`FLSimulation.round_key`, the 64-bit key ``(seed, round)`` gives;
+:meth:`FLSimulation.round_uniforms` returns those same uniforms as a ``(C,
+P)`` tensor.  PyTorch cannot reproduce the reference's threefry bits, so
+that method is the one place a test replaces to feed the reference's own
+draws: a round whose ``round_uniforms`` was replaced (on the class or the
+instance) takes its uniforms as given.
 """
 
 from __future__ import annotations
@@ -28,9 +30,11 @@ from repro_torch.core.fwq import (
     make_fwq_apply,
     make_fwq_client_grads,
     make_fwq_round,
+    site_key,
 )
 from repro_torch.core.quantization import quantizable_size
 from repro_torch.faults.executor import UpdateFaults, gate_mask, inject_corruption
+from repro_torch.kernels.ref import philox_streams_plain
 from repro_torch.optim import Optimizer, build_optimizer
 
 
@@ -83,14 +87,17 @@ class FLSimulation:
         self.params, self.opt_state = state["params"], state["opt"]
         self.round_idx = round_idx
 
+    def round_key(self, round_idx: int) -> int:
+        """The round's 64-bit SR key: the first word of
+        ``SeedSequence((seed, round_idx))``'s state."""
+        return site_key(self.cfg.seed, int(round_idx))
+
     def round_uniforms(self, round_idx: int, n_clients: int) -> torch.Tensor:
-        """The round's SR uniforms: ``(n_clients, P)`` over the quantizable
-        leaves in leaf order, deterministic in ``(seed, round_idx)``."""
-        P = quantizable_size(self.params)[0]
-        seed = np.random.SeedSequence((self.cfg.seed, int(round_idx)))
-        gen = torch.Generator(device=self.device).manual_seed(
-            int(seed.generate_state(1, np.uint64)[0]))
-        return torch.rand((n_clients, P), generator=gen, device=self.device)
+        """The round's SR uniforms as K1 draws them from :meth:`round_key`:
+        ``(n_clients, P)`` over the quantizable leaves in leaf order, client
+        ``c``'s row stream ``c``."""
+        return philox_streams_plain(self.round_key(round_idx), n_clients,
+                                    quantizable_size(self.params)[0], self.device)
 
     def run_round(self, batch, bits, *, faults: UpdateFaults | None = None,
                   comm_bits: int | None = None) -> dict:
@@ -121,11 +128,14 @@ class FLSimulation:
                     "bits (policy.bits_vector(n_devices)[cohort_idx])")
             bits = bits.bits_vector(n)
         delta = delta_for_clients(np.asarray(bits)).to(self.device)
-        u = self.round_uniforms(self.round_idx, n)
+        if getattr(self.round_uniforms, "__func__", None) is _ROUND_UNIFORMS:
+            u, key = None, self.round_key(self.round_idx)     # drawn in K1
+        else:                                   # a replaced seam: its uniforms as given
+            u, key = self.round_uniforms(self.round_idx, n), None
         with ieee_f32():
             if faults is None:
                 self.params, self.opt_state, m = self._round(
-                    self.params, self.opt_state, batch, delta, u)
+                    self.params, self.opt_state, batch, delta, u, key=key)
                 rec = {
                     "round": self.round_idx,
                     "loss": float(m.loss),
@@ -134,19 +144,19 @@ class FLSimulation:
                     "bits": np.asarray(bits).copy(),
                 }
             else:
-                rec = self._run_gated_round(batch, delta, u, bits, faults)
+                rec = self._run_gated_round(batch, delta, u, key, bits, faults)
         if comm_bits is not None:
             rec["comm_bits"] = int(comm_bits)
         self.history.append(rec)
         self.round_idx += 1
         return rec
 
-    def _run_gated_round(self, batch, delta, u, bits, faults: UpdateFaults) -> dict:
+    def _run_gated_round(self, batch, delta, u, key, bits, faults: UpdateFaults) -> dict:
         if self._gated is None:
             self._gated = (make_fwq_client_grads(self._loss_fn),
                            make_fwq_apply(self.opt.update))
         grads_fn, apply_fn = self._gated
-        losses, grads, gsqs, finite = grads_fn(self.params, batch, delta, u)
+        losses, grads, gsqs, finite = grads_fn(self.params, batch, delta, u, key=key)
         norms_sq = gsqs.cpu().numpy().astype(np.float64)
         finite = finite.cpu().numpy().astype(bool)
 
@@ -202,3 +212,8 @@ class FLSimulation:
         out = {"loss": float(loss)}
         out.update({k: float(v) for k, v in aux.items()})
         return out
+
+
+#: The round's own draws, kept at import: ``run_round`` takes K1's keyed
+#: entry while ``round_uniforms`` is still this function.
+_ROUND_UNIFORMS = FLSimulation.round_uniforms

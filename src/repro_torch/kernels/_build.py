@@ -42,14 +42,17 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.int16: 
 H100_SMS = 132
 
 #: Kernel launches by name since the last :func:`reset_launches`.
-#: ``sr_quant`` counts K1's launches through either entry, ``sr_quant_inline``
-#: those of the trainer's keyed entry alone; ``philox`` is the known-answer
-#: check's generator.
+#: ``sr_quant`` counts K1's calls through any entry, ``sr_quant_inline`` and
+#: ``sr_quant_keyed`` those of the trainer's inline entry and of the keyed
+#: segment entry alone; ``sr_pack`` counts K2's calls through either entry,
+#: ``sr_pack_keyed`` those of the keyed entry alone; ``philox`` is the
+#: known-answer check's generator.
 LAUNCHES = {"quant_matmul": 0, "flash_attention": 0, "flash_decode": 0, "sr_quant": 0,
-            "sr_quant_inline": 0, "sr_pack": 0, "philox": 0}
+            "sr_quant_inline": 0, "sr_quant_keyed": 0, "sr_pack": 0, "sr_pack_keyed": 0,
+            "philox": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_U, _LL = ctypes.c_uint32, ctypes.c_longlong
+_U = ctypes.c_uint32
 _SIGNATURES = {
     # x, x_dtype, codes, code_dtype, scale, out, M, K, N, stream,
     # then the plan (quant_matmul.plan): path, tile_m, tile_n, split
@@ -64,12 +67,17 @@ _SIGNATURES = {
                            _I, _I, _I, _I, _I, _I, _P, _I, _I, _I),
     # w, offsets, s, d, u, out, P, L, C, ste, stream
     "repro_sr_quant": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # w, parts, n_parts, delta, k0, k1, out, out_dtype, n, stream
-    "repro_sr_quant_inline": (_P, _P, _I, _P, _U, _U, _P, _I, _LL, _P),
+    # w, n, nb, parts, delta, k0, k1, out, out_dtype, stream
+    "repro_sr_quant_inline": (_P, _I, _I, _P, _P, _U, _U, _P, _I, _P),
     # ctr, key, out, n, stream
     "repro_philox4x32": (_P, _P, _P, _I, _P),
     # g, offsets, step, u, out, code_dtype, P, L, C, lim, stream
     "repro_sr_pack": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    # off, blk, base (host arrays), L, parts, d, C, k0, k1, out, stream
+    "repro_sr_quant_keyed": (_P, _P, _P, _I, _P, _P, _I, _U, _U, _P, _P),
+    # off, blk, base (host arrays), L, C, parts, k0, k1, lim, out, code_dtype,
+    # steps, bad, stream
+    "repro_sr_pack_keyed": (_P, _P, _P, _I, _I, _P, _U, _U, _F, _P, _I, _P, _P, _P),
 }
 
 _lib = None

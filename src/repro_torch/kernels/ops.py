@@ -45,6 +45,21 @@ def sr_quantize_segments(w: torch.Tensor, offsets: torch.Tensor, s: torch.Tensor
               u.contiguous())
 
 
+def sr_quantize_segments_keyed(leaves, delta: torch.Tensor, key: int) -> torch.Tensor:
+    """SR of every (client, leaf) segment in one call of K1's keyed segment
+    entry -> (C, P) f32, the leaves read where they lie.
+
+    ``leaves`` the round's quantizable leaves (any shapes), ``delta`` (C,)
+    per-client resolutions, ``key`` the round's 64-bit key.  The value is
+    :func:`sr_quantize_segments` of the leaves concatenated, with ``s[l] =
+    tensor_scale(leaf l)`` and client ``c``'s uniforms stream ``c`` of
+    :func:`~repro_torch.kernels.ref.philox_uniforms_plain` under ``key``.
+    """
+    fn = _route(delta, sq.sr_quant_segments_keyed_cuda, sq.sr_quant_segments_keyed_plain)
+    return fn([x.to(torch.float32).contiguous().reshape(-1) for x in leaves],
+              delta.to(torch.float32).contiguous(), int(key))
+
+
 def sr_quantize_inline(w: torch.Tensor, delta: torch.Tensor, key: int,
                        out_dtype: torch.dtype) -> torch.Tensor:
     """SR of one weight use in one call of K1's inline entry -> ``w.shape``
@@ -96,6 +111,23 @@ def sr_pack_segments(g: torch.Tensor, offsets: torch.Tensor, step: torch.Tensor,
     fn = _route(g, sq.sr_pack_segments_cuda, sq.sr_pack_segments_plain)
     return fn(g.contiguous(), offsets.contiguous(), step.contiguous(), u.contiguous(),
               lim, dtype)
+
+
+def sr_pack_keyed(leaves, key: int, lim: int, dtype: torch.dtype):
+    """The SR wire's whole quantizer in one call of K2's keyed entry.
+
+    ``leaves``: per leaf, the C clients' gradients (one shape a leaf), read
+    where they lie.  Each client's leaf is guarded (NaN -> 0, +-Inf -> +- its
+    largest finite |g|; a no-op on finite gradients), the leaf's pitch is
+    ``step = s * fl32(1 / lim)`` with ``s`` the max over the clients (1 where
+    0), and element ``(c, p)`` of the leaves concatenated takes stream ``c``
+    of :func:`~repro_torch.kernels.ref.philox_uniforms_plain` under ``key``.
+    Returns ``(codes (C, P) of dtype, step (L,) f32, the non-finite count ()
+    int64)``, all on the gradients' device.
+    """
+    fn = _route(leaves[0][0], sq.sr_pack_keyed_cuda, sq.sr_pack_keyed_plain)
+    return fn([[g.to(torch.float32).contiguous().reshape(-1) for g in leaf] for leaf in leaves],
+              int(key), lim, dtype)
 
 
 def sr_pack_fused(w: torch.Tensor, bits: int, u: torch.Tensor):

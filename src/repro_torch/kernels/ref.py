@@ -7,6 +7,7 @@ against them on the same inputs.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 #: Finite "minus infinity" of the reference kernels: an empty softmax row
@@ -28,6 +29,28 @@ def sr_quant_fake_plain(w: torch.Tensor, u: torch.Tensor, step) -> torch.Tensor:
     lower = torch.floor(t)
     q = (lower + (u < (t - lower)).to(w.dtype)) * safe
     return torch.where(step > 0, q, w)
+
+
+def f32_reciprocal(k: int) -> float:
+    """``fl32(1 / k)``, the f32 reciprocal rounded to nearest, as a Python
+    float (a tensor times it multiplies by that f32 value).  XLA compiles
+    the reference's divisions by a constant (``s / lim``, ``/ n``,
+    ``pmean``, the FSDP mean) into multiplications by the constant's f32
+    reciprocal, so the port multiplies by it too (bit-equal as it runs)."""
+    return float(np.float32(1) / np.float32(k))
+
+
+def saturate_nonfinite(g: torch.Tensor) -> torch.Tensor:
+    """The SR wire's ``"saturate"`` guard on ``g``, one leaf stacked over
+    the clients ``(C, ...)``: NaN -> 0 and +-Inf -> +- the client's largest
+    finite |g| in the leaf (0 where it has none); finite values pass
+    unchanged."""
+    if g.numel() == 0:
+        return g
+    dims = tuple(range(1, g.ndim))
+    fin = torch.where(torch.isfinite(g), g.abs(), torch.zeros_like(g))
+    fmax = fin.amax(dim=dims, keepdim=True) if dims else fin
+    return torch.clamp(torch.where(torch.isnan(g), torch.zeros_like(g), g), -fmax, fmax)
 
 
 #: Philox4x32-10's multipliers and key increments (Salmon et al., SC'11;
@@ -60,17 +83,25 @@ def philox4x32_plain(ctr, key):
     return c0, c1, c2, c3
 
 
-def philox_uniforms_plain(key: int, n: int, device=None) -> torch.Tensor:
-    """The ``n`` uniforms K1's inline entry draws under the 64-bit ``key``:
+def philox_uniforms_plain(key: int, n: int, device=None, stream: int = 0) -> torch.Tensor:
+    """The ``n`` uniforms the keyed kernels draw under the 64-bit ``key``:
     element ``i`` is ``(x >> 8) * 2^-24`` with ``x`` word ``i % 4`` of
-    Philox4x32-10 at counter ``(i // 4, i // 4 >> 32, 0, 0)``, key ``(key &
-    0xFFFFFFFF, key >> 32)``."""
+    Philox4x32-10 at counter ``(i // 4, i // 4 >> 32, stream, 0)``, key
+    ``(key & 0xFFFFFFFF, key >> 32)``.  K1's inline entry draws stream 0;
+    the keyed segment entries draw client ``c``'s row as stream ``c``."""
     g = torch.arange((n + 3) // 4, dtype=torch.int64, device=device)
     zero = torch.zeros_like(g)
-    words = philox4x32_plain((g & _MASK32, g >> 32, zero, zero),
+    words = philox4x32_plain((g & _MASK32, g >> 32, torch.full_like(g, int(stream)), zero),
                              (int(key) & _MASK32, (int(key) >> 32) & _MASK32))
     x = torch.stack(words, dim=1).reshape(-1)[:n]
     return (x >> 8).to(torch.float32) * 2.0**-24
+
+
+def philox_streams_plain(key: int, n_streams: int, n: int, device=None) -> torch.Tensor:
+    """``(n_streams, n)``: row ``c`` is :func:`philox_uniforms_plain` stream
+    ``c`` under ``key``, client ``c``'s draws in the keyed segment entries."""
+    return torch.stack([philox_uniforms_plain(key, n, device, stream=c)
+                        for c in range(n_streams)])
 
 
 #: Float codes saturate to their integer type's range (as XLA's float-to-int

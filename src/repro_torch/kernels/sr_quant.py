@@ -2,33 +2,43 @@
 
 K1 replaces the Pallas kernel ``repro/kernels/sr_quant.py:sr_quant_fake_kernel``
 (SR onto a grid of pitch ``step`` from caller-supplied uniforms) and the clip
-its wrappers apply.  It has two entries: the segment entry rounds every
+its wrappers apply.  It has three entries: the segment entry rounds every
 (client, leaf) segment of an FL round in one launch from given uniforms; the
+keyed segment entry does the same with the scales made on the card and the
+uniforms drawn in the kernel from the round's key (the fl-sim round); the
 inline entry is the trainer's whole quantizer for one weight use (scale,
 uniforms drawn in the kernel from a site key, the straight-through value,
-the compute dtype) in one call.  K2 replaces ``sr_quant_pack_kernel`` (the same rounding onto integer
-codes clipped to ``±(2^bits - 1)``); one launch packs every (client, leaf)
-segment of a train step's replicated gradients for the SR wire.  Both are in
-``csrc/sr_quant.cu``, whose notes say what bounds them.
+the compute dtype) in one call: the keyed kernels at one leaf and one
+client.  K2 replaces ``sr_quant_pack_kernel`` (the same rounding onto
+integer codes clipped to ``±(2^bits - 1)``); its u-taking
+entry packs every (client, leaf) segment of given gradients from given
+uniforms in one launch, its keyed entry is the SR wire's whole quantizer
+(the non-finite guard, the shared scales and pitch, uniforms from the wire's
+key, the codes) in one call that reads the clients' gradients where they lie.
+All are in ``csrc/sr_quant.cu``, whose notes say what bounds them.
 
-:func:`sr_quant_segments_cuda` / :func:`sr_quant_inline_cuda` /
-:func:`sr_pack_segments_cuda` launch them; the ``*_plain`` functions are the
+The ``*_cuda`` functions launch them; the ``*_plain`` functions are the
 plain PyTorch versions of the same functions, built on
 :mod:`repro_torch.kernels.ref`.  Each pair is bit-equal for the same uniforms
-(the same key, for the inline entry).
+(the same key, for the keyed entries).
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import (philox4x32_plain, philox_uniforms_plain,
+from repro_torch.kernels.ref import (f32_reciprocal, philox4x32_plain, philox_streams_plain,
+                                     philox_uniforms_plain, saturate_nonfinite,
                                      sr_quant_fake_plain, sr_quant_pack_plain)
 
 NAME = "sr_quant"
 INLINE_NAME = "sr_quant_inline"
 PACK_NAME = "sr_pack"
+KEYED_NAME = "sr_quant_keyed"
+PACK_KEYED_NAME = "sr_pack_keyed"
 PHILOX_NAME = "philox"
 INLINE_DTYPES = (torch.float32, torch.bfloat16)
 CODE_DTYPES = (torch.int8, torch.int16, torch.int32)
@@ -94,8 +104,9 @@ def _check_inline(w, delta, key, out_dtype):
     if out_dtype not in INLINE_DTYPES:
         raise ValueError(f"{INLINE_NAME}: out_dtype must be one of {INLINE_DTYPES}, got "
                          f"{out_dtype}")
-    if not 0 <= key < 2**64 or w.numel() >= 2**40:
-        raise ValueError(f"{INLINE_NAME}: key {key} (< 2^64) or n {w.numel()} out of range")
+    if not 0 <= key < 2**64 or w.numel() >= 2**31:
+        raise ValueError(f"{INLINE_NAME}: key {key} (< 2^64) or n {w.numel()} (< 2^31) out "
+                         "of range")
 
 
 def sr_quant_inline_plain(w, delta, key: int, out_dtype=torch.float32) -> torch.Tensor:
@@ -118,21 +129,21 @@ def sr_quant_inline_plain(w, delta, key: int, out_dtype=torch.float32) -> torch.
 
 
 def sr_quant_inline_cuda(w, delta, key: int, out_dtype=torch.float32) -> torch.Tensor:
-    """Launch K1's inline entry on the current stream (a max|w| pass, then
-    the rounding pass); returns ``w.shape`` in ``out_dtype``.  The scale and
-    ``delta`` never leave the device."""
+    """Launch K1's inline entry on the current stream (the keyed segment
+    entry's max|w| pass and rounding pass at one leaf and one client);
+    returns ``w.shape`` in ``out_dtype``.  The scale and ``delta`` never
+    leave the device."""
     _check_inline(w, delta, key, out_dtype)
     _build.require_cuda(INLINE_NAME, w, delta)
     out = torch.empty(w.shape, dtype=out_dtype, device=w.device)
     n = w.numel()
     if n == 0:
         return out
-    # pass 1: up to two blocks of 512 threads an SM, four elements a thread
-    n_parts = max(1, min(-(-n // 2048), 2 * _build.sm_count(w.device)))
-    parts = torch.empty(n_parts, dtype=torch.float32, device=w.device)
+    nb = seg_blocks([n], 1, _build.sm_count(w.device))[-1]
+    parts = torch.empty((nb, 2), dtype=torch.int32, device=w.device)
     err = _build.lib().repro_sr_quant_inline(
-        w.data_ptr(), parts.data_ptr(), n_parts, delta.data_ptr(), key & 0xFFFFFFFF,
-        key >> 32, out.data_ptr(), _build.DTYPE_CODES[out_dtype], n, _build.stream_of(w))
+        w.data_ptr(), n, nb, parts.data_ptr(), delta.data_ptr(), key & 0xFFFFFFFF, key >> 32,
+        out.data_ptr(), _build.DTYPE_CODES[out_dtype], _build.stream_of(w))
     _build.check_launch(INLINE_NAME, err)
     _build.LAUNCHES[NAME] += 1
     _build.LAUNCHES[INLINE_NAME] += 1
@@ -219,3 +230,174 @@ def sr_pack_segments_cuda(g, offsets, step, u, lim: int,
     _build.check_launch(PACK_NAME, err)
     _build.LAUNCHES[PACK_NAME] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# The keyed segment entries: uniforms drawn in the kernel, scales on the card
+# ---------------------------------------------------------------------------
+
+#: The by-value table of the keyed entries (csrc/sr_quant.cu: SegTable):
+#: leaves a row, and base pointers (rows x leaves) in all.
+SEG_MAX_LEAVES = 64
+SEG_MAX_PTRS = 256
+SEG_THREADS = 256
+
+
+def seg_blocks(sizes, rows: int, sms: int) -> list:
+    """Block offsets of the keyed passes: leaf ``l`` owns blocks ``blk[l]``
+    to ``blk[l+1] - 1`` of a row, its share of ~8 blocks an SM over the
+    ``rows`` rows, at least one and no more than one a 4-group a thread."""
+    P = sum(sizes)
+    budget = max(1, 8 * sms // rows)
+    blk = [0]
+    for n in sizes:
+        want = -(-budget * n // P) if P else 1
+        blk.append(blk[-1] + max(1, min(-(-n // (4 * SEG_THREADS)), want)))
+    return blk
+
+
+def _check_table(name, L: int, rows: int):
+    if not 1 <= L <= SEG_MAX_LEAVES or rows * L > SEG_MAX_PTRS:
+        raise ValueError(f"{name}: {L} leaves of {rows} rows exceed the kernel's table "
+                         f"({SEG_MAX_LEAVES} leaves, {SEG_MAX_PTRS} leaves x rows)")
+
+
+def _check_key(name, key: int):
+    if not 0 <= key < 2**64:
+        raise ValueError(f"{name}: key {key} out of range (< 2^64)")
+
+
+def _seg_offsets(sizes) -> list:
+    off = [0]
+    for n in sizes:
+        off.append(off[-1] + n)
+    if off[-1] >= 2**31:
+        raise ValueError(f"keyed segments: P={off[-1]} out of range (< 2^31)")
+    return off
+
+
+def _seg_launch_args(sizes, rows: int, tensors, device):
+    """The host arrays of the table (off, blk, base) and the blocks a row."""
+    off, blk = _seg_offsets(sizes), seg_blocks(sizes, rows, _build.sm_count(device))
+    return ((ctypes.c_int * len(off))(*off), (ctypes.c_int * len(blk))(*blk),
+            (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors)), blk[-1])
+
+
+def _absmax_or_zero(x: torch.Tensor) -> torch.Tensor:
+    return x.abs().amax() if x.numel() else torch.zeros((), dtype=x.dtype, device=x.device)
+
+
+def _check_quant_keyed(leaves, delta, key):
+    _check_table(KEYED_NAME, len(leaves), 1)
+    _check_key(KEYED_NAME, key)
+    for t in (*leaves, delta):
+        if t.dtype != torch.float32 or t.ndim != 1:
+            raise ValueError(f"{KEYED_NAME}: want 1-D f32 leaves and delta (C,), got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    if not 1 <= delta.shape[0] <= 65535:
+        raise ValueError(f"{KEYED_NAME}: C={delta.shape[0]} out of range [1, 65535]")
+
+
+def sr_quant_segments_keyed_plain(leaves, delta, key: int) -> torch.Tensor:
+    """Plain version of K1's keyed segment entry: the segment entry on the
+    leaves concatenated (the straight-through value), with ``s[l] = max|leaf
+    l|`` (1 where that is not > 0, as ``tensor_scale``) and client ``c``'s
+    uniforms stream ``c`` of
+    :func:`~repro_torch.kernels.ref.philox_uniforms_plain` under ``key``."""
+    _check_quant_keyed(leaves, delta, key)
+    sizes = [x.numel() for x in leaves]
+    w = torch.cat(list(leaves))
+    offsets = torch.tensor(_seg_offsets(sizes), dtype=torch.int32, device=w.device)
+    s = torch.stack([_absmax_or_zero(x) for x in leaves])
+    s = torch.where(s > 0, s, torch.ones_like(s))
+    u = philox_streams_plain(key, delta.shape[0], w.numel(), w.device)
+    return sr_quant_segments_plain(w, offsets, s, delta, u)
+
+
+def sr_quant_segments_keyed_cuda(leaves, delta, key: int) -> torch.Tensor:
+    """Launch K1's keyed segment entry on the current stream (a max|w| pass
+    over the leaves where they lie, then the rounding pass); returns ``(C,
+    P)`` f32.  Scales, uniforms and ``delta`` never leave the card."""
+    _check_quant_keyed(leaves, delta, key)
+    _build.require_cuda(KEYED_NAME, delta, *leaves)
+    sizes = [x.numel() for x in leaves]
+    C = delta.shape[0]
+    out = torch.empty((C, sum(sizes)), dtype=torch.float32, device=delta.device)
+    off, blk, base, nb = _seg_launch_args(sizes, C, leaves, delta.device)
+    parts = torch.empty((nb, 2), dtype=torch.int32, device=delta.device)
+    err = _build.lib().repro_sr_quant_keyed(
+        off, blk, base, len(leaves), parts.data_ptr(), delta.data_ptr(), C, key & 0xFFFFFFFF,
+        key >> 32, out.data_ptr(), _build.stream_of(delta))
+    _build.check_launch(KEYED_NAME, err)
+    _build.LAUNCHES[NAME] += 1
+    _build.LAUNCHES[KEYED_NAME] += 1
+    return out
+
+
+def _check_pack_keyed(leaves, key, lim, dtype):
+    C = len(leaves[0]) if leaves else 0
+    _check_table(PACK_KEYED_NAME, len(leaves), max(C, 1))
+    _check_key(PACK_KEYED_NAME, key)
+    if C < 1:
+        raise ValueError(f"{PACK_KEYED_NAME}: want at least one client")
+    for leaf in leaves:
+        if len(leaf) != C or any(g.shape != leaf[0].shape for g in leaf):
+            raise ValueError(f"{PACK_KEYED_NAME}: every leaf wants {C} clients' gradients "
+                             "of one shape")
+        for g in leaf:
+            if g.dtype != torch.float32:
+                raise ValueError(f"{PACK_KEYED_NAME}: gradients must be f32, got {g.dtype}")
+    if dtype not in CODE_DTYPES:
+        raise ValueError(f"{PACK_KEYED_NAME}: codes must be one of {CODE_DTYPES}, got {dtype}")
+    if not 0 < lim < 2**31:
+        raise ValueError(f"{PACK_KEYED_NAME}: lim={lim} out of range")
+
+
+def sr_pack_keyed_plain(leaves, key: int, lim: int, dtype: torch.dtype = torch.int8):
+    """Plain version of K2's keyed entry.  ``leaves``: per leaf, the ``C``
+    clients' f32 gradients.  Each client's leaf is guarded by
+    :func:`~repro_torch.kernels.ref.saturate_nonfinite` (NaN -> 0, +-Inf ->
+    +- its largest finite |g|); the leaf's scale ``s`` is the guarded max over
+    the clients (1 where 0), its pitch ``s * fl32(1 / lim)``; the codes are
+    K2's from client ``c``'s uniforms stream ``c`` under ``key``.  Returns
+    ``(codes (C, P), step (L,) f32, non-finite count () int64)``."""
+    _check_pack_keyed(leaves, key, lim, dtype)
+    dev = leaves[0][0].device
+    gs = [torch.stack([x.reshape(-1) for x in leaf]) for leaf in leaves]
+    bad = sum(((~torch.isfinite(g)).sum() for g in gs),
+              torch.zeros((), dtype=torch.int64, device=dev))
+    rows = [saturate_nonfinite(g) for g in gs]
+    s = torch.stack([_absmax_or_zero(g) for g in rows])
+    s = torch.where(s > 0, s, torch.ones_like(s))
+    step = s * f32_reciprocal(lim)
+    g = torch.cat(rows, dim=1)
+    offsets = torch.tensor(_seg_offsets([r.shape[1] for r in rows]), dtype=torch.int32,
+                           device=dev)
+    u = philox_streams_plain(key, g.shape[0], g.shape[1], dev)
+    return sr_pack_segments_plain(g, offsets, step, u, lim, dtype), step, bad
+
+
+def sr_pack_keyed_cuda(leaves, key: int, lim: int, dtype: torch.dtype = torch.int8):
+    """Launch K2's keyed entry on the current stream (the guard's partials,
+    then the guarded rounding onto codes); the gradients are read where they
+    lie.  Returns ``(codes (C, P), step (L,) f32, non-finite count () int64)``,
+    all on the card."""
+    _check_pack_keyed(leaves, key, lim, dtype)
+    flat = [g for leaf in zip(*leaves) for g in leaf]       # client-major: base[c * L + l]
+    _build.require_cuda(PACK_KEYED_NAME, *flat)
+    dev = flat[0].device
+    C, L = len(leaves[0]), len(leaves)
+    sizes = [leaf[0].numel() for leaf in leaves]
+    codes = torch.empty((C, sum(sizes)), dtype=dtype, device=dev)
+    step = torch.empty(L, dtype=torch.float32, device=dev)
+    bad = torch.empty((), dtype=torch.int64, device=dev)
+    off, blk, base, nb = _seg_launch_args(sizes, C, flat, dev)
+    parts = torch.empty((C * nb, 2), dtype=torch.int32, device=dev)
+    err = _build.lib().repro_sr_pack_keyed(
+        off, blk, base, L, C, parts.data_ptr(), key & 0xFFFFFFFF, key >> 32, float(lim),
+        codes.data_ptr(), _build.DTYPE_CODES[dtype], step.data_ptr(), bad.data_ptr(),
+        _build.stream_of(flat[0]))
+    _build.check_launch(PACK_KEYED_NAME, err)
+    _build.LAUNCHES[PACK_NAME] += 1
+    _build.LAUNCHES[PACK_KEYED_NAME] += 1
+    return codes, step, bad

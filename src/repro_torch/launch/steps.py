@@ -8,7 +8,7 @@ Counterparts of ``build_train_step`` / ``local_param_shapes`` /
 The train step runs a ``Dx1`` mesh's D clients one after another (the
 reference runs them as the data-parallel shards of one program) and then does
 the server's part: the reference's FSDP leaves mean-reduced in f32, its
-replicated leaves through the SR-quantized all-reduce (one K2 launch), one
+replicated leaves through the SR-quantized all-reduce (one K2 call), one
 optimizer step.  Its SR noise comes from :class:`SRDraws`.
 """
 
@@ -40,23 +40,21 @@ class SRDraws:
     Every draw is keyed by ``(seed, round_idx, site)`` (:func:`site_key`),
     so a step is deterministic and a resumed run repeats it.  The sites are
     the reference's: a weight use is ``(client, _stable_hash(path))`` (no
-    layer index: every layer of a stacked weight gets the same draws), a wire
-    leaf is ``(17, leaf index in flatten order, client)``.  A weight use
-    draws its uniforms inside K1 from :meth:`weight_key`; :meth:`weights`
-    returns those same uniforms as a tensor.  PyTorch cannot reproduce the
-    reference's threefry bits, so this class is the one seam a test replaces
-    to feed the reference's own draws: a subclass that overrides
-    :meth:`weights` has its uniforms used as given (K1's segment entry).
+    layer index: every layer of a stacked weight gets the same draws), the
+    wire is ``17``.  A weight use draws its uniforms inside K1 from
+    :meth:`weight_key`; :meth:`weights` returns those same uniforms as a
+    tensor.  The wire draws inside K2 from :meth:`wire_key`, client ``c``'s
+    row over the wire leaves concatenated in flatten order as stream ``c``
+    (:func:`~repro_torch.kernels.ref.philox_streams_plain`).  PyTorch cannot reproduce the reference's
+    threefry bits, so this class is the one seam a test replaces to feed the
+    reference's own draws: a subclass that overrides :meth:`weights` has its
+    uniforms used as given (K1's segment entry), and one whose :meth:`wire`
+    returns uniforms has them used as given (K2's u-taking entry).
     """
 
     def __init__(self, seed: int, round_idx: int):
         self.seed, self.round_idx = int(seed), int(round_idx)
         self._keys: dict = {}
-
-    def _rand(self, site: tuple, shape, device) -> torch.Tensor:
-        gen = torch.Generator(device=device).manual_seed(
-            site_key(self.seed, self.round_idx, *site))
-        return torch.rand(tuple(shape), generator=gen, device=device)
 
     def weight_key(self, client: int, path: str) -> int:
         """The 64-bit key of client ``client``'s inline quantization of
@@ -74,10 +72,14 @@ class SRDraws:
         return philox_uniforms_plain(self.weight_key(client, path), n).reshape(
             tuple(shape)).to(device)
 
-    def wire(self, leaf: int, n_clients: int, shape, device) -> torch.Tensor:
-        """``(n_clients, *shape)`` uniforms for wire leaf ``leaf``."""
-        return torch.stack([self._rand((17, int(leaf), c), shape, device)
-                            for c in range(n_clients)])
+    def wire_key(self) -> int:
+        """The 64-bit key of the step's SR wire (site ``17``)."""
+        return site_key(self.seed, self.round_idx, 17)
+
+    def wire(self, leaf: int, n_clients: int, shape, device):
+        """The wire's seam: ``(n_clients, *shape)`` uniforms for wire leaf
+        ``leaf``, or None (here) for K2's own draws from :meth:`wire_key`."""
+        return None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,8 +103,9 @@ def build_train_step(model: Model, axes: AxisCtx, opt: Optimizer,
     subclass overrides that) and takes its loss and gradient there; the server
     means the reference's FSDP leaves in f32 and, when
     ``train_cfg.grad_compression_bits`` is set, sends the replicated leaves
-    through :func:`quantized_psum_batch` (one K2 launch), then steps the
-    optimizer.  ``loss`` is the clients' mean; ``grad_sq_shard_sum`` is the
+    through :func:`quantized_psum_batch` (one call of K2's keyed entry
+    under ``draws.wire_key()``; the u-taking entry where ``draws.wire``
+    gives uniforms), then steps the optimizer.  ``loss`` is the clients' mean; ``grad_sq_shard_sum`` is the
     reference's sum over shards of the reduced gradients' squared norms
     (FSDP leaves once, replicated leaves ``D`` times).
     """
@@ -147,10 +150,14 @@ def build_train_step(model: Model, axes: AxisCtx, opt: Optimizer,
         G = reduce_gradients(sums, axes)
         if wire:
             idx = [(i, p) for i, p in enumerate(paths) if p in wire]
-            means = quantized_psum_batch(
-                axes, [torch.stack(stacked.pop(p)) for _i, p in idx],
-                [draws.wire(i, D, params[p].shape, dev) for i, p in idx], bits,
-                on_nonfinite=train_cfg.nonfinite_grads)
+            leaves = [stacked.pop(p) for _i, p in idx]      # per leaf, the D clients'
+            us = [draws.wire(i, D, params[p].shape, dev) for i, p in idx]
+            if all(uu is None for uu in us):    # K2 draws; the gradients stay put
+                means = quantized_psum_batch(axes, leaves, None, bits, key=draws.wire_key(),
+                                             on_nonfinite=train_cfg.nonfinite_grads)
+            else:
+                means = quantized_psum_batch(axes, [torch.stack(g) for g in leaves], us, bits,
+                                             on_nonfinite=train_cfg.nonfinite_grads)
             G.update(zip((p for _i, p in idx), means))
         # ---- server update (line 11) --------------------------------------
         updates, opt_state = opt.update(G, opt_state, params)
@@ -158,7 +165,7 @@ def build_train_step(model: Model, axes: AxisCtx, opt: Optimizer,
                   for k, p in params.items()}
         gnorm = sum((G[p].to(torch.float32) ** 2).sum() * (D if p in replicated else 1)
                     for p in paths)
-        metrics = {"loss": loss_sum * f32_reciprocal(D, dev), "grad_sq_shard_sum": gnorm}
+        metrics = {"loss": loss_sum * f32_reciprocal(D), "grad_sq_shard_sum": gnorm}
         return params, opt_state, metrics
 
     return TrainStep(fn=fn, batch_spec_fn=model.train_batch_spec, n_clients=D)

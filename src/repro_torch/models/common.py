@@ -160,7 +160,7 @@ def reduce_gradients(grad_sums: dict, ctx: AxisCtx) -> dict:
     divided by ``dp``, and the replicated leaves are ``pmean``-ed; both are
     the f32 sum over the clients times ``fl32(1 / dp)`` as XLA runs them.
     """
-    return {p: g * f32_reciprocal(ctx.dp, g.device) for p, g in grad_sums.items()}
+    return {p: g * f32_reciprocal(ctx.dp) for p, g in grad_sums.items()}
 
 
 @dataclasses.dataclass

@@ -222,7 +222,7 @@ def test_wire_pitch_is_the_reciprocal_product():
     for bits in (4, 8, 12):
         lim = float(2**bits - 1)
         want = np.asarray(jax.jit(lambda x: x / lim)(jnp.asarray(s)))
-        got = (_t(s) * tcol.f32_reciprocal(2**bits - 1, "cpu")).numpy()
+        got = (_t(s) * tcol.f32_reciprocal(2**bits - 1)).numpy()
         np.testing.assert_array_equal(got, want)
     ieee = (_t(s) / 255.0).numpy()
     want = np.asarray(jax.jit(lambda x: x / 255.0)(jnp.asarray(s)))
