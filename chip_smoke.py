@@ -33,7 +33,12 @@ Phases (each one failing stops the script with a nonzero exit):
    pitch and non-finite count bit-equal at bits 4-16 into int8/16/32, 1-7
    leaves, 1-4 clients, the pitch at every bits 1-31, NaN and +-Inf, an
    unaligned base; timed at the trainer's wire and at 4 x 4096 x 11008 in
-   int8 and int16 beside the parent's chain);
+   int8 and int16 beside the parent's chain); the keyed entries on trees
+   past one table (K1 at 65 leaves, K2 at 26 x 10 and 4 x 70) through
+   ``ops``, bit-equal to the plain split, to the u-taking entry fed the
+   key's streams and to the one-table call; K3 at the MoE experts' shapes
+   (olmoe, qwen3; M 4 and a 4 x 128 prefill's capacity) beside
+   ``torch.matmul``;
    K3, K4 and K5 also launched twice on identical inputs, the outputs
    bit-equal.  K4's rows name the path and tiles of
    ``plan_attention`` and the SDPA backend of their library time (fused:
@@ -47,16 +52,21 @@ Phases (each one failing stops the script with a nonzero exit):
    (n_pmax 256, ~4,000 tokens a slot), each with its block count from
    ``plan_decode``.
 4. serve: ``Session.serve`` of full-width, full-depth yi-6b, then of
-   gemma-7b (head dim 256), with int8 weights, paged f32 KV and continuous
-   batching; the launch counters are zeroed just before each run and read
-   just after, and K3, K4 and K5 must have launched in each.
+   gemma-7b (head dim 256) and olmoe-1b-7b (64 experts, top-8), with int8
+   weights, paged f32 KV and continuous batching; the launch counters are
+   zeroed just before each run and read just after, K3, K4 and K5 must have
+   launched in each, K3 a whole number of passes of the family's count
+   (``(4 + 3E)L + 1`` for MoE, ``7L + 1`` dense), and every MoE
+   ``expert_dispatch`` on its K3 branch (never the eager dequant).
 5. profile: where a full-depth decode step's and a prefill's (4 slots x 128
-   tokens) time goes: host clock, device time by kernel from
-   ``torch.profiler``, K3's, K4's and K5's device time and launches.
+   tokens) time goes, for yi-6b and olmoe-1b-7b: host clock, device time by
+   kernel from ``torch.profiler``, K3's, K4's and K5's device time and
+   launches, K3's launches by shape.
 6. consistency: a 2-layer full-width yi-6b (bf16, then f32 compute: K4's
-   split path) and a 4-layer full-width gemma-7b each run one prefill and
-   one decode step with the kernels and again with the plain versions on
-   the card; then the smoke-size yi-6b (f32, head dim 16) serves through
+   split path), a 4-layer full-width gemma-7b and a 2-layer full-width
+   qwen3-moe-235b-a22b (f32, 128 experts, K5 at G 16) each run one prefill
+   and one decode step with the kernels and again with the plain versions
+   on the card; then the smoke-size yi-6b (f32, head dim 16) serves through
    ``Session.serve`` with K4 launched on the split path only.
 7. fl: the paper's FWQ loop (``Session.run_fl_sim``) on the card — the
    quickstart ``mobilenet`` spec and the ``fl-codesign-grid`` ``resnet``
@@ -74,7 +84,11 @@ Phases (each one failing stops the script with a nonzero exit):
    a profiled round (device ms by family, busy share, host syncs); one
    weight use through the inline K1 and the keyed K2 on a step's real
    replicated gradients against their plain versions; the rounds' plans
-   against a CPU run of the same orchestrator.
+   against a CPU run of the same orchestrator.  Then 2 rounds of ``train``
+   on olmoe-1b-7b at full width cut to 2 layers (4x1, sequence 256): finite
+   losses, 120 K1 launches (every expert stack one weight use, the router
+   exempt) and one keyed K2 call a step, peak memory under 40 GB, a
+   profiled round.
 
 The last two lines are the kernel table and ``{"ok": true, "device": ...}``.
 ``--phases`` runs a subset (for iterating on one kernel); phase ``sweep``,
@@ -1345,13 +1359,148 @@ def check_sr_quant_keyed(table: dict) -> None:
         del params, leaves, got, want
 
 
+def _split_sizes(L: int) -> list:
+    """Leaf sizes of the tree-splitting checks: ragged, so that 4-groups
+    straddle leaves and the tables' seams."""
+    return [4 * (1 + (7 * i) % 23) + 1 + i % 3 for i in range(L)]
+
+
+def check_keyed_splits() -> None:
+    """The keyed entries on trees past one table, through ``ops`` (the path
+    the fl round and the trainer's wire take): K1 at 65 leaves (tables of
+    64 and 1), K2 at 26 clients x 10 leaves (9 + 1) and 4 x 70 (64 + 6).
+    Each is bit-equal to the ops call on CPU copies (the plain versions in
+    the same groups), to the u-taking entry on the card fed
+    ``ref.philox_streams_plain`` of the same key over the whole tree, and,
+    on the first table's leaves, to the one-table call with the same key;
+    K2's non-finite count is summed over the groups."""
+    from repro_torch.core.fwq import delta_for_clients
+    from repro_torch.kernels.ref import f32_reciprocal, philox_streams_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    key = 0xA0761D6478BD642F
+    sizes = _split_sizes(65)
+    leaves = [torch.randn(n, generator=gen, device="cuda") * (1 + i % 5)
+              for i, n in enumerate(sizes)]
+    delta = delta_for_clients(np.array([8, 4, 16])).cuda()
+    n0 = ops.LAUNCHES["sr_quant_keyed"]
+    got = ops.sr_quantize_segments_keyed(leaves, delta, key)
+    torch.cuda.synchronize()
+    groups = ops.LAUNCHES["sr_quant_keyed"] - n0
+    assert groups == 2, groups
+    w = torch.cat(leaves)
+    offsets = torch.tensor([0, *itertools.accumulate(sizes)], dtype=torch.int32, device="cuda")
+    s = torch.stack([x.abs().amax() for x in leaves])
+    u = philox_streams_plain(key, 3, w.numel(), "cuda")
+    one = sq.sr_quant_segments_keyed_cuda(leaves[:64], delta, key)
+    for label, want in (
+            ("the plain split on the CPU", ops.sr_quantize_segments_keyed(
+                [x.cpu() for x in leaves], delta.cpu(), key)),
+            ("the u-taking entry fed the key's streams", sq.sr_quant_segments_cuda(
+                w, offsets, torch.where(s > 0, s, torch.ones_like(s)), delta, u)),
+            ("the one-table call", one)):
+        if not torch.equal(got[:, :want.shape[1]].cpu(), want.cpu()):
+            raise AssertionError(f"keyed K1 at 65 leaves: differs from {label}")
+    print(f"keyed K1 split: 65 leaves in {groups} tables, bit-equal to the plain split, to "
+          "the u-taking entry fed the key's streams and to the one-table call")
+    for C, L in ((26, 10), (4, 70)):
+        sizes = _split_sizes(L)
+        leaves = _grads(sizes, C, gen)
+        leaves[-1][C - 1][2] = float("nan")             # counted in the last table
+        n0 = ops.LAUNCHES["sr_pack_keyed"]
+        got = ops.sr_pack_keyed(leaves, key, 127, torch.int16)
+        torch.cuda.synchronize()
+        groups = ops.LAUNCHES["sr_pack_keyed"] - n0
+        assert groups == 2, groups
+        _same_pack(f"{C} x {L} split (CPU)", got,
+                   ops.sr_pack_keyed(_cpu(leaves), key, 127, torch.int16))
+        if int(got[2]) != 1:
+            raise AssertionError(f"keyed K2 {C} x {L}: count {int(got[2])}, want 1")
+        rows = [torch.nan_to_num(torch.stack(leaf), nan=0.0) for leaf in leaves]
+        step = torch.stack([r.abs().amax() for r in rows]) * f32_reciprocal(127)
+        g = torch.cat(rows, dim=1)
+        offsets = torch.tensor([0, *itertools.accumulate(sizes)], dtype=torch.int32,
+                               device="cuda")
+        want = sq.sr_pack_segments_cuda(g, offsets, step, philox_streams_plain(
+            key, C, g.shape[1], "cuda"), 127, torch.int16)
+        if not (torch.equal(got[0], want) and torch.equal(got[1], step)):
+            raise AssertionError(f"keyed K2 {C} x {L}: differs from the u-taking entry fed "
+                                 "the key's streams")
+        l1 = sq.table_groups(sizes, C, "check")[0][1]
+        one = sq.sr_pack_keyed_cuda(leaves[:l1], key, 127, torch.int16)
+        if not (torch.equal(got[0][:, :one[0].shape[1]], one[0]) and
+                torch.equal(got[1][:l1], one[1])):
+            raise AssertionError(f"keyed K2 {C} x {L}: differs from the one-table call")
+        print(f"keyed K2 split: {C} clients x {L} leaves in {groups} tables, bit-equal to "
+              "the plain split, to the u-taking entry fed the key's streams and to the "
+              "one-table call; the NaN counted once")
+
+
+#: K3 at the MoE experts' shapes: (model, projection, K, N).
+EXPERT_SHAPES = (("olmoe-1b-7b", "up/gate", 2048, 1024), ("olmoe-1b-7b", "down", 1024, 2048),
+                 ("qwen3-moe-235b-a22b", "up/gate", 4096, 1536),
+                 ("qwen3-moe-235b-a22b", "down", 1536, 4096))
+#: M: a 4-slot decode step's capacity, and a 4 x 128 prefill's
+#: (int(512 * 8 * 1.25 / 64) + 1; qwen3's 128 experts give 41)
+EXPERT_MS = {"olmoe-1b-7b": (4, 81), "qwen3-moe-235b-a22b": (4, 41)}
+
+
+def check_quant_matmul_experts() -> None:
+    """K3 at each expert shape and capacity, bf16 (the serving path) and f32
+    (phase consistency's qwen3) x with int8 codes: within the K3 rows'
+    tolerance of the plain version, bit-equal over two launches, and planned
+    onto the cluster path (M 4) or, for bf16, the wgmma path (never the FP32
+    tiled one: every expert's code rows are 16-byte multiples).  Each timed
+    beside ``torch.matmul`` on the dequantized weight and the bound; a
+    layer's experts are as many distinct weights, so the timed launches
+    rotate over copies enough to read each from device memory."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for arch, proj, K, N in EXPERT_SHAPES:
+        codes = torch.randint(-127, 128, (K, N), generator=gen, device="cuda",
+                              dtype=torch.int32).to(torch.int8)
+        scale = torch.tensor(2.0 / math.sqrt(K) / 127, device="cuda")
+        n_copies = max(1, min(16, math.ceil(120e6 / codes.nbytes)))
+        copies = [codes] + [codes.clone() for _ in range(n_copies - 1)]
+        for x_dtype in (torch.bfloat16, torch.float32):
+            w_libs = [(c.float() * scale).to(x_dtype) for c in copies]
+            for M in EXPERT_MS[arch]:
+                x = torch.randn((M, K), generator=gen, device="cuda").to(x_dtype)
+                got = qm.quant_matmul_cuda(x, codes, scale)
+                again = qm.quant_matmul_cuda(x, codes, scale)
+                want = qm.quant_matmul_plain(x, codes, scale)
+                torch.cuda.synchronize()
+                case = f"quant_matmul {arch} {proj} M={M} K={K} N={N} x={x_dtype}"
+                rtol, atol = (1e-4, 1e-3) if x_dtype == torch.float32 else (2e-2, 1e-2)
+                _check(case, got, want, rtol, atol)
+                if not torch.equal(got, again):
+                    raise AssertionError(f"{case}: two launches on identical inputs differ")
+                p = qm.plan(M, K, N, x_dtype, torch.int8)
+                want_path = "cluster" if M <= 16 else (
+                    "wgmma" if x_dtype == torch.bfloat16 else "tiled")
+                assert p.path == want_path, (case, p)
+                sets = [(x, c, scale) for c in copies]
+                nbytes = x.nbytes + codes.nbytes + 4 + M * N * 4
+                b_ms, b_by = bound_ms(nbytes, 2.0 * M * K * N, x_dtype)
+                emit(dict(kernel="quant_matmul", case=f"{arch} expert {proj}", M=M, K=K, N=N,
+                          x=str(x_dtype), codes="torch.int8", plan=list(p),
+                          max_abs_err=max_errs(got, want)[0],
+                          kernel_ms=time_ms(qm.quant_matmul_cuda, sets),
+                          plain_ms=time_ms(qm.quant_matmul_plain, sets[:1], iters=3, warmup=1),
+                          library_ms=time_ms(torch.matmul, [(x, w) for w in w_libs]),
+                          bound_ms=b_ms, bound_by=b_by))
+            del w_libs
+        del copies, codes
+
+
 def phase_kernels(table: dict) -> None:
     check_sr_quant(table)
     check_sr_quant_keyed(table)
     check_sr_quant_inline(table)
     check_sr_pack(table)
     check_sr_pack_keyed(table)
+    check_keyed_splits()
     check_quant_matmul(table)
+    check_quant_matmul_experts()
     check_flash_attention(table)
     check_attention_one_hot()
     check_flash_decode(table)
@@ -1360,13 +1509,50 @@ def phase_kernels(table: dict) -> None:
 
 
 #: The serve runs: yi-6b as in every earlier slice, then gemma-7b (head dim
-#: 256 through K4 and K5), both at full width and depth, 4 slots, s_max 256.
+#: 256 through K4 and K5) and olmoe-1b-7b (64 experts top-8: every expert's
+#: FFN through K3), all at full width and depth, 4 slots, s_max 256.
 SERVE_RUNS = {
     "yi-6b": dict(layers=32, d_model=4096, options={
         "prompt_len": 128, "requests": 8, "max_new": 32, "steps": 64}),
     "gemma-7b": dict(layers=28, d_model=3072, options={
         "prompt_len": 64, "requests": 4, "max_new": 8, "steps": 32}),
+    "olmoe-1b-7b": dict(layers=16, d_model=2048, options={
+        "prompt_len": 64, "requests": 4, "max_new": 16, "steps": 32}),
 }
+
+
+def k3_per_pass(cfg) -> int:
+    """K3 launches a decode step or a prefill: q, k, v, o and the MLP's
+    three projections a layer (dense), or q, k, v, o and three a layer for
+    each expert (MoE), and the head."""
+    per_layer = 4 + 3 * cfg.n_experts if cfg.family == "moe" else 7
+    return per_layer * cfg.n_layers + 1
+
+
+@contextlib.contextmanager
+def k3_and_experts(record: dict):
+    """Counts K3's launches by shape (``"MxKxN dtype"``) and each
+    ``expert_dispatch`` call by branch: ``k3`` (a packed stack with one
+    scale), ``eager`` (a per-expert scale row, dequantized) or ``plain``."""
+    shapes, branches = record.setdefault("k3_shapes", {}), record.setdefault("experts", {})
+    launch, dispatch = qm.quant_matmul_cuda, ops.expert_dispatch
+
+    def counting_launch(x, codes, scale, tile_plan=None):
+        k = f"{x.shape[0]}x{x.shape[1]}x{codes.shape[1]} {str(x.dtype)[6:]}"
+        shapes[k] = shapes.get(k, 0) + 1
+        return launch(x, codes, scale, tile_plan)
+
+    def counting_dispatch(x, w, dtype=None):
+        packed = hasattr(w, "codes")
+        b = ("k3" if w.scale.ndim == 0 else "eager") if packed else "plain"
+        branches[b] = branches.get(b, 0) + 1
+        return dispatch(x, w, dtype)
+
+    qm.quant_matmul_cuda, ops.expert_dispatch = counting_launch, counting_dispatch
+    try:
+        yield record
+    finally:
+        qm.quant_matmul_cuda, ops.expert_dispatch = launch, dispatch
 
 
 def phase_serve(dev: dict) -> dict:
@@ -1382,19 +1568,27 @@ def phase_serve(dev: dict) -> dict:
                                 "vary_prompt": True, "quiet": True, **run["options"]})
         sess = Session(spec, device="cuda")
         torch.cuda.reset_peak_memory_stats()
+        record: dict = {}
         ops.reset_launches()
         t0 = time.time()
-        stats = sess.serve()
+        with k3_and_experts(record):
+            stats = sess.serve()
         wall = time.time() - t0
         launches = dict(ops.LAUNCHES)
-        vocab = sess.cfg.vocab_size
-        assert (sess.cfg.n_layers, sess.cfg.d_model) == (run["layers"], run["d_model"]), \
-            sess.cfg
+        cfg = sess.cfg
+        vocab = cfg.vocab_size
+        assert (cfg.n_layers, cfg.d_model) == (run["layers"], run["d_model"]), cfg
         n_req = run["options"]["requests"]
         assert stats.admitted == n_req, stats.admitted
         assert stats.completed == n_req, stats.completed
-        # every decode step and every prefill projects 7 x layers + the head
-        assert launches["quant_matmul"] % (7 * sess.cfg.n_layers + 1) == 0, launches
+        # every decode step and every prefill launches the family's K3 count
+        per_pass = k3_per_pass(cfg)
+        assert launches["quant_matmul"] % per_pass == 0, (per_pass, launches)
+        if cfg.family == "moe":
+            # every expert FFN took K3 (one launch an expert), never the
+            # eager dequant: three dispatches a layer a pass
+            passes = launches["quant_matmul"] // per_pass
+            assert record["experts"] == {"k3": 3 * cfg.n_layers * passes}, record["experts"]
         assert stats.decoded_tokens > 0, stats.decoded_tokens
         assert stats.sample and all(0 <= t < vocab for t in stats.sample), stats.sample
         assert all(0 <= t < vocab for t in sess.last_tokens), "sampled id out of range"
@@ -1402,7 +1596,10 @@ def phase_serve(dev: dict) -> dict:
             assert launches[name] > 0, f"{arch}: main path never launched {name}: {launches}"
         d = dict(vars(stats))
         d["arch"] = arch
-        d["head_dim"] = sess.cfg.head_dim
+        d["head_dim"] = cfg.head_dim
+        d["k3_per_pass"] = per_pass
+        d["k3_shapes"] = record["k3_shapes"]
+        d["expert_dispatch"] = record["experts"]
         d["tok_s_card"] = f"{dev['kind']} ({dev['smi']})"
         d["serve_wall_s"] = wall
         d["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
@@ -1574,15 +1771,25 @@ def _launches(fn) -> dict:
 _KERNEL_NAMES = {"k3": "qmm_", "k4": "flash_attention_", "k5": "flash_decode"}
 
 
+#: phase profile's models: the dense serving path and the MoE one
+PROFILE_ARCHS = ("yi-6b", "olmoe-1b-7b")
+
+
 def phase_profile(dev: dict) -> None:
-    """Where a full-depth decode step's and a prefill's time goes: host clock
-    per step and per prefill, and device time by kernel from
-    ``torch.profiler``; K3's, K4's and K5's device time and launches."""
+    """Where a full-depth decode step's and a prefill's time goes, for each
+    of :data:`PROFILE_ARCHS`: host clock per step and per prefill, device
+    time by kernel from ``torch.profiler``, K3's, K4's and K5's device time
+    and launches (K3's by shape), and the rest of the device time."""
     from repro_torch.api import PrecisionPolicy
     from repro_torch.configs import get_config
 
-    cfg = get_config("yi-6b")
-    decode, _lp, tok, caches, again = prefilled(cfg, PrecisionPolicy.lazy_int8(7))
+    for arch in PROFILE_ARCHS:
+        profile_arch(dev, get_config(arch), PrecisionPolicy.lazy_int8(7))
+        torch.cuda.empty_cache()
+
+
+def profile_arch(dev: dict, cfg, policy) -> None:
+    decode, _lp, tok, caches, again = prefilled(cfg, policy)
     state = {"tok": tok, "caches": caches}
 
     def step():
@@ -1594,8 +1801,9 @@ def phase_profile(dev: dict) -> None:
         lp, _ = again()
         lp.float().argmax(-1).cpu()         # the serve loop reads the first token
 
-    projections = 7 * cfg.n_layers + 1     # q k v o gate up down a layer, the head
-    out = {"card": f"{dev['kind']} ({dev['smi']})", "layers": cfg.n_layers, "batch": 4}
+    projections = k3_per_pass(cfg)
+    out = {"arch": cfg.name, "card": f"{dev['kind']} ({dev['smi']})", "layers": cfg.n_layers,
+           "batch": 4}
     for label, fn, n in (("decode_step", step, 8), ("prefill_4x128", prefill_once, 3)):
         for _ in range(2):                  # warm up
             fn()
@@ -1604,7 +1812,8 @@ def phase_profile(dev: dict) -> None:
         for _ in range(n):
             fn()
         host_ms = (time.time() - t0) * 1e3 / n
-        launches = _launches(fn)
+        with k3_and_experts({}) as record:
+            launches = _launches(fn)
         k3 = launches["quant_matmul"]
         assert k3 == projections, f"{label}: {k3} K3 launches, expected {projections}"
         attn = "flash_decode" if label == "decode_step" else "flash_attention"
@@ -1614,12 +1823,17 @@ def phase_profile(dev: dict) -> None:
         out[label] = {
             "ms_host_clock": host_ms,
             "device_ms": device_ms if rows else "not measured",
-            "device_busy_share": device_ms / host_ms if rows else "not measured"}
+            "device_busy_share": device_ms / host_ms if rows else "not measured",
+            "device_ops": sum(r[1] for r in rows) if rows else "not measured"}
         for k, frag in _KERNEL_NAMES.items():
             out[label][f"{k}_device_ms"] = (sum(r[0] for r in rows if frag in r[2]) if rows
                                             else "not measured")
+        if rows:
+            out[label]["other_device_ms"] = device_ms - sum(
+                out[label][f"{k}_device_ms"] for k in _KERNEL_NAMES)
         out[label].update(k3_launches=k3, k4_launches=launches["flash_attention"],
-                          k5_launches=launches["flash_decode"],
+                          k5_launches=launches["flash_decode"], k3_shapes=record["k3_shapes"],
+                          expert_dispatch=record["experts"],
                           top=[{"ms": ms, "launches": c, "name": k[:80]}
                                for ms, c, k in rows[:10]])
     emit({"profile": out})
@@ -1627,9 +1841,13 @@ def phase_profile(dev: dict) -> None:
 
 #: phase consistency's models: (arch, layers, compute dtype, tolerance).
 #: f32 compute sends every prefill through K4's split path and holds the
-#: kernels to the plain versions far tighter than bf16 can.
+#: kernels to the plain versions far tighter than bf16 can.  qwen3-moe (128
+#: experts, 64 heads over 4 KV heads: K5 at G 16) runs in f32 so that both
+#: runs route every token alike: bf16's differences between kernel and
+#: plain attention would move tokens near a top-8 tie to another expert.
 CONSISTENCY_RUNS = (("yi-6b", 2, "bfloat16", 5e-2), ("yi-6b", 2, "float32", 2e-3),
-                    ("gemma-7b", 4, "bfloat16", 5e-2))
+                    ("gemma-7b", 4, "bfloat16", 5e-2),
+                    ("qwen3-moe-235b-a22b", 2, "float32", 2e-3))
 
 
 def phase_consistency() -> None:
@@ -1645,8 +1863,15 @@ def phase_consistency() -> None:
         cfg = dataclasses.replace(get_config(arch), n_layers=layers, compute_dtype=compute)
         runs = {}
         for label, ctx in (("kernels", contextlib.nullcontext()), ("plain", plain_kernels())):
+            ops.reset_launches()
             with ctx:
                 runs[label] = step_logits(cfg, PrecisionPolicy.lazy_int8(7))
+            torch.cuda.synchronize()
+            if label == "kernels":      # one prefill and one decode step
+                launches = dict(ops.LAUNCHES)
+                assert launches["quant_matmul"] == 2 * k3_per_pass(cfg), launches
+                assert launches["flash_attention"] == launches["flash_decode"] == layers, \
+                    launches
         agree, diff = {}, {}
         for key in ("prefill_logits", "decode_logits"):
             a, b = runs["kernels"][key].float(), runs["plain"][key].float()
@@ -1655,7 +1880,10 @@ def phase_consistency() -> None:
             agree[key] = float((a.argmax(-1) == b.argmax(-1)).float().mean())
             diff[key] = float((a - b).abs().max())
         emit({"consistency": {"arch": arch, "layers": layers, "d_model": cfg.d_model,
-                              "head_dim": cfg.head_dim, "compute_dtype": compute, "tol": tol,
+                              "head_dim": cfg.head_dim,
+                              "decode_group": cfg.n_heads // cfg.n_kv_heads,
+                              "experts": cfg.n_experts, "k3_launches": launches["quant_matmul"],
+                              "compute_dtype": compute, "tol": tol,
                               "max_abs_diff": diff, "greedy_agreement": agree}})
         del runs
         torch.cuda.empty_cache()
@@ -1957,21 +2185,22 @@ TRAIN_RUNS = {
 }
 
 
-def _train_session(run: dict, device: str):
-    """A yi-6b Session at full width with the depth cut to 8 layers (as phase
-    ``consistency`` cuts its model), on a 4x1 mesh: 4 clients, batch 2 each,
-    sequence 512, lr 0.05."""
+def _train_session(run: dict, device: str, arch: str = "yi-6b", layers: int = 8,
+                   seq: int = 512):
+    """A Session of ``arch`` at full width with the depth cut to ``layers``
+    (as phase ``consistency`` cuts its model), on a 4x1 mesh: 4 clients,
+    batch 2 each, sequence ``seq``, lr 0.05."""
     import dataclasses
 
     from repro_torch.api import PrecisionPolicy, RunSpec, Session
     from repro_torch.configs import get_config
 
-    spec = RunSpec("yi-6b", workload=run["workload"], mesh="4x1", smoke=False, seed=0,
-                   batch=2, seq=512, rounds=run["rounds"],
+    spec = RunSpec(arch, workload=run["workload"], mesh="4x1", smoke=False, seed=0,
+                   batch=2, seq=seq, rounds=run["rounds"],
                    precision=PrecisionPolicy(**run["precision"]),
                    options={"lr": 0.05, "quiet": True, **run["options"]})
     sess = Session(spec, device=device)
-    sess.cfg = dataclasses.replace(get_config("yi-6b"), n_layers=8)
+    sess.cfg = dataclasses.replace(get_config(arch), n_layers=layers)
     return sess
 
 
@@ -2198,7 +2427,66 @@ def phase_train(dev: dict) -> dict:
                                  "planned differently from the CPU run")
     print(f"train fl-orchestrate: plans of rounds 0-{len(orch_log) - 1} (bits, energy, "
           "cohorts) equal the CPU run's")
+    for k, n in train_moe(dev).items():
+        launches[k] += n
     return launches
+
+
+def train_moe(dev: dict) -> dict:
+    """The ``train`` run (8-bit weights, int8 wire) on olmoe-1b-7b at full
+    width cut to 2 layers, 4x1 mesh, batch 2, sequence 256: finite losses,
+    one inline K1 launch a weight use (each expert stack one weight use;
+    the router exempt), one call of K2's keyed entry a step (the wire's
+    replicated leaves: the norms and the routers), the peak memory, and a
+    profiled round.  Returns its K1 and K2 launches."""
+    run = TRAIN_RUNS["train"]
+    rows: list = []
+    sess = _train_session(run, "cuda", arch="olmoe-1b-7b", layers=2, seq=256)
+    cfg = sess.cfg
+    t0 = time.time()
+    sess._ensure_train_state()
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    record: dict = {}
+    ops.reset_launches()
+    t0 = time.time()
+    with train_clock(rows), k3_and_experts(record):
+        hist = sess.run_train()
+    wall = time.time() - t0
+    got = dict(ops.LAUNCHES)
+    assert (cfg.n_layers, cfg.d_model, cfg.n_experts) == (2, 2048, 64), cfg
+    # a weight use: embed, unembed, and q, k, v, o and the three expert
+    # stacks a layer, twice under remat
+    uses = 4 * (2 + 7 * cfg.n_layers * (2 if cfg.remat else 1))
+    wire = rows[-1]["k2_args"][0]
+    for h, r in zip(hist, rows):
+        assert np.isfinite(h["loss"]), h
+        assert r["k2_launches"] == r["k2_keyed_launches"] == 1, r
+        assert r["k1_launches"] == r["k1_inline_launches"] == uses, (uses, r)
+        # 1.05 B parameters held whole with 4 clients' gradients (22.5 GB
+        # on one H100): half the card is the bound
+        assert r["peak_mem_gb"] < 40, r
+        print(f"train olmoe round {h['round']}: loss {h['loss']:.4f} step "
+              f"{r['step_s'] * 1e3:.1f} ms K1 launches {r['k1_launches']} K2 launches "
+              f"{r['k2_launches']} peak {r['peak_mem_gb']:.2f} GB")
+    # the wire's leaves: ln1, ln2, the router stacks, the final norm
+    assert [leaf[0].numel() for leaf in wire] == [2 * 2048, 2 * 2048, 2 * 2048 * 64, 2048], \
+        [leaf[0].numel() for leaf in wire]
+    # the trainer's expert stacks are the quantized bf16 weights: einsum
+    assert set(record["experts"]) == {"plain"}, record
+    prof = profile_train_round(dev, sess, run["rounds"])
+    emit({"train": {
+        "run": "train", "arch": cfg.name, "card": f"{dev['kind']} ({dev['smi']})",
+        "layers": cfg.n_layers, "d_model": cfg.d_model, "experts": cfg.n_experts,
+        "mesh": "4x1", "batch_per_client": 2, "seq": 256, "comm_bits": 4,
+        "wire_codes": str(rows[-1]["k2_args"][-1]), "setup_s": setup_s, "wall_s": wall,
+        "losses": [h["loss"] for h in hist], "launches": got, "k1_uses_a_step": uses,
+        "device_ms": prof["device_ms"],
+        "comm_report": {k: v for k, v in sess.comm_report().items() if k != "rounds"},
+        "rounds": [{k: v for k, v in r.items() if k != "k2_args"} for r in rows]}})
+    del sess, rows, wire
+    torch.cuda.empty_cache()
+    return {k: got[k] for k in ("sr_quant", "sr_quant_inline", "sr_pack", "sr_pack_keyed")}
 
 
 def phase_train_profile(dev: dict) -> None:

@@ -499,7 +499,6 @@ class Session:
         f32_bytes = sum(w.numel() * 4 for w in params.values())
         serve_bits = policy.serve_bits
         qparams = pack_params_for_policy(params, policy, exempt=default_exempt)
-        del params                  # peak memory: f32 + packed, once
         q_bytes = _weight_bytes(qparams)
         if policy.packed:
             say(f"params: {raw_bytes/1e6:.1f} MB f32 -> {q_bytes/1e6:.1f} MB "

@@ -264,7 +264,13 @@ extern "C" int repro_sr_pack(const float* g, const int* offsets, const float* st
 // row owns blocks blk[l] .. blk[l+1] - 1 of each pass, sized by the host to
 // the leaf's share of ~8 blocks an SM; a block finds its leaf by binary
 // search over blk and runs a block-stride loop over that leaf alone.  The
-// segment entries take SegTable (64 leaves, 256 pointers: ~2.6 KB); the
+// segment entries take SegTable (64 leaves, 256 pointers: ~2.6 KB); a tree
+// past it goes through it in groups of consecutive leaves, one call of both
+// passes a group (kernels/ops.py): a group's off[] are the tree's columns
+// (off[0] > 0 after the first), so it draws the tree's Philox counters and
+// writes its own columns of the tree's (C, P) output, P passed apart; a
+// 4-group that straddles two groups' leaves is written by both calls, each
+// its own elements, in stream order.  The
 // inline entry, launched for every weight use (456 times a trainer step), is
 // the keyed K1 at one leaf, one row and one client through OneSeg (32 bytes),
 // so its launches carry no more parameters than before the merge.
@@ -282,7 +288,7 @@ extern "C" int repro_sr_pack(const float* g, const int* offsets, const float* st
 // product, written out for the dequant, and the client's own finite max for
 // the guard).  It draws element (c, p)'s uniform u = (x >> 8) * 2^-24 with x
 // word p % 4 of Philox4x32-10 at counter (p / 4, p / 4 >> 32, c, 0) under
-// the call's 64-bit key, p the column of the concatenated leaves: the inline
+// the call's 64-bit key, p the column of the tree's leaves concatenated: the inline
 // entry draws stream c = 0 of its one leaf.  K2 applies the guard in
 // registers (NaN -> 0, +-Inf -> +- the client's finite max in the leaf; a
 // no-op on finite gradients) and writes codes saturated to the wire's type;
@@ -568,11 +574,12 @@ sr_pack_keyed_kernel(const __grid_constant__ SegTable t, const uint2* __restrict
 }
 
 // The table from the host's arrays: off and blk (L + 1 each, blk[0] = 0 and
-// every leaf at least one block) and rows * L base pointers.
+// every leaf at least one block; off[0] the group's first column, off[L] at
+// most P, the output's columns) and rows * L base pointers.
 int fill_seg_table(SegTable& t, const int* off, const int* blk, const void* const* base,
-                   int L, int rows) {
+                   int L, int rows, int P) {
   if (L < 1 || L > SEG_MAX_LEAVES || rows < 1 || rows * L > SEG_MAX_PTRS || blk[0] != 0 ||
-      off[0] != 0)
+      off[0] < 0 || off[L] > P)
     return static_cast<int>(cudaErrorInvalidValue);
   t.L = L;
   t.nb = blk[L];
@@ -589,21 +596,21 @@ int fill_seg_table(SegTable& t, const int* off, const int* blk, const void* cons
 // K1's two passes over one row of leaves, C clients out.
 template <class Out, class T>
 int launch_sr_quant_keyed(const T& t, uint2* parts, const float* d, int C, uint32_t k0,
-                          uint32_t k1, void* out, cudaStream_t stream) {
+                          uint32_t k1, void* out, int P, cudaStream_t stream) {
   seg_absmax_kernel<false><<<dim3(t.nb, 1), SEG_THREADS, 0, stream>>>(t, parts);
   const cudaError_t e1 = cudaGetLastError();
   if (e1 != cudaSuccess) return static_cast<int>(e1);
   sr_quant_keyed_kernel<Out><<<dim3(t.nb, C), SEG_THREADS, 0, stream>>>(
-      t, parts, d, k0, k1, static_cast<Out*>(out), t.off[t.L]);
+      t, parts, d, k0, k1, static_cast<Out*>(out), P);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename CodeT>
 int launch_sr_pack_keyed(const SegTable& t, const uint2* parts, int C, float lim, uint32_t k0,
-                         uint32_t k1, void* out, float* steps, unsigned long long* bad,
+                         uint32_t k1, void* out, int P, float* steps, unsigned long long* bad,
                          cudaStream_t stream) {
   sr_pack_keyed_kernel<CodeT><<<dim3(t.nb, C), SEG_THREADS, 0, stream>>>(
-      t, parts, C, lim, k0, k1, static_cast<CodeT*>(out), steps, bad, t.off[t.L]);
+      t, parts, C, lim, k0, k1, static_cast<CodeT*>(out), steps, bad, P);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -629,32 +636,34 @@ extern "C" int repro_sr_quant_inline(const float* w, int n, int nb, void* parts,
   t.base[0] = w;
   uint2* p = static_cast<uint2*>(parts);
   return out_dtype == DT_F32
-             ? launch_sr_quant_keyed<float>(t, p, delta, 1, k0, k1, out, stream)
-             : launch_sr_quant_keyed<__nv_bfloat16>(t, p, delta, 1, k0, k1, out, stream);
+             ? launch_sr_quant_keyed<float>(t, p, delta, 1, k0, k1, out, n, stream)
+             : launch_sr_quant_keyed<__nv_bfloat16>(t, p, delta, 1, k0, k1, out, n, stream);
 }
 
-// K1 keyed: L leaves (one row) -> out (C, P) f32; parts holds blk[L]
-// uint2 partials.  Returns a cudaError_t (cudaErrorInvalidValue for a table
-// past its size).
+// K1 keyed: L leaves (one row) -> columns off[0] .. off[L] - 1 of out (C,
+// P) f32; parts holds blk[L] uint2 partials.  Returns a cudaError_t
+// (cudaErrorInvalidValue for a table past its size).
 extern "C" int repro_sr_quant_keyed(const int* off, const int* blk, const void* const* base,
                                     int L, void* parts, const float* d, int C, unsigned k0,
-                                    unsigned k1, float* out, cudaStream_t stream) {
+                                    unsigned k1, float* out, int P, cudaStream_t stream) {
   SegTable t;
-  const int err = fill_seg_table(t, off, blk, base, L, 1);
+  const int err = fill_seg_table(t, off, blk, base, L, 1, P);
   if (err != 0) return err;
   if (C < 1 || C > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_sr_quant_keyed<float>(t, static_cast<uint2*>(parts), d, C, k0, k1, out, stream);
+  return launch_sr_quant_keyed<float>(t, static_cast<uint2*>(parts), d, C, k0, k1, out, P,
+                                      stream);
 }
 
-// K2 keyed: L leaves of C clients (base[c * L + l]) -> codes (C, P) of
-// code_dtype, steps (L,) f32, bad (1,) the non-finite count; parts holds
-// C * blk[L] uint2 partials.
+// K2 keyed: L leaves of C clients (base[c * L + l]) -> columns off[0] ..
+// off[L] - 1 of codes (C, P) of code_dtype, steps (L,) f32 (the group's
+// leaves), bad (1,) the group's non-finite count; parts holds C * blk[L]
+// uint2 partials.
 extern "C" int repro_sr_pack_keyed(const int* off, const int* blk, const void* const* base,
                                    int L, int C, void* parts, unsigned k0, unsigned k1,
-                                   float lim, void* out, int code_dtype, float* steps,
+                                   float lim, void* out, int P, int code_dtype, float* steps,
                                    unsigned long long* bad, cudaStream_t stream) {
   SegTable t;
-  const int err = fill_seg_table(t, off, blk, base, L, C);
+  const int err = fill_seg_table(t, off, blk, base, L, C, P);
   if (err != 0) return err;
   if (code_dtype != DT_I8 && code_dtype != DT_I16 && code_dtype != DT_I32)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -664,10 +673,10 @@ extern "C" int repro_sr_pack_keyed(const int* off, const int* blk, const void* c
   if (e1 != cudaSuccess) return static_cast<int>(e1);
   switch (code_dtype) {
     case DT_I8:
-      return launch_sr_pack_keyed<int8_t>(t, p, C, lim, k0, k1, out, steps, bad, stream);
+      return launch_sr_pack_keyed<int8_t>(t, p, C, lim, k0, k1, out, P, steps, bad, stream);
     case DT_I16:
-      return launch_sr_pack_keyed<int16_t>(t, p, C, lim, k0, k1, out, steps, bad, stream);
+      return launch_sr_pack_keyed<int16_t>(t, p, C, lim, k0, k1, out, P, steps, bad, stream);
     default:
-      return launch_sr_pack_keyed<int32_t>(t, p, C, lim, k0, k1, out, steps, bad, stream);
+      return launch_sr_pack_keyed<int32_t>(t, p, C, lim, k0, k1, out, P, steps, bad, stream);
   }
 }

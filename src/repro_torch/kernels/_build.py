@@ -73,11 +73,12 @@ _SIGNATURES = {
     "repro_philox4x32": (_P, _P, _P, _I, _P),
     # g, offsets, step, u, out, code_dtype, P, L, C, lim, stream
     "repro_sr_pack": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
-    # off, blk, base (host arrays), L, parts, d, C, k0, k1, out, stream
-    "repro_sr_quant_keyed": (_P, _P, _P, _I, _P, _P, _I, _U, _U, _P, _P),
-    # off, blk, base (host arrays), L, C, parts, k0, k1, lim, out, code_dtype,
-    # steps, bad, stream
-    "repro_sr_pack_keyed": (_P, _P, _P, _I, _I, _P, _U, _U, _F, _P, _I, _P, _P, _P),
+    # off, blk, base (host arrays), L, parts, d, C, k0, k1, out, P (out's
+    # columns), stream
+    "repro_sr_quant_keyed": (_P, _P, _P, _I, _P, _P, _I, _U, _U, _P, _I, _P),
+    # off, blk, base (host arrays), L, C, parts, k0, k1, lim, out, P (out's
+    # columns), code_dtype, steps, bad, stream
+    "repro_sr_pack_keyed": (_P, _P, _P, _I, _I, _P, _U, _U, _F, _P, _I, _I, _P, _P, _P),
 }
 
 _lib = None

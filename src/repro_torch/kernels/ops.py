@@ -9,7 +9,8 @@ contiguity, index dtypes).
 :func:`dense_dispatch` is the serving fast path's single entry point: given
 an activation and either a plain tensor or a
 :class:`~repro_torch.models.common.QTensor` weight, it routes packed weights
-to ``quant_matmul``, so the int8 codes are the bytes the projection reads.
+to ``quant_matmul``, so the int8 codes are the bytes the projection reads;
+:func:`expert_dispatch` does the same for a layer's stack of MoE experts.
 """
 
 from __future__ import annotations
@@ -54,10 +55,18 @@ def sr_quantize_segments_keyed(leaves, delta: torch.Tensor, key: int) -> torch.T
     :func:`sr_quantize_segments` of the leaves concatenated, with ``s[l] =
     tensor_scale(leaf l)`` and client ``c``'s uniforms stream ``c`` of
     :func:`~repro_torch.kernels.ref.philox_uniforms_plain` under ``key``.
+    More leaves than one table holds go in groups of at most
+    ``sr_quant.SEG_MAX_LEAVES``, one call a group into the same output, each
+    drawing the tree's columns: the value does not depend on the grouping.
     """
     fn = _route(delta, sq.sr_quant_segments_keyed_cuda, sq.sr_quant_segments_keyed_plain)
-    return fn([x.to(torch.float32).contiguous().reshape(-1) for x in leaves],
-              delta.to(torch.float32).contiguous(), int(key))
+    flat = [x.to(torch.float32).contiguous().reshape(-1) for x in leaves]
+    delta = delta.to(torch.float32).contiguous()
+    out = torch.empty((delta.shape[0], sum(x.numel() for x in flat)), dtype=torch.float32,
+                      device=delta.device)
+    for l0, l1, col in sq.table_groups([x.numel() for x in flat], 1, sq.KEYED_NAME):
+        fn(flat[l0:l1], delta, int(key), out=out, col=col)
+    return out
 
 
 def sr_quantize_inline(w: torch.Tensor, delta: torch.Tensor, key: int,
@@ -123,11 +132,26 @@ def sr_pack_keyed(leaves, key: int, lim: int, dtype: torch.dtype):
     0), and element ``(c, p)`` of the leaves concatenated takes stream ``c``
     of :func:`~repro_torch.kernels.ref.philox_uniforms_plain` under ``key``.
     Returns ``(codes (C, P) of dtype, step (L,) f32, the non-finite count ()
-    int64)``, all on the gradients' device.
+    int64)``, all on the gradients' device.  More (client, leaf) pointers
+    than one table holds go in groups of whole leaves, ``C`` x leaves at
+    most ``sr_quant.SEG_MAX_PTRS``, one call a group into the same codes,
+    each drawing the tree's columns; the groups' counts are summed on the
+    card, so the guard stays one decision and "raise" reads one number.
     """
     fn = _route(leaves[0][0], sq.sr_pack_keyed_cuda, sq.sr_pack_keyed_plain)
-    return fn([[g.to(torch.float32).contiguous().reshape(-1) for g in leaf] for leaf in leaves],
-              int(key), lim, dtype)
+    flat = [[g.to(torch.float32).contiguous().reshape(-1) for g in leaf] for leaf in leaves]
+    C = len(flat[0])
+    groups = sq.table_groups([leaf[0].numel() for leaf in flat], C, sq.PACK_KEYED_NAME)
+    if len(groups) == 1:        # the step and the count need no gathering
+        return fn(flat, int(key), lim, dtype)
+    codes = torch.empty((C, sum(leaf[0].numel() for leaf in flat)), dtype=dtype,
+                        device=flat[0][0].device)
+    steps, bads = [], []
+    for l0, l1, col in groups:
+        _codes, step, bad = fn(flat[l0:l1], int(key), lim, dtype, out=codes, col=col)
+        steps.append(step)
+        bads.append(bad)
+    return codes, torch.cat(steps), torch.stack(bads).sum()
 
 
 def sr_pack_fused(w: torch.Tensor, bits: int, u: torch.Tensor):
@@ -206,6 +230,28 @@ def dense_dispatch(x: torch.Tensor, w) -> torch.Tensor:
         out = quant_matmul(x.reshape(-1, x.shape[-1]), w.codes, w.scale)
         return out.reshape(*lead, w.codes.shape[-1]).to(x.dtype)
     return x @ w
+
+
+def expert_dispatch(x: torch.Tensor, w, dtype=None) -> torch.Tensor:
+    """Per-expert batched matmul ``x (E, C, K) @ w (E, K, N) -> (E, C, N)``
+    in ``dtype`` (default ``x.dtype``).
+
+    A packed :class:`~repro_torch.models.common.QTensor` stack with one
+    scalar scale sends each expert's matmul through ``quant_matmul`` (one K3
+    launch an expert, f32 out, stacked and cast); a stack with a per-expert
+    scale row, which K3's one-scale interface cannot take, is dequantized
+    eagerly; a plain stack is one einsum.  The reference's three branches.
+    """
+    if dtype is None:
+        dtype = x.dtype
+    if _is_qtensor(w):
+        if w.scale.ndim == 0:
+            return torch.stack([quant_matmul(x[e], w.codes[e], w.scale)
+                                for e in range(w.codes.shape[0])]).to(dtype)
+        scale = w.scale.to(torch.float32).reshape((-1,) + (1,) * (w.codes.ndim - 1))
+        dense = (w.codes.to(torch.float32) * scale).to(dtype)
+        return torch.einsum("eck,ekn->ecn", x.to(dtype), dense)
+    return torch.einsum("eck,ekn->ecn", x.to(dtype), as_array(w, dtype))
 
 
 def as_array(w, dtype=torch.float32) -> torch.Tensor:

@@ -83,24 +83,28 @@ def philox4x32_plain(ctr, key):
     return c0, c1, c2, c3
 
 
-def philox_uniforms_plain(key: int, n: int, device=None, stream: int = 0) -> torch.Tensor:
-    """The ``n`` uniforms the keyed kernels draw under the 64-bit ``key``:
-    element ``i`` is ``(x >> 8) * 2^-24`` with ``x`` word ``i % 4`` of
-    Philox4x32-10 at counter ``(i // 4, i // 4 >> 32, stream, 0)``, key
+def philox_uniforms_plain(key: int, n: int, device=None, stream: int = 0,
+                          start: int = 0) -> torch.Tensor:
+    """The ``n`` uniforms the keyed kernels draw under the 64-bit ``key``
+    at columns ``start`` .. ``start + n - 1``: element ``i`` of column ``p
+    = start + i`` is ``(x >> 8) * 2^-24`` with ``x`` word ``p % 4`` of
+    Philox4x32-10 at counter ``(p // 4, p // 4 >> 32, stream, 0)``, key
     ``(key & 0xFFFFFFFF, key >> 32)``.  K1's inline entry draws stream 0;
     the keyed segment entries draw client ``c``'s row as stream ``c``."""
-    g = torch.arange((n + 3) // 4, dtype=torch.int64, device=device)
+    g = torch.arange(start // 4, (start + n + 3) // 4, dtype=torch.int64, device=device)
     zero = torch.zeros_like(g)
     words = philox4x32_plain((g & _MASK32, g >> 32, torch.full_like(g, int(stream)), zero),
                              (int(key) & _MASK32, (int(key) >> 32) & _MASK32))
-    x = torch.stack(words, dim=1).reshape(-1)[:n]
+    x = torch.stack(words, dim=1).reshape(-1)[start % 4:start % 4 + n]
     return (x >> 8).to(torch.float32) * 2.0**-24
 
 
-def philox_streams_plain(key: int, n_streams: int, n: int, device=None) -> torch.Tensor:
+def philox_streams_plain(key: int, n_streams: int, n: int, device=None,
+                         start: int = 0) -> torch.Tensor:
     """``(n_streams, n)``: row ``c`` is :func:`philox_uniforms_plain` stream
-    ``c`` under ``key``, client ``c``'s draws in the keyed segment entries."""
-    return torch.stack([philox_uniforms_plain(key, n, device, stream=c)
+    ``c`` under ``key`` from column ``start``, client ``c``'s draws in the
+    keyed segment entries."""
+    return torch.stack([philox_uniforms_plain(key, n, device, stream=c, start=start)
                         for c in range(n_streams)])
 
 

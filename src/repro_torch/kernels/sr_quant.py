@@ -237,7 +237,8 @@ def sr_pack_segments_cuda(g, offsets, step, u, lim: int,
 # ---------------------------------------------------------------------------
 
 #: The by-value table of the keyed entries (csrc/sr_quant.cu: SegTable):
-#: leaves a row, and base pointers (rows x leaves) in all.
+#: leaves a row, and base pointers (rows x leaves) in all.  A tree past the
+#: table goes through it in groups (:func:`table_groups`).
 SEG_MAX_LEAVES = 64
 SEG_MAX_PTRS = 256
 SEG_THREADS = 256
@@ -262,13 +263,33 @@ def _check_table(name, L: int, rows: int):
                          f"({SEG_MAX_LEAVES} leaves, {SEG_MAX_PTRS} leaves x rows)")
 
 
+def table_groups(sizes, rows: int, name: str) -> list:
+    """The tables a keyed call over leaves of ``sizes`` and ``rows`` rows
+    takes: ``[(l0, l1, col)]``, leaves ``l0 .. l1 - 1`` in one table (at
+    most :data:`SEG_MAX_LEAVES`, and ``rows`` x leaves at most
+    :data:`SEG_MAX_PTRS`), ``col`` the tree's column of leaf ``l0``.  One
+    leaf's rows must fit one table: past 256 clients on one card the call
+    raises."""
+    if rows > SEG_MAX_PTRS:
+        raise ValueError(f"{name}: {rows} clients exceed the keyed table's {SEG_MAX_PTRS} "
+                         "pointers a leaf; more clients than that need more cards "
+                         "(ROADMAP queue 1, item 8)")
+    per = min(SEG_MAX_LEAVES, SEG_MAX_PTRS // max(rows, 1))
+    groups, col = [], 0
+    for l0 in range(0, len(sizes), per):
+        l1 = min(l0 + per, len(sizes))
+        groups.append((l0, l1, col))
+        col += sum(sizes[l0:l1])
+    return groups
+
+
 def _check_key(name, key: int):
     if not 0 <= key < 2**64:
         raise ValueError(f"{name}: key {key} out of range (< 2^64)")
 
 
-def _seg_offsets(sizes) -> list:
-    off = [0]
+def _seg_offsets(sizes, col: int = 0) -> list:
+    off = [col]
     for n in sizes:
         off.append(off[-1] + n)
     if off[-1] >= 2**31:
@@ -276,15 +297,31 @@ def _seg_offsets(sizes) -> list:
     return off
 
 
-def _seg_launch_args(sizes, rows: int, tensors, device):
-    """The host arrays of the table (off, blk, base) and the blocks a row."""
-    off, blk = _seg_offsets(sizes), seg_blocks(sizes, rows, _build.sm_count(device))
+def _seg_launch_args(sizes, rows: int, tensors, device, col: int):
+    """The host arrays of the table (off from column ``col``, blk, base) and
+    the blocks a row."""
+    off, blk = _seg_offsets(sizes, col), seg_blocks(sizes, rows, _build.sm_count(device))
     return ((ctypes.c_int * len(off))(*off), (ctypes.c_int * len(blk))(*blk),
             (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors)), blk[-1])
 
 
 def _absmax_or_zero(x: torch.Tensor) -> torch.Tensor:
     return x.abs().amax() if x.numel() else torch.zeros((), dtype=x.dtype, device=x.device)
+
+
+def _group_out(name, out, rows: int, col: int, n: int, dtype, device) -> torch.Tensor:
+    """The ``(rows, P)`` output a call writes columns ``col .. col + n - 1``
+    of: ``out`` where the call is one group of a tree, else a new one."""
+    if out is None:
+        if col != 0:
+            raise ValueError(f"{name}: a group at column {col} needs the tree's output")
+        return torch.empty((rows, n), dtype=dtype, device=device)
+    if (out.dtype != dtype or out.ndim != 2 or out.shape[0] != rows or
+            out.shape[1] < col + n or not out.is_contiguous() or out.device != device):
+        raise ValueError(f"{name}: out must be a contiguous ({rows}, >= {col + n}) {dtype} "
+                         f"tensor on {device}; got {out.dtype} {tuple(out.shape)} on "
+                         f"{out.device}")
+    return out
 
 
 def _check_quant_keyed(leaves, delta, key):
@@ -298,36 +335,46 @@ def _check_quant_keyed(leaves, delta, key):
         raise ValueError(f"{KEYED_NAME}: C={delta.shape[0]} out of range [1, 65535]")
 
 
-def sr_quant_segments_keyed_plain(leaves, delta, key: int) -> torch.Tensor:
+def sr_quant_segments_keyed_plain(leaves, delta, key: int, out=None,
+                                  col: int = 0) -> torch.Tensor:
     """Plain version of K1's keyed segment entry: the segment entry on the
     leaves concatenated (the straight-through value), with ``s[l] = max|leaf
     l|`` (1 where that is not > 0, as ``tensor_scale``) and client ``c``'s
     uniforms stream ``c`` of
-    :func:`~repro_torch.kernels.ref.philox_uniforms_plain` under ``key``."""
+    :func:`~repro_torch.kernels.ref.philox_uniforms_plain` under ``key``.
+    With ``out`` the leaves are one group of a tree whose columns start at
+    ``col``: their uniforms are the tree's columns and the call writes those
+    columns of ``out`` (C, P), which it returns."""
     _check_quant_keyed(leaves, delta, key)
     sizes = [x.numel() for x in leaves]
     w = torch.cat(list(leaves))
+    out = _group_out(KEYED_NAME, out, delta.shape[0], col, w.numel(), torch.float32,
+                     w.device)
     offsets = torch.tensor(_seg_offsets(sizes), dtype=torch.int32, device=w.device)
     s = torch.stack([_absmax_or_zero(x) for x in leaves])
     s = torch.where(s > 0, s, torch.ones_like(s))
-    u = philox_streams_plain(key, delta.shape[0], w.numel(), w.device)
-    return sr_quant_segments_plain(w, offsets, s, delta, u)
+    u = philox_streams_plain(key, delta.shape[0], w.numel(), w.device, start=col)
+    out[:, col:col + w.numel()] = sr_quant_segments_plain(w, offsets, s, delta, u)
+    return out
 
 
-def sr_quant_segments_keyed_cuda(leaves, delta, key: int) -> torch.Tensor:
+def sr_quant_segments_keyed_cuda(leaves, delta, key: int, out=None,
+                                 col: int = 0) -> torch.Tensor:
     """Launch K1's keyed segment entry on the current stream (a max|w| pass
     over the leaves where they lie, then the rounding pass); returns ``(C,
-    P)`` f32.  Scales, uniforms and ``delta`` never leave the card."""
+    P)`` f32.  Scales, uniforms and ``delta`` never leave the card.  ``out``
+    and ``col`` as in the plain version: the table's leaf offsets are the
+    tree's columns, so a group draws the tree's Philox counters."""
     _check_quant_keyed(leaves, delta, key)
     _build.require_cuda(KEYED_NAME, delta, *leaves)
     sizes = [x.numel() for x in leaves]
     C = delta.shape[0]
-    out = torch.empty((C, sum(sizes)), dtype=torch.float32, device=delta.device)
-    off, blk, base, nb = _seg_launch_args(sizes, C, leaves, delta.device)
+    out = _group_out(KEYED_NAME, out, C, col, sum(sizes), torch.float32, delta.device)
+    off, blk, base, nb = _seg_launch_args(sizes, C, leaves, delta.device, col)
     parts = torch.empty((nb, 2), dtype=torch.int32, device=delta.device)
     err = _build.lib().repro_sr_quant_keyed(
         off, blk, base, len(leaves), parts.data_ptr(), delta.data_ptr(), C, key & 0xFFFFFFFF,
-        key >> 32, out.data_ptr(), _build.stream_of(delta))
+        key >> 32, out.data_ptr(), out.shape[1], _build.stream_of(delta))
     _build.check_launch(KEYED_NAME, err)
     _build.LAUNCHES[NAME] += 1
     _build.LAUNCHES[KEYED_NAME] += 1
@@ -353,14 +400,18 @@ def _check_pack_keyed(leaves, key, lim, dtype):
         raise ValueError(f"{PACK_KEYED_NAME}: lim={lim} out of range")
 
 
-def sr_pack_keyed_plain(leaves, key: int, lim: int, dtype: torch.dtype = torch.int8):
+def sr_pack_keyed_plain(leaves, key: int, lim: int, dtype: torch.dtype = torch.int8,
+                        out=None, col: int = 0):
     """Plain version of K2's keyed entry.  ``leaves``: per leaf, the ``C``
     clients' f32 gradients.  Each client's leaf is guarded by
     :func:`~repro_torch.kernels.ref.saturate_nonfinite` (NaN -> 0, +-Inf ->
     +- its largest finite |g|); the leaf's scale ``s`` is the guarded max over
     the clients (1 where 0), its pitch ``s * fl32(1 / lim)``; the codes are
     K2's from client ``c``'s uniforms stream ``c`` under ``key``.  Returns
-    ``(codes (C, P), step (L,) f32, non-finite count () int64)``."""
+    ``(codes (C, P), step (L,) f32, non-finite count () int64)``.  With
+    ``out`` the leaves are one group of a tree whose columns start at
+    ``col``: the codes go to those columns of ``out`` (returned as the
+    codes), drawn at the tree's columns; step and count are the group's."""
     _check_pack_keyed(leaves, key, lim, dtype)
     dev = leaves[0][0].device
     gs = [torch.stack([x.reshape(-1) for x in leaf]) for leaf in leaves]
@@ -371,32 +422,35 @@ def sr_pack_keyed_plain(leaves, key: int, lim: int, dtype: torch.dtype = torch.i
     s = torch.where(s > 0, s, torch.ones_like(s))
     step = s * f32_reciprocal(lim)
     g = torch.cat(rows, dim=1)
+    out = _group_out(PACK_KEYED_NAME, out, g.shape[0], col, g.shape[1], dtype, dev)
     offsets = torch.tensor(_seg_offsets([r.shape[1] for r in rows]), dtype=torch.int32,
                            device=dev)
-    u = philox_streams_plain(key, g.shape[0], g.shape[1], dev)
-    return sr_pack_segments_plain(g, offsets, step, u, lim, dtype), step, bad
+    u = philox_streams_plain(key, g.shape[0], g.shape[1], dev, start=col)
+    out[:, col:col + g.shape[1]] = sr_pack_segments_plain(g, offsets, step, u, lim, dtype)
+    return out, step, bad
 
 
-def sr_pack_keyed_cuda(leaves, key: int, lim: int, dtype: torch.dtype = torch.int8):
+def sr_pack_keyed_cuda(leaves, key: int, lim: int, dtype: torch.dtype = torch.int8,
+                       out=None, col: int = 0):
     """Launch K2's keyed entry on the current stream (the guard's partials,
     then the guarded rounding onto codes); the gradients are read where they
     lie.  Returns ``(codes (C, P), step (L,) f32, non-finite count () int64)``,
-    all on the card."""
+    all on the card.  ``out`` and ``col`` as in the plain version."""
     _check_pack_keyed(leaves, key, lim, dtype)
     flat = [g for leaf in zip(*leaves) for g in leaf]       # client-major: base[c * L + l]
     _build.require_cuda(PACK_KEYED_NAME, *flat)
     dev = flat[0].device
     C, L = len(leaves[0]), len(leaves)
     sizes = [leaf[0].numel() for leaf in leaves]
-    codes = torch.empty((C, sum(sizes)), dtype=dtype, device=dev)
+    codes = _group_out(PACK_KEYED_NAME, out, C, col, sum(sizes), dtype, dev)
     step = torch.empty(L, dtype=torch.float32, device=dev)
     bad = torch.empty((), dtype=torch.int64, device=dev)
-    off, blk, base, nb = _seg_launch_args(sizes, C, flat, dev)
+    off, blk, base, nb = _seg_launch_args(sizes, C, flat, dev, col)
     parts = torch.empty((C * nb, 2), dtype=torch.int32, device=dev)
     err = _build.lib().repro_sr_pack_keyed(
         off, blk, base, L, C, parts.data_ptr(), key & 0xFFFFFFFF, key >> 32, float(lim),
-        codes.data_ptr(), _build.DTYPE_CODES[dtype], step.data_ptr(), bad.data_ptr(),
-        _build.stream_of(flat[0]))
+        codes.data_ptr(), codes.shape[1], _build.DTYPE_CODES[dtype], step.data_ptr(),
+        bad.data_ptr(), _build.stream_of(flat[0]))
     _build.check_launch(PACK_KEYED_NAME, err)
     _build.LAUNCHES[PACK_NAME] += 1
     _build.LAUNCHES[PACK_KEYED_NAME] += 1

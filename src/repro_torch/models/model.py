@@ -10,7 +10,8 @@
 * ``init_caches(batch, s_max, tp, dtype, device=, page_size=, pool_pages=)``
 * ``train_batch_spec(b, s)``                    -> the batch as meta tensors
 
-Only the dense family is ported so far; the other families raise.
+The dense and MoE families (one transformer) are ported so far; the other
+families raise.
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ class Model:
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return Model(
             cfg=cfg,
             init=lambda gen, tp, device=None: transformer.init_lm(
@@ -62,5 +63,5 @@ def build_model(cfg: ModelConfig) -> Model:
             supports_paged_kv=True,
         )
     raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet: MoE, SSM, hybrid, VLM and "
-        "enc-dec follow in ROADMAP queue 1, item 2")
+        f"family {cfg.family!r} is not ported yet: SSM, hybrid, VLM and enc-dec "
+        "follow in ROADMAP queue 1, item 2")

@@ -1,5 +1,5 @@
-"""Decoder-only transformer LM (dense family): init, training forward and
-loss, prefill, decode.
+"""Decoder-only transformer LM (dense and MoE families): init, training
+forward and loss, prefill, decode.
 
 Counterpart of ``repro/models/transformer.py``.  A Python loop over the
 layer-stacked parameters takes the place of ``lax.scan``; with ``cfg.remat``
@@ -26,6 +26,7 @@ from repro_torch.models.attention import (
 )
 from repro_torch.models.common import (ParamCtx, init_dense, init_embed,
                                        layer_params)
+from repro_torch.models.moe import MoEDims, init_moe, moe_block
 
 
 def padded_vocab_local(cfg: ModelConfig, tp: int) -> int:
@@ -39,17 +40,37 @@ def attn_dims(cfg: ModelConfig, tp: int, causal: bool = True) -> AttnDims:
     )
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+def moe_dims(cfg: ModelConfig, tp: int) -> MoEDims:
+    return MoEDims(
+        n_experts=cfg.n_experts, k=cfg.experts_per_token, d_model=cfg.d_model,
+        d_ff=cfg.moe_d_ff or cfg.d_ff, tp=tp,
+        capacity_factor=cfg.capacity_factor, act=cfg.mlp_act,
+    )
+
+
+def _require_ported(cfg: ModelConfig) -> None:
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"family {cfg.family!r}: only the dense family is ported so far "
+            f"family {cfg.family!r}: only the dense and MoE families are ported so far "
             "(ROADMAP queue 1, item 2)")
+
+
+def _ffn(cfg: ModelConfig, pc: ParamCtx, lp, h, md: MoEDims | None):
+    """The block's feed-forward: the MoE block (its aux dropped, as the
+    reference drops it) or the MLP."""
+    if md is not None:
+        return moe_block(pc, "blocks/moe", lp["moe"], h, md)[0]
+    return L.mlp(pc, "blocks/mlp", lp["mlp"], h, cfg.mlp_act)
+
+
+def _moe_dims_of(cfg: ModelConfig, tp: int) -> MoEDims | None:
+    return moe_dims(cfg, tp) if cfg.family == "moe" else None
 
 
 def init_lm(cfg: ModelConfig, gen: torch.Generator, tp: int = 1, *, device=None,
             dtype=torch.float32) -> dict:
     """Random f32 parameters drawn on ``device`` from ``gen``, keyed by path."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     ad = attn_dims(cfg, tp)
     vl = padded_vocab_local(cfg, tp)
     d, hd, nl = cfg.d_model, ad.head_dim, (cfg.n_layers,)
@@ -62,11 +83,15 @@ def init_lm(cfg: ModelConfig, gen: torch.Generator, tp: int = 1, *, device=None,
         "blocks/attn/wv": init_dense(gen, d, ad.kv_local * hd, lead=nl, **kw),
         "blocks/attn/wo": init_dense(gen, ad.heads_local * hd, d, lead=nl, **kw),
         "blocks/ln2": torch.zeros(nl + (d,), **kw),
-        "blocks/mlp/w_up": init_dense(gen, d, cfg.d_ff // tp, lead=nl, **kw),
-        "blocks/mlp/w_down": init_dense(gen, cfg.d_ff // tp, d, lead=nl, **kw),
     }
-    if cfg.mlp_act in ("swiglu", "geglu"):
-        p["blocks/mlp/w_gate"] = init_dense(gen, d, cfg.d_ff // tp, lead=nl, **kw)
+    if cfg.family == "moe":
+        for name, w in init_moe(gen, moe_dims(cfg, tp), lead=nl, **kw).items():
+            p[f"blocks/moe/{name}"] = w
+    else:
+        p["blocks/mlp/w_up"] = init_dense(gen, d, cfg.d_ff // tp, lead=nl, **kw)
+        p["blocks/mlp/w_down"] = init_dense(gen, cfg.d_ff // tp, d, lead=nl, **kw)
+        if cfg.mlp_act in ("swiglu", "geglu"):
+            p["blocks/mlp/w_gate"] = init_dense(gen, d, cfg.d_ff // tp, lead=nl, **kw)
     p["final_norm"] = torch.zeros((d,), **kw)
     p["unembed/w"] = init_dense(gen, d, vl, **kw)
     return p
@@ -89,14 +114,14 @@ def _layer_views(params: dict, n_layers: int) -> list[dict]:
 
 
 def _block_fn(cfg: ModelConfig, pc: ParamCtx, tp: int, attn_impl: str):
-    ad = attn_dims(cfg, tp)
+    ad, md = attn_dims(cfg, tp), _moe_dims_of(cfg, tp)
 
     def block(x, lp):
         h = L.sp_gather(pc, L.rmsnorm(pc, "blocks/ln1", lp["ln1"], x, cfg.norm_eps))
         a, _ = self_attention(pc, "blocks/attn", lp["attn"], h, ad, impl=attn_impl)
         x = x + a
         h = L.sp_gather(pc, L.rmsnorm(pc, "blocks/ln2", lp["ln2"], x, cfg.norm_eps))
-        return x + L.mlp(pc, "blocks/mlp", lp["mlp"], h, cfg.mlp_act)
+        return x + _ffn(cfg, pc, lp, h, md)
 
     return block
 
@@ -104,7 +129,7 @@ def _block_fn(cfg: ModelConfig, pc: ParamCtx, tp: int, attn_impl: str):
 def forward(cfg: ModelConfig, pc: ParamCtx, params, tokens, *, attn_impl="auto",
             return_hidden=False):
     """tokens: (B, S) -> logits (B, S, V), or the final hidden (B, S, D)."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     tp = pc.ctx.tp
     vl = padded_vocab_local(cfg, tp)
     x = L.vocab_embed(pc, "embed", params["embed/table"], tokens, vl)
@@ -177,9 +202,9 @@ def prefill(cfg: ModelConfig, pc: ParamCtx, params, tokens, caches,
     flash-attention kernel.  ``prompt_lens`` (B,) gives per-slot true
     lengths when prompts are right-padded to a bucket size.
     """
-    _require_dense(cfg)
+    _require_ported(cfg)
     tp = pc.ctx.tp
-    ad = attn_dims(cfg, tp)
+    ad, md = attn_dims(cfg, tp), _moe_dims_of(cfg, tp)
     vl = padded_vocab_local(cfg, tp)
     x = L.vocab_embed(pc, "embed", params["embed/table"], tokens, vl)
     x = x.to(pc.compute_dtype)
@@ -190,7 +215,7 @@ def prefill(cfg: ModelConfig, pc: ParamCtx, params, tokens, caches,
         a, (k, v) = self_attention(pc, "blocks/attn", lp["attn"], h, ad, impl=attn_impl)
         x = x + a
         h = L.rmsnorm(pc, "blocks/ln2", lp["ln2"], x, cfg.norm_eps)
-        x = x + L.mlp(pc, "blocks/mlp", lp["mlp"], h, cfg.mlp_act)
+        x = x + _ffn(cfg, pc, lp, h, md)
         per_layer.append(prefill_kv_cache(pc, _layer_cache(caches, i), k, v, ad,
                                           prompt_lens))
     x = L.rmsnorm(pc, "final_norm", params["final_norm"], x, cfg.norm_eps)
@@ -204,9 +229,9 @@ def decode_step(cfg: ModelConfig, pc: ParamCtx, params, token, caches,
     ``attn_impl="flash"`` routes paged caches through the flash-decode
     kernel; any other value takes the gather reference path.
     """
-    _require_dense(cfg)
+    _require_ported(cfg)
     tp = pc.ctx.tp
-    ad = attn_dims(cfg, tp)
+    ad, md = attn_dims(cfg, tp), _moe_dims_of(cfg, tp)
     vl = padded_vocab_local(cfg, tp)
     x = L.vocab_embed(pc, "embed", params["embed/table"], token, vl)
     x = x.to(pc.compute_dtype)
@@ -220,7 +245,7 @@ def decode_step(cfg: ModelConfig, pc: ParamCtx, params, token, caches,
                                              impl=decode_impl)
         x = x + a
         h = L.rmsnorm(pc, "blocks/ln2", lp["ln2"], x, cfg.norm_eps)
-        x = x + L.mlp(pc, "blocks/mlp", lp["mlp"], h, cfg.mlp_act)
+        x = x + _ffn(cfg, pc, lp, h, md)
         per_layer.append(new_cache)
     x = L.rmsnorm(pc, "final_norm", params["final_norm"], x, cfg.norm_eps)
     logits = L.vocab_logits(pc, "unembed", params["unembed/w"], x)

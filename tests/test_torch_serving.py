@@ -91,6 +91,6 @@ def test_unported_workloads_raise():
     for mesh in ("2x1", "1x2"):                 # batch-sharded serving, tp > 1
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Session(RunSpec("yi-6b", workload="serve", mesh=mesh), device="cpu").serve()
-    moe = RunSpec("olmoe-1b-7b", workload="serve", precision=PrecisionPolicy.lazy_int8(7))
+    ssm = RunSpec("mamba2-780m", workload="serve", precision=PrecisionPolicy.lazy_int8(7))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Session(moe, device="cpu").serve()
+        Session(ssm, device="cpu").serve()

@@ -359,3 +359,84 @@ def test_fl_round_with_the_key_equals_the_round_fed_its_uniforms(monkeypatch):
     cls.run_round(batch, bits)
     assert seen == [(0, 3)] and calls == {"keyed": 1, "given": 2}
     assert all(torch.equal(sim.params[k], cls.params[k]) for k in sim.params)
+
+
+# ------------------------------------------------------- trees past one table
+def _ragged(L, seed):
+    """L leaf sizes, none a multiple of 4, so 4-groups straddle leaves and
+    the groups' seams."""
+    return [int(n) for n in np.random.default_rng(seed).integers(1, 40, L) * 4 + 1 +
+            np.arange(L) % 3]
+
+
+@pytest.mark.parametrize("L", [65, 130])
+def test_keyed_k1_splits_trees_past_its_table(L):
+    """K1's keyed segment entry at 65 and 130 leaves (tables of at most 64):
+    bit-equal to the u-taking entry fed the client streams of the whole
+    tree, and each group to the one-table call on the leaves that fit."""
+    sizes = _ragged(L, L)
+    leaves = [leaf[0] * 30 for leaf in _leaves(sizes, 1, seed=L)]
+    delta = delta_for_clients(np.array([8, 32, 4]))
+    assert [g[:2] for g in tsq.table_groups(sizes, 1, "t")] == \
+        [(a, min(a + 64, L)) for a in range(0, L, 64)]
+    got = tops.sr_quantize_segments_keyed(leaves, delta, KEY)
+    w = torch.cat(leaves)
+    s = torch.stack([tq.tensor_scale(x) for x in leaves])
+    want = tsq.sr_quant_segments_plain(w, _offsets(sizes), s, delta, _stream(KEY, 3, w.numel()))
+    assert torch.equal(got, want)
+    one = tops.sr_quantize_segments_keyed(leaves[:64], delta, KEY)
+    assert torch.equal(got[:, :one.shape[1]], one)
+
+
+def test_quantize_clients_takes_trees_past_the_table():
+    rng = np.random.default_rng(11)
+    params = {f"l{i:03d}/w": torch.from_numpy(rng.standard_normal((4, 4)).astype(np.float32))
+              for i in range(65)}
+    delta = delta_for_clients(np.array([8, 4]))
+    keyed = tq.quantize_clients(params, delta, key=KEY)
+    given = tq.quantize_clients(params, delta, _stream(KEY, 2, 65 * 16))
+    assert len(keyed) == 65 and all(torch.equal(keyed[p], given[p]) for p in keyed)
+
+
+@pytest.mark.parametrize("C, L", [(26, 10), (4, 70)])
+def test_keyed_k2_splits_trees_past_its_table(C, L):
+    """K2's keyed entry at 26 clients x 10 leaves (260 pointers) and 4 x 70
+    leaves: codes, pitch and count bit-equal to the u-taking entry fed the
+    client streams of the whole tree, and to one-table calls on the leaves
+    that fit; the wire's means as well."""
+    sizes = _ragged(L, C + L)
+    leaves = _leaves(sizes, C, seed=C)
+    assert len(tsq.table_groups(sizes, C, "t")) == 2
+    codes, step, bad = tops.sr_pack_keyed(leaves, KEY, 127, torch.int16)
+    g = torch.cat([torch.stack(leaf) for leaf in leaves], dim=1)
+    s = torch.stack([torch.stack(leaf).abs().amax() for leaf in leaves])
+    want_step = s * tref.f32_reciprocal(127)
+    want = tsq.sr_pack_segments_plain(g, _offsets(sizes), want_step,
+                                      _stream(KEY, C, g.shape[1]), 127, torch.int16)
+    assert torch.equal(codes, want) and torch.equal(step, want_step) and int(bad) == 0
+    l1 = tsq.table_groups(sizes, C, "t")[0][1]
+    one, one_step, _ = tops.sr_pack_keyed(leaves[:l1], KEY, 127, torch.int16)
+    assert torch.equal(codes[:, :one.shape[1]], one) and torch.equal(step[:l1], one_step)
+    keyed = tcol.quantized_psum_batch(_axes(C), leaves, None, 8, key=KEY)
+    given = tcol.quantized_psum_batch(_axes(C), [torch.stack(leaf) for leaf in leaves],
+                                      _wire_slices(sizes, C, KEY), 8)
+    assert all(torch.equal(k, gv) for k, gv in zip(keyed, given))
+
+
+@pytest.mark.parametrize("group", [0, 1])
+def test_keyed_wire_raise_sees_a_nan_in_any_group(group):
+    """The groups' non-finite counts are summed on the card: "raise" raises
+    for a NaN in the first or the last table, "saturate" counts it."""
+    C, sizes = 26, [5] * 10
+    leaves = _leaves(sizes, C, seed=3)
+    leaves[0 if group == 0 else 9][7][2] = float("nan")
+    _codes, _step, bad = tops.sr_pack_keyed(leaves, KEY, 127, torch.int16)
+    assert int(bad) == 1
+    with pytest.raises(FloatingPointError, match="1 non-finite"):
+        tcol.quantized_psum_batch(_axes(C), leaves, None, 8, key=KEY)
+
+
+def test_keyed_wire_past_256_clients_names_the_roadmap():
+    """One leaf's rows must fit one table: 257 clients on one card raise."""
+    with pytest.raises(ValueError, match="ROADMAP queue 1, item 8"):
+        tops.sr_pack_keyed(_leaves([3], 257), KEY, 127, torch.int16)
