@@ -37,8 +37,10 @@ Phases (each one failing stops the script with a nonzero exit):
    past one table (K1 at 65 leaves, K2 at 26 x 10 and 4 x 70) through
    ``ops``, bit-equal to the plain split, to the u-taking entry fed the
    key's streams and to the one-table call; K3 at the MoE experts' shapes
-   (olmoe, qwen3; M 4 and a 4 x 128 prefill's capacity) beside
-   ``torch.matmul``;
+   (olmoe, qwen3; M 4 and a 4 x 128 prefill's capacity) and at mamba2's
+   six decode projections (each plan printed and asserted: the unembed's
+   50,280-byte code rows on the FP32 tiled path, the rest on the cluster
+   path) beside ``torch.matmul``;
    K3, K4 and K5 also launched twice on identical inputs, the outputs
    bit-equal.  K4's rows name the path and tiles of
    ``plan_attention`` and the SDPA backend of their library time (fused:
@@ -52,21 +54,29 @@ Phases (each one failing stops the script with a nonzero exit):
    (n_pmax 256, ~4,000 tokens a slot), each with its block count from
    ``plan_decode``.
 4. serve: ``Session.serve`` of full-width, full-depth yi-6b, then of
-   gemma-7b (head dim 256) and olmoe-1b-7b (64 experts, top-8), with int8
-   weights, paged f32 KV and continuous batching; the launch counters are
-   zeroed just before each run and read just after, K3, K4 and K5 must have
-   launched in each, K3 a whole number of passes of the family's count
-   (``(4 + 3E)L + 1`` for MoE, ``7L + 1`` dense), and every MoE
-   ``expert_dispatch`` on its K3 branch (never the eager dequant).
+   gemma-7b (head dim 256), olmoe-1b-7b (64 experts, top-8) and mamba2-780m
+   (48 SSM layers), and of the smoke-size jamba (the hybrid), with int8
+   weights, paged f32 KV (mamba2's O(1) state contiguous: the session's
+   fallback) and continuous batching; the launch counters are zeroed just
+   before each run and read just after, each run must have launched its
+   family's kernels (K3, K4, K5; mamba2 K3 alone; jamba K3 and K5) and no
+   other of the three, K3 a whole number of passes of the family's count
+   (``(4 + 3E)L + 1`` for MoE, ``7L + 1`` dense, ``5L + 1`` SSM, by
+   sublayer kind for the hybrid; a prefill by decode is one pass a token),
+   every MoE ``expert_dispatch`` on its K3 branch (never the eager
+   dequant), and each K3 shape's plan recorded.
 5. profile: where a full-depth decode step's and a prefill's (4 slots x 128
-   tokens) time goes, for yi-6b and olmoe-1b-7b: host clock, device time by
-   kernel from ``torch.profiler``, K3's, K4's and K5's device time and
+   tokens; mamba2's by decode, 4 x 16) time goes, for yi-6b, olmoe-1b-7b
+   and mamba2-780m: host clock, device time by kernel from
+   ``torch.profiler``, K3's, K4's and K5's device time, K3's share and
    launches, K3's launches by shape.
 6. consistency: a 2-layer full-width yi-6b (bf16, then f32 compute: K4's
-   split path), a 4-layer full-width gemma-7b and a 2-layer full-width
-   qwen3-moe-235b-a22b (f32, 128 experts, K5 at G 16) each run one prefill
-   and one decode step with the kernels and again with the plain versions
-   on the card; then the smoke-size yi-6b (f32, head dim 16) serves through
+   split path), a 4-layer full-width gemma-7b, a 2-layer full-width
+   qwen3-moe-235b-a22b (f32, 128 experts, K5 at G 16), a 2-layer
+   full-width mamba2-780m and the smoke-size jamba (f32) each run one
+   prefill and one decode step with the kernels and again with the plain
+   versions on the card; then the smoke-size yi-6b (f32, head dim 16)
+   serves through
    ``Session.serve`` with K4 launched on the split path only.
 7. fl: the paper's FWQ loop (``Session.run_fl_sim``) on the card — the
    quickstart ``mobilenet`` spec and the ``fl-codesign-grid`` ``resnet``
@@ -88,9 +98,12 @@ Phases (each one failing stops the script with a nonzero exit):
    on olmoe-1b-7b at full width cut to 2 layers (4x1, sequence 256): finite
    losses, 120 K1 launches (every expert stack one weight use, the router
    exempt) and one keyed K2 call a step, peak memory under 40 GB, a
-   profiled round.
+   profiled round.  Then 2 rounds of ``train`` on mamba2-780m at full width
+   cut to 8 layers (4x1, sequence 512: two SSD chunks): finite losses, 328
+   K1 launches and one keyed K2 call a step, a profiled round.
 
-The last two lines are the kernel table and ``{"ok": true, "device": ...}``.
+Each phase prints its own time.  The last two lines are the kernel table
+and ``{"ok": true, "device": ...}``.
 ``--phases`` runs a subset (for iterating on one kernel); phase ``sweep``,
 run only when named, times K3 at yi-6b's projections under the tile plans
 near the one ``quant_matmul.plan`` picks, phase ``decode_sweep`` times K5
@@ -1492,6 +1505,60 @@ def check_quant_matmul_experts() -> None:
         del copies, codes
 
 
+#: mamba2-780m's projections a decode step (d 1536, d_inner 3072, 48 heads,
+#: state 128, vocab 50,280): (name, K, N)
+MAMBA2_SHAPES = (("wx", 1536, 3072), ("wz", 1536, 3072), ("w_bc", 1536, 256),
+                 ("w_dt", 1536, 48), ("wo", 3072, 1536), ("unembed", 1536, 50280))
+
+
+def check_quant_matmul_mamba2() -> None:
+    """K3 at each of mamba2's decode projections (M 4, int8 codes, bf16 x as
+    served and f32 x as phase consistency runs it): within the K3 rows'
+    tolerance of the plain version, bit-equal over two launches, the plan
+    printed and asserted: the cluster path wherever a code row is a 16-byte
+    multiple (``w_dt``'s 48 columns too), the FP32 tiled path for the
+    unembed's 50,280-byte rows.  Each timed beside ``torch.matmul`` on the
+    dequantized weight and the byte bound; the timed launches rotate over
+    enough copies of the codes to read them from device memory, as a decode
+    step does."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    M = 4
+    for proj, K, N in MAMBA2_SHAPES:
+        codes = torch.randint(-127, 128, (K, N), generator=gen, device="cuda",
+                              dtype=torch.int32).to(torch.int8)
+        scale = torch.tensor(2.0 / math.sqrt(K) / 127, device="cuda")
+        n_copies = max(1, min(16, math.ceil(120e6 / codes.nbytes)))
+        copies = [codes] + [codes.clone() for _ in range(n_copies - 1)]
+        for x_dtype in (torch.bfloat16, torch.float32):
+            w_libs = [(c.float() * scale).to(x_dtype) for c in copies]
+            x = torch.randn((M, K), generator=gen, device="cuda").to(x_dtype)
+            got = qm.quant_matmul_cuda(x, codes, scale)
+            again = qm.quant_matmul_cuda(x, codes, scale)
+            want = qm.quant_matmul_plain(x, codes, scale)
+            torch.cuda.synchronize()
+            case = f"quant_matmul mamba2-780m {proj} M={M} K={K} N={N} x={x_dtype}"
+            rtol, atol = (1e-4, 1e-3) if x_dtype == torch.float32 else (2e-2, 1e-2)
+            _check(case, got, want, rtol, atol)
+            if not torch.equal(got, again):
+                raise AssertionError(f"{case}: two launches on identical inputs differ")
+            p = qm.plan(M, K, N, x_dtype, torch.int8)
+            assert p.path == ("cluster" if N % 16 == 0 else "tiled"), (case, p)
+            print(f"{case}: plan {tuple(p)}")
+            sets = [(x, c, scale) for c in copies]
+            nbytes = x.nbytes + codes.nbytes + 4 + M * N * 4
+            b_ms, b_by = bound_ms(nbytes, 2.0 * M * K * N, x_dtype)
+            emit(dict(kernel="quant_matmul", case=f"mamba2-780m {proj}", M=M, K=K, N=N,
+                      x=str(x_dtype), codes="torch.int8", plan=list(p),
+                      max_abs_err=max_errs(got, want)[0],
+                      kernel_ms=time_ms(qm.quant_matmul_cuda, sets),
+                      plain_ms=time_ms(qm.quant_matmul_plain, sets[:1], iters=3, warmup=1),
+                      library_ms=time_ms(torch.matmul, [(x, w) for w in w_libs]),
+                      bound_ms=b_ms, bound_by=b_by, launches_a_decode_step=48
+                      if proj != "unembed" else 1))
+            del w_libs
+        del copies, codes
+
+
 def phase_kernels(table: dict) -> None:
     check_sr_quant(table)
     check_sr_quant_keyed(table)
@@ -1501,6 +1568,7 @@ def phase_kernels(table: dict) -> None:
     check_keyed_splits()
     check_quant_matmul(table)
     check_quant_matmul_experts()
+    check_quant_matmul_mamba2()
     check_flash_attention(table)
     check_attention_one_hot()
     check_flash_decode(table)
@@ -1509,24 +1577,57 @@ def phase_kernels(table: dict) -> None:
 
 
 #: The serve runs: yi-6b as in every earlier slice, then gemma-7b (head dim
-#: 256 through K4 and K5) and olmoe-1b-7b (64 experts top-8: every expert's
-#: FFN through K3), all at full width and depth, 4 slots, s_max 256.
+#: 256 through K4 and K5), olmoe-1b-7b (64 experts top-8: every expert's FFN
+#: through K3) and mamba2-780m (SSM: K3 only, the state contiguous), all at
+#: full width and depth, 4 slots, s_max 256; then jamba at its smoke size
+#: (the hybrid: K3, and K5 in the decode steps; its prefill is a loop of
+#: decode steps on the gather path, so no K4).  ``kernels``: the serving
+#: kernels the run must launch; the others of K3, K4, K5 it must not.
+_ATTN_KERNELS = ("quant_matmul", "flash_attention", "flash_decode")
 SERVE_RUNS = {
-    "yi-6b": dict(layers=32, d_model=4096, options={
+    "yi-6b": dict(layers=32, d_model=4096, kernels=_ATTN_KERNELS, options={
         "prompt_len": 128, "requests": 8, "max_new": 32, "steps": 64}),
-    "gemma-7b": dict(layers=28, d_model=3072, options={
+    "gemma-7b": dict(layers=28, d_model=3072, kernels=_ATTN_KERNELS, options={
         "prompt_len": 64, "requests": 4, "max_new": 8, "steps": 32}),
-    "olmoe-1b-7b": dict(layers=16, d_model=2048, options={
+    "olmoe-1b-7b": dict(layers=16, d_model=2048, kernels=_ATTN_KERNELS, options={
         "prompt_len": 64, "requests": 4, "max_new": 16, "steps": 32}),
+    "mamba2-780m": dict(layers=48, d_model=1536, kernels=("quant_matmul",), options={
+        "prompt_len": 64, "requests": 4, "max_new": 16, "steps": 32}),
+    "jamba-1.5-large-398b": dict(layers=4, d_model=64, smoke=True,
+                                 kernels=("quant_matmul", "flash_decode"), options={
+                                     "prompt_len": 16, "requests": 4, "max_new": 8,
+                                     "steps": 24}),
 }
 
 
 def k3_per_pass(cfg) -> int:
-    """K3 launches a decode step or a prefill: q, k, v, o and the MLP's
-    three projections a layer (dense), or q, k, v, o and three a layer for
-    each expert (MoE), and the head."""
+    """K3 launches a decode step or a (parallel) prefill: q, k, v, o and the
+    MLP's three projections a layer (dense), or q, k, v, o and three a layer
+    for each expert (MoE), wx, wz, w_bc, w_dt, wo a layer (SSM), a hybrid's
+    sublayers by kind (attention 4, SSM 5, MoE 3E, MLP 3); and the head."""
+    if cfg.family == "ssm":
+        return 5 * cfg.n_layers + 1
+    if cfg.family == "hybrid":
+        p = cfg.attn_period
+        n_moe = sum(1 for j in range(p) if j % max(cfg.moe_period, 1) == 0) \
+            if cfg.n_experts else 0
+        per_period = 4 + 5 * (p - 1) + 3 * cfg.n_experts * n_moe + 3 * (p - n_moe)
+        return per_period * (cfg.n_layers // p) + 1
     per_layer = 4 + 3 * cfg.n_experts if cfg.family == "moe" else 7
     return per_layer * cfg.n_layers + 1
+
+
+def expected_launches(cfg, kind: str, prompt_len: int) -> dict:
+    """K3, K4 and K5 launches of one ``kind`` ("decode" step or "prefill" of
+    ``prompt_len`` tokens): the SSM and hybrid families prefill as a loop of
+    decode steps, their attention (hybrid) on the gather path."""
+    recurrent = cfg.family in ("ssm", "hybrid")
+    n_attn = {"ssm": 0, "hybrid": cfg.n_layers // max(cfg.attn_period, 1)}.get(
+        cfg.family, cfg.n_layers)
+    prefill = kind == "prefill"
+    return {"quant_matmul": k3_per_pass(cfg) * (prompt_len if prefill and recurrent else 1),
+            "flash_attention": n_attn if prefill and not recurrent else 0,
+            "flash_decode": 0 if prefill else n_attn}
 
 
 @contextlib.contextmanager
@@ -1535,11 +1636,16 @@ def k3_and_experts(record: dict):
     ``expert_dispatch`` call by branch: ``k3`` (a packed stack with one
     scale), ``eager`` (a per-expert scale row, dequantized) or ``plain``."""
     shapes, branches = record.setdefault("k3_shapes", {}), record.setdefault("experts", {})
+    plans = record.setdefault("k3_plans", {})
     launch, dispatch = qm.quant_matmul_cuda, ops.expert_dispatch
 
     def counting_launch(x, codes, scale, tile_plan=None):
         k = f"{x.shape[0]}x{x.shape[1]}x{codes.shape[1]} {str(x.dtype)[6:]}"
         shapes[k] = shapes.get(k, 0) + 1
+        if k not in plans:
+            plans[k] = list(qm.plan(x.shape[0], x.shape[1], codes.shape[1], x.dtype,
+                                    codes.dtype, aligned=x.data_ptr() % 16 == 0
+                                    and codes.data_ptr() % 16 == 0))
         return launch(x, codes, scale, tile_plan)
 
     def counting_dispatch(x, w, dtype=None):
@@ -1562,7 +1668,8 @@ def phase_serve(dev: dict) -> dict:
 
     total = {name: 0 for name in KERNELS}
     for arch, run in SERVE_RUNS.items():
-        spec = RunSpec(arch, workload="serve", smoke=False, seed=0, batch=4, seq=256,
+        smoke = run.get("smoke", False)
+        spec = RunSpec(arch, workload="serve", smoke=smoke, seed=0, batch=4, seq=256,
                        precision=PrecisionPolicy.lazy_int8(7),
                        options={"attn_impl": "flash", "kv_layout": "paged",
                                 "vary_prompt": True, "quiet": True, **run["options"]})
@@ -1581,7 +1688,8 @@ def phase_serve(dev: dict) -> dict:
         n_req = run["options"]["requests"]
         assert stats.admitted == n_req, stats.admitted
         assert stats.completed == n_req, stats.completed
-        # every decode step and every prefill launches the family's K3 count
+        # every decode step and every prefill (a prefill by decode: each of
+        # its steps) launches the family's K3 count
         per_pass = k3_per_pass(cfg)
         assert launches["quant_matmul"] % per_pass == 0, (per_pass, launches)
         if cfg.family == "moe":
@@ -1589,16 +1697,27 @@ def phase_serve(dev: dict) -> dict:
             # eager dequant: three dispatches a layer a pass
             passes = launches["quant_matmul"] // per_pass
             assert record["experts"] == {"k3": 3 * cfg.n_layers * passes}, record["experts"]
+        if cfg.family == "ssm":
+            # O(1) state: the paged layout asked for falls back to contiguous
+            assert per_pass == 241 and stats.kv_layout == "contiguous", (per_pass, stats)
+            for k, plan in record["k3_plans"].items():
+                assert plan[0] == ("tiled" if k.split()[0].endswith("x50280") else
+                                   "cluster"), (k, plan)
         assert stats.decoded_tokens > 0, stats.decoded_tokens
         assert stats.sample and all(0 <= t < vocab for t in stats.sample), stats.sample
         assert all(0 <= t < vocab for t in sess.last_tokens), "sampled id out of range"
-        for name in ("quant_matmul", "flash_attention", "flash_decode"):
-            assert launches[name] > 0, f"{arch}: main path never launched {name}: {launches}"
+        for name in _ATTN_KERNELS:
+            if name in run["kernels"]:
+                assert launches[name] > 0, f"{arch}: main path never launched {name}: " \
+                                           f"{launches}"
+            else:
+                assert launches[name] == 0, f"{arch}: {name} launched: {launches}"
         d = dict(vars(stats))
-        d["arch"] = arch
+        d["arch"] = cfg.name
         d["head_dim"] = cfg.head_dim
         d["k3_per_pass"] = per_pass
         d["k3_shapes"] = record["k3_shapes"]
+        d["k3_plans"] = record["k3_plans"]
         d["expert_dispatch"] = record["experts"]
         d["tok_s_card"] = f"{dev['kind']} ({dev['smi']})"
         d["serve_wall_s"] = wall
@@ -1650,11 +1769,13 @@ def plain_kernels():
 def prefilled(cfg, policy, *, seed: int = 0, batch: int = 4, s_max: int = 256,
               prompt_len: int = 128, page_size: int = 16, device: str = "cuda"):
     """Packed random weights of ``cfg`` (drawn with ``seed`` on ``device``)
-    and paged caches after one flash prefill of ``batch`` random prompts.
+    and caches (paged where the family pages) after one flash prefill of
+    ``batch`` random prompts of ragged lengths.
 
     Returns ``(decode, prefill_logits, first_token, caches, again)``, where
     ``decode(token, caches) -> (logits, caches)`` runs one flash decode step
-    and ``again()`` runs the same prefill once more (into the same caches).
+    and ``again()`` runs the same prefill once more (into the caches the
+    last one left).
     """
     from repro_torch.core.quantization import default_exempt
     from repro_torch.dist.collectives import AxisCtx
@@ -1662,19 +1783,21 @@ def prefilled(cfg, policy, *, seed: int = 0, batch: int = 4, s_max: int = 256,
     from repro_torch.launch.steps import _compute_dtype, _greedy_pick, init_global_caches
     from repro_torch.models.common import ParamCtx, pack_params_for_policy
     from repro_torch.models.model import build_model
-    from repro_torch.models.transformer import decode_step, prefill
 
     axes, model = AxisCtx(), build_model(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
     qparams = pack_params_for_policy(model.init(gen, 1, device=device), policy,
                                      exempt=default_exempt)
-    pager = SlotPager.build(batch, s_max, page_size, batch * s_max // page_size)
-    for slot in range(batch):
-        pager.admit(slot, s_max)
+    cache_kw = {}
+    if model.supports_paged_kv:
+        pager = SlotPager.build(batch, s_max, page_size, batch * s_max // page_size)
+        for slot in range(batch):
+            pager.admit(slot, s_max)
+        cache_kw = {"page_size": page_size, "pool_pages": pager.pool.n_pages}
     caches = init_global_caches(model, axes, s_max=s_max, batch_global=batch,
-                                dtype=policy.kv_cache_dtype(), device=device,
-                                page_size=page_size, pool_pages=pager.pool.n_pages)
-    caches = set_page_tables(caches, pager.table)
+                                dtype=policy.kv_cache_dtype(), device=device, **cache_kw)
+    if cache_kw:
+        caches = set_page_tables(caches, pager.table)
     tokens = torch.randint(2, cfg.vocab_size, (batch, prompt_len), generator=gen,
                            device=device)
     plens = torch.tensor([prompt_len - 3 * s for s in range(batch)], dtype=torch.int32,
@@ -1683,12 +1806,12 @@ def prefilled(cfg, policy, *, seed: int = 0, batch: int = 4, s_max: int = 256,
 
     @torch.no_grad()
     def decode(token, caches):
-        return decode_step(cfg, pc, qparams, token, caches, attn_impl="flash")
+        return model.decode_step(pc, qparams, {"token": token}, caches, attn_impl="flash")
 
     @torch.no_grad()
     def again():
-        return prefill(cfg, pc, qparams, tokens, caches, attn_impl="flash",
-                       prompt_lens=plens)
+        return model.prefill(pc, qparams, {"tokens": tokens}, caches, attn_impl="flash",
+                             prompt_lens=plens)
 
     lp, caches = again()
     return decode, lp, _greedy_pick(axes, 1, cfg.vocab_size, lp), caches, again
@@ -1771,8 +1894,11 @@ def _launches(fn) -> dict:
 _KERNEL_NAMES = {"k3": "qmm_", "k4": "flash_attention_", "k5": "flash_decode"}
 
 
-#: phase profile's models: the dense serving path and the MoE one
-PROFILE_ARCHS = ("yi-6b", "olmoe-1b-7b")
+#: phase profile's models and their prompt lengths: the dense serving path,
+#: the MoE one, and the SSM one (its prefill is a loop of decode steps, one
+#: 241-launch pass and ~92 ms of host a token, so a 16-token prompt and one
+#: timed prefill)
+PROFILE_ARCHS = {"yi-6b": 128, "olmoe-1b-7b": 128, "mamba2-780m": 16}
 
 
 def phase_profile(dev: dict) -> None:
@@ -1783,13 +1909,13 @@ def phase_profile(dev: dict) -> None:
     from repro_torch.api import PrecisionPolicy
     from repro_torch.configs import get_config
 
-    for arch in PROFILE_ARCHS:
-        profile_arch(dev, get_config(arch), PrecisionPolicy.lazy_int8(7))
+    for arch, prompt_len in PROFILE_ARCHS.items():
+        profile_arch(dev, get_config(arch), PrecisionPolicy.lazy_int8(7), prompt_len)
         torch.cuda.empty_cache()
 
 
-def profile_arch(dev: dict, cfg, policy) -> None:
-    decode, _lp, tok, caches, again = prefilled(cfg, policy)
+def profile_arch(dev: dict, cfg, policy, prompt_len: int = 128) -> None:
+    decode, _lp, tok, caches, again = prefilled(cfg, policy, prompt_len=prompt_len)
     state = {"tok": tok, "caches": caches}
 
     def step():
@@ -1801,11 +1927,13 @@ def profile_arch(dev: dict, cfg, policy) -> None:
         lp, _ = again()
         lp.float().argmax(-1).cpu()         # the serve loop reads the first token
 
-    projections = k3_per_pass(cfg)
+    recurrent = cfg.family in ("ssm", "hybrid")
     out = {"arch": cfg.name, "card": f"{dev['kind']} ({dev['smi']})", "layers": cfg.n_layers,
            "batch": 4}
-    for label, fn, n in (("decode_step", step, 8), ("prefill_4x128", prefill_once, 3)):
-        for _ in range(2):                  # warm up
+    for label, fn, n, kind in (("decode_step", step, 8, "decode"),
+                               (f"prefill_4x{prompt_len}", prefill_once, 1 if recurrent else 3,
+                                "prefill")):
+        for _ in range(1 if recurrent and kind == "prefill" else 2):   # warm up
             fn()
         torch.cuda.synchronize()
         t0 = time.time()
@@ -1814,11 +1942,11 @@ def profile_arch(dev: dict, cfg, policy) -> None:
         host_ms = (time.time() - t0) * 1e3 / n
         with k3_and_experts({}) as record:
             launches = _launches(fn)
+        want = expected_launches(cfg, kind, prompt_len)
+        assert {k: launches[k] for k in want} == want, f"{label}: {launches}, expected {want}"
         k3 = launches["quant_matmul"]
-        assert k3 == projections, f"{label}: {k3} K3 launches, expected {projections}"
-        attn = "flash_decode" if label == "decode_step" else "flash_attention"
-        assert launches[attn] == cfg.n_layers, f"{label}: {launches}"
-        rows = _device_ms_by_name(fn, 3 if label == "decode_step" else 2)
+        rows = _device_ms_by_name(fn, 1 if kind == "prefill" and recurrent else
+                                  3 if kind == "decode" else 2)
         device_ms = sum(r[0] for r in rows)
         out[label] = {
             "ms_host_clock": host_ms,
@@ -1831,47 +1959,59 @@ def profile_arch(dev: dict, cfg, policy) -> None:
         if rows:
             out[label]["other_device_ms"] = device_ms - sum(
                 out[label][f"{k}_device_ms"] for k in _KERNEL_NAMES)
+            out[label]["k3_share"] = out[label]["k3_device_ms"] / device_ms
         out[label].update(k3_launches=k3, k4_launches=launches["flash_attention"],
                           k5_launches=launches["flash_decode"], k3_shapes=record["k3_shapes"],
-                          expert_dispatch=record["experts"],
+                          k3_plans=record["k3_plans"], expert_dispatch=record["experts"],
                           top=[{"ms": ms, "launches": c, "name": k[:80]}
                                for ms, c, k in rows[:10]])
     emit({"profile": out})
 
 
-#: phase consistency's models: (arch, layers, compute dtype, tolerance).
-#: f32 compute sends every prefill through K4's split path and holds the
-#: kernels to the plain versions far tighter than bf16 can.  qwen3-moe (128
-#: experts, 64 heads over 4 KV heads: K5 at G 16) runs in f32 so that both
-#: runs route every token alike: bf16's differences between kernel and
-#: plain attention would move tokens near a top-8 tie to another expert.
+#: phase consistency's models: (arch, layers, compute dtype, tolerance);
+#: ``layers`` None runs the arch's smoke size.  f32 compute sends every
+#: prefill through K4's split path and holds the kernels to the plain
+#: versions far tighter than bf16 can.  qwen3-moe (128 experts, 64 heads over
+#: 4 KV heads: K5 at G 16) runs in f32 so that both runs route every token
+#: alike: bf16's differences between kernel and plain attention would move
+#: tokens near a top-8 tie to another expert.  mamba2 (K3 only) and the
+#: smoke-size jamba (K3, and K5 in its decode step) prefill as loops of
+#: decode steps.
 CONSISTENCY_RUNS = (("yi-6b", 2, "bfloat16", 5e-2), ("yi-6b", 2, "float32", 2e-3),
                     ("gemma-7b", 4, "bfloat16", 5e-2),
-                    ("qwen3-moe-235b-a22b", 2, "float32", 2e-3))
+                    ("qwen3-moe-235b-a22b", 2, "float32", 2e-3),
+                    ("mamba2-780m", 2, "float32", 2e-3),
+                    ("jamba-1.5-large-398b", None, "float32", 2e-3))
 
 
 def phase_consistency() -> None:
     """One prefill and one decode step's logits, kernels against plain
-    versions: yi-6b cut to 2 layers (bf16 and f32 compute) and gemma-7b
-    (head dim 256) cut to 4, all at full width; then the smoke-size serve."""
+    versions, for each of :data:`CONSISTENCY_RUNS`; then the smoke-size
+    serve."""
     import dataclasses
 
     from repro_torch.api import PrecisionPolicy
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, smoke_variant
 
     for arch, layers, compute, tol in CONSISTENCY_RUNS:
-        cfg = dataclasses.replace(get_config(arch), n_layers=layers, compute_dtype=compute)
+        cfg = (dataclasses.replace(get_config(arch), n_layers=layers, compute_dtype=compute)
+               if layers else dataclasses.replace(smoke_variant(get_config(arch)),
+                                                  compute_dtype=compute))
+        # the recurrent families prefill a token at a time: a shorter prompt
+        prompt_len = 32 if cfg.family in ("ssm", "hybrid") else 128
         runs = {}
         for label, ctx in (("kernels", contextlib.nullcontext()), ("plain", plain_kernels())):
             ops.reset_launches()
             with ctx:
-                runs[label] = step_logits(cfg, PrecisionPolicy.lazy_int8(7))
+                runs[label] = step_logits(cfg, PrecisionPolicy.lazy_int8(7),
+                                          prompt_len=prompt_len)
             torch.cuda.synchronize()
             if label == "kernels":      # one prefill and one decode step
                 launches = dict(ops.LAUNCHES)
-                assert launches["quant_matmul"] == 2 * k3_per_pass(cfg), launches
-                assert launches["flash_attention"] == launches["flash_decode"] == layers, \
-                    launches
+                pre = expected_launches(cfg, "prefill", prompt_len)
+                dec = expected_launches(cfg, "decode", prompt_len)
+                want = {k: pre[k] + dec[k] for k in pre}
+                assert {k: launches[k] for k in want} == want, (launches, want)
         agree, diff = {}, {}
         for key in ("prefill_logits", "decode_logits"):
             a, b = runs["kernels"][key].float(), runs["plain"][key].float()
@@ -1879,10 +2019,13 @@ def phase_consistency() -> None:
             torch.testing.assert_close(a, b, rtol=tol, atol=tol)
             agree[key] = float((a.argmax(-1) == b.argmax(-1)).float().mean())
             diff[key] = float((a - b).abs().max())
-        emit({"consistency": {"arch": arch, "layers": layers, "d_model": cfg.d_model,
-                              "head_dim": cfg.head_dim,
-                              "decode_group": cfg.n_heads // cfg.n_kv_heads,
-                              "experts": cfg.n_experts, "k3_launches": launches["quant_matmul"],
+        emit({"consistency": {"arch": cfg.name, "layers": cfg.n_layers,
+                              "d_model": cfg.d_model, "head_dim": cfg.head_dim,
+                              "decode_group": (cfg.n_heads // cfg.n_kv_heads
+                                               if cfg.n_kv_heads else None),
+                              "experts": cfg.n_experts,
+                              "k3_launches": launches["quant_matmul"],
+                              "k5_launches": launches["flash_decode"],
                               "compute_dtype": compute, "tol": tol,
                               "max_abs_diff": diff, "greedy_agreement": agree}})
         del runs
@@ -2429,6 +2572,8 @@ def phase_train(dev: dict) -> dict:
           "cohorts) equal the CPU run's")
     for k, n in train_moe(dev).items():
         launches[k] += n
+    for k, n in train_mamba2(dev).items():
+        launches[k] += n
     return launches
 
 
@@ -2489,6 +2634,58 @@ def train_moe(dev: dict) -> dict:
     return {k: got[k] for k in ("sr_quant", "sr_quant_inline", "sr_pack", "sr_pack_keyed")}
 
 
+def train_mamba2(dev: dict) -> dict:
+    """The ``train`` run (8-bit weights, int8 wire) on mamba2-780m at full
+    width cut to 8 layers, 4x1 mesh, batch 2, sequence 512 (two SSD chunks of
+    256): finite losses, one inline K1 launch a weight use (wx, wz, w_bc,
+    w_dt, wo a layer, twice under remat, and the embed and unembed; the
+    recurrence vectors, conv kernels and norms exempt), one call of K2's
+    keyed entry a step, the peak memory, and a profiled round.  Returns its
+    K1 and K2 launches."""
+    run = TRAIN_RUNS["train"]
+    rows: list = []
+    sess = _train_session(run, "cuda", arch="mamba2-780m", layers=8, seq=512)
+    cfg = sess.cfg
+    t0 = time.time()
+    sess._ensure_train_state()
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    ops.reset_launches()
+    t0 = time.time()
+    with train_clock(rows):
+        hist = sess.run_train()
+    wall = time.time() - t0
+    got = dict(ops.LAUNCHES)
+    assert (cfg.n_layers, cfg.d_model, cfg.ssm_chunk, cfg.remat) == (8, 1536, 256, True), cfg
+    uses = 4 * (2 + 5 * cfg.n_layers * 2)
+    assert uses == 328, uses
+    wire = rows[-1]["k2_args"][0]
+    for h, r in zip(hist, rows):
+        assert np.isfinite(h["loss"]), h
+        assert r["k2_launches"] == r["k2_keyed_launches"] == 1, r
+        assert r["k1_launches"] == r["k1_inline_launches"] == uses, (uses, r)
+        print(f"train mamba2 round {h['round']}: loss {h['loss']:.4f} step "
+              f"{r['step_s'] * 1e3:.1f} ms K1 launches {r['k1_launches']} K2 launches "
+              f"{r['k2_launches']} peak {r['peak_mem_gb']:.2f} GB")
+    # K1's count takes every entry's launches: all of them the inline one
+    for k in ("sr_quant_keyed", "quant_matmul", "flash_attention", "flash_decode"):
+        assert got[k] == 0, f"train mamba2 launched {k}: {got}"
+    prof = profile_train_round(dev, sess, run["rounds"])
+    emit({"train": {
+        "run": "train", "arch": cfg.name, "card": f"{dev['kind']} ({dev['smi']})",
+        "layers": cfg.n_layers, "d_model": cfg.d_model, "mesh": "4x1",
+        "batch_per_client": 2, "seq": 512, "comm_bits": 4,
+        "wire_codes": str(rows[-1]["k2_args"][-1]),
+        "wire_leaf_elems": [leaf[0].numel() for leaf in wire], "setup_s": setup_s,
+        "wall_s": wall, "losses": [h["loss"] for h in hist], "launches": got,
+        "k1_uses_a_step": uses, "device_ms": prof["device_ms"],
+        "comm_report": {k: v for k, v in sess.comm_report().items() if k != "rounds"},
+        "rounds": [{k: v for k, v in r.items() if k != "k2_args"} for r in rows]}})
+    del sess, rows, wire
+    torch.cuda.empty_cache()
+    return {k: got[k] for k in ("sr_quant", "sr_quant_inline", "sr_pack", "sr_pack_keyed")}
+
+
 def phase_train_profile(dev: dict) -> None:
     """Round 0 of the ``train`` run (8-bit weights), then rounds 1 and 2
     profiled: host and device ms, busy share, host syncs, K1 launches.  It
@@ -2519,32 +2716,29 @@ def main(argv=None) -> int:
     print(f"chip_smoke: the port from {args.src}")
     table: dict = {}
     launches = {name: 0 for name in KERNELS}
-    if "build" in phases:
-        phase_build()
-    if "kernels" in phases:
-        phase_kernels(table)
-    if "sweep" in phases:
-        phase_sweep(dev)
-    if "decode_sweep" in phases:
-        phase_decode_sweep(dev)
-    if "attn_sweep" in phases:
-        phase_attn_sweep(dev)
-    if "serve" in phases:
-        launches = phase_serve(dev)
-    if "profile" in phases:
-        phase_profile(dev)
-    if "consistency" in phases:
-        phase_consistency()
-    if "fl" in phases:
-        launches.update(phase_fl(dev))
-    if "train" in phases:
+    launches_of = {}
+    runs = (("build", phase_build), ("kernels", lambda: phase_kernels(table)),
+            ("sweep", lambda: phase_sweep(dev)), ("decode_sweep", lambda: phase_decode_sweep(dev)),
+            ("attn_sweep", lambda: phase_attn_sweep(dev)),
+            ("serve", lambda: launches_of.update(serve=phase_serve(dev))),
+            ("profile", lambda: phase_profile(dev)), ("consistency", phase_consistency),
+            ("fl", lambda: launches_of.update(fl=phase_fl(dev))),
+            ("train", lambda: launches_of.update(train=phase_train(dev))),
+            ("train_profile", lambda: phase_train_profile(dev)))
+    for name, run in runs:
+        if name in phases:
+            t0 = time.time()
+            run()
+            print(f"chip_smoke: phase {name} took {time.time() - t0:.1f} s")
+    if "serve" in launches_of:
+        launches = launches_of["serve"]
+    launches.update(launches_of.get("fl", {}))
+    if "train" in launches_of:
         # K1 runs on both paths: its count is the sum of the two phases' runs
-        train_launches = phase_train(dev)
+        train_launches = launches_of["train"]
         launches["sr_quant"] += train_launches["sr_quant"]
         for k in ("sr_quant_inline", "sr_pack", "sr_pack_keyed"):
             launches[k] = train_launches[k]
-    if "train_profile" in phases:
-        phase_train_profile(dev)
     rows = []
     for name, meta in KERNELS.items():
         r = table.get(name, {})

@@ -436,8 +436,9 @@ class Session:
         packed through the ``quant_matmul`` kernel.  ``overrides`` patch
         individual options (steps, requests, ...) for this call only.
 
-        KV-cache layout (``kv_layout`` option, default ``"paged"``): the
-        paged layout allocates each request's pages ON ADMIT for its full
+        KV-cache layout (``kv_layout`` option, default ``"paged"``; an SSM
+        model, whose state is O(1), serves contiguous whatever is asked):
+        the paged layout allocates each request's pages ON ADMIT for its full
         capacity (prompt + max_new, page-rounded) from a shared pool sized by
         ``pool_pages`` (default: the largest ``batch`` concurrent requests),
         reclaims them on completion, and DEFERS admissions the pool cannot
@@ -483,10 +484,13 @@ class Session:
                 "(ROADMAP queue 1, item 8)")
 
         # ---- KV layout ---------------------------------------------------
-        kv_layout = o.get("kv_layout") or "paged"
+        kv_layout = o.get("kv_layout") or ("paged" if model.supports_paged_kv
+                                           else "contiguous")
         if kv_layout not in ("paged", "contiguous"):
             raise ValueError(f"kv_layout must be 'paged' or 'contiguous', "
                              f"got {kv_layout!r}")
+        if kv_layout == "paged" and not model.supports_paged_kv:
+            kv_layout = "contiguous"    # SSM: O(1) state, nothing to page
         page_size = o.get("page_size")
         if page_size is None:
             page_size = next(p for p in (16, 8, 4, 2, 1) if s_max % p == 0)

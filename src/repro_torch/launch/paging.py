@@ -167,14 +167,17 @@ class SlotPager:
 
 
 def set_page_tables(caches, table: np.ndarray):
-    """Push a host page table into a layer-stacked PagedKVCache.
+    """Push a host page table into every :class:`PagedKVCache` of a cache
+    tree (one cache, or a hybrid's dict of caches).
 
-    ``table``: (B, n_pmax) int32 — copied once to the device and broadcast
-    over the layer-stack dim (every layer's pool is indexed by the same
+    ``table``: (B, n_pmax) int32 — copied to the device and broadcast over
+    each cache's layer-stack dim (every layer's pool is indexed by the same
     logical table).  Other caches pass through.
     """
     from repro_torch.models.attention import PagedKVCache
 
+    if isinstance(caches, dict):
+        return {k: set_page_tables(c, table) for k, c in caches.items()}
     if not isinstance(caches, PagedKVCache):
         return caches
     pt = torch.as_tensor(np.asarray(table, np.int32)).to(caches.page_table.device)
@@ -182,11 +185,13 @@ def set_page_tables(caches, table: np.ndarray):
 
 
 def kv_cache_bytes(caches) -> int:
-    """Bytes resident in the K/V storage of a cache (slabs or pools).
+    """Bytes resident in the K/V storage of a cache, or of a hybrid's dict
+    of caches (slabs or pools).
 
-    Counts only per-token-growing state (self-attention K/V); page tables and
-    lengths are excluded so the paged-vs-contiguous comparison isolates
-    exactly what paging changes.  Works on ``meta`` tensors (shapes only).
+    Counts only per-token-growing state (self-attention K/V); page tables,
+    lengths and SSM states are excluded so the paged-vs-contiguous
+    comparison isolates exactly what paging changes.  Works on ``meta``
+    tensors (shapes only).
     """
     from repro_torch.models.attention import KVCache, PagedKVCache
 
@@ -196,4 +201,6 @@ def kv_cache_bytes(caches) -> int:
     if isinstance(caches, KVCache):
         return (caches.k.numel() * caches.k.element_size()
                 + caches.v.numel() * caches.v.element_size())
+    if isinstance(caches, dict):
+        return sum(kv_cache_bytes(c) for c in caches.values())
     return 0

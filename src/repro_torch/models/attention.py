@@ -28,7 +28,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.models.common import ParamCtx
+from repro_torch.models.common import ParamCtx, init_dense
 from repro_torch.models.layers import apply_rope, dense, rope_tables, sp_out
 
 _SEQPAR_TODO = ("the sequence-parallel KV cache (tp > 1 with replicated KV heads) "
@@ -74,6 +74,18 @@ def kv_cache_seq_parallel(dims: AttnDims) -> bool:
 def _require_local_kv(dims: AttnDims) -> None:
     if kv_cache_seq_parallel(dims):
         raise NotImplementedError(_SEQPAR_TODO)
+
+
+def init_attention(gen: torch.Generator, dims: AttnDims, *, lead=(), device=None,
+                   dtype=torch.float32) -> dict:
+    """``{"wq", "wk", "wv", "wo"}`` with ``lead`` stack dims, drawn in that
+    order."""
+    d, hd = dims.d_model, dims.head_dim
+    kw = {"lead": lead, "device": device, "dtype": dtype}
+    return {"wq": init_dense(gen, d, dims.heads_local * hd, **kw),
+            "wk": init_dense(gen, d, dims.kv_local * hd, **kw),
+            "wv": init_dense(gen, d, dims.kv_local * hd, **kw),
+            "wo": init_dense(gen, dims.heads_local * hd, d, **kw)}
 
 
 def _project_qkv(pc: ParamCtx, path, p, x, x_kv, dims: AttnDims, q_pos, kv_pos):
@@ -450,39 +462,53 @@ def _paged_flash_attend(pc: ParamCtx, q, cache: PagedKVCache, dims: AttnDims):
 
 
 def merge_slot_caches(old, new, keep):
-    """Per-slot merge of layer-stacked caches, in place into ``old``:
-    ``keep[b]`` takes slot b's state from ``new``.
+    """Per-slot merge of a tree of layer-stacked caches: ``keep[b]`` takes
+    slot b's state from ``new``.
 
-    :class:`KVCache` slabs merge on the slot dim.  :class:`PagedKVCache`
-    pools merge at PAGE granularity through the page table: kept slots'
-    pages are copied from ``new`` into ``old``, every other pool row is
-    untouched.
+    The tree may be one cache or a hybrid's dict of caches (``{"sub0":
+    PagedKVCache, "sub1": SSMCache, ...}``).
+    :class:`KVCache` slabs merge on the slot dim, in place into ``old``.
+    :class:`PagedKVCache` pools merge at PAGE granularity through the page
+    table: kept slots' pages are copied from ``new`` into ``old``, every
+    other pool row is untouched.  Where a decode step wrote ``old``'s
+    storage in place, ``new`` holds the same tensors and only the lengths
+    (and tables) merge.  Any other leaf is an ``(L, B, ...)`` tensor (an
+    :class:`~repro_torch.models.ssm.SSMCache` field) and merges into a new
+    tensor.
     """
+    kb = keep.to(torch.bool)
     if isinstance(old, PagedKVCache):
-        return _merge_paged_stacked(old, new, keep)
-    kb = keep.to(torch.bool)
-    sel = kb.reshape(1, -1, *([1] * (old.k.ndim - 2)))
-    old.k.copy_(torch.where(sel, new.k, old.k))
-    old.v.copy_(torch.where(sel, new.v, old.v))
-    return KVCache(old.k, old.v, torch.where(kb[None, :], new.length, old.length))
+        return _merge_paged_stacked(old, new, kb)
+    if isinstance(old, KVCache):
+        sel = kb.reshape(1, -1, *([1] * (old.k.ndim - 2)))
+        if new.k.data_ptr() != old.k.data_ptr():
+            old.k.copy_(torch.where(sel, new.k, old.k))
+            old.v.copy_(torch.where(sel, new.v, old.v))
+        return KVCache(old.k, old.v, torch.where(kb[None, :], new.length, old.length))
+    if isinstance(old, dict):
+        return {k: merge_slot_caches(v, new[k], kb) for k, v in old.items()}
+    if isinstance(old, tuple):
+        return type(old)(*(merge_slot_caches(o, n, kb) for o, n in zip(old, new)))
+    return torch.where(kb.reshape(1, -1, *([1] * (old.ndim - 2))), new, old)
 
 
-def _merge_paged_stacked(old: PagedKVCache, new: PagedKVCache, keep):
-    """Layer-stacked (L, ...) paged merge; ``keep`` (B,) is layer-invariant."""
-    kb = keep.to(torch.bool)
-    pt = new.page_table.to(torch.long)                         # (L, B, n_pmax)
-    take = ((pt >= 0) & kb[None, :, None]).reshape(pt.shape[0], -1)
-    rows = pt.clamp(min=0).reshape(pt.shape[0], -1)
-    for layer in range(pt.shape[0]):
-        for po, pn in ((old.k_pages, new.k_pages), (old.v_pages, new.v_pages)):
-            _put_rows(po[layer], rows[layer], take[layer], pn[layer][rows[layer]])
+def _merge_paged_stacked(old: PagedKVCache, new: PagedKVCache, kb):
+    """Layer-stacked (L, ...) paged merge; ``kb`` (B,) is layer-invariant."""
+    if new.k_pages.data_ptr() != old.k_pages.data_ptr():
+        pt = new.page_table.to(torch.long)                     # (L, B, n_pmax)
+        take = ((pt >= 0) & kb[None, :, None]).reshape(pt.shape[0], -1)
+        rows = pt.clamp(min=0).reshape(pt.shape[0], -1)
+        for layer in range(pt.shape[0]):
+            for po, pn in ((old.k_pages, new.k_pages), (old.v_pages, new.v_pages)):
+                _put_rows(po[layer], rows[layer], take[layer], pn[layer][rows[layer]])
     return PagedKVCache(old.k_pages, old.v_pages,
                         torch.where(kb[None, :, None], new.page_table, old.page_table),
                         torch.where(kb[None, :], new.length, old.length))
 
 
 def fresh_slot_caches(caches):
-    """Zeroed per-slot state for a prefill pass, KEEPING page tables.
+    """Zeroed per-slot state for a prefill pass over a cache tree, KEEPING
+    page tables.
 
     The prefill needs the live tables to place its pages;
     :func:`merge_slot_caches` discards the non-admitted slots' (and any
@@ -492,4 +518,8 @@ def fresh_slot_caches(caches):
         return PagedKVCache(torch.zeros_like(caches.k_pages),
                             torch.zeros_like(caches.v_pages),
                             caches.page_table, torch.zeros_like(caches.length))
-    return KVCache(*(torch.zeros_like(t) for t in caches))
+    if isinstance(caches, dict):
+        return {k: fresh_slot_caches(v) for k, v in caches.items()}
+    if isinstance(caches, tuple):
+        return type(caches)(*(fresh_slot_caches(c) for c in caches))
+    return torch.zeros_like(caches)

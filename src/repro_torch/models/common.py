@@ -74,18 +74,39 @@ def leaf_bytes(w) -> int:
     return w.nbytes() if isinstance(w, QTensor) else w.numel() * w.element_size()
 
 
-def layer_params(params: dict, layer: int) -> dict:
-    """Layer ``layer``'s slice of the ``blocks/`` leaves as the reference's
-    nested per-layer tree (``{"attn": {"wq": ...}, "ln1": ..., ...}``)."""
+def _put(node: dict, path: str, w) -> None:
+    *parents, leaf = path.split("/")
+    for p in parents:
+        node = node.setdefault(p, {})
+    node[leaf] = w
+
+
+def layer_params(params: dict, layer: int, prefix: str = "blocks/") -> dict:
+    """Layer ``layer``'s slice of the leaves under ``prefix`` as the
+    reference's nested per-layer tree (``{"attn": {"wq": ...}, "ln1": ...}``;
+    a hybrid's ``periods/`` give ``{"sub0": {"mixer": ...}, ...}``)."""
     out: dict = {}
     for path, w in params.items():
-        if not path.startswith("blocks/"):
-            continue
-        *parents, leaf = path.split("/")[1:]
-        node = out
-        for p in parents:
-            node = node.setdefault(p, {})
-        node[leaf] = w[layer]
+        if path.startswith(prefix):
+            _put(out, path[len(prefix):], w[layer])
+    return out
+
+
+def layer_cache(caches, layer: int):
+    """Layer ``layer``'s slice of a layer-stacked cache (any NamedTuple of
+    tensors with a leading ``(L,)``): views, so a write lands in the stack."""
+    return type(caches)(*(t[layer] for t in caches))
+
+
+def layer_views(params: dict, n_layers: int, prefix: str = "blocks/") -> list[dict]:
+    """Every layer's nested tree of the leaves under ``prefix``, as views
+    from ONE ``unbind`` per leaf (its backward stacks the layers' gradients
+    once): the training forward's counterpart of :func:`layer_params`."""
+    out = [{} for _ in range(n_layers)]
+    for path, w in params.items():
+        if path.startswith(prefix):
+            for node, wi in zip(out, w.unbind(0)):
+                _put(node, path[len(prefix):], wi)
     return out
 
 

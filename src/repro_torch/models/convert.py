@@ -2,8 +2,9 @@
 
 :func:`params_from_jax` takes the reference's nested parameter tree with
 numpy (or array-protocol) leaves — including packed ``QTensor`` leaves — and
-returns the port's flat dict: same path keys, same shapes, same dtypes.
-Nothing of the reference is imported: packed leaves are recognised by their
+returns the port's flat dict: same path keys (a hybrid's
+``periods/sub0/mixer/wq`` too), same shapes, same dtypes.  Nothing of the
+reference is imported: packed leaves are recognised by their
 ``codes``/``scale`` fields and caches by their field names.
 """
 
@@ -14,6 +15,7 @@ import torch
 
 from repro_torch.models.attention import KVCache, PagedKVCache
 from repro_torch.models.common import QTensor
+from repro_torch.models.ssm import SSMCache
 
 
 def to_tensor(a, device=None) -> torch.Tensor:
@@ -60,9 +62,11 @@ def cnn_params_from_jax(tree, *, device=None) -> dict:
 
 
 def caches_from_jax(cache, *, device=None):
-    """A reference ``KVCache``/``PagedKVCache`` (any leading dims) as the
-    port's cache of the same layout."""
-    if hasattr(cache, "k_pages"):
-        return PagedKVCache(*(to_tensor(getattr(cache, f), device)
-                              for f in PagedKVCache._fields))
-    return KVCache(*(to_tensor(getattr(cache, f), device) for f in KVCache._fields))
+    """A reference cache tree as the port's: ``KVCache``, ``PagedKVCache``
+    and ``SSMCache`` (any leading dims, recognised by their fields), and
+    dicts of them (a hybrid's ``{"sub0": ..., "sub1": ...}``)."""
+    if isinstance(cache, dict):
+        return {k: caches_from_jax(v, device=device) for k, v in cache.items()}
+    kind = next(t for t in (PagedKVCache, SSMCache, KVCache)
+                if all(hasattr(cache, f) for f in t._fields))
+    return kind(*(to_tensor(getattr(cache, f), device) for f in kind._fields))

@@ -12,7 +12,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
-from repro_torch.models.common import ParamCtx, QTensor
+from repro_torch.models.common import ParamCtx, QTensor, init_dense
 
 
 def sp_gather(pc: ParamCtx, x):
@@ -64,6 +64,18 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
 # ---------------------------------------------------------------------------
 # MLP (SwiGLU / GeGLU / GeLU)
 # ---------------------------------------------------------------------------
+
+
+def init_mlp(gen: torch.Generator, d: int, d_ff_local: int, act: str, *, lead=(),
+             device=None, dtype=torch.float32) -> dict:
+    """``{"w_up", "w_down"[, "w_gate"]}`` with ``lead`` stack dims, drawn in
+    that order."""
+    kw = {"lead": lead, "device": device, "dtype": dtype}
+    p = {"w_up": init_dense(gen, d, d_ff_local, **kw),
+         "w_down": init_dense(gen, d_ff_local, d, **kw)}
+    if act in ("swiglu", "geglu"):
+        p["w_gate"] = init_dense(gen, d, d_ff_local, **kw)
+    return p
 
 
 def mlp(pc: ParamCtx, path: str, p, x, act: str):

@@ -19,13 +19,14 @@ from repro_torch.models import layers as L
 from repro_torch.models.attention import (
     AttnDims,
     decode_self_attention,
+    init_attention,
     init_kv_cache,
     init_paged_kv_cache,
     prefill_kv_cache,
     self_attention,
 )
-from repro_torch.models.common import (ParamCtx, init_dense, init_embed,
-                                       layer_params)
+from repro_torch.models.common import (ParamCtx, init_dense, init_embed, layer_cache,
+                                       layer_params, layer_views)
 from repro_torch.models.moe import MoEDims, init_moe, moe_block
 
 
@@ -51,7 +52,8 @@ def moe_dims(cfg: ModelConfig, tp: int) -> MoEDims:
 def _require_ported(cfg: ModelConfig) -> None:
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"family {cfg.family!r}: only the dense and MoE families are ported so far "
+            f"family {cfg.family!r} is not a transformer LM: the SSM and hybrid "
+            "families have their own modules, VLM and enc-dec are not ported yet "
             "(ROADMAP queue 1, item 2)")
 
 
@@ -71,46 +73,24 @@ def init_lm(cfg: ModelConfig, gen: torch.Generator, tp: int = 1, *, device=None,
             dtype=torch.float32) -> dict:
     """Random f32 parameters drawn on ``device`` from ``gen``, keyed by path."""
     _require_ported(cfg)
-    ad = attn_dims(cfg, tp)
     vl = padded_vocab_local(cfg, tp)
-    d, hd, nl = cfg.d_model, ad.head_dim, (cfg.n_layers,)
+    d, nl = cfg.d_model, (cfg.n_layers,)
     kw = {"device": device, "dtype": dtype}
-    p = {
-        "embed/table": init_embed(gen, vl, d, **kw),
-        "blocks/ln1": torch.zeros(nl + (d,), **kw),
-        "blocks/attn/wq": init_dense(gen, d, ad.heads_local * hd, lead=nl, **kw),
-        "blocks/attn/wk": init_dense(gen, d, ad.kv_local * hd, lead=nl, **kw),
-        "blocks/attn/wv": init_dense(gen, d, ad.kv_local * hd, lead=nl, **kw),
-        "blocks/attn/wo": init_dense(gen, ad.heads_local * hd, d, lead=nl, **kw),
-        "blocks/ln2": torch.zeros(nl + (d,), **kw),
-    }
+    p = {"embed/table": init_embed(gen, vl, d, **kw),
+         "blocks/ln1": torch.zeros(nl + (d,), **kw)}
+    for name, w in init_attention(gen, attn_dims(cfg, tp), lead=nl, **kw).items():
+        p[f"blocks/attn/{name}"] = w
+    p["blocks/ln2"] = torch.zeros(nl + (d,), **kw)
     if cfg.family == "moe":
         for name, w in init_moe(gen, moe_dims(cfg, tp), lead=nl, **kw).items():
             p[f"blocks/moe/{name}"] = w
     else:
-        p["blocks/mlp/w_up"] = init_dense(gen, d, cfg.d_ff // tp, lead=nl, **kw)
-        p["blocks/mlp/w_down"] = init_dense(gen, cfg.d_ff // tp, d, lead=nl, **kw)
-        if cfg.mlp_act in ("swiglu", "geglu"):
-            p["blocks/mlp/w_gate"] = init_dense(gen, d, cfg.d_ff // tp, lead=nl, **kw)
+        for name, w in L.init_mlp(gen, d, cfg.d_ff // tp, cfg.mlp_act, lead=nl,
+                                  **kw).items():
+            p[f"blocks/mlp/{name}"] = w
     p["final_norm"] = torch.zeros((d,), **kw)
     p["unembed/w"] = init_dense(gen, d, vl, **kw)
     return p
-
-
-def _layer_views(params: dict, n_layers: int) -> list[dict]:
-    """Per-layer nested trees of the ``blocks/`` leaves, as views from ONE
-    ``unbind`` per leaf (its backward stacks the layers' gradients once)."""
-    out = [{} for _ in range(n_layers)]
-    for path, w in params.items():
-        if not path.startswith("blocks/"):
-            continue
-        *parents, leaf = path.split("/")[1:]
-        for i, wi in enumerate(w.unbind(0)):
-            node = out[i]
-            for p in parents:
-                node = node.setdefault(p, {})
-            node[leaf] = wi
-    return out
 
 
 def _block_fn(cfg: ModelConfig, pc: ParamCtx, tp: int, attn_impl: str):
@@ -135,7 +115,7 @@ def forward(cfg: ModelConfig, pc: ParamCtx, params, tokens, *, attn_impl="auto",
     x = L.vocab_embed(pc, "embed", params["embed/table"], tokens, vl)
     x = x.to(pc.compute_dtype)
     block = _block_fn(cfg, pc, tp, attn_impl)
-    for lp in _layer_views(params, cfg.n_layers):
+    for lp in layer_views(params, cfg.n_layers):
         if cfg.remat:
             x = checkpoint(block, x, lp, use_reentrant=False)
         else:
@@ -168,10 +148,6 @@ def init_caches(cfg: ModelConfig, batch: int, s_max: int, tp: int = 1,
         return init_paged_kv_cache(batch, s_max, ad, dtype, page_size=page_size,
                                    pool_pages=pool_pages, device=device, lead=lead)
     return init_kv_cache(batch, s_max, ad, dtype, device=device, lead=lead)
-
-
-def _layer_cache(caches, i: int):
-    return type(caches)(*(t[i] for t in caches))
 
 
 def _restack(caches, per_layer):
@@ -216,7 +192,7 @@ def prefill(cfg: ModelConfig, pc: ParamCtx, params, tokens, caches,
         x = x + a
         h = L.rmsnorm(pc, "blocks/ln2", lp["ln2"], x, cfg.norm_eps)
         x = x + _ffn(cfg, pc, lp, h, md)
-        per_layer.append(prefill_kv_cache(pc, _layer_cache(caches, i), k, v, ad,
+        per_layer.append(prefill_kv_cache(pc, layer_cache(caches, i), k, v, ad,
                                           prompt_lens))
     x = L.rmsnorm(pc, "final_norm", params["final_norm"], x, cfg.norm_eps)
     return last_position_logits(pc, params, x, prompt_lens), _restack(caches, per_layer)
@@ -241,7 +217,7 @@ def decode_step(cfg: ModelConfig, pc: ParamCtx, params, token, caches,
         lp = layer_params(params, i)
         h = L.rmsnorm(pc, "blocks/ln1", lp["ln1"], x, cfg.norm_eps)
         a, new_cache = decode_self_attention(pc, "blocks/attn", lp["attn"], h,
-                                             _layer_cache(caches, i), ad,
+                                             layer_cache(caches, i), ad,
                                              impl=decode_impl)
         x = x + a
         h = L.rmsnorm(pc, "blocks/ln2", lp["ln2"], x, cfg.norm_eps)

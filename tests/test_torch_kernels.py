@@ -473,3 +473,5 @@ def test_port_imports_no_jax_or_reference():
         "dist.wire", "fed.simulation", "fed.orchestrator", "kernels.sr_quant",
         "models.cnn", "optim.optimizers", "optim.schedules", "launch.fl")}
     assert fl_slice <= loaded, sorted(fl_slice - loaded)
+    ssm_slice = {f"repro_torch.models.{m}" for m in ("ssm", "ssm_lm", "hybrid")}
+    assert ssm_slice <= loaded, sorted(ssm_slice - loaded)
