@@ -37,45 +37,59 @@ Phases (each one failing stops the script with a nonzero exit):
    past one table (K1 at 65 leaves, K2 at 26 x 10 and 4 x 70) through
    ``ops``, bit-equal to the plain split, to the u-taking entry fed the
    key's streams and to the one-table call; K3 at the MoE experts' shapes
-   (olmoe, qwen3; M 4 and a 4 x 128 prefill's capacity) and at mamba2's
-   six decode projections (each plan printed and asserted: the unembed's
-   50,280-byte code rows on the FP32 tiled path, the rest on the cluster
-   path) beside ``torch.matmul``;
+   (olmoe, qwen3; M 4 and a 4 x 128 prefill's capacity) and at the
+   projections of mamba2 (M 4), seamless-m4t (M 4 and its encoder's M 4 x
+   256) and llama-3.2-vision (M 4, and the image memory's M 4 x 1,601),
+   each plan printed and asserted (the 50,280- and 256,206-byte code rows of
+   mamba2's and seamless-m4t's unembeds on the FP32 tiled path) beside
+   ``torch.matmul``;
    K3, K4 and K5 also launched twice on identical inputs, the outputs
    bit-equal.  K4's rows name the path and tiles of
    ``plan_attention`` and the SDPA backend of their library time (fused:
    flash for bf16, memory-efficient for f32, on 4-D views of the same
    tensors): f32 at head dims 16-256 (the split path; its bound prices the
    operations as three bf16 products) and bf16 at 16, 32, 64, 128 and 256,
-   at S 100, 128 and 513 where the head dim's model runs them; then one-hot
+   at S 100, 128 and 513 where the head dim's model runs them, seamless-m4t's
+   encoder (BH 64, S 256, D 64; bf16 and f32, non-causal and causal) and
+   llama-3.2-vision's prefill (BH 256, S 64, D 128, bf16); then one-hot
    inputs through every K4 tile of both paths, which show where each
    element of q, K and V lands at every swizzle K4 uses.  K5 rows: yi-6b's
-   decode, gemma-7b's (G 1, hd 256), glm4-9b's (G 16) and a long context
-   (n_pmax 256, ~4,000 tokens a slot), each with its block count from
-   ``plan_decode``.
+   decode, gemma-7b's (G 1, hd 256), glm4-9b's (G 16), seamless-m4t's (KV
+   16, G 1, hd 64), llama-3.2-vision's (KV 8, G 8, hd 128) and a long
+   context (n_pmax 256, ~4,000 tokens a slot), each with its block count
+   from ``plan_decode``.
 4. serve: ``Session.serve`` of full-width, full-depth yi-6b, then of
    gemma-7b (head dim 256), olmoe-1b-7b (64 experts, top-8) and mamba2-780m
-   (48 SSM layers), and of the smoke-size jamba (the hybrid), with int8
-   weights, paged f32 KV (mamba2's O(1) state contiguous: the session's
-   fallback) and continuous batching; the launch counters are zeroed just
-   before each run and read just after, each run must have launched its
-   family's kernels (K3, K4, K5; mamba2 K3 alone; jamba K3 and K5) and no
-   other of the three, K3 a whole number of passes of the family's count
-   (``(4 + 3E)L + 1`` for MoE, ``7L + 1`` dense, ``5L + 1`` SSM, by
-   sublayer kind for the hybrid; a prefill by decode is one pass a token),
-   every MoE ``expert_dispatch`` on its K3 branch (never the eager
-   dequant), and each K3 shape's plan recorded.
+   (48 SSM layers), of the smoke-size jamba (the hybrid), of seamless-m4t
+   (enc-dec, 24 + 24 layers) and of llama-3.2-vision cut to 2 periods (10
+   layers at d 8192), with int8 weights, paged f32 KV (mamba2's O(1) state
+   contiguous: the session's fallback) and continuous batching; the launch
+   counters are zeroed just before each run and read just after, each run
+   must have launched its family's kernels (K3, K4, K5; mamba2 K3 alone;
+   jamba K3 and K5) and no other of the three; the families that prefill in
+   one pass launch exactly their counts a prefill and a decode step times
+   the prefills and decode steps the session ran (``expected_launches``),
+   K4 causal (non-causal for the enc-dec encoder); the recurrent ones K3 a
+   whole number of passes (``5L + 1`` SSM, by sublayer kind for the
+   hybrid; a prefill by decode is one pass a token); every MoE
+   ``expert_dispatch`` on its K3 branch (never the eager dequant); each K3
+   shape's plan recorded and asserted (``k3_path``: the unembed tiled at
+   mamba2's and seamless-m4t's vocabularies, cluster at the others').
 5. profile: where a full-depth decode step's and a prefill's (4 slots x 128
-   tokens; mamba2's by decode, 4 x 16) time goes, for yi-6b, olmoe-1b-7b
-   and mamba2-780m: host clock, device time by kernel from
+   tokens; mamba2's by decode, 4 x 16; seamless-m4t's the encoder over 4 x
+   256 frames and the cross K/V; llama-3.2-vision's 4 x 64 at 2 periods)
+   time goes, for yi-6b, olmoe-1b-7b, mamba2-780m, seamless-m4t and
+   llama-3.2-vision: host clock, device time by kernel from
    ``torch.profiler``, K3's, K4's and K5's device time, K3's share and
    launches, K3's launches by shape.
 6. consistency: a 2-layer full-width yi-6b (bf16, then f32 compute: K4's
    split path), a 4-layer full-width gemma-7b, a 2-layer full-width
    qwen3-moe-235b-a22b (f32, 128 experts, K5 at G 16), a 2-layer
-   full-width mamba2-780m and the smoke-size jamba (f32) each run one
-   prefill and one decode step with the kernels and again with the plain
-   versions on the card; then the smoke-size yi-6b (f32, head dim 16)
+   full-width mamba2-780m, the smoke-size jamba (f32), seamless-m4t at 2 +
+   2 layers (f32: its encoder on K4's split path, non-causal, head dim 64)
+   and llama-3.2-vision at one period (bf16, the cross gates non-zero) each
+   run one prefill and one decode step with the kernels and again with the
+   plain versions on the card; then the smoke-size yi-6b (f32, head dim 16)
    serves through
    ``Session.serve`` with K4 launched on the split path only.
 7. fl: the paper's FWQ loop (``Session.run_fl_sim``) on the card — the
@@ -100,7 +114,10 @@ Phases (each one failing stops the script with a nonzero exit):
    exempt) and one keyed K2 call a step, peak memory under 40 GB, a
    profiled round.  Then 2 rounds of ``train`` on mamba2-780m at full width
    cut to 8 layers (4x1, sequence 512: two SSD chunks): finite losses, 328
-   K1 launches and one keyed K2 call a step, a profiled round.
+   K1 launches and one keyed K2 call a step, a profiled round.  Then 2
+   rounds of ``train`` on seamless-m4t at full width cut to 4 + 4 layers
+   (4x1, sequence 256): finite losses, 588 K1 launches and one keyed K2
+   call a step, a profiled round.
 
 Each phase prints its own time.  The last two lines are the kernel table
 and ``{"ok": true, "device": ...}``.
@@ -496,8 +513,12 @@ def sdpa_ms(q, k, v, causal: bool) -> tuple[float, str]:
 #: x 4 slots, D 256) in f32 at each S and in bf16 at S 128; the smoke
 #: serve's prefill (4 heads x 4 slots, D 16) at a 16-token bucket and a
 #: ragged 11, where one key tile is both the first and the ragged one and
-#: most of the 64 query rows lie past S.
+#: most of the 64 query rows lie past S; seamless-m4t's encoder (16 heads x 4
+#: slots over 256 frames, D 64, non-causal: bf16 as served, f32 as phase
+#: consistency runs it) and llama-3.2-vision's prefill (64 heads x 4 slots
+#: at a 64-token bucket, D 128, causal).
 ATTN_CASES = ([(16, 16, S, (torch.float32, torch.bfloat16)) for S in (16, 11)]
+              + [(64, 64, 256, (torch.float32, torch.bfloat16)), (256, 128, 64, (torch.bfloat16,))]
               + [(128, D, S, (torch.float32, torch.bfloat16)) for D in (16, 32, 128)
                  for S in (100, 128, 513)]
               + [(128, 64, S, (torch.float32,) + ((torch.bfloat16,) if S == 128 else ()))
@@ -672,7 +693,8 @@ def decode_case(q_dtype, pool_dtype, gen, *, KV=4, G=8, hd=128, page=16, n_pmax=
 
 
 #: K5's rows: (label, decode_case keywords, (q, pool) dtypes, copies of the
-#: pools the timing rotates over).  gemma-7b and glm4-9b at s_max 256; the
+#: pools the timing rotates over).  gemma-7b, glm4-9b, seamless-m4t's decoder
+#: (its f32 q as phase consistency runs it) and llama-3.2-vision at s_max 256; the
 #: long context at ~4,000 tokens a slot (~65 MB of f32 pages), timed over two
 #: copies so that it streams from device memory rather than the 50 MB L2.
 DECODE_CASES = (
@@ -682,6 +704,9 @@ DECODE_CASES = (
        for pd in (torch.float32, torch.bfloat16)]
     + [("glm4-9b", dict(KV=2, G=16, hd=128), (torch.bfloat16, pd), 1)
        for pd in (torch.float32, torch.bfloat16)]
+    + [("seamless-m4t", dict(KV=16, G=1, hd=64), (qd, torch.float32), 1)
+       for qd in (torch.bfloat16, torch.float32)]
+    + [("llama-3.2-vision", dict(KV=8, G=8, hd=128), (torch.bfloat16, torch.float32), 1)]
     + [("long context", dict(n_pmax=256, lengths=(4093, 4000, 3950, 4067)),
         (torch.bfloat16, torch.float32), 2)])
 
@@ -1505,58 +1530,92 @@ def check_quant_matmul_experts() -> None:
         del copies, codes
 
 
-#: mamba2-780m's projections a decode step (d 1536, d_inner 3072, 48 heads,
-#: state 128, vocab 50,280): (name, K, N)
-MAMBA2_SHAPES = (("wx", 1536, 3072), ("wz", 1536, 3072), ("w_bc", 1536, 256),
-                 ("w_dt", 1536, 48), ("wo", 3072, 1536), ("unembed", 1536, 50280))
+def k3_path(M: int, N: int, x_dtype) -> str:
+    """The path ``quant_matmul.plan`` gives int8 codes of 16-byte-aligned
+    operands: TMA needs code rows of a 16-byte multiple, so other widths
+    (mamba2's 50,280 and seamless-m4t's 256,206 vocabularies) take the FP32
+    tiled path; M up to 16 the cluster path; a larger M the wgmma path in
+    bf16 and the tiled one in f32."""
+    if N % 16:
+        return "tiled"
+    return "cluster" if M <= 16 else "wgmma" if x_dtype == torch.bfloat16 else "tiled"
 
 
-def check_quant_matmul_mamba2() -> None:
-    """K3 at each of mamba2's decode projections (M 4, int8 codes, bf16 x as
-    served and f32 x as phase consistency runs it): within the K3 rows'
-    tolerance of the plain version, bit-equal over two launches, the plan
-    printed and asserted: the cluster path wherever a code row is a 16-byte
-    multiple (``w_dt``'s 48 columns too), the FP32 tiled path for the
-    unembed's 50,280-byte rows.  Each timed beside ``torch.matmul`` on the
-    dequantized weight and the byte bound; the timed launches rotate over
-    enough copies of the codes to read them from device memory, as a decode
-    step does."""
+#: K3 at each projection shape of the families that serve without experts:
+#: (model, projection, M, K, N, x dtypes, launches).  M 4 is a 4-slot decode
+#: step; mamba2 (d 1536, d_inner 3072, 48 heads, state 128, vocab 50,280)
+#: prefills by decode steps; seamless-m4t (d 1024, d_ff 8192, vocab
+#: 256,206) runs its encoder at M 4 x 256 frames; llama-3.2-vision (d 8192,
+#: 8 KV heads of 128, d_ff 28,672, vocab 128,256) projects its 4 x 1,601
+#: image tokens (width 1,280) at prefill.  f32 x where phase consistency
+#: runs the model in f32.  Launches: a decode step's (a prefill's for the
+#: prefill rows) at the served depth (llama-3.2-vision: 2 periods).
+_BOTH = (torch.bfloat16, torch.float32)
+_BF16 = (torch.bfloat16,)
+K3_MODEL_SHAPES = (
+    ("mamba2-780m", "wx", 4, 1536, 3072, _BOTH, 48), ("mamba2-780m", "wz", 4, 1536, 3072, _BOTH, 48),
+    ("mamba2-780m", "w_bc", 4, 1536, 256, _BOTH, 48), ("mamba2-780m", "w_dt", 4, 1536, 48, _BOTH, 48),
+    ("mamba2-780m", "wo", 4, 3072, 1536, _BOTH, 48),
+    ("mamba2-780m", "unembed", 4, 1536, 50280, _BOTH, 1),
+    ("seamless-m4t-large-v2", "q/k/v/o, cross q/o", 4, 1024, 1024, _BOTH, 144),
+    ("seamless-m4t-large-v2", "up/gate", 4, 1024, 8192, _BOTH, 48),
+    ("seamless-m4t-large-v2", "down", 4, 8192, 1024, _BOTH, 24),
+    ("seamless-m4t-large-v2", "unembed", 4, 1024, 256206, _BOTH, 1),
+    ("seamless-m4t-large-v2", "encoder q/k/v/o, adapter, cross k/v", 1024, 1024, 1024, _BOTH,
+     145),
+    ("seamless-m4t-large-v2", "encoder up/gate", 1024, 1024, 8192, _BOTH, 48),
+    ("seamless-m4t-large-v2", "encoder down", 1024, 8192, 1024, _BOTH, 24),
+    ("llama-3.2-vision-90b", "wq/wo", 4, 8192, 8192, _BF16, 20),
+    ("llama-3.2-vision-90b", "wk/wv", 4, 8192, 1024, _BF16, 16),
+    ("llama-3.2-vision-90b", "up/gate", 4, 8192, 28672, _BF16, 20),
+    ("llama-3.2-vision-90b", "down", 4, 28672, 8192, _BF16, 10),
+    ("llama-3.2-vision-90b", "unembed", 4, 8192, 128256, _BF16, 1),
+    ("llama-3.2-vision-90b", "adapter", 4 * 1601, 1280, 8192, _BF16, 1),
+    ("llama-3.2-vision-90b", "cross wk/wv", 4 * 1601, 8192, 1024, _BF16, 4))
+
+
+def check_quant_matmul_models() -> None:
+    """K3 at each of :data:`K3_MODEL_SHAPES` with int8 codes: within the K3
+    rows' tolerance of the plain version, bit-equal over two launches, the
+    plan printed and asserted (:func:`k3_path`).  Each timed beside
+    ``torch.matmul`` on the dequantized weight and the bound; the timed
+    launches rotate over enough copies of the codes to read them from device
+    memory, as a decode step does."""
     gen = torch.Generator(device="cuda").manual_seed(6)
-    M = 4
-    for proj, K, N in MAMBA2_SHAPES:
+    for arch, proj, M, K, N, x_dtypes, n_launches in K3_MODEL_SHAPES:
         codes = torch.randint(-127, 128, (K, N), generator=gen, device="cuda",
                               dtype=torch.int32).to(torch.int8)
         scale = torch.tensor(2.0 / math.sqrt(K) / 127, device="cuda")
         n_copies = max(1, min(16, math.ceil(120e6 / codes.nbytes)))
         copies = [codes] + [codes.clone() for _ in range(n_copies - 1)]
-        for x_dtype in (torch.bfloat16, torch.float32):
+        for x_dtype in x_dtypes:
             w_libs = [(c.float() * scale).to(x_dtype) for c in copies]
             x = torch.randn((M, K), generator=gen, device="cuda").to(x_dtype)
             got = qm.quant_matmul_cuda(x, codes, scale)
             again = qm.quant_matmul_cuda(x, codes, scale)
             want = qm.quant_matmul_plain(x, codes, scale)
             torch.cuda.synchronize()
-            case = f"quant_matmul mamba2-780m {proj} M={M} K={K} N={N} x={x_dtype}"
+            case = f"quant_matmul {arch} {proj} M={M} K={K} N={N} x={x_dtype}"
             rtol, atol = (1e-4, 1e-3) if x_dtype == torch.float32 else (2e-2, 1e-2)
             _check(case, got, want, rtol, atol)
             if not torch.equal(got, again):
                 raise AssertionError(f"{case}: two launches on identical inputs differ")
             p = qm.plan(M, K, N, x_dtype, torch.int8)
-            assert p.path == ("cluster" if N % 16 == 0 else "tiled"), (case, p)
+            assert p.path == k3_path(M, N, x_dtype), (case, p)
             print(f"{case}: plan {tuple(p)}")
             sets = [(x, c, scale) for c in copies]
             nbytes = x.nbytes + codes.nbytes + 4 + M * N * 4
             b_ms, b_by = bound_ms(nbytes, 2.0 * M * K * N, x_dtype)
-            emit(dict(kernel="quant_matmul", case=f"mamba2-780m {proj}", M=M, K=K, N=N,
+            emit(dict(kernel="quant_matmul", case=f"{arch} {proj}", M=M, K=K, N=N,
                       x=str(x_dtype), codes="torch.int8", plan=list(p),
                       max_abs_err=max_errs(got, want)[0],
                       kernel_ms=time_ms(qm.quant_matmul_cuda, sets),
                       plain_ms=time_ms(qm.quant_matmul_plain, sets[:1], iters=3, warmup=1),
                       library_ms=time_ms(torch.matmul, [(x, w) for w in w_libs]),
-                      bound_ms=b_ms, bound_by=b_by, launches_a_decode_step=48
-                      if proj != "unembed" else 1))
-            del w_libs
+                      bound_ms=b_ms, bound_by=b_by, launches_on_the_path=n_launches))
+            del w_libs, x, got, again, want
         del copies, codes
+        torch.cuda.empty_cache()
 
 
 def phase_kernels(table: dict) -> None:
@@ -1568,7 +1627,7 @@ def phase_kernels(table: dict) -> None:
     check_keyed_splits()
     check_quant_matmul(table)
     check_quant_matmul_experts()
-    check_quant_matmul_mamba2()
+    check_quant_matmul_models()
     check_flash_attention(table)
     check_attention_one_hot()
     check_flash_decode(table)
@@ -1581,8 +1640,13 @@ def phase_kernels(table: dict) -> None:
 #: through K3) and mamba2-780m (SSM: K3 only, the state contiguous), all at
 #: full width and depth, 4 slots, s_max 256; then jamba at its smoke size
 #: (the hybrid: K3, and K5 in the decode steps; its prefill is a loop of
-#: decode steps on the gather path, so no K4).  ``kernels``: the serving
-#: kernels the run must launch; the others of K3, K4, K5 it must not.
+#: decode steps on the gather path, so no K4); then the cross-attention
+#: families: seamless-m4t at full width and depth (24 + 24 layers: the
+#: encoder's K4 non-causal, the decoder from BOS over the cross K/V of 256
+#: frames a slot) and llama-3.2-vision at full width cut to 2 periods
+#: (``cut``: 10 of its 100 layers, the rest do not fit one card).
+#: ``kernels``: the serving kernels the run must launch; the others of K3,
+#: K4, K5 it must not.
 _ATTN_KERNELS = ("quant_matmul", "flash_attention", "flash_decode")
 SERVE_RUNS = {
     "yi-6b": dict(layers=32, d_model=4096, kernels=_ATTN_KERNELS, options={
@@ -1596,6 +1660,12 @@ SERVE_RUNS = {
     "jamba-1.5-large-398b": dict(layers=4, d_model=64, smoke=True,
                                  kernels=("quant_matmul", "flash_decode"), options={
                                      "prompt_len": 16, "requests": 4, "max_new": 8,
+                                     "steps": 24}),
+    "seamless-m4t-large-v2": dict(layers=24, d_model=1024, kernels=_ATTN_KERNELS, options={
+        "prompt_len": 64, "requests": 4, "max_new": 16, "steps": 32}),
+    "llama-3.2-vision-90b": dict(layers=10, d_model=8192, cut=dict(n_layers=10),
+                                 kernels=_ATTN_KERNELS, options={
+                                     "prompt_len": 64, "requests": 4, "max_new": 8,
                                      "steps": 24}),
 }
 
@@ -1620,7 +1690,26 @@ def k3_per_pass(cfg) -> int:
 def expected_launches(cfg, kind: str, prompt_len: int) -> dict:
     """K3, K4 and K5 launches of one ``kind`` ("decode" step or "prefill" of
     ``prompt_len`` tokens): the SSM and hybrid families prefill as a loop of
-    decode steps, their attention (hybrid) on the gather path."""
+    decode steps, their attention (hybrid) on the gather path.  A VLM
+    prefill projects the image memory (the adapter) and each cross layer's
+    K/V, which its decode steps read cached: a cross layer is 7 K3 launches
+    in prefill and 5 in decode, a self layer 7 and K4 or K5 once.  An
+    enc-dec prefill runs the encoder (the adapter, 7 K3 a layer, K4
+    non-causal) and each decoder layer's cross K/V, no unembed; a decode
+    step 9 K3 a decoder layer (self 4, cross q and o, MLP 3), K5 once."""
+    prefill = kind == "prefill"
+    if cfg.family == "vlm":
+        n_periods, per = cfg.n_layers // cfg.cross_attn_period, cfg.cross_attn_period
+        n_self = n_periods * (per - 1)
+        return {"quant_matmul": (7 * cfg.n_layers + 2 if prefill
+                                 else (5 + 7 * (per - 1)) * n_periods + 1),
+                "flash_attention": n_self if prefill else 0,
+                "flash_decode": 0 if prefill else n_self}
+    if cfg.family == "encdec":
+        return {"quant_matmul": (1 + 7 * cfg.n_encoder_layers + 2 * cfg.n_layers if prefill
+                                 else 9 * cfg.n_layers + 1),
+                "flash_attention": cfg.n_encoder_layers if prefill else 0,
+                "flash_decode": 0 if prefill else cfg.n_layers}
     recurrent = cfg.family in ("ssm", "hybrid")
     n_attn = {"ssm": 0, "hybrid": cfg.n_layers // max(cfg.attn_period, 1)}.get(
         cfg.family, cfg.n_layers)
@@ -1632,12 +1721,13 @@ def expected_launches(cfg, kind: str, prompt_len: int) -> dict:
 
 @contextlib.contextmanager
 def k3_and_experts(record: dict):
-    """Counts K3's launches by shape (``"MxKxN dtype"``) and each
-    ``expert_dispatch`` call by branch: ``k3`` (a packed stack with one
-    scale), ``eager`` (a per-expert scale row, dequantized) or ``plain``."""
+    """Counts K3's launches by shape (``"MxKxN dtype"``), K4's by mask
+    (``causal`` / ``non_causal``) and each ``expert_dispatch`` call by
+    branch: ``k3`` (a packed stack with one scale), ``eager`` (a per-expert
+    scale row, dequantized) or ``plain``."""
     shapes, branches = record.setdefault("k3_shapes", {}), record.setdefault("experts", {})
-    plans = record.setdefault("k3_plans", {})
-    launch, dispatch = qm.quant_matmul_cuda, ops.expert_dispatch
+    plans, masks = record.setdefault("k3_plans", {}), record.setdefault("k4_masks", {})
+    launch, dispatch, attend = qm.quant_matmul_cuda, ops.expert_dispatch, fa.flash_attention_cuda
 
     def counting_launch(x, codes, scale, tile_plan=None):
         k = f"{x.shape[0]}x{x.shape[1]}x{codes.shape[1]} {str(x.dtype)[6:]}"
@@ -1654,17 +1744,26 @@ def k3_and_experts(record: dict):
         branches[b] = branches.get(b, 0) + 1
         return dispatch(x, w, dtype)
 
+    def counting_attend(q, k, v, causal=True, attn_plan=None):
+        m = "causal" if causal else "non_causal"
+        masks[m] = masks.get(m, 0) + 1
+        return attend(q, k, v, causal, attn_plan)
+
     qm.quant_matmul_cuda, ops.expert_dispatch = counting_launch, counting_dispatch
+    fa.flash_attention_cuda = counting_attend
     try:
         yield record
     finally:
         qm.quant_matmul_cuda, ops.expert_dispatch = launch, dispatch
+        fa.flash_attention_cuda = attend
 
 
 def phase_serve(dev: dict) -> dict:
     """Each serve run with the launch counters zeroed just before and read
     just after; returns the runs' launches summed."""
     from repro_torch.api import PrecisionPolicy, RunSpec, Session
+
+    import dataclasses
 
     total = {name: 0 for name in KERNELS}
     for arch, run in SERVE_RUNS.items():
@@ -1674,6 +1773,21 @@ def phase_serve(dev: dict) -> dict:
                        options={"attn_impl": "flash", "kv_layout": "paged",
                                 "vary_prompt": True, "quiet": True, **run["options"]})
         sess = Session(spec, device="cuda")
+        if "cut" in run:
+            sess.cfg = dataclasses.replace(sess.cfg, **run["cut"])
+        # the serve's prefills and decode steps, counted where the session
+        # calls the model
+        passes = {"prefill": 0, "decode": 0}
+
+        def counted(fn, kind):
+            def call(*a, **kw):
+                passes[kind] += 1
+                return fn(*a, **kw)
+            return call
+
+        sess.model = dataclasses.replace(sess.model,
+                                         prefill=counted(sess.model.prefill, "prefill"),
+                                         decode_step=counted(sess.model.decode_step, "decode"))
         torch.cuda.reset_peak_memory_stats()
         record: dict = {}
         ops.reset_launches()
@@ -1688,21 +1802,34 @@ def phase_serve(dev: dict) -> dict:
         n_req = run["options"]["requests"]
         assert stats.admitted == n_req, stats.admitted
         assert stats.completed == n_req, stats.completed
-        # every decode step and every prefill (a prefill by decode: each of
-        # its steps) launches the family's K3 count
-        per_pass = k3_per_pass(cfg)
-        assert launches["quant_matmul"] % per_pass == 0, (per_pass, launches)
+        pre, dec = (expected_launches(cfg, kind, 0) for kind in ("prefill", "decode"))
+        if cfg.family in ("ssm", "hybrid"):
+            # every decode step and every step of a prefill by decode
+            # launches the family's K3 count
+            per_pass = k3_per_pass(cfg)
+            assert launches["quant_matmul"] % per_pass == 0, (per_pass, launches)
+        else:
+            # exactly the family's counts a prefill and a decode step
+            want = {k: passes["prefill"] * pre[k] + passes["decode"] * dec[k] for k in pre}
+            assert {k: launches[k] for k in want} == want, (passes, launches, want)
+            assert record["k4_masks"] == {("non_causal" if cfg.family == "encdec" else
+                                           "causal"): launches["flash_attention"]}, record
         if cfg.family == "moe":
             # every expert FFN took K3 (one launch an expert), never the
             # eager dequant: three dispatches a layer a pass
-            passes = launches["quant_matmul"] // per_pass
-            assert record["experts"] == {"k3": 3 * cfg.n_layers * passes}, record["experts"]
+            n_passes = passes["prefill"] + passes["decode"]
+            assert record["experts"] == {"k3": 3 * cfg.n_layers * n_passes}, record["experts"]
         if cfg.family == "ssm":
             # O(1) state: the paged layout asked for falls back to contiguous
             assert per_pass == 241 and stats.kv_layout == "contiguous", (per_pass, stats)
-            for k, plan in record["k3_plans"].items():
-                assert plan[0] == ("tiled" if k.split()[0].endswith("x50280") else
-                                   "cluster"), (k, plan)
+        # every K3 shape on its path (k3_path), the decode step's unembed
+        # among them: tiled at mamba2's and seamless-m4t's vocabularies,
+        # cluster at llama-3.2-vision's
+        unembed = f"4x{cfg.d_model}x{cfg.vocab_size} {cfg.compute_dtype}"
+        assert unembed in record["k3_plans"], (unembed, record["k3_plans"])
+        for k, plan in record["k3_plans"].items():
+            (M, _K, N), dtype = map(int, k.split()[0].split("x")), k.split()[1]
+            assert plan[0] == k3_path(M, N, getattr(torch, dtype)), (k, plan)
         assert stats.decoded_tokens > 0, stats.decoded_tokens
         assert stats.sample and all(0 <= t < vocab for t in stats.sample), stats.sample
         assert all(0 <= t < vocab for t in sess.last_tokens), "sampled id out of range"
@@ -1715,7 +1842,9 @@ def phase_serve(dev: dict) -> dict:
         d = dict(vars(stats))
         d["arch"] = cfg.name
         d["head_dim"] = cfg.head_dim
-        d["k3_per_pass"] = per_pass
+        d["passes"] = passes
+        d["expected_a_prefill"], d["expected_a_decode_step"] = pre, dec
+        d["k4_masks"] = record["k4_masks"]
         d["k3_shapes"] = record["k3_shapes"]
         d["k3_plans"] = record["k3_plans"]
         d["expert_dispatch"] = record["experts"]
@@ -1770,13 +1899,18 @@ def prefilled(cfg, policy, *, seed: int = 0, batch: int = 4, s_max: int = 256,
               prompt_len: int = 128, page_size: int = 16, device: str = "cuda"):
     """Packed random weights of ``cfg`` (drawn with ``seed`` on ``device``)
     and caches (paged where the family pages) after one flash prefill of
-    ``batch`` random prompts of ragged lengths.
+    ``batch`` random prompts of ragged lengths, with the stub frontends'
+    inputs the prefill takes (VLM images, enc-dec frames spanning
+    ``s_max``) drawn normal.  A VLM's cross gates are set to 0.5 (drawn
+    zero), so that the cross layers reach the logits.
 
     Returns ``(decode, prefill_logits, first_token, caches, again)``, where
     ``decode(token, caches) -> (logits, caches)`` runs one flash decode step
     and ``again()`` runs the same prefill once more (into the caches the
-    last one left).
+    last one left).  An enc-dec prefill's logits are ``None`` and its first
+    token BOS.
     """
+    from repro_torch.api.session import BOS_ID
     from repro_torch.core.quantization import default_exempt
     from repro_torch.dist.collectives import AxisCtx
     from repro_torch.launch.paging import SlotPager, set_page_tables
@@ -1786,8 +1920,12 @@ def prefilled(cfg, policy, *, seed: int = 0, batch: int = 4, s_max: int = 256,
 
     axes, model = AxisCtx(), build_model(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
-    qparams = pack_params_for_policy(model.init(gen, 1, device=device), policy,
-                                     exempt=default_exempt)
+    params = model.init(gen, 1, device=device)
+    for name in ("periods/cross/gate", "periods/cross/mlp_gate"):
+        if name in params:
+            params[name].fill_(0.5)
+    qparams = pack_params_for_policy(params, policy, exempt=default_exempt)
+    del params
     cache_kw = {}
     if model.supports_paged_kv:
         pager = SlotPager.build(batch, s_max, page_size, batch * s_max // page_size)
@@ -1798,8 +1936,12 @@ def prefilled(cfg, policy, *, seed: int = 0, batch: int = 4, s_max: int = 256,
                                 dtype=policy.kv_cache_dtype(), device=device, **cache_kw)
     if cache_kw:
         caches = set_page_tables(caches, pager.table)
-    tokens = torch.randint(2, cfg.vocab_size, (batch, prompt_len), generator=gen,
-                           device=device)
+    spec = model.prefill_batch_spec(batch, prompt_len, s_max)
+    pf_batch = {name: torch.randn(tuple(t.shape), generator=gen, device=device)
+                for name, t in spec.items() if name != "tokens"}
+    if "tokens" in spec:
+        pf_batch["tokens"] = torch.randint(2, cfg.vocab_size, (batch, prompt_len),
+                                           generator=gen, device=device)
     plens = torch.tensor([prompt_len - 3 * s for s in range(batch)], dtype=torch.int32,
                          device=device)
     pc = ParamCtx.from_policy(axes, policy, compute_dtype=_compute_dtype(cfg))
@@ -1810,11 +1952,13 @@ def prefilled(cfg, policy, *, seed: int = 0, batch: int = 4, s_max: int = 256,
 
     @torch.no_grad()
     def again():
-        return model.prefill(pc, qparams, {"tokens": tokens}, caches, attn_impl="flash",
+        return model.prefill(pc, qparams, pf_batch, caches, attn_impl="flash",
                              prompt_lens=plens)
 
     lp, caches = again()
-    return decode, lp, _greedy_pick(axes, 1, cfg.vocab_size, lp), caches, again
+    tok = (torch.full((batch, 1), BOS_ID, dtype=torch.int32, device=device) if lp is None
+           else _greedy_pick(axes, 1, cfg.vocab_size, lp))
+    return decode, lp, tok, caches, again
 
 
 def step_logits(cfg, policy, **kw) -> dict:
@@ -1824,22 +1968,27 @@ def step_logits(cfg, policy, **kw) -> dict:
     return {"prefill_logits": lp, "decode_logits": ld}
 
 
-#: Throw-away kernels each profiler session opens with.  Late in a long
-#: process the trace loses the first device activities of a session (on one
-#: H100: none in a fresh process, 1 after phases serve, profile and
-#: consistency, 5-6 by phases fl and train, where they were K1's two keyed
-#: kernels and the trainer step's first operations).
-_PAD_KERNELS = 64
+#: Throw-away kernels each profiler session opens with, and the host's wait
+#: after them.  The trace loses the first device activities of a session:
+#: on one H100, none in a fresh process and 5 of 64 after a minute of
+#: matmuls (``torch.profiler`` with CUPTI, torch 2.11); by phases fl and
+#: train once all of them and the first of the traced call's (an fl round's
+#: keyed K1).
+_PAD_KERNELS = 256
+_PAD_WAIT_S = 0.2
 _SPAN = "chip_smoke_span"
+#: The marker kernel (``torch.cuda._sleep``) between the pads and the call.
+_MARKER = "spin_kernel"
 
 
 def _trace(fn):
     """``fn()`` under ``torch.profiler`` -> (the device events of ``fn``, all
-    events, the span that brackets ``fn``).  The session opens with
-    throw-away kernels and a synchronize; the device activity that starts
-    inside the span is ``fn``'s (the span's own annotation on the device's
-    timeline is not activity).  At least one throw-away kernel must be in
-    the trace, so that none of ``fn``'s activity was lost."""
+    events, the span that brackets ``fn`` on the host).  The session opens
+    with throw-away kernels, a synchronize and a wait on the host, then one
+    marker kernel and a synchronize; ``fn``'s device activity is what starts
+    after the marker on the device's clock (the host span's start, on the
+    host's clock, is not comparable with it).  The marker must be in the
+    trace, so that none of ``fn``'s activity was lost."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -1849,6 +1998,9 @@ def _trace(fn):
         for _ in range(_PAD_KERNELS):
             pad.add_(1)
         torch.cuda.synchronize()
+        time.sleep(_PAD_WAIT_S)
+        torch.cuda._sleep(1)
+        torch.cuda.synchronize()
         with record_function(_SPAN):
             fn()
         torch.cuda.synchronize()
@@ -1856,9 +2008,9 @@ def _trace(fn):
     span = next(e.time_range for e in events
                 if e.name == _SPAN and e.device_type == DeviceType.CPU)
     device = [e for e in events if e.device_type == DeviceType.CUDA and e.name != _SPAN]
-    mine = [e for e in device if e.time_range.start >= span.start]
-    assert len(mine) < len(device), "the trace lost every throw-away kernel"
-    return mine, events, span
+    marker = [e.time_range.start for e in device if _MARKER in e.name]
+    assert len(marker) == 1, f"the trace lost the marker kernel ({len(device)} device events)"
+    return [e for e in device if e.time_range.start > marker[0]], events, span
 
 
 def _by_name(device_events) -> dict:
@@ -1894,11 +2046,15 @@ def _launches(fn) -> dict:
 _KERNEL_NAMES = {"k3": "qmm_", "k4": "flash_attention_", "k5": "flash_decode"}
 
 
-#: phase profile's models and their prompt lengths: the dense serving path,
-#: the MoE one, and the SSM one (its prefill is a loop of decode steps, one
-#: 241-launch pass and ~92 ms of host a token, so a 16-token prompt and one
-#: timed prefill)
-PROFILE_ARCHS = {"yi-6b": 128, "olmoe-1b-7b": 128, "mamba2-780m": 16}
+#: phase profile's models, their prompt lengths and depth cuts: the dense
+#: serving path, the MoE one, the SSM one (its prefill is a loop of decode
+#: steps, one 241-launch pass and ~92 ms of host a token, so a 16-token
+#: prompt and one timed prefill), the enc-dec one (its prefill is the
+#: encoder over 4 x 256 frames and the cross K/V; no prompt) and the VLM
+#: one at phase serve's 2 periods
+PROFILE_ARCHS = {"yi-6b": (128, {}), "olmoe-1b-7b": (128, {}), "mamba2-780m": (16, {}),
+                 "seamless-m4t-large-v2": (64, {}),
+                 "llama-3.2-vision-90b": (64, {"n_layers": 10})}
 
 
 def phase_profile(dev: dict) -> None:
@@ -1906,11 +2062,14 @@ def phase_profile(dev: dict) -> None:
     of :data:`PROFILE_ARCHS`: host clock per step and per prefill, device
     time by kernel from ``torch.profiler``, K3's, K4's and K5's device time
     and launches (K3's by shape), and the rest of the device time."""
+    import dataclasses
+
     from repro_torch.api import PrecisionPolicy
     from repro_torch.configs import get_config
 
-    for arch, prompt_len in PROFILE_ARCHS.items():
-        profile_arch(dev, get_config(arch), PrecisionPolicy.lazy_int8(7), prompt_len)
+    for arch, (prompt_len, cut) in PROFILE_ARCHS.items():
+        profile_arch(dev, dataclasses.replace(get_config(arch), **cut),
+                     PrecisionPolicy.lazy_int8(7), prompt_len)
         torch.cuda.empty_cache()
 
 
@@ -1924,14 +2083,18 @@ def profile_arch(dev: dict, cfg, policy, prompt_len: int = 128) -> None:
         state["tok"].cpu()                  # the serve loop syncs every step too
 
     def prefill_once():
-        lp, _ = again()
-        lp.float().argmax(-1).cpu()         # the serve loop reads the first token
+        lp, caches = again()
+        # the serve loop reads the first token (an enc-dec's is BOS: it
+        # waits on the caches' merge instead)
+        (lp.float().argmax(-1) if lp is not None else caches["cross_k"][0, 0, 0]).cpu()
 
     recurrent = cfg.family in ("ssm", "hybrid")
     out = {"arch": cfg.name, "card": f"{dev['kind']} ({dev['smi']})", "layers": cfg.n_layers,
            "batch": 4}
+    prefill_label = ("prefill_4x256_frames" if cfg.family == "encdec"
+                     else f"prefill_4x{prompt_len}")
     for label, fn, n, kind in (("decode_step", step, 8, "decode"),
-                               (f"prefill_4x{prompt_len}", prefill_once, 1 if recurrent else 3,
+                               (prefill_label, prefill_once, 1 if recurrent else 3,
                                 "prefill")):
         for _ in range(1 if recurrent and kind == "prefill" else 2):   # warm up
             fn()
@@ -1961,6 +2124,7 @@ def profile_arch(dev: dict, cfg, policy, prompt_len: int = 128) -> None:
                 out[label][f"{k}_device_ms"] for k in _KERNEL_NAMES)
             out[label]["k3_share"] = out[label]["k3_device_ms"] / device_ms
         out[label].update(k3_launches=k3, k4_launches=launches["flash_attention"],
+                          k4_masks=record["k4_masks"],
                           k5_launches=launches["flash_decode"], k3_shapes=record["k3_shapes"],
                           k3_plans=record["k3_plans"], expert_dispatch=record["experts"],
                           top=[{"ms": ms, "launches": c, "name": k[:80]}
@@ -1968,20 +2132,28 @@ def profile_arch(dev: dict, cfg, policy, prompt_len: int = 128) -> None:
     emit({"profile": out})
 
 
-#: phase consistency's models: (arch, layers, compute dtype, tolerance);
-#: ``layers`` None runs the arch's smoke size.  f32 compute sends every
+#: phase consistency's models: (arch, depth cut, compute dtype, tolerance);
+#: a cut of None runs the arch's smoke size.  f32 compute sends every
 #: prefill through K4's split path and holds the kernels to the plain
 #: versions far tighter than bf16 can.  qwen3-moe (128 experts, 64 heads over
 #: 4 KV heads: K5 at G 16) runs in f32 so that both runs route every token
 #: alike: bf16's differences between kernel and plain attention would move
 #: tokens near a top-8 tie to another expert.  mamba2 (K3 only) and the
 #: smoke-size jamba (K3, and K5 in its decode step) prefill as loops of
-#: decode steps.
-CONSISTENCY_RUNS = (("yi-6b", 2, "bfloat16", 5e-2), ("yi-6b", 2, "float32", 2e-3),
-                    ("gemma-7b", 4, "bfloat16", 5e-2),
-                    ("qwen3-moe-235b-a22b", 2, "float32", 2e-3),
-                    ("mamba2-780m", 2, "float32", 2e-3),
-                    ("jamba-1.5-large-398b", None, "float32", 2e-3))
+#: decode steps.  seamless-m4t at 2 + 2 layers in f32 sends its encoder
+#: through K4's split path, non-causal at head dim 64 (its prefill has no
+#: logits: the decode step's read the encoder through the cross K/V);
+#: llama-3.2-vision at one period (a cross and 4 self layers) in bf16, its
+#: cross gates non-zero (``prefilled``).
+CONSISTENCY_RUNS = (("yi-6b", dict(n_layers=2), "bfloat16", 5e-2),
+                    ("yi-6b", dict(n_layers=2), "float32", 2e-3),
+                    ("gemma-7b", dict(n_layers=4), "bfloat16", 5e-2),
+                    ("qwen3-moe-235b-a22b", dict(n_layers=2), "float32", 2e-3),
+                    ("mamba2-780m", dict(n_layers=2), "float32", 2e-3),
+                    ("jamba-1.5-large-398b", None, "float32", 2e-3),
+                    ("seamless-m4t-large-v2", dict(n_layers=2, n_encoder_layers=2), "float32",
+                     2e-3),
+                    ("llama-3.2-vision-90b", dict(n_layers=5), "bfloat16", 5e-2))
 
 
 def phase_consistency() -> None:
@@ -1993,10 +2165,10 @@ def phase_consistency() -> None:
     from repro_torch.api import PrecisionPolicy
     from repro_torch.configs import get_config, smoke_variant
 
-    for arch, layers, compute, tol in CONSISTENCY_RUNS:
-        cfg = (dataclasses.replace(get_config(arch), n_layers=layers, compute_dtype=compute)
-               if layers else dataclasses.replace(smoke_variant(get_config(arch)),
-                                                  compute_dtype=compute))
+    for arch, cut, compute, tol in CONSISTENCY_RUNS:
+        cfg = (dataclasses.replace(get_config(arch), **cut, compute_dtype=compute)
+               if cut else dataclasses.replace(smoke_variant(get_config(arch)),
+                                               compute_dtype=compute))
         # the recurrent families prefill a token at a time: a shorter prompt
         prompt_len = 32 if cfg.family in ("ssm", "hybrid") else 128
         runs = {}
@@ -2014,17 +2186,22 @@ def phase_consistency() -> None:
                 assert {k: launches[k] for k in want} == want, (launches, want)
         agree, diff = {}, {}
         for key in ("prefill_logits", "decode_logits"):
+            if runs["kernels"][key] is None:        # an enc-dec prefill
+                assert runs["plain"][key] is None, key
+                continue
             a, b = runs["kernels"][key].float(), runs["plain"][key].float()
             assert a.shape == (4, 1, cfg.vocab_size) and torch.isfinite(a).all(), key
             torch.testing.assert_close(a, b, rtol=tol, atol=tol)
             agree[key] = float((a.argmax(-1) == b.argmax(-1)).float().mean())
             diff[key] = float((a - b).abs().max())
         emit({"consistency": {"arch": cfg.name, "layers": cfg.n_layers,
+                              "encoder_layers": cfg.n_encoder_layers,
                               "d_model": cfg.d_model, "head_dim": cfg.head_dim,
                               "decode_group": (cfg.n_heads // cfg.n_kv_heads
                                                if cfg.n_kv_heads else None),
                               "experts": cfg.n_experts,
                               "k3_launches": launches["quant_matmul"],
+                              "k4_launches": launches["flash_attention"],
                               "k5_launches": launches["flash_decode"],
                               "compute_dtype": compute, "tol": tol,
                               "max_abs_diff": diff, "greedy_agreement": agree}})
@@ -2329,10 +2506,11 @@ TRAIN_RUNS = {
 
 
 def _train_session(run: dict, device: str, arch: str = "yi-6b", layers: int = 8,
-                   seq: int = 512):
+                   seq: int = 512, **cut):
     """A Session of ``arch`` at full width with the depth cut to ``layers``
-    (as phase ``consistency`` cuts its model), on a 4x1 mesh: 4 clients,
-    batch 2 each, sequence ``seq``, lr 0.05."""
+    (and ``cut``'s other keys: an encoder's depth) as phase ``consistency``
+    cuts its model, on a 4x1 mesh: 4 clients, batch 2 each, sequence
+    ``seq``, lr 0.05."""
     import dataclasses
 
     from repro_torch.api import PrecisionPolicy, RunSpec, Session
@@ -2343,7 +2521,7 @@ def _train_session(run: dict, device: str, arch: str = "yi-6b", layers: int = 8,
                    precision=PrecisionPolicy(**run["precision"]),
                    options={"lr": 0.05, "quiet": True, **run["options"]})
     sess = Session(spec, device=device)
-    sess.cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    sess.cfg = dataclasses.replace(get_config(arch), n_layers=layers, **cut)
     return sess
 
 
@@ -2574,6 +2752,8 @@ def phase_train(dev: dict) -> dict:
         launches[k] += n
     for k, n in train_mamba2(dev).items():
         launches[k] += n
+    for k, n in train_seamless(dev).items():
+        launches[k] += n
     return launches
 
 
@@ -2676,6 +2856,59 @@ def train_mamba2(dev: dict) -> dict:
         "layers": cfg.n_layers, "d_model": cfg.d_model, "mesh": "4x1",
         "batch_per_client": 2, "seq": 512, "comm_bits": 4,
         "wire_codes": str(rows[-1]["k2_args"][-1]),
+        "wire_leaf_elems": [leaf[0].numel() for leaf in wire], "setup_s": setup_s,
+        "wall_s": wall, "losses": [h["loss"] for h in hist], "launches": got,
+        "k1_uses_a_step": uses, "device_ms": prof["device_ms"],
+        "comm_report": {k: v for k, v in sess.comm_report().items() if k != "rounds"},
+        "rounds": [{k: v for k, v in r.items() if k != "k2_args"} for r in rows]}})
+    del sess, rows, wire
+    torch.cuda.empty_cache()
+    return {k: got[k] for k in ("sr_quant", "sr_quant_inline", "sr_pack", "sr_pack_keyed")}
+
+
+def train_seamless(dev: dict) -> dict:
+    """The ``train`` run (8-bit weights, int8 wire) on seamless-m4t-large-v2
+    at full width cut to 4 encoder + 4 decoder layers, 4x1 mesh, batch 2,
+    sequence 256 (the frames zero, as the reference feeds them): finite
+    losses, one inline K1 launch a weight use (the embed, the adapter and
+    the unembed once; 7 an encoder layer and 11 a decoder layer, twice under
+    remat; the norms exempt), one call of K2's keyed entry a step, the peak
+    memory, and a profiled round.  Returns its K1 and K2 launches."""
+    run = TRAIN_RUNS["train"]
+    rows: list = []
+    sess = _train_session(run, "cuda", arch="seamless-m4t-large-v2", layers=4, seq=256,
+                          n_encoder_layers=4)
+    cfg = sess.cfg
+    t0 = time.time()
+    sess._ensure_train_state()
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    ops.reset_launches()
+    t0 = time.time()
+    with train_clock(rows):
+        hist = sess.run_train()
+    wall = time.time() - t0
+    got = dict(ops.LAUNCHES)
+    assert (cfg.n_encoder_layers, cfg.n_layers, cfg.d_model, cfg.remat) == (4, 4, 1024, True), \
+        cfg
+    uses = 4 * (3 + 2 * (7 * cfg.n_encoder_layers + 11 * cfg.n_layers))
+    assert uses == 588, uses
+    wire = rows[-1]["k2_args"][0]
+    for h, r in zip(hist, rows):
+        assert np.isfinite(h["loss"]), h
+        assert r["k2_launches"] == r["k2_keyed_launches"] == 1, r
+        assert r["k1_launches"] == r["k1_inline_launches"] == uses, (uses, r)
+        print(f"train seamless round {h['round']}: loss {h['loss']:.4f} step "
+              f"{r['step_s'] * 1e3:.1f} ms K1 launches {r['k1_launches']} K2 launches "
+              f"{r['k2_launches']} peak {r['peak_mem_gb']:.2f} GB")
+    for k in ("sr_quant_keyed", "quant_matmul", "flash_attention", "flash_decode"):
+        assert got[k] == 0, f"train seamless launched {k}: {got}"
+    prof = profile_train_round(dev, sess, run["rounds"])
+    emit({"train": {
+        "run": "train", "arch": cfg.name, "card": f"{dev['kind']} ({dev['smi']})",
+        "layers": cfg.n_layers, "encoder_layers": cfg.n_encoder_layers,
+        "d_model": cfg.d_model, "mesh": "4x1", "batch_per_client": 2, "seq": 256,
+        "comm_bits": 4, "wire_codes": str(rows[-1]["k2_args"][-1]),
         "wire_leaf_elems": [leaf[0].numel() for leaf in wire], "setup_s": setup_s,
         "wall_s": wall, "losses": [h["loss"] for h in hist], "launches": got,
         "k1_uses_a_step": uses, "device_ms": prof["device_ms"],

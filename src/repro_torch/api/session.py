@@ -47,6 +47,9 @@ from repro_torch.api.spec import SIM_ARCHS, RunSpec
 log = logging.getLogger("repro_torch.api")
 
 BOS_ID = 1
+#: seed offsets of the stub frontends' serving inputs (VLM images, enc-dec
+#: frames), as in the reference
+_MEMORY_SEED_OFFSET = {"images": 101, "frames": 102}
 
 
 @dataclasses.dataclass
@@ -372,6 +375,11 @@ class Session:
         raw = st["batcher"].sample_round(r, n_clients, spec.batch)
         batch = {"tokens": torch.as_tensor(raw["tokens"].reshape(B, spec.seq), device=dev),
                  "labels": torch.as_tensor(raw["labels"].reshape(B, spec.seq), device=dev)}
+        # the stub frontends' inputs (VLM images, enc-dec frames) are zeros,
+        # as in the reference
+        for name, t in self.model.train_batch_spec(B, spec.seq).items():
+            if name not in batch:
+                batch[name] = torch.zeros(tuple(t.shape), dtype=t.dtype, device=dev)
         delta = policy.delta(n_clients)
         step = self._train_step_for(policy)
         t0 = time.time()
@@ -521,6 +529,10 @@ class Session:
             cap = max(1, int(max_new))
         else:
             cap = max(1, min(max(2, steps // 2), s_max - prompt_len - 1))
+        # what the prefill takes: tokens (the text families, the VLM with
+        # images) or the source frames alone (enc-dec: no prompt is cached)
+        pf_spec = model.prefill_batch_spec(batch, prompt_len, s_max)
+        needs_tokens = "tokens" in pf_spec
         queue = []
         for i in range(n_requests):
             plen = (int(rng.randint(max(1, prompt_len // 2), prompt_len + 1))
@@ -528,7 +540,7 @@ class Session:
             queue.append(
                 {"id": i,
                  "prompt": rng.randint(2, cfg.vocab_size, size=(plen,)),
-                 "prompt_len": plen,
+                 "prompt_len": plen if needs_tokens else 0,
                  # staggered lengths so completions (and admissions) interleave
                  "max_new": int(rng.randint(max(1, cap // 2), cap + 1))})
 
@@ -566,8 +578,16 @@ class Session:
 
         # ---- steps --------------------------------------------------------
         ss = build_decode_step(model, axes, policy=policy, attn_impl=attn_impl)
-        pf = build_cached_prefill(model, axes, attn_impl=impl, policy=policy)
+        pf = build_cached_prefill(model, axes, attn_impl=impl, policy=policy, bos_id=BOS_ID)
         buckets_used: set = set()
+
+        # the stub frontends' inputs: seeded normal draws on the device, the
+        # same every admission (the reference draws them from fixed keys)
+        memory_inputs = {
+            name: torch.randn(tuple(t.shape), dtype=t.dtype, device=dev,
+                              generator=torch.Generator(device=dev).manual_seed(
+                                  seed + _MEMORY_SEED_OFFSET[name]))
+            for name, t in pf_spec.items() if name != "tokens"}
 
         kv_bits = 16 if policy.kv_cache_dtype() == torch.bfloat16 else 32
         kv_demotions = 0
@@ -636,7 +656,10 @@ class Session:
                     mask[s] = True
                     plens[s] = len(req["prompt"])
                     toks[s, : len(req["prompt"])] = req["prompt"]
-                tok, caches = pf.fn(qparams, {"tokens": torch.as_tensor(toks, device=dev)},
+                pf_batch = dict(memory_inputs)
+                if needs_tokens:
+                    pf_batch["tokens"] = torch.as_tensor(toks, device=dev)
+                tok, caches = pf.fn(qparams, pf_batch,
                                     caches, torch.as_tensor(mask, device=dev),
                                     torch.as_tensor(plens, device=dev))
                 tok = tok.cpu().numpy()

@@ -245,7 +245,7 @@ def build_decode_step(model: Model, axes: AxisCtx, *, policy=None,
 
 
 def build_cached_prefill(model: Model, axes: AxisCtx, *, attn_impl: str = "auto",
-                         policy=None) -> ServeStep:
+                         policy=None, bos_id: int = 1) -> ServeStep:
     """Prefill-into-slots step for continuous batching.
 
     ``fn(params, batch, caches, slot_mask, prompt_lens=None) ->
@@ -256,7 +256,9 @@ def build_cached_prefill(model: Model, axes: AxisCtx, *, attn_impl: str = "auto"
     other slots.  Paged caches merge at page granularity through the live
     page tables, which the driver must have set for the admitted slots
     BEFORE this call.  ``prompt_lens`` (B,) keeps each right-padded prompt's
-    true length (cache stamps, last-position logits).
+    true length (cache stamps, last-position logits).  A prefill that
+    returns ``None`` logits (enc-dec: the prompt is the source modality)
+    seeds every slot with ``bos_id``.
     """
     cfg = model.cfg
     from repro_torch.models.attention import fresh_slot_caches, merge_slot_caches
@@ -269,7 +271,11 @@ def build_cached_prefill(model: Model, axes: AxisCtx, *, attn_impl: str = "auto"
         kw = {"prompt_lens": prompt_lens} if prompt_lens is not None else {}
         logits, filled = model.prefill(pc, params, batch, fresh_slot_caches(caches),
                                        attn_impl=attn_impl, **kw)
-        tok = _greedy_pick(axes, axes.tp, vl, logits)
+        if logits is None:      # enc-dec: decode starts from BOS
+            tok = torch.full((slot_mask.shape[0], 1), bos_id, dtype=torch.int32,
+                             device=slot_mask.device)
+        else:
+            tok = _greedy_pick(axes, axes.tp, vl, logits)
         return tok, merge_slot_caches(caches, filled, slot_mask)
 
     return ServeStep(fn=fn)

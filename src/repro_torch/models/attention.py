@@ -8,6 +8,9 @@ Counterpart of ``repro/models/attention.py``.  Execution paths:
 * decode      — one query token against a :class:`KVCache` slab or a
   :class:`PagedKVCache` (shared page pool + per-slot page tables;
   ``impl="flash"`` walks the tables inside the flash-decode kernel).
+* cross       — queries against an encoder/image memory, its K/V projected
+  once at prefill (:func:`project_cross_kv`) and held as bare tensors;
+  materialized scores, as in the reference.
 
 Caches are updated IN PLACE: a decode step writes its token's K/V into the
 pool (or slab) it was given and returns the cache with the lengths advanced;
@@ -176,6 +179,37 @@ def self_attention(pc: ParamCtx, path: str, p, x, dims: AttnDims,
     y = y.reshape(B, S, dims.heads_local * dims.head_dim)
     out = dense(pc, f"{path}/wo", p["wo"], y)
     return sp_out(pc, out), (k, v)
+
+
+def project_cross_kv(pc: ParamCtx, path: str, p, memory, dims: AttnDims):
+    """Cross-attention K/V over a memory (B, S_m, D), computed once at
+    prefill; the decode steps reuse them."""
+    B = memory.shape[0]
+    k = dense(pc, f"{path}/wk", p["wk"], memory).reshape(B, -1, dims.kv_local, dims.head_dim)
+    v = dense(pc, f"{path}/wv", p["wv"], memory).reshape(B, -1, dims.kv_local, dims.head_dim)
+    return k, v
+
+
+def cross_attention_cached(pc: ParamCtx, path: str, p, x, k, v, dims: AttnDims):
+    """Cross-attention of x (B, S, D) against precomputed K/V (B, S_m, KVl,
+    hd): no mask, no rope."""
+    _require_local_kv(dims)
+    B, S = x.shape[0], x.shape[1]
+    q = dense(pc, f"{path}/wq", p["wq"], x).reshape(B, -1, dims.heads_local, dims.head_dim)
+    y = _full_attention(q, _expand_kv(k.to(q.dtype), dims), _expand_kv(v.to(q.dtype), dims),
+                        causal=False)
+    y = y.reshape(B, S, dims.heads_local * dims.head_dim)
+    return pc.ctx.psum_model(dense(pc, f"{path}/wo", p["wo"], y))
+
+
+def cross_attention(pc: ParamCtx, path: str, p, x, memory, dims: AttnDims):
+    """Decoder -> encoder/image-memory attention (no causal mask, no rope)."""
+    _require_local_kv(dims)
+    q, k, v = _project_qkv(pc, path, p, x, memory, dims, None, None)
+    y = _full_attention(q, _expand_kv(k, dims), _expand_kv(v, dims), causal=False)
+    B, S = x.shape[0], x.shape[1]
+    y = y.reshape(B, S, dims.heads_local * dims.head_dim)
+    return sp_out(pc, dense(pc, f"{path}/wo", p["wo"], y))
 
 
 class KVCache(NamedTuple):
@@ -465,16 +499,17 @@ def merge_slot_caches(old, new, keep):
     """Per-slot merge of a tree of layer-stacked caches: ``keep[b]`` takes
     slot b's state from ``new``.
 
-    The tree may be one cache or a hybrid's dict of caches (``{"sub0":
-    PagedKVCache, "sub1": SSMCache, ...}``).
+    The tree may be one cache or a dict of caches (a hybrid's ``{"sub0":
+    PagedKVCache, "sub1": SSMCache, ...}``, an enc-dec's ``{"self":
+    PagedKVCache, "cross_k": Tensor, "cross_v": Tensor}``).
     :class:`KVCache` slabs merge on the slot dim, in place into ``old``.
     :class:`PagedKVCache` pools merge at PAGE granularity through the page
     table: kept slots' pages are copied from ``new`` into ``old``, every
     other pool row is untouched.  Where a decode step wrote ``old``'s
     storage in place, ``new`` holds the same tensors and only the lengths
     (and tables) merge.  Any other leaf is an ``(L, B, ...)`` tensor (an
-    :class:`~repro_torch.models.ssm.SSMCache` field) and merges into a new
-    tensor.
+    :class:`~repro_torch.models.ssm.SSMCache` field, a VLM's or enc-dec's
+    cross K/V) and merges into a new tensor.
     """
     kb = keep.to(torch.bool)
     if isinstance(old, PagedKVCache):

@@ -101,11 +101,13 @@ def layer_cache(caches, layer: int):
 def layer_views(params: dict, n_layers: int, prefix: str = "blocks/") -> list[dict]:
     """Every layer's nested tree of the leaves under ``prefix``, as views
     from ONE ``unbind`` per leaf (its backward stacks the layers' gradients
-    once): the training forward's counterpart of :func:`layer_params`."""
+    once): the training forward's counterpart of :func:`layer_params`.  A
+    packed :class:`QTensor` stack (an encoder run at serving) is sliced."""
     out = [{} for _ in range(n_layers)]
     for path, w in params.items():
         if path.startswith(prefix):
-            for node, wi in zip(out, w.unbind(0)):
+            per = [w[i] for i in range(n_layers)] if isinstance(w, QTensor) else w.unbind(0)
+            for node, wi in zip(out, per):
                 _put(node, path[len(prefix):], wi)
     return out
 

@@ -63,10 +63,14 @@ def cnn_params_from_jax(tree, *, device=None) -> dict:
 
 def caches_from_jax(cache, *, device=None):
     """A reference cache tree as the port's: ``KVCache``, ``PagedKVCache``
-    and ``SSMCache`` (any leading dims, recognised by their fields), and
-    dicts of them (a hybrid's ``{"sub0": ..., "sub1": ...}``)."""
+    and ``SSMCache`` (any leading dims, recognised by their fields), bare
+    arrays (the VLM's and enc-dec's cross K/V), and dicts of them (a
+    hybrid's ``{"sub0": ..., "sub1": ...}``, an enc-dec's ``{"self": ...,
+    "cross_k": ..., "cross_v": ...}``)."""
     if isinstance(cache, dict):
         return {k: caches_from_jax(v, device=device) for k, v in cache.items()}
-    kind = next(t for t in (PagedKVCache, SSMCache, KVCache)
-                if all(hasattr(cache, f) for f in t._fields))
+    kind = next((t for t in (PagedKVCache, SSMCache, KVCache)
+                 if all(hasattr(cache, f) for f in t._fields)), None)
+    if kind is None:
+        return to_tensor(cache, device)
     return kind(*(to_tensor(getattr(cache, f), device) for f in kind._fields))

@@ -9,9 +9,14 @@
 * ``decode_step(pc, params, batch, caches, **kw)`` -> (logits, caches)
 * ``init_caches(batch, s_max, tp, dtype, device=, page_size=, pool_pages=)``
 * ``train_batch_spec(b, s)``                    -> the batch as meta tensors
+* ``prefill_batch_spec(b, s_prompt, s_max)``    -> the prefill's batch as meta
+  tensors: tokens, plus ``images`` (VLM); ``frames`` spanning ``s_max`` and
+  no tokens (enc-dec)
 
-The dense and MoE families (one transformer), the SSM family (mamba2) and
-the hybrid (jamba) are ported; VLM and enc-dec raise.
+Every family of the reference is ported: dense and MoE (one transformer),
+SSM (mamba2), the hybrid (jamba), VLM (llama-3.2-vision) and enc-dec
+(seamless-m4t).  An enc-dec prefill returns ``None`` logits: the driver
+seeds decoding with BOS.
 """
 
 from __future__ import annotations
@@ -22,12 +27,19 @@ from typing import Callable
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import hybrid, ssm_lm, transformer
+from repro_torch.models import encdec, hybrid, ssm_lm, transformer, vlm
+
+
+def _meta(shape, dtype=torch.int32) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
 
 
 def _tokens_spec(b: int, s: int) -> dict:
-    return {"tokens": torch.empty((b, s), dtype=torch.int32, device="meta"),
-            "labels": torch.empty((b, s), dtype=torch.int32, device="meta")}
+    return {"tokens": _meta((b, s)), "labels": _meta((b, s))}
+
+
+def _token_prefill_spec(b: int, s_prompt: int, s_max: int) -> dict:
+    return {"tokens": _meta((b, s_prompt))}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,6 +52,8 @@ class Model:
     decode_step: Callable
     init_caches: Callable
     prefill: Callable
+    # (b, s_prompt, s_max) -> the prefill batch as meta tensors
+    prefill_batch_spec: Callable = _token_prefill_spec
     # whether init_caches understands page_size/pool_pages (families whose
     # decode state grows per token; SSM state is O(1): nothing to page)
     supports_paged_kv: bool = False
@@ -93,6 +107,46 @@ def build_model(cfg: ModelConfig) -> Model:
                 cfg, pc, p, b["tokens"], caches, **kw),
             supports_paged_kv=True,
         )
-    raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet: VLM and enc-dec follow in "
-        "ROADMAP queue 1, item 2")
+    d_front = cfg.d_frontend or cfg.d_model
+    if cfg.family == "encdec":
+        return Model(
+            cfg=cfg,
+            init=lambda gen, tp, device=None: encdec.init_encdec(cfg, gen, tp, device=device),
+            train_loss=lambda pc, p, b, **kw: encdec.train_loss(cfg, pc, p, b, **kw),
+            forward=lambda pc, p, b, **kw: encdec.decode_train(
+                cfg, pc, p, encdec.encode(cfg, pc, p, b["frames"], **kw), b["tokens"], **kw),
+            train_batch_spec=lambda b, s: {"frames": _meta((b, s, d_front), torch.float32),
+                                           **_tokens_spec(b, s)},
+            decode_step=lambda pc, p, b, caches, **kw: encdec.decode_step(
+                cfg, pc, p, b["token"], caches, **kw),
+            init_caches=lambda batch, s_max, tp, dtype=torch.bfloat16, **kw:
+                encdec.init_decoder_caches(cfg, batch, s_max, tp, dtype, **kw),
+            prefill=lambda pc, p, b, caches, **kw: encdec.prefill(
+                cfg, pc, p, b["frames"], caches, **kw),
+            # the cross caches are sized by s_max, so the source spans it
+            prefill_batch_spec=lambda b, s_prompt, s_max: {
+                "frames": _meta((b, s_max, d_front), torch.float32)},
+            supports_paged_kv=True,
+        )
+    if cfg.family == "vlm":
+        n_img = cfg.n_image_tokens or 1601
+        return Model(
+            cfg=cfg,
+            init=lambda gen, tp, device=None: vlm.init_vlm(cfg, gen, tp, device=device),
+            train_loss=lambda pc, p, b, **kw: vlm.train_loss(cfg, pc, p, b, **kw),
+            forward=lambda pc, p, b, **kw: vlm.forward(cfg, pc, p, b["tokens"], b["images"],
+                                                       **kw),
+            train_batch_spec=lambda b, s: {"images": _meta((b, n_img, d_front), torch.float32),
+                                           **_tokens_spec(b, s)},
+            decode_step=lambda pc, p, b, caches, **kw: vlm.decode_step(
+                cfg, pc, p, b["token"], caches, **kw),
+            init_caches=lambda batch, s_max, tp, dtype=torch.bfloat16, **kw:
+                vlm.init_vlm_caches(cfg, batch, s_max, tp, dtype, **kw),
+            prefill=lambda pc, p, b, caches, **kw: vlm.prefill(
+                cfg, pc, p, b["tokens"], b["images"], caches, **kw),
+            prefill_batch_spec=lambda b, s_prompt, s_max: {
+                "tokens": _meta((b, s_prompt)),
+                "images": _meta((b, n_img, d_front), torch.float32)},
+            supports_paged_kv=True,
+        )
+    raise ValueError(f"unknown family {cfg.family!r}")

@@ -51,10 +51,10 @@ def moe_dims(cfg: ModelConfig, tp: int) -> MoEDims:
 
 def _require_ported(cfg: ModelConfig) -> None:
     if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not a transformer LM: the SSM and hybrid "
-            "families have their own modules, VLM and enc-dec are not ported yet "
-            "(ROADMAP queue 1, item 2)")
+        raise ValueError(
+            f"family {cfg.family!r} is not a decoder-only transformer LM: the SSM, "
+            "hybrid, VLM and enc-dec families have their own modules "
+            "(models/model.build_model picks them)")
 
 
 def _ffn(cfg: ModelConfig, pc: ParamCtx, lp, h, md: MoEDims | None):

@@ -91,7 +91,3 @@ def test_unported_workloads_raise():
     for mesh in ("2x1", "1x2"):                 # batch-sharded serving, tp > 1
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Session(RunSpec("yi-6b", workload="serve", mesh=mesh), device="cpu").serve()
-    vlm = RunSpec("llama-3.2-vision-90b", workload="serve",
-                  precision=PrecisionPolicy.lazy_int8(7))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Session(vlm, device="cpu").serve()
