@@ -118,6 +118,21 @@ Phases (each one failing stops the script with a nonzero exit):
    rounds of ``train`` on seamless-m4t at full width cut to 4 + 4 layers
    (4x1, sequence 256): finite losses, 588 K1 launches and one keyed K2
    call a step, a profiled round.
+9. grids: committed cells of the JAX package's sweep stores rerun through
+   the port's ``SweepRunner`` on the card, with the stores in a temporary
+   directory: grad-comm-wire at comm 8 and serve-precision-ablation at 7
+   and 12 bits (kv 32, paged), each in a child process, and fl-fault-grid
+   unified_q severe in this process; every row ``ok``, its exact facts
+   equal: a serve or wire cell's byte counts and scheduling to the
+   committed row, an fl cell's energy, time, bits and fault counters to
+   the reference's own rerun on the CPU
+   (``tests/fixtures/sweep_reference_rerun.json``; the committed rows'
+   float sums were written in another environment), losses, accuracy,
+   tok/s and samples side by side, and each cell's kernels launched.  Then
+   full-width yi-6b served at phase ``serve``'s configuration with 4
+   requests through ``execute_cell`` (K3/K4/K5 exactly ``expected_launches``
+   times its prefills and decode steps), and K3 on int16 codes at the
+   12-bit cell's shapes against its plain version.
 
 Each phase prints its own time.  The last two lines are the kernel table
 and ``{"ok": true, "device": ...}``.
@@ -128,6 +143,8 @@ at its rows' shapes under every split of the page axis, and phase
 ``attn_sweep`` times K4 under every tile its path takes: the wgmma path at
 the main path's, gemma-7b's, the S 513 and two head-dim-16 rows, the split
 path at the main f32 row, S 513 (causal and not) and head dims 16 and 256.
+Phase ``grids_all`` reruns every cell of the fl, wire and serve presets
+(``--presets``) into ``--store-dir``, each row held as in phase ``grids``.
 Phase ``train_profile`` profiles rounds 1-2 of the ``train`` run alone
 (device ms by family, the uniform-drawing kernels, host syncs); with
 ``--src=DIR`` it imports the port from another checkout (a parent commit),
@@ -2932,9 +2949,282 @@ def phase_train_profile(dev: dict) -> None:
     torch.cuda.empty_cache()
 
 
-PHASES = ("device", "build", "kernels", "serve", "profile", "consistency", "fl", "train")
+# ---------------------------------------------------------------------- grids
+#: The JAX package's committed sweep stores: read here, never written.
+COMMITTED_STORES = os.path.join(ROOT, "results")
+#: Phase ``grids``: committed cells rerun through the port's ``SweepRunner``
+#: on the card, each where the runner puts it (serve and train cells in a
+#: subprocess, fl-sim in this process).
+GRID_CELLS = (
+    ("grad-comm-wire", "c150ed63d5eb042d"),            # comm 8: K2's keyed wire, int16
+    ("serve-precision-ablation", "1d3e3f3f9a1c23fd"),  # weights 7: K3 on int8 codes
+    ("serve-precision-ablation", "bdc1ff13700f4928"),  # weights 12: K3 on int16 codes
+    ("fl-fault-grid", "51d4d2daf3b3aa9c"))             # unified_q, severe faults: K1
+#: Phase ``grids_all`` (opt-in): every cell of these presets (none is a dryrun).
+GRID_PRESETS = ("fl-codesign-grid", "fl-fault-grid", "fl-adaptive-grid", "grad-comm-wire",
+                "serve-precision-ablation")
+#: The metrics a rerun must reproduce exactly: host arithmetic (energy, time,
+#: bits, bytes, scheduling, fault counters).  A dict is compared on every key
+#: the expected one holds (the committed rows predate keys added later).
+EXACT_FACTS = {
+    "fl-sim": ("rounds", "total_energy_j", "total_time_s", "mean_cohort", "bits_mix",
+               "comm_bits_mix", "retransmissions", "retx_energy_j", "rejected_updates",
+               "undelivered", "dropped_midround", "program"),
+    "train": ("rounds", "total_energy_j", "bits_last", "wire"),
+    "serve": ("bytes_per_step_packed", "bytes_per_step_f32", "packed_vs_f32", "kv_bytes",
+              "kv_bytes_contiguous", "decode_steps", "decoded_tokens", "completed",
+              "admitted", "capacity_stops", "deferred_admissions", "prompt_buckets")}
+#: Shown beside the committed values, never compared (the reference draws
+#: with threefry, the port with Philox); the port's must be finite.
+SIDE_BY_SIDE = {"fl-sim": ("final_loss", "final_acc", "losses"), "train": ("final_loss",),
+                "serve": ("tok_s", "sample")}
+#: The kernels a cell must launch on the card, by workload: a serve cell at
+#: f32 weights packs nothing and a train cell at comm 32 quantizes no wire.
+GRID_KERNELS = {"fl-sim": ("sr_quant_keyed",), "train": ("sr_pack_keyed",),
+                "serve": ("quant_matmul",)}
+#: The JAX reference's own facts for the fl-sim cells, rerun on the CPU
+#: (``tests/sweep_reference_rerun.py``): the yardstick of every fl cell.  The
+#: committed rows were written in another environment and their float sums
+#: differ from these in the last 1-3 bits (ROADMAP §3, D1).
+REFERENCE_RERUN = os.path.join(ROOT, "tests", "fixtures", "sweep_reference_rerun.json")
+#: Facts shown side by side, not compared, with the divergence that explains
+#: them (ROADMAP §3, D2): in these severe-fault cells both packages admit a
+#: 2^106-damaged update in round 10 (two survivors: their median is their
+#: mean).  Which updates the damaged model then makes non-finite depends on
+#: its start: the reference rejects 9 from its own init, 54 from the port's
+#: CPU-drawn one and 23 from its CUDA-drawn one, the card's start
+#: (``tests/severe_cell_starts.py``, ``tests/test_torch_fl.py::test_severe_fault_cell_*``).
+DIVERGENCES = {("685598d766e97c05", "rejected_updates"): "D2",
+               ("51d4d2daf3b3aa9c", "rejected_updates"): "D2",
+               ("15117c7f3f68da12", "rejected_updates"): "D2"}
+
+
+def _finite(v) -> bool:
+    if isinstance(v, list):
+        return all(_finite(x) for x in v)
+    return isinstance(v, (int, float)) and math.isfinite(v)
+
+
+def compare_row(row: dict, want: dict) -> list:
+    """The exact facts of ``row`` (the port's) that differ from ``want`` (the
+    reference's CPU rerun of an fl cell, the committed row of another), and
+    the side-by-side values that are not finite; prints them all."""
+    wl, got = row["spec"]["workload"], row["metrics"]
+    bad, absent, diverged = [], [], {}
+    for k in EXACT_FACTS[wl]:
+        if k not in want:
+            absent.append(k)
+            continue
+        w, g = want[k], got.get(k)
+        if (row["key"], k) in DIVERGENCES:
+            diverged[k] = {"port": g, "reference": w, "divergence": DIVERGENCES[row["key"], k]}
+            continue
+        if isinstance(w, dict):
+            same = isinstance(g, dict) and all(k2 in g and g[k2] == w[k2] for k2 in w)
+        else:
+            same = g == w
+        if not same:
+            bad.append(f"{k}: port {g!r} != reference {w!r}")
+    side = {k: {"port": got.get(k), "committed": want.get(k)} for k in SIDE_BY_SIDE[wl]}
+    for k, v in side.items():
+        if v["port"] is None and not (k == "final_acc" and v["committed"] is None):
+            bad.append(f"{k}: the port's value is not finite")
+        elif v["port"] is not None and k != "sample" and not _finite(v["port"]):
+            bad.append(f"{k}: the port's value {v['port']!r} is not finite")
+    n = len(EXACT_FACTS[wl]) - len(absent) - len(diverged)
+    notes = ([f"diverged: {', '.join(diverged)}"] if diverged else []) + \
+        ([f"not recorded: {', '.join(absent)}"] if absent else [])
+    print(f"grids {row['sweep']} {row['key']}: exact facts {'equal' if not bad else 'DIFFER'} "
+          f"({n} compared{'; ' if notes else ''}{'; '.join(notes)})")
+    emit({"grid_cell": {"sweep": row["sweep"], "key": row["key"], "status": row["status"],
+                        "wall_s": row["wall_s"], "launches": row.get("launches"),
+                        "exact": {k: got.get(k) for k in EXACT_FACTS[wl] if k not in absent},
+                        "diverged": diverged, "side_by_side": side, "differences": bad}})
+    return bad
+
+
+def run_grid_cells(cells: list, store_dir: str, timeout_s: float = 900.0) -> list:
+    """Run ``cells`` (of one or more presets) through ``SweepRunner`` on the
+    card into ``store_dir``, each preset's cells as one sweep of that name;
+    returns their rows, in order."""
+    from repro_torch.sweep import ResultsStore, Sweep, SweepRunner
+
+    rows = []
+    for name in dict.fromkeys(c.sweep for c in cells):
+        mine = [c for c in cells if c.sweep == name]
+        sweep = Sweep(name=name, base=mine[0].spec.to_dict(),
+                      extra_cells=tuple(c.spec.to_dict() for c in mine[1:]))
+        assert [c.key for c in sweep.cells()] == [c.key for c in mine], name
+        store = ResultsStore.for_sweep(sweep, store_dir)
+        SweepRunner(sweep, store, timeout_s=timeout_s, device="cuda").run()
+        rows += [store.get(c.key) for c in mine]
+    return rows
+
+
+def check_grid_rows(rows: list) -> tuple[dict, list]:
+    """Every row ``ok``, its exact facts equal to the reference's (an fl
+    cell's rerun on the CPU, another cell's committed row), and its
+    workload's kernels launched; returns the rows' launches summed and the
+    failures."""
+    from repro_torch.sweep import ResultsStore
+
+    committed, failures, total = {}, [], {}
+    with open(REFERENCE_RERUN) as f:
+        reruns = json.load(f)
+    for row in rows:
+        name = row["sweep"]
+        if name not in committed:
+            committed[name] = ResultsStore(os.path.join(COMMITTED_STORES, f"sweep_{name}.jsonl"))
+        if row["status"] != "ok":
+            failures.append(f"{name} {row['key']}: {row['status']}: "
+                            f"{json.dumps(row['metrics'])[-1500:]}")
+            continue
+        want = committed[name].get(row["key"])["metrics"]
+        if row["spec"]["workload"] == "fl-sim":
+            # the reference's rerun holds every fl fact, and the losses beside it
+            want = {**reruns[row["key"]], **{k: want.get(k) for k in SIDE_BY_SIDE["fl-sim"]}}
+        failures += [f"{name} {row['key']}: {d}" for d in compare_row(row, want)]
+        launches, spec = row["launches"], row["spec"]
+        p = spec["precision"]
+        quantizes = {"serve": p["weights"] < 32, "train": p["comm"] < 32}.get(spec["workload"],
+                                                                              True)
+        for k in GRID_KERNELS[spec["workload"]] if quantizes else ():
+            if not launches.get(k):
+                failures.append(f"{name} {row['key']}: never launched {k}: {launches}")
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+    return total, failures
+
+
+def grid_full_width_serve(dev: dict) -> dict:
+    """A one-cell ad-hoc sweep: full-width yi-6b served at phase ``serve``'s
+    configuration with 4 requests, through ``execute_cell`` in this
+    process; its K3/K4/K5 launches equal ``expected_launches`` times the
+    prefills and decode steps the session ran.  The 4 requests fill the 4
+    slots in one admission, which prefills each prompt bucket once."""
+    from repro_torch.api import PrecisionPolicy, RunSpec
+    from repro_torch.configs import get_config
+    from repro_torch.sweep import Sweep, execute_cell
+
+    spec = RunSpec("yi-6b", workload="serve", smoke=False, seed=0, batch=4, seq=256,
+                   precision=PrecisionPolicy.lazy_int8(7),
+                   options={"attn_impl": "flash", "kv_layout": "paged", "vary_prompt": True,
+                            "quiet": True, **SERVE_RUNS["yi-6b"]["options"], "requests": 4})
+    (cell,) = Sweep(name="grids-yi-6b", base=spec.to_dict()).cells()
+    ops.reset_launches()
+    t0 = time.time()
+    m = execute_cell(cell.spec, "cuda")
+    wall = time.time() - t0
+    launches = dict(ops.LAUNCHES)
+    assert m["admitted"] == m["completed"] == spec.batch == 4, m
+    assert m["deferred_admissions"] == 0, m
+    passes = {"prefill": len(m["prompt_buckets"]), "decode": m["decode_steps"]}
+    cfg = get_config("yi-6b")
+    pre, dec = (expected_launches(cfg, kind, 0) for kind in ("prefill", "decode"))
+    want = {k: passes["prefill"] * pre[k] + passes["decode"] * dec[k] for k in pre}
+    assert {k: launches[k] for k in want} == want, (passes, launches, want)
+    assert m["device"] == dev["kind"] and m["decoded_tokens"] > 0, m
+    json.dumps(m, allow_nan=False)
+    emit({"grid_cell": {"sweep": cell.sweep, "key": cell.key, "wall_s": wall,
+                        "passes": passes, "launches": launches, "expected": want,
+                        "metrics": {k: m[k] for k in ("tok_s", "decode_steps", "decoded_tokens",
+                                                      "admitted", "completed",
+                                                      "bytes_per_step_packed", "kv_bytes")},
+                        "card": f"{dev['kind']} ({dev['smi']})"}})
+    return launches
+
+
+#: K3's int16-code shapes in the 12-bit serve cell (yi-6b smoke: d 64, 4
+#: heads of 16 over 2, d_ff 128, vocab 512; f32 activations; 2 slots, an
+#: 8-token prefill bucket), with the launches the cell makes at each
+#: (``tests/test_torch_sweep.py`` counts them on the CPU): (M, K, N, launches).
+K3_INT16_CELL_SHAPES = ((2, 64, 64, 72), (2, 64, 128, 36), (2, 64, 512, 12), (2, 128, 64, 18),
+                        (16, 64, 64, 24), (16, 64, 128, 12), (16, 128, 64, 6))
+
+
+def check_quant_matmul_int16_cell() -> None:
+    """K3 on int16 codes (12 bits) at the 12-bit serve cell's shapes, f32 x:
+    within the K3 rows' tolerance of the plain version, bit-equal over two
+    launches, timed beside the plain version, ``torch.matmul`` on the
+    dequantized weight and the bound."""
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    lim = 2 ** 11 - 1
+    for M, K, N, n in K3_INT16_CELL_SHAPES:
+        codes = torch.randint(-lim, lim + 1, (K, N), generator=gen, device="cuda",
+                              dtype=torch.int32).to(torch.int16)
+        scale = torch.tensor(1.0 / math.sqrt(K) / lim, device="cuda")
+        x = torch.randn((M, K), generator=gen, device="cuda")
+        got = qm.quant_matmul_cuda(x, codes, scale)
+        again = qm.quant_matmul_cuda(x, codes, scale)
+        want = qm.quant_matmul_plain(x, codes, scale)
+        torch.cuda.synchronize()
+        case = f"quant_matmul int16 M={M} K={K} N={N} x=f32"
+        _check(case, got, want, 1e-4, 1e-3)
+        if not torch.equal(got, again):
+            raise AssertionError(f"{case}: two launches on identical inputs differ")
+        w = codes.float() * scale
+        nbytes = x.nbytes + codes.nbytes + 4 + M * N * 4
+        b_ms, b_by = bound_ms(nbytes, 2.0 * M * K * N, torch.float32)
+        emit(dict(kernel="quant_matmul", case="int16 codes, 12-bit serve cell", M=M, K=K,
+                  N=N, x="torch.float32", codes="torch.int16",
+                  plan=list(qm.plan(M, K, N, torch.float32, torch.int16)),
+                  max_abs_err=max_errs(got, want)[0],
+                  kernel_ms=time_ms(qm.quant_matmul_cuda, [(x, codes, scale)]),
+                  plain_ms=time_ms(qm.quant_matmul_plain, [(x, codes, scale)], iters=3,
+                                   warmup=1),
+                  library_ms=time_ms(torch.matmul, [(x, w)]), bound_ms=b_ms, bound_by=b_by,
+                  launches_in_the_cell=n))
+
+
+def phase_grids(dev: dict) -> None:
+    """Committed cells (:data:`GRID_CELLS`) through the port's sweep runner
+    on the card, their stores in a temporary directory; every row ``ok``
+    and every exact fact equal to the committed row; then the full-width
+    yi-6b cell and K3 on int16 codes at the 12-bit cell's shapes."""
+    import tempfile
+
+    from repro_torch.sweep import get_preset
+
+    cells = [next(c for c in get_preset(name).cells() if c.key == key)
+             for name, key in GRID_CELLS]
+    _build.build()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-grids-") as td:
+        rows = run_grid_cells(cells, td)
+    total, failures = check_grid_rows(rows)
+    int16 = next(r for r in rows if r["key"] == "bdc1ff13700f4928")
+    if int16.get("launches", {}).get("quant_matmul") != sum(s[3] for s in K3_INT16_CELL_SHAPES):
+        failures.append(f"the 12-bit cell's K3 launches: {int16.get('launches')}")
+    full = grid_full_width_serve(dev)
+    check_quant_matmul_int16_cell()
+    for k, n in full.items():
+        total[k] = total.get(k, 0) + n
+    emit({"grids_launches": {"cells": {r["key"]: r.get("launches") for r in rows},
+                             "yi-6b full width": full, "total": total}})
+    if failures:
+        raise AssertionError("grids:\n" + "\n".join(failures))
+
+
+def phase_grids_all(presets: list, store_dir: str) -> None:
+    """Every cell of ``presets`` through the sweep runner on the card into
+    ``store_dir`` (resumable: cells already ``ok`` there are skipped), each
+    row held to its committed row."""
+    from repro_torch.sweep import get_preset
+
+    cells = [c for name in presets for c in get_preset(name).cells()
+             if c.spec.workload != "dryrun"]
+    _build.build()
+    rows = run_grid_cells(cells, store_dir, timeout_s=1800.0)
+    _total, failures = check_grid_rows(rows)
+    if failures:
+        raise AssertionError("grids_all:\n" + "\n".join(failures))
+    print(f"grids_all: {len(rows)} cells of {', '.join(presets)} ok, every exact fact "
+          "equal to the reference's (DIVERGENCES shown side by side)")
+
+
+PHASES = ("device", "build", "kernels", "serve", "profile", "consistency", "fl", "train",
+          "grids")
 #: run only when named in ``--phases``
-EXTRA_PHASES = ("sweep", "decode_sweep", "attn_sweep", "train_profile")
+EXTRA_PHASES = ("sweep", "decode_sweep", "attn_sweep", "train_profile", "grids_all")
 
 
 def main(argv=None) -> int:
@@ -2942,6 +3232,10 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma-separated subset of {PHASES + EXTRA_PHASES}")
     ap.add_argument("--src", default=SRC, help="the port's source tree (read at import)")
+    ap.add_argument("--presets", default=",".join(GRID_PRESETS),
+                    help="phase grids_all: the sweep presets to rerun")
+    ap.add_argument("--store-dir", default=os.path.join(ROOT, "results", "torch"),
+                    help="phase grids_all: where the port's sweep stores go")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     t_start = time.time()
@@ -2957,7 +3251,9 @@ def main(argv=None) -> int:
             ("profile", lambda: phase_profile(dev)), ("consistency", phase_consistency),
             ("fl", lambda: launches_of.update(fl=phase_fl(dev))),
             ("train", lambda: launches_of.update(train=phase_train(dev))),
-            ("train_profile", lambda: phase_train_profile(dev)))
+            ("train_profile", lambda: phase_train_profile(dev)),
+            ("grids", lambda: phase_grids(dev)),
+            ("grids_all", lambda: phase_grids_all(args.presets.split(","), args.store_dir)))
     for name, run in runs:
         if name in phases:
             t0 = time.time()

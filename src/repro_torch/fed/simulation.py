@@ -38,6 +38,41 @@ from repro_torch.kernels.ref import philox_streams_plain
 from repro_torch.optim import Optimizer, build_optimizer
 
 
+def _payload_view(w: np.ndarray) -> np.ndarray:
+    """One client's update leaf in the reference's layout: conv kernels
+    (the CNNs' only 4-D leaves) as HWIO, where the port holds
+    ``(out, in/groups, kh, kw)``."""
+    return w.transpose(2, 3, 1, 0) if w.ndim == 4 else w
+
+
+def damage_updates(grads: dict, faults: UpdateFaults, norms_sq: np.ndarray,
+                   finite: np.ndarray) -> dict:
+    """The fault plan's corruption of the flagged clients' updates.
+
+    Pulls the ``(C, ...)`` update leaves to the host and damages each flagged
+    client's flattened payload with :func:`inject_corruption`, in the
+    reference's view of it: leaves in nested-key order (``jax.tree_util``'s
+    flattening) and conv kernels HWIO.  So the same plan damages the same
+    parameters in both packages, and the gate meets the same damage.
+    Updates the flagged clients' ``norms_sq`` and ``finite`` in place and
+    returns the damaged leaves, in ``grads``' own order, on the host."""
+    paths = sorted(grads, key=lambda p: p.split("/"))
+    leaves = {p: grads[p].cpu().numpy().copy() for p in paths}
+    kinds = np.asarray(faults.kinds)
+    for ci in np.flatnonzero(kinds):
+        views = [_payload_view(leaves[p][ci]) for p in paths]
+        vec = np.concatenate([v.ravel() for v in views])
+        vec = inject_corruption(vec, int(kinds[ci]), faults.rngs[ci])
+        off = 0
+        for p, v in zip(paths, views):
+            v[...] = vec[off:off + v.size].reshape(v.shape)    # writes leaves[p][ci]
+            off += v.size
+        with np.errstate(over="ignore", invalid="ignore"):
+            norms_sq[ci] = float(sum(np.sum(v.astype(np.float64) ** 2) for v in views))
+        finite[ci] = all(np.isfinite(v).all() for v in views)
+    return {p: torch.from_numpy(leaves[p]) for p in grads}
+
+
 @dataclasses.dataclass
 class SimConfig:
     n_clients: int
@@ -160,27 +195,9 @@ class FLSimulation:
         norms_sq = gsqs.cpu().numpy().astype(np.float64)
         finite = finite.cpu().numpy().astype(bool)
 
-        kinds = np.asarray(faults.kinds)
-        if (kinds > 0).any():
-            # pull per-client updates to the host, damage the flagged ones in
-            # their flattened-payload view (leaf order), and re-stage
-            paths = list(grads)
-            leaves = [grads[p].cpu().numpy().copy() for p in paths]
-            for ci in np.flatnonzero(kinds):
-                vec = np.concatenate([leaf[ci].ravel() for leaf in leaves])
-                vec = inject_corruption(vec, int(kinds[ci]), faults.rngs[ci])
-                off = 0
-                for leaf in leaves:
-                    size = leaf[ci].size
-                    leaf[ci] = vec[off:off + size].reshape(leaf[ci].shape)
-                    off += size
-                with np.errstate(over="ignore", invalid="ignore"):
-                    norms_sq[ci] = float(sum(
-                        np.sum(leaf[ci].astype(np.float64) ** 2)
-                        for leaf in leaves))
-                finite[ci] = all(np.isfinite(leaf[ci]).all() for leaf in leaves)
-            grads = {p: torch.from_numpy(leaf).to(self.device)
-                     for p, leaf in zip(paths, leaves)}
+        if (np.asarray(faults.kinds) > 0).any():
+            grads = {p: g.to(self.device)
+                     for p, g in damage_updates(grads, faults, norms_sq, finite).items()}
 
         accept = gate_mask(norms_sq, finite, faults.gate_factor)
         n_rejected = int((~accept).sum())

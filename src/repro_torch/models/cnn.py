@@ -51,15 +51,22 @@ def _init_conv(gen, device, kh, kw, cin, cout, groups=1):
 
 def _groupnorm(x, scale, bias, groups=8, eps=1e-5):
     """GroupNorm over NCHW ``x``: ``g = min(groups, C)``, lowered until it
-    divides C; population variance, as the reference."""
+    divides C; population variance, as the reference.
+
+    The variance is the reference's ``mean((x - mu)^2)`` about the same ``mu``
+    that centres ``x``, so no normalised value exceeds sqrt(group size).  A
+    separate reduction (``torch.var``) gives 0 on a group of equal values
+    while ``x - mu`` holds the mean's rounding error, which ``rsqrt(eps)``
+    then scales by 316."""
     B, C, H, W = x.shape
     g = min(groups, C)
     while C % g:
         g -= 1
     xg = x.reshape(B, g, C // g, H, W)
     mu = xg.mean(dim=(2, 3, 4), keepdim=True)
-    var = xg.var(dim=(2, 3, 4), keepdim=True, correction=0)
-    xn = ((xg - mu) * torch.rsqrt(var + eps)).reshape(B, C, H, W)
+    xc = xg - mu
+    var = (xc * xc).mean(dim=(2, 3, 4), keepdim=True)
+    xn = (xc * torch.rsqrt(var + eps)).reshape(B, C, H, W)
     return xn * scale[None, :, None, None] + bias[None, :, None, None]
 
 

@@ -122,3 +122,29 @@ def test_same_padding_matches_xla():
     assert tcnn._same_pad(15, 3, 2) == (1, 1)
     assert tcnn._same_pad(16, 3, 1) == (1, 1)
     assert tcnn._same_pad(16, 1, 2) == (0, 0)
+
+
+
+@pytest.mark.parametrize("shape", [(1, 16, 16, 8), (2, 8, 8, 16), (1, 4, 4, 24)])
+def test_groupnorm_of_equal_values_stays_bounded(shape):
+    """Groups of equal values at the size an admitted 2^106 corruption leaves
+    behind (2.5e24).  The variance is the reference's ``mean((x - mu)^2)``
+    about the same rounded ``mu`` that centres ``x``, so each normalised value
+    is at most sqrt(group size) in magnitude.  With ``torch.var`` the port
+    took a variance of 0 and scaled the mean's rounding error by
+    1/sqrt(eps), to 1e20 (fault F3).  Where XLA's mean rounds the same group
+    far enough for the squares to overflow, the reference's values are 0."""
+    c = np.float32(2.5275155e24)
+    rng = np.random.default_rng(len(shape))
+    x = np.full(shape, c, np.float32)
+    x[..., : shape[-1] // 2] *= np.float32(-3.0)
+    s = (1.0 + 0.3 * rng.standard_normal(shape[-1])).astype(np.float32)
+    b = (0.3 * rng.standard_normal(shape[-1])).astype(np.float32)
+    got = tcnn._groupnorm(torch.from_numpy(x).permute(0, 3, 1, 2), torch.from_numpy(s),
+                          torch.from_numpy(b)).permute(0, 2, 3, 1).numpy()
+    want = np.asarray(jcnn._groupnorm(jnp.asarray(x), jnp.asarray(s), jnp.asarray(b)))
+    per_group = shape[1] * shape[2] * shape[3] // min(8, shape[3])
+    for out in (got, want):
+        xn = (out - b) / s
+        assert np.isfinite(xn).all()
+        assert np.abs(xn).max() <= np.sqrt(per_group) * (1 + 1e-5)

@@ -13,6 +13,9 @@
 import contextlib
 import dataclasses
 import functools
+import json
+import os
+import pickle
 
 import jax
 import jax.numpy as jnp
@@ -176,16 +179,18 @@ def _ref_params(arch: str):
 def _ref_client_uniforms(params, seed, round_idx, n):
     """Every leaf's SR uniforms of every client, as the reference's round
     draws them: fold_in(PRNGKey(seed), round) -> fold_in(., i) -> split ->
-    qkey -> fold_in(qkey, leaf_idx)."""
+    qkey -> fold_in(qkey, leaf_idx).  Mapped over the clients, as the
+    reference's round maps its client function."""
     rng = jax.random.fold_in(jax.random.PRNGKey(seed), round_idx)
     _paths, leaves, treedef = jq._flatten_with_paths(params)
-    out = []
-    for i in range(n):
+
+    def client(i):
         qkey, _lkey = jax.random.split(jax.random.fold_in(rng, i))
-        out.append(jax.tree_util.tree_unflatten(treedef, [
-            jax.random.uniform(jax.random.fold_in(qkey, idx), leaf.shape, jnp.float32)
-            for idx, leaf in enumerate(leaves)]))
-    return out
+        return [jax.random.uniform(jax.random.fold_in(qkey, idx), leaf.shape, jnp.float32)
+                for idx, leaf in enumerate(leaves)]
+
+    draws = jax.vmap(client)(jnp.arange(n))
+    return [jax.tree_util.tree_unflatten(treedef, [d[i] for d in draws]) for i in range(n)]
 
 
 def _port_uniforms(ref_params, seed, round_idx, n):
@@ -193,7 +198,8 @@ def _port_uniforms(ref_params, seed, round_idx, n):
     port = cnn_params_from_jax(ref_params)
     qpaths = [p for _i, p in tq.quantizable_paths(port)]
     rows = []
-    for tree in _ref_client_uniforms(ref_params, seed, round_idx, n):
+    # client i's draws do not depend on the cohort's size: one compile serves all
+    for tree in _ref_client_uniforms(ref_params, seed, round_idx, max(n, 8))[:n]:
         conv = cnn_params_from_jax(tree)
         rows.append(torch.cat([conv[p].reshape(-1) for p in qpaths]))
     return torch.stack(rows)
@@ -208,10 +214,10 @@ def _ref_seam(ref_params_of):
 
 
 @contextlib.contextmanager
-def _shared_start(arch: str):
-    """Both packages' fl-sim models start from ``_ref_params(arch)``, and the
-    port draws the reference's SR uniforms."""
-    ref = _ref_params(arch)
+def _shared_start(arch: str, ref=None):
+    """Both packages' fl-sim models start from ``ref`` (by default
+    ``_ref_params(arch)``), and the port draws the reference's SR uniforms."""
+    ref = _ref_params(arch) if ref is None else ref
     jfac, tfac = getattr(jcnn, arch), getattr(tcnn, arch)
 
     def jfactory(**kw):
@@ -374,6 +380,158 @@ def test_faulty_session_counts_are_equal():
     for jh, th in zip(ref["history"], port["history"]):
         assert _eq(jh["accepted"], th["accepted"])
         np.testing.assert_allclose(th["loss"], jh["loss"], rtol=1e-5, atol=1e-5)
+
+
+#: The committed severe-fault cell of ``fl-fault-grid`` (resnet, 6 clients,
+#: unified_q): round 10 keeps two updates, one damaged by 2^106, and the gate
+#: admits it (the median of two is their mean).
+SEVERE_CELL = "51d4d2daf3b3aa9c"
+_PRIMAL: dict = {}
+
+
+def _committed_spec(key: str) -> dict:
+    path = os.path.join(os.path.dirname(__file__), "..", "results", "sweep_fl-fault-grid.jsonl")
+    with open(path) as f:
+        return next(r["spec"] for r in map(json.loads, f) if r["key"] == key)
+
+
+def _jax_tree(flat: dict):
+    """The port's flat CNN parameters as the reference's nested tree (HWIO)."""
+    out: dict = {}
+    for path, t in flat.items():
+        a = t.numpy()
+        *heads, last = path.split("/")
+        node = out
+        for h in heads:
+            node = node.setdefault(h, {})
+        node[last] = jnp.asarray(a.transpose(2, 3, 1, 0) if a.ndim == 4 else a)
+    return out
+
+
+@contextlib.contextmanager
+def _primal_solved_once():
+    """Both packages' baselines take each primal solve from one memo, keyed
+    by its inputs.  The solves are equal (``test_session_host_math_is_equal``)
+    and the severe cell's re-solves are most of its time on the CPU."""
+    import repro.core.baselines as jbase
+    import repro_torch.core.baselines as tbase
+    from repro.core.primal import PrimalSolution as JSol
+    from repro_torch.core.primal import PrimalSolution as TSol
+
+    def memo(real, sol_type):
+        def solve_primal(data, q):
+            key = pickle.dumps(([np.asarray(v) for v in vars(data).values()],
+                                np.asarray(q, np.float64)))
+            if key not in _PRIMAL:
+                _PRIMAL[key] = vars(real(data, q))
+            return sol_type(**_PRIMAL[key])
+        return solve_primal
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jbase, "solve_primal", memo(jbase.solve_primal, JSol))
+        mp.setattr(tbase, "solve_primal", memo(tbase.solve_primal, TSol))
+        yield
+
+
+@contextlib.contextmanager
+def _gates_recorded(gates: dict):
+    """Record each round's gate inputs and decision: (norms, finite, accept)."""
+    import repro.fed.simulation as jsim
+    import repro_torch.fed.simulation as tsim
+
+    def wrap(mod, pkg):
+        real = mod.gate_mask
+
+        def gate_mask(norms_sq, finite, factor):
+            accept = real(norms_sq, finite, factor)
+            gates[pkg].append((np.sqrt(np.asarray(norms_sq, np.float64)),
+                               np.asarray(finite).copy(), accept.copy()))
+            return accept
+        return gate_mask
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jsim, "gate_mask", wrap(jsim, "jax"))
+        mp.setattr(tsim, "gate_mask", wrap(tsim, "torch"))
+        yield
+
+
+@functools.lru_cache(maxsize=None)
+def _severe_cell_runs(start: str, rounds: int = 12):
+    """The committed severe-fault cell's first ``rounds`` rounds in both
+    packages, from one start: the reference's own init (the committed
+    row's), the port's (seed 0 on the CPU) or the port's flat parameters
+    saved at a path (``tests/severe_cell_starts.py --save-init``); the port
+    draws the reference's SR uniforms."""
+    spec = dict(_committed_spec(SEVERE_CELL), rounds=rounds)
+    model = FL_MODELS[spec["arch"]]
+    if start == "reference":
+        ref = jcnn.resnet(**model).init(jax.random.PRNGKey(spec["seed"]))
+    elif start == "port":
+        ref = _jax_tree(tcnn.resnet(**model).init(
+            torch.Generator().manual_seed(spec["seed"]), "cpu"))
+    else:
+        ref = _jax_tree(torch.load(start))
+    gates = {"jax": [], "torch": []}
+    with _primal_solved_once(), _gates_recorded(gates), \
+            _shared_start(spec["arch"], ref), _recorded() as rec:
+        ref_run = JSession(JSpec.from_dict(spec)).run()
+        port_run = TSession(TSpec.from_dict(spec), device="cpu").run()
+    return ref_run, port_run, rec, gates
+
+
+@pytest.mark.parametrize("start", ["reference", "port"])
+def test_severe_fault_cell_gates_alike(start):
+    """At the sweep's severe-fault cell, from one start with the same draws,
+    the two packages meet the same gate inputs and decide alike in every
+    round: both admit the 2^106-damaged update in round 10, and what follows
+    agrees too (fault F3, the group norm's variance, is closed).  Which
+    updates the damaged model makes non-finite depends on the start, in the
+    reference as in the port (``test_severe_fault_cell_rejections_follow_the_start``)."""
+    ref, port, rec, gates = _severe_cell_runs(start)
+    _same_host_record(ref, port)
+    assert len(gates["jax"]) == len(gates["torch"]) == 12
+    for r, ((jn, jf, ja), (tn, tf, ta)) in enumerate(zip(gates["jax"], gates["torch"])):
+        assert _eq(ja, ta) and _eq(jf, tf), r
+        np.testing.assert_allclose(tn, jn, rtol=1e-5, err_msg=f"round {r}")
+    for jh, th in zip(ref["history"], port["history"]):
+        np.testing.assert_allclose(th["loss"], jh["loss"], rtol=1e-5, atol=1e-5)
+    assert ref["total_rejected"] == port["total_rejected"]
+    for pkg in ("jax", "torch"):
+        size = [max(float(v.abs().max()) for v in p.values()) for p in rec[pkg]["params"]]
+        assert max(size[:10]) < 1e3 < 1e20 < min(size[10:]), (pkg, size)
+
+
+def test_severe_fault_cell_rejections_follow_the_start():
+    """The reference itself rejects a different number of updates at this
+    cell from another start: after the damaged update, which clients'
+    gradients come out non-finite is decided by the model's values.  So the
+    port, which starts from its own init, is not held to the committed count
+    (ROADMAP §3, D2)."""
+    counts = {start: _severe_cell_runs(start)[0]["total_rejected"]
+              for start in ("reference", "port")}
+    assert counts["reference"] != counts["port"], counts
+
+
+def test_reference_rerun_fixture_is_the_reference_here():
+    """The sweep check's yardstick for fl-sim facts
+    (``tests/fixtures/sweep_reference_rerun.json``): the reference reruns the
+    cheapest fl cell here and gives its fixture entry bit for bit, where the
+    committed row differs in the last bits of its float sums (ROADMAP §3, D1)."""
+    from repro.sweep import get_preset
+    from repro.sweep.runner import _json_sanitize, execute_cell
+
+    key = "0215eb4072937384"                       # fl-fault-grid, unified_q, no faults
+    cell = next(c for c in get_preset("fl-fault-grid").cells() if c.key == key)
+    here = os.path.dirname(__file__)
+    with open(os.path.join(here, "fixtures", "sweep_reference_rerun.json")) as f:
+        want = json.load(f)[key]
+    with open(os.path.join(here, "..", "results", "sweep_fl-fault-grid.jsonl")) as f:
+        committed = next(r for r in map(json.loads, f) if r["key"] == key)["metrics"]
+    got = _json_sanitize(execute_cell(cell.spec))
+    assert {k: got[k] for k in want if k != "sweep"} == {k: v for k, v in want.items()
+                                                         if k != "sweep"}
+    assert committed["total_energy_j"] != got["total_energy_j"]
+    assert abs(committed["total_energy_j"] - got["total_energy_j"]) < 1e-12
 
 
 def test_entry_points_need_cuda_unless_asked():

@@ -475,3 +475,7 @@ def test_port_imports_no_jax_or_reference():
     assert fl_slice <= loaded, sorted(fl_slice - loaded)
     ssm_slice = {f"repro_torch.models.{m}" for m in ("ssm", "ssm_lm", "hybrid")}
     assert ssm_slice <= loaded, sorted(ssm_slice - loaded)
+    sweep_slice = {f"repro_torch.{m}" for m in (
+        "sweep", "sweep.grid", "sweep.runner", "sweep.report", "sweep.cli", "analyze",
+        "analyze.findings", "analyze.static_proofs")}
+    assert sweep_slice <= loaded, sorted(sweep_slice - loaded)
