@@ -134,6 +134,19 @@ Phases (each one failing stops the script with a nonzero exit):
    times its prefills and decode steps), and K3 on int16 codes at the
    12-bit cell's shapes against its plain version.
 
+10. roofline: the port's dry run (``Session.run_dryrun``,
+    ``repro_torch.roofline``) of each main path phases profile and train
+    measure, at their spec, policy and shape (yi-6b's decode step and 4 x
+    128 prefill, olmoe-1b-7b's and seamless-m4t's decode steps, the 8-layer
+    yi-6b trainer step on 4x1), with K1-K5 counted as nodes: compute,
+    memory and collective seconds a device on the H100, the bound of the
+    step as the card runs it, the measured device ms and the share; the
+    trainer step's trace high-water mark beside ``max_memory_allocated``;
+    smoke cells of each kind recorded alike on fake CPU and fake CUDA
+    tensors; yi-6b's full-width ``shapes_for`` cells traced on 1x1 with
+    nothing left allocated on the card.  Every bound of phase kernels comes
+    from ``repro_torch.roofline.count``'s cost functions.
+
 Each phase prints its own time.  The last two lines are the kernel table
 and ``{"ok": true, "device": ...}``.
 ``--phases`` runs a subset (for iterating on one kernel); phase ``sweep``,
@@ -145,6 +158,7 @@ the main path's, gemma-7b's, the S 513 and two head-dim-16 rows, the split
 path at the main f32 row, S 513 (causal and not) and head dims 16 and 256.
 Phase ``grids_all`` reruns every cell of the fl, wire and serve presets
 (``--presets``) into ``--store-dir``, each row held as in phase ``grids``.
+Phase ``roofline_all`` traces the other nine archs' full-width cells.
 Phase ``train_profile`` profiles rounds 1-2 of the ``train`` run alone
 (device ms by family, the uniform-drawing kernels, host syncs); with
 ``--src=DIR`` it imports the port from another checkout (a parent commit),
@@ -178,12 +192,7 @@ from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import quant_matmul as qm  # noqa: E402
 from repro_torch.kernels import sr_quant as sq  # noqa: E402
-
-HBM_BYTES_S = 3.35e12           # H100 SXM device memory rate
-#: dense bf16 / FP32 (NVIDIA's data sheet); int32: the INT32 lanes' issue rate
-#: (64 an SM a clock, Hopper whitepaper; 132 SMs at the 1.98 GHz boost
-#: clock), for K1's in-kernel Philox
-PEAK_OPS_S = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int32: 132 * 64 * 1.98e9}
+from repro_torch.roofline import H100_SXM, count  # noqa: E402
 
 KERNELS = {
     "sr_quant": dict(route="cuda", source="src/repro_torch/csrc/sr_quant.cu",
@@ -209,23 +218,11 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def bound_ms(nbytes: float, ops_: float, dtype) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops_ / PEAK_OPS_S[dtype]
-    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
-
-
-def attention_bound_ms(q, causal: bool) -> tuple[float, str, float]:
-    """K4's bound: q, k, v read and the output written once, and the
-    function's two products (4 * BH * D operations a query-key pair) at the
-    bf16 tensor cores' peak, f32 inputs too.  Also returns the time of three
-    such products at that peak, what the split path's method costs (an
-    informational figure, not the bound).  Returns (ms, bytes or
-    operations, split products ms)."""
-    BH, S, D = q.shape
-    pairs = S * (S + 1) / 2 if causal else S * S
-    ops_ = 4.0 * BH * D * pairs
-    ms, by = bound_ms(4 * q.nbytes, ops_, torch.bfloat16)
-    return ms, by, 3 * ops_ / PEAK_OPS_S[torch.bfloat16] * 1e3
+def bound_ms(cost) -> tuple[float, str]:
+    """A kernel call's bound on the H100 from its cost function
+    (``repro_torch.roofline.count``): ``(ms, "bytes" or "operations")``."""
+    s, by = cost.bound_s(H100_SXM)
+    return s * 1e3, by
 
 
 def time_ms(fn, arg_sets, iters: int = 10, warmup: int = 2, replays: int = 3) -> float:
@@ -451,8 +448,8 @@ def check_quant_matmul(table: dict) -> None:
                     k_ms = time_ms(qm.quant_matmul_cuda, sets)
                     p_ms = time_ms(qm.quant_matmul_plain, sets[:1], iters=3, warmup=1)
                     l_ms = time_ms(torch.matmul, [(x, w) for w in w_libs])
-                    nbytes = x.nbytes + codes.nbytes + 4 + M * N * 4
-                    b_ms, b_by = bound_ms(nbytes, 2.0 * M * K * N, x_dtype)
+                    b_ms, b_by = bound_ms(count.quant_matmul_cost(M, K, N, x_dtype,
+                                                                  code_dtype))
                     p = qm.plan(M, K, N, x_dtype, code_dtype)
                     row = dict(kernel="quant_matmul", M=M, K=K, N=N, x=str(x_dtype),
                                codes=str(code_dtype), plan=list(p), max_abs_err=abs_e,
@@ -571,7 +568,10 @@ def check_flash_attention(table: dict) -> None:
                 p_ms = time_ms(fa.flash_attention_plain, [(q, k, v, causal)], iters=3)
                 l_ms, backend = sdpa_ms(q, k, v, causal)
                 p = fa.plan_attention(BH, S, D, dtype, causal, sms)
-                b_ms, b_by, split_ms = attention_bound_ms(q, causal)
+                cost = count.flash_attention_cost(BH, S, D, dtype, causal)
+                b_ms, b_by = bound_ms(cost)
+                # what the split path's three bf16 products cost (not the bound)
+                split_ms = 3 * cost.flops / H100_SXM.peak_flops_bf16 * 1e3
                 row = dict(kernel="flash_attention", BH=BH, S=S, D=D, dtype=str(dtype),
                            causal=causal, path=p.path, block_q=p.block_q, block_k=p.block_k,
                            blocks=p.blocks, max_abs_err=abs_e,
@@ -756,14 +756,11 @@ def check_flash_decode(table: dict) -> None:
         p_ms = time_ms(fa.flash_decode_plain, sets[:1], iters=10)
         B, KV, G, hd = q.shape
         page, n_pmax = kp.shape[1], pt.shape[1]
-        # the bytes this run's data needs: the pages each slot reads (up to
-        # its length), q, the table, the lengths and the f32 outputs
-        pt_h, len_h = pt.tolist(), lengths.tolist()
-        tokens = sum(min(page, len_h[b] - j * page) for b in range(B) for j in range(n_pmax)
-                     if pt_h[b][j] >= 0 and j * page < len_h[b])
-        nbytes = (q.nbytes + 2 * tokens * KV * hd * kp.element_size() + pt.nbytes
-                  + lengths.nbytes + 4 * (q.numel() + 2 * q.numel() // hd))
-        b_ms, b_by = bound_ms(nbytes, 4.0 * KV * G * hd * tokens, torch.float32)
+        # the work this run's data needs: the pages each slot reads (up to
+        # its length)
+        tokens = count.decode_tokens(pt.tolist(), lengths.tolist(), page)
+        b_ms, b_by = bound_ms(count.flash_decode_cost(B, KV, G, hd, q_dtype, pool_dtype,
+                                                      n_pmax, tokens))
         p = fa.plan_decode(B, KV, G, hd, page, n_pmax, q_dtype, pool_dtype, sms)
         row = dict(kernel="flash_decode", case=label, B=B, KV=KV, G=G, hd=hd, page=page,
                    n_pmax=n_pmax, tokens=tokens, q=str(q_dtype), pool=str(pool_dtype),
@@ -897,10 +894,7 @@ def check_sr_quant(table: dict) -> None:
         want = sq.sr_quant_segments_plain(*args)
         torch.cuda.synchronize()
         P, L = w.numel(), len(sizes)
-        # w, offsets, s and d read once; u read and the output written once
-        # per client
-        nbytes = 4 * P + 8 * C * P + 4 * (2 * L + 1) + 4 * C
-        b_ms, b_by = bound_ms(nbytes, 0.0, torch.float32)
+        b_ms, b_by = bound_ms(count.sr_quant_segments_cost(P, C, L))
         iters = 10 if P > 1e7 else 50
         row = dict(kernel="sr_quant", case=label, clients=C, leaves=L, P=P,
                    max_abs_err=float((got - want).abs().max()),
@@ -1006,9 +1000,9 @@ def check_sr_quant_inline(table: dict) -> None:
         if not torch.equal(got, want):
             raise AssertionError(f"sr_quant_inline {label}: differs from the plain version")
         n = w.numel()
-        nbytes = 4 * n + 2 * n + 4                    # w read, bf16 written, delta
-        b_ms, b_by = bound_ms(nbytes, 20.0 * n, torch.int32)
-        bytes_ms = nbytes / HBM_BYTES_S * 1e3
+        cost = count.sr_quant_inline_cost(n, torch.bfloat16)
+        b_ms, b_by = bound_ms(cost)
+        bytes_ms = cost.bytes / H100_SXM.hbm_bw * 1e3
         kernel_ms = time_ms(sq.sr_quant_inline_cuda, [args], iters=10 if n > 1e7 else 50)
         passes = _device_ms_by_name(lambda: sq.sr_quant_inline_cuda(*args), 10)
         absmax_ms = _pass_ms(passes, ("seg_absmax",))
@@ -1023,8 +1017,8 @@ def check_sr_quant_inline(table: dict) -> None:
         row = dict(
             kernel="sr_quant_inline", case=label, n=n, bits=8, out="bfloat16",
             max_abs_err=float((got.float() - want.float()).abs().max()),
-            kernel_ms=kernel_ms, bytes_ms=bytes_ms, philox_int_ms=20.0 * n / PEAK_OPS_S[
-                torch.int32] * 1e3, bound_ms=b_ms, bound_by=b_by,
+            kernel_ms=kernel_ms, bytes_ms=bytes_ms,
+            philox_int_ms=cost.int_ops / H100_SXM.int32_ops * 1e3, bound_ms=b_ms, bound_by=b_by,
             share_of_bound=b_ms / kernel_ms,
             absmax_pass_ms=absmax_ms, rounding_pass_ms=quant_ms,
             absmax_tb_s=4 * n / absmax_ms / 1e9 if absmax_ms else None,
@@ -1085,9 +1079,7 @@ def check_sr_pack(table: dict) -> None:
         got = sq.sr_pack_segments_cuda(*args)
         want = sq.sr_pack_segments_plain(*args)
         torch.cuda.synchronize()
-        # g and u read once, the codes written once, offsets and steps once
-        nbytes = 8 * C * P + C * P * got.element_size() + 4 * (2 * L + 1)
-        b_ms, b_by = bound_ms(nbytes, 0.0, torch.float32)
+        b_ms, b_by = bound_ms(count.sr_pack_segments_cost(P, C, L, dtype))
         iters = 10 if P > 1e7 else 50
         row = dict(kernel="sr_pack", case=label, clients=C, leaves=L, P=P,
                    bits=case_bits, codes=str(dtype),
@@ -1253,9 +1245,8 @@ def check_sr_pack_keyed(table: dict) -> None:
         want = sq.sr_pack_keyed_plain(*args)
         torch.cuda.synchronize()
         _same_pack(label, got, want)
-        # g read once, the codes written once, the pitch and the count
-        nbytes = 4 * C * P + C * P * got[0].element_size() + 4 * len(sizes) + 8
-        b_ms, b_by = bound_ms(nbytes, 20.0 * C * P, torch.int32)
+        cost = count.sr_pack_keyed_cost(P, C, len(sizes), dtype)
+        b_ms, b_by = bound_ms(cost)
         big = C * P > 1e7
         kernel_ms = time_ms(sq.sr_pack_keyed_cuda, [args], iters=10 if big else 50)
         passes = _device_ms_by_name(lambda: sq.sr_pack_keyed_cuda(*args), 5)
@@ -1266,7 +1257,7 @@ def check_sr_pack_keyed(table: dict) -> None:
             kernel="sr_pack_keyed", case=label, clients=C, leaves=len(sizes), P=P, bits=bits,
             codes=str(dtype), max_abs_err=float((got[0].float() - want[0].float()).abs().max()),
             kernel_ms=kernel_ms, bound_ms=b_ms, bound_by=b_by,
-            bytes_ms=nbytes / HBM_BYTES_S * 1e3, share_of_bound=b_ms / kernel_ms,
+            bytes_ms=cost.bytes / H100_SXM.hbm_bw * 1e3, share_of_bound=b_ms / kernel_ms,
             absmax_pass_ms=_pass_ms(passes, ("seg_absmax",)),
             pack_pass_ms=_pass_ms(passes, ("sr_pack_keyed",)),
             wire_host_ms=time_events_ms(keyed_wire, (leaves, site_key(*site, 17), bits),
@@ -1382,9 +1373,7 @@ def check_sr_quant_keyed(table: dict) -> None:
         if not torch.equal(got, want):
             raise AssertionError(f"sr_quant_keyed {label}: differs from the plain version")
         P, L = got.shape[1], len(leaves)
-        # w read once, the output written once a client, delta
-        nbytes = 4 * P + 4 * C * P + 4 * C
-        b_ms, b_by = bound_ms(nbytes, 20.0 * C * P, torch.int32)
+        b_ms, b_by = bound_ms(count.sr_quant_keyed_cost(P, C))
         big = P > 1e7
         passes = _device_ms_by_name(lambda: sq.sr_quant_segments_keyed_cuda(*args), 5)
         earlier = _device_ms_by_name(lambda: earlier_fl_quantize(params, delta, 0, 1), 3)
@@ -1534,8 +1523,7 @@ def check_quant_matmul_experts() -> None:
                     "wgmma" if x_dtype == torch.bfloat16 else "tiled")
                 assert p.path == want_path, (case, p)
                 sets = [(x, c, scale) for c in copies]
-                nbytes = x.nbytes + codes.nbytes + 4 + M * N * 4
-                b_ms, b_by = bound_ms(nbytes, 2.0 * M * K * N, x_dtype)
+                b_ms, b_by = bound_ms(count.quant_matmul_cost(M, K, N, x_dtype, torch.int8))
                 emit(dict(kernel="quant_matmul", case=f"{arch} expert {proj}", M=M, K=K, N=N,
                           x=str(x_dtype), codes="torch.int8", plan=list(p),
                           max_abs_err=max_errs(got, want)[0],
@@ -1621,8 +1609,7 @@ def check_quant_matmul_models() -> None:
             assert p.path == k3_path(M, N, x_dtype), (case, p)
             print(f"{case}: plan {tuple(p)}")
             sets = [(x, c, scale) for c in copies]
-            nbytes = x.nbytes + codes.nbytes + 4 + M * N * 4
-            b_ms, b_by = bound_ms(nbytes, 2.0 * M * K * N, x_dtype)
+            b_ms, b_by = bound_ms(count.quant_matmul_cost(M, K, N, x_dtype, torch.int8))
             emit(dict(kernel="quant_matmul", case=f"{arch} {proj}", M=M, K=K, N=N,
                       x=str(x_dtype), codes="torch.int8", plan=list(p),
                       max_abs_err=max_errs(got, want)[0],
@@ -2074,11 +2061,13 @@ PROFILE_ARCHS = {"yi-6b": (128, {}), "olmoe-1b-7b": (128, {}), "mamba2-780m": (1
                  "llama-3.2-vision-90b": (64, {"n_layers": 10})}
 
 
-def phase_profile(dev: dict) -> None:
+def phase_profile(dev: dict, measured: dict) -> None:
     """Where a full-depth decode step's and a prefill's time goes, for each
     of :data:`PROFILE_ARCHS`: host clock per step and per prefill, device
     time by kernel from ``torch.profiler``, K3's, K4's and K5's device time
-    and launches (K3's by shape), and the rest of the device time."""
+    and launches (K3's by shape), and the rest of the device time.  Each
+    step's device ms (and a decode step's slot lengths) go to ``measured``
+    for phase ``roofline``."""
     import dataclasses
 
     from repro_torch.api import PrecisionPolicy
@@ -2086,11 +2075,23 @@ def phase_profile(dev: dict) -> None:
 
     for arch, (prompt_len, cut) in PROFILE_ARCHS.items():
         profile_arch(dev, dataclasses.replace(get_config(arch), **cut),
-                     PrecisionPolicy.lazy_int8(7), prompt_len)
+                     PrecisionPolicy.lazy_int8(7), prompt_len, measured)
         torch.cuda.empty_cache()
 
 
-def profile_arch(dev: dict, cfg, policy, prompt_len: int = 128) -> None:
+def _slot_lengths(caches) -> list | None:
+    """The slots' cached lengths (layer 0 of the first cache with a
+    ``length``), or None for a cache without one (SSM state)."""
+    trees = caches.values() if isinstance(caches, dict) else [caches]
+    for c in trees:
+        if hasattr(c, "length"):
+            n = c.length
+            return (n[0] if n.ndim == 2 else n).tolist()
+    return None
+
+
+def profile_arch(dev: dict, cfg, policy, prompt_len: int = 128,
+                 measured: dict | None = None) -> None:
     decode, _lp, tok, caches, again = prefilled(cfg, policy, prompt_len=prompt_len)
     state = {"tok": tok, "caches": caches}
 
@@ -2125,9 +2126,13 @@ def profile_arch(dev: dict, cfg, policy, prompt_len: int = 128) -> None:
         want = expected_launches(cfg, kind, prompt_len)
         assert {k: launches[k] for k in want} == want, f"{label}: {launches}, expected {want}"
         k3 = launches["quant_matmul"]
+        lengths = _slot_lengths(state["caches"]) if kind == "decode" else None
         rows = _device_ms_by_name(fn, 1 if kind == "prefill" and recurrent else
                                   3 if kind == "decode" else 2)
         device_ms = sum(r[0] for r in rows)
+        if measured is not None:
+            measured[(cfg.name, kind)] = {"device_ms": device_ms if rows else None,
+                                          "lengths": lengths, "prompt_len": prompt_len}
         out[label] = {
             "ms_host_clock": host_ms,
             "device_ms": device_ms if rows else "not measured",
@@ -2667,8 +2672,10 @@ def profile_train_round(dev: dict, sess, r: int) -> dict:
     return out["train_profile"]
 
 
-def phase_train(dev: dict) -> dict:
-    """The pod trainer on the card; returns its K1 and K2 launches."""
+def phase_train(dev: dict, measured: dict | None = None) -> dict:
+    """The pod trainer on the card; returns its K1 and K2 launches.  The
+    ``train`` run's profiled step (device ms) and peak memory go to
+    ``measured`` for phase ``roofline``."""
     from repro_torch.core.quantization import FULL_PRECISION_BITS
 
     launches = {"sr_quant": 0, "sr_quant_inline": 0, "sr_pack": 0, "sr_pack_keyed": 0}
@@ -2735,6 +2742,10 @@ def phase_train(dev: dict) -> dict:
             "rounds": [{k: v for k, v in r.items() if k != "k2_args"} for r in rows]}})
         if name == "train":
             prof = profile_train_round(dev, sess, run["rounds"])
+            if measured is not None:
+                measured[("yi-6b", "train")] = {
+                    "device_ms": prof["device_ms"] if prof["device_ms"] != "not measured"
+                    else None, "peak_gb": max(r["peak_mem_gb"] for r in rows)}
             # the wire draws in K2: no uniform-drawing kernel, K2's two passes
             fams = prof["families"]
             assert "uniforms (Philox)" not in fams, fams
@@ -3163,8 +3174,7 @@ def check_quant_matmul_int16_cell() -> None:
         if not torch.equal(got, again):
             raise AssertionError(f"{case}: two launches on identical inputs differ")
         w = codes.float() * scale
-        nbytes = x.nbytes + codes.nbytes + 4 + M * N * 4
-        b_ms, b_by = bound_ms(nbytes, 2.0 * M * K * N, torch.float32)
+        b_ms, b_by = bound_ms(count.quant_matmul_cost(M, K, N, torch.float32, torch.int16))
         emit(dict(kernel="quant_matmul", case="int16 codes, 12-bit serve cell", M=M, K=K,
                   N=N, x="torch.float32", codes="torch.int16",
                   plan=list(qm.plan(M, K, N, torch.float32, torch.int16)),
@@ -3221,10 +3231,168 @@ def phase_grids_all(presets: list, store_dir: str) -> None:
           "equal to the reference's (DIVERGENCES shown side by side)")
 
 
+#: phase roofline's main paths: (arch, cell kind, depth cut) of the steps
+#: phases profile and train measure (yi-6b's trainer step: 8 layers, 4x1)
+ROOFLINE_PATHS = (("yi-6b", "decode", {}), ("yi-6b", "prefill", {}),
+                  ("olmoe-1b-7b", "decode", {}), ("seamless-m4t-large-v2", "decode", {}),
+                  ("yi-6b", "train", {"n_layers": 8}))
+
+
+def _dryrun_session(arch: str, kind: str, cut: dict, device: str = "cuda"):
+    """A full-width dry-run Session at the spec, policy and mesh of the step
+    phase profile (serving: lazy int8 weights, flash, 16-token pages) or
+    phase train (the ``train`` run: 8-bit weights, comm 4, 4x1) measures."""
+    import dataclasses
+
+    from repro_torch.api import PrecisionPolicy, RunSpec, Session
+    from repro_torch.configs import get_config
+
+    if kind == "train":
+        spec = RunSpec(arch, workload="dryrun", mesh="4x1", smoke=False,
+                       precision=PrecisionPolicy(**TRAIN_RUNS["train"]["precision"]),
+                       options={"lr": 0.05})
+    else:
+        spec = RunSpec(arch, workload="dryrun", mesh="1x1", smoke=False,
+                       precision=PrecisionPolicy.lazy_int8(7),
+                       options={"attn_impl": "flash", "page_size": 16,
+                                "pool_pages": 4 * 256 // 16})
+    sess = Session(spec, device=device)
+    sess.cfg = dataclasses.replace(get_config(arch), **cut)
+    return sess
+
+
+def roofline_of_path(arch: str, kind: str, cut: dict, got: dict | None,
+                     device: str = "cuda") -> dict:
+    """One main path's dry run beside its measured step: the per-device
+    terms on the H100, the bound of the step as the card runs it, the
+    measured device ms and the bound's share of it."""
+    from repro_torch.configs.base import ShapeSpec
+
+    sess = _dryrun_session(arch, kind, cut, device)
+    got = got or {}
+    if kind == "train":
+        cell = ShapeSpec("train_8x512", 512, 8, "train")
+        d = sess.run_dryrun(shape=cell, verbose=False)
+    else:
+        plen = got.get("prompt_len", 128)
+        cell = (ShapeSpec(f"decode_4x256", 256, 4, "decode") if kind == "decode"
+                else ShapeSpec(f"prefill_4x{plen}", plen, 4, "prefill"))
+        d = sess.run_dryrun(shape=cell, verbose=False, decode_len=got.get("lengths"))
+    device_ms = got.get("device_ms")
+    bound_ms = d["card_bound_s"] * 1e3
+    row = {"arch": arch, "kind": kind, "cell": cell.name, "mesh": d["mesh"],
+           "layers": sess.cfg.n_layers, "trace_s": d["compile_s"],
+           "compute_s": d["compute_s"], "memory_s": d["memory_s"],
+           "collective_s": d["collective_s"], "kernel_s": d["kernel_s"],
+           "dominant": d["dominant"], "bound_ms": bound_ms,
+           "device_ms": device_ms if device_ms is not None else "not measured",
+           "share_of_bound": bound_ms / device_ms if device_ms else "not measured",
+           "kernels": d["kernels"], "host_reads": d["host_reads"],
+           "decode_lengths": got.get("lengths"),
+           "peak_estimate_gb": d["memory_stats"]["peak_estimate"] / 1e9}
+    if kind == "train":
+        row["max_memory_allocated_gb"] = got.get("peak_gb", "not measured")
+    return row
+
+
+def _same_records(a, b) -> bool:
+    def key(r):
+        return r.nodes, [c.to_dict() for c in r.collectives], r.peak_bytes
+    return key(a) == key(b)
+
+
+def phase_roofline(dev: dict, measured: dict, device: str = "cuda") -> None:
+    """The port's dry run (``Session.run_dryrun``, ``repro_torch.roofline``)
+    of each main path phases profile and train measure, at their spec,
+    policy and shape, with K1-K5 counted as nodes: compute, memory and
+    collective seconds on the H100 a device, the bound of the step on the
+    card, the measured device ms (phases profile, train; "not measured"
+    without them) and the share; the trainer step's trace high-water mark
+    beside ``torch.cuda.max_memory_allocated``.  Then a smoke cell of each
+    kind traced on fake CPU and fake CUDA tensors gives one record, and
+    yi-6b's full-width ``shapes_for`` cells trace on 1x1; across the phase
+    nothing is left allocated on the card (the peak may rise by scalar
+    constants)."""
+    from repro_torch.api import RunSpec, Session
+    from repro_torch.configs import get_config, shapes_for
+    from repro_torch.configs.base import ShapeSpec
+
+    if device == "cuda":
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    rows = []
+    for arch, kind, cut in ROOFLINE_PATHS:
+        row = roofline_of_path(arch, kind, cut, measured.get((arch, kind)), device)
+        rows.append(row)
+        print(f"roofline {arch} {kind} ({row['cell']}, {row['mesh']}, {row['layers']} layers): "
+              f"compute {row['compute_s'] * 1e3:.4f} ms memory {row['memory_s'] * 1e3:.4f} ms "
+              f"collective {row['collective_s'] * 1e3:.4f} ms kernels "
+              f"{row['kernel_s'] * 1e3:.4f} ms a device; bound on the card "
+              f"{row['bound_ms']:.4f} ms, measured {row['device_ms']} ms, share "
+              f"{row['share_of_bound']}")
+    emit({"roofline": {"card": f"{dev['kind']} ({dev['smi']})", "paths": rows}})
+    # the record does not depend on the fake device
+    for kind, seq in (("decode", 32), ("prefill", 16), ("train", 16)):
+        recs = []
+        for fake in ("cpu", device):
+            sess = Session(RunSpec("yi-6b", workload="dryrun", mesh="2x1"), device=device)
+            sess.device = torch.device(fake)
+            recs.append(sess.trace(ShapeSpec(f"smoke_{kind}", seq, 2, kind))[0])
+        if not _same_records(*recs):
+            raise AssertionError(f"roofline: the smoke {kind} cell's record differs on fake "
+                                 "CPU and fake CUDA tensors")
+    print("roofline: smoke decode, prefill and train cells (2x1) record alike on fake CPU "
+          "and fake CUDA tensors")
+    full = []
+    for shape in shapes_for(get_config("yi-6b")):
+        d = Session(RunSpec("yi-6b", workload="dryrun", smoke=False),
+                    device=device).run_dryrun(shape=shape.name, verbose=False)
+        assert d["status"] == "ok", d
+        full.append({k: d[k] for k in ("shape", "compile_s", "flops_per_device",
+                                       "bytes_per_device_raw", "compute_s", "memory_s",
+                                       "kernel_s", "dominant", "useful_flops_ratio",
+                                       "card_bound_s")}
+                    | {"peak_estimate_gb": d["memory_stats"]["peak_estimate"] / 1e9})
+    rise = left = "not measured"
+    if device == "cuda":
+        torch.cuda.synchronize()
+        after, peak = torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()
+        rise, left = peak - before, after - before
+        # only scalar constants may touch the card: ``torch.tensor`` under
+        # FakeTensorMode keeps its (real) data beside the fake tensor
+        if after != before or rise > 64 * 1024:
+            raise AssertionError(f"roofline: the phase's dry runs allocated on the card "
+                                 f"({before} -> {after} bytes, peak {peak})")
+    emit({"roofline_full_width": {"arch": "yi-6b", "mesh": "1x1", "cells": full,
+                                  "left_allocated_bytes": left, "peak_rise_bytes": rise}})
+    print(f"roofline: yi-6b's {len(full)} full-width cells traced on 1x1, ok; across the "
+          f"phase nothing left allocated on the card, its peak {rise} bytes higher (scalar "
+          "constants)")
+
+
+def phase_roofline_all(dev: dict, device: str = "cuda") -> None:
+    """Opt-in: every other arch's full-width ``shapes_for`` cells on 1x1."""
+    from repro_torch.api import RunSpec, Session
+    from repro_torch.configs import ARCH_NAMES, get_config, shapes_for
+
+    for arch in ARCH_NAMES:
+        if arch == "yi-6b":
+            continue
+        for shape in shapes_for(get_config(arch)):
+            d = Session(RunSpec(arch, workload="dryrun", smoke=False),
+                        device=device).run_dryrun(shape=shape.name, verbose=False)
+            assert d["status"] == "ok", d
+            emit({"roofline_full_width": {k: d[k] for k in (
+                "arch", "shape", "compile_s", "flops_per_device", "compute_s", "memory_s",
+                "kernel_s", "dominant", "useful_flops_ratio", "card_bound_s")}})
+
+
 PHASES = ("device", "build", "kernels", "serve", "profile", "consistency", "fl", "train",
-          "grids")
+          "roofline", "grids")
 #: run only when named in ``--phases``
-EXTRA_PHASES = ("sweep", "decode_sweep", "attn_sweep", "train_profile", "grids_all")
+EXTRA_PHASES = ("sweep", "decode_sweep", "attn_sweep", "train_profile", "grids_all",
+                "roofline_all")
 
 
 def main(argv=None) -> int:
@@ -3242,15 +3410,19 @@ def main(argv=None) -> int:
     dev = phase_device()
     print(f"chip_smoke: the port from {args.src}")
     table: dict = {}
+    measured: dict = {}         # phases profile and train -> phase roofline
     launches = {name: 0 for name in KERNELS}
     launches_of = {}
     runs = (("build", phase_build), ("kernels", lambda: phase_kernels(table)),
             ("sweep", lambda: phase_sweep(dev)), ("decode_sweep", lambda: phase_decode_sweep(dev)),
             ("attn_sweep", lambda: phase_attn_sweep(dev)),
             ("serve", lambda: launches_of.update(serve=phase_serve(dev))),
-            ("profile", lambda: phase_profile(dev)), ("consistency", phase_consistency),
+            ("profile", lambda: phase_profile(dev, measured)),
+            ("consistency", phase_consistency),
             ("fl", lambda: launches_of.update(fl=phase_fl(dev))),
-            ("train", lambda: launches_of.update(train=phase_train(dev))),
+            ("train", lambda: launches_of.update(train=phase_train(dev, measured))),
+            ("roofline", lambda: phase_roofline(dev, measured)),
+            ("roofline_all", lambda: phase_roofline_all(dev)),
             ("train_profile", lambda: phase_train_profile(dev)),
             ("grids", lambda: phase_grids(dev)),
             ("grids_all", lambda: phase_grids_all(args.presets.split(","), args.store_dir)))

@@ -27,7 +27,15 @@ it raises; nothing falls back to the CPU::
 federated rounds at the spec's fixed :class:`PrecisionPolicy`;
 ``fl-orchestrate`` is the paper's full loop, the GBD co-design choosing each
 round's per-client bits.  The mesh is ``Dx1``: D clients on one device.
-``dryrun`` is not ported.
+
+``dryrun`` (:meth:`Session.run_dryrun`; options ``shape``, ``variant``)
+traces one shape cell's step under ``FakeTensorMode``, nothing allocated,
+and prices it on one H100 (:mod:`repro_torch.roofline`); on the CPU::
+
+    Session(RunSpec("yi-6b", workload="dryrun", mesh="1x1"),
+            device="cpu").run_dryrun(shape="decode_32k")
+
+A mesh with a model axis above 1 (the reference's pod meshes) raises.
 """
 
 from __future__ import annotations
@@ -101,6 +109,15 @@ def _not_ported(workload: str):
     return NotImplementedError(
         f"workload {workload!r} is not ported to PyTorch yet (ROADMAP queue 1, "
         "item 14)")
+
+
+def _fake_like(t: torch.Tensor, device, dtype=None) -> torch.Tensor:
+    """An empty tensor of ``t``'s shape (under ``FakeTensorMode``: fake)."""
+    return torch.empty(tuple(t.shape), dtype=dtype or t.dtype, device=device)
+
+
+def _bf16(dtype):
+    return torch.bfloat16 if dtype.is_floating_point else dtype
 
 
 class Session:
@@ -252,7 +269,209 @@ class Session:
             return self.serve()
         if wl == "fl-sim":
             return self.run_fl_sim()
+        if wl == "dryrun":
+            return self.run_dryrun()
         raise _not_ported(wl)
+
+    # ------------------------------------------------------------------
+    # dryrun: a traced step and its roofline
+    # ------------------------------------------------------------------
+    def trace(self, shape=None, variant: dict | None = None, *, decode_len=None):
+        """Trace one (arch x shape) cell's step on this mesh, nothing allocated.
+
+        ``shape``: a cell name from ``configs.shapes_for`` or a
+        :class:`~repro_torch.configs.base.ShapeSpec` (default: the ``shape``
+        option).  ``variant`` (default: the ``variant`` option) takes the
+        reference's knobs ``gather_bf16``, ``capacity`` and ``no_remat``.  The
+        reference's train, prefill and decode cells are built from the port's
+        step builders and run under ``FakeTensorMode`` on the session's
+        device inside :func:`repro_torch.roofline.count.recording`, with the
+        kernels on their trace route.  Per device means one device of the
+        reference's ``Dx1`` mesh: a train cell runs the D clients at ``1 / D``
+        each, a serving cell one device's batch (the whole batch where it
+        does not divide by D, as the reference's ``serving_axes``).  A
+        decode cell's caches are bf16, as the reference's, and K5 counts
+        ``decode_len`` tokens a slot (an int, or the slots' lengths; default
+        the cell's ``seq_len``).  A prefill cell runs the policy's weights
+        (packed where it packs) and the ``attn_impl`` option, which at the
+        defaults is the reference's cell.
+        Returns ``(record, meta)``.
+        """
+        from torch._subclasses.fake_tensor import FakeTensorMode
+
+        from repro_torch.configs.base import ShapeSpec, shapes_for
+        from repro_torch.launch.mesh import parse_mesh
+        from repro_torch.models.common import fsdp_plan
+        from repro_torch.models.model import build_model
+        from repro_torch.roofline import count
+
+        spec = self.spec
+        variant = dict(variant or spec.opt("variant") or {})
+        shape = shape if shape is not None else spec.opt("shape")
+        if shape is None:
+            raise ValueError("a dry run needs a shape cell: pass shape= or set the "
+                             "'shape' option (a name from configs.shapes_for or a ShapeSpec)")
+        dims, names = parse_mesh(spec.mesh)
+        if dict(zip(names, dims)).get("model", 1) > 1:
+            raise NotImplementedError(
+                f"dryrun on mesh {spec.mesh!r}: a model axis > 1 needs tensor parallelism "
+                "and the pod meshes' accounting (ROADMAP queue 1, items 9 and 14)")
+        cfg = self.cfg
+        if variant.get("gather_bf16"):
+            cfg = dataclasses.replace(cfg, fsdp_gather_dtype="bfloat16")
+        if variant.get("capacity"):
+            cfg = dataclasses.replace(cfg, capacity_factor=float(variant["capacity"]))
+        if variant.get("no_remat"):
+            cfg = dataclasses.replace(cfg, remat=False)
+        model = build_model(cfg)
+        cell = shape if isinstance(shape, ShapeSpec) else {
+            s.name: s for s in shapes_for(cfg)}[shape]
+        axes, dev = self.axes, self.device
+        D = axes.dp
+        meta_params = model.init(torch.Generator().manual_seed(0), axes.tp, device="meta")
+        paths, _, plan = fsdp_plan(meta_params, axes.fsdp)
+        fsdp_of = dict(zip(paths, plan))
+
+        def per_device(tree, share_of) -> int:
+            """Bytes one device of the mesh holds of a tree of tensors."""
+            return int(sum(count.tree_bytes(v) * share_of(k) for k, v in tree.items()))
+
+        def param_share(path) -> float:
+            return 1.0 / axes.fsdp if fsdp_of.get(path) is not None else 1.0
+
+        with FakeTensorMode(allow_fallback_kernels=False):
+            if cell.kind == "train":
+                rec, outs = self._trace_train(model, cell, dev, meta_params, per_device,
+                                              param_share)
+            elif cell.kind == "prefill":
+                rec, outs = self._trace_prefill(model, cell, dev, meta_params, per_device,
+                                                param_share)
+            else:
+                rec, outs = self._trace_decode(model, cell, dev, meta_params, per_device,
+                                               param_share, decode_len)
+            rec.output_bytes = outs
+        meta = dict(arch=spec.arch, shape=cell.name, mesh=spec.mesh, n_devices=D * axes.tp,
+                    kind=cell.kind, seq_len=cell.seq_len, global_batch=cell.global_batch)
+        return rec, meta
+
+    def _trace_train(self, model, cell, dev, meta_params, per_device, param_share):
+        from repro_torch.launch.steps import SRDraws, build_train_step
+        from repro_torch.optim import build_optimizer
+        from repro_torch.roofline import count
+
+        axes = self.axes
+        D = axes.dp
+        opt = build_optimizer("sgd", 1e-3)
+        ts = build_train_step(model, axes, opt, self.train_config())
+        params = {k: _fake_like(v, dev) for k, v in meta_params.items()}
+        opt_state = opt.init(params)
+        batch = {k: _fake_like(v, dev)
+                 for k, v in model.train_batch_spec(cell.global_batch, cell.seq_len).items()}
+        delta = torch.empty(D, dtype=torch.float32, device=dev)
+        args = (params, opt_state, batch, delta)
+        with count.recording(args, computation="train") as rec:
+            rec.argument_bytes = (per_device(params, param_share)
+                                  + count.tree_bytes(opt_state)
+                                  + per_device(batch, lambda k: 1.0 / D) + 4)
+            new_params, new_state, metrics = ts.fn(params, opt_state, batch, delta,
+                                                   SRDraws(self.spec.seed, 0))
+            outs = (per_device(new_params, param_share) + count.tree_bytes(new_state)
+                    + count.tree_bytes(metrics))
+        return rec, outs
+
+    def _local_batch(self, cell) -> int:
+        """One device's batch: the global batch over the batch axes, or all
+        of it where it does not divide (the reference's ``serving_axes``)."""
+        D = self.axes.dp
+        return cell.global_batch // D if cell.global_batch % D == 0 else cell.global_batch
+
+    def _serving_params(self, meta_params, dev, *, packed: bool) -> dict:
+        """bf16 serving parameters, as the reference's serving cells cast
+        them; with ``packed`` the policy's codes (int8/int16) and scales
+        (a stacked leaf's per layer) where ``pack_params_for_serving`` packs."""
+        from repro_torch.core.quantization import default_exempt, storage_dtype
+        from repro_torch.models.common import QTensor, is_stacked
+
+        out = {}
+        for k, v in meta_params.items():
+            if packed and not default_exempt(k, v):
+                lead = (v.shape[0],) if is_stacked(k) and v.ndim >= 2 else ()
+                out[k] = QTensor(_fake_like(v, dev, storage_dtype(self.policy.serve_bits)),
+                                 torch.empty(lead, dtype=torch.bfloat16, device=dev))
+            else:
+                out[k] = _fake_like(v, dev, _bf16(v.dtype))
+        return out
+
+    def _trace_prefill(self, model, cell, dev, meta_params, per_device, param_share):
+        from repro_torch.launch.steps import build_prefill_step
+        from repro_torch.roofline import count
+
+        step = build_prefill_step(model, self.axes, policy=self.policy,
+                                  attn_impl=self.spec.opt("attn_impl", "auto"))
+        params = self._serving_params(meta_params, dev, packed=self.policy.packed)
+        b = self._local_batch(cell)
+        batch = {k: _fake_like(v, dev)
+                 for k, v in model.train_batch_spec(b, cell.seq_len).items() if k != "labels"}
+        with count.recording((params, batch), computation="prefill") as rec:
+            rec.argument_bytes = per_device(params, param_share) + count.tree_bytes(batch)
+            out = step.fn(params, batch)
+            outs = count.tree_bytes(out)
+        return rec, outs
+
+    def _trace_decode(self, model, cell, dev, meta_params, per_device, param_share,
+                      decode_len):
+        from repro_torch.launch.steps import build_decode_step, init_global_caches
+        from repro_torch.roofline import count
+
+        spec = self.spec
+        page_size = spec.opt("page_size")
+        step = build_decode_step(model, self.axes, policy=self.policy,
+                                 attn_impl=spec.opt("attn_impl", "ref"))
+        params = self._serving_params(meta_params, dev, packed=self.policy.packed)
+        b = self._local_batch(cell)
+        caches = init_global_caches(model, self.axes, s_max=cell.seq_len, batch_global=b,
+                                    dtype=torch.bfloat16, device=dev,
+                                    page_size=None if page_size is None else int(page_size),
+                                    pool_pages=spec.opt("pool_pages"))
+        batch = {"token": torch.empty((b, 1), dtype=torch.int32, device=dev)}
+        with count.recording((params, batch, caches), computation="decode",
+                             decode_len=cell.seq_len if decode_len is None else decode_len) as rec:
+            rec.argument_bytes = (per_device(params, param_share) + count.tree_bytes(caches)
+                                  + count.tree_bytes(batch))
+            tok, new_caches = step.fn(params, batch, caches)
+            outs = count.tree_bytes(tok) + count.tree_bytes(new_caches)
+        return rec, outs
+
+    def run_dryrun(self, shape=None, variant: dict | None = None, *,
+                   verbose: bool = True, decode_len=None) -> dict:
+        """Trace one cell (:meth:`trace`; ``decode_len`` as there) and derive
+        its roofline report dict on the port's H100."""
+        from repro_torch.configs.base import ShapeSpec, shapes_for
+        from repro_torch.roofline import H100_SXM, analyze_trace, model_flops
+
+        t0 = time.time()
+        shape = shape if shape is not None else self.spec.opt("shape")
+        variant = dict(variant or self.spec.opt("variant") or {})
+        rec, meta = self.trace(shape, variant, decode_len=decode_len)
+        if variant:
+            meta["variant"] = dict(variant)
+        cell = (shape if isinstance(shape, ShapeSpec)
+                else {s.name: s for s in shapes_for(self.cfg)}[meta["shape"]])
+        mf = model_flops(self.cfg, cell.kind, cell.seq_len, cell.global_batch)
+        rep = analyze_trace(rec, arch=meta["arch"], shape=meta["shape"],
+                            mesh_name=meta["mesh"], n_devices=meta["n_devices"],
+                            model_flops_global=mf, chip=H100_SXM)
+        d = rep.to_dict()
+        d.update(meta, compile_s=round(time.time() - t0, 1), status="ok")
+        if verbose:
+            print(f"[{meta['arch']} x {meta['shape']} x {meta['mesh']}] "
+                  f"trace={d['compile_s']}s  "
+                  f"compute={rep.compute_s:.3e}s memory={rep.memory_s:.3e}s "
+                  f"collective={rep.collective_s:.3e}s kernels={rep.kernel_s:.3e}s  "
+                  f"dominant={rep.dominant}  useful={rep.useful_flops_ratio:.3f}")
+            print("  memory:", rep.memory_stats)
+            print("  collectives:", rep.collective_breakdown)
+        return d
 
     # ------------------------------------------------------------------
     # train / fl-orchestrate: the pod FWQ-FL loop

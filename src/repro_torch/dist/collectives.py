@@ -29,6 +29,7 @@ import torch
 from repro_torch.core.quantization import FULL_PRECISION_BITS
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import f32_reciprocal, saturate_nonfinite
+from repro_torch.roofline import count
 
 
 @dataclasses.dataclass(frozen=True)
@@ -146,7 +147,7 @@ def _check_nonfinite_mode(on_nonfinite: str) -> None:
                          f"got {on_nonfinite!r}")
 
 
-def _raise_nonfinite(bad: int) -> None:
+def _raise_nonfinite(bad: int | None) -> None:
     if bad:
         raise FloatingPointError(
             f"quantized_psum_batch: {bad} non-finite gradient "
@@ -165,7 +166,9 @@ def _nonfinite_guard(gfs: list, on_nonfinite: str) -> list:
     """
     _check_nonfinite_mode(on_nonfinite)
     if on_nonfinite == "raise":
-        _raise_nonfinite(sum(int((~torch.isfinite(g)).sum()) for g in gfs) if gfs else 0)
+        reads = [count.host_read((~torch.isfinite(g)).sum(), "the wire's non-finite count")
+                 for g in gfs]
+        _raise_nonfinite(sum(r or 0 for r in reads))
         return gfs
     return [saturate_nonfinite(g) for g in gfs]
 
@@ -193,7 +196,11 @@ def quantized_psum_batch(axes: AxisCtx, grad, u, bits, *,
     ``bits >= 32`` is the exact mean; one client is the identity.
     ``on_nonfinite`` guards against NaN/Inf (see :func:`_nonfinite_guard`);
     the keyed path applies the guard inside K2 and, in ``"raise"`` mode,
-    reads the device's non-finite count once.
+    reads the device's non-finite count once.  A traced step records the
+    collectives the reference's device issues for each leaf (the count's
+    ``psum`` in ``"raise"`` mode, the scale's ``pmax``, the codes' ``psum``;
+    a ``pmean`` at full precision), and counts the one K2 call at ``1 / D``
+    per device: each device of the reference packs its own client.
     """
     single = isinstance(grad, torch.Tensor)
     grads = [grad] if single else list(grad)
@@ -214,6 +221,8 @@ def quantized_psum_batch(axes: AxisCtx, grad, u, bits, *,
             if g.shape[0] != n or uu.shape != g.shape:
                 raise ValueError(f"quantized_psum_batch: leaves (D={n}, ...) with uniforms "
                                  f"of their shape; got {tuple(g.shape)} and {tuple(uu.shape)}")
+    if count.active() is not None and n > 1:
+        _record_wire([(g[0].dtype, g[0].numel()) for g in grads], int(bits), n, on_nonfinite)
     if n == 1:
         out = [g[0] for g in grads]             # single client: nothing to reduce
     elif int(bits) >= FULL_PRECISION_BITS:
@@ -228,6 +237,20 @@ def quantized_psum_batch(axes: AxisCtx, grad, u, bits, *,
     else:
         out = _quantized_mean(grads, us, int(bits), n, on_nonfinite)
     return out[0] if single else out
+
+
+def _record_wire(leaves, bits: int, n: int, on_nonfinite: str) -> None:
+    """The reference's collectives for each wire leaf ``(dtype, elements)``."""
+    name = "quantized_psum_batch"
+    for dtype, elems in leaves:
+        if bits >= FULL_PRECISION_BITS:
+            count.record_collective("all-reduce", dtype, elems, n, f"{name} pmean")
+            continue
+        if on_nonfinite == "raise":
+            count.record_collective("all-reduce", torch.int32, 1, n, f"{name} non-finite count")
+        count.record_collective("all-reduce", torch.float32, 1, n, f"{name} scale pmax")
+        count.record_collective("all-reduce", _TORCH_INT[np.dtype(wire_dtype(bits, n))],
+                                elems, n, f"{name} codes")
 
 
 def _dequantized_means(codes, step, sizes, shapes, dtypes, n: int) -> list:
@@ -251,8 +274,9 @@ def _quantized_mean(grads, us, bits: int, n: int, on_nonfinite: str) -> list:
     offsets = torch.tensor([0, *np.cumsum(sizes)], dtype=torch.int32, device=dev)
     flat = torch.cat([g.reshape(n, -1) for g in gfs], dim=1)
     uflat = torch.cat([uu.to(torch.float32).reshape(n, -1) for uu in us], dim=1)
-    codes = ops.sr_pack_segments(flat, offsets, step, uflat, lim,
-                                 _TORCH_INT[np.dtype(wire_dtype(bits, n))])
+    with count.share(1 / n):
+        codes = ops.sr_pack_segments(flat, offsets, step, uflat, lim,
+                                     _TORCH_INT[np.dtype(wire_dtype(bits, n))])
     return _dequantized_means(codes, step, sizes, [g.shape[1:] for g in grads],
                               [g.dtype for g in grads], n)
 
@@ -265,10 +289,11 @@ def _quantized_mean_keyed(grads, bits: int, n: int, on_nonfinite: str, key: int)
     if not grads:
         return []
     lim = code_bound(bits)
-    codes, step, bad = ops.sr_pack_keyed(grads, key, lim,
-                                         _TORCH_INT[np.dtype(wire_dtype(bits, n))])
+    with count.share(1 / n):
+        codes, step, bad = ops.sr_pack_keyed(grads, key, lim,
+                                             _TORCH_INT[np.dtype(wire_dtype(bits, n))])
     out = _dequantized_means(codes, step, [g[0].numel() for g in grads],
                              [g[0].shape for g in grads], [g[0].dtype for g in grads], n)
     if on_nonfinite == "raise":
-        _raise_nonfinite(int(bad))
+        _raise_nonfinite(count.host_read(bad, "the wire's non-finite count"))
     return out

@@ -1,10 +1,13 @@
 """Public kernel entry points + leaf-type dispatch.
 
 Dispatch rule: a CUDA tensor goes to the hand-written kernel, which launches
-or raises; a CPU tensor goes to the kernel's plain PyTorch version.  There is
-no other route and no fallback from one to the other.  The entry points also
-do the layout plumbing around the kernels (flattening heads into the batch,
-contiguity, index dtypes).
+or raises; a CPU tensor goes to the kernel's plain PyTorch version; a fake
+tensor (a step traced under ``FakeTensorMode`` for its roofline) goes to
+the trace route, which returns outputs of the right shape and dtype and
+records the kernel's node with its cost (:mod:`repro_torch.roofline.count`).
+A real tensor never takes the trace route, and nothing falls back from one
+route to another.  The entry points also do the layout plumbing around the
+kernels (flattening heads into the batch, contiguity, index dtypes).
 
 :func:`dense_dispatch` is the serving fast path's single entry point: given
 an activation and either a plain tensor or a
@@ -21,14 +24,94 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import quant_matmul as qm
 from repro_torch.kernels import sr_quant as sq
 from repro_torch.kernels._build import LAUNCHES, reset_launches  # noqa: F401
+from repro_torch.roofline import count
 
 
-def _route(t: torch.Tensor, kernel, plain):
+def _route(t: torch.Tensor, kernel, plain, trace):
+    if count.is_traced(t):
+        return trace
     if t.is_cuda:
         return kernel
     if t.device.type == "cpu":
         return plain
     raise ValueError(f"no kernel for tensors on {t.device}")
+
+
+# ---- the trace route: outputs of the right shape, the kernel's node recorded --
+
+
+def _trace_segments(w, offsets, s, d, u, *, ste: bool = True):
+    C, P = u.shape
+    count.record_kernel(sq.NAME, count.sr_quant_segments_cost(P, C, s.shape[0]),
+                        f"C={C} P={P}")
+    return torch.empty((C, P), dtype=torch.float32, device=w.device)
+
+
+def _trace_segments_keyed(leaves, delta, key, out=None, col: int = 0):
+    P, C = sum(x.numel() for x in leaves), delta.shape[0]
+    count.record_kernel(sq.KEYED_NAME, count.sr_quant_keyed_cost(P, C), f"C={C} P={P}")
+    return out
+
+
+def _trace_inline(w, delta, key, out_dtype):
+    count.record_kernel(sq.INLINE_NAME, count.sr_quant_inline_cost(w.numel(), out_dtype),
+                        str(tuple(w.shape)))
+    return torch.empty(w.shape, dtype=out_dtype, device=w.device)
+
+
+def _trace_pack(g, offsets, step, u, lim, dtype):
+    C, P = g.shape
+    count.record_kernel(sq.PACK_NAME, count.sr_pack_segments_cost(P, C, step.shape[0], dtype),
+                        f"C={C} P={P}")
+    return torch.empty((C, P), dtype=dtype, device=g.device)
+
+
+def _trace_pack_keyed(leaves, key, lim, dtype, out=None, col: int = 0):
+    C, L = len(leaves[0]), len(leaves)
+    P = sum(leaf[0].numel() for leaf in leaves)
+    dev = leaves[0][0].device
+    count.record_kernel(sq.PACK_KEYED_NAME, count.sr_pack_keyed_cost(P, C, L, dtype),
+                        f"C={C} P={P}")
+    codes = out if out is not None else torch.empty((C, P), dtype=dtype, device=dev)
+    return (codes, torch.empty(L, dtype=torch.float32, device=dev),
+            torch.empty((), dtype=torch.int64, device=dev))
+
+
+def _trace_quant_matmul(x, codes, scale):
+    (M, K), N = x.shape, codes.shape[1]
+    count.record_kernel(qm.NAME, count.quant_matmul_cost(M, K, N, x.dtype, codes.dtype),
+                        f"M={M} K={K} N={N}")
+    return torch.empty((M, N), dtype=torch.float32, device=x.device)
+
+
+def _trace_attention(q, k, v, causal: bool = True):
+    BH, S, D = q.shape
+    count.record_kernel("flash_attention",
+                        count.flash_attention_cost(BH, S, D, q.dtype, causal),
+                        f"BH={BH} S={S} D={D} causal={causal}")
+    return torch.empty_like(q)
+
+
+def _trace_decode(q, k_pages, v_pages, page_table, lengths):
+    """K5's bytes follow the slots' lengths, which a traced tensor does not
+    hold: each slot counts the record's ``decode_len`` tokens (the cell's
+    ``seq_len``, or a list of per-slot lengths), at most its pages' reach."""
+    B, KV, G, hd = q.shape
+    page, n_pmax = k_pages.shape[1], page_table.shape[1]
+    rec, cap = count.active(), n_pmax * page
+    lens = [cap] * B if rec is None or rec.decode_len is None else rec.decode_len
+    if isinstance(lens, int):
+        lens = [lens] * B
+    if len(lens) != B:
+        raise ValueError(f"decode_len gives {len(lens)} slot lengths for {B} slots")
+    tokens = sum(min(int(n), cap) for n in lens)
+    count.record_kernel("flash_decode",
+                        count.flash_decode_cost(B, KV, G, hd, q.dtype, k_pages.dtype, n_pmax,
+                                                tokens),
+                        f"B={B} KV={KV} G={G} hd={hd} tokens={tokens}")
+    acc = torch.empty((B, KV, G, hd), dtype=torch.float32, device=q.device)
+    return acc, torch.empty((B, KV, G, 1), dtype=torch.float32, device=q.device), \
+        torch.empty((B, KV, G, 1), dtype=torch.float32, device=q.device)
 
 
 def sr_quantize_segments(w: torch.Tensor, offsets: torch.Tensor, s: torch.Tensor,
@@ -41,7 +124,8 @@ def sr_quantize_segments(w: torch.Tensor, offsets: torch.Tensor, s: torch.Tensor
     of it at ``step = s[l] * delta[c]``: rounded, clipped to ``[-s, s]``,
     ``step == 0`` bypassed, emitted as ``w + (q - w)``.
     """
-    fn = _route(w, sq.sr_quant_segments_cuda, sq.sr_quant_segments_plain)
+    fn = _route(w, sq.sr_quant_segments_cuda, sq.sr_quant_segments_plain,
+                _trace_segments)
     return fn(w.contiguous(), offsets.contiguous(), s.contiguous(), delta.contiguous(),
               u.contiguous())
 
@@ -59,7 +143,8 @@ def sr_quantize_segments_keyed(leaves, delta: torch.Tensor, key: int) -> torch.T
     ``sr_quant.SEG_MAX_LEAVES``, one call a group into the same output, each
     drawing the tree's columns: the value does not depend on the grouping.
     """
-    fn = _route(delta, sq.sr_quant_segments_keyed_cuda, sq.sr_quant_segments_keyed_plain)
+    fn = _route(delta, sq.sr_quant_segments_keyed_cuda, sq.sr_quant_segments_keyed_plain,
+                _trace_segments_keyed)
     flat = [x.to(torch.float32).contiguous().reshape(-1) for x in leaves]
     delta = delta.to(torch.float32).contiguous()
     out = torch.empty((delta.shape[0], sum(x.numel() for x in flat)), dtype=torch.float32,
@@ -79,7 +164,7 @@ def sr_quantize_inline(w: torch.Tensor, delta: torch.Tensor, key: int,
     with the uniforms :func:`~repro_torch.kernels.ref.philox_uniforms_plain`
     of ``key``, cast to ``out_dtype``; scale and uniforms are made inside.
     """
-    fn = _route(w, sq.sr_quant_inline_cuda, sq.sr_quant_inline_plain)
+    fn = _route(w, sq.sr_quant_inline_cuda, sq.sr_quant_inline_plain, _trace_inline)
     return fn(w.to(torch.float32).contiguous(), delta.reshape(-1), int(key), out_dtype)
 
 
@@ -102,7 +187,8 @@ def sr_quantize_fused(w: torch.Tensor, bits: int, u: torch.Tensor) -> torch.Tens
     one = torch.ones(1, dtype=torch.float32)
     delta = (one / torch.tensor([2.0**bits - 1.0], dtype=torch.float32)).to(w.device)
     offsets = torch.tensor([0, wf.numel()], dtype=torch.int32, device=w.device)
-    fn = _route(w, sq.sr_quant_segments_cuda, sq.sr_quant_segments_plain)
+    fn = _route(w, sq.sr_quant_segments_cuda, sq.sr_quant_segments_plain,
+                _trace_segments)
     q = fn(wf.contiguous(), offsets, s, delta,
            u.to(torch.float32).reshape(1, -1).contiguous(), ste=False)
     return q.reshape(w.shape).to(w.dtype)
@@ -117,7 +203,7 @@ def sr_pack_segments(g: torch.Tensor, offsets: torch.Tensor, step: torch.Tensor,
     ``(C, P)`` codes of ``dtype`` (int8/int16/int32): ``clip(floor(t) + [u <
     t - floor(t)], -lim, lim)`` with ``t = g / step``, saturated to ``dtype``.
     """
-    fn = _route(g, sq.sr_pack_segments_cuda, sq.sr_pack_segments_plain)
+    fn = _route(g, sq.sr_pack_segments_cuda, sq.sr_pack_segments_plain, _trace_pack)
     return fn(g.contiguous(), offsets.contiguous(), step.contiguous(), u.contiguous(),
               lim, dtype)
 
@@ -138,7 +224,8 @@ def sr_pack_keyed(leaves, key: int, lim: int, dtype: torch.dtype):
     each drawing the tree's columns; the groups' counts are summed on the
     card, so the guard stays one decision and "raise" reads one number.
     """
-    fn = _route(leaves[0][0], sq.sr_pack_keyed_cuda, sq.sr_pack_keyed_plain)
+    fn = _route(leaves[0][0], sq.sr_pack_keyed_cuda, sq.sr_pack_keyed_plain,
+                _trace_pack_keyed)
     flat = [[g.to(torch.float32).contiguous().reshape(-1) for g in leaf] for leaf in leaves]
     C = len(flat[0])
     groups = sq.table_groups([leaf[0].numel() for leaf in flat], C, sq.PACK_KEYED_NAME)
@@ -177,7 +264,7 @@ def sr_pack_fused(w: torch.Tensor, bits: int, u: torch.Tensor):
 
 def quant_matmul(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """x (M,K) @ dequant(codes (K,N) int8/int16, scale) -> (M,N) f32."""
-    fn = _route(x, qm.quant_matmul_cuda, qm.quant_matmul_plain)
+    fn = _route(x, qm.quant_matmul_cuda, qm.quant_matmul_plain, _trace_quant_matmul)
     return fn(x.contiguous(), codes.contiguous(), scale.contiguous())
 
 
@@ -187,7 +274,7 @@ def flash_attention(q, k, v, causal: bool = True):
     Ragged S needs no padding: the kernel masks keys ``>= S`` itself.
     """
     B, H, S, D = q.shape
-    fn = _route(q, fa.flash_attention_cuda, fa.flash_attention_plain)
+    fn = _route(q, fa.flash_attention_cuda, fa.flash_attention_plain, _trace_attention)
     out = fn(*(t.reshape(B * H, S, D).contiguous() for t in (q, k, v)),
              causal=causal)
     return out.reshape(B, H, S, D)
@@ -202,7 +289,7 @@ def flash_paged_decode(q, k_pages, v_pages, page_table, lengths):
     UNNORMALIZED fp32 ``(acc, m, l)``; normalize with ``acc / max(l, eps)``.
     G is not padded (the reference pads it to 8 for the TPU's sublanes).
     """
-    fn = _route(q, fa.flash_decode_cuda, fa.flash_decode_plain)
+    fn = _route(q, fa.flash_decode_cuda, fa.flash_decode_plain, _trace_decode)
     return fn(q.contiguous(), k_pages.contiguous(), v_pages.contiguous(),
               page_table.to(torch.int32).contiguous(),
               lengths.to(torch.int32).contiguous())

@@ -1,9 +1,9 @@
 """Step builders: the FWQ train step and the serving steps.
 
 Counterparts of ``build_train_step`` / ``local_param_shapes`` /
-``build_decode_step`` / ``build_cached_prefill`` / ``init_global_caches`` in
-``repro/launch/steps.py`` as plain callables on one device: no
-``shard_map``, no jit — PyTorch runs eagerly.
+``build_decode_step`` / ``build_cached_prefill`` / ``init_global_caches`` /
+``build_prefill_step`` in ``repro/launch/steps.py`` as plain callables on one
+device: no ``shard_map``, no jit — PyTorch runs eagerly.
 
 The train step runs a ``Dx1`` mesh's D clients one after another (the
 reference runs them as the data-parallel shards of one program) and then does
@@ -27,6 +27,7 @@ from repro_torch.kernels.ref import philox_uniforms_plain
 from repro_torch.models.common import ParamCtx, fsdp_plan, reduce_gradients
 from repro_torch.models.model import Model
 from repro_torch.optim import Optimizer
+from repro_torch.roofline import count
 
 
 def _compute_dtype(cfg: ModelConfig):
@@ -113,6 +114,34 @@ def build_train_step(model: Model, axes: AxisCtx, opt: Optimizer,
     D = axes.dp
     bits = int(train_cfg.grad_compression_bits)
 
+    gather_dtype = torch.bfloat16 if cfg.fsdp_gather_dtype == "bfloat16" else None
+
+    def _client_grads(c, params, batch, b, delta, draws, paths, wire, sums, stacked,
+                      given, cd):
+        """Client ``c``'s loss and gradient at its quantized weights; the
+        gradients go to ``sums`` (FSDP-reduced leaves) or ``stacked`` (wire)."""
+        if given:
+            transform = make_inline_quantizer(
+                delta[c], out_dtype=cd,
+                uniforms=lambda path, w: draws.weights(c, path, w.shape, w.device))
+        else:                                   # one keyed K1 call a weight use
+            transform = make_inline_quantizer(
+                delta[c], out_dtype=cd, keys=lambda path: draws.weight_key(c, path))
+        pc = ParamCtx(ctx=axes.at_client(c), compute_dtype=cd, sp=cfg.seq_parallel,
+                      transform=transform, gather_dtype=gather_dtype)
+        leaves = {p: params[p].detach().requires_grad_() for p in paths}
+        cb = {k: v[c * b:(c + 1) * b] for k, v in batch.items()}
+        loss, _aux = model.train_loss(pc, leaves, cb, attn_impl=attn_impl)
+        grads = torch.autograd.grad(loss, [leaves[p] for p in paths])
+        for p, g in zip(paths, grads):
+            if p in wire:
+                stacked[p].append(g)
+            elif c == 0:
+                sums[p] = g
+            else:
+                sums[p].add_(g)
+        return loss.detach()
+
     def fn(params, opt_state, batch, delta, draws: SRDraws):
         paths, _, plan = fsdp_plan(params, axes.fsdp, check_divisibility=False)
         replicated = {p for p, dim in zip(paths, plan) if dim is None}
@@ -124,28 +153,10 @@ def build_train_step(model: Model, axes: AxisCtx, opt: Optimizer,
         cd = _compute_dtype(cfg)
         given = type(draws).weights is not SRDraws.weights   # a subclass's own uniforms
         for c in range(D):
-            if given:
-                transform = make_inline_quantizer(
-                    delta[c], out_dtype=cd,
-                    uniforms=lambda path, w, c=c: draws.weights(c, path, w.shape, w.device))
-            else:                               # one keyed K1 call a weight use
-                transform = make_inline_quantizer(
-                    delta[c], out_dtype=cd, keys=lambda path, c=c: draws.weight_key(c, path))
-            pc = ParamCtx(ctx=axes.at_client(c), compute_dtype=cd, sp=cfg.seq_parallel,
-                          transform=transform)
-            leaves = {p: params[p].detach().requires_grad_() for p in paths}
-            cb = {k: v[c * b:(c + 1) * b] for k, v in batch.items()}
-            loss, _aux = model.train_loss(pc, leaves, cb, attn_impl=attn_impl)
-            grads = torch.autograd.grad(loss, [leaves[p] for p in paths])
-            for p, g in zip(paths, grads):
-                if p in wire:
-                    stacked[p].append(g)
-                elif c == 0:
-                    sums[p] = g
-                else:
-                    sums[p].add_(g)
-            loss_sum = loss.detach() if c == 0 else loss_sum + loss.detach()
-            del leaves, grads, loss
+            with count.share(1 / D):            # a traced step: one device does one client
+                loss_c = _client_grads(c, params, batch, b, delta, draws, paths, wire,
+                                       sums, stacked, given, cd)
+            loss_sum = loss_c if c == 0 else loss_sum + loss_c
         # ---- server aggregation (Algorithm 1 line 10) ----------------------
         G = reduce_gradients(sums, axes)
         if wire:
@@ -163,8 +174,14 @@ def build_train_step(model: Model, axes: AxisCtx, opt: Optimizer,
         updates, opt_state = opt.update(G, opt_state, params)
         params = {k: (p.to(torch.float32) + updates[k]).to(p.dtype)
                   for k, p in params.items()}
-        gnorm = sum((G[p].to(torch.float32) ** 2).sum() * (D if p in replicated else 1)
-                    for p in paths)
+        gnorm = 0.0
+        for p in paths:                         # the reference's vdot(g, g) a leaf
+            g = G[p].to(torch.float32).reshape(-1)
+            with count.share(1.0 if p in replicated else 1 / axes.fsdp):
+                gnorm = gnorm + torch.dot(g, g) * (D if p in replicated else 1)
+        count.record_collective("all-reduce", torch.float32, 1, D, "train_step loss pmean")
+        count.record_collective("all-reduce", torch.float32, 1, D,
+                                "train_step grad_sq_shard_sum psum")
         metrics = {"loss": loss_sum * f32_reciprocal(D), "grad_sq_shard_sum": gnorm}
         return params, opt_state, metrics
 
@@ -280,3 +297,22 @@ def build_cached_prefill(model: Model, axes: AxisCtx, *, attn_impl: str = "auto"
 
     return ServeStep(fn=fn)
 
+
+
+def build_prefill_step(model: Model, axes: AxisCtx, *, attn_impl: str = "auto",
+                       policy=None) -> ServeStep:
+    """Forward-only prefill: ``fn(params, batch) -> (B, 1, V)`` last-position
+    logits (the dry run's prefill cell; ``batch`` without labels).  A lazy
+    ``policy`` keeps packed weights packed through ``quant_matmul``; the
+    reference's cell takes no policy (the port's default)."""
+    cfg = model.cfg
+    pc = ParamCtx.from_policy(axes, policy, compute_dtype=_compute_dtype(cfg),
+                              sp=cfg.seq_parallel)
+
+    @torch.no_grad()
+    def fn(params, batch):
+        loss_free = {k: v for k, v in batch.items() if k != "labels"}
+        logits = model.forward(pc, params, loss_free, attn_impl=attn_impl)
+        return logits[:, -1:, :]
+
+    return ServeStep(fn=fn)

@@ -12,9 +12,11 @@ Parameters are a flat dict keyed by the reference's path strings
 (``"embed/table"``, ``"blocks/attn/wq"``, ...); leaves under ``blocks/`` keep
 their leading ``(L, ...)`` layer dim, as the reference's scanned stacks do.
 One device, ``tp = 1``: the port holds every leaf whole, so the FSDP gathers
-of the reference are identities.  Which leaves the reference shards still
-decides how a train step reduces their gradients (:func:`fsdp_plan`): the
-sharded ones are mean-reduced in f32, the replicated ones cross the SR wire.
+of the reference are identities (a traced step records each one the
+reference issues, :mod:`repro_torch.roofline.count`).  Which leaves the
+reference shards still decides how a train step reduces their gradients
+(:func:`fsdp_plan`): the sharded ones are mean-reduced in f32, the replicated
+ones cross the SR wire.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch
 
 from repro_torch.core.quantization import _flatten_with_paths
 from repro_torch.dist.collectives import AxisCtx, f32_reciprocal
+from repro_torch.roofline import count
 
 Transform = Callable[[str, torch.Tensor], torch.Tensor]
 
@@ -181,9 +184,35 @@ def reduce_gradients(grad_sums: dict, ctx: AxisCtx) -> dict:
 
     In the reference the FSDP leaves arrive reduce-scattered (summed) and are
     divided by ``dp``, and the replicated leaves are ``pmean``-ed; both are
-    the f32 sum over the clients times ``fl32(1 / dp)`` as XLA runs them.
+    the f32 sum over the clients times ``fl32(1 / dp)`` as XLA runs them.  A
+    traced step records each replicated leaf's ``pmean`` (an all-reduce over
+    the batch axes; the FSDP leaves' reduce-scatter is their gather's
+    transpose, recorded by :meth:`ParamCtx.use`).
     """
+    if count.active() is not None and ctx.batch_axes:
+        paths, leaves, plan = fsdp_plan(grad_sums, ctx.fsdp, check_divisibility=False)
+        for path, g, dim in zip(paths, leaves, plan):
+            if dim is None:
+                count.record_collective("all-reduce", g.dtype, g.numel(), ctx.dp,
+                                        f"reduce_gradients pmean {path}")
     return {p: g * f32_reciprocal(ctx.dp) for p, g in grad_sums.items()}
+
+
+class _GatherRecord(torch.autograd.Function):
+    """Identity whose backward records the reduce-scatter that is the FSDP
+    all-gather's transpose in the reference (once a backward pass, so a
+    rematerialized forward does not count it twice)."""
+
+    @staticmethod
+    def forward(ctx, w, group: int, name: str):
+        ctx.group, ctx.name = group, name
+        return w.view_as(w)
+
+    @staticmethod
+    def backward(ctx, g):
+        count.record_collective("reduce-scatter", g.dtype, g.numel() // ctx.group, ctx.group,
+                                ctx.name)
+        return g, None, None
 
 
 @dataclasses.dataclass
@@ -201,6 +230,7 @@ class ParamCtx:
     compute_dtype: Any = torch.bfloat16
     sp: bool = False
     policy: Any = None
+    gather_dtype: Any = None
 
     @property
     def lazy(self) -> bool:
@@ -213,18 +243,38 @@ class ParamCtx:
         return cls(ctx=ctx, transform=transform, compute_dtype=compute_dtype,
                    sp=sp, policy=policy)
 
+    def _gathered(self, path: str, w) -> bool:
+        """Whether the reference all-gathers this leaf over FSDP at a use."""
+        leaf = w.codes if isinstance(w, QTensor) else w
+        return fsdp_participates(path, tuple(leaf.shape), self.ctx.fsdp)
+
     def use(self, path: str, w):
         """Transform + cast: the single funnel every weight goes through.
 
         Returns a dense tensor, or the packed :class:`QTensor` when
-        ``policy.lazy`` is on — consumers dispatch on the leaf type.
+        ``policy.lazy`` is on — consumers dispatch on the leaf type.  As in
+        the reference, ``gather_dtype`` casts an FSDP leaf before its
+        (here identity) gather; a traced step records the gather.
         """
+        tracing = count.active() is not None
+        gather = (tracing or self.gather_dtype is not None) and self._gathered(path, w)
         if isinstance(w, QTensor):
+            if gather and tracing:
+                count.record_collective("all-gather", w.codes.dtype, w.codes.numel(),
+                                        self.ctx.fsdp, f"ParamCtx.use {path}")
             if self.lazy and self.transform is None:
                 return w
             full = w.codes.to(torch.float32) * w.scale.to(torch.float32)
         else:
             full = w
+            if gather and self.gather_dtype is not None:
+                full = full.to(self.gather_dtype)
+            if gather and tracing:
+                count.record_collective("all-gather", full.dtype, full.numel(),
+                                        self.ctx.fsdp, f"ParamCtx.use {path}")
+                if full.requires_grad:
+                    full = _GatherRecord.apply(full, self.ctx.fsdp,
+                                               f"ParamCtx.use {path} (transpose)")
         if self.transform is not None:
             full = self.transform(path, full)
         return full.to(self.compute_dtype)

@@ -1,0 +1,535 @@
+"""Step costs from a record of the operations the step runs.
+
+Counterpart of ``repro/roofline/hlo_parse.py``.  The reference parses the
+compiled HLO text of a step; the port runs the step eagerly under
+``FakeTensorMode`` (nothing is allocated) inside :func:`recording`, and
+counts from what it dispatched:
+
+* dot FLOPs = 2 * prod(result dims) * contracted size, for every matmul the
+  step dispatches (``mm``, ``addmm``, ``bmm``, ``baddbmm``, ``dot``, ``vdot``,
+  ``mv``, ``addmv``: what ``@``, ``einsum`` and ``linear`` become);
+* dot bytes = lhs + rhs + result bytes, raw and bf16-equivalent (f32 counted
+  at 2 bytes, the rewrite of the reference's ``analysis.py``);
+* kernel nodes: each of K1-K5 counted by a cost function of its own
+  (:func:`quant_matmul_cost` and the rest), the work of the *function*
+  whatever implements it.  K3-K5 are products and join the dot stream, as
+  the reference's Pallas kernels contribute their dots to its count; K1 and
+  K2 are elementwise, which the reference's dot stream excludes, and are
+  kept apart (:attr:`Node.stream`);
+* collectives: one :class:`CollectiveOp` for every collective the
+  reference's device issues on the mesh, recorded by the port's code where
+  the reference issues it (:func:`record_collective`), priced by the same
+  ring model (group size n):
+    all-gather: (n-1)/n * result;  reduce-scatter: (n-1) * result;
+    all-reduce: 2(n-1)/n * result; all-to-all: (n-1)/n * result.
+
+An eager trace unrolls every loop, so there are no trip counts (``n_while``
+is 0).  **Per device** means one device of the reference's mesh: work done
+under :func:`share` ``(f)`` counts ``f`` of itself, so a ``Dx1`` step that
+loops over its D clients at ``share(1 / D)`` counts one client, the share of
+one device.  The record also keeps the high-water mark of live tensor bytes
+(the port's own card) and every host read the step makes, with its call
+site (:func:`host_read`).
+
+Nothing here runs on a real tensor's path: the kernels' trace route
+(``kernels/ops.py``) is taken only for fake tensors, and the other hooks do
+nothing unless a recording is active.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import sys
+import traceback
+import weakref
+from collections import defaultdict
+
+import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from repro_torch.roofline.hw import H100_SXM, ChipSpec
+
+COLLECTIVE_KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+                    "collective-permute")
+
+#: torch dtype -> the HLO element-type name the reference's records carry
+HLO_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16",
+              torch.float64: "f64", torch.int8: "s8", torch.int16: "s16",
+              torch.int32: "s32", torch.int64: "s64", torch.uint8: "u8",
+              torch.bool: "pred"}
+
+
+def _elem_bytes(dtype: torch.dtype, bf16: bool = False) -> int:
+    """Bytes an element; ``bf16`` counts f32 at 2 (the bf16-equivalent)."""
+    if bf16 and dtype == torch.float32:
+        return 2
+    return torch.empty((), dtype=dtype, device="meta").element_size()
+
+
+def _tensor_bytes(t: torch.Tensor, bf16: bool = False) -> int:
+    """Bytes of the distinct elements ``t`` reads: a broadcast dim (stride 0,
+    what ``matmul`` makes of a weight it batches) counts once."""
+    n = 1
+    for size, stride in zip(t.shape, t.stride()):
+        if stride != 0:
+            n *= size
+    return n * _elem_bytes(t.dtype, bf16)
+
+
+def ring_wire_bytes(kind: str, result_bytes: float, n: int) -> float:
+    """Wire bytes a device moves for one collective (the reference's ring
+    model); a group of one moves nothing."""
+    if n <= 1:
+        return 0.0
+    if kind in ("all-gather", "all-to-all"):
+        return (n - 1) / n * result_bytes
+    if kind == "reduce-scatter":
+        return (n - 1) * result_bytes
+    if kind == "all-reduce":
+        return 2 * (n - 1) / n * result_bytes
+    return float(result_bytes)
+
+
+@dataclasses.dataclass
+class CollectiveOp:
+    """One collective the reference's device issues, as the port recorded it.
+
+    ``dtype`` is the HLO element name, ``elems`` the result's elements,
+    ``bytes`` and ``wire_bytes`` one execution's; ``mult`` is the share of
+    the record that one device executes (:func:`share`), so the per-step
+    totals multiply by it.  ``name`` is the port's call site, and
+    ``computation`` the step kind.
+    """
+
+    kind: str
+    dtype: str
+    elems: int
+    bytes: float
+    wire_bytes: float
+    group_size: int
+    mult: float
+    name: str
+    computation: str
+    parts: tuple = ()
+
+    def to_dict(self):
+        return dataclasses.asdict(self)
+
+
+@dataclasses.dataclass
+class ModuleCosts:
+    flops: float
+    dot_bytes: float
+    collective_bytes: float           # wire-model bytes, per device
+    collective_by_kind: dict
+    collective_counts: dict
+    n_while: int
+    collectives: list = dataclasses.field(default_factory=list)
+
+    def to_dict(self):
+        return dataclasses.asdict(self)
+
+
+# ---------------------------------------------------------------------------
+# Kernel cost functions (K1-K5): the work of each function
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelCost:
+    """What one call of a kernel's function must do.
+
+    ``flops`` floating-point and ``int_ops`` integer operations, run at
+    ``peak`` (``"bf16"``, ``"f32"`` or ``"int32"``); ``bytes`` each input read
+    once and each output written once, ``bytes_bf16`` the same with f32 at 2
+    bytes; ``stream`` is ``"dot"`` for the products (K3-K5) and
+    ``"elementwise"`` for K1 and K2.
+    """
+
+    kernel: str | None          # "K1".."K5"; None for a dot
+    flops: float
+    int_ops: float
+    bytes: float
+    bytes_bf16: float
+    peak: str
+    stream: str
+
+    def bound_s(self, chip: ChipSpec = H100_SXM) -> tuple[float, str]:
+        """The least time on ``chip``: the larger of the bytes over the
+        memory rate and the operations over their peak.  Returns
+        ``(seconds, "bytes" or "operations")``."""
+        t_bytes = self.bytes / chip.hbm_bw
+        ops = self.int_ops if self.peak == "int32" else self.flops
+        t_ops = ops / chip.peak(self.peak) if ops else 0.0
+        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _peak_of(dtype: torch.dtype) -> str:
+    return "bf16" if dtype in (torch.bfloat16, torch.float16) else "f32"
+
+
+def sr_quant_segments_cost(P: int, C: int, L: int) -> KernelCost:
+    """K1's u-taking segment entry: ``w`` (P,), ``offsets`` (L+1,) and the
+    scales (L,) read once, each client's uniforms read and output written
+    once, ``delta`` (C,)."""
+    raw = 4 * P + 8 * C * P + 4 * (2 * L + 1) + 4 * C
+    b16 = 2 * P + 4 * C * P + 4 * (L + 1) + 2 * L + 2 * C
+    return KernelCost("K1", 0.0, 0.0, raw, b16, "f32", "elementwise")
+
+
+def sr_quant_keyed_cost(P: int, C: int) -> KernelCost:
+    """K1's keyed segment entry: ``w`` read once, the output written once a
+    client, ``delta``; 20 integer operations an output element (Philox)."""
+    return KernelCost("K1", 0.0, 20.0 * C * P, 4 * P + 4 * C * P + 4 * C,
+                      2 * P + 2 * C * P + 2 * C, "int32", "elementwise")
+
+
+def sr_quant_inline_cost(n: int, out_dtype: torch.dtype) -> KernelCost:
+    """K1's inline entry (one weight use): f32 ``w`` read, ``out_dtype``
+    written, ``delta``; 20 integer operations an element."""
+    es = _elem_bytes(out_dtype)
+    return KernelCost("K1", 0.0, 20.0 * n, 4 * n + es * n + 4,
+                      2 * n + _elem_bytes(out_dtype, True) * n + 2, "int32", "elementwise")
+
+
+def sr_pack_segments_cost(P: int, C: int, L: int, code_dtype: torch.dtype) -> KernelCost:
+    """K2's u-taking entry: gradients and uniforms read once, the codes
+    written once, offsets and pitches once."""
+    es = _elem_bytes(code_dtype)
+    raw = 8 * C * P + C * P * es + 4 * (2 * L + 1)
+    b16 = 4 * C * P + C * P * es + 4 * (L + 1) + 2 * L
+    return KernelCost("K2", 0.0, 0.0, raw, b16, "f32", "elementwise")
+
+
+def sr_pack_keyed_cost(P: int, C: int, L: int, code_dtype: torch.dtype) -> KernelCost:
+    """K2's keyed entry: the gradients read once, the codes written once,
+    the pitches (L,) and the non-finite count; 20 integer operations an
+    element."""
+    es = _elem_bytes(code_dtype)
+    return KernelCost("K2", 0.0, 20.0 * C * P, 4 * C * P + C * P * es + 4 * L + 8,
+                      2 * C * P + C * P * es + 2 * L + 8, "int32", "elementwise")
+
+
+def quant_matmul_cost(M: int, K: int, N: int, x_dtype: torch.dtype,
+                      code_dtype: torch.dtype) -> KernelCost:
+    """K3: ``x`` (M, K), the codes (K, N), the scale and the f32 output;
+    2 M K N operations at ``x``'s dtype peak."""
+    ec = _elem_bytes(code_dtype)
+    raw = _elem_bytes(x_dtype) * M * K + ec * K * N + 4 + 4 * M * N
+    b16 = _elem_bytes(x_dtype, True) * M * K + ec * K * N + 2 + 2 * M * N
+    return KernelCost("K3", 2.0 * M * K * N, 0.0, raw, b16, _peak_of(x_dtype), "dot")
+
+
+def flash_attention_cost(BH: int, S: int, D: int, dtype: torch.dtype,
+                         causal: bool) -> KernelCost:
+    """K4: q, k, v read and the output written once; the two products,
+    4 BH D operations a query-key pair (S(S+1)/2 pairs causal, S^2 not), at
+    the bf16 peak for f32 inputs too (the split path runs on the bf16
+    tensor cores)."""
+    pairs = S * (S + 1) / 2 if causal else S * S
+    n = BH * S * D
+    return KernelCost("K4", 4.0 * BH * D * pairs, 0.0, 4 * n * _elem_bytes(dtype),
+                      4 * n * _elem_bytes(dtype, True), "bf16", "dot")
+
+
+def flash_decode_cost(B: int, KV: int, G: int, hd: int, q_dtype: torch.dtype,
+                      pool_dtype: torch.dtype, n_pmax: int, tokens: int) -> KernelCost:
+    """K5: q, the ``tokens`` keys and values the slots' lengths reach, the
+    page table, the lengths and the f32 outputs ``(acc, m, l)``;
+    4 KV G hd operations a token at the f32 peak."""
+    qn = B * KV * G * hd
+
+    def nbytes(bf16: bool) -> float:
+        return (qn * _elem_bytes(q_dtype, bf16)
+                + 2 * tokens * KV * hd * _elem_bytes(pool_dtype, bf16)
+                + 4 * B * n_pmax + 4 * B
+                + _elem_bytes(torch.float32, bf16) * (qn + 2 * qn // hd))
+
+    return KernelCost("K5", 4.0 * KV * G * hd * tokens, 0.0, nbytes(False), nbytes(True),
+                      "f32", "dot")
+
+
+def decode_tokens(page_table, lengths, page: int) -> int:
+    """The keys K5 reads at these lengths: each slot's tokens in the pages
+    it owns (``page_table`` rows of page ids, -1 a hole; host lists)."""
+    return sum(min(page, n - j * page) for row, n in zip(page_table, lengths)
+               for j, pid in enumerate(row) if pid >= 0 and j * page < n)
+
+
+# ---------------------------------------------------------------------------
+# The record
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Node(KernelCost):
+    """One counted operation, a dot the step dispatched or a kernel call:
+    its cost, and where and how much of it one device runs."""
+
+    op: str = ""             # aten op, or the kernel's entry name
+    share: float = 1.0       # the share of it one device of the mesh does
+    shape: str = ""
+    site: str = ""           # the port function that ran it (a backward
+                             # dot: the function of its forward op)
+
+
+@dataclasses.dataclass
+class HostRead:
+    """A device value the step reads on the host (a sync on the card)."""
+
+    site: str                # file:line and function of the read
+    what: str
+
+
+@dataclasses.dataclass
+class Record:
+    """What one traced step dispatched (see the module docstring)."""
+
+    computation: str = "step"
+    decode_len: int | list | None = None   # tokens K5 reads a slot (or per slot)
+    nodes: list = dataclasses.field(default_factory=list)
+    collectives: list = dataclasses.field(default_factory=list)
+    host_reads: list = dataclasses.field(default_factory=list)
+    argument_bytes: int = 0
+    output_bytes: int = 0
+    peak_bytes: int = 0
+    live_bytes: int = 0
+    _share: list = dataclasses.field(default_factory=lambda: [1.0])
+
+    @property
+    def share(self) -> float:
+        return self._share[-1]
+
+    def by_site(self) -> dict:
+        """``{site: [flops, bf16-equivalent bytes]}`` of the dot stream per
+        device, by the port function each dot ran in."""
+        out: dict = defaultdict(lambda: [0.0, 0.0])
+        for n in self.nodes:
+            if n.stream == "dot":
+                out[n.site][0] += n.flops * n.share
+                out[n.site][1] += n.bytes_bf16 * n.share
+        return dict(out)
+
+
+_ACTIVE: Record | None = None
+
+
+def active() -> Record | None:
+    """The record being written, or None outside :func:`recording`."""
+    return _ACTIVE
+
+
+@contextlib.contextmanager
+def share(fraction: float):
+    """Count what runs inside at ``fraction`` of itself per device (a no-op
+    outside a recording)."""
+    rec = _ACTIVE
+    if rec is None:
+        yield
+        return
+    rec._share.append(rec.share * float(fraction))
+    try:
+        yield
+    finally:
+        rec._share.pop()
+
+
+def record_kernel(op: str, cost: KernelCost, shape: str = "") -> None:
+    """A kernel call on the trace route (``kernels/ops.py``)."""
+    rec = _ACTIVE
+    if rec is not None:
+        rec.nodes.append(Node(**dataclasses.asdict(cost), op=op, share=rec.share,
+                              shape=shape, site=_port_function(sys._getframe(1))))
+
+
+def record_collective(kind: str, dtype: torch.dtype, elems: int, group: int,
+                      name: str) -> None:
+    """A collective the reference's device issues here: ``kind`` over a
+    group of ``group`` devices, a result of ``elems`` elements of ``dtype``
+    (a no-op outside a recording)."""
+    rec = _ACTIVE
+    if rec is None:
+        return
+    if kind not in COLLECTIVE_KINDS:
+        raise ValueError(f"unknown collective {kind!r}")
+    nbytes = float(elems * _elem_bytes(dtype))
+    rec.collectives.append(CollectiveOp(
+        kind=kind, dtype=HLO_DTYPES[dtype], elems=int(elems), bytes=nbytes,
+        wire_bytes=ring_wire_bytes(kind, nbytes, int(group)), group_size=int(group),
+        mult=rec.share, name=name, computation=rec.computation,
+        parts=((HLO_DTYPES[dtype], int(elems)),)))
+
+
+def _call_site() -> str:
+    for fr in reversed(traceback.extract_stack()[:-2]):
+        if "/torch/" not in fr.filename and not fr.filename.endswith("roofline/count.py"):
+            return f"{fr.filename.split('/src/')[-1]}:{fr.lineno} {fr.name}"
+    return "?"
+
+
+def is_traced(t) -> bool:
+    """Whether ``t`` is a fake tensor (the trace route's tensors; a meta
+    tensor is no traced step's and has no route)."""
+    return isinstance(t, FakeTensor)
+
+
+def host_read(t: torch.Tensor, what: str):
+    """Read ``t`` on the host, as ``int(t)`` does, where the real step reads
+    it.  On a traced tensor there is no value: the read is recorded with its
+    call site and None returned, and the caller skips what the value would
+    only have checked (never a branch of the computation)."""
+    if is_traced(t):
+        if _ACTIVE is not None:
+            _ACTIVE.host_reads.append(HostRead(_call_site(), what))
+        return None
+    return int(t)
+
+
+# ---- the dispatch mode ------------------------------------------------------
+
+
+def _port_function(frame) -> str:
+    """Qualified name of the innermost port function on the stack (the
+    kernels' trace route and this module excluded)."""
+    while frame is not None:
+        name = frame.f_code.co_filename
+        if ("repro_torch" in name and not name.endswith(("roofline/count.py",
+                                                         "kernels/ops.py"))):
+            return frame.f_code.co_qualname
+        frame = frame.f_back
+    return "?"
+
+_aten = torch.ops.aten
+#: matmul ops -> (index of lhs, index of rhs) among the positional args
+_DOTS = {_aten.mm.default: (0, 1), _aten.addmm.default: (1, 2),
+         _aten.bmm.default: (0, 1), _aten.baddbmm.default: (1, 2),
+         _aten.dot.default: (0, 1), _aten.vdot.default: (0, 1),
+         _aten.mv.default: (0, 1), _aten.addmv.default: (1, 2)}
+
+
+class _Recorder(TorchDispatchMode):
+    def __init__(self, rec: Record):
+        super().__init__()
+        self.rec = rec
+        self.live: dict = {}
+        self.sites: dict = {}        # autograd sequence number -> forward site
+
+    def track(self, t: torch.Tensor) -> None:
+        st = t.untyped_storage()
+        key = id(st)
+        if key in self.live:
+            return
+        n = st.nbytes()
+        self.live[key] = n
+        self.rec.live_bytes += n
+        self.rec.peak_bytes = max(self.rec.peak_bytes, self.rec.live_bytes)
+        weakref.finalize(st, self._free, key)
+
+    def _free(self, key) -> None:
+        n = self.live.pop(key, 0)
+        self.rec.live_bytes -= n
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func is _aten._local_scalar_dense.default:
+            raise RuntimeError(
+                f"a host read of a traced value at {_call_site()}: read it through "
+                "repro_torch.roofline.count.host_read")
+        out = func(*args, **kwargs)
+        node = torch._C._current_autograd_node()
+        if node is not None:                    # backward: the forward op's site
+            site = self.sites.get(node._sequence_nr(), "?")
+        else:
+            site = _port_function(sys._getframe(1))
+        # the node this op made (if any) has the number before the counter
+        self.sites.setdefault(torch._C._autograd._get_sequence_nr() - 1, site)
+        if func in _DOTS:
+            i, j = _DOTS[func]
+            self._dot(str(func.overloadpacket), args[i], args[j], out, site)
+        for t in (out if isinstance(out, (tuple, list)) else (out,)):
+            if isinstance(t, torch.Tensor):
+                self.track(t)
+        return out
+
+    def _dot(self, op, a, b, out, site) -> None:
+        k = a.shape[-1] if a.ndim else 1
+        flops = 2.0 * out.numel() * k
+        raw = _tensor_bytes(a) + _tensor_bytes(b) + _tensor_bytes(out)
+        b16 = _tensor_bytes(a, True) + _tensor_bytes(b, True) + _tensor_bytes(out, True)
+        peak = "bf16" if a.dtype == torch.bfloat16 else "f32"
+        dims = [",".join(map(str, t.shape)) for t in (a, b, out)]
+        shape = f"{dims[0]}@{dims[1]}->{dims[2]} k={k}"
+        self.rec.nodes.append(Node(None, flops, 0.0, raw, b16, peak, "dot", op=op,
+                                   share=self.rec.share, shape=shape, site=site))
+
+
+def _tensors(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+    elif dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        for f in dataclasses.fields(tree):
+            yield from _tensors(getattr(tree, f.name))
+
+
+@contextlib.contextmanager
+def recording(arguments=(), *, computation: str = "step", decode_len=None):
+    """Record every operation run inside (under a ``FakeTensorMode`` the
+    caller entered).  ``arguments``: the step's inputs, live from the start
+    (the high-water mark counts them).  Yields the :class:`Record`."""
+    global _ACTIVE
+    if _ACTIVE is not None:
+        raise RuntimeError("a recording is already active")
+    rec = Record(computation=computation, decode_len=decode_len)
+    mode = _Recorder(rec)
+    for t in _tensors(arguments):
+        mode.track(t)
+    _ACTIVE = rec
+    try:
+        with mode:
+            yield rec
+    finally:
+        _ACTIVE = None
+
+
+def tree_bytes(tree) -> int:
+    """Bytes of the distinct storages a tree of tensors holds."""
+    seen, n = set(), 0
+    for t in _tensors(tree):
+        st = t.untyped_storage()
+        if id(st) not in seen:
+            seen.add(id(st))
+            n += st.nbytes()
+    return n
+
+
+def costs(rec: Record, *, bf16: bool = False) -> ModuleCosts:
+    """The dot stream's and the collectives' totals per device, as
+    ``parse_module`` gives them for the reference (``bf16``: the
+    bf16-equivalent rewrite)."""
+    flops = sum(n.flops * n.share for n in rec.nodes if n.stream == "dot")
+    dbytes = sum((n.bytes_bf16 if bf16 else n.bytes) * n.share
+                 for n in rec.nodes if n.stream == "dot")
+    by_kind: dict = defaultdict(float)
+    counts: dict = defaultdict(float)
+    ops = []
+    for op in rec.collectives:
+        if bf16 and op.dtype == "f32":
+            op = dataclasses.replace(op, dtype="bf16", bytes=op.bytes / 2,
+                                     wire_bytes=op.wire_bytes / 2,
+                                     parts=(("bf16", op.elems),))
+        by_kind[op.kind] += op.wire_bytes * op.mult
+        counts[op.kind] += op.mult
+        ops.append(op)
+    return ModuleCosts(flops=flops, dot_bytes=dbytes,
+                       collective_bytes=sum(by_kind.values()),
+                       collective_by_kind=dict(by_kind),
+                       collective_counts={k: int(round(v)) for k, v in counts.items()},
+                       n_while=0, collectives=ops)

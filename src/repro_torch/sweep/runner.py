@@ -10,7 +10,10 @@ Execution model
   card that should not accumulate across a grid, and a wedged cell must not
   wedge the sweep.  A ``Dx1`` mesh runs its D clients in a loop on one
   device (``launch/mesh.py``), so a child needs one card whatever its mesh.
-* ``dryrun`` cells raise (ROADMAP items 12 and 14) and become error rows.
+* ``dryrun`` cells run **in-process** too: a traced step allocates nothing
+  (:meth:`repro_torch.api.session.Session.run_dryrun`).  The port traces
+  ``Dx1`` meshes; a pod mesh (a model axis above 1, every preset's ``16x16``)
+  raises (ROADMAP items 9 and 14) and becomes an error row.
 
 Every cell runs on the runner's ``device``: ``None`` means CUDA, and a run
 without a card raises rather than falling back to the CPU; ``"cpu"`` runs
@@ -67,12 +70,6 @@ def git_sha() -> str:
 # ---------------------------------------------------------------------------
 
 
-def _not_ported_dryrun() -> NotImplementedError:
-    return NotImplementedError(
-        "workload 'dryrun' is not ported to PyTorch yet (ROADMAP queue 1, "
-        "items 12 and 14)")
-
-
 def _plain(x):
     """Plain-Python form of a metrics value: tensors and numpy scalars and
     arrays become numbers and lists, so ``json.dumps`` takes the result."""
@@ -90,9 +87,9 @@ def execute_cell(spec: RunSpec, device=None) -> dict:
     from repro_torch.api.session import Session
 
     wl = spec.workload
-    if wl == "dryrun":
-        raise _not_ported_dryrun()
     sess = Session(spec, device=device)
+    if wl == "dryrun":
+        return _plain(sess.run_dryrun(verbose=False))
     if wl == "fl-sim":
         out = sess.run()
         evals = out.get("evals") or []

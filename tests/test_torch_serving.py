@@ -85,8 +85,9 @@ def test_cuda_request_without_cuda_raises(monkeypatch):
 
 
 def test_unported_workloads_raise():
-    spec = RunSpec("yi-6b", workload="dryrun")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # a dry run on a pod mesh (model axis > 1) waits for tensor parallelism
+    spec = RunSpec("yi-6b", workload="dryrun", mesh="16x16", options={"shape": "train_4k"})
+    with pytest.raises(NotImplementedError, match="items 9 and 14"):
         Session(spec, device="cpu").run()
     for mesh in ("2x1", "1x2"):                 # batch-sharded serving, tp > 1
         with pytest.raises(NotImplementedError, match="ROADMAP"):
