@@ -146,6 +146,20 @@ Phases (each one failing stops the script with a nonzero exit):
     tensors; yi-6b's full-width ``shapes_for`` cells traced on 1x1 with
     nothing left allocated on the card.  Every bound of phase kernels comes
     from ``repro_torch.roofline.count``'s cost functions.
+11. analyze: the port's static analyzer (``Session.analyze``,
+    ``repro_torch.analyze``) on each main path's spec, every step traced on
+    fake CUDA tensors with nothing allocated: full-width yi-6b, olmoe-1b-7b
+    and seamless-m4t served with lazy int8 weights (decode and prefill),
+    and the 8-layer yi-6b trainer on 4x1 at comm 8; per path the findings
+    by rule, the wire accumulator's proofs, the graphs' sizes and the
+    seconds; an unallowlisted error (``analyze_torch.toml``) fails.  Then
+    every shipped ``KernelSpec`` (the reference's dims and each path's)
+    launched on NaN-filled outputs: the elements written must be the
+    spec's coverage, the plan the launcher's, the output the plain
+    version's within the reference's tolerances.  Then ``python -m
+    repro_torch analyze --preset ci-tiny --fail-on error`` (in this
+    process), and the CPU tests' smoke trainer, which must find on fake
+    CUDA tensors what it finds on fake CPU ones.
 
 Each phase prints its own time.  The last two lines are the kernel table
 and ``{"ok": true, "device": ...}``.
@@ -169,6 +183,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import itertools
 import json
 import math
@@ -3388,8 +3403,295 @@ def phase_roofline_all(dev: dict, device: str = "cuda") -> None:
                 "kernel_s", "dominant", "useful_flops_ratio", "card_bound_s")}})
 
 
+#: phase analyze: each main path's spec, analyzed on fake CUDA tensors (the
+#: serving paths at full width with lazy int8 weights, flash kernels and
+#: 16-token pages; the trainer at phase train's 8 layers on 4x1, comm 8)
+ANALYZE_SERVE = ("yi-6b", "olmoe-1b-7b", "seamless-m4t-large-v2")
+ANALYZE_SERVE_OPTIONS = {"attn_impl": "flash", "kv_layout": "paged", "page_size": 16,
+                         "pool_pages": 64, "s_max": 256, "prompt_len": 128}
+#: tests/test_kernels.py's (and tests/test_paged_kv.py's) tolerances
+SPEC_TOLERANCES = {("quant_matmul", torch.float32): (1e-5, 1e-2),
+                   ("quant_matmul", torch.bfloat16): (2e-2, 1e-2),
+                   ("flash_attention", torch.float32): (2e-4, 2e-4),
+                   ("flash_attention", torch.bfloat16): (3e-2, 3e-2),
+                   ("flash_decode", torch.float32): (1e-5, 1e-5)}
+
+
+def _analyze_sessions(device: str = "cuda") -> list:
+    """(label, Session) of each main path phase analyze lints."""
+    from repro_torch.api import PrecisionPolicy, RunSpec, Session
+
+    out = [(f"{arch} serve", Session(RunSpec(arch, workload="serve", smoke=False, batch=4,
+                                             seq=256, precision=PrecisionPolicy.lazy_int8(7),
+                                             options=dict(ANALYZE_SERVE_OPTIONS)),
+                                     device=device))
+           for arch in ANALYZE_SERVE]
+    run = dict(workload="train", rounds=1, precision=dict(comm=8), options={})
+    out.append(("yi-6b train (8 layers, 4x1, comm 8)", _train_session(run, device)))
+    return out
+
+
+def coverage_mask(spec, op) -> np.ndarray:
+    """The elements of operand ``op`` the spec's grid visits."""
+    mask = np.zeros(op.shape, dtype=bool)
+    for g in itertools.product(*map(range, spec.grid)):
+        idx = op.index_map(*g)
+        if idx is not None:
+            mask[tuple(slice(i * b, min((i + 1) * b, n))
+                       for i, b, n in zip(idx, op.block, op.shape))] = True
+    return mask
+
+
+def _nan_filled_launch(launch):
+    """``launch()`` with the launchers' own ``torch.empty`` outputs NaN-filled:
+    deterministic mode fills uninitialized float memory with NaN (warnings
+    only, so nothing else it checks refuses to run), and is then put back."""
+    import torch.utils.deterministic
+
+    if not torch.utils.deterministic.fill_uninitialized_memory:
+        raise AssertionError("analyze: torch.utils.deterministic.fill_uninitialized_memory "
+                             "is off, so the kernels' outputs would not start as NaN")
+    on = torch.are_deterministic_algorithms_enabled()
+    warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        return launch()
+    finally:
+        torch.use_deterministic_algorithms(on, warn_only=warn_only)
+
+
+def hold_spec(spec, gen) -> dict:
+    """Launch the spec's kernel with its outputs starting as NaN: the
+    elements written must be the spec's coverage, the plan the launcher's
+    (K3: its shared memory the library's own figure), and the output the
+    plain version's within the reference's tolerances."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    x = spec.inputs[0]
+    if spec.name == "quant_matmul":
+        (M, K), N = x.shape, spec.outputs[0].shape[1]
+        dtype = torch.bfloat16 if spec.path == "wgmma" else torch.float32
+        p = spec.plan
+        assert qm.plan(M, K, N, dtype, torch.int8, sms) == p, p
+        smem = _build.lib().repro_quant_matmul_smem(
+            _build.DTYPE_CODES[dtype], _build.DTYPE_CODES[torch.int8], M, K, N,
+            qm.PATHS[p.path], p.tile_m, p.tile_n, p.split)
+        if smem != spec.smem_bytes:
+            raise AssertionError(f"analyze: K3 {p} at M={M} K={K} N={N}: the spec states "
+                                 f"{spec.smem_bytes} bytes of shared memory, the launch "
+                                 f"takes {smem}")
+        xs = torch.randn((M, K), generator=gen, device="cuda").to(dtype)
+        codes = torch.randint(-127, 128, (K, N), generator=gen, device="cuda",
+                              dtype=torch.int32).to(torch.int8)
+        scale = torch.tensor([2.0 / math.sqrt(K) / 127], device="cuda")
+        outs = (_nan_filled_launch(lambda: qm.quant_matmul_cuda(xs, codes, scale)),)
+        wants = (qm.quant_matmul_plain(xs, codes, scale),)
+        shape = f"M={M} K={K} N={N}"
+    elif spec.name == "flash_attention":
+        BH, S, D = x.shape
+        dtype = torch.bfloat16 if spec.path == "wgmma" else torch.float32
+        causal = spec.causal
+        assert fa.plan_attention(BH, S, D, dtype, causal, sms) == spec.plan, spec.plan
+        q, k, v = (torch.randn((BH, S, D), generator=gen, device="cuda").to(dtype)
+                   for _ in range(3))
+        outs = (_nan_filled_launch(lambda: fa.flash_attention_cuda(q, k, v, causal)),)
+        wants = (fa.flash_attention_plain(q, k, v, causal),)
+        shape = f"BH={BH} S={S} D={D} causal={causal}"
+    else:
+        B, KV, G, hd = x.shape
+        n_pool, page = spec.inputs[1].shape[:2]
+        pt = torch.tensor(np.asarray(spec.scalars[0].values).reshape(B, -1), dtype=torch.int32,
+                          device="cuda")
+        lengths = torch.tensor(np.asarray(spec.scalars[1].values), dtype=torch.int32,
+                               device="cuda")
+        dtype = torch.float32
+        assert fa.plan_decode(B, KV, G, hd, page, pt.shape[1], dtype, dtype, sms) == spec.plan
+        q = torch.randn((B, KV, G, hd), generator=gen, device="cuda")
+        kp, vp = (torch.randn((n_pool, page, KV, hd), generator=gen, device="cuda")
+                  for _ in range(2))
+        outs = _nan_filled_launch(lambda: fa.flash_decode_cuda(q, kp, vp, pt, lengths))
+        racc, rm, rl = fa.flash_decode_plain(q, kp, vp, pt, lengths)
+        wants = (racc, rm, rl)
+        shape = f"B={B} KV={KV} G={G} hd={hd} page={page} pool={n_pool}"
+    torch.cuda.synchronize()
+    for op, got in zip(spec.outputs, outs):
+        written = (~torch.isnan(got)).cpu().numpy()
+        covered = coverage_mask(spec, op)
+        if not np.array_equal(written, covered):
+            raise AssertionError(f"analyze: {spec.name} ({spec.path}, {shape}) output "
+                                 f"{op.name}: {int((written != covered).sum())} elements "
+                                 "where what the kernel wrote is not the spec's coverage")
+    rtol, atol = SPEC_TOLERANCES[(spec.name, dtype)]
+    case = f"spec {spec.name} {spec.path} {shape}"
+    if spec.name == "flash_decode":
+        acc, m, l = outs
+        _check(case + " acc/l", acc / l.clamp_min(1e-30), racc / rl.clamp_min(1e-30), rtol, atol)
+        _check(case + " m", m, rm, 2e-5, 2e-5)
+        _check(case + " l", l, rl, 2e-5, 2e-5)
+    else:
+        _check(case, outs[0], wants[0], rtol, atol)
+    return {"kernel": spec.name, "path": spec.path, "shape": shape, "grid": list(spec.grid),
+            "smem_bytes": spec.smem_bytes, "max_abs_err": max_errs(outs[0], wants[0])[0],
+            "covered": "equal"}
+
+
+def _analyze_path(sess, allowlist: str) -> dict:
+    """``sess.analyze`` with each traced graph's operations counted by
+    ``(op, file.py:function)`` and K4's launches in it gathered."""
+    from collections import Counter
+
+    ops_of, k4 = {}, set()
+    trace = sess.trace
+
+    def traced(shape, *a, **kw):
+        rec, meta = trace(shape, *a, **kw)
+        g = rec.graph
+        ops_of[meta["kind"]] = Counter((o.op, o.key) for o in g.ops)
+        for o in g.ops:
+            if o.kind == "kernel" and o.op == "flash_attention":
+                dt, shp = g.meta[o.ins[0]]
+                k4.add((tuple(shp), dt, bool(o.params["causal"])))
+        return rec, meta
+
+    sess.trace = traced
+    proofs: list = []
+    t0 = time.time()
+    findings = sess.analyze(compile=True, allowlist=allowlist, proofs=proofs)
+    return {"findings": findings, "proofs": proofs, "seconds": time.time() - t0,
+            "ops": ops_of, "k4": k4,
+            "identities": sorted((f.rule, f.key, f.cell, f.severity, f.allowed)
+                                 for f in findings),
+            "proof_records": sorted(json.dumps(p, sort_keys=True) for p in proofs)}
+
+
+def graph_difference(cpu: dict, cuda: dict) -> dict:
+    """Per step kind, the ``(op, file.py:function)`` counts that differ
+    between the fake-CPU and the fake-CUDA graph (CUDA minus CPU)."""
+    out = {}
+    for kind in sorted(set(cpu) | set(cuda)):
+        a, b = cpu.get(kind, {}), cuda.get(kind, {})
+        d = {f"{op} @ {key}": b.get((op, key), 0) - a.get((op, key), 0)
+             for op, key in set(a) | set(b) if a.get((op, key), 0) != b.get((op, key), 0)}
+        if d:
+            out[kind] = dict(sorted(d.items(), key=lambda kv: (-abs(kv[1]), kv[0])))
+    return out
+
+
+def phase_analyze(dev: dict) -> None:
+    """The port's static analyzer on the card (``Session.analyze``: each
+    step traced on fake CUDA tensors, nothing allocated).  Each main path's
+    spec: findings by rule, the wire accumulator's proof, the graph's size
+    and the seconds it took; any unallowlisted error fails; the same spec
+    analyzed on fake CPU tensors (as the CPU tests trace) must give the same
+    findings and proofs, and where the two graphs' operations differ is
+    printed.  Then every shipped ``KernelSpec`` (the reference's dims, each
+    cell's, and K4 at each shape and mask the main paths' traces launch it
+    at) held against its launched kernel; ``python -m repro_torch analyze
+    --preset ci-tiny --fail-on error``; and the CPU tests' smoke trainer,
+    which must find on fake CUDA tensors what it finds on fake CPU ones."""
+    from collections import Counter
+
+    from repro_torch.analyze.findings import at_or_above
+    from repro_torch.analyze.runner import _kernel_cells
+
+    allowlist = os.path.join(ROOT, "analyze_torch.toml")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    rows, specs, k4 = [], {}, set()
+
+    def add_spec(ks):
+        specs.setdefault((ks.name, ks.path, ks.causal, tuple(o.shape for o in ks.operands)),
+                         ks)
+
+    cpu_sessions = dict(_analyze_sessions("cpu"))
+    for label, sess in _analyze_sessions():
+        got = _analyze_path(sess, allowlist)
+        cpu = _analyze_path(cpu_sessions.pop(label), allowlist)
+        findings, proofs = got["findings"], got["proofs"]
+        errors = at_or_above(findings, "error")
+        rules = Counter(f"{f.rule}{' (allowed)' if f.allowed else ''}" for f in findings)
+        wire = [{k: p[k] for k in ("name", "dtype", "n", "worst_sum", "headroom_bits", "ok")}
+                for p in proofs if p.get("kind") in ("psum", "reduce-scatter")]
+        sizes = {k: sum(c.values()) for k, c in got["ops"].items()}
+        cpu_sizes = {k: sum(c.values()) for k, c in cpu["ops"].items()}
+        diff = graph_difference(cpu["ops"], got["ops"])
+        alike = (got["identities"] == cpu["identities"]
+                 and got["proof_records"] == cpu["proof_records"])
+        row = {"path": label, "seconds": got["seconds"], "graph_ops": sizes,
+               "findings": dict(rules), "wire_proofs": wire,
+               "unallowlisted_errors": [f.format() for f in errors],
+               "cpu_seconds": cpu["seconds"], "cpu_graph_ops": cpu_sizes,
+               "cpu_alike": alike, "cuda_minus_cpu_ops": diff}
+        rows.append(row)
+        print(f"analyze {label}: {got['seconds']:.1f} s, graph ops {sizes}, findings "
+              f"{dict(rules)}, wire proofs "
+              f"{[(p['name'], p['worst_sum'], p['headroom_bits']) for p in wire]}")
+        print(f"analyze {label} on fake CPU tensors: {cpu['seconds']:.1f} s, graph ops "
+              f"{cpu_sizes}, findings and proofs {'alike' if alike else 'DIFFERENT'}; "
+              f"operations CUDA minus CPU: {json.dumps(diff)[:1500]}")
+        if errors:
+            raise AssertionError(f"analyze {label}: unallowlisted errors\n"
+                                 + "\n".join(f.format() for f in errors))
+        if not alike:
+            raise AssertionError(
+                f"analyze {label}: fake CPU and fake CUDA tensors find differently:\n"
+                f"cuda {got['identities']} {got['proof_records']}\n"
+                f"cpu {cpu['identities']} {cpu['proof_records']}")
+        k4 |= got["k4"]
+        for ks in _kernel_cells(sess):
+            add_spec(ks)
+    for (BH, S, D), dt, causal in sorted(k4):
+        add_spec(fa.attention_spec(BH, S, D, dtype=getattr(torch, dt), causal=causal))
+    from repro_torch.analyze.kernel_check import shipped_kernel_specs
+
+    for ks in shipped_kernel_specs():
+        add_spec(ks)
+    torch.cuda.synchronize()
+    if torch.cuda.memory_allocated() != before:
+        raise AssertionError("analyze: the analyses allocated on the card")
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    t0 = time.time()
+    held = [hold_spec(ks, gen) for ks in specs.values()]
+    print(f"analyze: {len(held)} KernelSpecs held against their kernels in "
+          f"{time.time() - t0:.1f} s: {sorted(Counter((h['kernel'], h['path']) for h in held).items())}; "
+          f"K4 at the main paths' {len(k4)} launch shapes: {sorted(k4)}")
+    from repro_torch.__main__ import main as repro_main
+
+    t0 = time.time()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):    # python -m repro_torch analyze, in this process
+        rc = repro_main(["analyze", "--preset", "ci-tiny", "--fail-on", "error",
+                         "--allowlist", allowlist])
+    cli_s = time.time() - t0
+    print(f"analyze: python -m repro_torch analyze --preset ci-tiny --fail-on error: rc "
+          f"{rc} in {cli_s:.1f} s; {out.getvalue().strip().splitlines()[-1:]}")
+    if rc != 0:
+        raise AssertionError(f"analyze: the ci-tiny gate failed\n{out.getvalue()[-3000:]}")
+    from repro_torch.api import RunSpec, Session
+
+    # the CPU tests' 4x1 comm-8 smoke trainer (tests/analyze_reference.py)
+    smoke = RunSpec.from_dict({"arch": "yi-6b", "workload": "train", "mesh": "4x1",
+                               "smoke": True, "batch": 1, "seq": 16, "precision": {"comm": 8}})
+    t0 = time.time()
+    got = {device: _analyze_path(Session(smoke, device=device), allowlist)
+           for device in ("cpu", "cuda")}
+    if any(got["cpu"][k] != got["cuda"][k] for k in ("identities", "proof_records")):
+        raise AssertionError(f"analyze: the smoke trainer finds differently on fake CPU and "
+                             f"fake CUDA tensors: {got}")
+    smoke_s = time.time() - t0
+    by_name = Counter()
+    for (op, _key), n in got["cuda"]["ops"]["train"].items():
+        by_name[op] += n
+    print(f"analyze: the smoke trainer (4x1, comm 8) finds alike on fake CPU and fake CUDA "
+          f"tensors ({smoke_s:.1f} s); operations CUDA minus CPU: "
+          f"{graph_difference(got['cpu']['ops'], got['cuda']['ops'])}; its graph's "
+          f"operations by name under torch {torch.__version__}: "
+          f"{json.dumps(dict(sorted(by_name.items())))}")
+    emit({"analyze": {"card": f"{dev['kind']} ({dev['smi']})", "paths": rows,
+                      "specs_held": held, "ci_tiny_s": cli_s, "smoke_cpu_vs_cuda_s": smoke_s}})
+
+
 PHASES = ("device", "build", "kernels", "serve", "profile", "consistency", "fl", "train",
-          "roofline", "grids")
+          "roofline", "analyze", "grids")
 #: run only when named in ``--phases``
 EXTRA_PHASES = ("sweep", "decode_sweep", "attn_sweep", "train_profile", "grids_all",
                 "roofline_all")
@@ -3422,6 +3724,7 @@ def main(argv=None) -> int:
             ("fl", lambda: launches_of.update(fl=phase_fl(dev))),
             ("train", lambda: launches_of.update(train=phase_train(dev, measured))),
             ("roofline", lambda: phase_roofline(dev, measured)),
+            ("analyze", lambda: phase_analyze(dev)),
             ("roofline_all", lambda: phase_roofline_all(dev)),
             ("train_profile", lambda: phase_train_profile(dev)),
             ("grids", lambda: phase_grids(dev)),

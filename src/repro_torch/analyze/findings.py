@@ -60,3 +60,15 @@ def at_or_above(findings, threshold: str):
     cut = _RANK[threshold]
     return [f for f in findings
             if not f.allowed and _RANK[f.severity] <= cut]
+
+
+def source_key(op) -> tuple[str, str]:
+    """(allowlist key, provenance) of a traced operation (a
+    :class:`~repro_torch.roofline.count.GraphOp`).
+
+    Key is ``basename:function`` of the port function that ran it —
+    stable across line drift; provenance is ``path:line``.  Both are
+    ``"?"`` where no port frame was on the stack.  The reference's takes a
+    jaxpr equation's ``source_info``.
+    """
+    return getattr(op, "key", "?"), getattr(op, "where", "?")

@@ -36,6 +36,10 @@ and prices it on one H100 (:mod:`repro_torch.roofline`); on the CPU::
             device="cpu").run_dryrun(shape="decode_32k")
 
 A mesh with a model axis above 1 (the reference's pod meshes) raises.
+
+:meth:`Session.analyze` lints the step graphs a spec implies (precision
+taint, the interval interpreter, the wire lint, the kernels' launch grids;
+:mod:`repro_torch.analyze`) without executing them.
 """
 
 from __future__ import annotations
@@ -103,12 +107,6 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError("CUDA was asked for but torch.cuda.is_available() is "
                            "false; pass device='cpu' to run on the CPU")
     return dev
-
-
-def _not_ported(workload: str):
-    return NotImplementedError(
-        f"workload {workload!r} is not ported to PyTorch yet (ROADMAP queue 1, "
-        "item 14)")
 
 
 def _fake_like(t: torch.Tensor, device, dtype=None) -> torch.Tensor:
@@ -271,12 +269,13 @@ class Session:
             return self.run_fl_sim()
         if wl == "dryrun":
             return self.run_dryrun()
-        raise _not_ported(wl)
+        raise ValueError(wl)
 
     # ------------------------------------------------------------------
     # dryrun: a traced step and its roofline
     # ------------------------------------------------------------------
-    def trace(self, shape=None, variant: dict | None = None, *, decode_len=None):
+    def trace(self, shape=None, variant: dict | None = None, *, decode_len=None,
+              graph: bool = False):
         """Trace one (arch x shape) cell's step on this mesh, nothing allocated.
 
         ``shape``: a cell name from ``configs.shapes_for`` or a
@@ -294,7 +293,8 @@ class Session:
         ``decode_len`` tokens a slot (an int, or the slots' lengths; default
         the cell's ``seq_len``).  A prefill cell runs the policy's weights
         (packed where it packs) and the ``attn_impl`` option, which at the
-        defaults is the reference's cell.
+        defaults is the reference's cell.  ``graph``: also keep the step's
+        operation graph (``record.graph``, what :meth:`analyze` walks).
         Returns ``(record, meta)``.
         """
         from torch._subclasses.fake_tensor import FakeTensorMode
@@ -342,19 +342,19 @@ class Session:
         with FakeTensorMode(allow_fallback_kernels=False):
             if cell.kind == "train":
                 rec, outs = self._trace_train(model, cell, dev, meta_params, per_device,
-                                              param_share)
+                                              param_share, graph)
             elif cell.kind == "prefill":
                 rec, outs = self._trace_prefill(model, cell, dev, meta_params, per_device,
-                                                param_share)
+                                                param_share, graph)
             else:
                 rec, outs = self._trace_decode(model, cell, dev, meta_params, per_device,
-                                               param_share, decode_len)
+                                               param_share, decode_len, graph)
             rec.output_bytes = outs
         meta = dict(arch=spec.arch, shape=cell.name, mesh=spec.mesh, n_devices=D * axes.tp,
                     kind=cell.kind, seq_len=cell.seq_len, global_batch=cell.global_batch)
         return rec, meta
 
-    def _trace_train(self, model, cell, dev, meta_params, per_device, param_share):
+    def _trace_train(self, model, cell, dev, meta_params, per_device, param_share, graph):
         from repro_torch.launch.steps import SRDraws, build_train_step
         from repro_torch.optim import build_optimizer
         from repro_torch.roofline import count
@@ -369,7 +369,7 @@ class Session:
                  for k, v in model.train_batch_spec(cell.global_batch, cell.seq_len).items()}
         delta = torch.empty(D, dtype=torch.float32, device=dev)
         args = (params, opt_state, batch, delta)
-        with count.recording(args, computation="train") as rec:
+        with count.recording(args, computation="train", graph=graph) as rec:
             rec.argument_bytes = (per_device(params, param_share)
                                   + count.tree_bytes(opt_state)
                                   + per_device(batch, lambda k: 1.0 / D) + 4)
@@ -402,7 +402,7 @@ class Session:
                 out[k] = _fake_like(v, dev, _bf16(v.dtype))
         return out
 
-    def _trace_prefill(self, model, cell, dev, meta_params, per_device, param_share):
+    def _trace_prefill(self, model, cell, dev, meta_params, per_device, param_share, graph):
         from repro_torch.launch.steps import build_prefill_step
         from repro_torch.roofline import count
 
@@ -412,14 +412,14 @@ class Session:
         b = self._local_batch(cell)
         batch = {k: _fake_like(v, dev)
                  for k, v in model.train_batch_spec(b, cell.seq_len).items() if k != "labels"}
-        with count.recording((params, batch), computation="prefill") as rec:
+        with count.recording((params, batch), computation="prefill", graph=graph) as rec:
             rec.argument_bytes = per_device(params, param_share) + count.tree_bytes(batch)
             out = step.fn(params, batch)
             outs = count.tree_bytes(out)
         return rec, outs
 
     def _trace_decode(self, model, cell, dev, meta_params, per_device, param_share,
-                      decode_len):
+                      decode_len, graph):
         from repro_torch.launch.steps import build_decode_step, init_global_caches
         from repro_torch.roofline import count
 
@@ -434,13 +434,36 @@ class Session:
                                     page_size=None if page_size is None else int(page_size),
                                     pool_pages=spec.opt("pool_pages"))
         batch = {"token": torch.empty((b, 1), dtype=torch.int32, device=dev)}
-        with count.recording((params, batch, caches), computation="decode",
+        with count.recording((params, batch, caches), computation="decode", graph=graph,
                              decode_len=cell.seq_len if decode_len is None else decode_len) as rec:
             rec.argument_bytes = (per_device(params, param_share) + count.tree_bytes(caches)
                                   + count.tree_bytes(batch))
             tok, new_caches = step.fn(params, batch, caches)
             outs = count.tree_bytes(tok) + count.tree_bytes(new_caches)
         return rec, outs
+
+    def analyze(self, *, compile: bool = True, allowlist: str | None = None,
+                check_kernels: bool = True, rules=None,
+                proofs: list | None = None) -> list:
+        """Static precision / wire / kernel / range lint over this spec.
+
+        Traces the step graphs the RunSpec implies (:meth:`trace` with
+        ``graph=True``: fake tensors on the session's device, nothing
+        executed or allocated) and returns a list of
+        :class:`repro_torch.analyze.findings.Finding`.  ``compile=True``
+        runs the wire lint over the trace's collective records (the port
+        compiles nothing); ``allowlist`` names an allowlist file such as
+        ``analyze_torch.toml`` to mark known-legitimate findings (``None``
+        skips allowlisting).  ``rules`` selects rule families (see
+        ``repro_torch.analyze.runner.ALL_RULE_FAMILIES``); the
+        ``overflow``/``numerics`` families run the interval interpreter and
+        append positive proof records (accumulator headroom, error budget)
+        to ``proofs`` when a list is passed.
+        """
+        from repro_torch.analyze.runner import analyze_session
+
+        return analyze_session(self, compile=compile, allowlist_path=allowlist,
+                               check_kernels=check_kernels, rules=rules, proofs=proofs)
 
     def run_dryrun(self, shape=None, variant: dict | None = None, *,
                    verbose: bool = True, decode_len=None) -> dict:

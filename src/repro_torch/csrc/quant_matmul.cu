@@ -248,6 +248,29 @@ qmm_cluster(const __grid_constant__ CUtensorMap cmap, const __grid_constant__ CU
   cluster.sync();  // no block leaves while a peer still reads its tile
 }
 
+// The cluster path's stage geometry (kernels/quant_matmul.py:cluster_layout
+// mirrors it; repro_quant_matmul_smem reports its smem)
+struct ClusterGeom {
+  int rows, k_per_block, stage_bytes, area, smem;
+};
+
+ClusterGeom cluster_geom(int M, int K, int cols, int csize, int lanes, int sz, int xsz) {
+  ClusterGeom g;
+  const int groups = CL_THREADS / lanes;
+  // rows a stage: about CL_STAGE_BYTES of codes, a multiple of the row
+  // groups (so x's box row is a multiple of 16 bytes), at most 256 (TMA's
+  // box limit)
+  g.rows = CL_STAGE_BYTES / (cols * sz);
+  g.rows = max(groups, min(256, g.rows)) / groups * groups;
+  // a block's rows, a whole number of stages: every TMA box of x then starts
+  // on a 16-byte boundary, as TMA requires
+  g.k_per_block = ((K + csize - 1) / csize + g.rows - 1) / g.rows * g.rows;
+  g.stage_bytes = g.rows * cols * sz + ((M * g.rows * xsz + 127) & ~127);
+  g.area = max(CL_STAGES * g.stage_bytes, CL_TREE_BYTES);
+  g.smem = 128 + g.area + 2 * CL_STAGES * 8;
+  return g;
+}
+
 template <typename XT, typename CT, int MAXM>
 cudaError_t launch_cluster(const XT* x, const CT* codes, const float* scale, float* out,
                            int M, int K, int N, int cols, int csize, cudaStream_t stream) {
@@ -260,19 +283,9 @@ cudaError_t launch_cluster(const XT* x, const CT* codes, const float* scale, flo
       reinterpret_cast<uintptr_t>(codes) % 16 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0)
     return cudaErrorInvalidValue;
   const int tiles = (N + cols - 1) / cols;
-  const int groups = CL_THREADS / lanes;
-  // rows a stage: about CL_STAGE_BYTES of codes, a multiple of the row
-  // groups (so x's box row is a multiple of 16 bytes), at most 256 (TMA's
-  // box limit)
-  int rows = CL_STAGE_BYTES / (cols * SZ);
-  rows = max(groups, min(256, rows)) / groups * groups;
-  // a block's rows, a whole number of stages: every TMA box of x then starts
-  // on a 16-byte boundary, as TMA requires
-  const int k_per_block = ((K + csize - 1) / csize + rows - 1) / rows * rows;
+  const ClusterGeom g = cluster_geom(M, K, cols, csize, lanes, SZ, XSZ);
+  const int rows = g.rows, k_per_block = g.k_per_block, area = g.area, smem = g.smem;
   const int box_cols = min(cols, 256);
-  const int stage_bytes = rows * cols * SZ + ((M * rows * XSZ + 127) & ~127);
-  const int area = max(CL_STAGES * stage_bytes, CL_TREE_BYTES);
-  const int smem = 128 + area + 2 * CL_STAGES * 8;
   if (tiles > 65535 || smem > CL_MAX_SMEM) return cudaErrorInvalidValue;
   static bool attr_set = false;
   if (!attr_set) {
@@ -574,6 +587,29 @@ cudaError_t launch(const void* x, const void* codes, const void* scale, void* ou
 }
 
 }  // namespace
+
+// The shared memory a block of repro_quant_matmul's launch takes with this
+// plan (dynamic on the cluster and wgmma paths, static on the tiled one), by
+// the launch's own arithmetic; -1 for a plan the launcher does not take.
+extern "C" int repro_quant_matmul_smem(int x_dtype, int code_dtype, int M, int K, int N,
+                                       int path, int tile_m, int tile_n, int split) {
+  const int xsz = x_dtype == DT_BF16 ? 2 : 4, sz = code_dtype == DT_I16 ? 2 : 1;
+  if (path == PATH_CLUSTER) {
+    if (tile_m != 4 && tile_m != 8 && tile_m != 16) return -1;
+    const int lanes = tile_n / (CL_ACC / tile_m);
+    if (lanes < 1 || lanes > 32) return -1;
+    return cluster_geom(M, K, tile_n, split, lanes, sz, xsz).smem;
+  }
+  if (path == PATH_WGMMA) {
+    if (tile_m == 128 && tile_n == 256) return WgTiles<2, 256, 3>::SMEM;
+    if (tile_m == 128 && tile_n == 128) return WgTiles<2, 128, 4>::SMEM;
+    if (tile_m == 64 && tile_n == 128) return WgTiles<1, 128, 3>::SMEM;
+    if (tile_m == 64 && tile_n == 64) return WgTiles<1, 64, 4>::SMEM;
+    return -1;
+  }
+  if (path == PATH_TILED) return static_cast<int>(sizeof(float)) * TB_K * (TB_M + TB_N);
+  return -1;
+}
 
 // x_dtype: DT_F32 | DT_BF16; code_dtype: DT_I8 | DT_I16.  (path, tile_m,
 // tile_n, split) is the plan of kernels/quant_matmul.py:plan; a plan the

@@ -198,9 +198,10 @@ def quantized_psum_batch(axes: AxisCtx, grad, u, bits, *,
     the keyed path applies the guard inside K2 and, in ``"raise"`` mode,
     reads the device's non-finite count once.  A traced step records the
     collectives the reference's device issues for each leaf (the count's
-    ``psum`` in ``"raise"`` mode, the scale's ``pmax``, the codes' ``psum``;
-    a ``pmean`` at full precision), and counts the one K2 call at ``1 / D``
-    per device: each device of the reference packs its own client.
+    ``psum`` in ``"raise"`` mode, the scale's ``pmax``, and after K2 the
+    codes' ``psum`` with the codes as its operand; a ``pmean`` at full
+    precision), and counts the one K2 call at ``1 / D`` per device: each
+    device of the reference packs its own client.
     """
     single = isinstance(grad, torch.Tensor)
     grads = [grad] if single else list(grad)
@@ -222,7 +223,7 @@ def quantized_psum_batch(axes: AxisCtx, grad, u, bits, *,
                 raise ValueError(f"quantized_psum_batch: leaves (D={n}, ...) with uniforms "
                                  f"of their shape; got {tuple(g.shape)} and {tuple(uu.shape)}")
     if count.active() is not None and n > 1:
-        _record_wire([(g[0].dtype, g[0].numel()) for g in grads], int(bits), n, on_nonfinite)
+        _record_wire([g[0] for g in grads], int(bits), n, on_nonfinite)
     if n == 1:
         out = [g[0] for g in grads]             # single client: nothing to reduce
     elif int(bits) >= FULL_PRECISION_BITS:
@@ -240,17 +241,42 @@ def quantized_psum_batch(axes: AxisCtx, grad, u, bits, *,
 
 
 def _record_wire(leaves, bits: int, n: int, on_nonfinite: str) -> None:
-    """The reference's collectives for each wire leaf ``(dtype, elements)``."""
+    """The collectives the reference's device issues for each wire leaf
+    (``leaves``: client 0's gradient of each) before its codes exist: the
+    ``pmean`` at full precision, else the non-finite count's ``psum`` (in
+    ``"raise"`` mode) and the scale's ``pmax``.  The codes' ``psum`` is
+    recorded after K2 has made them (:func:`_record_codes`)."""
     name = "quantized_psum_batch"
-    for dtype, elems in leaves:
+    for g in leaves:
         if bits >= FULL_PRECISION_BITS:
-            count.record_collective("all-reduce", dtype, elems, n, f"{name} pmean")
+            count.record_collective("all-reduce", g.dtype, g.numel(), n, f"{name} pmean",
+                                    operand=g)
             continue
         if on_nonfinite == "raise":
-            count.record_collective("all-reduce", torch.int32, 1, n, f"{name} non-finite count")
+            count.record_collective("all-reduce", torch.int32, 1, n,
+                                    f"{name} non-finite count", operand=_device_count(g))
         count.record_collective("all-reduce", torch.float32, 1, n, f"{name} scale pmax")
-        count.record_collective("all-reduce", _TORCH_INT[np.dtype(wire_dtype(bits, n))],
-                                elems, n, f"{name} codes")
+
+
+def _device_count(g: torch.Tensor):
+    """One device's non-finite count of its leaf, the operand of the
+    reference's count ``psum``.  The port's keyed K2 counts inside the
+    kernel, so this is computed only for a traced step's graph, outside its
+    live bytes (None otherwise)."""
+    if not count.graph_active():
+        return None
+    with count.untracked():
+        return (~torch.isfinite(g)).sum(dtype=torch.int32)
+
+
+def _record_codes(codes: torch.Tensor, sizes, n: int) -> None:
+    """The codes' ``psum`` of each wire leaf (``sizes`` its elements), in
+    the wire dtype K2 wrote, with K2's codes as its operand."""
+    if count.active() is None:
+        return
+    for elems in sizes:
+        count.record_collective("all-reduce", codes.dtype, elems, n,
+                                "quantized_psum_batch codes", operand=codes)
 
 
 def _dequantized_means(codes, step, sizes, shapes, dtypes, n: int) -> list:
@@ -277,6 +303,7 @@ def _quantized_mean(grads, us, bits: int, n: int, on_nonfinite: str) -> list:
     with count.share(1 / n):
         codes = ops.sr_pack_segments(flat, offsets, step, uflat, lim,
                                      _TORCH_INT[np.dtype(wire_dtype(bits, n))])
+    _record_codes(codes, sizes, n)
     return _dequantized_means(codes, step, sizes, [g.shape[1:] for g in grads],
                               [g.dtype for g in grads], n)
 
@@ -292,6 +319,7 @@ def _quantized_mean_keyed(grads, bits: int, n: int, on_nonfinite: str, key: int)
     with count.share(1 / n):
         codes, step, bad = ops.sr_pack_keyed(grads, key, lim,
                                              _TORCH_INT[np.dtype(wire_dtype(bits, n))])
+    _record_codes(codes, [g[0].numel() for g in grads], n)
     out = _dequantized_means(codes, step, [g[0].numel() for g in grads],
                              [g[0].shape for g in grads], [g[0].dtype for g in grads], n)
     if on_nonfinite == "raise":

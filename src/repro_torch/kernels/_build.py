@@ -57,6 +57,9 @@ _SIGNATURES = {
     # x, x_dtype, codes, code_dtype, scale, out, M, K, N, stream,
     # then the plan (quant_matmul.plan): path, tile_m, tile_n, split
     "repro_quant_matmul": (_P, _I, _P, _I, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I),
+    # x_dtype, code_dtype, M, K, N, then the plan -> the shared memory a
+    # block of that launch takes (quant_matmul.kernel_spec's smem_bytes)
+    "repro_quant_matmul_smem": (_I,) * 9,
     # q, k, v, out, dtype, BH, S, D, causal, stream,
     # then the plan (flash_attention.plan_attention): path, block_q, block_k
     "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _I),

@@ -12,7 +12,9 @@ distributed shared memory).
 
 :func:`plan_attention` picks K4's path and tiles and :func:`plan_decode`
 K5's split, from the shapes alone; ``*_cuda`` launch the kernels; ``*_plain``
-are the plain PyTorch versions.
+are the plain PyTorch versions; :func:`attention_spec` and :func:`decode_spec`
+state a launch's grid, tiles and shared memory for the static checker
+(``repro_torch.analyze.kernel_check``), from the same plans.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_attention_ref as flash_attention_plain  # noqa: F401
 from repro_torch.kernels.ref import flash_decode_ref as flash_decode_plain  # noqa: F401
+from repro_torch.kernels.spec import BlockOperand, KernelSpec, ScalarOperand, ScratchSpec
 
 #: Head dims both kernels take (the C dispatchers' cases).
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -185,6 +188,156 @@ def plan_decode(B: int, KV: int, G: int, hd: int, page: int, n_pmax: int,
                          f"{split * MAX_DECODE_PAGES}")
     return DecodePlan(split, per, group, decode_smem_bytes(group, hd, pool_dtype),
                       split * B * KV * -(-G // group))
+
+
+# ---------------------------------------------------------------------------
+# Launch-grid metadata (kernels/spec.py): each map restates the kernel's
+# block-to-tile arithmetic at the cited line of csrc/flash_attention.cu
+# ---------------------------------------------------------------------------
+
+_SRC = "src/repro_torch/csrc/flash_attention.cu"
+
+
+def _attention_maps(n_qtiles: int, S: int, block_q: int, block_k: int, causal: bool):
+    """K4's maps over the grid ``(q tiles, BH, key-tile walk)``.
+
+    :297 ``flash_attention_wgmma`` and :558 ``flash_attention_split``: block
+    ``x`` of head ``bh = blockIdx.y`` takes the q tile ``n_tiles - 1 - x``
+    (the longest causal rows first), rows ``q0 = (gridDim.x - 1 - x) * BQ``,
+    and walks key tiles ``t < ceil(kend / BK)`` with ``kend = min(S, q0 +
+    BQ)`` causal, ``S`` not; TMA clips rows past ``S``."""
+
+    def q_map(x, bh, t):
+        return (bh, n_qtiles - 1 - x, 0)
+
+    def kv_map(x, bh, t):
+        q0 = (n_qtiles - 1 - x) * block_q
+        kend = min(S, q0 + block_q) if causal else S
+        return (bh, t, 0) if t < -(-kend // block_k) else None
+
+    return q_map, kv_map
+
+
+def attention_spec(BH: int, S: int, D: int, *, dtype: torch.dtype = torch.float32,
+                   causal: bool = True, num_sms: int = _build.H100_SMS) -> KernelSpec:
+    """K4's launch at ``q, k, v (BH, S, D)`` as a :class:`KernelSpec`, from
+    the same :func:`plan_attention` call :func:`flash_attention_cuda` makes.
+    ``S`` is the real sequence length: the kernel masks keys and rows past
+    it.  The shared-memory regions restate ``FwTiles`` (wgmma) or
+    ``FsTiles`` (wgmma_split) and add up to :func:`attention_smem_bytes`."""
+    p = plan_attention(BH, S, D, dtype, bool(causal), num_sms)
+    bq, bk = p.block_q, p.block_k
+    nq = -(-S // bq)
+    q_map, kv_map = _attention_maps(nq, S, bq, bk, bool(causal))
+    grid = (nq, BH, -(-S // bk))
+    guard = (False, True, False)
+    ins = (BlockOperand("q", (BH, S, D), (1, bq, D), q_map, guarded=guard),
+           BlockOperand("k", (BH, S, D), (1, bk, D), kv_map, guarded=guard),
+           BlockOperand("v", (BH, S, D), (1, bk, D), kv_map, guarded=guard))
+    outs = (BlockOperand("out", (BH, S, D), (1, bq, D), q_map, guarded=guard),)
+
+    def smem(name, shape, dt):
+        return ScratchSpec(name, shape, dt, space="smem", accumulates=False)
+
+    if p.path == "wgmma":
+        regions = (smem("q", (bq, D), "bfloat16"),
+                   smem("k_ring", (_FA_STAGES, bk, D), "bfloat16"),
+                   smem("v_ring", (_FA_STAGES, bk, D), "bfloat16"),
+                   smem("barriers", (2 * _FA_STAGES + 1,), "uint64"))
+        line = 297
+    else:
+        regions = (smem("q_hi_lo", (2, bq, D), "bfloat16"),
+                   smem("kv_split_or_q_f32", (max(4 * 2 * bk * D, 4 * bq * D),), "uint8"),
+                   smem("kv_f32", (2, bk, D), "float32"),
+                   smem("barriers", (3,), "uint64"))
+        line = 558
+    scratch = regions + (smem("align", (1024,), "uint8"),
+                         ScratchSpec("m", (bq, 1), "float32"),
+                         ScratchSpec("l", (bq, 1), "float32"),
+                         ScratchSpec("acc", (bq, D), "float32", binds="out"))
+    return KernelSpec("flash_attention", f"{_SRC}:{line}", grid, ins, outs, scratch,
+                      path=p.path, smem_bytes=p.smem, plan=p, causal=bool(causal))
+
+
+def _decode_maps(n_heads_groups: int, page: int, per: int, page_table, lengths):
+    """K5's maps over the grid ``(split, KV * ceil(G / GB), B, page walk)``.
+
+    :876 ``flash_decode_split``: block ``(r, y, b)`` is rank ``r`` of the
+    cluster of KV head ``h = y / ngh``, queries ``[g0, g0 + GB)`` with ``g0 =
+    (y % ngh) * GB``, slot ``b``; it walks pages ``j = r * pages_per_block +
+    t`` of the slot's table, reading pool row ``page_table[b, j]`` only where
+    the entry is >= 0 and the page starts before the length; the cluster's
+    ranks write slices of the slot's output tile (stated at rank 0)."""
+
+    def q_map(r, y, b, t):
+        return (b, y // n_heads_groups, y % n_heads_groups, 0)
+
+    def out_map(r, y, b, t):
+        return q_map(r, y, b, t) if r == 0 and t == 0 else None
+
+    def kv_map(r, y, b, t):
+        j = r * per + t
+        if j >= len(page_table[b]) or j * page >= lengths[b] or page_table[b][j] < 0:
+            return None
+        return (page_table[b][j], 0, y // n_heads_groups, 0)
+
+    return q_map, out_map, kv_map
+
+
+def decode_spec(B: int, KV: int, G: int, hd: int, *, page: int, n_pool: int, page_table,
+                lengths, q_dtype: torch.dtype = torch.float32,
+                pool_dtype: torch.dtype = torch.float32,
+                num_sms: int = _build.H100_SMS) -> KernelSpec:
+    """K5's launch as a :class:`KernelSpec`, from the same
+    :func:`plan_decode` call :func:`flash_decode_cuda` makes.
+
+    ``page_table`` (B, n_pmax) / ``lengths`` (B,) are CONCRETE int arrays:
+    the checker enumerates the same table-dereferencing map the kernel
+    walks, and the scalar ranges (an entry in ``[-1, n_pool)``, a length at
+    most the slot's pages) are what its addressing is safe under.  G is not
+    padded: the queries past G of the last group are masked."""
+    import numpy as np
+
+    pt = np.asarray(page_table, dtype=np.int64)
+    ln = np.asarray(lengths, dtype=np.int64)
+    n_pmax = pt.shape[1]
+    p = plan_decode(B, KV, G, hd, page, n_pmax, q_dtype, pool_dtype, num_sms)
+    ngh = -(-G // p.group)
+    q_map, out_map, kv_map = _decode_maps(ngh, page, p.pages_per_block, pt.tolist(),
+                                          ln.tolist())
+    grid = (p.split, KV * ngh, B, p.pages_per_block)
+    g_guard = (False, False, True, False)
+    steer = ("page_table", "lengths")
+    ins = (BlockOperand("q", (B, KV, G, hd), (1, 1, p.group, hd), q_map, guarded=g_guard),
+           BlockOperand("k_pages", (n_pool, page, KV, hd), (1, page, 1, hd), kv_map,
+                        coverage="any", steered_by=steer),
+           BlockOperand("v_pages", (n_pool, page, KV, hd), (1, page, 1, hd), kv_map,
+                        coverage="any", steered_by=steer))
+    outs = (BlockOperand("acc", (B, KV, G, hd), (1, 1, p.group, hd), out_map,
+                         guarded=g_guard),
+            BlockOperand("m", (B, KV, G, 1), (1, 1, p.group, 1), out_map, guarded=g_guard),
+            BlockOperand("l", (B, KV, G, 1), (1, 1, p.group, 1), out_map, guarded=g_guard))
+    es = torch.empty((), dtype=pool_dtype).element_size()
+    stage = 2 * (2 * _FD_T if hd * es <= 512 else _FD_T) * hd * es
+    ring = min(8, max(2, _FD_RING_BYTES // stage)) * stage
+    warps = _FD_WARPS * p.group * hd * 4
+
+    def smem(name, shape, dt):
+        return ScratchSpec(name, shape, dt, space="smem", accumulates=False)
+
+    scratch = (smem("ring_or_warp_acc", (max(ring, warps),), "uint8"),
+               smem("rank_slices", (p.group * hd + 4 * MAX_CLUSTER,), "float32"),
+               smem("small", (_FD_SMALL_WORDS,), "int32"),
+               ScratchSpec("m_run", (p.group, 1), "float32"),
+               ScratchSpec("l_run", (p.group, 1), "float32"),
+               ScratchSpec("acc_run", (p.group, hd), "float32", binds="acc"))
+    scalars = (ScalarOperand("page_table", pt.reshape(-1), -1, n_pool - 1,
+                             note=f"-1 = unallocated (never read); valid pool rows are "
+                                  f"[0, {n_pool})"),
+               ScalarOperand("lengths", ln, 0, n_pmax * page,
+                             note=f"{n_pmax} pages x {page} slots owned at most"))
+    return KernelSpec("flash_decode", f"{_SRC}:876", grid, ins, outs, scratch, scalars,
+                      path="split", smem_bytes=p.smem, plan=p)
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -42,54 +42,64 @@ def _route(t: torch.Tensor, kernel, plain, trace):
 
 def _trace_segments(w, offsets, s, d, u, *, ste: bool = True):
     C, P = u.shape
+    out = torch.empty((C, P), dtype=torch.float32, device=w.device)
     count.record_kernel(sq.NAME, count.sr_quant_segments_cost(P, C, s.shape[0]),
-                        f"C={C} P={P}")
-    return torch.empty((C, P), dtype=torch.float32, device=w.device)
+                        f"C={C} P={P}", ins=(w, offsets, s, d, u), outs=(out,))
+    return out
 
 
 def _trace_segments_keyed(leaves, delta, key, out=None, col: int = 0):
     P, C = sum(x.numel() for x in leaves), delta.shape[0]
-    count.record_kernel(sq.KEYED_NAME, count.sr_quant_keyed_cost(P, C), f"C={C} P={P}")
+    count.record_kernel(sq.KEYED_NAME, count.sr_quant_keyed_cost(P, C), f"C={C} P={P}",
+                        ins=(*leaves, delta), outs=(out,))
     return out
 
 
 def _trace_inline(w, delta, key, out_dtype):
+    out = torch.empty(w.shape, dtype=out_dtype, device=w.device)
     count.record_kernel(sq.INLINE_NAME, count.sr_quant_inline_cost(w.numel(), out_dtype),
-                        str(tuple(w.shape)))
-    return torch.empty(w.shape, dtype=out_dtype, device=w.device)
+                        str(tuple(w.shape)), ins=(w, delta), outs=(out,))
+    return out
 
 
 def _trace_pack(g, offsets, step, u, lim, dtype):
     C, P = g.shape
+    codes = torch.empty((C, P), dtype=dtype, device=g.device)
     count.record_kernel(sq.PACK_NAME, count.sr_pack_segments_cost(P, C, step.shape[0], dtype),
-                        f"C={C} P={P}")
-    return torch.empty((C, P), dtype=dtype, device=g.device)
+                        f"C={C} P={P}", ins=(g, offsets, step, u), outs=(codes,),
+                        params={"lim": int(lim)})
+    return codes
 
 
 def _trace_pack_keyed(leaves, key, lim, dtype, out=None, col: int = 0):
     C, L = len(leaves[0]), len(leaves)
     P = sum(leaf[0].numel() for leaf in leaves)
     dev = leaves[0][0].device
-    count.record_kernel(sq.PACK_KEYED_NAME, count.sr_pack_keyed_cost(P, C, L, dtype),
-                        f"C={C} P={P}")
     codes = out if out is not None else torch.empty((C, P), dtype=dtype, device=dev)
-    return (codes, torch.empty(L, dtype=torch.float32, device=dev),
-            torch.empty((), dtype=torch.int64, device=dev))
+    step = torch.empty(L, dtype=torch.float32, device=dev)
+    bad = torch.empty((), dtype=torch.int64, device=dev)
+    count.record_kernel(sq.PACK_KEYED_NAME, count.sr_pack_keyed_cost(P, C, L, dtype),
+                        f"C={C} P={P}", ins=tuple(g for leaf in leaves for g in leaf),
+                        outs=(codes, step, bad), params={"lim": int(lim), "elements": C * P})
+    return codes, step, bad
 
 
 def _trace_quant_matmul(x, codes, scale):
     (M, K), N = x.shape, codes.shape[1]
+    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     count.record_kernel(qm.NAME, count.quant_matmul_cost(M, K, N, x.dtype, codes.dtype),
-                        f"M={M} K={K} N={N}")
-    return torch.empty((M, N), dtype=torch.float32, device=x.device)
+                        f"M={M} K={K} N={N}", ins=(x, codes, scale), outs=(out,))
+    return out
 
 
 def _trace_attention(q, k, v, causal: bool = True):
     BH, S, D = q.shape
+    out = torch.empty_like(q)
     count.record_kernel("flash_attention",
                         count.flash_attention_cost(BH, S, D, q.dtype, causal),
-                        f"BH={BH} S={S} D={D} causal={causal}")
-    return torch.empty_like(q)
+                        f"BH={BH} S={S} D={D} causal={causal}", ins=(q, k, v), outs=(out,),
+                        params={"causal": bool(causal)})
+    return out
 
 
 def _trace_decode(q, k_pages, v_pages, page_table, lengths):
@@ -105,13 +115,15 @@ def _trace_decode(q, k_pages, v_pages, page_table, lengths):
     if len(lens) != B:
         raise ValueError(f"decode_len gives {len(lens)} slot lengths for {B} slots")
     tokens = sum(min(int(n), cap) for n in lens)
+    acc = torch.empty((B, KV, G, hd), dtype=torch.float32, device=q.device)
+    m = torch.empty((B, KV, G, 1), dtype=torch.float32, device=q.device)
+    l = torch.empty((B, KV, G, 1), dtype=torch.float32, device=q.device)
     count.record_kernel("flash_decode",
                         count.flash_decode_cost(B, KV, G, hd, q.dtype, k_pages.dtype, n_pmax,
                                                 tokens),
-                        f"B={B} KV={KV} G={G} hd={hd} tokens={tokens}")
-    acc = torch.empty((B, KV, G, hd), dtype=torch.float32, device=q.device)
-    return acc, torch.empty((B, KV, G, 1), dtype=torch.float32, device=q.device), \
-        torch.empty((B, KV, G, 1), dtype=torch.float32, device=q.device)
+                        f"B={B} KV={KV} G={G} hd={hd} tokens={tokens}",
+                        ins=(q, k_pages, v_pages, page_table, lengths), outs=(acc, m, l))
+    return acc, m, l
 
 
 def sr_quantize_segments(w: torch.Tensor, offsets: torch.Tensor, s: torch.Tensor,

@@ -8,7 +8,9 @@ prefill) and how each path is shaped for that.
 
 :func:`plan` picks the path and its tile from the shapes and types;
 :func:`quant_matmul_cuda` launches it with that plan; :func:`quant_matmul_plain`
-is the plain PyTorch version of the same function.
+is the plain PyTorch version of the same function; :func:`kernel_spec` states
+the launch's grid, tiles and shared memory for the static checker
+(``repro_torch.analyze.kernel_check``), from the same plan.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import quant_matmul_ref as quant_matmul_plain  # noqa: F401
+from repro_torch.kernels.spec import BlockOperand, KernelSpec, ScratchSpec
 
 NAME = "quant_matmul"
 
@@ -108,6 +111,161 @@ def _plan_cluster(maxm: int, K: int, N: int, size: int, num_sms: int) -> Plan:
             ranked.append((key, Plan("cluster", maxm, lanes * cpl, split)))
         lanes //= 2
     return min(ranked)[1]
+
+
+# ---------------------------------------------------------------------------
+# Launch-grid metadata (kernels/spec.py): each map restates the kernel's
+# block-to-tile arithmetic at the cited line of csrc/quant_matmul.cu
+# ---------------------------------------------------------------------------
+
+#: the cluster path's stage ring and tree (csrc: CL_STAGES, CL_STAGE_BYTES,
+#: CL_THREADS, CL_TREE_BYTES)
+_CL_STAGES, _CL_STAGE_BYTES, _CL_THREADS = 8, 8192, 256
+_CL_TREE_BYTES = _CL_ACC * (_CL_THREADS // 2) * 4
+#: the wgmma path's k step and bf16 code buffers (csrc: WG_BK, WG_BBUF), and
+#: its ring's stages by tile (csrc: launch)
+_WG_BK, _WG_BBUF = 64, 3
+_WG_STAGES = {(128, 256): 3, (128, 128): 4, (64, 128): 3, (64, 64): 4}
+#: the tiled path's k step (csrc: TB_K)
+_TB_K = 8
+
+
+def _cluster_x_map(r, j):
+    """:129 ``qmm_cluster``: block rank ``r`` reads K rows ``[r * k_per_block,
+    (r + 1) * k_per_block)`` of every row of x (``kb0 = rank * k_per_block``)."""
+    return (0, r)
+
+
+def _cluster_codes_map(r, j):
+    """:129: those K rows of the column tile ``blockIdx.y`` (``tile0 =
+    blockIdx.y * cols``)."""
+    return (r, j)
+
+
+def _cluster_out_map(r, j):
+    """:129: the cluster's ranks write slices of the output column tile
+    ``blockIdx.y`` (``m < M && n < N``)."""
+    return (0, j)
+
+
+def _wgmma_x_map(i, j, t):
+    """:429 ``qmm_wgmma``: rows ``m0 = blockIdx.x * BM``, k step ``t``."""
+    return (i, t)
+
+
+def _wgmma_codes_map(i, j, t):
+    """:429: k step ``t`` of columns ``n0 = blockIdx.y * BN``."""
+    return (t, j)
+
+
+def _wgmma_out_map(i, j, t):
+    """:429: the ``BM x BN`` tile at ``(m0, n0)`` (``r < M``, ``col < N``)."""
+    return (i, j)
+
+
+def _tiled_x_map(jn, im, t):
+    """:312 ``qmm_tiled``: rows ``m0 = blockIdx.y * 128``, k step ``t``
+    (``m < M && k < K``)."""
+    return (im, t)
+
+
+def _tiled_codes_map(jn, im, t):
+    """:312: k step ``t`` of columns ``n0 = blockIdx.x * 128``."""
+    return (t, jn)
+
+
+def _tiled_out_map(jn, im, t):
+    """:312: the 128 x 128 tile at ``(m0, n0)``."""
+    return (im, jn)
+
+
+def _scale_map(*grid_ids):
+    """Every block reads the one scale."""
+    return (0,)
+
+
+def cluster_layout(M: int, K: int, N: int, p: Plan, x_size: int, code_size: int) -> dict:
+    """The cluster path's stage geometry as ``launch_cluster`` computes it:
+    ``rows`` of K a stage, ``k_per_block``, the stage bytes, the shared
+    memory the launch requests (``smem``: 128 bytes of alignment, the ring
+    or the tree, whichever is larger, and the barriers)."""
+    lanes = p.tile_n // (_CL_ACC // p.tile_m)
+    groups = _CL_THREADS // lanes
+    rows = _CL_STAGE_BYTES // (p.tile_n * code_size)
+    rows = max(groups, min(256, rows)) // groups * groups
+    k_per_block = _cdiv(_cdiv(K, p.split), rows) * rows
+    stage = rows * p.tile_n * code_size + ((M * rows * x_size + 127) & ~127)
+    area = max(_CL_STAGES * stage, _CL_TREE_BYTES)
+    return {"rows": rows, "k_per_block": k_per_block, "stage_bytes": stage, "area": area,
+            "smem": 128 + area + 2 * _CL_STAGES * 8}
+
+
+def kernel_spec(M: int, K: int, N: int, *, x_dtype: torch.dtype = torch.float32,
+                code_dtype: torch.dtype = torch.int8, num_sms: int = H100_SMS,
+                aligned: bool = True, tile_plan: Plan | None = None) -> KernelSpec:
+    """K3's launch at ``x (M,K) @ codes (K,N)`` as a :class:`KernelSpec`,
+    from the same :func:`plan` call :func:`quant_matmul_cuda` makes (or
+    ``tile_plan``).  Operands keep their real shapes: every path guards its
+    ragged edges in the kernel (TMA zero-fills a box past the tensor; the
+    stores check ``m < M``, ``n < N``).  ``smem_bytes`` restates what the
+    launch requests a block; the library's ``repro_quant_matmul_smem``
+    reports the launch's own figure (``chip_smoke.py`` holds them equal)."""
+    p = tile_plan or plan(M, K, N, x_dtype, code_dtype, num_sms, aligned=aligned)
+    xs = 2 if x_dtype == torch.bfloat16 else 4
+    cs = 1 if code_dtype == torch.int8 else 2
+    scale = BlockOperand("scale", (1,), (1,), _scale_map, coverage="any")
+    src = "src/repro_torch/csrc/quant_matmul.cu"
+    if p.path == "cluster":
+        lay = cluster_layout(M, K, N, p, xs, cs)
+        kpb = lay["k_per_block"]
+        grid = (p.split, _cdiv(N, p.tile_n))
+        ins = (BlockOperand("x", (M, K), (p.tile_m, kpb), _cluster_x_map, guarded=True),
+               BlockOperand("codes", (K, N), (kpb, p.tile_n), _cluster_codes_map,
+                            guarded=True), scale)
+        outs = (BlockOperand("out", (M, N), (p.tile_m, p.tile_n), _cluster_out_map,
+                             guarded=True),)
+        scratch = (ScratchSpec("align", (128,), "uint8", space="smem", accumulates=False),
+                   ScratchSpec("ring_or_tree", (lay["area"],), "uint8", space="smem",
+                               accumulates=False),
+                   ScratchSpec("barriers", (2 * _CL_STAGES,), "uint64", space="smem",
+                               accumulates=False),
+                   ScratchSpec("acc", (p.tile_m, p.tile_n), "float32", binds="out"))
+        return KernelSpec("quant_matmul", f"{src}:129", grid, ins, outs, scratch,
+                          path=p.path, smem_bytes=lay["smem"], plan=p)
+    if p.path == "wgmma":
+        bm, bn = p.tile_m, p.tile_n
+        st = _WG_STAGES[(bm, bn)]
+        grid = (_cdiv(M, bm), _cdiv(N, bn), _cdiv(K, _WG_BK))
+        ins = (BlockOperand("x", (M, K), (bm, _WG_BK), _wgmma_x_map, guarded=True),
+               BlockOperand("codes", (K, N), (_WG_BK, bn), _wgmma_codes_map, guarded=True),
+               scale)
+        outs = (BlockOperand("out", (M, N), (bm, bn), _wgmma_out_map, guarded=True),)
+        scratch = (ScratchSpec("x_ring", (st, bm, _WG_BK), "bfloat16", space="smem",
+                               accumulates=False),
+                   ScratchSpec("code_ring", (st, _WG_BK, bn), "int8", space="smem",
+                               accumulates=False),
+                   ScratchSpec("bf16_codes", (_WG_BBUF, _WG_BK, bn), "bfloat16",
+                               space="smem", accumulates=False),
+                   ScratchSpec("barriers", (2 * st,), "uint64", space="smem",
+                               accumulates=False),
+                   ScratchSpec("align", (1024,), "uint8", space="smem", accumulates=False),
+                   ScratchSpec("acc", (bm, bn), "float32", binds="out"))
+        smem = (st * bm * _WG_BK * 2 + st * _WG_BK * bn + _WG_BBUF * _WG_BK * bn * 2
+                + 2 * st * 8 + 1024)
+        return KernelSpec("quant_matmul", f"{src}:429", grid, ins, outs, scratch,
+                          path=p.path, smem_bytes=smem, plan=p)
+    grid = (_cdiv(N, p.tile_n), _cdiv(M, p.tile_m), _cdiv(K, _TB_K))
+    ins = (BlockOperand("x", (M, K), (p.tile_m, _TB_K), _tiled_x_map, guarded=True),
+           BlockOperand("codes", (K, N), (_TB_K, p.tile_n), _tiled_codes_map, guarded=True),
+           scale)
+    outs = (BlockOperand("out", (M, N), (p.tile_m, p.tile_n), _tiled_out_map, guarded=True),)
+    scratch = (ScratchSpec("As", (_TB_K, p.tile_m), "float32", space="smem",
+                           accumulates=False),
+               ScratchSpec("Bs", (_TB_K, p.tile_n), "float32", space="smem",
+                           accumulates=False),
+               ScratchSpec("acc", (p.tile_m, p.tile_n), "float32", binds="out"))
+    return KernelSpec("quant_matmul", f"{src}:312", grid, ins, outs, scratch, path=p.path,
+                      smem_bytes=4 * _TB_K * (p.tile_m + p.tile_n), plan=p)
 
 
 def quant_matmul_cuda(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,

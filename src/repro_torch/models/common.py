@@ -211,7 +211,7 @@ class _GatherRecord(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         count.record_collective("reduce-scatter", g.dtype, g.numel() // ctx.group, ctx.group,
-                                ctx.name)
+                                ctx.name, operand=g)
         return g, None, None
 
 
@@ -261,7 +261,7 @@ class ParamCtx:
         if isinstance(w, QTensor):
             if gather and tracing:
                 count.record_collective("all-gather", w.codes.dtype, w.codes.numel(),
-                                        self.ctx.fsdp, f"ParamCtx.use {path}")
+                                        self.ctx.fsdp, f"ParamCtx.use {path}", operand=w.codes)
             if self.lazy and self.transform is None:
                 return w
             full = w.codes.to(torch.float32) * w.scale.to(torch.float32)
@@ -271,7 +271,7 @@ class ParamCtx:
                 full = full.to(self.gather_dtype)
             if gather and tracing:
                 count.record_collective("all-gather", full.dtype, full.numel(),
-                                        self.ctx.fsdp, f"ParamCtx.use {path}")
+                                        self.ctx.fsdp, f"ParamCtx.use {path}", operand=full)
                 if full.requires_grad:
                     full = _GatherRecord.apply(full, self.ctx.fsdp,
                                                f"ParamCtx.use {path} (transpose)")

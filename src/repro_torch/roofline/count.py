@@ -31,6 +31,12 @@ one device.  The record also keeps the high-water mark of live tensor bytes
 (the port's own card) and every host read the step makes, with its call
 site (:func:`host_read`).
 
+With ``graph=True`` the record also keeps the step's operation graph
+(:class:`Graph`): one :class:`GraphOp` for every dispatched aten op, kernel
+call and collective, with its value ids, scalar arguments and call site.
+The static analyzer (``repro_torch.analyze``) walks it; recording it
+changes no cost, peak or collective of the record.
+
 Nothing here runs on a real tensor's path: the kernels' trace route
 (``kernels/ops.py``) is taken only for fake tensors, and the other hooks do
 nothing unless a recording is active.
@@ -40,6 +46,8 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
+import os
 import sys
 import traceback
 import weakref
@@ -296,7 +304,9 @@ class Record:
     output_bytes: int = 0
     peak_bytes: int = 0
     live_bytes: int = 0
+    graph: "Graph | None" = None           # with recording(graph=True)
     _share: list = dataclasses.field(default_factory=lambda: [1.0])
+    _untracked: int = 0
 
     @property
     def share(self) -> float:
@@ -312,6 +322,231 @@ class Record:
                 out[n.site][1] += n.bytes_bf16 * n.share
         return dict(out)
 
+
+# ---------------------------------------------------------------------------
+# The operation graph (recording(graph=True))
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Ref:
+    """A tensor argument of a :class:`GraphOp`: ``ins[i]``."""
+
+    i: int
+
+
+@dataclasses.dataclass
+class GraphOp:
+    """One entry of the operation graph.
+
+    ``kind``: ``"aten"`` (a dispatched op, ``op`` its packet name such as
+    ``"add_"`` and ``overload`` such as ``"Tensor"``), ``"kernel"`` (a kernel
+    call on the trace route, ``op`` its entry name, ``params`` its scalar
+    arguments), ``"collective"`` (``op`` its kind, ``params`` the record's
+    dtype, elements, group and name), ``"input"`` (a value the step did not
+    make: an argument, a tensor made outside the recording), ``"join"``
+    (a partial in-place write: the storage's value before and what was
+    written).  ``ins``/``outs`` are value ids; ``args``/``kwargs`` the
+    scalar arguments with tensors as :class:`Ref`.  ``site`` is the port
+    function's qualified name (a backward op: its forward op's), ``key``
+    ``file.py:function`` and ``where`` ``path:line``.
+    """
+
+    kind: str
+    op: str
+    ins: tuple = ()
+    outs: tuple = ()
+    args: tuple = ()
+    kwargs: dict = dataclasses.field(default_factory=dict)
+    overload: str = ""
+    params: dict = dataclasses.field(default_factory=dict)
+    site: str = "?"
+    key: str = "?"
+    where: str = "?"
+
+
+@dataclasses.dataclass
+class Graph:
+    """The dataflow of one traced step.
+
+    Values are numbered by a counter: a tensor's value is keyed by its
+    storage, its view (offset, shape, stride, dtype) and its version, so
+    the graph holds no reference to a tensor and an in-place write through
+    a view gives the written view a new value and its storage the join of
+    the old value and the written one.  ``meta[vid]`` is ``(dtype name,
+    shape)``; ``const[vid]`` is ``(lo, hi, integral)`` of a value the fake
+    tensor knows (``FakeTensor.constant``); ``inputs`` the value ids of the
+    recording's arguments, in the order of their tensors; ``outputs`` what a
+    caller marks (:meth:`mark_outputs`).
+    """
+
+    ops: list = dataclasses.field(default_factory=list)
+    meta: list = dataclasses.field(default_factory=list)
+    const: dict = dataclasses.field(default_factory=dict)
+    inputs: list = dataclasses.field(default_factory=list)
+    outputs: list = dataclasses.field(default_factory=list)
+    producer: dict = dataclasses.field(default_factory=dict)
+    _views: dict = dataclasses.field(default_factory=dict, repr=False)
+    _whole: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    def new_value(self, t: torch.Tensor | None, dtype=None, shape=None) -> int:
+        vid = len(self.meta)
+        if t is not None:
+            dtype, shape = t.dtype, tuple(t.shape)
+        self.meta.append((dtype_name(dtype), tuple(shape or ())))
+        return vid
+
+    def add(self, op: GraphOp) -> GraphOp:
+        i = len(self.ops)
+        self.ops.append(op)
+        for v in op.outs:
+            self.producer[v] = i
+        return op
+
+    # -- tensor -> value ------------------------------------------------------
+    @staticmethod
+    def _view_key(t: torch.Tensor):
+        return (t.storage_offset(), tuple(t.shape), tuple(t.stride()), t.dtype)
+
+    def lookup(self, t: torch.Tensor) -> int | None:
+        """The value ``t`` holds now, or None if the graph never saw it."""
+        sid = id(t.untyped_storage())
+        ver = t._version
+        ent = self._views.get(sid, {}).get(self._view_key(t))
+        if ent is not None and ent[0] == ver:
+            return ent[1]
+        whole = self._whole.get(sid)
+        if whole is not None and whole[0] == ver:
+            return whole[1]              # a view of a value: within its bounds
+        return None
+
+    def read(self, t, site=("?", "?", "?")) -> int:
+        """The value of a tensor argument; one never seen is an ``input``."""
+        vid = self.lookup(t)
+        if vid is None:
+            vid = self.new_value(t)
+            self.add(GraphOp("input", "input", outs=(vid,), site=site[0], key=site[1],
+                             where=site[2]))
+            self._const(t, vid)
+            self.bind(t, vid)
+        return vid
+
+    def bind(self, t: torch.Tensor, vid: int, version: int | None = None) -> None:
+        """``t`` holds ``vid`` at ``version`` (default: its version now)."""
+        st = t.untyped_storage()
+        sid, ver = id(st), t._version if version is None else version
+        self._views.setdefault(sid, {})[self._view_key(t)] = (ver, vid)
+        if (t.storage_offset() == 0 and t.is_contiguous()
+                and t.numel() * t.element_size() == st.nbytes()):
+            self._whole[sid] = (ver, vid)
+
+    def write(self, t: torch.Tensor, vid: int, before: int | None, site) -> None:
+        """``t`` was written in place with ``vid``; ``before`` the value of
+        its storage before the write (None: unknown).  A dispatch mode runs
+        below autograd's version bump, so the write holds from the next
+        version on."""
+        st = t.untyped_storage()
+        whole = (t.storage_offset() == 0 and t.is_contiguous()
+                 and t.numel() * t.element_size() == st.nbytes())
+        ver = t._version + 1
+        self.bind(t, vid, ver)
+        if whole:
+            return
+        if before is None:
+            before = self.new_value(None, t.dtype, (st.nbytes() // max(t.element_size(), 1),))
+            self.add(GraphOp("input", "input", outs=(before,), site=site[0], key=site[1],
+                             where=site[2]))
+        joined = self.new_value(None, t.dtype, (st.nbytes() // max(t.element_size(), 1),))
+        self.add(GraphOp("join", "join", ins=(before, vid), outs=(joined,), site=site[0],
+                         key=site[1], where=site[2]))
+        self._whole[id(st)] = (ver, joined)
+
+    def storage_value(self, t: torch.Tensor) -> int | None:
+        """The value of ``t``'s whole storage at ``t``'s version, if known."""
+        whole = self._whole.get(id(t.untyped_storage()))
+        return whole[1] if whole is not None and whole[0] == t._version else None
+
+    def forget(self, sid: int) -> None:
+        self._views.pop(sid, None)
+        self._whole.pop(sid, None)
+
+    def _const(self, t, vid: int) -> None:
+        c = getattr(t, "constant", None)
+        if c is None and isinstance(t, torch.Tensor) and not is_traced(t):
+            c = t                         # a real tensor among fake ones
+        if c is None or c.numel() == 0 or c.numel() > 1 << 16:
+            return
+        from torch._subclasses.fake_tensor import unset_fake_temporarily
+
+        with unset_fake_temporarily():
+            a = c.detach().to("cpu", torch.float64)
+            lo, hi = float(a.min()), float(a.max())
+            integral = bool(torch.all(a == torch.round(a)))
+        self.const[vid] = (lo, hi, integral)
+
+    def mark_outputs(self, *tensors) -> list:
+        """Mark ``tensors`` as the graph's outputs; returns their value ids."""
+        self.outputs = [self.lookup(t) for t in tensors]
+        return self.outputs
+
+    def by_kind(self, kind: str) -> list:
+        return [op for op in self.ops if op.kind == kind]
+
+
+def dtype_name(dtype) -> str:
+    """``torch.float32`` -> ``"float32"`` (the numpy-style name)."""
+    return str(dtype).replace("torch.", "") if dtype is not None else "float32"
+
+
+def _sanitize(x, ins: list):
+    """A scalar argument as the graph keeps it; tensors become :class:`Ref`."""
+    if isinstance(x, torch.Tensor):
+        ins.append(x)
+        return Ref(len(ins) - 1)
+    if isinstance(x, (list, tuple)):
+        return tuple(_sanitize(v, ins) for v in x)
+    if x is None or isinstance(x, (bool, int, float, str)):
+        return x
+    if isinstance(x, torch.dtype):
+        return dtype_name(x)
+    return str(x)
+
+
+@functools.lru_cache(maxsize=None)
+def _written(func) -> tuple:
+    """``((position, name), ...)`` of the arguments ``func`` writes."""
+    return tuple((i, a.name) for i, a in enumerate(func._schema.arguments)
+                 if a.alias_info is not None and a.alias_info.is_write)
+
+
+_STDLIB = os.path.dirname(os.__file__)
+
+
+def _user_frame(name: str) -> bool:
+    """A frame of the caller's code: not torch, not the standard library or
+    an installed package, not this module or the kernels' trace route."""
+    return ("/torch/" not in name and not name.startswith(_STDLIB)
+            and "-packages/" not in name and not name.startswith("<")
+            and not name.endswith(("roofline/count.py", "kernels/ops.py")))
+
+
+def _frame_site(frame) -> tuple:
+    """``(qualified name of the innermost port function, "file.py:function",
+    "path:line")``: the first as :func:`_port_function` gives it (the record's
+    cost site), the others of the innermost frame of the caller's code (a
+    port function, or whatever code outside torch ran the operation)."""
+    key = where = None
+    while frame is not None:
+        name = frame.f_code.co_filename
+        if key is None and _user_frame(name):
+            base = name.rsplit("/", 1)[-1]
+            key = f"{base}:{frame.f_code.co_name}"
+            where = f"{name.split('/src/')[-1]}:{frame.f_lineno}"
+        if ("repro_torch" in name and not name.endswith(("roofline/count.py",
+                                                         "kernels/ops.py"))):
+            return (frame.f_code.co_qualname, key, where)
+        frame = frame.f_back
+    return ("?", key or "?", where or "?")
 
 _ACTIVE: Record | None = None
 
@@ -336,19 +571,35 @@ def share(fraction: float):
         rec._share.pop()
 
 
-def record_kernel(op: str, cost: KernelCost, shape: str = "") -> None:
-    """A kernel call on the trace route (``kernels/ops.py``)."""
+def record_kernel(op: str, cost: KernelCost, shape: str = "", *, ins=(), outs=(),
+                  params: dict | None = None) -> None:
+    """A kernel call on the trace route (``kernels/ops.py``).  With a graph,
+    the call is a ``kernel`` node reading ``ins`` and writing ``outs`` (the
+    tensors the route returns; each holds the kernel's value from here),
+    with the scalar arguments ``params``."""
     rec = _ACTIVE
     if rec is not None:
         rec.nodes.append(Node(**dataclasses.asdict(cost), op=op, share=rec.share,
                               shape=shape, site=_port_function(sys._getframe(1))))
+        if rec.graph is not None:
+            site = _frame_site(sys._getframe(1))
+            g = rec.graph
+            ivs = tuple(g.read(t, site) for t in ins)
+            ovs = tuple(g.new_value(t) for t in outs)
+            g.add(GraphOp("kernel", op, ins=ivs, outs=ovs, params=dict(params or {},
+                                                                       kernel=cost.kernel),
+                          site=site[0], key=site[1], where=site[2]))
+            for t, v in zip(outs, ovs):
+                g.bind(t, v)
 
 
 def record_collective(kind: str, dtype: torch.dtype, elems: int, group: int,
-                      name: str) -> None:
+                      name: str, operand: torch.Tensor | None = None) -> None:
     """A collective the reference's device issues here: ``kind`` over a
     group of ``group`` devices, a result of ``elems`` elements of ``dtype``
-    (a no-op outside a recording)."""
+    (a no-op outside a recording).  ``operand``: the values one device
+    contributes (whose sum an all-reduce carries); with a graph the
+    collective is a node reading it (none given: the dtype's whole range)."""
     rec = _ACTIVE
     if rec is None:
         return
@@ -360,6 +611,33 @@ def record_collective(kind: str, dtype: torch.dtype, elems: int, group: int,
         wire_bytes=ring_wire_bytes(kind, nbytes, int(group)), group_size=int(group),
         mult=rec.share, name=name, computation=rec.computation,
         parts=((HLO_DTYPES[dtype], int(elems)),)))
+    if rec.graph is not None:
+        site = _frame_site(sys._getframe(1))
+        ins = () if operand is None else (rec.graph.read(operand, site),)
+        rec.graph.add(GraphOp("collective", kind, ins=ins, params=dict(
+            dtype=dtype_name(dtype), elems=int(elems), group=int(group), name=name,
+            index=len(rec.collectives) - 1), site=site[0], key=site[1], where=site[2]))
+
+
+def graph_active() -> bool:
+    """Whether the active recording keeps an operation graph."""
+    return _ACTIVE is not None and _ACTIVE.graph is not None
+
+
+@contextlib.contextmanager
+def untracked():
+    """Operations inside enter the graph but not the live-byte count (the
+    values a graph-only computation makes, such as a collective's operand
+    that the port's step does not compute itself)."""
+    rec = _ACTIVE
+    if rec is None:
+        yield
+        return
+    rec._untracked += 1
+    try:
+        yield
+    finally:
+        rec._untracked -= 1
 
 
 def _call_site() -> str:
@@ -414,12 +692,20 @@ class _Recorder(TorchDispatchMode):
         super().__init__()
         self.rec = rec
         self.live: dict = {}
+        self.graph_only: set = set()  # storages made under untracked()
         self.sites: dict = {}        # autograd sequence number -> forward site
 
     def track(self, t: torch.Tensor) -> None:
         st = t.untyped_storage()
         key = id(st)
-        if key in self.live:
+        if key in self.live or key in self.graph_only:
+            return
+        g = self.rec.graph
+        if g is not None:
+            g.forget(key)                       # a new storage: an id reused
+        if self.rec._untracked:
+            self.graph_only.add(key)
+            weakref.finalize(st, self._free, key)
             return
         n = st.nbytes()
         self.live[key] = n
@@ -428,8 +714,11 @@ class _Recorder(TorchDispatchMode):
         weakref.finalize(st, self._free, key)
 
     def _free(self, key) -> None:
+        self.graph_only.discard(key)
         n = self.live.pop(key, 0)
         self.rec.live_bytes -= n
+        if self.rec.graph is not None:
+            self.rec.graph.forget(key)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -437,6 +726,9 @@ class _Recorder(TorchDispatchMode):
             raise RuntimeError(
                 f"a host read of a traced value at {_call_site()}: read it through "
                 "repro_torch.roofline.count.host_read")
+        g = self.rec.graph
+        if g is not None:
+            return self._dispatch_graph(func, args, kwargs)
         out = func(*args, **kwargs)
         node = torch._C._current_autograd_node()
         if node is not None:                    # backward: the forward op's site
@@ -445,12 +737,54 @@ class _Recorder(TorchDispatchMode):
             site = _port_function(sys._getframe(1))
         # the node this op made (if any) has the number before the counter
         self.sites.setdefault(torch._C._autograd._get_sequence_nr() - 1, site)
+        self._count(func, args, out, site)
+        return out
+
+    def _count(self, func, args, out, site) -> None:
         if func in _DOTS:
             i, j = _DOTS[func]
             self._dot(str(func.overloadpacket), args[i], args[j], out, site)
         for t in (out if isinstance(out, (tuple, list)) else (out,)):
             if isinstance(t, torch.Tensor):
                 self.track(t)
+
+    def _dispatch_graph(self, func, args, kwargs):
+        """:meth:`__torch_dispatch__` with the graph: the same count, and the
+        op's entry (values read before it runs, written after)."""
+        g = self.rec.graph
+        node = torch._C._current_autograd_node()
+        if node is not None:
+            fsite = self.sites.get(node._sequence_nr(), ("?", "?", "?"))
+        else:
+            fsite = _frame_site(sys._getframe(2))
+        ins: list = []
+        sargs = _sanitize(tuple(args), ins)
+        skw = {k: _sanitize(v, ins) for k, v in kwargs.items()}
+        in_vids = tuple(g.read(t, fsite) for t in ins)
+        written = []
+        for i, name in _written(func):
+            t = args[i] if i < len(args) else kwargs.get(name)
+            if isinstance(t, torch.Tensor):
+                written.append((t, g.storage_value(t)))
+        out = func(*args, **kwargs)
+        self.sites.setdefault(torch._C._autograd._get_sequence_nr() - 1, fsite)
+        self._count(func, args, out, fsite[0])
+        outs = [t for t in (out if isinstance(out, (tuple, list)) else (out,))
+                if isinstance(t, torch.Tensor)]
+        outs += [t for t, _ in written if not any(t is o for o in outs)]
+        if not outs:
+            return out
+        out_vids = tuple(g.new_value(t) for t in outs)
+        g.add(GraphOp("aten", func._overloadpacket.__name__, ins=in_vids, outs=out_vids,
+                      args=sargs, kwargs=skw, overload=func._overloadname, site=fsite[0],
+                      key=fsite[1], where=fsite[2]))
+        for t, v in zip(outs, out_vids):
+            before = next((b for w, b in written if w is t), False)
+            if before is False:
+                g.bind(t, v)
+                g._const(t, v)
+            else:
+                g.write(t, v, before, fsite)
         return out
 
     def _dot(self, op, a, b, out, site) -> None:
@@ -480,17 +814,23 @@ def _tensors(tree):
 
 
 @contextlib.contextmanager
-def recording(arguments=(), *, computation: str = "step", decode_len=None):
+def recording(arguments=(), *, computation: str = "step", decode_len=None,
+              graph: bool = False):
     """Record every operation run inside (under a ``FakeTensorMode`` the
     caller entered).  ``arguments``: the step's inputs, live from the start
-    (the high-water mark counts them).  Yields the :class:`Record`."""
+    (the high-water mark counts them).  ``graph``: also keep the operation
+    graph (:attr:`Record.graph`; its ``inputs`` are the arguments' tensors).
+    Yields the :class:`Record`."""
     global _ACTIVE
     if _ACTIVE is not None:
         raise RuntimeError("a recording is already active")
-    rec = Record(computation=computation, decode_len=decode_len)
+    rec = Record(computation=computation, decode_len=decode_len,
+                 graph=Graph() if graph else None)
     mode = _Recorder(rec)
     for t in _tensors(arguments):
         mode.track(t)
+        if rec.graph is not None:
+            rec.graph.inputs.append(rec.graph.read(t, ("<argument>", "<argument>", "?")))
     _ACTIVE = rec
     try:
         with mode:

@@ -479,3 +479,8 @@ def test_port_imports_no_jax_or_reference():
         "sweep", "sweep.grid", "sweep.runner", "sweep.report", "sweep.cli", "analyze",
         "analyze.findings", "analyze.static_proofs")}
     assert sweep_slice <= loaded, sorted(sweep_slice - loaded)
+    analyze_slice = {f"repro_torch.{m}" for m in (
+        "__main__", "kernels.spec", "analyze.ranges", "analyze.precision_flow",
+        "analyze.absint", "analyze.wire_lint", "analyze.kernel_check", "analyze.allowlist",
+        "analyze.baseline", "analyze.runner", "analyze.cli")}
+    assert analyze_slice <= loaded, sorted(analyze_slice - loaded)
