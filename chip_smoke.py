@@ -161,6 +161,25 @@ Phases (each one failing stops the script with a nonzero exit):
     process), and the CPU tests' smoke trainer, which must find on fake
     CUDA tensors what it finds on fake CPU ones.
 
+12. dist: the trainer with one client a process.  K2's keyed entry split at
+    its pass boundary (pass 1 alone, pass 2 given the scales and a Philox
+    stream offset) composed over 4 rows against the one-call entry on the
+    card, bit-equal at the trainer's wire and at 4 x 4096 x 11008 (int16),
+    with NaN/Inf, each pass against its plain version and timed beside its
+    bound.  Then ``torch.distributed.run`` starts 4 ranks sharing the card
+    over gloo (``repro_torch.launch.mesh.init_distributed``, share-device):
+    full-width yi-6b cut to 2 layers on a 4x1 mesh, batch 2 a client,
+    sequence 512, 8-bit weights, comm 8 (int16 codes widened to int32 on the
+    wire): 2 ``train`` rounds (a checkpoint each) and 1 ``fl-orchestrate``
+    round (unified_q); each rank prints per step its K1 inline and K2
+    pass-1/pass-2 launches (30, 1, 1), the collectives it issued by kind and
+    bytes, those the transport staged through the host, the step's span on
+    the card's clock and its peak memory.  The same spec as one process
+    (the loop) from the same init and keys must give the 4-rank run's
+    parameters after the first step (read back through the checkpoint):
+    the wire leaves bit-equal, the FSDP leaves within rtol 1e-6 of each
+    leaf's largest magnitude, the loss within 1e-6.  Last, one rank over NCCL (mesh 1x1) trains a round.
+
 Each phase prints its own time.  The last two lines are the kernel table
 and ``{"ok": true, "device": ...}``.
 ``--phases`` runs a subset (for iterating on one kernel); phase ``sweep``,
@@ -220,6 +239,10 @@ KERNELS = {
                     replaces="src/repro/kernels/sr_quant.py:72"),
     "sr_pack_keyed": dict(route="cuda", source="src/repro_torch/csrc/sr_quant.cu",
                           replaces="src/repro/kernels/sr_quant.py:72"),
+    "sr_pack_keyed_scales": dict(route="cuda", source="src/repro_torch/csrc/sr_quant.cu",
+                                 replaces="src/repro/kernels/sr_quant.py:72"),
+    "sr_pack_keyed_scaled": dict(route="cuda", source="src/repro_torch/csrc/sr_quant.cu",
+                                 replaces="src/repro/kernels/sr_quant.py:72"),
     "quant_matmul": dict(route="cuda", source="src/repro_torch/csrc/quant_matmul.cu",
                          replaces="src/repro/kernels/quant_matmul.py:83"),
     "flash_attention": dict(route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
@@ -2543,17 +2566,17 @@ TRAIN_RUNS = {
 
 
 def _train_session(run: dict, device: str, arch: str = "yi-6b", layers: int = 8,
-                   seq: int = 512, **cut):
+                   seq: int = 512, mesh: str = "4x1", **cut):
     """A Session of ``arch`` at full width with the depth cut to ``layers``
     (and ``cut``'s other keys: an encoder's depth) as phase ``consistency``
-    cuts its model, on a 4x1 mesh: 4 clients, batch 2 each, sequence
-    ``seq``, lr 0.05."""
+    cuts its model, on a 4x1 mesh (or ``mesh``): 4 clients, batch 2 each,
+    sequence ``seq``, lr 0.05."""
     import dataclasses
 
     from repro_torch.api import PrecisionPolicy, RunSpec, Session
     from repro_torch.configs import get_config
 
-    spec = RunSpec(arch, workload=run["workload"], mesh="4x1", smoke=False, seed=0,
+    spec = RunSpec(arch, workload=run["workload"], mesh=mesh, smoke=False, seed=0,
                    batch=2, seq=seq, rounds=run["rounds"],
                    precision=PrecisionPolicy(**run["precision"]),
                    options={"lr": 0.05, "quiet": True, **run["options"]})
@@ -2977,6 +3000,315 @@ def phase_train_profile(dev: dict) -> None:
 
 # ---------------------------------------------------------------------- grids
 #: The JAX package's committed sweep stores: read here, never written.
+# ------------------------------------------------------------------ dist
+#: phase dist's ranks: full-width yi-6b cut to 2 layers on a 4x1 mesh, 8-bit
+#: weights, comm 8 (4 x 255 > 127: int16 codes, widened to int32 to be summed)
+DIST_RANKS, DIST_LAYERS = 4, 2
+DIST_RUNS = (
+    dict(name="train", workload="train", rounds=2, precision=dict(weights=8, comm=8),
+         options={"ckpt_every": 1}),
+    dict(name="fl-orchestrate", workload="fl-orchestrate", rounds=1,
+         precision=dict(comm=8), options={"scheme": "unified_q"}),
+)
+#: K1 inline launches a step and rank: embed and unembed once, the 7 block
+#: weights of each layer twice (remat)
+DIST_K1_PER_STEP = 2 + 7 * DIST_LAYERS * 2
+
+
+def _split_pack(leaves, key: int, lim: int, dtype, scales, scaled):
+    """The keyed wire as D ranks run it, row c as rank c: pass 1 a row, the
+    max of the rows' scales, pass 2 a row at stream offset c.  Returns
+    (codes (C, P), step of row 0, the rows' counts summed)."""
+    C = len(leaves[0])
+    rows = [[[leaf[c]] for leaf in leaves] for c in range(C)]
+    firsts = [scales(r) for r in rows]
+    smax = torch.stack([f[0][0] for f in firsts]).amax(dim=0)
+    outs = [scaled(r, smax, f[0], key, lim, dtype, c) for c, (r, f) in enumerate(zip(rows,
+                                                                                     firsts))]
+    if not all(torch.equal(o[1], outs[0][1]) for o in outs):
+        raise AssertionError("sr_pack_keyed split: the ranks' pitches differ")
+    return (torch.cat([o[0] for o in outs]), outs[0][1],
+            sum(f[1].to(torch.int64) for f in firsts))
+
+
+def check_sr_pack_split(table: dict) -> None:
+    """K2's split entries on the card: composed over the rows, bit-equal to
+    the one-call keyed entry (codes, pitch, non-finite count) at the
+    trainer's wire (4 x 69,632), at 4 x 4096 x 11008 and with NaN/Inf; each
+    pass bit-equal to its plain version; each pass timed at one rank's row
+    beside its bound and its plain version."""
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    key = 0x9E3779B97F4A7C15
+    cases = [("train step wire", TRAIN_WIRE_SIZES, 8, torch.int16),
+             ("4x4096x11008", [4096 * 11008], 8, torch.int16),
+             ("ragged, int8", [5, 130, 1, 4099], 4, torch.int8)]
+    for label, sizes, bits, dtype in cases:
+        leaves = _grads(sizes, 4, gen, scale=0.05)
+        lim = 2**bits - 1
+        want = sq.sr_pack_keyed_cuda(leaves, key, lim, dtype)
+        got = _split_pack(leaves, key, lim, dtype, sq.sr_pack_keyed_scales_cuda,
+                          sq.sr_pack_keyed_scaled_cuda)
+        _same_pack(f"split {label}", got, want)
+        row = [[leaf[1]] for leaf in leaves]
+        f_c, b_c = sq.sr_pack_keyed_scales_cuda(row)
+        f_p, b_p = sq.sr_pack_keyed_scales_plain(row)
+        smax = torch.stack([f_c[0], f_c[0] * 1.5]).amax(dim=0)
+        q_c = sq.sr_pack_keyed_scaled_cuda(row, smax, f_c, key, lim, dtype, 1)
+        q_p = sq.sr_pack_keyed_scaled_plain(row, smax, f_c, key, lim, dtype, 1)
+        torch.cuda.synchronize()
+        for name, a, b in (("pass 1 fmax", f_c, f_p), ("pass 1 count", b_c, b_p),
+                           ("pass 2 codes", q_c[0], q_p[0]), ("pass 2 pitch", q_c[1], q_p[1])):
+            if not torch.equal(a.cpu(), b.cpu()):
+                raise AssertionError(f"sr_pack_keyed split {label}: {name} differs from the "
+                                     "plain version")
+        if label == "ragged, int8":
+            continue
+        P = sum(sizes)
+        big = P > 1e7
+        for name, fn, plain, args, cost in (
+                ("sr_pack_keyed_scales", sq.sr_pack_keyed_scales_cuda,
+                 sq.sr_pack_keyed_scales_plain, (row,), count.sr_pack_keyed_scales_cost(
+                     P, 1, len(sizes))),
+                ("sr_pack_keyed_scaled", sq.sr_pack_keyed_scaled_cuda,
+                 sq.sr_pack_keyed_scaled_plain, (row, smax, f_c, key, lim, dtype, 1),
+                 count.sr_pack_keyed_scaled_cost(P, 1, len(sizes), dtype))):
+            b_ms, b_by = bound_ms(cost)
+            kernel_ms = time_ms(fn, [args], iters=10 if big else 50)
+            out = dict(kernel=name, case=f"{label}, one rank's row", rows=1, leaves=len(sizes),
+                       P=P, bits=bits, codes=str(dtype), max_abs_err=0.0, kernel_ms=kernel_ms,
+                       bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / kernel_ms,
+                       plain_ms=time_events_ms(plain, args, iters=3, warmup=1),
+                       library_ms=None)
+            emit(out)
+            if label == "train step wire":
+                table[name] = out
+        del leaves, want, got
+    # NaN and +-Inf under "saturate": the guard's clamp is each row's own
+    leaves = _grads([9, 14, 5], 4, gen, scale=1.0)
+    leaves[0][0][1], leaves[1][2][3], leaves[1][0][0] = float("nan"), float("inf"), -float("inf")
+    leaves[2][1][:] = float("inf")
+    got = _split_pack(leaves, key, 255, torch.int16, sq.sr_pack_keyed_scales_cuda,
+                      sq.sr_pack_keyed_scaled_cuda)
+    _same_pack("split NaN/Inf", got, sq.sr_pack_keyed_cuda(leaves, key, 255, torch.int16))
+    _same_pack("split NaN/Inf (plain)", got, _split_pack(
+        _cpu(leaves), key, 255, torch.int16, sq.sr_pack_keyed_scales_plain,
+        sq.sr_pack_keyed_scaled_plain))
+    if int(got[2]) != 8:
+        raise AssertionError(f"sr_pack_keyed split: non-finite count {int(got[2])}, want 8")
+    print("sr_pack_keyed split: pass 1 a row, the rows' max, pass 2 at stream offset c equal "
+          "the one-call entry bit for bit (trainer's wire, 4x4096x11008, ragged int8, NaN/Inf)"
+          "; each pass equals its plain version")
+
+
+def dist_worker(job_path: str) -> None:
+    """One rank of phase dist (started by ``torch.distributed.run``): the
+    job's runs through ``Session.run_train`` with each round's launches,
+    collectives, host ms (the checkpoint's gather and write apart), span on
+    the card's clock (CUDA events around the round) and peak memory; rank
+    r's results to ``<out_dir>/rank<r>.json`` and a line on stdout."""
+    from repro_torch.api.session import Session
+    from repro_torch.launch.mesh import init_distributed
+
+    import torch.distributed as dist
+
+    with open(job_path) as f:
+        job = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = init_distributed(job["backend"], None, share_device=job["share_device"])
+    rank = dist.get_rank()
+    out = {"rank": rank, "device": str(dev), "backend": job["backend"], "runs": []}
+    fl_round = Session.fl_round
+    from repro_torch.ckpt import checkpoint as ckpt
+
+    gather_state, save = ckpt.gather_state, ckpt.save_checkpoint
+    ckpt_ms = [0.0]
+
+    def timed(fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                ckpt_ms[0] += (time.perf_counter() - t0) * 1e3
+        return run
+
+    ckpt.gather_state, ckpt.save_checkpoint = timed(gather_state), timed(save)
+    for run in job["runs"]:
+        if "ckpt_every" in run["options"]:
+            run = {**run, "options": {**run["options"],
+                                      "ckpt_dir": os.path.join(job["out_dir"], run["name"])}}
+        sess = _train_session(run, str(dev), layers=job["layers"], mesh=job["mesh"])
+        t0 = time.time()
+        sess._ensure_train_state()
+        torch.cuda.synchronize(dev)
+        setup_s = time.time() - t0
+        transport = sess.axes.transport
+        rows: list = []
+
+        def counted_round(self, r):
+            issued = {k: list(v) for k, v in transport.issued.items()}
+            launches = dict(ops.LAUNCHES)
+            ckpt_ms[0] = 0.0
+            torch.cuda.reset_peak_memory_stats(dev)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            rec = fl_round(self, r)
+            end.record()
+            end.synchronize()
+            host_ms = (time.perf_counter() - t0) * 1e3
+            rows.append({
+                "round": r, "loss": rec["loss"], "host_ms": host_ms,
+                "checkpoint_ms": ckpt_ms[0], "step_ms": host_ms - ckpt_ms[0],
+                "span_ms": start.elapsed_time(end),
+                "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+                "launches": {k: ops.LAUNCHES[k] - launches[k] for k in
+                             ("sr_quant_inline", "sr_pack_keyed_scales", "sr_pack_keyed_scaled",
+                              "sr_pack_keyed", "sr_pack")},
+                "collectives": {f"{k} {dt}": {"calls": n - issued.get((k, dt), [0, 0])[0],
+                                              "bytes": b - issued.get((k, dt), [0, 0])[1]}
+                                for (k, dt), (n, b) in transport.issued.items()
+                                if n != issued.get((k, dt), [0, 0])[0]}})
+            return rec
+
+        ops.reset_launches()
+        Session.fl_round = counted_round
+        try:
+            hist = sess.run_train()
+        finally:
+            Session.fl_round = fl_round
+        res = {"run": run["name"], "setup_s": setup_s, "launches": dict(ops.LAUNCHES),
+               "losses": [h["loss"] for h in hist], "rounds": rows,
+               "staged": dict(transport.staged),
+               "comm_report": {k: v for k, v in sess.comm_report().items() if k != "rounds"}}
+        out["runs"].append(res)
+        print(f"dist rank {rank} {run['name']}: " + json.dumps(
+            {"rounds": rows, "staged": res["staged"]}), flush=True)
+        del sess
+        torch.cuda.empty_cache()
+    with open(os.path.join(job["out_dir"], f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def _torchrun(n: int, job: dict, out_dir: str, timeout_s: float) -> list:
+    """``job`` on ``n`` ranks (``torch.distributed.run --standalone``, this
+    script in worker mode); returns the ranks' results.  A failing rank
+    fails the phase with its output."""
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "job.json")
+    with open(path, "w") as f:
+        json.dump({**job, "out_dir": out_dir}, f)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={n}", os.path.abspath(__file__), f"--src={SRC}",
+           f"--dist-worker={path}"]
+    t0 = time.time()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout_s,
+                          env={**os.environ, "OMP_NUM_THREADS": "2"})
+    with open(os.path.join(out_dir, "torchrun.log"), "w") as f:
+        f.write(proc.stdout + "\n" + proc.stderr)
+    if proc.returncode != 0:
+        raise AssertionError(f"dist: {n} ranks failed ({proc.returncode}):\n"
+                             f"{proc.stdout[-6000:]}\n{proc.stderr[-6000:]}")
+    for line in proc.stdout.splitlines():
+        if line.startswith("dist rank"):
+            print(line[:4000])
+    for line in proc.stderr.splitlines():
+        if "staged" in line or "widened" in line:
+            print(line[:300])
+    print(f"dist: {n} rank(s) over {job['backend']} ran in {time.time() - t0:.1f} s")
+    ranks = []
+    for r in range(n):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    return ranks
+
+
+def phase_dist(dev: dict, table: dict) -> dict:
+    """Phase dist (see the module docstring); returns the split K2 entries'
+    launches in the 4-rank run, summed over the ranks."""
+    import tempfile
+
+    from repro_torch.ckpt.checkpoint import load_checkpoint
+    from repro_torch.models.common import fsdp_plan
+
+    check_sr_pack_split(table)
+    base = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    ranks = _torchrun(DIST_RANKS, {"backend": "gloo", "share_device": True,
+                                   "mesh": f"{DIST_RANKS}x1", "layers": DIST_LAYERS,
+                                   "runs": list(DIST_RUNS)}, os.path.join(base, "gloo"), 600)
+    launches = {"sr_pack_keyed_scales": 0, "sr_pack_keyed_scaled": 0}
+    for rk in ranks:
+        for res in rk["runs"]:
+            assert all(np.isfinite(x) for x in res["losses"]), res["losses"]
+            assert res["losses"] == ranks[0]["runs"][rk["runs"].index(res)]["losses"],                 "the ranks' pmean-ed losses differ"
+            for row in res["rounds"]:
+                want = {"sr_quant_inline": DIST_K1_PER_STEP, "sr_pack_keyed_scales": 1,
+                        "sr_pack_keyed_scaled": 1, "sr_pack_keyed": 0, "sr_pack": 1}
+                if row["launches"] != want:
+                    raise AssertionError(f"dist rank {rk['rank']} {res['run']} round "
+                                         f"{row['round']}: launches {row['launches']}, want "
+                                         f"{want}")
+            for k in launches:
+                launches[k] += res["launches"][k]
+    r0 = {res["run"]: res for res in ranks[0]["runs"]}
+    emit({"dist": {"card": f"{dev['kind']} ({dev['smi']})", "ranks": DIST_RANKS,
+                   "backend": "gloo", "share_device": True, "arch": "yi-6b",
+                   "layers": DIST_LAYERS, "mesh": f"{DIST_RANKS}x1", "batch_per_client": 2,
+                   "seq": 512, "comm_bits": 8, "wire": "int16 codes summed as int32",
+                   "per_rank": [{"rank": rk["rank"], "runs": [
+                       {k: res[k] for k in ("run", "setup_s", "losses", "rounds", "staged")}
+                       for res in rk["runs"]]} for rk in ranks],
+                   "comm_report": r0["train"]["comm_report"]}})
+    # the same spec as one process (the loop), one round, from the same init
+    # and keys: held to the 4 ranks' checkpoint after their first step
+    run = {**DIST_RUNS[0], "rounds": 1, "options": {}}
+    sess = _train_session(run, "cuda", layers=DIST_LAYERS)
+    hist = sess.run_train()
+    params = sess._train_state["params"]
+    state, _manifest = load_checkpoint(os.path.join(base, "gloo", "train"),
+                                       {"p": params, "o": sess._train_state["opt_state"]},
+                                       step=1)
+    paths, _leaves, plan = fsdp_plan(params, DIST_RANKS)
+    worst_fsdp, n_wire = 0.0, 0
+    for path, dim in zip(paths, plan):
+        a, b = state["p"][path], params[path]
+        if dim is None:
+            n_wire += 1
+            if not torch.equal(a, b):
+                raise AssertionError(f"dist: wire leaf {path} differs from the loop's "
+                                     f"({int((a != b).sum())} elements)")
+        else:
+            # rtol of the leaf's largest magnitude: four addends summed in
+            # another order move an element near zero by an ulp of its update
+            rel = ((a - b).abs().max() / b.abs().max()).item()
+            worst_fsdp = max(worst_fsdp, rel)
+            if rel > 1e-6:
+                raise AssertionError(f"dist: FSDP leaf {path} differs from the loop's by "
+                                     f"{rel:.3g} of its largest magnitude (limit 1e-6)")
+    d_loss = abs(r0["train"]["losses"][0] - hist[0]["loss"])
+    if d_loss > 1e-6:
+        raise AssertionError(f"dist: loss {r0['train']['losses'][0]} vs the loop's "
+                             f"{hist[0]['loss']}")
+    print(f"dist: 4 ranks vs the loop after one step: {n_wire} wire leaves bit-equal, "
+          f"{len(paths) - n_wire} FSDP leaves within rtol {worst_fsdp:.3g} (limit 1e-6), loss "
+          f"{hist[0]['loss']:.6f} (|d| {d_loss:.3g})")
+    del sess, params, state
+    torch.cuda.empty_cache()
+    # one rank over NCCL: the backend starts, trains a round and exits
+    nccl = _torchrun(1, {"backend": "nccl", "share_device": False, "mesh": "1x1",
+                         "layers": DIST_LAYERS,
+                         "runs": [{**DIST_RUNS[0], "rounds": 1, "options": {}}]},
+                     os.path.join(base, "nccl"), 300)
+    res = nccl[0]["runs"][0]
+    assert nccl[0]["backend"] == "nccl" and np.isfinite(res["losses"][0]), nccl
+    print(f"dist: one rank over nccl trained a round, loss {res['losses'][0]:.4f}, "
+          f"collectives {res['rounds'][0]['collectives']}")
+    return launches
+
+
 COMMITTED_STORES = os.path.join(ROOT, "results")
 #: Phase ``grids``: committed cells rerun through the port's ``SweepRunner``
 #: on the card, each where the runner puts it (serve and train cells in a
@@ -3691,7 +4023,7 @@ def phase_analyze(dev: dict) -> None:
 
 
 PHASES = ("device", "build", "kernels", "serve", "profile", "consistency", "fl", "train",
-          "roofline", "analyze", "grids")
+          "dist", "roofline", "analyze", "grids")
 #: run only when named in ``--phases``
 EXTRA_PHASES = ("sweep", "decode_sweep", "attn_sweep", "train_profile", "grids_all",
                 "roofline_all")
@@ -3706,7 +4038,12 @@ def main(argv=None) -> int:
                     help="phase grids_all: the sweep presets to rerun")
     ap.add_argument("--store-dir", default=os.path.join(ROOT, "results", "torch"),
                     help="phase grids_all: where the port's sweep stores go")
+    ap.add_argument("--dist-worker", default=None,
+                    help="phase dist's ranks run this script with their job file")
     args = ap.parse_args(argv)
+    if args.dist_worker:
+        dist_worker(args.dist_worker)
+        return 0
     phases = args.phases.split(",")
     t_start = time.time()
     dev = phase_device()
@@ -3723,6 +4060,7 @@ def main(argv=None) -> int:
             ("consistency", phase_consistency),
             ("fl", lambda: launches_of.update(fl=phase_fl(dev))),
             ("train", lambda: launches_of.update(train=phase_train(dev, measured))),
+            ("dist", lambda: launches_of.update(dist=phase_dist(dev, table))),
             ("roofline", lambda: phase_roofline(dev, measured)),
             ("analyze", lambda: phase_analyze(dev)),
             ("roofline_all", lambda: phase_roofline_all(dev)),
@@ -3743,6 +4081,7 @@ def main(argv=None) -> int:
         launches["sr_quant"] += train_launches["sr_quant"]
         for k in ("sr_quant_inline", "sr_pack", "sr_pack_keyed"):
             launches[k] = train_launches[k]
+    launches.update(launches_of.get("dist", {}))
     rows = []
     for name, meta in KERNELS.items():
         r = table.get(name, {})

@@ -26,7 +26,12 @@ it raises; nothing falls back to the CPU::
 ``faults``, ``resolve_drift_db``, ``precision_program``.  ``train`` runs
 federated rounds at the spec's fixed :class:`PrecisionPolicy`;
 ``fl-orchestrate`` is the paper's full loop, the GBD co-design choosing each
-round's per-client bits.  The mesh is ``Dx1``: D clients on one device.
+round's per-client bits.  The mesh is ``Dx1``: D clients on one device, or,
+when a ``torch.distributed`` group of D ranks is initialized (torchrun;
+:func:`repro_torch.launch.mesh.init_distributed`), one client a rank: each
+rank holds its FSDP shards and its client's rows of the global batch, rank 0
+plans the rounds and broadcasts them, and checkpoints are the one-process
+format (rank 0 writes the gathered leaves; every rank loads and slices).
 
 ``dryrun`` (:meth:`Session.run_dryrun`; options ``shape``, ``variant``)
 traces one shape cell's step under ``FakeTensorMode``, nothing allocated,
@@ -159,10 +164,19 @@ class Session:
     @functools.cached_property
     def axes(self):
         """The mesh's axis context: a ``Dx1`` mesh runs its D clients on the
-        session's device (a model axis > 1 raises)."""
+        session's device, or one a rank when a process group is initialized
+        (a model axis > 1 raises)."""
+        import torch.distributed as dist
+
         from repro_torch.launch.mesh import axis_ctx_for
 
-        return axis_ctx_for(self.spec.mesh)
+        group = "default" if dist.is_available() and dist.is_initialized() else None
+        return axis_ctx_for(self.spec.mesh, group=group)
+
+    @property
+    def rank(self) -> int:
+        """This process's rank (0 without a group)."""
+        return self.axes.dp_index() if self.axes.transport is not None else 0
 
     @functools.cached_property
     def ckpt(self):
@@ -236,10 +250,14 @@ class Session:
     # -- primitive builders ---------------------------------------------
     def init_params(self, generator: torch.Generator | None = None) -> dict:
         """Random f32 parameters on the session's device, drawn from
-        ``generator`` (default: seeded with ``spec.seed``)."""
+        ``generator`` (default: seeded with ``spec.seed``); under a group the
+        rank's storage of the same init (its FSDP shards,
+        :func:`~repro_torch.launch.steps.build_init_fn`)."""
+        from repro_torch.launch.steps import build_init_fn
+
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(self.spec.seed)
-        return self.model.init(generator, self.axes.tp, device=self.device)
+        return build_init_fn(self.model, self.axes, device=self.device)(generator)
 
     def train_step(self, opt=None, *, attn_impl: str = "auto"):
         """Policy-driven :class:`~repro_torch.launch.steps.TrainStep` builder."""
@@ -544,6 +562,8 @@ class Session:
 
         start = 0
         if self.ckpt:
+            from repro_torch.ckpt.checkpoint import shard_state
+
             expect = None
             if orch is not None:
                 expect = {"faults": (orch.cfg.faults.to_dict()
@@ -551,12 +571,14 @@ class Session:
             state, start, _ = self.ckpt.restore_or({"p": params, "o": opt_state},
                                                    expect_extra=expect)
             if start:
+                state = shard_state(state, params, self.axes)
                 params, opt_state = state["p"], state["o"]
                 log.info("resumed at round %d", start)
                 if orch is not None:
                     # replay the completed rounds' planning (seeded host
-                    # math), so the resumed run plans as the uninterrupted one
-                    for r in range(start):
+                    # math), so the resumed run plans as the uninterrupted
+                    # one (rank 0 plans for every rank)
+                    for r in range(start if self.rank == 0 else 0):
                         orch.plan_round(r)
                 else:
                     for r in range(start):
@@ -606,7 +628,12 @@ class Session:
         spec, cfg, dev = self.spec, self.cfg, self.device
         n_clients, B = st["n_clients"], st["B"]
 
-        plan = st["orch"].plan_round(r) if st["orch"] is not None else None
+        plan = None
+        if st["orch"] is not None:
+            # rank 0 plans (host math), every rank runs its plan
+            plan = st["orch"].plan_round(r) if self.rank == 0 else None
+            if self.axes.transport is not None:
+                plan = self.axes.transport.broadcast_object(plan)
         if plan is not None:
             policy = plan["policy"]
         else:
@@ -615,11 +642,14 @@ class Session:
         bits = policy.bits_vector(n_clients)
 
         raw = st["batcher"].sample_round(r, n_clients, spec.batch)
-        batch = {"tokens": torch.as_tensor(raw["tokens"].reshape(B, spec.seq), device=dev),
-                 "labels": torch.as_tensor(raw["labels"].reshape(B, spec.seq), device=dev)}
+        rows = slice(0, B)
+        if self.axes.transport is not None:     # every rank draws the global batch
+            rows = slice(self.rank * spec.batch, (self.rank + 1) * spec.batch)
+        batch = {k: torch.as_tensor(raw[k].reshape(B, spec.seq)[rows], device=dev)
+                 for k in ("tokens", "labels")}
         # the stub frontends' inputs (VLM images, enc-dec frames) are zeros,
         # as in the reference
-        for name, t in self.model.train_batch_spec(B, spec.seq).items():
+        for name, t in self.model.train_batch_spec(rows.stop - rows.start, spec.seq).items():
             if name not in batch:
                 batch[name] = torch.zeros(tuple(t.shape), dtype=t.dtype, device=dev)
         delta = policy.delta(n_clients)
@@ -641,21 +671,27 @@ class Session:
                        dropped_midround=plan["dropped_midround"])
         st["history"].append(rec)
         st["energy_cum"] += float(rec["energy_j"])
-        if self.ckpt:
+        if self.ckpt and self.ckpt.due(r + 1):
+            from repro_torch.ckpt.checkpoint import gather_state
+
             extra = {"round": r + 1}
             orch = st["orch"]
             if orch is not None:
                 extra["faults"] = (orch.cfg.faults.to_dict()
                                    if orch.cfg.faults is not None else None)
-            self.ckpt.maybe_save(r + 1, {"p": st["params"], "o": st["opt_state"]},
-                                 extra=extra)
+            state = gather_state({"p": st["params"], "o": st["opt_state"]}, st["params"],
+                                 self.axes)
+            if self.rank == 0:
+                self.ckpt.maybe_save(r + 1, state, extra=extra)
+            if self.axes.transport is not None:
+                self.axes.transport.barrier()   # the checkpoint is whole before any rank reads
         return rec
 
     def run_train(self) -> list[dict]:
         """The ``train`` / ``fl-orchestrate`` loop: ``spec.rounds`` rounds
         (from a checkpoint's round when ``ckpt_dir`` holds one)."""
         st = self._ensure_train_state()
-        quiet = bool(self.spec.opt("quiet", False))
+        quiet = bool(self.spec.opt("quiet", False)) or self.rank != 0   # rank 0's rows
         for r in range(st["start"], self.spec.rounds):
             rec = self.fl_round(r)
             if not quiet:
@@ -670,7 +706,7 @@ class Session:
                   f"final_loss={history[-1]['loss']:.4f} "
                   f"total_energy={total_e:.2f}J")
         out = self.spec.opt("out", "")
-        if out:
+        if out and self.rank == 0:
             with open(out, "w") as f:
                 json.dump(history, f, indent=1)
         return history
@@ -728,10 +764,10 @@ class Session:
                 print(msg)
 
         cfg, model, axes = self.cfg, self.model, self.axes
-        if axes.dp > 1:
+        if axes.dp > 1 or axes.transport is not None:
             raise NotImplementedError(
                 f"serve on mesh {spec.mesh!r}: batch-sharded serving is not ported "
-                "(ROADMAP queue 1, item 8)")
+                "(ROADMAP queue 1, item 8b)")
 
         # ---- KV layout ---------------------------------------------------
         kv_layout = o.get("kv_layout") or ("paged" if model.supports_paged_kv

@@ -13,6 +13,11 @@ A state is a nested dict whose leaves are tensors or
 :class:`~repro_torch.models.common.QTensor` — e.g. ``{"p": params, "o":
 opt_state}``, with the port's flat parameter dicts keyed ``"blocks/attn/wq"``
 — so the stored paths are the reference's.
+
+Under a process group the state is sharded: :func:`gather_state` makes the
+whole leaves (every rank takes part; rank 0 writes them) and
+:func:`shard_state` slices a loaded state to the rank's storage, so a
+checkpoint moves freely between a D-rank run and the one-process loop.
 """
 
 from __future__ import annotations
@@ -158,6 +163,44 @@ def load_checkpoint(directory: str, template: Any, *, step: int | None = None,
     return rebuild(template, ""), manifest
 
 
+def _fsdp_dims(params: dict, axes) -> dict:
+    from repro_torch.models.common import fsdp_plan
+
+    paths, _leaves, plan = fsdp_plan(params, axes.fsdp, check_divisibility=False)
+    return dict(zip(paths, plan))
+
+
+def _map_sharded(state, dims: dict, fn):
+    """``state`` with ``fn(leaf, dim)`` applied to every leaf keyed by an
+    FSDP parameter's path (the parameters and any optimizer moments of
+    them), at any depth."""
+    if not isinstance(state, dict):
+        return state
+    return {k: (fn(v, dims[k]) if dims.get(k) is not None and not isinstance(v, dict)
+                else _map_sharded(v, dims, fn)) for k, v in state.items()}
+
+
+def gather_state(state, params: dict, axes):
+    """The whole-leaf state from a rank's sharded one (``params``: the
+    rank's parameters, which say which keys are FSDP leaves).  A collective:
+    every rank calls it.  Without a group, ``state`` itself."""
+    from repro_torch.models.common import gather_leaf
+
+    if axes.transport is None:
+        return state
+    return _map_sharded(state, _fsdp_dims(params, axes), lambda w, d: gather_leaf(w, d, axes))
+
+
+def shard_state(state, params: dict, axes):
+    """A loaded whole-leaf state sliced to the rank's storage (the inverse
+    of :func:`gather_state`); without a group, ``state`` itself."""
+    from repro_torch.models.common import shard_leaf
+
+    if axes.transport is None:
+        return state
+    return _map_sharded(state, _fsdp_dims(params, axes), lambda w, d: shard_leaf(w, d, axes))
+
+
 @dataclasses.dataclass
 class CheckpointManager:
     """Save-every-k with resume; the orchestrator's persistence handle."""
@@ -166,8 +209,12 @@ class CheckpointManager:
     every: int = 10
     keep: int = 3
 
+    def due(self, step: int) -> bool:
+        """Whether :meth:`maybe_save` writes at ``step``."""
+        return bool(self.every) and step % self.every == 0
+
     def maybe_save(self, step: int, state: Any, extra: dict | None = None):
-        if self.every and step % self.every == 0:
+        if self.due(step):
             return save_checkpoint(self.directory, step, state,
                                    extra=extra, keep=self.keep)
         return None

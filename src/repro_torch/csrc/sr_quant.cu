@@ -297,6 +297,17 @@ extern "C" int repro_sr_pack(const float* g, const int* offsets, const float* st
 // first block of K2 also sums the non-finite count, the one number the host
 // reads in "raise" mode.
 //
+// Split at the pass boundary (the trainer with one client a rank, where the
+// shared scale is a max across processes): repro_sr_pack_keyed_scales runs
+// pass 1 and folds each (row, leaf)'s partials into that row's largest
+// finite |g| (fmax, C x L) and the rows' non-finite count; the caller
+// all-reduces the count (sum) and fmax's row (max) into smax; then
+// repro_sr_pack_keyed_scaled runs pass 2 from smax and fmax in device memory,
+// row c drawing Philox stream c0 + c.  Rank r passes c0 = r, so its codes are
+// row r of the one-call entry's, bit for bit: the same partials, the same
+// unsigned max (a float max of finite non-negative values), the same pitch
+// and uniforms.  Both passes share their bodies with the one-call entry.
+//
 // Bound: bytes, each input counted once and each output once: K2 4 B of g
 // and 1-4 B of codes an element, K1 4 B of w and 4 B (2 B in bf16) out a
 // client (pass 1's read is the price of a scale known before the rounding
@@ -517,41 +528,27 @@ __device__ __forceinline__ unsigned long long block_count(const uint2* __restric
   return v;
 }
 
-template <typename CodeT>
-__global__ void __launch_bounds__(SEG_THREADS)
-sr_pack_keyed_kernel(const __grid_constant__ SegTable t, const uint2* __restrict__ parts,
-                     int C, float lim, uint32_t k0, uint32_t k1, CodeT* __restrict__ out,
-                     float* __restrict__ steps, unsigned long long* __restrict__ bad, int P) {
-  const int c = blockIdx.y;
-  const int l = seg_leaf(t, blockIdx.x);
-  const int b0 = t.blk[l], nbl = t.blk[l + 1] - b0;
-  uint2 m = make_uint2(0u, 0u);  // (max over the clients, this client's own)
-#pragma unroll 4
-  for (int i = threadIdx.x; i < C * nbl; i += SEG_THREADS) {
-    const int r = i / nbl;
-    const uint32_t v = __ldg(&parts[static_cast<int64_t>(r) * t.nb + b0 + (i - r * nbl)].x);
-    m.x = max(m.x, v);
-    m.y = r == c ? max(m.y, v) : m.y;
-  }
-  m = block_reduce2<false>(m);
-  const float smax = __uint_as_float(m.x), fmax = __uint_as_float(m.y);
+// The wire's pitch from the shared scale smax (1 where it is not > 0).
+__device__ __forceinline__ float wire_step(float smax, float lim) {
   const float s = smax > 0.0f ? smax : 1.0f;
-  const float step = __fmul_rn(s, __frcp_rn(lim));
+  return __fmul_rn(s, __frcp_rn(lim));
+}
+
+// One row's codes of leaf l (its blocks b0 .. b0 + nbl - 1): x guarded at
+// fmax, rounded at `step` onto codes from Philox stream `stream`, to oc.
+template <typename CodeT>
+__device__ __forceinline__ void pack_leaf_row(const SegTable& t, int l, int b0, int nbl,
+                                              const float* x, float step, float fmax,
+                                              float lim, int stream, uint32_t k0, uint32_t k1,
+                                              CodeT* __restrict__ oc) {
   const float safe = step > 0.0f ? step : 1.0f;
-  if (c == 0 && static_cast<int>(blockIdx.x) == b0 && threadIdx.x == 0) steps[l] = step;
-  if (c == 0 && blockIdx.x == 0) {
-    const unsigned long long n = block_count(parts, C * t.nb);
-    if (threadIdx.x == 0) *bad = n;
-  }
   const int a = t.off[l], b = t.off[l + 1];
-  const float* x = t.base[c * t.L + l];
-  CodeT* oc = out + static_cast<int64_t>(c) * P;
   const bool vec = groups_aligned(x, a, oc, sizeof(CodeT));
   const int g_end = (b >> 2) + ((b & 3) != 0);
   for (int g = (a >> 2) + (blockIdx.x - b0) * SEG_THREADS + threadIdx.x; g < g_end;
        g += nbl * SEG_THREADS) {
     const int p0 = g << 2;
-    const uint4 r = group_bits(g, c, k0, k1);
+    const uint4 r = group_bits(g, stream, k0, k1);
     if (vec && p0 >= a && p0 <= b - 4) {
       const float4 v = __ldg(reinterpret_cast<const float4*>(x + (p0 - a)));
       const CodeT q[4] = {
@@ -571,6 +568,69 @@ sr_pack_keyed_kernel(const __grid_constant__ SegTable t, const uint2* __restrict
       }
     }
   }
+}
+
+template <typename CodeT>
+__global__ void __launch_bounds__(SEG_THREADS)
+sr_pack_keyed_kernel(const __grid_constant__ SegTable t, const uint2* __restrict__ parts,
+                     int C, float lim, uint32_t k0, uint32_t k1, CodeT* __restrict__ out,
+                     float* __restrict__ steps, unsigned long long* __restrict__ bad, int P) {
+  const int c = blockIdx.y;
+  const int l = seg_leaf(t, blockIdx.x);
+  const int b0 = t.blk[l], nbl = t.blk[l + 1] - b0;
+  uint2 m = make_uint2(0u, 0u);  // (max over the clients, this client's own)
+#pragma unroll 4
+  for (int i = threadIdx.x; i < C * nbl; i += SEG_THREADS) {
+    const int r = i / nbl;
+    const uint32_t v = __ldg(&parts[static_cast<int64_t>(r) * t.nb + b0 + (i - r * nbl)].x);
+    m.x = max(m.x, v);
+    m.y = r == c ? max(m.y, v) : m.y;
+  }
+  m = block_reduce2<false>(m);
+  const float step = wire_step(__uint_as_float(m.x), lim);
+  if (c == 0 && static_cast<int>(blockIdx.x) == b0 && threadIdx.x == 0) steps[l] = step;
+  if (c == 0 && blockIdx.x == 0) {
+    const unsigned long long n = block_count(parts, C * t.nb);
+    if (threadIdx.x == 0) *bad = n;
+  }
+  pack_leaf_row<CodeT>(t, l, b0, nbl, t.base[c * t.L + l], step, __uint_as_float(m.y), lim, c,
+                       k0, k1, out + static_cast<int64_t>(c) * P);
+}
+
+// The split wire's pass 1 fold: row r's largest finite |g| of leaf l,
+// fmax[r * L + l], from its blocks' partials; block (0, 0) also writes the
+// rows' non-finite count.
+__global__ void __launch_bounds__(SEG_THREADS)
+seg_fold_kernel(const __grid_constant__ SegTable t, const uint2* __restrict__ parts, int rows,
+                float* __restrict__ fmax, unsigned long long* __restrict__ bad) {
+  const int l = blockIdx.x, r = blockIdx.y;
+  const int b0 = t.blk[l], nbl = t.blk[l + 1] - b0;
+  uint2 m = make_uint2(0u, 0u);
+  for (int i = threadIdx.x; i < nbl; i += SEG_THREADS)
+    m.x = max(m.x, __ldg(&parts[static_cast<int64_t>(r) * t.nb + b0 + i].x));
+  m = block_reduce2<false>(m);
+  if (threadIdx.x == 0) fmax[r * t.L + l] = __uint_as_float(m.x);
+  if (l == 0 && r == 0) {
+    const unsigned long long n = block_count(parts, rows * t.nb);
+    if (threadIdx.x == 0) *bad = n;
+  }
+}
+
+// The split wire's pass 2: the pitch from the shared scale smax[l] (made
+// across ranks), row c guarded at its own fmax[c * L + l] and drawing Philox
+// stream c0 + c.
+template <typename CodeT>
+__global__ void __launch_bounds__(SEG_THREADS)
+sr_pack_scaled_kernel(const __grid_constant__ SegTable t, const float* __restrict__ smax,
+                      const float* __restrict__ fmax, int c0, float lim, uint32_t k0,
+                      uint32_t k1, CodeT* __restrict__ out, float* __restrict__ steps, int P) {
+  const int c = blockIdx.y;
+  const int l = seg_leaf(t, blockIdx.x);
+  const int b0 = t.blk[l], nbl = t.blk[l + 1] - b0;
+  const float step = wire_step(__ldg(smax + l), lim);
+  if (c == 0 && static_cast<int>(blockIdx.x) == b0 && threadIdx.x == 0) steps[l] = step;
+  pack_leaf_row<CodeT>(t, l, b0, nbl, t.base[c * t.L + l], step, __ldg(fmax + c * t.L + l),
+                       lim, c0 + c, k0, k1, out + static_cast<int64_t>(c) * P);
 }
 
 // The table from the host's arrays: off and blk (L + 1 each, blk[0] = 0 and
@@ -611,6 +671,15 @@ int launch_sr_pack_keyed(const SegTable& t, const uint2* parts, int C, float lim
                          cudaStream_t stream) {
   sr_pack_keyed_kernel<CodeT><<<dim3(t.nb, C), SEG_THREADS, 0, stream>>>(
       t, parts, C, lim, k0, k1, static_cast<CodeT*>(out), steps, bad, P);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename CodeT>
+int launch_sr_pack_scaled(const SegTable& t, const float* smax, const float* fmax, int C, int c0,
+                          float lim, uint32_t k0, uint32_t k1, void* out, int P, float* steps,
+                          cudaStream_t stream) {
+  sr_pack_scaled_kernel<CodeT><<<dim3(t.nb, C), SEG_THREADS, 0, stream>>>(
+      t, smax, fmax, c0, lim, k0, k1, static_cast<CodeT*>(out), steps, P);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -678,5 +747,51 @@ extern "C" int repro_sr_pack_keyed(const int* off, const int* blk, const void* c
       return launch_sr_pack_keyed<int16_t>(t, p, C, lim, k0, k1, out, P, steps, bad, stream);
     default:
       return launch_sr_pack_keyed<int32_t>(t, p, C, lim, k0, k1, out, P, steps, bad, stream);
+  }
+}
+
+// K2 keyed, split at its pass boundary for a wire whose rows lie on several
+// ranks.  Pass 1: L leaves of C rows (base[c * L + l]) -> fmax (C, L) f32,
+// each row's largest finite |g| a leaf, and bad (1,) the rows' non-finite
+// count; parts holds C * blk[L] uint2 partials.  Columns as in
+// repro_sr_pack_keyed.
+extern "C" int repro_sr_pack_keyed_scales(const int* off, const int* blk,
+                                          const void* const* base, int L, int C, void* parts,
+                                          float* fmax, unsigned long long* bad,
+                                          cudaStream_t stream) {
+  SegTable t;
+  const int err = fill_seg_table(t, off, blk, base, L, C, off[L]);
+  if (err != 0) return err;
+  uint2* p = static_cast<uint2*>(parts);
+  seg_absmax_kernel<true><<<dim3(t.nb, C), SEG_THREADS, 0, stream>>>(t, p);
+  const cudaError_t e1 = cudaGetLastError();
+  if (e1 != cudaSuccess) return static_cast<int>(e1);
+  seg_fold_kernel<<<dim3(L, C), SEG_THREADS, 0, stream>>>(t, p, C, fmax, bad);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Pass 2: smax (L,) the shared scales, fmax (C, L) the rows' own, on the
+// device; row c draws Philox stream c0 + c.  -> columns off[0] .. off[L] - 1
+// of codes (C, P) of code_dtype, steps (L,) f32.
+extern "C" int repro_sr_pack_keyed_scaled(const int* off, const int* blk,
+                                          const void* const* base, int L, int C,
+                                          const float* smax, const float* fmax, int c0,
+                                          unsigned k0, unsigned k1, float lim, void* out, int P,
+                                          int code_dtype, float* steps, cudaStream_t stream) {
+  SegTable t;
+  const int err = fill_seg_table(t, off, blk, base, L, C, P);
+  if (err != 0) return err;
+  if (c0 < 0 || code_dtype < DT_I8 || code_dtype > DT_I32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (code_dtype) {
+    case DT_I8:
+      return launch_sr_pack_scaled<int8_t>(t, smax, fmax, C, c0, lim, k0, k1, out, P, steps,
+                                           stream);
+    case DT_I16:
+      return launch_sr_pack_scaled<int16_t>(t, smax, fmax, C, c0, lim, k0, k1, out, P, steps,
+                                            stream);
+    default:
+      return launch_sr_pack_scaled<int32_t>(t, smax, fmax, C, c0, lim, k0, k1, out, P, steps,
+                                            stream);
   }
 }

@@ -1,13 +1,23 @@
-"""Axis context and the SR-quantized gradient all-reduce of the port.
+"""Axis context, the batch and FSDP collectives, and the SR-quantized
+gradient all-reduce of the port.
 
 :class:`AxisCtx` names the axes of a launch as the reference's mesh context
 does (``batch_axes``, ``model_axis``, ``fsdp_axes``) and carries their sizes.
-The port runs a ``Dx1`` mesh on one device: the D data-parallel groups (the
-FL clients) run one after another in a loop, so where the reference asks
-``lax.axis_index`` which client it is, the port's context says which client
-the loop is at (:meth:`AxisCtx.at_client`).  The model axis is 1: its
-collectives (``psum_model``) are identities, as in the reference outside a
-mesh; tensor parallelism is not ported.
+A ``Dx1`` mesh runs one of two ways:
+
+* **one process**: the D data-parallel groups (the FL clients) run one after
+  another in a loop on one device, so where the reference asks
+  ``lax.axis_index`` which client it is, the context says which client the
+  loop is at (:meth:`AxisCtx.at_client`) and the batch collectives are
+  identities, as the reference's are outside a mesh;
+* **one process a client**: under a ``torch.distributed`` group of D ranks
+  (:class:`Transport`), rank r is client r, and :meth:`AxisCtx.psum_batch`,
+  :meth:`~AxisCtx.pmean_batch`, :meth:`~AxisCtx.pmax_batch` and
+  :meth:`~AxisCtx.gather_fsdp` (a tiled all-gather whose transpose is a
+  reduce-scatter) are the reference's collectives over real ranks.
+
+The model axis is 1: ``psum_model`` is the identity; tensor parallelism is
+not ported.
 
 :func:`quantized_psum_batch` is the paper's Eq. 1 stochastic-rounding
 quantizer applied to model updates on the wire: the clients agree on a shared
@@ -17,11 +27,16 @@ one K2 call packs a whole train step's wire: the keyed entry
 (:func:`repro_torch.kernels.ops.sr_pack_keyed`, uniforms drawn in the kernel
 from the wire's key, the clients' gradients read where they lie) or, given
 uniforms, the u-taking one (:func:`repro_torch.kernels.ops.sr_pack_segments`).
+Across ranks the keyed entry runs split at its pass boundary, the
+reference's protocol: pass 1, the non-finite count's sum, the scales' max,
+pass 2 drawing the rank's own Philox stream, the codes' sum.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
+from typing import Any
 
 import numpy as np
 import torch
@@ -30,6 +45,124 @@ from repro_torch.core.quantization import FULL_PRECISION_BITS
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import f32_reciprocal, saturate_nonfinite
 from repro_torch.roofline import count
+
+log = logging.getLogger("repro_torch.dist")
+
+
+class Transport:
+    """The collectives of one ``torch.distributed`` process group.
+
+    Every collective the port issues across ranks goes through here, so the
+    counts by kind and dtype (``issued``: ``(kind, dtype) -> [calls,
+    bytes]``, the bytes of the collective's full operand) are what the ranks
+    really moved.  Under ``gloo`` a collective that the backend does not take
+    on CUDA tensors is staged through a host copy: the first refusal is
+    logged with its reason and the kind is listed in ``staged`` (``kind ->
+    reason``).  Nothing is staged under ``nccl``; there a refusal raises.
+    """
+
+    def __init__(self, group=None):
+        import torch.distributed as dist
+
+        self.dist = dist
+        self.group = group
+        self.backend = str(dist.get_backend(group))
+        self.rank = dist.get_rank(group)
+        self.size = dist.get_world_size(group)
+        self.issued: dict = {}
+        self.staged: dict = {}
+
+    def _count(self, kind: str, t: torch.Tensor) -> None:
+        acc = self.issued.setdefault((kind, str(t.dtype).replace("torch.", "")), [0, 0])
+        acc[0] += 1
+        acc[1] += t.numel() * t.element_size()
+
+    def _run(self, kind: str, native, *tensors):
+        """``native(*tensors)`` (the collective on the tensors where they
+        lie), or on host copies of them, copied back, where gloo refuses the
+        kind on CUDA tensors."""
+        on_card = any(t.is_cuda for t in tensors)
+        if kind not in self.staged or not on_card:
+            try:
+                native(*tensors)
+                return
+            except RuntimeError as e:
+                if self.backend != "gloo" or not on_card:
+                    raise
+                self.staged[kind] = str(e).splitlines()[0][:200]
+                log.warning("gloo does not take %s on CUDA tensors (%s): staged through "
+                            "a host copy from now on", kind, self.staged[kind])
+        host = [t.cpu() for t in tensors]
+        native(*host)
+        for t, h in zip(tensors, host):
+            t.copy_(h)
+
+    def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """A new tensor: the sum (``op="sum"``) or max (``"max"``) of ``x``
+        over the ranks."""
+        out = x.detach().clone().contiguous()
+        rop = {"sum": self.dist.ReduceOp.SUM, "max": self.dist.ReduceOp.MAX}[op]
+        self._count(f"all-reduce {op}", out)
+        self._run(f"all-reduce {op}", lambda t: self.dist.all_reduce(t, op=rop,
+                                                                      group=self.group), out)
+        return out
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The ranks' ``x`` concatenated along dim 0, in rank order."""
+        x = x.detach().contiguous()
+        out = torch.empty((self.size * x.shape[0], *x.shape[1:]), dtype=x.dtype,
+                          device=x.device)
+        self._count("all-gather", out)
+        self._run("all-gather", lambda o, i: self.dist.all_gather_into_tensor(
+            o, i, group=self.group), out, x)
+        return out
+
+    def reduce_scatter(self, x: torch.Tensor) -> torch.Tensor:
+        """Rank r's dim-0 block of the sum of the ranks' ``x``."""
+        x = x.detach().contiguous()
+        if x.shape[0] % self.size:
+            raise ValueError(f"reduce_scatter: dim 0 of {tuple(x.shape)} does not divide "
+                             f"by {self.size} ranks")
+        out = torch.empty((x.shape[0] // self.size, *x.shape[1:]), dtype=x.dtype,
+                          device=x.device)
+        self._count("reduce-scatter", x)
+        self._run("reduce-scatter", lambda o, i: self.dist.reduce_scatter_tensor(
+            o, i, op=self.dist.ReduceOp.SUM, group=self.group), out, x)
+        return out
+
+    def broadcast_object(self, obj, src: int = 0):
+        """Rank ``src``'s ``obj`` on every rank (pickled; host memory)."""
+        box = [obj]
+        self.dist.broadcast_object_list(box, src=src, group=self.group)
+        self.issued.setdefault(("broadcast", "object"), [0, 0])[0] += 1
+        return box[0]
+
+    def barrier(self) -> None:
+        self.dist.barrier(group=self.group)
+
+    def report(self) -> dict:
+        """``{"issued": {"kind dtype": {"calls", "bytes"}}, "staged": {kind:
+        reason}}`` since the transport was made."""
+        return {"issued": {f"{k} {dt}": {"calls": n, "bytes": b}
+                           for (k, dt), (n, b) in sorted(self.issued.items())},
+                "staged": dict(self.staged)}
+
+
+class _FSDPGather(torch.autograd.Function):
+    """The tiled all-gather of an FSDP shard along ``axis``; its backward is
+    the reduce-scatter (summed over the ranks) that is the gather's
+    transpose, which makes FSDP gradients come back summed and sharded."""
+
+    @staticmethod
+    def forward(ctx, x, axis: int, transport: Transport):
+        ctx.axis, ctx.transport = axis, transport
+        full = transport.all_gather(x.movedim(axis, 0))
+        return full.movedim(0, axis).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        shard = ctx.transport.reduce_scatter(g.movedim(ctx.axis, 0))
+        return shard.movedim(0, ctx.axis).contiguous(), None, None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,7 +173,9 @@ class AxisCtx:
     ``model_axis``: tensor-parallel axis (None = no TP; its size must be 1).
     ``fsdp_axes``:  axes the reference fully shards parameters over (the
     batch axes).  ``sizes``: ``((axis name, size), ...)``.  ``client``: the
-    data-parallel rank the code runs as.
+    data-parallel rank the code runs as.  ``transport``: the process group's
+    :class:`Transport` when each client is a process (then ``client`` is the
+    rank), None when the clients run in a loop.
     """
 
     batch_axes: tuple[str, ...] = ()
@@ -48,12 +183,18 @@ class AxisCtx:
     fsdp_axes: tuple[str, ...] = ()
     sizes: tuple[tuple[str, int], ...] = ()
     client: int = 0
+    transport: Any = dataclasses.field(default=None, compare=False, repr=False)
 
     def __post_init__(self):
         if self.tp != 1:
             raise NotImplementedError(
                 f"model axis of size {self.tp}: tensor parallelism is not ported "
                 "(ROADMAP queue 1, item 9)")
+        t = self.transport
+        if t is not None and (t.size != self.dp or t.rank != self.client):
+            raise ValueError(f"a group of {t.size} ranks (this one {t.rank}) runs "
+                             f"{self.dp} clients as client {self.client}: want one rank a "
+                             "client, rank r as client r")
 
     def _size(self, names) -> int:
         d = dict(self.sizes)
@@ -78,21 +219,48 @@ class AxisCtx:
 
     # --- indices ---------------------------------------------------------
     def dp_index(self) -> int:
-        """Flattened data-parallel rank (client id)."""
+        """Flattened data-parallel rank (client id): the process's rank
+        under a group, the loop's client without one."""
         return self.client
 
     def tp_index(self) -> int:
         return 0
 
     def at_client(self, c: int) -> "AxisCtx":
-        """The same axes, running as client ``c``."""
+        """The same axes, running as client ``c`` (under a group, only the
+        rank's own)."""
         if not 0 <= c < self.dp:
             raise ValueError(f"client {c} out of range for {self.dp} clients")
+        if self.transport is not None and c != self.client:
+            raise ValueError(f"rank {self.client} cannot run as client {c}")
         return dataclasses.replace(self, client=int(c))
 
     # --- model-axis collectives (tp = 1) ---------------------------------
     def psum_model(self, x):
         return x
+
+    # --- batch/FSDP collectives (identities without a group) -------------
+    def psum_batch(self, x):
+        """Sum over the batch axes' ranks."""
+        return x if self.transport is None else self.transport.all_reduce(x, "sum")
+
+    def pmean_batch(self, x):
+        """Mean over the ranks: the sum times ``fl32(1 / dp)``, as XLA runs
+        the reference's ``pmean``."""
+        if self.transport is None:
+            return x
+        return self.transport.all_reduce(x, "sum") * f32_reciprocal(self.dp)
+
+    def pmax_batch(self, x):
+        """Max over the batch axes' ranks."""
+        return x if self.transport is None else self.transport.all_reduce(x, "max")
+
+    def gather_fsdp(self, x, *, axis: int):
+        """Tiled all-gather of FSDP-sharded storage along ``axis`` (rank
+        order); under autograd its transpose is the reduce-scatter."""
+        if self.transport is None or self.fsdp == 1:
+            return x
+        return _FSDPGather.apply(x, axis, self.transport)
 
 
 def code_bound(bits: int) -> int:
@@ -194,6 +362,9 @@ def quantized_psum_batch(axes: AxisCtx, grad, u, bits, *,
     4. ``(total * step) / D``.
 
     ``bits >= 32`` is the exact mean; one client is the identity.
+    Under a process group (``axes.transport``) each rank passes its own
+    client's gradients (one row a leaf, one uniform row) and gets the mean
+    over the ranks: the one-process result, the codes bit for bit.
     ``on_nonfinite`` guards against NaN/Inf (see :func:`_nonfinite_guard`);
     the keyed path applies the guard inside K2 and, in ``"raise"`` mode,
     reads the device's non-finite count once.  A traced step records the
@@ -206,22 +377,31 @@ def quantized_psum_batch(axes: AxisCtx, grad, u, bits, *,
     single = isinstance(grad, torch.Tensor)
     grads = [grad] if single else list(grad)
     n = axes.dp
+    rows = 1 if axes.transport is not None else n      # a rank holds its own client's
     if (u is None) == (key is None):
         raise ValueError("quantized_psum_batch: pass exactly one of the uniforms u and a key")
     if u is None:
         grads = [list(g) for g in grads]       # a stacked leaf's rows are views
         for g in grads:
-            if len(g) != n or any(x.shape != g[0].shape for x in g):
-                raise ValueError(f"quantized_psum_batch: leaves of D={n} client gradients "
+            if len(g) != rows or any(x.shape != g[0].shape for x in g):
+                raise ValueError(f"quantized_psum_batch: leaves of {rows} client gradients "
                                  f"of one shape; got {[tuple(x.shape) for x in g]}")
     else:
         us = [u] if single else list(u)
         if len(us) != len(grads):
             raise ValueError("quantized_psum_batch: one uniform tensor per leaf")
         for g, uu in zip(grads, us):
-            if g.shape[0] != n or uu.shape != g.shape:
-                raise ValueError(f"quantized_psum_batch: leaves (D={n}, ...) with uniforms "
+            if g.shape[0] != rows or uu.shape != g.shape:
+                raise ValueError(f"quantized_psum_batch: leaves ({rows}, ...) with uniforms "
                                  f"of their shape; got {tuple(g.shape)} and {tuple(uu.shape)}")
+    if axes.transport is not None and n > 1:
+        if int(bits) >= FULL_PRECISION_BITS:
+            out = [axes.pmean_batch(g[0]) for g in grads]   # full precision: exact mean
+        elif u is None:
+            out = _quantized_mean_ranks(axes, grads, int(bits), on_nonfinite, int(key))
+        else:
+            out = _quantized_mean_ranks_given(axes, grads, us, int(bits), on_nonfinite)
+        return out[0] if single else out
     if count.active() is not None and n > 1:
         _record_wire([g[0] for g in grads], int(bits), n, on_nonfinite)
     if n == 1:
@@ -325,3 +505,84 @@ def _quantized_mean_keyed(grads, bits: int, n: int, on_nonfinite: str, key: int)
     if on_nonfinite == "raise":
         _raise_nonfinite(count.host_read(bad, "the wire's non-finite count"))
     return out
+
+
+# ---------------------------------------------------------------------------
+# The wire across ranks: one client a process
+# ---------------------------------------------------------------------------
+
+_WIDENED_LOGGED = [False]
+
+
+def _psum_codes(axes: AxisCtx, codes: torch.Tensor) -> torch.Tensor:
+    """The codes' exact sum over the ranks.  int16 codes are widened to
+    int32 for the all-reduce: neither gloo nor NCCL sums int16 (ROADMAP §3,
+    D12), so the wire moves twice the reference's s16 bytes."""
+    if codes.dtype == torch.int16:
+        if not _WIDENED_LOGGED[0]:
+            _WIDENED_LOGGED[0] = True
+            log.info("quantized_psum_batch: int16 codes widened to int32 for the all-reduce: "
+                     "%d bytes a call where the reference's s16 wire moves %d",
+                     codes.numel() * 4, codes.numel() * 2)
+        codes = codes.to(torch.int32)
+    return axes.psum_batch(codes)
+
+
+def _quantized_mean_ranks(axes: AxisCtx, grads, bits: int, on_nonfinite: str,
+                          key: int) -> list:
+    """The keyed wire across ranks, in the reference's order: K2's pass 1 on
+    the rank's row, the non-finite count's sum ("raise"), the scales' max,
+    pass 2 drawing stream ``rank`` (the loop's row ``rank``), the codes'
+    sum.  Every rank issues the same collectives whatever its data, and in
+    "raise" mode every rank reads the same summed count once, after the
+    codes' sum, and raises together."""
+    _check_nonfinite_mode(on_nonfinite)
+    if not grads:
+        return []
+    n = axes.dp
+    lim = code_bound(bits)
+    fmax, bad = ops.sr_pack_keyed_scales(grads)
+    if on_nonfinite == "raise":
+        bad = axes.psum_batch(bad)
+    smax = axes.pmax_batch(fmax[0])
+    codes, step = ops.sr_pack_keyed_scaled(grads, smax, fmax, key, lim,
+                                           _TORCH_INT[np.dtype(wire_dtype(bits, n))],
+                                           c0=axes.dp_index())
+    total = _psum_codes(axes, codes)
+    out = _dequantized_means(total, step, [g[0].numel() for g in grads],
+                             [g[0].shape for g in grads], [g[0].dtype for g in grads], n)
+    if on_nonfinite == "raise":
+        _raise_nonfinite(count.host_read(bad, "the wire's non-finite count"))
+    return out
+
+
+def _quantized_mean_ranks_given(axes: AxisCtx, grads, us, bits: int,
+                                on_nonfinite: str) -> list:
+    """The u-taking wire across ranks (``grads``/``us`` the rank's row of
+    each leaf): the guard (the count summed over the ranks and read before
+    any scale is made, so every rank raises together), the scales' max, K2's
+    u-taking entry on the rank's row, the codes' sum."""
+    _check_nonfinite_mode(on_nonfinite)
+    if not grads:
+        return []
+    n = axes.dp
+    dev = grads[0].device
+    gfs = [g.to(torch.float32) for g in grads]
+    if on_nonfinite == "raise":
+        bad = sum(((~torch.isfinite(g)).sum() for g in gfs),
+                  torch.zeros((), dtype=torch.int64, device=dev))
+        _raise_nonfinite(count.host_read(axes.psum_batch(bad), "the wire's non-finite count"))
+    else:
+        gfs = [saturate_nonfinite(g) for g in gfs]
+    s = axes.pmax_batch(torch.stack([g.abs().amax() for g in gfs]))
+    s = torch.where(s > 0, s, torch.ones_like(s))
+    lim = code_bound(bits)
+    step = s * f32_reciprocal(lim)
+    sizes = [g[0].numel() for g in gfs]
+    offsets = torch.tensor([0, *np.cumsum(sizes)], dtype=torch.int32, device=dev)
+    flat = torch.cat([g.reshape(1, -1) for g in gfs], dim=1)
+    uflat = torch.cat([uu.to(torch.float32).reshape(1, -1) for uu in us], dim=1)
+    codes = ops.sr_pack_segments(flat, offsets, step, uflat, lim,
+                                 _TORCH_INT[np.dtype(wire_dtype(bits, n))])
+    return _dequantized_means(_psum_codes(axes, codes), step, sizes,
+                              [g.shape[1:] for g in grads], [g.dtype for g in grads], n)

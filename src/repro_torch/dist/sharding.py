@@ -1,0 +1,197 @@
+"""Sharding-rule table: the parameter, batch and cache layouts of a launch.
+
+Counterpart of ``repro/dist/sharding.py``.  The port has no
+``PartitionSpec``: a spec is a plain tuple with one entry a dim, each entry
+``None`` (replicated), an axis name, or a tuple of axis names (major to
+minor) — the reference's ``P(...)`` as ``tuple(spec)``.  The model zoo
+initializes **local-TP** storage (``model.init(gen, tp)``) and FSDP slicing
+happens at init (:func:`repro_torch.models.common.apply_fsdp_sharding`);
+this module turns a parameter's path into the global layout those two steps
+imply, the layout the checkpoint gathers from and that batch-sharded
+serving reads.
+
+Rules are keyed on the leaf name (the path's last segment), the Megatron
+conventions the layers implement:
+
+=============  ====================================  =================
+leaf           storage (per layer)                   TP-sharded dim
+=============  ====================================  =================
+``wq``         (d_model, heads_local*hd)             1 (column)
+``wk``/``wv``  (d_model, kv_local*hd)                1 iff KV sharded
+``wo``         (heads_local*hd | d_inner_l, d)       0 (row)
+``w_up/gate``  mlp (d, d_ff/tp) / moe (e/tp, d, f)   1 / 0 (experts)
+``w_down``     mlp (d_ff/tp, d) / moe (e/tp, f, d)   0 / 0 (experts)
+``embed/table``(vocab/tp, d)                         0 (vocab rows)
+``unembed/w``  (d, vocab/tp)                         1 (vocab cols)
+``wx/wz/w_dt`` (d, d_inner_l | heads_l)              1 (column)
+``conv_x``     (W, d_inner_l)                        1
+``norm``       SSD gated norm (d_inner_l,)           0
+``a_log`` ...  per-head scalars (heads_l,)           0
+``ln*``, router, adapter, gates                      replicated
+=============  ====================================  =================
+
+FSDP placement reuses :func:`repro_torch.models.common.fsdp_participates`
+and ``fsdp_shard_dim``, the predicate the storage's slicing uses, so spec
+and storage cannot disagree.  A dim carrying both TP and FSDP gets the tuple
+``(model, *fsdp_axes)``.  As in the reference, a named model axis appears in
+a spec even at size 1.
+"""
+
+from __future__ import annotations
+
+from repro_torch.dist.collectives import AxisCtx
+
+#: leaf-name -> per-layer TP dim for 2-D projections (None = replicated).
+_TP_2D = {
+    "wq": 1, "wo": 0,
+    "w_up": 1, "w_gate": 1, "w_down": 0,
+    "wx": 1, "wz": 1, "w_dt": 1,
+    "conv_x": 1,
+    "table": 0, "w": 1,
+}
+
+#: leaf names sharded over the expert dim when 3-D (MoE expert stacks).
+_TP_EXPERT = ("w_up", "w_gate", "w_down")
+
+#: 1-D per-head/per-channel leaves that are TP-local.
+_TP_1D = ("norm", "a_log", "dt_bias", "d_skip")
+
+
+def _basename(path: str) -> str:
+    return path.rsplit("/", 1)[-1]
+
+
+def tp_dim(path: str, ndim: int, kv: bool = True) -> int | None:
+    """Tensor-parallel sharded dim of a parameter, in per-layer coordinates
+    (any stack dim stripped), or None if replicated.  ``kv``: whether KV
+    heads are sharded on this launch; when False ``wk``/``wv`` replicate."""
+    base = _basename(path)
+    if base in ("wk", "wv"):
+        return 1 if kv else None
+    if ndim == 3 and base in _TP_EXPERT:
+        return 0                       # MoE expert stacks: shard experts
+    if ndim == 1:
+        return 0 if base in _TP_1D else None
+    return _TP_2D.get(base)
+
+
+def _kv_sharded(path: str, per_layer_shape: tuple, cfg) -> bool:
+    """Whether KV heads were sharded at init, from the storage: a
+    replicated KV projection stores the full ``n_kv * head_dim`` outputs."""
+    if _basename(path) not in ("wk", "wv") or not cfg.n_kv_heads:
+        return True
+    return per_layer_shape[-1] != cfg.n_kv_heads * cfg.resolved_head_dim
+
+
+def _entry(names):
+    if not names:
+        return None
+    return tuple(names) if len(names) > 1 else names[0]
+
+
+def _leaf_spec(path: str, shape: tuple, cfg, axes: AxisCtx, fsdp: int) -> tuple:
+    from repro_torch.models.common import fsdp_participates, fsdp_shard_dim, is_stacked
+
+    ndim = len(shape)
+    off = 1 if (is_stacked(path) and ndim >= 1) else 0
+    nd = ndim - off
+    per_shape = tuple(shape[off:])
+    entries: list = [None] * ndim
+    td = tp_dim(path, nd, _kv_sharded(path, per_shape, cfg))
+    if td is not None and axes.model_axis is not None:
+        entries[td + off] = (axes.model_axis,)
+    if fsdp > 1 and axes.fsdp_axes and fsdp_participates(path, per_shape, fsdp):
+        fd = fsdp_shard_dim(path, nd) + off
+        entries[fd] = (entries[fd] or ()) + tuple(axes.fsdp_axes)
+    return tuple(_entry(e) for e in entries)
+
+
+def tree_param_specs(params: dict, cfg, axes: AxisCtx, fsdp: int) -> dict:
+    """The spec of every leaf of a (local-storage) parameter dict, keyed by
+    path.  Leaves may be tensors (meta tensors too) or
+    :class:`~repro_torch.models.common.QTensor`, whose codes take the
+    leaf's spec and whose scale is replicated.  The rules read only
+    sharding-invariant dims, so the shapes may be sliced for FSDP or not.
+    ``fsdp``: the launch's FSDP way-count."""
+    from repro_torch.models.common import QTensor
+
+    out = {}
+    for path, leaf in params.items():
+        if isinstance(leaf, QTensor):
+            out[path] = QTensor(codes=_leaf_spec(path, tuple(leaf.codes.shape), cfg, axes, fsdp),
+                                scale=(None,) * leaf.scale.ndim)
+        else:
+            out[path] = _leaf_spec(path, tuple(leaf.shape), cfg, axes, fsdp)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Batch / cache layouts
+# ---------------------------------------------------------------------------
+
+
+def _batch_entry(axes: AxisCtx):
+    ba = tuple(axes.batch_axes)
+    if not ba:
+        return None
+    return ba if len(ba) > 1 else ba[0]
+
+
+def batch_specs(batch: dict, axes: AxisCtx) -> dict:
+    """Every batch leaf's leading (global-batch) dim over the batch axes;
+    all other dims replicated."""
+    lead = _batch_entry(axes)
+    return {k: (lead,) + (None,) * (v.ndim - 1) for k, v in batch.items()}
+
+
+def cache_specs(caches, axes: AxisCtx, cfg):
+    """The specs of a decode cache tree (layer-stacked, batch-local
+    storage), in the tree's own structure: ``KVCache`` / ``PagedKVCache`` /
+    ``SSMCache`` of specs, dicts keyed as the tree (a hybrid's ``sub{j}``,
+    the VLM's ``self{j}``, enc-dec's ``self``), and a tuple for a bare
+    tensor (the cross K/V).
+
+    Self-attention KV caches split the KV-head dim over the model axis on
+    KV-sharded launches and the sequence dim otherwise (each TP shard owns a
+    slice of the context); a paged pool and table then shard over the model
+    axis with it.  SSM caches split heads / channels.  The cross K/V split
+    their KV-head dim only when KV is sharded.
+    """
+    from repro_torch.models.attention import KVCache, PagedKVCache
+    from repro_torch.models.ssm import SSMCache
+
+    model = axes.model_axis
+    lead = _batch_entry(axes)
+
+    def kv_sharded(n_kv_local: int) -> bool:
+        return bool(cfg.n_kv_heads) and n_kv_local != cfg.n_kv_heads
+
+    def self_kv(t):                          # (L, B, S_local, KV_local, hd)
+        if kv_sharded(t.shape[3]):
+            return (None, lead, None, model, None)
+        return (None, lead, model, None, None)   # sequence-parallel cache
+
+    def one(c):
+        if isinstance(c, dict):
+            return {k: one(v) for k, v in c.items()}
+        if isinstance(c, PagedKVCache):
+            # pools (L, N_pool, page, KV_local, hd); tables (L, B, n_pmax)
+            if kv_sharded(c.k_pages.shape[3]):
+                pool, table = (None, None, None, model, None), (None, lead, None)
+            else:
+                pool, table = (None, model, None, None, None), (None, lead, model)
+            return PagedKVCache(k_pages=pool, v_pages=pool, page_table=table,
+                                length=(None, lead))
+        if isinstance(c, KVCache):
+            return KVCache(k=self_kv(c.k), v=self_kv(c.v), length=(None, lead))
+        if isinstance(c, SSMCache):
+            return SSMCache(state=(None, lead, model, None, None),   # (L, B, H_l, N, P)
+                            conv_x=(None, lead, None, model),        # (L, B, W-1, d_in_l)
+                            conv_bc=(None, lead, None, None))        # (L, B, W-1, 2N)
+        if c.ndim == 5:                      # cross K/V: (L, B, S_mem, KV_l, hd)
+            if kv_sharded(c.shape[3]):
+                return (None, lead, None, model, None)
+            return (None, lead, None, None, None)
+        return (None,) if c.ndim == 1 else (None, lead) + (None,) * (c.ndim - 2)
+
+    return one(caches)

@@ -44,12 +44,14 @@ H100_SMS = 132
 #: Kernel launches by name since the last :func:`reset_launches`.
 #: ``sr_quant`` counts K1's calls through any entry, ``sr_quant_inline`` and
 #: ``sr_quant_keyed`` those of the trainer's inline entry and of the keyed
-#: segment entry alone; ``sr_pack`` counts K2's calls through either entry,
-#: ``sr_pack_keyed`` those of the keyed entry alone; ``philox`` is the
+#: segment entry alone; ``sr_pack`` counts K2's calls through any entry (a
+#: split call at its pass 2), ``sr_pack_keyed`` those of the keyed entry
+#: alone, ``sr_pack_keyed_scales`` and ``sr_pack_keyed_scaled`` the keyed
+#: entry's two passes split for a wire across ranks; ``philox`` is the
 #: known-answer check's generator.
 LAUNCHES = {"quant_matmul": 0, "flash_attention": 0, "flash_decode": 0, "sr_quant": 0,
             "sr_quant_inline": 0, "sr_quant_keyed": 0, "sr_pack": 0, "sr_pack_keyed": 0,
-            "philox": 0}
+            "sr_pack_keyed_scales": 0, "sr_pack_keyed_scaled": 0, "philox": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _U = ctypes.c_uint32
@@ -82,6 +84,14 @@ _SIGNATURES = {
     # off, blk, base (host arrays), L, C, parts, k0, k1, lim, out, P (out's
     # columns), code_dtype, steps, bad, stream
     "repro_sr_pack_keyed": (_P, _P, _P, _I, _I, _P, _U, _U, _F, _P, _I, _I, _P, _P, _P),
+    # K2's pass 1 alone: off, blk, base (host arrays), L, C, parts, fmax, bad,
+    # stream
+    "repro_sr_pack_keyed_scales": (_P, _P, _P, _I, _I, _P, _P, _P, _P),
+    # K2's pass 2 given the scales: off, blk, base (host arrays), L, C, smax,
+    # fmax, c0 (the first row's Philox stream), k0, k1, lim, out, P (out's
+    # columns), code_dtype, steps, stream
+    "repro_sr_pack_keyed_scaled": (_P, _P, _P, _I, _I, _P, _P, _I, _U, _U, _F, _P, _I, _I, _P,
+                                   _P),
 }
 
 _lib = None

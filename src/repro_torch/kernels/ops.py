@@ -84,6 +84,32 @@ def _trace_pack_keyed(leaves, key, lim, dtype, out=None, col: int = 0):
     return codes, step, bad
 
 
+def _trace_pack_scales(leaves):
+    C, L = len(leaves[0]), len(leaves)
+    P = sum(leaf[0].numel() for leaf in leaves)
+    dev = leaves[0][0].device
+    fmax = torch.empty((C, L), dtype=torch.float32, device=dev)
+    bad = torch.empty((), dtype=torch.int64, device=dev)
+    count.record_kernel(sq.PACK_SCALES_NAME, count.sr_pack_keyed_scales_cost(P, C, L),
+                        f"C={C} P={P}", ins=tuple(g for leaf in leaves for g in leaf),
+                        outs=(fmax, bad), params={"elements": C * P})
+    return fmax, bad
+
+
+def _trace_pack_scaled(leaves, smax, fmax, key, lim, dtype, c0: int = 0, out=None,
+                       col: int = 0):
+    C, L = len(leaves[0]), len(leaves)
+    P = sum(leaf[0].numel() for leaf in leaves)
+    dev = leaves[0][0].device
+    codes = out if out is not None else torch.empty((C, P), dtype=dtype, device=dev)
+    step = torch.empty(L, dtype=torch.float32, device=dev)
+    count.record_kernel(sq.PACK_SCALED_NAME, count.sr_pack_keyed_scaled_cost(P, C, L, dtype),
+                        f"C={C} P={P}",
+                        ins=(*(g for leaf in leaves for g in leaf), smax, fmax),
+                        outs=(codes, step), params={"lim": int(lim), "elements": C * P})
+    return codes, step
+
+
 def _trace_quant_matmul(x, codes, scale):
     (M, K), N = x.shape, codes.shape[1]
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
@@ -251,6 +277,59 @@ def sr_pack_keyed(leaves, key: int, lim: int, dtype: torch.dtype):
         steps.append(step)
         bads.append(bad)
     return codes, torch.cat(steps), torch.stack(bads).sum()
+
+
+def _rows_f32(leaves) -> list:
+    return [[g.to(torch.float32).contiguous().reshape(-1) for g in leaf] for leaf in leaves]
+
+
+def sr_pack_keyed_scales(leaves):
+    """K2's pass 1 alone, for a wire whose rows lie on several ranks.
+
+    ``leaves``: per leaf, this rank's ``C`` rows of gradients (one shape a
+    leaf).  Returns ``(fmax (C, L) f32, the non-finite count () int64)``:
+    each row's largest finite |g| a leaf and the count over every row and
+    leaf, on the gradients' device.  Trees past one table go in groups of
+    whole leaves, as :func:`sr_pack_keyed`, the counts summed on the card.
+    """
+    fn = _route(leaves[0][0], sq.sr_pack_keyed_scales_cuda, sq.sr_pack_keyed_scales_plain,
+                _trace_pack_scales)
+    flat = _rows_f32(leaves)
+    groups = sq.table_groups([leaf[0].numel() for leaf in flat], len(flat[0]),
+                             sq.PACK_SCALES_NAME)
+    if len(groups) == 1:
+        return fn(flat)
+    outs = [fn(flat[l0:l1]) for l0, l1, _col in groups]
+    return torch.cat([f for f, _b in outs], dim=1), torch.stack([b for _f, b in outs]).sum()
+
+
+def sr_pack_keyed_scaled(leaves, smax: torch.Tensor, fmax: torch.Tensor, key: int, lim: int,
+                         dtype: torch.dtype, c0: int = 0):
+    """K2's pass 2 given the scales: the codes of this rank's rows.
+
+    ``smax`` (L,) the shared scale of each leaf (the max over every rank's
+    pass 1), ``fmax`` (C, L) this rank's rows' own (the guard's clamp); row
+    ``c`` draws stream ``c0 + c`` of
+    :func:`~repro_torch.kernels.ref.philox_uniforms_plain` under ``key``.
+    Returns ``(codes (C, P) of dtype, step (L,) f32)``: over the ranks, the
+    one-call :func:`sr_pack_keyed`'s rows and pitch bit for bit.
+    """
+    fn = _route(leaves[0][0], sq.sr_pack_keyed_scaled_cuda, sq.sr_pack_keyed_scaled_plain,
+                _trace_pack_scaled)
+    flat = _rows_f32(leaves)
+    C = len(flat[0])
+    groups = sq.table_groups([leaf[0].numel() for leaf in flat], C, sq.PACK_SCALED_NAME)
+    if len(groups) == 1:
+        return fn(flat, smax, fmax, int(key), lim, dtype, int(c0))
+    codes = torch.empty((C, sum(leaf[0].numel() for leaf in flat)), dtype=dtype,
+                        device=flat[0][0].device)
+    steps = []
+    for l0, l1, col in groups:
+        _codes, step = fn(flat[l0:l1], smax[l0:l1].contiguous(),
+                          fmax[:, l0:l1].contiguous(), int(key), lim, dtype, int(c0),
+                          out=codes, col=col)
+        steps.append(step)
+    return codes, torch.cat(steps)
 
 
 def sr_pack_fused(w: torch.Tensor, bits: int, u: torch.Tensor):

@@ -100,11 +100,11 @@ def philox_uniforms_plain(key: int, n: int, device=None, stream: int = 0,
 
 
 def philox_streams_plain(key: int, n_streams: int, n: int, device=None,
-                         start: int = 0) -> torch.Tensor:
+                         start: int = 0, c0: int = 0) -> torch.Tensor:
     """``(n_streams, n)``: row ``c`` is :func:`philox_uniforms_plain` stream
-    ``c`` under ``key`` from column ``start``, client ``c``'s draws in the
-    keyed segment entries."""
-    return torch.stack([philox_uniforms_plain(key, n, device, stream=c, start=start)
+    ``c0 + c`` under ``key`` from column ``start``, client ``c0 + c``'s draws
+    in the keyed segment entries (``c0``: the first client a rank holds)."""
+    return torch.stack([philox_uniforms_plain(key, n, device, stream=c0 + c, start=start)
                         for c in range(n_streams)])
 
 

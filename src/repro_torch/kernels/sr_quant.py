@@ -15,7 +15,10 @@ entry packs every (client, leaf) segment of given gradients from given
 uniforms in one launch, its keyed entry is the SR wire's whole quantizer
 (the non-finite guard, the shared scales and pitch, uniforms from the wire's
 key, the codes) in one call that reads the clients' gradients where they lie.
-All are in ``csrc/sr_quant.cu``, whose notes say what bounds them.
+Where the clients' rows lie on several ranks, the keyed entry splits at its
+pass boundary: pass 1 (the rows' largest finite |g| a leaf and their
+non-finite count) and pass 2 (the codes, from shared scales made across the
+ranks and a Philox stream offset).  All are in ``csrc/sr_quant.cu``, whose notes say what bounds them.
 
 The ``*_cuda`` functions launch them; the ``*_plain`` functions are the
 plain PyTorch versions of the same functions, built on
@@ -39,6 +42,8 @@ INLINE_NAME = "sr_quant_inline"
 PACK_NAME = "sr_pack"
 KEYED_NAME = "sr_quant_keyed"
 PACK_KEYED_NAME = "sr_pack_keyed"
+PACK_SCALES_NAME = "sr_pack_keyed_scales"
+PACK_SCALED_NAME = "sr_pack_keyed_scaled"
 PHILOX_NAME = "philox"
 INLINE_DTYPES = (torch.float32, torch.bfloat16)
 CODE_DTYPES = (torch.int8, torch.int16, torch.int32)
@@ -268,12 +273,12 @@ def table_groups(sizes, rows: int, name: str) -> list:
     takes: ``[(l0, l1, col)]``, leaves ``l0 .. l1 - 1`` in one table (at
     most :data:`SEG_MAX_LEAVES`, and ``rows`` x leaves at most
     :data:`SEG_MAX_PTRS`), ``col`` the tree's column of leaf ``l0``.  One
-    leaf's rows must fit one table: past 256 clients on one card the call
-    raises."""
+    leaf's rows must fit one table: past 256 clients in one process the
+    call raises (a rank of the distributed trainer holds one row)."""
     if rows > SEG_MAX_PTRS:
         raise ValueError(f"{name}: {rows} clients exceed the keyed table's {SEG_MAX_PTRS} "
-                         "pointers a leaf; more clients than that need more cards "
-                         "(ROADMAP queue 1, item 8)")
+                         "pointers a leaf in one process; run one client a rank instead "
+                         "(torchrun: the trainer's process group, ROADMAP queue 1, item 8a)")
     per = min(SEG_MAX_LEAVES, SEG_MAX_PTRS // max(rows, 1))
     groups, col = [], 0
     for l0 in range(0, len(sizes), per):
@@ -381,23 +386,27 @@ def sr_quant_segments_keyed_cuda(leaves, delta, key: int, out=None,
     return out
 
 
-def _check_pack_keyed(leaves, key, lim, dtype):
+def _check_rows(name, leaves) -> int:
     C = len(leaves[0]) if leaves else 0
-    _check_table(PACK_KEYED_NAME, len(leaves), max(C, 1))
-    _check_key(PACK_KEYED_NAME, key)
+    _check_table(name, len(leaves), max(C, 1))
     if C < 1:
-        raise ValueError(f"{PACK_KEYED_NAME}: want at least one client")
+        raise ValueError(f"{name}: want at least one client")
     for leaf in leaves:
         if len(leaf) != C or any(g.shape != leaf[0].shape for g in leaf):
-            raise ValueError(f"{PACK_KEYED_NAME}: every leaf wants {C} clients' gradients "
-                             "of one shape")
+            raise ValueError(f"{name}: every leaf wants {C} clients' gradients of one shape")
         for g in leaf:
             if g.dtype != torch.float32:
-                raise ValueError(f"{PACK_KEYED_NAME}: gradients must be f32, got {g.dtype}")
+                raise ValueError(f"{name}: gradients must be f32, got {g.dtype}")
+    return C
+
+
+def _check_pack_keyed(leaves, key, lim, dtype, name=PACK_KEYED_NAME):
+    _check_rows(name, leaves)
+    _check_key(name, key)
     if dtype not in CODE_DTYPES:
-        raise ValueError(f"{PACK_KEYED_NAME}: codes must be one of {CODE_DTYPES}, got {dtype}")
+        raise ValueError(f"{name}: codes must be one of {CODE_DTYPES}, got {dtype}")
     if not 0 < lim < 2**31:
-        raise ValueError(f"{PACK_KEYED_NAME}: lim={lim} out of range")
+        raise ValueError(f"{name}: lim={lim} out of range")
 
 
 def sr_pack_keyed_plain(leaves, key: int, lim: int, dtype: torch.dtype = torch.int8,
@@ -455,3 +464,117 @@ def sr_pack_keyed_cuda(leaves, key: int, lim: int, dtype: torch.dtype = torch.in
     _build.LAUNCHES[PACK_NAME] += 1
     _build.LAUNCHES[PACK_KEYED_NAME] += 1
     return codes, step, bad
+
+
+# ---------------------------------------------------------------------------
+# K2's keyed entry split at its pass boundary: the wire across ranks
+# ---------------------------------------------------------------------------
+
+
+def _finite_absmax(g: torch.Tensor) -> torch.Tensor:
+    """Largest finite |g| of each row of ``g`` (C, n); 0 where a row has none."""
+    fin = torch.where(torch.isfinite(g), g.abs(), torch.zeros_like(g))
+    return fin.amax(dim=1) if g.shape[1] else torch.zeros(g.shape[0], device=g.device)
+
+
+def sr_pack_keyed_scales_plain(leaves):
+    """Plain version of K2's pass 1 alone.  ``leaves``: per leaf, ``C`` rows'
+    f32 gradients.  Returns ``(fmax (C, L) f32, non-finite count () int64)``:
+    ``fmax[c, l]`` is row ``c``'s largest finite |g| in leaf ``l`` (0 where it
+    has none), the count is over every row and leaf."""
+    _check_rows(PACK_SCALES_NAME, leaves)
+    dev = leaves[0][0].device
+    gs = [torch.stack([x.reshape(-1) for x in leaf]) for leaf in leaves]
+    bad = sum(((~torch.isfinite(g)).sum() for g in gs),
+              torch.zeros((), dtype=torch.int64, device=dev))
+    return torch.stack([_finite_absmax(g) for g in gs], dim=1), bad
+
+
+def _check_scaled(leaves, smax, fmax, c0: int):
+    C, L = len(leaves[0]), len(leaves)
+    if smax.shape != (L,) or fmax.shape != (C, L) or smax.dtype != torch.float32 or \
+            fmax.dtype != torch.float32:
+        raise ValueError(f"{PACK_SCALED_NAME}: want f32 smax ({L},) and fmax ({C}, {L}); got "
+                         f"{smax.dtype} {tuple(smax.shape)} and {fmax.dtype} "
+                         f"{tuple(fmax.shape)}")
+    if not 0 <= c0 or c0 + C > 2**31:
+        raise ValueError(f"{PACK_SCALED_NAME}: stream offset c0={c0} out of range")
+
+
+def sr_pack_keyed_scaled_plain(leaves, smax, fmax, key: int, lim: int,
+                               dtype: torch.dtype = torch.int8, c0: int = 0, out=None,
+                               col: int = 0):
+    """Plain version of K2's pass 2 given the scales.  ``smax`` (L,) the
+    shared scale of each leaf (the max of every rank's pass 1, 1 where not >
+    0), ``fmax`` (C, L) the rows' own largest finite |g| (the guard's
+    clamp); row ``c`` draws stream ``c0 + c`` under ``key``.  Returns
+    ``(codes (C, P), step (L,) f32)``; ``out`` and ``col`` as in
+    :func:`sr_pack_keyed_plain`.  Pass 1 on every row, the max of its
+    ``fmax`` over the rows, then pass 2 with ``c0 = c`` on row ``c`` give
+    the one-call entry's codes and pitch bit for bit."""
+    _check_pack_keyed(leaves, key, lim, dtype, PACK_SCALED_NAME)
+    _check_scaled(leaves, smax, fmax, c0)
+    dev = leaves[0][0].device
+    rows = []
+    for l, leaf in enumerate(leaves):
+        g = torch.stack([x.reshape(-1) for x in leaf])
+        fm = fmax[:, l:l + 1]
+        rows.append(torch.clamp(torch.where(torch.isnan(g), torch.zeros_like(g), g), -fm, fm))
+    s = torch.where(smax > 0, smax, torch.ones_like(smax))
+    step = s * f32_reciprocal(lim)
+    g = torch.cat(rows, dim=1)
+    out = _group_out(PACK_SCALED_NAME, out, g.shape[0], col, g.shape[1], dtype, dev)
+    offsets = torch.tensor(_seg_offsets([r.shape[1] for r in rows]), dtype=torch.int32,
+                           device=dev)
+    u = philox_streams_plain(key, g.shape[0], g.shape[1], dev, start=col, c0=c0)
+    out[:, col:col + g.shape[1]] = sr_pack_segments_plain(g, offsets, step, u, lim, dtype)
+    return out, step
+
+
+def sr_pack_keyed_scales_cuda(leaves):
+    """Launch K2's pass 1 alone on the current stream (the block partials,
+    then their fold a leaf and row); returns ``(fmax (C, L) f32, non-finite
+    count () int64)`` on the card."""
+    _check_rows(PACK_SCALES_NAME, leaves)
+    flat = [g for leaf in zip(*leaves) for g in leaf]       # row-major: base[c * L + l]
+    _build.require_cuda(PACK_SCALES_NAME, *flat)
+    dev = flat[0].device
+    C, L = len(leaves[0]), len(leaves)
+    sizes = [leaf[0].numel() for leaf in leaves]
+    fmax = torch.empty((C, L), dtype=torch.float32, device=dev)
+    bad = torch.empty((), dtype=torch.int64, device=dev)
+    off, blk, base, nb = _seg_launch_args(sizes, C, flat, dev, 0)
+    parts = torch.empty((C * nb, 2), dtype=torch.int32, device=dev)
+    err = _build.lib().repro_sr_pack_keyed_scales(
+        off, blk, base, L, C, parts.data_ptr(), fmax.data_ptr(), bad.data_ptr(),
+        _build.stream_of(flat[0]))
+    _build.check_launch(PACK_SCALES_NAME, err)
+    _build.LAUNCHES[PACK_SCALES_NAME] += 1
+    return fmax, bad
+
+
+def sr_pack_keyed_scaled_cuda(leaves, smax, fmax, key: int, lim: int,
+                              dtype: torch.dtype = torch.int8, c0: int = 0, out=None,
+                              col: int = 0):
+    """Launch K2's pass 2 given the scales on the current stream; returns
+    ``(codes (C, P), step (L,) f32)`` on the card.  Arguments as in the
+    plain version; ``smax`` and ``fmax`` are read on the card."""
+    _check_pack_keyed(leaves, key, lim, dtype, PACK_SCALED_NAME)
+    _check_scaled(leaves, smax, fmax, c0)
+    flat = [g for leaf in zip(*leaves) for g in leaf]
+    _build.require_cuda(PACK_SCALED_NAME, smax, fmax, *flat)
+    dev = flat[0].device
+    C, L = len(leaves[0]), len(leaves)
+    sizes = [leaf[0].numel() for leaf in leaves]
+    codes = _group_out(PACK_SCALED_NAME, out, C, col, sum(sizes), dtype, dev)
+    step = torch.empty(L, dtype=torch.float32, device=dev)
+    smax, fmax = smax.contiguous(), fmax.contiguous()
+    off, blk, base, _nb = _seg_launch_args(sizes, C, flat, dev, col)
+    err = _build.lib().repro_sr_pack_keyed_scaled(
+        off, blk, base, L, C, smax.data_ptr(), fmax.data_ptr(), int(c0), key & 0xFFFFFFFF,
+        key >> 32, float(lim), codes.data_ptr(), codes.shape[1], _build.DTYPE_CODES[dtype],
+        step.data_ptr(), _build.stream_of(flat[0]))
+    _build.check_launch(PACK_SCALED_NAME, err)
+    _build.LAUNCHES[PACK_NAME] += 1
+    _build.LAUNCHES[PACK_SCALED_NAME] += 1
+    return codes, step

@@ -1,15 +1,18 @@
-"""Step builders: the FWQ train step and the serving steps.
+"""Step builders: the FWQ train step, its init, and the serving steps.
 
-Counterparts of ``build_train_step`` / ``local_param_shapes`` /
-``build_decode_step`` / ``build_cached_prefill`` / ``init_global_caches`` /
-``build_prefill_step`` in ``repro/launch/steps.py`` as plain callables on one
-device: no ``shard_map``, no jit — PyTorch runs eagerly.
+Counterparts of ``build_init_fn`` / ``build_train_step`` /
+``local_param_shapes`` / ``build_decode_step`` / ``build_cached_prefill`` /
+``init_global_caches`` / ``build_prefill_step`` in ``repro/launch/steps.py``
+as plain callables: no ``shard_map``, no jit — PyTorch runs eagerly.
 
-The train step runs a ``Dx1`` mesh's D clients one after another (the
-reference runs them as the data-parallel shards of one program) and then does
-the server's part: the reference's FSDP leaves mean-reduced in f32, its
-replicated leaves through the SR-quantized all-reduce (one K2 call), one
-optimizer step.  Its SR noise comes from :class:`SRDraws`.
+In one process the train step runs a ``Dx1`` mesh's D clients one after
+another (the reference runs them as the data-parallel shards of one program)
+and then does the server's part: the reference's FSDP leaves mean-reduced in
+f32, its replicated leaves through the SR-quantized all-reduce (one K2 call),
+one optimizer step.  Under a process group (``axes.transport``) each rank
+runs its own client on its FSDP shards, and the reductions are the
+reference's collectives over the ranks.  Its SR noise comes from
+:class:`SRDraws`.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.core.fwq import _stable_hash, make_inline_quantizer, site_key
 from repro_torch.dist.collectives import AxisCtx, f32_reciprocal, quantized_psum_batch
 from repro_torch.kernels.ref import philox_uniforms_plain
+from repro_torch.models import common
 from repro_torch.models.common import ParamCtx, fsdp_plan, reduce_gradients
 from repro_torch.models.model import Model
 from repro_torch.optim import Optimizer
@@ -109,6 +113,15 @@ def build_train_step(model: Model, axes: AxisCtx, opt: Optimizer,
     gives uniforms), then steps the optimizer.  ``loss`` is the clients' mean; ``grad_sq_shard_sum`` is the
     reference's sum over shards of the reduced gradients' squared norms
     (FSDP leaves once, replicated leaves ``D`` times).
+
+    Under a process group (``axes.transport``) the step runs on each rank
+    as the reference's shard does: ``params`` are the rank's storage (its
+    FSDP shards, :func:`build_init_fn`), ``batch`` its own client's ``b``
+    rows, and client ``r = axes.dp_index()`` takes its gradient at
+    ``delta[r]``; the FSDP gradients come back reduce-scattered (summed) and
+    divided by D, the replicated ones are ``pmean``-ed or cross the wire
+    (K2 split across the ranks), and ``loss`` is ``pmean_batch``-ed,
+    ``grad_sq_shard_sum`` ``psum_batch``-ed from each rank's part.
     """
     cfg = model.cfg
     D = axes.dp
@@ -116,10 +129,10 @@ def build_train_step(model: Model, axes: AxisCtx, opt: Optimizer,
 
     gather_dtype = torch.bfloat16 if cfg.fsdp_gather_dtype == "bfloat16" else None
 
-    def _client_grads(c, params, batch, b, delta, draws, paths, wire, sums, stacked,
-                      given, cd):
-        """Client ``c``'s loss and gradient at its quantized weights; the
-        gradients go to ``sums`` (FSDP-reduced leaves) or ``stacked`` (wire)."""
+    def _client_grads(c, params, cb, delta, draws, paths, wire, sums, stacked, given, cd):
+        """Client ``c``'s loss and gradient on its batch ``cb`` at its
+        quantized weights; the gradients go to ``sums`` (FSDP-reduced
+        leaves) or ``stacked`` (wire)."""
         if given:
             transform = make_inline_quantizer(
                 delta[c], out_dtype=cd,
@@ -130,43 +143,47 @@ def build_train_step(model: Model, axes: AxisCtx, opt: Optimizer,
         pc = ParamCtx(ctx=axes.at_client(c), compute_dtype=cd, sp=cfg.seq_parallel,
                       transform=transform, gather_dtype=gather_dtype)
         leaves = {p: params[p].detach().requires_grad_() for p in paths}
-        cb = {k: v[c * b:(c + 1) * b] for k, v in batch.items()}
         loss, _aux = model.train_loss(pc, leaves, cb, attn_impl=attn_impl)
         grads = torch.autograd.grad(loss, [leaves[p] for p in paths])
         for p, g in zip(paths, grads):
             if p in wire:
                 stacked[p].append(g)
-            elif c == 0:
+            elif p not in sums:
                 sums[p] = g
             else:
                 sums[p].add_(g)
         return loss.detach()
 
     def fn(params, opt_state, batch, delta, draws: SRDraws):
+        ranks = axes.transport is not None      # one client a process: this rank's
+        clients = [axes.dp_index()] if ranks else range(D)
         paths, _, plan = fsdp_plan(params, axes.fsdp, check_divisibility=False)
         replicated = {p for p, dim in zip(paths, plan) if dim is None}
         wire = replicated if bits else set()
-        b = batch["tokens"].shape[0] // D
+        b = batch["tokens"].shape[0] // len(clients)
         dev = params[paths[0]].device
         delta = delta.to(dev)
         sums, stacked, loss_sum = {}, {p: [] for p in wire}, None
         cd = _compute_dtype(cfg)
         given = type(draws).weights is not SRDraws.weights   # a subclass's own uniforms
-        for c in range(D):
+        for i, c in enumerate(clients):
             with count.share(1 / D):            # a traced step: one device does one client
-                loss_c = _client_grads(c, params, batch, b, delta, draws, paths, wire,
-                                       sums, stacked, given, cd)
-            loss_sum = loss_c if c == 0 else loss_sum + loss_c
+                cb = {k: v[i * b:(i + 1) * b] for k, v in batch.items()}
+                loss_c = _client_grads(c, params, cb, delta, draws, paths, wire, sums,
+                                       stacked, given, cd)
+            loss_sum = loss_c if i == 0 else loss_sum + loss_c
         # ---- server aggregation (Algorithm 1 line 10) ----------------------
-        G = reduce_gradients(sums, axes)
+        G = reduce_gradients(sums, axes)        # across ranks: FSDP sums from the gathers
         if wire:
             idx = [(i, p) for i, p in enumerate(paths) if p in wire]
-            leaves = [stacked.pop(p) for _i, p in idx]      # per leaf, the D clients'
+            leaves = [stacked.pop(p) for _i, p in idx]      # per leaf, the clients' here
             us = [draws.wire(i, D, params[p].shape, dev) for i, p in idx]
             if all(uu is None for uu in us):    # K2 draws; the gradients stay put
                 means = quantized_psum_batch(axes, leaves, None, bits, key=draws.wire_key(),
                                              on_nonfinite=train_cfg.nonfinite_grads)
             else:
+                if ranks:                       # the rank's own row of each leaf's draws
+                    us = [uu[clients[0]:clients[0] + 1] for uu in us]
                 means = quantized_psum_batch(axes, [torch.stack(g) for g in leaves], us, bits,
                                              on_nonfinite=train_cfg.nonfinite_grads)
             G.update(zip((p for _i, p in idx), means))
@@ -178,7 +195,11 @@ def build_train_step(model: Model, axes: AxisCtx, opt: Optimizer,
         for p in paths:                         # the reference's vdot(g, g) a leaf
             g = G[p].to(torch.float32).reshape(-1)
             with count.share(1.0 if p in replicated else 1 / axes.fsdp):
-                gnorm = gnorm + torch.dot(g, g) * (D if p in replicated else 1)
+                # a replicated leaf counts once a shard: D times here, once a rank
+                gnorm = gnorm + torch.dot(g, g) * (D if p in replicated and not ranks else 1)
+        if ranks:
+            return params, opt_state, {"loss": axes.pmean_batch(loss_sum),
+                                       "grad_sq_shard_sum": axes.psum_batch(gnorm)}
         count.record_collective("all-reduce", torch.float32, 1, D, "train_step loss pmean")
         count.record_collective("all-reduce", torch.float32, 1, D,
                                 "train_step grad_sq_shard_sum psum")
@@ -186,6 +207,26 @@ def build_train_step(model: Model, axes: AxisCtx, opt: Optimizer,
         return params, opt_state, metrics
 
     return TrainStep(fn=fn, batch_spec_fn=model.train_batch_spec, n_clients=D)
+
+
+def build_init_fn(model: Model, axes: AxisCtx, *, device=None):
+    """``init(generator) -> params``: this rank's storage of the one-process
+    init from ``generator`` — its FSDP shard of every FSDP leaf, every
+    replicated leaf whole (the one-process init itself without a group).
+
+    Every rank draws the whole model from the same generator, so the shards
+    are slices of exactly the one-process leaves; each leaf is sliced as
+    soon as it is drawn (:func:`repro_torch.models.common.sharded_init`),
+    so a rank holds one whole leaf at a time, never the whole model.
+    """
+    def init(generator: torch.Generator) -> dict:
+        if axes.transport is None or axes.fsdp == 1:
+            return model.init(generator, axes.tp, device=device)
+        return common.sharded_init(
+            lambda meta: model.init(torch.Generator().manual_seed(0) if meta else generator,
+                                    axes.tp, device="meta" if meta else device), axes)
+
+    return init
 
 
 def local_param_shapes(model: Model, axes: AxisCtx) -> dict:

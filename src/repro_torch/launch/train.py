@@ -11,6 +11,21 @@ CUDA unless ``--device cpu`` is given::
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --arch yi-6b \\
         --smoke --mesh 2x1 --rounds 3 --grad-compression-bits 8
+
+Launched by torchrun, each of the D processes is one client of a ``Dx1`` mesh
+(the process group's rendezvous from torchrun's environment): it holds its
+FSDP shards, quantizes its gathered weights under its own keys, and the
+gradients are reduced across the ranks (the SR wire through K2's two passes
+and one integer all-reduce).  ``--backend`` is ``nccl`` on CUDA (one card a
+rank, ``cuda:LOCAL_RANK``) and ``gloo`` on the CPU; ``--share-device`` puts
+every rank on ``cuda:0`` and needs ``gloo``::
+
+    PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 2 \\
+        -m repro_torch.launch.train --device cpu --backend gloo --arch yi-6b --smoke \\
+        --mesh 2x1 --rounds 3 --grad-compression-bits 8
+    PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 4 \\
+        -m repro_torch.launch.train --share-device --backend gloo --arch yi-6b --smoke \\
+        --mesh 4x1 --rounds 3 --grad-compression-bits 8
 """
 
 from __future__ import annotations
@@ -39,12 +54,26 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="")
     ap.add_argument("--device", default=None,
-                    help="torch device (default: cuda; raises without a card)")
+                    help="torch device (default: cuda; raises without a card); under "
+                         "torchrun 'cpu' or the rank's card")
+    ap.add_argument("--backend", default=None, choices=["nccl", "gloo"],
+                    help="torchrun only: the process group's backend (default: nccl on "
+                         "CUDA, gloo on the CPU)")
+    ap.add_argument("--share-device", action="store_true",
+                    help="torchrun only: every rank on cuda:0 (needs --backend gloo)")
     args = ap.parse_args(argv)
 
     from repro_torch.api import PrecisionPolicy, RunSpec, Session
+    from repro_torch.launch.mesh import init_distributed, launched_ranks
 
     logging.basicConfig(level=logging.INFO)
+    device = args.device
+    ranks = launched_ranks()
+    if ranks is None and (args.backend or args.share_device):
+        raise ValueError("--backend and --share-device apply to the ranks torchrun starts "
+                         "(WORLD_SIZE is not set)")
+    if ranks is not None:
+        device = init_distributed(args.backend, args.device, share_device=args.share_device)
     comm = args.grad_compression_bits or 32
     if args.scheme == "fixed":
         workload = "train"
@@ -58,7 +87,14 @@ def main(argv=None):
         precision=precision,
         options={"scheme": args.scheme, "lr": args.lr,
                  "ckpt_dir": args.ckpt_dir, "out": args.out})
-    return Session(spec, device=args.device).run()
+    if ranks is None:
+        return Session(spec, device=device).run()
+    import torch.distributed as dist
+
+    try:
+        return Session(spec, device=device).run()
+    finally:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

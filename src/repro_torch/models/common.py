@@ -11,12 +11,16 @@
 Parameters are a flat dict keyed by the reference's path strings
 (``"embed/table"``, ``"blocks/attn/wq"``, ...); leaves under ``blocks/`` keep
 their leading ``(L, ...)`` layer dim, as the reference's scanned stacks do.
-One device, ``tp = 1``: the port holds every leaf whole, so the FSDP gathers
-of the reference are identities (a traced step records each one the
-reference issues, :mod:`repro_torch.roofline.count`).  Which leaves the
-reference shards still decides how a train step reduces their gradients
-(:func:`fsdp_plan`): the sharded ones are mean-reduced in f32, the replicated
-ones cross the SR wire.
+``tp = 1``.  In one process the port holds every leaf whole, so the FSDP
+gathers of the reference are identities (a traced step records each one the
+reference issues, :mod:`repro_torch.roofline.count`).  Under a process group
+(one client a rank) each rank holds its FSDP shard of every FSDP leaf
+(:func:`apply_fsdp_sharding`) and the whole of every replicated leaf, and
+:meth:`ParamCtx.use` all-gathers a shard at each use; the gather's backward
+is the reduce-scatter that returns the FSDP gradients summed and sharded.
+Which leaves the reference shards decides how a train step reduces their
+gradients (:func:`fsdp_plan`): the sharded ones are mean-reduced in f32, the
+replicated ones cross the SR wire.
 """
 
 from __future__ import annotations
@@ -178,23 +182,111 @@ def fsdp_plan(params: dict, fsdp: int, *, check_divisibility: bool = True):
     return paths, leaves, plan
 
 
+def sharded_init(init, ctx: AxisCtx) -> dict:
+    """Rank ``ctx.dp_index()``'s storage of a model's init, each FSDP leaf
+    sliced as soon as it is drawn.
+
+    ``init(meta)`` runs the model's init: on the meta device when ``meta``
+    (which draw is which leaf, at no cost), then for real from the
+    caller's generator, whose draws are exactly the one-process init's.  A
+    draw of :func:`init_dense` / :func:`init_embed` that becomes an FSDP
+    leaf is sliced to the rank's piece before the next draw, so a rank holds
+    one whole leaf at a time; a leaf drawn another way is sliced once the
+    init returns."""
+    drawn: list = []
+    _INIT_HOOK[0] = lambda w: drawn.append(w) or w
+    try:
+        meta = init(True)
+    finally:
+        _INIT_HOOK[0] = None
+    path_of = {id(w): p for p, w in meta.items()}
+    paths, _leaves, plan = fsdp_plan(meta, ctx.fsdp)
+    dims = dict(zip(paths, plan))
+    order = [path_of.get(id(w)) for w in drawn]
+    del drawn, meta
+    done: set = set()
+    at = iter(order)
+
+    def hook(w):
+        path = next(at)
+        if path is not None and dims[path] is not None:
+            done.add(path)
+            return shard_leaf(w, dims[path], ctx)
+        return w
+
+    _INIT_HOOK[0] = hook
+    try:
+        params = init(False)
+    finally:
+        _INIT_HOOK[0] = None
+    return {p: w if p in done else shard_leaf(w, dims[p], ctx) for p, w in params.items()}
+
+
+def apply_fsdp_sharding(params: dict, ctx: AxisCtx) -> dict:
+    """Each FSDP leaf sliced to rank ``ctx.dp_index()``'s piece on
+    :func:`fsdp_plan`'s dim (a copy, so the whole leaf can be freed); the
+    replicated leaves as they are.  The reference's
+    ``models/common.apply_fsdp_sharding``."""
+    paths, _leaves, plan = fsdp_plan(params, ctx.fsdp)
+    dims = dict(zip(paths, plan))
+    return {path: shard_leaf(w, dims[path], ctx) for path, w in params.items()}
+
+
+def shard_leaf(w, dim, ctx: AxisCtx):
+    """Rank ``ctx.dp_index()``'s piece of a whole leaf ``w`` on ``dim`` (None:
+    the leaf itself)."""
+    if dim is None:
+        return w
+    if isinstance(w, QTensor):
+        return QTensor(shard_leaf(w.codes, dim, ctx), w.scale)
+    n = w.shape[dim] // ctx.fsdp
+    return w.narrow(dim, ctx.dp_index() * n, n).clone()
+
+
+def gather_leaf(w: torch.Tensor, dim, ctx: AxisCtx) -> torch.Tensor:
+    """The whole leaf from the ranks' pieces ``w`` on ``dim`` (None: ``w``);
+    every rank must call it (a collective)."""
+    if dim is None or ctx.transport is None:
+        return w
+    return ctx.transport.all_gather(w.movedim(dim, 0)).movedim(0, dim).contiguous()
+
+
+def _gather_bytes(codes: torch.Tensor, dim: int, ctx: AxisCtx) -> torch.Tensor:
+    """An integer tensor gathered as a ``uint8`` view: a gather moves bytes,
+    so it is exact for any element width (each element's bytes stay
+    together along the last dim)."""
+    moved = codes.movedim(dim, 0).contiguous()
+    full = ctx.transport.all_gather(moved.view(torch.uint8))
+    return full.view(codes.dtype).movedim(0, dim).contiguous()
+
+
 def reduce_gradients(grad_sums: dict, ctx: AxisCtx) -> dict:
     """Server-side gradient mean (Algorithm 1 line 10) from the per-leaf sums
     over the ``ctx.dp`` clients.
 
     In the reference the FSDP leaves arrive reduce-scattered (summed) and are
     divided by ``dp``, and the replicated leaves are ``pmean``-ed; both are
-    the f32 sum over the clients times ``fl32(1 / dp)`` as XLA runs them.  A
-    traced step records each replicated leaf's ``pmean`` (an all-reduce over
-    the batch axes; the FSDP leaves' reduce-scatter is their gather's
-    transpose, recorded by :meth:`ParamCtx.use`).
+    the f32 sum over the clients times ``fl32(1 / dp)`` as XLA runs them.  In
+    one process ``grad_sums`` holds the sums over the clients' loop; under a
+    group the FSDP leaves' gradients arrive summed (their gather's backward)
+    and the replicated leaves hold the rank's own gradient, which is
+    ``pmean_batch``-ed.  A traced step records each replicated leaf's
+    ``pmean`` (an all-reduce over the batch axes; the FSDP leaves'
+    reduce-scatter is their gather's transpose, recorded by
+    :meth:`ParamCtx.use`).
     """
-    if count.active() is not None and ctx.batch_axes:
+    tracing = count.active() is not None and ctx.batch_axes
+    if tracing or ctx.transport is not None:
         paths, leaves, plan = fsdp_plan(grad_sums, ctx.fsdp, check_divisibility=False)
-        for path, g, dim in zip(paths, leaves, plan):
-            if dim is None:
-                count.record_collective("all-reduce", g.dtype, g.numel(), ctx.dp,
-                                        f"reduce_gradients pmean {path}")
+        replicated = {p for p, dim in zip(paths, plan) if dim is None}
+        if tracing:
+            for path, g in zip(paths, leaves):
+                if path in replicated:
+                    count.record_collective("all-reduce", g.dtype, g.numel(), ctx.dp,
+                                            f"reduce_gradients pmean {path}")
+        if ctx.transport is not None:
+            return {p: (ctx.pmean_batch(g) if p in replicated else g * f32_reciprocal(ctx.dp))
+                    for p, g in grad_sums.items()}
     return {p: g * f32_reciprocal(ctx.dp) for p, g in grad_sums.items()}
 
 
@@ -253,15 +345,22 @@ class ParamCtx:
 
         Returns a dense tensor, or the packed :class:`QTensor` when
         ``policy.lazy`` is on — consumers dispatch on the leaf type.  As in
-        the reference, ``gather_dtype`` casts an FSDP leaf before its
-        (here identity) gather; a traced step records the gather.
+        the reference, ``gather_dtype`` casts an FSDP leaf before its gather:
+        an all-gather of the rank's shard under a process group (packed
+        codes as bytes; the backward of a dense leaf's gather is the
+        reduce-scatter, in the gather's dtype), else an identity that a
+        traced step records.
         """
         tracing = count.active() is not None
-        gather = (tracing or self.gather_dtype is not None) and self._gathered(path, w)
+        ranks = self.ctx.transport is not None
+        gather = (tracing or ranks or self.gather_dtype is not None) and self._gathered(path, w)
         if isinstance(w, QTensor):
             if gather and tracing:
                 count.record_collective("all-gather", w.codes.dtype, w.codes.numel(),
                                         self.ctx.fsdp, f"ParamCtx.use {path}", operand=w.codes)
+            elif gather and ranks:
+                w = QTensor(_gather_bytes(w.codes, fsdp_shard_dim(path, w.codes.ndim),
+                                          self.ctx), w.scale)
             if self.lazy and self.transform is None:
                 return w
             full = w.codes.to(torch.float32) * w.scale.to(torch.float32)
@@ -269,6 +368,8 @@ class ParamCtx:
             full = w
             if gather and self.gather_dtype is not None:
                 full = full.to(self.gather_dtype)
+            if gather and ranks and not tracing:
+                full = self.ctx.gather_fsdp(full, axis=fsdp_shard_dim(path, full.ndim))
             if gather and tracing:
                 count.record_collective("all-gather", full.dtype, full.numel(),
                                         self.ctx.fsdp, f"ParamCtx.use {path}", operand=full)
@@ -291,19 +392,29 @@ class ParamCtx:
 # ---------------------------------------------------------------------------
 
 
+#: What :func:`sharded_init` applies to each draw of :func:`init_dense` and
+#: :func:`init_embed` (None: the draw as it is).
+_INIT_HOOK: list = [None]
+
+
+def _drawn(w: torch.Tensor) -> torch.Tensor:
+    hook = _INIT_HOOK[0]
+    return w if hook is None else hook(w)
+
+
 def init_dense(gen: torch.Generator, d_in: int, d_out: int, *, lead=(),
                device=None, dtype=torch.float32, scale: float | None = None):
     """Truncated-normal fan-in init (LeCun); ``lead`` prepends stack dims."""
     std = scale if scale is not None else (1.0 / d_in) ** 0.5
     w = torch.empty(tuple(lead) + (d_in, d_out), device=device, dtype=torch.float32)
     torch.nn.init.trunc_normal_(w, mean=0.0, std=1.0, a=-2.0, b=2.0, generator=gen)
-    return w.mul_(std).to(dtype)
+    return _drawn(w.mul_(std).to(dtype))
 
 
 def init_embed(gen: torch.Generator, vocab: int, d: int, *, device=None,
                dtype=torch.float32):
     w = torch.empty((vocab, d), device=device, dtype=torch.float32)
-    return w.normal_(0.0, 1.0, generator=gen).mul_(0.02).to(dtype)
+    return _drawn(w.normal_(0.0, 1.0, generator=gen).mul_(0.02).to(dtype))
 
 
 # ---------------------------------------------------------------------------

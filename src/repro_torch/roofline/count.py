@@ -220,6 +220,24 @@ def sr_pack_keyed_cost(P: int, C: int, L: int, code_dtype: torch.dtype) -> Kerne
                       2 * C * P + C * P * es + 2 * L + 8, "int32", "elementwise")
 
 
+def sr_pack_keyed_scales_cost(P: int, C: int, L: int) -> KernelCost:
+    """K2's pass 1 alone: the gradients read once, each row's largest finite
+    |g| a leaf (C, L) and the non-finite count written; 3 integer operations
+    an element (the mask, the compare, the count)."""
+    return KernelCost("K2", 0.0, 3.0 * C * P, 4 * C * P + 4 * C * L + 8,
+                      2 * C * P + 2 * C * L + 8, "int32", "elementwise")
+
+
+def sr_pack_keyed_scaled_cost(P: int, C: int, L: int, code_dtype: torch.dtype) -> KernelCost:
+    """K2's pass 2 given the scales: the gradients read once, the scales
+    (L,) and (C, L) read, the codes and the pitches written; the keyed
+    entry's 20 integer operations an element."""
+    es = _elem_bytes(code_dtype)
+    return KernelCost("K2", 0.0, 20.0 * C * P, 4 * C * P + 4 * L + 4 * C * L + C * P * es + 4 * L,
+                      2 * C * P + 2 * L + 2 * C * L + C * P * es + 2 * L, "int32",
+                      "elementwise")
+
+
 def quant_matmul_cost(M: int, K: int, N: int, x_dtype: torch.dtype,
                       code_dtype: torch.dtype) -> KernelCost:
     """K3: ``x`` (M, K), the codes (K, N), the scale and the f32 output;

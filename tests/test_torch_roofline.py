@@ -317,6 +317,9 @@ def _kernel_calls(dev, fake=False):
         ops.sr_quantize_segments_keyed([w, w1], delta, 7),
         ops.sr_pack_segments(u, offsets, t((2,), values=[0.1, 0.1]), u, 7, torch.int8),
         *ops.sr_pack_keyed([[w, w], [w1, w1]], 7, 7, torch.int8),
+        *ops.sr_pack_keyed_scales([[w], [w1]]),
+        *ops.sr_pack_keyed_scaled([[w], [w1]], t((2,), values=[0.5, 0.5]),
+                                  t((1, 2), values=[[0.5, 0.5]]), 7, 7, torch.int16, c0=1),
     ]
 
 
@@ -343,7 +346,8 @@ def test_trace_route_records_each_kernel_alike_on_fake_cpu_and_cuda():
         records.append([(n.op, n.kernel, n.flops, n.int_ops, n.bytes, n.shape)
                         for n in rec.nodes if n.kernel])
     assert records[0] == records[1]
-    assert [k for _op, k, *_ in records[0]] == ["K3", "K4", "K5", "K1", "K1", "K1", "K2", "K2"]
+    assert [k for _op, k, *_ in records[0]] == ["K3", "K4", "K5", "K1", "K1", "K1", "K2", "K2",
+                                                "K2", "K2"]
 
 
 def test_full_width_cell_traces_with_nothing_allocated():
@@ -385,6 +389,14 @@ PERF_BOUNDS = [
      0.2692, "bytes"),
     ("K4 f32 S 513 non-causal", count.flash_attention_cost(128, 513, 128, torch.float32,
                                                             False), 0.0401, "bytes"),
+    ("K2 pass 1, a rank's wire row", count.sr_pack_keyed_scales_cost(69632, 1, 3),
+     0.000083, "bytes"),
+    ("K2 pass 2, a rank's wire row", count.sr_pack_keyed_scaled_cost(69632, 1, 3, torch.int16),
+     0.000125, "bytes"),
+    ("K2 pass 1, a rank's 4096x11008 row", count.sr_pack_keyed_scales_cost(4096 * 11008, 1, 1),
+     0.0538, "bytes"),
+    ("K2 pass 2, a rank's 4096x11008 row",
+     count.sr_pack_keyed_scaled_cost(4096 * 11008, 1, 1, torch.int16), 0.0808, "bytes"),
 ]
 
 

@@ -440,3 +440,79 @@ def test_keyed_wire_past_256_clients_names_the_roadmap():
     """One leaf's rows must fit one table: 257 clients on one card raise."""
     with pytest.raises(ValueError, match="ROADMAP queue 1, item 8"):
         tops.sr_pack_keyed(_leaves([3], 257), KEY, 127, torch.int16)
+
+
+# ------------------------------------------- K2 split at its pass boundary
+def _split(leaves, key, lim, dtype, c_rows=1):
+    """The keyed wire as ranks of ``c_rows`` rows each run it, through
+    ``ops``: pass 1 a rank, the max of the ranks' scales, pass 2 a rank at
+    stream offset ``c0`` (its first row).  Returns (codes, step, count)."""
+    C = len(leaves[0])
+    ranks = [[leaf[c0:c0 + c_rows] for leaf in leaves] for c0 in range(0, C, c_rows)]
+    firsts = [tops.sr_pack_keyed_scales(r) for r in ranks]
+    smax = torch.cat([f[0] for f in firsts]).amax(dim=0)
+    outs = [tops.sr_pack_keyed_scaled(r, smax, f[0], key, lim, dtype, c0=i * c_rows)
+            for i, (r, f) in enumerate(zip(ranks, firsts))]
+    assert all(torch.equal(o[1], outs[0][1]) for o in outs)
+    return (torch.cat([o[0] for o in outs]), outs[0][1],
+            sum(int(f[1]) for f in firsts))
+
+
+@pytest.mark.parametrize("C", [1, 2, 3, 4])
+@pytest.mark.parametrize("L", [1, 3, 7])
+@pytest.mark.parametrize("dtype, bits", [(torch.int8, 4), (torch.int16, 8),
+                                         (torch.int32, 12)])
+def test_split_passes_compose_to_the_one_call_entry(dtype, bits, L, C):
+    """Pass 1 on each row, the max of the rows' scales, pass 2 with ``c0 =
+    c`` on row ``c``: the one-call keyed entry's codes, pitch and count bit
+    for bit (and so at two rows a rank)."""
+    leaves, lim = _leaves(SIZES[L], C, seed=C + L), 2**bits - 1
+    codes, step, bad = tsq.sr_pack_keyed_plain(leaves, KEY, lim, dtype)
+    got = _split(leaves, KEY, lim, dtype)
+    assert torch.equal(got[0], codes) and torch.equal(got[1], step) and got[2] == int(bad)
+    if C % 2 == 0:
+        got2 = _split(leaves, KEY, lim, dtype, c_rows=2)
+        assert torch.equal(got2[0], codes) and torch.equal(got2[1], step)
+
+
+def test_split_passes_saturate_nonfinite_rows_as_the_one_call_entry():
+    """NaN/Inf under "saturate": each row is clamped at its own largest
+    finite |g| (pass 1's ``fmax``), the shared scale is finite."""
+    leaves = _nonfinite_leaves(C=4)
+    codes, step, bad = tsq.sr_pack_keyed_plain(leaves, KEY, 255, torch.int16)
+    got = _split(leaves, KEY, 255, torch.int16)
+    assert torch.equal(got[0], codes) and torch.equal(got[1], step)
+    assert got[2] == int(bad) == 8 and torch.isfinite(step).all()
+    fmax, n = tsq.sr_pack_keyed_scales_plain([[leaf[1]] for leaf in leaves])
+    assert int(n) == 5 and fmax[0, 2] == 0.0            # leaf 2 of row 1: no finite value
+
+
+@pytest.mark.parametrize("C, L", [(1, 65), (4, 70), (26, 10)])
+def test_split_passes_take_trees_past_the_table(C, L):
+    """Past one table (65 leaves of one row, 4 x 70, 26 x 10) ``ops`` splits
+    both passes into the same groups of whole leaves: the one-call entry's
+    codes, pitch and count bit for bit."""
+    sizes = _ragged(L, C + L)
+    leaves = _leaves(sizes, C, seed=C)
+    assert len(tsq.table_groups(sizes, C, "t")) == 2
+    codes, step, bad = tops.sr_pack_keyed(leaves, KEY, 127, torch.int16)
+    got = _split(leaves, KEY, 127, torch.int16)
+    assert torch.equal(got[0], codes) and torch.equal(got[1], step) and got[2] == int(bad)
+    fmax, _n = tops.sr_pack_keyed_scales(leaves)
+    assert fmax.shape == (C, L)
+
+
+def test_split_entries_check_their_arguments():
+    leaves = _leaves([5, 7], 2)
+    fmax, _bad = tsq.sr_pack_keyed_scales_plain(leaves)
+    smax = fmax.amax(dim=0)
+    with pytest.raises(ValueError, match="smax"):
+        tsq.sr_pack_keyed_scaled_plain(leaves, smax[:1], fmax, KEY, 15, torch.int8)
+    with pytest.raises(ValueError, match="stream offset"):
+        tsq.sr_pack_keyed_scaled_plain(leaves, smax, fmax, KEY, 15, torch.int8, c0=-1)
+    with pytest.raises(ValueError, match="CUDA"):
+        tsq.sr_pack_keyed_scales_cuda(leaves)
+    with pytest.raises(ValueError, match="CUDA"):
+        tsq.sr_pack_keyed_scaled_cuda(leaves, smax, fmax, KEY, 15, torch.int8)
+    assert torch.equal(tref.philox_streams_plain(KEY, 2, 9, c0=3),
+                       tref.philox_streams_plain(KEY, 5, 9)[3:])

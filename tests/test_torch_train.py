@@ -11,11 +11,21 @@ JAX reference on the CPU, and its checkpoints.
 * ``fl-orchestrate``: the port's Session plans the reference's rounds
   exactly (bits, energy, cohorts, wire bytes).
 * The CLI, and checkpoint resume for ``train`` and ``fl-sim``.
+* One client a process (``gloo`` on the CPU, ranks started once a module by
+  ``tests/torch_dist_worker.py``): the step on 2 ranks fed the reference's
+  draws equals the one-process loop bit for bit and the reference's step
+  within its tolerances, at comm 8, 32 and off; on 4 ranks at comm 8 (the
+  int16 wire, widened) the wire leaves are bit-equal to the loop and the
+  FSDP leaves within rtol 1e-6; ``build_init_fn``, the wire's "raise" on
+  every rank, ``comm_report``; the CLI under torchrun (its checkpoint is the
+  one-process run's, a resume the uninterrupted run); NCCL refused where it
+  cannot run.
 """
 
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 
@@ -43,6 +53,7 @@ from repro_torch.models.common import ParamCtx
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.model import build_model
 from repro_torch.optim import build_optimizer
+from torch_dist_worker import run_ranks
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, S, LR, SEED, ROUND = 4, 32, 0.5, 0, 3
@@ -538,3 +549,280 @@ def test_full_width_fwq_plan_is_infeasible_in_both_packages():
             orch.plan_round(0)
     sess = Session(RunSpec(**spec, options={"scheme": "unified_q"}), device="cpu")
     assert sess.orchestrator(n).plan_round(0)["q"].tolist() == [16] * n
+
+
+# ------------------------------------------------- one client a process (gloo)
+
+
+@pytest.fixture(scope="module")
+def two_ranks(reference, tmp_path_factory):
+    """The port's step on 2 gloo ranks at comm 8, 32 and 0 from the
+    reference's init, fed the reference's draws (the ``SRDraws`` seam, read
+    from a file by each rank); gathered params per comm."""
+    arrays, _meta = reference
+    tmp = str(tmp_path_factory.mktemp("two_ranks"))
+    from repro_torch.models.common import is_stacked, tree_paths_leaves
+
+    params = {k[5:]: v for k, v in arrays.items() if k.startswith("init:")}
+    draws = ReferenceDraws()
+    data = {"init:" + k: v for k, v in params.items()}
+    data.update(tokens=arrays["tokens"], labels=arrays["labels"])
+    paths = tree_paths_leaves({k: torch.from_numpy(v) for k, v in params.items()})[0]
+    for i, p in enumerate(paths):
+        v = params[p]
+        for c in range(2):
+            shape = v.shape[1:] if is_stacked(p) else v.shape
+            data[f"w:{c}:{p}"] = draws.weights(c, p, shape, "cpu").numpy()
+        data[f"u:{i}"] = draws.wire(i, 2, v.shape, "cpu").numpy()
+    np.savez(os.path.join(tmp, "data.npz"), **data)
+    tasks = [dict(name=f"comm{b}", kind="step", data=os.path.join(tmp, "data.npz"), mesh="2x1",
+                  bits=b, lr=LR, seed=SEED, round=ROUND, client_bits=[8, 16], draws="file",
+                  save=os.path.join(tmp, f"comm{b}.npz")) for b in (8, 32, 0)]
+    out = run_ranks(2, {"tasks": tasks}, tmp)
+    return {b: (out[f"comm{b}"], dict(np.load(os.path.join(tmp, f"comm{b}.npz"))))
+            for b in (8, 32, 0)}
+
+
+@pytest.mark.parametrize("bits", [8, 32, 0])
+def test_two_rank_step_equals_the_loop_and_the_reference(reference, two_ranks, bits,
+                                                         monkeypatch):
+    """2 ranks, one client each, fed the reference's draws: the params, loss
+    and wire equal the one-process loop's bit for bit (two addends sum
+    alike in any order), and so hold the reference's step within the
+    tolerances of ``test_train_step_matches_reference``."""
+    arrays, meta = reference
+    res, got = two_ranks[bits]
+    params, p1, m, seen, _draws = _port_step(arrays, bits, monkeypatch)
+    assert set(got) == set(p1)
+    for p in p1:
+        assert np.array_equal(got[p], p1[p].numpy()), p
+    assert res["loss"] == float(m["loss"])
+    assert abs(res["loss"] - meta[str(bits)]["loss"]) <= 1e-5
+    np.testing.assert_allclose(res["gnorm"], meta[str(bits)]["gnorm"], rtol=1e-3)
+    np.testing.assert_allclose(res["gnorm"], float(m["grad_sq_shard_sum"]), rtol=1e-5)
+    from repro_torch.models.common import fsdp_plan
+    paths, _leaves, plan = fsdp_plan(params, 2, check_divisibility=False)
+    for p, dim in zip(paths, plan):
+        if dim is not None or not bits or bits >= 32:
+            np.testing.assert_allclose(got[p], arrays[f"comm{bits}:{p}"], rtol=1e-5, atol=1e-6,
+                                       err_msg=p)
+    # one rank's collectives: FSDP gathers and their reduce-scatters, the
+    # wire's count, scale and codes (int16 at 2 x 255, summed as int32)
+    kinds = {k.rsplit(" ", 1)[0] for k in res["issued"]}
+    assert {"all-gather", "reduce-scatter", "all-reduce sum"} <= kinds
+    assert ("all-reduce sum int32" in res["issued"]) == (bits == 8)
+    assert res["staged"] == {}
+
+
+@pytest.fixture(scope="module")
+def four_ranks(tmp_path_factory):
+    """4 gloo ranks: a step at comm 8 with the keyed draws, ``build_init_fn``,
+    the wire with a NaN, and ``comm_report``."""
+    tmp = str(tmp_path_factory.mktemp("four_ranks"))
+    from torch_dist_worker import step_cfg
+
+    model = build_model(step_cfg())
+    params = model.init(torch.Generator().manual_seed(5), 1)
+    rng = np.random.default_rng(1)
+    data = {"init:" + k: v.numpy() for k, v in params.items()}
+    data["tokens"] = rng.integers(0, 512, (8, S)).astype(np.int32)
+    data["labels"] = rng.integers(0, 512, (8, S)).astype(np.int32)
+    np.savez(os.path.join(tmp, "data.npz"), **data)
+    tasks = [dict(name="step", kind="step", data=os.path.join(tmp, "data.npz"), mesh="4x1",
+                  bits=8, lr=LR, seed=SEED, round=ROUND, client_bits=[8, 16, 4, 32],
+                  save=os.path.join(tmp, "step.npz")),
+             dict(name="init", kind="init", mesh="4x1", seed=7,
+                  save=os.path.join(tmp, "init.npz")),
+             dict(name="wire", kind="wire", ranks=4, seed=3, sizes=[37, 6, 300], bits=8,
+                  key=int(tsteps.SRDraws(SEED, ROUND).wire_key()), nan=True,
+                  save=os.path.join(tmp, "wire.npz")),
+             dict(name="comm_report", kind="comm_report", mesh="4x1", comm=8),
+             dict(name="packed", kind="packed_gather", ranks=4, seed=9,
+                  save=os.path.join(tmp, "packed.npz"))]
+    out = run_ranks(4, {"tasks": tasks}, tmp)
+    out["arrays"] = {k: dict(np.load(os.path.join(tmp, f"{k}.npz")))
+                     for k in ("step", "init", "wire", "packed")}
+    out["data"] = data
+    return out
+
+
+def test_four_rank_step_holds_the_loop(four_ranks):
+    """4 ranks at comm 8 (int16 codes, widened to int32 on the wire): the
+    wire leaves bit-equal to the one-process loop (the codes are the loop's
+    rows: stream r on rank r), the FSDP leaves within rtol 1e-6 of each
+    leaf's largest magnitude (four addends summed in another order: an
+    element near zero may differ by an ulp of its update, which is no
+    relative bound of that element), the loss within 1e-6."""
+    from torch_dist_worker import step_cfg
+
+    from repro_torch.models.common import fsdp_plan
+
+    data, got = four_ranks["data"], four_ranks["arrays"]["step"]
+    model, axes = build_model(step_cfg()), axis_ctx_for("4x1")
+    params = {k[5:]: torch.from_numpy(v) for k, v in data.items() if k.startswith("init:")}
+    opt = build_optimizer("sgd", LR)
+    step = tsteps.build_train_step(model, axes, opt, TrainConfig(learning_rate=LR, seed=SEED,
+                                                                 grad_compression_bits=8))
+    p1, _o, m = step.fn(params, opt.init(params), {k: torch.from_numpy(data[k])
+                                                   for k in ("tokens", "labels")},
+                        delta_for_clients(np.array([8, 16, 4, 32])), tsteps.SRDraws(SEED, ROUND))
+    paths, _leaves, plan = fsdp_plan(p1, 4)
+    assert {d is None for d in plan} == {True, False}
+    for p, dim in zip(paths, plan):
+        if dim is None:
+            assert np.array_equal(got[p], p1[p].numpy()), p
+        else:
+            want = p1[p].numpy()
+            assert np.abs(got[p] - want).max() <= 1e-6 * np.abs(want).max(), p
+    assert abs(four_ranks["step"]["loss"] - float(m["loss"])) <= 1e-6
+    issued = four_ranks["step"]["issued"]
+    assert "all-reduce sum int32" in issued and "all-reduce sum int16" not in issued
+
+
+def test_build_init_fn_slices_the_one_process_init(four_ranks):
+    """Each rank's storage is its FSDP shard of exactly the one-process
+    init's leaves (gathered back here), the replicated leaves whole."""
+    from torch_dist_worker import step_cfg
+
+    from repro_torch.models.common import fsdp_plan
+
+    whole = build_model(step_cfg()).init(torch.Generator().manual_seed(7), 1)
+    got = four_ranks["arrays"]["init"]
+    assert all(np.array_equal(got[p], whole[p].numpy()) for p in whole)
+    paths, _leaves, plan = fsdp_plan(whole, 4)
+    for rk in four_ranks["ranks"]:
+        shapes = rk["init"]["local_shapes"]
+        for p, dim in zip(paths, plan):
+            want = list(whole[p].shape)
+            if dim is not None:
+                want[dim] //= 4
+            assert shapes[p] == want, (p, shapes[p], want)
+
+
+@pytest.mark.parametrize("arch", ["yi-6b", "olmoe-1b-7b", "seamless-m4t-large-v2"])
+def test_sharded_init_slices_each_draw_before_the_next(arch, monkeypatch):
+    """Rank 1 of 4's storage: each FSDP leaf is sliced where it is drawn
+    (the draw hook returns the shard, so a rank never holds the whole
+    model), and equals the slice of the one-process init."""
+    from repro_torch.models import common
+
+    cfg = dataclasses.replace(smoke_variant(get_config(arch)), d_model=256, d_ff=512)
+    model, axes = build_model(cfg), axis_ctx_for("4x1").at_client(1)
+    whole = model.init(torch.Generator().manual_seed(3), 1)
+    paths, _leaves, plan = common.fsdp_plan(whole, 4)
+    sharded = {p for p, dim in zip(paths, plan) if dim is not None}
+    assert sharded
+    returned = []
+    drawn = common._drawn
+
+    def recording(w):
+        out = drawn(w)
+        returned.append(out)
+        return out
+
+    monkeypatch.setattr(common, "_drawn", recording)
+    got = common.sharded_init(lambda meta: model.init(
+        torch.Generator().manual_seed(0 if meta else 3), 1, device="meta" if meta else None),
+        axes)
+    for p, dim in zip(paths, plan):
+        want = whole[p] if dim is None else common.shard_leaf(whole[p], dim, axes)
+        assert torch.equal(got[p], want), p
+        if p in sharded:
+            assert any(r is got[p] for r in returned), f"{p} was not sliced where drawn"
+
+
+def test_wire_raise_raises_on_every_rank(four_ranks):
+    """A NaN and an Inf on one rank: every rank reads the summed count and
+    raises (none is left waiting in a collective); "saturate" gives the
+    one-process wire's means bit for bit."""
+    raised = [rk["wire"]["raised"] for rk in four_ranks["ranks"]]
+    assert all(r is not None and "2 non-finite gradient values" in r for r in raised), raised
+    gen = torch.Generator().manual_seed(3)
+    leaves = [torch.randn(4, n, generator=gen) * (i + 1) for i, n in enumerate([37, 6, 300])]
+    leaves[0][1, 2], leaves[-1][1, 0] = float("nan"), float("inf")
+    want = tsteps.quantized_psum_batch(axis_ctx_for("4x1"), [list(g) for g in leaves], None, 8,
+                                       key=tsteps.SRDraws(SEED, ROUND).wire_key(),
+                                       on_nonfinite="saturate")
+    got = four_ranks["arrays"]["wire"]
+    for i, w in enumerate(want):
+        assert np.array_equal(got[f"arr_{i}"], w.numpy()), i
+
+
+def test_packed_fsdp_leaves_gather_as_bytes(four_ranks):
+    """``ParamCtx.use`` gathers a packed FSDP leaf's int8 or int16 codes as a
+    ``uint8`` view (a gather moves bytes), on the first or the last dim:
+    exactly the whole codes."""
+    gen = torch.Generator().manual_seed(9)
+    got = four_ranks["arrays"]["packed"]
+    for path, shape, dtype in (("blocks/attn/wq", (64, 512), torch.int16),
+                               ("embed/table", (512, 64), torch.int8)):
+        whole = torch.randint(-300 if dtype == torch.int16 else -127, 127, shape,
+                              generator=gen).to(dtype)
+        assert np.array_equal(got[path.replace("/", ".")], whole.numpy()), path
+
+
+def test_comm_report_under_a_group_is_the_one_process_report(four_ranks):
+    """The reference's s16 accounting: the widened int32 sum is a transport
+    detail (ROADMAP §3, D12), not a report field."""
+    sess = Session(RunSpec("yi-6b", workload="train", mesh="4x1", smoke=True, batch=2, seq=32,
+                           rounds=1, precision=PrecisionPolicy(comm=8),
+                           options={"quiet": True}), device="cpu")
+    assert four_ranks["comm_report"]["comm_report"] == json.loads(json.dumps(sess.comm_report()))
+
+
+def _torchrun_train(tmp_path, n, *args):
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={n}", "-m", "repro_torch.launch.train", "--device", "cpu",
+           "--backend", "gloo", *args]
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=300, cwd=str(tmp_path),
+                         env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"),
+                              "OMP_NUM_THREADS": "1"})
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
+    return out
+
+
+def test_train_cli_under_torchrun_checkpoints_and_resumes_as_one_process(tmp_path):
+    """``torchrun --nproc-per-node 2 ... --device cpu --backend gloo``: its
+    round-10 checkpoint is the one-process run's, array for array, and a
+    2-rank resume to round 12 ends where the uninterrupted one-process run
+    does (losses of rounds 10-11 equal)."""
+    flags = ["--arch", "yi-6b", "--smoke", "--mesh", "2x1", "--scheme", "fixed", "--bits", "8",
+             "--grad-compression-bits", "8", "--batch", "2"]
+    from repro_torch.launch import train
+
+    one = train.main(["--device", "cpu", *flags, "--rounds", "12",
+                      "--ckpt-dir", str(tmp_path / "one")])
+    _torchrun_train(tmp_path, 2, *flags, "--rounds", "10", "--ckpt-dir", "two")
+    with np.load(tmp_path / "one" / "ckpt_00000010.npz") as a, \
+            np.load(tmp_path / "two" / "ckpt_00000010.npz") as b:
+        assert sorted(a.files) == sorted(b.files)
+        assert all(np.array_equal(a[k], b[k]) for k in a.files)
+    shutil.copytree(tmp_path / "two", tmp_path / "resume")
+    _torchrun_train(tmp_path, 2, *flags, "--rounds", "12", "--ckpt-dir", "resume",
+                    "--out", "hist.json")
+    with open(tmp_path / "hist.json") as f:
+        hist = json.load(f)
+    assert [h["round"] for h in hist] == [10, 11]
+    assert [h["loss"] for h in hist] == [h["loss"] for h in one[10:]]
+
+
+def test_nccl_where_it_cannot_run_raises(monkeypatch):
+    """NCCL takes one card a rank and CUDA tensors: two ranks on one device,
+    or on the CPU, are refused with the reason (nothing falls back to
+    gloo); the torchrun-only flags outside torchrun are refused too."""
+    from repro_torch.launch import mesh, train
+
+    flags = ["--arch", "yi-6b", "--smoke", "--mesh", "2x1", "--rounds", "1"]
+    with pytest.raises(ValueError, match="torchrun"):
+        train.main([*flags, "--device", "cpu", "--backend", "gloo"])
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("LOCAL_RANK", "0")
+    with pytest.raises(ValueError, match="cannot put 2 ranks on one card"):
+        train.main([*flags, "--share-device", "--backend", "nccl"])
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        train.main([*flags, "--device", "cpu", "--backend", "nccl"])
+    with pytest.raises(ValueError, match="one card a rank"):
+        mesh.check_backend("nccl", None, 2)
+    with pytest.raises(RuntimeError, match="is_available"):
+        train.main([*flags, "--backend", "gloo"])       # ranks ask for CUDA by default

@@ -1,0 +1,228 @@
+"""One rank of the port's multi-process CPU tests (``gloo``, one client a
+process).  Not a test module: the tests start ``n`` of these with
+:func:`run_ranks`, each with ``RANK``/``WORLD_SIZE``/``LOCAL_RANK`` set and
+a ``FileStore`` rendezvous in the test's temporary directory (no port is
+bound, so parallel test workers cannot collide)::
+
+    RANK=0 WORLD_SIZE=2 LOCAL_RANK=0 python tests/torch_dist_worker.py job.json
+
+``job.json``: ``{"store": path, "out": path, "tasks": [{"kind": ..., ...}]}``.
+Each task's result lands in ``out`` (rank 0's; every rank's under
+``"ranks"``), arrays in the ``.npz`` files the tasks name.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def run_ranks(n: int, job: dict, tmp_dir: str, timeout: float = 300.0) -> dict:
+    """Run ``job`` on ``n`` ranks; returns rank 0's results (with every
+    rank's under ``"ranks"``).  A rank that fails fails the call."""
+    job = {**job, "store": os.path.join(tmp_dir, "store"), "out": os.path.join(tmp_dir,
+                                                                                "out.json")}
+    path = os.path.join(tmp_dir, "job.json")
+    with open(path, "w") as f:
+        json.dump(job, f)
+    env = {**os.environ, "PYTHONPATH": os.path.join(os.path.dirname(HERE), "src"),
+           "WORLD_SIZE": str(n), "OMP_NUM_THREADS": "1"}
+    procs = [subprocess.Popen([sys.executable, os.path.join(HERE, "torch_dist_worker.py"), path],
+                              env={**env, "RANK": str(r), "LOCAL_RANK": str(r)},
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(n)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    bad = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode != 0]
+    assert not bad, f"ranks {bad} failed:\n" + "\n".join(log[-3000:] for log in logs)
+    with open(job["out"]) as f:
+        return json.load(f)
+
+
+def step_cfg(n_layers: int = 2):
+    """The smoke yi-6b widened to d_model 256 (``tests/test_torch_train``'s
+    step config): FSDP-sharded and replicated leaves both occur."""
+    from repro_torch.configs import get_config, smoke_variant
+
+    return dataclasses.replace(smoke_variant(get_config("yi-6b")), d_model=256, n_heads=4,
+                               n_kv_heads=2, head_dim=64, d_ff=512, remat=True,
+                               n_layers=n_layers)
+
+
+def file_draws(data, seed: int, round_idx: int):
+    """An :class:`SRDraws` whose weight and wire uniforms are the arrays
+    ``w:{client}:{path}`` and ``u:{leaf}`` of ``data`` (the reference's
+    draws, made by the test)."""
+    from repro_torch.launch.steps import SRDraws
+
+    class FileDraws(SRDraws):
+        def weights(self, client, path, shape, device):
+            u = torch.from_numpy(data[f"w:{client}:{path}"])
+            assert tuple(u.shape) == tuple(shape), (path, u.shape, shape)
+            return u
+
+        def wire(self, leaf, n_clients, shape, device):
+            u = torch.from_numpy(data[f"u:{leaf}"])
+            assert tuple(u.shape) == (n_clients, *shape), (leaf, u.shape, shape)
+            return u
+
+    return FileDraws(seed, round_idx)
+
+
+def task_step(t: dict, rank: int) -> dict:
+    """One train step from the params ``init:{path}`` of ``t["data"]`` at
+    comm ``t["bits"]``; the gathered params go to ``t["save"]``."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core.fwq import delta_for_clients
+    from repro_torch.launch.mesh import axis_ctx_for
+    from repro_torch.launch.steps import SRDraws, build_train_step
+    from repro_torch.models.common import apply_fsdp_sharding, fsdp_plan, gather_leaf
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import build_optimizer
+
+    data = dict(np.load(t["data"]))
+    axes = axis_ctx_for(t["mesh"], group="default")
+    model = build_model(step_cfg(t.get("layers", 2)))
+    whole = {k[5:]: torch.from_numpy(v) for k, v in data.items() if k.startswith("init:")}
+    params = apply_fsdp_sharding(whole, axes)
+    D = axes.dp
+    b = data["tokens"].shape[0] // D
+    batch = {k: torch.from_numpy(data[k][rank * b:(rank + 1) * b]) for k in ("tokens", "labels")}
+    opt = build_optimizer("sgd", t["lr"])
+    tc = TrainConfig(learning_rate=t["lr"], seed=t["seed"], grad_compression_bits=t["bits"])
+    step = build_train_step(model, axes, opt, tc)
+    draws = (file_draws(data, t["seed"], t["round"]) if t.get("draws") == "file"
+             else SRDraws(t["seed"], t["round"]))
+    p1, _o, m = step.fn(params, opt.init(params), batch,
+                        delta_for_clients(np.array(t["client_bits"])), draws)
+    paths, _leaves, plan = fsdp_plan(p1, axes.fsdp, check_divisibility=False)
+    full = {p: gather_leaf(p1[p], dim, axes) for p, dim in zip(paths, plan)}
+    if rank == 0:
+        np.savez(t["save"], **{k: v.numpy() for k, v in full.items()})
+    return {"loss": float(m["loss"]), "gnorm": float(m["grad_sq_shard_sum"]),
+            "issued": axes.transport.report()["issued"],
+            "staged": axes.transport.report()["staged"]}
+
+
+def task_init(t: dict, rank: int) -> dict:
+    """``build_init_fn`` at seed ``t["seed"]``: the rank's storage, gathered
+    to ``t["save"]``, and its local shapes."""
+    from repro_torch.launch.mesh import axis_ctx_for
+    from repro_torch.launch.steps import build_init_fn
+    from repro_torch.models.common import fsdp_plan, gather_leaf
+    from repro_torch.models.model import build_model
+
+    axes = axis_ctx_for(t["mesh"], group="default")
+    model = build_model(step_cfg())
+    local = build_init_fn(model, axes)(torch.Generator().manual_seed(t["seed"]))
+    paths, _leaves, plan = fsdp_plan(local, axes.fsdp, check_divisibility=False)
+    full = {p: gather_leaf(local[p], dim, axes) for p, dim in zip(paths, plan)}
+    if rank == 0:
+        np.savez(t["save"], **{k: v.numpy() for k, v in full.items()})
+    return {"local_shapes": {p: list(local[p].shape) for p in paths}}
+
+
+def task_wire(t: dict, rank: int) -> dict:
+    """The keyed wire on rows drawn from ``t["seed"]`` (rank r takes row r
+    of each leaf; ``t["nan"]`` poisons rank 1's first leaf): ``"raise"``
+    must raise on every rank; ``"saturate"``'s means go to ``t["save"]``."""
+    from repro_torch.dist.collectives import quantized_psum_batch
+    from repro_torch.launch.mesh import axis_ctx_for
+
+    axes = axis_ctx_for(f"{t['ranks']}x1", group="default")
+    gen = torch.Generator().manual_seed(t["seed"])
+    leaves = [torch.randn(axes.dp, n, generator=gen) * (i + 1) for i, n in enumerate(t["sizes"])]
+    if t.get("nan"):
+        leaves[0][1, 2] = float("nan")
+        leaves[-1][1, 0] = float("inf")
+    mine = [[g[rank]] for g in leaves]
+    raised = None
+    try:
+        quantized_psum_batch(axes, mine, None, t["bits"], key=t["key"])
+    except FloatingPointError as e:
+        raised = str(e)
+    means = quantized_psum_batch(axes, mine, None, t["bits"], key=t["key"],
+                                 on_nonfinite="saturate")
+    if rank == 0:
+        np.savez(t["save"], *[m.numpy() for m in means])
+    return {"raised": raised}
+
+
+def task_comm_report(t: dict, rank: int) -> dict:
+    """``Session.comm_report()`` of a ``train`` spec under the group."""
+    from repro_torch.api import PrecisionPolicy, RunSpec, Session
+
+    sess = Session(RunSpec("yi-6b", workload="train", mesh=t["mesh"], smoke=True, batch=2,
+                           seq=32, rounds=1, precision=PrecisionPolicy(comm=t["comm"]),
+                           options={"quiet": True}), device="cpu")
+    assert sess.axes.transport is not None
+    return {"comm_report": sess.comm_report()}
+
+
+def task_packed_gather(t: dict, rank: int) -> dict:
+    """``ParamCtx.use`` of packed FSDP leaves (int8 and int16 codes, shard
+    dims first and last) under a lazy policy: the gathered ``QTensor``s'
+    codes go to ``t["save"]``."""
+    import types
+
+    from repro_torch.launch.mesh import axis_ctx_for
+    from repro_torch.models.common import (ParamCtx, QTensor, fsdp_shard_dim, shard_leaf)
+
+    axes = axis_ctx_for(f"{t['ranks']}x1", group="default")
+    pc = ParamCtx(ctx=axes, policy=types.SimpleNamespace(lazy=True))
+    gen = torch.Generator().manual_seed(t["seed"])
+    got = {}
+    for path, shape, dtype in (("blocks/attn/wq", (64, 512), torch.int16),
+                               ("embed/table", (512, 64), torch.int8)):
+        whole = torch.randint(-300 if dtype == torch.int16 else -127, 127, shape,
+                              generator=gen).to(dtype)
+        q = QTensor(shard_leaf(whole, fsdp_shard_dim(path, 2), axes), torch.tensor(0.5))
+        out = pc.use(path, q)
+        assert isinstance(out, QTensor) and out.codes.dtype == dtype
+        got[path] = out.codes.numpy()
+    if rank == 0:
+        np.savez(t["save"], **{k.replace("/", "."): v for k, v in got.items()})
+    return {}
+
+
+TASKS = {"step": task_step, "packed_gather": task_packed_gather, "init": task_init, "wire": task_wire,
+         "comm_report": task_comm_report}
+
+
+def main() -> None:
+    with open(sys.argv[1]) as f:
+        job = json.load(f)
+    torch.set_num_threads(1)
+    from repro_torch.launch.mesh import init_distributed
+
+    import torch.distributed as dist
+
+    init_distributed("gloo", "cpu", init_method="file://" + job["store"])
+    rank = dist.get_rank()
+    out = {}
+    for t in job["tasks"]:
+        out[t["name"]] = TASKS[t["kind"]](t, rank)
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, out)
+    if rank == 0:
+        with open(job["out"], "w") as f:
+            json.dump({**out, "ranks": every}, f)
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()
