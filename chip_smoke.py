@@ -39,7 +39,9 @@ Phases (each one failing stops the script with a nonzero exit):
    key's streams and to the one-table call; K3 at the MoE experts' shapes
    (olmoe, qwen3; M 4 and a 4 x 128 prefill's capacity) and at the
    projections of mamba2 (M 4), seamless-m4t (M 4 and its encoder's M 4 x
-   256) and llama-3.2-vision (M 4, and the image memory's M 4 x 1,601),
+   256), llama-3.2-vision (M 4, and the image memory's M 4 x 1,601) and
+   yi-6b as one data shard of phase serve_dist runs it (M 1 at its five
+   projections, M 64 and 128 at its four layer projections),
    each plan printed and asserted (the 50,280- and 256,206-byte code rows of
    mamba2's and seamless-m4t's unembeds on the FP32 tiled path) beside
    ``torch.matmul``;
@@ -51,12 +53,14 @@ Phases (each one failing stops the script with a nonzero exit):
    operations as three bf16 products) and bf16 at 16, 32, 64, 128 and 256,
    at S 100, 128 and 513 where the head dim's model runs them, seamless-m4t's
    encoder (BH 64, S 256, D 64; bf16 and f32, non-causal and causal) and
-   llama-3.2-vision's prefill (BH 256, S 64, D 128, bf16); then one-hot
+   llama-3.2-vision's prefill (BH 256, S 64, D 128, bf16) and a yi-6b
+   shard's one-slot prefill (BH 32, S 64 and 128, D 128, bf16); then one-hot
    inputs through every K4 tile of both paths, which show where each
    element of q, K and V lands at every swizzle K4 uses.  K5 rows: yi-6b's
    decode, gemma-7b's (G 1, hd 256), glm4-9b's (G 16), seamless-m4t's (KV
    16, G 1, hd 64), llama-3.2-vision's (KV 8, G 8, hd 128) and a long
-   context (n_pmax 256, ~4,000 tokens a slot), each with its block count
+   context (n_pmax 256, ~4,000 tokens a slot) and a yi-6b shard's one slot
+   (B 1), each with its block count
    from ``plan_decode``.
 4. serve: ``Session.serve`` of full-width, full-depth yi-6b, then of
    gemma-7b (head dim 256), olmoe-1b-7b (64 experts, top-8) and mamba2-780m
@@ -179,6 +183,22 @@ Phases (each one failing stops the script with a nonzero exit):
     parameters after the first step (read back through the checkpoint):
     the wire leaves bit-equal, the FSDP leaves within rtol 1e-6 of each
     leaf's largest magnitude, the loss within 1e-6.  Last, one rank over NCCL (mesh 1x1) trains a round.
+13. serve_dist: batch-sharded serving (``Session.serve`` on a ``Dx1`` mesh)
+    at phase serve's yi-6b configuration.  One process, 4x1, full width and
+    depth: 4 data shards of one slot, each with its own page pool, run one
+    after another on the card; admitted and completed 8 of 8, K3, K4 and K5
+    launched exactly ``expected_launches`` a shard's prefill and decode step
+    times the shard calls the session made, tok/s, host ms a step, peak.
+    Then ``torch.distributed.run`` starts 4 ranks sharing the card over gloo,
+    one shard each, full width cut to 2 layers, max_new 16: every rank's
+    sampled tokens and ``ServeStats`` (clocks apart) must equal the
+    one-process 4x1 loop's at 2 layers bit for bit; each rank's collectives
+    must be one uint8 all-gather a use of each FSDP leaf and one int32
+    all-gather of the shards' tokens a prefill or decode step; each rank
+    prints its launches, collectives by kind, calls and bytes, staged
+    collectives, host ms a step, tok/s and peak.  Last, one rank over NCCL
+    at 1x1, full depth, max_new 16, whose tokens and stats must equal the
+    plain 1x1 serve's.
 
 Each phase prints its own time.  The last two lines are the kernel table
 and ``{"ok": true, "device": ...}``.
@@ -339,13 +359,17 @@ def _demangle(names: list) -> list:
         return names
 
 
-def _sass_counts(lib_path: str, prefix: str, opcodes: tuple) -> dict:
-    """Per kernel whose (mangled) name holds ``prefix``: how many SASS
-    instructions start with each of ``opcodes`` (cuobjdump of the built
-    library)."""
+def _sass_dump(lib_path: str) -> str:
+    """The built library's SASS (cuobjdump)."""
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True, text=True,
+    return subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True, text=True,
                           check=True).stdout
+
+
+def _sass_counts(sass: str, prefix: str, opcodes: tuple) -> dict:
+    """Per kernel whose (mangled) name holds ``prefix``: how many SASS
+    instructions of ``sass`` (:func:`_sass_dump`) start with each of
+    ``opcodes``."""
     counts, fn = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
@@ -366,7 +390,7 @@ def _ptxas_report(log: str) -> dict:
     report, entry = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            entry = _demangle([line.split("'")[1]])[0]
+            entry = line.split("'")[1]
             report[entry] = {"lines": [], "spill_bytes": 0}
         elif entry and ("registers" in line or "spill" in line):
             report[entry]["lines"].append(line.split(":", 1)[-1].strip())
@@ -376,7 +400,7 @@ def _ptxas_report(log: str) -> dict:
             stack = re.search(r"(\d+) bytes stack frame", line)
             if stack:
                 report[entry]["stack_bytes"] = int(stack[1])
-    return report
+    return dict(zip(_demangle(list(report)), report.values()))
 
 
 def phase_build() -> None:
@@ -426,10 +450,11 @@ def phase_build() -> None:
     # K3's and K4's paths as built: K3's prefill path and every K4 instance
     # issue wgmma and load through TMA, K4 stores through TMA; no K3, K4 or
     # K5 kernel has a global atomic
-    counts = _sass_counts(str(lib_path), "qmm_", ("HGMMA", "UTMALDG", "RED", "ATOMG"))
+    sass = _sass_dump(str(lib_path))
+    counts = _sass_counts(sass, "qmm_", ("HGMMA", "UTMALDG", "RED", "ATOMG"))
     k4 = {fn: c for k in k4_kernels for fn, c in _sass_counts(
-        str(lib_path), k, ("HGMMA", "UTMALDG", "UTMASTG", "RED", "ATOMG")).items()}
-    k5 = _sass_counts(str(lib_path), "flash_decode", ("RED", "ATOMG"))
+        sass, k, ("HGMMA", "UTMALDG", "UTMASTG", "RED", "ATOMG")).items()}
+    k5 = _sass_counts(sass, "flash_decode", ("RED", "ATOMG"))
     for fn, c in {**counts, **k4, **k5}.items():
         print(f"  sass {fn[:90]}: {c}")
     wg = [c for fn, c in counts.items() if "qmm_wgmma" in fn]
@@ -568,7 +593,9 @@ def sdpa_ms(q, k, v, causal: bool) -> tuple[float, str]:
 #: most of the 64 query rows lie past S; seamless-m4t's encoder (16 heads x 4
 #: slots over 256 frames, D 64, non-causal: bf16 as served, f32 as phase
 #: consistency runs it) and llama-3.2-vision's prefill (64 heads x 4 slots
-#: at a 64-token bucket, D 128, causal).
+#: at a 64-token bucket, D 128, causal); yi-6b as one data shard of phase
+#: serve_dist's 4x1 mesh prefills it (32 heads x 1 slot, D 128, at its 64-
+#: and 128-token buckets, bf16).
 ATTN_CASES = ([(16, 16, S, (torch.float32, torch.bfloat16)) for S in (16, 11)]
               + [(64, 64, 256, (torch.float32, torch.bfloat16)), (256, 128, 64, (torch.bfloat16,))]
               + [(128, D, S, (torch.float32, torch.bfloat16)) for D in (16, 32, 128)
@@ -576,7 +603,8 @@ ATTN_CASES = ([(16, 16, S, (torch.float32, torch.bfloat16)) for S in (16, 11)]
               + [(128, 64, S, (torch.float32,) + ((torch.bfloat16,) if S == 128 else ()))
                  for S in (100, 128, 513)]
               + [(64, 256, S, (torch.float32,) + ((torch.bfloat16,) if S == 128 else ()))
-                 for S in (100, 128, 513)])
+                 for S in (100, 128, 513)]
+              + [(32, 128, S, (torch.bfloat16,)) for S in (64, 128)])
 #: The path each type takes (kernels/flash_attention.plan_attention).
 ATTN_PATH_OF = {torch.bfloat16: "wgmma", torch.float32: "wgmma_split"}
 
@@ -730,8 +758,8 @@ def decode_case(q_dtype, pool_dtype, gen, *, KV=4, G=8, hd=128, page=16, n_pmax=
                 lengths=(253, 60, 100, 0)):
     """Paged decode inputs (B = len(lengths) slots), by default at yi-6b's
     decode shape (KV 4, G 8, hd 128, page 16, s_max 256): slot b owns the
-    pages its length needs, in a shuffled pool; slot 1 has a -1 hole inside
-    its length; a slot of length 0 owns two pages but holds no token;
+    pages its length needs, in a shuffled pool; slot 1 (where there is one)
+    has a -1 hole inside its length; a slot of length 0 owns two pages but holds no token;
     lengths lie off the page grid."""
     B = len(lengths)
     owned = [min(n_pmax, -(-n // page)) if n else 2 for n in lengths]
@@ -743,7 +771,8 @@ def decode_case(q_dtype, pool_dtype, gen, *, KV=4, G=8, hd=128, page=16, n_pmax=
     pt = torch.full((B, n_pmax), -1, dtype=torch.int32, device="cuda")
     for b, (start, n) in enumerate(zip(itertools.accumulate([0] + owned), owned)):
         pt[b, :n] = perm[start:start + n]
-    pt[1, 1] = -1
+    if B > 1:
+        pt[1, 1] = -1
     return q, kp, vp, pt, torch.tensor(lengths, dtype=torch.int32, device="cuda")
 
 
@@ -751,7 +780,8 @@ def decode_case(q_dtype, pool_dtype, gen, *, KV=4, G=8, hd=128, page=16, n_pmax=
 #: pools the timing rotates over).  gemma-7b, glm4-9b, seamless-m4t's decoder
 #: (its f32 q as phase consistency runs it) and llama-3.2-vision at s_max 256; the
 #: long context at ~4,000 tokens a slot (~65 MB of f32 pages), timed over two
-#: copies so that it streams from device memory rather than the 50 MB L2.
+#: copies so that it streams from device memory rather than the 50 MB L2;
+#: yi-6b's one slot as a data shard of phase serve_dist's 4x1 mesh decodes it.
 DECODE_CASES = (
     [("yi-6b", {}, (qd, pd), 1) for qd in (torch.float32, torch.bfloat16)
      for pd in (torch.float32, torch.bfloat16)]
@@ -763,7 +793,8 @@ DECODE_CASES = (
        for qd in (torch.bfloat16, torch.float32)]
     + [("llama-3.2-vision", dict(KV=8, G=8, hd=128), (torch.bfloat16, torch.float32), 1)]
     + [("long context", dict(n_pmax=256, lengths=(4093, 4000, 3950, 4067)),
-        (torch.bfloat16, torch.float32), 2)])
+        (torch.bfloat16, torch.float32), 2)]
+    + [("yi-6b one shard", dict(lengths=(150,)), (torch.bfloat16, torch.float32), 1)])
 
 
 def check_flash_decode(table: dict) -> None:
@@ -1590,9 +1621,12 @@ def k3_path(M: int, N: int, x_dtype) -> str:
 #: prefills by decode steps; seamless-m4t (d 1024, d_ff 8192, vocab
 #: 256,206) runs its encoder at M 4 x 256 frames; llama-3.2-vision (d 8192,
 #: 8 KV heads of 128, d_ff 28,672, vocab 128,256) projects its 4 x 1,601
-#: image tokens (width 1,280) at prefill.  f32 x where phase consistency
-#: runs the model in f32.  Launches: a decode step's (a prefill's for the
-#: prefill rows) at the served depth (llama-3.2-vision: 2 periods).
+#: image tokens (width 1,280) at prefill; yi-6b as one data shard of phase
+#: serve_dist's 4x1 mesh runs it: one slot (M 1) in a decode step and in
+#: the unembed of a prefill, one slot's 64- or 128-token bucket in the
+#: prefill's layers.  f32 x where phase consistency runs the model in f32.
+#: Launches: a decode step's (a prefill's for the prefill rows) at the
+#: served depth (llama-3.2-vision: 2 periods), a shard's for yi-6b.
 _BOTH = (torch.bfloat16, torch.float32)
 _BF16 = (torch.bfloat16,)
 K3_MODEL_SHAPES = (
@@ -1614,7 +1648,13 @@ K3_MODEL_SHAPES = (
     ("llama-3.2-vision-90b", "down", 4, 28672, 8192, _BF16, 10),
     ("llama-3.2-vision-90b", "unembed", 4, 8192, 128256, _BF16, 1),
     ("llama-3.2-vision-90b", "adapter", 4 * 1601, 1280, 8192, _BF16, 1),
-    ("llama-3.2-vision-90b", "cross wk/wv", 4 * 1601, 8192, 1024, _BF16, 4))
+    ("llama-3.2-vision-90b", "cross wk/wv", 4 * 1601, 8192, 1024, _BF16, 4),
+    ("yi-6b", "unembed, one shard", 1, 4096, 64000, _BF16, 1))
+K3_MODEL_SHAPES += tuple(
+    ("yi-6b", f"{proj}, one shard's {kind}", M, K, N, _BF16, n)
+    for kind, Ms in (("decode", (1,)), ("prefill", (64, 128))) for M in Ms
+    for proj, K, N, n in (("wq/wo", 4096, 4096, 64), ("wk/wv", 4096, 512, 64),
+                          ("up/gate", 4096, 11008, 64), ("down", 11008, 4096, 32)))
 
 
 def check_quant_matmul_models() -> None:
@@ -1804,6 +1844,7 @@ def phase_serve(dev: dict) -> dict:
     """Each serve run with the launch counters zeroed just before and read
     just after; returns the runs' launches summed."""
     from repro_torch.api import PrecisionPolicy, RunSpec, Session
+    from repro_torch.models.model import count_passes
 
     import dataclasses
 
@@ -1820,16 +1861,7 @@ def phase_serve(dev: dict) -> dict:
         # the serve's prefills and decode steps, counted where the session
         # calls the model
         passes = {"prefill": 0, "decode": 0}
-
-        def counted(fn, kind):
-            def call(*a, **kw):
-                passes[kind] += 1
-                return fn(*a, **kw)
-            return call
-
-        sess.model = dataclasses.replace(sess.model,
-                                         prefill=counted(sess.model.prefill, "prefill"),
-                                         decode_step=counted(sess.model.decode_step, "decode"))
+        sess.model = count_passes(sess.model, passes)
         torch.cuda.reset_peak_memory_stats()
         record: dict = {}
         ops.reset_launches()
@@ -3117,6 +3149,10 @@ def dist_worker(job_path: str) -> None:
     torch.backends.cudnn.allow_tf32 = False
     dev = init_distributed(job["backend"], None, share_device=job["share_device"])
     rank = dist.get_rank()
+    if "serve" in job:
+        serve_dist_rank(job, dev, rank)
+        dist.destroy_process_group()
+        return
     out = {"rank": rank, "device": str(dev), "backend": job["backend"], "runs": []}
     fl_round = Session.fl_round
     from repro_torch.ckpt import checkpoint as ckpt
@@ -3309,6 +3345,206 @@ def phase_dist(dev: dict, table: dict) -> dict:
     return launches
 
 
+# ------------------------------------------------------------ serve_dist
+#: phase serve_dist: phase serve's yi-6b configuration (lazy int8, paged f32
+#: KV in 16-token pages, flash, batch 4, 8 requests of 64-128 tokens) on a
+#: 4x1 mesh: 4 data shards of one slot
+SERVE_DIST_SHARDS = 4
+SERVE_DIST_OPTIONS = {**SERVE_RUNS["yi-6b"]["options"], "attn_impl": "flash",
+                      "kv_layout": "paged", "page_size": 16, "vary_prompt": True,
+                      "quiet": True}
+
+
+def _serve_dist_session(device: str, mesh: str, layers: int | None = None, **options):
+    """Full-width yi-6b served at phase serve_dist's options on ``mesh``
+    (depth cut to ``layers``), its model's prefills and decode steps counted
+    (a shard's call is one) and each decode call's host clock kept."""
+    import dataclasses
+
+    from repro_torch.api import PrecisionPolicy, RunSpec, Session
+    from repro_torch.models.model import count_passes
+
+    spec = RunSpec("yi-6b", workload="serve", mesh=mesh, smoke=False, seed=0, batch=4,
+                   seq=256, precision=PrecisionPolicy.lazy_int8(7),
+                   options={**SERVE_DIST_OPTIONS, **options})
+    sess = Session(spec, device=device)
+    if layers is not None:
+        sess.cfg = dataclasses.replace(sess.cfg, n_layers=layers)
+    passes, ticks = {"prefill": 0, "decode": 0}, []
+    sess.model = count_passes(sess.model, passes, ticks)
+    return sess, passes, ticks
+
+
+def _host_ms_a_step(ticks: list, calls_a_step: int) -> float:
+    """The median host ms between one decode step's start and the next's
+    (``calls_a_step`` shard calls a step)."""
+    starts = ticks[::calls_a_step]
+    return float(np.median(np.diff(starts)) * 1e3) if len(starts) > 1 else float("nan")
+
+
+def _serve_dist_run(sess, passes, ticks, device) -> dict:
+    """``sess.serve()`` with the launch counters zeroed just before and read
+    just after: its stats, tokens, launches, passes and memory."""
+    torch.cuda.reset_peak_memory_stats(device)
+    ops.reset_launches()
+    t0 = time.time()
+    stats = sess.serve()
+    wall = time.time() - t0
+    launches = {k: ops.LAUNCHES[k] for k in _ATTN_KERNELS}
+    calls = max(sess.axes.dp, 1) if sess.axes.transport is None else 1
+    return {"stats": {k: v for k, v in vars(stats).items() if k not in ("wall_s", "tok_s")},
+            "tok_s": stats.tok_s, "serve_wall_s": wall, "tokens": list(sess.last_tokens),
+            "launches": launches, "passes": dict(passes),
+            "host_ms_a_step": _host_ms_a_step(ticks, calls),
+            "peak_gb": torch.cuda.max_memory_allocated(device) / 1e9}
+
+
+def serve_dist_rank(job: dict, dev, rank: int) -> None:
+    """One rank of phase serve_dist (started by ``torch.distributed.run``):
+    its shard of the serve, the collectives it issued by kind, calls and
+    bytes, and those staged through the host; to ``<out_dir>/rank<r>.json``
+    and a line on stdout."""
+    run = job["serve"]
+    sess, passes, ticks = _serve_dist_session(str(dev), run["mesh"], run.get("layers"),
+                                              **run["options"])
+    res = _serve_dist_run(sess, passes, ticks, dev)
+    report = sess.axes.transport.report()
+    res.update(rank=rank, device=str(dev), backend=job["backend"], issued=report["issued"],
+               staged=report["staged"])
+    with open(os.path.join(job["out_dir"], f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    print(f"dist rank {rank} serve: " + json.dumps(
+        {k: res[k] for k in ("tok_s", "host_ms_a_step", "peak_gb", "passes", "launches",
+                             "issued", "staged")}), flush=True)
+
+
+def _gathers_a_pass(cfg, fsdp: int) -> tuple[int, int]:
+    """``(calls, bytes)`` of one pass's FSDP gathers on a rank: one uint8
+    all-gather a use of each FSDP leaf (a stacked leaf once a layer) of its
+    whole int8 codes."""
+    from repro_torch.models.common import fsdp_plan, is_stacked
+    from repro_torch.models.model import build_model
+
+    meta = build_model(cfg).init(torch.Generator().manual_seed(0), 1, device="meta")
+    paths, leaves, plan = fsdp_plan(meta, fsdp)
+    calls = nbytes = 0
+    for path, w, dim in zip(paths, leaves, plan):
+        if dim is not None:
+            calls += w.shape[0] if is_stacked(path) else 1
+            nbytes += w.numel()
+    return calls, nbytes
+
+
+def _same_serve(label: str, got: dict, want: dict) -> None:
+    """A rank's stats (clocks apart) and tokens against a one-process run's."""
+    if got["stats"] != json.loads(json.dumps(want["stats"])):
+        diff = {k: (v, want["stats"].get(k)) for k, v in got["stats"].items()
+                if v != json.loads(json.dumps(want["stats"])).get(k)}
+        raise AssertionError(f"serve_dist: {label}'s ServeStats differ: {diff}")
+    if got["tokens"] != want["tokens"]:
+        n = next(i for i, (a, b) in enumerate(zip(got["tokens"], want["tokens"])) if a != b) \
+            if len(got["tokens"]) == len(want["tokens"]) else "length"
+        raise AssertionError(f"serve_dist: {label}'s tokens differ (first at {n})")
+
+
+def phase_serve_dist(dev: dict) -> dict:
+    """Batch-sharded serving (see the module docstring); returns the
+    one-process 4x1 run's K3/K4/K5 launches."""
+    import tempfile
+
+    card = f"{dev['kind']} ({dev['smi']})"
+    D = SERVE_DIST_SHARDS
+    # (1) one process, 4x1, full width and depth: the main path of the phase
+    sess, passes, ticks = _serve_dist_session("cuda", f"{D}x1")
+    loop = _serve_dist_run(sess, passes, ticks, "cuda")
+    cfg, st = sess.cfg, loop["stats"]
+    assert (cfg.n_layers, cfg.d_model) == (32, 4096), cfg
+    n_req = SERVE_DIST_OPTIONS["requests"]
+    assert st["admitted"] == st["completed"] == n_req, st
+    assert passes["decode"] == D * st["decode_steps"], (passes, st)
+    pre, dec = (expected_launches(cfg, kind, 0) for kind in ("prefill", "decode"))
+    want = {k: passes["prefill"] * pre[k] + passes["decode"] * dec[k] for k in pre}
+    if loop["launches"] != want or not all(want.values()):
+        raise AssertionError(f"serve_dist 4x1: launches {loop['launches']}, want {want} "
+                             f"({passes})")
+    assert all(0 <= t < cfg.vocab_size for t in loop["tokens"]), "sampled id out of range"
+    emit({"serve_dist": {"run": f"one process {D}x1", "card": card, "arch": cfg.name,
+                         "layers": cfg.n_layers, "tok_s": loop["tok_s"],
+                         "admitted": st["admitted"], "completed": st["completed"],
+                         "decode_steps": st["decode_steps"], "passes": passes,
+                         "launches": loop["launches"],
+                         "a_shard_and_pass": {"prefill": pre, "decode": dec},
+                         "host_ms_a_step": loop["host_ms_a_step"],
+                         "serve_wall_s": loop["serve_wall_s"], "peak_gb": loop["peak_gb"],
+                         "kv_bytes": st["kv_bytes"], "sample": st["sample"]}})
+    del sess
+    torch.cuda.empty_cache()
+    # (2) the loop at 2 layers, max_new 16: what the ranks must equal
+    small = dict(layers=DIST_LAYERS, max_new=16)
+    sess2, passes2, ticks2 = _serve_dist_session("cuda", f"{D}x1", DIST_LAYERS, max_new=16)
+    loop2 = _serve_dist_run(sess2, passes2, ticks2, "cuda")
+    cfg2 = sess2.cfg
+    del sess2
+    torch.cuda.empty_cache()
+    # (3) D gloo ranks sharing the card, one shard each
+    base = tempfile.mkdtemp(prefix="chip_smoke_serve_dist_")
+    ranks = _torchrun(D, {"backend": "gloo", "share_device": True,
+                          "serve": {"mesh": f"{D}x1", "layers": DIST_LAYERS,
+                                    "options": {"max_new": 16}}},
+                      os.path.join(base, "gloo"), 600)
+    g_calls, g_bytes = _gathers_a_pass(cfg2, D)
+    pre2, dec2 = (expected_launches(cfg2, kind, 0) for kind in ("prefill", "decode"))
+    per_rank = []
+    for rk in ranks:
+        _same_serve(f"gloo rank {rk['rank']}", rk, loop2)
+        n = rk["passes"]["prefill"] + rk["passes"]["decode"]
+        want = {k: rk["passes"]["prefill"] * pre2[k] + rk["passes"]["decode"] * dec2[k]
+                for k in pre2}
+        if rk["launches"] != want:
+            raise AssertionError(f"serve_dist rank {rk['rank']}: launches {rk['launches']}, "
+                                 f"want {want}")
+        issued = rk["issued"]
+        gathered = issued.get("all-gather uint8", {})
+        tokens = issued.get("all-gather int32", {})
+        if (gathered.get("calls"), gathered.get("bytes")) != (n * g_calls, n * g_bytes) or \
+                (tokens.get("calls"), tokens.get("bytes")) != (n, n * 4 * 4):
+            raise AssertionError(f"serve_dist rank {rk['rank']}: collectives {issued}, want "
+                                 f"{g_calls} gathers of {g_bytes} bytes and one token "
+                                 f"gather a pass over {n} passes")
+        per_rank.append({"rank": rk["rank"], "tok_s": rk["tok_s"],
+                         "host_ms_a_step": rk["host_ms_a_step"], "peak_gb": rk["peak_gb"],
+                         "passes": rk["passes"], "launches": rk["launches"],
+                         "a_pass": {k: {"calls": v["calls"] / n, "bytes": v["bytes"] / n}
+                                    for k, v in issued.items() if not k.startswith("broadcast")},
+                         "issued": issued, "staged": rk["staged"]})
+    emit({"serve_dist": {"run": f"{D} gloo ranks sharing the card", "card": card,
+                         "arch": cfg2.name, "layers": cfg2.n_layers, **small,
+                         "loop": {k: loop2[k] for k in ("tok_s", "host_ms_a_step", "peak_gb",
+                                                         "passes", "launches")},
+                         "gathers_a_pass_predicted": {"calls": g_calls, "bytes": g_bytes},
+                         "per_rank": per_rank}})
+    print(f"serve_dist: {D} gloo ranks' tokens ({len(loop2['tokens'])}) and ServeStats equal "
+          f"the one-process {D}x1 loop's at {DIST_LAYERS} layers bit for bit")
+    # (4) one NCCL rank at 1x1, full depth, against the plain 1x1 serve
+    sess1, passes1, ticks1 = _serve_dist_session("cuda", "1x1", max_new=16)
+    plain = _serve_dist_run(sess1, passes1, ticks1, "cuda")
+    layers1 = sess1.cfg.n_layers
+    del sess1
+    torch.cuda.empty_cache()
+    nccl = _torchrun(1, {"backend": "nccl", "share_device": False,
+                         "serve": {"mesh": "1x1", "options": {"max_new": 16}}},
+                     os.path.join(base, "nccl"), 600)[0]
+    _same_serve("the nccl rank", nccl, plain)
+    assert nccl["backend"] == "nccl" and nccl["launches"] == plain["launches"], nccl
+    emit({"serve_dist": {"run": "one nccl rank at 1x1", "card": card, "layers": layers1,
+                         "max_new": 16, "tok_s": nccl["tok_s"], "plain_tok_s": plain["tok_s"],
+                         "host_ms_a_step": nccl["host_ms_a_step"],
+                         "plain_host_ms_a_step": plain["host_ms_a_step"],
+                         "peak_gb": nccl["peak_gb"], "issued": nccl["issued"]}})
+    print("serve_dist: the nccl rank's tokens and ServeStats equal the plain 1x1 serve's")
+    return loop["launches"]
+
+
 COMMITTED_STORES = os.path.join(ROOT, "results")
 #: Phase ``grids``: committed cells rerun through the port's ``SweepRunner``
 #: on the card, each where the runner puts it (serve and train cells in a
@@ -3403,20 +3639,37 @@ def compare_row(row: dict, want: dict) -> list:
 
 def run_grid_cells(cells: list, store_dir: str, timeout_s: float = 900.0) -> list:
     """Run ``cells`` (of one or more presets) through ``SweepRunner`` on the
-    card into ``store_dir``, each preset's cells as one sweep of that name;
-    returns their rows, in order."""
-    from repro_torch.sweep import ResultsStore, Sweep, SweepRunner
+    card into ``store_dir``, each preset's cells as one sweep of that name
+    (a store of its own); returns their rows, in order.  A sweep whose cells
+    all run in a subprocess runs in a thread of its own, beside the others;
+    the sweeps with cells in this process (whose launches are read from this
+    process's counters) run one after another here."""
+    from concurrent.futures import ThreadPoolExecutor
 
-    rows = []
-    for name in dict.fromkeys(c.sweep for c in cells):
+    from repro_torch.sweep import ResultsStore, Sweep, SweepRunner
+    from repro_torch.sweep.runner import SUBPROCESS_WORKLOADS
+
+    stores = {}
+
+    def run(name):
         mine = [c for c in cells if c.sweep == name]
         sweep = Sweep(name=name, base=mine[0].spec.to_dict(),
                       extra_cells=tuple(c.spec.to_dict() for c in mine[1:]))
         assert [c.key for c in sweep.cells()] == [c.key for c in mine], name
-        store = ResultsStore.for_sweep(sweep, store_dir)
-        SweepRunner(sweep, store, timeout_s=timeout_s, device="cuda").run()
-        rows += [store.get(c.key) for c in mine]
-    return rows
+        stores[name] = ResultsStore.for_sweep(sweep, store_dir)
+        SweepRunner(sweep, stores[name], timeout_s=timeout_s, device="cuda").run()
+
+    names = list(dict.fromkeys(c.sweep for c in cells))
+    apart = [n for n in names if all(c.spec.workload in SUBPROCESS_WORKLOADS
+                                     for c in cells if c.sweep == n)]
+    with ThreadPoolExecutor(max_workers=max(len(apart), 1)) as pool:
+        futures = [pool.submit(run, n) for n in apart]
+        for n in names:
+            if n not in apart:
+                run(n)
+        for f in futures:
+            f.result()
+    return [stores[c.sweep].get(c.key) for c in cells]
 
 
 def check_grid_rows(rows: list) -> tuple[dict, list]:
@@ -4023,7 +4276,7 @@ def phase_analyze(dev: dict) -> None:
 
 
 PHASES = ("device", "build", "kernels", "serve", "profile", "consistency", "fl", "train",
-          "dist", "roofline", "analyze", "grids")
+          "dist", "serve_dist", "roofline", "analyze", "grids")
 #: run only when named in ``--phases``
 EXTRA_PHASES = ("sweep", "decode_sweep", "attn_sweep", "train_profile", "grids_all",
                 "roofline_all")
@@ -4061,6 +4314,7 @@ def main(argv=None) -> int:
             ("fl", lambda: launches_of.update(fl=phase_fl(dev))),
             ("train", lambda: launches_of.update(train=phase_train(dev, measured))),
             ("dist", lambda: launches_of.update(dist=phase_dist(dev, table))),
+            ("serve_dist", lambda: launches_of.update(serve_dist=phase_serve_dist(dev))),
             ("roofline", lambda: phase_roofline(dev, measured)),
             ("analyze", lambda: phase_analyze(dev)),
             ("roofline_all", lambda: phase_roofline_all(dev)),
@@ -4074,6 +4328,8 @@ def main(argv=None) -> int:
             print(f"chip_smoke: phase {name} took {time.time() - t0:.1f} s")
     if "serve" in launches_of:
         launches = launches_of["serve"]
+    for name, n in launches_of.get("serve_dist", {}).items():
+        launches[name] += n             # K3, K4, K5 on the sharded path too
     launches.update(launches_of.get("fl", {}))
     if "train" in launches_of:
         # K1 runs on both paths: its count is the sum of the two phases' runs

@@ -13,7 +13,9 @@ it raises; nothing falls back to the CPU::
 
 ``serve`` options: ``steps``, ``s_max``, ``prompt_len``, ``attn_impl``,
 ``requests``, ``max_new``, ``kv_layout``, ``page_size``, ``pool_pages``,
-``vary_prompt``, ``precision_program``, ``quiet``.
+``vary_prompt``, ``precision_program``, ``quiet``.  On a ``Dx1`` mesh the
+batch splits into D data shards, run in a loop on the device or one a rank
+under a process group (:meth:`Session.serve`).
 
 ``fl-sim`` options (the paper's loop, :meth:`Session.run_fl_sim`):
 ``scheme``, ``n_clients``, ``lr``, ``error_tolerance``, ``eval_every``,
@@ -447,8 +449,10 @@ class Session:
                                  attn_impl=spec.opt("attn_impl", "ref"))
         params = self._serving_params(meta_params, dev, packed=self.policy.packed)
         b = self._local_batch(cell)
-        caches = init_global_caches(model, self.axes, s_max=cell.seq_len, batch_global=b,
-                                    dtype=torch.bfloat16, device=dev,
+        # one shard's caches at b slots (b * dp over the shards)
+        caches = init_global_caches(model, self.axes, s_max=cell.seq_len,
+                                    batch_global=b * self.axes.dp, dtype=torch.bfloat16,
+                                    device=dev,
                                     page_size=None if page_size is None else int(page_size),
                                     pool_pages=spec.opt("pool_pages"))
         batch = {"token": torch.empty((b, 1), dtype=torch.int32, device=dev)}
@@ -732,12 +736,27 @@ class Session:
         capacity: a slot whose cache fills up is stopped and counted in
         ``capacity_stops``.  Prompts are right-padded to power-of-two
         buckets (``vary_prompt`` draws ragged prompt lengths).
+
+        On a ``Dx1`` mesh the batch splits into D data shards as in the
+        reference: shard ``c`` owns slots ``[c*b, (c+1)*b)``, ``b = batch //
+        D`` (a batch that does not divide raises), and runs the prefills and
+        decode steps on its own slots, caches and, on the paged layout, its
+        own whole pool of ``pool_pages`` pages (page ids from the one pager
+        over every slot).  One host scheduler plans over the global batch.
+        In one process the D shards run one after another on the device,
+        the packed weights held whole; under a process group each rank is
+        one shard, holds its FSDP slice of the packed weights (packed leaf by
+        leaf, the codes gathered as bytes at each use), runs every prefill
+        and decode step (a collective skipped would hang the group), and
+        all-gathers its sampled tokens, so every rank's schedule, tokens and
+        :class:`ServeStats` (its clocks apart) are the same; rank 0 prints.
         """
         from repro_torch.core.quantization import default_exempt
+        from repro_torch.dist.sharding import batch_specs, cache_specs, cut_batch, join_batch
         from repro_torch.launch.paging import (SlotPager, kv_cache_bytes, pages_for,
                                                plan_admissions, set_page_tables)
         from repro_torch.launch.steps import (build_cached_prefill, build_decode_step,
-                                              init_global_caches)
+                                              build_init_fn, init_global_caches)
         from repro_torch.models.common import pack_params_for_policy
 
         spec, policy, dev = self.spec, self.policy, self.device
@@ -759,15 +778,24 @@ class Session:
                              f"got {attn_impl!r}")
         impl = "auto" if attn_impl == "ref" else "flash"
 
+        cfg, model, axes = self.cfg, self.model, self.axes
+        ranks = axes.transport is not None      # one shard a process
+        quiet = quiet or self.rank != 0
+
         def say(msg):
             if not quiet:
                 print(msg)
 
-        cfg, model, axes = self.cfg, self.model, self.axes
-        if axes.dp > 1 or axes.transport is not None:
-            raise NotImplementedError(
-                f"serve on mesh {spec.mesh!r}: batch-sharded serving is not ported "
-                "(ROADMAP queue 1, item 8b)")
+        D = axes.dp
+        if batch % D:
+            raise ValueError(
+                f"serve on mesh {spec.mesh!r}: batch {batch} does not divide over its {D} "
+                "data shards (the reference's serve fails there too: its page tables and "
+                "batch inputs do not split into equal shards)")
+        b = batch // D
+        shards = [axes.dp_index()] if ranks else list(range(D))
+        shard_axes = {c: axes if ranks else axes.at_client(c) for c in shards}
+        rows = {c: slice(c * b, (c + 1) * b) for c in shards}
 
         # ---- KV layout ---------------------------------------------------
         kv_layout = o.get("kv_layout") or ("paged" if model.supports_paged_kv
@@ -782,14 +810,21 @@ class Session:
             page_size = next(p for p in (16, 8, 4, 2, 1) if s_max % p == 0)
         page_size = int(page_size)
 
-        params = self.init_params()
-
         # ---- pack to the policy's storage (norm exemptions as in training)
-        raw_bytes = _weight_bytes(params)
-        f32_bytes = sum(w.numel() * 4 for w in params.values())
         serve_bits = policy.serve_bits
-        qparams = pack_params_for_policy(params, policy, exempt=default_exempt)
-        q_bytes = _weight_bytes(qparams)
+
+        def pack(leaves):
+            return pack_params_for_policy(leaves, policy, exempt=default_exempt)
+
+        # the whole model's figures from its shapes; the storage drawn from
+        # spec.seed and packed (under a group leaf by leaf, then sliced:
+        # build_init_fn)
+        whole = model.init(torch.Generator().manual_seed(0), axes.tp, device="meta")
+        raw_bytes = _weight_bytes(whole)
+        f32_bytes = sum(w.numel() * 4 for w in whole.values())
+        q_bytes = _weight_bytes(pack(whole))
+        qparams = build_init_fn(model, axes, device=dev, pack=pack)(
+            torch.Generator(device=dev).manual_seed(spec.seed))
         if policy.packed:
             say(f"params: {raw_bytes/1e6:.1f} MB f32 -> {q_bytes/1e6:.1f} MB "
                 f"packed ({raw_bytes/q_bytes:.2f}x smaller, bits={serve_bits})")
@@ -846,18 +881,42 @@ class Session:
         else:
             pager = None
             cache_kw = {}
-        caches = init_global_caches(model, axes, s_max=s_max, batch_global=batch,
-                                    dtype=policy.kv_cache_dtype(), device=dev,
-                                    **cache_kw)
-        kv_bytes = kv_cache_bytes(caches)
-        kv_bytes_contig = kv_cache_bytes(init_global_caches(
-            model, axes, s_max=s_max, batch_global=batch,
-            dtype=policy.kv_cache_dtype(), device="meta"))
+        # one cache tree a shard (b slots; a paged shard's pool whole)
+        caches = {c: init_global_caches(model, shard_axes[c], s_max=s_max,
+                                        batch_global=batch, dtype=policy.kv_cache_dtype(),
+                                        device=dev, **cache_kw) for c in shards}
 
-        # ---- steps --------------------------------------------------------
-        ss = build_decode_step(model, axes, policy=policy, attn_impl=attn_impl)
-        pf = build_cached_prefill(model, axes, attn_impl=impl, policy=policy, bos_id=BOS_ID)
+        def global_bytes(shard) -> int:
+            """K/V bytes of the reference's global arrays: D shards' trees
+            joined over the batch (one pool, every slot's slab)."""
+            return kv_cache_bytes(join_batch([shard] * D, cache_specs(shard, axes, cfg), axes))
+
+        meta = dict(s_max=s_max, batch_global=batch, dtype=policy.kv_cache_dtype(),
+                    device="meta")
+        shard_meta = init_global_caches(model, axes, **meta, **cache_kw)
+        kv_bytes = global_bytes(shard_meta)
+        kv_bytes_contig = global_bytes(init_global_caches(model, axes, **meta))
+        if D > 1:
+            held = D * kv_cache_bytes(shard_meta)
+            say(f"kv cache: {held/1e6:.2f} MB held over {D} data shards of {b} slots "
+                f"({'a pool' if pager is not None else 'a slab'} each; "
+                f"{kv_bytes/1e6:.2f} MB in the reference's global figure)")
+
+        # ---- steps (one a shard) ------------------------------------------
+        ss = {c: build_decode_step(model, shard_axes[c], policy=policy, attn_impl=attn_impl)
+              for c in shards}
+        pf = {c: build_cached_prefill(model, shard_axes[c], attn_impl=impl, policy=policy,
+                                      bos_id=BOS_ID) for c in shards}
         buckets_used: set = set()
+
+        def shard_tokens(outs: dict) -> np.ndarray:
+            """The global batch's sampled tokens from the shards' ``(b, 1)``:
+            concatenated in one process, all-gathered (int32) under a group."""
+            if ranks:
+                tok = axes.transport.all_gather(outs[shards[0]].to(torch.int32))
+            else:
+                tok = torch.cat([outs[c] for c in shards])
+            return tok.cpu().numpy()             # waits for the device
 
         # the stub frontends' inputs: seeded normal draws on the device, the
         # same every admission (the reference draws them from fixed keys)
@@ -887,8 +946,12 @@ class Session:
         def req_cap(req):
             return min(req["prompt_len"] + req["max_new"], s_max)
 
+        def set_tables():
+            for c in shards:
+                caches[c] = set_page_tables(caches[c], pager.table, rows[c])
+
         def admit():
-            nonlocal caches, cur_tok, admitted, pool_pressure
+            nonlocal cur_tok, admitted, pool_pressure
             free = [i for i in range(batch) if not active[i]]
             fill = []
             if pager is None:
@@ -920,7 +983,7 @@ class Session:
             if not fill:
                 return
             if pager is not None:
-                caches = set_page_tables(caches, pager.table)
+                set_tables()
             new_tok = cur_tok.copy()
             by_bucket: dict[int, list] = {}
             for s, req in fill:
@@ -937,10 +1000,15 @@ class Session:
                 pf_batch = dict(memory_inputs)
                 if needs_tokens:
                     pf_batch["tokens"] = torch.as_tensor(toks, device=dev)
-                tok, caches = pf.fn(qparams, pf_batch,
-                                    caches, torch.as_tensor(mask, device=dev),
-                                    torch.as_tensor(plens, device=dev))
-                tok = tok.cpu().numpy()
+                pf_batch["mask"] = torch.as_tensor(mask, device=dev)
+                pf_batch["plens"] = torch.as_tensor(plens, device=dev)
+                specs = batch_specs(pf_batch, axes)
+                outs = {}
+                for c in shards:                # every shard, its slots masked or not
+                    sb = cut_batch(pf_batch, specs, axes, c)
+                    m, pl = sb.pop("mask"), sb.pop("plens")
+                    outs[c], caches[c] = pf[c].fn(qparams, sb, caches[c], m, pl)
+                tok = shard_tokens(outs)
                 for s, req in group:
                     active[s] = True
                     remaining[s] = req["max_new"]
@@ -956,7 +1024,7 @@ class Session:
         def maybe_demote_kv():
             """f32 -> bf16 pool demotion when paged-KV pressure crosses the
             program's watermark (a one-way ratchet)."""
-            nonlocal caches, kv_bits, kv_demotions
+            nonlocal kv_bits, kv_demotions
             if pager is None or kv_bits <= 16:
                 return
             from repro_torch.api.program import Observation
@@ -965,7 +1033,8 @@ class Session:
             if self.program.kv_demote(obs):
                 from repro_torch.models.attention import demote_kv_cache
 
-                caches = demote_kv_cache(caches, torch.bfloat16)
+                for c in shards:
+                    caches[c] = demote_kv_cache(caches[c], torch.bfloat16)
                 kv_bits = 16
                 kv_demotions += 1
                 say(f"kv cache: pool pressure {pool_pressure:.2f} >= "
@@ -973,10 +1042,11 @@ class Session:
                     "f32 pools to bf16")
 
         def step(tokens):
-            nonlocal caches
-            tok, caches = ss.fn(qparams, {"token": torch.as_tensor(tokens, device=dev)},
-                                caches)
-            out = tok.cpu().numpy()           # waits for the device
+            tok_t = torch.as_tensor(tokens, device=dev)
+            outs = {}
+            for c in shards:                    # every shard, active slots or not
+                outs[c], caches[c] = ss[c].fn(qparams, {"token": tok_t[rows[c]]}, caches[c])
+            out = shard_tokens(outs)
             sampled.extend(int(t) for t in out[active, 0])
             return out
 
@@ -1016,7 +1086,7 @@ class Session:
             if done_any and pager is not None:
                 # cleared table rows make the evicted slots' future writes
                 # drop instead of landing on reclaimed pages
-                caches = set_page_tables(caches, pager.table)
+                set_tables()
             cur_tok = tok_h.copy()            # each slot feeds its own last token
             if done_any and queue:
                 admit()                       # mid-flight slot reuse
@@ -1045,6 +1115,14 @@ class Session:
             kv_bits_final=kv_bits,
             device=dev_name,
         )
+        if ranks:
+            # one scheduler run D times: every rank's stats and tokens must be
+            # rank 0's (the clocks apart)
+            mine = {"stats": {k: v for k, v in vars(stats).items()
+                              if k not in ("wall_s", "tok_s")}, "tokens": sampled}
+            if axes.transport.broadcast_object(mine) != mine:
+                raise RuntimeError(f"serve: rank {self.rank}'s schedule, tokens or stats "
+                                   "differ from rank 0's")
         say(f"decoded {stats.decoded_tokens} tokens over {stats.decode_steps} "
             f"steps x {batch} slots in {wall:.3f}s = {stats.tok_s:.1f} tok/s "
             f"on {dev_name}")

@@ -195,3 +195,63 @@ def cache_specs(caches, axes: AxisCtx, cfg):
         return (None,) if c.ndim == 1 else (None, lead) + (None,) * (c.ndim - 2)
 
     return one(caches)
+
+
+# ---------------------------------------------------------------------------
+# A tree cut into the shards of its batch, and joined back
+# ---------------------------------------------------------------------------
+
+
+def _batch_dims(spec: tuple, lead) -> list[int]:
+    return [i for i, e in enumerate(spec) if lead is not None and e == lead]
+
+
+def _walk(tree, specs, leaf_fn):
+    """``leaf_fn(tensor_or_list, spec)`` over a tree (dict, NamedTuple, bare
+    tensor) and its specs in the same structure; ``tree`` may also be a list
+    of such trees (one a shard), walked in step."""
+    many = isinstance(tree, list)
+    first = tree[0] if many else tree
+    if isinstance(first, dict):
+        return {k: _walk([t[k] for t in tree] if many else tree[k], specs[k], leaf_fn)
+                for k in first}
+    if isinstance(first, tuple):
+        fields = zip(*tree) if many else tree
+        return type(first)(*(_walk(list(f) if many else f, s, leaf_fn)
+                             for f, s in zip(fields, specs)))
+    return leaf_fn(tree, specs)
+
+
+def cut_batch(tree, specs, axes: AxisCtx, shard: int):
+    """Shard ``shard``'s piece of a cache tree or batch dict laid out by
+    ``specs`` (:func:`cache_specs`, :func:`batch_specs`): each dim whose
+    entry is the batch axes' is narrowed to the shard's ``n / axes.dp``
+    rows; a leaf without one (a paged pool) is the shard's whole."""
+    lead = _batch_entry(axes)
+
+    def one(t, spec):
+        for d in _batch_dims(spec, lead):
+            n = t.shape[d] // axes.dp
+            t = t.narrow(d, shard * n, n)
+        return t
+
+    return _walk(tree, specs, one)
+
+
+def join_batch(trees: list, specs, axes: AxisCtx):
+    """The global tree of the shards' pieces ``trees`` (shard order): each
+    batch dim concatenated; a leaf without one taken from shard 0, as the
+    reference's global array of a replicated leaf reads its first shard."""
+    import torch
+
+    lead = _batch_entry(axes)
+
+    def one(ts, spec):
+        dims = _batch_dims(spec, lead)
+        if not dims:
+            return ts[0]
+        if len(dims) > 1:
+            raise ValueError(f"spec {spec} splits more than one dim over the batch axes")
+        return torch.cat(ts, dim=dims[0])
+
+    return _walk(trees, specs, one)

@@ -13,6 +13,7 @@ raises (tensor parallelism is not ported).
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 import torch
@@ -128,3 +129,24 @@ def init_distributed(backend: str | None = None, device: str | None = None, *,
         dist.init_process_group(backend, init_method=init_method or "env://",
                                 rank=int(os.environ["RANK"]), world_size=world, **kw)
     return dev
+
+
+@contextlib.contextmanager
+def cli_device(backend: str | None, device: str | None, *, share_device: bool = False):
+    """The device a CLI runs on: ``device`` outside torchrun (where
+    ``backend`` and ``share_device`` are refused), else this rank's, the
+    process group joined for the block (:func:`init_distributed`) and
+    destroyed after it."""
+    if launched_ranks() is None:
+        if backend or share_device:
+            raise ValueError("--backend and --share-device apply to the ranks torchrun starts "
+                             "(WORLD_SIZE is not set)")
+        yield device
+        return
+    import torch.distributed as dist
+
+    dev = init_distributed(backend, device, share_device=share_device)
+    try:
+        yield dev
+    finally:
+        dist.destroy_process_group()

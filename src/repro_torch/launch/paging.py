@@ -166,21 +166,27 @@ class SlotPager:
         return int(pages.size)
 
 
-def set_page_tables(caches, table: np.ndarray):
+def set_page_tables(caches, table: np.ndarray, rows: slice | None = None):
     """Push a host page table into every :class:`PagedKVCache` of a cache
     tree (one cache, or a hybrid's dict of caches).
 
     ``table``: (B, n_pmax) int32 — copied to the device and broadcast over
     each cache's layer-stack dim (every layer's pool is indexed by the same
-    logical table).  Other caches pass through.
+    logical table).  ``rows``: the slots of one data shard's caches (shard
+    ``c`` of a ``Dx1`` mesh owns ``slice(c * b, (c + 1) * b)``); its page
+    ids, from the one pager over every slot, index the shard's own pool.
+    Other caches pass through.
     """
     from repro_torch.models.attention import PagedKVCache
 
     if isinstance(caches, dict):
-        return {k: set_page_tables(c, table) for k, c in caches.items()}
+        return {k: set_page_tables(c, table, rows) for k, c in caches.items()}
     if not isinstance(caches, PagedKVCache):
         return caches
-    pt = torch.as_tensor(np.asarray(table, np.int32)).to(caches.page_table.device)
+    table = np.asarray(table, np.int32)
+    if rows is not None:
+        table = table[rows]
+    pt = torch.as_tensor(table).to(caches.page_table.device)
     return caches._replace(page_table=pt[None].expand(caches.page_table.shape))
 
 

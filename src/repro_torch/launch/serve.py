@@ -9,6 +9,20 @@ flash-attention kernel and paged decode the flash-decode kernel
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b \
         --batch 4 --s-max 256 --prompt-len 128 --attn-impl flash --device cuda
+
+``--mesh Dx1`` splits the batch into D data shards, each on its own slots,
+caches and page pool; in one process they run one after another on the
+device.  Launched by torchrun, each of the D processes is one shard: it
+holds its FSDP slice of the packed weights, every rank runs the one host
+scheduler, the sampled tokens are all-gathered, and rank 0 prints.
+``--backend`` is ``nccl`` on CUDA (one card a rank) and ``gloo`` on the CPU;
+``--share-device`` puts every rank on ``cuda:0`` and needs ``gloo``::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --mesh 2x1 \
+        --arch yi-6b --smoke --steps 24 --batch 4 --s-max 32 --attn-impl flash
+    PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 2 \
+        -m repro_torch.launch.serve --device cpu --backend gloo --mesh 2x1 \
+        --arch yi-6b --smoke --steps 24 --batch 4 --s-max 32 --attn-impl flash
 """
 
 from __future__ import annotations
@@ -21,14 +35,14 @@ from repro_torch.api.session import BOS_ID, ServeStats  # noqa: F401  (re-export
 
 def run_serve(arch: str, *, smoke: bool = True, steps: int = 32, batch: int = 4,
               s_max: int = 64, prompt_len: int = 8, serve_bits: int = 7,
-              attn_impl: str = "ref", seed: int = 0,
+              attn_impl: str = "ref", mesh: str = "1x1", seed: int = 0,
               requests: int | None = None, max_new: int | None = None,
               kv_layout: str | None = None, page_size: int | None = None,
               pool_pages: int | None = None, vary_prompt: bool = False,
               precision_program=None, kv_bits: int = 32,
               quiet: bool = False, device=None) -> ServeStats:
     """Builds a RunSpec and drives ``Session.serve`` on ``device`` (CUDA by
-    default).
+    default) over ``mesh`` (``Dx1``: D data shards of ``batch // D`` slots).
 
     ``serve_bits >= 32`` serves raw f32 weights; ``< 32`` maps to a lazy
     packed :class:`~repro_torch.api.PrecisionPolicy` (int8/int16 ``QTensor``
@@ -54,8 +68,8 @@ def run_serve(arch: str, *, smoke: bool = True, steps: int = 32, batch: int = 4,
         options["vary_prompt"] = True
     if precision_program is not None:
         options["precision_program"] = precision_program
-    spec = RunSpec(arch=arch, workload="serve", smoke=smoke, seed=seed, batch=batch,
-                   seq=s_max, precision=precision, options=options)
+    spec = RunSpec(arch=arch, workload="serve", mesh=mesh, smoke=smoke, seed=seed,
+                   batch=batch, seq=s_max, precision=precision, options=options)
     return Session(spec, device=device).serve()
 
 
@@ -72,6 +86,8 @@ def main(argv=None):
                     "8..15: int16, >=32: f32 baseline)")
     ap.add_argument("--attn-impl", choices=("ref", "flash"), default="ref",
                     help="attention: plain PyTorch reference or the flash kernels")
+    ap.add_argument("--mesh", default="1x1",
+                    help="DATAx1: the batch in D data shards (one a rank under torchrun)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--requests", type=int, default=None,
                     help="queue size (default 2x batch)")
@@ -92,21 +108,30 @@ def main(argv=None):
     ap.add_argument("--precision-program", default="",
                     help="adaptive precision controller (kind name or JSON "
                     "config), e.g. '{\"kind\": \"constant\", \"kv_watermark\": 0.9}'")
-    ap.add_argument("--device", default="cuda",
-                    help="torch device: cuda (default; raises without a card) or cpu")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; raises without a card) or cpu; under "
+                         "torchrun 'cpu' or the rank's card")
+    ap.add_argument("--backend", default=None, choices=["nccl", "gloo"],
+                    help="torchrun only: the process group's backend (default: nccl on "
+                         "CUDA, gloo on the CPU)")
+    ap.add_argument("--share-device", action="store_true",
+                    help="torchrun only: every rank on cuda:0 (needs --backend gloo)")
     args = ap.parse_args(argv)
     program = None
     if args.precision_program:
         pp = args.precision_program
         program = json.loads(pp) if pp.lstrip().startswith("{") else pp
-    return run_serve(
-        args.arch, smoke=args.smoke, steps=args.steps, batch=args.batch,
-        s_max=args.s_max, prompt_len=args.prompt_len,
-        serve_bits=args.serve_bits, attn_impl=args.attn_impl,
-        seed=args.seed, requests=args.requests, max_new=args.max_new,
-        kv_layout=args.kv_layout, page_size=args.page_size,
-        pool_pages=args.pool_pages, vary_prompt=args.vary_prompt,
-        precision_program=program, kv_bits=args.kv_bits, device=args.device)
+    from repro_torch.launch.mesh import cli_device
+
+    with cli_device(args.backend, args.device, share_device=args.share_device) as device:
+        return run_serve(
+            args.arch, smoke=args.smoke, steps=args.steps, batch=args.batch,
+            s_max=args.s_max, prompt_len=args.prompt_len,
+            serve_bits=args.serve_bits, attn_impl=args.attn_impl, mesh=args.mesh,
+            seed=args.seed, requests=args.requests, max_new=args.max_new,
+            kv_layout=args.kv_layout, page_size=args.page_size,
+            pool_pages=args.pool_pages, vary_prompt=args.vary_prompt,
+            precision_program=program, kv_bits=args.kv_bits, device=device)
 
 
 if __name__ == "__main__":

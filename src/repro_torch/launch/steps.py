@@ -209,7 +209,7 @@ def build_train_step(model: Model, axes: AxisCtx, opt: Optimizer,
     return TrainStep(fn=fn, batch_spec_fn=model.train_batch_spec, n_clients=D)
 
 
-def build_init_fn(model: Model, axes: AxisCtx, *, device=None):
+def build_init_fn(model: Model, axes: AxisCtx, *, device=None, pack=None):
     """``init(generator) -> params``: this rank's storage of the one-process
     init from ``generator`` — its FSDP shard of every FSDP leaf, every
     replicated leaf whole (the one-process init itself without a group).
@@ -218,13 +218,18 @@ def build_init_fn(model: Model, axes: AxisCtx, *, device=None):
     are slices of exactly the one-process leaves; each leaf is sliced as
     soon as it is drawn (:func:`repro_torch.models.common.sharded_init`),
     so a rank holds one whole leaf at a time, never the whole model.
+    ``pack(leaves) -> leaves`` (serving's
+    :func:`~repro_torch.models.common.pack_params_for_policy`) turns each
+    whole leaf into its storage before it is sliced: leaf by leaf, so a
+    rank's codes and scales are the one-process packing's, sliced.
     """
     def init(generator: torch.Generator) -> dict:
         if axes.transport is None or axes.fsdp == 1:
-            return model.init(generator, axes.tp, device=device)
+            params = model.init(generator, axes.tp, device=device)
+            return params if pack is None else pack(params)
         return common.sharded_init(
             lambda meta: model.init(torch.Generator().manual_seed(0) if meta else generator,
-                                    axes.tp, device="meta" if meta else device), axes)
+                                    axes.tp, device="meta" if meta else device), axes, pack)
 
     return init
 
@@ -269,21 +274,29 @@ def _cache_kwargs(page_size, pool_pages) -> dict:
 def init_global_caches(model: Model, axes: AxisCtx, *, s_max: int, batch_global: int,
                        dtype=torch.float32, device=None, page_size: int | None = None,
                        pool_pages: int | None = None):
-    """Allocate the decode caches of a launch (one device: global == local).
+    """Allocate one data shard's decode caches: ``batch_global // axes.dp``
+    slots (the reference's ``b_local``), and on the paged layout a whole pool
+    of ``pool_pages`` pages (the pool has no batch entry in
+    :func:`~repro_torch.dist.sharding.cache_specs`: each shard keeps its own).
+    On a ``1x1`` mesh this is the launch's whole cache.
 
     ``page_size``/``pool_pages`` select the paged KV layout; its page tables
     start all-unallocated (-1), everything else zeroed.  ``device="meta"``
     gives the shapes without allocating.
     """
-    return model.init_caches(batch_global, s_max, axes.tp, dtype=dtype, device=device,
-                             **_cache_kwargs(page_size, pool_pages))
+    return model.init_caches(batch_global // max(axes.dp, 1), s_max, axes.tp, dtype=dtype,
+                             device=device, **_cache_kwargs(page_size, pool_pages))
 
 
 def build_decode_step(model: Model, axes: AxisCtx, *, policy=None,
                       attn_impl: str = "ref") -> ServeStep:
-    """One-token decode step with greedy sampling.
+    """One-token decode step with greedy sampling, run by one data shard.
 
-    ``fn(params, {"token": (B, 1)}, caches) -> (next (B, 1) int32, caches)``.
+    ``fn(params, {"token": (B, 1)}, caches) -> (next (B, 1) int32, caches)``
+    over the shard's ``B`` slots and caches (:func:`init_global_caches`).
+    ``axes`` is the shard's: on a ``Dx1`` mesh in one process
+    ``axes.at_client(c)`` (no transport), under a group the rank's own,
+    whose FSDP-stored weights :meth:`ParamCtx.use` gathers at each use.
     With ``policy.lazy``, packed ``QTensor`` weights stay int8 through the
     projections (``quant_matmul``); ``attn_impl="flash"`` routes paged
     decode attention through the flash-decode kernel.
@@ -304,7 +317,8 @@ def build_decode_step(model: Model, axes: AxisCtx, *, policy=None,
 
 def build_cached_prefill(model: Model, axes: AxisCtx, *, attn_impl: str = "auto",
                          policy=None, bos_id: int = 1) -> ServeStep:
-    """Prefill-into-slots step for continuous batching.
+    """Prefill-into-slots step for continuous batching, run by one data shard
+    (its ``B`` slots and caches; ``axes`` as in :func:`build_decode_step`).
 
     ``fn(params, batch, caches, slot_mask, prompt_lens=None) ->
     (first_token (B, 1), merged_caches)``: runs the model's prefill over a

@@ -64,16 +64,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     from repro_torch.api import PrecisionPolicy, RunSpec, Session
-    from repro_torch.launch.mesh import init_distributed, launched_ranks
+    from repro_torch.launch.mesh import cli_device
 
     logging.basicConfig(level=logging.INFO)
-    device = args.device
-    ranks = launched_ranks()
-    if ranks is None and (args.backend or args.share_device):
-        raise ValueError("--backend and --share-device apply to the ranks torchrun starts "
-                         "(WORLD_SIZE is not set)")
-    if ranks is not None:
-        device = init_distributed(args.backend, args.device, share_device=args.share_device)
     comm = args.grad_compression_bits or 32
     if args.scheme == "fixed":
         workload = "train"
@@ -87,14 +80,8 @@ def main(argv=None):
         precision=precision,
         options={"scheme": args.scheme, "lr": args.lr,
                  "ckpt_dir": args.ckpt_dir, "out": args.out})
-    if ranks is None:
+    with cli_device(args.backend, args.device, share_device=args.share_device) as device:
         return Session(spec, device=device).run()
-    import torch.distributed as dist
-
-    try:
-        return Session(spec, device=device).run()
-    finally:
-        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -182,7 +182,7 @@ def fsdp_plan(params: dict, fsdp: int, *, check_divisibility: bool = True):
     return paths, leaves, plan
 
 
-def sharded_init(init, ctx: AxisCtx) -> dict:
+def sharded_init(init, ctx: AxisCtx, pack=None) -> dict:
     """Rank ``ctx.dp_index()``'s storage of a model's init, each FSDP leaf
     sliced as soon as it is drawn.
 
@@ -192,7 +192,13 @@ def sharded_init(init, ctx: AxisCtx) -> dict:
     draw of :func:`init_dense` / :func:`init_embed` that becomes an FSDP
     leaf is sliced to the rank's piece before the next draw, so a rank holds
     one whole leaf at a time; a leaf drawn another way is sliced once the
-    init returns."""
+    init returns.
+
+    ``pack(leaves) -> leaves`` (serving's :func:`pack_params_for_policy`)
+    turns each whole leaf into its storage before it is sliced, so a rank's
+    codes are the one-process codes sliced (the scale is the whole leaf's)."""
+    def keep(path, w, dim):
+        return shard_leaf(w if pack is None else pack({path: w})[path], dim, ctx)
     drawn: list = []
     _INIT_HOOK[0] = lambda w: drawn.append(w) or w
     try:
@@ -211,7 +217,7 @@ def sharded_init(init, ctx: AxisCtx) -> dict:
         path = next(at)
         if path is not None and dims[path] is not None:
             done.add(path)
-            return shard_leaf(w, dims[path], ctx)
+            return keep(path, w, dims[path])
         return w
 
     _INIT_HOOK[0] = hook
@@ -219,7 +225,11 @@ def sharded_init(init, ctx: AxisCtx) -> dict:
         params = init(False)
     finally:
         _INIT_HOOK[0] = None
-    return {p: w if p in done else shard_leaf(w, dims[p], ctx) for p, w in params.items()}
+    out = {}
+    for p in list(params):          # popped: a leaf is freed once kept
+        w = params.pop(p)
+        out[p] = w if p in done else keep(p, w, dims[p])
+    return out
 
 
 def apply_fsdp_sharding(params: dict, ctx: AxisCtx) -> dict:

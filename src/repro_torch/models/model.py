@@ -22,6 +22,7 @@ seeds decoding with BOS.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable
 
 import torch
@@ -57,6 +58,23 @@ class Model:
     # whether init_caches understands page_size/pool_pages (families whose
     # decode state grows per token; SSM state is O(1): nothing to page)
     supports_paged_kv: bool = False
+
+
+def count_passes(model: Model, passes: dict, ticks: list | None = None) -> Model:
+    """``model`` with each call of its ``prefill`` and ``decode_step`` added
+    to ``passes["prefill"]`` / ``passes["decode"]`` (a data shard's call is
+    one) and, where ``ticks`` is given, each decode call's start on the host
+    clock (``time.perf_counter``) appended to it."""
+    def counted(fn, kind):
+        def call(*a, **kw):
+            passes[kind] += 1
+            if ticks is not None and kind == "decode":
+                ticks.append(time.perf_counter())
+            return fn(*a, **kw)
+        return call
+
+    return dataclasses.replace(model, prefill=counted(model.prefill, "prefill"),
+                               decode_step=counted(model.decode_step, "decode"))
 
 
 def build_model(cfg: ModelConfig) -> Model:

@@ -3,7 +3,7 @@
 Continuous batching of yi-6b at its smoke size with int8-packed weights
 (``lazy_int8(7)``), at the sizes of ``test_serving.py``'s packed driver test
 (batch 2, s_max 32, prompt_len 8, 4 requests, max_new 6, 24 steps).  The
-port's ``init_params`` is replaced by the reference's parameters carried
+port's model init is replaced by the reference's parameters carried
 across with ``convert.params_from_jax``; everything the driver counts and
 the greedy sample must then be equal.
 """
@@ -19,6 +19,7 @@ from repro.api import Session as JSession
 from repro_torch.api import PrecisionPolicy, RunSpec, Session
 from repro_torch.launch import serve as tserve
 from repro_torch.models.convert import params_from_jax
+from torch_dist_worker import fixed_init
 
 EQUAL_FIELDS = ("admitted", "completed", "decoded_tokens", "decode_steps",
                 "capacity_stops", "deferred_admissions", "prompt_buckets",
@@ -45,7 +46,7 @@ def _serve_both(options: dict):
     tsess = Session(RunSpec(precision=PrecisionPolicy.lazy_int8(7), options=options,
                             **common), device="cpu")
     tparams = params_from_jax(jparams)
-    tsess.init_params = lambda generator=None: dict(tparams)
+    tsess.model = dataclasses.replace(tsess.model, init=fixed_init(tparams))
     return tsess.serve(), want
 
 
@@ -89,6 +90,6 @@ def test_unported_workloads_raise():
     spec = RunSpec("yi-6b", workload="dryrun", mesh="16x16", options={"shape": "train_4k"})
     with pytest.raises(NotImplementedError, match="items 9 and 14"):
         Session(spec, device="cpu").run()
-    for mesh in ("2x1", "1x2"):                 # batch-sharded serving, tp > 1
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Session(RunSpec("yi-6b", workload="serve", mesh=mesh), device="cpu").serve()
+    # tp > 1 (a 2x1 mesh serves: tests/test_torch_serve_sharded.py)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Session(RunSpec("yi-6b", workload="serve", mesh="1x2"), device="cpu").serve()

@@ -199,7 +199,70 @@ def task_packed_gather(t: dict, rank: int) -> dict:
     return {}
 
 
-TASKS = {"step": task_step, "packed_gather": task_packed_gather, "init": task_init, "wire": task_wire,
+def fixed_init(whole: dict):
+    """A model init that draws nothing and returns copies of ``whole`` (on
+    the meta device, their shapes): ``Session.serve`` then packs, and under
+    a group slices, exactly these parameters."""
+    def init(gen, tp, device=None):
+        if device == "meta":
+            return {k: torch.empty_like(v, device="meta") for k, v in whole.items()}
+        return {k: v.clone() for k, v in whole.items()}
+    return init
+
+
+def task_serve(t: dict, rank: int) -> dict:
+    """``Session.serve`` of ``t["arch"]`` (smoke size, lazy int8) on mesh
+    ``t["mesh"]`` under the group, from the whole parameters of ``t["data"]``:
+    the model's init is replaced by them, so each rank packs them leaf by
+    leaf and keeps its slice.  The stats (clocks apart), the sampled
+    tokens, the transport's counts and the prefills and decode steps run."""
+    from repro_torch.api import PrecisionPolicy, RunSpec, Session
+    from repro_torch.models.model import count_passes
+
+    whole = {k: torch.from_numpy(v) for k, v in np.load(t["data"]).items()}
+    sess = Session(RunSpec(t["arch"], workload="serve", mesh=t["mesh"], smoke=True, seed=0,
+                           batch=t["batch"], seq=t["options"]["s_max"],
+                           precision=PrecisionPolicy.lazy_int8(7), options=t["options"]),
+                   device="cpu")
+    passes = {"prefill": 0, "decode": 0}
+    sess.model = count_passes(dataclasses.replace(sess.model, init=fixed_init(whole)), passes)
+    stats = sess.serve()
+    return {"stats": {k: v for k, v in vars(stats).items() if k not in ("wall_s", "tok_s")},
+            "tokens": sess.last_tokens, "passes": passes,
+            "issued": sess.axes.transport.report()["issued"],
+            "staged": sess.axes.transport.report()["staged"]}
+
+
+def task_pack(t: dict, rank: int) -> dict:
+    """The serving storage of ``t["arch"]`` (smoke size, widened to
+    ``t["d_model"]``) drawn from seed ``t["seed"]`` and packed leaf by leaf
+    under the group (``build_init_fn(..., pack=...)``): the rank's codes and
+    scales to ``t["save"]`` with ``{rank}`` filled in."""
+    from repro_torch.api import PrecisionPolicy
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.core.quantization import default_exempt
+    from repro_torch.launch.mesh import axis_ctx_for
+    from repro_torch.launch.steps import build_init_fn
+    from repro_torch.models.common import QTensor, pack_params_for_policy
+    from repro_torch.models.model import build_model
+
+    axes = axis_ctx_for(t["mesh"], group="default")
+    cfg = dataclasses.replace(smoke_variant(get_config(t["arch"])), d_model=t["d_model"])
+    policy = PrecisionPolicy.lazy_int8(t["bits"])
+    local = build_init_fn(build_model(cfg), axes, pack=lambda p: pack_params_for_policy(
+        p, policy, exempt=default_exempt))(torch.Generator().manual_seed(t["seed"]))
+    out = {}
+    for path, w in local.items():
+        if isinstance(w, QTensor):
+            out[f"codes:{path}"], out[f"scale:{path}"] = w.codes.numpy(), w.scale.numpy()
+        else:
+            out[f"dense:{path}"] = w.numpy()
+    np.savez(t["save"].format(rank=rank), **out)
+    return {}
+
+
+TASKS = {"step": task_step, "serve": task_serve, "pack": task_pack,
+         "packed_gather": task_packed_gather, "init": task_init, "wire": task_wire,
          "comm_report": task_comm_report}
 
 
