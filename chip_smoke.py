@@ -61,7 +61,13 @@ Phases (each one failing stops the script with a nonzero exit):
    16, G 1, hd 64), llama-3.2-vision's (KV 8, G 8, hd 128) and a long
    context (n_pmax 256, ~4,000 tokens a slot) and a yi-6b shard's one slot
    (B 1), each with its block count
-   from ``plan_decode``.
+   from ``plan_decode``.  Phase serve_tp's per-rank shapes too: K3 at the
+   projections of yi-6b and glm4-9b on one of 4 model shards, in bf16 at
+   the serves' M 4 (decode) and M 512 (prefill) and in f32 at the
+   step-level runs' M 4 and M 800; K4 at BH 4 x 8, D 128, S 128 in bf16
+   (the yi-6b shard row's shape) and S 200 in f32; K5 at yi-6b's one KV
+   head a shard and at glm4-9b's sequence shard (KV 2, G 16, n_pmax 4, a
+   slot of local length 0).
 4. serve: ``Session.serve`` of full-width, full-depth yi-6b, then of
    gemma-7b (head dim 256), olmoe-1b-7b (64 experts, top-8) and mamba2-780m
    (48 SSM layers), of the smoke-size jamba (the hybrid), of seamless-m4t
@@ -199,6 +205,29 @@ Phases (each one failing stops the script with a nonzero exit):
     collectives, host ms a step, tok/s and peak.  Last, one rank over NCCL
     at 1x1, full depth, max_new 16, whose tokens and stats must equal the
     plain 1x1 serve's.
+
+14. serve_tp: tensor-parallel serving (``Session.serve`` on a ``1x4`` mesh,
+    one model shard a rank).  ``torch.distributed.run`` starts 4 ranks of
+    this script sharing the card over gloo (NCCL refuses two ranks on one
+    GPU).  yi-6b at full width and depth at phase serve's configuration
+    (max_new 16), its 4 KV heads split (paged, K5), then glm4-9b at full
+    width, depth cut to ``SERVE_TP_GLM_LAYERS`` (8 of 40) for the time
+    limit, max_new 16, its 2 KV heads replicated: the sequence-parallel
+    cache, served contiguous as the driver does by default.  Every rank's
+    tokens and ``ServeStats`` (clocks apart) equal; K3, K4 and K5 launched
+    exactly ``expected_launches`` a pass on every rank; a rank's model-group
+    collectives exactly ``tp_collectives``' by kind, dtype, calls and bytes
+    (the row-parallel sums, the pick's max and min, the sequence-parallel
+    merge); nothing staged; tok/s, host ms a step and peak a rank.  Then the
+    step-level runs at full width, 4 layers, f32: yi-6b and glm4-9b on the
+    contiguous cache, the 4 shards' gathered logits (a prefill and 4 decode
+    steps) within ``SERVE_TP_1X1_TOL`` of the same seed's 1x1 model through
+    the plain versions (rank 0 runs it); glm4-9b also paged with per-shard
+    page tables: the gathered view equals the contiguous cache bit for bit,
+    K5 on each rank's pool with the partials merged within
+    ``SERVE_TP_PAGED_RTOL`` of the logits' largest magnitude; a slot inside
+    shard 0's positions (the other shards' K5 at local length 0) and one
+    crossing ``s_max / 4``.
 
 Each phase prints its own time.  The last two lines are the kernel table
 and ``{"ok": true, "device": ...}``.
@@ -595,7 +624,10 @@ def sdpa_ms(q, k, v, causal: bool) -> tuple[float, str]:
 #: consistency runs it) and llama-3.2-vision's prefill (64 heads x 4 slots
 #: at a 64-token bucket, D 128, causal); yi-6b as one data shard of phase
 #: serve_dist's 4x1 mesh prefills it (32 heads x 1 slot, D 128, at its 64-
-#: and 128-token buckets, bf16).
+#: and 128-token buckets, bf16), and one model shard of phase serve_tp's
+#: 1x4 mesh (8 of 32 heads x 4 slots, D 128) as its serves prefill (the
+#: 128-token bucket, bf16) and its step-level runs (prompts padded to 200
+#: tokens, f32).
 ATTN_CASES = ([(16, 16, S, (torch.float32, torch.bfloat16)) for S in (16, 11)]
               + [(64, 64, 256, (torch.float32, torch.bfloat16)), (256, 128, 64, (torch.bfloat16,))]
               + [(128, D, S, (torch.float32, torch.bfloat16)) for D in (16, 32, 128)
@@ -604,7 +636,8 @@ ATTN_CASES = ([(16, 16, S, (torch.float32, torch.bfloat16)) for S in (16, 11)]
                  for S in (100, 128, 513)]
               + [(64, 256, S, (torch.float32,) + ((torch.bfloat16,) if S == 128 else ()))
                  for S in (100, 128, 513)]
-              + [(32, 128, S, (torch.bfloat16,)) for S in (64, 128)])
+              + [(32, 128, S, (torch.bfloat16,)) for S in (64, 128)]
+              + [(32, 128, 200, (torch.float32,))])
 #: The path each type takes (kernels/flash_attention.plan_attention).
 ATTN_PATH_OF = {torch.bfloat16: "wgmma", torch.float32: "wgmma_split"}
 
@@ -781,7 +814,11 @@ def decode_case(q_dtype, pool_dtype, gen, *, KV=4, G=8, hd=128, page=16, n_pmax=
 #: (its f32 q as phase consistency runs it) and llama-3.2-vision at s_max 256; the
 #: long context at ~4,000 tokens a slot (~65 MB of f32 pages), timed over two
 #: copies so that it streams from device memory rather than the 50 MB L2;
-#: yi-6b's one slot as a data shard of phase serve_dist's 4x1 mesh decodes it.
+#: yi-6b's one slot as a data shard of phase serve_dist's 4x1 mesh decodes it;
+#: phase serve_tp's ranks: yi-6b's one KV head a model shard (4 slots), and
+#: glm4-9b's sequence shard of 64 positions (4 pages) with all 32 q heads
+#: gathered (G 16), in f32 as its step-level run decodes, a slot of local
+#: length 0 (no position on the shard) among them.
 DECODE_CASES = (
     [("yi-6b", {}, (qd, pd), 1) for qd in (torch.float32, torch.bfloat16)
      for pd in (torch.float32, torch.bfloat16)]
@@ -794,7 +831,11 @@ DECODE_CASES = (
     + [("llama-3.2-vision", dict(KV=8, G=8, hd=128), (torch.bfloat16, torch.float32), 1)]
     + [("long context", dict(n_pmax=256, lengths=(4093, 4000, 3950, 4067)),
         (torch.bfloat16, torch.float32), 2)]
-    + [("yi-6b one shard", dict(lengths=(150,)), (torch.bfloat16, torch.float32), 1)])
+    + [("yi-6b one shard", dict(lengths=(150,)), (torch.bfloat16, torch.float32), 1)]
+    + [("yi-6b one of 4 model shards", dict(KV=1, G=8, lengths=(150, 140, 131, 129)),
+        (torch.bfloat16, torch.float32), 1)]
+    + [("glm4-9b one of 4 sequence shards", dict(KV=2, G=16, n_pmax=4, lengths=(24, 0, 64, 2)),
+        (torch.float32, torch.float32), 1)])
 
 
 def check_flash_decode(table: dict) -> None:
@@ -1655,6 +1696,41 @@ K3_MODEL_SHAPES += tuple(
     for kind, Ms in (("decode", (1,)), ("prefill", (64, 128))) for M in Ms
     for proj, K, N, n in (("wq/wo", 4096, 4096, 64), ("wk/wv", 4096, 512, 64),
                           ("up/gate", 4096, 11008, 64), ("down", 11008, 4096, 32)))
+#: glm4-9b's depth in phase serve_tp's serve: 8 of its 40 layers, cut for the
+#: script's time limit (each layer's 81 bf16 all-reduces of a 4-slot,
+#: 128-token prefill go through the host over gloo)
+SERVE_TP_GLM_LAYERS = 8
+#: One model shard of phase serve_tp's 1x4 mesh, yi-6b and glm4-9b at full
+#: width: the column-parallel wq, up and gate and the vocab at a quarter of
+#: their outputs, the row-parallel wo and down at a quarter of their inputs;
+#: yi-6b's 4 KV heads split (one a shard), glm4-9b's 2 replicated (wk/wv
+#: whole).  In bf16 as the serves run them: a 4-slot decode step (M 4) and a
+#: prefill of 4 slots in the 128-token bucket (M 512; the unembed reads the
+#: last positions, M 4), launches a decode step's or a prefill's on one rank
+#: at the served depth (yi-6b 32 layers, glm4-9b ``SERVE_TP_GLM_LAYERS``).
+#: In f32 as the step-level runs take them (``SERVE_TP_STEPS``: 4 layers,
+#: prompts padded to 200 tokens): M 4 a decode step, M 800 the prefill,
+#: launches a pass's on one rank.
+_TP_SHARD_PROJ = {
+    "yi-6b": (("wq", 4096, 1024, 1), ("wk/wv", 4096, 128, 2), ("wo", 1024, 4096, 1),
+              ("up/gate", 4096, 2752, 2), ("down", 2752, 4096, 1)),
+    "glm4-9b": (("wq", 4096, 1024, 1), ("wk/wv", 4096, 256, 2), ("wo", 1024, 4096, 1),
+                ("up/gate", 4096, 3424, 2), ("down", 3424, 4096, 1))}
+_TP_VOCAB_LOCAL = {"yi-6b": 16000, "glm4-9b": 37888}
+_TP_SERVED_LAYERS = {"yi-6b": 32, "glm4-9b": SERVE_TP_GLM_LAYERS}
+K3_MODEL_SHAPES += tuple(
+    (arch, f"{proj}, one of 4 model shards' {kind}", M, K, N, _BF16, a_layer * L)
+    for arch, rows in _TP_SHARD_PROJ.items() for L in (_TP_SERVED_LAYERS[arch],)
+    for kind, M in (("decode", 4), ("prefill", 512)) for proj, K, N, a_layer in rows)
+K3_MODEL_SHAPES += tuple(
+    (arch, f"{proj}, one of 4 model shards' step-level {kind}", M, K, N, (torch.float32,),
+     a_layer * 4)
+    for arch, rows in _TP_SHARD_PROJ.items()
+    for kind, M in (("decode", 4), ("prefill", 800)) for proj, K, N, a_layer in rows)
+K3_MODEL_SHAPES += tuple(
+    (arch, f"unembed, one of 4 model shards{step}", 4, 4096, _TP_VOCAB_LOCAL[arch], dtypes, 1)
+    for arch in _TP_SHARD_PROJ
+    for step, dtypes in (("", _BF16), (" step-level", (torch.float32,))))
 
 
 def check_quant_matmul_models() -> None:
@@ -3153,6 +3229,10 @@ def dist_worker(job_path: str) -> None:
         serve_dist_rank(job, dev, rank)
         dist.destroy_process_group()
         return
+    if "serve_tp" in job:
+        serve_tp_rank(job, dev, rank)
+        dist.destroy_process_group()
+        return
     out = {"rank": rank, "device": str(dev), "backend": job["backend"], "runs": []}
     fl_round = Session.fl_round
     from repro_torch.ckpt import checkpoint as ckpt
@@ -3355,18 +3435,21 @@ SERVE_DIST_OPTIONS = {**SERVE_RUNS["yi-6b"]["options"], "attn_impl": "flash",
                       "quiet": True}
 
 
-def _serve_dist_session(device: str, mesh: str, layers: int | None = None, **options):
-    """Full-width yi-6b served at phase serve_dist's options on ``mesh``
-    (depth cut to ``layers``), its model's prefills and decode steps counted
-    (a shard's call is one) and each decode call's host clock kept."""
+def _serve_dist_session(device: str, mesh: str, layers: int | None = None, *,
+                        arch: str = "yi-6b", base_options=None, **options):
+    """Full-width ``arch`` served at ``base_options`` (default: phase
+    serve_dist's) updated by ``options`` on ``mesh`` (depth cut to
+    ``layers``), its model's prefills and decode steps counted (a shard's
+    call is one) and each decode call's host clock kept."""
     import dataclasses
 
     from repro_torch.api import PrecisionPolicy, RunSpec, Session
     from repro_torch.models.model import count_passes
 
-    spec = RunSpec("yi-6b", workload="serve", mesh=mesh, smoke=False, seed=0, batch=4,
+    spec = RunSpec(arch, workload="serve", mesh=mesh, smoke=False, seed=0, batch=4,
                    seq=256, precision=PrecisionPolicy.lazy_int8(7),
-                   options={**SERVE_DIST_OPTIONS, **options})
+                   options={**(SERVE_DIST_OPTIONS if base_options is None else base_options),
+                            **options})
     sess = Session(spec, device=device)
     if layers is not None:
         sess.cfg = dataclasses.replace(sess.cfg, n_layers=layers)
@@ -3543,6 +3626,329 @@ def phase_serve_dist(dev: dict) -> dict:
                          "peak_gb": nccl["peak_gb"], "issued": nccl["issued"]}})
     print("serve_dist: the nccl rank's tokens and ServeStats equal the plain 1x1 serve's")
     return loop["launches"]
+
+
+# --------------------------------------------------------------- serve_tp
+#: phase serve_tp: 4 gloo ranks sharing the card, one model shard each
+#: (NCCL refuses two ranks on one GPU).  yi-6b at phase serve's
+#: configuration (KV heads split: the paged cache, K5), max_new cut from 32
+#: to 16; glm4-9b at full width (2 KV heads over 4 shards: the
+#: sequence-parallel cache, which the driver serves contiguous), depth cut to
+#: ``SERVE_TP_GLM_LAYERS``, max_new 16; then the step-level runs
+#: (``SERVE_TP_STEPS``), each held against the 1x1 model, glm4-9b's paged
+#: through per-shard page tables, K5 on each rank's pool and the partials
+#: merged across the ranks.
+SERVE_TP_RANKS = 4
+SERVE_TP_OPTIONS = {**SERVE_RUNS["yi-6b"]["options"], "max_new": 16, "attn_impl": "flash",
+                    "quiet": True}
+SERVE_TP_RUNS = (dict(arch="yi-6b", layers=None,
+                      options={**SERVE_TP_OPTIONS, "kv_layout": "paged", "page_size": 16}),
+                 dict(arch="glm4-9b", layers=SERVE_TP_GLM_LAYERS, options=SERVE_TP_OPTIONS))
+#: phase serve_tp's step-level runs, 4 layers at full width in f32: yi-6b
+#: (KV heads split) on the contiguous cache; glm4-9b (sequence-parallel) on
+#: the contiguous cache and on the paged one through per-shard tables.
+#: Slot 0's 20 tokens stay in shard 0's 64 positions (the other shards' K5
+#: sees local length 0), slot 1's 62 cross into shard 1's at the third step.
+SERVE_TP_STEPS = tuple(dict(arch=arch, layers=4, plens=(20, 62, 100, 200), s_max=256, page=16,
+                            steps=4, paged=paged)
+                       for arch, paged in (("yi-6b", False), ("glm4-9b", True)))
+#: the step-level flash logits against the contiguous ones: K5's f32 online
+#: softmax and merge add in another order than the plain merge, a few ulps of
+#: each attention output, carried through the layers
+SERVE_TP_PAGED_RTOL = 1e-4
+#: each step-level run's contiguous logits (prefill and decode steps,
+#: through K3 and K4 on 4 model shards) against the same seed's 1x1 model
+#: through the plain versions, as ``torch.testing.assert_close`` with rtol =
+#: atol: phase consistency's f32 tolerance of kernels against plain versions
+SERVE_TP_1X1_TOL = 2e-3
+
+
+def tp_collectives(cfg, T: int, passes: dict, bucket: int, B: int) -> dict:
+    """A model rank's collectives over a serve's passes (every prompt in one
+    ``bucket``, ``B`` slots a pass), by kind and dtype: a pass all-reduces
+    the embedding, each layer's attention and feed-forward outputs (compute
+    dtype, ``(B, S, d)``) and the greedy pick's max (f32) and min (int32) of
+    its slots; a sequence-parallel decode layer adds q's all-gather to all
+    heads and the merge's max of m (f32), sums of l (f32) and acc (compute
+    dtype, ``(B, H, 1, hd)``); and the closing check's one broadcast."""
+    from repro_torch.models.attention import kv_cache_seq_parallel
+    from repro_torch.models.transformer import attn_dims
+
+    cd = "bfloat16" if cfg.compute_dtype == "bfloat16" else "float32"
+    e = 2 if cd == "bfloat16" else 4
+    L, d = cfg.n_layers, cfg.d_model
+    P, Dc = passes["prefill"], passes["decode"]
+    n = P + Dc
+    out = {f"all-reduce sum {cd}": [n * (1 + 2 * L),
+                                    (1 + 2 * L) * B * d * e * (P * bucket + Dc)],
+           "all-reduce max float32": [n, 4 * B * n], "all-reduce min int32": [n, 4 * B * n],
+           "broadcast object": [1, 0]}
+    ad = attn_dims(cfg, T)
+    if kv_cache_seq_parallel(ad):
+        H, hd = ad.n_heads, ad.head_dim
+        out[f"all-reduce sum {cd}"][0] += Dc * L
+        out[f"all-reduce sum {cd}"][1] += Dc * L * B * H * hd * e
+        f32 = out.setdefault("all-reduce sum float32", [0, 0])
+        f32[0] += Dc * L
+        f32[1] += Dc * L * B * H * 4
+        out["all-reduce max float32"][0] += Dc * L
+        out["all-reduce max float32"][1] += Dc * L * B * H * 4
+        out[f"all-gather {cd}"] = [Dc * L, Dc * L * B * H * hd * e]
+    return {k: {"calls": c, "bytes": b} for k, (c, b) in sorted(out.items())}
+
+
+def _tp_steps(dev, arch: str, layers: int, plens, s_max: int, page: int, steps: int,
+              paged: bool) -> dict:
+    """A step-level decode of ``arch`` on this rank (f32 compute, int8
+    weights, the rank's slice of the one init): a prefill of ragged prompts,
+    then ``steps`` decode steps fed a fixed token stream on the contiguous
+    cache (the plain merge where it is sequence-parallel), K3, K4 and K5
+    counted; each pass's logits gathered over the model axis.  Rank 0 then
+    runs the same seed's whole ``1x1`` model through the plain versions on
+    the same inputs (nothing sent: the other ranks wait at the next
+    collective).  ``paged`` (the sequence-parallel glm4-9b): twice more on
+    the paged cache, once through the gathered view and once through K5 on
+    the rank's pool with the partials merged across the ranks.  The paged
+    tables are the reference's tp=4 test's: slot b's local pages
+    ``[b*n_loc, (b+1)*n_loc)`` of every shard's pool."""
+    import dataclasses
+
+    from repro_torch.api import PrecisionPolicy
+    from repro_torch.configs import get_config
+    from repro_torch.core.quantization import default_exempt
+    from repro_torch.dist.collectives import AxisCtx
+    from repro_torch.launch.mesh import axis_ctx_for
+    from repro_torch.launch.paging import set_page_tables
+    from repro_torch.launch.steps import build_init_fn, init_global_caches
+    from repro_torch.models.common import ParamCtx, pack_params_for_policy
+    from repro_torch.models.model import build_model
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers, compute_dtype="float32")
+    model = build_model(cfg)
+    tp_axes = axis_ctx_for(f"1x{SERVE_TP_RANKS}", group="default")
+    T, B = tp_axes.tp, len(plens)
+    policy = PrecisionPolicy.lazy_int8(7)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    lens = torch.tensor(plens, dtype=torch.int32, device=dev)
+    prompt = torch.randint(2, cfg.vocab_size, (B, max(plens)), generator=gen, device=dev,
+                           dtype=torch.int32)
+    k5_lengths: list = []
+    decode = ops.flash_paged_decode
+
+    def recording(q, kp, vp, pt, lloc):
+        k5_lengths.append(lloc.tolist())
+        return decode(q, kp, vp, pt, lloc)
+
+    def init(axes):
+        return build_init_fn(model, axes, device=dev, pack=lambda p: pack_params_for_policy(
+            p, policy, exempt=default_exempt))(torch.Generator(device=dev).manual_seed(0))
+
+    def run(axes, params, paged: bool, impl: str):
+        pc = ParamCtx.from_policy(axes, policy, compute_dtype=torch.float32)
+        kw = {"page_size": page} if paged else {}
+        caches = init_global_caches(model, axes, s_max=s_max, batch_global=B, device=dev, **kw)
+        if paged:
+            n_loc = (s_max // T) // page
+            table = np.zeros((B, T * n_loc), np.int32)
+            for b in range(B):
+                for t in range(T):
+                    table[b, t * n_loc:(t + 1) * n_loc] = np.arange(b * n_loc, (b + 1) * n_loc)
+            caches = set_page_tables(caches, table, model_shard=axes.tp_index(),
+                                     tp=T)
+        ops.reset_launches()
+        with torch.no_grad():
+            lg, caches = model.prefill(pc, params, {"tokens": prompt}, caches,
+                                       attn_impl="flash", prompt_lens=lens)
+            outs = [axes.all_gather_model(lg, axis=2)]
+            for step in range(steps):
+                tok = torch.full((B, 1), 2 + step, dtype=torch.int32, device=dev)
+                lg, caches = model.decode_step(pc, params, {"token": tok}, caches,
+                                               attn_impl=impl)
+                outs.append(axes.all_gather_model(lg, axis=2))
+        return torch.stack(outs)[..., :cfg.vocab_size], {k: ops.LAUNCHES[k]
+                                                         for k in _ATTN_KERNELS}
+
+    params = init(tp_axes)
+    contiguous, launches = run(tp_axes, params, False, "ref")
+    big = float(contiguous.abs().max())
+    out = {"arch": arch, "layers": layers, "plens": list(plens), "steps": steps,
+           "rank": tp_axes.tp_index(), "launches": launches, "logit_max_abs": big,
+           "finite": bool(torch.isfinite(contiguous).all())}
+    if paged:
+        paged_ref, _ = run(tp_axes, params, True, "ref")
+        ops.flash_paged_decode = recording
+        try:
+            paged_flash, out["paged_launches"] = run(tp_axes, params, True, "flash")
+        finally:
+            ops.flash_paged_decode = decode
+        dec = slice(1, None)          # the decode steps (the prefill is the same call)
+        out.update(ref_bit_equal=bool(torch.equal(paged_ref[dec], contiguous[dec])),
+                   flash_max_abs=float((paged_flash[dec] - contiguous[dec]).abs().max()),
+                   k5_local_lengths=k5_lengths[::layers],
+                   finite=out["finite"] and bool(torch.isfinite(paged_flash).all()))
+    out["model"] = tp_axes.model_transport.report()
+    del params
+    if tp_axes.tp_index() == 0:
+        one = AxisCtx()
+        with plain_kernels():
+            whole, _ = run(one, init(one), False, "ref")
+        diff = (contiguous - whole).abs()
+        out["vs_1x1"] = {"max_abs": float(diff.max()), "tol": SERVE_TP_1X1_TOL,
+                         "ok": bool((diff <= SERVE_TP_1X1_TOL * (1 + whole.abs())).all()),
+                         "greedy_agreement": float((contiguous.argmax(-1)
+                                                    == whole.argmax(-1)).float().mean())}
+        del whole
+    del contiguous
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_tp_rank(job: dict, dev, rank: int) -> None:
+    """One rank of phase serve_tp (started by ``torch.distributed.run``):
+    each serve run on ``1x4`` with the launch counters zeroed just before
+    and read just after, its model group's collectives by kind, calls and
+    bytes and those staged; then the step-level runs; to
+    ``<out_dir>/rank<r>.json`` and a line on stdout."""
+    out = {"rank": rank, "device": str(dev), "runs": []}
+    for run in job["serve_tp"]["runs"]:
+        sess, passes, ticks = _serve_dist_session(str(dev), run["mesh"], run.get("layers"),
+                                                  arch=run["arch"], base_options=run["options"])
+        res = _serve_dist_run(sess, passes, ticks, dev)
+        res.update(arch=run["arch"], layers=sess.cfg.n_layers,
+                   at=[sess.axes.dp_index(), sess.axes.tp_index()],
+                   model=sess.axes.model_transport.report())
+        out["runs"].append(res)
+        print(f"tp rank {rank} {run['arch']}: " + json.dumps(
+            {k: res[k] for k in ("tok_s", "host_ms_a_step", "peak_gb", "passes", "launches")}
+            | {"issued": res["model"]["issued"], "staged": res["model"]["staged"]}), flush=True)
+        del sess
+        torch.cuda.empty_cache()
+    out["steps"] = []
+    for run in job["serve_tp"]["steps"]:
+        torch.cuda.reset_peak_memory_stats(dev)
+        res = _tp_steps(dev, **run)
+        res["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        out["steps"].append(res)
+        print(f"tp rank {rank} {run['arch']} step-level: " + json.dumps(
+            {k: v for k, v in res.items() if k != "model"}), flush=True)
+    with open(os.path.join(job["out_dir"], f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def phase_serve_tp(dev: dict) -> dict:
+    """Tensor-parallel serving (see the module docstring); returns rank 0's
+    K3/K4/K5 launches over the two serves."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.configs import get_config
+
+    card = f"{dev['kind']} ({dev['smi']})"
+    T = SERVE_TP_RANKS
+    runs = [dict(run, mesh=f"1x{T}") for run in SERVE_TP_RUNS]
+    base = tempfile.mkdtemp(prefix="chip_smoke_serve_tp_")
+    ranks = _torchrun(T, {"backend": "gloo", "share_device": True,
+                          "serve_tp": {"runs": runs, "steps": SERVE_TP_STEPS}}, base, 900)
+    launches = {k: 0 for k in _ATTN_KERNELS}
+    for i, run in enumerate(runs):
+        cfg = get_config(run["arch"])
+        if run["layers"] is not None:
+            cfg = dataclasses.replace(cfg, n_layers=run["layers"])
+        first = ranks[0]["runs"][i]
+        per_rank = []
+        for rk in ranks:
+            res = rk["runs"][i]
+            _same_serve(f"{run['arch']} tp rank {rk['rank']}", res, first)
+            assert res["at"] == [0, rk["rank"]] and res["layers"] == cfg.n_layers, res["at"]
+            P, Dc = res["passes"]["prefill"], res["passes"]["decode"]
+            pre, dec = (expected_launches(cfg, kind, 0) for kind in ("prefill", "decode"))
+            want = {k: P * pre[k] + Dc * dec[k] for k in pre}
+            if res["stats"]["kv_layout"] != "paged":
+                want["flash_decode"] = 0          # the contiguous layout: the plain merge
+            if res["launches"] != want:
+                raise AssertionError(f"serve_tp {run['arch']} rank {rk['rank']}: launches "
+                                     f"{res['launches']}, want {want} ({res['passes']})")
+            predicted = tp_collectives(cfg, T, res["passes"], run["options"]["prompt_len"],
+                                       4)
+            if res["model"]["issued"] != predicted:
+                raise AssertionError(f"serve_tp {run['arch']} rank {rk['rank']}: collectives "
+                                     f"{res['model']['issued']}, predicted {predicted}")
+            if res["model"]["staged"]:
+                raise AssertionError(f"serve_tp {run['arch']} rank {rk['rank']}: staged "
+                                     f"{res['model']['staged']}")
+            per_rank.append({"rank": rk["rank"], "tok_s": res["tok_s"],
+                             "host_ms_a_step": res["host_ms_a_step"],
+                             "peak_gb": res["peak_gb"], "serve_wall_s": res["serve_wall_s"],
+                             "launches": res["launches"]})
+        st = first["stats"]
+        assert st["admitted"] == st["completed"] == run["options"]["requests"], st
+        assert all(0 <= t < cfg.vocab_size for t in first["tokens"]), "sampled id out of range"
+        for k in _ATTN_KERNELS:
+            launches[k] += first["launches"][k]
+        emit({"serve_tp": {"run": f"{run['arch']} 1x{T}, {T} gloo ranks sharing the card",
+                           "card": card, "layers": cfg.n_layers,
+                           "full_depth": get_config(run["arch"]).n_layers,
+                           "kv_layout": st["kv_layout"], "max_new": run["options"]["max_new"],
+                           "admitted": st["admitted"], "decode_steps": st["decode_steps"],
+                           "passes": first["passes"], "kv_bytes": st["kv_bytes"],
+                           "collectives_a_rank": first["model"]["issued"],
+                           "sample": st["sample"], "per_rank": per_rank}})
+        full = get_config(run["arch"]).n_layers
+        cut = "" if cfg.n_layers == full else f" (cut from {full} for the time limit)"
+        print(f"serve_tp: {run['arch']} at {cfg.n_layers} layers{cut} on 1x{T}: every rank's "
+              f"tokens ({len(first['tokens'])}) and ServeStats equal; launches and collectives "
+              "as predicted; nothing staged")
+    # the step-level runs: rank 0 against the 1x1 model through the plain
+    # versions; glm4-9b's paged sequence-parallel decode against the contiguous
+    for n, run in enumerate(SERVE_TP_STEPS):
+        cfg = dataclasses.replace(get_config(run["arch"]), n_layers=run["layers"])
+        L, steps = run["layers"], run["steps"]
+        pre, dec = (expected_launches(cfg, kind, 0) for kind in ("prefill", "decode"))
+        want = {k: pre[k] + steps * dec[k] for k in pre}
+        pg = [rk["steps"][n] for rk in ranks]
+        for t, r in enumerate(pg):
+            if not r["finite"] or r["launches"] != dict(want, flash_decode=0):
+                raise AssertionError(f"serve_tp {run['arch']} step-level: rank {t}: {r}")
+        one = pg[0]["vs_1x1"]
+        if not one["ok"]:
+            raise AssertionError(f"serve_tp {run['arch']} step-level: 1x4 through the kernels "
+                                 f"against the 1x1 model through the plain versions: max "
+                                 f"{one['max_abs']} beyond rtol = atol = {one['tol']}")
+        line = {"run": f"{run['arch']} step-level, {L} layers, f32", "card": card,
+                **{k: run[k] for k in ("plens", "steps", "paged")},
+                "launches": pg[0]["launches"], "vs_1x1": one}
+        print(f"serve_tp: {run['arch']}'s step-level 1x{T} logits (prefill and {steps} decode "
+              f"steps, {L} layers at full width, f32) equal the 1x1 model's through the plain "
+              f"versions within {one['max_abs']:.3g} (tol {SERVE_TP_1X1_TOL} of logits up to "
+              f"{pg[0]['logit_max_abs']:.3g}), greedy agreement {one['greedy_agreement']}")
+        if run["paged"]:
+            S_loc = run["s_max"] // T
+            for t, r in enumerate(pg):
+                if not r["ref_bit_equal"]:
+                    raise AssertionError(f"serve_tp paged: rank {t}: {r}")
+                if r["flash_max_abs"] > SERVE_TP_PAGED_RTOL * r["logit_max_abs"]:
+                    raise AssertionError(
+                        f"serve_tp paged: K5 and the merge against the contiguous layout: "
+                        f"{r['flash_max_abs']} > {SERVE_TP_PAGED_RTOL} x {r['logit_max_abs']}")
+                for step, lens in enumerate(r["k5_local_lengths"]):
+                    glob = [p + step + 1 for p in run["plens"]]
+                    if lens != [min(max(g - S_loc * t, 0), S_loc) for g in glob]:
+                        raise AssertionError(f"serve_tp paged: rank {t} step {step}: K5 "
+                                             f"lengths {lens}")
+                if r["paged_launches"] != want:
+                    raise AssertionError(f"serve_tp paged: rank {t}: launches "
+                                         f"{r['paged_launches']}, want {want}")
+            assert [r["k5_local_lengths"][-1][0] for r in pg] == [24, 0, 0, 0], pg
+            line["paged_launches"] = pg[0]["paged_launches"]
+            print(f"serve_tp: {run['arch']}'s step-level paged sequence-parallel decode equals "
+                  f"the contiguous layout bit for bit through the gathered view, and through "
+                  f"K5 and the merge within {max(r['flash_max_abs'] for r in pg):.3g} of "
+                  f"logits up to {pg[0]['logit_max_abs']:.3g}")
+        line["per_rank"] = [{k: r[k] for k in ("rank", "ref_bit_equal", "flash_max_abs",
+                                               "logit_max_abs", "peak_gb", "k5_local_lengths")
+                             if k in r} for r in pg]
+        emit({"serve_tp": line})
+    return launches
 
 
 COMMITTED_STORES = os.path.join(ROOT, "results")
@@ -4276,7 +4682,7 @@ def phase_analyze(dev: dict) -> None:
 
 
 PHASES = ("device", "build", "kernels", "serve", "profile", "consistency", "fl", "train",
-          "dist", "serve_dist", "roofline", "analyze", "grids")
+          "dist", "serve_dist", "serve_tp", "roofline", "analyze", "grids")
 #: run only when named in ``--phases``
 EXTRA_PHASES = ("sweep", "decode_sweep", "attn_sweep", "train_profile", "grids_all",
                 "roofline_all")
@@ -4315,6 +4721,7 @@ def main(argv=None) -> int:
             ("train", lambda: launches_of.update(train=phase_train(dev, measured))),
             ("dist", lambda: launches_of.update(dist=phase_dist(dev, table))),
             ("serve_dist", lambda: launches_of.update(serve_dist=phase_serve_dist(dev))),
+            ("serve_tp", lambda: launches_of.update(serve_tp=phase_serve_tp(dev))),
             ("roofline", lambda: phase_roofline(dev, measured)),
             ("analyze", lambda: phase_analyze(dev)),
             ("roofline_all", lambda: phase_roofline_all(dev)),
@@ -4328,8 +4735,9 @@ def main(argv=None) -> int:
             print(f"chip_smoke: phase {name} took {time.time() - t0:.1f} s")
     if "serve" in launches_of:
         launches = launches_of["serve"]
-    for name, n in launches_of.get("serve_dist", {}).items():
-        launches[name] += n             # K3, K4, K5 on the sharded path too
+    for phase in ("serve_dist", "serve_tp"):
+        for name, n in launches_of.get(phase, {}).items():
+            launches[name] += n         # K3, K4, K5 on the sharded paths too
     launches.update(launches_of.get("fl", {}))
     if "train" in launches_of:
         # K1 runs on both paths: its count is the sum of the two phases' runs

@@ -11,8 +11,8 @@ the shipped :class:`~repro_torch.kernels.spec.KernelSpec` metadata at this
 config's dimensions.  ``fl-sim`` cells have no model-zoo step graph to lint
 (the CNN simulation is not a model-zoo graph) and are skipped with an info
 finding; a mesh with a model axis above 1 cannot be traced by the port yet
-and gives one ``analyze.not_ported`` error (ROADMAP queue 1, items 9 and
-14).  Counterpart of ``repro/analyze/runner.py``.
+and gives one ``analyze.not_ported`` error (ROADMAP queue 1, item 14).
+Counterpart of ``repro/analyze/runner.py``.
 """
 
 from __future__ import annotations
@@ -167,8 +167,7 @@ def analyze_session(session, *, compile: bool = True, allowlist_path=None,
         findings.append(Finding(
             rule="analyze.not_ported", severity="error",
             message=(f"mesh {spec.mesh!r} has a model axis above 1: the port cannot trace "
-                     "it yet (tensor parallelism and the pod meshes' dry run, ROADMAP "
-                     "queue 1, items 9 and 14)"),
+                     "it yet (the pod meshes' dry run, ROADMAP queue 1, item 14)"),
             key=f"{spec.arch}:mesh:{spec.mesh}", cell=label))
     else:
         policy = session.policy

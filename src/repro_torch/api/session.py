@@ -15,7 +15,9 @@ it raises; nothing falls back to the CPU::
 ``requests``, ``max_new``, ``kv_layout``, ``page_size``, ``pool_pages``,
 ``vary_prompt``, ``precision_program``, ``quiet``.  On a ``Dx1`` mesh the
 batch splits into D data shards, run in a loop on the device or one a rank
-under a process group (:meth:`Session.serve`).
+under a process group; on a ``DxT`` mesh (T > 1, the dense and MoE
+families) each of the D·T ranks of a group holds one model shard of one
+data shard (:meth:`Session.serve`).
 
 ``fl-sim`` options (the paper's loop, :meth:`Session.run_fl_sim`):
 ``scheme``, ``n_clients``, ``lr``, ``error_tolerance``, ``eval_every``,
@@ -28,7 +30,8 @@ under a process group (:meth:`Session.serve`).
 ``faults``, ``resolve_drift_db``, ``precision_program``.  ``train`` runs
 federated rounds at the spec's fixed :class:`PrecisionPolicy`;
 ``fl-orchestrate`` is the paper's full loop, the GBD co-design choosing each
-round's per-client bits.  The mesh is ``Dx1``: D clients on one device, or,
+round's per-client bits.  The mesh is ``Dx1`` (training under tensor
+parallelism is ROADMAP item 9c): D clients on one device, or,
 when a ``torch.distributed`` group of D ranks is initialized (torchrun;
 :func:`repro_torch.launch.mesh.init_distributed`), one client a rank: each
 rank holds its FSDP shards and its client's rows of the global batch, rank 0
@@ -42,7 +45,8 @@ and prices it on one H100 (:mod:`repro_torch.roofline`); on the CPU::
     Session(RunSpec("yi-6b", workload="dryrun", mesh="1x1"),
             device="cpu").run_dryrun(shape="decode_32k")
 
-A mesh with a model axis above 1 (the reference's pod meshes) raises.
+A mesh with a model axis above 1 (the reference's pod meshes) raises (ROADMAP
+item 14).
 
 :meth:`Session.analyze` lints the step graphs a spec implies (precision
 taint, the interval interpreter, the wire lint, the kernels' launch grids;
@@ -166,8 +170,9 @@ class Session:
     @functools.cached_property
     def axes(self):
         """The mesh's axis context: a ``Dx1`` mesh runs its D clients on the
-        session's device, or one a rank when a process group is initialized
-        (a model axis > 1 raises)."""
+        session's device, or one a rank when a process group is initialized;
+        a ``DxT`` mesh (T > 1) one mesh device a rank of the group (without
+        a group it raises)."""
         import torch.distributed as dist
 
         from repro_torch.launch.mesh import axis_ctx_for
@@ -177,8 +182,18 @@ class Session:
 
     @property
     def rank(self) -> int:
-        """This process's rank (0 without a group)."""
-        return self.axes.dp_index() if self.axes.transport is not None else 0
+        """This process's rank in the mesh's group (0 without a group)."""
+        return self.axes.rank
+
+    def _require_dx1_training(self, what: str) -> None:
+        from repro_torch.launch.mesh import parse_mesh
+
+        dims, names = parse_mesh(self.spec.mesh)
+        if dict(zip(names, dims)).get("model", 1) > 1:
+            raise NotImplementedError(
+                f"{what} on mesh {self.spec.mesh!r}: training under tensor parallelism (a "
+                "model axis above 1) is not ported (ROADMAP queue 1, item 9c); train on a "
+                "Dx1 mesh")
 
     @functools.cached_property
     def ckpt(self):
@@ -334,8 +349,8 @@ class Session:
         dims, names = parse_mesh(spec.mesh)
         if dict(zip(names, dims)).get("model", 1) > 1:
             raise NotImplementedError(
-                f"dryrun on mesh {spec.mesh!r}: a model axis > 1 needs tensor parallelism "
-                "and the pod meshes' accounting (ROADMAP queue 1, items 9 and 14)")
+                f"dryrun on mesh {spec.mesh!r}: a model axis > 1 needs the pod meshes' "
+                "dry run and accounting (ROADMAP queue 1, item 14)")
         cfg = self.cfg
         if variant.get("gather_bf16"):
             cfg = dataclasses.replace(cfg, fsdp_gather_dtype="bfloat16")
@@ -628,6 +643,7 @@ class Session:
         from the GBD co-design (``plan["policy"]``); under ``train`` the
         spec's fixed policy (through the precision program) applies.
         """
+        self._require_dx1_training("fl_round")
         st = self._ensure_train_state()
         spec, cfg, dev = self.spec, self.cfg, self.device
         n_clients, B = st["n_clients"], st["B"]
@@ -694,6 +710,7 @@ class Session:
     def run_train(self) -> list[dict]:
         """The ``train`` / ``fl-orchestrate`` loop: ``spec.rounds`` rounds
         (from a checkpoint's round when ``ckpt_dir`` holds one)."""
+        self._require_dx1_training("run_train")
         st = self._ensure_train_state()
         quiet = bool(self.spec.opt("quiet", False)) or self.rank != 0   # rank 0's rows
         for r in range(st["start"], self.spec.rounds):
@@ -750,9 +767,26 @@ class Session:
         and decode step (a collective skipped would hang the group), and
         all-gathers its sampled tokens, so every rank's schedule, tokens and
         :class:`ServeStats` (its clocks apart) are the same; rank 0 prints.
+
+        On a ``DxT`` mesh with T > 1 (the dense and MoE families, under a
+        group of D·T ranks) each rank is one model shard of one data shard:
+        it draws the whole model leaf by leaf, packs each whole leaf and
+        keeps its tensor-parallel slice (then its FSDP slice), runs every
+        prefill and decode step with its model group (the row-parallel
+        projections' ``psum``, the greedy pick's ``pmax`` and ``pmin``), so
+        every model rank holds the same tokens, and the data shards
+        all-gather theirs over the batch group.  Where the KV heads do not
+        split over T the cache is sequence-parallel, which this driver
+        serves contiguous, as the reference's does: an explicit
+        ``kv_layout="paged"`` there raises (the paged sequence-parallel
+        decode runs at the step level, with per-shard page tables:
+        ``paging.set_page_tables(model_shard=, tp=)``).  ``kv_bytes`` and
+        ``kv_bytes_contiguous`` are the reference's global figures, joined
+        over the batch and the model axes.
         """
         from repro_torch.core.quantization import default_exempt
-        from repro_torch.dist.sharding import batch_specs, cache_specs, cut_batch, join_batch
+        from repro_torch.dist.sharding import (batch_specs, cache_specs, cut_batch, join_batch,
+                                               join_model)
         from repro_torch.launch.paging import (SlotPager, kv_cache_bytes, pages_for,
                                                plan_admissions, set_page_tables)
         from repro_torch.launch.steps import (build_cached_prefill, build_decode_step,
@@ -805,6 +839,22 @@ class Session:
                              f"got {kv_layout!r}")
         if kv_layout == "paged" and not model.supports_paged_kv:
             kv_layout = "contiguous"    # SSM: O(1) state, nothing to page
+        if kv_layout == "paged" and axes.tp > 1:
+            from repro_torch.models.attention import kv_cache_seq_parallel
+            from repro_torch.models.transformer import attn_dims
+
+            if kv_cache_seq_parallel(attn_dims(cfg, axes.tp)):
+                # the host pager covers the KV-sharded and tp = 1 layouts; a
+                # defaulted layout serves the sequence-parallel cache
+                # contiguous, an explicit paged request raises (as the
+                # reference's driver)
+                if o.get("kv_layout") is None:
+                    kv_layout = "contiguous"
+                else:
+                    raise ValueError(
+                        "kv_layout='paged' is not supported by the serving driver on "
+                        "sequence-parallel (kv-replicated, tp>1) meshes; drop the option "
+                        "to fall back to contiguous or drive build_decode_step directly")
         page_size = o.get("page_size")
         if page_size is None:
             page_size = next(p for p in (16, 8, 4, 2, 1) if s_max % p == 0)
@@ -819,7 +869,7 @@ class Session:
         # the whole model's figures from its shapes; the storage drawn from
         # spec.seed and packed (under a group leaf by leaf, then sliced:
         # build_init_fn)
-        whole = model.init(torch.Generator().manual_seed(0), axes.tp, device="meta")
+        whole = model.init(torch.Generator().manual_seed(0), 1, device="meta")
         raw_bytes = _weight_bytes(whole)
         f32_bytes = sum(w.numel() * 4 for w in whole.values())
         q_bytes = _weight_bytes(pack(whole))
@@ -887,19 +937,23 @@ class Session:
                                         device=dev, **cache_kw) for c in shards}
 
         def global_bytes(shard) -> int:
-            """K/V bytes of the reference's global arrays: D shards' trees
-            joined over the batch (one pool, every slot's slab)."""
-            return kv_cache_bytes(join_batch([shard] * D, cache_specs(shard, axes, cfg), axes))
+            """K/V bytes of the reference's global arrays: the D x T mesh
+            devices' trees joined over the batch (one pool, every slot's
+            slab) and over the model axis (every KV head, or every position
+            of a sequence-parallel cache; every model shard's pool)."""
+            specs = cache_specs(shard, axes, cfg)
+            joined = join_batch([shard] * D, specs, axes)
+            return kv_cache_bytes(join_model([joined] * axes.tp, specs, axes))
 
         meta = dict(s_max=s_max, batch_global=batch, dtype=policy.kv_cache_dtype(),
                     device="meta")
         shard_meta = init_global_caches(model, axes, **meta, **cache_kw)
         kv_bytes = global_bytes(shard_meta)
         kv_bytes_contig = global_bytes(init_global_caches(model, axes, **meta))
-        if D > 1:
-            held = D * kv_cache_bytes(shard_meta)
-            say(f"kv cache: {held/1e6:.2f} MB held over {D} data shards of {b} slots "
-                f"({'a pool' if pager is not None else 'a slab'} each; "
+        if D * axes.tp > 1:
+            held = D * axes.tp * kv_cache_bytes(shard_meta)
+            say(f"kv cache: {held/1e6:.2f} MB held over {D} data shards of {b} slots x "
+                f"{axes.tp} model shards ({'a pool' if pager is not None else 'a slab'} each; "
                 f"{kv_bytes/1e6:.2f} MB in the reference's global figure)")
 
         # ---- steps (one a shard) ------------------------------------------
@@ -1115,12 +1169,13 @@ class Session:
             kv_bits_final=kv_bits,
             device=dev_name,
         )
-        if ranks:
-            # one scheduler run D times: every rank's stats and tokens must be
-            # rank 0's (the clocks apart)
-            mine = {"stats": {k: v for k, v in vars(stats).items()
-                              if k not in ("wall_s", "tok_s")}, "tokens": sampled}
-            if axes.transport.broadcast_object(mine) != mine:
+        # one scheduler run on every rank: every rank's stats and tokens must
+        # be rank 0's (the clocks apart): held to its model row's first rank,
+        # and to its model column's first rank, which row 0 holds to rank 0
+        mine = {"stats": {k: v for k, v in vars(stats).items()
+                          if k not in ("wall_s", "tok_s")}, "tokens": sampled}
+        for group in (axes.model_transport, axes.transport):
+            if group is not None and group.broadcast_object(mine) != mine:
                 raise RuntimeError(f"serve: rank {self.rank}'s schedule, tokens or stats "
                                    "differ from rank 0's")
         say(f"decoded {stats.decoded_tokens} tokens over {stats.decode_steps} "

@@ -16,8 +16,16 @@ A ``Dx1`` mesh runs one of two ways:
   :meth:`~AxisCtx.gather_fsdp` (a tiled all-gather whose transpose is a
   reduce-scatter) are the reference's collectives over real ranks.
 
-The model axis is 1: ``psum_model`` is the identity; tensor parallelism is
-not ported.
+A model axis of size T > 1 (tensor parallelism) runs one process a model
+shard: under a group of D·T ranks, rank r is data index ``r // T`` and model
+index ``r % T`` (``jax.make_mesh((D, T))``'s device order, data-major), and
+the context carries a second :class:`Transport` over the rank's model group.
+:meth:`AxisCtx.tp_index`, :meth:`~AxisCtx.psum_model`,
+:meth:`~AxisCtx.pmax_model`, :meth:`~AxisCtx.pmin_model` and
+:meth:`~AxisCtx.all_gather_model` are the reference's model-axis collectives
+over it; the batch collectives go over the batch group (the ranks of the
+rank's model column).  Without a model group the model axis is 1 and the
+model collectives are identities.
 
 :func:`quantized_psum_batch` is the paper's Eq. 1 stochastic-rounding
 quantizer applied to model updates on the wire: the clients agree on a shared
@@ -98,10 +106,11 @@ class Transport:
             t.copy_(h)
 
     def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
-        """A new tensor: the sum (``op="sum"``) or max (``"max"``) of ``x``
-        over the ranks."""
+        """A new tensor: the sum (``op="sum"``), max (``"max"``) or min
+        (``"min"``) of ``x`` over the ranks."""
         out = x.detach().clone().contiguous()
-        rop = {"sum": self.dist.ReduceOp.SUM, "max": self.dist.ReduceOp.MAX}[op]
+        rop = {"sum": self.dist.ReduceOp.SUM, "max": self.dist.ReduceOp.MAX,
+               "min": self.dist.ReduceOp.MIN}[op]
         self._count(f"all-reduce {op}", out)
         self._run(f"all-reduce {op}", lambda t: self.dist.all_reduce(t, op=rop,
                                                                       group=self.group), out)
@@ -131,9 +140,10 @@ class Transport:
         return out
 
     def broadcast_object(self, obj, src: int = 0):
-        """Rank ``src``'s ``obj`` on every rank (pickled; host memory)."""
+        """The ``obj`` of the group's rank ``src`` on every rank (pickled;
+        host memory)."""
         box = [obj]
-        self.dist.broadcast_object_list(box, src=src, group=self.group)
+        self.dist.broadcast_object_list(box, group=self.group, group_src=src)
         self.issued.setdefault(("broadcast", "object"), [0, 0])[0] += 1
         return box[0]
 
@@ -170,12 +180,16 @@ class AxisCtx:
     """Named axes of one launch and their sizes (all 1 when unnamed).
 
     ``batch_axes``: data-parallel axes — one FL client per group.
-    ``model_axis``: tensor-parallel axis (None = no TP; its size must be 1).
+    ``model_axis``: tensor-parallel axis (None = no TP).
     ``fsdp_axes``:  axes the reference fully shards parameters over (the
     batch axes).  ``sizes``: ``((axis name, size), ...)``.  ``client``: the
-    data-parallel rank the code runs as.  ``transport``: the process group's
-    :class:`Transport` when each client is a process (then ``client`` is the
-    rank), None when the clients run in a loop.
+    data-parallel rank the code runs as.  ``transport``: the batch group's
+    :class:`Transport` when each client is a process (then ``client`` is its
+    rank in that group), None when the clients run in a loop or there is one
+    client.  ``model_rank``: the model index the process runs as;
+    ``model_transport``: the model group's :class:`Transport`, which a model
+    axis larger than 1 requires (one process a model shard; its rank is
+    ``model_rank``).
     """
 
     batch_axes: tuple[str, ...] = ()
@@ -184,12 +198,16 @@ class AxisCtx:
     sizes: tuple[tuple[str, int], ...] = ()
     client: int = 0
     transport: Any = dataclasses.field(default=None, compare=False, repr=False)
+    model_rank: int = 0
+    model_transport: Any = dataclasses.field(default=None, compare=False, repr=False)
 
     def __post_init__(self):
-        if self.tp != 1:
-            raise NotImplementedError(
-                f"model axis of size {self.tp}: tensor parallelism is not ported "
-                "(ROADMAP queue 1, item 9)")
+        m = self.model_transport
+        if self.tp > 1 and m is None:
+            raise ValueError(one_process_tp_message(self.tp))
+        if m is not None and (m.size != self.tp or m.rank != self.model_rank):
+            raise ValueError(f"a model group of {m.size} ranks (this one {m.rank}) runs a "
+                             f"model axis of {self.tp} as index {self.model_rank}")
         t = self.transport
         if t is not None and (t.size != self.dp or t.rank != self.client):
             raise ValueError(f"a group of {t.size} ranks (this one {t.rank}) runs "
@@ -224,7 +242,16 @@ class AxisCtx:
         return self.client
 
     def tp_index(self) -> int:
-        return 0
+        """The model index (tensor-parallel rank); 0 without a model group."""
+        return self.model_rank
+
+    @property
+    def rank(self) -> int:
+        """The process's rank in the mesh's group: ``dp_index * tp +
+        tp_index`` (0 when the process runs the whole mesh)."""
+        if self.transport is None and self.model_transport is None:
+            return 0
+        return self.client * self.tp + self.model_rank
 
     def at_client(self, c: int) -> "AxisCtx":
         """The same axes, running as client ``c`` (under a group, only the
@@ -235,9 +262,26 @@ class AxisCtx:
             raise ValueError(f"rank {self.client} cannot run as client {c}")
         return dataclasses.replace(self, client=int(c))
 
-    # --- model-axis collectives (tp = 1) ---------------------------------
+    # --- model-axis collectives (identities without a model group) -------
     def psum_model(self, x):
-        return x
+        """Sum over the model axis's ranks."""
+        return x if self.model_transport is None else self.model_transport.all_reduce(x, "sum")
+
+    def pmax_model(self, x):
+        """Max over the model axis's ranks."""
+        return x if self.model_transport is None else self.model_transport.all_reduce(x, "max")
+
+    def pmin_model(self, x):
+        """Min over the model axis's ranks."""
+        return x if self.model_transport is None else self.model_transport.all_reduce(x, "min")
+
+    def all_gather_model(self, x, *, axis: int):
+        """Tiled all-gather over the model axis along ``axis``: the ranks'
+        ``x`` concatenated there in model-index order."""
+        if self.model_transport is None:
+            return x
+        full = self.model_transport.all_gather(x.movedim(axis, 0))
+        return full.movedim(0, axis)
 
     # --- batch/FSDP collectives (identities without a group) -------------
     def psum_batch(self, x):
@@ -261,6 +305,14 @@ class AxisCtx:
         if self.transport is None or self.fsdp == 1:
             return x
         return _FSDPGather.apply(x, axis, self.transport)
+
+
+def one_process_tp_message(tp: int, spec: str | None = None) -> str:
+    """The error of a model axis larger than 1 without a model group."""
+    what = f"mesh {spec!r}" if spec else f"a model axis of size {tp}"
+    return (f"{what}: a model axis larger than 1 runs one process a model shard; launch "
+            f"D*{tp} ranks under torchrun (python -m torch.distributed.run) with --mesh "
+            f"Dx{tp}, and the mesh's axis context joins their process group")
 
 
 def code_bound(bits: int) -> int:

@@ -3,12 +3,15 @@
 Counterpart of ``repro/dist/sharding.py``.  The port has no
 ``PartitionSpec``: a spec is a plain tuple with one entry a dim, each entry
 ``None`` (replicated), an axis name, or a tuple of axis names (major to
-minor) — the reference's ``P(...)`` as ``tuple(spec)``.  The model zoo
-initializes **local-TP** storage (``model.init(gen, tp)``) and FSDP slicing
-happens at init (:func:`repro_torch.models.common.apply_fsdp_sharding`);
-this module turns a parameter's path into the global layout those two steps
-imply, the layout the checkpoint gathers from and that batch-sharded
-serving reads.
+minor) — the reference's ``P(...)`` as ``tuple(spec)``.  The model zoo's
+``model.init(gen, tp)`` gives **local-TP** shapes; a rank's storage is the
+whole ``tp = 1`` init cut to its model shard (:func:`cut_model` on
+:func:`tree_param_specs` with the launch's ``kv``), then FSDP-sliced
+(:func:`repro_torch.models.common.sharded_init`).  This module turns a
+parameter's path into the global layout those steps imply, the layout the
+checkpoint gathers from and that sharded serving reads, and cuts a tree
+into the shards of its batch (:func:`cut_batch`) or its model axis
+(:func:`cut_model`) and joins them back.
 
 Rules are keyed on the leaf name (the path's last segment), the Megatron
 conventions the layers implement:
@@ -38,6 +41,8 @@ a spec even at size 1.
 """
 
 from __future__ import annotations
+
+import torch
 
 from repro_torch.dist.collectives import AxisCtx
 
@@ -89,7 +94,8 @@ def _entry(names):
     return tuple(names) if len(names) > 1 else names[0]
 
 
-def _leaf_spec(path: str, shape: tuple, cfg, axes: AxisCtx, fsdp: int) -> tuple:
+def _leaf_spec(path: str, shape: tuple, cfg, axes: AxisCtx, fsdp: int,
+               kv: bool | None = None) -> tuple:
     from repro_torch.models.common import fsdp_participates, fsdp_shard_dim, is_stacked
 
     ndim = len(shape)
@@ -97,7 +103,7 @@ def _leaf_spec(path: str, shape: tuple, cfg, axes: AxisCtx, fsdp: int) -> tuple:
     nd = ndim - off
     per_shape = tuple(shape[off:])
     entries: list = [None] * ndim
-    td = tp_dim(path, nd, _kv_sharded(path, per_shape, cfg))
+    td = tp_dim(path, nd, _kv_sharded(path, per_shape, cfg) if kv is None else kv)
     if td is not None and axes.model_axis is not None:
         entries[td + off] = (axes.model_axis,)
     if fsdp > 1 and axes.fsdp_axes and fsdp_participates(path, per_shape, fsdp):
@@ -106,22 +112,28 @@ def _leaf_spec(path: str, shape: tuple, cfg, axes: AxisCtx, fsdp: int) -> tuple:
     return tuple(_entry(e) for e in entries)
 
 
-def tree_param_specs(params: dict, cfg, axes: AxisCtx, fsdp: int) -> dict:
-    """The spec of every leaf of a (local-storage) parameter dict, keyed by
-    path.  Leaves may be tensors (meta tensors too) or
+def tree_param_specs(params: dict, cfg, axes: AxisCtx, fsdp: int,
+                     kv: bool | None = None) -> dict:
+    """The spec of every leaf of a parameter dict, keyed by path.  Leaves
+    may be tensors (meta tensors too) or
     :class:`~repro_torch.models.common.QTensor`, whose codes take the
     leaf's spec and whose scale is replicated.  The rules read only
     sharding-invariant dims, so the shapes may be sliced for FSDP or not.
-    ``fsdp``: the launch's FSDP way-count."""
+    ``fsdp``: the launch's FSDP way-count.  ``kv``: whether the launch
+    splits the KV heads (``attn_dims(cfg, axes.tp).kv_sharded``); None reads
+    it from local storage, where a replicated KV projection keeps all its
+    outputs.  A WHOLE dict (the ``tp = 1`` init's shapes, or the
+    reference's global arrays) cannot say, so its callers pass it."""
     from repro_torch.models.common import QTensor
 
     out = {}
     for path, leaf in params.items():
         if isinstance(leaf, QTensor):
-            out[path] = QTensor(codes=_leaf_spec(path, tuple(leaf.codes.shape), cfg, axes, fsdp),
+            out[path] = QTensor(codes=_leaf_spec(path, tuple(leaf.codes.shape), cfg, axes, fsdp,
+                                                 kv),
                                 scale=(None,) * leaf.scale.ndim)
         else:
-            out[path] = _leaf_spec(path, tuple(leaf.shape), cfg, axes, fsdp)
+            out[path] = _leaf_spec(path, tuple(leaf.shape), cfg, axes, fsdp, kv)
     return out
 
 
@@ -242,8 +254,6 @@ def join_batch(trees: list, specs, axes: AxisCtx):
     """The global tree of the shards' pieces ``trees`` (shard order): each
     batch dim concatenated; a leaf without one taken from shard 0, as the
     reference's global array of a replicated leaf reads its first shard."""
-    import torch
-
     lead = _batch_entry(axes)
 
     def one(ts, spec):
@@ -255,3 +265,75 @@ def join_batch(trees: list, specs, axes: AxisCtx):
         return torch.cat(ts, dim=dims[0])
 
     return _walk(trees, specs, one)
+
+
+# ---------------------------------------------------------------------------
+# A tree cut into the shards of the model axis, and joined back
+# ---------------------------------------------------------------------------
+
+
+def _model_dims(spec: tuple, model) -> list[int]:
+    """The dims a spec splits over the model axis first (major): its entry
+    is the axis, or a tuple of axes that starts with it."""
+    if model is None:
+        return []
+    return [i for i, e in enumerate(spec)
+            if e == model or (isinstance(e, tuple) and e and e[0] == model)]
+
+
+def cut_model(tree, specs, axes: AxisCtx, t: int):
+    """Model shard ``t``'s piece of a whole tree laid out by ``specs``
+    (:func:`tree_param_specs`, :func:`cache_specs`): each dim split over
+    the model axis narrowed to block ``t`` of ``ceil(n / axes.tp)`` (a
+    copy, so the whole leaf can be freed); the rest whole.  A dim that does
+    not divide (a vocabulary) pads the last shard's block with zeros, the
+    reference's global layout of ``padded_vocab_local`` rows or columns a
+    shard.  A packed leaf's codes are cut and its scale kept whole."""
+    from repro_torch.models.common import QTensor
+
+    T = axes.tp
+
+    def cut(w, spec):
+        for d in _model_dims(spec, axes.model_axis):
+            n = w.shape[d]
+            blk = -(-n // T)
+            lo = min(t * blk, n)
+            piece = w.narrow(d, lo, min(blk, n - lo))
+            if piece.shape[d] < blk:
+                pad = list(piece.shape)
+                pad[d] = blk - piece.shape[d]
+                piece = torch.cat([piece, piece.new_zeros(pad)], dim=d)
+            w = piece.clone()
+        return w
+
+    def one(w, spec):
+        if isinstance(w, QTensor):
+            return QTensor(cut(w.codes, spec.codes), w.scale)
+        return cut(w, spec)
+
+    return _walk(tree, specs, one)
+
+
+def join_model(trees: list, specs, axes: AxisCtx):
+    """The global tree of the model shards' pieces ``trees`` (model-index
+    order): each model dim concatenated; a leaf without one taken from
+    shard 0, as the reference's global array of a replicated leaf reads
+    device 0's copy."""
+    from repro_torch.models.common import QTensor
+
+    model = axes.model_axis
+
+    def cat(ts, spec):
+        dims = _model_dims(spec, model)
+        if not dims:
+            return ts[0]
+        if len(dims) > 1:
+            raise ValueError(f"spec {spec} splits more than one dim over the model axis")
+        return torch.cat(ts, dim=dims[0])
+
+    def one(ts, spec):
+        if isinstance(ts[0], QTensor):
+            return QTensor(cat([w.codes for w in ts], spec.codes), ts[0].scale)
+        return cat(ts, spec)
+
+    return _walk(list(trees), specs, one)

@@ -1,14 +1,19 @@
 """Mesh-spec parsing, the process group and the axis context of a launch.
 
-Counterpart of ``repro/launch/mesh.py``.  The port runs a ``Dx1`` mesh: ``D``
-data-parallel groups (the FL clients) and a model axis of size 1, either in
-one process (the clients run in a loop on one device) or as ``D`` processes
-of a ``torch.distributed`` group, one client a rank (:func:`init_distributed`
-reads torchrun's environment).  There is no device mesh object; the spec
-string gives the axis sizes and :func:`axis_ctx_for` the :class:`AxisCtx`
-that carries them and, under a group, its
-:class:`~repro_torch.dist.collectives.Transport`.  A model axis larger than 1
-raises (tensor parallelism is not ported).
+Counterpart of ``repro/launch/mesh.py``.  A ``Dx1`` mesh has ``D``
+data-parallel groups (the FL clients) and a model axis of size 1, run either
+in one process (the clients in a loop on one device) or as ``D`` processes of
+a ``torch.distributed`` group, one client a rank (:func:`init_distributed`
+reads torchrun's environment).  A ``DxT`` mesh with ``T > 1`` (tensor
+parallelism) runs only as ``D * T`` processes, one a mesh device: model
+shards meet inside every layer, so they cannot run in a loop, and in one
+process such a mesh raises.  Rank ``r`` is data index ``r // T`` and model
+index ``r % T``, ``jax.make_mesh((D, T))``'s device order (data-major).
+There is no device mesh object; the spec string gives the axis sizes and
+:func:`axis_ctx_for` the :class:`AxisCtx` that carries them and, under a
+group, a :class:`~repro_torch.dist.collectives.Transport` over each of the
+rank's groups: its model group (the T ranks of its data row) and its batch
+group (the D ranks of its model column).
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ import os
 
 import torch
 
-from repro_torch.dist.collectives import AxisCtx, Transport
+from repro_torch.dist.collectives import AxisCtx, Transport, one_process_tp_message
 
 BACKENDS = ("nccl", "gloo")
 
@@ -33,31 +38,66 @@ def parse_mesh(spec: str) -> tuple[tuple[int, ...], tuple[str, ...]]:
     return shape, _AXES_FOR_RANK[len(shape)]
 
 
+def mesh_ranks(D: int, T: int) -> tuple[list, list]:
+    """``(model_groups, batch_groups)`` of a ``DxT`` mesh's ranks: data row
+    ``d``'s model group ``[d*T, ..., d*T + T - 1]`` and model column ``t``'s
+    batch group ``[t, T + t, ..., (D - 1)*T + t]`` (rank ``r`` is device
+    ``r`` of ``jax.make_mesh((D, T))``: data index ``r // T``, model index
+    ``r % T``)."""
+    return ([[d * T + t for t in range(T)] for d in range(D)],
+            [[d * T + t for d in range(D)] for t in range(T)])
+
+
 def axis_ctx_for(spec: str, group=None) -> AxisCtx:
     """The :class:`AxisCtx` of a mesh spec: batch (and FSDP) axes ``("pod",
     "data")`` or ``("data",)``, the model axis if named, and their sizes.
     ``group``: a ``torch.distributed`` process group (``"default"`` for the
-    initialized default group) whose ranks are the mesh's clients; its size
-    must be the mesh's data-parallel size."""
+    initialized default group) whose ranks are the mesh's devices, in
+    :func:`mesh_ranks`' order; its size must be the mesh's ``D * T``.  A
+    model axis larger than 1 needs the group (it raises without one).
+
+    Under a ``DxT`` group with both axes above 1 every rank creates every
+    model and batch subgroup, in the same order (``new_group`` is collective
+    over the whole group: a rank that skipped one would hang the others),
+    and keeps the two it belongs to."""
     shape, names = parse_mesh(spec)
     batch = ("pod", "data") if "pod" in names else ("data",)
     model = "model" if "model" in names else None
-    if dict(zip(names, shape)).get("model", 1) > 1:
-        raise NotImplementedError(
-            f"mesh {spec!r}: a model axis > 1 (tensor parallelism) is not ported; "
-            "the port runs Dx1 meshes (ROADMAP queue 1, item 9)")
     sizes = tuple(zip(names, shape))
-    if group is None:
-        return AxisCtx(batch_axes=batch, model_axis=model, fsdp_axes=batch, sizes=sizes)
-    transport = Transport(None if group == "default" else group)
-    dp = 1
+    T = dict(sizes).get("model", 1)
+    D = 1
     for name, n in sizes:
-        dp *= n if name in batch else 1
-    if transport.size != dp:
-        raise ValueError(f"mesh {spec!r} has {dp} data-parallel groups but the process group "
-                         f"has {transport.size} ranks (WORLD_SIZE); a Dx1 mesh wants D ranks")
-    return AxisCtx(batch_axes=batch, model_axis=model, fsdp_axes=batch, sizes=sizes,
-                   client=transport.rank, transport=transport)
+        D *= n if name in batch else 1
+    kw = dict(batch_axes=batch, model_axis=model, fsdp_axes=batch, sizes=sizes)
+    if group is None:
+        if T > 1:
+            raise ValueError(one_process_tp_message(T, spec))
+        return AxisCtx(**kw)
+    import torch.distributed as dist
+
+    whole = None if group == "default" else group
+    world = dist.get_world_size(whole)
+    if world != D * T:
+        raise ValueError(f"mesh {spec!r} has {D}x{T} = {D * T} devices but the process group "
+                         f"has {world} ranks (WORLD_SIZE); a DxT mesh wants D*T ranks, one a "
+                         "device")
+    if T == 1:
+        transport = Transport(whole)
+        return AxisCtx(**kw, client=transport.rank, transport=transport)
+    rank = dist.get_rank(whole)
+    if D == 1:
+        return AxisCtx(**kw, model_rank=rank, model_transport=Transport(whole))
+    members = (dist.get_process_group_ranks(whole) if whole is not None
+               else list(range(world)))
+    model_groups, batch_groups = mesh_ranks(D, T)
+    mine: dict = {}
+    for kind, groups in (("model", model_groups), ("batch", batch_groups)):
+        for ranks in groups:
+            g = dist.new_group([members[r] for r in ranks])
+            if rank in ranks:
+                mine[kind] = g
+    return AxisCtx(**kw, client=rank // T, transport=Transport(mine["batch"]),
+                   model_rank=rank % T, model_transport=Transport(mine["model"]))
 
 
 def launched_ranks() -> int | None:

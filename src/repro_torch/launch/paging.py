@@ -166,7 +166,8 @@ class SlotPager:
         return int(pages.size)
 
 
-def set_page_tables(caches, table: np.ndarray, rows: slice | None = None):
+def set_page_tables(caches, table: np.ndarray, rows: slice | None = None,
+                    model_shard: int | None = None, tp: int = 1):
     """Push a host page table into every :class:`PagedKVCache` of a cache
     tree (one cache, or a hybrid's dict of caches).
 
@@ -175,17 +176,30 @@ def set_page_tables(caches, table: np.ndarray, rows: slice | None = None):
     logical table).  ``rows``: the slots of one data shard's caches (shard
     ``c`` of a ``Dx1`` mesh owns ``slice(c * b, (c + 1) * b)``); its page
     ids, from the one pager over every slot, index the shard's own pool.
-    Other caches pass through.
+    ``model_shard``: the model index of a sequence-parallel cache on ``tp``
+    model shards, whose global table is ``(B, tp * n_loc)`` (the
+    reference's table split over the model axis): shard t takes columns
+    ``[t * n_loc, (t + 1) * n_loc)``, page ids of its own pool; a table of
+    another width raises.  Without it the table is taken whole (one device,
+    or the KV-sharded layout, where every model shard indexes the whole
+    table).  Other caches pass through.
     """
     from repro_torch.models.attention import PagedKVCache
 
     if isinstance(caches, dict):
-        return {k: set_page_tables(c, table, rows) for k, c in caches.items()}
+        return {k: set_page_tables(c, table, rows, model_shard, tp)
+                for k, c in caches.items()}
     if not isinstance(caches, PagedKVCache):
         return caches
     table = np.asarray(table, np.int32)
     if rows is not None:
         table = table[rows]
+    if model_shard is not None:
+        n_loc = caches.page_table.shape[-1]
+        if table.shape[1] != tp * n_loc:
+            raise ValueError(f"a sequence-parallel page table over {tp} model shards of "
+                             f"{n_loc} pages wants {tp * n_loc} columns, not {table.shape[1]}")
+        table = table[:, model_shard * n_loc:(model_shard + 1) * n_loc]
     pt = torch.as_tensor(table).to(caches.page_table.device)
     return caches._replace(page_table=pt[None].expand(caches.page_table.shape))
 

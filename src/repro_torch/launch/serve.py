@@ -15,14 +15,23 @@ caches and page pool; in one process they run one after another on the
 device.  Launched by torchrun, each of the D processes is one shard: it
 holds its FSDP slice of the packed weights, every rank runs the one host
 scheduler, the sampled tokens are all-gathered, and rank 0 prints.
-``--backend`` is ``nccl`` on CUDA (one card a rank) and ``gloo`` on the CPU;
-``--share-device`` puts every rank on ``cuda:0`` and needs ``gloo``::
+``--mesh DxT`` with T > 1 (tensor parallelism, the dense and MoE families)
+runs only under torchrun, D*T processes, one model shard of one data shard
+each (in one process it raises).  ``--backend`` is ``nccl`` on CUDA (one
+card a rank) and ``gloo`` on the CPU; ``--share-device`` puts every rank on
+``cuda:0`` and needs ``gloo``::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --mesh 2x1 \
         --arch yi-6b --smoke --steps 24 --batch 4 --s-max 32 --attn-impl flash
     PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 2 \
         -m repro_torch.launch.serve --device cpu --backend gloo --mesh 2x1 \
         --arch yi-6b --smoke --steps 24 --batch 4 --s-max 32 --attn-impl flash
+    PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 4 \
+        -m repro_torch.launch.serve --device cpu --backend gloo --mesh 1x4 \
+        --arch glm4-9b --smoke --steps 24 --batch 4 --s-max 32 --attn-impl flash
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \
+        -m repro_torch.launch.serve --backend gloo --share-device --mesh 1x4 \
+        --arch yi-6b --batch 4 --s-max 256 --prompt-len 128 --attn-impl flash
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ def run_serve(arch: str, *, smoke: bool = True, steps: int = 32, batch: int = 4,
     """Builds a RunSpec and drives ``Session.serve`` on ``device`` (CUDA by
     default) over ``mesh`` (``Dx1``: D data shards of ``batch // D`` slots).
 
+    ``DxT`` with T > 1 runs one mesh device a rank under torchrun.
     ``serve_bits >= 32`` serves raw f32 weights; ``< 32`` maps to a lazy
     packed :class:`~repro_torch.api.PrecisionPolicy` (int8/int16 ``QTensor``
     storage, ``quant_matmul`` path).  ``precision_program`` plus
@@ -87,7 +97,9 @@ def main(argv=None):
     ap.add_argument("--attn-impl", choices=("ref", "flash"), default="ref",
                     help="attention: plain PyTorch reference or the flash kernels")
     ap.add_argument("--mesh", default="1x1",
-                    help="DATAx1: the batch in D data shards (one a rank under torchrun)")
+                    help="DATAxMODEL: the batch in D data shards (one a rank under "
+                         "torchrun); MODEL > 1 splits the model over T ranks (torchrun only: "
+                         "D*T ranks)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--requests", type=int, default=None,
                     help="queue size (default 2x batch)")

@@ -123,6 +123,10 @@ def build_train_step(model: Model, axes: AxisCtx, opt: Optimizer,
     (K2 split across the ranks), and ``loss`` is ``pmean_batch``-ed,
     ``grad_sq_shard_sum`` ``psum_batch``-ed from each rank's part.
     """
+    if axes.tp > 1:
+        raise NotImplementedError(
+            f"build_train_step on a model axis of {axes.tp}: training under tensor "
+            "parallelism is not ported (ROADMAP queue 1, item 9c)")
     cfg = model.cfg
     D = axes.dp
     bits = int(train_cfg.grad_compression_bits)
@@ -211,25 +215,47 @@ def build_train_step(model: Model, axes: AxisCtx, opt: Optimizer,
 
 def build_init_fn(model: Model, axes: AxisCtx, *, device=None, pack=None):
     """``init(generator) -> params``: this rank's storage of the one-process
-    init from ``generator`` — its FSDP shard of every FSDP leaf, every
-    replicated leaf whole (the one-process init itself without a group).
+    init from ``generator`` — its tensor-parallel slice of every leaf on a
+    model axis above 1, then its FSDP shard of every FSDP leaf of that,
+    every replicated leaf whole (the one-process init itself without a
+    group).
 
-    Every rank draws the whole model from the same generator, so the shards
-    are slices of exactly the one-process leaves; each leaf is sliced as
-    soon as it is drawn (:func:`repro_torch.models.common.sharded_init`),
-    so a rank holds one whole leaf at a time, never the whole model.
-    ``pack(leaves) -> leaves`` (serving's
+    Every rank draws the whole ``tp = 1`` model from the same generator,
+    so the shards are slices of exactly the one-process leaves, and a leaf
+    replicated over the model axis is the same on every rank (the
+    reference inits each model shard from its own key instead: ROADMAP §3,
+    D14); each leaf is cut as soon as it is drawn
+    (:func:`repro_torch.models.common.sharded_init`, the model cut by
+    :func:`repro_torch.dist.sharding.cut_model` on the reference's global
+    layout), so a rank holds one whole leaf at a time, never the whole
+    model.  ``pack(leaves) -> leaves`` (serving's
     :func:`~repro_torch.models.common.pack_params_for_policy`) turns each
-    whole leaf into its storage before it is sliced: leaf by leaf, so a
-    rank's codes and scales are the one-process packing's, sliced.
+    whole leaf into its storage before it is cut: leaf by leaf, so a rank's
+    codes are the one-process packing's, cut, and its scales the whole
+    leaves' (the reference packs its global arrays).
     """
+    from repro_torch.models.model import require_tp_ported
+
+    require_tp_ported(model.cfg, axes.tp)
+    cut = None
+    if axes.tp > 1:
+        from repro_torch.dist.sharding import cut_model, tree_param_specs
+        from repro_torch.models.transformer import attn_dims
+
+        kv = attn_dims(model.cfg, axes.tp).kv_sharded
+
+        def cut(path, w):
+            leaf = {path: w}
+            return cut_model(leaf, tree_param_specs(leaf, model.cfg, axes, 1, kv), axes,
+                             axes.tp_index())[path]
+
     def init(generator: torch.Generator) -> dict:
-        if axes.transport is None or axes.fsdp == 1:
-            params = model.init(generator, axes.tp, device=device)
+        if cut is None and (axes.transport is None or axes.fsdp == 1):
+            params = model.init(generator, 1, device=device)
             return params if pack is None else pack(params)
         return common.sharded_init(
             lambda meta: model.init(torch.Generator().manual_seed(0) if meta else generator,
-                                    axes.tp, device="meta" if meta else device), axes, pack)
+                                    1, device="meta" if meta else device), axes, pack, cut)
 
     return init
 
@@ -256,10 +282,18 @@ class ServeStep:
 
 
 def _greedy_pick(axes: AxisCtx, tp: int, vl: int, logits):
-    """Greedy token over logits (B, 1, V) -> (B, 1) int32; the first index
-    wins a tie, as ``jnp.argmax`` does."""
+    """Greedy token over vocab-parallel local logits (B, 1, V/tp) -> (B, 1)
+    int32; the first index wins a tie, as ``jnp.argmax`` does.  Under tp the
+    shards agree on the max (``pmax``), and among the shards that hold it
+    the smallest global id wins (``pmin``; ``2**30`` for a shard that lost),
+    so every model rank picks the same token."""
     lg = logits[:, -1, :].to(torch.float32)
+    mloc = lg.amax(dim=-1)
     iloc = torch.argmax(lg, dim=-1).to(torch.int32) + axes.tp_index() * vl
+    if tp > 1:
+        mglob = axes.pmax_model(mloc)
+        cand = torch.where(mloc >= mglob, iloc, torch.full_like(iloc, 2**30))
+        iloc = axes.pmin_model(cand)
     return iloc[:, None]
 
 
@@ -274,11 +308,13 @@ def _cache_kwargs(page_size, pool_pages) -> dict:
 def init_global_caches(model: Model, axes: AxisCtx, *, s_max: int, batch_global: int,
                        dtype=torch.float32, device=None, page_size: int | None = None,
                        pool_pages: int | None = None):
-    """Allocate one data shard's decode caches: ``batch_global // axes.dp``
+    """Allocate one mesh device's decode caches: ``batch_global // axes.dp``
     slots (the reference's ``b_local``), and on the paged layout a whole pool
     of ``pool_pages`` pages (the pool has no batch entry in
-    :func:`~repro_torch.dist.sharding.cache_specs`: each shard keeps its own).
-    On a ``1x1`` mesh this is the launch's whole cache.
+    :func:`~repro_torch.dist.sharding.cache_specs`: each shard keeps its own);
+    at ``axes.tp`` the model shard's local shapes (its KV heads, or on the
+    sequence-parallel layout its ``s_max / tp`` positions).  On a ``1x1``
+    mesh this is the launch's whole cache.
 
     ``page_size``/``pool_pages`` select the paged KV layout; its page tables
     start all-unallocated (-1), everything else zeroed.  ``device="meta"``

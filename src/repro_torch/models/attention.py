@@ -1,4 +1,5 @@
-"""Attention: GQA/MQA/MHA on one device, with contiguous or paged KV caches.
+"""Attention: GQA/MQA/MHA with tensor parallelism over heads, with
+contiguous or paged KV caches.
 
 Counterpart of ``repro/models/attention.py``.  Execution paths:
 
@@ -19,8 +20,16 @@ are those the reference's functional updates produce.  The reference's
 ``.at[].set(mode="drop")`` writes go through :func:`_put_rows`, which drops
 them explicitly (torch would raise on the out-of-range "drop" index).
 
-Only the ``tp == 1`` (equivalently kv-sharded) layout is ported; the
-sequence-parallel cache arrives with the multi-GPU slice.
+Head sharding, as in the reference: q heads split over the model axis; KV
+heads split when ``n_kv % tp == 0`` and otherwise replicated on every shard,
+and then the self-attention cache is **sequence-parallel**: shard t holds
+the positions ``[t*S_max/tp, (t+1)*S_max/tp)`` with every KV head, a decode
+token is written only by the shard that owns its position, and the
+one-token attention gathers q to all heads and merges the shards' partials
+with a distributed online softmax (``pmax`` of the maxima, ``psum`` of the
+rescaled sums), through the flash-decode kernel's unnormalised ``(acc, m,
+l)`` on the paged layout.  The cross-attention functions (VLM, enc-dec) run
+at ``tp = 1`` only (ROADMAP queue 1, item 9b).
 """
 
 from __future__ import annotations
@@ -34,8 +43,8 @@ from repro_torch.kernels import ops
 from repro_torch.models.common import ParamCtx, init_dense
 from repro_torch.models.layers import apply_rope, dense, rope_tables, sp_out
 
-_SEQPAR_TODO = ("the sequence-parallel KV cache (tp > 1 with replicated KV heads) "
-                "is ported with tensor parallelism (ROADMAP queue 1, item 9)")
+_CROSS_TP_TODO = ("cross-attention with replicated KV heads under tp > 1 (the VLM and "
+                  "enc-dec families) is not ported (ROADMAP queue 1, item 9b)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,12 +80,14 @@ class AttnDims:
 
 
 def kv_cache_seq_parallel(dims: AttnDims) -> bool:
+    """Whether the KV heads replicate over tp, so the self-attention cache
+    is sharded over the sequence instead."""
     return dims.tp > 1 and not dims.kv_sharded
 
 
 def _require_local_kv(dims: AttnDims) -> None:
     if kv_cache_seq_parallel(dims):
-        raise NotImplementedError(_SEQPAR_TODO)
+        raise NotImplementedError(_CROSS_TP_TODO)
 
 
 def init_attention(gen: torch.Generator, dims: AttnDims, *, lead=(), device=None,
@@ -104,10 +115,19 @@ def _project_qkv(pc: ParamCtx, path, p, x, x_kv, dims: AttnDims, q_pos, kv_pos):
     return q, k, v
 
 
-def _expand_kv(k, dims: AttnDims):
+def _expand_kv(k, dims: AttnDims, tp_idx=None):
     """(B, S, KVl, hd) -> (B, S, Hl, hd): repeat each kv head ``group``x
-    (``jnp.repeat`` order: head h uses kv head h // group)."""
-    return torch.repeat_interleave(k, dims.group, dim=2)
+    (``jnp.repeat`` order: head h uses kv head h // group).
+
+    KV-sharded: the local kv heads expand to exactly the local q heads.
+    KV replicated under tp > 1: expand to ALL q heads, then keep shard
+    ``tp_idx``'s q-head range (``tp_idx=None``: all of them, for the
+    sequence-parallel decode)."""
+    e = torch.repeat_interleave(k, dims.group, dim=2)
+    if dims.kv_sharded or dims.tp == 1 or tp_idx is None:
+        return e
+    hl = dims.heads_local
+    return e[:, :, tp_idx * hl:(tp_idx + 1) * hl]
 
 
 def _full_attention(q, k, v, causal: bool, q_off: int = 0):
@@ -162,8 +182,8 @@ def self_attention(pc: ParamCtx, path: str, p, x, dims: AttnDims,
     S = x.shape[1]
     pos = torch.arange(S, device=x.device)
     q, k, v = _project_qkv(pc, path, p, x, x, dims, pos, pos)
-    _require_local_kv(dims)
-    ke, ve = _expand_kv(k, dims), _expand_kv(v, dims)
+    tp_idx = pc.ctx.tp_index()
+    ke, ve = _expand_kv(k, dims, tp_idx), _expand_kv(v, dims, tp_idx)
     if impl == "auto":
         impl = "chunked" if S > 4096 else "full"
     if impl == "flash":
@@ -241,8 +261,10 @@ class PagedKVCache(NamedTuple):
 
 def init_kv_cache(batch: int, s_max: int, dims: AttnDims, dtype=torch.bfloat16,
                   *, device=None, lead=()):
-    _require_local_kv(dims)
-    shape = tuple(lead) + (batch, s_max, dims.kv_local, dims.head_dim)
+    """A zeroed contiguous cache: ``(B, S_loc, KVl, hd)`` slabs, ``S_loc =
+    s_max // tp`` on the sequence-parallel layout (``s_max`` otherwise)."""
+    s_local = s_max // dims.tp if kv_cache_seq_parallel(dims) else s_max
+    shape = tuple(lead) + (batch, s_local, dims.kv_local, dims.head_dim)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(tuple(lead) + (batch,), dtype=torch.int32, device=device))
@@ -254,14 +276,20 @@ def init_paged_kv_cache(batch: int, s_max: int, dims: AttnDims,
                         lead=()) -> PagedKVCache:
     """Paged cache with an all-unallocated page table (entries -1).
 
-    ``pool_pages`` defaults to the contiguous footprint (``batch * s_max /
-    page``); drivers shrink it to the workload's demand.
+    ``pool_pages`` is the per-shard pool; it defaults to the contiguous
+    footprint (``batch * S_loc / page``); drivers shrink it to the
+    workload's demand.  On the sequence-parallel layout a slot's logical
+    pages cover the shard's ``S_loc = s_max / tp`` positions.
     """
-    _require_local_kv(dims)
-    if s_max % page_size:
+    seqpar = kv_cache_seq_parallel(dims)
+    if seqpar and s_max % dims.tp:
+        raise ValueError(f"s_max={s_max} must divide tp={dims.tp} for the "
+                         "sequence-parallel paged cache")
+    s_local = s_max // dims.tp if seqpar else s_max
+    if s_local % page_size:
         raise ValueError(f"page_size={page_size} must divide the per-shard "
-                         f"sequence capacity {s_max}")
-    n_pmax = s_max // page_size
+                         f"sequence capacity {s_local}")
+    n_pmax = s_local // page_size
     if pool_pages is None:
         pool_pages = batch * n_pmax
     lead = tuple(lead)
@@ -284,10 +312,11 @@ def demote_kv_cache(caches, dtype):
     return caches
 
 
-def _check_prompt_fits(S_p: int, S_loc: int) -> None:
-    if S_p > S_loc:
+def _check_prompt_fits(S_p: int, S_loc: int, dims: AttnDims) -> None:
+    S_glob = S_loc * (dims.tp if kv_cache_seq_parallel(dims) else 1)
+    if S_p > S_glob:
         raise ValueError(
-            f"prompt length {S_p} exceeds the KV-cache capacity {S_loc} "
+            f"prompt length {S_p} exceeds the KV-cache capacity {S_glob} "
             "(s_max); raise s_max or bucket the request — refusing to "
             "silently truncate the prompt")
 
@@ -326,14 +355,16 @@ def prefill_kv_cache(pc: ParamCtx, cache, k, v, dims: AttnDims, prompt_lens=None
     true lengths when the prompt batch is right-padded to a bucket; lengths
     default to S_p.  Prompts longer than the cache raise instead of
     truncating.  Positions ``>= prompt_lens[b]`` keep the cache's contents.
+    On the sequence-parallel layout each shard keeps the prompt positions of
+    its own range.
     """
-    _require_local_kv(dims)
     if isinstance(cache, PagedKVCache):
         return _prefill_paged(pc, cache, k, v, dims, prompt_lens)
     S_loc, S_p = cache.k.shape[1], k.shape[1]
-    _check_prompt_fits(S_p, S_loc)
+    _check_prompt_fits(S_p, S_loc, dims)
     plens = _prompt_lens(k.shape[0], S_p, prompt_lens, k.device)
-    gpos = torch.arange(S_loc, device=k.device)
+    base = pc.ctx.tp_index() * S_loc if kv_cache_seq_parallel(dims) else 0
+    gpos = base + torch.arange(S_loc, device=k.device)
     idx = torch.clamp(gpos, 0, S_p - 1)
     sel = (gpos[None, :] < plens[:, None])[:, :, None, None]
     cache.k.copy_(torch.where(sel, k.to(cache.k.dtype)[:, idx], cache.k))
@@ -347,9 +378,10 @@ def _prefill_paged(pc: ParamCtx, cache: PagedKVCache, k, v, dims: AttnDims,
     n_pmax = cache.page_table.shape[1]
     page = cache.page_size
     S_loc = n_pmax * page
-    _check_prompt_fits(S_p, S_loc)
+    _check_prompt_fits(S_p, S_loc, dims)
     plens = _prompt_lens(B, S_p, prompt_lens, k.device)
-    gpos = torch.arange(S_loc, device=k.device)
+    base = pc.ctx.tp_index() * S_loc if kv_cache_seq_parallel(dims) else 0
+    gpos = base + torch.arange(S_loc, device=k.device)
     idx = torch.clamp(gpos, 0, S_p - 1)
     sel = gpos[None, :] < plens[:, None]                       # (B, S_loc)
     pt = cache.page_table.to(torch.long).reshape(-1)           # (B * n_pmax,)
@@ -369,18 +401,41 @@ def _prefill_paged(pc: ParamCtx, cache: PagedKVCache, k, v, dims: AttnDims,
 
 def _attend_decode(pc: ParamCtx, q, kview, vview, length, dims: AttnDims,
                    extra_mask=None):
-    """One-token decode attention over a contiguous K/V view.
+    """One-token decode attention over a local contiguous K/V view.
 
     ``kview``/``vview``: (B, S_loc, KVl, hd) — a contiguous slab or the
     page-gathered reconstruction of one.  Positions ``<= length[b]`` are
     attended (``length`` is the count BEFORE this step's token); ``extra_mask``
-    (B, S_loc) further restricts (paged: unallocated pages).
+    (B, S_loc) further restricts (paged: unallocated pages).  The
+    sequence-parallel layout merges the shards' partials with a distributed
+    online softmax: q gathered to all heads, the maxima's ``pmax``, the
+    sums' and the weighted values' ``psum``.
     Returns y (B, 1, heads_local, hd).
     """
     S_loc = kview.shape[1]
     scale = dims.head_dim ** -0.5
-    ke = _expand_kv(kview.to(q.dtype), dims)
-    ve = _expand_kv(vview.to(q.dtype), dims)
+    tp_idx = pc.ctx.tp_index()
+    if kv_cache_seq_parallel(dims):
+        # every shard needs ALL q heads against its slice of the positions
+        qg = pc.ctx.all_gather_model(q, axis=2)                      # (B, 1, H, hd)
+        ke = _expand_kv(kview.to(q.dtype), dims)                    # H heads
+        ve = _expand_kv(vview.to(q.dtype), dims)
+        s = torch.einsum("bqhd,bkhd->bhqk", qg, ke).to(torch.float32) * scale
+        gpos = tp_idx * S_loc + torch.arange(S_loc, device=q.device)
+        gmask = gpos[None, :] <= length[:, None]                     # (B, S)
+        if extra_mask is not None:
+            gmask = gmask & extra_mask
+        s = torch.where(gmask[:, None, None, :], s, torch.full_like(s, -1e30))
+        m_glob = pc.ctx.pmax_model(s.amax(dim=-1))                   # (B, H, 1)
+        pexp = torch.exp(s - m_glob[..., None])
+        l_glob = pc.ctx.psum_model(pexp.sum(dim=-1))
+        acc_glob = pc.ctx.psum_model(torch.einsum("bhqk,bkhd->bhqd", pexp.to(q.dtype), ve))
+        y = acc_glob / torch.clamp(l_glob, min=1e-30)[..., None].to(q.dtype)
+        y = y.permute(0, 2, 1, 3)                                    # (B, 1, H, hd)
+        hl = dims.heads_local                  # back to this shard's heads for wo
+        return y[:, :, tp_idx * hl:(tp_idx + 1) * hl]
+    ke = _expand_kv(kview.to(q.dtype), dims, tp_idx)
+    ve = _expand_kv(vview.to(q.dtype), dims, tp_idx)
     s = torch.einsum("bqhd,bkhd->bhqk", q, ke).to(torch.float32) * scale
     att_mask = torch.arange(S_loc, device=q.device)[None, :] <= length[:, None]
     if extra_mask is not None:
@@ -390,27 +445,43 @@ def _attend_decode(pc: ParamCtx, q, kview, vview, length, dims: AttnDims,
     return torch.einsum("bhqk,bkhd->bqhd", w, ve)
 
 
+def _token_position(length, S_loc: int, dims: AttnDims, tp_idx: int):
+    """``(ok, local position)`` of each slot's new token on this shard: the
+    sequence-parallel shard that owns global position ``length[b]`` (its
+    ``[t*S_loc, (t+1)*S_loc)``) writes it; otherwise every shard, while the
+    position is inside its ``S_loc``.  ``ok`` False: nothing is written."""
+    if kv_cache_seq_parallel(dims):
+        owner = length // S_loc
+        ok = owner == tp_idx
+        lpos = length - owner * S_loc
+    else:
+        ok = length < S_loc
+        lpos = length
+    return ok, torch.where(ok, lpos, torch.zeros_like(lpos))
+
+
 def decode_self_attention(pc: ParamCtx, path: str, p, x, cache,
                           dims: AttnDims, *, impl: str = "ref"):
     """One-token decode: x (B, 1, D); returns (y, cache with lengths + 1).
 
-    Slot b's new token writes at ``length[b]`` (in place) and attends to
-    positions ``<= length[b]``, so sequences admitted at different times
-    coexist in one step.  :class:`PagedKVCache` takes ``impl="ref"`` (gather
-    pages into the contiguous view) or ``impl="flash"`` (the flash-decode
-    kernel walks the page table).
+    Slot b's new token writes at ``length[b]`` (in place; on the
+    sequence-parallel layout only the shard owning that position writes)
+    and attends to positions ``<= length[b]``, so sequences admitted at
+    different times coexist in one step.  :class:`PagedKVCache` takes
+    ``impl="ref"`` (gather pages into the contiguous view) or
+    ``impl="flash"`` (the flash-decode kernel walks the page table).
     """
-    _require_local_kv(dims)
     if isinstance(cache, PagedKVCache):
         return _decode_paged(pc, path, p, x, cache, dims, impl=impl)
     pos = cache.length[:, None]                      # (B, 1) per-seq positions
     q, k, v = _project_qkv(pc, path, p, x, x, dims, pos, pos)
     S_loc = cache.k.shape[1]
-    # a slot at capacity writes nothing (the reference's where-mask selects
-    # no position): it rewrites its own position 0 with its own contents
-    ok = cache.length < S_loc
+    # a slot whose position is not this shard's writes nothing (the
+    # reference's where-mask selects no position): it rewrites its own
+    # position 0 with its own contents
+    ok, tpos = _token_position(cache.length, S_loc, dims, pc.ctx.tp_index())
     b = torch.arange(x.shape[0], device=x.device)
-    tpos = torch.where(ok, cache.length, 0).to(torch.long)
+    tpos = tpos.to(torch.long)
     for slab, new in ((cache.k, k), (cache.v, v)):
         slab[b, tpos] = torch.where(ok[:, None, None], new[:, 0].to(slab.dtype),
                                     slab[b, 0])
@@ -422,20 +493,18 @@ def decode_self_attention(pc: ParamCtx, path: str, p, x, cache,
     return out, KVCache(cache.k, cache.v, cache.length + 1)
 
 
-def _paged_write_token(cache: PagedKVCache, k_tok, v_tok):
+def _paged_write_token(cache: PagedKVCache, k_tok, v_tok, dims: AttnDims, tp_idx: int):
     """Write one token's K/V (B, KVl, hd) at position ``length[b]``, in place.
 
     The write lands in page ``page_table[b, pos // page]`` at offset
-    ``pos % page``; it is DROPPED when the position is past the slot's range
-    or the page is unallocated — a slot past its capacity can only lose its
-    own new token, never clobber another slot's pages.
+    ``pos % page`` (``pos`` local to the shard); it is DROPPED when the
+    position is outside this shard's range or the page is unallocated — a
+    slot past its capacity can only lose its own new token, never clobber
+    another slot's pages.
     """
     n_pmax = cache.page_table.shape[1]
     page = cache.page_size
-    S_loc = n_pmax * page
-    length = cache.length.to(torch.long)
-    in_range = length < S_loc
-    lpos = torch.where(in_range, length, torch.zeros_like(length))
+    in_range, lpos = _token_position(cache.length.to(torch.long), n_pmax * page, dims, tp_idx)
     j = lpos // page
     off = lpos % page
     pid = torch.gather(cache.page_table.to(torch.long), 1, j[:, None])[:, 0]
@@ -449,16 +518,17 @@ def _decode_paged(pc: ParamCtx, path: str, p, x, cache: PagedKVCache,
                   dims: AttnDims, *, impl: str = "ref"):
     pos = cache.length[:, None]
     q, k, v = _project_qkv(pc, path, p, x, x, dims, pos, pos)
-    _paged_write_token(cache, k[:, 0], v[:, 0])
+    tp_idx = pc.ctx.tp_index()
+    _paged_write_token(cache, k[:, 0], v[:, 0], dims, tp_idx)
     new_cache = PagedKVCache(cache.k_pages, cache.v_pages, cache.page_table,
                              cache.length + 1)
     B, n_pmax = cache.page_table.shape
     page = cache.page_size
     if impl == "flash":
-        y = _paged_flash_attend(pc, q, new_cache, dims)
+        y = _paged_flash_attend(pc, q, new_cache, dims, tp_idx)
     else:
-        # reference path: gather pages into the contiguous view and run the
-        # exact slab math
+        # reference path: gather pages into the contiguous per-shard view and
+        # run the exact slab math
         pids = cache.page_table.to(torch.long).clamp(min=0)
         kview = cache.k_pages[pids].reshape((B, n_pmax * page) + cache.k_pages.shape[2:])
         vview = cache.v_pages[pids].reshape((B, n_pmax * page) + cache.v_pages.shape[2:])
@@ -469,25 +539,47 @@ def _decode_paged(pc: ParamCtx, path: str, p, x, cache: PagedKVCache,
     return out, new_cache
 
 
-def _paged_flash_attend(pc: ParamCtx, q, cache: PagedKVCache, dims: AttnDims):
+def _paged_flash_attend(pc: ParamCtx, q, cache: PagedKVCache, dims: AttnDims, tp_idx: int):
     """Batched flash-decode over the page pool (the flash-decode kernel).
 
-    Returns y (B, 1, heads_local, hd).
+    The kernel returns unnormalised ``(acc, m, l)`` partials over the
+    shard's pages.  On the sequence-parallel layout q is gathered to all
+    heads, the kernel runs at the shard's local lengths ``clamp(length -
+    t*S_loc, 0, S_loc)`` (0 where the slot has no position on the shard:
+    ``m = -1e30, l = 0, acc = 0``), and the partials merge across the model
+    axis as the reference's distributed softmax does: ``m_glob = pmax(m)``,
+    ``l = psum(l * exp(m - m_glob))``, ``acc`` likewise; then the shard's
+    own heads are kept.  Returns y (B, 1, heads_local, hd).
     """
+    seqpar = kv_cache_seq_parallel(dims)
     B, n_pmax = cache.page_table.shape
     S_loc = n_pmax * cache.page_size
     hd = dims.head_dim
-    qh = q[:, 0]                                         # (B, Hl, hd)
-    kvh, n_q = dims.kv_local, dims.heads_local
+    if seqpar:
+        qh = pc.ctx.all_gather_model(q, axis=2)[:, 0]        # (B, H, hd)
+        n_q, base = dims.n_heads, tp_idx * S_loc
+    else:
+        qh = q[:, 0]                                         # (B, Hl, hd)
+        n_q, base = dims.heads_local, 0
+    kvh = dims.kv_local
     # group q heads by their kv head (matches _expand_kv's repeat order)
     qr = qh.reshape(B, kvh, n_q // kvh, hd)
     # cache.length was already incremented by the write, so it IS the valid
-    # token count (including the just-written token)
-    lloc = torch.clamp(cache.length, 0, S_loc)
+    # token count (including the just-written token); local to the shard
+    lloc = torch.clamp(cache.length - base, 0, S_loc)
     acc, m, l = ops.flash_paged_decode(qr, cache.k_pages, cache.v_pages,
                                        cache.page_table, lloc)
+    if seqpar:
+        m_glob = pc.ctx.pmax_model(m)
+        corr = torch.exp(m - m_glob)
+        l = pc.ctx.psum_model(l * corr)
+        acc = pc.ctx.psum_model(acc * corr)
     y = (acc / torch.clamp(l, min=1e-30)).to(q.dtype)   # (B,KVh,G,hd)
-    return y.reshape(B, 1, n_q, hd)
+    y = y.reshape(B, 1, n_q, hd)
+    if seqpar:
+        hl = dims.heads_local
+        y = y[:, :, tp_idx * hl:(tp_idx + 1) * hl]
+    return y
 
 
 # ---------------------------------------------------------------------------

@@ -11,14 +11,16 @@
 Parameters are a flat dict keyed by the reference's path strings
 (``"embed/table"``, ``"blocks/attn/wq"``, ...); leaves under ``blocks/`` keep
 their leading ``(L, ...)`` layer dim, as the reference's scanned stacks do.
-``tp = 1``.  In one process the port holds every leaf whole, so the FSDP
+In one process the port holds every leaf whole (``tp = 1``), so the FSDP
 gathers of the reference are identities (a traced step records each one the
 reference issues, :mod:`repro_torch.roofline.count`).  Under a process group
 (one client a rank) each rank holds its FSDP shard of every FSDP leaf
 (:func:`apply_fsdp_sharding`) and the whole of every replicated leaf, and
 :meth:`ParamCtx.use` all-gathers a shard at each use; the gather's backward
 is the reduce-scatter that returns the FSDP gradients summed and sharded.
-Which leaves the reference shards decides how a train step reduces their
+On a model axis of T > 1 ranks each holds its tensor-parallel slice of the
+whole model (:func:`sharded_init` with a model cut), then its FSDP slice of
+that.  Which leaves the reference shards decides how a train step reduces their
 gradients (:func:`fsdp_plan`): the sharded ones are mean-reduced in f32, the
 replicated ones cross the SR wire.
 """
@@ -182,23 +184,29 @@ def fsdp_plan(params: dict, fsdp: int, *, check_divisibility: bool = True):
     return paths, leaves, plan
 
 
-def sharded_init(init, ctx: AxisCtx, pack=None) -> dict:
-    """Rank ``ctx.dp_index()``'s storage of a model's init, each FSDP leaf
-    sliced as soon as it is drawn.
+def sharded_init(init, ctx: AxisCtx, pack=None, cut=None) -> dict:
+    """Rank ``ctx``'s storage of a model's init, each leaf cut to the rank's
+    piece as soon as it is drawn.
 
     ``init(meta)`` runs the model's init: on the meta device when ``meta``
     (which draw is which leaf, at no cost), then for real from the
     caller's generator, whose draws are exactly the one-process init's.  A
-    draw of :func:`init_dense` / :func:`init_embed` that becomes an FSDP
-    leaf is sliced to the rank's piece before the next draw, so a rank holds
-    one whole leaf at a time; a leaf drawn another way is sliced once the
-    init returns.
+    draw of :func:`init_dense` / :func:`init_embed` is cut to the rank's
+    piece before the next draw, so a rank holds one whole leaf at a time; a
+    leaf drawn another way is cut once the init returns.
 
-    ``pack(leaves) -> leaves`` (serving's :func:`pack_params_for_policy`)
-    turns each whole leaf into its storage before it is sliced, so a rank's
-    codes are the one-process codes sliced (the scale is the whole leaf's)."""
+    The piece of a whole leaf: ``pack(leaves) -> leaves`` (serving's
+    :func:`pack_params_for_policy`) turns it into its storage first (the
+    scale is the whole leaf's), then ``cut(path, w)`` keeps the rank's
+    model-axis slice (:func:`repro_torch.dist.sharding.cut_model`; None:
+    the model axis is 1), then the rank's FSDP slice of that, on
+    :func:`fsdp_plan`'s dim of the cut shapes."""
+    def tp(path, w):
+        return w if cut is None else cut(path, w)
+
     def keep(path, w, dim):
-        return shard_leaf(w if pack is None else pack({path: w})[path], dim, ctx)
+        w = w if pack is None else pack({path: w})[path]
+        return shard_leaf(tp(path, w), dim, ctx)
     drawn: list = []
     _INIT_HOOK[0] = lambda w: drawn.append(w) or w
     try:
@@ -206,7 +214,7 @@ def sharded_init(init, ctx: AxisCtx, pack=None) -> dict:
     finally:
         _INIT_HOOK[0] = None
     path_of = {id(w): p for p, w in meta.items()}
-    paths, _leaves, plan = fsdp_plan(meta, ctx.fsdp)
+    paths, _leaves, plan = fsdp_plan({p: tp(p, w) for p, w in meta.items()}, ctx.fsdp)
     dims = dict(zip(paths, plan))
     order = [path_of.get(id(w)) for w in drawn]
     del drawn, meta
@@ -215,7 +223,7 @@ def sharded_init(init, ctx: AxisCtx, pack=None) -> dict:
 
     def hook(w):
         path = next(at)
-        if path is not None and dims[path] is not None:
+        if path is not None and (cut is not None or dims[path] is not None):
             done.add(path)
             return keep(path, w, dims[path])
         return w
@@ -245,7 +253,7 @@ def apply_fsdp_sharding(params: dict, ctx: AxisCtx) -> dict:
 def shard_leaf(w, dim, ctx: AxisCtx):
     """Rank ``ctx.dp_index()``'s piece of a whole leaf ``w`` on ``dim`` (None:
     the leaf itself)."""
-    if dim is None:
+    if dim is None or ctx.fsdp == 1:
         return w
     if isinstance(w, QTensor):
         return QTensor(shard_leaf(w.codes, dim, ctx), w.scale)

@@ -3,8 +3,9 @@
 :func:`params_from_jax` takes the reference's nested parameter tree with
 numpy (or array-protocol) leaves — including packed ``QTensor`` leaves — and
 returns the port's flat dict: same path keys (a hybrid's
-``periods/sub0/mixer/wq`` too), same shapes, same dtypes.  Nothing of the
-reference is imported: packed leaves are recognised by their
+``periods/sub0/mixer/wq`` too), same shapes, same dtypes;
+:func:`rank_params_from_jax` cuts a tensor-parallel launch's global tree to
+one model shard's.  Nothing of the reference is imported: packed leaves are recognised by their
 ``codes``/``scale`` fields and caches by their field names.
 """
 
@@ -47,6 +48,21 @@ def params_from_jax(tree, *, device=None) -> dict:
 
     walk(tree, "")
     return out
+
+
+def rank_params_from_jax(tree, cfg, axes, *, device=None) -> dict:
+    """The reference's global parameter tree of a ``1xT`` (or ``DxT``)
+    launch as model shard ``axes.tp_index()``'s storage: every array read
+    whole (:func:`params_from_jax`; a replicated leaf's global array is its
+    device 0's copy), then cut to the shard's slice on the launch's model
+    layout (:func:`repro_torch.dist.sharding.cut_model`).  A packed leaf's
+    codes are cut and its scale, the whole leaf's, kept."""
+    from repro_torch.dist.sharding import cut_model, tree_param_specs
+    from repro_torch.models.transformer import attn_dims
+
+    whole = params_from_jax(tree, device=device)
+    specs = tree_param_specs(whole, cfg, axes, 1, attn_dims(cfg, axes.tp).kv_sharded)
+    return cut_model(whole, specs, axes, axes.tp_index())
 
 
 def cnn_params_from_jax(tree, *, device=None) -> dict:

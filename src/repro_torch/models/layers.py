@@ -1,8 +1,12 @@
 """Building-block layers: norms, rotary embeddings, MLPs, embeddings.
 
-Single-device counterparts of ``repro/models/layers.py``: the reference's
-tensor-parallel collectives are kept as call sites on the axis context,
-where they are identities at ``tp = 1``.
+Counterparts of ``repro/models/layers.py``, Megatron style: activations are
+replicated over the model axis; column-parallel weights split their output
+dim, row-parallel ones their input dim and are followed by the model axis's
+``psum``; the embedding and the unembedding split the vocabulary.  The
+collectives are the axis context's (identities at ``tp = 1``).  Megatron
+sequence parallelism (``pc.sp`` under tp) is training's, not ported
+(ROADMAP queue 1, item 9c); serving runs without it, as the reference's.
 """
 
 from __future__ import annotations
@@ -15,13 +19,23 @@ from repro_torch.kernels import ops
 from repro_torch.models.common import ParamCtx, QTensor, init_dense
 
 
+def _require_no_sp(pc: ParamCtx) -> None:
+    if pc.sp and pc.ctx.tp > 1:
+        raise NotImplementedError(
+            "sequence parallelism under tp (sp_gather / sp_out as an all-gather and a "
+            "reduce-scatter over the model axis) is not ported (ROADMAP queue 1, item 9c)")
+
+
 def sp_gather(pc: ParamCtx, x):
-    """(B, S/tp, D) -> (B, S, D) at a block input: the identity at tp = 1."""
+    """(B, S/tp, D) -> (B, S, D) at a block input: the identity without
+    sequence parallelism."""
+    _require_no_sp(pc)
     return x
 
 
 def sp_out(pc: ParamCtx, y):
-    """Block-output combine (all-reduce over the model axis; identity at tp=1)."""
+    """Block-output combine: the all-reduce over the model axis."""
+    _require_no_sp(pc)
     return pc.ctx.psum_model(y)
 
 
@@ -98,7 +112,8 @@ def mlp(pc: ParamCtx, path: str, p, x, act: str):
 
 
 def vocab_embed(pc: ParamCtx, path: str, table, ids: torch.Tensor, vocab_local: int):
-    """ids: (B, S) token ids; table: (V, D)."""
+    """ids: (B, S) global token ids; table: (V/tp, D), the shard's rows
+    (ids outside them embed to zero before the model axis's sum)."""
     lo = pc.ctx.tp_index() * vocab_local
     local = ids - lo
     in_range = (local >= 0) & (local < vocab_local)
@@ -115,12 +130,16 @@ def vocab_embed(pc: ParamCtx, path: str, table, ids: torch.Tensor, vocab_local: 
 
 
 def vocab_logits(pc: ParamCtx, path: str, w_unembed, x):
-    """x: (B, S, D) -> logits (B, S, V)."""
+    """x: (B, S, D) -> the shard's logits (B, S, V/tp)."""
     return dense(pc, f"{path}/w", w_unembed, x)
 
 
 def _xent_terms(pc: ParamCtx, lg, labels, vocab_local: int, ignore_id: int):
     """Per-position NLL over (vocab-sharded) f32 logits, and the valid mask."""
+    if pc.ctx.tp > 1:
+        raise NotImplementedError(
+            "the vocab-parallel cross-entropy under tp (the shards' max by pmax) is "
+            "training's, not ported (ROADMAP queue 1, item 9c)")
     m = lg.amax(dim=-1).detach()
     z = torch.exp(lg - m[..., None])
     denom = pc.ctx.psum_model(z.sum(dim=-1))

@@ -13,7 +13,7 @@ Execution model
 * ``dryrun`` cells run **in-process** too: a traced step allocates nothing
   (:meth:`repro_torch.api.session.Session.run_dryrun`).  The port traces
   ``Dx1`` meshes; a pod mesh (a model axis above 1, every preset's ``16x16``)
-  raises (ROADMAP items 9 and 14) and becomes an error row.
+  raises (ROADMAP item 14) and becomes an error row.
 
 Every cell runs on the runner's ``device``: ``None`` means CUDA, and a run
 without a card raises rather than falling back to the CPU; ``"cpu"`` runs

@@ -299,7 +299,7 @@ def test_axis_context_and_mesh_specs():
     assert tmesh.parse_mesh("2x16x16") == ((2, 16, 16), ("pod", "data", "model"))
     assert tmesh.axis_ctx_for("2x3x1").batch_axes == ("pod", "data")
     assert tmesh.axis_ctx_for("2x3x1").dp == 6
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+    with pytest.raises(ValueError, match="torchrun"):   # one process a model shard
         tmesh.axis_ctx_for("2x2")
     with pytest.raises(ValueError, match="1-3"):
         tmesh.parse_mesh("1x1x1x1")

@@ -86,10 +86,11 @@ def test_cuda_request_without_cuda_raises(monkeypatch):
 
 
 def test_unported_workloads_raise():
-    # a dry run on a pod mesh (model axis > 1) waits for tensor parallelism
+    # a dry run on a pod mesh (model axis > 1) waits for the pod meshes' dry run
     spec = RunSpec("yi-6b", workload="dryrun", mesh="16x16", options={"shape": "train_4k"})
-    with pytest.raises(NotImplementedError, match="items 9 and 14"):
+    with pytest.raises(NotImplementedError, match="item 14"):
         Session(spec, device="cpu").run()
-    # tp > 1 (a 2x1 mesh serves: tests/test_torch_serve_sharded.py)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # tp > 1 serves one rank a model shard (tests/test_torch_serve_tp.py): in
+    # one process it raises
+    with pytest.raises(ValueError, match="torchrun"):
         Session(RunSpec("yi-6b", workload="serve", mesh="1x2"), device="cpu").serve()

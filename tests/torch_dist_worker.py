@@ -261,9 +261,227 @@ def task_pack(t: dict, rank: int) -> dict:
     return {}
 
 
+def _recorded_steps(calls: list):
+    """Patch ``repro_torch.launch.steps``' serving step builders so every
+    call's sampled tokens (this rank's slots) are appended to ``calls``;
+    returns the undo."""
+    from repro_torch.launch import steps
+
+    builders = steps.build_decode_step, steps.build_cached_prefill
+
+    def recording(builder, kind):
+        def build(*a, **kw):
+            ss = builder(*a, **kw)
+
+            def call(*args):
+                tok, caches = ss.fn(*args)
+                calls.append([kind, tok[:, 0].tolist()])
+                return tok, caches
+            return dataclasses.replace(ss, fn=call)
+        return build
+
+    steps.build_decode_step = recording(builders[0], "decode")
+    steps.build_cached_prefill = recording(builders[1], "prefill")
+
+    def undo():
+        steps.build_decode_step, steps.build_cached_prefill = builders
+    return undo
+
+
+def _wait_for(path: str, timeout: float = 240.0) -> None:
+    import time
+
+    t0 = time.time()
+    while not os.path.exists(path + ".done"):
+        if time.time() - t0 > timeout:
+            raise TimeoutError(f"{path} was not written in {timeout} s")
+        time.sleep(0.2)
+
+
+def task_serve_tp(t: dict, rank: int) -> dict:
+    """``Session.serve`` of ``t["arch"]`` (smoke size, lazy int8) on mesh
+    ``t["mesh"]`` (a model axis above 1) under the group, from the whole
+    parameters of ``t["data"]`` (waited for: a reference run writes them)
+    or, without, from the port's own init at seed 0.  Every prefill's and
+    decode step's tokens of this rank's slots, the stats (clocks apart),
+    the sampled tokens, the passes, and each transport's counts; with
+    ``t["expect"]`` the error the serve raised instead."""
+    from repro_torch.api import PrecisionPolicy, RunSpec, Session
+    from repro_torch.models.model import count_passes
+
+    sess = Session(RunSpec(t["arch"], workload="serve", mesh=t["mesh"], smoke=True, seed=0,
+                           batch=t["batch"], seq=t["options"]["s_max"],
+                           precision=PrecisionPolicy.lazy_int8(7), options=t["options"]),
+                   device="cpu")
+    passes = {"prefill": 0, "decode": 0}
+    model = sess.model
+    if t.get("data"):
+        _wait_for(t["data"])
+        whole = {k: torch.from_numpy(v) for k, v in np.load(t["data"]).items()}
+        model = dataclasses.replace(model, init=fixed_init(whole))
+    sess.model = count_passes(model, passes)
+    calls: list = []
+    undo = _recorded_steps(calls)
+    try:
+        stats = sess.serve()
+    except Exception as e:          # noqa: BLE001 - the error is the result
+        if not t.get("expect"):
+            raise
+        return {"raised": f"{type(e).__name__}: {e}"}
+    finally:
+        undo()
+    axes = sess.axes
+
+    def report(tr):
+        return None if tr is None else tr.report()
+    return {"stats": {k: v for k, v in vars(stats).items() if k not in ("wall_s", "tok_s")},
+            "tokens": sess.last_tokens, "calls": calls, "passes": passes,
+            "at": [axes.dp_index(), axes.tp_index()],
+            "model": report(axes.model_transport), "batch": report(axes.transport)}
+
+
+def task_layout(t: dict, rank: int) -> dict:
+    """The rank's place on mesh ``t["mesh"]``: its data and model index, its
+    groups' ranks and sizes, and the sums of the global ranks over each
+    group (which ranks are in it)."""
+    from repro_torch.launch.mesh import axis_ctx_for
+
+    axes = axis_ctx_for(t["mesh"], group="default")
+    me = torch.tensor([float(rank)])
+    return {"rank": axes.rank, "dp_index": axes.dp_index(), "tp_index": axes.tp_index(),
+            "batch": [axes.transport.rank, axes.transport.size],
+            "model": [axes.model_transport.rank, axes.model_transport.size],
+            "batch_ranks": axes.transport.all_gather(me).tolist(),
+            "model_ranks": axes.model_transport.all_gather(me).tolist(),
+            "batch_sum": float(axes.psum_batch(me)), "model_sum": float(axes.psum_model(me))}
+
+
+def task_model_collectives(t: dict, rank: int) -> dict:
+    """The model-axis collectives on mesh ``t["mesh"]`` over seeded inputs
+    (rank r draws the r-th of the ranks' draws): ``psum_model``,
+    ``pmax_model``, ``pmin_model`` (f32 and int32), ``all_gather_model``
+    along axes 0, 1 and 2; the results and the transport's counts."""
+    from repro_torch.launch.mesh import axis_ctx_for
+
+    axes = axis_ctx_for(t["mesh"], group="default")
+    gen = torch.Generator().manual_seed(t["seed"])
+    xs = [torch.randn(2, 3, 4, generator=gen) for _ in range(axes.tp)]
+    ints = [torch.randint(-50, 50, (5,), generator=gen, dtype=torch.int32)
+            for _ in range(axes.tp)]
+    x, i = xs[axes.tp_index()], ints[axes.tp_index()]
+    out = {"psum": axes.psum_model(x), "pmax": axes.pmax_model(x), "pmin": axes.pmin_model(x),
+           "pmin_int": axes.pmin_model(i), "pmax_int": axes.pmax_model(i)}
+    for ax in (0, 1, 2):
+        out[f"gather{ax}"] = axes.all_gather_model(x, axis=ax)
+    return {"out": {k: v.tolist() for k, v in out.items()},
+            "dtypes": {k: str(v.dtype) for k, v in out.items()},
+            "issued": axes.model_transport.report()["issued"]}
+
+
+def task_init_tp(t: dict, rank: int) -> dict:
+    """``build_init_fn`` of ``t["arch"]`` (smoke size) at seed ``t["seed"]``
+    on mesh ``t["mesh"]``, packed (lazy int8) when ``t["packed"]``: the
+    rank's storage to ``t["save"]`` with ``{rank}`` filled in."""
+    from repro_torch.api import PrecisionPolicy
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.core.quantization import default_exempt
+    from repro_torch.launch.mesh import axis_ctx_for
+    from repro_torch.launch.steps import build_init_fn
+    from repro_torch.models.common import QTensor, pack_params_for_policy
+    from repro_torch.models.model import build_model
+
+    axes = axis_ctx_for(t["mesh"], group="default")
+    model = build_model(smoke_variant(get_config(t["arch"])))
+    pack = None
+    if t.get("packed"):
+        policy = PrecisionPolicy.lazy_int8(7)
+        pack = lambda p: pack_params_for_policy(p, policy, exempt=default_exempt)  # noqa: E731
+    local = build_init_fn(model, axes, pack=pack)(torch.Generator().manual_seed(t["seed"]))
+    out = {}
+    for path, w in local.items():
+        if isinstance(w, QTensor):
+            out[f"codes:{path}"], out[f"scale:{path}"] = w.codes.numpy(), w.scale.numpy()
+        else:
+            out[f"dense:{path}"] = w.numpy()
+    np.savez(t["save"].format(rank=rank), **out)
+    return {}
+
+
+def task_paged_tp(t: dict, rank: int) -> dict:
+    """The step-level sequence-parallel paged decode of ``t["arch"]``
+    (smoke size, f32, the port's own init at seed 0) on mesh ``t["mesh"]``,
+    as the reference's ``tests/test_paged_kv.py`` tp=4 case builds it: a
+    prefill of ragged prompts (lengths ``t["plens"]``), then decode steps
+    fed a fixed token stream; every step's full logits (the shards' vocab
+    all-gathered) for the contiguous cache and for the paged one with
+    per-shard page tables (slot b's local pages ``[b*n_loc, (b+1)*n_loc)``
+    of every shard's pool), through ``impl`` ``"ref"`` (the gathered view)
+    and ``"flash"`` (K5 on each shard's pool, the partials merged) to
+    ``t["save"]``; the K5 calls' local lengths a step."""
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import axis_ctx_for
+    from repro_torch.launch.paging import set_page_tables
+    from repro_torch.launch.steps import build_init_fn, init_global_caches
+    from repro_torch.models.common import ParamCtx
+    from repro_torch.models.model import build_model
+
+    axes = axis_ctx_for(t["mesh"], group="default")
+    T, B, S_MAX, PAGE = axes.tp, len(t["plens"]), t["s_max"], t["page"]
+    model = build_model(smoke_variant(get_config(t["arch"])))
+    params = build_init_fn(model, axes)(torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(5)
+    plens = torch.tensor(t["plens"], dtype=torch.int32)
+    prompt = torch.randint(2, model.cfg.vocab_size, (B, int(plens.max())), generator=gen,
+                           dtype=torch.int32)
+    pc = ParamCtx(ctx=axes, compute_dtype=torch.float32)
+    lengths: list = []
+    decode = ops.flash_paged_decode
+
+    def recording(q, kp, vp, pt, lloc):
+        lengths[-1].append(lloc.tolist())
+        return decode(q, kp, vp, pt, lloc)
+
+    def run(paged: bool, impl: str):
+        kw = {"page_size": PAGE} if paged else {}
+        caches = init_global_caches(model, axes, s_max=S_MAX, batch_global=B, **kw)
+        if paged:
+            n_loc = (S_MAX // T) // PAGE
+            table = np.zeros((B, T * n_loc), np.int32)
+            for b in range(B):
+                for s in range(T):
+                    table[b, s * n_loc:(s + 1) * n_loc] = np.arange(b * n_loc, (b + 1) * n_loc)
+            caches = set_page_tables(caches, table, model_shard=axes.tp_index(),
+                                     tp=T)
+        _lg, caches = model.prefill(pc, params, {"tokens": prompt}, caches, attn_impl="flash",
+                                    prompt_lens=plens)
+        outs = []
+        for step in range(t["steps"]):
+            lengths.append([])
+            lg, caches = model.decode_step(pc, params,
+                                           {"token": torch.full((B, 1), 2 + step,
+                                                                dtype=torch.int32)},
+                                           caches, attn_impl=impl)
+            outs.append(axes.all_gather_model(lg, axis=2))
+        return torch.stack(outs).numpy()
+
+    ops.flash_paged_decode = recording
+    try:
+        got = {"contiguous": run(False, "ref"), "paged_ref": run(True, "ref")}
+        lengths.clear()
+        got["paged_flash"] = run(True, "flash")
+    finally:
+        ops.flash_paged_decode = decode
+    if rank == 0:
+        np.savez(t["save"], **got)
+    return {"k5_local_lengths": lengths}
+
+
 TASKS = {"step": task_step, "serve": task_serve, "pack": task_pack,
          "packed_gather": task_packed_gather, "init": task_init, "wire": task_wire,
-         "comm_report": task_comm_report}
+         "comm_report": task_comm_report, "serve_tp": task_serve_tp, "layout": task_layout,
+         "model_collectives": task_model_collectives, "init_tp": task_init_tp,
+         "paged_tp": task_paged_tp}
 
 
 def main() -> None:
