@@ -67,7 +67,11 @@ Phases (each one failing stops the script with a nonzero exit):
    step-level runs' M 4 and M 800; K4 at BH 4 x 8, D 128, S 128 in bf16
    (the yi-6b shard row's shape) and S 200 in f32; K5 at yi-6b's one KV
    head a shard and at glm4-9b's sequence shard (KV 2, G 16, n_pmax 4, a
-   slot of local length 0).
+   slot of local length 0).  Phase serve_tp_families' per-rank shapes too
+   (``K3_MODEL_SHAPES``' "one of 4 model shards" rows of mamba2,
+   seamless-m4t, llama-3.2-vision and the smoke jamba, bf16 and f32; K4 at
+   BH 16 x S 256 x D 64 and BH 64 x S 64 x D 128; K5 at KV 4 / G 1 / hd 64,
+   KV 2 / G 8 / hd 128 and KV 1 / G 1 / hd 16).
 4. serve: ``Session.serve`` of full-width, full-depth yi-6b, then of
    gemma-7b (head dim 256), olmoe-1b-7b (64 experts, top-8) and mamba2-780m
    (48 SSM layers), of the smoke-size jamba (the hybrid), of seamless-m4t
@@ -209,25 +213,45 @@ Phases (each one failing stops the script with a nonzero exit):
 14. serve_tp: tensor-parallel serving (``Session.serve`` on a ``1x4`` mesh,
     one model shard a rank).  ``torch.distributed.run`` starts 4 ranks of
     this script sharing the card over gloo (NCCL refuses two ranks on one
-    GPU).  yi-6b at full width and depth at phase serve's configuration
-    (max_new 16), its 4 KV heads split (paged, K5), then glm4-9b at full
-    width, depth cut to ``SERVE_TP_GLM_LAYERS`` (8 of 40) for the time
-    limit, max_new 16, its 2 KV heads replicated: the sequence-parallel
-    cache, served contiguous as the driver does by default.  Every rank's
-    tokens and ``ServeStats`` (clocks apart) equal; K3, K4 and K5 launched
-    exactly ``expected_launches`` a pass on every rank; a rank's model-group
+    GPU), once for this phase and the next (``TP_PHASES``: each phase's
+    part runs in the same processes, so they start and warm up once; a
+    rank's failure names the phase whose part failed).  yi-6b at full width
+    and depth at phase serve's configuration (max_new 16), its 4 KV heads
+    split (paged, K5), then glm4-9b at full width, depth cut to
+    ``SERVE_TP_GLM_LAYERS`` (8 of 40) for the time limit, max_new 16, its 2
+    KV heads replicated: the sequence-parallel cache, served contiguous as
+    the driver does by default.  Every rank's tokens and ``ServeStats``
+    (clocks apart) equal; K3, K4 and K5 launched exactly
+    ``expected_launches`` a pass on every rank; a rank's model-group
     collectives exactly ``tp_collectives``' by kind, dtype, calls and bytes
     (the row-parallel sums, the pick's max and min, the sequence-parallel
-    merge); nothing staged; tok/s, host ms a step and peak a rank.  Then the
-    step-level runs at full width, 4 layers, f32: yi-6b and glm4-9b on the
-    contiguous cache, the 4 shards' gathered logits (a prefill and 4 decode
-    steps) within ``SERVE_TP_1X1_TOL`` of the same seed's 1x1 model through
-    the plain versions (rank 0 runs it); glm4-9b also paged with per-shard
-    page tables: the gathered view equals the contiguous cache bit for bit,
-    K5 on each rank's pool with the partials merged within
-    ``SERVE_TP_PAGED_RTOL`` of the logits' largest magnitude; a slot inside
-    shard 0's positions (the other shards' K5 at local length 0) and one
-    crossing ``s_max / 4``.
+    merge); nothing staged; every K3, K4 and K5 launch shape one that phase
+    kernels holds (``_held_shapes``); tok/s, host ms a step and peak a rank.
+    Then the step-level runs (``_tp_steps``) at full width, 4 layers, f32:
+    yi-6b and glm4-9b on the contiguous cache, the 4 shards' gathered logits
+    (a prefill and 4 decode steps) within ``SERVE_TP_1X1_TOL`` of the same
+    seed's 1x1 model through the plain versions (rank 0 runs it); glm4-9b
+    also paged with per-shard page tables: the gathered view equals the
+    contiguous cache bit for bit, K5 on each rank's pool with the partials
+    merged within ``SERVE_TP_PAGED_RTOL`` of the logits' largest magnitude;
+    a slot inside shard 0's positions (the other shards' K5 at local length
+    0) and one crossing ``s_max / 4``.
+15. serve_tp_families: tensor-parallel serving of the SSM, hybrid, VLM and
+    enc-dec families on the same 4 ranks, checked as phase serve_tp
+    (``phase_tp``; ``tp_collectives`` counts each family's sums):
+    full-width mamba2-780m at 8 of 48 layers (contiguous; its prefill a pass
+    of collectives a prompt token), seamless-m4t at 4 + 4 of 24 + 24 layers
+    and llama-3.2-vision at phase serve's 2 periods (both paged, their KV
+    heads split; the cross K/V split with them, the VLM's adapter whole),
+    and jamba at its smoke size (one KV head and one expert a shard), K3
+    launches at the shard's expert count.  Then the step-level runs at full
+    width in f32 (``SERVE_TP_FAMILY_STEPS``): seamless-m4t at 2 + 2 layers
+    and llama-3.2-vision at one period (cross gates 0.5), paged through K5,
+    and mamba2 at 2 layers, each within ``SERVE_TP_1X1_TOL`` of the same
+    seed's 1x1 model through the plain versions; mamba2's 1x1 model takes
+    its gated norm in 4 groups of channels (``grouped_gated_norm``: under
+    tp the norm is over a shard's channels, the reference's semantics).
+    Each tp phase prints the seconds of its ranks' part.
 
 Each phase prints its own time.  The last two lines are the kernel table
 and ``{"ok": true, "device": ...}``.
@@ -251,6 +275,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import glob
 import io
 import itertools
 import json
@@ -627,7 +652,10 @@ def sdpa_ms(q, k, v, causal: bool) -> tuple[float, str]:
 #: and 128-token buckets, bf16), and one model shard of phase serve_tp's
 #: 1x4 mesh (8 of 32 heads x 4 slots, D 128) as its serves prefill (the
 #: 128-token bucket, bf16) and its step-level runs (prompts padded to 200
-#: tokens, f32).
+#: tokens, f32); one model shard of phase serve_tp_families' 1x4 mesh:
+#: seamless-m4t's encoder (4 of 16 heads x 4 slots over 256 frames, D 64)
+#: and llama-3.2-vision's prefill (16 of 64 heads x 4 slots at the 64-token
+#: bucket, D 128), bf16 as served and f32 as the step-level runs take them.
 ATTN_CASES = ([(16, 16, S, (torch.float32, torch.bfloat16)) for S in (16, 11)]
               + [(64, 64, 256, (torch.float32, torch.bfloat16)), (256, 128, 64, (torch.bfloat16,))]
               + [(128, D, S, (torch.float32, torch.bfloat16)) for D in (16, 32, 128)
@@ -637,7 +665,9 @@ ATTN_CASES = ([(16, 16, S, (torch.float32, torch.bfloat16)) for S in (16, 11)]
               + [(64, 256, S, (torch.float32,) + ((torch.bfloat16,) if S == 128 else ()))
                  for S in (100, 128, 513)]
               + [(32, 128, S, (torch.bfloat16,)) for S in (64, 128)]
-              + [(32, 128, 200, (torch.float32,))])
+              + [(32, 128, 200, (torch.float32,))]
+              + [(16, 64, 256, (torch.float32, torch.bfloat16)),
+                 (64, 128, 64, (torch.float32, torch.bfloat16))])
 #: The path each type takes (kernels/flash_attention.plan_attention).
 ATTN_PATH_OF = {torch.bfloat16: "wgmma", torch.float32: "wgmma_split"}
 
@@ -818,7 +848,9 @@ def decode_case(q_dtype, pool_dtype, gen, *, KV=4, G=8, hd=128, page=16, n_pmax=
 #: phase serve_tp's ranks: yi-6b's one KV head a model shard (4 slots), and
 #: glm4-9b's sequence shard of 64 positions (4 pages) with all 32 q heads
 #: gathered (G 16), in f32 as its step-level run decodes, a slot of local
-#: length 0 (no position on the shard) among them.
+#: length 0 (no position on the shard) among them; phase serve_tp_families'
+#: ranks: seamless-m4t's 4 of 16 KV heads and llama-3.2-vision's 2 of 8 (bf16
+#: q as served, f32 as the step-level runs), the smoke jamba's one of 4 (f32).
 DECODE_CASES = (
     [("yi-6b", {}, (qd, pd), 1) for qd in (torch.float32, torch.bfloat16)
      for pd in (torch.float32, torch.bfloat16)]
@@ -835,6 +867,12 @@ DECODE_CASES = (
     + [("yi-6b one of 4 model shards", dict(KV=1, G=8, lengths=(150, 140, 131, 129)),
         (torch.bfloat16, torch.float32), 1)]
     + [("glm4-9b one of 4 sequence shards", dict(KV=2, G=16, n_pmax=4, lengths=(24, 0, 64, 2)),
+        (torch.float32, torch.float32), 1)]
+    + [(f"{arch} one of 4 model shards", shape, (qd, torch.float32), 1)
+       for arch, shape in (("seamless-m4t", dict(KV=4, G=1, hd=64)),
+                           ("llama-3.2-vision", dict(KV=2, G=8, hd=128)))
+       for qd in (torch.bfloat16, torch.float32)]
+    + [("jamba smoke one of 4 model shards", dict(KV=1, G=1, hd=16),
         (torch.float32, torch.float32), 1)])
 
 
@@ -1731,6 +1769,63 @@ K3_MODEL_SHAPES += tuple(
     (arch, f"unembed, one of 4 model shards{step}", 4, 4096, _TP_VOCAB_LOCAL[arch], dtypes, 1)
     for arch in _TP_SHARD_PROJ
     for step, dtypes in (("", _BF16), (" step-level", (torch.float32,))))
+#: One model shard of phase serve_tp_families' 1x4 mesh: (arch, projection,
+#: M, K, N, x dtypes, launches a pass of the serve on a rank (the depth
+#: ``SERVE_TP_FAMILY_RUNS`` serves)).  bf16 as the serves run them, f32 as
+#: the step-level runs (``SERVE_TP_FAMILY_STEPS``); M 4 a decode step (and a
+#: prefill by decode's every token); the column-parallel outputs, the
+#: row-parallel inputs and the vocab (padded to a shard's ``padded_vocab_local``)
+#: at a quarter, the replicated ones whole.  mamba2 (d 1536, d_inner 3,072
+#: -> 768, 48 heads -> 12, the B/C projection 2 x 128 whole, vocab 50,280 ->
+#: 12,570): ``w_dt``'s 12 code bytes a row and the unembed's 12,570 take K3's
+#: FP32 tiled path.  seamless-m4t (16 heads of 64 -> 4, d_ff 8,192 -> 2,048,
+#: vocab 256,206 -> 64,052, tiled): a decode step, and the encoder over 4 x
+#: 256 frames (M 1,024; the adapter whole; each decoder layer's cross K/V).
+#: llama-3.2-vision (64 heads of 128 -> 16, 8 KV heads -> 2, d_ff 28,672 ->
+#: 7,168, vocab 128,256 -> 32,064): a decode step, a prefill of 4 slots in
+#: the 64-token bucket (M 256; the unembed at the last positions, M 4), the
+#: image memory's 4 x 1,601 tokens through the whole adapter and each cross
+#: layer's K/V (M 6,404).  jamba at its smoke size, f32 (d 64, 4 heads of 16
+#: -> 1, 4 experts -> 1, d_ff 128 -> 32, d_inner 128 -> 32, 8 SSM heads ->
+#: 2, vocab 512 -> 128), every pass at M 4.
+K3_MODEL_SHAPES += (
+    ("mamba2-780m", "wx/wz, one of 4 model shards", 4, 1536, 768, _BOTH, 16),
+    ("mamba2-780m", "w_bc (whole), one of 4 model shards", 4, 1536, 256, _BOTH, 8),
+    ("mamba2-780m", "w_dt, one of 4 model shards", 4, 1536, 12, _BOTH, 8),
+    ("mamba2-780m", "wo, one of 4 model shards", 4, 768, 1536, _BOTH, 8),
+    ("mamba2-780m", "unembed, one of 4 model shards", 4, 1536, 12570, _BOTH, 1),
+    ("seamless-m4t-large-v2", "q/k/v, cross q, one of 4 model shards", 4, 1024, 256, _BOTH, 16),
+    ("seamless-m4t-large-v2", "o, cross o, one of 4 model shards", 4, 256, 1024, _BOTH, 8),
+    ("seamless-m4t-large-v2", "up/gate, one of 4 model shards", 4, 1024, 2048, _BOTH, 8),
+    ("seamless-m4t-large-v2", "down, one of 4 model shards", 4, 2048, 1024, _BOTH, 4),
+    ("seamless-m4t-large-v2", "unembed, one of 4 model shards", 4, 1024, 64052, _BOTH, 1),
+    ("seamless-m4t-large-v2", "encoder q/k/v, cross k/v, one of 4 model shards", 1024, 1024,
+     256, _BOTH, 20),
+    ("seamless-m4t-large-v2", "encoder o, one of 4 model shards", 1024, 256, 1024, _BOTH, 4),
+    ("seamless-m4t-large-v2", "encoder up/gate, one of 4 model shards", 1024, 1024, 2048, _BOTH,
+     8),
+    ("seamless-m4t-large-v2", "encoder down, one of 4 model shards", 1024, 2048, 1024, _BOTH,
+     4),
+    ("seamless-m4t-large-v2", "adapter (whole), one of 4 model shards", 1024, 1024, 1024,
+     _BOTH, 1))
+K3_MODEL_SHAPES += tuple(
+    ("llama-3.2-vision-90b", f"{proj}, one of 4 model shards' {kind}", M, K, N, _BOTH, n)
+    for kind, M in (("decode", 4), ("prefill", 256))
+    for proj, K, N, n in (("wq, cross wq", 8192, 2048, 10), ("wk/wv", 8192, 256, 16),
+                          ("wo, cross wo", 2048, 8192, 10), ("up/gate", 8192, 7168, 20),
+                          ("down", 7168, 8192, 10))) + (
+    ("llama-3.2-vision-90b", "unembed, one of 4 model shards", 4, 8192, 32064, _BOTH, 1),
+    ("llama-3.2-vision-90b", "adapter (whole), one of 4 model shards", 4 * 1601, 1280, 8192,
+     _BOTH, 1),
+    ("llama-3.2-vision-90b", "cross wk/wv, one of 4 model shards", 4 * 1601, 8192, 256, _BOTH,
+     4))
+K3_MODEL_SHAPES += tuple(
+    ("jamba-1.5-large-398b smoke", f"{proj}, one of 4 model shards", 4, K, N,
+     (torch.float32,), n)
+    for proj, K, N, n in (("attention wq/wk/wv", 64, 16, 6), ("attention wo", 16, 64, 2),
+                          ("SSM wx/wz, w_bc (whole), expert up/gate, mlp up/gate", 64, 32, 14),
+                          ("SSM w_dt", 64, 2, 2), ("SSM wo, expert down, mlp down", 32, 64, 6),
+                          ("unembed", 64, 128, 1)))
 
 
 def check_quant_matmul_models() -> None:
@@ -1828,24 +1923,27 @@ SERVE_RUNS = {
 }
 
 
-def k3_per_pass(cfg) -> int:
-    """K3 launches a decode step or a (parallel) prefill: q, k, v, o and the
-    MLP's three projections a layer (dense), or q, k, v, o and three a layer
-    for each expert (MoE), wx, wz, w_bc, w_dt, wo a layer (SSM), a hybrid's
-    sublayers by kind (attention 4, SSM 5, MoE 3E, MLP 3); and the head."""
+def k3_per_pass(cfg, tp: int = 1) -> int:
+    """K3 launches a decode step or a (parallel) prefill on one of ``tp``
+    model shards: q, k, v, o and the MLP's three projections a layer
+    (dense), or q, k, v, o and three a layer for each of the shard's
+    experts (MoE), wx, wz, w_bc, w_dt, wo a layer (SSM), a hybrid's
+    sublayers by kind (attention 4, SSM 5, MoE 3 an expert of the shard,
+    MLP 3); and the head."""
+    e_local = cfg.n_experts // tp
     if cfg.family == "ssm":
         return 5 * cfg.n_layers + 1
     if cfg.family == "hybrid":
         p = cfg.attn_period
         n_moe = sum(1 for j in range(p) if j % max(cfg.moe_period, 1) == 0) \
             if cfg.n_experts else 0
-        per_period = 4 + 5 * (p - 1) + 3 * cfg.n_experts * n_moe + 3 * (p - n_moe)
+        per_period = 4 + 5 * (p - 1) + 3 * e_local * n_moe + 3 * (p - n_moe)
         return per_period * (cfg.n_layers // p) + 1
-    per_layer = 4 + 3 * cfg.n_experts if cfg.family == "moe" else 7
+    per_layer = 4 + 3 * e_local if cfg.family == "moe" else 7
     return per_layer * cfg.n_layers + 1
 
 
-def expected_launches(cfg, kind: str, prompt_len: int) -> dict:
+def expected_launches(cfg, kind: str, prompt_len: int, tp: int = 1) -> dict:
     """K3, K4 and K5 launches of one ``kind`` ("decode" step or "prefill" of
     ``prompt_len`` tokens): the SSM and hybrid families prefill as a loop of
     decode steps, their attention (hybrid) on the gather path.  A VLM
@@ -1854,7 +1952,10 @@ def expected_launches(cfg, kind: str, prompt_len: int) -> dict:
     in prefill and 5 in decode, a self layer 7 and K4 or K5 once.  An
     enc-dec prefill runs the encoder (the adapter, 7 K3 a layer, K4
     non-causal) and each decoder layer's cross K/V, no unembed; a decode
-    step 9 K3 a decoder layer (self 4, cross q and o, MLP 3), K5 once."""
+    step 9 K3 a decoder layer (self 4, cross q and o, MLP 3), K5 once.  On
+    one of ``tp`` model shards the counts are the same (every projection is
+    one launch at the shard's width), a MoE layer's but for the shard's
+    experts."""
     prefill = kind == "prefill"
     if cfg.family == "vlm":
         n_periods, per = cfg.n_layers // cfg.cross_attn_period, cfg.cross_attn_period
@@ -1872,7 +1973,7 @@ def expected_launches(cfg, kind: str, prompt_len: int) -> dict:
     n_attn = {"ssm": 0, "hybrid": cfg.n_layers // max(cfg.attn_period, 1)}.get(
         cfg.family, cfg.n_layers)
     prefill = kind == "prefill"
-    return {"quant_matmul": k3_per_pass(cfg) * (prompt_len if prefill and recurrent else 1),
+    return {"quant_matmul": k3_per_pass(cfg, tp) * (prompt_len if prefill and recurrent else 1),
             "flash_attention": n_attn if prefill and not recurrent else 0,
             "flash_decode": 0 if prefill else n_attn}
 
@@ -1880,12 +1981,15 @@ def expected_launches(cfg, kind: str, prompt_len: int) -> dict:
 @contextlib.contextmanager
 def k3_and_experts(record: dict):
     """Counts K3's launches by shape (``"MxKxN dtype"``), K4's by mask
-    (``causal`` / ``non_causal``) and each ``expert_dispatch`` call by
-    branch: ``k3`` (a packed stack with one scale), ``eager`` (a per-expert
-    scale row, dequantized) or ``plain``."""
+    (``causal`` / ``non_causal``) and by shape (``"BHxSxD dtype"``), K5's by
+    shape (``"BxKVxGxhdxpagexn_pmax q_dtype pool_dtype"``) and each
+    ``expert_dispatch`` call by branch: ``k3`` (a packed stack with one
+    scale), ``eager`` (a per-expert scale row, dequantized) or ``plain``."""
     shapes, branches = record.setdefault("k3_shapes", {}), record.setdefault("experts", {})
     plans, masks = record.setdefault("k3_plans", {}), record.setdefault("k4_masks", {})
+    k4_shapes, k5_shapes = record.setdefault("k4_shapes", {}), record.setdefault("k5_shapes", {})
     launch, dispatch, attend = qm.quant_matmul_cuda, ops.expert_dispatch, fa.flash_attention_cuda
+    decode = fa.flash_decode_cuda
 
     def counting_launch(x, codes, scale, tile_plan=None):
         k = f"{x.shape[0]}x{x.shape[1]}x{codes.shape[1]} {str(x.dtype)[6:]}"
@@ -1905,15 +2009,23 @@ def k3_and_experts(record: dict):
     def counting_attend(q, k, v, causal=True, attn_plan=None):
         m = "causal" if causal else "non_causal"
         masks[m] = masks.get(m, 0) + 1
+        shape = f"{'x'.join(map(str, q.shape))} {str(q.dtype)[6:]}"
+        k4_shapes[shape] = k4_shapes.get(shape, 0) + 1
         return attend(q, k, v, causal, attn_plan)
 
+    def counting_decode(q, kp, vp, pt, lengths, decode_plan=None):
+        shape = (f"{'x'.join(map(str, (*q.shape, kp.shape[1], pt.shape[1])))} "
+                 f"{str(q.dtype)[6:]} {str(kp.dtype)[6:]}")
+        k5_shapes[shape] = k5_shapes.get(shape, 0) + 1
+        return decode(q, kp, vp, pt, lengths, decode_plan)
+
     qm.quant_matmul_cuda, ops.expert_dispatch = counting_launch, counting_dispatch
-    fa.flash_attention_cuda = counting_attend
+    fa.flash_attention_cuda, fa.flash_decode_cuda = counting_attend, counting_decode
     try:
         yield record
     finally:
         qm.quant_matmul_cuda, ops.expert_dispatch = launch, dispatch
-        fa.flash_attention_cuda = attend
+        fa.flash_attention_cuda, fa.flash_decode_cuda = attend, decode
 
 
 def phase_serve(dev: dict) -> dict:
@@ -3229,8 +3341,16 @@ def dist_worker(job_path: str) -> None:
         serve_dist_rank(job, dev, rank)
         dist.destroy_process_group()
         return
-    if "serve_tp" in job:
-        serve_tp_rank(job, dev, rank)
+    if any(phase in job for phase in TP_PHASES):
+        out = {"rank": rank, "device": str(dev)}
+        for phase in TP_PHASES:
+            if phase in job:
+                try:
+                    out[phase] = serve_tp_rank(job[phase], dev, rank)
+                except Exception as e:
+                    raise RuntimeError(f"tp rank {rank}: phase {phase}'s part failed") from e
+        with open(os.path.join(job["out_dir"], f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
         dist.destroy_process_group()
         return
     out = {"rank": rank, "device": str(dev), "backend": job["backend"], "runs": []}
@@ -3309,27 +3429,37 @@ def dist_worker(job_path: str) -> None:
     dist.destroy_process_group()
 
 
-def _torchrun(n: int, job: dict, out_dir: str, timeout_s: float) -> list:
+def _torchrun(n: int, job: dict, out_dir: str, timeout_s: float, env=None) -> list:
     """``job`` on ``n`` ranks (``torch.distributed.run --standalone``, this
-    script in worker mode); returns the ranks' results.  A failing rank
-    fails the phase with its output."""
+    script in worker mode, ``env`` added to the environment); returns the
+    ranks' results.  A failing rank fails the phase with each rank's last
+    lines."""
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, "job.json")
     with open(path, "w") as f:
         json.dump({**job, "out_dir": out_dir}, f)
+    logs = os.path.join(out_dir, "logs")
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           f"--nproc-per-node={n}", os.path.abspath(__file__), f"--src={SRC}",
-           f"--dist-worker={path}"]
+           f"--nproc-per-node={n}", f"--log-dir={logs}", "--redirects=3", "--tee=3",
+           os.path.abspath(__file__), f"--src={SRC}", f"--dist-worker={path}"]
     t0 = time.time()
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout_s,
-                          env={**os.environ, "OMP_NUM_THREADS": "2"})
+                          env={**os.environ, "OMP_NUM_THREADS": "2", **(env or {})})
     with open(os.path.join(out_dir, "torchrun.log"), "w") as f:
         f.write(proc.stdout + "\n" + proc.stderr)
     if proc.returncode != 0:
+        # each rank's own last lines (torchrun's log dir: <run>/attempt_0/<rank>/)
+        tails = []
+        for r in range(n):
+            for path in sorted(glob.glob(os.path.join(logs, "*", "attempt_*", str(r),
+                                                      "stderr.log"))):
+                with open(path) as f:
+                    tails.append(f"--- rank {r} stderr:\n{f.read()[-2500:]}")
         raise AssertionError(f"dist: {n} ranks failed ({proc.returncode}):\n"
-                             f"{proc.stdout[-6000:]}\n{proc.stderr[-6000:]}")
+                             f"{proc.stdout[-3000:]}\n" + "\n".join(tails))
     for line in proc.stdout.splitlines():
-        if line.startswith("dist rank"):
+        line = re.sub(r"^\[default\d+\]:", "", line)       # torchrun's --tee prefix
+        if line.startswith(("dist rank", "tp rank")):
             print(line[:4000])
     for line in proc.stderr.splitlines():
         if "staged" in line or "widened" in line:
@@ -3436,23 +3566,26 @@ SERVE_DIST_OPTIONS = {**SERVE_RUNS["yi-6b"]["options"], "attn_impl": "flash",
 
 
 def _serve_dist_session(device: str, mesh: str, layers: int | None = None, *,
-                        arch: str = "yi-6b", base_options=None, **options):
-    """Full-width ``arch`` served at ``base_options`` (default: phase
-    serve_dist's) updated by ``options`` on ``mesh`` (depth cut to
-    ``layers``), its model's prefills and decode steps counted (a shard's
-    call is one) and each decode call's host clock kept."""
+                        arch: str = "yi-6b", base_options=None, smoke: bool = False,
+                        cut: dict | None = None, **options):
+    """Full-width ``arch`` (its smoke size with ``smoke``) served at
+    ``base_options`` (default: phase serve_dist's) updated by ``options`` on
+    ``mesh`` (depth cut to ``layers``; ``cut``: other config fields
+    replaced), its model's prefills and decode steps counted (a shard's call
+    is one) and each decode call's host clock kept."""
     import dataclasses
 
     from repro_torch.api import PrecisionPolicy, RunSpec, Session
     from repro_torch.models.model import count_passes
 
-    spec = RunSpec(arch, workload="serve", mesh=mesh, smoke=False, seed=0, batch=4,
+    spec = RunSpec(arch, workload="serve", mesh=mesh, smoke=smoke, seed=0, batch=4,
                    seq=256, precision=PrecisionPolicy.lazy_int8(7),
                    options={**(SERVE_DIST_OPTIONS if base_options is None else base_options),
                             **options})
     sess = Session(spec, device=device)
-    if layers is not None:
-        sess.cfg = dataclasses.replace(sess.cfg, n_layers=layers)
+    cut = {**(cut or {}), **({} if layers is None else {"n_layers": layers})}
+    if cut:
+        sess.cfg = dataclasses.replace(sess.cfg, **cut)
     passes, ticks = {"prefill": 0, "decode": 0}, []
     sess.model = count_passes(sess.model, passes, ticks)
     return sess, passes, ticks
@@ -3637,40 +3770,105 @@ def phase_serve_dist(dev: dict) -> dict:
 #: ``SERVE_TP_GLM_LAYERS``, max_new 16; then the step-level runs
 #: (``SERVE_TP_STEPS``), each held against the 1x1 model, glm4-9b's paged
 #: through per-shard page tables, K5 on each rank's pool and the partials
-#: merged across the ranks.
+#: merged across the ranks.  ``cut``: the config fields a run replaces.
 SERVE_TP_RANKS = 4
 SERVE_TP_OPTIONS = {**SERVE_RUNS["yi-6b"]["options"], "max_new": 16, "attn_impl": "flash",
                     "quiet": True}
-SERVE_TP_RUNS = (dict(arch="yi-6b", layers=None,
+SERVE_TP_RUNS = (dict(arch="yi-6b", cut={},
                       options={**SERVE_TP_OPTIONS, "kv_layout": "paged", "page_size": 16}),
-                 dict(arch="glm4-9b", layers=SERVE_TP_GLM_LAYERS, options=SERVE_TP_OPTIONS))
+                 dict(arch="glm4-9b", cut=dict(n_layers=SERVE_TP_GLM_LAYERS),
+                      options=SERVE_TP_OPTIONS))
 #: phase serve_tp's step-level runs, 4 layers at full width in f32: yi-6b
 #: (KV heads split) on the contiguous cache; glm4-9b (sequence-parallel) on
-#: the contiguous cache and on the paged one through per-shard tables.
+#: the contiguous cache, then on the paged one through per-shard tables.
 #: Slot 0's 20 tokens stay in shard 0's 64 positions (the other shards' K5
 #: sees local length 0), slot 1's 62 cross into shard 1's at the third step.
-SERVE_TP_STEPS = tuple(dict(arch=arch, layers=4, plens=(20, 62, 100, 200), s_max=256, page=16,
-                            steps=4, paged=paged)
+SERVE_TP_STEPS = tuple(dict(arch=arch, cut=dict(n_layers=4), plens=(20, 62, 100, 200), steps=4,
+                            layout="contiguous", seq_paged=paged)
                        for arch, paged in (("yi-6b", False), ("glm4-9b", True)))
 #: the step-level flash logits against the contiguous ones: K5's f32 online
 #: softmax and merge add in another order than the plain merge, a few ulps of
 #: each attention output, carried through the layers
 SERVE_TP_PAGED_RTOL = 1e-4
-#: each step-level run's contiguous logits (prefill and decode steps,
-#: through K3 and K4 on 4 model shards) against the same seed's 1x1 model
-#: through the plain versions, as ``torch.testing.assert_close`` with rtol =
-#: atol: phase consistency's f32 tolerance of kernels against plain versions
+#: each step-level run's logits (prefill and decode steps, through K3, K4
+#: and K5 on 4 model shards) against the same seed's 1x1 model through the
+#: plain versions, as ``torch.testing.assert_close`` with rtol = atol: phase
+#: consistency's f32 tolerance of kernels against plain versions
 SERVE_TP_1X1_TOL = 2e-3
+#: the tensor-parallel phases' slots and positions (``_serve_dist_session``'s
+#: batch and seq; an enc-dec's frames)
+SERVE_TP_SLOTS, SERVE_TP_S_MAX = 4, 256
+
+# ----------------------------------------------------- serve_tp_families
+#: phase serve_tp_families: tensor-parallel serving of the SSM, hybrid, VLM
+#: and enc-dec families on the same 4 ranks, lazy int8 weights, 4 slots,
+#: s_max 256, 4 requests of fixed-length prompts (one prefill bucket),
+#: flash.  mamba2-780m at full width, depth cut to 8 of 48 for the time
+#: limit (each prompt token of its prefill is a pass of collectives),
+#: 16-token prompts, contiguous (its O(1) state); seamless-m4t at full width
+#: cut to 4 + 4 of 24 + 24 layers, paged (its 16 KV heads split 4 a shard;
+#: the cross K/V split with them), frames over s_max; llama-3.2-vision at
+#: full width at phase serve's 2 periods (10 layers), 64-token prompts,
+#: paged (8 KV heads, 2 a shard); jamba at its smoke size (at full width it
+#: does not fit one card), paged (4 KV heads, one a shard; 4 experts, one a
+#: shard).
+SERVE_TP_FAMILY_OPTIONS = {"attn_impl": "flash", "requests": 4, "quiet": True}
+SERVE_TP_FAMILY_RUNS = (
+    dict(arch="mamba2-780m", cut=dict(n_layers=8),
+         options={**SERVE_TP_FAMILY_OPTIONS, "prompt_len": 16, "max_new": 8, "steps": 16}),
+    dict(arch="seamless-m4t-large-v2", cut=dict(n_layers=4, n_encoder_layers=4),
+         options={**SERVE_TP_FAMILY_OPTIONS, "prompt_len": 64, "max_new": 16, "steps": 24,
+                  "kv_layout": "paged", "page_size": 16}),
+    dict(arch="llama-3.2-vision-90b", cut=dict(n_layers=10),
+         options={**SERVE_TP_FAMILY_OPTIONS, "prompt_len": 64, "max_new": 8, "steps": 16,
+                  "kv_layout": "paged", "page_size": 16}),
+    dict(arch="jamba-1.5-large-398b", smoke=True, cut={},
+         options={**SERVE_TP_FAMILY_OPTIONS, "prompt_len": 16, "max_new": 8, "steps": 16,
+                  "kv_layout": "paged", "page_size": 16}))
+#: the step-level runs at full width in f32, 4 slots, s_max 256, each
+#: against the same seed's 1x1 model through the plain versions (for
+#: attention 1xT is the 1x1 model cut; the SSM's gated norm under tp is
+#: taken over the shard's channels, the reference's semantics, so mamba2's
+#: 1x1 model takes it in 4 groups): seamless-m4t at 2 + 2 layers (frames over
+#: s_max) and llama-3.2-vision at one period (a cross and 4 self layers,
+#: prompts of 20-64 tokens, cross gates 0.5), paged; mamba2 at 2 layers
+#: (prompts of 3-8 tokens), contiguous.
+SERVE_TP_FAMILY_STEPS = (
+    dict(arch="seamless-m4t-large-v2", cut=dict(n_layers=2, n_encoder_layers=2),
+         plens=(64, 64, 64, 64), steps=4, layout="paged"),
+    dict(arch="llama-3.2-vision-90b", cut=dict(n_layers=5), plens=(20, 62, 64, 33), steps=4,
+         layout="paged"),
+    dict(arch="mamba2-780m", cut=dict(n_layers=2), plens=(3, 8, 5, 8), steps=4,
+         layout="contiguous"))
+#: the tensor-parallel phases' parts: serves and step-level runs.  The parts
+#: of the phases named run in one torchrun (:func:`_tp_torchrun`), so the
+#: ranks start and warm up once.
+TP_PHASES = {"serve_tp": {"runs": SERVE_TP_RUNS, "steps": SERVE_TP_STEPS},
+             "serve_tp_families": {"runs": SERVE_TP_FAMILY_RUNS, "steps": SERVE_TP_FAMILY_STEPS}}
 
 
-def tp_collectives(cfg, T: int, passes: dict, bucket: int, B: int) -> dict:
+def tp_collectives(cfg, T: int, passes: dict, bucket: int, B: int, s_src: int = 0) -> dict:
     """A model rank's collectives over a serve's passes (every prompt in one
-    ``bucket``, ``B`` slots a pass), by kind and dtype: a pass all-reduces
-    the embedding, each layer's attention and feed-forward outputs (compute
-    dtype, ``(B, S, d)``) and the greedy pick's max (f32) and min (int32) of
-    its slots; a sequence-parallel decode layer adds q's all-gather to all
-    heads and the merge's max of m (f32), sums of l (f32) and acc (compute
-    dtype, ``(B, H, 1, hd)``); and the closing check's one broadcast."""
+    ``bucket``, ``B`` slots a pass), by kind and dtype: sums of the
+    row-parallel outputs (compute dtype, ``(B, S, d)``), the greedy pick's
+    max (f32) and min (int32) of its slots a pass that samples, and the
+    closing check's one broadcast.  A pass sums
+
+    * dense, MoE and VLM: the embedding and two a layer (attention and
+      feed-forward; a VLM's cross layer its attention and gated MLP), a
+      prefill one pass over the bucket (a VLM's adapter and cross K/V need
+      none);
+    * SSM: the embedding and each layer's ``wo``; hybrid: the embedding and
+      each sublayer's mixer (attention or SSM) and feed-forward (MLP or
+      MoE); their prefill one pass a token of the bucket (a loop of decode
+      steps), the pick once at its end;
+    * enc-dec: a prefill two an encoder layer over the ``s_src`` frames and
+      no pick (decoding starts from BOS); a decode step the embedding and
+      three a decoder layer (self, cross, MLP).
+
+    A dense or MoE model's sequence-parallel decode layer adds q's
+    all-gather to all heads and the merge's max of m (f32), sums of l (f32)
+    and acc (compute dtype, ``(B, H, 1, hd)``)."""
     from repro_torch.models.attention import kv_cache_seq_parallel
     from repro_torch.models.transformer import attn_dims
 
@@ -3678,13 +3876,22 @@ def tp_collectives(cfg, T: int, passes: dict, bucket: int, B: int) -> dict:
     e = 2 if cd == "bfloat16" else 4
     L, d = cfg.n_layers, cfg.d_model
     P, Dc = passes["prefill"], passes["decode"]
-    n = P + Dc
-    out = {f"all-reduce sum {cd}": [n * (1 + 2 * L),
-                                    (1 + 2 * L) * B * d * e * (P * bucket + Dc)],
-           "all-reduce max float32": [n, 4 * B * n], "all-reduce min int32": [n, 4 * B * n],
-           "broadcast object": [1, 0]}
-    ad = attn_dims(cfg, T)
-    if kv_cache_seq_parallel(ad):
+    picks = P + Dc
+    if cfg.family in ("ssm", "hybrid"):
+        per = 1 + (L if cfg.family == "ssm" else 2 * L)
+        tokens = P * bucket + Dc
+        sums = [tokens * per, tokens * per * B * d * e]
+    elif cfg.family == "encdec":
+        enc, dec = 2 * cfg.n_encoder_layers, 1 + 3 * L
+        sums = [P * enc + Dc * dec, (P * enc * s_src + Dc * dec) * B * d * e]
+        picks = Dc
+    else:
+        per = 1 + 2 * L
+        sums = [(P + Dc) * per, per * B * d * e * (P * bucket + Dc)]
+    out = {f"all-reduce sum {cd}": sums, "all-reduce max float32": [picks, 4 * B * picks],
+           "all-reduce min int32": [picks, 4 * B * picks], "broadcast object": [1, 0]}
+    if cfg.family in ("dense", "moe") and kv_cache_seq_parallel(attn_dims(cfg, T)):
+        ad = attn_dims(cfg, T)
         H, hd = ad.n_heads, ad.head_dim
         out[f"all-reduce sum {cd}"][0] += Dc * L
         out[f"all-reduce sum {cd}"][1] += Dc * L * B * H * hd * e
@@ -3697,20 +3904,85 @@ def tp_collectives(cfg, T: int, passes: dict, bucket: int, B: int) -> dict:
     return {k: {"calls": c, "bytes": b} for k, (c, b) in sorted(out.items())}
 
 
-def _tp_steps(dev, arch: str, layers: int, plens, s_max: int, page: int, steps: int,
-              paged: bool) -> dict:
-    """A step-level decode of ``arch`` on this rank (f32 compute, int8
-    weights, the rank's slice of the one init): a prefill of ragged prompts,
-    then ``steps`` decode steps fed a fixed token stream on the contiguous
-    cache (the plain merge where it is sequence-parallel), K3, K4 and K5
-    counted; each pass's logits gathered over the model axis.  Rank 0 then
-    runs the same seed's whole ``1x1`` model through the plain versions on
-    the same inputs (nothing sent: the other ranks wait at the next
-    collective).  ``paged`` (the sequence-parallel glm4-9b): twice more on
-    the paged cache, once through the gathered view and once through K5 on
-    the rank's pool with the partials merged across the ranks.  The paged
-    tables are the reference's tp=4 test's: slot b's local pages
-    ``[b*n_loc, (b+1)*n_loc)`` of every shard's pool."""
+def _held_shapes() -> dict:
+    """The launch shapes phase kernels holds against the plain versions, as
+    :func:`k3_and_experts` names them: K3 ``(M, K, N, x dtype)``, K4 ``(BH,
+    S, D, dtype)`` (both masks), K5 ``(B, KV, G, hd, page, n_pmax, q dtype,
+    pool dtype)``."""
+    k3 = {(M, K, N, str(dt)[6:]) for _a, _p, M, K, N, dts, _n in K3_MODEL_SHAPES for dt in dts}
+    k4 = {(BH, S, D, str(dt)[6:]) for BH, D, S, dts in ATTN_CASES for dt in dts}
+    k5 = set()
+    for _label, shape, (qd, pd), _n in DECODE_CASES:
+        kw = {"KV": 4, "G": 8, "hd": 128, "page": 16, "n_pmax": 16,
+              "lengths": (253, 60, 100, 0), **shape}
+        k5.add((len(kw["lengths"]), kw["KV"], kw["G"], kw["hd"], kw["page"], kw["n_pmax"],
+                str(qd)[6:], str(pd)[6:]))
+    return {"quant_matmul": k3, "flash_attention": k4, "flash_decode": k5}
+
+
+#: the launch-shape counts of a :func:`k3_and_experts` record
+_SHAPE_KEYS = ("k3_shapes", "k4_shapes", "k5_shapes")
+
+
+def _unheld(record: dict) -> dict:
+    """The launch shapes of ``record`` (:func:`k3_and_experts`) phase
+    kernels does not hold."""
+    held = _held_shapes()
+    out = {}
+    for name, key in zip(("quant_matmul", "flash_attention", "flash_decode"), _SHAPE_KEYS):
+        keys = {tuple(int(x) if x.isdigit() else x for x in k.replace("x", " ").split())
+                for k in record.get(key, {})}
+        miss = sorted(" ".join(map(str, k)) for k in keys - held[name])
+        if miss:
+            out[name] = miss
+    return out
+
+
+def grouped_gated_norm(groups: int):
+    """The SSM's gated norm with its variance over ``groups`` contiguous
+    blocks of channels: what ``groups`` model shards compute, each over its
+    own ``d_inner / groups`` channels (the reference's semantics under tp),
+    for the 1x1 model that ``1 x groups`` is held to."""
+    def norm(pc, path, scale, y, z, eps=1e-6):
+        yf = y.to(torch.float32) * torch.nn.functional.silu(z.to(torch.float32))
+        g = yf.reshape(*yf.shape[:-1], groups, yf.shape[-1] // groups)
+        yn = (g * torch.rsqrt(torch.mean(g * g, dim=-1, keepdim=True) + eps)).reshape(yf.shape)
+        return (yn * (1.0 + pc.use_small(path, scale))).to(y.dtype)
+    return norm
+
+
+@contextlib.contextmanager
+def _ssm_norm_in_groups(groups: int):
+    """The SSM mixer's gated norm replaced by :func:`grouped_gated_norm`."""
+    from repro_torch.models import ssm
+
+    norm = ssm._gated_norm
+    ssm._gated_norm = grouped_gated_norm(groups)
+    try:
+        yield
+    finally:
+        ssm._gated_norm = norm
+
+
+def _tp_steps(dev, arch: str, cut: dict, plens, steps: int, layout: str,
+              seq_paged: bool = False) -> dict:
+    """A step-level run of ``arch`` (``cut``, f32 compute, int8 weights, the
+    rank's slice of the one init, a VLM's cross gates 0.5) on this rank's
+    model shard: a flash prefill of ``len(plens)`` slots (prompts of
+    ``plens`` tokens where the family takes tokens; the stub frontend's
+    images or frames drawn normal), then ``steps`` flash decode steps fed
+    tokens 2, 3, ... on the ``layout`` cache (``"paged"``: 16-token pages,
+    slot b's pages ``[b*n_pmax, (b+1)*n_pmax)``; a sequence-parallel
+    contiguous cache decodes through the plain merge); K3, K4 and K5 counted
+    and their shapes recorded; each pass's logits gathered over the model
+    axis.  Rank 0 then runs the same seed's whole ``1x1`` model through the
+    plain versions on the same inputs, its SSM's gated norm in T groups of
+    channels (the other ranks wait at the next collective).  ``seq_paged``
+    (the sequence-parallel glm4-9b): twice more on the paged cache through
+    per-shard tables (the reference's tp=4 test's: slot b's local pages
+    ``[b*n_loc, (b+1)*n_loc)`` of every shard's pool), once through the
+    gathered view and once through K5 on the rank's pool with the partials
+    merged across the ranks."""
     import dataclasses
 
     from repro_torch.api import PrecisionPolicy
@@ -3723,15 +3995,20 @@ def _tp_steps(dev, arch: str, layers: int, plens, s_max: int, page: int, steps: 
     from repro_torch.models.common import ParamCtx, pack_params_for_policy
     from repro_torch.models.model import build_model
 
-    cfg = dataclasses.replace(get_config(arch), n_layers=layers, compute_dtype="float32")
+    cfg = dataclasses.replace(get_config(arch), **cut, compute_dtype="float32")
     model = build_model(cfg)
     tp_axes = axis_ctx_for(f"1x{SERVE_TP_RANKS}", group="default")
     T, B = tp_axes.tp, len(plens)
+    s_max, page = SERVE_TP_S_MAX, 16
     policy = PrecisionPolicy.lazy_int8(7)
     gen = torch.Generator(device=dev).manual_seed(5)
+    spec = model.prefill_batch_spec(B, max(plens), s_max)
+    batch = {name: torch.randn(tuple(t.shape), generator=gen, device=dev)
+             for name, t in spec.items() if name != "tokens"}
+    if "tokens" in spec:
+        batch["tokens"] = torch.randint(2, cfg.vocab_size, (B, max(plens)), generator=gen,
+                                        device=dev, dtype=torch.int32)
     lens = torch.tensor(plens, dtype=torch.int32, device=dev)
-    prompt = torch.randint(2, cfg.vocab_size, (B, max(plens)), generator=gen, device=dev,
-                           dtype=torch.int32)
     k5_lengths: list = []
     decode = ops.flash_paged_decode
 
@@ -3739,27 +4016,33 @@ def _tp_steps(dev, arch: str, layers: int, plens, s_max: int, page: int, steps: 
         k5_lengths.append(lloc.tolist())
         return decode(q, kp, vp, pt, lloc)
 
-    def init(axes):
-        return build_init_fn(model, axes, device=dev, pack=lambda p: pack_params_for_policy(
-            p, policy, exempt=default_exempt))(torch.Generator(device=dev).manual_seed(0))
+    def pack(leaves):
+        for name in ("periods/cross/gate", "periods/cross/mlp_gate"):
+            if name in leaves:
+                leaves[name] = torch.full_like(leaves[name], 0.5)
+        return pack_params_for_policy(leaves, policy, exempt=default_exempt)
 
-    def run(axes, params, paged: bool, impl: str):
+    def init(axes):
+        return build_init_fn(model, axes, device=dev, pack=pack)(
+            torch.Generator(device=dev).manual_seed(0))
+
+    def run(axes, params, layout, impl, record):
+        """``layout``: "contiguous", "paged" (a slot's pages on every shard's
+        pool) or "per_shard" (the sequence-parallel tables)."""
         pc = ParamCtx.from_policy(axes, policy, compute_dtype=torch.float32)
-        kw = {"page_size": page} if paged else {}
+        kw = {} if layout == "contiguous" else {"page_size": page}
         caches = init_global_caches(model, axes, s_max=s_max, batch_global=B, device=dev, **kw)
-        if paged:
-            n_loc = (s_max // T) // page
-            table = np.zeros((B, T * n_loc), np.int32)
-            for b in range(B):
-                for t in range(T):
-                    table[b, t * n_loc:(t + 1) * n_loc] = np.arange(b * n_loc, (b + 1) * n_loc)
-            caches = set_page_tables(caches, table, model_shard=axes.tp_index(),
-                                     tp=T)
+        if kw:
+            shards = T if layout == "per_shard" else 1
+            n = s_max // shards // page
+            table = np.tile(np.arange(B * n, dtype=np.int32).reshape(B, n), (1, shards))
+            caches = set_page_tables(caches, table, **(
+                {"model_shard": axes.tp_index(), "tp": T} if shards > 1 else {}))
         ops.reset_launches()
-        with torch.no_grad():
-            lg, caches = model.prefill(pc, params, {"tokens": prompt}, caches,
-                                       attn_impl="flash", prompt_lens=lens)
-            outs = [axes.all_gather_model(lg, axis=2)]
+        with torch.no_grad(), k3_and_experts(record):
+            lg, caches = model.prefill(pc, params, batch, caches, attn_impl="flash",
+                                       prompt_lens=lens)
+            outs = [] if lg is None else [axes.all_gather_model(lg, axis=2)]
             for step in range(steps):
                 tok = torch.full((B, 1), 2 + step, dtype=torch.int32, device=dev)
                 lg, caches = model.decode_step(pc, params, {"token": tok}, caches,
@@ -3769,185 +4052,235 @@ def _tp_steps(dev, arch: str, layers: int, plens, s_max: int, page: int, steps: 
                                                          for k in _ATTN_KERNELS}
 
     params = init(tp_axes)
-    contiguous, launches = run(tp_axes, params, False, "ref")
-    big = float(contiguous.abs().max())
-    out = {"arch": arch, "layers": layers, "plens": list(plens), "steps": steps,
-           "rank": tp_axes.tp_index(), "launches": launches, "logit_max_abs": big,
-           "finite": bool(torch.isfinite(contiguous).all())}
-    if paged:
-        paged_ref, _ = run(tp_axes, params, True, "ref")
+    shapes: dict = {}
+    got, launches = run(tp_axes, params, layout, "flash", shapes)
+    big = float(got.abs().max())
+    out = {"arch": arch, "cut": cut, "plens": list(plens), "steps": steps, "layout": layout,
+           "rank": tp_axes.tp_index(), "launches": launches, "shapes": shapes,
+           "logit_max_abs": big, "finite": bool(torch.isfinite(got).all())}
+    if seq_paged:
+        paged_ref, _ = run(tp_axes, params, "per_shard", "ref", {})
         ops.flash_paged_decode = recording
         try:
-            paged_flash, out["paged_launches"] = run(tp_axes, params, True, "flash")
+            paged_flash, out["paged_launches"] = run(tp_axes, params, "per_shard", "flash",
+                                                     shapes)
         finally:
             ops.flash_paged_decode = decode
         dec = slice(1, None)          # the decode steps (the prefill is the same call)
-        out.update(ref_bit_equal=bool(torch.equal(paged_ref[dec], contiguous[dec])),
-                   flash_max_abs=float((paged_flash[dec] - contiguous[dec]).abs().max()),
-                   k5_local_lengths=k5_lengths[::layers],
+        out.update(ref_bit_equal=bool(torch.equal(paged_ref[dec], got[dec])),
+                   flash_max_abs=float((paged_flash[dec] - got[dec]).abs().max()),
+                   k5_local_lengths=k5_lengths[::cfg.n_layers],
                    finite=out["finite"] and bool(torch.isfinite(paged_flash).all()))
     out["model"] = tp_axes.model_transport.report()
     del params
     if tp_axes.tp_index() == 0:
         one = AxisCtx()
-        with plain_kernels():
-            whole, _ = run(one, init(one), False, "ref")
-        diff = (contiguous - whole).abs()
+        with plain_kernels(), _ssm_norm_in_groups(T):
+            want, _ = run(one, init(one), layout, "flash", {})
+        diff = (got - want).abs()
         out["vs_1x1"] = {"max_abs": float(diff.max()), "tol": SERVE_TP_1X1_TOL,
-                         "ok": bool((diff <= SERVE_TP_1X1_TOL * (1 + whole.abs())).all()),
-                         "greedy_agreement": float((contiguous.argmax(-1)
-                                                    == whole.argmax(-1)).float().mean())}
-        del whole
-    del contiguous
+                         "ok": bool((diff <= SERVE_TP_1X1_TOL * (1 + want.abs())).all()),
+                         "greedy_agreement": float((got.argmax(-1) == want.argmax(-1))
+                                                   .float().mean())}
+        del want
+    del got
     torch.cuda.empty_cache()
     return out
 
 
-def serve_tp_rank(job: dict, dev, rank: int) -> None:
-    """One rank of phase serve_tp (started by ``torch.distributed.run``):
-    each serve run on ``1x4`` with the launch counters zeroed just before
-    and read just after, its model group's collectives by kind, calls and
-    bytes and those staged; then the step-level runs; to
-    ``<out_dir>/rank<r>.json`` and a line on stdout."""
-    out = {"rank": rank, "device": str(dev), "runs": []}
-    for run in job["serve_tp"]["runs"]:
-        sess, passes, ticks = _serve_dist_session(str(dev), run["mesh"], run.get("layers"),
-                                                  arch=run["arch"], base_options=run["options"])
-        res = _serve_dist_run(sess, passes, ticks, dev)
-        res.update(arch=run["arch"], layers=sess.cfg.n_layers,
+def serve_tp_rank(job: dict, dev, rank: int) -> dict:
+    """One rank's part of a tensor-parallel phase (started by
+    ``torch.distributed.run``, :func:`_tp_torchrun`): each serve run on
+    ``1x4`` with the launch counters zeroed just before and read just after,
+    the launches by shape, its model group's collectives by kind, calls and
+    bytes and those staged; then the step-level runs (:func:`_tp_steps`); a
+    line on stdout each, and the part's seconds."""
+    t0 = time.time()
+    out = {"runs": [], "steps": []}
+    for run in job["runs"]:
+        sess, passes, ticks = _serve_dist_session(str(dev), f"1x{SERVE_TP_RANKS}",
+                                                  arch=run["arch"], base_options=run["options"],
+                                                  smoke=run.get("smoke", False), cut=run["cut"])
+        shapes: dict = {}
+        with k3_and_experts(shapes):
+            res = _serve_dist_run(sess, passes, ticks, dev)
+        res.update(arch=run["arch"], layers=sess.cfg.n_layers, shapes=shapes,
                    at=[sess.axes.dp_index(), sess.axes.tp_index()],
                    model=sess.axes.model_transport.report())
         out["runs"].append(res)
         print(f"tp rank {rank} {run['arch']}: " + json.dumps(
-            {k: res[k] for k in ("tok_s", "host_ms_a_step", "peak_gb", "passes", "launches")}
+            {k: res[k] for k in ("tok_s", "host_ms_a_step", "peak_gb", "serve_wall_s",
+                                 "passes", "launches")}
             | {"issued": res["model"]["issued"], "staged": res["model"]["staged"]}), flush=True)
         del sess
         torch.cuda.empty_cache()
-    out["steps"] = []
-    for run in job["serve_tp"]["steps"]:
+    for run in job["steps"]:
         torch.cuda.reset_peak_memory_stats(dev)
+        t1 = time.time()
         res = _tp_steps(dev, **run)
-        res["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        res.update(peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9, wall_s=time.time() - t1)
         out["steps"].append(res)
         print(f"tp rank {rank} {run['arch']} step-level: " + json.dumps(
-            {k: v for k, v in res.items() if k != "model"}), flush=True)
-    with open(os.path.join(job["out_dir"], f"rank{rank}.json"), "w") as f:
-        json.dump(out, f)
+            {k: v for k, v in res.items() if k not in ("model", "shapes")}), flush=True)
+    out["wall_s"] = time.time() - t0
+    return out
 
 
-def phase_serve_tp(dev: dict) -> dict:
-    """Tensor-parallel serving (see the module docstring); returns rank 0's
-    K3/K4/K5 launches over the two serves."""
-    import dataclasses
+def _tp_torchrun(phases: list) -> dict:
+    """One ``torch.distributed.run`` of ``SERVE_TP_RANKS`` gloo ranks sharing
+    the card for the parts of the tensor-parallel ``phases``
+    (``TP_PHASES``), run one after another in the same processes, which
+    start and warm up once.  Each phase's ranks' results, each with its
+    rank.  The ranks' segments grow (expandable segments): 4 ranks drawing
+    llama-3.2-vision's 4.2 GB f32 embedding whole at once would otherwise
+    strand the freed blocks of one leaf from the next's."""
     import tempfile
 
-    from repro_torch.configs import get_config
+    base = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    parts = {p: TP_PHASES[p] for p in phases}
+    ranks = _torchrun(SERVE_TP_RANKS, {"backend": "gloo", "share_device": True, **parts}, base,
+                      900, env={"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
+    return {p: [dict(rk[p], rank=rk["rank"]) for rk in ranks] for p in phases}
+
+
+def phase_tp(phase: str, dev: dict, ranks: list) -> dict:
+    """Check a tensor-parallel phase (``serve_tp`` or ``serve_tp_families``;
+    see the module docstring) from its part's ranks' results; returns rank
+    0's K3/K4/K5 launches over the serves."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, smoke_variant
 
     card = f"{dev['kind']} ({dev['smi']})"
-    T = SERVE_TP_RANKS
-    runs = [dict(run, mesh=f"1x{T}") for run in SERVE_TP_RUNS]
-    base = tempfile.mkdtemp(prefix="chip_smoke_serve_tp_")
-    ranks = _torchrun(T, {"backend": "gloo", "share_device": True,
-                          "serve_tp": {"runs": runs, "steps": SERVE_TP_STEPS}}, base, 900)
+    T, B = SERVE_TP_RANKS, SERVE_TP_SLOTS
+    part = TP_PHASES[phase]
     launches = {k: 0 for k in _ATTN_KERNELS}
-    for i, run in enumerate(runs):
-        cfg = get_config(run["arch"])
-        if run["layers"] is not None:
-            cfg = dataclasses.replace(cfg, n_layers=run["layers"])
+    unheld: dict = {}
+
+    def depth(c):
+        return f"{c.n_layers}" + (f" + {c.n_encoder_layers}" if c.n_encoder_layers else "")
+
+    for i, run in enumerate(part["runs"]):
+        full = get_config(run["arch"])
+        cfg = dataclasses.replace(smoke_variant(full) if run.get("smoke") else full,
+                                  **run["cut"])
         first = ranks[0]["runs"][i]
+        st = first["stats"]
+        assert len(st["prompt_buckets"]) == 1, st["prompt_buckets"]
+        bucket = st["prompt_buckets"][0]
+        pre = expected_launches(cfg, "prefill", bucket, T)
+        dec = expected_launches(cfg, "decode", 0, T)
         per_rank = []
         for rk in ranks:
             res = rk["runs"][i]
-            _same_serve(f"{run['arch']} tp rank {rk['rank']}", res, first)
+            label = f"{phase} {run['arch']} rank {rk['rank']}"
+            _same_serve(label, res, first)
             assert res["at"] == [0, rk["rank"]] and res["layers"] == cfg.n_layers, res["at"]
             P, Dc = res["passes"]["prefill"], res["passes"]["decode"]
-            pre, dec = (expected_launches(cfg, kind, 0) for kind in ("prefill", "decode"))
             want = {k: P * pre[k] + Dc * dec[k] for k in pre}
             if res["stats"]["kv_layout"] != "paged":
                 want["flash_decode"] = 0          # the contiguous layout: the plain merge
             if res["launches"] != want:
-                raise AssertionError(f"serve_tp {run['arch']} rank {rk['rank']}: launches "
-                                     f"{res['launches']}, want {want} ({res['passes']})")
-            predicted = tp_collectives(cfg, T, res["passes"], run["options"]["prompt_len"],
-                                       4)
+                raise AssertionError(f"{label}: launches {res['launches']}, want {want} "
+                                     f"({res['passes']})")
+            predicted = tp_collectives(cfg, T, res["passes"], bucket, B, SERVE_TP_S_MAX)
             if res["model"]["issued"] != predicted:
-                raise AssertionError(f"serve_tp {run['arch']} rank {rk['rank']}: collectives "
-                                     f"{res['model']['issued']}, predicted {predicted}")
+                raise AssertionError(f"{label}: collectives {res['model']['issued']}, "
+                                     f"predicted {predicted}")
             if res["model"]["staged"]:
-                raise AssertionError(f"serve_tp {run['arch']} rank {rk['rank']}: staged "
-                                     f"{res['model']['staged']}")
+                raise AssertionError(f"{label}: staged {res['model']['staged']}")
+            for name, miss in _unheld(res["shapes"]).items():
+                unheld.setdefault(f"{run['arch']} {name}", set()).update(miss)
             per_rank.append({"rank": rk["rank"], "tok_s": res["tok_s"],
                              "host_ms_a_step": res["host_ms_a_step"],
                              "peak_gb": res["peak_gb"], "serve_wall_s": res["serve_wall_s"],
                              "launches": res["launches"]})
-        st = first["stats"]
         assert st["admitted"] == st["completed"] == run["options"]["requests"], st
+        assert st["kv_layout"] == ("contiguous" if cfg.family == "ssm" else
+                                   run["options"].get("kv_layout", "contiguous")), st
         assert all(0 <= t < cfg.vocab_size for t in first["tokens"]), "sampled id out of range"
         for k in _ATTN_KERNELS:
             launches[k] += first["launches"][k]
-        emit({"serve_tp": {"run": f"{run['arch']} 1x{T}, {T} gloo ranks sharing the card",
-                           "card": card, "layers": cfg.n_layers,
-                           "full_depth": get_config(run["arch"]).n_layers,
-                           "kv_layout": st["kv_layout"], "max_new": run["options"]["max_new"],
-                           "admitted": st["admitted"], "decode_steps": st["decode_steps"],
-                           "passes": first["passes"], "kv_bytes": st["kv_bytes"],
-                           "collectives_a_rank": first["model"]["issued"],
-                           "sample": st["sample"], "per_rank": per_rank}})
-        full = get_config(run["arch"]).n_layers
-        cut = "" if cfg.n_layers == full else f" (cut from {full} for the time limit)"
-        print(f"serve_tp: {run['arch']} at {cfg.n_layers} layers{cut} on 1x{T}: every rank's "
-              f"tokens ({len(first['tokens'])}) and ServeStats equal; launches and collectives "
-              "as predicted; nothing staged")
-    # the step-level runs: rank 0 against the 1x1 model through the plain
-    # versions; glm4-9b's paged sequence-parallel decode against the contiguous
-    for n, run in enumerate(SERVE_TP_STEPS):
-        cfg = dataclasses.replace(get_config(run["arch"]), n_layers=run["layers"])
-        L, steps = run["layers"], run["steps"]
-        pre, dec = (expected_launches(cfg, kind, 0) for kind in ("prefill", "decode"))
-        want = {k: pre[k] + steps * dec[k] for k in pre}
+            if pre[k] or (dec[k] and st["kv_layout"] == "paged"):
+                assert first["launches"][k] > 0, (run["arch"], k, first["launches"])
+        emit({phase: {
+            "run": f"{run['arch']} 1x{T}, {T} gloo ranks sharing the card", "card": card,
+            "layers": cfg.n_layers, "encoder_layers": cfg.n_encoder_layers or None,
+            "full_depth": [full.n_layers, full.n_encoder_layers or None],
+            "smoke": bool(run.get("smoke")), "kv_layout": st["kv_layout"],
+            "prompt_bucket": bucket, "max_new": run["options"]["max_new"],
+            "admitted": st["admitted"], "decode_steps": st["decode_steps"],
+            "passes": first["passes"], "kv_bytes": st["kv_bytes"],
+            "collectives_a_rank": first["model"]["issued"],
+            "launch_shapes": {k: first["shapes"][k] for k in _SHAPE_KEYS},
+            "sample": st["sample"], "per_rank": per_rank}})
+        cut = ("" if run.get("smoke") or depth(cfg) == depth(full)
+               else f" (cut from {depth(full)} for the time limit)")
+        size = " smoke size" if run.get("smoke") else ""
+        print(f"{phase}: {run['arch']}{size} at {depth(cfg)} layers{cut} on 1x{T}: every "
+              f"rank's tokens ({len(first['tokens'])}) and ServeStats equal; launches and "
+              "collectives as predicted; nothing staged")
+    for n, run in enumerate(part["steps"]):
+        cfg = dataclasses.replace(get_config(run["arch"]), **run["cut"])
         pg = [rk["steps"][n] for rk in ranks]
+        pre = expected_launches(cfg, "prefill", max(run["plens"]), T)
+        dec = expected_launches(cfg, "decode", 0, T)
+        want = {k: pre[k] + run["steps"] * dec[k] for k in pre}
+        main = dict(want, flash_decode=0) if run["layout"] == "contiguous" else want
+        label = f"{phase} {run['arch']} step-level"
         for t, r in enumerate(pg):
-            if not r["finite"] or r["launches"] != dict(want, flash_decode=0):
-                raise AssertionError(f"serve_tp {run['arch']} step-level: rank {t}: {r}")
+            if not r["finite"] or r["launches"] != main:
+                raise AssertionError(f"{label}: rank {t}: launches {r['launches']}, want "
+                                     f"{main}, finite {r['finite']}")
+            for name, miss in _unheld(r["shapes"]).items():
+                unheld.setdefault(f"{run['arch']} step-level {name}", set()).update(miss)
         one = pg[0]["vs_1x1"]
         if not one["ok"]:
-            raise AssertionError(f"serve_tp {run['arch']} step-level: 1x4 through the kernels "
-                                 f"against the 1x1 model through the plain versions: max "
-                                 f"{one['max_abs']} beyond rtol = atol = {one['tol']}")
-        line = {"run": f"{run['arch']} step-level, {L} layers, f32", "card": card,
-                **{k: run[k] for k in ("plens", "steps", "paged")},
-                "launches": pg[0]["launches"], "vs_1x1": one}
-        print(f"serve_tp: {run['arch']}'s step-level 1x{T} logits (prefill and {steps} decode "
-              f"steps, {L} layers at full width, f32) equal the 1x1 model's through the plain "
-              f"versions within {one['max_abs']:.3g} (tol {SERVE_TP_1X1_TOL} of logits up to "
+            raise AssertionError(f"{label}: 1x{T} through the kernels against the 1x1 model "
+                                 f"through the plain versions: max {one['max_abs']} beyond "
+                                 f"rtol = atol = {one['tol']}")
+        grouped = " (its gated norm in 4 groups)" if cfg.family in ("ssm", "hybrid") else ""
+        line = {"run": f"{run['arch']} step-level, {depth(cfg)} layers, f32", "card": card,
+                **{k: run[k] for k in ("cut", "plens", "steps", "layout")},
+                "launches": pg[0]["launches"], "vs_1x1": one,
+                "launch_shapes": {k: pg[0]["shapes"][k] for k in _SHAPE_KEYS}}
+        print(f"{phase}: {run['arch']}'s step-level 1x{T} logits (prefill and {run['steps']} "
+              f"decode steps, {depth(cfg)} layers at full width, f32, {run['layout']}) equal "
+              f"the 1x1 model's{grouped} through the plain versions within "
+              f"{one['max_abs']:.3g} (tol {SERVE_TP_1X1_TOL} of logits up to "
               f"{pg[0]['logit_max_abs']:.3g}), greedy agreement {one['greedy_agreement']}")
-        if run["paged"]:
-            S_loc = run["s_max"] // T
+        if run.get("seq_paged"):
+            S_loc = SERVE_TP_S_MAX // T
             for t, r in enumerate(pg):
                 if not r["ref_bit_equal"]:
-                    raise AssertionError(f"serve_tp paged: rank {t}: {r}")
+                    raise AssertionError(f"{label} paged: rank {t}: {r}")
                 if r["flash_max_abs"] > SERVE_TP_PAGED_RTOL * r["logit_max_abs"]:
                     raise AssertionError(
-                        f"serve_tp paged: K5 and the merge against the contiguous layout: "
+                        f"{label} paged: K5 and the merge against the contiguous layout: "
                         f"{r['flash_max_abs']} > {SERVE_TP_PAGED_RTOL} x {r['logit_max_abs']}")
                 for step, lens in enumerate(r["k5_local_lengths"]):
                     glob = [p + step + 1 for p in run["plens"]]
                     if lens != [min(max(g - S_loc * t, 0), S_loc) for g in glob]:
-                        raise AssertionError(f"serve_tp paged: rank {t} step {step}: K5 "
+                        raise AssertionError(f"{label} paged: rank {t} step {step}: K5 "
                                              f"lengths {lens}")
                 if r["paged_launches"] != want:
-                    raise AssertionError(f"serve_tp paged: rank {t}: launches "
+                    raise AssertionError(f"{label} paged: rank {t}: launches "
                                          f"{r['paged_launches']}, want {want}")
             assert [r["k5_local_lengths"][-1][0] for r in pg] == [24, 0, 0, 0], pg
             line["paged_launches"] = pg[0]["paged_launches"]
-            print(f"serve_tp: {run['arch']}'s step-level paged sequence-parallel decode equals "
+            print(f"{phase}: {run['arch']}'s step-level paged sequence-parallel decode equals "
                   f"the contiguous layout bit for bit through the gathered view, and through "
                   f"K5 and the merge within {max(r['flash_max_abs'] for r in pg):.3g} of "
                   f"logits up to {pg[0]['logit_max_abs']:.3g}")
         line["per_rank"] = [{k: r[k] for k in ("rank", "ref_bit_equal", "flash_max_abs",
-                                               "logit_max_abs", "peak_gb", "k5_local_lengths")
-                             if k in r} for r in pg]
-        emit({"serve_tp": line})
+                                               "logit_max_abs", "peak_gb", "wall_s",
+                                               "k5_local_lengths") if k in r} for r in pg]
+        emit({phase: line})
+    if unheld:
+        raise AssertionError(f"{phase}: launch shapes phase kernels does not hold: "
+                             + json.dumps({k: sorted(v) for k, v in unheld.items()}))
+    print(f"{phase}: every K3, K4 and K5 shape launched is one phase kernels holds; the ranks' "
+          f"part {ranks[0]['wall_s']:.1f} s")
     return launches
 
 
@@ -4682,7 +5015,7 @@ def phase_analyze(dev: dict) -> None:
 
 
 PHASES = ("device", "build", "kernels", "serve", "profile", "consistency", "fl", "train",
-          "dist", "serve_dist", "serve_tp", "roofline", "analyze", "grids")
+          "dist", "serve_dist", "serve_tp", "serve_tp_families", "roofline", "analyze", "grids")
 #: run only when named in ``--phases``
 EXTRA_PHASES = ("sweep", "decode_sweep", "attn_sweep", "train_profile", "grids_all",
                 "roofline_all")
@@ -4711,6 +5044,7 @@ def main(argv=None) -> int:
     measured: dict = {}         # phases profile and train -> phase roofline
     launches = {name: 0 for name in KERNELS}
     launches_of = {}
+    tp_ranks: dict = {}         # the tensor-parallel phases' parts, one torchrun
     runs = (("build", phase_build), ("kernels", lambda: phase_kernels(table)),
             ("sweep", lambda: phase_sweep(dev)), ("decode_sweep", lambda: phase_decode_sweep(dev)),
             ("attn_sweep", lambda: phase_attn_sweep(dev)),
@@ -4721,7 +5055,8 @@ def main(argv=None) -> int:
             ("train", lambda: launches_of.update(train=phase_train(dev, measured))),
             ("dist", lambda: launches_of.update(dist=phase_dist(dev, table))),
             ("serve_dist", lambda: launches_of.update(serve_dist=phase_serve_dist(dev))),
-            ("serve_tp", lambda: launches_of.update(serve_tp=phase_serve_tp(dev))),
+            *((p, lambda p=p: launches_of.update({p: phase_tp(p, dev, tp_ranks[p])}))
+              for p in TP_PHASES),
             ("roofline", lambda: phase_roofline(dev, measured)),
             ("analyze", lambda: phase_analyze(dev)),
             ("roofline_all", lambda: phase_roofline_all(dev)),
@@ -4730,12 +5065,18 @@ def main(argv=None) -> int:
             ("grids_all", lambda: phase_grids_all(args.presets.split(","), args.store_dir)))
     for name, run in runs:
         if name in phases:
+            if name in TP_PHASES and not tp_ranks:
+                named = [p for p in TP_PHASES if p in phases]
+                t0 = time.time()
+                tp_ranks.update(_tp_torchrun(named))
+                print(f"chip_smoke: the tensor-parallel ranks (the parts of phases "
+                      f"{', '.join(named)}) took {time.time() - t0:.1f} s")
             t0 = time.time()
             run()
             print(f"chip_smoke: phase {name} took {time.time() - t0:.1f} s")
     if "serve" in launches_of:
         launches = launches_of["serve"]
-    for phase in ("serve_dist", "serve_tp"):
+    for phase in ("serve_dist", *TP_PHASES):
         for name, n in launches_of.get(phase, {}).items():
             launches[name] += n         # K3, K4, K5 on the sharded paths too
     launches.update(launches_of.get("fl", {}))

@@ -15,9 +15,9 @@ it raises; nothing falls back to the CPU::
 ``requests``, ``max_new``, ``kv_layout``, ``page_size``, ``pool_pages``,
 ``vary_prompt``, ``precision_program``, ``quiet``.  On a ``Dx1`` mesh the
 batch splits into D data shards, run in a loop on the device or one a rank
-under a process group; on a ``DxT`` mesh (T > 1, the dense and MoE
-families) each of the D·T ranks of a group holds one model shard of one
-data shard (:meth:`Session.serve`).
+under a process group; on a ``DxT`` mesh (T > 1, every family) each of
+the D·T ranks of a group holds one model shard of one data shard
+(:meth:`Session.serve`).
 
 ``fl-sim`` options (the paper's loop, :meth:`Session.run_fl_sim`):
 ``scheme``, ``n_clients``, ``lr``, ``error_tolerance``, ``eval_every``,
@@ -73,6 +73,18 @@ BOS_ID = 1
 #: seed offsets of the stub frontends' serving inputs (VLM images, enc-dec
 #: frames), as in the reference
 _MEMORY_SEED_OFFSET = {"images": 101, "frames": 102}
+
+
+def serve_memory_inputs(pf_spec: dict, seed: int, device) -> dict:
+    """The stub frontends' serving inputs of the global batch (VLM
+    ``images``, enc-dec ``frames``; nothing for the text families): seeded
+    normal draws on ``device`` of the prefill spec's shapes, the same every
+    admission and on every rank (the reference draws them from fixed keys).
+    The serving driver cuts them over its data shards."""
+    return {name: torch.randn(tuple(t.shape), dtype=t.dtype, device=device,
+                              generator=torch.Generator(device=device).manual_seed(
+                                  seed + _MEMORY_SEED_OFFSET[name]))
+            for name, t in pf_spec.items() if name != "tokens"}
 
 
 @dataclasses.dataclass
@@ -768,8 +780,8 @@ class Session:
         all-gathers its sampled tokens, so every rank's schedule, tokens and
         :class:`ServeStats` (its clocks apart) are the same; rank 0 prints.
 
-        On a ``DxT`` mesh with T > 1 (the dense and MoE families, under a
-        group of D·T ranks) each rank is one model shard of one data shard:
+        On a ``DxT`` mesh with T > 1 (every family, under a group of D·T
+        ranks) each rank is one model shard of one data shard:
         it draws the whole model leaf by leaf, packs each whole leaf and
         keeps its tensor-parallel slice (then its FSDP slice), runs every
         prefill and decode step with its model group (the row-parallel
@@ -972,13 +984,7 @@ class Session:
                 tok = torch.cat([outs[c] for c in shards])
             return tok.cpu().numpy()             # waits for the device
 
-        # the stub frontends' inputs: seeded normal draws on the device, the
-        # same every admission (the reference draws them from fixed keys)
-        memory_inputs = {
-            name: torch.randn(tuple(t.shape), dtype=t.dtype, device=dev,
-                              generator=torch.Generator(device=dev).manual_seed(
-                                  seed + _MEMORY_SEED_OFFSET[name]))
-            for name, t in pf_spec.items() if name != "tokens"}
+        memory_inputs = serve_memory_inputs(pf_spec, seed, dev)
 
         kv_bits = 16 if policy.kv_cache_dtype() == torch.bfloat16 else 32
         kv_demotions = 0

@@ -15,9 +15,9 @@ caches and page pool; in one process they run one after another on the
 device.  Launched by torchrun, each of the D processes is one shard: it
 holds its FSDP slice of the packed weights, every rank runs the one host
 scheduler, the sampled tokens are all-gathered, and rank 0 prints.
-``--mesh DxT`` with T > 1 (tensor parallelism, the dense and MoE families)
-runs only under torchrun, D*T processes, one model shard of one data shard
-each (in one process it raises).  ``--backend`` is ``nccl`` on CUDA (one
+``--mesh DxT`` with T > 1 (tensor parallelism, every family) runs only
+under torchrun, D*T processes, one model shard of one data shard each (in
+one process it raises).  ``--backend`` is ``nccl`` on CUDA (one
 card a rank) and ``gloo`` on the CPU; ``--share-device`` puts every rank on
 ``cuda:0`` and needs ``gloo``::
 
@@ -29,6 +29,12 @@ card a rank) and ``gloo`` on the CPU; ``--share-device`` puts every rank on
     PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 4 \
         -m repro_torch.launch.serve --device cpu --backend gloo --mesh 1x4 \
         --arch glm4-9b --smoke --steps 24 --batch 4 --s-max 32 --attn-impl flash
+    PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 4 \
+        -m repro_torch.launch.serve --device cpu --backend gloo --mesh 1x4 \
+        --arch mamba2-780m --smoke --steps 24 --batch 4 --s-max 32
+    PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 4 \
+        -m repro_torch.launch.serve --device cpu --backend gloo --mesh 2x2 \
+        --arch seamless-m4t-large-v2 --smoke --steps 24 --batch 4 --s-max 32 --attn-impl flash
     python -m torch.distributed.run --standalone --nproc-per-node 4 \
         -m repro_torch.launch.serve --backend gloo --share-device --mesh 1x4 \
         --arch yi-6b --batch 4 --s-max 256 --prompt-len 128 --attn-impl flash

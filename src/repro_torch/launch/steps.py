@@ -234,9 +234,6 @@ def build_init_fn(model: Model, axes: AxisCtx, *, device=None, pack=None):
     codes are the one-process packing's, cut, and its scales the whole
     leaves' (the reference packs its global arrays).
     """
-    from repro_torch.models.model import require_tp_ported
-
-    require_tp_ported(model.cfg, axes.tp)
     cut = None
     if axes.tp > 1:
         from repro_torch.dist.sharding import cut_model, tree_param_specs

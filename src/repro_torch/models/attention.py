@@ -28,8 +28,10 @@ token is written only by the shard that owns its position, and the
 one-token attention gathers q to all heads and merges the shards' partials
 with a distributed online softmax (``pmax`` of the maxima, ``psum`` of the
 rescaled sums), through the flash-decode kernel's unnormalised ``(acc, m,
-l)`` on the paged layout.  The cross-attention functions (VLM, enc-dec) run
-at ``tp = 1`` only (ROADMAP queue 1, item 9b).
+l)`` on the paged layout.  Cross-attention (VLM, enc-dec) has no
+sequence-parallel form: its K/V over the memory are computed whole on every
+shard, and where the KV heads replicate each shard expands them to all q
+heads and keeps its own q-head range.
 """
 
 from __future__ import annotations
@@ -42,10 +44,6 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.models.common import ParamCtx, init_dense
 from repro_torch.models.layers import apply_rope, dense, rope_tables, sp_out
-
-_CROSS_TP_TODO = ("cross-attention with replicated KV heads under tp > 1 (the VLM and "
-                  "enc-dec families) is not ported (ROADMAP queue 1, item 9b)")
-
 
 @dataclasses.dataclass(frozen=True)
 class AttnDims:
@@ -83,11 +81,6 @@ def kv_cache_seq_parallel(dims: AttnDims) -> bool:
     """Whether the KV heads replicate over tp, so the self-attention cache
     is sharded over the sequence instead."""
     return dims.tp > 1 and not dims.kv_sharded
-
-
-def _require_local_kv(dims: AttnDims) -> None:
-    if kv_cache_seq_parallel(dims):
-        raise NotImplementedError(_CROSS_TP_TODO)
 
 
 def init_attention(gen: torch.Generator, dims: AttnDims, *, lead=(), device=None,
@@ -212,21 +205,24 @@ def project_cross_kv(pc: ParamCtx, path: str, p, memory, dims: AttnDims):
 
 def cross_attention_cached(pc: ParamCtx, path: str, p, x, k, v, dims: AttnDims):
     """Cross-attention of x (B, S, D) against precomputed K/V (B, S_m, KVl,
-    hd): no mask, no rope."""
-    _require_local_kv(dims)
+    hd): no mask, no rope.  The shard's q heads always take their own range
+    of the expanded K/V (``tp_idx`` given: never the sequence-parallel
+    decode's all-heads expansion)."""
     B, S = x.shape[0], x.shape[1]
     q = dense(pc, f"{path}/wq", p["wq"], x).reshape(B, -1, dims.heads_local, dims.head_dim)
-    y = _full_attention(q, _expand_kv(k.to(q.dtype), dims), _expand_kv(v.to(q.dtype), dims),
-                        causal=False)
+    tp_idx = pc.ctx.tp_index()
+    y = _full_attention(q, _expand_kv(k.to(q.dtype), dims, tp_idx),
+                        _expand_kv(v.to(q.dtype), dims, tp_idx), causal=False)
     y = y.reshape(B, S, dims.heads_local * dims.head_dim)
     return pc.ctx.psum_model(dense(pc, f"{path}/wo", p["wo"], y))
 
 
 def cross_attention(pc: ParamCtx, path: str, p, x, memory, dims: AttnDims):
     """Decoder -> encoder/image-memory attention (no causal mask, no rope)."""
-    _require_local_kv(dims)
     q, k, v = _project_qkv(pc, path, p, x, memory, dims, None, None)
-    y = _full_attention(q, _expand_kv(k, dims), _expand_kv(v, dims), causal=False)
+    tp_idx = pc.ctx.tp_index()
+    y = _full_attention(q, _expand_kv(k, dims, tp_idx), _expand_kv(v, dims, tp_idx),
+                        causal=False)
     B, S = x.shape[0], x.shape[1]
     y = y.reshape(B, S, dims.heads_local * dims.head_dim)
     return sp_out(pc, dense(pc, f"{path}/wo", p["wo"], y))

@@ -467,7 +467,9 @@ def pack_params_for_serving(params: dict, bits: int, *, exempt) -> dict:
     reference's arithmetic step for step: f32 division by the broadcast scale,
     a per-layer ``(L,)`` scale for stacked leaves and a scalar otherwise.
     Stacked leaves are packed one layer at a time, so the temporaries stay one
-    layer large.
+    layer large; the rounding and the clamp run in place on the quotient, so
+    a leaf's packing holds one f32 temporary beside it (a rank drawing a
+    4.2 GB embedding whole needs 4.2 GB more, not 8.4).
     """
     from repro_torch.core.quantization import storage_dtype
 
@@ -486,13 +488,13 @@ def pack_params_for_serving(params: dict, bits: int, *, exempt) -> dict:
                 wf = leaf[i].to(torch.float32)
                 s = torch.clamp(wf.abs().max(), min=1e-12)
                 scale = (s * delta).to(torch.float32)
-                codes[i] = torch.clamp(torch.round(wf / scale), -lim, lim).to(codes.dtype)
+                codes[i] = (wf / scale).round_().clamp_(-lim, lim).to(codes.dtype)
                 scales.append(scale)
             out[path] = QTensor(codes=codes, scale=torch.stack(scales))   # (L,)
         else:
             wf = leaf.to(torch.float32)
             s = torch.clamp(wf.abs().max(), min=1e-12)
             scale = (s * delta).to(torch.float32)                         # ()
-            codes = torch.clamp(torch.round(wf / scale), -lim, lim).to(storage_dtype(bits))
+            codes = (wf / scale).round_().clamp_(-lim, lim).to(storage_dtype(bits))
             out[path] = QTensor(codes=codes, scale=scale)
     return out

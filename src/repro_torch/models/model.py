@@ -16,9 +16,9 @@
 Every family of the reference is ported: dense and MoE (one transformer),
 SSM (mamba2), the hybrid (jamba), VLM (llama-3.2-vision) and enc-dec
 (seamless-m4t).  An enc-dec prefill returns ``None`` logits: the driver
-seeds decoding with BOS.  Under tensor parallelism (a model axis above 1)
-only the dense and MoE families run; the others raise naming ROADMAP item
-9b (:func:`require_tp_ported`).
+seeds decoding with BOS.  Every family serves under tensor parallelism (a
+model axis above 1); training under it is not ported (the train step
+raises naming ROADMAP item 9c).
 """
 
 from __future__ import annotations
@@ -62,43 +62,6 @@ class Model:
     supports_paged_kv: bool = False
 
 
-#: the families that run on a model axis above 1
-TP_FAMILIES = ("dense", "moe")
-
-
-def require_tp_ported(cfg: ModelConfig, tp: int) -> None:
-    """Raise where ``cfg``'s family does not run on a model axis of ``tp``."""
-    if tp > 1 and cfg.family not in TP_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family under tensor parallelism (tp={tp}) is not "
-            "ported (ROADMAP queue 1, item 9b: the SSM, hybrid, VLM and enc-dec families "
-            "under tp); the dense and MoE families run on a model axis above 1")
-
-
-def _tp_guarded(model: "Model") -> "Model":
-    """``model`` with every entry point raising :func:`require_tp_ported`'s
-    error on a model axis above 1 (read from the ``tp`` argument of ``init``
-    and ``init_caches``, from ``pc.ctx.tp`` elsewhere)."""
-    cfg = model.cfg
-
-    def by_arg(fn, pos):
-        def call(*a, **kw):
-            require_tp_ported(cfg, int(a[pos]) if len(a) > pos else int(kw.get("tp", 1)))
-            return fn(*a, **kw)
-        return call
-
-    def by_ctx(fn):
-        def call(pc, *a, **kw):
-            require_tp_ported(cfg, pc.ctx.tp)
-            return fn(pc, *a, **kw)
-        return call
-
-    return dataclasses.replace(
-        model, init=by_arg(model.init, 1), init_caches=by_arg(model.init_caches, 2),
-        train_loss=by_ctx(model.train_loss), forward=by_ctx(model.forward),
-        decode_step=by_ctx(model.decode_step), prefill=by_ctx(model.prefill))
-
-
 def count_passes(model: Model, passes: dict, ticks: list | None = None) -> Model:
     """``model`` with each call of its ``prefill`` and ``decode_step`` added
     to ``passes["prefill"]`` / ``passes["decode"]`` (a data shard's call is
@@ -117,12 +80,7 @@ def count_passes(model: Model, passes: dict, ticks: list | None = None) -> Model
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    model = _build_model(cfg)
-    return model if cfg.family in TP_FAMILIES else _tp_guarded(model)
-
-
-def _build_model(cfg: ModelConfig) -> Model:
-    if cfg.family in TP_FAMILIES:
+    if cfg.family in ("dense", "moe"):
         return Model(
             cfg=cfg,
             init=lambda gen, tp, device=None: transformer.init_lm(

@@ -147,3 +147,42 @@ def test_cache_specs_match_reference(arch, paged):
     want = _ref_flat(jsh.cache_specs(jcaches, JAXES, jcfg))
     got = _port_flat(tsh.cache_specs(tcaches, axis_ctx_for("4x1"), tcfg))
     assert got == want
+
+
+class _FakeGroup:
+    """A model group's size and rank, for an axis context built in one
+    process (nothing is sent)."""
+
+    def __init__(self, size: int):
+        self.size, self.rank = size, 0
+
+
+@pytest.mark.parametrize("mesh", ["1x2", "2x2"])
+@pytest.mark.parametrize("arch", ["mamba2-780m", "jamba-1.5-large-398b",
+                                  "llama-3.2-vision-90b", "seamless-m4t-large-v2"])
+def test_tp_specs_of_the_item_9b_families_match_reference(arch, mesh):
+    """Under tp (a model axis of 2; FSDP over the 2 data shards at 2x2) the
+    SSM, hybrid, VLM and enc-dec families' parameter specs from the local
+    storage of ``init(..., tp=2)`` are the reference's, and so are the specs
+    of the whole ``tp = 1`` tree given the launch's KV split (what a rank's
+    init cuts by); their cache specs (contiguous and paged: SSM states,
+    cross K/V, self caches) too."""
+    from repro_torch.dist.collectives import AxisCtx
+    from repro_torch.models.transformer import attn_dims
+
+    D, T = (int(x) for x in mesh.split("x"))
+    jcfg, tcfg = _cfgs(arch, True)
+    jm, tm = jbuild_model(jcfg), build_model(tcfg)
+    axes = AxisCtx(batch_axes=("data",), model_axis="model", fsdp_axes=("data",),
+                   sizes=(("data", D), ("model", T)), model_transport=_FakeGroup(T))
+    jshapes = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), T))
+    local = tm.init(torch.Generator().manual_seed(0), T, device="meta")
+    whole = tm.init(torch.Generator().manual_seed(0), 1, device="meta")
+    want = _ref_flat(jsh.tree_param_specs(jshapes, jcfg, JAXES, D))
+    assert tsh.tree_param_specs(local, tcfg, axes, D) == want
+    assert tsh.tree_param_specs(whole, tcfg, axes, D, attn_dims(tcfg, T).kv_sharded) == want
+    for kw in ({}, {"page_size": 8} if tm.supports_paged_kv else {}):
+        jcaches = jax.eval_shape(lambda: jm.init_caches(2, 32, T, **kw))
+        tcaches = tm.init_caches(2, 32, T, device="meta", **kw)
+        assert _port_flat(tsh.cache_specs(tcaches, axes, tcfg)) == \
+            _ref_flat(jsh.cache_specs(jcaches, JAXES, jcfg))

@@ -3,12 +3,15 @@
 gloo ranks, the model cut of a parameter or cache tree and its join, the
 port's init under tp against the reference's (divergence D14), the
 step-level sequence-parallel paged decode (per-shard page tables, K5's
-partials merged across the ranks), and the errors of every path the port
+partials merged across the ranks), the SSM, hybrid, VLM and enc-dec
+families at the step level under tp (a VLM with replicated KV heads held to
+the reference's step functions), and the errors of every path the port
 does not run under tp.
 
 The reference's mesh order and its tp init run in one subprocess with 4
-forced host devices, started at the module's first test; the port's ranks
-are gloo processes (``tests/torch_dist_worker.py``).
+forced host devices, its VLM steps in another, both started at the
+module's first test; the port's ranks are gloo processes
+(``tests/torch_dist_worker.py``).
 """
 
 import concurrent.futures
@@ -31,13 +34,32 @@ from repro_torch.launch import mesh as tmesh
 from repro_torch.models.common import QTensor
 from repro_torch.models.model import build_model
 from repro_torch.models.transformer import attn_dims
-from torch_dist_worker import run_ranks
+from torch_dist_worker import (FAMILY_STEP, family_step_batch, run_ranks, set_cross_gates,
+                               tree_shapes)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ENV = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"), "OMP_NUM_THREADS": "1"}
 #: (arch, mesh) of the init checks: glm4-9b's KV projections replicate over
-#: 4 model shards, olmoe-1b-7b's router over 2, yi-6b at 1x4 splits its KV
-D14_RUNS = (("glm4-9b", "1x4"), ("olmoe-1b-7b", "1x2"), ("yi-6b", "1x4"))
+#: 4 model shards, olmoe-1b-7b's router over 2, yi-6b at 1x4 splits its KV;
+#: the SSM's B/C projection and conv, jamba's router too, the VLM's and the
+#: enc-dec's frontend adapter replicate at 1x2
+D14_RUNS = (("glm4-9b", "1x4"), ("olmoe-1b-7b", "1x2"), ("yi-6b", "1x4"),
+            ("mamba2-780m", "1x2"), ("jamba-1.5-large-398b", "1x2"),
+            ("llama-3.2-vision-90b", "1x2"), ("seamless-m4t-large-v2", "1x2"))
+#: the replicated leaves the reference draws per model shard (D14)
+D14_DIFFER = {"glm4-9b": {"blocks/attn/wk", "blocks/attn/wv"},
+              "olmoe-1b-7b": {"blocks/moe/router"}, "yi-6b": set(),
+              "mamba2-780m": {"blocks/ssm/w_bc", "blocks/ssm/conv_bc"},
+              "jamba-1.5-large-398b": {"periods/sub0/ffn/router", "periods/sub1/mixer/w_bc",
+                                       "periods/sub1/mixer/conv_bc"},
+              "llama-3.2-vision-90b": {"adapter"}, "seamless-m4t-large-v2": {"adapter"}}
+#: the families whose serving entry points run under tp since item 9b
+FAMILIES = ("mamba2-780m", "jamba-1.5-large-398b", "llama-3.2-vision-90b",
+            "seamless-m4t-large-v2")
+#: the VLM with its KV heads replicated over 4 model shards (2 of them): the
+#: cross K/V whole on every shard, the self caches sequence-parallel
+CROSS = dict(arch="llama-3.2-vision-90b", overrides={"n_kv_heads": 2}, mesh="1x4", B=2,
+             S_P=6, s_max=32, steps=4)
 #: the paged sequence-parallel case: s_max 32 over 4 shards (8 positions,
 #: 2 pages of 4 each); slot 0's prompt of 3 stays in shard 0's range over
 #: the 4 steps, slot 1's of 6 crosses into shard 1's at its third
@@ -76,6 +98,66 @@ for arch, spec in runs:
 print("RESULT " + json.dumps(res))
 """
 
+_REFERENCE_CROSS = r"""
+import os, sys, json, dataclasses
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+import numpy as np
+import repro  # installs the jax forward-compat shims before any mesh API
+import jax, jax.numpy as jnp
+from jax.sharding import PartitionSpec as P
+from repro.configs import get_config, smoke_variant
+from repro.dist.sharding import cache_specs
+from repro.launch.mesh import axis_ctx_for, make_test_mesh
+from repro.launch.steps import build_init_fn, init_global_caches
+from repro.models.common import ParamCtx
+from repro.models.model import build_model
+from repro_torch.models.convert import params_from_jax
+
+run, inputs, out = json.loads(sys.argv[1]), sys.argv[2], sys.argv[3]
+cfg = dataclasses.replace(smoke_variant(get_config(run["arch"])), **run["overrides"])
+T, B = int(run["mesh"].split("x")[1]), run["B"]
+model = build_model(cfg)
+mesh = make_test_mesh((1, T), ("data", "model"))
+axes = axis_ctx_for(mesh)
+init_fn, pspecs = build_init_fn(model, mesh, axes)
+# D14: device 0's copy of every replicated leaf
+params = jax.tree_util.tree_map(lambda x: jax.device_put(np.asarray(x), x.sharding),
+                                init_fn(jax.random.PRNGKey(0)))
+cross = params["periods"]["cross"]
+for name, value in (("gate", 0.5), ("mlp_gate", -0.7)):
+    cross[name] = jax.device_put(np.full(cross[name].shape, value, np.float32),
+                                 cross[name].sharding)
+rng = np.random.RandomState(5)
+tokens = rng.randint(2, cfg.vocab_size, (B, run["S_P"])).astype(np.int32)
+images = rng.randn(B, cfg.n_image_tokens, cfg.d_frontend).astype(np.float32)
+np.savez(inputs, tokens=tokens, images=images,
+         **{"param:" + k: v.numpy() for k, v in params_from_jax(params).items()})
+open(inputs + ".done", "w").close()
+caches = init_global_caches(model, mesh, axes, s_max=run["s_max"], batch_global=B)
+cspecs = cache_specs(jax.eval_shape(lambda: model.init_caches(B, run["s_max"], T)), axes, cfg)
+
+def prefill(p, batch, c):
+    return model.prefill(ParamCtx(ctx=axes, compute_dtype=jnp.float32), p, batch, c)
+
+def decode(p, tok, c):
+    return model.decode_step(ParamCtx(ctx=axes, compute_dtype=jnp.float32), p,
+                             {"token": tok}, c)
+
+def mapped(fn):
+    return jax.jit(jax.shard_map(fn, mesh=mesh, in_specs=(pspecs, P(), cspecs),
+                                 out_specs=(P(None, None, "model"), cspecs), check_vma=False))
+
+lg, caches = mapped(prefill)(params, {"tokens": tokens, "images": images}, caches)
+outs = {"prefill": np.asarray(lg)}
+step = mapped(decode)
+for i in range(run["steps"]):
+    lg, caches = step(params, jnp.full((B, 1), 2 + i, jnp.int32), caches)
+    outs[f"decode{i}"] = np.asarray(lg)
+np.savez(out, **outs)
+print("RESULT " + json.dumps({"cross_k": list(caches["cross_k"].shape),
+                              "self0_k": list(caches["self0"].k.shape)}))
+"""
+
 
 @pytest.fixture(scope="module")
 def jobs(tmp_path_factory):
@@ -88,6 +170,11 @@ def jobs(tmp_path_factory):
     ref = subprocess.Popen([sys.executable, "-c", _REFERENCE, json.dumps(D14_RUNS)],
                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
                            env={**ENV, "JAX_PLATFORMS": "cpu"})
+    cross_in, cross_out = os.path.join(tmp, "cross-in.npz"), os.path.join(tmp, "cross-ref.npz")
+    ref_cross = subprocess.Popen([sys.executable, "-c", _REFERENCE_CROSS, json.dumps(CROSS),
+                                  cross_in, cross_out],
+                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                 env={**ENV, "JAX_PLATFORMS": "cpu"})
     four = [dict(name="layout", kind="layout", mesh="2x2"),
             dict(name="init glm4-9b", kind="init_tp", arch="glm4-9b", mesh="1x4", seed=0,
                  save=os.path.join(tmp, "glm4-9b-1x4-{rank}.npz")),
@@ -95,10 +182,17 @@ def jobs(tmp_path_factory):
                  save=os.path.join(tmp, "yi-6b-1x4-{rank}.npz")),
             dict(name="paged", kind="paged_tp", save=os.path.join(tmp, "paged.npz"), **PAGED),
             dict(name="explicit paged", kind="serve_tp", arch="glm4-9b", mesh="1x4", batch=4,
-                 options=OPTS_PAGED_SEQPAR, expect=True)]
+                 options=OPTS_PAGED_SEQPAR, expect=True),
+            dict(name="cross", kind="cross_seqpar", data=cross_in,
+                 save=os.path.join(tmp, "cross-port.npz"),
+                 **{k: CROSS[k] for k in ("arch", "overrides", "mesh", "s_max", "steps")})]
     two = [dict(name="collectives", kind="model_collectives", mesh="1x2", seed=7),
            dict(name="init olmoe-1b-7b", kind="init_tp", arch="olmoe-1b-7b", mesh="1x2",
-                seed=0, packed=True, save=os.path.join(tmp, "olmoe-1b-7b-1x2-{rank}.npz"))]
+                seed=0, packed=True, save=os.path.join(tmp, "olmoe-1b-7b-1x2-{rank}.npz")),
+           dict(name="families", kind="families_tp", mesh="1x2", archs=list(FAMILIES),
+                save=os.path.join(tmp, "families.npz"))]
+    two += [dict(name=f"init {arch}", kind="init_tp", arch=arch, mesh="1x2", seed=0,
+                 save=os.path.join(tmp, f"{arch}-1x2-{{rank}}.npz")) for arch in FAMILIES]
     pool = concurrent.futures.ThreadPoolExecutor(2)
     futures = {}
     for n, tasks in ((4, four), (2, two)):
@@ -114,11 +208,22 @@ def jobs(tmp_path_factory):
             done.update(json.loads(out.split("RESULT ", 1)[1]))
         return done
 
+    def reference_cross():
+        if "cross" not in done:
+            out, err = ref_cross.communicate(timeout=600)
+            assert ref_cross.returncode == 0, \
+                f"the reference's VLM steps:\n{out[-3000:]}\n{err[-3000:]}"
+            done["cross"] = {**json.loads(out.split("RESULT ", 1)[1]),
+                             "logits": dict(np.load(cross_out))}
+        return done["cross"]
+
     try:
-        yield dict(tmp=tmp, reference=reference, ranks=lambda n: futures[n].result())
+        yield dict(tmp=tmp, reference=reference, reference_cross=reference_cross,
+                   ranks=lambda n: futures[n].result())
     finally:
-        if ref.poll() is None:
-            ref.kill()
+        for p in (ref, ref_cross):
+            if p.poll() is None:
+                p.kill()
         pool.shutdown(wait=True)
 
 
@@ -202,14 +307,15 @@ def test_d14_replicated_leaves(jobs, arch, mesh):
     """D14: the reference inits each model shard from ``fold_in(key,
     tp_idx)``, so a leaf it declares replicated over the model axis differs
     across its devices (glm4-9b's KV projections at 1x4, olmoe's router at
-    1x2; nothing at yi-6b 1x4, whose KV heads split).  Every port rank draws
+    1x2; nothing at yi-6b 1x4, whose KV heads split; at 1x2 mamba2's
+    ``w_bc`` and ``conv_bc``, jamba's too and its router, the VLM's and
+    seamless's ``adapter``: ``D14_DIFFER``).  Every port rank draws
     the whole model from one generator and keeps its slice: its replicated
     leaves are the same on every rank, and the ranks' slices joined over the
     model axis are the port's 1x1 init (olmoe's packed: each whole leaf's
     codes cut, its scale whole)."""
     differ = jobs["reference"]()["differ"][f"{arch} {mesh}"]
-    expect = {"glm4-9b": {"blocks/attn/wk", "blocks/attn/wv"},
-              "olmoe-1b-7b": {"blocks/moe/router"}, "yi-6b": set()}[arch]
+    expect = D14_DIFFER[arch]
     assert set(differ) == expect
     T = int(mesh.split("x")[1])
     n = 4 if T == 4 else 2
@@ -367,30 +473,85 @@ def test_one_process_model_axis_raises_naming_torchrun():
                 device="cpu").serve()
 
 
-@pytest.mark.parametrize("arch", ["mamba2-780m", "jamba-1.5-large-398b",
-                                  "llama-3.2-vision-90b", "seamless-m4t-large-v2"])
-def test_item_9b_families_raise_under_tp(arch):
-    """The SSM, hybrid, VLM and enc-dec families under tp raise naming item
-    9b, at every entry point: the init (as ``build_init_fn`` draws it), the
-    caches, a prefill and a decode step; at tp = 1 they run."""
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_item_9b_families_run_under_tp(jobs, arch, monkeypatch):
+    """The SSM, hybrid, VLM and enc-dec families run under tp at 1x2 (2
+    gloo ranks, f32, the port's own init, the VLM's cross gates set): each
+    rank's parameters and caches (contiguous and paged) have the local
+    shapes of ``model.init(gen, 2)`` and ``model.init_caches(..., 2)``, and
+    a flash prefill and decode step give, gathered over the model axis, the
+    1x1 model's logits (the attention families: 1x2 is the 1x1 model cut),
+    or for the SSM and the hybrid the 1x1 model's with the SSM's gated norm
+    taken in 2 groups of channels (the reference's 1xT semantics, kept),
+    within 1e-5: the row-parallel sums add 2 shards' partial products."""
     from repro_torch.launch.steps import build_init_fn
+    from repro_torch.models import ssm
     from repro_torch.models.common import ParamCtx
 
     cfg = smoke_variant(get_config(arch))
     model = build_model(cfg)
     axes = AxisCtx(batch_axes=("data",), model_axis="model", fsdp_axes=("data",),
                    sizes=(("data", 1), ("model", 2)), model_transport=_FakeGroup(2))
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        build_init_fn(model, axes)
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        model.init(torch.Generator().manual_seed(0), 2, device="meta")
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        model.init_caches(2, 32, 2)
-    pc = ParamCtx(ctx=axes)
-    for fn in (model.prefill, model.decode_step):
-        with pytest.raises(NotImplementedError, match="item 9b"):
-            fn(pc, {}, {}, None)
-    assert model.init(torch.Generator().manual_seed(0), 1, device="meta")
+    assert callable(build_init_fn(model, axes))
+    got = jobs["ranks"](2)["ranks"]
+    local = model.init(torch.Generator().manual_seed(0), 2, device="meta")
+    B, S_MAX = FAMILY_STEP["B"], FAMILY_STEP["S_MAX"]
+    caches = model.init_caches(B, S_MAX, 2, dtype=torch.float32, device="meta")
+    for rk in got:
+        res = rk["families"][arch]
+        assert res["params"] == {p: list(w.shape) for p, w in local.items()}
+        assert res["caches"] == tree_shapes(caches)
+        if model.supports_paged_kv:
+            paged = model.init_caches(B, S_MAX, 2, dtype=torch.float32, device="meta",
+                                      page_size=4)
+            assert res["paged"] == tree_shapes(paged)
+    if cfg.family in ("ssm", "hybrid"):
+        monkeypatch.syspath_prepend(ROOT)
+        from chip_smoke import grouped_gated_norm
+
+        monkeypatch.setattr(ssm, "_gated_norm", grouped_gated_norm(2))
+    whole = set_cross_gates(model.init(torch.Generator().manual_seed(0), 1))
+    pc = ParamCtx(ctx=AxisCtx(), compute_dtype=torch.float32)
+    c1 = model.init_caches(B, S_MAX, 1, dtype=torch.float32)
+    lg, c1 = model.prefill(pc, whole, family_step_batch(model), c1, attn_impl="flash")
+    dl, _ = model.decode_step(pc, whole, {"token": torch.full((B, 1), 3, dtype=torch.int32)},
+                              c1, attn_impl="flash")
+    port = dict(np.load(os.path.join(jobs["tmp"], "families.npz")))
+    want = {"decode": dl} if lg is None else {"prefill": lg, "decode": dl}
+    assert {k.split(":")[1] for k in port if k.startswith(arch + ":")} == set(want)
+    for kind, w in want.items():
+        np.testing.assert_allclose(port[f"{arch}:{kind}"], w.numpy(), atol=1e-5, rtol=1e-5)
+
+
+def test_cross_attention_with_replicated_kv_heads_is_the_reference(jobs):
+    """A smoke VLM given 2 KV heads, at 1x4 (no shipped config replicates
+    its cross KV heads at T <= 4): each shard projects the whole cross K/V
+    (2 heads over the image memory), expands them to all q heads and keeps
+    its own range; its self caches are sequence-parallel (8 of the 32
+    positions a shard).  Fed the reference's canonical parameters, images
+    and prompt, the port's 4 gloo ranks give the reference's step functions'
+    logits on 4 forced devices (f32, gates 0.5 and -0.7) at the prefill and
+    at 4 decode steps, the last two of them written by shard 1, within 2e-5
+    (a 4-way row-parallel sum and the decode's distributed softmax add in
+    another order)."""
+    ref = jobs["reference_cross"]()
+    rk = jobs["ranks"](4)["ranks"]
+    T, B = 4, CROSS["B"]
+    cfg = smoke_variant(get_config(CROSS["arch"]))
+    hd, P = cfg.resolved_head_dim, cfg.n_layers // cfg.cross_attn_period
+    for r in rk:
+        res = r["cross"]
+        assert res["kv_sharded"] is False
+        # (periods, B, S_max / T, all 2 KV heads, hd); the cross K/V whole
+        assert res["self_cache"] == [P, B, CROSS["s_max"] // T, 2, hd]
+        assert res["cross_cache"] == [P, B, cfg.n_image_tokens, 2, hd]
+    assert ref["cross_k"] == [P, B, cfg.n_image_tokens, 2, hd]
+    port = dict(np.load(os.path.join(jobs["tmp"], "cross-port.npz")))
+    assert set(port) == set(ref["logits"]) == {"prefill"} | {
+        f"decode{i}" for i in range(CROSS["steps"])}
+    for k, want in ref["logits"].items():
+        assert port[k].shape == want.shape == (B, 1, cfg.vocab_size)
+        np.testing.assert_allclose(port[k], want, atol=2e-5, rtol=2e-5)
 
 
 def test_training_under_tp_raises_naming_item_9c():
@@ -416,6 +577,29 @@ def test_training_under_tp_raises_naming_item_9c():
     spec = RunSpec("yi-6b", workload="dryrun", mesh="1x2", options={"shape": "decode_32k"})
     with pytest.raises(NotImplementedError, match="item 14"):
         Session(spec, device="cpu").run()
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_training_of_the_item_9b_families_under_tp_raises_naming_item_9c(arch):
+    """Serving runs under tp for every family; training does not: the
+    train and fl-orchestrate workloads' ``run_train`` and ``fl_round`` and
+    ``build_train_step`` raise naming item 9c for the SSM, hybrid, VLM and
+    enc-dec families as for the dense one."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.optim import build_optimizer
+
+    for wl in ("train", "fl-orchestrate"):
+        sess = Session(RunSpec(arch, workload=wl, mesh="1x2", smoke=True), device="cpu")
+        with pytest.raises(NotImplementedError, match="item 9c"):
+            sess.run_train()
+        with pytest.raises(NotImplementedError, match="item 9c"):
+            sess.fl_round(0)
+    axes = AxisCtx(batch_axes=("data",), model_axis="model", fsdp_axes=("data",),
+                   sizes=(("data", 1), ("model", 2)), model_transport=_FakeGroup(2))
+    with pytest.raises(NotImplementedError, match="item 9c"):
+        build_train_step(build_model(smoke_variant(get_config(arch))), axes,
+                         build_optimizer("sgd", 0.1), TrainConfig())
 
 
 def test_convert_carries_the_reference_global_params_into_a_rank():
@@ -444,3 +628,39 @@ def test_convert_carries_the_reference_global_params_into_a_rank():
         assert got.keys() == want.keys()
         assert all(_equal(got[p], want[p]) for p in want)
         assert got["blocks/attn/wk"].codes.shape[-1] == 2 * 16       # 2 of the 4 KV heads
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_convert_carries_each_item_9b_family_into_a_rank(arch):
+    """``rank_params_from_jax`` of the SSM, hybrid, VLM and enc-dec
+    families at 1x2: a nested global tree (packed leaves as ``codes`` and
+    ``scale``) gives model shard t the whole tree cut on the launch's layout
+    (the SSM's B/C projection and conv, the router and the adapter whole;
+    the column- and row-parallel projections, the per-head scalars, the
+    gated norm's channels and the vocab split), with the local shapes of
+    ``init(..., tp=2)``."""
+    from repro_torch.models.convert import rank_params_from_jax
+
+    cfg = smoke_variant(get_config(arch))
+    whole = _port_whole(arch, packed=True)
+    nested: dict = {}
+    for path, w in whole.items():
+        node = nested
+        *parents, leaf = path.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = (types.SimpleNamespace(codes=w.codes.numpy(), scale=w.scale.numpy())
+                      if isinstance(w, QTensor) else w.numpy())
+    local = build_model(cfg).init(torch.Generator().manual_seed(0), 2, device="meta")
+    for t in range(2):
+        axes = AxisCtx(batch_axes=("data",), model_axis="model", fsdp_axes=("data",),
+                       sizes=(("data", 1), ("model", 2)), model_rank=t,
+                       model_transport=_FakeGroup(2, t))
+        got = rank_params_from_jax(nested, cfg, axes)
+        want = cut_model(whole, _whole_specs(whole, cfg, axes), axes, t)
+        assert got.keys() == want.keys() == local.keys()
+        assert all(_equal(got[p], want[p]) for p in want)
+        for p, w in got.items():
+            assert tuple((w.codes if isinstance(w, QTensor) else w).shape) == \
+                tuple(local[p].shape), p
+

@@ -302,24 +302,40 @@ def task_serve_tp(t: dict, rank: int) -> dict:
     """``Session.serve`` of ``t["arch"]`` (smoke size, lazy int8) on mesh
     ``t["mesh"]`` (a model axis above 1) under the group, from the whole
     parameters of ``t["data"]`` (waited for: a reference run writes them)
-    or, without, from the port's own init at seed 0.  Every prefill's and
-    decode step's tokens of this rank's slots, the stats (clocks apart),
-    the sampled tokens, the passes, and each transport's counts; with
-    ``t["expect"]`` the error the serve raised instead."""
+    or, without, from the port's own init at seed 0; with ``t["memory"]``
+    the stub frontends' inputs (images, frames) are that file's arrays.
+    Every prefill's and decode step's tokens of this rank's slots, the
+    stats (clocks apart), the sampled tokens, the passes (and the prompt
+    tokens the prefills ran, ``prefill_tokens``), and each transport's
+    counts; with ``t["expect"]`` the error the serve raised instead."""
     from repro_torch.api import PrecisionPolicy, RunSpec, Session
+    from repro_torch.api import session as session_mod
     from repro_torch.models.model import count_passes
 
     sess = Session(RunSpec(t["arch"], workload="serve", mesh=t["mesh"], smoke=True, seed=0,
                            batch=t["batch"], seq=t["options"]["s_max"],
                            precision=PrecisionPolicy.lazy_int8(7), options=t["options"]),
                    device="cpu")
-    passes = {"prefill": 0, "decode": 0}
+    passes = {"prefill": 0, "decode": 0, "prefill_tokens": 0}
     model = sess.model
     if t.get("data"):
         _wait_for(t["data"])
         whole = {k: torch.from_numpy(v) for k, v in np.load(t["data"]).items()}
         model = dataclasses.replace(model, init=fixed_init(whole))
-    sess.model = count_passes(model, passes)
+    model = count_passes(model, passes)
+    prefill = model.prefill
+
+    def widths(pc, params, batch, caches, **kw):
+        if "tokens" in batch:
+            passes["prefill_tokens"] += int(batch["tokens"].shape[1])
+        return prefill(pc, params, batch, caches, **kw)
+
+    sess.model = dataclasses.replace(model, prefill=widths)
+    drawn = session_mod.serve_memory_inputs
+    if t.get("memory"):
+        memory = {k: torch.from_numpy(v) for k, v in np.load(t["memory"]).items()}
+        session_mod.serve_memory_inputs = lambda spec, seed, device: {
+            k: v.to(device) for k, v in memory.items()}
     calls: list = []
     undo = _recorded_steps(calls)
     try:
@@ -330,6 +346,7 @@ def task_serve_tp(t: dict, rank: int) -> dict:
         return {"raised": f"{type(e).__name__}: {e}"}
     finally:
         undo()
+        session_mod.serve_memory_inputs = drawn
     axes = sess.axes
 
     def report(tr):
@@ -477,11 +494,140 @@ def task_paged_tp(t: dict, rank: int) -> dict:
     return {"k5_local_lengths": lengths}
 
 
+#: the families' step-level batch: B slots, prompts of S_P tokens, s_max
+FAMILY_STEP = dict(B=2, S_P=6, S_MAX=32)
+
+
+def family_cfg(arch: str, overrides: dict | None = None):
+    """``arch``'s smoke config, with ``overrides`` (dataclass fields)."""
+    from repro_torch.configs import get_config, smoke_variant
+
+    return dataclasses.replace(smoke_variant(get_config(arch)), **(overrides or {}))
+
+
+def family_step_batch(model) -> dict:
+    """The prefill batch of the families' step-level tp checks: prompt
+    tokens from seed 5 (where the family takes tokens) and the stub
+    frontend's inputs (images spanning ``n_image_tokens``, frames spanning
+    s_max) from seed 6, f32."""
+    b, s_p, s_max = FAMILY_STEP["B"], FAMILY_STEP["S_P"], FAMILY_STEP["S_MAX"]
+    gen = torch.Generator().manual_seed(5)
+    mem = torch.Generator().manual_seed(6)
+    out = {}
+    for name, spec in model.prefill_batch_spec(b, s_p, s_max).items():
+        if name == "tokens":
+            out[name] = torch.randint(2, model.cfg.vocab_size, tuple(spec.shape), generator=gen,
+                                      dtype=torch.int32)
+        else:
+            out[name] = torch.randn(tuple(spec.shape), generator=mem)
+    return out
+
+
+def set_cross_gates(params: dict) -> dict:
+    """A VLM's zero-initialised cross gates set to 0.5 (attention) and -0.7
+    (MLP), so the image memory reaches the logits; other trees unchanged."""
+    for path, value in (("periods/cross/gate", 0.5), ("periods/cross/mlp_gate", -0.7)):
+        if path in params:
+            params[path] = torch.full_like(params[path], value)
+    return params
+
+
+def task_families_tp(t: dict, rank: int) -> dict:
+    """Each of ``t["archs"]`` (smoke size, f32, the port's own init at seed
+    0, VLM gates set) on mesh ``t["mesh"]``: the rank's parameter and cache
+    shapes (contiguous and paged), then a flash prefill of
+    :func:`family_step_batch` into the contiguous caches and a flash decode
+    step of token 3; the logits all-gathered over the model axis (the
+    prefill's where it returns any) to ``t["save"]``."""
+    from repro_torch.launch.mesh import axis_ctx_for
+    from repro_torch.launch.steps import build_init_fn, init_global_caches
+    from repro_torch.models.common import ParamCtx
+    from repro_torch.models.model import build_model
+
+    axes = axis_ctx_for(t["mesh"], group="default")
+    pc = ParamCtx(ctx=axes, compute_dtype=torch.float32)
+    b, s_max = FAMILY_STEP["B"], FAMILY_STEP["S_MAX"]
+    out, arrays = {}, {}
+    for arch in t["archs"]:
+        model = build_model(family_cfg(arch))
+        params = set_cross_gates(build_init_fn(model, axes)(torch.Generator().manual_seed(0)))
+        caches = init_global_caches(model, axes, s_max=s_max, batch_global=b)
+        paged = init_global_caches(model, axes, s_max=s_max, batch_global=b, page_size=4,
+                                   device="meta") if model.supports_paged_kv else None
+        lg, caches = model.prefill(pc, params, family_step_batch(model), caches,
+                                   attn_impl="flash")
+        dl, caches = model.decode_step(pc, params, {"token": torch.full((b, 1), 3,
+                                                                       dtype=torch.int32)},
+                                       caches, attn_impl="flash")
+        if lg is not None:
+            arrays[f"{arch}:prefill"] = axes.all_gather_model(lg, axis=2).numpy()
+        arrays[f"{arch}:decode"] = axes.all_gather_model(dl, axis=2).numpy()
+        out[arch] = {"params": {p: list(w.shape) for p, w in params.items()},
+                     "caches": tree_shapes(caches),
+                     "paged": None if paged is None else tree_shapes(paged)}
+    if rank == 0:
+        np.savez(t["save"], **arrays)
+    return out
+
+
+def tree_shapes(tree):
+    """A cache tree's leaf shapes, keyed by their paths."""
+    if isinstance(tree, dict):
+        return {f"{k}/{p}": s for k, v in tree.items() for p, s in tree_shapes(v).items()}
+    if isinstance(tree, tuple):
+        return {f"{f}/{p}".rstrip("/"): s for f, v in zip(tree._fields, tree)
+                for p, s in tree_shapes(v).items()}
+    return {"": list(tree.shape)}
+
+
+def task_cross_seqpar(t: dict, rank: int) -> dict:
+    """The step level of a VLM whose KV heads replicate over the model axis
+    (``t["overrides"]``, e.g. 2 KV heads over 4 shards): the cross K/V whole
+    on every shard, each shard's q heads taking their range, the self
+    caches sequence-parallel and contiguous.  From the global parameters,
+    images and prompt of ``t["data"]`` (waited for: the reference writes
+    them), cut to this shard on the launch's layout, f32: a prefill and
+    ``t["steps"]`` decode steps fed tokens 2, 3, ...; every call's logits
+    all-gathered over the model axis to ``t["save"]``."""
+    from repro_torch.dist.sharding import cut_model, tree_param_specs
+    from repro_torch.launch.mesh import axis_ctx_for
+    from repro_torch.launch.steps import init_global_caches
+    from repro_torch.models.common import ParamCtx
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import attn_dims
+
+    axes = axis_ctx_for(t["mesh"], group="default")
+    cfg = family_cfg(t["arch"], t["overrides"])
+    model = build_model(cfg)
+    _wait_for(t["data"])
+    data = dict(np.load(t["data"]))
+    whole = {k[6:]: torch.from_numpy(v) for k, v in data.items() if k.startswith("param:")}
+    kv = attn_dims(cfg, axes.tp).kv_sharded
+    params = cut_model(whole, tree_param_specs(whole, cfg, axes, 1, kv), axes, axes.tp_index())
+    batch = {"tokens": torch.from_numpy(data["tokens"]),
+             "images": torch.from_numpy(data["images"])}
+    B = batch["tokens"].shape[0]
+    pc = ParamCtx(ctx=axes, compute_dtype=torch.float32)
+    caches = init_global_caches(model, axes, s_max=t["s_max"], batch_global=B)
+    lg, caches = model.prefill(pc, params, batch, caches)
+    outs = {"prefill": axes.all_gather_model(lg, axis=2).numpy()}
+    for step in range(t["steps"]):
+        lg, caches = model.decode_step(pc, params, {"token": torch.full((B, 1), 2 + step,
+                                                                       dtype=torch.int32)},
+                                       caches)
+        outs[f"decode{step}"] = axes.all_gather_model(lg, axis=2).numpy()
+    if rank == 0:
+        np.savez(t["save"], **outs)
+    return {"kv_sharded": kv, "self_cache": list(caches["self0"].k.shape),
+            "cross_cache": list(caches["cross_k"].shape)}
+
+
 TASKS = {"step": task_step, "serve": task_serve, "pack": task_pack,
          "packed_gather": task_packed_gather, "init": task_init, "wire": task_wire,
          "comm_report": task_comm_report, "serve_tp": task_serve_tp, "layout": task_layout,
          "model_collectives": task_model_collectives, "init_tp": task_init_tp,
-         "paged_tp": task_paged_tp}
+         "paged_tp": task_paged_tp, "families_tp": task_families_tp,
+         "cross_seqpar": task_cross_seqpar}
 
 
 def main() -> None:
