@@ -194,8 +194,9 @@ Phases (each one failing stops the script with a nonzero exit):
     the wire leaves bit-equal, the FSDP leaves within rtol 1e-6 of each
     leaf's largest magnitude, the loss within 1e-6.  Last, one rank over NCCL (mesh 1x1) trains a round.
 13. serve_dist: batch-sharded serving (``Session.serve`` on a ``Dx1`` mesh)
-    at phase serve's yi-6b configuration.  One process, 4x1, full width and
-    depth: 4 data shards of one slot, each with its own page pool, run one
+    at phase serve's yi-6b configuration.  One process, 4x1, full width,
+    depth cut to ``SERVE_DIST_LOOP_LAYERS`` (8 of 32) for the time limit: 4
+    data shards of one slot, each with its own page pool, run one
     after another on the card; admitted and completed 8 of 8, K3, K4 and K5
     launched exactly ``expected_launches`` a shard's prefill and decode step
     times the shard calls the session made, tok/s, host ms a step, peak.
@@ -207,8 +208,9 @@ Phases (each one failing stops the script with a nonzero exit):
     all-gather of the shards' tokens a prefill or decode step; each rank
     prints its launches, collectives by kind, calls and bytes, staged
     collectives, host ms a step, tok/s and peak.  Last, one rank over NCCL
-    at 1x1, full depth, max_new 16, whose tokens and stats must equal the
-    plain 1x1 serve's.
+    at 1x1, 2 layers (``DIST_LAYERS``, cut from full depth for the time
+    limit), max_new 16, whose tokens and stats must equal the plain 1x1
+    serve's.
 
 14. serve_tp: tensor-parallel serving (``Session.serve`` on a ``1x4`` mesh,
     one model shard a rank).  ``torch.distributed.run`` starts 4 ranks of
@@ -216,7 +218,8 @@ Phases (each one failing stops the script with a nonzero exit):
     GPU), once for this phase and the next (``TP_PHASES``: each phase's
     part runs in the same processes, so they start and warm up once; a
     rank's failure names the phase whose part failed).  yi-6b at full width
-    and depth at phase serve's configuration (max_new 16), its 4 KV heads
+    at phase serve's configuration (max_new 16), depth cut to
+    ``SERVE_TP_YI_LAYERS`` (8 of 32) for the time limit, its 4 KV heads
     split (paged, K5), then glm4-9b at full width, depth cut to
     ``SERVE_TP_GLM_LAYERS`` (8 of 40) for the time limit, max_new 16, its 2
     KV heads replicated: the sequence-parallel cache, served contiguous as
@@ -252,6 +255,25 @@ Phases (each one failing stops the script with a nonzero exit):
     its gated norm in 4 groups of channels (``grouped_gated_norm``: under
     tp the norm is over a shard's channels, the reference's semantics).
     Each tp phase prints the seconds of its ranks' part.
+16. train_tp: the trainer under tensor parallelism (``Session.run_train``
+    on ``1x4`` and on ``2x2``, one mesh device a rank) on the same 4 ranks:
+    full-width yi-6b cut to 2 of 32 layers, batch 2 a client, sequence 512,
+    8-bit weights, sequence parallelism and remat on, 3 ``train`` rounds
+    each, 2x2 at comm 8 (K2's split wire over the batch group).  Every
+    rank's losses equal; per round K1 and K2 launches exactly
+    ``train_tp_launches`` and both groups' collectives exactly
+    ``train_tp_collectives`` by kind, dtype, calls and bytes (the model
+    group's sequence-parallel gathers and reduce-scatters, forward, backward
+    and the remat reruns, the cross-entropy's max and sums, the replicated
+    leaves' one sum; the batch group's FSDP gathers, the wire, the metrics);
+    nothing staged; host ms, span on the card's clock and peak a round and
+    rank.  Then the step level in f32 at 32-bit weights
+    (``TRAIN_TP_STEPS``): yi-6b and mamba2-780m at full width, 2 layers, one
+    step on 1x4, the slices joined, every leaf's update within
+    ``TRAIN_TP_1X1_TOL`` of the same seed's 1x1 step through the plain
+    versions (mamba2's gated norm in 4 groups).  Phase kernels holds K1's
+    inline entry at every weight slice these ranks quantize and K2's split
+    passes at a rank's wire row (``check_sr_tp_shapes``).
 
 Each phase prints its own time.  The last two lines are the kernel table
 and ``{"ok": true, "device": ...}``.
@@ -1186,6 +1208,85 @@ def check_sr_quant_inline(table: dict) -> None:
         del w, wg, got, want
 
 
+#: K1's inline entry at the weight slices phase train_tp's ranks quantize:
+#: yi-6b's projections, embedding and unembedding on one of 4 model shards
+#: (1x4) and, FSDP-gathered, on one of 2 (2x2)
+TRAIN_TP_K1_SHAPES = {
+    "1x4": (("wq", (4096, 1024)), ("wk/wv", (4096, 128)), ("wo", (1024, 4096)),
+            ("w_up/w_gate", (4096, 2752)), ("w_down", (2752, 4096)),
+            ("embed", (16000, 4096)), ("unembed", (4096, 16000))),
+    "2x2": (("wq", (4096, 2048)), ("wk/wv", (4096, 256)), ("wo", (2048, 4096)),
+            ("w_up/w_gate", (4096, 5504)), ("w_down", (5504, 4096)),
+            ("embed", (32000, 4096)), ("unembed", (4096, 32000)))}
+#: K2's split entries at one rank's row of the 2x2 run's wire (its two
+#: clients: the norm scales ln1, ln2 of 2 layers and final_norm)
+TRAIN_TP_WIRE_SIZES = [2 * 4096, 2 * 4096, 4096]
+
+
+def check_sr_tp_shapes() -> None:
+    """K1's inline entry at each weight slice of phase train_tp
+    (``TRAIN_TP_K1_SHAPES``; f32 in, bf16 out, 8 bits) and K2's two split
+    passes at one rank's row of its 2x2 wire (``TRAIN_TP_WIRE_SIZES``,
+    int16 codes): each bit-equal to its plain version, timed beside its
+    bound and its plain version."""
+    from repro_torch.core.quantization import delta_from_bits
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    d = delta_from_bits(8).reshape(1).cuda()
+    k = 0x13198A2E03707344
+    for mesh, shapes in TRAIN_TP_K1_SHAPES.items():
+        for name, shape in shapes:
+            w = torch.randn(shape, generator=gen, device="cuda") * 0.02
+            args = (w, d, k, torch.bfloat16)
+            got = sq.sr_quant_inline_cuda(*args)
+            want = sq.sr_quant_inline_plain(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"sr_quant_inline at train_tp {mesh} {name} {shape}: "
+                                     f"{int((got != want).sum())} elements differ from the "
+                                     "plain version")
+            b_ms, b_by = bound_ms(count.sr_quant_inline_cost(w.numel(), torch.bfloat16))
+            kernel_ms = time_ms(sq.sr_quant_inline_cuda, [args], iters=20)
+            emit(dict(kernel="sr_quant_inline", case=f"train_tp {mesh} {name}",
+                      shape=list(shape), n=w.numel(), bits=8, out="bfloat16", max_abs_err=0.0,
+                      kernel_ms=kernel_ms, bound_ms=b_ms, bound_by=b_by,
+                      share_of_bound=b_ms / kernel_ms,
+                      plain_ms=time_events_ms(sq.sr_quant_inline_plain, args, iters=3,
+                                              warmup=1), library_ms=None))
+            del w, got, want
+    leaves = _grads(TRAIN_TP_WIRE_SIZES, 2, gen, scale=0.05)
+    row = [[leaf[1]] for leaf in leaves]
+    f_c, b_c = sq.sr_pack_keyed_scales_cuda(row)
+    f_p, b_p = sq.sr_pack_keyed_scales_plain(row)
+    smax = torch.stack([f_c[0], f_c[0] * 1.25]).amax(dim=0)
+    scaled = (row, smax, f_c, k, 255, torch.int16, 1)
+    q_c, q_p = sq.sr_pack_keyed_scaled_cuda(*scaled), sq.sr_pack_keyed_scaled_plain(*scaled)
+    torch.cuda.synchronize()
+    for name, a, b in (("pass 1 fmax", f_c, f_p), ("pass 1 count", b_c, b_p),
+                       ("pass 2 codes", q_c[0], q_p[0]), ("pass 2 pitch", q_c[1], q_p[1])):
+        if not torch.equal(a.cpu(), b.cpu()):
+            raise AssertionError(f"sr_pack_keyed split at the train_tp wire row: {name} differs "
+                                 "from the plain version")
+    P = sum(TRAIN_TP_WIRE_SIZES)
+    for name, fn, plain, args, cost in (
+            ("sr_pack_keyed_scales", sq.sr_pack_keyed_scales_cuda,
+             sq.sr_pack_keyed_scales_plain, (row,),
+             count.sr_pack_keyed_scales_cost(P, 1, len(TRAIN_TP_WIRE_SIZES))),
+            ("sr_pack_keyed_scaled", sq.sr_pack_keyed_scaled_cuda,
+             sq.sr_pack_keyed_scaled_plain, scaled,
+             count.sr_pack_keyed_scaled_cost(P, 1, len(TRAIN_TP_WIRE_SIZES), torch.int16))):
+        b_ms, b_by = bound_ms(cost)
+        kernel_ms = time_ms(fn, [args], iters=50)
+        emit(dict(kernel=name, case="train_tp 2x2 wire, one rank's row", rows=1,
+                  leaves=len(TRAIN_TP_WIRE_SIZES), P=P, bits=8, codes="int16", max_abs_err=0.0,
+                  kernel_ms=kernel_ms, bound_ms=b_ms, bound_by=b_by,
+                  share_of_bound=b_ms / kernel_ms,
+                  plain_ms=time_events_ms(plain, args, iters=3, warmup=1), library_ms=None))
+    print("sr_quant_inline and the split sr_pack_keyed at phase train_tp's shapes: bit-equal to "
+          f"their plain versions ({sum(map(len, TRAIN_TP_K1_SHAPES.values()))} weight slices, "
+          "one wire row)")
+
+
 #: The wire leaves of a yi-6b train step at 8 layers on a 4x1 mesh: the
 #: reference FSDP-shards every matrix, so only the norm scales (ln1, ln2 of
 #: every layer, final_norm) cross the SR wire.
@@ -1738,6 +1839,9 @@ K3_MODEL_SHAPES += tuple(
 #: script's time limit (each layer's 81 bf16 all-reduces of a 4-slot,
 #: 128-token prefill go through the host over gloo)
 SERVE_TP_GLM_LAYERS = 8
+#: yi-6b's depth in phase serve_tp's serve: 8 of its 32 layers (32 until
+#: phase train_tp joined the tp ranks: ~25 s of the script's time limit)
+SERVE_TP_YI_LAYERS = 8
 #: One model shard of phase serve_tp's 1x4 mesh, yi-6b and glm4-9b at full
 #: width: the column-parallel wq, up and gate and the vocab at a quarter of
 #: their outputs, the row-parallel wo and down at a quarter of their inputs;
@@ -1745,7 +1849,8 @@ SERVE_TP_GLM_LAYERS = 8
 #: whole).  In bf16 as the serves run them: a 4-slot decode step (M 4) and a
 #: prefill of 4 slots in the 128-token bucket (M 512; the unembed reads the
 #: last positions, M 4), launches a decode step's or a prefill's on one rank
-#: at the served depth (yi-6b 32 layers, glm4-9b ``SERVE_TP_GLM_LAYERS``).
+#: at the served depth (yi-6b ``SERVE_TP_YI_LAYERS``, glm4-9b
+#: ``SERVE_TP_GLM_LAYERS``).
 #: In f32 as the step-level runs take them (``SERVE_TP_STEPS``: 4 layers,
 #: prompts padded to 200 tokens): M 4 a decode step, M 800 the prefill,
 #: launches a pass's on one rank.
@@ -1755,7 +1860,7 @@ _TP_SHARD_PROJ = {
     "glm4-9b": (("wq", 4096, 1024, 1), ("wk/wv", 4096, 256, 2), ("wo", 1024, 4096, 1),
                 ("up/gate", 4096, 3424, 2), ("down", 3424, 4096, 1))}
 _TP_VOCAB_LOCAL = {"yi-6b": 16000, "glm4-9b": 37888}
-_TP_SERVED_LAYERS = {"yi-6b": 32, "glm4-9b": SERVE_TP_GLM_LAYERS}
+_TP_SERVED_LAYERS = {"yi-6b": SERVE_TP_YI_LAYERS, "glm4-9b": SERVE_TP_GLM_LAYERS}
 K3_MODEL_SHAPES += tuple(
     (arch, f"{proj}, one of 4 model shards' {kind}", M, K, N, _BF16, a_layer * L)
     for arch, rows in _TP_SHARD_PROJ.items() for L in (_TP_SERVED_LAYERS[arch],)
@@ -1878,6 +1983,7 @@ def phase_kernels(table: dict) -> None:
     check_sr_pack(table)
     check_sr_pack_keyed(table)
     check_keyed_splits()
+    check_sr_tp_shapes()
     check_quant_matmul(table)
     check_quant_matmul_experts()
     check_quant_matmul_models()
@@ -3326,7 +3432,6 @@ def dist_worker(job_path: str) -> None:
     collectives, host ms (the checkpoint's gather and write apart), span on
     the card's clock (CUDA events around the round) and peak memory; rank
     r's results to ``<out_dir>/rank<r>.json`` and a line on stdout."""
-    from repro_torch.api.session import Session
     from repro_torch.launch.mesh import init_distributed
 
     import torch.distributed as dist
@@ -3346,7 +3451,8 @@ def dist_worker(job_path: str) -> None:
         for phase in TP_PHASES:
             if phase in job:
                 try:
-                    out[phase] = serve_tp_rank(job[phase], dev, rank)
+                    part = train_tp_rank if phase == "train_tp" else serve_tp_rank
+                    out[phase] = part(job[phase], dev, rank)
                 except Exception as e:
                     raise RuntimeError(f"tp rank {rank}: phase {phase}'s part failed") from e
         with open(os.path.join(job["out_dir"], f"rank{rank}.json"), "w") as f:
@@ -3354,7 +3460,6 @@ def dist_worker(job_path: str) -> None:
         dist.destroy_process_group()
         return
     out = {"rank": rank, "device": str(dev), "backend": job["backend"], "runs": []}
-    fl_round = Session.fl_round
     from repro_torch.ckpt import checkpoint as ckpt
 
     gather_state, save = ckpt.gather_state, ckpt.save_checkpoint
@@ -3381,40 +3486,11 @@ def dist_worker(job_path: str) -> None:
         setup_s = time.time() - t0
         transport = sess.axes.transport
         rows: list = []
-
-        def counted_round(self, r):
-            issued = {k: list(v) for k, v in transport.issued.items()}
-            launches = dict(ops.LAUNCHES)
-            ckpt_ms[0] = 0.0
-            torch.cuda.reset_peak_memory_stats(dev)
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
-                enable_timing=True)
-            t0 = time.perf_counter()
-            start.record()
-            rec = fl_round(self, r)
-            end.record()
-            end.synchronize()
-            host_ms = (time.perf_counter() - t0) * 1e3
-            rows.append({
-                "round": r, "loss": rec["loss"], "host_ms": host_ms,
-                "checkpoint_ms": ckpt_ms[0], "step_ms": host_ms - ckpt_ms[0],
-                "span_ms": start.elapsed_time(end),
-                "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
-                "launches": {k: ops.LAUNCHES[k] - launches[k] for k in
-                             ("sr_quant_inline", "sr_pack_keyed_scales", "sr_pack_keyed_scaled",
-                              "sr_pack_keyed", "sr_pack")},
-                "collectives": {f"{k} {dt}": {"calls": n - issued.get((k, dt), [0, 0])[0],
-                                              "bytes": b - issued.get((k, dt), [0, 0])[1]}
-                                for (k, dt), (n, b) in transport.issued.items()
-                                if n != issued.get((k, dt), [0, 0])[0]}})
-            return rec
-
         ops.reset_launches()
-        Session.fl_round = counted_round
-        try:
+        with counted_rounds(rows, dev, {"batch": transport}, ckpt_ms):
             hist = sess.run_train()
-        finally:
-            Session.fl_round = fl_round
+        for row in rows:
+            row["collectives"] = row["collectives"]["batch"]
         res = {"run": run["name"], "setup_s": setup_s, "launches": dict(ops.LAUNCHES),
                "losses": [h["loss"] for h in hist], "rounds": rows,
                "staged": dict(transport.staged),
@@ -3427,6 +3503,59 @@ def dist_worker(job_path: str) -> None:
     with open(os.path.join(job["out_dir"], f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     dist.destroy_process_group()
+
+
+#: the trainer's kernels a round's row counts
+_TRAIN_KERNELS = ("sr_quant_inline", "sr_pack_keyed_scales", "sr_pack_keyed_scaled",
+                  "sr_pack_keyed", "sr_pack")
+
+
+@contextlib.contextmanager
+def counted_rounds(rows: list, dev, groups: dict, ckpt_ms: list | None = None):
+    """``Session.fl_round`` wrapped for the block: per round a row of its
+    loss, host ms (``ckpt_ms[0]``, the checkpoint's share, apart), span on
+    the card's clock (CUDA events around the round), peak memory, the
+    trainer's kernel launches and each of ``groups``' collectives (``name
+    -> Transport``, None for none) by kind, dtype, calls and bytes."""
+    from repro_torch.api.session import Session
+
+    fl_round = Session.fl_round
+
+    def issued():
+        return {n: {k: list(v) for k, v in t.issued.items()} for n, t in groups.items()
+                if t is not None}
+
+    def counted_round(self, r):
+        before, launches = issued(), dict(ops.LAUNCHES)
+        if ckpt_ms is not None:
+            ckpt_ms[0] = 0.0
+        torch.cuda.reset_peak_memory_stats(dev)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        rec = fl_round(self, r)
+        end.record()
+        end.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        ck = ckpt_ms[0] if ckpt_ms is not None else 0.0
+        after = issued()
+        rows.append({
+            "round": r, "loss": rec["loss"], "host_ms": host_ms, "checkpoint_ms": ck,
+            "step_ms": host_ms - ck, "span_ms": start.elapsed_time(end),
+            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+            "launches": {k: ops.LAUNCHES[k] - launches[k] for k in _TRAIN_KERNELS},
+            "collectives": {n: {f"{k} {dt}": {"calls": c - before[n].get((k, dt), [0, 0])[0],
+                                              "bytes": b - before[n].get((k, dt), [0, 0])[1]}
+                                for (k, dt), (c, b) in after[n].items()
+                                if c != before[n].get((k, dt), [0, 0])[0]}
+                            for n in after}})
+        return rec
+
+    Session.fl_round = counted_round
+    try:
+        yield
+    finally:
+        Session.fl_round = fl_round
 
 
 def _torchrun(n: int, job: dict, out_dir: str, timeout_s: float, env=None) -> list:
@@ -3560,6 +3689,10 @@ def phase_dist(dev: dict, table: dict) -> dict:
 #: KV in 16-token pages, flash, batch 4, 8 requests of 64-128 tokens) on a
 #: 4x1 mesh: 4 data shards of one slot
 SERVE_DIST_SHARDS = 4
+#: the one-process 4x1 loop's depth: 8 of yi-6b's 32 layers, cut for the
+#: script's time limit once phase train_tp joined (its NCCL rank runs at
+#: ``DIST_LAYERS``, as the gloo ranks do)
+SERVE_DIST_LOOP_LAYERS = 8
 SERVE_DIST_OPTIONS = {**SERVE_RUNS["yi-6b"]["options"], "attn_impl": "flash",
                       "kv_layout": "paged", "page_size": 16, "vary_prompt": True,
                       "quiet": True}
@@ -3670,11 +3803,11 @@ def phase_serve_dist(dev: dict) -> dict:
 
     card = f"{dev['kind']} ({dev['smi']})"
     D = SERVE_DIST_SHARDS
-    # (1) one process, 4x1, full width and depth: the main path of the phase
-    sess, passes, ticks = _serve_dist_session("cuda", f"{D}x1")
+    # (1) one process, 4x1, full width, depth cut: the main path of the phase
+    sess, passes, ticks = _serve_dist_session("cuda", f"{D}x1", SERVE_DIST_LOOP_LAYERS)
     loop = _serve_dist_run(sess, passes, ticks, "cuda")
     cfg, st = sess.cfg, loop["stats"]
-    assert (cfg.n_layers, cfg.d_model) == (32, 4096), cfg
+    assert (cfg.n_layers, cfg.d_model) == (SERVE_DIST_LOOP_LAYERS, 4096), cfg
     n_req = SERVE_DIST_OPTIONS["requests"]
     assert st["admitted"] == st["completed"] == n_req, st
     assert passes["decode"] == D * st["decode_steps"], (passes, st)
@@ -3741,14 +3874,15 @@ def phase_serve_dist(dev: dict) -> dict:
                          "per_rank": per_rank}})
     print(f"serve_dist: {D} gloo ranks' tokens ({len(loop2['tokens'])}) and ServeStats equal "
           f"the one-process {D}x1 loop's at {DIST_LAYERS} layers bit for bit")
-    # (4) one NCCL rank at 1x1, full depth, against the plain 1x1 serve
-    sess1, passes1, ticks1 = _serve_dist_session("cuda", "1x1", max_new=16)
+    # (4) one NCCL rank at 1x1, 2 layers, against the plain 1x1 serve
+    sess1, passes1, ticks1 = _serve_dist_session("cuda", "1x1", DIST_LAYERS, max_new=16)
     plain = _serve_dist_run(sess1, passes1, ticks1, "cuda")
     layers1 = sess1.cfg.n_layers
     del sess1
     torch.cuda.empty_cache()
     nccl = _torchrun(1, {"backend": "nccl", "share_device": False,
-                         "serve": {"mesh": "1x1", "options": {"max_new": 16}}},
+                         "serve": {"mesh": "1x1", "layers": DIST_LAYERS,
+                                   "options": {"max_new": 16}}},
                      os.path.join(base, "nccl"), 600)[0]
     _same_serve("the nccl rank", nccl, plain)
     assert nccl["backend"] == "nccl" and nccl["launches"] == plain["launches"], nccl
@@ -3765,7 +3899,8 @@ def phase_serve_dist(dev: dict) -> dict:
 #: phase serve_tp: 4 gloo ranks sharing the card, one model shard each
 #: (NCCL refuses two ranks on one GPU).  yi-6b at phase serve's
 #: configuration (KV heads split: the paged cache, K5), max_new cut from 32
-#: to 16; glm4-9b at full width (2 KV heads over 4 shards: the
+#: to 16, depth cut to ``SERVE_TP_YI_LAYERS`` for the time limit once phase
+#: train_tp joined the ranks; glm4-9b at full width (2 KV heads over 4 shards: the
 #: sequence-parallel cache, which the driver serves contiguous), depth cut to
 #: ``SERVE_TP_GLM_LAYERS``, max_new 16; then the step-level runs
 #: (``SERVE_TP_STEPS``), each held against the 1x1 model, glm4-9b's paged
@@ -3774,7 +3909,7 @@ def phase_serve_dist(dev: dict) -> dict:
 SERVE_TP_RANKS = 4
 SERVE_TP_OPTIONS = {**SERVE_RUNS["yi-6b"]["options"], "max_new": 16, "attn_impl": "flash",
                     "quiet": True}
-SERVE_TP_RUNS = (dict(arch="yi-6b", cut={},
+SERVE_TP_RUNS = (dict(arch="yi-6b", cut=dict(n_layers=SERVE_TP_YI_LAYERS),
                       options={**SERVE_TP_OPTIONS, "kv_layout": "paged", "page_size": 16}),
                  dict(arch="glm4-9b", cut=dict(n_layers=SERVE_TP_GLM_LAYERS),
                       options=SERVE_TP_OPTIONS))
@@ -3840,11 +3975,32 @@ SERVE_TP_FAMILY_STEPS = (
          layout="paged"),
     dict(arch="mamba2-780m", cut=dict(n_layers=2), plens=(3, 8, 5, 8), steps=4,
          layout="contiguous"))
-#: the tensor-parallel phases' parts: serves and step-level runs.  The parts
-#: of the phases named run in one torchrun (:func:`_tp_torchrun`), so the
-#: ranks start and warm up once.
+# ------------------------------------------------------------- train_tp
+#: phase train_tp: the trainer under tensor parallelism on the same 4 gloo
+#: ranks, one mesh device each: full-width yi-6b (d 4096, 32 heads, 4 KV
+#: heads, d_ff 11008, vocab 64,000) cut to 2 of 32 layers, batch 2 a client,
+#: sequence 512, 8-bit weights, sequence parallelism and remat on (its
+#: config), ``train`` rounds of one step each on 1x4 (one client) and on 2x2
+#: (two clients, comm 8: K2's int16 codes, summed as int32).
+TRAIN_TP_LAYERS, TRAIN_TP_ROUNDS, TRAIN_TP_SEQ, TRAIN_TP_BATCH = 2, 3, 512, 2
+TRAIN_TP_RUNS = (dict(mesh="1x4", comm=8), dict(mesh="2x2", comm=8))
+#: the step level: full width cut to 2 layers, f32 compute, 32-bit weights,
+#: one sgd step of one client on 1x4 from the rank's slice of the one init,
+#: the slices joined, against the same seed's 1x1 step through the plain
+#: versions (mamba2's gated norm in 4 groups)
+TRAIN_TP_STEPS = (dict(arch="yi-6b", cut=dict(n_layers=2)),
+                  dict(arch="mamba2-780m", cut=dict(n_layers=2)))
+#: a leaf's joined update against the 1x1 step's: within this share of the
+#: 1x1 update's largest magnitude (f32 sums in other orders: the sequence's
+#: blocks and the model ranks' parts)
+TRAIN_TP_1X1_TOL = 1e-3
+
+#: the tensor-parallel phases' parts: serves and step-level runs, and the
+#: trainer's rounds and step levels.  The parts of the phases named run in
+#: one torchrun (:func:`_tp_torchrun`), so the ranks start and warm up once.
 TP_PHASES = {"serve_tp": {"runs": SERVE_TP_RUNS, "steps": SERVE_TP_STEPS},
-             "serve_tp_families": {"runs": SERVE_TP_FAMILY_RUNS, "steps": SERVE_TP_FAMILY_STEPS}}
+             "serve_tp_families": {"runs": SERVE_TP_FAMILY_RUNS, "steps": SERVE_TP_FAMILY_STEPS},
+             "train_tp": {"runs": TRAIN_TP_RUNS, "steps": TRAIN_TP_STEPS}}
 
 
 def tp_collectives(cfg, T: int, passes: dict, bucket: int, B: int, s_src: int = 0) -> dict:
@@ -4145,9 +4301,13 @@ def _tp_torchrun(phases: list) -> dict:
 
 def phase_tp(phase: str, dev: dict, ranks: list) -> dict:
     """Check a tensor-parallel phase (``serve_tp`` or ``serve_tp_families``;
-    see the module docstring) from its part's ranks' results; returns rank
-    0's K3/K4/K5 launches over the serves."""
+    see the module docstring; ``train_tp``: :func:`phase_train_tp`) from its
+    part's ranks' results; returns rank 0's K3/K4/K5 launches over the
+    serves."""
     import dataclasses
+
+    if phase == "train_tp":
+        return phase_train_tp(dev, ranks)
 
     from repro_torch.configs import get_config, smoke_variant
 
@@ -4281,6 +4441,268 @@ def phase_tp(phase: str, dev: dict, ranks: list) -> dict:
                              + json.dumps({k: sorted(v) for k, v in unheld.items()}))
     print(f"{phase}: every K3, K4 and K5 shape launched is one phase kernels holds; the ranks' "
           f"part {ranks[0]['wall_s']:.1f} s")
+    return launches
+
+
+def train_tp_launches(cfg, D: int) -> dict:
+    """K1 and K2 launches a train step and rank of a dense model under remat:
+    K1's inline entry once a weight use (the embedding and the unembedding
+    once, a layer's 7 projections twice: forward and the rerun), the split
+    K2 once (both passes) where the wire has two clients or more."""
+    k2 = 1 if D > 1 else 0
+    return {"sr_quant_inline": 2 + 7 * cfg.n_layers * 2, "sr_pack_keyed_scales": k2,
+            "sr_pack_keyed_scaled": k2, "sr_pack_keyed": 0, "sr_pack": k2}
+
+
+def train_tp_collectives(cfg, D: int, T: int, B: int, S: int) -> dict:
+    """A rank's collectives in one train step of a dense model under
+    sequence parallelism and remat on a ``DxT`` mesh (``B`` rows a client,
+    sequence ``S``; the wire on, at two clients or more), by group, kind and
+    dtype.  The model group: the forward's embedding reduce-scatter, a
+    layer's two all-gathers and two reduce-scatters (compute dtype, ``(B, S,
+    d)``) and the final norm's all-gather; in backward the checkpointed
+    layers rerun their gathers and the attention's sum (the rerun stops at
+    the last tensor backward reads, before the MLP's), every all-gather's
+    transpose a reduce-scatter and every reduce-scatter's an all-gather; the
+    cross-entropy's max and two sums of ``(B, c)`` f32 a chunk, forward and
+    rerun; one f32 sum of the replicated leaves' parts (the norm scales) and
+    the gradient norm's.  The batch group (``D > 1``): each FSDP leaf of the
+    model shard's slices gathered at each use (the embedding and
+    unembedding once, a layer's projections twice) and reduce-scattered
+    once, in f32 at their gathered size; the wire's non-finite count
+    (int64), scales' max (f32 a leaf) and codes' sum (int32) over the
+    replicated leaves; the loss's and the gradient norm's f32 sums."""
+    from repro_torch.models.common import fsdp_plan, is_stacked
+    from repro_torch.models.model import build_model
+
+    cd = "bfloat16" if cfg.compute_dtype == "bfloat16" else "float32"
+    L, d, e = cfg.n_layers, cfg.d_model, 2 if cd == "bfloat16" else 4
+    c = min(512, S)
+    act, chunks, rows = B * S * d * e, S // c, B * c * 4
+    model = {f"all-gather {cd}": [6 * L + 2, (6 * L + 2) * act],
+             f"reduce-scatter {cd}": [5 * L + 2, (5 * L + 2) * act],
+             "all-reduce max float32": [2 * chunks, 2 * chunks * rows],
+             "all-reduce sum float32": [4 * chunks + 2, 4 * chunks * rows + (2 * L + 1) * d * 4
+                                        + 4]}
+    out = {"model": {k: {"calls": n, "bytes": b} for k, (n, b) in sorted(model.items())}}
+    if D == 1:
+        return out
+    local = build_model(cfg).init(torch.Generator().manual_seed(0), T, device="meta")
+    paths, leaves, plan = fsdp_plan(local, D)
+    ag, rs, wire = [0, 0], [0, 0], [0, 0]
+    for path, w, dim in zip(paths, leaves, plan):
+        if dim is None:
+            wire[0] += 1
+            wire[1] += w.numel()
+            continue
+        uses = 2 if is_stacked(path) else 1
+        per = w.numel() // (w.shape[0] if is_stacked(path) else 1) * 4
+        n = w.shape[0] if is_stacked(path) else 1
+        ag[0] += n * uses
+        ag[1] += n * uses * per
+        rs[0] += n
+        rs[1] += n * per
+    batch = {"all-gather float32": ag, "reduce-scatter float32": rs,
+             "all-reduce sum int64": [1, 8], "all-reduce max float32": [1, 4 * wire[0]],
+             "all-reduce sum int32": [1, 4 * wire[1]], "all-reduce sum float32": [2, 8]}
+    out["batch"] = {k: {"calls": n, "bytes": b} for k, (n, b) in sorted(batch.items())}
+    return out
+
+
+def _sgd_step(model, axes, params, batch, bits: int = 32):
+    """One ``build_train_step`` step of one client at ``bits``-wide weights,
+    sgd at lr 0.05, no wire: ``(params, metrics)``."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core.fwq import delta_for_clients
+    from repro_torch.launch.steps import SRDraws, build_train_step
+    from repro_torch.optim import build_optimizer
+
+    opt = build_optimizer("sgd", 0.05)
+    ts = build_train_step(model, axes, opt, TrainConfig(learning_rate=0.05, seed=0))
+    p1, _o, m = ts.fn(params, opt.init(params), batch,
+                      delta_for_clients(np.array([bits] * axes.dp)), SRDraws(0, 1))
+    return p1, m
+
+
+def _train_tp_step_level(dev, arch: str, cut: dict) -> dict:
+    """The step level of the trainer on this rank's model shard of ``1x4``:
+    ``arch`` at full width, ``cut``, f32 compute, 32-bit weights; the rank's
+    slices of the one init (seed 0), one step on a batch of 2 x 512 tokens
+    (seed 3), the slices joined (every rank takes part).  Rank 0 then runs
+    the same seed's ``1x1`` step through the plain versions (the SSM's gated
+    norm in 4 groups) and holds every leaf's update to it."""
+    import dataclasses
+
+    from repro_torch.ckpt.checkpoint import gather_state
+    from repro_torch.configs import get_config
+    from repro_torch.dist.collectives import AxisCtx
+    from repro_torch.launch.mesh import axis_ctx_for
+    from repro_torch.launch.steps import build_init_fn
+    from repro_torch.models.model import build_model
+
+    cfg = dataclasses.replace(get_config(arch), **cut, compute_dtype="float32")
+    model = build_model(cfg)
+    axes = axis_ctx_for(f"1x{SERVE_TP_RANKS}", group="default")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    shape = (TRAIN_TP_BATCH, TRAIN_TP_SEQ)
+    batch = {k: torch.randint(0, cfg.vocab_size, shape, generator=gen, device=dev,
+                              dtype=torch.int32) for k in ("tokens", "labels")}
+
+    def init(ax):
+        return build_init_fn(model, ax, device=dev)(torch.Generator(device=dev).manual_seed(0))
+
+    ops.reset_launches()
+    p1, m = _sgd_step(model, axes, init(axes), batch)
+    out = {"arch": arch, "cut": cut, "rank": axes.tp_index(), "loss": float(m["loss"]),
+           "launches": {k: ops.LAUNCHES[k] for k in _TRAIN_KERNELS},
+           "model": axes.model_transport.report()}
+    got = gather_state({"p": p1}, p1, axes, cfg)["p"]
+    del p1
+    if axes.tp_index() == 0:
+        one = AxisCtx()
+        w0 = init(one)
+        with plain_kernels(), _ssm_norm_in_groups(axes.tp):
+            w1, m1 = _sgd_step(model, one, dict(w0), batch)
+        worst, leaf = 0.0, None
+        for p in w1:
+            want = w1[p] - w0[p]
+            err = float((got[p] - w0[p] - want).abs().max()) / max(float(want.abs().max()),
+                                                                    1e-30)
+            if err > worst:
+                worst, leaf = err, p
+        out["vs_1x1"] = {"worst": worst, "leaf": leaf, "tol": TRAIN_TP_1X1_TOL,
+                         "ok": worst <= TRAIN_TP_1X1_TOL, "loss_1x1": float(m1["loss"]),
+                         "leaves": len(w1)}
+        del w0, w1
+    del got
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_tp_rank(job: dict, dev, rank: int) -> dict:
+    """One rank's part of phase train_tp (started by
+    ``torch.distributed.run``, :func:`_tp_torchrun`): each run's ``train``
+    rounds through ``Session.run_train`` (:func:`counted_rounds`: launches,
+    both groups' collectives, host ms, span on the card's clock, peak a
+    round; the launch counters zeroed just before the run), its groups'
+    staged collectives; then the step levels (:func:`_train_tp_step_level`);
+    a line on stdout each, and the part's seconds."""
+    t0 = time.time()
+    out = {"runs": [], "steps": []}
+    for run in job["runs"]:
+        spec = dict(workload="train", rounds=TRAIN_TP_ROUNDS, options={},
+                    precision=dict(weights=8, comm=run["comm"]))
+        sess = _train_session(spec, str(dev), layers=TRAIN_TP_LAYERS, seq=TRAIN_TP_SEQ,
+                              mesh=run["mesh"])
+        t1 = time.time()
+        sess._ensure_train_state()
+        torch.cuda.synchronize(dev)
+        setup_s = time.time() - t1
+        axes = sess.axes
+        groups = {"model": axes.model_transport, "batch": axes.transport}
+        rows: list = []
+        ops.reset_launches()
+        with counted_rounds(rows, dev, groups):
+            hist = sess.run_train()
+        res = {"mesh": run["mesh"], "at": [axes.dp_index(), axes.tp_index()],
+               "layers": sess.cfg.n_layers, "setup_s": setup_s,
+               "losses": [h["loss"] for h in hist], "rounds": rows,
+               "launches": {k: ops.LAUNCHES[k] for k in _TRAIN_KERNELS},
+               "staged": {n: dict(t.staged) for n, t in groups.items() if t is not None}}
+        out["runs"].append(res)
+        print(f"tp rank {rank} train {run['mesh']}: " + json.dumps(
+            {k: res[k] for k in ("setup_s", "losses", "staged")}
+            | {"rounds": [{k: r[k] for k in ("host_ms", "span_ms", "peak_gb", "launches")}
+                          for r in rows]}), flush=True)
+        del sess
+        torch.cuda.empty_cache()
+    for run in job["steps"]:
+        torch.cuda.reset_peak_memory_stats(dev)
+        t1 = time.time()
+        res = _train_tp_step_level(dev, **run)
+        res.update(peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9, wall_s=time.time() - t1)
+        out["steps"].append(res)
+        print(f"tp rank {rank} train {run['arch']} step-level: " + json.dumps(
+            {k: v for k, v in res.items() if k != "model"}), flush=True)
+    out["wall_s"] = time.time() - t0
+    return out
+
+
+def phase_train_tp(dev: dict, ranks: list) -> dict:
+    """Check phase train_tp (see the module docstring) from its part's
+    ranks' results; returns the trainer's K1 and K2 launches over the runs,
+    summed over the ranks."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    card = f"{dev['kind']} ({dev['smi']})"
+    cfg = dataclasses.replace(get_config("yi-6b"), n_layers=TRAIN_TP_LAYERS)
+    launches = {k: 0 for k in ("sr_quant", *_TRAIN_KERNELS)}
+    for i, run in enumerate(TRAIN_TP_RUNS):
+        D, T = (int(x) for x in run["mesh"].split("x"))
+        want_k = train_tp_launches(cfg, D)
+        want_c = train_tp_collectives(cfg, D, T, TRAIN_TP_BATCH, TRAIN_TP_SEQ)
+        first = ranks[0]["runs"][i]
+        per_rank = []
+        for rk in ranks:
+            res = rk["runs"][i]
+            label = f"train_tp {run['mesh']} rank {rk['rank']}"
+            assert res["at"] == [rk["rank"] // T, rk["rank"] % T], (label, res["at"])
+            if res["losses"] != first["losses"] or not all(map(math.isfinite, res["losses"])):
+                raise AssertionError(f"{label}: losses {res['losses']}, rank 0's "
+                                     f"{first['losses']}")
+            for row in res["rounds"]:
+                if row["launches"] != want_k:
+                    raise AssertionError(f"{label} round {row['round']}: launches "
+                                         f"{row['launches']}, want {want_k}")
+                if row["collectives"] != want_c:
+                    raise AssertionError(f"{label} round {row['round']}: collectives "
+                                         f"{row['collectives']}, predicted {want_c}")
+            if any(res["staged"].values()):
+                raise AssertionError(f"{label}: staged {res['staged']}")
+            for k in _TRAIN_KERNELS:
+                launches[k] += res["launches"][k]
+            per_rank.append({"rank": rk["rank"], "setup_s": res["setup_s"],
+                             "rounds": [{k: r[k] for k in ("round", "loss", "host_ms", "span_ms",
+                                                           "peak_gb")} for r in res["rounds"]]})
+        launches["sr_quant"] += sum(rk["runs"][i]["launches"]["sr_quant_inline"]
+                                    for rk in ranks)
+        steps = [r for rk in per_rank for r in rk["rounds"][1:]]     # after the first
+        emit({"train_tp": {
+            "run": f"yi-6b {run['mesh']}, {len(ranks)} gloo ranks sharing the card",
+            "card": card, "layers": TRAIN_TP_LAYERS, "full_depth": get_config("yi-6b").n_layers,
+            "batch_per_client": TRAIN_TP_BATCH, "seq": TRAIN_TP_SEQ, "weight_bits": 8,
+            "comm_bits": run["comm"] if D > 1 else None, "losses": first["losses"],
+            "launches_a_step": want_k, "collectives_a_step": want_c, "per_rank": per_rank}})
+        print(f"train_tp: yi-6b at {TRAIN_TP_LAYERS} of 32 layers on {run['mesh']}: every "
+              f"rank's losses {first['losses']} equal; launches a step {want_k} and both "
+              f"groups' collectives as predicted; nothing staged; after the first step "
+              f"host {min(r['host_ms'] for r in steps):.1f}-{max(r['host_ms'] for r in steps):.1f}"
+              f" ms, device span {min(r['span_ms'] for r in steps):.1f}-"
+              f"{max(r['span_ms'] for r in steps):.1f} ms, peak "
+              f"{max(r['peak_gb'] for r in steps):.2f} GB a rank")
+    for n, run in enumerate(TRAIN_TP_STEPS):
+        pg = [rk["steps"][n] for rk in ranks]
+        label = f"train_tp {run['arch']} step-level"
+        if len({r["loss"] for r in pg}) != 1:
+            raise AssertionError(f"{label}: the ranks' losses differ: {[r['loss'] for r in pg]}")
+        one = pg[0]["vs_1x1"]
+        if not one["ok"]:
+            raise AssertionError(f"{label}: leaf {one['leaf']}'s update is {one['worst']:.3g} "
+                                 f"of the 1x1 step's off (tol {TRAIN_TP_1X1_TOL})")
+        grouped = " (its gated norm in 4 groups)" if run["arch"].startswith("mamba") else ""
+        emit({"train_tp": {"run": f"{run['arch']} step-level, {run['cut']}, f32, 1x4",
+                           "card": card, "loss": pg[0]["loss"], "vs_1x1": one,
+                           "launches": pg[0]["launches"],
+                           "per_rank": [{k: r[k] for k in ("rank", "peak_gb", "wall_s")}
+                                        for r in pg]}})
+        print(f"train_tp: {run['arch']}'s 1x4 step (full width, {run['cut']['n_layers']} "
+              f"layers, f32, 32-bit weights) updates all {one['leaves']} leaves as the 1x1 "
+              f"step{grouped} does: worst {one['worst']:.3g} of a leaf's largest update "
+              f"({one['leaf']}; tol {TRAIN_TP_1X1_TOL}); loss {pg[0]['loss']:.6f} vs "
+              f"{one['loss_1x1']:.6f}")
+    print(f"train_tp: the ranks' part {ranks[0]['wall_s']:.1f} s")
     return launches
 
 
@@ -5015,7 +5437,8 @@ def phase_analyze(dev: dict) -> None:
 
 
 PHASES = ("device", "build", "kernels", "serve", "profile", "consistency", "fl", "train",
-          "dist", "serve_dist", "serve_tp", "serve_tp_families", "roofline", "analyze", "grids")
+          "dist", "serve_dist", "serve_tp", "serve_tp_families", "train_tp", "roofline",
+          "analyze", "grids")
 #: run only when named in ``--phases``
 EXTRA_PHASES = ("sweep", "decode_sweep", "attn_sweep", "train_profile", "grids_all",
                 "roofline_all")
@@ -5076,7 +5499,7 @@ def main(argv=None) -> int:
             print(f"chip_smoke: phase {name} took {time.time() - t0:.1f} s")
     if "serve" in launches_of:
         launches = launches_of["serve"]
-    for phase in ("serve_dist", *TP_PHASES):
+    for phase in ("serve_dist", "serve_tp", "serve_tp_families"):
         for name, n in launches_of.get(phase, {}).items():
             launches[name] += n         # K3, K4, K5 on the sharded paths too
     launches.update(launches_of.get("fl", {}))
@@ -5087,6 +5510,8 @@ def main(argv=None) -> int:
         for k in ("sr_quant_inline", "sr_pack", "sr_pack_keyed"):
             launches[k] = train_launches[k]
     launches.update(launches_of.get("dist", {}))
+    for name, n in launches_of.get("train_tp", {}).items():
+        launches[name] += n             # K1 and K2 on the tensor-parallel trainer too
     rows = []
     for name, meta in KERNELS.items():
         r = table.get(name, {})

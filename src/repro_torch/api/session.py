@@ -30,13 +30,17 @@ the D·T ranks of a group holds one model shard of one data shard
 ``faults``, ``resolve_drift_db``, ``precision_program``.  ``train`` runs
 federated rounds at the spec's fixed :class:`PrecisionPolicy`;
 ``fl-orchestrate`` is the paper's full loop, the GBD co-design choosing each
-round's per-client bits.  The mesh is ``Dx1`` (training under tensor
-parallelism is ROADMAP item 9c): D clients on one device, or,
-when a ``torch.distributed`` group of D ranks is initialized (torchrun;
+round's per-client bits.  A ``Dx1`` mesh runs its D clients on one device,
+or, when a ``torch.distributed`` group of D ranks is initialized (torchrun;
 :func:`repro_torch.launch.mesh.init_distributed`), one client a rank: each
 rank holds its FSDP shards and its client's rows of the global batch, rank 0
 plans the rounds and broadcasts them, and checkpoints are the one-process
-format (rank 0 writes the gathered leaves; every rank loads and slices).
+format (rank 0 writes the gathered leaves; every rank loads and slices).  A
+``1xT`` / ``DxT`` mesh (tensor parallelism) runs one rank a mesh device
+under a group of D·T ranks: the D clients are its data rows, each rank
+holds its model shard's slices (FSDP-sharded over its batch group) and its
+client's rows, and checkpoints join the slices into the same one-process
+format.
 
 ``dryrun`` (:meth:`Session.run_dryrun`; options ``shape``, ``variant``)
 traces one shape cell's step under ``FakeTensorMode``, nothing allocated,
@@ -197,15 +201,11 @@ class Session:
         """This process's rank in the mesh's group (0 without a group)."""
         return self.axes.rank
 
-    def _require_dx1_training(self, what: str) -> None:
-        from repro_torch.launch.mesh import parse_mesh
-
-        dims, names = parse_mesh(self.spec.mesh)
-        if dict(zip(names, dims)).get("model", 1) > 1:
-            raise NotImplementedError(
-                f"{what} on mesh {self.spec.mesh!r}: training under tensor parallelism (a "
-                "model axis above 1) is not ported (ROADMAP queue 1, item 9c); train on a "
-                "Dx1 mesh")
+    def _groups(self) -> list:
+        """The rank's group transports, the model group's first (empty in one
+        process): a broadcast or barrier over each in turn reaches every
+        rank of the mesh from rank 0."""
+        return [t for t in (self.axes.model_transport, self.axes.transport) if t is not None]
 
     @functools.cached_property
     def ckpt(self):
@@ -602,7 +602,7 @@ class Session:
             state, start, _ = self.ckpt.restore_or({"p": params, "o": opt_state},
                                                    expect_extra=expect)
             if start:
-                state = shard_state(state, params, self.axes)
+                state = shard_state(state, params, self.axes, cfg)
                 params, opt_state = state["p"], state["o"]
                 log.info("resumed at round %d", start)
                 if orch is not None:
@@ -655,7 +655,6 @@ class Session:
         from the GBD co-design (``plan["policy"]``); under ``train`` the
         spec's fixed policy (through the precision program) applies.
         """
-        self._require_dx1_training("fl_round")
         st = self._ensure_train_state()
         spec, cfg, dev = self.spec, self.cfg, self.device
         n_clients, B = st["n_clients"], st["B"]
@@ -664,8 +663,8 @@ class Session:
         if st["orch"] is not None:
             # rank 0 plans (host math), every rank runs its plan
             plan = st["orch"].plan_round(r) if self.rank == 0 else None
-            if self.axes.transport is not None:
-                plan = self.axes.transport.broadcast_object(plan)
+            for group in self._groups():
+                plan = group.broadcast_object(plan)
         if plan is not None:
             policy = plan["policy"]
         else:
@@ -676,7 +675,8 @@ class Session:
         raw = st["batcher"].sample_round(r, n_clients, spec.batch)
         rows = slice(0, B)
         if self.axes.transport is not None:     # every rank draws the global batch
-            rows = slice(self.rank * spec.batch, (self.rank + 1) * spec.batch)
+            c = self.axes.dp_index()            # and keeps its client's rows
+            rows = slice(c * spec.batch, (c + 1) * spec.batch)
         batch = {k: torch.as_tensor(raw[k].reshape(B, spec.seq)[rows], device=dev)
                  for k in ("tokens", "labels")}
         # the stub frontends' inputs (VLM images, enc-dec frames) are zeros,
@@ -712,17 +712,16 @@ class Session:
                 extra["faults"] = (orch.cfg.faults.to_dict()
                                    if orch.cfg.faults is not None else None)
             state = gather_state({"p": st["params"], "o": st["opt_state"]}, st["params"],
-                                 self.axes)
+                                 self.axes, cfg)
             if self.rank == 0:
                 self.ckpt.maybe_save(r + 1, state, extra=extra)
-            if self.axes.transport is not None:
-                self.axes.transport.barrier()   # the checkpoint is whole before any rank reads
+            for group in self._groups():
+                group.barrier()                 # the checkpoint is whole before any rank reads
         return rec
 
     def run_train(self) -> list[dict]:
         """The ``train`` / ``fl-orchestrate`` loop: ``spec.rounds`` rounds
         (from a checkpoint's round when ``ckpt_dir`` holds one)."""
-        self._require_dx1_training("run_train")
         st = self._ensure_train_state()
         quiet = bool(self.spec.opt("quiet", False)) or self.rank != 0   # rank 0's rows
         for r in range(st["start"], self.spec.rounds):

@@ -15,9 +15,10 @@ opt_state}``, with the port's flat parameter dicts keyed ``"blocks/attn/wq"``
 — so the stored paths are the reference's.
 
 Under a process group the state is sharded: :func:`gather_state` makes the
-whole leaves (every rank takes part; rank 0 writes them) and
-:func:`shard_state` slices a loaded state to the rank's storage, so a
-checkpoint moves freely between a D-rank run and the one-process loop.
+whole leaves (every rank takes part; rank 0 writes them: FSDP shards
+gathered, model slices joined) and :func:`shard_state` slices a loaded state
+to the rank's storage, so a checkpoint moves freely between a ``Dx1``,
+``1xT`` or ``DxT`` run and the one-process loop.
 """
 
 from __future__ import annotations
@@ -170,35 +171,77 @@ def _fsdp_dims(params: dict, axes) -> dict:
     return dict(zip(paths, plan))
 
 
-def _map_sharded(state, dims: dict, fn):
-    """``state`` with ``fn(leaf, dim)`` applied to every leaf keyed by an
-    FSDP parameter's path (the parameters and any optimizer moments of
-    them), at any depth."""
+def _map_params(state, paths, fn):
+    """``state`` with ``fn(leaf, path)`` applied to every leaf keyed by one
+    of the parameters' ``paths`` (the parameters and any optimizer moments
+    of them), at any depth."""
     if not isinstance(state, dict):
         return state
-    return {k: (fn(v, dims[k]) if dims.get(k) is not None and not isinstance(v, dict)
-                else _map_sharded(v, dims, fn)) for k, v in state.items()}
+    return {k: (fn(v, k) if k in paths and not isinstance(v, dict)
+                else _map_params(v, paths, fn)) for k, v in state.items()}
 
 
-def gather_state(state, params: dict, axes):
+def _model_layout(params: dict, axes, cfg) -> tuple[dict, dict]:
+    """``(specs, whole)``: each parameter's spec on the launch's layout and
+    its ``tp = 1`` shape (the whole model's, without the vocabulary's
+    padding to the model axis)."""
+    import torch as _torch
+
+    from repro_torch.dist.sharding import tree_param_specs
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import attn_dims
+
+    whole = build_model(cfg).init(_torch.Generator().manual_seed(0), 1, device="meta")
+    kv = attn_dims(cfg, axes.tp).kv_sharded if cfg.n_kv_heads else True
+    return tree_param_specs(params, cfg, axes, 1, kv), {p: tuple(w.shape)
+                                                         for p, w in whole.items()}
+
+
+def gather_state(state, params: dict, axes, cfg=None):
     """The whole-leaf state from a rank's sharded one (``params``: the
-    rank's parameters, which say which keys are FSDP leaves).  A collective:
-    every rank calls it.  Without a group, ``state`` itself."""
+    rank's parameters, which say which keys are FSDP leaves): the FSDP
+    shards gathered over the batch group, then on a model axis above 1
+    (``cfg`` the model's config) the model slices joined over the model
+    group and trimmed to the ``tp = 1`` shapes, so the state is the
+    one-process model's.  A collective: every rank calls it.  Without a
+    group, ``state`` itself."""
+    from repro_torch.dist.sharding import _model_dims
     from repro_torch.models.common import gather_leaf
 
-    if axes.transport is None:
+    if axes.transport is not None:
+        dims = _fsdp_dims(params, axes)
+        state = _map_params(state, {p for p, d in dims.items() if d is not None},
+                            lambda w, p: gather_leaf(w, dims[p], axes))
+    if axes.model_transport is None:
         return state
-    return _map_sharded(state, _fsdp_dims(params, axes), lambda w, d: gather_leaf(w, d, axes))
+    specs, whole = _model_layout(params, axes, cfg)
+
+    def join(w, path):
+        for d in _model_dims(specs[path], axes.model_axis):
+            w = axes.model_transport.all_gather(w.movedim(d, 0).contiguous())
+            w = w[:whole[path][d]].movedim(0, d).contiguous()
+        return w
+    return _map_params(state, {p for p, sp in specs.items()
+                               if _model_dims(sp, axes.model_axis)}, join)
 
 
-def shard_state(state, params: dict, axes):
+def shard_state(state, params: dict, axes, cfg=None):
     """A loaded whole-leaf state sliced to the rank's storage (the inverse
-    of :func:`gather_state`); without a group, ``state`` itself."""
+    of :func:`gather_state`): on a model axis above 1 each leaf cut to the
+    rank's model slice (:func:`repro_torch.dist.sharding.cut_model`), then
+    to its FSDP shard; without a group, ``state`` itself."""
+    from repro_torch.dist.sharding import cut_model
     from repro_torch.models.common import shard_leaf
 
+    if axes.model_transport is not None:
+        specs, _whole = _model_layout(params, axes, cfg)
+        state = _map_params(state, set(specs), lambda w, p: cut_model(
+            {p: w}, {p: specs[p]}, axes, axes.tp_index())[p])
     if axes.transport is None:
         return state
-    return _map_sharded(state, _fsdp_dims(params, axes), lambda w, d: shard_leaf(w, d, axes))
+    dims = _fsdp_dims(params, axes)
+    return _map_params(state, {p for p, d in dims.items() if d is not None},
+                       lambda w, p: shard_leaf(w, dims[p], axes))
 
 
 @dataclasses.dataclass

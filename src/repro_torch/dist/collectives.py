@@ -21,11 +21,27 @@ shard: under a group of D·T ranks, rank r is data index ``r // T`` and model
 index ``r % T`` (``jax.make_mesh((D, T))``'s device order, data-major), and
 the context carries a second :class:`Transport` over the rank's model group.
 :meth:`AxisCtx.tp_index`, :meth:`~AxisCtx.psum_model`,
-:meth:`~AxisCtx.pmax_model`, :meth:`~AxisCtx.pmin_model` and
-:meth:`~AxisCtx.all_gather_model` are the reference's model-axis collectives
-over it; the batch collectives go over the batch group (the ranks of the
-rank's model column).  Without a model group the model axis is 1 and the
-model collectives are identities.
+:meth:`~AxisCtx.pmax_model`, :meth:`~AxisCtx.pmin_model`,
+:meth:`~AxisCtx.all_gather_model` and :meth:`~AxisCtx.psum_scatter_model`
+are the reference's model-axis collectives over it; the batch collectives
+go over the batch group (the ranks of the rank's model column).  Without a
+model group the model axis is 1 and the model collectives are identities.
+
+The model collectives carry gradients as Megatron's pairs do, not as the
+reference's transposes (its ``psum`` transposes to a ``psum``, which
+multiplies every cotangent upstream of a row-parallel sum by T: ROADMAP §3,
+D16).  Each model rank differentiates the same loss, and the cotangent of
+an activation inside the rank-local region (between a block's input
+gather and its output sum) is that rank's part of the whole: the sum
+(:meth:`~AxisCtx.psum_model`) goes back as the identity, the all-gather of
+a sequence-parallel input as the reduce-scatter of the parts, the
+reduce-scatter of a block output as the all-gather of its slices, and a
+replicated activation entering rank-local work (:meth:`~AxisCtx.copy_model`)
+as the all-reduce of its parts; a replicated activation cut to the rank's
+sequence slice (:meth:`~AxisCtx.split_model`) goes back as the all-gather of
+the slices.  ``pmax`` and ``pmin`` carry none (the max the cross-entropy
+takes is a constant to it).  Every backward collective goes through the
+same :class:`Transport`, so its counts hold them.
 
 :func:`quantized_psum_batch` is the paper's Eq. 1 stochastic-rounding
 quantizer applied to model updates on the wire: the clients agree on a shared
@@ -175,6 +191,81 @@ class _FSDPGather(torch.autograd.Function):
         return shard.movedim(0, ctx.axis).contiguous(), None, None
 
 
+class _ModelSum(torch.autograd.Function):
+    """The all-reduce of a row-parallel output over the model group; its
+    backward is the identity (every rank holds the same cotangent)."""
+
+    @staticmethod
+    def forward(ctx, x, transport: Transport):
+        return transport.all_reduce(x, "sum")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _ModelCopy(torch.autograd.Function):
+    """The identity where a replicated activation enters rank-local work; its
+    backward is the all-reduce of the ranks' parts of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, transport: Transport):
+        ctx.transport = transport
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.transport.all_reduce(g, "sum"), None
+
+
+class _ModelGather(torch.autograd.Function):
+    """The tiled all-gather of the ranks' slices along ``axis`` (model-index
+    order); its backward reduce-scatters the ranks' parts of the cotangent
+    (Megatron sequence parallelism's block input)."""
+
+    @staticmethod
+    def forward(ctx, x, axis: int, transport: Transport):
+        ctx.axis, ctx.transport = axis, transport
+        return transport.all_gather(x.movedim(axis, 0)).movedim(0, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        part = ctx.transport.reduce_scatter(g.movedim(ctx.axis, 0))
+        return part.movedim(0, ctx.axis), None, None
+
+
+class _ModelScatterSum(torch.autograd.Function):
+    """The reduce-scatter of the ranks' partial sums along ``axis``: rank t
+    keeps block t of the sum; its backward all-gathers the blocks'
+    cotangents (Megatron sequence parallelism's block output)."""
+
+    @staticmethod
+    def forward(ctx, x, axis: int, transport: Transport):
+        ctx.axis, ctx.transport = axis, transport
+        return transport.reduce_scatter(x.movedim(axis, 0)).movedim(0, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        full = ctx.transport.all_gather(g.movedim(ctx.axis, 0))
+        return full.movedim(0, ctx.axis), None, None
+
+
+class _ModelSplit(torch.autograd.Function):
+    """Rank t's block t of a replicated activation along ``axis``; its
+    backward all-gathers the blocks' cotangents."""
+
+    @staticmethod
+    def forward(ctx, x, axis: int, transport: Transport):
+        ctx.axis, ctx.transport = axis, transport
+        n = x.shape[axis] // transport.size
+        return x.narrow(axis, transport.rank * n, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        full = ctx.transport.all_gather(g.movedim(ctx.axis, 0))
+        return full.movedim(0, ctx.axis), None, None
+
+
 @dataclasses.dataclass(frozen=True)
 class AxisCtx:
     """Named axes of one launch and their sizes (all 1 when unnamed).
@@ -264,8 +355,13 @@ class AxisCtx:
 
     # --- model-axis collectives (identities without a model group) -------
     def psum_model(self, x):
-        """Sum over the model axis's ranks."""
-        return x if self.model_transport is None else self.model_transport.all_reduce(x, "sum")
+        """Sum over the model axis's ranks (backward: the identity)."""
+        return x if self.model_transport is None else _ModelSum.apply(x, self.model_transport)
+
+    def copy_model(self, x):
+        """The identity where a replicated ``x`` enters rank-local work
+        (backward: the sum of the ranks' parts of the cotangent)."""
+        return x if self.model_transport is None else _ModelCopy.apply(x, self.model_transport)
 
     def pmax_model(self, x):
         """Max over the model axis's ranks."""
@@ -277,11 +373,32 @@ class AxisCtx:
 
     def all_gather_model(self, x, *, axis: int):
         """Tiled all-gather over the model axis along ``axis``: the ranks'
-        ``x`` concatenated there in model-index order."""
+        ``x`` concatenated there in model-index order (backward: the
+        reduce-scatter of the ranks' cotangents)."""
         if self.model_transport is None:
             return x
-        full = self.model_transport.all_gather(x.movedim(axis, 0))
-        return full.movedim(0, axis)
+        return _ModelGather.apply(x, axis, self.model_transport)
+
+    def psum_scatter_model(self, x, *, axis: int):
+        """Reduce-scatter over the model axis along ``axis``: rank t's block
+        t of the ranks' sum (backward: the all-gather of the blocks'
+        cotangents)."""
+        if self.model_transport is None:
+            return x
+        if x.shape[axis] % self.tp:
+            raise ValueError(f"psum_scatter_model: dim {axis} of {tuple(x.shape)} does not "
+                             f"divide over {self.tp} model ranks")
+        return _ModelScatterSum.apply(x, axis, self.model_transport)
+
+    def split_model(self, x, *, axis: int):
+        """Rank t's block t of a replicated ``x`` along ``axis`` (backward:
+        the all-gather of the blocks' cotangents)."""
+        if self.model_transport is None:
+            return x
+        if x.shape[axis] % self.tp:
+            raise ValueError(f"split_model: dim {axis} of {tuple(x.shape)} does not divide "
+                             f"over {self.tp} model ranks")
+        return _ModelSplit.apply(x, axis, self.model_transport)
 
     # --- batch/FSDP collectives (identities without a group) -------------
     def psum_batch(self, x):

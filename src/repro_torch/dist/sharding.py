@@ -80,6 +80,55 @@ def tp_dim(path: str, ndim: int, kv: bool = True) -> int | None:
     return _TP_2D.get(base)
 
 
+#: leaves replicated over the model axis that a block uses inside its
+#: rank-local region (between its input gather and its output sum): the
+#: MoE router (its gates weight the rank's own experts), the SSM's B/C
+#: projection and conv, replicated KV projections (the rank's q heads read
+#: their KV heads)
+_RANK_LOCAL_REPLICATED = ("router", "w_bc", "conv_bc", "wk", "wv")
+
+
+def grad_summed_over_model(path: str, cfg, sp: bool) -> bool:
+    """Whether each model rank's gradient of ``path``, a leaf replicated
+    over the model axis, is only its part of the whole, to be summed over
+    the model group after the backward pass.
+
+    True for a leaf used inside the rank-local region
+    (:data:`_RANK_LOCAL_REPLICATED`, and the VLM's adapter, whose image
+    memory enters every cross layer's rank-local K/V), and under sequence
+    parallelism for every other one (norm scales, the VLM's tanh gates: the
+    rank applies them to its own positions); False for those without it (a
+    replicated activation, a whole cotangent) and for the enc-dec's adapter,
+    applied to the whole source before the encoder's input is cut
+    (:func:`repro_torch.models.layers.sp_split`: its cotangent comes back
+    whole).  Summing a whole gradient would give T times it."""
+    base = _basename(path)
+    if base in _RANK_LOCAL_REPLICATED:
+        return True
+    if path == "adapter":
+        return cfg.family == "vlm"
+    return bool(sp)
+
+
+def model_summed_leaves(params: dict, cfg, axes: AxisCtx, sp: bool) -> list:
+    """The paths of ``params`` (a rank's storage) whose gradients are summed
+    over the model group (:func:`grad_summed_over_model`), in flatten
+    order; none at ``tp = 1``."""
+    if axes.tp == 1:
+        return []
+    from repro_torch.models.common import is_stacked, tree_paths_leaves
+    from repro_torch.models.transformer import attn_dims
+
+    kv = attn_dims(cfg, axes.tp).kv_sharded if cfg.n_kv_heads else True
+    paths, _leaves = tree_paths_leaves(params)
+    out = []
+    for path in paths:
+        nd = params[path].ndim - (1 if is_stacked(path) and params[path].ndim else 0)
+        if tp_dim(path, nd, kv) is None and grad_summed_over_model(path, cfg, sp):
+            out.append(path)
+    return out
+
+
 def _kv_sharded(path: str, per_layer_shape: tuple, cfg) -> bool:
     """Whether KV heads were sharded at init, from the storage: a
     replicated KV projection stores the full ``n_kv * head_dim`` outputs."""

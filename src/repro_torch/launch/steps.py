@@ -11,8 +11,12 @@ and then does the server's part: the reference's FSDP leaves mean-reduced in
 f32, its replicated leaves through the SR-quantized all-reduce (one K2 call),
 one optimizer step.  Under a process group (``axes.transport``) each rank
 runs its own client on its FSDP shards, and the reductions are the
-reference's collectives over the ranks.  Its SR noise comes from
-:class:`SRDraws`.
+reference's collectives over the ranks.  On a model axis above 1 (``1xT`` /
+``DxT``, one rank a mesh device) each rank runs its client's step on its
+model shard, the model group's collectives inside the layers, and the
+gradients of the replicated leaves that are each rank's part of the whole
+are summed over the model group before the batch reductions.  Its SR noise
+comes from :class:`SRDraws`.
 """
 
 from __future__ import annotations
@@ -96,7 +100,7 @@ class TrainStep:
 
 def build_train_step(model: Model, axes: AxisCtx, opt: Optimizer,
                      train_cfg: TrainConfig, *, attn_impl: str = "auto") -> TrainStep:
-    """The FWQ train step of Algorithm 1 on a ``Dx1`` mesh.
+    """The FWQ train step of Algorithm 1 on a ``Dx1``, ``1xT`` or ``DxT`` mesh.
 
     ``fn(params, opt_state, batch, delta, draws) -> (params, opt_state,
     {"loss", "grad_sq_shard_sum"})``.  ``batch`` leaves have the global batch
@@ -122,11 +126,25 @@ def build_train_step(model: Model, axes: AxisCtx, opt: Optimizer,
     divided by D, the replicated ones are ``pmean``-ed or cross the wire
     (K2 split across the ranks), and ``loss`` is ``pmean_batch``-ed,
     ``grad_sq_shard_sum`` ``psum_batch``-ed from each rank's part.
+
+    On a model axis of T > 1 (``axes.model_transport``) the rank's storage
+    is its model shard's slice of every leaf (then its FSDP shard over the
+    batch group), its batch its client's rows, the same on the T ranks of a
+    model group; under ``cfg.seq_parallel`` the residual stream is cut over
+    the sequence (S must divide by T).  Each rank quantizes its own slices
+    (the scale a slice's own ``max|w|``, the site key the client's: the
+    reference's semantics inside ``shard_map``).  The replicated leaves
+    whose rank gradients are parts
+    (:func:`~repro_torch.dist.sharding.model_summed_leaves`) are summed in
+    one all-reduce over the model group; then the batch reductions run
+    over the batch group on the rank's slices, as at ``Dx1``.  At 32-bit
+    weights the step is the ``1x1`` (``Dx1``) step of the same model cut,
+    and every replicated leaf comes out the same on every rank of a model
+    group; ``grad_sq_shard_sum`` is also summed over the model group (a
+    replicated leaf counted T times, as the reference's definition).
     """
-    if axes.tp > 1:
-        raise NotImplementedError(
-            f"build_train_step on a model axis of {axes.tp}: training under tensor "
-            "parallelism is not ported (ROADMAP queue 1, item 9c)")
+    from repro_torch.dist.sharding import model_summed_leaves
+
     cfg = model.cfg
     D = axes.dp
     bits = int(train_cfg.grad_compression_bits)
@@ -176,6 +194,9 @@ def build_train_step(model: Model, axes: AxisCtx, opt: Optimizer,
                 loss_c = _client_grads(c, params, cb, delta, draws, paths, wire, sums,
                                        stacked, given, cd)
             loss_sum = loss_c if i == 0 else loss_sum + loss_c
+        if axes.tp > 1:                         # the ranks' parts of replicated leaves
+            _sum_over_model(axes, model_summed_leaves(params, cfg, axes, cfg.seq_parallel),
+                            sums, stacked)
         # ---- server aggregation (Algorithm 1 line 10) ----------------------
         G = reduce_gradients(sums, axes)        # across ranks: FSDP sums from the gathers
         if wire:
@@ -201,9 +222,10 @@ def build_train_step(model: Model, axes: AxisCtx, opt: Optimizer,
             with count.share(1.0 if p in replicated else 1 / axes.fsdp):
                 # a replicated leaf counts once a shard: D times here, once a rank
                 gnorm = gnorm + torch.dot(g, g) * (D if p in replicated and not ranks else 1)
-        if ranks:
+        if ranks or axes.tp > 1:
+            gnorm = axes.psum_model(axes.psum_batch(gnorm))
             return params, opt_state, {"loss": axes.pmean_batch(loss_sum),
-                                       "grad_sq_shard_sum": axes.psum_batch(gnorm)}
+                                       "grad_sq_shard_sum": gnorm}
         count.record_collective("all-reduce", torch.float32, 1, D, "train_step loss pmean")
         count.record_collective("all-reduce", torch.float32, 1, D,
                                 "train_step grad_sq_shard_sum psum")
@@ -211,6 +233,19 @@ def build_train_step(model: Model, axes: AxisCtx, opt: Optimizer,
         return params, opt_state, metrics
 
     return TrainStep(fn=fn, batch_spec_fn=model.train_batch_spec, n_clients=D)
+
+
+def _sum_over_model(axes: AxisCtx, paths: list, sums: dict, stacked: dict) -> None:
+    """Each of ``paths``' gradients (in ``sums``, or the rank's one client's
+    in ``stacked``) replaced, in place, by its sum over the model group: one
+    f32 all-reduce of them concatenated."""
+    if not paths:
+        return
+    gs = [stacked[p][0] if p in stacked else sums[p] for p in paths]
+    total = axes.model_transport.all_reduce(
+        torch.cat([g.reshape(-1).to(torch.float32) for g in gs]))
+    for g, part in zip(gs, total.split([g.numel() for g in gs])):
+        g.copy_(part.view_as(g))
 
 
 def build_init_fn(model: Model, axes: AxisCtx, *, device=None, pack=None):

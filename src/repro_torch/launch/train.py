@@ -26,6 +26,19 @@ every rank on ``cuda:0`` and needs ``gloo``::
     PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 4 \\
         -m repro_torch.launch.train --share-device --backend gloo --arch yi-6b --smoke \\
         --mesh 4x1 --rounds 3 --grad-compression-bits 8
+
+A ``1xT`` or ``DxT`` mesh (tensor parallelism) runs D*T ranks, one a mesh
+device: rank r is client ``r // T`` and model shard ``r % T``, holding its
+shard's slices of the weights (FSDP-sharded over its client's batch group
+on ``DxT``), under Megatron sequence parallelism; in one process such a
+mesh raises, naming torchrun::
+
+    PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 2 \\
+        -m repro_torch.launch.train --device cpu --backend gloo --arch yi-6b --smoke \\
+        --mesh 1x2 --rounds 3
+    PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 4 \\
+        -m repro_torch.launch.train --device cpu --backend gloo --arch yi-6b --smoke \\
+        --mesh 2x2 --rounds 3 --grad-compression-bits 8
 """
 
 from __future__ import annotations
@@ -40,7 +53,9 @@ def main(argv=None):
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config (CPU-runnable)")
     ap.add_argument("--rounds", type=int, default=20)
-    ap.add_argument("--mesh", default="1x1", help="DATAx1: D clients on one device")
+    ap.add_argument("--mesh", default="1x1",
+                    help="DATAxMODEL: Dx1 runs D clients on one device (or one a rank "
+                         "under torchrun); a model axis above 1 needs D*T ranks")
     ap.add_argument("--batch", type=int, default=4, help="per-client batch")
     ap.add_argument("--seq", type=int, default=32)
     ap.add_argument("--lr", type=float, default=0.05)

@@ -64,7 +64,7 @@ def encode(cfg: ModelConfig, pc: ParamCtx, params, frames, *, attn_impl="auto"):
     ``attn_impl="flash"`` runs the encoder's self-attention through the
     flash-attention kernel, non-causal."""
     ad = attn_dims(cfg, tp=pc.ctx.tp, causal=False)
-    x = L.dense(pc, "adapter", params["adapter"], frames.to(pc.compute_dtype))
+    x = L.sp_split(pc, L.dense(pc, "adapter", params["adapter"], frames.to(pc.compute_dtype)))
 
     def layer(x, lp):
         h = L.sp_gather(pc, L.rmsnorm(pc, "enc/ln1", lp["ln1"], x, cfg.norm_eps))
@@ -112,7 +112,8 @@ def train_loss(cfg: ModelConfig, pc: ParamCtx, params, batch, *, attn_impl="auto
     x = decode_train(cfg, pc, params, memory, batch["tokens"], attn_impl=attn_impl,
                      return_hidden=True)
     vl = padded_vocab_local(cfg, pc.ctx.tp)
-    loss = L.fused_vocab_xent(pc, "unembed/w", params["unembed/w"], x, batch["labels"], vl)
+    loss = L.fused_vocab_xent(pc, "unembed/w", params["unembed/w"], x, batch["labels"], vl,
+                              vocab=cfg.vocab_size)
     return loss, {}
 
 

@@ -4,9 +4,12 @@ Counterparts of ``repro/models/layers.py``, Megatron style: activations are
 replicated over the model axis; column-parallel weights split their output
 dim, row-parallel ones their input dim and are followed by the model axis's
 ``psum``; the embedding and the unembedding split the vocabulary.  The
-collectives are the axis context's (identities at ``tp = 1``).  Megatron
-sequence parallelism (``pc.sp`` under tp) is training's, not ported
-(ROADMAP queue 1, item 9c); serving runs without it, as the reference's.
+collectives are the axis context's (identities at ``tp = 1``) and carry
+gradients (:mod:`repro_torch.dist.collectives`).  Under Megatron sequence
+parallelism (``pc.sp`` at ``tp > 1``, the trainer's) the residual stream
+between blocks is cut over the sequence: a block's input is all-gathered
+(:func:`sp_gather`) and its output reduce-scattered (:func:`sp_out`);
+serving runs without it, as the reference's.
 """
 
 from __future__ import annotations
@@ -19,24 +22,35 @@ from repro_torch.kernels import ops
 from repro_torch.models.common import ParamCtx, QTensor, init_dense
 
 
-def _require_no_sp(pc: ParamCtx) -> None:
-    if pc.sp and pc.ctx.tp > 1:
-        raise NotImplementedError(
-            "sequence parallelism under tp (sp_gather / sp_out as an all-gather and a "
-            "reduce-scatter over the model axis) is not ported (ROADMAP queue 1, item 9c)")
+def _sp(pc: ParamCtx) -> bool:
+    return pc.sp and pc.ctx.tp > 1
 
 
 def sp_gather(pc: ParamCtx, x):
-    """(B, S/tp, D) -> (B, S, D) at a block input: the identity without
-    sequence parallelism."""
-    _require_no_sp(pc)
-    return x
+    """A block's input: (B, S/tp, D) -> (B, S, D), the all-gather over the
+    model axis under sequence parallelism (backward: the reduce-scatter of
+    the ranks' parts); without it the replicated ``x`` entering the block's
+    rank-local work (backward: the sum of the ranks' parts)."""
+    if _sp(pc):
+        return pc.ctx.all_gather_model(x, axis=1)
+    return pc.ctx.copy_model(x)
 
 
 def sp_out(pc: ParamCtx, y):
-    """Block-output combine: the all-reduce over the model axis."""
-    _require_no_sp(pc)
+    """A block's output: the reduce-scatter over the sequence under
+    sequence parallelism, else the all-reduce over the model axis."""
+    if _sp(pc):
+        return pc.ctx.psum_scatter_model(y, axis=1)
     return pc.ctx.psum_model(y)
+
+
+def sp_split(pc: ParamCtx, x):
+    """A replicated activation entering the sequence-parallel residual
+    stream (an encoder's input): the rank's block of the sequence under
+    sequence parallelism (backward: the all-gather of the blocks), else
+    ``x``.  The reference reduce-scatters it there (``encdec.py:64``), which
+    sums T equal copies: ROADMAP §3, D16."""
+    return pc.ctx.split_model(x, axis=1) if _sp(pc) else x
 
 
 # ---------------------------------------------------------------------------
@@ -134,16 +148,22 @@ def vocab_logits(pc: ParamCtx, path: str, w_unembed, x):
     return dense(pc, f"{path}/w", w_unembed, x)
 
 
-def _xent_terms(pc: ParamCtx, lg, labels, vocab_local: int, ignore_id: int):
-    """Per-position NLL over (vocab-sharded) f32 logits, and the valid mask."""
-    if pc.ctx.tp > 1:
-        raise NotImplementedError(
-            "the vocab-parallel cross-entropy under tp (the shards' max by pmax) is "
-            "training's, not ported (ROADMAP queue 1, item 9c)")
-    m = lg.amax(dim=-1).detach()
+def _xent_terms(pc: ParamCtx, lg, labels, vocab_local: int, ignore_id: int,
+                vocab: int | None = None):
+    """Per-position NLL over (vocab-sharded) f32 logits, and the valid mask.
+    The shards agree on the max (``pmax``, a constant to the gradient); the
+    denominator and the true-class logit are summed over them.  ``vocab``:
+    the model's vocabulary, whose padding columns (ids ``>= vocab`` on the
+    last shard) are masked out, so a padded ``1xT`` launch takes the ``1x1``
+    model's softmax."""
+    lo = pc.ctx.tp_index() * vocab_local
+    if vocab is not None and lo + vocab_local > vocab:
+        ids = lo + torch.arange(vocab_local, device=lg.device)
+        lg = torch.where(ids < vocab, lg, torch.full_like(lg, -torch.inf))
+    m = pc.ctx.pmax_model(lg.amax(dim=-1).detach())
     z = torch.exp(lg - m[..., None])
     denom = pc.ctx.psum_model(z.sum(dim=-1))
-    local = labels - pc.ctx.tp_index() * vocab_local
+    local = labels - lo
     in_range = (local >= 0) & (local < vocab_local)
     safe = torch.clamp(local, 0, vocab_local - 1).to(torch.long)
     picked = torch.gather(lg, -1, safe[..., None])[..., 0]
@@ -165,12 +185,16 @@ def vocab_parallel_xent(pc: ParamCtx, local_logits, labels, vocab_local: int,
 
 
 def fused_vocab_xent(pc: ParamCtx, path: str, w_unembed, x, labels,
-                     vocab_local: int, *, chunk: int = 512, ignore_id: int = -1):
+                     vocab_local: int, *, chunk: int = 512, ignore_id: int = -1,
+                     vocab: int | None = None):
     """Unembed + cross-entropy, chunked over the sequence.
 
-    Each chunk's logits are recomputed in backward (activation checkpoint),
-    so the full (B, S, V) logits never live at once.  x: (B, S, D);
-    labels: (B, S).  Returns the mean loss over valid positions.
+    Each chunk's logits are recomputed in backward (activation checkpoint,
+    the model collectives with them), so the full (B, S, V/tp) logits never
+    live at once.  x: (B, S, D) the whole sequence (gathered under sequence
+    parallelism); labels: (B, S).  Returns the mean loss over valid
+    positions, the same on every model rank.  ``vocab``: see
+    :func:`_xent_terms`.
     """
     w = ops.as_array(pc.use(path, w_unembed), pc.compute_dtype)  # quantize once
     B, S, D = x.shape
@@ -180,7 +204,7 @@ def fused_vocab_xent(pc: ParamCtx, path: str, w_unembed, x, labels,
 
     def chunk_sum(xs, ws, ls):
         nll, valid = _xent_terms(pc, (xs @ ws).to(torch.float32), ls, vocab_local,
-                                 ignore_id)
+                                 ignore_id, vocab)
         return torch.where(valid, nll, torch.zeros_like(nll)).sum()
 
     nll_sum = torch.zeros((), dtype=torch.float32, device=x.device)

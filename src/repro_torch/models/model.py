@@ -16,9 +16,8 @@
 Every family of the reference is ported: dense and MoE (one transformer),
 SSM (mamba2), the hybrid (jamba), VLM (llama-3.2-vision) and enc-dec
 (seamless-m4t).  An enc-dec prefill returns ``None`` logits: the driver
-seeds decoding with BOS.  Every family serves under tensor parallelism (a
-model axis above 1); training under it is not ported (the train step
-raises naming ROADMAP item 9c).
+seeds decoding with BOS.  Every family serves and trains under tensor
+parallelism (a model axis above 1, one rank a model shard).
 """
 
 from __future__ import annotations

@@ -61,7 +61,8 @@ def forward(cfg: ModelConfig, pc: ParamCtx, params, tokens, *, attn_impl="auto",
 def train_loss(cfg: ModelConfig, pc: ParamCtx, params, batch, *, attn_impl="auto"):
     x = forward(cfg, pc, params, batch["tokens"], attn_impl=attn_impl, return_hidden=True)
     vl = padded_vocab_local(cfg, pc.ctx.tp)
-    loss = L.fused_vocab_xent(pc, "unembed/w", params["unembed/w"], x, batch["labels"], vl)
+    loss = L.fused_vocab_xent(pc, "unembed/w", params["unembed/w"], x, batch["labels"], vl,
+                              vocab=cfg.vocab_size)
     return loss, {}
 
 

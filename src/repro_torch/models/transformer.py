@@ -134,7 +134,7 @@ def train_loss(cfg: ModelConfig, pc: ParamCtx, params, batch, *, attn_impl="auto
                 return_hidden=True)
     vl = padded_vocab_local(cfg, pc.ctx.tp)
     loss = L.fused_vocab_xent(pc, "unembed/w", params["unembed/w"], x,
-                              batch["labels"], vl)
+                              batch["labels"], vl, vocab=cfg.vocab_size)
     return loss, {}
 
 

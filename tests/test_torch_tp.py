@@ -5,8 +5,8 @@ port's init under tp against the reference's (divergence D14), the
 step-level sequence-parallel paged decode (per-shard page tables, K5's
 partials merged across the ranks), the SSM, hybrid, VLM and enc-dec
 families at the step level under tp (a VLM with replicated KV heads held to
-the reference's step functions), and the errors of every path the port
-does not run under tp.
+the reference's step functions), and the errors of a model axis above 1 in
+one process.
 
 The reference's mesh order and its tp init run in one subprocess with 4
 forced host devices, its VLM steps in another, both started at the
@@ -552,54 +552,6 @@ def test_cross_attention_with_replicated_kv_heads_is_the_reference(jobs):
     for k, want in ref["logits"].items():
         assert port[k].shape == want.shape == (B, 1, cfg.vocab_size)
         np.testing.assert_allclose(port[k], want, atol=2e-5, rtol=2e-5)
-
-
-def test_training_under_tp_raises_naming_item_9c():
-    """``run_train`` and ``fl_round`` on a mesh with a model axis above 1
-    raise naming item 9c (training under tp), before any group is needed;
-    ``build_train_step`` on such an axis context too; the dry run keeps
-    naming item 14."""
-    from repro_torch.launch.steps import build_train_step
-    from repro_torch.configs.base import TrainConfig
-    from repro_torch.optim import build_optimizer
-
-    for wl in ("train", "fl-orchestrate"):
-        sess = Session(RunSpec("yi-6b", workload=wl, mesh="1x2", smoke=True), device="cpu")
-        with pytest.raises(NotImplementedError, match="item 9c"):
-            sess.run_train()
-        with pytest.raises(NotImplementedError, match="item 9c"):
-            sess.fl_round(0)
-    axes = AxisCtx(batch_axes=("data",), model_axis="model", fsdp_axes=("data",),
-                   sizes=(("data", 1), ("model", 2)), model_transport=_FakeGroup(2))
-    with pytest.raises(NotImplementedError, match="item 9c"):
-        build_train_step(build_model(smoke_variant(get_config("yi-6b"))), axes,
-                         build_optimizer("sgd", 0.1), TrainConfig())
-    spec = RunSpec("yi-6b", workload="dryrun", mesh="1x2", options={"shape": "decode_32k"})
-    with pytest.raises(NotImplementedError, match="item 14"):
-        Session(spec, device="cpu").run()
-
-
-@pytest.mark.parametrize("arch", FAMILIES)
-def test_training_of_the_item_9b_families_under_tp_raises_naming_item_9c(arch):
-    """Serving runs under tp for every family; training does not: the
-    train and fl-orchestrate workloads' ``run_train`` and ``fl_round`` and
-    ``build_train_step`` raise naming item 9c for the SSM, hybrid, VLM and
-    enc-dec families as for the dense one."""
-    from repro_torch.configs.base import TrainConfig
-    from repro_torch.launch.steps import build_train_step
-    from repro_torch.optim import build_optimizer
-
-    for wl in ("train", "fl-orchestrate"):
-        sess = Session(RunSpec(arch, workload=wl, mesh="1x2", smoke=True), device="cpu")
-        with pytest.raises(NotImplementedError, match="item 9c"):
-            sess.run_train()
-        with pytest.raises(NotImplementedError, match="item 9c"):
-            sess.fl_round(0)
-    axes = AxisCtx(batch_axes=("data",), model_axis="model", fsdp_axes=("data",),
-                   sizes=(("data", 1), ("model", 2)), model_transport=_FakeGroup(2))
-    with pytest.raises(NotImplementedError, match="item 9c"):
-        build_train_step(build_model(smoke_variant(get_config(arch))), axes,
-                         build_optimizer("sgd", 0.1), TrainConfig())
 
 
 def test_convert_carries_the_reference_global_params_into_a_rank():

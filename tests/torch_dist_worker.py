@@ -622,12 +622,156 @@ def task_cross_seqpar(t: dict, rank: int) -> dict:
             "cross_cache": list(caches["cross_k"].shape)}
 
 
+#: the tensor-parallel train steps' batch: B rows a client, S positions
+#: (dividing the model axis and the xent chunk), sgd's learning rate
+TRAIN_TP = dict(B=2, S=32, LR=0.5)
+
+
+def train_tp_batch(model, D: int) -> dict:
+    """The global batch of a tp train step on ``D`` clients: tokens and
+    labels from seed 3, the stub frontends' images or frames normal (f32)."""
+    gen = torch.Generator().manual_seed(3)
+    out = {}
+    for k, t in model.train_batch_spec(TRAIN_TP["B"] * D, TRAIN_TP["S"]).items():
+        shape = tuple(t.shape)
+        out[k] = (torch.randint(0, model.cfg.vocab_size, shape, generator=gen,
+                                dtype=torch.int32) if t.dtype == torch.int32
+                  else torch.randn(shape, generator=gen))
+    return out
+
+
+def train_tp_step(model, axes, params, batch, bits: int, draws=None):
+    """One ``build_train_step`` step (sgd at ``TRAIN_TP["LR"]``, no wire) at
+    ``bits``-wide weights on every client; ``draws`` defaults to seed 0,
+    round 1.  ``(params, metrics)``."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core.fwq import delta_for_clients
+    from repro_torch.launch.steps import SRDraws, build_train_step
+    from repro_torch.optim import build_optimizer
+
+    opt = build_optimizer("sgd", TRAIN_TP["LR"])
+    ts = build_train_step(model, axes, opt, TrainConfig(learning_rate=TRAIN_TP["LR"], seed=0))
+    p1, _o, m = ts.fn(params, opt.init(params), batch,
+                      delta_for_clients(np.array([bits] * axes.dp)), draws or SRDraws(0, 1))
+    return p1, m
+
+
+def task_train_tp(t: dict, rank: int) -> dict:
+    """One train step of ``t["arch"]`` (smoke size, ``t["overrides"]``) on
+    mesh ``t["mesh"]`` at
+    ``t["bits"]``-wide weights: from the whole parameters ``param:{path}``
+    of ``t["data"]`` (the reference's init; with ``t["draws"] == "file"``
+    its weight uniforms ``w:{client}:{path}``) or the port's own at seed 0
+    (a VLM's gates set), each rank cut to its slice, the batch
+    :func:`train_tp_batch`.  The whole parameters after the step (FSDP
+    shards gathered, model slices joined) to ``t["save"]``; the loss,
+    ``grad_sq_shard_sum``, the replicated leaves that differ across the
+    model group, and the model group's collectives."""
+    from repro_torch.ckpt.checkpoint import gather_state
+    from repro_torch.dist.sharding import _model_dims, cut_model, tree_param_specs
+    from repro_torch.launch.mesh import axis_ctx_for
+    from repro_torch.launch.steps import SRDraws, build_init_fn
+    from repro_torch.models.common import apply_fsdp_sharding
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import attn_dims
+
+    axes = axis_ctx_for(t["mesh"], group="default")
+    cfg = family_cfg(t["arch"], t.get("overrides"))
+    model = build_model(cfg)
+    kv = attn_dims(cfg, axes.tp).kv_sharded if cfg.n_kv_heads else True
+    draws = None
+    if t.get("data"):
+        data = dict(np.load(t["data"]))
+        whole = {k[6:]: torch.from_numpy(v) for k, v in data.items() if k.startswith("param:")}
+        params = apply_fsdp_sharding(cut_model(whole, tree_param_specs(whole, cfg, axes, 1, kv),
+                                               axes, axes.tp_index()), axes)
+        if t.get("draws") == "file":
+            draws = file_draws(data, 0, 1)
+    else:
+        params = set_cross_gates(build_init_fn(model, axes)(torch.Generator().manual_seed(0)))
+    c = axes.dp_index()
+    B = TRAIN_TP["B"]
+    batch = {k: v[c * B:(c + 1) * B] for k, v in train_tp_batch(model, axes.dp).items()}
+    issued0 = {k: list(v) for k, v in axes.model_transport.issued.items()}
+    p1, m = train_tp_step(model, axes, params, batch, t["bits"], draws or SRDraws(0, 1))
+    issued = {f"{k} {dt}": n - issued0.get((k, dt), [0, 0])[0]
+              for (k, dt), (n, _b) in axes.model_transport.issued.items()}
+    specs = tree_param_specs(p1, cfg, axes, 1, kv)
+    differ = []
+    for p, w in p1.items():
+        if not _model_dims(specs[p], axes.model_axis):
+            copies = axes.model_transport.all_gather(w[None])
+            if not all(torch.equal(copies[0], x) for x in copies):
+                differ.append(p)
+    full = gather_state({"p": p1}, p1, axes, cfg)["p"]
+    if rank == 0 and t.get("save"):
+        np.savez(t["save"], **{k: v.numpy() for k, v in full.items()})
+    return {"loss": float(m["loss"]), "gnorm": float(m["grad_sq_shard_sum"]),
+            "replicated_differ": differ, "model_calls": issued}
+
+
+def task_wire_tp(t: dict, rank: int) -> dict:
+    """The SR wire on mesh ``t["mesh"]`` from ``t["data"]``: rank (d, t)
+    sends leaf i's gradient ``g:{i}`` at ``[d, t]`` with the uniforms
+    ``u:{i}`` at ``[d]`` through :func:`quantized_psum_batch` at
+    ``t["bits"]``; its means to ``t["save"]`` with ``{rank}`` filled in."""
+    from repro_torch.dist.collectives import quantized_psum_batch
+    from repro_torch.launch.mesh import axis_ctx_for
+
+    axes = axis_ctx_for(t["mesh"], group="default")
+    data = dict(np.load(t["data"]))
+    n = len([k for k in data if k.startswith("g:")])
+    d, m = axes.dp_index(), axes.tp_index()
+    grads = [torch.from_numpy(data[f"g:{i}"][d, m])[None] for i in range(n)]
+    us = [torch.from_numpy(data[f"u:{i}"][d])[None] for i in range(n)]
+    means = quantized_psum_batch(axes, grads, us, t["bits"])
+    np.savez(t["save"].format(rank=rank), *[x.numpy() for x in means])
+    return {"at": [d, m]}
+
+
+def task_ckpt_tp(t: dict, rank: int) -> dict:
+    """``Session.run_train`` of the smoke yi-6b (``train``, 32-bit weights
+    and wire) on mesh ``t["mesh"]``: 3 rounds uninterrupted, then 2 rounds
+    checkpointing every round into ``t["dir"]`` and a 3-round run resuming
+    there (its round 2 is not checkpointed).  Each run's losses; the uninterrupted run's whole parameters
+    after round 2 and after round 3 to ``t["save"]`` (``{r}`` filled in)."""
+    from repro_torch.api import PrecisionPolicy, RunSpec, Session
+    from repro_torch.ckpt.checkpoint import gather_state
+
+    def session(rounds, **opts):
+        return Session(RunSpec("yi-6b", workload="train", mesh=t["mesh"], smoke=True,
+                               batch=2, seq=32, rounds=rounds,
+                               precision=PrecisionPolicy.uniform(32, comm=32),
+                               options={"quiet": True, **opts}), device="cpu")
+
+    def whole(sess):
+        st = sess._train_state
+        return gather_state({"p": st["params"]}, st["params"], sess.axes, sess.cfg)["p"]
+
+    full = session(3)
+    losses = [full.fl_round(r)["loss"] for r in range(2)]
+    saved = {2: whole(full)}
+    losses.append(full.fl_round(2)["loss"])
+    saved[3] = whole(full)
+    first = [h["loss"] for h in session(2, ckpt_dir=t["dir"], ckpt_every=1).run_train()]
+    resumed_sess = session(3, ckpt_dir=t["dir"])     # writes nothing more
+    resumed = [h["loss"] for h in resumed_sess.run_train()]
+    got = whole(resumed_sess)
+    same = all(torch.equal(got[p], saved[3][p]) for p in got)
+    if rank == 0:
+        for r, tree in saved.items():
+            np.savez(t["save"].format(r=r), **{k: v.numpy() for k, v in tree.items()})
+    return {"losses": losses, "first": first, "resumed": resumed,
+            "resumed_equal": bool(same)}
+
+
 TASKS = {"step": task_step, "serve": task_serve, "pack": task_pack,
          "packed_gather": task_packed_gather, "init": task_init, "wire": task_wire,
          "comm_report": task_comm_report, "serve_tp": task_serve_tp, "layout": task_layout,
          "model_collectives": task_model_collectives, "init_tp": task_init_tp,
          "paged_tp": task_paged_tp, "families_tp": task_families_tp,
-         "cross_seqpar": task_cross_seqpar}
+         "cross_seqpar": task_cross_seqpar, "train_tp": task_train_tp,
+         "wire_tp": task_wire_tp, "ckpt_tp": task_ckpt_tp}
 
 
 def main() -> None:
