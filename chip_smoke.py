@@ -157,22 +157,24 @@ Phases (each one failing stops the script with a nonzero exit):
     step as the card runs it, the measured device ms and the share; the
     trainer step's trace high-water mark beside ``max_memory_allocated``;
     smoke cells of each kind recorded alike on fake CPU and fake CUDA
-    tensors; yi-6b's full-width ``shapes_for`` cells traced on 1x1 with
-    nothing left allocated on the card.  Every bound of phase kernels comes
+    tensors; yi-6b's full-width train, prefill and decode cells traced on
+    1x1 with nothing left allocated on the card.  Every bound of phase
+    kernels comes
     from ``repro_torch.roofline.count``'s cost functions.
 11. analyze: the port's static analyzer (``Session.analyze``,
     ``repro_torch.analyze``) on each main path's spec, every step traced on
     fake CUDA tensors with nothing allocated: full-width yi-6b, olmoe-1b-7b
-    and seamless-m4t served with lazy int8 weights (decode and prefill),
-    and the 8-layer yi-6b trainer on 4x1 at comm 8; per path the findings
+    and seamless-m4t (at 8, 4 and 6 + 6 layers) served with lazy int8
+    weights (decode and prefill), and the 8-layer yi-6b trainer on 4x1 at comm 8; per path the findings
     by rule, the wire accumulator's proofs, the graphs' sizes and the
     seconds; an unallowlisted error (``analyze_torch.toml``) fails.  Then
     every shipped ``KernelSpec`` (the reference's dims and each path's)
     launched on NaN-filled outputs: the elements written must be the
     spec's coverage, the plan the launcher's, the output the plain
     version's within the reference's tolerances.  Then ``python -m
-    repro_torch analyze --preset ci-tiny --fail-on error`` (in this
-    process), and the CPU tests' smoke trainer, which must find on fake
+    repro_torch analyze --preset ci-tiny --workloads serve,fl-sim
+    --fail-on error`` (in this process; the gate's two pod dry-run cells
+    gate in the CPU tests), and the CPU tests' smoke trainer, which must find on fake
     CUDA tensors what it finds on fake CPU ones.
 
 12. dist: the trainer with one client a process.  K2's keyed entry split at
@@ -184,7 +186,8 @@ Phases (each one failing stops the script with a nonzero exit):
     over gloo (``repro_torch.launch.mesh.init_distributed``, share-device):
     full-width yi-6b cut to 2 layers on a 4x1 mesh, batch 2 a client,
     sequence 512, 8-bit weights, comm 8 (int16 codes widened to int32 on the
-    wire): 2 ``train`` rounds (a checkpoint each) and 1 ``fl-orchestrate``
+    wire): 1 ``train`` round (checkpointed; cut from 2 for the time limit)
+    and 1 ``fl-orchestrate``
     round (unified_q); each rank prints per step its K1 inline and K2
     pass-1/pass-2 launches (30, 1, 1), the collectives it issued by kind and
     bytes, those the transport staged through the host, the step's span on
@@ -201,7 +204,9 @@ Phases (each one failing stops the script with a nonzero exit):
     launched exactly ``expected_launches`` a shard's prefill and decode step
     times the shard calls the session made, tok/s, host ms a step, peak.
     Then ``torch.distributed.run`` starts 4 ranks sharing the card over gloo,
-    one shard each, full width cut to 2 layers, max_new 16: every rank's
+    one shard each, full width cut to 2 layers, max_new
+    ``SERVE_DIST_RANKS_MAX_NEW`` (8, cut from 16 for the time limit):
+    every rank's
     sampled tokens and ``ServeStats`` (clocks apart) must equal the
     one-process 4x1 loop's at 2 layers bit for bit; each rank's collectives
     must be one uint8 all-gather a use of each FSDP leaf and one int32
@@ -209,7 +214,7 @@ Phases (each one failing stops the script with a nonzero exit):
     prints its launches, collectives by kind, calls and bytes, staged
     collectives, host ms a step, tok/s and peak.  Last, one rank over NCCL
     at 1x1, 2 layers (``DIST_LAYERS``, cut from full depth for the time
-    limit), max_new 16, whose tokens and stats must equal the plain 1x1
+    limit), max_new ``SERVE_DIST_RANKS_MAX_NEW``, whose tokens and stats must equal the plain 1x1
     serve's.
 
 14. serve_tp: tensor-parallel serving (``Session.serve`` on a ``1x4`` mesh,
@@ -274,6 +279,22 @@ Phases (each one failing stops the script with a nonzero exit):
     versions (mamba2's gated norm in 4 groups).  Phase kernels holds K1's
     inline entry at every weight slice these ranks quantize and K2's split
     passes at a rank's wire row (``check_sr_tp_shapes``).
+17. roofline_pod: the pod meshes' dry run (``Session.run_dryrun`` on a mesh
+    with a model axis: one traced device, its model group a stand-in, no
+    process group) on fake CUDA tensors: yi-6b's full-width train_4k,
+    prefill_32k and decode_32k on 16x16 and mamba2-780m's train_4k on
+    2x16x16, each priced on the H100 (compute, memory, collective and
+    kernel seconds, the card's bound, the collectives by kind, the trace
+    time) and held to the reference's committed row (per-device FLOPs, D4
+    aside, model FLOPs, the gathers' and reduce-scatters' bytes), nothing
+    left allocated on the card; smoke cells of each kind on 2x2 recorded
+    alike on fake CPU and fake CUDA tensors; then the 1x4 steps phases
+    serve_tp and train_tp run on real ranks (yi-6b's decode step and
+    cached prefill, lazy int8, flash, 16-token pages; the 2-layer 8-bit
+    train step), each traced device's model group issuing exactly what
+    ``tp_collectives`` / ``train_tp_collectives`` predict for one pass or
+    step, and every K1/K3/K4/K5 shape these traces record one phase
+    kernels holds.
 
 Each phase prints its own time.  The last two lines are the kernel table
 and ``{"ok": true, "device": ...}``.
@@ -286,7 +307,10 @@ the main path's, gemma-7b's, the S 513 and two head-dim-16 rows, the split
 path at the main f32 row, S 513 (causal and not) and head dims 16 and 256.
 Phase ``grids_all`` reruns every cell of the fl, wire and serve presets
 (``--presets``) into ``--store-dir``, each row held as in phase ``grids``.
-Phase ``roofline_all`` traces the other nine archs' full-width cells.
+Phase ``roofline_all`` runs every ``roofline-all-archs`` pod cell through
+``SweepRunner`` into ``--store-dir`` (resumable) beside the reference's
+committed rows, then traces the other nine archs' full-width cells on 1x1
+(~25 min).
 Phase ``train_profile`` profiles rounds 1-2 of the ``train`` run alone
 (device ms by family, the uniform-drawing kernels, host syncs); with
 ``--src=DIR`` it imports the port from another checkout (a parent commit),
@@ -887,7 +911,7 @@ DECODE_CASES = (
         (torch.bfloat16, torch.float32), 2)]
     + [("yi-6b one shard", dict(lengths=(150,)), (torch.bfloat16, torch.float32), 1)]
     + [("yi-6b one of 4 model shards", dict(KV=1, G=8, lengths=(150, 140, 131, 129)),
-        (torch.bfloat16, torch.float32), 1)]
+        (torch.bfloat16, pd), 1) for pd in (torch.float32, torch.bfloat16)]
     + [("glm4-9b one of 4 sequence shards", dict(KV=2, G=16, n_pmax=4, lengths=(24, 0, 64, 2)),
         (torch.float32, torch.float32), 1)]
     + [(f"{arch} one of 4 model shards", shape, (qd, torch.float32), 1)
@@ -3331,7 +3355,7 @@ def phase_train_profile(dev: dict) -> None:
 #: weights, comm 8 (4 x 255 > 127: int16 codes, widened to int32 to be summed)
 DIST_RANKS, DIST_LAYERS = 4, 2
 DIST_RUNS = (
-    dict(name="train", workload="train", rounds=2, precision=dict(weights=8, comm=8),
+    dict(name="train", workload="train", rounds=1, precision=dict(weights=8, comm=8),
          options={"ckpt_every": 1}),
     dict(name="fl-orchestrate", workload="fl-orchestrate", rounds=1,
          precision=dict(comm=8), options={"scheme": "unified_q"}),
@@ -3693,6 +3717,9 @@ SERVE_DIST_SHARDS = 4
 #: script's time limit once phase train_tp joined (its NCCL rank runs at
 #: ``DIST_LAYERS``, as the gloo ranks do)
 SERVE_DIST_LOOP_LAYERS = 8
+#: the tokens a request of phase serve_dist's ranks and their loop decode
+#: (cut from 16 for the time limit)
+SERVE_DIST_RANKS_MAX_NEW = 8
 SERVE_DIST_OPTIONS = {**SERVE_RUNS["yi-6b"]["options"], "attn_impl": "flash",
                       "kv_layout": "paged", "page_size": 16, "vary_prompt": True,
                       "quiet": True}
@@ -3828,9 +3855,10 @@ def phase_serve_dist(dev: dict) -> dict:
                          "kv_bytes": st["kv_bytes"], "sample": st["sample"]}})
     del sess
     torch.cuda.empty_cache()
-    # (2) the loop at 2 layers, max_new 16: what the ranks must equal
-    small = dict(layers=DIST_LAYERS, max_new=16)
-    sess2, passes2, ticks2 = _serve_dist_session("cuda", f"{D}x1", DIST_LAYERS, max_new=16)
+    # (2) the loop at 2 layers: what the ranks must equal
+    small = dict(layers=DIST_LAYERS, max_new=SERVE_DIST_RANKS_MAX_NEW)
+    sess2, passes2, ticks2 = _serve_dist_session("cuda", f"{D}x1", DIST_LAYERS,
+                                                 max_new=SERVE_DIST_RANKS_MAX_NEW)
     loop2 = _serve_dist_run(sess2, passes2, ticks2, "cuda")
     cfg2 = sess2.cfg
     del sess2
@@ -3839,7 +3867,7 @@ def phase_serve_dist(dev: dict) -> dict:
     base = tempfile.mkdtemp(prefix="chip_smoke_serve_dist_")
     ranks = _torchrun(D, {"backend": "gloo", "share_device": True,
                           "serve": {"mesh": f"{D}x1", "layers": DIST_LAYERS,
-                                    "options": {"max_new": 16}}},
+                                    "options": {"max_new": SERVE_DIST_RANKS_MAX_NEW}}},
                       os.path.join(base, "gloo"), 600)
     g_calls, g_bytes = _gathers_a_pass(cfg2, D)
     pre2, dec2 = (expected_launches(cfg2, kind, 0) for kind in ("prefill", "decode"))
@@ -3875,19 +3903,21 @@ def phase_serve_dist(dev: dict) -> dict:
     print(f"serve_dist: {D} gloo ranks' tokens ({len(loop2['tokens'])}) and ServeStats equal "
           f"the one-process {D}x1 loop's at {DIST_LAYERS} layers bit for bit")
     # (4) one NCCL rank at 1x1, 2 layers, against the plain 1x1 serve
-    sess1, passes1, ticks1 = _serve_dist_session("cuda", "1x1", DIST_LAYERS, max_new=16)
+    sess1, passes1, ticks1 = _serve_dist_session("cuda", "1x1", DIST_LAYERS,
+                                                 max_new=SERVE_DIST_RANKS_MAX_NEW)
     plain = _serve_dist_run(sess1, passes1, ticks1, "cuda")
     layers1 = sess1.cfg.n_layers
     del sess1
     torch.cuda.empty_cache()
     nccl = _torchrun(1, {"backend": "nccl", "share_device": False,
                          "serve": {"mesh": "1x1", "layers": DIST_LAYERS,
-                                   "options": {"max_new": 16}}},
+                                   "options": {"max_new": SERVE_DIST_RANKS_MAX_NEW}}},
                      os.path.join(base, "nccl"), 600)[0]
     _same_serve("the nccl rank", nccl, plain)
     assert nccl["backend"] == "nccl" and nccl["launches"] == plain["launches"], nccl
     emit({"serve_dist": {"run": "one nccl rank at 1x1", "card": card, "layers": layers1,
-                         "max_new": 16, "tok_s": nccl["tok_s"], "plain_tok_s": plain["tok_s"],
+                         "max_new": SERVE_DIST_RANKS_MAX_NEW, "tok_s": nccl["tok_s"],
+                         "plain_tok_s": plain["tok_s"],
                          "host_ms_a_step": nccl["host_ms_a_step"],
                          "plain_host_ms_a_step": plain["host_ms_a_step"],
                          "peak_gb": nccl["peak_gb"], "issued": nccl["issued"]}})
@@ -5071,9 +5101,8 @@ def phase_roofline(dev: dict, measured: dict, device: str = "cuda") -> None:
     without them) and the share; the trainer step's trace high-water mark
     beside ``torch.cuda.max_memory_allocated``.  Then a smoke cell of each
     kind traced on fake CPU and fake CUDA tensors gives one record, and
-    yi-6b's full-width ``shapes_for`` cells trace on 1x1; across the phase
-    nothing is left allocated on the card (the peak may rise by scalar
-    constants)."""
+    yi-6b's full-width cells trace on 1x1; across the phase nothing is
+    left allocated on the card (the peak may rise by scalar constants)."""
     from repro_torch.api import RunSpec, Session
     from repro_torch.configs import get_config, shapes_for
     from repro_torch.configs.base import ShapeSpec
@@ -5132,11 +5161,41 @@ def phase_roofline(dev: dict, measured: dict, device: str = "cuda") -> None:
           "constants)")
 
 
-def phase_roofline_all(dev: dict, device: str = "cuda") -> None:
-    """Opt-in: every other arch's full-width ``shapes_for`` cells on 1x1."""
+def phase_roofline_all(dev: dict, store_dir: str, device: str = "cuda") -> None:
+    """Opt-in: every ``roofline-all-archs`` cell (32 on the 16x16 pod, one
+    on 2x16x16) through the port's ``SweepRunner`` on fake CUDA tensors into
+    ``store_dir`` (resumable: cells already ``ok`` there are skipped), each
+    row's per-device FLOPs, model FLOPs and bytes by collective kind beside
+    the reference's committed row (:func:`check_pod_row`); then every other
+    arch's full-width ``shapes_for`` cells on 1x1."""
     from repro_torch.api import RunSpec, Session
     from repro_torch.configs import ARCH_NAMES, get_config, shapes_for
+    from repro_torch.sweep.grid import get_preset
+    from repro_torch.sweep.runner import ResultsStore, SweepRunner
 
+    sweep = get_preset("roofline-all-archs")
+    store = ResultsStore.for_sweep(sweep, store_dir)
+    out = SweepRunner(sweep, store, quiet=True, device=device).run()
+    if out["failed"]:
+        raise AssertionError(f"roofline_all: pod cells failed: "
+                             f"{[store.get(k)['metrics'] for k in out['failed']]}")
+    refs = reference_rows()
+    card = f"{dev['kind']} ({dev['smi']})"
+    for stored in store.rows():
+        m = stored["metrics"]
+        row = pod_row(m, refs.get((m["arch"], m["shape"], m["mesh"]))) | {
+            "wall_s": stored["wall_s"], "card": card}
+        check_pod_row(row)
+        emit({"roofline_all": row})
+        ref = row["reference"]
+        print(f"roofline_all {m['arch']} {m['shape']} {m['mesh']}: FLOPs "
+              f"{row['flops_per_device']:.6g} (committed {ref['flops_per_device']:.6g}), "
+              f"model FLOPs {row['model_flops_global']:.6g}, collective bytes "
+              f"{row['collective_bytes_by_kind']} (committed "
+              f"{ref['collective_bytes_by_kind']}), card bound "
+              f"{row['card_bound_s']:.6g} s, traced in {row['compile_s']} s")
+    print(f"roofline_all: {len(out['ran'])} pod cells run, {len(out['skipped'])} already in "
+          f"{store.path}; every row held to the committed one")
     for arch in ARCH_NAMES:
         if arch == "yi-6b":
             continue
@@ -5149,10 +5208,267 @@ def phase_roofline_all(dev: dict, device: str = "cuda") -> None:
                 "kernel_s", "dominant", "useful_flops_ratio", "card_bound_s")}})
 
 
+# ----------------------------------------------------------- roofline_pod
+#: phase roofline_pod: the reference's pod cells, one traced device each
+#: (``Session.run_dryrun`` on a pod mesh: the model group a stand-in, the
+#: batch group recorded, no process group) on fake CUDA tensors: yi-6b's
+#: three full-width cells on 16x16 and mamba2-780m's train cell on 2x16x16
+#: (the reference's one multi-pod row)
+ROOFLINE_POD_CELLS = (("yi-6b", "16x16", "train_4k"), ("yi-6b", "16x16", "prefill_32k"),
+                      ("yi-6b", "16x16", "decode_32k"), ("mamba2-780m", "2x16x16", "train_4k"))
+#: the reference's committed rows of the ``roofline-all-archs`` sweep
+ROOFLINE_ROWS = os.path.join(ROOT, "results", "sweep_roofline-all-archs.jsonl")
+#: D4 (ROADMAP §3): the SSM families' per-device dot FLOPs within this share
+#: of the reference's (its SSD scan's three-operand einsums)
+SSD_FLOPS_RTOL = 1e-4
+
+
+def reference_rows() -> dict:
+    """``(arch, shape, mesh) -> metrics`` of the reference's committed
+    ``roofline-all-archs`` rows (a data file; nothing of the JAX package is
+    imported)."""
+    rows = {}
+    with open(ROOFLINE_ROWS) as f:
+        for line in f:
+            m = json.loads(line)["metrics"]
+            rows[(m["arch"], m["shape"], m["mesh"])] = m
+    return rows
+
+
+def pod_row(d: dict, want: dict | None) -> dict:
+    """A traced pod cell's report, its per-device figures beside the
+    reference's committed row."""
+    row = {k: d[k] for k in ("arch", "shape", "mesh", "n_devices", "compile_s", "compute_s",
+                             "memory_s", "collective_s", "kernel_s", "card_bound_s",
+                             "dominant", "flops_per_device", "model_flops_global",
+                             "useful_flops_ratio")}
+    row.update(collective_bytes_by_kind=d["collective_breakdown"]["bytes"],
+               collective_counts=d["collective_breakdown"]["counts"],
+               peak_estimate_gb=d["memory_stats"]["peak_estimate"] / 1e9)
+    if want is not None:
+        row["reference"] = {"flops_per_device": want["flops_per_device"],
+                            "model_flops_global": want["model_flops_global"],
+                            "collective_bytes_by_kind": want["collective_breakdown"]["bytes"]}
+    return row
+
+
+def check_pod_row(row: dict) -> None:
+    """The committed row's figures where the port's equal them (ROADMAP §3):
+    the per-device dot FLOPs (within D4 for an SSM family), the model FLOPs,
+    and the FSDP and sequence-parallel gathers' and reduce-scatters' bytes
+    (the train cells' all-reduces differ by D16-D18)."""
+    want = row.get("reference")
+    label = f"roofline_pod {row['arch']} {row['shape']} {row['mesh']}"
+    if want is None:
+        raise AssertionError(f"{label}: no committed row")
+    got_f, want_f = row["flops_per_device"], want["flops_per_device"]
+    rtol = SSD_FLOPS_RTOL if row["arch"].startswith(("mamba2", "jamba")) else 0.0
+    if abs(got_f - want_f) > rtol * want_f or row["model_flops_global"] != want[
+            "model_flops_global"]:
+        raise AssertionError(f"{label}: FLOPs {got_f} / {row['model_flops_global']} against the "
+                             f"committed {want_f} / {want['model_flops_global']}")
+    # an enc-dec's reference reduce-scatters its replicated encoder input
+    # where the port cuts it (D16)
+    kinds = ("all-gather",) if row["arch"].startswith("seamless") else ("all-gather",
+                                                                        "reduce-scatter")
+    for kind in kinds:
+        if row["collective_bytes_by_kind"].get(kind) != want["collective_bytes_by_kind"].get(kind):
+            raise AssertionError(f"{label}: {kind} bytes {row['collective_bytes_by_kind']} "
+                                 f"against the committed {want['collective_bytes_by_kind']}")
+
+
+def _traced_shapes(rec) -> dict:
+    """The K1 and K3-K5 shapes a traced record's kernel nodes name, as
+    :func:`_held_shapes` keys them (K1's inline entry by its weight's shape)."""
+    out: dict = {"quant_matmul": set(), "flash_attention": set(), "flash_decode": set(),
+                 "sr_quant_inline": set()}
+    for n in rec.nodes:
+        if n.kernel is None:
+            continue
+        kv = dict(part.split("=", 1) for part in n.shape.split() if "=" in part)
+        if n.op == "quant_matmul":
+            out[n.op].add((int(kv["M"]), int(kv["K"]), int(kv["N"]), kv["x"]))
+        elif n.op == "flash_attention":
+            out[n.op].add((int(kv["BH"]), int(kv["S"]), int(kv["D"]), kv["dtype"]))
+        elif n.op == "flash_decode":
+            out[n.op].add(tuple(int(kv[k]) for k in ("B", "KV", "G", "hd", "page", "n_pmax"))
+                          + (kv["q"], kv["pool"]))
+        elif n.op == sq.INLINE_NAME:
+            out["sr_quant_inline"].add(tuple(int(x) for x in n.shape.strip("(),").split(",")))
+        else:
+            raise AssertionError(f"roofline_pod: a traced {n.op} node phase kernels has no "
+                                 "shape check for")
+    return out
+
+
+def _unheld_traced(rec) -> dict:
+    """The traced shapes of ``rec`` phase kernels does not hold (K1's inline
+    entry: ``TRAIN_TP_K1_SHAPES``)."""
+    held = _held_shapes()
+    held["sr_quant_inline"] = {shape for shapes in TRAIN_TP_K1_SHAPES.values()
+                               for _name, shape in shapes}
+    return {k: sorted(v - held[k]) for k, v in _traced_shapes(rec).items() if v - held[k]}
+
+
+def _traced_cached_prefill(arch: str, cfg, policy, device, *, mesh: str, B: int,
+                           bucket: int, s_max: int, page_size: int):
+    """The serve's cached prefill (``steps.build_cached_prefill``, the greedy
+    pick included) of ``B`` slots in the ``bucket``-token bucket, traced on
+    fake tensors as one device of ``mesh``: ``(record, axes)``."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.api import RunSpec, Session
+    from repro_torch.launch.mesh import trace_axis_ctx
+    from repro_torch.launch.steps import build_cached_prefill, init_global_caches
+    from repro_torch.models.model import build_model
+
+    axes = trace_axis_ctx(mesh)
+    model = build_model(cfg)
+    sess = Session(RunSpec(arch, workload="dryrun", mesh=mesh, smoke=False,
+                           precision=policy), device=device)
+    meta = model.init(torch.Generator().manual_seed(0), axes.tp, device="meta")
+    with FakeTensorMode(allow_fallback_kernels=False):
+        params = sess._serving_params(meta, device, packed=policy.packed)
+        caches = init_global_caches(model, axes, s_max=s_max, batch_global=B,
+                                    dtype=policy.kv_cache_dtype(), device=device,
+                                    page_size=page_size)
+        step = build_cached_prefill(model, axes, attn_impl="flash", policy=policy)
+        batch = {"tokens": torch.empty((B, bucket), dtype=torch.int32, device=device)}
+        mask = torch.empty((B,), dtype=torch.bool, device=device)
+        plens = torch.empty((B,), dtype=torch.int32, device=device)
+        with count.recording((params, batch, caches), computation="prefill") as rec:
+            step.fn(params, batch, caches, mask, plens)
+    return rec, axes
+
+
+def roofline_pod_tp_traces(device: str = "cuda") -> list:
+    """Part (c) of phase roofline_pod: the 1x4 steps phases serve_tp and
+    train_tp run on real ranks, traced as one device of the mesh.  Each
+    stand-in model group's ``issued`` (kind, dtype, calls, bytes) must be
+    what ``tp_collectives`` / ``train_tp_collectives`` predict for one pass
+    or step (the predictors phases serve_tp and train_tp hold the card's
+    ranks to), and every K1/K3/K4/K5 shape the traces record one phase
+    kernels holds."""
+    import dataclasses
+
+    from repro_torch.api import PrecisionPolicy, RunSpec, Session
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+
+    rows = []
+    T, B, s_max = SERVE_TP_RANKS, SERVE_TP_SLOTS, SERVE_TP_S_MAX
+    serve_cfg = dataclasses.replace(get_config("yi-6b"), n_layers=SERVE_TP_YI_LAYERS)
+    policy = PrecisionPolicy.lazy_int8(7)
+    bucket = SERVE_RUNS["yi-6b"]["options"]["prompt_len"]
+
+    def closed(pred: dict) -> dict:
+        return {k: v for k, v in pred.items() if k != "broadcast object"}
+
+    sess = Session(RunSpec("yi-6b", workload="dryrun", mesh=f"1x{T}", smoke=False,
+                           precision=policy, options={"attn_impl": "flash", "page_size": 16}),
+                   device=device)
+    sess.cfg = serve_cfg
+    rec, _meta = sess.trace(ShapeSpec("serve_tp_decode", s_max, B, "decode"))
+    traces = [("serve_tp yi-6b decode step", rec, sess.traced_axes,
+               closed(tp_collectives(serve_cfg, T, {"prefill": 0, "decode": 1}, bucket, B)))]
+    rec, axes = _traced_cached_prefill("yi-6b", serve_cfg, policy, device, mesh=f"1x{T}", B=B,
+                                       bucket=bucket, s_max=s_max, page_size=16)
+    traces.append(("serve_tp yi-6b prefill", rec, axes,
+                   closed(tp_collectives(serve_cfg, T, {"prefill": 1, "decode": 0}, bucket, B))))
+    train_cfg = dataclasses.replace(get_config("yi-6b"), n_layers=TRAIN_TP_LAYERS)
+    sess = Session(RunSpec("yi-6b", workload="dryrun", mesh=f"1x{T}", smoke=False,
+                           precision=PrecisionPolicy(weights=8, comm=8)), device=device)
+    sess.cfg = train_cfg
+    rec, _meta = sess.trace(ShapeSpec("train_tp_step", TRAIN_TP_SEQ, TRAIN_TP_BATCH, "train"))
+    traces.append(("train_tp yi-6b step", rec, sess.traced_axes,
+                   train_tp_collectives(train_cfg, 1, T, TRAIN_TP_BATCH, TRAIN_TP_SEQ)["model"]))
+    for label, rec, axes, want in traces:
+        got = axes.model_transport.report()["issued"]
+        if got != want:
+            raise AssertionError(f"roofline_pod {label}: the traced model group issued "
+                                 f"{json.dumps(got)}, the predictor {json.dumps(want)}")
+        unheld = _unheld_traced(rec)
+        if unheld:
+            raise AssertionError(f"roofline_pod {label}: traced kernel shapes phase kernels "
+                                 f"does not hold: {unheld}")
+        shapes = {k: len(v) for k, v in _traced_shapes(rec).items()}
+        rows.append({"trace": label, "mesh": f"1x{T}", "model_issued": got,
+                     "kernel_shapes": shapes})
+        print(f"roofline_pod {label} (1x{T}): the stand-in model group issued the predictor's "
+              f"{sum(v['calls'] for v in got.values())} collectives exactly; kernel shapes "
+              f"{shapes}, each held by phase kernels")
+    return rows
+
+
+def phase_roofline_pod(dev: dict, device: str = "cuda") -> None:
+    """The pod meshes' dry run (see the module docstring): (a) the
+    reference's pod cells traced on fake CUDA tensors as one device each,
+    priced on the H100 and held to the committed rows, with nothing left
+    allocated on the card; (b) a smoke cell of each kind on 2x2 recorded
+    alike on fake CPU and fake CUDA tensors; (c)
+    :func:`roofline_pod_tp_traces`."""
+    from repro_torch.api import RunSpec, Session
+    from repro_torch.configs.base import ShapeSpec
+
+    card = f"{dev['kind']} ({dev['smi']})"
+    if device == "cuda":
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    refs = reference_rows()
+    rows = []
+    for arch, mesh, shape in ROOFLINE_POD_CELLS:
+        t0 = time.time()
+        d = Session(RunSpec(arch, workload="dryrun", mesh=mesh, smoke=False),
+                    device=device).run_dryrun(shape=shape, verbose=False)
+        if d["status"] != "ok" or d["n_devices"] != math.prod(map(int, mesh.split("x"))):
+            raise AssertionError(f"roofline_pod {arch} {shape} {mesh}: {d}")
+        row = pod_row(d, refs.get((arch, shape, mesh)))
+        row["wall_s"] = time.time() - t0
+        check_pod_row(row)
+        rows.append(row)
+        print(f"roofline_pod {arch} {shape} on {mesh} (one device of {row['n_devices']}, traced "
+              f"in {row['compile_s']} s): compute {row['compute_s']:.6g} s memory "
+              f"{row['memory_s']:.6g} s collective {row['collective_s']:.6g} s kernels "
+              f"{row['kernel_s']:.6g} s, card bound {row['card_bound_s']:.6g} s on {card}; "
+              f"collective bytes {row['collective_bytes_by_kind']} (the committed row's "
+              f"{row['reference']['collective_bytes_by_kind']}); FLOPs "
+              f"{row['flops_per_device']:.6g} (committed "
+              f"{row['reference']['flops_per_device']:.6g})")
+    # (b) the record does not depend on the fake device
+    for kind, seq in (("decode", 32), ("prefill", 16), ("train", 16)):
+        recs = []
+        for fake in ("cpu", device):
+            sess = Session(RunSpec("yi-6b", workload="dryrun", mesh="2x2"), device=device)
+            sess.device = torch.device(fake)
+            recs.append(sess.trace(ShapeSpec(f"smoke_{kind}", seq, 4, kind))[0])
+        if not _same_records(*recs):
+            raise AssertionError(f"roofline_pod: the smoke {kind} cell's record on 2x2 differs "
+                                 "on fake CPU and fake CUDA tensors")
+    print("roofline_pod: smoke decode, prefill and train cells (2x2) record alike on fake CPU "
+          "and fake CUDA tensors")
+    traces = roofline_pod_tp_traces(device)
+    rise = left = "not measured"
+    if device == "cuda":
+        torch.cuda.synchronize()
+        after, peak = torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()
+        rise, left = peak - before, after - before
+        if after != before or rise > 64 * 1024:
+            raise AssertionError(f"roofline_pod: the phase's dry runs allocated on the card "
+                                 f"({before} -> {after} bytes, peak {peak})")
+    emit({"roofline_pod": {"card": card, "cells": rows, "tp_traces": traces,
+                           "left_allocated_bytes": left, "peak_rise_bytes": rise}})
+    print(f"roofline_pod: {len(rows)} pod cells traced, ok; nothing left allocated on the card, "
+          f"its peak {rise} bytes higher (scalar constants)")
+
+
 #: phase analyze: each main path's spec, analyzed on fake CUDA tensors (the
 #: serving paths at full width with lazy int8 weights, flash kernels and
-#: 16-token pages; the trainer at phase train's 8 layers on 4x1, comm 8)
-ANALYZE_SERVE = ("yi-6b", "olmoe-1b-7b", "seamless-m4t-large-v2")
+#: 16-token pages, their depth cut to these layers (and encoder layers) for
+#: the time limit: every layer repeats the first's operations; the trainer
+#: at phase train's 8 layers on 4x1, comm 8)
+ANALYZE_SERVE = {"yi-6b": dict(n_layers=8), "olmoe-1b-7b": dict(n_layers=4),
+                 "seamless-m4t-large-v2": dict(n_layers=6, n_encoder_layers=6)}
 ANALYZE_SERVE_OPTIONS = {"attn_impl": "flash", "kv_layout": "paged", "page_size": 16,
                          "pool_pages": 64, "s_max": 256, "prompt_len": 128}
 #: tests/test_kernels.py's (and tests/test_paged_kv.py's) tolerances
@@ -5165,13 +5481,18 @@ SPEC_TOLERANCES = {("quant_matmul", torch.float32): (1e-5, 1e-2),
 
 def _analyze_sessions(device: str = "cuda") -> list:
     """(label, Session) of each main path phase analyze lints."""
-    from repro_torch.api import PrecisionPolicy, RunSpec, Session
+    import dataclasses
 
-    out = [(f"{arch} serve", Session(RunSpec(arch, workload="serve", smoke=False, batch=4,
-                                             seq=256, precision=PrecisionPolicy.lazy_int8(7),
-                                             options=dict(ANALYZE_SERVE_OPTIONS)),
-                                     device=device))
-           for arch in ANALYZE_SERVE]
+    from repro_torch.api import PrecisionPolicy, RunSpec, Session
+    from repro_torch.configs import get_config
+
+    out = []
+    for arch, cut in ANALYZE_SERVE.items():
+        sess = Session(RunSpec(arch, workload="serve", smoke=False, batch=4, seq=256,
+                               precision=PrecisionPolicy.lazy_int8(7),
+                               options=dict(ANALYZE_SERVE_OPTIONS)), device=device)
+        sess.cfg = dataclasses.replace(get_config(arch), **cut)
+        out.append((f"{arch} serve ({cut['n_layers']} layers)", sess))
     run = dict(workload="train", rounds=1, precision=dict(comm=8), options={})
     out.append(("yi-6b train (8 layers, 4x1, comm 8)", _train_session(run, device)))
     return out
@@ -5332,7 +5653,8 @@ def phase_analyze(dev: dict) -> None:
     printed.  Then every shipped ``KernelSpec`` (the reference's dims, each
     cell's, and K4 at each shape and mask the main paths' traces launch it
     at) held against its launched kernel; ``python -m repro_torch analyze
-    --preset ci-tiny --fail-on error``; and the CPU tests' smoke trainer,
+    --preset ci-tiny --workloads serve,fl-sim --fail-on error``; and the
+    CPU tests' smoke trainer,
     which must find on fake CUDA tensors what it finds on fake CPU ones."""
     from collections import Counter
 
@@ -5404,11 +5726,14 @@ def phase_analyze(dev: dict) -> None:
 
     t0 = time.time()
     out = io.StringIO()
+    # the gate's cells that run; its two pod dry-run cells gate in the CPU
+    # tests (test_analyze_ci_tiny_runs_on_the_cpu), for the time limit
+    gate = ["analyze", "--preset", "ci-tiny", "--workloads", "serve,fl-sim", "--fail-on",
+            "error", "--allowlist", allowlist]
     with contextlib.redirect_stdout(out):    # python -m repro_torch analyze, in this process
-        rc = repro_main(["analyze", "--preset", "ci-tiny", "--fail-on", "error",
-                         "--allowlist", allowlist])
+        rc = repro_main(gate)
     cli_s = time.time() - t0
-    print(f"analyze: python -m repro_torch analyze --preset ci-tiny --fail-on error: rc "
+    print(f"analyze: python -m repro_torch {' '.join(gate[:7])}: rc "
           f"{rc} in {cli_s:.1f} s; {out.getvalue().strip().splitlines()[-1:]}")
     if rc != 0:
         raise AssertionError(f"analyze: the ci-tiny gate failed\n{out.getvalue()[-3000:]}")
@@ -5438,7 +5763,7 @@ def phase_analyze(dev: dict) -> None:
 
 PHASES = ("device", "build", "kernels", "serve", "profile", "consistency", "fl", "train",
           "dist", "serve_dist", "serve_tp", "serve_tp_families", "train_tp", "roofline",
-          "analyze", "grids")
+          "roofline_pod", "analyze", "grids")
 #: run only when named in ``--phases``
 EXTRA_PHASES = ("sweep", "decode_sweep", "attn_sweep", "train_profile", "grids_all",
                 "roofline_all")
@@ -5452,7 +5777,8 @@ def main(argv=None) -> int:
     ap.add_argument("--presets", default=",".join(GRID_PRESETS),
                     help="phase grids_all: the sweep presets to rerun")
     ap.add_argument("--store-dir", default=os.path.join(ROOT, "results", "torch"),
-                    help="phase grids_all: where the port's sweep stores go")
+                    help="phases grids_all and roofline_all: where the port's sweep "
+                    "stores go")
     ap.add_argument("--dist-worker", default=None,
                     help="phase dist's ranks run this script with their job file")
     args = ap.parse_args(argv)
@@ -5481,8 +5807,9 @@ def main(argv=None) -> int:
             *((p, lambda p=p: launches_of.update({p: phase_tp(p, dev, tp_ranks[p])}))
               for p in TP_PHASES),
             ("roofline", lambda: phase_roofline(dev, measured)),
+            ("roofline_pod", lambda: phase_roofline_pod(dev)),
             ("analyze", lambda: phase_analyze(dev)),
-            ("roofline_all", lambda: phase_roofline_all(dev)),
+            ("roofline_all", lambda: phase_roofline_all(dev, args.store_dir)),
             ("train_profile", lambda: phase_train_profile(dev)),
             ("grids", lambda: phase_grids(dev)),
             ("grids_all", lambda: phase_grids_all(args.presets.split(","), args.store_dir)))

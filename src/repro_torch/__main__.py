@@ -7,13 +7,12 @@ Usage::
     python -m repro_torch fl      --model mobilenet --rounds 10 --device cpu
     python -m repro_torch sweep   run grad-comm-wire --device cpu
     python -m repro_torch analyze --preset ci-tiny --fail-on error
+    python -m repro_torch dryrun  --arch yi-6b --shape decode_32k --device cpu
 
 Each subcommand is the port's CLI over :class:`repro_torch.api.Session`
 (``sweep`` drives grids of them through :mod:`repro_torch.sweep`); every one
-runs on the card unless ``--device cpu`` is given.  ``dryrun`` is the
-reference's pod-mesh dry-run CLI, which the port has not ported (ROADMAP
-queue 1, item 14); a ``Dx1`` cell dry-runs through ``Session.run_dryrun``.
-Counterpart of ``repro/__main__.py``; ``pyproject.toml``'s console scripts
+runs on the card unless ``--device cpu`` is given (``dryrun``: its fake
+tensors' device).  Counterpart of ``repro/__main__.py``; ``pyproject.toml``'s console scripts
 name the reference's mains.
 """
 
@@ -24,7 +23,7 @@ import sys
 _COMMANDS = {
     "train": "repro_torch.launch.train",
     "serve": "repro_torch.launch.serve",
-    "dryrun": None,
+    "dryrun": "repro_torch.launch.dryrun",
     "fl": "repro_torch.launch.fl",
     "sweep": "repro_torch.sweep.cli",
     "analyze": "repro_torch.analyze.cli",
@@ -40,10 +39,6 @@ def main(argv=None):
     if cmd not in _COMMANDS:
         print(f"unknown command {cmd!r}; options: {', '.join(_COMMANDS)}", file=sys.stderr)
         return 2
-    if _COMMANDS[cmd] is None:
-        raise NotImplementedError(
-            "python -m repro_torch dryrun: the pod meshes' dry-run CLI is not ported "
-            "(ROADMAP queue 1, item 14); dry-run a Dx1 cell with Session.run_dryrun")
     import importlib
 
     mod = importlib.import_module(_COMMANDS[cmd])

@@ -6,7 +6,7 @@ it propagates an :class:`repro_torch.analyze.ranges.AbsVal` per value — an
 interval, an integer-exactness flag and a quantization-error bound —
 through arithmetic, the dequant idiom (``_to_copy`` + ``mul`` by a scale),
 in-place writes (a partial write joins into its storage), kernel nodes and
-collective nodes (an integer all-reduce multiplies its operand's interval
+collective nodes (an integer all-reduce sum multiplies its operand's interval
 by the group size).  The reference (``repro/analyze/absint.py``) walks a
 jaxpr with scan/while/cond fixpoints; an eager trace has already unrolled
 every loop, so each iteration is interpreted as it ran.
@@ -300,6 +300,8 @@ class _Interp:
         dtype = op.params.get("dtype", "float32")
         if op.op not in ("all-reduce", "reduce-scatter") or n <= 1 or dtype not in INT_DTYPES:
             return
+        if op.params.get("reduction", "sum") != "sum":
+            return                              # a max or min keeps its operand's range
         val = self.read(op.ins[0]) if op.ins else R.dtype_top(dtype)
         summed = R.scale_by_count(val, n)
         kind = "psum" if op.op == "all-reduce" else "reduce-scatter"

@@ -4,6 +4,7 @@ Usage::
 
     python -m repro_torch analyze                  # ci-tiny grid, analyze_torch.toml
     python -m repro_torch analyze --preset ci-tiny --fail-on error   # the gate
+    python -m repro_torch analyze --preset ci-tiny --workloads serve,fl-sim
     python -m repro_torch analyze --rules overflow,numerics,precision \
         --preset grad-comm-wire
     python -m repro_torch analyze --arch yi-6b --workload serve --precision lazy_int8
@@ -21,7 +22,8 @@ gate; allowlist entries that matched nothing across the WHOLE run surface as
 *differential*: only findings absent from the committed snapshot count, so
 rule families can be broadened without allowlist churn.  Counterpart of
 ``repro/analyze/cli.py`` (without its host-device flag: the port needs no
-fake devices).
+fake devices; with ``--workloads``, which keeps a preset's cells of the
+named workloads).
 """
 
 from __future__ import annotations
@@ -51,10 +53,13 @@ def _cells(args) -> list:
 
     names = ([p for p in args.preset.split(",") if p]
              if args.preset != "all" else sorted(PRESETS))
+    workloads = {w for w in args.workloads.split(",") if w}
     specs, seen = [], set()
     for name in names:
         for c in get_preset(name).cells():
             if c.key in seen:          # presets share cells (ci-tiny does)
+                continue
+            if workloads and c.spec.workload not in workloads:
                 continue
             seen.add(c.key)
             specs.append(c.spec)
@@ -68,6 +73,9 @@ def main(argv=None) -> int:
                     help="sweep preset(s) naming the spec matrix to analyze "
                          "(comma-separated, or 'all'; duplicate cells "
                          "dedupe by content hash)")
+    ap.add_argument("--workloads", default="",
+                    help="keep only the preset's cells of these workloads "
+                         "(comma-separated; '' = all)")
     ap.add_argument("--arch", default="",
                     help="analyze one ad-hoc RunSpec instead of a preset")
     ap.add_argument("--workload", default="serve")

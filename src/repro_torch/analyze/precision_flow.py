@@ -163,6 +163,8 @@ class _Walker:
         dtype = op.params.get("dtype", "float32")
         if op.op != "all-reduce" or bits >= 32 or n <= 1:
             return
+        if op.params.get("reduction", "sum") != "sum":
+            return                              # a max or min accumulates nothing
         if dtype not in INT_DTYPES:
             return
         try:

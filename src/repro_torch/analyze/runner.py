@@ -10,9 +10,10 @@ wire lint over the trace's collective records, and the kernel checker over
 the shipped :class:`~repro_torch.kernels.spec.KernelSpec` metadata at this
 config's dimensions.  ``fl-sim`` cells have no model-zoo step graph to lint
 (the CNN simulation is not a model-zoo graph) and are skipped with an info
-finding; a mesh with a model axis above 1 cannot be traced by the port yet
-and gives one ``analyze.not_ported`` error (ROADMAP queue 1, item 14).
-Counterpart of ``repro/analyze/runner.py``.
+finding.  A mesh with a model axis above 1 is traced as one device of it,
+its model group a stand-in (:func:`repro_torch.launch.mesh.trace_axis_ctx`),
+so its model collectives are ``collective`` nodes of the graph and records
+of the wire lint like the batch group's.  Counterpart of ``repro/analyze/runner.py``.
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ def lint_cells(session) -> list[tuple[str, object]]:
         name = spec.opt("shape")
         return [(f"dryrun:{name}", name)]
     if wl in ("train", "fl-orchestrate"):
-        n_clients = max(session.axes.dp, 1)
+        n_clients = max(_axes(session).dp, 1)
         cell = ShapeSpec("train_step", seq_len=spec.seq, global_batch=n_clients * spec.batch,
                          kind="train")
         return [(f"{wl}:train_step", cell)]
@@ -57,10 +58,18 @@ def lint_cells(session) -> list[tuple[str, object]]:
     return []                                     # fl-sim
 
 
+def _axes(session):
+    """The axis sizes of the session's mesh, as one traced device sees them
+    (no process group needed)."""
+    from repro_torch.launch.mesh import trace_axis_ctx
+
+    return trace_axis_ctx(session.spec.mesh)
+
+
 def _wire_context(session, kind: str):
     from repro_torch.analyze.wire_lint import WireContext, expected_gathers
 
-    axes, policy = session.axes, session.policy
+    axes, policy = _axes(session), session.policy
     fsdp, tp = axes.fsdp, axes.tp
     return WireContext(
         policy=policy, kind=kind, n_clients=max(axes.dp, 1), fsdp=fsdp, tp=tp,
@@ -122,13 +131,6 @@ def normalize_rules(rules) -> frozenset | None:
     return out
 
 
-def _model_axis(spec) -> int:
-    from repro_torch.launch.mesh import parse_mesh
-
-    dims, names = parse_mesh(spec.mesh)
-    return int(dict(zip(names, dims)).get("model", 1))
-
-
 def analyze_session(session, *, compile: bool = True, allowlist_path=None,
                     check_kernels: bool = True, rules=None,
                     proofs: list | None = None) -> list[Finding]:
@@ -161,14 +163,6 @@ def analyze_session(session, *, compile: bool = True, allowlist_path=None,
             rule="analyze.skipped", severity="info",
             message="fl-sim cells have no model-zoo step graph to lint; analytic proofs only",
             key=f"fl-sim:{spec.arch}", cell=f"fl-sim:{spec.arch}"))
-    elif _model_axis(spec) > 1:
-        label = (f"dryrun:{spec.opt('shape')}" if spec.workload == "dryrun"
-                 else f"{spec.workload}:{spec.mesh}")
-        findings.append(Finding(
-            rule="analyze.not_ported", severity="error",
-            message=(f"mesh {spec.mesh!r} has a model axis above 1: the port cannot trace "
-                     "it yet (the pod meshes' dry run, ROADMAP queue 1, item 14)"),
-            key=f"{spec.arch}:mesh:{spec.mesh}", cell=label))
     else:
         policy = session.policy
         for label, shape in lint_cells(session):

@@ -46,11 +46,14 @@ format.
 traces one shape cell's step under ``FakeTensorMode``, nothing allocated,
 and prices it on one H100 (:mod:`repro_torch.roofline`); on the CPU::
 
-    Session(RunSpec("yi-6b", workload="dryrun", mesh="1x1"),
+    Session(RunSpec("yi-6b", workload="dryrun", mesh="16x16", smoke=False),
             device="cpu").run_dryrun(shape="decode_32k")
 
-A mesh with a model axis above 1 (the reference's pod meshes) raises (ROADMAP
-item 14).
+On any mesh, the reference's ``16x16`` and ``2x16x16`` pods included, the
+traced cell is one device of it (data index 0, model index 0) in one
+process with no process group: its model shard's slices, its client's rows,
+and every collective it issues over its model group (a stand-in,
+:func:`repro_torch.launch.mesh.trace_axis_ctx`) and its batch group.
 
 :meth:`Session.analyze` lints the step graphs a spec implies (precision
 taint, the interval interpreter, the wire lint, the kernels' launch grids;
@@ -238,10 +241,12 @@ class Session:
         """
         from repro_torch.dist.collectives import envelope_wire_dtype
         from repro_torch.dist.wire import grad_wire_report, grad_wire_rounds
+        from repro_torch.launch.mesh import trace_axis_ctx
         from repro_torch.launch.steps import local_param_shapes
 
-        tree = local_param_shapes(self.model, self.axes)
-        fsdp, n = self.axes.fsdp, max(self.axes.dp, 1)
+        axes = trace_axis_ctx(self.spec.mesh)   # the mesh's sizes; no group needed
+        tree = local_param_shapes(self.model, axes)
+        fsdp, n = axes.fsdp, max(axes.dp, 1)
         rep = grad_wire_report(tree, fsdp=fsdp, n_clients=n,
                                comm_bits=self.policy.comm)
         bits_seq = self._executed_comm_bits()
@@ -333,21 +338,25 @@ class Session:
         step builders and run under ``FakeTensorMode`` on the session's
         device inside :func:`repro_torch.roofline.count.recording`, with the
         kernels on their trace route.  Per device means one device of the
-        reference's ``Dx1`` mesh: a train cell runs the D clients at ``1 / D``
-        each, a serving cell one device's batch (the whole batch where it
-        does not divide by D, as the reference's ``serving_axes``).  A
+        mesh, data index 0 and model index 0 (:func:`~repro_torch.launch.mesh.trace_axis_ctx`:
+        no process group, the model group a stand-in that records its
+        collectives): its model shard's slice of every leaf (then its FSDP
+        shard), a train cell its own client's rows of the global batch at
+        share 1, a serving cell one device's batch (the whole batch where
+        it does not divide by D, as the reference's ``serving_axes``).  A
         decode cell's caches are bf16, as the reference's, and K5 counts
         ``decode_len`` tokens a slot (an int, or the slots' lengths; default
         the cell's ``seq_len``).  A prefill cell runs the policy's weights
         (packed where it packs) and the ``attn_impl`` option, which at the
         defaults is the reference's cell.  ``graph``: also keep the step's
         operation graph (``record.graph``, what :meth:`analyze` walks).
-        Returns ``(record, meta)``.
+        Returns ``(record, meta)``; :attr:`traced_axes` keeps the traced
+        device's axis context (its stand-in model group's ``issued``).
         """
         from torch._subclasses.fake_tensor import FakeTensorMode
 
         from repro_torch.configs.base import ShapeSpec, shapes_for
-        from repro_torch.launch.mesh import parse_mesh
+        from repro_torch.launch.mesh import trace_axis_ctx
         from repro_torch.models.common import fsdp_plan
         from repro_torch.models.model import build_model
         from repro_torch.roofline import count
@@ -358,11 +367,6 @@ class Session:
         if shape is None:
             raise ValueError("a dry run needs a shape cell: pass shape= or set the "
                              "'shape' option (a name from configs.shapes_for or a ShapeSpec)")
-        dims, names = parse_mesh(spec.mesh)
-        if dict(zip(names, dims)).get("model", 1) > 1:
-            raise NotImplementedError(
-                f"dryrun on mesh {spec.mesh!r}: a model axis > 1 needs the pod meshes' "
-                "dry run and accounting (ROADMAP queue 1, item 14)")
         cfg = self.cfg
         if variant.get("gather_bf16"):
             cfg = dataclasses.replace(cfg, fsdp_gather_dtype="bfloat16")
@@ -373,8 +377,10 @@ class Session:
         model = build_model(cfg)
         cell = shape if isinstance(shape, ShapeSpec) else {
             s.name: s for s in shapes_for(cfg)}[shape]
-        axes, dev = self.axes, self.device
+        axes, dev = trace_axis_ctx(spec.mesh), self.device
+        self.traced_axes = axes
         D = axes.dp
+        # the model shard's slice of every leaf (the model cut)
         meta_params = model.init(torch.Generator().manual_seed(0), axes.tp, device="meta")
         paths, _, plan = fsdp_plan(meta_params, axes.fsdp)
         fsdp_of = dict(zip(paths, plan))
@@ -384,52 +390,58 @@ class Session:
             return int(sum(count.tree_bytes(v) * share_of(k) for k, v in tree.items()))
 
         def param_share(path) -> float:
+            """The FSDP cut of a model-cut leaf."""
             return 1.0 / axes.fsdp if fsdp_of.get(path) is not None else 1.0
 
         with FakeTensorMode(allow_fallback_kernels=False):
             if cell.kind == "train":
-                rec, outs = self._trace_train(model, cell, dev, meta_params, per_device,
+                rec, outs = self._trace_train(model, axes, cell, dev, meta_params, per_device,
                                               param_share, graph)
             elif cell.kind == "prefill":
-                rec, outs = self._trace_prefill(model, cell, dev, meta_params, per_device,
-                                                param_share, graph)
+                rec, outs = self._trace_prefill(model, axes, cell, dev, meta_params,
+                                                per_device, param_share, graph)
             else:
-                rec, outs = self._trace_decode(model, cell, dev, meta_params, per_device,
-                                               param_share, decode_len, graph)
+                rec, outs = self._trace_decode(model, axes, cell, dev, meta_params,
+                                               per_device, param_share, decode_len, graph)
             rec.output_bytes = outs
         meta = dict(arch=spec.arch, shape=cell.name, mesh=spec.mesh, n_devices=D * axes.tp,
                     kind=cell.kind, seq_len=cell.seq_len, global_batch=cell.global_batch)
         return rec, meta
 
-    def _trace_train(self, model, cell, dev, meta_params, per_device, param_share, graph):
+    def _trace_train(self, model, axes, cell, dev, meta_params, per_device, param_share,
+                     graph):
         from repro_torch.launch.steps import SRDraws, build_train_step
         from repro_torch.optim import build_optimizer
         from repro_torch.roofline import count
 
-        axes = self.axes
         D = axes.dp
+        if cell.global_batch % D:
+            raise ValueError(f"train cell {cell.name!r}: global batch {cell.global_batch} does "
+                             f"not divide over the mesh's {D} batch shards")
         opt = build_optimizer("sgd", 1e-3)
-        ts = build_train_step(model, axes, opt, self.train_config())
+        ts = build_train_step(model, axes, opt, self.train_config(), one_device=True)
         params = {k: _fake_like(v, dev) for k, v in meta_params.items()}
         opt_state = opt.init(params)
-        batch = {k: _fake_like(v, dev)
-                 for k, v in model.train_batch_spec(cell.global_batch, cell.seq_len).items()}
+        # the device's client: its rows of the global batch
+        batch = {k: _fake_like(v, dev) for k, v in model.train_batch_spec(
+            cell.global_batch // D, cell.seq_len).items()}
         delta = torch.empty(D, dtype=torch.float32, device=dev)
         args = (params, opt_state, batch, delta)
         with count.recording(args, computation="train", graph=graph) as rec:
             rec.argument_bytes = (per_device(params, param_share)
                                   + count.tree_bytes(opt_state)
-                                  + per_device(batch, lambda k: 1.0 / D) + 4)
+                                  + count.tree_bytes(batch) + 4)
             new_params, new_state, metrics = ts.fn(params, opt_state, batch, delta,
                                                    SRDraws(self.spec.seed, 0))
             outs = (per_device(new_params, param_share) + count.tree_bytes(new_state)
                     + count.tree_bytes(metrics))
         return rec, outs
 
-    def _local_batch(self, cell) -> int:
+    @staticmethod
+    def _local_batch(axes, cell) -> int:
         """One device's batch: the global batch over the batch axes, or all
         of it where it does not divide (the reference's ``serving_axes``)."""
-        D = self.axes.dp
+        D = axes.dp
         return cell.global_batch // D if cell.global_batch % D == 0 else cell.global_batch
 
     def _serving_params(self, meta_params, dev, *, packed: bool) -> dict:
@@ -449,14 +461,15 @@ class Session:
                 out[k] = _fake_like(v, dev, _bf16(v.dtype))
         return out
 
-    def _trace_prefill(self, model, cell, dev, meta_params, per_device, param_share, graph):
+    def _trace_prefill(self, model, axes, cell, dev, meta_params, per_device, param_share,
+                       graph):
         from repro_torch.launch.steps import build_prefill_step
         from repro_torch.roofline import count
 
-        step = build_prefill_step(model, self.axes, policy=self.policy,
+        step = build_prefill_step(model, axes, policy=self.policy,
                                   attn_impl=self.spec.opt("attn_impl", "auto"))
         params = self._serving_params(meta_params, dev, packed=self.policy.packed)
-        b = self._local_batch(cell)
+        b = self._local_batch(axes, cell)
         batch = {k: _fake_like(v, dev)
                  for k, v in model.train_batch_spec(b, cell.seq_len).items() if k != "labels"}
         with count.recording((params, batch), computation="prefill", graph=graph) as rec:
@@ -465,20 +478,21 @@ class Session:
             outs = count.tree_bytes(out)
         return rec, outs
 
-    def _trace_decode(self, model, cell, dev, meta_params, per_device, param_share,
+    def _trace_decode(self, model, axes, cell, dev, meta_params, per_device, param_share,
                       decode_len, graph):
         from repro_torch.launch.steps import build_decode_step, init_global_caches
         from repro_torch.roofline import count
 
         spec = self.spec
         page_size = spec.opt("page_size")
-        step = build_decode_step(model, self.axes, policy=self.policy,
+        step = build_decode_step(model, axes, policy=self.policy,
                                  attn_impl=spec.opt("attn_impl", "ref"))
         params = self._serving_params(meta_params, dev, packed=self.policy.packed)
-        b = self._local_batch(cell)
-        # one shard's caches at b slots (b * dp over the shards)
-        caches = init_global_caches(model, self.axes, s_max=cell.seq_len,
-                                    batch_global=b * self.axes.dp, dtype=torch.bfloat16,
+        b = self._local_batch(axes, cell)
+        # one device's caches at b slots (b * dp over the shards), its model
+        # shard's KV heads or sequence positions
+        caches = init_global_caches(model, axes, s_max=cell.seq_len,
+                                    batch_global=b * axes.dp, dtype=torch.bfloat16,
                                     device=dev,
                                     page_size=None if page_size is None else int(page_size),
                                     pool_pages=spec.opt("pool_pages"))

@@ -26,6 +26,9 @@ the context carries a second :class:`Transport` over the rank's model group.
 are the reference's model-axis collectives over it; the batch collectives
 go over the batch group (the ranks of the rank's model column).  Without a
 model group the model axis is 1 and the model collectives are identities.
+A traced step (the dry run, :mod:`repro_torch.roofline.count`) runs one
+device of the mesh with a :class:`TraceTransport` of T ranks as its model
+group: no process group, each collective recorded where the ranks run it.
 
 The model collectives carry gradients as Megatron's pairs do, not as the
 reference's transposes (its ``psum`` transposes to a ``psum``, which
@@ -172,6 +175,66 @@ class Transport:
         return {"issued": {f"{k} {dt}": {"calls": n, "bytes": b}
                            for (k, dt), (n, b) in sorted(self.issued.items())},
                 "staged": dict(self.staged)}
+
+
+class TraceTransport:
+    """A stand-in for a group of ``size`` ranks, run as rank 0, in a traced
+    step (:mod:`repro_torch.roofline.count`): no process group, nothing
+    moved.
+
+    ``all_reduce``, ``all_gather`` and ``reduce_scatter`` take traced
+    (fake) tensors only and raise on any other: they move nothing, so a
+    real step through them would compute wrong sums.  They return tensors
+    of the shapes :class:`Transport` returns, record each call through
+    :func:`~repro_torch.roofline.count.record_collective` under the
+    reference's kind over a group of ``size``, and keep ``issued`` as
+    :class:`Transport` does, so a traced rank's counts compare with a real
+    rank's :meth:`Transport.report` (the model group is the one a trace
+    runs through it).
+    """
+
+    def __init__(self, size: int):
+        self.size, self.rank = int(size), 0
+        self.issued: dict = {}
+        self.staged: dict = {}
+
+    _count = Transport._count
+    report = Transport.report
+
+    def _traced(self, kind: str, x: torch.Tensor) -> torch.Tensor:
+        if not count.is_traced(x):
+            raise RuntimeError(f"TraceTransport {kind}: a stand-in group moves nothing and "
+                               "takes traced (fake) tensors only; a real step needs a "
+                               "process group (launch/mesh.axis_ctx_for)")
+        return x.detach().contiguous()
+
+    def _record(self, kind: str, t: torch.Tensor, elems: int, operand,
+                reduction: str = "sum") -> None:
+        count.record_collective(kind, t.dtype, elems, self.size, f"model group {kind}",
+                                operand=operand, reduction=reduction)
+
+    def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        out = self._traced("all-reduce", x).clone()
+        self._count(f"all-reduce {op}", out)
+        self._record("all-reduce", out, out.numel(), out, op)
+        return out
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        x = self._traced("all-gather", x)
+        out = x.repeat(self.size, *([1] * (x.ndim - 1)))
+        self._count("all-gather", out)
+        self._record("all-gather", out, out.numel(), x)
+        return out
+
+    def reduce_scatter(self, x: torch.Tensor) -> torch.Tensor:
+        x = self._traced("reduce-scatter", x)
+        if x.shape[0] % self.size:
+            raise ValueError(f"reduce_scatter: dim 0 of {tuple(x.shape)} does not divide "
+                             f"by {self.size} ranks")
+        out = x[:x.shape[0] // self.size].clone()
+        self._count("reduce-scatter", x)
+        self._record("reduce-scatter", out, out.numel(), x)
+        return out
 
 
 class _FSDPGather(torch.autograd.Function):

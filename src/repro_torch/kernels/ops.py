@@ -114,7 +114,9 @@ def _trace_quant_matmul(x, codes, scale):
     (M, K), N = x.shape, codes.shape[1]
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     count.record_kernel(qm.NAME, count.quant_matmul_cost(M, K, N, x.dtype, codes.dtype),
-                        f"M={M} K={K} N={N}", ins=(x, codes, scale), outs=(out,))
+                        f"M={M} K={K} N={N} x={count.dtype_name(x.dtype)} "
+                        f"codes={count.dtype_name(codes.dtype)}", ins=(x, codes, scale),
+                        outs=(out,))
     return out
 
 
@@ -123,7 +125,8 @@ def _trace_attention(q, k, v, causal: bool = True):
     out = torch.empty_like(q)
     count.record_kernel("flash_attention",
                         count.flash_attention_cost(BH, S, D, q.dtype, causal),
-                        f"BH={BH} S={S} D={D} causal={causal}", ins=(q, k, v), outs=(out,),
+                        f"BH={BH} S={S} D={D} causal={causal} dtype={count.dtype_name(q.dtype)}",
+                        ins=(q, k, v), outs=(out,),
                         params={"causal": bool(causal)})
     return out
 
@@ -147,7 +150,9 @@ def _trace_decode(q, k_pages, v_pages, page_table, lengths):
     count.record_kernel("flash_decode",
                         count.flash_decode_cost(B, KV, G, hd, q.dtype, k_pages.dtype, n_pmax,
                                                 tokens),
-                        f"B={B} KV={KV} G={G} hd={hd} tokens={tokens}",
+                        f"B={B} KV={KV} G={G} hd={hd} page={page} n_pmax={n_pmax} "
+                        f"q={count.dtype_name(q.dtype)} pool={count.dtype_name(k_pages.dtype)} "
+                        f"tokens={tokens}",
                         ins=(q, k_pages, v_pages, page_table, lengths), outs=(acc, m, l))
     return acc, m, l
 

@@ -7,7 +7,8 @@ a ``torch.distributed`` group, one client a rank (:func:`init_distributed`
 reads torchrun's environment).  A ``DxT`` mesh with ``T > 1`` (tensor
 parallelism) runs only as ``D * T`` processes, one a mesh device: model
 shards meet inside every layer, so they cannot run in a loop, and in one
-process such a mesh raises.  Rank ``r`` is data index ``r // T`` and model
+process such a mesh raises; only its dry run traces one device of it in one
+process (:func:`trace_axis_ctx`).  Rank ``r`` is data index ``r // T`` and model
 index ``r % T``, ``jax.make_mesh((D, T))``'s device order (data-major).
 There is no device mesh object; the spec string gives the axis sizes and
 :func:`axis_ctx_for` the :class:`AxisCtx` that carries them and, under a
@@ -23,7 +24,8 @@ import os
 
 import torch
 
-from repro_torch.dist.collectives import AxisCtx, Transport, one_process_tp_message
+from repro_torch.dist.collectives import (AxisCtx, TraceTransport, Transport,
+                                          one_process_tp_message)
 
 BACKENDS = ("nccl", "gloo")
 
@@ -48,6 +50,34 @@ def mesh_ranks(D: int, T: int) -> tuple[list, list]:
             [[d * T + t for d in range(D)] for t in range(T)])
 
 
+def _axes_of(spec: str) -> tuple[dict, int, int]:
+    """``(AxisCtx keywords, D, T)`` of a mesh spec: the batch (and FSDP)
+    axes ``("pod", "data")`` or ``("data",)``, the model axis if named, and
+    their sizes; ``D`` is the batch axes' product, ``T`` the model axis."""
+    shape, names = parse_mesh(spec)
+    batch = ("pod", "data") if "pod" in names else ("data",)
+    sizes = tuple(zip(names, shape))
+    D = 1
+    for name, n in sizes:
+        D *= n if name in batch else 1
+    kw = dict(batch_axes=batch, model_axis="model" if "model" in names else None,
+              fsdp_axes=batch, sizes=sizes)
+    return kw, D, dict(sizes).get("model", 1)
+
+
+def trace_axis_ctx(spec: str) -> AxisCtx:
+    """The axis context of one traced device of a mesh: data index 0 and
+    model index 0, with no process group.  A model axis of T > 1 is a
+    :class:`~repro_torch.dist.collectives.TraceTransport` of T ranks, so the
+    model collectives record what the device issues; the batch axes keep
+    their sizes, and the step records its batch collectives itself
+    (:mod:`repro_torch.roofline.count`).  Only a traced step (fake tensors)
+    runs on it; :func:`axis_ctx_for` without a group still raises for
+    T > 1."""
+    kw, _D, T = _axes_of(spec)
+    return AxisCtx(**kw, model_transport=TraceTransport(T) if T > 1 else None)
+
+
 def axis_ctx_for(spec: str, group=None) -> AxisCtx:
     """The :class:`AxisCtx` of a mesh spec: batch (and FSDP) axes ``("pod",
     "data")`` or ``("data",)``, the model axis if named, and their sizes.
@@ -60,15 +90,7 @@ def axis_ctx_for(spec: str, group=None) -> AxisCtx:
     model and batch subgroup, in the same order (``new_group`` is collective
     over the whole group: a rank that skipped one would hang the others),
     and keeps the two it belongs to."""
-    shape, names = parse_mesh(spec)
-    batch = ("pod", "data") if "pod" in names else ("data",)
-    model = "model" if "model" in names else None
-    sizes = tuple(zip(names, shape))
-    T = dict(sizes).get("model", 1)
-    D = 1
-    for name, n in sizes:
-        D *= n if name in batch else 1
-    kw = dict(batch_axes=batch, model_axis=model, fsdp_axes=batch, sizes=sizes)
+    kw, D, T = _axes_of(spec)
     if group is None:
         if T > 1:
             raise ValueError(one_process_tp_message(T, spec))

@@ -15,8 +15,10 @@ reference's collectives over the ranks.  On a model axis above 1 (``1xT`` /
 ``DxT``, one rank a mesh device) each rank runs its client's step on its
 model shard, the model group's collectives inside the layers, and the
 gradients of the replicated leaves that are each rank's part of the whole
-are summed over the model group before the batch reductions.  Its SR noise
-comes from :class:`SRDraws`.
+are summed over the model group before the batch reductions.  The dry
+run traces one device of the mesh (``build_train_step(one_device=True)``):
+its own client at share 1, its model group a stand-in, its batch group's
+collectives recorded.  Its SR noise comes from :class:`SRDraws`.
 """
 
 from __future__ import annotations
@@ -99,7 +101,8 @@ class TrainStep:
 
 
 def build_train_step(model: Model, axes: AxisCtx, opt: Optimizer,
-                     train_cfg: TrainConfig, *, attn_impl: str = "auto") -> TrainStep:
+                     train_cfg: TrainConfig, *, attn_impl: str = "auto",
+                     one_device: bool = False) -> TrainStep:
     """The FWQ train step of Algorithm 1 on a ``Dx1``, ``1xT`` or ``DxT`` mesh.
 
     ``fn(params, opt_state, batch, delta, draws) -> (params, opt_state,
@@ -127,6 +130,15 @@ def build_train_step(model: Model, axes: AxisCtx, opt: Optimizer,
     (K2 split across the ranks), and ``loss`` is ``pmean_batch``-ed,
     ``grad_sq_shard_sum`` ``psum_batch``-ed from each rank's part.
 
+    With ``one_device`` (the dry run's traced device, no group) the step is
+    one device of the mesh, as a rank is: ``batch`` is its client's ``b``
+    rows, client ``axes.dp_index()`` runs at share 1, the wire's K2 call
+    takes that client's row as every client's (priced at ``1 / D`` a row,
+    the loop's record), and the batch group's collectives are recorded.
+    At ``Dx1``, where the port's one card runs the D clients in a loop,
+    the client's operations count D times in the card bound
+    (:func:`repro_torch.roofline.count.share`'s ``copies``).
+
     On a model axis of T > 1 (``axes.model_transport``) the rank's storage
     is its model shard's slice of every leaf (then its FSDP shard over the
     batch group), its batch its client's rows, the same on the T ranks of a
@@ -148,6 +160,14 @@ def build_train_step(model: Model, axes: AxisCtx, opt: Optimizer,
     cfg = model.cfg
     D = axes.dp
     bits = int(train_cfg.grad_compression_bits)
+    if one_device and axes.transport is not None:
+        raise ValueError("one_device is one traced device of the mesh, without a group; "
+                         "under a group each rank runs its own client already")
+    # what the port's one card runs in one process: at Dx1 the loop's D
+    # clients and each FSDP leaf whole; on a model axis above 1, one rank a
+    # device, the device's own
+    card_clients = D if one_device and axes.tp == 1 else 1
+    card_shards = axes.fsdp if axes.tp == 1 else 1
 
     gather_dtype = torch.bfloat16 if cfg.fsdp_gather_dtype == "bfloat16" else None
 
@@ -178,7 +198,7 @@ def build_train_step(model: Model, axes: AxisCtx, opt: Optimizer,
 
     def fn(params, opt_state, batch, delta, draws: SRDraws):
         ranks = axes.transport is not None      # one client a process: this rank's
-        clients = [axes.dp_index()] if ranks else range(D)
+        clients = [axes.dp_index()] if ranks or one_device else range(D)
         paths, _, plan = fsdp_plan(params, axes.fsdp, check_divisibility=False)
         replicated = {p for p, dim in zip(paths, plan) if dim is None}
         wire = replicated if bits else set()
@@ -189,11 +209,13 @@ def build_train_step(model: Model, axes: AxisCtx, opt: Optimizer,
         cd = _compute_dtype(cfg)
         given = type(draws).weights is not SRDraws.weights   # a subclass's own uniforms
         for i, c in enumerate(clients):
-            with count.share(1 / D):            # a traced step: one device does one client
+            with count.share(1 / len(clients), card_clients):     # a client a device
                 cb = {k: v[i * b:(i + 1) * b] for k, v in batch.items()}
                 loss_c = _client_grads(c, params, cb, delta, draws, paths, wire, sums,
                                        stacked, given, cd)
             loss_sum = loss_c if i == 0 else loss_sum + loss_c
+        if one_device:                          # the device's row stands for each client's:
+            stacked = {p: g * D for p, g in stacked.items()}    # K2 priced at 1 / D a row
         if axes.tp > 1:                         # the ranks' parts of replicated leaves
             _sum_over_model(axes, model_summed_leaves(params, cfg, axes, cfg.seq_parallel),
                             sums, stacked)
@@ -219,16 +241,21 @@ def build_train_step(model: Model, axes: AxisCtx, opt: Optimizer,
         gnorm = 0.0
         for p in paths:                         # the reference's vdot(g, g) a leaf
             g = G[p].to(torch.float32).reshape(-1)
-            with count.share(1.0 if p in replicated else 1 / axes.fsdp):
-                # a replicated leaf counts once a shard: D times here, once a rank
+            copies = 1
+            if p not in replicated and count.is_traced(g):
+                g = g[:g.numel() // axes.fsdp]  # a traced device's shard of the leaf,
+                copies = card_shards            # the card's whole leaf
+            # a replicated leaf counts once a shard: D times here, once a rank
+            with count.share(1, copies):
                 gnorm = gnorm + torch.dot(g, g) * (D if p in replicated and not ranks else 1)
+        if not ranks:                           # the batch group's, which a trace records
+            count.record_collective("all-reduce", torch.float32, 1, D, "train_step loss pmean")
+            count.record_collective("all-reduce", torch.float32, 1, D,
+                                    "train_step grad_sq_shard_sum psum")
         if ranks or axes.tp > 1:
             gnorm = axes.psum_model(axes.psum_batch(gnorm))
             return params, opt_state, {"loss": axes.pmean_batch(loss_sum),
                                        "grad_sq_shard_sum": gnorm}
-        count.record_collective("all-reduce", torch.float32, 1, D, "train_step loss pmean")
-        count.record_collective("all-reduce", torch.float32, 1, D,
-                                "train_step grad_sq_shard_sum psum")
         metrics = {"loss": loss_sum * f32_reciprocal(D), "grad_sq_shard_sum": gnorm}
         return params, opt_state, metrics
 

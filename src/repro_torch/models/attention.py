@@ -604,7 +604,7 @@ def merge_slot_caches(old, new, keep):
         return _merge_paged_stacked(old, new, kb)
     if isinstance(old, KVCache):
         sel = kb.reshape(1, -1, *([1] * (old.k.ndim - 2)))
-        if new.k.data_ptr() != old.k.data_ptr():
+        if not _same_memory(new.k, old.k):
             old.k.copy_(torch.where(sel, new.k, old.k))
             old.v.copy_(torch.where(sel, new.v, old.v))
         return KVCache(old.k, old.v, torch.where(kb[None, :], new.length, old.length))
@@ -615,9 +615,17 @@ def merge_slot_caches(old, new, keep):
     return torch.where(kb.reshape(1, -1, *([1] * (old.ndim - 2))), new, old)
 
 
+def _same_memory(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether ``a`` and ``b`` start at the same element of one storage (a
+    step wrote the live cache in place); a fake tensor has no data pointer,
+    so the storages are compared."""
+    return (a.untyped_storage()._cdata == b.untyped_storage()._cdata
+            and a.storage_offset() == b.storage_offset())
+
+
 def _merge_paged_stacked(old: PagedKVCache, new: PagedKVCache, kb):
     """Layer-stacked (L, ...) paged merge; ``kb`` (B,) is layer-invariant."""
-    if new.k_pages.data_ptr() != old.k_pages.data_ptr():
+    if not _same_memory(new.k_pages, old.k_pages):
         pt = new.page_table.to(torch.long)                     # (L, B, n_pmax)
         take = ((pt >= 0) & kb[None, :, None]).reshape(pt.shape[0], -1)
         rows = pt.clamp(min=0).reshape(pt.shape[0], -1)

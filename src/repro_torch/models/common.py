@@ -11,9 +11,10 @@
 Parameters are a flat dict keyed by the reference's path strings
 (``"embed/table"``, ``"blocks/attn/wq"``, ...); leaves under ``blocks/`` keep
 their leading ``(L, ...)`` layer dim, as the reference's scanned stacks do.
-In one process the port holds every leaf whole (``tp = 1``), so the FSDP
-gathers of the reference are identities (a traced step records each one the
-reference issues, :mod:`repro_torch.roofline.count`).  Under a process group
+In one process the port holds every leaf whole (a traced device its model
+slice of each), so the FSDP gathers of the reference are identities (a
+traced step records each one the reference issues, at the slice's size over
+the batch axes, :mod:`repro_torch.roofline.count`).  Under a process group
 (one client a rank) each rank holds its FSDP shard of every FSDP leaf
 (:func:`apply_fsdp_sharding`) and the whole of every replicated leaf, and
 :meth:`ParamCtx.use` all-gathers a shard at each use; the gather's backward

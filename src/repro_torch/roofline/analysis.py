@@ -21,8 +21,11 @@ so ``dominant`` compares with the reference's.  Beside the three terms,
 stream leaves out, and ``bound_s`` = max(compute, memory, collective) +
 kernel_s: the least time of the step on one device.  ``card_bound_s`` is the
 same bound for the step as the port runs it on its one card: every node
-whole (a ``Dx1`` train step's D clients, not one device's share), no
-collective.
+whole, as many times as the card runs it (``Node.copies``: a ``Dx1`` train
+step runs its D clients in one process, so the traced device's client
+counts D times, and its FSDP leaves' grad norm is over whole leaves; on a
+model axis above 1 the port runs one device of the mesh a rank, so the
+traced device's step once), no collective.
 """
 
 from __future__ import annotations
@@ -131,10 +134,12 @@ def analyze_trace(record: Record, *, arch: str, shape: str, mesh_name: str,
 
 
 def _card_bound_s(record: Record, chip) -> float:
+    """The bound of the step as the port runs it on its one card (see the
+    module docstring): each node whole, ``copies`` times."""
     dots = [n for n in record.nodes if n.stream == "dot"]
-    compute = sum(n.flops / chip.peak(n.peak) for n in dots)
-    memory = sum(n.bytes for n in dots) / chip.hbm_bw
-    return max(compute, memory) + sum(n.bound_s(chip)[0] for n in record.nodes
+    compute = sum(n.flops * n.copies / chip.peak(n.peak) for n in dots)
+    memory = sum(n.bytes * n.copies for n in dots) / chip.hbm_bw
+    return max(compute, memory) + sum(n.bound_s(chip)[0] * n.copies for n in record.nodes
                                       if n.stream != "dot")
 
 

@@ -73,7 +73,7 @@ def _elem_bytes(dtype: torch.dtype, bf16: bool = False) -> int:
     """Bytes an element; ``bf16`` counts f32 at 2 (the bf16-equivalent)."""
     if bf16 and dtype == torch.float32:
         return 2
-    return torch.empty((), dtype=dtype, device="meta").element_size()
+    return dtype.itemsize
 
 
 def _tensor_bytes(t: torch.Tensor, bf16: bool = False) -> int:
@@ -296,6 +296,8 @@ class Node(KernelCost):
 
     op: str = ""             # aten op, or the kernel's entry name
     share: float = 1.0       # the share of it one device of the mesh does
+    copies: int = 1          # times the port's one-card step runs it (a
+                             # traced device's client in a Dx1 loop: D)
     shape: str = ""
     site: str = ""           # the port function that ran it (a backward
                              # dot: the function of its forward op)
@@ -323,12 +325,16 @@ class Record:
     peak_bytes: int = 0
     live_bytes: int = 0
     graph: "Graph | None" = None           # with recording(graph=True)
-    _share: list = dataclasses.field(default_factory=lambda: [1.0])
+    _share: list = dataclasses.field(default_factory=lambda: [(1.0, 1)])
     _untracked: int = 0
 
     @property
     def share(self) -> float:
-        return self._share[-1]
+        return self._share[-1][0]
+
+    @property
+    def copies(self) -> int:
+        return self._share[-1][1]
 
     def by_site(self) -> dict:
         """``{site: [flops, bf16-equivalent bytes]}`` of the dot stream per
@@ -575,14 +581,16 @@ def active() -> Record | None:
 
 
 @contextlib.contextmanager
-def share(fraction: float):
-    """Count what runs inside at ``fraction`` of itself per device (a no-op
-    outside a recording)."""
+def share(fraction: float, copies: int = 1):
+    """Count what runs inside at ``fraction`` of itself per device, and
+    ``copies`` times in the step as the port runs it on its one card (the
+    card bound, :func:`repro_torch.roofline.analysis.analyze_trace`); a
+    no-op outside a recording."""
     rec = _ACTIVE
     if rec is None:
         yield
         return
-    rec._share.append(rec.share * float(fraction))
+    rec._share.append((rec.share * float(fraction), rec.copies * int(copies)))
     try:
         yield
     finally:
@@ -598,6 +606,7 @@ def record_kernel(op: str, cost: KernelCost, shape: str = "", *, ins=(), outs=()
     rec = _ACTIVE
     if rec is not None:
         rec.nodes.append(Node(**dataclasses.asdict(cost), op=op, share=rec.share,
+                              copies=rec.copies,
                               shape=shape, site=_port_function(sys._getframe(1))))
         if rec.graph is not None:
             site = _frame_site(sys._getframe(1))
@@ -612,12 +621,15 @@ def record_kernel(op: str, cost: KernelCost, shape: str = "", *, ins=(), outs=()
 
 
 def record_collective(kind: str, dtype: torch.dtype, elems: int, group: int,
-                      name: str, operand: torch.Tensor | None = None) -> None:
+                      name: str, operand: torch.Tensor | None = None,
+                      reduction: str = "sum") -> None:
     """A collective the reference's device issues here: ``kind`` over a
     group of ``group`` devices, a result of ``elems`` elements of ``dtype``
     (a no-op outside a recording).  ``operand``: the values one device
     contributes (whose sum an all-reduce carries); with a graph the
-    collective is a node reading it (none given: the dtype's whole range)."""
+    collective is a node reading it (none given: the dtype's whole range).
+    ``reduction``: what an all-reduce computes, ``"sum"``, ``"max"`` or
+    ``"min"`` (the graph keeps it: only a sum accumulates)."""
     rec = _ACTIVE
     if rec is None:
         return
@@ -634,7 +646,8 @@ def record_collective(kind: str, dtype: torch.dtype, elems: int, group: int,
         ins = () if operand is None else (rec.graph.read(operand, site),)
         rec.graph.add(GraphOp("collective", kind, ins=ins, params=dict(
             dtype=dtype_name(dtype), elems=int(elems), group=int(group), name=name,
-            index=len(rec.collectives) - 1), site=site[0], key=site[1], where=site[2]))
+            index=len(rec.collectives) - 1, reduction=reduction), site=site[0], key=site[1],
+            where=site[2]))
 
 
 def graph_active() -> bool:
@@ -697,6 +710,26 @@ def _port_function(frame) -> str:
         frame = frame.f_back
     return "?"
 
+
+def _recomputing(frame) -> bool:
+    """Whether an op dispatched in backward is an activation checkpoint's
+    recompute of its forward (a port function runs inside
+    ``torch.utils.checkpoint``'s recompute): its site is that function, not
+    the backward node that asked for the recompute."""
+    port = False
+    while frame is not None:
+        name = frame.f_code.co_filename
+        if name.endswith("utils/checkpoint.py"):
+            return port
+        if name.endswith(("autograd/graph.py", "autograd/__init__.py")):
+            return False                        # the engine's caller: a plain backward
+        if ("repro_torch" in name and not name.endswith(("roofline/count.py",
+                                                         "kernels/ops.py"))):
+            port = True
+        frame = frame.f_back
+    return False
+
+
 _aten = torch.ops.aten
 #: matmul ops -> (index of lhs, index of rhs) among the positional args
 _DOTS = {_aten.mm.default: (0, 1), _aten.addmm.default: (1, 2),
@@ -749,8 +782,8 @@ class _Recorder(TorchDispatchMode):
             return self._dispatch_graph(func, args, kwargs)
         out = func(*args, **kwargs)
         node = torch._C._current_autograd_node()
-        if node is not None:                    # backward: the forward op's site
-            site = self.sites.get(node._sequence_nr(), "?")
+        if node is not None and not _recomputing(sys._getframe(1)):
+            site = self.sites.get(node._sequence_nr(), "?")    # backward: the forward op's
         else:
             site = _port_function(sys._getframe(1))
         # the node this op made (if any) has the number before the counter
@@ -771,7 +804,7 @@ class _Recorder(TorchDispatchMode):
         op's entry (values read before it runs, written after)."""
         g = self.rec.graph
         node = torch._C._current_autograd_node()
-        if node is not None:
+        if node is not None and not _recomputing(sys._getframe(2)):
             fsite = self.sites.get(node._sequence_nr(), ("?", "?", "?"))
         else:
             fsite = _frame_site(sys._getframe(2))
@@ -814,7 +847,8 @@ class _Recorder(TorchDispatchMode):
         dims = [",".join(map(str, t.shape)) for t in (a, b, out)]
         shape = f"{dims[0]}@{dims[1]}->{dims[2]} k={k}"
         self.rec.nodes.append(Node(None, flops, 0.0, raw, b16, peak, "dot", op=op,
-                                   share=self.rec.share, shape=shape, site=site))
+                                   share=self.rec.share, copies=self.rec.copies,
+                                   shape=shape, site=site))
 
 
 def _tensors(tree):

@@ -32,7 +32,8 @@ Named presets (:func:`get_preset`) cover the ROADMAP grids:
   long-context paged serve cell; the CI smoke grid.
 
 The ``dryrun`` cells (``roofline-all-archs`` and two of ``ci-tiny``) keep
-their keys, and executing one raises: the dry run is ROADMAP items 12 and 14.
+the reference's keys and run through the port's dry run on their pod
+meshes (:meth:`repro_torch.api.session.Session.run_dryrun`).
 """
 
 from __future__ import annotations

@@ -11,9 +11,9 @@ Execution model
   wedge the sweep.  A ``Dx1`` mesh runs its D clients in a loop on one
   device (``launch/mesh.py``), so a child needs one card whatever its mesh.
 * ``dryrun`` cells run **in-process** too: a traced step allocates nothing
-  (:meth:`repro_torch.api.session.Session.run_dryrun`).  The port traces
-  ``Dx1`` meshes; a pod mesh (a model axis above 1, every preset's ``16x16``)
-  raises (ROADMAP item 14) and becomes an error row.
+  and starts no process group, on any mesh (the presets' ``16x16`` and
+  ``2x16x16`` pods included: one traced device,
+  :meth:`repro_torch.api.session.Session.run_dryrun`).
 
 Every cell runs on the runner's ``device``: ``None`` means CUDA, and a run
 without a card raises rather than falling back to the CPU; ``"cpu"`` runs

@@ -12,7 +12,8 @@ counterpart.
   ``meta.dead_allowlist`` once, ``analyze_torch.toml`` parses, and the
   baseline file is byte-equal to the reference's ``write_baseline``;
 * ``python -m repro_torch``: each subcommand reaches its main, ``dryrun``
-  raises naming item 14, and ``analyze --preset ci-tiny`` runs on the CPU.
+  prints ``1/1 cells OK`` for a pod cell, and ``analyze --preset ci-tiny``
+  runs on the CPU, its two 16x16 dry-run cells traced.
 """
 
 import dataclasses
@@ -404,7 +405,7 @@ def test_rule_selection():
 @pytest.mark.parametrize("cmd,module", [
     ("train", "repro_torch.launch.train"), ("serve", "repro_torch.launch.serve"),
     ("fl", "repro_torch.launch.fl"), ("sweep", "repro_torch.sweep.cli"),
-    ("analyze", "repro_torch.analyze.cli")])
+    ("analyze", "repro_torch.analyze.cli"), ("dryrun", "repro_torch.launch.dryrun")])
 def test_each_subcommand_reaches_its_main(cmd, module, monkeypatch):
     import importlib
 
@@ -417,11 +418,11 @@ def test_each_subcommand_reaches_its_main(cmd, module, monkeypatch):
     assert seen == [["--flag", "x"]]
 
 
-def test_dryrun_raises_naming_item_14_and_help_runs(capsys):
+def test_dryrun_cli_runs_and_help_runs(capsys):
     from repro_torch.__main__ import main
 
-    with pytest.raises(NotImplementedError, match="item 14"):
-        main(["dryrun", "--arch", "yi-6b"])
+    assert main(["dryrun", "--device", "cpu", "--arch", "yi-6b", "--shape", "decode_32k"]) == 0
+    assert "1/1 cells OK" in capsys.readouterr().out
     assert main(["--help"]) == 0 and "analyze" in capsys.readouterr().out
     assert main(["nope"]) == 2
     with pytest.raises(SystemExit) as e:
@@ -439,24 +440,47 @@ def test_analyze_ci_tiny_runs_on_the_cpu(capsys):
     by_rule = {}
     for f in doc["findings"]:
         by_rule.setdefault(f["rule"], []).append(f)
-    assert sorted(f["key"] for f in by_rule["analyze.not_ported"]) == \
-        ["mamba2-780m:mesh:16x16", "yi-6b:mesh:16x16"]
-    assert all(f["severity"] == "error" and f["allowed"] for f in by_rule["analyze.not_ported"])
+    # the two 16x16 dry-run cells are traced (one device each): mamba2's
+    # exponentials are the reference's baseline findings, allowlisted
+    assert "analyze.not_ported" not in by_rule
+    unguarded = by_rule["numerics.unguarded"]
+    assert {f["key"] for f in unguarded} == {"ssm.py:_dt_and_decay_rate", "ssm.py:_ssd_scan"}
+    assert all(f["allowed"] and f["cell"] == "dryrun:train_4k" for f in unguarded)
+    assert not [f for f in doc["findings"] if f["severity"] == "error" and not f["allowed"]]
     assert {f["cell"] for f in by_rule["analyze.skipped"]} == {"fl-sim:resnet"}
     assert doc["proofs"] and all(p["ok"] for p in doc["proofs"])
 
 
 @pytest.mark.parametrize("arch,mesh", [("olmoe-1b-7b", "16x16"), ("yi-6b", "2x16x16")])
-def test_an_untraceable_cell_outside_ci_tiny_fails_the_gate(arch, mesh):
-    """The allowlist names ci-tiny's two dry-run cells only: any other cell
-    with a model axis above 1 is an unallowlisted error."""
+def test_a_pod_cell_outside_ci_tiny_passes_the_gate(arch, mesh):
+    """Any cell with a model axis above 1 is traced as one device of it: a
+    pod decode cell outside ci-tiny analyzes with no ``analyze.not_ported``;
+    its greedy pick's int32 ``pmin`` over the model group is no
+    accumulator, so no overflow is found, and nothing at error passes the
+    gate unallowlisted."""
     from repro_torch.analyze.findings import at_or_above
     from repro_torch.api import RunSpec, Session
 
     spec = RunSpec.from_dict({"arch": arch, "workload": "dryrun", "mesh": mesh,
-                              "smoke": False, "options": {"shape": "train_4k"}})
+                              "smoke": False, "options": {"shape": "decode_32k"}})
+    proofs: list = []
     found = Session(spec, device="cpu").analyze(
         allowlist=os.path.join(ROOT, "analyze_torch.toml"), check_kernels=False,
-        rules=["precision"])
-    assert [(f.rule, f.key) for f in found] == [("analyze.not_ported", f"{arch}:mesh:{mesh}")]
-    assert at_or_above(found, "error") == found
+        rules=["overflow", "precision"], proofs=proofs)
+    assert not [f for f in found if f.rule == "analyze.not_ported"]
+    assert [f for f in at_or_above(found, "error") if not f.allowed] == []
+    assert not [f for f in found if f.rule.startswith("overflow.")]
+
+
+def test_the_gate_keeps_the_named_workloads():
+    """``--workloads`` keeps only a preset's cells of those workloads."""
+    import argparse
+
+    from repro_torch.analyze.cli import _cells
+
+    args = argparse.Namespace(arch="", preset="ci-tiny", workloads="")
+    every = [s.workload for s in _cells(args)]
+    args.workloads = "serve,fl-sim"
+    kept = [s.workload for s in _cells(args)]
+    assert every.count("dryrun") == 2 and set(kept) == {"serve", "fl-sim"}
+    assert sorted(kept) == sorted(w for w in every if w != "dryrun")

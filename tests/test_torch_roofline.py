@@ -228,12 +228,13 @@ def test_collective_bytes_per_kind_match_at_2x1_and_4x1(_reference_meshes):
 
 
 def test_wire_and_host_read_are_recorded():
-    """The 4x1 comm-8 step: one K2 call counted at 1/4 a device, the K1
-    inline calls at 1/4, and the wire's one host read with its call site."""
+    """The 4x1 comm-8 step: one K2 call counted at 1/4 a device (its row of
+    the wire), the K1 inline calls of the device's own client at share 1,
+    and the wire's one host read with its call site."""
     got = port_cell("yi-6b", "train", "4x1", PrecisionPolicy(weights=8, comm=8), batch=4)
     assert got["kernels"]["K2"]["calls"] == 1 and got["kernels"]["K2"]["per_device"] == 0.25
     k1 = got["kernels"]["K1"]
-    assert k1["per_device"] * 4 == k1["calls"]
+    assert k1["per_device"] == k1["calls"] > 0
     assert [h["what"] for h in got["host_reads"]] == ["the wire's non-finite count"]
     assert "dist/collectives.py" in got["host_reads"][0]["site"]
     assert got["bound_s"] == pytest.approx(
@@ -253,11 +254,18 @@ def test_gather_bf16_halves_the_raw_gather_bytes():
     assert bf16["collective_breakdown"] == plain["collective_breakdown"]
 
 
-def test_pod_meshes_raise_naming_items_9_and_14():
-    spec = RunSpec("yi-6b", workload="dryrun", mesh="16x16", smoke=False,
-                   options={"shape": "train_4k"})
-    with pytest.raises(NotImplementedError, match="item 14"):
-        Session(spec, device="cpu").run()
+def test_pod_meshes_trace_one_device():
+    """A pod mesh's dry run (item 14) traces one device of it: a decode cell
+    on 2x16x16 prices one device of 512 with its model group's all-reduces,
+    and the session's own axes still need a process group for T > 1."""
+    spec = RunSpec("yi-6b", workload="dryrun", mesh="2x16x16", smoke=False,
+                   options={"shape": "decode_32k"})
+    sess = Session(spec, device="cpu")
+    d = sess.run()
+    assert d["status"] == "ok" and d["n_devices"] == 512
+    assert d["collective_breakdown"]["bytes"]["all-reduce"] > 0
+    with pytest.raises(ValueError, match="torchrun"):
+        sess.axes
 
 
 def test_sweep_runs_a_dx1_dryrun_cell():

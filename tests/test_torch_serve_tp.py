@@ -44,6 +44,10 @@ EQUAL_FIELDS = ("admitted", "completed", "decoded_tokens", "decode_steps",
                 "kv_demotions", "kv_bits_final")
 OPTS = dict(steps=12, s_max=64, prompt_len=8, requests=6, max_new=6, attn_impl="flash",
             vary_prompt=True, quiet=True)
+#: the dry run's options and cells (``[seq_len, global batch]``) whose
+#: traced device is held to rank 0's model group: flash, 16-token pages
+TRACED_OPTS = dict(attn_impl="flash", page_size=16)
+TRACED_CELLS = dict(decode=[64, 4], prefill=[16, 4])
 #: (arch, mesh, kv layout option or None for the driver's default)
 RUNS = (("yi-6b", "1x2", "paged"), ("olmoe-1b-7b", "1x2", "paged"),
         ("glm4-9b", "1x4", None), ("yi-6b", "2x2", "paged"))
@@ -143,6 +147,8 @@ def jobs(tmp_path_factory):
             for run in RUNS}
     two = [_serve_task(a, m, lay, _npz(tmp, a, m)) for a, m, lay in RUNS if m == "1x2"]
     two.append(_serve_task("yi-6b", "1x2", "paged", name="yi-6b own init"))
+    two.append(dict(name="steps", kind="steps_tp", arch="yi-6b", mesh="1x2",
+                    options=TRACED_OPTS, **TRACED_CELLS))
     four = [_serve_task(a, m, lay, _npz(tmp, a, m)) for a, m, lay in RUNS if m != "1x2"]
     pool = concurrent.futures.ThreadPoolExecutor(2)
     futures = {}
@@ -208,7 +214,7 @@ def test_kv_bytes_are_the_reference_global_figures(jobs):
     got = {}
     for n in (2, 4):
         for name, res in jobs["ranks"](n).items():
-            if name != "ranks":
+            if name not in ("ranks", "steps"):      # the serves
                 got[name] = res["stats"]
     assert got["yi-6b 1x2"]["kv_bytes"] == got["yi-6b 2x2"]["kv_bytes"] == 65_536
     assert got["yi-6b 1x2"]["kv_bytes_contiguous"] == 262_144
@@ -306,3 +312,23 @@ def test_own_init_1x2_serves_the_1x1_tokens(jobs):
         assert res["calls"] == calls
         assert res["tokens"] == sess.last_tokens
         assert res["stats"] == json.loads(json.dumps(want))
+
+
+@pytest.mark.parametrize("kind", ["decode", "prefill"])
+def test_a_traced_step_issues_rank_0s_model_collectives(jobs, kind):
+    """The dry run's traced device of yi-6b's 1x2 cell (one device, its
+    model group a stand-in) issues over its model group exactly the calls
+    and bytes, by kind and dtype, that rank 0's model group carried for the
+    same step under the gloo group."""
+    from repro_torch.configs.base import ShapeSpec
+
+    want = jobs["ranks"](2)["ranks"][0]["steps"][kind]
+    sess = Session(RunSpec("yi-6b", workload="dryrun", mesh="1x2", smoke=True,
+                           precision=PrecisionPolicy.lazy_int8(7), options=TRACED_OPTS),
+                   device="cpu")
+    seq, batch = TRACED_CELLS[kind]
+    sess.trace(ShapeSpec(f"traced_{kind}", seq, batch, kind))
+    got = {k: [v["calls"], v["bytes"]]
+           for k, v in sess.traced_axes.model_transport.report()["issued"].items()}
+    assert got == want and got
+    assert not torch.distributed.is_initialized()

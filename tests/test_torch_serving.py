@@ -85,11 +85,13 @@ def test_cuda_request_without_cuda_raises(monkeypatch):
         tserve.main(["--arch", "yi-6b", "--smoke", "--steps", "2"])
 
 
-def test_unported_workloads_raise():
-    # a dry run on a pod mesh (model axis > 1) waits for the pod meshes' dry run
-    spec = RunSpec("yi-6b", workload="dryrun", mesh="16x16", options={"shape": "train_4k"})
-    with pytest.raises(NotImplementedError, match="item 14"):
-        Session(spec, device="cpu").run()
+def test_pod_dryrun_runs_and_one_process_tp_raises():
+    # a dry run on a pod mesh (model axis > 1) traces one device of it, with
+    # no process group (tests/test_torch_dryrun_pod.py)
+    spec = RunSpec("yi-6b", workload="dryrun", mesh="16x16", smoke=False,
+                   options={"shape": "decode_32k"})
+    d = Session(spec, device="cpu").run()
+    assert d["status"] == "ok" and d["n_devices"] == 256
     # tp > 1 serves one rank a model shard (tests/test_torch_serve_tp.py): in
     # one process it raises
     with pytest.raises(ValueError, match="torchrun"):

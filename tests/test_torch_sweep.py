@@ -299,20 +299,24 @@ def test_subprocess_crash_and_timeout_are_failed_rows(tmp_path):
     assert "stderr" in rec["metrics"]
 
 
-def test_in_process_crash_and_dryrun_are_error_rows(tmp_path):
+def test_in_process_crash_is_an_error_row_and_dryrun_ok(tmp_path):
+    """An in-process crash is an error row; ci-tiny's yi-6b dry-run cell (a
+    16x16 pod) is an ok row of the reference's metrics."""
+    dry_cell = next(c for c in T.get_preset("ci-tiny").cells()
+                    if c.spec.workload == "dryrun" and c.spec.arch == "yi-6b")
     bad = T.Sweep(name="bad", base={"arch": "no-such-arch", "workload": "fl-sim",
                                     "rounds": 1, "options": {"n_clients": 2}},
-                  extra_cells=(T.get_preset("ci-tiny").cells()[0].spec.to_dict(),))
+                  extra_cells=(dry_cell.spec.to_dict(),))
     store = T.ResultsStore(str(tmp_path / "bad.jsonl"))
     out = T.SweepRunner(bad, store, quiet=True, device="cpu").run()
-    assert len(out["failed"]) == 2 and not out["ran"]
-    crash, dry = (store.get(k) for k in out["failed"])
+    assert len(out["failed"]) == 1 and out["ran"] == [dry_cell.key]
+    crash, dry = store.get(out["failed"][0]), store.get(dry_cell.key)
     assert crash["status"] == "error" and "Traceback" in crash["metrics"]["traceback"]
-    assert dry["spec"]["workload"] == "dryrun" and dry["status"] == "error"
-    assert dry["metrics"]["error"].startswith("NotImplementedError")
-    assert "item 14" in dry["metrics"]["error"]
+    assert dry["spec"]["workload"] == "dryrun" and dry["status"] == "ok"
+    assert dry["metrics"]["mesh"] == "16x16" and dry["metrics"]["n_devices"] == 256
+    assert dry["metrics"]["shape"] == "train_4k" and dry["metrics"]["flops_per_device"] > 0
     out2 = T.SweepRunner(bad, store, quiet=True, device="cpu").run(rerun_failed=False)
-    assert out2["skipped"] == out["failed"] and not out2["failed"]
+    assert sorted(out2["skipped"]) == sorted(out["failed"] + out["ran"]) and not out2["failed"]
 
 
 # ---------------------------------------------------------------------------

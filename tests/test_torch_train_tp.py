@@ -284,6 +284,24 @@ def test_tp_step_is_the_one_device_step_of_the_model_cut(jobs, arch, mesh, overr
         assert calls.get("all-reduce sum float32", 0) > 0, calls
 
 
+@pytest.mark.parametrize("arch,mesh", [(a, m) for a, m, o in STEPS if not o])
+def test_a_traced_step_issues_rank_0s_model_collectives(jobs, arch, mesh):
+    """The dry run's traced device of the same step (one client, its model
+    group a stand-in, no process group) issues over its model group exactly
+    the calls and bytes, by kind and dtype, that rank 0's model group
+    carried under the gloo group."""
+    from repro_torch.configs.base import ShapeSpec
+
+    D, T = (int(x) for x in mesh.split("x"))
+    want = jobs["wait"](D * T)["ranks"][0][_step_name(arch, mesh, {})]["model_issued"]
+    sess = Session(RunSpec(arch, workload="dryrun", mesh=mesh, smoke=True), device="cpu")
+    sess.trace(ShapeSpec("train_tp", TRAIN_TP["S"], TRAIN_TP["B"] * D, "train"))
+    got = {k: [v["calls"], v["bytes"]]
+           for k, v in sess.traced_axes.model_transport.report()["issued"].items()}
+    assert got == want and got
+    assert not torch.distributed.is_initialized()
+
+
 def test_sr_forward_matches_the_reference_at_1x2(jobs):
     """The 1x2 forward under SR at 8 bits: each rank quantizes its own slices
     (the slice's own max|w|) with the reference's per-shard uniforms fed
@@ -402,12 +420,13 @@ def test_sequence_must_divide_the_model_axis():
         model.train_loss(pc, params, {"tokens": tokens, "labels": tokens})
 
 
-def test_the_pod_dry_run_still_names_item_14():
-    """Training and serving run on a model axis above 1; the dry run of such
-    a mesh (the reference's pod meshes) still raises naming item 14."""
+def test_the_pod_dry_run_traces_a_model_axis():
+    """Training and serving run on a model axis above 1, and so does the dry
+    run of such a mesh (item 14): one traced device, no process group."""
     spec = RunSpec("yi-6b", workload="dryrun", mesh="1x2", options={"shape": "decode_32k"})
-    with pytest.raises(NotImplementedError, match="item 14"):
-        Session(spec, device="cpu").run()
+    d = Session(spec, device="cpu").run()
+    assert d["status"] == "ok" and d["n_devices"] == 2
+    assert not torch.distributed.is_initialized()
 
 
 class _Group:

@@ -357,6 +357,53 @@ def task_serve_tp(t: dict, rank: int) -> dict:
             "model": report(axes.model_transport), "batch": report(axes.transport)}
 
 
+def task_steps_tp(t: dict, rank: int) -> dict:
+    """One decode step and one prefill step of the dry run's cells
+    ``t["decode"]`` and ``t["prefill"]`` (``[seq_len, global batch]``) of
+    ``t["arch"]`` (smoke size, lazy int8, ``t["options"]``) on mesh
+    ``t["mesh"]`` under the group, as ``Session.trace`` builds them, on
+    zero weights (bf16, the policy's codes where it packs) and zero caches:
+    each step's model-group calls and bytes by kind and dtype."""
+    from repro_torch.api import PrecisionPolicy, RunSpec, Session
+    from repro_torch.launch.mesh import axis_ctx_for
+    from repro_torch.launch.steps import build_decode_step, build_prefill_step, init_global_caches
+    from repro_torch.models.common import QTensor
+
+    opts = t["options"]
+    sess = Session(RunSpec(t["arch"], workload="dryrun", mesh=t["mesh"], smoke=True,
+                           precision=PrecisionPolicy.lazy_int8(7), options=opts), device="cpu")
+    axes = axis_ctx_for(t["mesh"], group="default")
+    model, policy = sess.model, sess.policy
+    meta = model.init(torch.Generator().manual_seed(0), axes.tp, device="meta")
+    params = {k: (QTensor(v.codes.zero_(), v.scale.fill_(1.0)) if isinstance(v, QTensor)
+                  else v.zero_())
+              for k, v in sess._serving_params(meta, "cpu", packed=policy.packed).items()}
+    tr = axes.model_transport
+
+    def issued_by(step):
+        before = {k: list(v) for k, v in tr.issued.items()}
+        step()
+        return {f"{k} {dt}": [n - before.get((k, dt), [0, 0])[0],
+                              b - before.get((k, dt), [0, 0])[1]]
+                for (k, dt), (n, b) in tr.issued.items()
+                if (n, b) != tuple(before.get((k, dt), [0, 0]))}
+
+    s_dec, b_dec = t["decode"]
+    b = b_dec // axes.dp
+    caches = init_global_caches(model, axes, s_max=s_dec, batch_global=b * axes.dp,
+                                dtype=torch.bfloat16, device="cpu",
+                                page_size=opts.get("page_size"), pool_pages=opts.get("pool_pages"))
+    dec = build_decode_step(model, axes, policy=policy, attn_impl=opts.get("attn_impl", "ref"))
+    out = {"decode": issued_by(lambda: dec.fn(
+        params, {"token": torch.zeros((b, 1), dtype=torch.int32)}, caches))}
+    s_pf, b_pf = t["prefill"]
+    pf = build_prefill_step(model, axes, policy=policy, attn_impl=opts.get("attn_impl", "auto"))
+    batch = {k: torch.zeros(tuple(v.shape), dtype=v.dtype)
+             for k, v in model.train_batch_spec(b_pf // axes.dp, s_pf).items() if k != "labels"}
+    out["prefill"] = issued_by(lambda: pf.fn(params, batch))
+    return out
+
+
 def task_layout(t: dict, rank: int) -> dict:
     """The rank's place on mesh ``t["mesh"]``: its data and model index, its
     groups' ranks and sizes, and the sums of the global ranks over each
@@ -694,8 +741,10 @@ def task_train_tp(t: dict, rank: int) -> dict:
     batch = {k: v[c * B:(c + 1) * B] for k, v in train_tp_batch(model, axes.dp).items()}
     issued0 = {k: list(v) for k, v in axes.model_transport.issued.items()}
     p1, m = train_tp_step(model, axes, params, batch, t["bits"], draws or SRDraws(0, 1))
-    issued = {f"{k} {dt}": n - issued0.get((k, dt), [0, 0])[0]
-              for (k, dt), (n, _b) in axes.model_transport.issued.items()}
+    step_issued = {f"{k} {dt}": [n - issued0.get((k, dt), [0, 0])[0],
+                                 b - issued0.get((k, dt), [0, 0])[1]]
+                   for (k, dt), (n, b) in axes.model_transport.issued.items()}
+    issued = {k: n for k, (n, _b) in step_issued.items()}
     specs = tree_param_specs(p1, cfg, axes, 1, kv)
     differ = []
     for p, w in p1.items():
@@ -707,7 +756,7 @@ def task_train_tp(t: dict, rank: int) -> dict:
     if rank == 0 and t.get("save"):
         np.savez(t["save"], **{k: v.numpy() for k, v in full.items()})
     return {"loss": float(m["loss"]), "gnorm": float(m["grad_sq_shard_sum"]),
-            "replicated_differ": differ, "model_calls": issued}
+            "replicated_differ": differ, "model_calls": issued, "model_issued": step_issued}
 
 
 def task_wire_tp(t: dict, rank: int) -> dict:
@@ -770,7 +819,7 @@ TASKS = {"step": task_step, "serve": task_serve, "pack": task_pack,
          "comm_report": task_comm_report, "serve_tp": task_serve_tp, "layout": task_layout,
          "model_collectives": task_model_collectives, "init_tp": task_init_tp,
          "paged_tp": task_paged_tp, "families_tp": task_families_tp,
-         "cross_seqpar": task_cross_seqpar, "train_tp": task_train_tp,
+         "cross_seqpar": task_cross_seqpar, "train_tp": task_train_tp, "steps_tp": task_steps_tp,
          "wire_tp": task_wire_tp, "ckpt_tp": task_ckpt_tp}
 
 
