@@ -43,8 +43,12 @@ Phases (each one failing stops the script with a nonzero exit):
    yi-6b as one data shard of phase serve_dist runs it (M 1 at its five
    projections, M 64 and 128 at its four layer projections),
    each plan printed and asserted (the 50,280- and 256,206-byte code rows of
-   mamba2's and seamless-m4t's unembeds on the FP32 tiled path) beside
-   ``torch.matmul``;
+   mamba2's and seamless-m4t's unembeds, and every other M <= 16 shape TMA
+   cannot address, on the ragged path, each timed beside the old tiled plan
+   too) beside ``torch.matmul``; the ragged path at its edge cases
+   (``check_quant_matmul_ragged``: M 1-16, N 1, 2, 12 and 301, K 7, 1,001
+   and 1,536, f32 and bf16 x, int8 and int16 codes, operands one element
+   into a buffer or at its end; NaN-filled outputs, untimed);
    K3, K4 and K5 also launched twice on identical inputs, the outputs
    bit-equal.  K4's rows name the path and tiles of
    ``plan_attention`` and the SDPA backend of their library time (fused:
@@ -87,7 +91,7 @@ Phases (each one failing stops the script with a nonzero exit):
    whole number of passes (``5L + 1`` SSM, by sublayer kind for the
    hybrid; a prefill by decode is one pass a token); every MoE
    ``expert_dispatch`` on its K3 branch (never the eager dequant); each K3
-   shape's plan recorded and asserted (``k3_path``: the unembed tiled at
+   shape's plan recorded and asserted (``k3_path``: the unembed ragged at
    mamba2's and seamless-m4t's vocabularies, cluster at the others').
 5. profile: where a full-depth decode step's and a prefill's (4 slots x 128
    tokens; mamba2's by decode, 4 x 16; seamless-m4t's the encoder over 4 x
@@ -300,7 +304,9 @@ Each phase prints its own time.  The last two lines are the kernel table
 and ``{"ok": true, "device": ...}``.
 ``--phases`` runs a subset (for iterating on one kernel); phase ``sweep``,
 run only when named, times K3 at yi-6b's projections under the tile plans
-near the one ``quant_matmul.plan`` picks, phase ``decode_sweep`` times K5
+near the one ``quant_matmul.plan`` picks (and the ragged path at the
+unembeds' and ``w_dt``'s shapes under each tile and split), phase
+``decode_sweep`` times K5
 at its rows' shapes under every split of the page axis, and phase
 ``attn_sweep`` times K4 under every tile its path takes: the wgmma path at
 the main path's, gemma-7b's, the S 513 and two head-dim-16 rows, the split
@@ -540,6 +546,10 @@ def phase_build() -> None:
     must_not_spill += keyed
     stacked = {e: report[e].get("stack_bytes") for e in keyed if report[e].get("stack_bytes")}
     assert not stacked, f"stack frames: {stacked}"
+    # K3's ragged path: 3 accumulator heights x 2 x types x 2 code types
+    ragged = [e for e in report if "qmm_ragged" in e]
+    assert len(ragged) == 12, ragged
+    must_not_spill += ragged
     spilled = {e: report[e]["spill_bytes"] for e in must_not_spill if report[e]["spill_bytes"]}
     assert not spilled, f"spills: {spilled}"
     # no K4 instance has its wgmma serialised by ptxas (a branch around
@@ -548,8 +558,8 @@ def phase_build() -> None:
                   if "C7518" in line and any(k in line for k in k4_kernels)]
     assert not serialised, serialised
     # K3's and K4's paths as built: K3's prefill path and every K4 instance
-    # issue wgmma and load through TMA, K4 stores through TMA; no K3, K4 or
-    # K5 kernel has a global atomic
+    # run wgmma and load through TMA, K4 stores through TMA; K3's ragged
+    # path loads without TMA; no K3, K4 or K5 kernel has a global atomic
     sass = _sass_dump(str(lib_path))
     counts = _sass_counts(sass, "qmm_", ("HGMMA", "UTMALDG", "RED", "ATOMG"))
     k4 = {fn: c for k in k4_kernels for fn, c in _sass_counts(
@@ -559,6 +569,8 @@ def phase_build() -> None:
         print(f"  sass {fn[:90]}: {c}")
     wg = [c for fn, c in counts.items() if "qmm_wgmma" in fn]
     assert wg and all(c["HGMMA"] > 0 and c["UTMALDG"] > 0 for c in wg), counts
+    rg = [c for fn, c in counts.items() if "qmm_ragged" in fn]
+    assert len(rg) == 12 and all(c["UTMALDG"] == 0 for c in rg), counts
     fw = [c for fn, c in k4.items() if "flash_attention_wgmma" in fn]
     fs = [c for fn, c in k4.items() if "flash_attention_split" in fn]
     assert (len(fw), len(fs)) == (n_fw, n_fs), k4
@@ -616,7 +628,8 @@ def check_quant_matmul(table: dict) -> None:
                     p = qm.plan(M, K, N, x_dtype, code_dtype)
                     row = dict(kernel="quant_matmul", M=M, K=K, N=N, x=str(x_dtype),
                                codes=str(code_dtype), plan=list(p), max_abs_err=abs_e,
-                               max_rel_err=rel_e, kernel_ms=k_ms, plain_ms=p_ms,
+                               max_rel_err=rel_e, kernel_ms=k_ms,
+                               earlier_ms=earlier_k3_ms(p, sets), plain_ms=p_ms,
                                library_ms=l_ms, bound_ms=b_ms, bound_by=b_by)
                     emit(row)
                     if (M, K, N, x_dtype, code_dtype) == (4, 4096, 11008, torch.bfloat16,
@@ -625,10 +638,84 @@ def check_quant_matmul(table: dict) -> None:
             del copies, codes, w_lib, w_libs
 
 
+#: K3's ragged path at its edges (untimed): every M <= 16 height, widths
+#: under one 16-byte load and an odd one, K under a stage and over one;
+#: f32 and bf16 x, int8 and int16 codes
+RAGGED_EDGE_M = (1, 3, 4, 13, 16)
+RAGGED_EDGE_N = (1, 2, 12, 301)
+RAGGED_EDGE_K = (7, 1001, 1536)
+#: where the operands lie: fresh tensors; one element into a flat buffer (a
+#: sliced activation, a packed leaf's view); at the end of a buffer of whole
+#: 512-byte blocks
+RAGGED_PLACES = ("fresh", "one element in", "at the end")
+
+
+def _placed(t: torch.Tensor, place: str) -> torch.Tensor:
+    n = t.numel()
+    if place == "fresh":
+        return t
+    if place == "one element in":
+        flat = torch.empty(n + 1, dtype=t.dtype, device=t.device)
+        out = flat[1:]
+    else:
+        total = -(-(n * t.element_size() + 16) // 512) * 512 // t.element_size()
+        flat = torch.empty(total, dtype=t.dtype, device=t.device)
+        out = flat[total - n:]
+    out.copy_(t.reshape(-1))
+    return out.view(t.shape)
+
+
+def check_quant_matmul_ragged() -> None:
+    """K3's ragged path at every edge case (``RAGGED_EDGE_*`` x dtypes x
+    ``RAGGED_PLACES``), under the plan's tile and, where K passes 1,000,
+    also under the widest tile with K unsplit, so that the stage ring wraps
+    and x streams in several chunks: the plan asserted (ragged), the
+    launcher's output NaN-filled before the launch (an element it never
+    writes stays NaN), within K3's tolerances of the plain version (f32
+    1e-4 / 1e-3, bf16 2e-2 / 1e-2), two launches bit-equal.  Untimed."""
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    n_cases = 0
+    t0 = time.time()
+    for M, N, K, x_dtype, code_dtype, place in itertools.product(
+            RAGGED_EDGE_M, RAGGED_EDGE_N, RAGGED_EDGE_K, (torch.float32, torch.bfloat16),
+            (torch.int8, torch.int16), RAGGED_PLACES):
+        lim = 127 if code_dtype == torch.int8 else 2047
+        codes = _placed(torch.randint(-lim, lim + 1, (K, N), generator=gen, device="cuda",
+                                      dtype=torch.int32).to(code_dtype), place)
+        x = _placed(torch.randn((M, K), generator=gen, device="cuda").to(x_dtype), place)
+        scale = torch.tensor(2.0 / math.sqrt(K) / lim, device="cuda")
+        case = (f"quant_matmul ragged M={M} K={K} N={N} x={x_dtype} codes={code_dtype} "
+                f"operands {place}")
+        p = qm.plan(M, K, N, x_dtype, code_dtype, _build.sm_count(x.device),
+                    aligned=x.data_ptr() % 16 == 0 and codes.data_ptr() % 16 == 0)
+        assert p.path == "ragged", (case, p)
+        want = qm.quant_matmul_plain(x, codes, scale)
+        rtol, atol = (1e-4, 1e-3) if x_dtype == torch.float32 else (2e-2, 1e-2)
+        wide = qm.Plan("ragged", p.tile_m, 32 * (64 // p.tile_m), 1)
+        for tp in (p, wide) if K > 1000 else (p,):
+            got = _nan_filled_launch(lambda: qm.quant_matmul_cuda(x, codes, scale, tp))
+            again = _nan_filled_launch(lambda: qm.quant_matmul_cuda(x, codes, scale, tp))
+            torch.cuda.synchronize()
+            if torch.isnan(got).any():
+                raise AssertionError(f"{case} {tuple(tp)}: {int(torch.isnan(got).sum())} "
+                                     "output elements never written")
+            _check(f"{case} {tuple(tp)}", got, want, rtol, atol)
+            if not torch.equal(got, again):
+                raise AssertionError(f"{case} {tuple(tp)}: two launches on identical inputs "
+                                     "differ")
+            n_cases += 1
+    print(f"quant_matmul ragged: {n_cases} edge cases (M {RAGGED_EDGE_M}, N {RAGGED_EDGE_N}, "
+          f"K {RAGGED_EDGE_K}, f32/bf16 x, int8/int16 codes, operands "
+          f"{', '.join(RAGGED_PLACES)}; the plan's tile, and K unsplit over the widest) "
+          f"written whole, within tolerance, repeats bit-equal, in {time.time() - t0:.1f} s")
+
+
 def phase_sweep(dev: dict) -> None:
     """K3 at yi-6b's projections under each tile plan the kernels take near
     the one ``quant_matmul.plan`` picks: the measurements behind the plan's
-    choices (decode: ~1.5 blocks an SM; prefill: ``WGMMA_TILES``)."""
+    choices (decode: ~1.5 blocks an SM; prefill: ``WGMMA_TILES``); then the
+    ragged path at the decode shapes TMA cannot address under each tile and
+    split (its plan's wave estimate)."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     for K, N in ((4096, 4096), (4096, 512), (4096, 11008), (11008, 4096), (4096, 64000)):
         codes = torch.randint(-127, 128, (K, N), generator=gen, device="cuda",
@@ -655,6 +742,29 @@ def phase_sweep(dev: dict) -> None:
                 ms["/".join(map(str, p[1:]))] = time_ms(run, [(x, c, scale) for c in copies])
             emit({"sweep": {"M": M, "K": K, "N": N, "card": dev["smi"],
                             "chosen": list(chosen), "ms": ms}})
+        del copies, codes
+    # the ragged path at the decode shapes TMA cannot address (M 4, bf16 x):
+    # seamless-m4t's unembed and a shard's, mamba2's and a shard's, the
+    # shard's w_dt; every tile and split the launcher takes up to 2,000 blocks
+    for K, N in ((1024, 256206), (1024, 64052), (1536, 50280), (1536, 12570), (1536, 12)):
+        codes = torch.randint(-127, 128, (K, N), generator=gen, device="cuda",
+                              dtype=torch.int32).to(torch.int8)
+        scale = torch.tensor(1.0 / math.sqrt(K) / 127, device="cuda")
+        n_copies = max(1, min(16, math.ceil(120e6 / codes.nbytes)))
+        copies = [codes] + [codes.clone() for _ in range(n_copies - 1)]
+        x = torch.randn((4, K), generator=gen, device="cuda").to(torch.bfloat16)
+        chosen = qm.plan(4, K, N, x.dtype, codes.dtype)
+        plans = [qm.Plan("ragged", 4, lanes * 16, split) for lanes in (32, 16, 8, 4, 2, 1)
+                 for split in range(1, min(8, K // 64) + 1)]
+        plans = [p for p in plans if p.blocks(4, N) <= 2000
+                 and (p.tile_n // 2 < N or p.tile_n == 16)]
+        ms = {}
+        for p in dict.fromkeys([chosen] + plans):
+            def run(x, c, s, p=p):
+                return qm.quant_matmul_cuda(x, c, s, tile_plan=p)
+            ms["/".join(map(str, p[1:]))] = time_ms(run, [(x, c, scale) for c in copies])
+        emit({"sweep": {"M": 4, "K": K, "N": N, "card": dev["smi"], "chosen": list(chosen),
+                        "ms": ms}})
         del copies, codes
 
 
@@ -1811,12 +1921,26 @@ def check_quant_matmul_experts() -> None:
 def k3_path(M: int, N: int, x_dtype) -> str:
     """The path ``quant_matmul.plan`` gives int8 codes of 16-byte-aligned
     operands: TMA needs code rows of a 16-byte multiple, so other widths
-    (mamba2's 50,280 and seamless-m4t's 256,206 vocabularies) take the FP32
-    tiled path; M up to 16 the cluster path; a larger M the wgmma path in
-    bf16 and the tiled one in f32."""
-    if N % 16:
-        return "tiled"
-    return "cluster" if M <= 16 else "wgmma" if x_dtype == torch.bfloat16 else "tiled"
+    (mamba2's 50,280 and seamless-m4t's 256,206 vocabularies, a tp shard's
+    12-byte ``w_dt`` rows) take the ragged path at M up to 16 and the FP32
+    tiled path above; M up to 16 the cluster path; a larger M the wgmma path
+    in bf16 and the tiled one in f32."""
+    if M <= 16:
+        return "ragged" if N % 16 else "cluster"
+    return "wgmma" if x_dtype == torch.bfloat16 and N % 16 == 0 else "tiled"
+
+
+#: the plan every M <= 16 launch that TMA cannot address took before the
+#: ragged path: its time beside the new path's ("earlier" in PERF.md)
+K3_TILED = qm.Plan("tiled", 128, 128, 1)
+
+
+def earlier_k3_ms(p, sets) -> float | None:
+    """The old tiled plan's device time on the same inputs, where ``p`` is
+    the ragged path (else None)."""
+    if p.path != "ragged":
+        return None
+    return time_ms(lambda x, c, s: qm.quant_matmul_cuda(x, c, s, tile_plan=K3_TILED), sets)
 
 
 #: K3 at each projection shape of the families that serve without experts:
@@ -1907,8 +2031,8 @@ K3_MODEL_SHAPES += tuple(
 #: at a quarter, the replicated ones whole.  mamba2 (d 1536, d_inner 3,072
 #: -> 768, 48 heads -> 12, the B/C projection 2 x 128 whole, vocab 50,280 ->
 #: 12,570): ``w_dt``'s 12 code bytes a row and the unembed's 12,570 take K3's
-#: FP32 tiled path.  seamless-m4t (16 heads of 64 -> 4, d_ff 8,192 -> 2,048,
-#: vocab 256,206 -> 64,052, tiled): a decode step, and the encoder over 4 x
+#: ragged path.  seamless-m4t (16 heads of 64 -> 4, d_ff 8,192 -> 2,048,
+#: vocab 256,206 -> 64,052, ragged): a decode step, and the encoder over 4 x
 #: 256 frames (M 1,024; the adapter whole; each decoder layer's cross K/V).
 #: llama-3.2-vision (64 heads of 128 -> 16, 8 KV heads -> 2, d_ff 28,672 ->
 #: 7,168, vocab 128,256 -> 32,064): a decode step, a prefill of 4 slots in
@@ -1992,6 +2116,7 @@ def check_quant_matmul_models() -> None:
                       x=str(x_dtype), codes="torch.int8", plan=list(p),
                       max_abs_err=max_errs(got, want)[0],
                       kernel_ms=time_ms(qm.quant_matmul_cuda, sets),
+                      earlier_ms=earlier_k3_ms(p, sets),
                       plain_ms=time_ms(qm.quant_matmul_plain, sets[:1], iters=3, warmup=1),
                       library_ms=time_ms(torch.matmul, [(x, w) for w in w_libs]),
                       bound_ms=b_ms, bound_by=b_by, launches_on_the_path=n_launches))
@@ -2009,6 +2134,7 @@ def phase_kernels(table: dict) -> None:
     check_keyed_splits()
     check_sr_tp_shapes()
     check_quant_matmul(table)
+    check_quant_matmul_ragged()
     check_quant_matmul_experts()
     check_quant_matmul_models()
     check_flash_attention(table)
@@ -2215,7 +2341,7 @@ def phase_serve(dev: dict) -> dict:
             # O(1) state: the paged layout asked for falls back to contiguous
             assert per_pass == 241 and stats.kv_layout == "contiguous", (per_pass, stats)
         # every K3 shape on its path (k3_path), the decode step's unembed
-        # among them: tiled at mamba2's and seamless-m4t's vocabularies,
+        # among them: ragged at mamba2's and seamless-m4t's vocabularies,
         # cluster at llama-3.2-vision's
         unembed = f"4x{cfg.d_model}x{cfg.vocab_size} {cfg.compute_dtype}"
         assert unembed in record["k3_plans"], (unembed, record["k3_plans"])

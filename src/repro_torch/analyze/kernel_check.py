@@ -199,7 +199,7 @@ def shipped_kernel_specs(*, d_model: int = 512, d_ff: int = 2048, heads: int = 8
 
     * K3 at a decode-sized f32 x (``batch`` rows): the cluster path;
     * K3 at M 3 and K ``d_model + 1`` (a row of x not a whole 16 bytes, so
-      TMA cannot address it): the tiled path;
+      TMA cannot address it): the ragged path, and at M 17 the tiled path;
     * K3 at a prefill M (``batch * seq`` rows of bf16 x): the wgmma path;
     * K4 at ``S = seq`` (160, not a tile multiple) in f32: the wgmma_split
       path, and in bf16: the wgmma path;
@@ -215,6 +215,7 @@ def shipped_kernel_specs(*, d_model: int = 512, d_ff: int = 2048, heads: int = 8
     specs = [
         qm_spec(batch, d_model, d_ff),
         qm_spec(3, d_model + 1, d_ff),                 # ragged M and K
+        qm_spec(17, d_model + 1, d_ff),                # ragged K past decode
         qm_spec(batch * seq, d_model, d_ff, x_dtype=torch.bfloat16),
         attention_spec(batch * heads, seq, head_dim, dtype=torch.float32),
         attention_spec(batch * heads, seq, head_dim, dtype=torch.bfloat16),

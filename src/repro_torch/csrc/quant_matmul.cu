@@ -15,9 +15,9 @@
 // deterministic: one launch, no memset, no atomics, and a fixed order of
 // every f32 sum, so the same inputs give bit-identical outputs.
 //
-//  * cluster (M <= 16, decode).  K is split across the blocks of one
-//    thread-block cluster (at most 8, the portable size); a block covers a
-//    column tile of `lanes` x CPL columns.  One producer warp streams the
+//  * cluster (M <= 16, decode, operands TMA can address).  K is split
+//    across the blocks of one thread-block cluster (at most 8, the portable
+//    size); a block covers a column tile of `lanes` x CPL columns.  One producer warp streams the
 //    block's code rows, and x over the same rows, through a ring of
 //    shared-memory stages with TMA, so the bytes in flight (what sets this
 //    path's speed) do not depend on registers.  256 consumer threads keep
@@ -45,14 +45,34 @@
 //    other's wgmma reads.  The epilogue scales and writes f32.  Tiles are
 //    128 x 256, 128 x 128 (two warpgroups), 64 x 128 or 64 x 64 (one),
 //    picked by the plan for the fewest waves of work; M <= 64 takes one.
-//  * tiled (otherwise: f32 x or int16 codes at M > 16, and shapes TMA cannot
+//  * ragged (M <= 16 where TMA cannot address the operands: code rows that
+//    are no multiple of 16 bytes, such as mamba2's 50,280- and seamless-m4t's
+//    256,206-byte vocabularies and a tp shard's 12-byte w_dt rows; x rows
+//    that are not; an x or code base off the 16-byte grid).  Decode as the
+//    cluster path does it, with no TMA: MAXM rows of accumulators, K split
+//    over the blocks of a cluster, the same tree and the same merge through
+//    distributed shared memory.  It is bound by the code bytes too.  A row of
+//    codes starts at any byte, so a producer warp copies the aligned 16-byte
+//    chunks that cover the tile's span of each row with cp.async (one chunk
+//    more than the span, at full width whatever the row's offset) into a
+//    ring of 8 stages of >= 8 KB on full/empty mbarriers, as many bytes in
+//    flight as the cluster path's ring; each consumer lane takes its codes
+//    at the row's offset from shared memory with aligned loads, a branch or
+//    selects on the word skip, and funnel shifts.  Only the buffer's first
+//    and last chunks, where they stick out of it, are copied element by
+//    element, so nothing outside the buffer is read.  x streams through
+//    shared memory as f32 in chunks of whole stages.  The plan counts waves
+//    of clusters at two blocks an SM, the narrowest column tile one lane
+//    wide, so a 12-column shape still splits K over up to 8 blocks.
+//  * tiled (M > 16 with f32 x or int16 codes, or operands TMA cannot
 //    address).  A 128x128 output tile per block of 256 threads on the FP32
 //    pipes, each thread 8x8, K in steps of 8; codes are dequantized as the
 //    tile lands in shared memory, as the Pallas body does per tile.  int16
 //    codes above 256 are not exact in bf16, so they cannot take the bf16
 //    wgmma path.
-//  Ragged M/N/K are masked in the loads (TMA fills with zeros); nothing is
-//  padded in memory.  TMA needs 16-byte aligned bases and row strides.
+//  Ragged M/N/K are masked in the loads (TMA fills with zeros) or at the
+//  stores; nothing is padded in memory.  TMA needs 16-byte aligned bases and
+//  row strides.
 
 #include <cooperative_groups.h>
 
@@ -65,7 +85,7 @@ namespace cg = cooperative_groups;
 namespace {
 
 // Path tags of the plan (kernels/quant_matmul.py: PATHS).
-enum Path : int { PATH_CLUSTER = 0, PATH_WGMMA = 1, PATH_TILED = 2 };
+enum Path : int { PATH_CLUSTER = 0, PATH_WGMMA = 1, PATH_TILED = 2, PATH_RAGGED = 3 };
 
 // Four signed int8 codes packed in a word -> exact floats, on the integer and
 // FP32 pipes rather than the slower conversion pipe: bias each byte to
@@ -119,6 +139,83 @@ __device__ __forceinline__ void smem_codes(const CT* p, float (&w)[CPL]) {
   }
 }
 
+// The consumers' row groups sum their accumulators in a shared-memory tree
+// (fixed pairing: groups [h, 2h) hand theirs to groups [0, h)), then group 0
+// leaves the block's partial (MAXM, cols) tile in ``red`` as [m][c][lane]:
+// element (m * CPL + c) * lanes + l.  The CL_THREADS consumers call it
+// (named barrier 1); ``red`` holds CL_TREE_BYTES.
+template <int MAXM, int CPL>
+__device__ __forceinline__ void tree_to_partial(float (&acc)[MAXM][CPL], float* red, int tid,
+                                                int g, int l, int lanes, int groups) {
+  for (int h = groups / 2; h >= 1; h >>= 1) {
+    asm volatile("bar.sync 1, %0;\n" :: "n"(CL_THREADS) : "memory");
+    if (g >= h && g < 2 * h) {
+      const int w = tid - h * lanes;
+#pragma unroll
+      for (int m = 0; m < MAXM; ++m)
+#pragma unroll
+        for (int c = 0; c < CPL; ++c) red[(m * CPL + c) * (CL_THREADS / 2) + w] = acc[m][c];
+    }
+    asm volatile("bar.sync 1, %0;\n" :: "n"(CL_THREADS) : "memory");
+    if (g < h) {
+#pragma unroll
+      for (int m = 0; m < MAXM; ++m)
+#pragma unroll
+        for (int c = 0; c < CPL; ++c) acc[m][c] += red[(m * CPL + c) * (CL_THREADS / 2) + tid];
+    }
+  }
+  asm volatile("bar.sync 1, %0;\n" :: "n"(CL_THREADS) : "memory");
+  if (g == 0) {
+#pragma unroll
+    for (int m = 0; m < MAXM; ++m)
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) red[(m * CPL + c) * lanes + l] = acc[m][c];
+  }
+}
+
+// Every thread of the block: after a cluster barrier (every block's partial
+// tile in place), block r sums slice r of the tile over the cluster's blocks
+// in rank order through distributed shared memory, scales it and stores it
+// with plain stores; a second barrier keeps every block until its peers have
+// read its tile.
+template <int MAXM, int CPL>
+__device__ __forceinline__ void merge_cluster(cg::cluster_group& cluster, const float* part,
+                                              const float* __restrict__ scale,
+                                              float* __restrict__ out, int M, int N, int lanes,
+                                              int tile0) {
+  cluster.sync();
+  const int tid = threadIdx.x;
+  if (tid < CL_THREADS) {
+    const int rank = static_cast<int>(cluster.block_rank());
+    const int csize = static_cast<int>(cluster.num_blocks());
+    const float s = *scale;
+    const int tile = MAXM * lanes * CPL, per = (tile + csize - 1) / csize;
+    for (int i = rank * per + tid; i < min(tile, (rank + 1) * per); i += CL_THREADS) {
+      float v = 0.f;
+      for (int q = 0; q < csize; ++q) v += cluster.map_shared_rank(part, q)[i];
+      const int mc = i / lanes, m = mc / CPL;
+      const int n = tile0 + (i % lanes) * CPL + mc % CPL;
+      if (m < M && n < N) out[(size_t)m * N + n] = v * s;
+    }
+  }
+  cluster.sync();
+}
+
+// The accumulators' update from one row of K: MAXM rows of x (``xcol[m *
+// stride]``, rows past M skipped) times the lane's CPL codes ``w``.
+template <int MAXM, int CPL, typename T>
+__device__ __forceinline__ void fma_row(float (&acc)[MAXM][CPL], const float (&w)[CPL],
+                                        const T* xcol, int stride, int M) {
+#pragma unroll
+  for (int m = 0; m < MAXM; ++m) {
+    if (m < M) {
+      const float xv = to_f32(xcol[m * stride]);
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) acc[m][c] = fmaf(xv, w[c], acc[m][c]);
+    }
+  }
+}
+
 // grid (cluster size, column tiles), cluster (cluster size, 1, 1): block r
 // of a cluster takes rows [r * k_per_block, (r + 1) * k_per_block) of K.  A
 // stage holds ``rows`` rows of K as TMA lands them: the block's code columns
@@ -137,7 +234,6 @@ qmm_cluster(const __grid_constant__ CUtensorMap cmap, const __grid_constant__ CU
   uint64_t* empty = full + CL_STAGES;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
-  const int csize = static_cast<int>(cluster.num_blocks());
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int groups = CL_THREADS / lanes;
   const int g = tid / lanes, l = tid % lanes;
@@ -191,61 +287,16 @@ qmm_cluster(const __grid_constant__ CUtensorMap cmap, const __grid_constant__ CU
       for (int r = g; r < r_end; r += groups) {
         float w[CPL];
         smem_codes<CT, CPL>(st + r * box_cols, w);
-#pragma unroll
-        for (int m = 0; m < MAXM; ++m) {
-          if (m < M) {
-            const float xv = to_f32(xt[m * rows + r]);
-#pragma unroll
-            for (int c = 0; c < CPL; ++c) acc[m][c] = fmaf(xv, w[c], acc[m][c]);
-          }
-        }
+        fma_row<MAXM, CPL>(acc, w, xt + r, rows, M);
       }
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[s]);
     }
-    // row groups [h, 2h) hand their sums to groups [0, h); the stages are
-    // all consumed, so the tree reuses their memory
-    float* red = reinterpret_cast<float*>(smem);  // [accumulator][thread]
-    for (int h = groups / 2; h >= 1; h >>= 1) {
-      asm volatile("bar.sync 1, %0;\n" :: "n"(CL_THREADS) : "memory");
-      if (g >= h && g < 2 * h) {
-        const int w = tid - h * lanes;
-#pragma unroll
-        for (int m = 0; m < MAXM; ++m)
-#pragma unroll
-          for (int c = 0; c < CPL; ++c) red[(m * CPL + c) * (CL_THREADS / 2) + w] = acc[m][c];
-      }
-      asm volatile("bar.sync 1, %0;\n" :: "n"(CL_THREADS) : "memory");
-      if (g < h) {
-#pragma unroll
-        for (int m = 0; m < MAXM; ++m)
-#pragma unroll
-          for (int c = 0; c < CPL; ++c) acc[m][c] += red[(m * CPL + c) * (CL_THREADS / 2) + tid];
-      }
-    }
-    asm volatile("bar.sync 1, %0;\n" :: "n"(CL_THREADS) : "memory");
-    if (g == 0) {  // the partial tile [m][c][lane]: element (m * CPL + c) * lanes + l
-#pragma unroll
-      for (int m = 0; m < MAXM; ++m)
-#pragma unroll
-        for (int c = 0; c < CPL; ++c) red[(m * CPL + c) * lanes + l] = acc[m][c];
-    }
+    // the stages are all consumed, so the tree reuses their memory
+    tree_to_partial<MAXM, CPL>(acc, reinterpret_cast<float*>(smem), tid, g, l, lanes, groups);
   }
-  cluster.sync();  // every block's partial tile is in place
-  if (tid < CL_THREADS) {
-    // block r sums slice r of the tile over the cluster's blocks, in rank order
-    const float* part = reinterpret_cast<const float*>(smem);
-    const float s = *scale;
-    const int tile = MAXM * cols, per = (tile + csize - 1) / csize;
-    for (int i = rank * per + tid; i < min(tile, (rank + 1) * per); i += CL_THREADS) {
-      float v = 0.f;
-      for (int q = 0; q < csize; ++q) v += cluster.map_shared_rank(part, q)[i];
-      const int mc = i / lanes, m = mc / CPL;
-      const int n = tile0 + (i % lanes) * CPL + mc % CPL;
-      if (m < M && n < N) out[(size_t)m * N + n] = v * s;
-    }
-  }
-  cluster.sync();  // no block leaves while a peer still reads its tile
+  merge_cluster<MAXM, CPL>(cluster, reinterpret_cast<const float*>(smem), scale, out, M, N,
+                           lanes, tile0);
 }
 
 // The cluster path's stage geometry (kernels/quant_matmul.py:cluster_layout
@@ -315,6 +366,263 @@ cudaError_t launch_cluster(const XT* x, const CT* codes, const float* scale, flo
   cfg.numAttrs = 1;
   return cudaLaunchKernelEx(&cfg, qmm_cluster<XT, CT, MAXM>, cmap, xmap, scale, out, M, K, N,
                             lanes, k_per_block, rows, box_cols, area);
+}
+
+// ---------------------------------------------------------------- ragged
+constexpr int RG_STAGES = 8;           // cp.async stages in flight a block
+constexpr int RG_STAGE_BYTES = 8192;   // the code bytes a stage holds at least
+constexpr int RG_X_BYTES = 16384;      // x's chunk in shared memory (f32) at most
+
+// ``bar`` counts one arrival of this thread once its cp.async copies so far land
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// u = the B bytes of w's words from word S on, shifted down by ``sh`` bits
+template <int B, int S, int NW>
+__device__ __forceinline__ void splice_words(const uint32_t (&w)[NW], unsigned sh,
+                                             uint32_t (&u)[B / 4]) {
+#pragma unroll
+  for (int j = 0; j < B / 4; ++j) u[j] = __funnelshift_r(w[j + S], w[j + S + 1], sh);
+}
+
+// B bytes (4, 8, 16 or 32) at byte offset ``o`` of a staged row, at any
+// alignment, as B / 4 words: aligned loads of min(B, 16) bytes that cover
+// them, then the words the offset skips dropped and the rest spliced by
+// funnel shifts.  ``uniform``: every lane of the warp has the same offset
+// within a load (one row a warp), so the skip is a branch, not selects.
+// ``row`` is 16-byte aligned; the loads end by (o & ~(VEC - 1)) + B + VEC.
+template <int B>
+__device__ __forceinline__ void smem_window(const uint8_t* row, int o, bool uniform,
+                                            uint32_t (&u)[B / 4]) {
+  constexpr int VEC = B < 16 ? B : 16;
+  constexpr int NW = (B + VEC) / 4;  // words loaded
+  uint32_t w[NW];
+  const uint8_t* p = row + (o & ~(VEC - 1));
+#pragma unroll
+  for (int v = 0; v < NW * 4 / VEC; ++v) {
+    if constexpr (VEC == 16) {
+      const uint4 q = reinterpret_cast<const uint4*>(p)[v];
+      w[4 * v] = q.x; w[4 * v + 1] = q.y; w[4 * v + 2] = q.z; w[4 * v + 3] = q.w;
+    } else if constexpr (VEC == 8) {
+      const uint2 q = reinterpret_cast<const uint2*>(p)[v];
+      w[2 * v] = q.x; w[2 * v + 1] = q.y;
+    } else {
+      w[v] = reinterpret_cast<const uint32_t*>(p)[v];
+    }
+  }
+  const int skip = (o & (VEC - 1)) >> 2;  // whole words before the first byte
+  const unsigned sh = static_cast<unsigned>(o & 3) * 8u;
+  if constexpr (VEC == 16) {
+    if (uniform) {
+      if (skip == 0) splice_words<B, 0>(w, sh, u);
+      else if (skip == 1) splice_words<B, 1>(w, sh, u);
+      else if (skip == 2) splice_words<B, 2>(w, sh, u);
+      else splice_words<B, 3>(w, sh, u);
+      return;
+    }
+  }
+#pragma unroll
+  for (int bit = VEC / 8; bit >= 1; bit >>= 1) {
+    const bool take = (skip & bit) != 0;
+#pragma unroll
+    for (int j = 0; j + bit < NW; ++j) w[j] = take ? w[j + bit] : w[j];
+  }
+  splice_words<B, 0>(w, sh, u);
+}
+
+// grid (cluster size, column tiles), cluster (cluster size, 1, 1): the
+// cluster path's split of K, consumer threads, tree and merge, with a
+// producer warp that copies the stages by cp.async instead of TMA, so code
+// rows may start at any byte.  A staged row is the aligned 16-byte chunks
+// that cover the tile's codes in that row (``pitch`` bytes: one chunk more
+// than the codes need); lane pairs of the producer take a row each, the
+// two lanes of a pair every other chunk.  The buffer's first and last
+// chunks, where they stick out of it, are copied
+// element by element.  A stage is full when each producer lane's copies
+// have landed (cp.async.mbarrier.arrive) and its plain stores are released
+// (mbarrier.arrive): 64 arrivals.  x streams through shared memory as f32
+// in chunks of ``xc`` rows of K (whole stages), loaded by the consumers.
+// Dynamic shared memory: the stage ring (afterwards the tree and the
+// partial tile), x's chunk, the barriers.
+template <typename XT, typename CT, int MAXM>
+__global__ void __launch_bounds__(CL_BLOCK, 2)
+qmm_ragged(const XT* __restrict__ x, const CT* __restrict__ codes,
+           const float* __restrict__ scale, float* __restrict__ out, int M, int K, int N,
+           int lanes, int k_per_block, int rows, int pitch, int xc, int area) {
+  constexpr int CPL = CL_ACC / MAXM;                  // columns per lane
+  constexpr int SZ = static_cast<int>(sizeof(CT));
+  constexpr int B = CPL * SZ;                         // a lane's code bytes in a row
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_smem<16>(smem_raw);
+  float* xs = reinterpret_cast<float*>(smem + area);  // [MAXM][xc]
+  uint64_t* full = reinterpret_cast<uint64_t*>(xs + MAXM * xc);
+  uint64_t* empty = full + RG_STAGES;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int groups = CL_THREADS / lanes;
+  const int g = tid / lanes, l = tid % lanes;
+  const int cols = lanes * CPL;
+  const int tile0 = blockIdx.y * cols;
+  const int kb0 = rank * k_per_block;
+  const int kn = max(0, min(K, kb0 + k_per_block) - kb0);  // this block's rows
+  const int n_stages = (kn + rows - 1) / rows;
+  const int stage_bytes = rows * pitch;
+  // code row k of the tile starts at t_lo + k * row_bytes
+  const size_t row_bytes = static_cast<size_t>(N) * SZ;
+  const uintptr_t c_lo = reinterpret_cast<uintptr_t>(codes);
+  const uintptr_t t_lo = c_lo + static_cast<size_t>(tile0) * SZ;
+  if (tid == 0) {
+    for (int s = 0; s < RG_STAGES; ++s) {
+      mbar_init(&full[s], 64);                // 32 lanes' copies, 32 lanes' stores
+      mbar_init(&empty[s], CL_THREADS / 32);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == CL_THREADS / 32) {  // producer
+    const uintptr_t c_hi = c_lo + static_cast<size_t>(K) * row_bytes;
+    const uintptr_t span = static_cast<uintptr_t>(min(N - tile0, cols)) * SZ;
+    // lane pairs take a row each, the two lanes of a pair every other chunk
+    // (32-byte sectors whole): 16 rows a warp instruction
+    const int sub = lane >> 1, half = lane & 1;
+    for (int t = 0; t < n_stages; ++t) {
+      const int s = t % RG_STAGES;
+      if (t >= RG_STAGES) mbar_wait(&empty[s], ((t / RG_STAGES) - 1) & 1);
+      uint8_t* dst = smem + s * stage_bytes;
+      const int k0 = kb0 + t * rows, nr = min(rows, kn - t * rows);
+      for (int r = sub; r < nr; r += 16) {
+        const uintptr_t lo = t_lo + static_cast<size_t>(k0 + r) * row_bytes;
+        const uintptr_t a0 = lo & ~static_cast<uintptr_t>(15), a_end = lo + span;
+        uint8_t* d = dst + r * pitch;
+        if (a0 >= c_lo && ((a_end + 15) & ~static_cast<uintptr_t>(15)) <= c_hi) {
+          for (uintptr_t a = a0 + 16 * half; a < a_end; a += 32)
+            cp_async16(d + (a - a0), reinterpret_cast<const void*>(a));
+        } else {
+          for (uintptr_t a = a0 + 16 * half; a < a_end; a += 32) {
+            if (a >= c_lo && a + 16 <= c_hi) {
+              cp_async16(d + (a - a0), reinterpret_cast<const void*>(a));
+            } else {  // the chunk sticks out of the buffer: its elements inside it only
+              const uintptr_t b0 = a > c_lo ? a : c_lo, b1 = a + 16 < c_hi ? a + 16 : c_hi;
+              for (uintptr_t b = b0; b < b1; b += SZ)
+                *reinterpret_cast<CT*>(d + (b - a0)) = *reinterpret_cast<const CT*>(b);
+            }
+          }
+        }
+      }
+      cp_async_arrive(&full[s]);
+      mbar_arrive(&full[s]);
+    }
+    __syncwarp();
+  } else {
+    float acc[MAXM][CPL];
+#pragma unroll
+    for (int m = 0; m < MAXM; ++m)
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) acc[m][c] = 0.f;
+    // the offset of a row's first tile byte in its staged row: the low bits
+    // of t_lo + k * row_bytes
+    const uint32_t mis0 = static_cast<uint32_t>(t_lo), rb = static_cast<uint32_t>(row_bytes);
+    const bool uniform = lanes == 32;
+    for (int t = 0; t < n_stages; ++t) {
+      const int s = t % RG_STAGES;
+      const int xo = (t * rows) % xc;
+      if (xo == 0) {  // x's next chunk: rows [kb0 + t * rows, + xc) of K, as f32
+        const int kx = kb0 + t * rows, nx = min(xc, kn - t * rows);
+        asm volatile("bar.sync 1, %0;\n" :: "n"(CL_THREADS) : "memory");
+        for (int i = tid; i < M * xc; i += CL_THREADS) {
+          const int m = i / xc, j = i - m * xc;
+          if (j < nx) xs[i] = to_f32(x[static_cast<size_t>(m) * K + kx + j]);
+        }
+        asm volatile("bar.sync 1, %0;\n" :: "n"(CL_THREADS) : "memory");
+      }
+      mbar_wait(&full[s], (t / RG_STAGES) & 1);
+      const uint8_t* st = smem + s * stage_bytes;
+      const int r_end = min(rows, kn - t * rows);
+#pragma unroll 2
+      for (int r = g; r < r_end; r += groups) {
+        const uint32_t k = static_cast<uint32_t>(kb0 + t * rows + r);
+        const int o = static_cast<int>((mis0 + k * rb) & 15u) + l * B;
+        uint32_t u[B / 4];
+        smem_window<B>(st + r * pitch, o, uniform, u);
+        float w[CPL];
+#pragma unroll
+        for (int i = 0; i < B / 4; ++i) {
+          if constexpr (SZ == 1) i8x4_to_f32(u[i], &w[4 * i]);
+          else i16x2_to_f32(u[i], &w[2 * i]);
+        }
+        fma_row<MAXM, CPL>(acc, w, xs + xo + r, xc, M);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+    // the stages are all consumed, so the tree reuses their memory
+    tree_to_partial<MAXM, CPL>(acc, reinterpret_cast<float*>(smem), tid, g, l, lanes, groups);
+  }
+  merge_cluster<MAXM, CPL>(cluster, reinterpret_cast<const float*>(smem), scale, out, M, N,
+                           lanes, tile0);
+}
+
+// The ragged path's geometry (kernels/quant_matmul.py:ragged_layout mirrors
+// it; repro_quant_matmul_smem reports its smem)
+struct RaggedGeom {
+  int pitch, rows, k_per_block, xc, area, smem;
+};
+
+RaggedGeom ragged_geom(int K, int cols, int csize, int lanes, int sz, int maxm) {
+  RaggedGeom g;
+  const int groups = CL_THREADS / lanes;
+  // a staged row: the 16-byte chunks that cover cols codes at any offset
+  g.pitch = 16 * ((cols * sz + 15) / 16 + 1);
+  // rows a stage: RG_STAGE_BYTES at least, a multiple of the row groups
+  g.rows = ((RG_STAGE_BYTES + g.pitch - 1) / g.pitch + groups - 1) / groups * groups;
+  g.k_per_block = (K + csize - 1) / csize;
+  // x's chunk: whole stages, RG_X_BYTES at most, no more than the block's
+  // stages
+  const int cap = max(1, RG_X_BYTES / (4 * maxm) / g.rows) * g.rows;
+  g.xc = min(cap, (g.k_per_block + g.rows - 1) / g.rows * g.rows);
+  g.area = max(RG_STAGES * g.rows * g.pitch, CL_TREE_BYTES);
+  g.smem = 16 + g.area + 4 * maxm * g.xc + 2 * RG_STAGES * 8;
+  return g;
+}
+
+template <typename XT, typename CT, int MAXM>
+cudaError_t launch_ragged(const XT* x, const CT* codes, const float* scale, float* out,
+                          int M, int K, int N, int cols, int csize, cudaStream_t stream) {
+  constexpr int CPL = CL_ACC / MAXM;
+  constexpr int SZ = static_cast<int>(sizeof(CT)), XSZ = static_cast<int>(sizeof(XT));
+  const int lanes = cols / CPL;
+  if (M > MAXM || cols % CPL != 0 || lanes < 1 || lanes > 32 || (lanes & (lanes - 1)) ||
+      csize < 1 || csize > CL_MAX_CLUSTER || reinterpret_cast<uintptr_t>(codes) % SZ != 0 ||
+      reinterpret_cast<uintptr_t>(x) % XSZ != 0)
+    return cudaErrorInvalidValue;
+  const int tiles = (N + cols - 1) / cols;
+  const RaggedGeom g = ragged_geom(K, cols, csize, lanes, SZ, MAXM);
+  if (tiles > 65535 || g.smem > CL_MAX_SMEM) return cudaErrorInvalidValue;
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        qmm_ragged<XT, CT, MAXM>, cudaFuncAttributeMaxDynamicSharedMemorySize, CL_MAX_SMEM);
+    if (err != cudaSuccess) return err;
+    attr_set = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(csize, tiles);
+  cfg.blockDim = dim3(CL_BLOCK);
+  cfg.dynamicSmemBytes = g.smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = csize;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, qmm_ragged<XT, CT, MAXM>, x, codes, scale, out, M, K, N,
+                            lanes, g.k_per_block, g.rows, g.pitch, g.xc, g.area);
 }
 
 // ---------------------------------------------------------------- tiled
@@ -578,6 +886,13 @@ cudaError_t launch(const void* x, const void* codes, const void* scale, void* ou
     }
     return cudaErrorInvalidValue;
   }
+  if (path == PATH_RAGGED) {
+    if (tile_m == 4) return launch_ragged<XT, CT, 4>(xp, cp, sp, op, M, K, N, tile_n, split, stream);
+    if (tile_m == 8) return launch_ragged<XT, CT, 8>(xp, cp, sp, op, M, K, N, tile_n, split, stream);
+    if (tile_m == 16)
+      return launch_ragged<XT, CT, 16>(xp, cp, sp, op, M, K, N, tile_n, split, stream);
+    return cudaErrorInvalidValue;
+  }
   if (path == PATH_TILED) {
     const dim3 grid((N + TB_N - 1) / TB_N, (M + TB_M - 1) / TB_M);
     qmm_tiled<XT, CT><<<grid, TB_THREADS, 0, stream>>>(xp, cp, sp, op, M, K, N);
@@ -606,6 +921,12 @@ extern "C" int repro_quant_matmul_smem(int x_dtype, int code_dtype, int M, int K
     if (tile_m == 64 && tile_n == 128) return WgTiles<1, 128, 3>::SMEM;
     if (tile_m == 64 && tile_n == 64) return WgTiles<1, 64, 4>::SMEM;
     return -1;
+  }
+  if (path == PATH_RAGGED) {
+    if (tile_m != 4 && tile_m != 8 && tile_m != 16) return -1;
+    const int lanes = tile_n / (CL_ACC / tile_m);
+    if (lanes < 1 || lanes > 32 || split < 1) return -1;
+    return ragged_geom(K, tile_n, split, lanes, sz, tile_m).smem;
   }
   if (path == PATH_TILED) return static_cast<int>(sizeof(float)) * TB_K * (TB_M + TB_N);
   return -1;

@@ -262,7 +262,7 @@ def attention_spec(BH: int, S: int, D: int, *, dtype: torch.dtype = torch.float3
 def _decode_maps(n_heads_groups: int, page: int, per: int, page_table, lengths):
     """K5's maps over the grid ``(split, KV * ceil(G / GB), B, page walk)``.
 
-    :876 ``flash_decode_split``: block ``(r, y, b)`` is rank ``r`` of the
+    :872 ``flash_decode_split``: block ``(r, y, b)`` is rank ``r`` of the
     cluster of KV head ``h = y / ngh``, queries ``[g0, g0 + GB)`` with ``g0 =
     (y % ngh) * GB``, slot ``b``; it walks pages ``j = r * pages_per_block +
     t`` of the slot's table, reading pool row ``page_table[b, j]`` only where
@@ -336,7 +336,7 @@ def decode_spec(B: int, KV: int, G: int, hd: int, *, page: int, n_pool: int, pag
                                   f"[0, {n_pool})"),
                ScalarOperand("lengths", ln, 0, n_pmax * page,
                              note=f"{n_pmax} pages x {page} slots owned at most"))
-    return KernelSpec("flash_decode", f"{_SRC}:876", grid, ins, outs, scratch, scalars,
+    return KernelSpec("flash_decode", f"{_SRC}:872", grid, ins, outs, scratch, scalars,
                       path="split", smem_bytes=p.smem, plan=p)
 
 

@@ -27,7 +27,7 @@ from repro_torch.kernels.spec import BlockOperand, KernelSpec, ScratchSpec
 NAME = "quant_matmul"
 
 #: Path tags of the C launcher (csrc/quant_matmul.cu: enum Path).
-PATHS = {"cluster": 0, "wgmma": 1, "tiled": 2}
+PATHS = {"cluster": 0, "wgmma": 1, "tiled": 2, "ragged": 3}
 #: Streaming multiprocessors of an H100 SXM (the plan's default).
 H100_SMS = _build.H100_SMS
 #: Blocks of one thread-block cluster at most (the portable size).
@@ -35,6 +35,12 @@ MAX_CLUSTER = 8
 _CL_ACC = 64          # accumulators a thread on the cluster path
 _CL_MIN_ROWS = 64     # K rows a block of a cluster keeps at least
 _CL_BLOCKS_PER_SM = 1.5
+#: a ragged-path block's fixed cost (filling its pipeline, loading x, the
+#: tree and the merge) in code bytes streamed: the timings of every tile and
+#: split at the unembeds' shapes on an H100 (PERF.md, K3 ragged) rank best so
+_RG_FIXED_BYTES = 131072
+_RG_BLOCKS_PER_SM = 2   # the kernel's __launch_bounds__ (its smem fits twice)
+_GPCS = 8               # an H100's GPCs, whose SMs a cluster's blocks share
 #: (rows, columns) output tiles of the wgmma path, each with its device time
 #: per output element relative to 128 x 128 at full occupancy (measured on
 #: an H100 at yi-6b's shapes: PERF.md).
@@ -44,10 +50,10 @@ WGMMA_TILES = {(128, 256): 0.8, (128, 128): 1.0, (64, 128): 1.26, (64, 64): 1.2}
 class Plan(NamedTuple):
     """One launch of K3.
 
-    ``cluster``: ``tile_m`` rows of accumulators (4, 8 or 16), ``tile_n``
-    columns a block, K split over ``split`` blocks of one cluster.
-    ``wgmma``: a ``tile_m`` x ``tile_n`` output tile a block.  ``tiled``:
-    128 x 128.
+    ``cluster`` and ``ragged``: ``tile_m`` rows of accumulators (4, 8 or
+    16), ``tile_n`` columns a block, K split over ``split`` blocks of one
+    cluster.  ``wgmma``: a ``tile_m`` x ``tile_n`` output tile a block.
+    ``tiled``: 128 x 128.
     """
     path: str
     tile_m: int
@@ -69,14 +75,16 @@ def plan(M: int, K: int, N: int, x_dtype: torch.dtype, code_dtype: torch.dtype,
 
     ``aligned``: x and codes start on 16-byte boundaries.  TMA, which feeds
     the cluster and wgmma paths, needs that and 16-byte row strides; other
-    shapes take the tiled path.  Cached: a decode step asks for the same
-    few shapes 225 times.
+    shapes take the ragged path at M <= 16 and the tiled path above.
+    Cached: a decode step asks for the same few shapes 225 times.
     """
     size = 1 if code_dtype == torch.int8 else 2
     x_size = 2 if x_dtype == torch.bfloat16 else 4
-    if M <= 16 and aligned and N * size % 16 == 0 and K * x_size % 16 == 0:
+    if M <= 16:
         maxm = 4 if M <= 4 else 8 if M <= 8 else 16
-        return _plan_cluster(maxm, K, N, size, num_sms)
+        if aligned and N * size % 16 == 0 and K * x_size % 16 == 0:
+            return _plan_cluster(maxm, K, N, size, num_sms)
+        return _plan_ragged(maxm, K, N, size, num_sms)
     if (M > 16 and x_dtype == torch.bfloat16 and code_dtype == torch.int8 and K % 8 == 0
             and N % 16 == 0 and aligned):
         # least time: waves of blocks x a tile's time (one block an SM)
@@ -113,10 +121,52 @@ def _plan_cluster(maxm: int, K: int, N: int, size: int, num_sms: int) -> Plan:
     return min(ranked)[1]
 
 
+def _plan_ragged(maxm: int, K: int, N: int, size: int, num_sms: int) -> Plan:
+    """Column tile and cluster size of the ragged path: the least estimate
+    of waves of clusters times a block's bytes (its K rows of staged code
+    rows, ``pitch`` bytes each, one 16-byte chunk more than the tile's
+    codes) and its fixed cost; then the smaller cluster, the fewer lanes in
+    all, the wider tile.  A wave is as many clusters as fit at two blocks an
+    SM (the kernel's ``__launch_bounds__``), a cluster's blocks on the SMs of
+    one GPC: a cluster of 5 takes 6 of a GPC's 32 slots, not 6.4 (timings of
+    every tile and split on an H100: PERF.md).  The column tile
+    narrows to one lane (64 / ``maxm`` columns), so a narrow shape still
+    splits K over up to 8 blocks, each keeping at least ``_CL_MIN_ROWS``
+    rows.
+    """
+    cpl = _CL_ACC // maxm
+    max_split = max(1, min(MAX_CLUSTER, K // _CL_MIN_ROWS))
+    slots = _RG_BLOCKS_PER_SM * (num_sms // _GPCS)     # a GPC's block slots
+    ranked = []
+    for lanes in (32, 16, 8, 4, 2, 1):
+        tiles = _cdiv(N, lanes * cpl)
+        if tiles > 65535:
+            continue
+        pitch = _ragged_pitch(lanes * cpl, size)
+        for split in range(1, max_split + 1):
+            waves = _cdiv(tiles, _GPCS * (slots // split))
+            est = waves * (_cdiv(K, split) * pitch + _RG_FIXED_BYTES)
+            ranked.append(((est, split, tiles * lanes, -lanes),
+                           Plan("ragged", maxm, lanes * cpl, split)))
+    if not ranked:
+        raise ValueError(f"{NAME}: N={N} has more column tiles than a grid holds")
+    return min(ranked)[1]
+
+
+def _ragged_pitch(cols: int, size: int) -> int:
+    """A staged code row of the ragged path (csrc: ragged_geom): the 16-byte
+    chunks that cover ``cols`` codes at any offset."""
+    return 16 * (_cdiv(cols * size, 16) + 1)
+
+
 # ---------------------------------------------------------------------------
-# Launch-grid metadata (kernels/spec.py): each map restates the kernel's
-# block-to-tile arithmetic at the cited line of csrc/quant_matmul.cu
+# Launch-grid metadata (kernels/spec.py): each map restates the block-to-tile
+# arithmetic of the kernel it names in csrc/quant_matmul.cu
 # ---------------------------------------------------------------------------
+
+#: the line of each path's ``__global__`` declaration in csrc/quant_matmul.cu
+#: (a spec's ``source``)
+KERNEL_LINES = {"cluster": 226, "wgmma": 750, "tiled": 633, "ragged": 450}
 
 #: the cluster path's stage ring and tree (csrc: CL_STAGES, CL_STAGE_BYTES,
 #: CL_THREADS, CL_TREE_BYTES)
@@ -128,54 +178,58 @@ _WG_BK, _WG_BBUF = 64, 3
 _WG_STAGES = {(128, 256): 3, (128, 128): 4, (64, 128): 3, (64, 64): 4}
 #: the tiled path's k step (csrc: TB_K)
 _TB_K = 8
+#: the ragged path's ring and x chunk (csrc: RG_STAGES, RG_STAGE_BYTES,
+#: RG_X_BYTES)
+_RG_STAGES, _RG_STAGE_BYTES, _RG_X_BYTES = 8, 8192, 16384
 
 
 def _cluster_x_map(r, j):
-    """:129 ``qmm_cluster``: block rank ``r`` reads K rows ``[r * k_per_block,
-    (r + 1) * k_per_block)`` of every row of x (``kb0 = rank * k_per_block``)."""
+    """``qmm_cluster`` and ``qmm_ragged``: block rank ``r`` reads K rows ``[r *
+    k_per_block, (r + 1) * k_per_block)`` of every row of x (``kb0 = rank *
+    k_per_block``)."""
     return (0, r)
 
 
 def _cluster_codes_map(r, j):
-    """:129: those K rows of the column tile ``blockIdx.y`` (``tile0 =
+    """The same: those K rows of the column tile ``blockIdx.y`` (``tile0 =
     blockIdx.y * cols``)."""
     return (r, j)
 
 
 def _cluster_out_map(r, j):
-    """:129: the cluster's ranks write slices of the output column tile
-    ``blockIdx.y`` (``m < M && n < N``)."""
+    """The same: the cluster's ranks write slices of the output column tile
+    ``blockIdx.y`` (``m < M && n < N``, ``merge_cluster``)."""
     return (0, j)
 
 
 def _wgmma_x_map(i, j, t):
-    """:429 ``qmm_wgmma``: rows ``m0 = blockIdx.x * BM``, k step ``t``."""
+    """``qmm_wgmma``: rows ``m0 = blockIdx.x * BM``, k step ``t``."""
     return (i, t)
 
 
 def _wgmma_codes_map(i, j, t):
-    """:429: k step ``t`` of columns ``n0 = blockIdx.y * BN``."""
+    """``qmm_wgmma``: k step ``t`` of columns ``n0 = blockIdx.y * BN``."""
     return (t, j)
 
 
 def _wgmma_out_map(i, j, t):
-    """:429: the ``BM x BN`` tile at ``(m0, n0)`` (``r < M``, ``col < N``)."""
+    """``qmm_wgmma``: the ``BM x BN`` tile at ``(m0, n0)`` (``r < M``, ``col < N``)."""
     return (i, j)
 
 
 def _tiled_x_map(jn, im, t):
-    """:312 ``qmm_tiled``: rows ``m0 = blockIdx.y * 128``, k step ``t``
+    """``qmm_tiled``: rows ``m0 = blockIdx.y * 128``, k step ``t``
     (``m < M && k < K``)."""
     return (im, t)
 
 
 def _tiled_codes_map(jn, im, t):
-    """:312: k step ``t`` of columns ``n0 = blockIdx.x * 128``."""
+    """``qmm_tiled``: k step ``t`` of columns ``n0 = blockIdx.x * 128``."""
     return (t, jn)
 
 
 def _tiled_out_map(jn, im, t):
-    """:312: the 128 x 128 tile at ``(m0, n0)``."""
+    """``qmm_tiled``: the 128 x 128 tile at ``(m0, n0)``."""
     return (im, jn)
 
 
@@ -200,6 +254,24 @@ def cluster_layout(M: int, K: int, N: int, p: Plan, x_size: int, code_size: int)
             "smem": 128 + area + 2 * _CL_STAGES * 8}
 
 
+def ragged_layout(K: int, p: Plan, code_size: int) -> dict:
+    """The ragged path's geometry as ``launch_ragged`` computes it: the
+    staged row's ``pitch``, ``rows`` of K a stage, ``k_per_block``, x's
+    chunk ``xc`` (rows of K), the ring or the tree (``area``), and the
+    shared memory the launch requests (``smem``: 16 bytes of alignment, the
+    area, x's chunk as f32, the barriers)."""
+    lanes = p.tile_n // (_CL_ACC // p.tile_m)
+    groups = _CL_THREADS // lanes
+    pitch = _ragged_pitch(p.tile_n, code_size)
+    rows = _cdiv(_cdiv(_RG_STAGE_BYTES, pitch), groups) * groups
+    k_per_block = _cdiv(K, p.split)
+    cap = max(1, _RG_X_BYTES // (4 * p.tile_m) // rows) * rows
+    xc = min(cap, _cdiv(k_per_block, rows) * rows)
+    area = max(_RG_STAGES * rows * pitch, _CL_TREE_BYTES)
+    return {"pitch": pitch, "rows": rows, "k_per_block": k_per_block, "xc": xc, "area": area,
+            "smem": 16 + area + 4 * p.tile_m * xc + 2 * _RG_STAGES * 8}
+
+
 def kernel_spec(M: int, K: int, N: int, *, x_dtype: torch.dtype = torch.float32,
                 code_dtype: torch.dtype = torch.int8, num_sms: int = H100_SMS,
                 aligned: bool = True, tile_plan: Plan | None = None) -> KernelSpec:
@@ -214,7 +286,7 @@ def kernel_spec(M: int, K: int, N: int, *, x_dtype: torch.dtype = torch.float32,
     xs = 2 if x_dtype == torch.bfloat16 else 4
     cs = 1 if code_dtype == torch.int8 else 2
     scale = BlockOperand("scale", (1,), (1,), _scale_map, coverage="any")
-    src = "src/repro_torch/csrc/quant_matmul.cu"
+    src = f"src/repro_torch/csrc/quant_matmul.cu:{KERNEL_LINES[p.path]}"
     if p.path == "cluster":
         lay = cluster_layout(M, K, N, p, xs, cs)
         kpb = lay["k_per_block"]
@@ -230,8 +302,27 @@ def kernel_spec(M: int, K: int, N: int, *, x_dtype: torch.dtype = torch.float32,
                    ScratchSpec("barriers", (2 * _CL_STAGES,), "uint64", space="smem",
                                accumulates=False),
                    ScratchSpec("acc", (p.tile_m, p.tile_n), "float32", binds="out"))
-        return KernelSpec("quant_matmul", f"{src}:129", grid, ins, outs, scratch,
-                          path=p.path, smem_bytes=lay["smem"], plan=p)
+        return KernelSpec("quant_matmul", src, grid, ins, outs, scratch, path=p.path,
+                          smem_bytes=lay["smem"], plan=p)
+    if p.path == "ragged":
+        lay = ragged_layout(K, p, cs)
+        kpb = lay["k_per_block"]
+        grid = (p.split, _cdiv(N, p.tile_n))
+        ins = (BlockOperand("x", (M, K), (p.tile_m, kpb), _cluster_x_map, guarded=True),
+               BlockOperand("codes", (K, N), (kpb, p.tile_n), _cluster_codes_map,
+                            guarded=True), scale)
+        outs = (BlockOperand("out", (M, N), (p.tile_m, p.tile_n), _cluster_out_map,
+                             guarded=True),)
+        scratch = (ScratchSpec("align", (16,), "uint8", space="smem", accumulates=False),
+                   ScratchSpec("ring_or_tree", (lay["area"],), "uint8", space="smem",
+                               accumulates=False),
+                   ScratchSpec("x_chunk", (p.tile_m, lay["xc"]), "float32", space="smem",
+                               accumulates=False),
+                   ScratchSpec("barriers", (2 * _RG_STAGES,), "uint64", space="smem",
+                               accumulates=False),
+                   ScratchSpec("acc", (p.tile_m, p.tile_n), "float32", binds="out"))
+        return KernelSpec("quant_matmul", src, grid, ins, outs, scratch, path=p.path,
+                          smem_bytes=lay["smem"], plan=p)
     if p.path == "wgmma":
         bm, bn = p.tile_m, p.tile_n
         st = _WG_STAGES[(bm, bn)]
@@ -252,8 +343,8 @@ def kernel_spec(M: int, K: int, N: int, *, x_dtype: torch.dtype = torch.float32,
                    ScratchSpec("acc", (bm, bn), "float32", binds="out"))
         smem = (st * bm * _WG_BK * 2 + st * _WG_BK * bn + _WG_BBUF * _WG_BK * bn * 2
                 + 2 * st * 8 + 1024)
-        return KernelSpec("quant_matmul", f"{src}:429", grid, ins, outs, scratch,
-                          path=p.path, smem_bytes=smem, plan=p)
+        return KernelSpec("quant_matmul", src, grid, ins, outs, scratch, path=p.path,
+                          smem_bytes=smem, plan=p)
     grid = (_cdiv(N, p.tile_n), _cdiv(M, p.tile_m), _cdiv(K, _TB_K))
     ins = (BlockOperand("x", (M, K), (p.tile_m, _TB_K), _tiled_x_map, guarded=True),
            BlockOperand("codes", (K, N), (_TB_K, p.tile_n), _tiled_codes_map, guarded=True),
@@ -264,7 +355,7 @@ def kernel_spec(M: int, K: int, N: int, *, x_dtype: torch.dtype = torch.float32,
                ScratchSpec("Bs", (_TB_K, p.tile_n), "float32", space="smem",
                            accumulates=False),
                ScratchSpec("acc", (p.tile_m, p.tile_n), "float32", binds="out"))
-    return KernelSpec("quant_matmul", f"{src}:312", grid, ins, outs, scratch, path=p.path,
+    return KernelSpec("quant_matmul", src, grid, ins, outs, scratch, path=p.path,
                       smem_bytes=4 * _TB_K * (p.tile_m + p.tile_n), plan=p)
 
 
@@ -286,6 +377,9 @@ def quant_matmul_cuda(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
     if scale.numel() != 1 or scale.dtype != torch.float32:
         raise ValueError(f"{NAME}: scale must be one f32 value, got "
                          f"{tuple(scale.shape)} {scale.dtype}")
+    if not (x.is_contiguous() and codes.is_contiguous()):
+        raise ValueError(f"{NAME}: x and codes must be dense row-major (contiguous); got "
+                         f"strides {x.stride()} and {codes.stride()}")
     _build.require_cuda(NAME, x, codes, scale)
     M, K = x.shape
     N = codes.shape[1]

@@ -69,6 +69,22 @@ class TestQuantMatmul:
 
 #: yi-6b's projections (K, N): q/o, k/v, gate/up, down, head.
 _YI6B_KN = [(4096, 4096), (4096, 512), (4096, 11008), (11008, 4096), (4096, 64000)]
+#: their decode plans (tile_m, tile_n, split) at M <= 4 and M 16, bf16 x and
+#: int8 codes, as the cluster path has taken them since its redesign
+_YI6B_CLUSTER_PLANS = {
+    (4, 4096, 4096): (4, 64, 3), (4, 4096, 512): (4, 16, 6), (4, 4096, 11008): (4, 256, 5),
+    (4, 11008, 4096): (4, 64, 3), (4, 4096, 64000): (4, 256, 1),
+    (16, 4096, 4096): (16, 64, 3), (16, 4096, 512): (16, 16, 6),
+    (16, 4096, 11008): (16, 64, 1), (16, 11008, 4096): (16, 64, 3),
+    (16, 4096, 64000): (16, 128, 1)}
+#: int8 code rows TMA cannot address (no multiple of 16 bytes): a jamba
+#: smoke shard's and a mamba2 shard's w_dt, a 300-wide check shape, a mamba2
+#: unembed shard, mamba2's and seamless-m4t's unembeds
+_RAGGED_INT8_N = (2, 12, 300, 12570, 50280, 256206)
+
+
+def _cdiv(a, b):
+    return -(-a // b)
 
 
 class TestQuantMatmulPlan:
@@ -98,7 +114,12 @@ class TestQuantMatmulPlan:
         dict(x_dtype=torch.bfloat16, code_dtype=torch.int16),
         dict(x_dtype=torch.bfloat16, code_dtype=torch.int8, K=4100),
         dict(x_dtype=torch.bfloat16, code_dtype=torch.int8, N=300),
-        dict(x_dtype=torch.bfloat16, code_dtype=torch.int8, aligned=False)])
+        dict(x_dtype=torch.bfloat16, code_dtype=torch.int8, aligned=False),
+        # the shapes that take the ragged path at decode
+        *(dict(x_dtype=torch.bfloat16, code_dtype=torch.int8, K=1536, N=n)
+          for n in _RAGGED_INT8_N),
+        dict(x_dtype=torch.bfloat16, code_dtype=torch.int16, K=1536, N=301),
+        dict(x_dtype=torch.bfloat16, code_dtype=torch.int8, K=1001)])
     def test_other_large_m_takes_tiled(self, case):
         kw = {**dict(M=512, K=4096, N=11008, aligned=True), **case}
         p = tqm.plan(kw["M"], kw["K"], kw["N"], kw["x_dtype"], kw["code_dtype"],
@@ -108,10 +129,99 @@ class TestQuantMatmulPlan:
     @pytest.mark.parametrize("M", [4, 16, 512])
     def test_shapes_tma_cannot_address_take_tiled(self, M):
         # a row of 300 int8 codes is no multiple of 16 bytes; nor is a
-        # misaligned base (TMA's two rules)
-        assert tqm.plan(M, 1000, 300, torch.bfloat16, torch.int8).path == "tiled"
+        # misaligned base (TMA's two rules): ragged at decode, tiled above
+        want = "ragged" if M <= 16 else "tiled"
+        assert tqm.plan(M, 1000, 300, torch.bfloat16, torch.int8).path == want
         assert tqm.plan(M, 4096, 4096, torch.bfloat16, torch.int8,
-                        aligned=False).path == "tiled"
+                        aligned=False).path == want
+
+    @pytest.mark.parametrize("M", [1, 4, 16])
+    @pytest.mark.parametrize("case", [
+        *(dict(N=n) for n in _RAGGED_INT8_N),
+        dict(N=301, code_dtype=torch.int16),           # odd: rows 2 bytes off
+        dict(N=12570, code_dtype=torch.int16),
+        dict(K=1001),                                  # bf16 x rows 2,002 bytes
+        dict(K=1001, x_dtype=torch.float32),
+        dict(N=4096, aligned=False)],                  # a sliced operand's base
+        ids=lambda c: "-".join(f"{k}={str(v).replace('torch.', '')}" for k, v in c.items()))
+    def test_decode_tma_cannot_address_takes_ragged(self, case, M):
+        kw = {**dict(K=1536, N=4096, x_dtype=torch.bfloat16, code_dtype=torch.int8,
+                     aligned=True), **case}
+        K, N = kw["K"], kw["N"]
+        p = tqm.plan(M, K, N, kw["x_dtype"], kw["code_dtype"], aligned=kw["aligned"])
+        maxm = 4 if M <= 4 else 8 if M <= 8 else 16
+        assert p.path == "ragged" and p.tile_m == maxm, p
+        # the launcher's conditions: lanes a power of two up to 32 a tile
+        # (CPL = 64 / MAXM columns each), a cluster of at most 8, a grid's y
+        lanes = p.tile_n // (64 // maxm)
+        assert p.tile_n % (64 // maxm) == 0 and lanes in (1, 2, 4, 8, 16, 32), p
+        assert 1 <= p.split <= tqm.MAX_CLUSTER and _cdiv(N, p.tile_n) <= 65535
+        # every block of the cluster keeps rows (at least 64 where K has them)
+        assert _cdiv(K, p.split) >= min(K, 64) and (p.split - 1) * _cdiv(K, p.split) < K
+        # the least column tile that covers a narrow shape; K split over blocks
+        if N * (2 if kw["code_dtype"] == torch.int16 else 1) <= 16:
+            assert p.tile_n == 64 // maxm and p.split == min(8, K // 64), p
+        assert p.blocks(M, N) >= min(tqm.H100_SMS // 2, _cdiv(N, 64 // maxm) * 8), p
+
+    @pytest.mark.parametrize("M", [1, 4, 16])
+    @pytest.mark.parametrize("kn", _YI6B_KN)
+    def test_yi6b_decode_keeps_its_cluster_plan(self, kn, M):
+        K, N = kn
+        want = _YI6B_CLUSTER_PLANS[(4 if M <= 4 else 16, K, N)]
+        assert tuple(tqm.plan(M, K, N, torch.bfloat16, torch.int8)) == ("cluster", *want)
+        if (M, K, N) == (16, 4096, 512):
+            want = (16, 8, 3)           # int16 rows: the 16-byte row is 8 codes
+        assert tuple(tqm.plan(M, K, N, torch.float32, torch.int16)) == ("cluster", *want)
+
+    def test_kernel_lines_name_each_paths_kernel(self):
+        with open(os.path.join(ROOT, "src", "repro_torch", "csrc", "quant_matmul.cu")) as f:
+            lines = f.read().splitlines()
+        for path, line in tqm.KERNEL_LINES.items():
+            assert lines[line - 1].startswith("__global__"), (path, lines[line - 1])
+            assert lines[line].startswith(f"qmm_{path}("), (path, lines[line])
+        assert set(tqm.KERNEL_LINES) == set(tqm.PATHS)
+
+    def test_cuda_wrapper_refuses_a_strided_operand(self):
+        x = torch.zeros(4, 64)
+        codes = torch.zeros(12, 64, dtype=torch.int8)
+        with pytest.raises(ValueError, match="contiguous"):
+            tqm.quant_matmul_cuda(x, codes.t(), torch.ones(()))
+        with pytest.raises(ValueError, match="contiguous"):
+            tqm.quant_matmul_cuda(torch.zeros(64, 4).t(), codes.t().contiguous(),
+                                  torch.ones(()))
+
+
+class TestQuantMatmulRaggedWidths:
+    """The widths whose code rows TMA cannot address (2, 12, 300, 12,570,
+    50,280 and 256,206 bytes of int8; odd int16 widths; x rows of 1,001 bf16
+    or f32; an x or code base one element off a 16-byte boundary), K cut
+    small, through ``ops.quant_matmul`` (on the CPU the plain version)
+    against the reference's ``ops.quant_matmul``."""
+
+    @pytest.mark.parametrize("case", [
+        *((4, 24, n, np.int8) for n in _RAGGED_INT8_N), (4, 24, 301, np.int16),
+        (1, 1001, 12, np.int8), (16, 24, 301, np.int16), (3, 40, 301, np.int8)],
+        ids=lambda c: f"M{c[0]}-K{c[1]}-N{c[2]}-{c[3].__name__}")
+    @pytest.mark.parametrize("bf16", [False, True])
+    def test_matches_reference(self, case, bf16):
+        M, K, N, code_dtype = case
+        rng = np.random.default_rng(M + K + N)
+        lim = 127 if code_dtype == np.int8 else 2047
+        codes = rng.integers(-lim, lim + 1, size=(K, N)).astype(code_dtype)
+        scale = np.float32(1.0 / np.sqrt(K) / lim)
+        jx, tx = _as_dtype(rng.standard_normal((M, K)).astype(np.float32), bf16)
+        want = np.asarray(jops.quant_matmul(jx, jnp.asarray(codes), jnp.asarray(scale)))
+        # the port's operands one element into flat buffers, as a sliced
+        # activation and a packed leaf's view lie
+        flat_x = torch.zeros(M * K + 1, dtype=tx.dtype)
+        flat_x[1:] = tx.reshape(-1)
+        flat_c = torch.zeros(K * N + 1, dtype=torch.from_numpy(codes).dtype)
+        flat_c[1:] = torch.from_numpy(codes).reshape(-1)
+        x_v, c_v = flat_x[1:].view(M, K), flat_c[1:].view(K, N)
+        got = tops.quant_matmul(x_v, c_v, torch.tensor(scale))
+        assert got.dtype == torch.float32 and got.shape == (M, N)
+        np.testing.assert_allclose(got.numpy(), want, rtol=2e-2 if bf16 else 1e-5,
+                                   atol=1e-2 if bf16 else 1e-5)
 
 
 class TestFlashAttention:
